@@ -1,0 +1,55 @@
+"""psvo_tpu_torch — the PyTorch/CUDA port of `psvo_tpu`.
+
+Module names mirror `psvo_tpu`'s so each counterpart is easy to find. The
+port imports torch and never jax; importing it builds nothing and starts
+no compile cache — the CUDA kernels (`ops/fused_step.py`, sources in
+`csrc/`) are compiled on first use on a machine with a GPU.
+
+Ported so far: the forward FIVO/IWAE filter of the FHN diagonal-Gaussian
+model class, its evaluation and the filtering-posterior API, with the whole
+forward scan of the kernel class in one hand-written CUDA kernel.
+"""
+
+__version__ = "0.1.0"
+
+from psvo_tpu_torch import distributions, networks
+from psvo_tpu_torch.config import (
+    PRESETS,
+    Config,
+    DataConfig,
+    MeshConfig,
+    NetConfig,
+    SMCConfig,
+    TrainConfig,
+    preset,
+)
+from psvo_tpu_torch.data import Dataset, generate_dataset, load_dataset, save_dataset
+from psvo_tpu_torch.infer import filter_posterior
+from psvo_tpu_torch.models.ssm import SSM, init_ssm
+from psvo_tpu_torch.objectives import make_objective
+from psvo_tpu_torch.smc import FilterResult, forward_filter
+from psvo_tpu_torch.train import make_eval_step
+
+__all__ = [
+    "Config",
+    "DataConfig",
+    "Dataset",
+    "FilterResult",
+    "MeshConfig",
+    "NetConfig",
+    "PRESETS",
+    "SMCConfig",
+    "SSM",
+    "TrainConfig",
+    "distributions",
+    "filter_posterior",
+    "forward_filter",
+    "generate_dataset",
+    "init_ssm",
+    "load_dataset",
+    "make_eval_step",
+    "make_objective",
+    "networks",
+    "preset",
+    "save_dataset",
+]

@@ -1,0 +1,105 @@
+"""Synthetic datasets (counterpart of `psvo_tpu/data.py`, the FHN path).
+
+Simulate `n_train + n_test` trajectories of the true FHN model with process
+noise, observed through a linear Gaussian emission. The draws come from a
+seeded `torch.Generator`, so a port dataset differs from a reference one of
+the same seed; `simulate_from_noise` takes the noise explicitly so the two
+simulators can be compared on the same draws. `save_dataset`/`load_dataset`
+use the reference's npz format, so both packages read one file.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from psvo_tpu_torch.config import DataConfig
+from psvo_tpu_torch.models import dynamics as dyn
+
+
+@dataclass
+class Dataset:
+    obs_train: torch.Tensor  # [n_train, T, Dy]
+    obs_test: torch.Tensor  # [n_test, T, Dy]
+    hidden_train: torch.Tensor  # [n_train, T, Dx]
+    hidden_test: torch.Tensor  # [n_test, T, Dx]
+    emission_matrix: torch.Tensor  # [Dx, Dy]
+    controls_train: torch.Tensor | None = None  # [n_train, T, Di]
+    controls_test: torch.Tensor | None = None
+    control_matrix: torch.Tensor | None = None  # [Di, Dx]
+
+
+def emission_map(cfg: DataConfig, generator: torch.Generator):
+    """Fixed [Dx, Dy] observation matrix: identity when square (or
+    identity_gaussian), else a random projection from the dataset seed."""
+    if cfg.emission == "identity_gaussian" or cfg.dx == cfg.dy:
+        return torch.eye(cfg.dx, cfg.dy)
+    return torch.randn((cfg.dx, cfg.dy), generator=generator) / math.sqrt(cfg.dx)
+
+
+def simulate_from_noise(cfg: DataConfig, c_emit, x0_noise, proc_noise, obs_noise):
+    """Deterministic simulator: x0 noise [n, Dx], process noise [T, n, Dx],
+    observation noise [T, n, Dy] -> (hidden [n, T, Dx], obs [n, T, Dy])."""
+    stepper = dyn.make_stepper(cfg)
+    x = cfg.x0_scale * x0_noise
+    xs, ys = [], []
+    for t in range(cfg.t_steps):
+        x = stepper.step(x) + cfg.proc_scale * proc_noise[t]
+        xs.append(x)
+        ys.append(x @ c_emit + cfg.obs_scale * obs_noise[t])
+    return torch.stack(xs, dim=1), torch.stack(ys, dim=1)
+
+
+def generate_dataset(cfg: DataConfig, seed: int) -> Dataset:
+    if cfg.di or cfg.emission not in ("linear_gaussian", "identity_gaussian"):
+        raise NotImplementedError(
+            "only uncontrolled Gaussian-emission datasets are ported"
+        )
+    gen = torch.Generator().manual_seed(seed)
+    n = cfg.n_train + cfg.n_test
+    c_emit = emission_map(cfg, gen)
+    x0_noise = torch.randn((n, cfg.dx), generator=gen)
+    proc = torch.randn((cfg.t_steps, n, cfg.dx), generator=gen)
+    obs_noise = torch.randn((cfg.t_steps, n, cfg.dy), generator=gen)
+    hidden, obs = simulate_from_noise(cfg, c_emit, x0_noise, proc, obs_noise)
+    if not bool(torch.isfinite(hidden).all()):
+        raise ValueError(
+            f"simulated {cfg.datatype} trajectories diverged (non-finite states); "
+            "reduce proc_scale or the integrator dt"
+        )
+    return Dataset(
+        obs_train=obs[: cfg.n_train],
+        obs_test=obs[cfg.n_train :],
+        hidden_train=hidden[: cfg.n_train],
+        hidden_test=hidden[cfg.n_train :],
+        emission_matrix=c_emit,
+    )
+
+
+_FIELDS = (
+    "obs_train",
+    "obs_test",
+    "hidden_train",
+    "hidden_test",
+    "emission_matrix",
+    "controls_train",
+    "controls_test",
+    "control_matrix",
+)
+
+
+def save_dataset(ds: Dataset, path) -> None:
+    arrays = {
+        f: getattr(ds, f).detach().cpu().numpy()
+        for f in _FIELDS
+        if getattr(ds, f) is not None
+    }
+    np.savez_compressed(path, **arrays)
+
+
+def load_dataset(path) -> Dataset:
+    with np.load(path) as z:
+        return Dataset(**{f: torch.from_numpy(z[f]) for f in _FIELDS if f in z.files})

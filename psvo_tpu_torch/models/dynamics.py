@@ -1,0 +1,65 @@
+"""Ground-truth dynamics (counterpart of `psvo_tpu/models/dynamics.py`).
+
+The FitzHugh–Nagumo stepper that simulates the FHN datasets. Steppers act
+on an arbitrary state axis (default last) and vectorize over every other
+axis. Lorenz-63, Lorenz-96 and the linear oracle dynamics wait for the
+slices that need them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+Drift = Callable[[torch.Tensor], torch.Tensor]
+
+
+def euler_step(drift: Drift, x, dt: float):
+    return x + dt * drift(x)
+
+
+def rk4_step(drift: Drift, x, dt: float):
+    k1 = drift(x)
+    k2 = drift(x + 0.5 * dt * k1)
+    k3 = drift(x + 0.5 * dt * k2)
+    k4 = drift(x + dt * k3)
+    return x + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+
+_STEPPERS = {"euler": euler_step, "rk4": rk4_step}
+
+
+@dataclass(frozen=True)
+class FitzHughNagumo:
+    """2-D neuron model: dv = v - v^3/3 - w + I ; dw = (v + a - b w) / tau."""
+
+    a: float = 0.7
+    b: float = 0.8
+    tau: float = 12.5
+    current: float = 1.0
+    dt: float = 0.25
+    integrator: str = "rk4"
+    dim = 2
+
+    def drift(self, x, axis: int = -1):
+        v, w = x.select(axis, 0), x.select(axis, 1)
+        dv = v - (v**3) / 3.0 - w + self.current
+        dw = (v + self.a - self.b * w) / self.tau
+        return torch.stack([dv, dw], dim=axis)
+
+    def step(self, x, axis: int = -1):
+        return _STEPPERS[self.integrator](lambda z: self.drift(z, axis), x, self.dt)
+
+
+DYNAMICS = {"fhn": FitzHughNagumo}
+
+
+def make_stepper(data_cfg):
+    """Ground-truth stepper for a DataConfig."""
+    if data_cfg.datatype not in DYNAMICS:
+        raise NotImplementedError(
+            f"datatype={data_cfg.datatype!r}: only 'fhn' dynamics are ported"
+        )
+    return DYNAMICS[data_cfg.datatype](**dict(data_cfg.dyn_overrides))

@@ -1,0 +1,1 @@
+"""Resampling and the hand-written CUDA kernels with their plain versions."""

@@ -1,0 +1,459 @@
+"""Whole-scan forward filter kernel and its plain versions (counterpart of
+`psvo_tpu/ops/pallas_step.py`).
+
+Three hand-written CUDA kernels (`psvo_tpu_torch/csrc/`, built by
+`ops/_build.py`), each behind a wrapper that launches it for CUDA tensors and
+runs its plain PyTorch version for CPU tensors — never the plain version on
+the card:
+
+- K1 `scan_forward` (replaces `pallas_step._scan_fwd`, the forward whole-scan
+  megakernel): resample → q1/f trunks → fused draw → g trunk → α → ℓ and the
+  filtered mean, for all T−1 steps in one launch. Plain version:
+  `scan_forward_reference`, a loop over t.
+- K2 `stream_noise` (replaces `pallas_step.generate_stream_noise`): the exact
+  ε / u0 streams K1 draws in its in-kernel RNG mode. Plain version:
+  `stream_noise_reference`, Philox4x32-10 in int64 torch arithmetic.
+- K3 `ancestor_indices` (replaces `pallas_resample._two_level_indices` as the
+  megakernel inlines it): systematic ancestors through K1's own index code.
+  Plain version: `ancestor_indices_reference`.
+
+Each wrapper carries a launch count (`<wrapper>.launches`), raised only where
+the kernel is launched; each plain version a call count (`.calls`).
+
+Index semantics (K1, K3 and their plain versions): the count form
+a_i = #{j : C_j <= pos_i·C_{K−1}}, clipped to K−1, on the inclusive CDF of
+exp(logw − max) accumulated in float64. The reference's plain filter body
+(`smc._make_step_body`, via `resampling.maybe_resample`) uses the histogram
+form ceil(K·C_j − u0) in float32 instead; the two can differ by one index at
+a boundary.
+
+α here is the fused form of the TPU kernel, −½Σ(z_f² − ε² + z_g²) + ab with
+every K-independent constant in ab, floored at −3e30; the plain body floors
+each density at `_MIN_LOGP` = −1e30. They differ only on diverged particles.
+
+Not ported: the ones-channel bias folding and the PD = 8 / HA = H+8 padding
+of `aug_net`/`pack_sm`, which existed for the TPU's matrix unit and Mosaic;
+`prepare` hands the kernel plain weights and biases. Forward only: the
+backward kernel (`_scan_bwd`) comes with the train step.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from psvo_tpu_torch.ops import _build
+from psvo_tpu_torch.ops.resampling import gather_particles
+
+MAX_K = 4096  # shared memory: fp64 CDF + 2x particles + log-weights + weights
+HIDDEN_WIDTHS = (16, 32, 64)  # trunk widths the kernel is instantiated for
+KERNEL_DIMS = ((2, 2),)  # (Dx, Dy) instantiated
+_THREADS = 256
+
+
+def usable(ssm, cfg) -> bool:
+    """Whether (ssm, smc-config) is in the kernel's class."""
+    k = cfg.n_particles
+    hidden = ssm.nets["q1"].hidden
+    nets = [ssm.nets[n] for n in ("q1", "f", "g")]
+    return (
+        cfg.resampling == "systematic"
+        and cfg.ess_threshold >= 1.0
+        and cfg.use_stop_gradient
+        and (ssm.dx, ssm.dy) in KERNEL_DIMS
+        and _k_ok(k)
+        and len(hidden) >= 1
+        and hidden[0] in HIDDEN_WIDTHS
+        and all(h == hidden[0] for h in hidden)
+        and all(nc.hidden == hidden and nc.activation == "relu" for nc in nets)
+    )
+
+
+def _k_ok(k: int) -> bool:
+    # block scan: K <= threads, or whole chunks of K / threads per thread
+    return k % 32 == 0 and 32 <= k <= MAX_K and (k <= _THREADS or k % _THREADS == 0)
+
+
+# ---------------------------------------------------------------------------
+# Glue outside the kernel
+# ---------------------------------------------------------------------------
+
+
+def prepare(ssm) -> dict:
+    """Per-call constants of K1: the q1/f/g weights and biases packed into one
+    float32 buffer, the inverse f/g scales and the log-scale sums.
+
+    Buffer layout, per net (q1, f, g), each segment padded to a multiple of
+    4 floats: W1 [Din, H], b1 [H], then per middle layer Wm [H, H], bm [H],
+    then W3 [H, Dout], b3 [Dout] — weights as the reference stores them
+    (x @ W + b). `scan_forward_reference` reads the weights back out of this
+    buffer, so the layout the kernel reads is the one the CPU tests check.
+    """
+    hidden = ssm.nets["q1"].hidden
+    segs, offsets, off = [], [], 0
+    for name in ("q1", "f", "g"):
+        head = ssm.heads[name]
+        parts = [t.reshape(-1) for w, b in head.layers() for t in (w, b)]
+        parts += [head.mean_w.reshape(-1), head.mean_b]
+        flat = torch.cat(parts)
+        pad = (-flat.numel()) % 4
+        segs.append(torch.nn.functional.pad(flat, (0, pad)))
+        offsets.append(off)
+        off += flat.numel() + pad
+    s_f, s_g = ssm.scale("f"), ssm.scale("g")
+    return {
+        "packed": torch.cat(segs).contiguous(),
+        "offsets": tuple(offsets),
+        "hidden": hidden[0],
+        "n_mid": len(hidden) - 1,
+        "dx": ssm.dx,
+        "dy": ssm.dy,
+        "sconst": torch.cat([1.0 / s_f, 1.0 / s_g]).contiguous(),
+        "s_q1": ssm.scale("q1"),
+        "log_sf_sum": torch.sum(torch.log(s_f)),
+        "log_sg_sum": torch.sum(torch.log(s_g)),
+    }
+
+
+def fusion_coeffs(ssm, cfg, consts, enc_tm):
+    """Per-step proposal-fusion coefficients, all K-independent:
+    mean_q = cq·m1 + aq, scale_q = sq, with use_2q the precision-weighted
+    product of q1's constant scale and the q2 encoder head evaluated for all
+    T at once. Returns (aq, cq, sq) [T, B, Dx] and logsq_sum [T, B]."""
+    t_steps, batch = enc_tm.shape[0], enc_tm.shape[1]
+    shape = (t_steps, batch, ssm.dx)
+    s1 = consts["s_q1"]
+    if cfg.use_2q:
+        m2, s2 = ssm.q2_mean_scale(enc_tm)
+        prec1 = 1.0 / (s1 * s1)
+        prec2 = 1.0 / (s2 * s2)
+        var = 1.0 / (prec1 + prec2)
+        aq = var * m2 * prec2
+        cq = (var * prec1).expand(shape)
+        sq = torch.sqrt(var).expand(shape)
+    else:
+        aq = torch.zeros(shape, device=enc_tm.device)
+        cq = torch.ones(shape, device=enc_tm.device)
+        sq = s1.expand(shape)
+    return aq, cq, sq, torch.sum(torch.log(sq), dim=-1)
+
+
+def pack_coef(aq, cq, sq, y, ab):
+    """Per-step small operands of K1 as one [T−1, B, 3·Dx + Dy + 1] tensor:
+    aq, cq, sq, y, then the K-independent α bias ab."""
+    return torch.cat([aq, cq, sq, y, ab[..., None]], dim=-1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# K2: counter-based noise (csrc/philox.cuh)
+# ---------------------------------------------------------------------------
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_MASK = 0xFFFFFFFF
+
+
+def _mulhilo(a: int, b):
+    """(hi, lo) 32-bit halves of a·b for a constant a < 2³² and an int64
+    tensor b < 2³², without overflowing int64: b is split into 16-bit halves."""
+    p_lo = a * (b & 0xFFFF)  # < 2^48
+    p_hi = a * (b >> 16)  # < 2^48
+    s = p_lo + ((p_hi & 0xFFFF) << 16)  # < 2^49
+    return (p_hi >> 16) + (s >> 32), s & _MASK
+
+
+def philox4x32_reference(ctr, key):
+    """Philox4x32-10 (Random123) on int64 tensors holding uint32 values.
+    ctr: 4 broadcastable tensors; key: 2 ints. Returns 4 tensors."""
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _W0) & _MASK, (k1 + _W1) & _MASK
+    return c0, c1, c2, c3
+
+
+def _unit24(bits):
+    return (bits >> 8).to(torch.float32) * (2.0**-24)
+
+
+def stream_noise_reference(seed, t_len: int, batch: int, dx: int, k: int, device="cpu"):
+    """Plain version of K2: eps [t_len, B, dx, K], u0 [t_len, B] with the
+    counter layout of csrc/philox.cuh."""
+    stream_noise_reference.calls += 1
+    i64 = dict(dtype=torch.int64, device=device)
+    t = torch.arange(t_len, **i64)[:, None, None]
+    row = torch.arange(batch, **i64)[None, :, None]
+    pair = torch.arange(k // 2, **i64)[None, None, :]
+    zero = torch.zeros((), **i64)
+    u0 = _unit24(philox4x32_reference((zero, t[..., 0], row[..., 0], zero), seed)[0])
+    rows = []
+    for j in range((dx + 1) // 2):
+        words = philox4x32_reference((pair, t, row, zero + 1 + j), seed)
+        for m in range(2):
+            if 2 * j + m == dx:
+                break
+            u1 = 1.0 - _unit24(words[2 * m])
+            u2 = _unit24(words[2 * m + 1])
+            rad = torch.sqrt(-2.0 * torch.log(u1))
+            ang = 6.283185307179586 * u2
+            rows.append(torch.cat([rad * torch.cos(ang), rad * torch.sin(ang)], dim=-1))
+    return torch.stack(rows, dim=2).contiguous(), u0.contiguous()
+
+
+stream_noise_reference.calls = 0
+
+
+def stream_noise(seed, t_len: int, batch: int, dx: int, k: int, device):
+    """K2: the in-kernel-RNG streams of K1 for `seed` (two uint32 words)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return stream_noise_reference(seed, t_len, batch, dx, k, device)
+    if device.type != "cuda":
+        raise ValueError(f"stream_noise: unsupported device {device}")
+    if dx not in (1, 2, 3) or k % 2:
+        raise ValueError(f"stream_noise: dx={dx} (1..3) and even K={k} required")
+    lib = _build.load_library()
+    eps = torch.empty((t_len, batch, dx, k), dtype=torch.float32, device=device)
+    u0 = torch.empty((t_len, batch), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.psvo_stream_noise(
+        eps.data_ptr(), u0.data_ptr(), seed[0], seed[1], t_len, batch, dx, k, stream
+    )
+    stream_noise.launches += 1
+    _build.check(lib, err, "stream_noise")
+    return eps, u0
+
+
+stream_noise.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: ancestor indices (csrc/resample.cuh)
+# ---------------------------------------------------------------------------
+
+
+def systematic_positions(u0, k: int):
+    """[..., K] positions (i + u0)/K from offsets u0 [...], float32."""
+    i = torch.arange(k, dtype=torch.float32, device=u0.device)
+    return (i + u0[..., None]) / k
+
+
+def count_form_indices(logw, positions):
+    """a_i = #{j : C_j <= pos_i·C_{K−1}}, clipped to K−1, with C the fp64
+    inclusive CDF of exp(logw − max): K1's and K3's index semantics.
+    logw [N, K], positions [N, K] -> int32 [N, K]."""
+    m = torch.amax(logw, dim=-1, keepdim=True)
+    cdf = torch.cumsum(torch.exp(logw - m).to(torch.float64), dim=-1)
+    target = positions.to(torch.float64) * cdf[:, -1:]
+    idx = torch.searchsorted(cdf, target.contiguous(), right=True)
+    return torch.clamp(idx, max=logw.shape[-1] - 1).to(torch.int32)
+
+
+def ancestor_indices_reference(logw, u0):
+    """Plain version of K3: systematic ancestors (count form, fp64 CDF)."""
+    ancestor_indices_reference.calls += 1
+    return count_form_indices(logw, systematic_positions(u0, logw.shape[-1]))
+
+
+ancestor_indices_reference.calls = 0
+
+
+def ancestor_indices(logw, u0):
+    """K3: logw [B, K] f32, u0 [B] f32 -> ancestor indices int32 [B, K]."""
+    if logw.device.type == "cpu":
+        return ancestor_indices_reference(logw, u0)
+    if logw.device.type != "cuda":
+        raise ValueError(f"ancestor_indices: unsupported device {logw.device}")
+    batch, k = logw.shape
+    _require(logw, (batch, k), "logw", logw.device)
+    _require(u0, (batch,), "u0", logw.device)
+    if not _k_ok(k):
+        raise ValueError(f"ancestor_indices: unsupported K={k}")
+    lib = _build.load_library()
+    idx = torch.empty((batch, k), dtype=torch.int32, device=logw.device)
+    stream = torch.cuda.current_stream(logw.device).cuda_stream
+    err = lib.psvo_ancestor_indices(
+        logw.data_ptr(), u0.data_ptr(), idx.data_ptr(), batch, k, stream
+    )
+    ancestor_indices.launches += 1
+    _build.check(lib, err, "ancestor_indices")
+    return idx
+
+
+ancestor_indices.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1: the whole forward scan
+# ---------------------------------------------------------------------------
+
+
+def _unpack_net(packed, offset: int, din: int, h: int, n_mid: int, dout: int):
+    """One net's (layers, (W3, b3)) read out of prepare()'s buffer."""
+    pos = offset
+
+    def take(*shape):
+        nonlocal pos
+        n = math.prod(shape)
+        t = packed[pos : pos + n].view(*shape)
+        pos += n
+        return t
+
+    layers = [(take(din, h), take(h))]
+    layers += [(take(h, h), take(h)) for _ in range(n_mid)]
+    return layers, (take(h, dout), take(dout))
+
+
+def _trunk_cm(net, x):
+    """relu MLP mean on channel-major x [B, Din, K] -> [B, Dout, K]."""
+    layers, (w3, b3) = net
+    h = x
+    for w, b in layers:
+        h = torch.relu(torch.einsum("de,bdk->bek", w, h) + b[:, None])
+    return torch.einsum("de,bdk->bek", w3, h) + b3[:, None]
+
+
+def scan_forward_reference(x0, alpha0, coef, consts, eps, positions, cache: bool = False):
+    """Plain version of K1: the same step math as a loop over t (stream mode).
+
+    x0 [B, Dx, K], alpha0 [B, K], coef [T−1, B, 3·Dx + Dy + 1] (pack_coef),
+    eps [T−1, B, Dx, K], positions [T−1, B, K]. Returns (x_last, alpha_last,
+    stats [T−1, B, 2 + Dx] = (ℓ, ESS, filtered mean), x_all, alpha_all);
+    the last two are None unless `cache`.
+    """
+    scan_forward_reference.calls += 1
+    dx, dy, h, n_mid = consts["dx"], consts["dy"], consts["hidden"], consts["n_mid"]
+    k = x0.shape[-1]
+    packed = consts["packed"]
+    off_q1, off_f, off_g = consts["offsets"]
+    q1 = _unpack_net(packed, off_q1, dx, h, n_mid, dx)
+    f = _unpack_net(packed, off_f, dx, h, n_mid, dx)
+    g = _unpack_net(packed, off_g, dx, h, n_mid, dy)
+    sfi = consts["sconst"][:dx, None]
+    sgi = consts["sconst"][dx:, None]
+    log_k = math.log(k)
+
+    x, lw = x0, alpha0
+    stats, xs, alphas = [], [], []
+    for t in range(coef.shape[0]):
+        c = coef[t]
+        aq, cq, sq = (c[:, i * dx : (i + 1) * dx, None] for i in range(3))
+        y = c[:, 3 * dx : 3 * dx + dy, None]
+        ab = c[:, -1:]
+        # ESS of the incoming weights, then resample
+        w = torch.exp(lw - torch.amax(lw, dim=-1, keepdim=True))
+        ess = torch.sum(w, -1) ** 2 / torch.clamp(torch.sum(w * w, -1), min=1e-30)
+        x_res = gather_particles(x, count_form_indices(lw, positions[t]))
+        # propose and weight
+        m1, m_f = _trunk_cm(q1, x_res), _trunk_cm(f, x_res)
+        e = eps[t]
+        x_new = cq * m1 + aq + sq * e
+        z_f = (x_new - m_f) * sfi
+        z_g = (y - _trunk_cm(g, x_new)) * sgi
+        alpha = -0.5 * (torch.sum(z_f * z_f - e * e, 1) + torch.sum(z_g * z_g, 1)) + ab
+        alpha = torch.clamp(alpha, min=-3e30)
+        # logZ increment and filtered mean
+        amax = torch.amax(alpha, dim=-1, keepdim=True)
+        w_new = torch.exp(alpha - amax)
+        sw = torch.sum(w_new, dim=-1, keepdim=True)
+        ell = torch.log(sw) + amax - log_k
+        fm = torch.einsum("bk,bdk->bd", w_new, x_new) / sw
+        stats.append(torch.cat([ell, ess[:, None], fm], dim=-1))
+        if cache:
+            xs.append(x_new)
+            alphas.append(alpha)
+        x, lw = x_new, alpha
+    x_all = torch.stack(xs) if cache else None
+    alpha_all = torch.stack(alphas) if cache else None
+    return x, lw, torch.stack(stats), x_all, alpha_all
+
+
+scan_forward_reference.calls = 0
+
+
+def _require(t, shape, name, device):
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def scan_forward(x0, alpha0, coef, consts, *, eps=None, positions=None, seed=None,
+                 cache: bool = False):
+    """K1: the forward filter's steps t = 1..T−1 in one launch.
+
+    Noise either as streams (eps [T−1, B, Dx, K] and sorted positions
+    [T−1, B, K]) or drawn in the kernel from `seed` (two uint32 words;
+    systematic positions from per-step offsets, K2's streams). Outputs as
+    `scan_forward_reference`. CPU tensors run the plain version (in-kernel
+    RNG replayed through K2's plain version); CUDA tensors launch the kernel.
+    """
+    if (seed is None) == (eps is None or positions is None):
+        raise ValueError("scan_forward: pass either (eps, positions) or seed")
+    t_len, batch = coef.shape[0], coef.shape[1]
+    dx, dy, k = consts["dx"], consts["dy"], x0.shape[-1]
+    if x0.device.type == "cpu":
+        if seed is not None:
+            eps, u0 = stream_noise_reference(seed, t_len, batch, dx, k, x0.device)
+            positions = systematic_positions(u0, k)
+        return scan_forward_reference(x0, alpha0, coef, consts, eps, positions, cache)
+    if x0.device.type != "cuda":
+        raise ValueError(f"scan_forward: unsupported device {x0.device}")
+
+    dev = x0.device
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x0, alpha0, coef, consts["packed"], consts["sconst"])
+    ):
+        raise RuntimeError(
+            "scan_forward has no backward kernel yet: call it under torch.no_grad()"
+        )
+    h, n_mid = consts["hidden"], consts["n_mid"]
+    if (dx, dy) not in KERNEL_DIMS or h not in HIDDEN_WIDTHS or not _k_ok(k):
+        raise ValueError(
+            f"scan_forward: no kernel for Dx={dx}, Dy={dy}, hidden={h}, K={k}"
+        )
+    _require(x0, (batch, dx, k), "x0", dev)
+    _require(alpha0, (batch, k), "alpha0", dev)
+    _require(coef, (t_len, batch, 3 * dx + dy + 1), "coef", dev)
+    _require(consts["packed"], consts["packed"].shape, "weights", dev)
+    _require(consts["sconst"], (dx + dy,), "sconst", dev)
+    if seed is None:
+        _require(eps, (t_len, batch, dx, k), "eps", dev)
+        _require(positions, (t_len, batch, k), "positions", dev)
+    x_last = torch.empty((batch, dx, k), dtype=torch.float32, device=dev)
+    alpha_last = torch.empty((batch, k), dtype=torch.float32, device=dev)
+    stats = torch.empty((t_len, batch, 2 + dx), dtype=torch.float32, device=dev)
+    x_all = alpha_all = None
+    if cache:
+        x_all = torch.empty((t_len, batch, dx, k), dtype=torch.float32, device=dev)
+        alpha_all = torch.empty((t_len, batch, k), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    seed0, seed1 = (0, 0) if seed is None else seed
+    lib = _build.load_library()
+    _, off_f, off_g = consts["offsets"]  # q1 sits at offset 0
+    err = lib.psvo_scan_forward(
+        x0.data_ptr(), alpha0.data_ptr(), coef.data_ptr(), ptr(eps), ptr(positions),
+        consts["packed"].data_ptr(), consts["sconst"].data_ptr(),
+        x_last.data_ptr(), alpha_last.data_ptr(), stats.data_ptr(),
+        ptr(x_all), ptr(alpha_all),
+        seed0, seed1, int(seed is not None), batch, k, t_len, dx, dy, h, n_mid,
+        consts["packed"].numel(), off_f, off_g,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    scan_forward.launches += 1
+    _build.check(lib, err, "scan_forward")
+    return x_last, alpha_last, stats, x_all, alpha_all
+
+
+scan_forward.launches = 0

@@ -1,0 +1,265 @@
+"""Forward particle filter (counterpart of `psvo_tpu/smc.py`, forward only).
+
+Per step: resample ancestors, propose K particles from the fused proposal,
+add the incremental log-weight log f + log g − log q, and accumulate
+logZ += lse(logw + α) − lse(logw); with resampling at every step each term is
+the FIVO increment lse(α) − log K.
+
+Two paths, chosen from what the call can observe:
+
+- the kernel class (`ops.fused_step.usable`: FHN-shaped diagonal models,
+  systematic resampling at every step) runs `_forward_filter_fused`, whose
+  steps t = 1..T−1 are one call of `fused_step.scan_forward` — the CUDA
+  kernel K1 for CUDA tensors, its plain version for CPU tensors;
+- everything else runs the plain step body in a Python loop over t, on CPU
+  tensors only: a CUDA tensor outside the kernel class raises
+  NotImplementedError rather than run plain PyTorch on the card.
+
+Public shapes follow the reference: particles are channel-major
+[B, Dx, K], `FilterResult.xs` is [T, B, Dx, K] and `filtered_means`
+[T, B, Dx]. Forward only — there is no gradient path yet (the score-function
+surrogate of the full FIVO gradient waits with the train step).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from psvo_tpu_torch.config import SMCConfig
+from psvo_tpu_torch.distributions import effective_sample_size, mvn_diag_log_prob_cm
+from psvo_tpu_torch.models.ssm import SSM
+from psvo_tpu_torch.ops import fused_step, resampling
+
+
+def _lse(logw):
+    return torch.logsumexp(logw, dim=-1)
+
+
+@dataclass
+class FilterResult:
+    """Everything downstream objectives need from one forward pass."""
+
+    log_z: torch.Tensor  # [B]
+    increments: torch.Tensor  # [T, B] per-step logZ increments ℓ_t
+    ess: torch.Tensor  # [T, B] effective sample size before resampling
+    x_last: torch.Tensor  # [B, Dx, K]
+    logw_last: torch.Tensor  # [B, K]
+    xs: Optional[torch.Tensor] = None  # [T, B, Dx, K] (cache only)
+    logws: Optional[torch.Tensor] = None  # [T, B, K] (cache only)
+    filtered_means: Optional[torch.Tensor] = None  # [T, B, Dx]
+
+
+def _init_t0(ssm: SSM, eps0, y0, enc0):
+    """t=0: x0 = mean0 + scale0·eps0 ~ q0(·|y0), weighted against the prior:
+    α0 = log p(x0) + log g(y0|x0) − log q0(x0)."""
+    mean0, scale0 = ssm.propose_initial(enc0)  # [B, Dx]
+    x0 = mean0[:, :, None] + scale0[:, :, None] * eps0  # [B, Dx, K]
+    alpha0 = (
+        ssm.prior_log_prob_cm(x0)
+        + ssm.emission_log_prob_cm(x0, y0)
+        - mvn_diag_log_prob_cm(x0, mean0[:, :, None], scale0[:, :, None])
+    )
+    return x0, alpha0
+
+
+def _q2_tm(ssm: SSM, cfg: SMCConfig, enc_tm):
+    """The encoder proposal q2 for all T in one batched call, or None."""
+    if cfg.use_2q:
+        return ssm.q2_mean_scale(enc_tm)  # 2x [T, B, Dx]
+    return None
+
+
+def _make_step_body(ssm: SSM, cfg: SMCConfig):
+    """One plain filtering step t: (maybe) resample -> propose -> weight.
+
+    body((x, logw), (y_t, q2_t, eps_t, u_t)) -> ((x_new, logw_new),
+    (ell, ess, fmean)); q2_t is the step's precomputed q2 (mean, scale) or None.
+    """
+    resample_on = cfg.resampling != "none"
+
+    def body(carry, inputs):
+        x, logw = carry
+        y_t, q2_t, eps_t, u_t = inputs
+        if resample_on:
+            x, logw, _, ess, _ = resampling.maybe_resample(
+                u_t, logw, x, method=cfg.resampling, ess_threshold=cfg.ess_threshold
+            )
+        else:
+            ess = effective_sample_size(logw, dim=-1)
+        mean_q, scale_q, mean_f, scale_f = ssm.step_heads_cm(x, y_t, q2_t)
+        x_new = mean_q + scale_q * eps_t  # [B, Dx, K]
+        alpha = (
+            mvn_diag_log_prob_cm(x_new, mean_f, scale_f)
+            + ssm.emission_log_prob_cm(x_new, y_t)
+            - mvn_diag_log_prob_cm(x_new, mean_q, scale_q)
+        )
+        logw_new = logw + alpha
+        ell = _lse(logw_new) - _lse(logw)
+        fmean = torch.einsum("bk,bdk->bd", torch.softmax(logw_new, dim=-1), x_new)
+        return (x_new, logw_new), (ell, ess, fmean)
+
+    return body
+
+
+def _draw_noise(generator, cfg: SMCConfig, t_steps: int, batch: int, dx: int):
+    """(eps0 [B, Dx, K], eps_scan [T−1, B, Dx, K], u_scan [T−1, B, K]) from
+    the run's generator, in that order."""
+    k, dev = cfg.n_particles, generator.device
+    eps0 = torch.randn((batch, dx, k), generator=generator, device=dev)
+    eps_scan = torch.randn((t_steps - 1, batch, dx, k), generator=generator, device=dev)
+    if cfg.resampling != "none":
+        u_scan = resampling.bulk_positions(generator, t_steps - 1, batch, k, cfg.resampling)
+    else:
+        u_scan = torch.zeros((t_steps - 1, batch, 1), device=dev)
+    return eps0, eps_scan, u_scan
+
+
+def _forward_filter_fused(
+    ssm: SSM,
+    generator: Optional[torch.Generator],
+    ys,
+    cfg: SMCConfig,
+    *,
+    cache: bool,
+    encoder_inputs=None,
+    streams: Optional[tuple] = None,
+) -> FilterResult:
+    """The kernel path: t = 0 and the fusion coefficients in plain tensor code,
+    then steps 1..T−1 as one `fused_step.scan_forward` call.
+
+    Noise: `streams` = (eps0, eps_scan, u_scan) replays given draws (u_scan
+    the sorted positions); otherwise eps0 comes from `generator` and, with
+    cfg.kernel_rng, the kernel draws the rest itself from a two-word seed
+    taken from the generator, else the streams are drawn too.
+    """
+    batch, t_steps, _ = ys.shape
+    k, dx, dy = cfg.n_particles, ssm.dx, ssm.dy
+    ys_tm = ys.transpose(0, 1)  # [T, B, Dy]
+    enc_tm = encoder_inputs.transpose(0, 1) if encoder_inputs is not None else ys_tm
+
+    consts = fused_step.prepare(ssm)
+    aq, cq, sq, logsq_sum = fused_step.fusion_coeffs(ssm, cfg, consts, enc_tm)
+
+    seed = eps_scan = u_scan = None
+    if streams is not None:
+        eps0, eps_scan, u_scan = streams
+    elif cfg.kernel_rng:
+        dev = generator.device
+        eps0 = torch.randn((batch, dx, k), generator=generator, device=dev)
+        seed = tuple(
+            int(v) for v in torch.randint(0, 2**32, (2,), generator=generator, device=dev)
+        )
+    else:
+        eps0, eps_scan, u_scan = _draw_noise(generator, cfg, t_steps, batch, dx)
+
+    x0, alpha0 = _init_t0(ssm, eps0, ys_tm[0], enc_tm[0])
+    ell0 = _lse(alpha0) - math.log(k)
+    # α's K-independent part: −log q's log-scale sum, log f's and log g's,
+    # and g's Gaussian constant (f's and q's cancel)
+    ab = (
+        logsq_sum[1:]
+        - consts["log_sf_sum"]
+        - consts["log_sg_sum"]
+        - dy * 0.5 * math.log(2.0 * math.pi)
+    )
+    coef = fused_step.pack_coef(aq[1:], cq[1:], sq[1:], ys_tm[1:], ab)
+    x_last, logw_last, stats, x_all, alpha_all = fused_step.scan_forward(
+        x0.contiguous(), alpha0.contiguous(), coef, consts,
+        eps=eps_scan, positions=u_scan, seed=seed, cache=cache,
+    )
+
+    increments = torch.cat([ell0[None], stats[:, :, 0]], dim=0)
+    ess = torch.cat([effective_sample_size(alpha0)[None], stats[:, :, 1]], dim=0)
+    fmean0 = torch.einsum("bk,bdk->bd", torch.softmax(alpha0, dim=-1), x0)
+    xs = logws = None
+    if cache:
+        xs = torch.cat([x0[None], x_all], dim=0)
+        logws = torch.cat([alpha0[None], alpha_all], dim=0)
+    return FilterResult(
+        log_z=torch.sum(increments, dim=0),
+        increments=increments,
+        ess=ess,
+        x_last=x_last,
+        logw_last=logw_last,
+        xs=xs,
+        logws=logws,
+        filtered_means=torch.cat([fmean0[None], stats[:, :, 2:]], dim=0),
+    )
+
+
+def forward_filter(
+    ssm: SSM,
+    generator: Optional[torch.Generator],
+    ys,
+    cfg: SMCConfig,
+    *,
+    cache: bool = False,
+    encoder_inputs=None,
+    noise: Optional[tuple] = None,
+) -> FilterResult:
+    """Run the forward SMC pass on observations ys [B, T, Dy].
+
+    encoder_inputs optionally replaces what the encoder proposal q2 sees.
+    noise is the testing hook of the reference: (eps0 [B,Dx,K], eps_scan
+    [T−1,B,Dx,K], u_scan [T−1,B,K]) replacing the generator's draws. On CPU
+    tensors it forces the plain step body, as in the reference; on CUDA
+    tensors the draws are replayed through the kernel.
+    """
+    batch, t_steps, _ = ys.shape
+    fused = t_steps >= 2 and fused_step.usable(ssm, cfg)
+    if ys.is_cuda:
+        if not fused:
+            raise NotImplementedError(
+                "this configuration has no CUDA kernel yet (outside "
+                "ops.fused_step.usable); run it on CPU tensors"
+            )
+        return _forward_filter_fused(
+            ssm, generator, ys, cfg, cache=cache,
+            encoder_inputs=encoder_inputs, streams=noise,
+        )
+    if fused and noise is None:
+        return _forward_filter_fused(
+            ssm, generator, ys, cfg, cache=cache, encoder_inputs=encoder_inputs
+        )
+
+    k = cfg.n_particles
+    ys_tm = ys.transpose(0, 1)  # [T, B, Dy]
+    enc_tm = encoder_inputs.transpose(0, 1) if encoder_inputs is not None else ys_tm
+    q2 = _q2_tm(ssm, cfg, enc_tm)
+    if noise is not None:
+        eps0, eps_scan, u_scan = noise
+    else:
+        eps0, eps_scan, u_scan = _draw_noise(generator, cfg, t_steps, batch, ssm.dx)
+
+    x0, alpha0 = _init_t0(ssm, eps0, ys_tm[0], enc_tm[0])
+    ell0 = _lse(alpha0) - math.log(k)
+
+    body = _make_step_body(ssm, cfg)
+    carry = (x0, alpha0)
+    xs, logws, ells, esss, fmeans = [x0], [alpha0], [ell0], [], []
+    for t in range(1, t_steps):
+        q2_t = (q2[0][t], q2[1][t]) if q2 is not None else None
+        carry, (ell, ess, fmean) = body(carry, (ys_tm[t], q2_t, eps_scan[t - 1], u_scan[t - 1]))
+        if cache:
+            xs.append(carry[0])
+            logws.append(carry[1])
+        ells.append(ell)
+        esss.append(ess)
+        fmeans.append(fmean)
+
+    increments = torch.stack(ells)
+    fmean0 = torch.einsum("bk,bdk->bd", torch.softmax(alpha0, dim=-1), x0)
+    return FilterResult(
+        log_z=torch.sum(increments, dim=0),
+        increments=increments,
+        ess=torch.stack([effective_sample_size(alpha0), *esss]),
+        x_last=carry[0],
+        logw_last=carry[1],
+        xs=torch.stack(xs) if cache else None,
+        logws=torch.stack(logws) if cache else None,
+        filtered_means=torch.stack([fmean0, *fmeans]),
+    )

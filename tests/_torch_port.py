@@ -1,0 +1,71 @@
+"""Shared setup of the torch-port tests: one config in both packages, one set
+of weights in both models, and the reference's key-derived noise as numpy.
+
+The JAX model is initialised from a key and its params are copied into the
+port through `psvo_tpu_torch.bridge`, so both packages evaluate identical
+models; noise is drawn with jax.random exactly as `psvo_tpu.smc`
+(`forward_filter`, smc.py:686-697) draws it and handed to both as arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import numpy as np
+import torch
+
+from psvo_tpu import config as jconfig
+from psvo_tpu.models.ssm import init_ssm as j_init_ssm
+from psvo_tpu.ops import resampling as j_resampling
+from psvo_tpu_torch import bridge
+from psvo_tpu_torch import config as tconfig
+from psvo_tpu_torch.models.ssm import SSM
+
+
+def small_configs(objective="fivo", k=128, hidden=(16, 16), t=8, resampling="systematic",
+                  **smc_kw):
+    """(reference Config, port Config) of the FHN slice at a small size."""
+    net = jconfig.NetConfig(hidden=hidden)
+    jcfg = jconfig.Config(
+        name="torch_port_test",
+        data=jconfig.DataConfig(datatype="fhn", dx=2, dy=2, t_steps=t),
+        smc=jconfig.SMCConfig(objective=objective, n_particles=k, resampling=resampling,
+                              **smc_kw),
+        train=jconfig.TrainConfig(mse_k_steps=3),
+    ).with_nets(q0=net, q1=net, q2=net, f=net, qb=net,
+                g=dataclasses.replace(net, sigma_init=0.5))
+    return jcfg, tconfig.from_dict(jcfg.to_dict())
+
+
+def models(jcfg, tcfg, seed=0):
+    """(reference SSM, its params, port SSM holding the same params)."""
+    jssm, params = j_init_ssm(jcfg, jax.random.key(seed))
+    tssm = SSM(tcfg)
+    bridge.load_numpy_params(tssm, jax.tree_util.tree_map(np.asarray, params))
+    return jssm, params, tssm
+
+
+def key_noise(key, batch, t_steps, dx, k, method="systematic"):
+    """(eps0, eps_scan, u_scan) as numpy, derived from `key` as the
+    reference's forward_filter derives them."""
+    k0, k_prop, k_res = jax.random.split(key, 3)
+    eps0 = jax.random.normal(k0, (batch, dx, k))
+    eps_scan = jax.random.normal(k_prop, (t_steps - 1, batch, dx, k))
+    if method != "none":
+        u_scan = j_resampling.bulk_positions(k_res, t_steps - 1, batch, k, method)
+    else:
+        u_scan = np.zeros((t_steps - 1, batch, 1), np.float32)
+    return tuple(np.asarray(a) for a in (eps0, eps_scan, u_scan))
+
+
+def to_torch(arrays):
+    return tuple(torch.from_numpy(np.array(a, np.float32)) for a in arrays)
+
+
+def observations(batch, t_steps, dy=2, seed=1):
+    return np.random.default_rng(seed).standard_normal((batch, t_steps, dy)).astype(np.float32)
+
+
+def assert_close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=tol, atol=tol)
