@@ -5,9 +5,10 @@ port imports torch and never jax; importing it builds nothing and starts
 no compile cache — the CUDA kernels (`ops/fused_step.py`, sources in
 `csrc/`) are compiled on first use on a machine with a GPU.
 
-Ported so far: the forward FIVO/IWAE filter of the FHN diagonal-Gaussian
-model class, its evaluation and the filtering-posterior API, with the whole
-forward scan of the kernel class in one hand-written CUDA kernel.
+Ported so far: the FIVO/IWAE filter of the FHN diagonal-Gaussian model
+class with its gradients, the optimizer and the train step, the evaluation
+and the filtering-posterior API. In the kernel class the whole forward scan
+is one hand-written CUDA kernel and its backward another.
 """
 
 __version__ = "0.1.0"
@@ -28,7 +29,7 @@ from psvo_tpu_torch.infer import filter_posterior
 from psvo_tpu_torch.models.ssm import SSM, init_ssm
 from psvo_tpu_torch.objectives import make_objective
 from psvo_tpu_torch.smc import FilterResult, forward_filter
-from psvo_tpu_torch.train import make_eval_step
+from psvo_tpu_torch.train import make_eval_step, make_optimizer, make_train_step
 
 __all__ = [
     "Config",
@@ -49,6 +50,8 @@ __all__ = [
     "load_dataset",
     "make_eval_step",
     "make_objective",
+    "make_optimizer",
+    "make_train_step",
     "networks",
     "preset",
     "save_dataset",

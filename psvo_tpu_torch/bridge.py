@@ -5,7 +5,8 @@ The reference keeps parameters as a nested dict
 "raw_scale": s}, "prior": {"mean": m, "raw_scale": s}}`. Given that tree as
 numpy arrays (`jax.tree_util.tree_map(np.asarray, params)` on the JAX side),
 `load_numpy_params` copies it into an `SSM` and `params_to_numpy` rebuilds
-it, bit for bit. Shapes and keys are checked; nothing is converted silently.
+it, bit for bit; `grads_to_numpy` gives the parameters' gradients in the same
+tree. Shapes and keys are checked; nothing is converted silently.
 """
 
 from __future__ import annotations
@@ -20,9 +21,18 @@ HEADS = ("q0", "q1", "q2", "f", "g", "qb")
 
 def params_to_numpy(ssm: SSM) -> dict:
     """The model's parameters as the reference's pytree of float32 arrays."""
+    return _tree(ssm, lambda t: t)
 
+
+def grads_to_numpy(ssm: SSM) -> dict:
+    """The `.grad` of every parameter as the reference's pytree (zeros for a
+    parameter that has none), to compare with `jax.grad` leaf by leaf."""
+    return _tree(ssm, lambda t: torch.zeros_like(t) if t.grad is None else t.grad)
+
+
+def _tree(ssm: SSM, leaf) -> dict:
     def arr(t):
-        return t.detach().cpu().numpy().copy()
+        return leaf(t).detach().cpu().numpy().copy()
 
     tree = {}
     for name in HEADS:

@@ -1,0 +1,651 @@
+// K4 scan_backward: the backward of the whole forward FIVO filter (K1),
+// t = T-1 .. 1 in one launch, plus sum_rows_kernel, which sums the per-row
+// parameter gradients.
+//
+// Replaces psvo_tpu/ops/pallas_step.py::_scan_bwd (kernel body
+// _scan_bwd_kernel), which inlines _bwd_core, _propose_weight_bwd_core,
+// _trunk / _trunk_bwd, _factored_scatter, _write_dsm, _accum_param_grads and
+// the in-kernel regeneration of ε (_rng_seed / _rng_eps).
+//
+// Contract (fused_step.scan_backward_reference computes the same function
+// with PyTorch autograd). From K1's residuals, x_new of every step (x_all)
+// and the ancestor indices (idx), and the cotangents of ℓ (stats column 0),
+// x_last, alpha_last and, under cache, x_all / alpha_all, it returns d_x0,
+// d_coef in pack_coef's layout (per (t, b): Σ_k d x_new for aq,
+// Σ_k d x_new·m1 for cq, Σ_k d x_new·ε for sq, zero for y, Σ_k dα for ab),
+// the weight gradients in prepare()'s packed layout and d_sconst. The
+// cotangents of ESS and of the filtered mean are dropped, as
+// _propose_weight_bwd_core reads only the ℓ lane; α0, ε, the positions and
+// the seed get none; the α cotangent is cut where the unfloored α < −3e30.
+//
+// Design. One CTA per trajectory row b walks t in reverse and carries the
+// cotangent of x_new, [DX][K], in shared memory (the TPU kernel's dxc
+// scratch). Per step, over tiles of kP = 64 particles:
+//   1. regather x_res = x_{t-1}[idx_t] (x_{-1} = x0), read x_new, and read ε
+//      or regenerate it from K1's Philox counters (b, t, i);
+//   2. recompute the f trunk on x_res and the g trunk on x_new in K1's fmaf
+//      order (bias first, inputs ascending), so m_f, m_g and α
+//      (step_math.cuh) are K1's own bits and the floor cut matches;
+//   3. dα = d_alpha_in + d_ℓ·softmax(α), the softmax as exp(α − ℓ − log K)
+//      from the ℓ that K1 wrote, so no extra pass over K is needed;
+//   4. backprop g and f, then recompute q1 on x_res (its m1 feeds the cq
+//      sum) and backprop it, accumulating the weight and sconst gradients;
+// then scatter d x_res into the carry, d x_{t-1}[j] = Σ_{i: idx_i = j}
+// d x_res_i, and write the step's d_coef row.
+//
+// What bounds it. About 78 kFLOP per particle-step at hidden (64, 64): the
+// three trunk recomputes, their input-side backward and the weight-gradient
+// products, ~26 kFLOP each. That is 2.5e11 FLOP at B=32, K=1024, T=100,
+// against ~40 MB of residual reads, so the fp32 CUDA cores bound it. Each
+// trunk stage is a small GEMM over the tile. Its operands sit in shared
+// memory in [unit][particle] layout, with rows padded to kP + 4 floats so
+// that float4 rows land on distinct banks. Each thread owns a 4x4 output
+// block and issues two 16-byte loads per 16 FMAs. Shared memory at H=64
+// holds the weights (53.8 KB), their gradient accumulators (53.8 KB), four
+// [64][68] activation buffers (69.6 KB), the carry, d x_res and idx
+// (20 KB at K=1024): one CTA per SM, and only B of the 132 SMs work.
+// Tensor cores (TF32/bf16 change the numerics) and splitting K across a
+// cluster are later work.
+//
+// Determinism. Every gradient entry has one owning thread, which adds its
+// tile sums in a fixed order; the per-step sums go through fixed block
+// reductions; the scatter is a segmented sum over each run of equal
+// ancestors, in particle order, which needs idx nondecreasing along K (K1's
+// indices from sorted positions are; chip_smoke.py asserts it on the
+// residuals); sum_rows_kernel adds the B row partials in row order. There
+// are no atomics: every run gives the same bits.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "philox.cuh"
+#include "resample.cuh"
+#include "step_math.cuh"
+
+namespace psvo {
+
+constexpr int kP = 64;       // particles per tile
+constexpr int kPS = kP + 4;  // row stride of the tile arrays, in floats
+constexpr int kPB = kP / 4;  // 4-particle blocks per tile row
+
+struct BwdArgs {
+  const float* x0;           // [B, DX, K]
+  const float* x_all;        // [T1, B, DX, K]: x_new of every step (K1 residual)
+  const int* idx;            // [T1, B, K]: ancestors (K1 residual), nondecreasing in K
+  const float* stats;        // [T1, B, 2 + DX]: ℓ in column 0
+  const float* coef;         // [T1, B, 3*DX + DY + 1]: aq, cq, sq, y, ab
+  const float* eps;          // [T1, B, DX, K]; stream mode only
+  const float* weights;      // q1 | f | g, fused_step.prepare's layout
+  const float* sconst;       // [DX + DY]: 1/s_f, 1/s_g
+  const float* d_stats;      // [T1, B, 2 + DX]: column 0 is read
+  const float* d_x_last;     // [B, DX, K] or null
+  const float* d_alpha_last; // [B, K] or null
+  const float* d_x_all;      // [T1, B, DX, K] or null
+  const float* d_alpha_all;  // [T1, B, K] or null
+  float* d_x0;               // [B, DX, K]
+  float* d_coef;             // [T1, B, 3*DX + DY + 1]
+  float* partial;            // [B, n_weights + DX + DY]: per-row weight and sconst grads
+  uint32_t seed0, seed1;
+  int use_rng, B, K, T1, n_weights, off_f, off_g;
+};
+
+// Offsets inside one net's segment of the packed buffer (one middle layer):
+// W1 [DIN, H], b1 [H], W2 [H, H], b2 [H], W3 [H, DOUT], b3 [DOUT].
+template <int DIN, int H, int DOUT>
+struct Net {
+  static constexpr int W1 = 0, B1 = DIN * H, W2 = B1 + H, B2 = W2 + H * H, W3 = B2 + H,
+                       B3 = W3 + H * DOUT;
+};
+
+__device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// y[o][p] = relu(b[o] + Σ_i W[i][o] x[i][p]) over the tile, in K1's fmaf
+// order. x [DIN][kPS], W [DIN][H] row-major, y [H][kPS]. Each thread owns
+// units o0..o0+3 of particles p0..p0+3.
+template <int DIN, int H>
+__device__ __forceinline__ void dense_relu_tile(const float* __restrict__ w,
+                                                const float* __restrict__ bias,
+                                                const float* __restrict__ x,
+                                                float* __restrict__ y) {
+  for (int blk = threadIdx.x; blk < (H / 4) * kPB; blk += kThreads) {
+    const int o0 = (blk / kPB) * 4, p0 = (blk % kPB) * 4;
+    float bv[4], acc[4][4];
+    ld4(bias + o0, bv);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = bv[r];
+    }
+#pragma unroll 4
+    for (int i = 0; i < DIN; ++i) {
+      float wv[4], xv[4];
+      ld4(w + i * H + o0, wv);
+      ld4(x + i * kPS + p0, xv);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(xv[c], wv[r], acc[r][c]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float out[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) out[c] = fmaxf(acc[r][c], 0.0f);
+      st4(y + (o0 + r) * kPS + p0, out);
+    }
+  }
+}
+
+// m[d][p] = b3[d] + Σ_o W3[o][d] x[o][p]: the mean head, in K1's order.
+template <int H, int DOUT>
+__device__ __forceinline__ void dense_out_tile(const float* __restrict__ w3,
+                                               const float* __restrict__ b3,
+                                               const float* __restrict__ x,
+                                               float* __restrict__ m) {
+  for (int e = threadIdx.x; e < DOUT * kP; e += kThreads) {
+    const int d = e / kP, p = e % kP;
+    float acc = b3[d];
+#pragma unroll 8
+    for (int o = 0; o < H; ++o) acc = fmaf(x[o * kPS + p], w3[o * DOUT + d], acc);
+    m[d * kPS + p] = acc;
+  }
+}
+
+// Backward stage 1: dW3[o][d] += Σ_p h2[o][p]·dm[d][p], db3[d] += Σ_p dm[d][p].
+// g points at the net's gradient segment; one owning thread per entry.
+template <int DIN, int H, int DOUT>
+__device__ __forceinline__ void bwd_head_grads(const float* __restrict__ h2,
+                                               const float* __restrict__ dm, float* g) {
+  using N = Net<DIN, H, DOUT>;
+  for (int e = threadIdx.x; e < H * DOUT + DOUT; e += kThreads) {
+    const bool is_w = e < H * DOUT;
+    const float* dr = dm + (is_w ? e % DOUT : e - H * DOUT) * kPS;
+    const float* hr = h2 + (is_w ? e / DOUT : 0) * kPS;
+    float s = 0.0f;
+    for (int p = 0; p < kP; p += 4) {
+      float dv[4], hv[4];
+      ld4(dr + p, dv);
+      ld4(hr + p, hv);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s = is_w ? fmaf(hv[c], dv[c], s) : s + dv[c];
+    }
+    g[N::W3 + e] += s;  // b3 follows W3 in the segment
+  }
+}
+
+// Backward stage 2, in place: h2[o][p] <- (Σ_d W3[o][d]·dm[d][p]) · [h2[o][p] > 0].
+template <int H, int DOUT>
+__device__ __forceinline__ void bwd_pre2(const float* __restrict__ w3,
+                                         const float* __restrict__ dm, float* h2) {
+  for (int e = threadIdx.x; e < H * kPB; e += kThreads) {
+    const int o = e / kPB, p0 = (e % kPB) * 4;
+    float hv[4], dh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    ld4(h2 + o * kPS + p0, hv);
+#pragma unroll
+    for (int d = 0; d < DOUT; ++d) {
+      float dv[4];
+      ld4(dm + d * kPS + p0, dv);
+      const float wv = w3[o * DOUT + d];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dh[c] = fmaf(dv[c], wv, dh[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) hv[c] = hv[c] > 0.0f ? dh[c] : 0.0f;
+    st4(h2 + o * kPS + p0, hv);
+  }
+}
+
+// Backward stage 3: dW2[i][o] += Σ_p h1[i][p]·dpre2[o][p], db2[o] += Σ_p dpre2[o][p].
+// A thread owns rows i0 + S·a and columns o0 + S·c (S = H/4): neighbouring
+// lanes read neighbouring rows, which the padded stride puts on other banks.
+template <int DIN, int H, int DOUT>
+__device__ __forceinline__ void bwd_mid_grads(const float* __restrict__ h1,
+                                              const float* __restrict__ dpre2, float* g) {
+  using N = Net<DIN, H, DOUT>;
+  constexpr int S = H / 4;
+  for (int blk = threadIdx.x; blk < S * S; blk += kThreads) {
+    const int i0 = blk / S, o0 = blk % S;
+    float acc[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][c] = 0.0f;
+    }
+    for (int p = 0; p < kP; p += 4) {
+      float hv[4][4], dv[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) ld4(h1 + (i0 + S * a) * kPS + p, hv[a]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ld4(dpre2 + (o0 + S * c) * kPS + p, dv[c]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(hv[a][q], dv[c][q], acc[a][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) g[N::W2 + (i0 + S * a) * H + o0 + S * c] += acc[a][c];
+    }
+  }
+  for (int o = threadIdx.x; o < H; o += kThreads) {
+    float s = 0.0f;
+    for (int p = 0; p < kP; p += 4) {
+      float dv[4];
+      ld4(dpre2 + o * kPS + p, dv);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s += dv[c];
+    }
+    g[N::B2 + o] += s;
+  }
+}
+
+// Backward stage 4, in place: h1[i][p] <- (Σ_o W2[i][o]·dpre2[o][p]) · [h1[i][p] > 0].
+template <int H>
+__device__ __forceinline__ void bwd_pre1(const float* __restrict__ w2,
+                                         const float* __restrict__ dpre2, float* h1) {
+  for (int blk = threadIdx.x; blk < (H / 4) * kPB; blk += kThreads) {
+    const int i0 = (blk / kPB) * 4, p0 = (blk % kPB) * 4;
+    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+    }
+    for (int o = 0; o < H; o += 4) {
+      float wv[4][4], dv[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) ld4(w2 + (i0 + r) * H + o, wv[r]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) ld4(dpre2 + (o + q) * kPS + p0, dv[q]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(wv[r][q], dv[q][c], acc[r][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float hv[4];
+      ld4(h1 + (i0 + r) * kPS + p0, hv);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) hv[c] = hv[c] > 0.0f ? acc[r][c] : 0.0f;
+      st4(h1 + (i0 + r) * kPS + p0, hv);
+    }
+  }
+}
+
+// Backward stage 5: dW1[d][i] += Σ_p x[d][p]·dpre1[i][p], db1[i] += Σ_p dpre1[i][p],
+// and the input cotangent dx[d][p] (= or +=) Σ_i W1[d][i]·dpre1[i][p].
+template <int DIN, int H, int DOUT, bool kAdd>
+__device__ __forceinline__ void bwd_input(const float* __restrict__ w1,
+                                          const float* __restrict__ x,
+                                          const float* __restrict__ dpre1, float* g,
+                                          float* __restrict__ dx) {
+  using N = Net<DIN, H, DOUT>;
+  constexpr int NG = DIN * H + H;  // W1 then b1 in the segment
+  for (int e = threadIdx.x; e < NG + DIN * kP; e += kThreads) {
+    if (e < NG) {
+      const bool is_w = e < DIN * H;
+      const float* dr = dpre1 + (is_w ? e % H : e - DIN * H) * kPS;
+      const float* xr = x + (is_w ? e / H : 0) * kPS;
+      float s = 0.0f;
+      for (int p = 0; p < kP; p += 4) {
+        float dv[4], xv[4];
+        ld4(dr + p, dv);
+        ld4(xr + p, xv);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s = is_w ? fmaf(xv[c], dv[c], s) : s + dv[c];
+      }
+      g[N::W1 + e] += s;
+    } else {
+      const int f = e - NG, d = f / kP, p = f % kP;
+      float s = 0.0f;
+#pragma unroll 8
+      for (int i = 0; i < H; ++i) s = fmaf(dpre1[i * kPS + p], w1[d * H + i], s);
+      dx[d * kPS + p] = kAdd ? dx[d * kPS + p] + s : s;
+    }
+  }
+}
+
+// First position in the nondecreasing a[0..n) whose value is >= v.
+__device__ __forceinline__ int lower_bound_idx(const int* a, int n, int v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < v)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+template <int DX, int DY, int H>
+__global__ void __launch_bounds__(kThreads, 1) scan_backward_kernel(const BwdArgs a) {
+  using NQ = Net<DX, H, DX>;  // q1 and f
+  using NG = Net<DX, H, DY>;  // g
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int K = a.K, B = a.B, b = blockIdx.x, tid = threadIdx.x;
+  float* wts = reinterpret_cast<float*>(smem);  // [n_weights]
+  float* gacc = wts + a.n_weights;              // [n_weights] weight-gradient sums
+  float* f1 = gacc + a.n_weights;               // 4 x [H][kPS] activations
+  float* f2 = f1 + H * kPS;
+  float* g1 = f2 + H * kPS;  // g's buffers, then q1's
+  float* g2 = g1 + H * kPS;
+  float* xr = g2 + H * kPS;  // tile arrays [D][kPS]: x_res, x_new, ε
+  float* xn = xr + DX * kPS;
+  float* ep = xn + DX * kPS;
+  float* mf = ep + DX * kPS;  // trunk means
+  float* mg = mf + DX * kPS;
+  float* mq = mg + DY * kPS;
+  float* dmf = mq + DX * kPS;  // cotangents of the trunk means
+  float* dmg = dmf + DX * kPS;
+  float* dmq = dmg + DY * kPS;
+  float* dxn = dmq + DX * kPS;  // d x_new
+  float* dxr = dxn + DX * kPS;  // d x_res
+  float* carry = dxr + DX * kPS;  // [DX][K]: d x_new of step t, then d x_{t-1}
+  float* dxres = carry + DX * K;  // [DX][K]: d x_res of the whole step
+  float* red = dxres + DX * K;    // [kWarps]
+  int* idx_s = reinterpret_cast<int*>(red + kWarps);  // [K]
+
+  for (int i = tid; i < a.n_weights; i += kThreads) {
+    wts[i] = a.weights[i];
+    gacc[i] = 0.0f;
+  }
+  for (int i = tid; i < DX * K; i += kThreads)
+    carry[i] = a.d_x_last != nullptr ? a.d_x_last[(size_t)b * DX * K + i] : 0.0f;
+  float sfi[DX], sgi[DY], dsf[DX], dsg[DY];
+#pragma unroll
+  for (int d = 0; d < DX; ++d) {
+    sfi[d] = a.sconst[d];
+    dsf[d] = 0.0f;
+  }
+#pragma unroll
+  for (int q = 0; q < DY; ++q) {
+    sgi[q] = a.sconst[DX + q];
+    dsg[q] = 0.0f;
+  }
+  const float* wq = wts;
+  const float* wf = wts + a.off_f;
+  const float* wg = wts + a.off_g;
+  float* gq = gacc;
+  float* gf = gacc + a.off_f;
+  float* gg = gacc + a.off_g;
+  constexpr int NC = 3 * DX + DY + 1;
+  const float log_k = logf(static_cast<float>(K));
+  const int p = tid;  // this thread's particle slot in a tile (tid < kP)
+
+  for (int t = a.T1 - 1; t >= 0; --t) {
+    const size_t row = (size_t)t * B + b;
+    const float* c = a.coef + row * NC;
+    float cq[DX], y[DY];
+#pragma unroll
+    for (int d = 0; d < DX; ++d) cq[d] = c[DX + d];
+#pragma unroll
+    for (int q = 0; q < DY; ++q) y[q] = c[3 * DX + q];
+    const float ab = c[3 * DX + DY];
+    const float ell = a.stats[row * (2 + DX)];
+    const float d_ell = a.d_stats[row * (2 + DX)];
+    const float* x_prev =
+        t == 0 ? a.x0 + (size_t)b * DX * K : a.x_all + ((size_t)(t - 1) * B + b) * DX * K;
+    const float* x_cur = a.x_all + row * DX * K;
+    for (int i = tid; i < K; i += kThreads) idx_s[i] = a.idx[row * K + i];
+    float s_aq[DX], s_cq[DX], s_sq[DX], s_ab = 0.0f;
+#pragma unroll
+    for (int d = 0; d < DX; ++d) s_aq[d] = s_cq[d] = s_sq[d] = 0.0f;
+    __syncthreads();
+
+    for (int i0 = 0; i0 < K; i0 += kP) {
+      const int i = i0 + p;
+      const bool mine = p < kP && i < K;  // a live particle of this tile
+      // 1. operands of the tile
+      if (p < kP) {
+        float e[DX];
+        if (mine && a.use_rng) draw_eps<DX>(a.seed0, a.seed1, b, t, i, K, e);
+#pragma unroll
+        for (int d = 0; d < DX; ++d) {
+          xr[d * kPS + p] = mine ? x_prev[d * K + idx_s[i]] : 0.0f;
+          xn[d * kPS + p] = mine ? x_cur[d * K + i] : 0.0f;
+          ep[d * kPS + p] = !mine ? 0.0f : (a.use_rng ? e[d] : a.eps[(row * DX + d) * K + i]);
+        }
+      }
+      __syncthreads();
+      // 2. recompute f on x_res and g on x_new
+      dense_relu_tile<DX, H>(wf + NQ::W1, wf + NQ::B1, xr, f1);
+      dense_relu_tile<DX, H>(wg + NG::W1, wg + NG::B1, xn, g1);
+      __syncthreads();
+      dense_relu_tile<H, H>(wf + NQ::W2, wf + NQ::B2, f1, f2);
+      dense_relu_tile<H, H>(wg + NG::W2, wg + NG::B2, g1, g2);
+      __syncthreads();
+      dense_out_tile<H, DX>(wf + NQ::W3, wf + NQ::B3, f2, mf);
+      dense_out_tile<H, DY>(wg + NG::W3, wg + NG::B3, g2, mg);
+      __syncthreads();
+      // 3. α, its cotangent, and the cotangents of m_f, m_g and x_new
+      if (p < kP) {
+        float xv[DX], mfv[DX], ev[DX], mgv[DY], da = 0.0f;
+#pragma unroll
+        for (int d = 0; d < DX; ++d) {
+          xv[d] = xn[d * kPS + p];
+          mfv[d] = mf[d * kPS + p];
+          ev[d] = ep[d * kPS + p];
+        }
+#pragma unroll
+        for (int q = 0; q < DY; ++q) mgv[q] = mg[q * kPS + p];
+        if (mine) {
+          const float al = alpha_unfloored<DX, DY>(xv, mfv, ev, y, mgv, sfi, sgi, ab);
+          if (al >= -3e30f) {  // no cotangent where the forward's floor clamped
+            float d_in = 0.0f;
+            if (t == a.T1 - 1 && a.d_alpha_last != nullptr) d_in += a.d_alpha_last[(size_t)b * K + i];
+            if (a.d_alpha_all != nullptr) d_in += a.d_alpha_all[row * K + i];
+            da = d_in + d_ell * expf(al - ell - log_k);
+          }
+          s_ab += da;
+        }
+#pragma unroll
+        for (int d = 0; d < DX; ++d) {
+          const float r = xv[d] - mfv[d];
+          const float zf = r * sfi[d];
+          float dx = 0.0f;
+          if (mine) {
+            dx = carry[d * K + i];
+            if (a.d_x_all != nullptr) dx += a.d_x_all[(row * DX + d) * K + i];
+            dsf[d] -= da * zf * r;
+          }
+          dmf[d * kPS + p] = da * zf * sfi[d];
+          dxn[d * kPS + p] = dx - da * zf * sfi[d];
+        }
+#pragma unroll
+        for (int q = 0; q < DY; ++q) {
+          const float r = y[q] - mgv[q];
+          const float zg = r * sgi[q];
+          if (mine) dsg[q] -= da * zg * r;
+          dmg[q * kPS + p] = da * zg * sgi[q];
+        }
+      }
+      __syncthreads();
+      // 4. backprop g (adds d x_new) and f (writes d x_res)
+      bwd_head_grads<DX, H, DX>(f2, dmf, gf);
+      bwd_head_grads<DX, H, DY>(g2, dmg, gg);
+      __syncthreads();
+      bwd_pre2<H, DX>(wf + NQ::W3, dmf, f2);
+      bwd_pre2<H, DY>(wg + NG::W3, dmg, g2);
+      __syncthreads();
+      bwd_mid_grads<DX, H, DX>(f1, f2, gf);
+      bwd_mid_grads<DX, H, DY>(g1, g2, gg);
+      __syncthreads();
+      bwd_pre1<H>(wf + NQ::W2, f2, f1);
+      bwd_pre1<H>(wg + NG::W2, g2, g1);
+      __syncthreads();
+      bwd_input<DX, H, DX, false>(wf + NQ::W1, xr, f1, gf, dxr);
+      bwd_input<DX, H, DY, true>(wg + NG::W1, xn, g1, gg, dxn);
+      __syncthreads();
+      // 5. recompute q1 on x_res, in g's buffers
+      dense_relu_tile<DX, H>(wq + NQ::W1, wq + NQ::B1, xr, g1);
+      __syncthreads();
+      dense_relu_tile<H, H>(wq + NQ::W2, wq + NQ::B2, g1, g2);
+      __syncthreads();
+      dense_out_tile<H, DX>(wq + NQ::W3, wq + NQ::B3, g2, mq);
+      __syncthreads();
+      // 6. the draw x_new = cq·m1 + aq + sq·ε: d m1 and the per-step sums
+      if (p < kP) {
+#pragma unroll
+        for (int d = 0; d < DX; ++d) {
+          const float dv = dxn[d * kPS + p];
+          dmq[d * kPS + p] = cq[d] * dv;
+          if (mine) {
+            s_aq[d] += dv;
+            s_cq[d] += dv * mq[d * kPS + p];
+            s_sq[d] += dv * ep[d * kPS + p];
+          }
+        }
+      }
+      __syncthreads();
+      // 7. backprop q1 (adds to d x_res)
+      bwd_head_grads<DX, H, DX>(g2, dmq, gq);
+      __syncthreads();
+      bwd_pre2<H, DX>(wq + NQ::W3, dmq, g2);
+      __syncthreads();
+      bwd_mid_grads<DX, H, DX>(g1, g2, gq);
+      __syncthreads();
+      bwd_pre1<H>(wq + NQ::W2, g2, g1);
+      __syncthreads();
+      bwd_input<DX, H, DX, true>(wq + NQ::W1, xr, g1, gq, dxr);
+      __syncthreads();
+      if (mine) {
+#pragma unroll
+        for (int d = 0; d < DX; ++d) dxres[d * K + i] = dxr[d * kPS + p];
+      }
+    }
+    __syncthreads();
+
+    // 8. scatter d x_res into the carry: a segmented sum over each run of
+    // equal ancestors, in particle order
+    for (int j = tid; j < K; j += kThreads) {
+      const int lo = lower_bound_idx(idx_s, K, j);
+      const int hi = lower_bound_idx(idx_s, K, j + 1);
+#pragma unroll
+      for (int d = 0; d < DX; ++d) {
+        float s = 0.0f;
+        for (int i = lo; i < hi; ++i) s += dxres[d * K + i];
+        carry[d * K + j] = s;
+      }
+    }
+    // 9. the step's d_coef row (the reductions' barriers also order the
+    // carry writes above before the next step reads it)
+#pragma unroll
+    for (int d = 0; d < DX; ++d) {
+      s_aq[d] = block_reduce<false>(s_aq[d], red);
+      s_cq[d] = block_reduce<false>(s_cq[d], red);
+      s_sq[d] = block_reduce<false>(s_sq[d], red);
+    }
+    s_ab = block_reduce<false>(s_ab, red);
+    if (tid == 0) {
+      float* dc = a.d_coef + row * NC;
+#pragma unroll
+      for (int d = 0; d < DX; ++d) {
+        dc[d] = s_aq[d];
+        dc[DX + d] = s_cq[d];
+        dc[2 * DX + d] = s_sq[d];
+      }
+#pragma unroll
+      for (int q = 0; q < DY; ++q) dc[3 * DX + q] = 0.0f;  // y is data
+      dc[3 * DX + DY] = s_ab;
+    }
+  }
+
+  for (int i = tid; i < DX * K; i += kThreads) a.d_x0[(size_t)b * DX * K + i] = carry[i];
+  const int n_row = a.n_weights + DX + DY;
+  float* part = a.partial + (size_t)b * n_row;
+  for (int i = tid; i < a.n_weights; i += kThreads) part[i] = gacc[i];
+#pragma unroll
+  for (int d = 0; d < DX; ++d) {
+    const float v = block_reduce<false>(dsf[d], red);
+    if (tid == 0) part[a.n_weights + d] = v;
+  }
+#pragma unroll
+  for (int q = 0; q < DY; ++q) {
+    const float v = block_reduce<false>(dsg[q], red);
+    if (tid == 0) part[a.n_weights + DX + q] = v;
+  }
+}
+
+// out[e] = Σ_r partial[r][e], rows added in order: the B per-row partial
+// gradients of scan_backward_kernel (the TPU kernel accumulated them in its
+// own body, _accum_param_grads).
+__global__ void sum_rows_kernel(const float* __restrict__ partial, int rows, int n,
+                                float* __restrict__ out) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.0f;
+  for (int r = 0; r < rows; ++r) s += partial[(size_t)r * n + e];
+  out[e] = s;
+}
+
+template <int DX, int DY, int H>
+cudaError_t launch_backward(const BwdArgs& a, float* grads, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * (2 * a.n_weights + 4 * H * kPS + (9 * DX + 2 * DY) * kPS +
+                       2 * DX * a.K + kWarps) +
+      sizeof(int) * a.K;
+  auto kernel = scan_backward_kernel<DX, DY, H>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<a.B, kThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n = a.n_weights + DX + DY;
+  sum_rows_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(a.partial, a.B, n,
+                                                                         grads);
+  return cudaGetLastError();
+}
+
+}  // namespace psvo
+
+// Plain C entry point (bound with ctypes by psvo_tpu_torch/ops/_build.py).
+// grads [n_weights + dx + dy] receives the weight gradients, then d_sconst;
+// partial [B, n_weights + dx + dy] is scratch. Returns a cudaError_t.
+extern "C" int psvo_scan_backward(const float* x0, const float* x_all, const int* idx,
+                                  const float* stats, const float* coef, const float* eps,
+                                  const float* weights, const float* sconst,
+                                  const float* d_stats, const float* d_x_last,
+                                  const float* d_alpha_last, const float* d_x_all,
+                                  const float* d_alpha_all, float* d_x0, float* d_coef,
+                                  float* partial, float* grads, uint32_t seed0, uint32_t seed1,
+                                  int use_rng, int B, int K, int T1, int dx, int dy, int hidden,
+                                  int n_mid, int n_weights, int off_f, int off_g, void* stream) {
+  const psvo::BwdArgs a{x0,      x_all,    idx,      stats,        coef,    eps,
+                        weights, sconst,   d_stats,  d_x_last,     d_alpha_last,
+                        d_x_all, d_alpha_all, d_x0,  d_coef,       partial, seed0,
+                        seed1,   use_rng,  B,        K,            T1,      n_weights,
+                        off_f,   off_g};
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dx == 2 && dy == 2 && n_mid == 1) {
+    switch (hidden) {
+      case 16: return psvo::launch_backward<2, 2, 16>(a, grads, s);
+      case 32: return psvo::launch_backward<2, 2, 32>(a, grads, s);
+      case 64: return psvo::launch_backward<2, 2, 64>(a, grads, s);
+      default: break;
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -20,6 +20,10 @@
 //   3. ℓ = lse(α) − log K and the filtered mean, by block reductions.
 // ε and the positions are either streamed operands or drawn in the kernel
 // (philox.cuh), which then reads no noise from device memory at all.
+// Residual mode (fused_step.ScanForward, the train step) also writes every
+// step's x_new into x_all and its ancestor indices into idx: what
+// _scan_fwd keeps for its backward (scan_backward.cu), which regathers the
+// resampled particles as x_{t-1}[idx_t] instead of storing them.
 //
 // What bounds it. At B=32, K=1024, hidden (64, 64) one step is ~0.9 GFLOP
 // of fp32 FMAs on the CUDA cores (three trunks per particle, the 64x64
@@ -40,6 +44,7 @@
 
 #include "philox.cuh"
 #include "resample.cuh"
+#include "step_math.cuh"
 
 namespace psvo {
 
@@ -54,8 +59,9 @@ struct ScanArgs {
   float* x_last;         // [B, DX, K]
   float* alpha_last;     // [B, K]
   float* stats;          // [T1, B, 2 + DX]: ell, ess, filtered mean
-  float* x_all;          // [T1, B, DX, K] or null (no cache)
-  float* alpha_all;      // [T1, B, K] or null
+  float* x_all;          // [T1, B, DX, K] or null (neither cache nor residuals)
+  float* alpha_all;      // [T1, B, K] or null (no cache)
+  int* idx;              // [T1, B, K] ancestor indices or null (no residuals)
   uint32_t seed0, seed1;
   int use_rng, B, K, T1, n_mid, n_weights, off_f, off_g;
 };
@@ -229,27 +235,18 @@ __global__ void __launch_bounds__(kThreads) scan_forward_kernel(const ScanArgs a
           if (n == 1) mf[d] = mg[d];
         }
       }
-      float acc = 0.0f;
-#pragma unroll
-      for (int d = 0; d < DX; ++d) {
-        const float zf = (xn[d] - mf[d]) * sfi[d];
-        acc += zf * zf - e[d] * e[d];
-      }
-#pragma unroll
-      for (int q = 0; q < DY; ++q) {
-        const float zg = (y[q] - mg[q]) * sgi[q];
-        acc += zg * zg;
-      }
       // finiteness floor: a diverged mean gives a finite, hopeless weight
-      const float alpha = fmaxf(-0.5f * acc + ab, -3e30f);
+      const float alpha =
+          fmaxf(alpha_unfloored<DX, DY>(xn, mf, e, y, mg, sfi, sgi, ab), -3e30f);
 #pragma unroll
       for (int d = 0; d < DX; ++d) xn_buf[d * K + i] = xn[d];
       lw[i] = alpha;
       if (a.x_all != nullptr) {
 #pragma unroll
         for (int d = 0; d < DX; ++d) a.x_all[(row * DX + d) * K + i] = xn[d];
-        a.alpha_all[row * K + i] = alpha;
       }
+      if (a.alpha_all != nullptr) a.alpha_all[row * K + i] = alpha;
+      if (a.idx != nullptr) a.idx[row * K + i] = anc;
     }
     __syncthreads();
 
@@ -301,14 +298,14 @@ cudaError_t launch_scan(const ScanArgs& a, cudaStream_t stream) {
 extern "C" int psvo_scan_forward(const float* x0, const float* alpha0, const float* coef,
                                  const float* eps, const float* pos, const float* weights,
                                  const float* sconst, float* x_last, float* alpha_last,
-                                 float* stats, float* x_all, float* alpha_all, uint32_t seed0,
-                                 uint32_t seed1, int use_rng, int B, int K, int T1, int dx,
-                                 int dy, int hidden, int n_mid, int n_weights, int off_f,
-                                 int off_g, void* stream) {
-  const psvo::ScanArgs a{x0,     alpha0,    coef,  eps,   pos,       weights, sconst,
-                         x_last, alpha_last, stats, x_all, alpha_all, seed0,   seed1,
-                         use_rng, B,         K,     T1,    n_mid,     n_weights, off_f,
-                         off_g};
+                                 float* stats, float* x_all, float* alpha_all, int* idx,
+                                 uint32_t seed0, uint32_t seed1, int use_rng, int B, int K,
+                                 int T1, int dx, int dy, int hidden, int n_mid, int n_weights,
+                                 int off_f, int off_g, void* stream) {
+  const psvo::ScanArgs a{x0,    alpha0,    coef,   eps,       pos,   weights, sconst,
+                         x_last, alpha_last, stats, x_all,     alpha_all, idx, seed0,
+                         seed1,  use_rng,   B,      K,         T1,    n_mid,  n_weights,
+                         off_f,  off_g};
   const auto s = static_cast<cudaStream_t>(stream);
   if (dx == 2 && dy == 2) {
     switch (hidden) {

@@ -160,7 +160,8 @@ class SSM(nn.Module):
         return self._mean_scale("g", x)[0]
 
 
-def init_ssm(cfg: Config, generator: torch.Generator, device="cpu") -> SSM:
+def init_ssm(cfg: Config, generator: torch.Generator, device="cuda") -> SSM:
     """Build the model for `cfg` and draw its parameters from `generator`
-    (a CPU generator: parameters are drawn on the host, then moved)."""
+    (a CPU generator: parameters are drawn on the host, then moved to
+    `device`, the card unless the caller asks for the CPU)."""
     return SSM(cfg).init(generator).to(device)

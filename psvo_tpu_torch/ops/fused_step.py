@@ -1,7 +1,7 @@
-"""Whole-scan forward filter kernel and its plain versions (counterpart of
+"""Whole-scan filter kernels and their plain versions (counterpart of
 `psvo_tpu/ops/pallas_step.py`).
 
-Three hand-written CUDA kernels (`psvo_tpu_torch/csrc/`, built by
+Four hand-written CUDA kernels (`psvo_tpu_torch/csrc/`, built by
 `ops/_build.py`), each behind a wrapper that launches it for CUDA tensors and
 runs its plain PyTorch version for CPU tensors — never the plain version on
 the card:
@@ -10,6 +10,10 @@ the card:
   megakernel): resample → q1/f trunks → fused draw → g trunk → α → ℓ and the
   filtered mean, for all T−1 steps in one launch. Plain version:
   `scan_forward_reference`, a loop over t.
+- K4 `scan_backward` (replaces `pallas_step._scan_bwd`, the backward
+  whole-scan megakernel): the VJP of K1 from its residuals, all T−1 steps in
+  reverse in one launch. Plain version: `scan_backward_reference`, an
+  autograd replay of the forward on the saved ancestors.
 - K2 `stream_noise` (replaces `pallas_step.generate_stream_noise`): the exact
   ε / u0 streams K1 draws in its in-kernel RNG mode. Plain version:
   `stream_noise_reference`, Philox4x32-10 in int64 torch arithmetic.
@@ -17,8 +21,10 @@ the card:
   megakernel inlines it): systematic ancestors through K1's own index code.
   Plain version: `ancestor_indices_reference`.
 
-Each wrapper carries a launch count (`<wrapper>.launches`), raised only where
-the kernel is launched; each plain version a call count (`.calls`).
+`ScanForward` joins K1 and K4 as one `torch.autograd.Function`, the
+counterpart of `pallas_step._scan_call`'s custom VJP. Each wrapper carries a
+launch count (`<wrapper>.launches`), raised only where the kernel is
+launched; each plain version a call count (`.calls`).
 
 Index semantics (K1, K3 and their plain versions): the count form
 a_i = #{j : C_j <= pos_i·C_{K−1}}, clipped to K−1, on the inclusive CDF of
@@ -33,8 +39,7 @@ each density at `_MIN_LOGP` = −1e30. They differ only on diverged particles.
 
 Not ported: the ones-channel bias folding and the PD = 8 / HA = H+8 padding
 of `aug_net`/`pack_sm`, which existed for the TPU's matrix unit and Mosaic;
-`prepare` hands the kernel plain weights and biases. Forward only: the
-backward kernel (`_scan_bwd`) comes with the train step.
+`prepare` hands the kernels plain weights and biases.
 """
 
 from __future__ import annotations
@@ -317,28 +322,27 @@ def _trunk_cm(net, x):
     return torch.einsum("de,bdk->bek", w3, h) + b3[:, None]
 
 
-def scan_forward_reference(x0, alpha0, coef, consts, eps, positions, cache: bool = False):
+def scan_forward_reference(x0, alpha0, coef, consts, eps, positions, cache: bool = False,
+                           save_res: bool = False):
     """Plain version of K1: the same step math as a loop over t (stream mode).
 
     x0 [B, Dx, K], alpha0 [B, K], coef [T−1, B, 3·Dx + Dy + 1] (pack_coef),
     eps [T−1, B, Dx, K], positions [T−1, B, K]. Returns (x_last, alpha_last,
-    stats [T−1, B, 2 + Dx] = (ℓ, ESS, filtered mean), x_all, alpha_all);
-    the last two are None unless `cache`.
+    stats [T−1, B, 2 + Dx] = (ℓ, ESS, filtered mean), x_all, alpha_all, idx):
+    x_all [T−1, B, Dx, K] (x_new per step) is None unless `cache` or
+    `save_res`, alpha_all unless `cache`, the int32 ancestors idx
+    [T−1, B, K] unless `save_res` (the residuals of the backward).
     """
     scan_forward_reference.calls += 1
-    dx, dy, h, n_mid = consts["dx"], consts["dy"], consts["hidden"], consts["n_mid"]
+    dx, dy = consts["dx"], consts["dy"]
     k = x0.shape[-1]
-    packed = consts["packed"]
-    off_q1, off_f, off_g = consts["offsets"]
-    q1 = _unpack_net(packed, off_q1, dx, h, n_mid, dx)
-    f = _unpack_net(packed, off_f, dx, h, n_mid, dx)
-    g = _unpack_net(packed, off_g, dx, h, n_mid, dy)
+    q1, f, g = _unpack_nets(consts)
     sfi = consts["sconst"][:dx, None]
     sgi = consts["sconst"][dx:, None]
     log_k = math.log(k)
 
     x, lw = x0, alpha0
-    stats, xs, alphas = [], [], []
+    stats, xs, alphas, idxs = [], [], [], []
     for t in range(coef.shape[0]):
         c = coef[t]
         aq, cq, sq = (c[:, i * dx : (i + 1) * dx, None] for i in range(3))
@@ -347,14 +351,9 @@ def scan_forward_reference(x0, alpha0, coef, consts, eps, positions, cache: bool
         # ESS of the incoming weights, then resample
         w = torch.exp(lw - torch.amax(lw, dim=-1, keepdim=True))
         ess = torch.sum(w, -1) ** 2 / torch.clamp(torch.sum(w * w, -1), min=1e-30)
-        x_res = gather_particles(x, count_form_indices(lw, positions[t]))
-        # propose and weight
-        m1, m_f = _trunk_cm(q1, x_res), _trunk_cm(f, x_res)
-        e = eps[t]
-        x_new = cq * m1 + aq + sq * e
-        z_f = (x_new - m_f) * sfi
-        z_g = (y - _trunk_cm(g, x_new)) * sgi
-        alpha = -0.5 * (torch.sum(z_f * z_f - e * e, 1) + torch.sum(z_g * z_g, 1)) + ab
+        idx = count_form_indices(lw, positions[t])
+        x_new, alpha = _propose_weight(q1, f, g, gather_particles(x, idx), eps[t],
+                                       aq, cq, sq, y, ab, sfi, sgi)
         alpha = torch.clamp(alpha, min=-3e30)
         # logZ increment and filtered mean
         amax = torch.amax(alpha, dim=-1, keepdim=True)
@@ -363,21 +362,45 @@ def scan_forward_reference(x0, alpha0, coef, consts, eps, positions, cache: bool
         ell = torch.log(sw) + amax - log_k
         fm = torch.einsum("bk,bdk->bd", w_new, x_new) / sw
         stats.append(torch.cat([ell, ess[:, None], fm], dim=-1))
-        if cache:
+        if cache or save_res:
             xs.append(x_new)
+        if cache:
             alphas.append(alpha)
+        if save_res:
+            idxs.append(idx)
         x, lw = x_new, alpha
-    x_all = torch.stack(xs) if cache else None
+    x_all = torch.stack(xs) if xs else None
     alpha_all = torch.stack(alphas) if cache else None
-    return x, lw, torch.stack(stats), x_all, alpha_all
+    idx_all = torch.stack(idxs) if save_res else None
+    return x, lw, torch.stack(stats), x_all, alpha_all, idx_all
 
 
 scan_forward_reference.calls = 0
 
 
-def _require(t, shape, name, device):
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected float32")
+def _unpack_nets(consts):
+    """The (q1, f, g) nets read back out of prepare()'s buffer."""
+    dx, dy, h, n_mid = consts["dx"], consts["dy"], consts["hidden"], consts["n_mid"]
+    packed = consts["packed"]
+    off_q1, off_f, off_g = consts["offsets"]
+    return (_unpack_net(packed, off_q1, dx, h, n_mid, dx),
+            _unpack_net(packed, off_f, dx, h, n_mid, dx),
+            _unpack_net(packed, off_g, dx, h, n_mid, dy))
+
+
+def _propose_weight(q1, f, g, x_res, e, aq, cq, sq, y, ab, sfi, sgi):
+    """One step after the resample: the fused draw and the unfloored α."""
+    m1, m_f = _trunk_cm(q1, x_res), _trunk_cm(f, x_res)
+    x_new = cq * m1 + aq + sq * e
+    z_f = (x_new - m_f) * sfi
+    z_g = (y - _trunk_cm(g, x_new)) * sgi
+    alpha = -0.5 * (torch.sum(z_f * z_f - e * e, 1) + torch.sum(z_g * z_g, 1)) + ab
+    return x_new, alpha
+
+
+def _require(t, shape, name, device, dtype=torch.float32):
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.device != device:
@@ -386,15 +409,21 @@ def _require(t, shape, name, device):
         raise ValueError(f"{name}: not contiguous")
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def scan_forward(x0, alpha0, coef, consts, *, eps=None, positions=None, seed=None,
-                 cache: bool = False):
+                 cache: bool = False, save_res: bool = False):
     """K1: the forward filter's steps t = 1..T−1 in one launch.
 
     Noise either as streams (eps [T−1, B, Dx, K] and sorted positions
     [T−1, B, K]) or drawn in the kernel from `seed` (two uint32 words;
-    systematic positions from per-step offsets, K2's streams). Outputs as
+    systematic positions from per-step offsets, K2's streams). `save_res`
+    also writes the backward's residuals, x_all and idx. Outputs as
     `scan_forward_reference`. CPU tensors run the plain version (in-kernel
     RNG replayed through K2's plain version); CUDA tensors launch the kernel.
+    It takes no gradient itself: differentiate through `ScanForward`.
     """
     if (seed is None) == (eps is None or positions is None):
         raise ValueError("scan_forward: pass either (eps, positions) or seed")
@@ -404,17 +433,30 @@ def scan_forward(x0, alpha0, coef, consts, *, eps=None, positions=None, seed=Non
         if seed is not None:
             eps, u0 = stream_noise_reference(seed, t_len, batch, dx, k, x0.device)
             positions = systematic_positions(u0, k)
-        return scan_forward_reference(x0, alpha0, coef, consts, eps, positions, cache)
+        return scan_forward_reference(x0, alpha0, coef, consts, eps, positions, cache,
+                                      save_res)
     if x0.device.type != "cuda":
         raise ValueError(f"scan_forward: unsupported device {x0.device}")
-
-    dev = x0.device
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (x0, alpha0, coef, consts["packed"], consts["sconst"])
     ):
         raise RuntimeError(
-            "scan_forward has no backward kernel yet: call it under torch.no_grad()"
+            "scan_forward records no gradient: differentiate through ScanForward, "
+            "or call it under torch.no_grad()"
         )
+    return _launch_scan_forward(x0, alpha0, coef, consts, eps, positions, seed, cache,
+                                save_res, torch.cuda.current_stream(x0.device).cuda_stream)
+
+
+scan_forward.launches = 0
+
+
+def _launch_scan_forward(x0, alpha0, coef, consts, eps, positions, seed, cache, save_res,
+                         stream):
+    """Check K1's operands, allocate its outputs and launch it on `stream`."""
+    t_len, batch = coef.shape[0], coef.shape[1]
+    dx, dy, k = consts["dx"], consts["dy"], x0.shape[-1]
+    dev = x0.device
     h, n_mid = consts["hidden"], consts["n_mid"]
     if (dx, dy) not in KERNEL_DIMS or h not in HIDDEN_WIDTHS or not _k_ok(k):
         raise ValueError(
@@ -428,32 +470,220 @@ def scan_forward(x0, alpha0, coef, consts, *, eps=None, positions=None, seed=Non
     if seed is None:
         _require(eps, (t_len, batch, dx, k), "eps", dev)
         _require(positions, (t_len, batch, k), "positions", dev)
-    x_last = torch.empty((batch, dx, k), dtype=torch.float32, device=dev)
-    alpha_last = torch.empty((batch, k), dtype=torch.float32, device=dev)
-    stats = torch.empty((t_len, batch, 2 + dx), dtype=torch.float32, device=dev)
-    x_all = alpha_all = None
-    if cache:
-        x_all = torch.empty((t_len, batch, dx, k), dtype=torch.float32, device=dev)
-        alpha_all = torch.empty((t_len, batch, k), dtype=torch.float32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    f32 = dict(dtype=torch.float32, device=dev)
+    x_last = torch.empty((batch, dx, k), **f32)
+    alpha_last = torch.empty((batch, k), **f32)
+    stats = torch.empty((t_len, batch, 2 + dx), **f32)
+    x_all = torch.empty((t_len, batch, dx, k), **f32) if cache or save_res else None
+    alpha_all = torch.empty((t_len, batch, k), **f32) if cache else None
+    idx = torch.empty((t_len, batch, k), dtype=torch.int32, device=dev) if save_res else None
 
     seed0, seed1 = (0, 0) if seed is None else seed
     lib = _build.load_library()
     _, off_f, off_g = consts["offsets"]  # q1 sits at offset 0
     err = lib.psvo_scan_forward(
-        x0.data_ptr(), alpha0.data_ptr(), coef.data_ptr(), ptr(eps), ptr(positions),
+        x0.data_ptr(), alpha0.data_ptr(), coef.data_ptr(), _ptr(eps), _ptr(positions),
         consts["packed"].data_ptr(), consts["sconst"].data_ptr(),
         x_last.data_ptr(), alpha_last.data_ptr(), stats.data_ptr(),
-        ptr(x_all), ptr(alpha_all),
+        _ptr(x_all), _ptr(alpha_all), _ptr(idx),
         seed0, seed1, int(seed is not None), batch, k, t_len, dx, dy, h, n_mid,
-        consts["packed"].numel(), off_f, off_g,
-        torch.cuda.current_stream(dev).cuda_stream,
+        consts["packed"].numel(), off_f, off_g, stream,
     )
     scan_forward.launches += 1
     _build.check(lib, err, "scan_forward")
-    return x_last, alpha_last, stats, x_all, alpha_all
+    return x_last, alpha_last, stats, x_all, alpha_all, idx
 
 
-scan_forward.launches = 0
+# ---------------------------------------------------------------------------
+# K4: the whole backward scan
+# ---------------------------------------------------------------------------
+
+
+def scan_backward_reference(x0, coef, consts, eps, idx, d_stats, d_x_last=None,
+                            d_alpha_last=None, d_x_all=None, d_alpha_all=None):
+    """Plain version of K4: replay the forward from x0 under autograd with the
+    saved ancestors idx [T−1, B, K] as fixed (teacher-forced, so no ancestor
+    can flip), then backpropagate the given cotangents.
+
+    The contract is that of the TPU kernel's custom VJP
+    (`pallas_step._scan_bwd`):
+    - honoured: the ℓ cotangent (d_stats column 0), d_x_last, d_alpha_last
+      and, under cache, d_x_all / d_alpha_all;
+    - dropped: the cotangents of ESS and of the filtered mean (d_stats
+      columns 1 and up), as `_propose_weight_bwd_core` reads only the ℓ lane;
+    - none for α0 (it reaches the scan only through resampling and ESS), for
+      ε, the positions and the seed, or for the observations y (coef columns
+      3·Dx .. 3·Dx + Dy get zero);
+    - the α cotangent is cut where the unfloored α < −3e30 (the gradient of
+      torch.clamp).
+    Missing cotangents (None) are zero. Returns (d_x0, d_coef [T−1, B,
+    3·Dx + Dy + 1], d_packed, d_sconst).
+    """
+    scan_backward_reference.calls += 1
+    dx, dy = consts["dx"], consts["dy"]
+    k = x0.shape[-1]
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in
+                  (x0, coef, consts["packed"], consts["sconst"])]
+        x0_, coef_, packed, sconst = leaves
+        q1, f, g = _unpack_nets(dict(consts, packed=packed))
+        sfi, sgi = sconst[:dx, None], sconst[dx:, None]
+        x, ells, xs, alphas = x0_, [], [], []
+        for t in range(coef.shape[0]):
+            c = coef_[t]
+            aq, cq, sq = (c[:, i * dx : (i + 1) * dx, None] for i in range(3))
+            y = c[:, 3 * dx : 3 * dx + dy, None].detach()
+            x_new, alpha = _propose_weight(q1, f, g, gather_particles(x, idx[t]), eps[t],
+                                           aq, cq, sq, y, c[:, -1:], sfi, sgi)
+            alpha = torch.clamp(alpha, min=-3e30)
+            ells.append(torch.logsumexp(alpha, dim=-1) - math.log(k))
+            xs.append(x_new)
+            alphas.append(alpha)
+            x = x_new
+        pairs = [(torch.stack(ells), d_stats[..., 0]), (x, d_x_last), (alphas[-1], d_alpha_last),
+                 (torch.stack(xs), d_x_all), (torch.stack(alphas), d_alpha_all)]
+        outs, cots = zip(*[(o, c) for o, c in pairs if c is not None])
+        grads = torch.autograd.grad(outs, leaves, cots, allow_unused=True)
+    return tuple(torch.zeros_like(v) if gr is None else gr for gr, v in zip(grads, leaves))
+
+
+scan_backward_reference.calls = 0
+
+
+def _k4_ok(consts, k: int) -> bool:
+    return ((consts["dx"], consts["dy"]) in KERNEL_DIMS and consts["hidden"] in HIDDEN_WIDTHS
+            and consts["n_mid"] == 1 and _k_ok(k))
+
+
+def scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last=None,
+                  d_alpha_last=None, d_x_all=None, d_alpha_all=None, *, eps=None, seed=None):
+    """K4: the VJP of K1 over all T−1 steps in one launch.
+
+    Takes K1's inputs (x0, coef, consts and the noise: eps [T−1, B, Dx, K] or
+    the `seed` it drew from) and its outputs under save_res: x_all, the int32
+    ancestors idx, nondecreasing along K, and stats (for ℓ). Cotangents and
+    outputs as `scan_backward_reference`, which CPU tensors run (in-kernel
+    RNG replayed through K2's plain version); CUDA tensors launch the kernel.
+    The kernel is built for Dx = Dy = 2, hidden widths 16/32/64 with one
+    middle layer, and K up to 2304 at width 64 (shared memory).
+    """
+    if (seed is None) == (eps is None):
+        raise ValueError("scan_backward: pass either eps or seed")
+    t_len, batch = coef.shape[0], coef.shape[1]
+    dx, k = consts["dx"], x0.shape[-1]
+    if x0.device.type == "cpu":
+        if seed is not None:
+            eps = stream_noise_reference(seed, t_len, batch, dx, k, x0.device)[0]
+        return scan_backward_reference(x0, coef, consts, eps, idx, d_stats, d_x_last,
+                                       d_alpha_last, d_x_all, d_alpha_all)
+    if x0.device.type != "cuda":
+        raise ValueError(f"scan_backward: unsupported device {x0.device}")
+    return _launch_scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last,
+                                 d_alpha_last, d_x_all, d_alpha_all, eps, seed,
+                                 torch.cuda.current_stream(x0.device).cuda_stream)
+
+
+scan_backward.launches = 0
+
+
+def _launch_scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last,
+                          d_alpha_last, d_x_all, d_alpha_all, eps, seed, stream):
+    """Check K4's operands, allocate its outputs and launch it on `stream`."""
+    t_len, batch = coef.shape[0], coef.shape[1]
+    dx, dy, k = consts["dx"], consts["dy"], x0.shape[-1]
+    dev = x0.device
+    if not _k4_ok(consts, k):
+        raise ValueError(
+            f"scan_backward: no kernel for Dx={dx}, Dy={dy}, hidden={consts['hidden']}, "
+            f"{consts['n_mid']} middle layers, K={k}"
+        )
+    _require(x0, (batch, dx, k), "x0", dev)
+    _require(x_all, (t_len, batch, dx, k), "x_all", dev)
+    _require(idx, (t_len, batch, k), "idx", dev, torch.int32)
+    _require(stats, (t_len, batch, 2 + dx), "stats", dev)
+    _require(coef, (t_len, batch, 3 * dx + dy + 1), "coef", dev)
+    _require(consts["packed"], consts["packed"].shape, "weights", dev)
+    _require(consts["sconst"], (dx + dy,), "sconst", dev)
+    _require(d_stats, stats.shape, "d_stats", dev)
+    for t, shape, name in ((eps, x_all.shape, "eps"), (d_x_last, x0.shape, "d_x_last"),
+                           (d_alpha_last, (batch, k), "d_alpha_last"),
+                           (d_x_all, x_all.shape, "d_x_all"),
+                           (d_alpha_all, (t_len, batch, k), "d_alpha_all")):
+        if t is not None:
+            _require(t, shape, name, dev)
+    n_w = consts["packed"].numel()
+    f32 = dict(dtype=torch.float32, device=dev)
+    d_x0 = torch.empty((batch, dx, k), **f32)
+    d_coef = torch.empty(coef.shape, **f32)
+    partial = torch.empty((batch, n_w + dx + dy), **f32)
+    grads = torch.empty((n_w + dx + dy,), **f32)
+
+    seed0, seed1 = (0, 0) if seed is None else seed
+    lib = _build.load_library()
+    _, off_f, off_g = consts["offsets"]
+    err = lib.psvo_scan_backward(
+        x0.data_ptr(), x_all.data_ptr(), idx.data_ptr(), stats.data_ptr(), coef.data_ptr(),
+        _ptr(eps), consts["packed"].data_ptr(), consts["sconst"].data_ptr(),
+        d_stats.data_ptr(), _ptr(d_x_last), _ptr(d_alpha_last), _ptr(d_x_all),
+        _ptr(d_alpha_all), d_x0.data_ptr(), d_coef.data_ptr(), partial.data_ptr(),
+        grads.data_ptr(), seed0, seed1, int(seed is not None), batch, k, t_len, dx, dy,
+        consts["hidden"], consts["n_mid"], n_w, off_f, off_g, stream,
+    )
+    scan_backward.launches += 1
+    _build.check(lib, err, "scan_backward")
+    return d_x0, d_coef, grads[:n_w], grads[n_w:]
+
+
+# ---------------------------------------------------------------------------
+# K1 + K4 as one differentiable operation
+# ---------------------------------------------------------------------------
+
+
+class ScanForward(torch.autograd.Function):
+    """`scan_forward` with `scan_backward` as its VJP: the counterpart of
+    `pallas_step._scan_call`'s custom VJP.
+
+    apply(x0, alpha0, coef, packed, sconst, consts, eps, positions, seed,
+    cache) returns (x_last, alpha_last, stats), plus (x_all, alpha_all) under
+    cache. packed and sconst are consts["packed"] / consts["sconst"], passed
+    apart so autograd sees them. When an input needs a gradient the forward
+    saves the residuals (x0, x_all, idx, stats, coef, the weights and eps or
+    the seed) and the backward runs K4 on them; alpha0 gets no gradient
+    (see `scan_backward_reference`).
+    """
+
+    @staticmethod
+    def forward(ctx, x0, alpha0, coef, packed, sconst, consts, eps, positions, seed, cache):
+        consts = dict(consts, packed=packed, sconst=sconst)
+        save = any(ctx.needs_input_grad)
+        if save and x0.is_cuda and not _k4_ok(consts, x0.shape[-1]):
+            raise ValueError("ScanForward: this configuration has no backward kernel "
+                             "(fused_step.scan_backward)")
+        x_last, alpha_last, stats, x_all, alpha_all, idx = scan_forward(
+            x0, alpha0, coef, consts, eps=eps, positions=positions, seed=seed, cache=cache,
+            save_res=save,
+        )
+        if save:
+            ctx.save_for_backward(x0, x_all, idx, stats, coef, packed, sconst, eps)
+            ctx.static = {key: v for key, v in consts.items() if not torch.is_tensor(v)}
+            ctx.seed, ctx.cache = seed, cache
+        ctx.set_materialize_grads(False)
+        if cache:
+            return x_last, alpha_last, stats, x_all, alpha_all
+        return x_last, alpha_last, stats
+
+    @staticmethod
+    def backward(ctx, d_x_last, d_alpha_last, d_stats, d_x_all=None, d_alpha_all=None):
+        x0, x_all, idx, stats, coef, packed, sconst, eps = ctx.saved_tensors
+        consts = dict(ctx.static, packed=packed, sconst=sconst)
+        if d_stats is None:
+            d_stats = torch.zeros_like(stats)
+
+        def dense(t):
+            return None if t is None else t.contiguous()
+
+        d_x0, d_coef, d_packed, d_sconst = scan_backward(
+            x0, x_all, idx, stats, coef, consts, dense(d_stats), dense(d_x_last),
+            dense(d_alpha_last), dense(d_x_all), dense(d_alpha_all), eps=eps, seed=ctx.seed,
+        )
+        return d_x0, None, d_coef, d_packed, d_sconst, None, None, None, None, None

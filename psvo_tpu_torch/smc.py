@@ -10,15 +10,18 @@ Two paths, chosen from what the call can observe:
 - the kernel class (`ops.fused_step.usable`: FHN-shaped diagonal models,
   systematic resampling at every step) runs `_forward_filter_fused`, whose
   steps t = 1..T−1 are one call of `fused_step.scan_forward` — the CUDA
-  kernel K1 for CUDA tensors, its plain version for CPU tensors;
+  kernel K1 for CUDA tensors, its plain version for CPU tensors — and, when
+  autograd records, one `fused_step.ScanForward`, whose backward is the
+  CUDA kernel K4 (or its plain version);
 - everything else runs the plain step body in a Python loop over t, on CPU
   tensors only: a CUDA tensor outside the kernel class raises
   NotImplementedError rather than run plain PyTorch on the card.
 
 Public shapes follow the reference: particles are channel-major
 [B, Dx, K], `FilterResult.xs` is [T, B, Dx, K] and `filtered_means`
-[T, B, Dx]. Forward only — there is no gradient path yet (the score-function
-surrogate of the full FIVO gradient waits with the train step).
+[T, B, Dx]. Gradients follow the reference's stop-gradient FIVO: none
+through the ancestor choice (the score-function surrogate of the full FIVO
+gradient, which needs multinomial resampling, is not ported yet).
 """
 
 from __future__ import annotations
@@ -129,7 +132,10 @@ def _forward_filter_fused(
     streams: Optional[tuple] = None,
 ) -> FilterResult:
     """The kernel path: t = 0 and the fusion coefficients in plain tensor code,
-    then steps 1..T−1 as one `fused_step.scan_forward` call.
+    then steps 1..T−1 as one `fused_step.scan_forward` call — through
+    `fused_step.ScanForward` when autograd records, whose saved residuals
+    take the place of the reference's remat, so gradients reach the t = 0
+    proposal, the fusion coefficients, ab and the packed head weights.
 
     Noise: `streams` = (eps0, eps_scan, u_scan) replays given draws (u_scan
     the sorted positions); otherwise eps0 comes from `generator` and, with
@@ -167,10 +173,18 @@ def _forward_filter_fused(
         - dy * 0.5 * math.log(2.0 * math.pi)
     )
     coef = fused_step.pack_coef(aq[1:], cq[1:], sq[1:], ys_tm[1:], ab)
-    x_last, logw_last, stats, x_all, alpha_all = fused_step.scan_forward(
-        x0.contiguous(), alpha0.contiguous(), coef, consts,
-        eps=eps_scan, positions=u_scan, seed=seed, cache=cache,
-    )
+    if torch.is_grad_enabled():
+        outs = fused_step.ScanForward.apply(
+            x0.contiguous(), alpha0.contiguous(), coef, consts["packed"], consts["sconst"],
+            consts, eps_scan, u_scan, seed, cache,
+        )
+    else:
+        outs = fused_step.scan_forward(
+            x0.contiguous(), alpha0.contiguous(), coef, consts,
+            eps=eps_scan, positions=u_scan, seed=seed, cache=cache,
+        )
+    x_last, logw_last, stats = outs[:3]
+    x_all, alpha_all = outs[3:5] if cache else (None, None)
 
     increments = torch.cat([ell0[None], stats[:, :, 0]], dim=0)
     ess = torch.cat([effective_sample_size(alpha0)[None], stats[:, :, 1]], dim=0)

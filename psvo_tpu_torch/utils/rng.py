@@ -11,8 +11,9 @@ from __future__ import annotations
 import torch
 
 
-def run_generator(cfg, salt: int = 0, device="cpu") -> torch.Generator:
-    """Root generator for a run on `device`: seed + salt."""
+def run_generator(cfg, salt: int = 0, device="cuda") -> torch.Generator:
+    """Root generator for a run on `device` (the card unless the caller asks
+    for the CPU): seed + salt."""
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed + salt)
     return gen

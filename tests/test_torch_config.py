@@ -70,7 +70,7 @@ def test_port_init_matches_reference_tree():
     _, params = j_init_ssm(jcfg, jax.random.key(0))
     want = jax.tree_util.tree_map(np.asarray, params)
     got = bridge.params_to_numpy(init_ssm(tconfig.PRESETS["fhn_fivo_k1024_bench"],
-                                          torch.Generator().manual_seed(0)))
+                                          torch.Generator().manual_seed(0), device="cpu"))
     assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
     for path, a in jax.tree_util.tree_leaves_with_path(got):
         b = want
