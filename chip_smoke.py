@@ -4,11 +4,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `psvo_tpu_torch/csrc/`, checks each one
-against its plain PyTorch version on the card, then drives the two paths of
-the `fhn_fivo_k1024_bench` preset (FHN, FIVO, K=1024, B=32, T=100, relu
-heads (64, 64), in-kernel RNG) with random weights from a seed: serving,
-through `make_eval_step` and `filter_posterior`, and training, through
-`make_train_step` (10 Adam steps per call). Phases:
+against its plain PyTorch version on the card, then drives the paths of two
+presets with random weights from a seed. `fhn_fivo_k1024_bench` (FHN, FIVO,
+K=1024, B=32, T=100, relu heads (64, 64), in-kernel RNG): serving, through
+`make_eval_step` and `filter_posterior`, and training, through
+`make_train_step` (10 Adam steps per call). `lorenz63_psvo_k1024`
+(Lorenz-63, PSVO with FFBSi smoothing, K=1024, M=16, B=32, T=100, stream
+noise): serving through `smooth_posterior` and training through
+`make_train_step`. Phases:
 
   (a) the card (nvidia-smi name and power limit); TF32 off
   (b) kernel build time and per-kernel registers
@@ -22,6 +25,14 @@ through `make_eval_step` and `filter_posterior`, and training, through
   (i) training: 3 calls of 10 train steps on FHN minibatches of 32; launch
       counts, step time, K4 vs its plain version, peak memory, and the
       device time of one more call by kernel (torch.profiler)
+  (j) K1 and K4 at the Lorenz-63 shape (Dx=Dy=3, stream mode, K4 with the
+      cache cotangents) vs their plain versions (small, full)
+  (k) K5 ffbsi_forward vs its plain version on the cache of one K1 run, and
+      K6 ffbsi_backward vs its plain version on K5's selections (small, full)
+  (l) serving: smooth_posterior on three batches of 32 Lorenz-63
+      trajectories; shapes, launch counts, time per call
+  (m) training: 3 calls of 10 PSVO train steps on Lorenz-63 minibatches of
+      32; launch counts, step time, peak memory, profile by kernel
 
 Every phase prints its lines; any failure exits non-zero. The second-to-last
 lines are the kernels' JSON record (times beside the bound: the larger of
@@ -70,11 +81,16 @@ def time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_breakdown(fn, n_steps: int) -> str:
+FHN_KERNELS = {"K1": ("scan_forward_kernel",), "K4": ("scan_backward_kernel", "sum_rows_kernel")}
+PSVO_KERNELS = dict(FHN_KERNELS, K5=("ffbsi_forward_kernel",), K6=("ffbsi_backward_kernel",))
+
+
+def device_breakdown(fn, n_steps: int, groups: dict) -> str:
     """Run fn() once under torch.profiler and split the device time per step
-    into K1, K4 and every other kernel; the span runs from the first kernel's
-    start to the last one's end, and idle is the share of it with no kernel
-    running (one stream, so kernels do not overlap)."""
+    into the kernels of `groups` (name -> substrings of kernel names) and
+    every other kernel; the span runs from the first kernel's start to the
+    last one's end, and idle is the share of it with no kernel running (one
+    stream, so kernels do not overlap)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -86,22 +102,30 @@ def device_breakdown(fn, n_steps: int) -> str:
         fail("torch.profiler recorded no device time")
     span = max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)
     busy = sum(e.time_range.elapsed_us() for e in kern)
-    k1 = sum(e.time_range.elapsed_us() for e in kern if "scan_forward_kernel" in e.name)
-    k4 = sum(e.time_range.elapsed_us() for e in kern
-             if "scan_backward_kernel" in e.name or "sum_rows_kernel" in e.name)
-    n_other = sum(1 for e in kern if not any(
-        s in e.name for s in ("scan_forward_kernel", "scan_backward_kernel", "sum_rows_kernel")))
     per = 1e3 * n_steps  # us -> ms per step
+    parts, named, n_named = [], 0.0, 0
+    for label, keys in groups.items():
+        mine = [e for e in kern if any(k in e.name for k in keys)]
+        us = sum(e.time_range.elapsed_us() for e in mine)
+        named, n_named = named + us, n_named + len(mine)
+        parts.append(f"{label} {us / per:.3f}")
+    others = {}
+    for e in kern:
+        if not any(k in e.name for keys in groups.values() for k in keys):
+            others[e.name[:60]] = others.get(e.name[:60], 0.0) + e.time_range.elapsed_us()
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:5]
     return (f"span {span / per:.3f} ms/step, device busy {busy / per:.3f} ms/step (idle "
-            f"{100 * (1 - busy / span):.1f}% of the span), K1 {k1 / per:.3f}, K4 {k4 / per:.3f}, "
-            f"{n_other / n_steps:.0f} other device ops {(busy - k1 - k4) / per:.3f} ms/step")
+            f"{100 * (1 - busy / span):.1f}% of the span), " + ", ".join(parts)
+            + f", {(len(kern) - n_named) / n_steps:.0f} other device ops "
+            f"{(busy - named) / per:.3f} ms/step, the largest: "
+            + "; ".join(f"{n} {us / per:.3f}" for n, us in top))
 
 
-def slice_config(small: bool):
+def slice_config(small: bool, preset: str = "fhn_fivo_k1024_bench"):
     """The preset, or its small cut (B=4, K=128, T=10, hidden (16, 16))."""
     from psvo_tpu_torch.config import NetConfig, PRESETS
 
-    cfg = PRESETS["fhn_fivo_k1024_bench"]
+    cfg = PRESETS[preset]
     if not small:
         return cfg, 32
     net = NetConfig(hidden=(16, 16))
@@ -328,6 +352,84 @@ def check_backward(ssm, cfg, ys, gen, rng_seed=None, cache=False):
     )
 
 
+def ffbsi_operands(ssm, cfg, ys, gen):
+    """K5's operands as the PSVO objective builds them, from the cache of one
+    K1 run (stream mode): the anchors drawn from the last weights, the
+    support x_0 .. x_{T-2}, its transition terms r/mr/c, the normalized
+    log-weights, zero emission terms and fresh Gumbels."""
+    from types import SimpleNamespace
+
+    import torch
+    from psvo_tpu_torch import objectives
+    from psvo_tpu_torch.distributions import log_normalize
+    from psvo_tpu_torch.ops import fused_step
+
+    inp = kernel_inputs(ssm, cfg, ys, gen)
+    x_last, alpha_last, _, x_all, alpha_all, _ = fused_step.scan_forward(
+        inp["x0"], inp["alpha0"], inp["coef"], inp["consts"], eps=inp["eps"],
+        positions=inp["positions"], cache=True)
+    xs = torch.cat([inp["x0"][None], x_all])
+    lwn = log_normalize(torch.cat([inp["alpha0"][None], alpha_all])[:-1], dim=-1)[0]
+    batch, m, k = ys.shape[0], cfg.smc.n_smoothing_particles, cfg.smc.n_particles
+    x_anchor, _ = objectives._sample_final_particles(
+        objectives._gumbel(gen, (batch, m, k)), SimpleNamespace(x_last=x_last, logw_last=alpha_last))
+    r, mr, c = objectives._support_terms(ssm, xs[:-1], differentiable=False)
+    gum = objectives._gumbel(gen, (xs.shape[0] - 1, batch, m, k))
+    return [x_anchor.contiguous(), xs[:-1].contiguous(), r, mr, c, lwn.contiguous(),
+            torch.zeros_like(lwn), gum]
+
+
+def check_ffbsi(ops, gen):
+    """K5 against its plain version on the same operands, then K6 against its
+    plain version on K5's selections, with cotangents on all four outputs
+    (the direct bound's case) and on the paths alone (the forward bound's:
+    no support gradient wanted). A path with a selection that differs
+    somewhere is a flip; every other path is held to x~ equal and logp/logq
+    to 1e-5 relative. Returns a dict, with K6's operands for timing."""
+    import torch
+    from psvo_tpu_torch.ops import ffbsi
+
+    kern = ffbsi.ffbsi_forward(*ops)
+    ref = ffbsi.ffbsi_forward_reference(*ops)
+    torch.cuda.synchronize()
+    differ = kern[4] != ref[4]  # [T-1, B, M]
+    clean = ~differ.any(0)  # [B, M]: paths with no differing selection
+    same_x = bool(torch.equal(kern[3][:, clean], ref[3][:, clean])
+                  and torch.equal(kern[0][clean], ref[0][clean]))
+    rel = [float(((a - b).abs() / b.abs().clamp_min(1e-30))[clean].max())
+           for a, b in zip(kern[1:3], ref[1:3])]
+    x_anchor, xs, r, mr, c, lwn, lg, _ = ops
+    sel, xtilde = kern[4], kern[3]
+    cots = [torch.randn(t.shape, generator=gen, device=t.device) for t in kern[:4]]
+    names = ("d_x_first", "d_logp", "d_logq", "d_xtilde")
+    bwd = {}
+    for mode, live, needs in (("all cotangents", (0, 1, 2, 3), (True,) * 5),
+                              ("paths only", (0, 3), (False,) * 5)):
+        kw = {n: cots[i] if i in live else None for i, n in enumerate(names)}
+        args = (x_anchor, xs, r, mr, c, lwn, lg, sel, xtilde)
+        got = ffbsi.ffbsi_backward(*args, needs=needs, **kw)
+        want = ffbsi.ffbsi_backward_reference(*args, needs=needs, **kw)
+        torch.cuda.synchronize()
+        pairs = [(g, w) for g, w in zip(got, want) if w is not None]
+        reads = (x_anchor, xtilde, sel, r, mr, c, lwn) if len(live) == 4 else (sel,)
+        bwd[mode] = dict(
+            rel=[float((g - w).norm() / w.norm().clamp_min(1e-30)) for g, w in pairs],
+            maxd=[float((g - w).abs().max()) for g, w in pairs],
+            finite=all(bool(torch.isfinite(g).all()) for g, _ in pairs),
+            nones=all((g is None) == (w is None) for g, w in zip(got, want)),
+            kernel=lambda a=args, n=needs, k=kw: ffbsi.ffbsi_backward(*a, needs=n, **k),
+            plain=lambda a=args, n=needs, k=kw: ffbsi.ffbsi_backward_reference(*a, needs=n, **k),
+            n_bytes=nbytes(*reads, *[v for v in kw.values() if v is not None],
+                           *[g for g, _ in pairs]),
+        )
+    return dict(flips=int(differ.sum()), flip_paths=int((~clean).sum()), same_x=same_x,
+                rel_logp=rel[0], rel_logq=rel[1],
+                max_abs_err=max(float((a.float() - b.float()).abs().max())
+                                for a, b in zip(kern[:4], ref[:4])),
+                finite=all(bool(torch.isfinite(t).all()) for t in kern[:4]),
+                bwd=bwd, kern=kern)
+
+
 def main() -> int:
     # (a) the card
     try:
@@ -544,6 +646,7 @@ def main() -> int:
     run_gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9  # what earlier phases still hold
     plain_fns = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
                  fused_step.stream_noise_reference, fused_step.ancestor_indices_reference)
     for fn in plain_fns:
@@ -569,15 +672,206 @@ def main() -> int:
           f"K4 launches {k4_train}, plain-version calls {plain_calls}; call times "
           f"{[round(v, 3) for v in call_s]} s, train step {step_ms:.3f} ms (median of the calls "
           f"after the first, per step); K4 {k4_ms:.3f} ms vs plain {k4_plain:.3f} ms; peak "
-          f"device memory {peak_gb:.3f} GB", flush=True)
-    print(f"[i] profile of one more call: {device_breakdown(lambda: train_step(run_gen, train_batches[0]), n_per_call)}",
-          flush=True)
+          f"device memory {peak_gb:.3f} GB, of which earlier phases held {held_gb:.3f} GB "
+          f"before the run", flush=True)
+    profile = device_breakdown(lambda: train_step(run_gen, train_batches[0]), n_per_call,
+                               FHN_KERNELS)
+    print(f"[i] profile of one more call: {profile}", flush=True)
     want = len(train_batches) * n_per_call
     if k1_train != want or k4_train != want or plain_calls != 0:
         fail(f"train path launched K1 {k1_train} and K4 {k4_train} times (want {want} each), "
              f"plain versions {plain_calls}")
     if not (all(math.isfinite(v) for v in losses + norms) and moved):
         fail("training gave non-finite losses or gradient norms, or left the parameters as they were")
+
+    # (j) K1 and K4 at the Lorenz-63 shape, on Lorenz-63 observations
+    l63 = "lorenz63_psvo_k1024"
+    lcfg = pt.PRESETS[l63]
+    lds = pt.generate_dataset(lcfg.data, SEED)
+    l_obs = torch.cat([lds.obs_test, lds.obs_train]).to(dev)
+    for label, small in (("small", True), ("full", False)):
+        cfg, batch = slice_config(small, l63)
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 3), device=dev)
+        ys = l_obs[:batch, :cfg.data.t_steps].contiguous()
+        with torch.no_grad():
+            r = check_scan(label, ssm, cfg, ys, gen, tol=2e-4)
+        print(f"[j] K1 Lorenz-63 stream {label} B={batch} K={cfg.smc.n_particles} "
+              f"T={cfg.data.t_steps} hidden={cfg.net('q1').hidden}: {scan_line(r)}", flush=True)
+        if not scan_ok(r, small):
+            fail(f"K1 (Lorenz-63, {label}) disagrees with scan_forward_reference")
+        for mode, cache in (("stream", False), ("stream, cache cotangents", True)):
+            with torch.no_grad():
+                rb = check_backward(ssm, cfg, ys, gen, None, cache)
+            tol = 1e-4 if small else 1e-3
+            print(f"[j] K4 Lorenz-63 {label} {mode}: "
+                  + ", ".join(f"{n} rel L2 {e:.3e} max|d| {m:.3e}"
+                              for n, e, m in zip(leaves, rb["rel"], rb["maxd"]))
+                  + f"; idx nondecreasing {rb['monotone']}; bound rel L2 {tol:g}", flush=True)
+            if not rb["monotone"]:
+                fail("K1's ancestor indices are not nondecreasing (Lorenz-63)")
+            if not (rb["finite"] and max(rb["rel"]) <= tol):
+                fail(f"K4 (Lorenz-63, {label}, {mode}) disagrees with scan_backward_reference")
+    with torch.no_grad():  # times at full size: K1 with cache, K4 with the cache cotangents
+        inp = kernel_inputs(ssm, cfg, ys, gen)
+        args = (inp["x0"], inp["alpha0"], inp["coef"], inp["consts"])
+        noise = dict(eps=inp["eps"], positions=inp["positions"], cache=True)
+        k1l = [time_ms(lambda: fused_step.scan_forward(*args, **noise)),
+               time_ms(lambda: fused_step.scan_forward_reference(*args, inp["eps"], inp["positions"],
+                                                                 cache=True))]
+        k1l += [time_ms(lambda: fused_step.scan_forward(*args, **noise)),
+                time_ms(lambda: fused_step.scan_forward_reference(*args, inp["eps"], inp["positions"],
+                                                                  cache=True))]
+        k4l_run = rb
+        k4l = [time_ms(rb["kernel"]), time_ms(rb["plain"]), time_ms(rb["kernel"]), time_ms(rb["plain"])]
+    outs_l = fused_step.scan_forward(*args, **noise)
+    t1, k = inp["coef"].shape[0], inp["x0"].shape[-1]
+    k1l_bound, k1l_by = bound(trunk_flops(inp["consts"]) * t1 * batch * k,
+                              nbytes(*args[:3], inp["consts"]["packed"], inp["consts"]["sconst"],
+                                     inp["eps"], inp["positions"], *outs_l[:5]))
+    k4l_bound, k4l_by = bound(k4l_run["flops"], k4l_run["n_bytes"])
+    print(f"[j] Lorenz-63 full: K1 (stream, cache) {k1l[0]:.3f}/{k1l[2]:.3f} ms vs plain "
+          f"{k1l[1]:.3f}/{k1l[3]:.3f} ms, bound {k1l_bound:.3f} ms ({k1l_by}); K4 (cache "
+          f"cotangents) {k4l[0]:.3f}/{k4l[2]:.3f} ms vs plain {k4l[1]:.3f}/{k4l[3]:.3f} ms, bound "
+          f"{k4l_bound:.3f} ms ({k4l_by}); shared memory of K4 "
+          f"{fused_step.k4_smem_bytes(inp['consts'], k)} B", flush=True)
+
+    # (k) K5 and K6 vs their plain versions on the cache of one K1 run
+    from psvo_tpu_torch.ops import ffbsi
+
+    sweeps = {}
+    for label, small in (("small", True), ("full", False)):
+        cfg, batch = slice_config(small, l63)
+        if small:
+            cfg = dataclasses.replace(cfg, smc=dataclasses.replace(cfg.smc, n_smoothing_particles=8))
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 4), device=dev)
+        ys = l_obs[:batch, :cfg.data.t_steps].contiguous()
+        with torch.no_grad():
+            ops = ffbsi_operands(ssm, cfg, ys, gen)
+            rf = check_ffbsi(ops, gen)
+        sweeps[label] = (ops, rf)
+        tol = 1e-4 if small else 1e-3
+        print(f"[k] K5 {label} B={batch} M={ops[0].shape[1]} K={cfg.smc.n_particles} "
+              f"T={cfg.data.t_steps}: {rf['flips']} differing selections in {rf['flip_paths']} "
+              f"paths; paths without: x~ equal {rf['same_x']}, max rel d logp {rf['rel_logp']:.3e}, "
+              f"logq {rf['rel_logq']:.3e}; max|d| {rf['max_abs_err']:.3e}", flush=True)
+        for mode, rb in rf["bwd"].items():
+            print(f"[k] K6 {label} {mode}: per-leaf rel L2 "
+                  + ", ".join(f"{e:.3e}" for e in rb["rel"]) + " (d_x_anchor, d_xs"
+                  + (", d_r, d_mr, d_c, d_lwn, d_lg" if len(rb["rel"]) > 2 else "")
+                  + f"), max|d| {max(rb['maxd']):.3e}; bound rel L2 {tol:g}", flush=True)
+            if not (rb["finite"] and rb["nones"] and max(rb["rel"]) <= tol):
+                fail(f"K6 ({label}, {mode}) disagrees with ffbsi_backward_reference")
+        if not (rf["finite"] and rf["same_x"] and rf["rel_logq"] <= 1e-5 and rf["rel_logp"] <= 1e-5):
+            fail(f"K5 ({label}) disagrees with ffbsi_forward_reference")
+        if small and rf["flips"]:
+            fail("K5 (small) picked other particles than its plain version")
+    ops, rf = sweeps["full"]
+    with torch.no_grad():
+        k5 = [time_ms(lambda: ffbsi.ffbsi_forward(*ops)),
+              time_ms(lambda: ffbsi.ffbsi_forward_reference(*ops))]
+        k5 += [time_ms(lambda: ffbsi.ffbsi_forward(*ops)),
+               time_ms(lambda: ffbsi.ffbsi_forward_reference(*ops))]
+        k6 = {mode: [time_ms(rb["kernel"]), time_ms(rb["plain"]), time_ms(rb["kernel"]),
+                     time_ms(rb["plain"])] for mode, rb in rf["bwd"].items()}
+    t1, batch, m, dx, k = ops[1].shape[0], ops[1].shape[1], ops[0].shape[1], ops[1].shape[2], ops[1].shape[3]
+    n_pair = t1 * batch * m * k
+    # K5: per (t, b, m, j) the pair (5 operations per state dimension and 3 more), the
+    # logit, the Gumbel add and compare, and the running exp-sum: 5·Dx + 8.
+    k5_bound, k5_by = bound((5 * dx + 8) * n_pair, nbytes(*ops, *rf["kern"]))
+    # K6 with pair cotangents: three passes of the pair and its exp (5·Dx + 6 each) and the
+    # accumulations of d_c, d_r, d_mr, d_lwn, d_lg, d_q (4·Dx + 8); on the paths alone one
+    # selection compare per (t, b, m, j).
+    k6_cost = {"all cotangents": (3 * (5 * dx + 6) + 4 * dx + 8) * n_pair, "paths only": n_pair}
+    k6_bound = {mode: bound(k6_cost[mode], rb["n_bytes"]) for mode, rb in rf["bwd"].items()}
+    print(f"[k] full: K5 {k5[0]:.4f}/{k5[2]:.4f} ms vs plain {k5[1]:.3f}/{k5[3]:.3f} ms, bound "
+          f"{k5_bound:.4f} ms ({k5_by}); "
+          + "; ".join(f"K6 {mode} {v[0]:.4f}/{v[2]:.4f} ms vs plain {v[1]:.3f}/{v[3]:.3f} ms, "
+                      f"bound {k6_bound[mode][0]:.4f} ms ({k6_bound[mode][1]})"
+                      for mode, v in k6.items()), flush=True)
+
+    # (l) serving: smooth_posterior on three batches of 32 Lorenz-63 trajectories
+    cfg, batch = lcfg, 32
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    l_batches = [l_obs[i * batch:(i + 1) * batch].contiguous() for i in range(3)]
+    l_plain = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+               fused_step.stream_noise_reference, fused_step.ancestor_indices_reference,
+               ffbsi.ffbsi_forward_reference, ffbsi.ffbsi_backward_reference)
+    for fn in l_plain:
+        fn.calls = 0
+    fused_step.scan_forward.launches = ffbsi.ffbsi_forward.launches = 0
+    run_gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    t0 = time.perf_counter()
+    paths = [pt.smooth_posterior(ssm, ys, cfg, run_gen) for ys in l_batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_serve, k5_serve = fused_step.scan_forward.launches, ffbsi.ffbsi_forward.launches
+    plain_calls = sum(fn.calls for fn in l_plain)
+    shapes_ok = all(tuple(p.shape) == (batch, 16, 100, 3) for p in paths)
+    finite = all(bool(torch.isfinite(p).all()) for p in paths)
+    sp_ms = [time_ms(lambda: pt.smooth_posterior(ssm, l_batches[0], cfg, run_gen)) for _ in range(2)]
+    print(f"[l] serving {l63}: smooth_posterior x3 -> shapes {[tuple(p.shape) for p in paths]} "
+          f"ok {shapes_ok}, finite {finite}, K1 launches {k1_serve}, K5 launches {k5_serve}, "
+          f"plain-version calls {plain_calls}, wall {wall:.2f} s; smooth_posterior "
+          f"{sp_ms[0]:.3f}/{sp_ms[1]:.3f} ms per call of B={batch} (median of 5 after 2 warm-up)",
+          flush=True)
+    profile = device_breakdown(lambda: pt.smooth_posterior(ssm, l_batches[0], cfg, run_gen), 1,
+                               PSVO_KERNELS)
+    print(f"[l] profile of one more call: {profile}", flush=True)
+    if k1_serve != 3 or k5_serve != 3 or plain_calls != 0:
+        fail(f"smooth_posterior launched K1 {k1_serve} and K5 {k5_serve} times (want 3 each), "
+             f"plain versions {plain_calls}")
+    if not (shapes_ok and finite):
+        fail("smooth_posterior gave non-finite paths or the wrong shape")
+
+    # (m) training through make_train_step: 3 calls of steps_per_call PSVO steps
+    n_per_call = cfg.train.steps_per_call
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    train_step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
+    obs = lds.obs_train.to(dev)
+    pick = torch.randint(0, obs.shape[0], (3, n_per_call, batch),
+                         generator=torch.Generator().manual_seed(SEED + 7))
+    train_batches = [obs[p.to(dev)].contiguous() for p in pick]
+    before = [p.detach().clone() for p in ssm.parameters()]
+    run_gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_psvo_gb = torch.cuda.memory_allocated() / 1e9
+    l_kernels = (fused_step.scan_forward, fused_step.scan_backward, ffbsi.ffbsi_forward,
+                 ffbsi.ffbsi_backward)
+    for fn in l_plain:
+        fn.calls = 0
+    for fn in l_kernels:
+        fn.launches = 0
+    call_s, train_metrics = [], []
+    for bt in train_batches:
+        t0 = time.perf_counter()
+        train_metrics.append(train_step(run_gen, bt))
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t0)
+    psvo_launches = [fn.launches for fn in l_kernels]
+    plain_calls = sum(fn.calls for fn in l_plain)
+    peak_psvo_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(m_["loss"]) for m_ in train_metrics]
+    norms = [float(m_["grad_norm"]) for m_ in train_metrics]
+    em = [float(m_["log_joint_smoothed"]) for m_ in train_metrics]
+    moved = any(not torch.equal(a, p) for a, p in zip(before, ssm.parameters()))
+    psvo_step_ms = statistics.median(call_s[1:]) / n_per_call * 1e3
+    print(f"[m] training {l63}: {len(train_batches)} calls x {n_per_call} steps, B={batch}: loss "
+          f"per call {[round(v, 3) for v in losses]}, grad norm {[round(v, 3) for v in norms]}, "
+          f"log_joint_smoothed {[round(v, 2) for v in em]}, parameters moved {moved}; launches "
+          f"K1/K4/K5/K6 {psvo_launches}, plain-version calls {plain_calls}; call times "
+          f"{[round(v, 3) for v in call_s]} s, train step {psvo_step_ms:.3f} ms (median of the calls "
+          f"after the first, per step); peak device memory {peak_psvo_gb:.3f} GB, of which earlier "
+          f"phases held {held_psvo_gb:.3f} GB before the run", flush=True)
+    profile = device_breakdown(lambda: train_step(run_gen, train_batches[0]), n_per_call,
+                               PSVO_KERNELS)
+    print(f"[m] profile of one more call: {profile}", flush=True)
+    want = len(train_batches) * n_per_call
+    if psvo_launches != [want] * 4 or plain_calls != 0:
+        fail(f"PSVO train path launched K1/K4/K5/K6 {psvo_launches} times (want {want} each), "
+             f"plain versions {plain_calls}")
+    if not (all(math.isfinite(v) for v in losses + norms) and moved):
+        fail("PSVO training gave non-finite losses or gradient norms, or left the parameters as they were")
 
     # K2: about 80 operations per normal (a Philox4x32-10 call, about 100 integer
     # operations, serves the particle's two normals; the Box-Muller transform about 30
@@ -595,6 +889,16 @@ def main() -> int:
          "replaces": "psvo_tpu/ops/pallas_step.py:1425", "launches": k4_train,
          "max_abs_err": max(bwd[("small", "stream")]["maxd"]), "ms": k4_ms, "plain_ms": k4_plain,
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None},
+        {"name": "ffbsi_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/ffbsi.cu",
+         "replaces": "psvo_tpu/ops/pallas_ffbsi.py:294", "launches": psvo_launches[2],
+         "max_abs_err": sweeps["small"][1]["max_abs_err"], "ms": k5[0], "plain_ms": k5[1],
+         "bound_ms": k5_bound, "bound_by": k5_by, "library_ms": None},
+        {"name": "ffbsi_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/ffbsi.cu",
+         "replaces": "psvo_tpu/ops/pallas_ffbsi.py:358", "launches": psvo_launches[3],
+         "max_abs_err": max(max(rb["maxd"]) for rb in sweeps["small"][1]["bwd"].values()),
+         "ms": k6["paths only"][0], "plain_ms": k6["paths only"][1],
+         "bound_ms": k6_bound["paths only"][0], "bound_by": k6_bound["paths only"][1],
+         "library_ms": None},
     ]
     checks = [
         {"name": "stream_noise", "route": "cuda", "source": "psvo_tpu_torch/csrc/stream_noise.cu",

@@ -5,10 +5,12 @@ port imports torch and never jax; importing it builds nothing and starts
 no compile cache — the CUDA kernels (`ops/fused_step.py`, sources in
 `csrc/`) are compiled on first use on a machine with a GPU.
 
-Ported so far: the FIVO/IWAE filter of the FHN diagonal-Gaussian model
-class with its gradients, the optimizer and the train step, the evaluation
-and the filtering-posterior API. In the kernel class the whole forward scan
-is one hand-written CUDA kernel and its backward another.
+Ported so far: the FIVO/IWAE filter of the diagonal-Gaussian model class
+(FHN and Lorenz-63 data) with its gradients, PSVO's FFBSi smoothing, the
+optimizer and the train step, the evaluation, and the filtering and
+smoothing posterior APIs. In the kernel class the whole forward scan is one
+hand-written CUDA kernel and its backward another; the FFBSi sweep and its
+backward are two more.
 """
 
 __version__ = "0.1.0"
@@ -25,7 +27,7 @@ from psvo_tpu_torch.config import (
     preset,
 )
 from psvo_tpu_torch.data import Dataset, generate_dataset, load_dataset, save_dataset
-from psvo_tpu_torch.infer import filter_posterior
+from psvo_tpu_torch.infer import filter_posterior, smooth_posterior
 from psvo_tpu_torch.models.ssm import SSM, init_ssm
 from psvo_tpu_torch.objectives import make_objective
 from psvo_tpu_torch.smc import FilterResult, forward_filter
@@ -55,4 +57,5 @@ __all__ = [
     "networks",
     "preset",
     "save_dataset",
+    "smooth_posterior",
 ]

@@ -41,9 +41,12 @@
 // memory in [unit][particle] layout, with rows padded to kP + 4 floats so
 // that float4 rows land on distinct banks. Each thread owns a 4x4 output
 // block and issues two 16-byte loads per 16 FMAs. Shared memory at H=64
-// holds the weights (53.8 KB), their gradient accumulators (53.8 KB), four
-// [64][68] activation buffers (69.6 KB), the carry, d x_res and idx
-// (20 KB at K=1024): one CTA per SM, and only B of the 132 SMs work.
+// holds the weights (53.8 KB at Dx=Dy=2, 55.3 KB at 3), their gradient
+// accumulators (as much again), four [64][68] activation buffers (69.6 KB),
+// the tile arrays (7 or 9 KB), the carry, d x_res and idx (20 or 28.7 KB at
+// K=1024): 199 KB at Dx=2 and 218 KB at Dx=3 of the 227 KB a CTA may use
+// (fused_step.k4_smem_bytes; K up to 1536 fits at Dx=3). One CTA per SM, and
+// only B of the 132 SMs work.
 // Tensor cores (TF32/bf16 change the numerics) and splitting K across a
 // cluster are later work.
 //
@@ -639,11 +642,19 @@ extern "C" int psvo_scan_backward(const float* x0, const float* x_all, const int
                         seed1,   use_rng,  B,        K,            T1,      n_weights,
                         off_f,   off_g};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (dx == 2 && dy == 2 && n_mid == 1) {
+  if (dx == 2 && dy == 2 && n_mid == 1) {  // FitzHugh-Nagumo
     switch (hidden) {
       case 16: return psvo::launch_backward<2, 2, 16>(a, grads, s);
       case 32: return psvo::launch_backward<2, 2, 32>(a, grads, s);
       case 64: return psvo::launch_backward<2, 2, 64>(a, grads, s);
+      default: break;
+    }
+  }
+  if (dx == 3 && dy == 3 && n_mid == 1) {  // Lorenz-63
+    switch (hidden) {
+      case 16: return psvo::launch_backward<3, 3, 16>(a, grads, s);
+      case 32: return psvo::launch_backward<3, 3, 32>(a, grads, s);
+      case 64: return psvo::launch_backward<3, 3, 64>(a, grads, s);
       default: break;
     }
   }

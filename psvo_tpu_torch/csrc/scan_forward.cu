@@ -307,11 +307,19 @@ extern "C" int psvo_scan_forward(const float* x0, const float* alpha0, const flo
                          seed1,  use_rng,   B,      K,         T1,    n_mid,  n_weights,
                          off_f,  off_g};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (dx == 2 && dy == 2) {
+  if (dx == 2 && dy == 2) {  // FitzHugh-Nagumo
     switch (hidden) {
       case 16: return psvo::launch_scan<2, 2, 16>(a, s);
       case 32: return psvo::launch_scan<2, 2, 32>(a, s);
       case 64: return psvo::launch_scan<2, 2, 64>(a, s);
+      default: break;
+    }
+  }
+  if (dx == 3 && dy == 3) {  // Lorenz-63
+    switch (hidden) {
+      case 16: return psvo::launch_scan<3, 3, 16>(a, s);
+      case 32: return psvo::launch_scan<3, 3, 32>(a, s);
+      case 64: return psvo::launch_scan<3, 3, 64>(a, s);
       default: break;
     }
   }

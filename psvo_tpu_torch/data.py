@@ -1,10 +1,13 @@
-"""Synthetic datasets (counterpart of `psvo_tpu/data.py`, the FHN path).
+"""Synthetic datasets (counterpart of `psvo_tpu/data.py`, the FHN and
+Lorenz-63 paths).
 
-Simulate `n_train + n_test` trajectories of the true FHN model with process
-noise, observed through a linear Gaussian emission. The draws come from a
-seeded `torch.Generator`, so a port dataset differs from a reference one of
-the same seed; `simulate_from_noise` takes the noise explicitly so the two
-simulators can be compared on the same draws. `save_dataset`/`load_dataset`
+Simulate `n_train + n_test` trajectories of the true FHN or Lorenz-63 model
+with process noise, observed through a linear Gaussian emission. Lorenz-63
+starts near the attractor's centre and is run 500 noise-free steps onto the
+attractor before the first recorded step, as in the reference. The draws
+come from a seeded `torch.Generator`, so a port dataset differs from a
+reference one of the same seed; `simulate_from_noise` takes the noise
+explicitly so the two simulators can be compared on the same draws. `save_dataset`/`load_dataset`
 use the reference's npz format, so both packages read one file.
 """
 
@@ -32,6 +35,11 @@ class Dataset:
     control_matrix: torch.Tensor | None = None  # [Di, Dx]
 
 
+# Burn-in pushes chaotic initial states onto the attractor before recording.
+_BURN_IN = {"lorenz63": 500}
+_X0_OFFSET = {"lorenz63": (0.0, 0.0, 25.0)}  # start near the attractor center
+
+
 def emission_map(cfg: DataConfig, generator: torch.Generator):
     """Fixed [Dx, Dy] observation matrix: identity when square (or
     identity_gaussian), else a random projection from the dataset seed."""
@@ -44,7 +52,11 @@ def simulate_from_noise(cfg: DataConfig, c_emit, x0_noise, proc_noise, obs_noise
     """Deterministic simulator: x0 noise [n, Dx], process noise [T, n, Dx],
     observation noise [T, n, Dy] -> (hidden [n, T, Dx], obs [n, T, Dy])."""
     stepper = dyn.make_stepper(cfg)
-    x = cfg.x0_scale * x0_noise
+    offset = torch.tensor(_X0_OFFSET.get(cfg.datatype, (0.0,) * cfg.dx),
+                          dtype=x0_noise.dtype, device=x0_noise.device)
+    x = offset + cfg.x0_scale * x0_noise
+    for _ in range(_BURN_IN.get(cfg.datatype, 0)):
+        x = stepper.step(x)
     xs, ys = [], []
     for t in range(cfg.t_steps):
         x = stepper.step(x) + cfg.proc_scale * proc_noise[t]

@@ -1,18 +1,21 @@
 """Posterior inference on a trained model (counterpart of `psvo_tpu/infer.py`).
 
 `filter_posterior` serves filtering means (and optionally the particle
-cloud) for observations [B, T, Dy]. `smooth_posterior` waits for the
-smoothing objectives.
+cloud) and `smooth_posterior` smoothed trajectories by FFBSi, for
+observations [B, T, Dy]. The learned backward proposal of SVO waits for its
+slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
 from psvo_tpu_torch.config import Config
 from psvo_tpu_torch.models.ssm import SSM
+from psvo_tpu_torch.objectives import make_objective
 from psvo_tpu_torch.smc import forward_filter
 from psvo_tpu_torch.train import filtered_means
 from psvo_tpu_torch.utils.rng import run_generator
@@ -46,3 +49,35 @@ def filter_posterior(
     if return_particles:
         return means, fwd.xs.permute(1, 0, 3, 2), fwd.logws.transpose(0, 1)
     return means
+
+
+@torch.no_grad()
+def smooth_posterior(
+    ssm: SSM,
+    ys,
+    cfg: Config,
+    generator: Optional[torch.Generator] = None,
+    *,
+    n_samples: Optional[int] = None,
+    method: Optional[str] = None,
+    encoder_inputs=None,
+    noise: Optional[tuple] = None,
+):
+    """Smoothed posterior trajectories [B, M, T, Dx]: FFBSi over the forward
+    support ("psvo", the default), with M = n_samples or the config's
+    smoothing-particle count. method "svo" (the learned backward proposal)
+    is not ported yet and raises. The generator defaults to the run's
+    (seed + 18, on the device of ys); noise is the objective's replay hook
+    (`objectives.make_objective`).
+    """
+    method = method or (cfg.smc.objective if cfg.smc.objective in ("svo", "psvo") else "psvo")
+    if method != "psvo":
+        raise NotImplementedError(f"smooth_posterior: method={method!r} is not ported yet")
+    if generator is None:
+        generator = run_generator(cfg, 18, device=ys.device)
+    m = n_samples or cfg.smc.n_smoothing_particles
+    run_cfg = dataclasses.replace(
+        cfg, smc=dataclasses.replace(cfg.smc, objective=method, n_smoothing_particles=m)
+    )
+    out = make_objective(ssm, run_cfg)(generator, ys, encoder_inputs, noise)
+    return out.smoothed.permute(1, 2, 0, 3)  # [T, B, M, Dx] -> [B, M, T, Dx]

@@ -1,9 +1,9 @@
 """Ground-truth dynamics (counterpart of `psvo_tpu/models/dynamics.py`).
 
-The FitzHugh–Nagumo stepper that simulates the FHN datasets. Steppers act
-on an arbitrary state axis (default last) and vectorize over every other
-axis. Lorenz-63, Lorenz-96 and the linear oracle dynamics wait for the
-slices that need them.
+The FitzHugh–Nagumo and Lorenz-63 steppers that simulate the FHN and
+Lorenz-63 datasets. Steppers act on an arbitrary state axis (default last)
+and vectorize over every other axis. Lorenz-96 and the linear oracle
+dynamics wait for the slices that need them.
 """
 
 from __future__ import annotations
@@ -53,13 +53,34 @@ class FitzHughNagumo:
         return _STEPPERS[self.integrator](lambda z: self.drift(z, axis), x, self.dt)
 
 
-DYNAMICS = {"fhn": FitzHughNagumo}
+@dataclass(frozen=True)
+class Lorenz63:
+    """Classic chaotic 3-D system (sigma, rho, beta) = (10, 28, 8/3)."""
+
+    sigma: float = 10.0
+    rho: float = 28.0
+    beta: float = 8.0 / 3.0
+    dt: float = 0.01
+    integrator: str = "rk4"
+    dim = 3
+
+    def drift(self, x, axis: int = -1):
+        a, b, c = x.select(axis, 0), x.select(axis, 1), x.select(axis, 2)
+        return torch.stack(
+            [self.sigma * (b - a), a * (self.rho - c) - b, a * b - self.beta * c], dim=axis
+        )
+
+    def step(self, x, axis: int = -1):
+        return _STEPPERS[self.integrator](lambda z: self.drift(z, axis), x, self.dt)
+
+
+DYNAMICS = {"fhn": FitzHughNagumo, "lorenz63": Lorenz63}
 
 
 def make_stepper(data_cfg):
     """Ground-truth stepper for a DataConfig."""
     if data_cfg.datatype not in DYNAMICS:
         raise NotImplementedError(
-            f"datatype={data_cfg.datatype!r}: only 'fhn' dynamics are ported"
+            f"datatype={data_cfg.datatype!r}: only {sorted(DYNAMICS)} dynamics are ported"
         )
     return DYNAMICS[data_cfg.datatype](**dict(data_cfg.dyn_overrides))

@@ -5,12 +5,13 @@ transition f(x_t|x_{t-1}), the emission g(y_t|x_t) and the learned prior
 p(x_0). Where the reference keeps a static `SSM` plus a params pytree, here
 `SSM` is an `nn.Module` that owns its heads; every method reads them from
 `self`. The `_cm` methods take the forward filter's channel-major particle
-layout [B, D, K]; the feature-last ones serve the k-step evaluation.
+layout [B, D, K]; the feature-last ones serve the k-step evaluation and the
+log-joint of the smoothed paths.
 
-Ported: the diagonal-Gaussian model class of the FHN FIVO slice. Controls
-(di > 0), bootstrap proposals, known dynamics, full-covariance heads,
-Poisson/Dirac emissions and the SVO backward proposal's GRU raise
-NotImplementedError until their slices land.
+Ported: the diagonal-Gaussian model class of the FHN FIVO and Lorenz-63
+PSVO slices. Controls (di > 0), bootstrap proposals, known dynamics,
+full-covariance heads, Poisson/Dirac emissions and the SVO backward
+proposal's GRU raise NotImplementedError until their slices land.
 """
 
 from __future__ import annotations
@@ -116,6 +117,11 @@ class SSM(nn.Module):
     def prior_params(self):
         return self.prior_mean, networks.scale_from_raw(self.prior_raw_scale, 1e-3)
 
+    def prior_log_prob(self, x):
+        """x [..., Dx] -> [...]."""
+        mean, scale = self.prior_params()
+        return dist.mvn_diag_log_prob(x, mean, scale)
+
     def prior_log_prob_cm(self, x):
         """x [..., Dx, K] -> [..., K]."""
         mean, scale = self.prior_params()
@@ -149,7 +155,25 @@ class SSM(nn.Module):
         mean, scale = self._mean_scale_cm("g", x)
         return dist.mvn_diag_log_prob_cm(y[..., :, None], mean, scale)
 
-    # -- feature-last means (k-step evaluation) --------------------------------
+    def transition_params_cm(self, x_prev):
+        """Diagonal transition: x_prev [..., Dx, K] -> (mean, scale) [..., Dx, K]."""
+        return self._mean_scale_cm("f", x_prev)
+
+    # -- feature-last (smoothed-path log-joint, k-step evaluation) ---------------
+
+    def transition_params(self, x_prev):
+        """Diagonal transition -> (mean, scale), feature-last."""
+        return self._mean_scale("f", x_prev)
+
+    def transition_log_prob(self, x_prev, x):
+        """log f(x | x_prev): [..., Dx] x [..., Dx] -> [...]."""
+        mean, scale = self.transition_params(x_prev)
+        return dist.mvn_diag_log_prob(x, mean, scale)
+
+    def emission_log_prob(self, x, y):
+        """log g(y | x): x [..., Dx], y [..., Dy] -> [...]."""
+        mean, scale = self._mean_scale("g", x)
+        return dist.mvn_diag_log_prob(y, mean, scale)
 
     def transition_mean(self, x_prev):
         """Mean next state [..., Dx] — k-step prediction rollouts."""

@@ -1,21 +1,41 @@
 """Variational SMC objectives (counterpart of `psvo_tpu/objectives.py`).
 
-Ported: the IWAE/FIVO branch of `make_objective`, forward only —
-IWAE log Ẑ = lse_k(Σ_t α_t) − log K without resampling, FIVO with per-step
-resampling. SVO and PSVO (the smoothing objectives) wait for their slices.
+Ported: the IWAE/FIVO branch of `make_objective` — IWAE log Ẑ =
+lse_k(Σ_t α_t) − log K without resampling, FIVO with per-step resampling —
+and PSVO: FFBSi backward simulation of M smoothed trajectories over the
+cached forward particles, the model's log-joint along them, and the two
+bounds (`smc.psvo_bound`). The reported ELBO of PSVO is the forward log Ẑ (the
+Rao-Blackwellized bound collapses to it); "forward" trains on it plus a
+zero-valued EM surrogate whose gradient is the log-joint's on the smoothed
+paths, "direct" on the sampled-trajectory bound
+lse_m(log p(x̃^m, y) − log q̃(x̃^m)) − log M with q̃ the discrete backward path
+pmf. The module docstring of the reference derives both.
+
+The FFBSi sweep is `ops.ffbsi.FFBSiSweep`: the CUDA kernels K5/K6 for CUDA
+tensors, their plain versions for CPU tensors. SVO, the segmented long-T
+sweep (`smc.ffbsi_segments > 1`), the particle-sharded sweep and the chunked
+log-joint (T − 1 ≥ 1024) wait for their slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from psvo_tpu_torch.config import Config
+from psvo_tpu_torch.distributions import _HALF_LOG_2PI, log_normalize
 from psvo_tpu_torch.models.ssm import SSM
+from psvo_tpu_torch.ops import ffbsi
 from psvo_tpu_torch.smc import FilterResult, forward_filter
+
+# Time steps per chunk of the support terms when they take no gradient: the
+# transition trunk's activations of a chunk, not of all T − 1 steps, are live
+# (at B=32, K=1024, hidden 64: 67 MB per activation tensor).
+_SUPPORT_CHUNK = 8
 
 
 @dataclass
@@ -23,11 +43,102 @@ class ObjectiveOutput:
     loss: torch.Tensor  # scalar, to minimize
     elbo: torch.Tensor  # [B] per-trajectory bound
     metrics: dict  # scalars for logging
+    smoothed: Optional[torch.Tensor] = None  # [T, B, M, Dx] backward trajectories
     filter_result: Optional[FilterResult] = None
 
 
+def _pairwise_support_terms(ssm: SSM, x_support):
+    """Support-side terms of the pairwise transition density (diagonal f):
+    x_support [..., Dx, K] -> r = 1/s², mr = m·r [..., Dx, K] and
+    c = −½Σ_d m²r − Σ_d log s − Dx·½log 2π [..., K]; `ops.ffbsi.pair_logp`
+    contracts them with the queries."""
+    mean, scale = ssm.transition_params_cm(x_support)
+    r = 1.0 / (scale * scale)
+    logdet = torch.sum(torch.log(scale), dim=-2)
+    t3 = torch.sum(mean * mean * r, dim=-2)
+    d = x_support.shape[-2]
+    return r, mean * r, -0.5 * t3 - logdet - d * _HALF_LOG_2PI
+
+
+def _support_terms(ssm: SSM, x_support, differentiable: bool):
+    """(r, mr, c) of every support step [T−1, B, ·, K], contiguous. Without a
+    gradient they are computed in chunks of time steps, into their outputs."""
+    if differentiable:
+        return tuple(t.contiguous() for t in _pairwise_support_terms(ssm, x_support))
+    r, mr = torch.empty_like(x_support), torch.empty_like(x_support)
+    t_len, batch, _, k = x_support.shape
+    c = x_support.new_empty((t_len, batch, k))
+    with torch.no_grad():
+        for i in range(0, x_support.shape[0], _SUPPORT_CHUNK):
+            for out, part in zip((r, mr, c), _pairwise_support_terms(
+                    ssm, x_support[i:i + _SUPPORT_CHUNK])):
+                out[i:i + _SUPPORT_CHUNK] = part
+    return r, mr, c
+
+
+def _sample_final_particles(gum, fwd: FilterResult):
+    """M trajectory anchors from the final filtering distribution by
+    Gumbel-argmax over gum [B, M, K]. Returns (x̃_{T−1} [B, M, Dx], the
+    anchors' normalized log-weights [B, M])."""
+    logw_norm, _ = log_normalize(fwd.logw_last, dim=-1)  # [B, K]
+    idx = torch.argmax(logw_norm[:, None, :] + gum, dim=-1)  # [B, M]
+    x_t = torch.gather(fwd.x_last, 2, idx[:, None, :].expand(-1, fwd.x_last.shape[1], -1))
+    return x_t.transpose(1, 2), torch.gather(logw_norm, 1, idx)
+
+
+def _selected_path_log_joint(ssm: SSM, x_tilde, ys_tm):
+    """log p_θ(x̃, y) [B, M] on the selected trajectories x_tilde [T, B, M, Dx]
+    (the direct form; equal in value and gradient to gathering full-support
+    densities, since the selected particle is the support atom)."""
+    lp_f = ssm.transition_log_prob(x_tilde[:-1], x_tilde[1:])
+    lp_g = ssm.emission_log_prob(x_tilde, ys_tm[:, :, None, :])
+    return torch.sum(lp_f, dim=0) + torch.sum(lp_g, dim=0) + ssm.prior_log_prob(x_tilde[0])
+
+
+def _ffbsi_backward(ssm: SSM, gum_anchor, gum_scan, ys_tm, fwd: FilterResult, *,
+                    differentiable_sweep: bool):
+    """FFBSi backward simulation over the forward support. Returns (smoothed
+    [T, B, M, Dx], log p(smoothed, y) [B, M], log q̃ [B, M]).
+
+    The sweep only selects; the log-joint is evaluated afterwards on the
+    selected paths. Unless the direct bound needs them, the support terms and
+    normalized weights carry no gradient (the reference's stop_gradient), so
+    only the selected particles' cotangents reach the filter.
+    """
+    x_anchor, lwn_anchor = _sample_final_particles(gum_anchor, fwd)
+    x_support = fwd.xs[:-1]
+    r, mr, c = _support_terms(ssm, x_support, differentiable_sweep)
+    lwn, _ = log_normalize(fwd.logws[:-1], dim=-1)  # [T−1, B, K]
+    if not differentiable_sweep:
+        lwn = lwn.detach()
+    # the in-sweep logp is discarded (the log-joint is recomputed below), so
+    # its emission stream is zeros
+    lg = torch.zeros_like(lwn)
+    _, _, lq_sweep, xtilde = ffbsi.FFBSiSweep.apply(
+        x_anchor.contiguous(), x_support.contiguous(), r, mr, c, lwn.contiguous(), lg,
+        gum_scan.contiguous(),
+    )
+    smoothed = torch.cat([xtilde, x_anchor[None]], dim=0)
+    logp = _selected_path_log_joint(ssm, smoothed, ys_tm)
+    return smoothed, logp, lwn_anchor + lq_sweep
+
+
+def _gumbel(generator, shape):
+    """Standard Gumbel draws −log(−log U), U uniform on [tiny, 1), as
+    jax.random.gumbel makes them; in place, so the largest tensor of the
+    PSVO step (gum_scan, 208 MB at the preset) has no temporaries."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return u.clamp_(min=torch.finfo(u.dtype).tiny).log_().neg_().log_().neg_()
+
+
 def make_objective(ssm: SSM, cfg: Config):
-    """Return objective(generator, ys, encoder_inputs=None, noise=None)."""
+    """Return objective(generator, ys, encoder_inputs=None, noise=None).
+
+    noise is the testing hook: the filter's draws (eps0, eps_scan, u_scan)
+    (`smc.forward_filter`), and for PSVO also the backward Gumbels
+    (gum_anchor [B, M, K], gum_scan [T−1, B, M, K]) after them. Whatever it
+    leaves out is drawn from the generator, the filter's noise first.
+    """
     smc_cfg = cfg.smc
     if smc_cfg.objective == "iwae":
         smc_cfg = dataclasses.replace(smc_cfg, resampling="none")
@@ -39,12 +150,17 @@ def make_objective(ssm: SSM, cfg: Config):
             "resampling='multinomial'; systematic resampling has no "
             "product-categorical ancestor density"
         )
-    if smc_cfg.objective not in ("iwae", "fivo"):
+    if smc_cfg.objective not in ("iwae", "fivo", "psvo"):
         raise NotImplementedError(f"objective={smc_cfg.objective!r} is not ported yet")
+    if smc_cfg.objective == "psvo" and smc_cfg.ffbsi_segments > 1:
+        raise NotImplementedError("smc.ffbsi_segments > 1 (segmented long-T PSVO) is not ported yet")
+    psvo = smc_cfg.objective == "psvo"
+    m = smc_cfg.n_smoothing_particles
 
     def objective(generator, ys, encoder_inputs=None, noise=None) -> ObjectiveOutput:
         fwd = forward_filter(
-            ssm, generator, ys, smc_cfg, encoder_inputs=encoder_inputs, noise=noise
+            ssm, generator, ys, smc_cfg, cache=psvo, encoder_inputs=encoder_inputs,
+            noise=None if noise is None else tuple(noise[:3]),
         )
         metrics = {
             "log_z_fwd": torch.mean(fwd.log_z),
@@ -52,6 +168,35 @@ def make_objective(ssm: SSM, cfg: Config):
             "ess_min": torch.min(fwd.ess),
         }
         elbo = fwd.log_z
-        return ObjectiveOutput(-torch.mean(elbo), elbo, metrics, filter_result=fwd)
+        if not psvo:
+            return ObjectiveOutput(-torch.mean(elbo), elbo, metrics, filter_result=fwd)
+
+        batch, t_steps, _ = ys.shape
+        k = smc_cfg.n_particles
+        if noise is not None and len(noise) == 5:
+            gum_anchor, gum_scan = noise[3], noise[4]
+        elif generator is None:
+            raise ValueError("psvo: pass a generator or the backward Gumbels in noise")
+        else:
+            gum_anchor = _gumbel(generator, (batch, m, k))
+            gum_scan = _gumbel(generator, (t_steps - 1, batch, m, k))
+        direct_bound = smc_cfg.psvo_bound == "direct"
+        x_tilde, logp_joint, logq_pmf = _ffbsi_backward(
+            ssm, gum_anchor, gum_scan, ys.transpose(0, 1), fwd,
+            differentiable_sweep=direct_bound,
+        )
+        # the sampled-trajectory bound; log q̃ is a pmf over the K-particle
+        # support, so it carries a support-size offset (reference docstring)
+        direct = torch.logsumexp(logp_joint - logq_pmf, dim=-1) - math.log(m)
+        em_term = torch.mean(logp_joint)
+        if direct_bound:
+            loss = -torch.mean(direct)
+        else:
+            # forward bound + zero-valued EM surrogate carrying the
+            # smoothed-path model gradient
+            loss = -torch.mean(elbo) - (em_term - em_term.detach())
+        metrics["log_joint_smoothed"] = em_term
+        metrics["elbo_psvo_direct"] = torch.mean(direct)
+        return ObjectiveOutput(loss, elbo, metrics, x_tilde, fwd)
 
     return objective

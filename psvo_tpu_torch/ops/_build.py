@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels of `psvo_tpu_torch/csrc/`.
 
-At first use `nvcc` compiles every `csrc/*.cu` for Hopper (`sm_90a`) into one
+At first use `nvcc` compiles every `csrc/*.cu` for Hopper (`sm_90a`), one
+process per source, all started together, and links the objects into one
 shared library with a plain C interface, which is loaded with `ctypes`. The
 library goes to `psvo_tpu_torch/_build/<hash>/`, keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads.
@@ -23,9 +24,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 LIB_NAME = "libpsvo_kernels.so"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers, shared memory and spills -> build.log
 )
 
@@ -38,6 +39,8 @@ SIGNATURES = {
     "psvo_scan_backward": [_P] * 17 + [_U32, _U32] + [_I] * 11 + [_P],
     "psvo_stream_noise": [_P, _P, _U32, _U32, _I, _I, _I, _I, _P],
     "psvo_ancestor_indices": [_P, _P, _P, _I, _I, _P],
+    "psvo_ffbsi_forward": [_P] * 13 + [_I] * 5 + [_P],
+    "psvo_ffbsi_backward": [_P] * 18 + [_I] * 5 + [_P],
 }
 
 def sources() -> list[Path]:
@@ -65,25 +68,41 @@ def nvcc() -> str:
 
 
 def build(out_dir: Path) -> Path:
-    """Compile csrc/*.cu into out_dir/LIB_NAME (atomically); return its path."""
+    """Compile each csrc/*.cu into an object, in parallel, and link them into
+    out_dir/LIB_NAME (atomically); return its path."""
     out_dir.mkdir(parents=True, exist_ok=True)
     lib = out_dir / LIB_NAME
+    t0 = time.perf_counter()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+               str(out_dir / f"{src.stem}.o"), str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(f"$ {' '.join(cmd)}\n# exit {proc.returncode}\n{out}")
+        if proc.returncode != 0:
+            failed.append(out)
+    compile_s = time.perf_counter() - t0
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if not failed:
+        cmd = [nvcc(), *ARCH_FLAGS, "-shared", "-o", tmp,
+               *[str(out_dir / f"{src.stem}.o") for src in sorted(CSRC.glob("*.cu"))]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(f"$ {' '.join(cmd)}\n# exit {proc.returncode}\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append(proc.stdout + proc.stderr)
     seconds = time.perf_counter() - t0
     (out_dir / "build.log").write_text(
-        f"$ {' '.join(cmd)}\n# {seconds:.1f} s, exit {proc.returncode}\n"
-        f"{proc.stdout}{proc.stderr}"
+        f"# {len(jobs)} sources compiled in parallel in {compile_s:.1f} s, "
+        f"{seconds:.1f} s with the link\n" + "\n".join(log)
     )
-    if proc.returncode != 0:
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-8000:]}"
-        )
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f[-8000:] for f in failed))
     os.replace(tmp, lib)
     return lib
 

@@ -53,8 +53,9 @@ from psvo_tpu_torch.ops.resampling import gather_particles
 
 MAX_K = 4096  # shared memory: fp64 CDF + 2x particles + log-weights + weights
 HIDDEN_WIDTHS = (16, 32, 64)  # trunk widths the kernel is instantiated for
-KERNEL_DIMS = ((2, 2),)  # (Dx, Dy) instantiated
+KERNEL_DIMS = ((2, 2), (3, 3))  # (Dx, Dy) instantiated: FitzHugh-Nagumo, Lorenz-63
 _THREADS = 256
+SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper (227 KB)
 
 
 def usable(ssm, cfg) -> bool:
@@ -550,9 +551,20 @@ def scan_backward_reference(x0, coef, consts, eps, idx, d_stats, d_x_last=None,
 scan_backward_reference.calls = 0
 
 
+def k4_smem_bytes(consts, k: int) -> int:
+    """Dynamic shared memory of K4 (csrc/scan_backward.cu::launch_backward):
+    weights and their gradient sums, four [H][68] activation tiles, the
+    [9·Dx + 2·Dy][68] tile arrays, the carry and d x_res [Dx][K], the
+    reduction scratch and the int32 ancestors [K]."""
+    dx, dy, h = consts["dx"], consts["dy"], consts["hidden"]
+    n_w = consts["packed"].numel()
+    floats = 2 * n_w + 4 * h * 68 + (9 * dx + 2 * dy) * 68 + 2 * dx * k + _THREADS // 32
+    return 4 * floats + 4 * k
+
+
 def _k4_ok(consts, k: int) -> bool:
     return ((consts["dx"], consts["dy"]) in KERNEL_DIMS and consts["hidden"] in HIDDEN_WIDTHS
-            and consts["n_mid"] == 1 and _k_ok(k))
+            and consts["n_mid"] == 1 and _k_ok(k) and k4_smem_bytes(consts, k) <= SMEM_LIMIT)
 
 
 def scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last=None,
@@ -564,8 +576,9 @@ def scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last=None,
     ancestors idx, nondecreasing along K, and stats (for ℓ). Cotangents and
     outputs as `scan_backward_reference`, which CPU tensors run (in-kernel
     RNG replayed through K2's plain version); CUDA tensors launch the kernel.
-    The kernel is built for Dx = Dy = 2, hidden widths 16/32/64 with one
-    middle layer, and K up to 2304 at width 64 (shared memory).
+    The kernel is built for Dx = Dy = 2 and 3, hidden widths 16/32/64 with
+    one middle layer, and K as far as its shared memory holds
+    (`k4_smem_bytes`: at width 64, K up to 2304 at Dx = 2 and 1536 at 3).
     """
     if (seed is None) == (eps is None):
         raise ValueError("scan_backward: pass either eps or seed")
@@ -595,7 +608,8 @@ def _launch_scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last
     if not _k4_ok(consts, k):
         raise ValueError(
             f"scan_backward: no kernel for Dx={dx}, Dy={dy}, hidden={consts['hidden']}, "
-            f"{consts['n_mid']} middle layers, K={k}"
+            f"{consts['n_mid']} middle layers, K={k} ({k4_smem_bytes(consts, k)} B of shared "
+            f"memory, at most {SMEM_LIMIT})"
         )
     _require(x0, (batch, dx, k), "x0", dev)
     _require(x_all, (t_len, batch, dx, k), "x_all", dev)

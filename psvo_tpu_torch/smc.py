@@ -7,12 +7,13 @@ the FIVO increment lse(α) − log K.
 
 Two paths, chosen from what the call can observe:
 
-- the kernel class (`ops.fused_step.usable`: FHN-shaped diagonal models,
-  systematic resampling at every step) runs `_forward_filter_fused`, whose
-  steps t = 1..T−1 are one call of `fused_step.scan_forward` — the CUDA
-  kernel K1 for CUDA tensors, its plain version for CPU tensors — and, when
-  autograd records, one `fused_step.ScanForward`, whose backward is the
-  CUDA kernel K4 (or its plain version);
+- the kernel class (`ops.fused_step.usable`: diagonal models of the FHN
+  and Lorenz-63 shapes, systematic resampling at every step) runs
+  `_forward_filter_fused`, whose steps t = 1..T−1 are one call of
+  `fused_step.scan_forward` — the CUDA kernel K1 for CUDA tensors, its
+  plain version for CPU tensors — and, when autograd records, one
+  `fused_step.ScanForward`, whose backward is the CUDA kernel K4 (or its
+  plain version);
 - everything else runs the plain step body in a Python loop over t, on CPU
   tensors only: a CUDA tensor outside the kernel class raises
   NotImplementedError rather than run plain PyTorch on the card.

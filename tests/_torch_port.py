@@ -24,12 +24,14 @@ from psvo_tpu_torch.models.ssm import SSM
 
 
 def small_configs(objective="fivo", k=128, hidden=(16, 16), t=8, resampling="systematic",
-                  **smc_kw):
-    """(reference Config, port Config) of the FHN slice at a small size."""
+                  datatype="fhn", **smc_kw):
+    """(reference Config, port Config) of the FHN slice (or, with
+    datatype="lorenz63", of the Lorenz-63 one) at a small size."""
     net = jconfig.NetConfig(hidden=hidden)
+    dim = 3 if datatype == "lorenz63" else 2
     jcfg = jconfig.Config(
         name="torch_port_test",
-        data=jconfig.DataConfig(datatype="fhn", dx=2, dy=2, t_steps=t),
+        data=jconfig.DataConfig(datatype=datatype, dx=dim, dy=dim, t_steps=t),
         smc=jconfig.SMCConfig(objective=objective, n_particles=k, resampling=resampling,
                               **smc_kw),
         train=jconfig.TrainConfig(mse_k_steps=3),
@@ -57,6 +59,20 @@ def key_noise(key, batch, t_steps, dx, k, method="systematic"):
     else:
         u_scan = np.zeros((t_steps - 1, batch, 1), np.float32)
     return tuple(np.asarray(a) for a in (eps0, eps_scan, u_scan))
+
+
+def psvo_noise(key, batch, t_steps, dx, k, m):
+    """The PSVO objective's draws from `key`, as the reference derives them:
+    (eps0, eps_scan, u_scan) of the filter from the first half of the key,
+    then the FFBSi Gumbels gum_anchor [B, M, K] and gum_scan [T−1, B, M, K]
+    from the second (objectives._ffbsi_backward), as torch tensors."""
+    from psvo_tpu import objectives as jobjectives
+
+    k_fwd, k_bwd = jax.random.split(key)
+    k_anchor, k_cat = jax.random.split(k_bwd)
+    gum_anchor = jax.random.gumbel(k_anchor, (batch, m, k))
+    gum_scan = jobjectives._gumbel_from_keys(jax.random.split(k_cat, t_steps - 1), (batch, m, k))
+    return to_torch((*key_noise(k_fwd, batch, t_steps, dx, k), gum_anchor, gum_scan))
 
 
 def to_torch(arrays):

@@ -14,7 +14,7 @@ import torch
 
 from psvo_tpu_torch.config import PRESETS, NetConfig
 from psvo_tpu_torch.models.ssm import init_ssm
-from psvo_tpu_torch.ops import fused_step
+from psvo_tpu_torch.ops import ffbsi, fused_step
 
 torch.set_num_threads(1)
 
@@ -99,9 +99,9 @@ def test_cuda_tensor_outside_the_kernel_class_raises():
         forward_filter(ssm, torch.Generator(device=dev), ys, multinomial)
 
 
-def _small_cfg(**smc):
+def _small_cfg(preset="fhn_fivo_k1024_bench", **smc):
     net = NetConfig(hidden=(16, 16))
-    cfg = PRESETS["fhn_fivo_k1024_bench"].with_nets(
+    cfg = PRESETS[preset].with_nets(
         q0=net, q1=net, q2=net, f=net, qb=net, g=dataclasses.replace(net, sigma_init=0.5))
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, t_steps=6),
                               smc=dataclasses.replace(cfg.smc, n_particles=128, **smc))
@@ -189,3 +189,116 @@ def _leaves(tree):
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in _leaves(v)]
     return [tree]
+
+
+def test_scan_kernels_match_plain_at_lorenz_dims():
+    """K1 (stream mode) and K4 at Dx = Dy = 3 against their plain versions,
+    with every cotangent live, the cache ones included."""
+    dev = _cuda()
+    cfg = _small_cfg("lorenz63_psvo_k1024")
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    b, k, t1 = 4, 128, 5
+    x0 = torch.randn((b, 3, k), generator=g, device=dev) * 8.0
+    a0 = torch.randn((b, k), generator=g, device=dev)
+    coef = torch.rand((t1, b, 13), generator=g, device=dev) + 0.1
+    eps = torch.randn((t1, b, 3, k), generator=g, device=dev)
+    pos = fused_step.systematic_positions(torch.rand((t1, b), generator=g, device=dev), k)
+    with torch.no_grad():
+        consts = fused_step.prepare(ssm)
+        got = fused_step.scan_forward(x0, a0, coef, consts, eps=eps, positions=pos, cache=True,
+                                      save_res=True)
+        want = fused_step.scan_forward_reference(x0, a0, coef, consts, eps, pos, cache=True,
+                                                 save_res=True)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4)
+    x_last, _, stats, x_all, alpha_all, idx = got
+    d_stats = torch.randn(stats.shape, generator=g, device=dev)
+    cots = [torch.randn(t.shape, generator=g, device=dev) * 0.1
+            for t in (x_last, a0, x_all, alpha_all)]
+    k4 = fused_step.scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, *cots, eps=eps)
+    ref = fused_step.scan_backward_reference(x0, coef, consts, eps, idx, d_stats, *cots)
+    for a, w in zip(k4, ref):
+        assert _rel(a, w) <= 1e-4
+    consts_big = dict(consts, hidden=64, packed=torch.zeros(13836, device=dev))
+    assert not fused_step._k4_ok(consts_big, 2048)  # shared memory: K <= 1536 at width 64
+    assert fused_step._k4_ok(consts_big, 1024)
+
+
+def _sweep(dev, dx, b=4, m=8, k=128, t1=9, seed=0):
+    """One sweep's operands on the card: support terms of a transition with
+    means near the support, normalized weights, Gumbels and anchors."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.randn((t1, b, dx, k), generator=g, device=dev) * 8.0
+    mean = xs + torch.randn(xs.shape, generator=g, device=dev)
+    scale = 0.5 + 1.5 * torch.rand(xs.shape, generator=g, device=dev)
+    r = 1.0 / (scale * scale)
+    c = -0.5 * (mean * mean * r).sum(2) - torch.log(scale).sum(2) - dx * 0.9189385332
+    lwn = torch.log_softmax(torch.randn((t1, b, k), generator=g, device=dev) * 2.0, dim=-1)
+    lg = torch.randn((t1, b, k), generator=g, device=dev)
+    u = torch.rand((t1, b, m, k), generator=g, device=dev).clamp_min(1e-30)
+    x_anchor = xs[-1, :, :, :m].transpose(1, 2).contiguous()
+    return [t.contiguous() for t in (x_anchor, xs, r, mean * r, c, lwn, lg, -torch.log(-torch.log(u)))]
+
+
+@pytest.mark.parametrize("dx", [2, 3])
+def test_ffbsi_kernels_match_plain(dx):
+    """K5 picks the plain version's particles (identical selections and
+    paths, logp/logq to 1e-5); K6 on K5's selections matches the plain replay
+    to 1e-4 relative per leaf, with all cotangents and with the paths' alone."""
+    dev = _cuda()
+    ops = _sweep(dev, dx)
+    launches = (ffbsi.ffbsi_forward.launches, ffbsi.ffbsi_backward.launches)
+    got = ffbsi.ffbsi_forward(*ops)
+    want = ffbsi.ffbsi_forward_reference(*ops)
+    assert torch.equal(got[4], want[4]) and torch.equal(got[3], want[3])
+    assert torch.equal(got[0], want[0])
+    for a, w in zip(got[1:3], want[1:3]):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    x_anchor, xs, r, mr, c, lwn, lg, _ = ops
+    sel, xtilde = got[4], got[3]
+    g = torch.Generator(device=dev).manual_seed(3)
+    cots = [torch.randn(t.shape, generator=g, device=dev) for t in got[:4]]
+    for live, needs in (((0, 1, 2, 3), (True,) * 5), ((0, 3), (False,) * 5)):
+        kw = {n: cots[i] if i in live else None
+              for i, n in enumerate(("d_x_first", "d_logp", "d_logq", "d_xtilde"))}
+        k6 = ffbsi.ffbsi_backward(x_anchor, xs, r, mr, c, lwn, lg, sel, xtilde, needs=needs, **kw)
+        ref = ffbsi.ffbsi_backward_reference(x_anchor, xs, r, mr, c, lwn, lg, sel, xtilde,
+                                             needs=needs, **kw)
+        for a, w in zip(k6, ref):
+            assert (a is None) == (w is None)
+            if a is not None:
+                assert _rel(a, w) <= 1e-4
+    assert (ffbsi.ffbsi_forward.launches, ffbsi.ffbsi_backward.launches) == (
+        launches[0] + 1, launches[1] + 2)
+
+
+def test_cuda_tensor_outside_the_ffbsi_class_raises():
+    dev = _cuda()
+    ops = _sweep(dev, 3)
+    wide = (torch.zeros((4, 8, 4), device=dev), torch.zeros((9, 4, 4, 128), device=dev))
+    with pytest.raises(ValueError, match="no kernel"):  # Dx = 4: not instantiated
+        ffbsi.ffbsi_forward(*wide, *ops[2:])
+    with pytest.raises(ValueError, match="gum"):
+        ffbsi.ffbsi_forward(*ops[:7], ops[7][:, :, :4].contiguous())
+
+
+def test_cuda_psvo_train_step_launches_the_four_kernels():
+    """One PSVO train step on the card: K1, K4, K5 and K6 once each, no plain
+    version, finite loss."""
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    dev = _cuda()
+    cfg = _small_cfg("lorenz63_psvo_k1024")
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ys = torch.randn((4, 6, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+    kernels = (fused_step.scan_forward, fused_step.scan_backward, ffbsi.ffbsi_forward,
+               ffbsi.ffbsi_backward)
+    plain = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+             ffbsi.ffbsi_forward_reference, ffbsi.ffbsi_backward_reference)
+    launches, calls = [f.launches for f in kernels], [f.calls for f in plain]
+    metrics = make_train_step(ssm, cfg, make_optimizer(cfg))(torch.Generator(device=dev)
+                                                               .manual_seed(3), ys)
+    assert [f.launches - n for f, n in zip(kernels, launches)] == [1, 1, 1, 1]
+    assert [f.calls for f in plain] == calls
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])

@@ -1,7 +1,7 @@
 """The torch port's modules against the JAX reference, one by one.
 
 Same numpy-made inputs through both packages: distributions, MLP heads, the
-FHN stepper and simulator, the dataset file format, resampling indices
+FHN and Lorenz-63 steppers and simulators, the dataset file format, resampling indices
 (ties included), and the plain versions of the CUDA kernels — the
 Philox4x32-10 known answers, the noise streams, the count-form indices.
 The kernels themselves are checked on a GPU by tests/test_torch_cuda.py.
@@ -95,8 +95,20 @@ def test_fhn_stepper_matches_reference(integrator):
     assert_close(got.step(T(xt)), want.step(xt), 1e-5)
     cfg = DataConfig(dyn_overrides=(("dt", 0.1),))
     assert tdyn.make_stepper(cfg) == tdyn.FitzHughNagumo(dt=0.1)
+
+
+@pytest.mark.parametrize("integrator", ["rk4", "euler"])
+def test_lorenz63_stepper_matches_reference(integrator):
+    x = _f32(_rng(3).standard_normal((4, 3, 6)) * 10.0 + np.array([0.0, 0.0, 25.0])[:, None])
+    want = jdyn.Lorenz63(integrator=integrator)
+    got = tdyn.Lorenz63(integrator=integrator)
+    assert_close(got.step(T(x), axis=-2), want.step(x, axis=-2), 1e-5)
+    xt = np.swapaxes(x, 1, 2).copy()
+    assert_close(got.step(T(xt)), want.step(xt), 1e-5)
+    cfg = DataConfig(datatype="lorenz63", dx=3, dy=3, dyn_overrides=(("rho", 20.0),))
+    assert tdyn.make_stepper(cfg) == tdyn.Lorenz63(rho=20.0)
     with pytest.raises(NotImplementedError):
-        tdyn.make_stepper(DataConfig(datatype="lorenz63", dx=3, dy=3))
+        tdyn.make_stepper(DataConfig(datatype="lorenz96", dx=40, dy=40))
 
 
 def test_fhn_simulator_matches_reference_on_its_noise():
@@ -116,6 +128,33 @@ def test_fhn_simulator_matches_reference_on_its_noise():
     assert_close(ys, np.concatenate([ds.obs_train, ds.obs_test]), 1e-4)
     port = tdata.generate_dataset(cfg_t, seed=4)
     assert port.obs_train.shape == (3, 12, 2) and port.hidden_test.shape == (2, 12, 2)
+    assert bool(torch.isfinite(port.hidden_train).all())
+
+
+def test_lorenz63_simulator_matches_reference_on_its_noise():
+    """Burn-in and the x0 offset included: 500 noise-free RK4 steps from
+    (0, 0, 25) + x0_scale·noise before the first recorded step. The chaos
+    grows a one-ulp difference by about 1e5 over the burn-in, and XLA's fused
+    loop rounds otherwise than op-by-op arithmetic, so the reference runs op
+    by op here (jax.disable_jit): its own simulator and draws, rounded as
+    the port rounds."""
+    kw = dict(datatype="lorenz63", dx=3, dy=3, t_steps=12, n_train=3, n_test=2, obs_scale=0.5)
+    cfg_j, cfg_t = jdata.DataConfig(**kw), DataConfig(**kw)
+    n = cfg_j.n_train + cfg_j.n_test
+    with jax.disable_jit():
+        ds = jdata.generate_dataset(cfg_j, seed=6)
+        k_x0, k_proc, k_obs, _, _, _ = jax.random.split(jax.random.key(6), 6)
+        x0 = jax.random.normal(k_x0, (n, 3))
+        proc, obs = (jnp.stack([jax.random.normal(k, (n, 3)) for k in jax.random.split(key, 12)])
+                     for key in (k_proc, k_obs))
+    hidden, ys = tdata.simulate_from_noise(
+        cfg_t, torch.eye(3), *(torch.tensor(np.asarray(a)) for a in (x0, proc, obs))
+    )
+    assert_close(hidden, np.concatenate([ds.hidden_train, ds.hidden_test]), 1e-4)
+    assert_close(ys, np.concatenate([ds.obs_train, ds.obs_test]), 1e-4)
+    assert float(hidden.abs().max()) > 5.0  # on the attractor, not near the origin
+    port = tdata.generate_dataset(cfg_t, seed=6)
+    assert port.obs_train.shape == (3, 12, 3) and port.hidden_test.shape == (2, 12, 3)
     assert bool(torch.isfinite(port.hidden_train).all())
 
 

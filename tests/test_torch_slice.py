@@ -160,8 +160,9 @@ def test_preset_is_in_the_kernel_class_and_unported_modes_raise():
     from psvo_tpu_torch.config import PRESETS
     from psvo_tpu_torch.models.ssm import SSM
 
-    cfg = PRESETS["fhn_fivo_k1024_bench"]
-    assert fused_step.usable(SSM(cfg), cfg.smc)
+    for name in ("fhn_fivo_k1024_bench", "lorenz63_psvo_k1024"):
+        cfg = PRESETS[name]
+        assert fused_step.usable(SSM(cfg), cfg.smc), name
     for name in ("fhn_fivo_controls", "fhn_fivo_tril", "fhn_fivo_dirac",
                  "fhn_fivo_known_dynamics"):
         with pytest.raises(NotImplementedError):
@@ -170,6 +171,6 @@ def test_preset_is_in_the_kernel_class_and_unported_modes_raise():
     _, _, tssm = models(jcfg, tcfg)
     with pytest.raises(ValueError, match="multinomial"):
         t_make_objective(tssm, tcfg)
-    _, psvo_cfg = small_configs(objective="psvo")
+    _, svo_cfg = small_configs(objective="svo")
     with pytest.raises(NotImplementedError):
-        t_make_objective(tssm, psvo_cfg)
+        t_make_objective(tssm, svo_cfg)
