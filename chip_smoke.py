@@ -34,11 +34,24 @@ noise): serving through `smooth_posterior` and training through
   (m) training: 3 calls of 10 PSVO train steps on Lorenz-63 minibatches of
       32; launch counts, step time, peak memory, profile by kernel
 
-Every phase prints its lines; any failure exits non-zero. The second-to-last
-lines are the kernels' JSON record (times beside the bound: the larger of
-the operations over 67 TFLOP/s fp32 and the bytes over 3.35 TB/s, the
-H100 SXM's published peaks); the last line is the device record. Imports
-nothing of JAX: the machine with the card has none.
+then `lorenz96_fivo_k8192_sharded` (Lorenz-96, Dx=Dy=40, FIVO, K=8192, B=8,
+T=100, relu heads (64, 64), in-kernel RNG) with the trained snapshot
+`checkpoints/l96_pretrained.npz`, served on one card by the trunk path:
+
+  (n) K2 at Dx=40 vs the plain Philox (bit-equal)
+  (o) K7 ancestor_indices_large and K8 gather_particles vs their plain
+      versions on adversarial rows (small, full)
+  (p) K9 trunk_forward vs its plain version on every step of one kernel
+      run, with the streamed ε and the in-kernel draw (small, full)
+  (q) serving through make_eval_step and filter_posterior (with and without
+      the particles): launch counts, ELBO, R², time per call, peak memory
+      and a profile by kernel
+
+Every phase prints its lines and its seconds; any failure exits non-zero.
+The second-to-last line is the kernels' JSON record (times beside the
+bound: the larger of the operations over 67 TFLOP/s fp32 and the bytes over
+3.35 TB/s, the H100 SXM's published peaks); the last line is the device
+record. Imports nothing of JAX: the machine with the card has none.
 """
 
 from __future__ import annotations
@@ -59,9 +72,38 @@ FP32_PEAK = 67e12  # FLOP/s on the CUDA cores, H100 SXM at 700 W
 HBM_PEAK = 3.35e12  # bytes/s
 
 
+_LAST = [time.perf_counter()]
+
+
+def phase_done(label: str) -> None:
+    """Print the seconds since the previous phase ended."""
+    now = time.perf_counter()
+    print(f"[time] {label}: {now - _LAST[0]:.1f} s", flush=True)
+    _LAST[0] = now
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Device time per call of fn(): the kernels' own time from torch.profiler
+    over n calls after one warm-up, without the host's launch gaps (which
+    CUDA events around a short call include)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        fail("torch.profiler recorded no device time")
+    return sum(e.time_range.elapsed_us() for e in kern) / n / 1e3
 
 
 def time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
@@ -83,6 +125,9 @@ def time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
 
 FHN_KERNELS = {"K1": ("scan_forward_kernel",), "K4": ("scan_backward_kernel", "sum_rows_kernel")}
 PSVO_KERNELS = dict(FHN_KERNELS, K5=("ffbsi_forward_kernel",), K6=("ffbsi_backward_kernel",))
+L96_KERNELS = {"K9": ("trunk_forward_kernel",), "K7": ("ancestor_indices_large_kernel",),
+               "K8": ("gather_particles_kernel",)}
+L96 = "lorenz96_fivo_k8192_sharded"
 
 
 def device_breakdown(fn, n_steps: int, groups: dict) -> str:
@@ -430,6 +475,104 @@ def check_ffbsi(ops, gen):
                 bwd=bwd, kern=kern)
 
 
+def l96_config(small: bool):
+    """The Lorenz-96 preset (B=8), or its small cut (B=4, K=128, T=10,
+    hidden (16, 16)); Dx=Dy=40 either way."""
+    cfg, batch = slice_config(small, L96)
+    return cfg, (4 if small else cfg.train.batch_size)
+
+
+def weight_rows(k: int, gen):
+    """Eight log-weight rows on the card: generic, uniform, ties, zero
+    weights, all floored, a floored mix, one dominant particle (the
+    degenerate regime) and a wide spread."""
+    import torch
+
+    dev = gen.device
+    i = torch.arange(k, device=dev)
+    return torch.stack([
+        torch.randn(k, device=dev, generator=gen) * 3,
+        torch.zeros(k, device=dev),
+        torch.randint(0, 3, (k,), device=dev, generator=gen).float() * -1,
+        torch.where(i % 3 == 0, 0.0, -float("inf")),
+        torch.full((k,), -3e30, device=dev),
+        torch.where(i % 5 == 0, -1.0, -1e30),
+        torch.where(i == (517 * k) // 1024, 0.0, -50.0),
+        torch.linspace(-100.0, 0.0, k, device=dev),
+    ]).contiguous()
+
+
+def trunk_run(ssm, cfg, ys, gen, rng_seed=None):
+    """One kernel run of the trunk path over all T−1 steps (K7, K8, K9 on the
+    run's own state), holding K9's plain version to every step's x_res
+    (teacher-forced), and with the in-kernel draw also K9's stream mode on
+    K2's ε (bit-equal); beside it the plain versions' own free run on the
+    same noise. Returns the per-step relative L2 of x_new and α, the largest
+    |Δ|, whether every step was allclose at 2e-4, the rows whose free runs
+    took another ancestor somewhere (and the first such step), log Ẑ's
+    relative difference over all rows and over the rows without, and the
+    last step's operands."""
+    import torch
+    from psvo_tpu_torch import smc
+    from psvo_tpu_torch.ops import fused_step, trunk
+    from psvo_tpu_torch.ops import resample_gather as rg
+
+    batch, t_steps, _ = ys.shape
+    k, dx, dy, dev = cfg.smc.n_particles, ssm.dx, ssm.dy, ys.device
+    ys_tm = ys.transpose(0, 1)
+    consts = fused_step.prepare(ssm)
+    aq, cq, sq, logsq = fused_step.fusion_coeffs(ssm, cfg.smc, consts, ys_tm)
+    x0, alpha0 = smc._init_t0(ssm, torch.randn((batch, dx, k), generator=gen, device=dev),
+                              ys_tm[0], ys_tm[0])
+    ab = logsq[1:] - consts["log_sf_sum"] - consts["log_sg_sum"] - dy * 0.5 * math.log(2 * math.pi)
+    coef = fused_step.pack_coef(aq[1:], cq[1:], sq[1:], ys_tm[1:], ab)
+    pos = fused_step.systematic_positions(torch.rand((t_steps - 1, batch), generator=gen,
+                                                     device=dev), k)
+    if rng_seed is not None:
+        eps = fused_step.stream_noise(rng_seed, t_steps - 1, batch, dx, k, dev)[0]
+    else:
+        eps = torch.randn((t_steps - 1, batch, dx, k), generator=gen, device=dev)
+    x, logw = x0.contiguous(), alpha0.contiguous()
+    x_p, logw_p = x, logw  # the plain versions' own free run
+    flip_step = torch.full((batch,), -1, device=dev)
+    ell_k, ell_p = [], []
+    rel, maxd, close_all, same = [], [], True, True
+    for t in range(t_steps - 1):
+        idx = rg.ancestor_indices_large(logw, pos[t].contiguous())
+        idx_p = rg.ancestor_indices_large_reference(logw_p, pos[t])
+        flipped = (idx != idx_p).any(dim=-1) & (flip_step < 0)
+        flip_step = torch.where(flipped, torch.full_like(flip_step, t), flip_step)
+        x_p, logw_p = trunk.trunk_forward_reference(rg.gather_particles_reference(x_p, idx_p),
+                                                    coef[t], consts, eps[t])
+        x_res = rg.gather_particles(x, idx)
+        if rng_seed is not None:
+            got = trunk.trunk_forward(x_res, coef[t], consts, seed=rng_seed, t=t)
+            same &= all(torch.equal(a, b) for a, b in
+                        zip(got, trunk.trunk_forward(x_res, coef[t], consts, eps=eps[t])))
+        else:
+            got = trunk.trunk_forward(x_res, coef[t], consts, eps=eps[t])
+        want = trunk.trunk_forward_reference(x_res, coef[t], consts, eps[t])
+        rel.append(torch.stack([(g - w).norm() / w.norm().clamp_min(1e-30)
+                                for g, w in zip(got, want)]))
+        maxd.append(torch.stack([(g - w).abs().max() for g, w in zip(got, want)]))
+        close_all &= close(got, want, 2e-4)
+        x, logw = got
+        ell_k.append(torch.logsumexp(logw, -1))
+        ell_p.append(torch.logsumexp(logw_p, -1))
+    rel = torch.stack(rel)
+    # log Ẑ less the common t = 0 term and the −log K of every step
+    log_z_k, log_z_p = torch.stack(ell_k).sum(0), torch.stack(ell_p).sum(0)
+    rel_z = (log_z_k - log_z_p).abs() / log_z_p.abs().clamp_min(1e-30)
+    clean = flip_step < 0
+    return dict(rel_x=float(rel[:, 0].max()), rel_a=float(rel[:, 1].max()),
+                flip_rows=int((~clean).sum()), first_flips=flip_step.tolist(),
+                rel_z=float(rel_z.max()),
+                rel_z_clean=float(rel_z[clean].max()) if bool(clean.any()) else None,
+                maxd=float(torch.stack(maxd).max()), close=close_all, same=bool(same),
+                finite=bool(torch.isfinite(x).all() and torch.isfinite(logw).all()),
+                last=(x_res, coef[-1], consts, eps[-1]))
+
+
 def main() -> int:
     # (a) the card
     try:
@@ -465,6 +608,7 @@ def main() -> int:
     print(f"[b] build {build_s:.1f} s; registers "
           + ", ".join(f"{n}={r}" for n, r in regs)
           + f"; max spill stores {max(map(int, spills), default=0)} B", flush=True)
+    phase_done("a, b: card and build")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -501,6 +645,7 @@ def main() -> int:
           f"{k3_err} on [32, {k}] random rows; {k3_ms:.4f} ms vs plain {k3_plain:.4f} ms", flush=True)
     if mism or k3_err:
         fail("K3 disagrees with the plain indices")
+    phase_done("c")
 
     # (d) K2 vs plain Philox at the slice shape
     seed = (0x1234ABCD, 0x0F0F1234)
@@ -519,6 +664,7 @@ def main() -> int:
           f"{moments[2]:.4f}; {k2_ms:.4f} ms vs plain {k2_plain:.4f} ms", flush=True)
     if e_bad or u_bad:
         fail("K2 is not bit-equal to the plain Philox")
+    phase_done("d")
 
     # (e) K1 stream mode vs plain, small and full
     results = {}
@@ -533,6 +679,7 @@ def main() -> int:
               f"hidden={cfg.net('q1').hidden}: {scan_line(r)}", flush=True)
         if not scan_ok(r, small):
             fail(f"K1 (stream mode, {label}) disagrees with scan_forward_reference")
+    phase_done("e")
 
     # (f) K1 in-kernel RNG vs the plain path on K2's streams
     for label, small in (("small", True), ("full", False)):
@@ -545,6 +692,7 @@ def main() -> int:
               f"replay {scan_line(r)}", flush=True)
         if not scan_ok(r, small):
             fail(f"K1 (in-kernel RNG, {label}) disagrees with the plain replay")
+    phase_done("f")
 
     # (g) serving through its entry points
     cfg, batch = slice_config(small=False)
@@ -589,6 +737,7 @@ def main() -> int:
         fail(f"serving path launched K1 {launches} times (want 4), plain versions {plain_calls}")
     if not (finite and shapes_ok):
         fail("slice outputs non-finite or of the wrong shape")
+    phase_done("g")
 
     t1, k = inp["coef"].shape[0], inp["x0"].shape[-1]
     # reads x0, alpha0, coef and the weights; writes x_last, alpha_last and stats
@@ -631,6 +780,7 @@ def main() -> int:
           f"{k4_plain:.3f}/{k4_plain_2:.3f} ms (kernel/plain alternated, median of 5 after 2 "
           f"warm-up); bound {k4_bound:.3f} ms ({k4_by}: {full['flops']:.3e} FLOP, "
           f"{full['n_bytes'] / 1e6:.1f} MB)", flush=True)
+    phase_done("h")
 
     # (i) training through make_train_step: 3 calls of steps_per_call steps
     cfg, batch = slice_config(small=False)
@@ -683,6 +833,7 @@ def main() -> int:
              f"plain versions {plain_calls}")
     if not (all(math.isfinite(v) for v in losses + norms) and moved):
         fail("training gave non-finite losses or gradient norms, or left the parameters as they were")
+    phase_done("i")
 
     # (j) K1 and K4 at the Lorenz-63 shape, on Lorenz-63 observations
     l63 = "lorenz63_psvo_k1024"
@@ -734,6 +885,7 @@ def main() -> int:
           f"cotangents) {k4l[0]:.3f}/{k4l[2]:.3f} ms vs plain {k4l[1]:.3f}/{k4l[3]:.3f} ms, bound "
           f"{k4l_bound:.3f} ms ({k4l_by}); shared memory of K4 "
           f"{fused_step.k4_smem_bytes(inp['consts'], k)} B", flush=True)
+    phase_done("j")
 
     # (k) K5 and K6 vs their plain versions on the cache of one K1 run
     from psvo_tpu_torch.ops import ffbsi
@@ -788,6 +940,7 @@ def main() -> int:
           + "; ".join(f"K6 {mode} {v[0]:.4f}/{v[2]:.4f} ms vs plain {v[1]:.3f}/{v[3]:.3f} ms, "
                       f"bound {k6_bound[mode][0]:.4f} ms ({k6_bound[mode][1]})"
                       for mode, v in k6.items()), flush=True)
+    phase_done("k")
 
     # (l) serving: smooth_posterior on three batches of 32 Lorenz-63 trajectories
     cfg, batch = lcfg, 32
@@ -822,6 +975,7 @@ def main() -> int:
              f"plain versions {plain_calls}")
     if not (shapes_ok and finite):
         fail("smooth_posterior gave non-finite paths or the wrong shape")
+    phase_done("l")
 
     # (m) training through make_train_step: 3 calls of steps_per_call PSVO steps
     n_per_call = cfg.train.steps_per_call
@@ -872,6 +1026,209 @@ def main() -> int:
              f"plain versions {plain_calls}")
     if not (all(math.isfinite(v) for v in losses + norms) and moved):
         fail("PSVO training gave non-finite losses or gradient norms, or left the parameters as they were")
+    phase_done("m")
+
+    # (n) K2 at the Lorenz-96 width vs the plain Philox
+    from psvo_tpu_torch.ops import resample_gather as rg
+    from psvo_tpu_torch.ops import trunk
+
+    l_cfg, l_batch = l96_config(small=False)
+    lk = l_cfg.smc.n_particles
+    seed40 = (0x2468ACE0, 0x13579BDF)
+    e40_k, u40_k = fused_step.stream_noise(seed40, 3, l_batch, 40, lk, dev)
+    e40_r, u40_r = fused_step.stream_noise_reference(seed40, 3, l_batch, 40, lk, dev)
+    torch.cuda.synchronize()
+    e40_bad, u40_bad = int((e40_k != e40_r).sum()), int((u40_k != u40_r).sum())
+    k2l_ms = time_ms(lambda: fused_step.stream_noise(seed40, 3, l_batch, 40, lk, dev), reps=20)
+    k2l_plain = time_ms(lambda: fused_step.stream_noise_reference(seed40, 3, l_batch, 40, lk, dev))
+    k2l_dev = device_ms(lambda: fused_step.stream_noise(seed40, 3, l_batch, 40, lk, dev))
+    k2l_bound, k2l_by = bound(80.0 * e40_k.numel(), nbytes(e40_k, u40_k))  # as phase (d)'s K2
+    print(f"[n] K2 stream_noise [3,{l_batch},40,{lk}]: eps mismatches {e40_bad}, u0 mismatches "
+          f"{u40_bad}, eps mean {float(e40_k.mean()):.4f} std {float(e40_k.std()):.4f}; "
+          f"{k2l_ms:.4f} ms (device time {k2l_dev:.4f} ms) vs plain {k2l_plain:.4f} ms; bound "
+          f"{k2l_bound:.4f} ms ({k2l_by})", flush=True)
+    if e40_bad or u40_bad:
+        fail("K2 at Dx=40 is not bit-equal to the plain Philox")
+    del e40_k, e40_r
+    phase_done("n")
+
+    # (o) K7 and K8 vs their plain versions, adversarial rows, small and full
+    for label, kk, dd in (("small", 128, 40), ("full", lk, 40)):
+        lw = weight_rows(kk, gen)
+        pos = fused_step.systematic_positions(torch.rand(lw.shape[0], device=dev, generator=gen),
+                                              kk).contiguous()
+        idx7 = rg.ancestor_indices_large(lw, pos)
+        again = rg.ancestor_indices_large(lw, pos)
+        idx7_r = rg.ancestor_indices_large_reference(lw, pos)
+        xg = torch.randn((lw.shape[0], dd, kk), device=dev, generator=gen)
+        out8 = rg.gather_particles(xg, idx7)
+        out8_r = rg.gather_particles_reference(xg, idx7)
+        torch.cuda.synchronize()
+        k7_bad = int((idx7 != idx7_r).sum())
+        k7_same = bool(torch.equal(idx7, again))
+        k8_equal = bool(torch.equal(out8, out8_r))
+        dominant = int(idx7[6].unique().numel())
+        print(f"[o] K7/K8 {label} [8, {kk}], D={dd}: K7 mismatches {k7_bad} (same indices on a "
+              f"second launch {k7_same}), K8 bit-equal {k8_equal} (the dominant-particle row draws "
+              f"{dominant} distinct ancestor(s))", flush=True)
+        if k7_bad or not k7_same or not k8_equal or dominant != 1:
+            fail(f"K7/K8 ({label}) disagree with their plain versions")
+    lw = torch.randn((l_batch, lk), device=dev, generator=gen) * 3
+    pos = fused_step.systematic_positions(torch.rand(l_batch, device=dev, generator=gen), lk)
+    pos = pos.contiguous()
+    idx7 = rg.ancestor_indices_large(lw, pos)
+    xg = torch.randn((l_batch, 40, lk), device=dev, generator=gen)
+    idx64 = idx7.long()[:, None, :].expand(-1, 40, -1)
+    k7 = [time_ms(lambda: rg.ancestor_indices_large(lw, pos), reps=20),
+          time_ms(lambda: rg.ancestor_indices_large_reference(lw, pos), reps=20)]
+    k8 = [time_ms(lambda: rg.gather_particles(xg, idx7), reps=20),
+          time_ms(lambda: rg.gather_particles_reference(xg, idx7), reps=20),
+          time_ms(lambda: torch.gather(xg, -1, idx64), reps=20)]
+    k7 += [time_ms(lambda: rg.ancestor_indices_large(lw, pos), reps=20),
+           time_ms(lambda: rg.ancestor_indices_large_reference(lw, pos), reps=20)]
+    k8 += [time_ms(lambda: rg.gather_particles(xg, idx7), reps=20),
+           time_ms(lambda: rg.gather_particles_reference(xg, idx7), reps=20)]
+    k7_dev = [device_ms(lambda: rg.ancestor_indices_large(lw, pos)),
+              device_ms(lambda: rg.ancestor_indices_large_reference(lw, pos))]
+    k8_dev = [device_ms(lambda: rg.gather_particles(xg, idx7)),
+              device_ms(lambda: rg.gather_particles_reference(xg, idx7)),
+              device_ms(lambda: torch.gather(xg, -1, idx64))]
+    # K7: the CDF scan and a binary search per particle; logw and positions in,
+    # int32 indices out. K8: x read once, the indices, x_res written once.
+    k7_bound, k7_by = bound(2.0 * lw.numel() * (1 + math.log2(lk)), nbytes(lw, pos, idx7))
+    k8_bound, k8_by = bound(0.0, 2 * nbytes(xg) + nbytes(idx7))
+    print(f"[o] full [8, {lk}]: K7 {k7[0]:.4f}/{k7[2]:.4f} ms vs plain {k7[1]:.4f}/{k7[3]:.4f} ms, "
+          f"bound {k7_bound:.5f} ms ({k7_by}); K8 (D=40) {k8[0]:.4f}/{k8[3]:.4f} ms vs plain "
+          f"{k8[1]:.4f}/{k8[4]:.4f} ms, torch.gather on the int64 index {k8[2]:.4f} ms, bound "
+          f"{k8_bound:.4f} ms ({k8_by}); kernel/plain alternated, CUDA events around one call, "
+          f"median of 20. Device time per call (torch.profiler, 20 calls): K7 {k7_dev[0]:.4f} ms, "
+          f"plain {k7_dev[1]:.4f} ms; K8 {k8_dev[0]:.4f} ms, plain {k8_dev[1]:.4f} ms, "
+          f"torch.gather {k8_dev[2]:.4f} ms", flush=True)
+    phase_done("o")
+
+    # (p) K9 vs its plain version on every step of one kernel run
+    l_ds = pt.generate_dataset(l_cfg.data, SEED)
+    l_obs = torch.cat([l_ds.obs_test, l_ds.obs_train]).to(dev)
+    snapshot = os.path.join(ROOT, "checkpoints", "l96_pretrained.npz")
+    k9 = {}
+    for label, small in (("small", True), ("full", False)):
+        cfg, batch = l96_config(small)
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 6), device=dev)
+        if not small:
+            pt.load_params_npz(ssm, snapshot)
+        ys = l_obs[:batch, :cfg.data.t_steps].contiguous()
+        for mode, rng_seed in (("stream", None), ("in-kernel RNG", (17, 0xBEEF))):
+            with torch.no_grad():
+                r = trunk_run(ssm, cfg, ys, gen, rng_seed)
+            k9[(label, mode)] = r
+            print(f"[p] K9 {label} B={batch} K={cfg.smc.n_particles} T={cfg.data.t_steps} "
+                  f"hidden={cfg.net('q1').hidden} {mode}: every step allclose(2e-4) {r['close']}, "
+                  f"max per-step rel L2 x_new {r['rel_x']:.3e} alpha {r['rel_a']:.3e}, max|d| "
+                  f"{r['maxd']:.3e}, finite {r['finite']}"
+                  + (f", bit-equal to stream mode on K2's eps {r['same']}" if rng_seed else "")
+                  + f"; free runs: {r['flip_rows']} of {batch} rows with an ancestor flip (first "
+                  f"flip step per row {r['first_flips']}), max rel d logZ {r['rel_z']:.3e}, over "
+                  f"rows without "
+                  + ("none (no row without)" if r["rel_z_clean"] is None
+                     else f"{r['rel_z_clean']:.3e}"), flush=True)
+            ok = (r["close"] if small else max(r["rel_x"], r["rel_a"]) <= 1e-4) \
+                and (r["rel_z_clean"] is None or r["rel_z_clean"] <= 1e-4)
+            if not (ok and r["finite"] and r["same"]):
+                fail(f"K9 ({label}, {mode}) disagrees with trunk_forward_reference")
+    k9_small_err = max(k9[("small", m)]["maxd"] for m in ("stream", "in-kernel RNG"))
+    x_res, coef_t, l_consts, eps_t = k9[("full", "in-kernel RNG")]["last"]
+    with torch.no_grad():
+        k9t = [time_ms(lambda: trunk.trunk_forward(x_res, coef_t, l_consts, seed=(17, 0xBEEF), t=98),
+                       reps=20),
+               time_ms(lambda: trunk.trunk_forward_reference(x_res, coef_t, l_consts, eps_t), reps=20),
+               time_ms(lambda: trunk.trunk_forward(x_res, coef_t, l_consts, eps=eps_t), reps=20)]
+        k9t += [time_ms(lambda: trunk.trunk_forward(x_res, coef_t, l_consts, seed=(17, 0xBEEF), t=98),
+                        reps=20),
+                time_ms(lambda: trunk.trunk_forward_reference(x_res, coef_t, l_consts, eps_t),
+                        reps=20)]
+        k9_dev = [device_ms(lambda: trunk.trunk_forward(x_res, coef_t, l_consts, seed=(17, 0xBEEF),
+                                                        t=98)),
+                  device_ms(lambda: trunk.trunk_forward_reference(x_res, coef_t, l_consts, eps_t)),
+                  device_ms(lambda: trunk.trunk_forward(x_res, coef_t, l_consts, eps=eps_t))]
+    n_part = x_res.shape[0] * x_res.shape[-1]
+    # x_res and the step's small operands in, x_new and α out (ε drawn in the kernel)
+    k9_bound, k9_by = bound(trunk_flops(l_consts) * n_part,
+                            2 * nbytes(x_res) + nbytes(coef_t, l_consts["packed"],
+                                                       l_consts["sconst"]) + 4 * n_part)
+    k9_regs = re.search(r"trunk_forward_kernelILi40ELi40ELi64EE.*?Used (\d+) registers",
+                        _build.build_log(), re.S)
+    k9_spill = re.search(r"trunk_forward_kernelILi40ELi40ELi64EE[^\n]*\n[^\n]*\n\s*(\d+) bytes "
+                         r"stack frame, (\d+) bytes spill stores", _build.build_log())
+    print(f"[p] K9 full (B={x_res.shape[0]}, K={x_res.shape[-1]}, hidden 64): in-kernel RNG "
+          f"{k9t[0]:.4f}/{k9t[3]:.4f} ms, stream {k9t[2]:.4f} ms, plain {k9t[1]:.4f}/{k9t[4]:.4f} ms "
+          f"(alternated, CUDA events around one call, median of 20); device time per call "
+          f"(torch.profiler, 20 calls) in-kernel RNG {k9_dev[0]:.4f} ms, stream {k9_dev[2]:.4f} ms, "
+          f"plain {k9_dev[1]:.4f} ms; bound {k9_bound:.4f} ms ({k9_by}, "
+          f"{trunk_flops(l_consts) * n_part:.3e} FLOP); registers "
+          f"{k9_regs.group(1) if k9_regs else '?'}, spill stores "
+          f"{k9_spill.group(2) if k9_spill else '?'} B, shared memory "
+          f"{trunk.smem_bytes(40, 40, 64, 1)} B per CTA", flush=True)
+    del x_res, eps_t
+    k9.clear()
+    phase_done("p")
+
+    # (q) serving the preset with the trained snapshot through its entry points
+    cfg, batch = l_cfg, l_batch
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    pt.load_params_npz(ssm, snapshot)
+    ys = l_ds.obs_test[:batch].to(dev).contiguous()
+    eval_step = pt.make_eval_step(ssm, cfg)
+    run_gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    l_kernels = (rg.ancestor_indices_large, rg.gather_particles, trunk.trunk_forward)
+    l_plain = (rg.ancestor_indices_large_reference, rg.gather_particles_reference,
+               trunk.trunk_forward_reference, fused_step.stream_noise_reference,
+               fused_step.scan_forward_reference)
+    calls = {"eval_step": lambda: eval_step(run_gen, ys),
+             "filter_posterior": lambda: pt.filter_posterior(ssm, ys, cfg, run_gen),
+             "filter_posterior(return_particles)": lambda: pt.filter_posterior(
+                 ssm, ys, cfg, run_gen, return_particles=True)}
+    torch.cuda.synchronize()
+    held_l96_gb = torch.cuda.memory_allocated() / 1e9
+    outs, serve_launches, serve_peak = {}, {}, {}
+    for label, fn in calls.items():
+        for f in l_kernels:
+            f.launches = 0
+        for f in l_plain:
+            f.calls = 0
+        torch.cuda.reset_peak_memory_stats()
+        outs[label] = fn()
+        torch.cuda.synchronize()
+        serve_peak[label] = torch.cuda.max_memory_allocated() / 1e9 - held_l96_gb
+        serve_launches[label] = [f.launches for f in l_kernels] + [sum(f.calls for f in l_plain)]
+    metrics = outs["eval_step"]
+    means = outs["filter_posterior"]
+    p_means, parts, lws = outs["filter_posterior(return_particles)"]
+    t_steps = cfg.data.t_steps
+    shapes_ok = (tuple(means.shape) == (batch, t_steps, 40)
+                 and tuple(parts.shape) == (batch, t_steps, lk, 40)
+                 and tuple(lws.shape) == (batch, t_steps, lk))
+    finite = (math.isfinite(float(metrics["elbo"])) and bool(torch.isfinite(metrics["r2_k"]).all())
+              and bool(torch.isfinite(means).all()) and bool(torch.isfinite(parts).all()))
+    del outs, parts, lws, p_means
+    serve_ms = {label: time_ms(fn) for label, fn in calls.items()}
+    serve_ms_2 = {label: time_ms(fn) for label, fn in calls.items()}
+    r2 = [round(float(v), 4) for v in metrics["r2_k"]]
+    print(f"[q] serving {L96} (B={batch}, K={lk}, T={t_steps}, trained snapshot): ELBO "
+          f"{float(metrics['elbo']):.3f}, mean ESS {float(metrics['ess_mean']):.3f}, R2(1..10) {r2}, "
+          f"shapes ok {shapes_ok}, finite {finite}; launches K7/K8/K9 and plain-version calls per "
+          f"call {serve_launches}", flush=True)
+    for label in calls:
+        print(f"[q] {label}: {serve_ms[label]:.3f}/{serve_ms_2[label]:.3f} ms per call (CUDA "
+              f"events, median of 5 after 2 warm-up, two rounds); peak device memory "
+              f"{serve_peak[label]:.3f} GB above the {held_l96_gb:.3f} GB held before", flush=True)
+    profile = device_breakdown(calls["filter_posterior"], 1, L96_KERNELS)
+    print(f"[q] profile of one more filter_posterior call: {profile}", flush=True)
+    want_launch = [t_steps - 1] * 3 + [0]
+    if any(v != want_launch for v in serve_launches.values()):
+        fail(f"serving {L96} launched K7/K8/K9 {serve_launches} (want {want_launch} per call)")
+    if not (shapes_ok and finite):
+        fail(f"serving {L96} gave non-finite outputs or the wrong shapes")
+    phase_done("q")
 
     # K2: about 80 operations per normal (a Philox4x32-10 call, about 100 integer
     # operations, serves the particle's two normals; the Box-Muller transform about 30
@@ -881,6 +1238,14 @@ def main() -> int:
     k3_bound, k3_by = bound(2.0 * bl.numel() * (1 + math.log2(bl.shape[-1])),
                             nbytes(bl, bu) + bl.numel() * 4)
     kernels = [
+        {"name": "stream_noise", "route": "cuda", "source": "psvo_tpu_torch/csrc/stream_noise.cu",
+         "replaces": "psvo_tpu/ops/pallas_step.py:540", "launches": 0, "on_path": False,
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+        {"name": "ancestor_indices", "route": "cuda", "source": "psvo_tpu_torch/csrc/ancestor_indices.cu",
+         "replaces": "psvo_tpu/ops/pallas_resample.py:210", "launches": 0, "on_path": False,
+         "max_abs_err": float(k3_err), "ms": k3_ms, "plain_ms": k3_plain,
+         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
         {"name": "scan_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/scan_forward.cu",
          "replaces": "psvo_tpu/ops/pallas_step.py:1327", "launches": k1_train,
          "max_abs_err": results["small"]["max_abs_err"], "ms": k1_ms, "plain_ms": k1_plain,
@@ -899,18 +1264,21 @@ def main() -> int:
          "ms": k6["paths only"][0], "plain_ms": k6["paths only"][1],
          "bound_ms": k6_bound["paths only"][0], "bound_by": k6_bound["paths only"][1],
          "library_ms": None},
+        {"name": "ancestor_indices_large", "route": "cuda",
+         "source": "psvo_tpu_torch/csrc/resample_gather.cu",
+         "replaces": "psvo_tpu/ops/pallas_resample.py:338",
+         "launches": serve_launches["filter_posterior"][0], "max_abs_err": 0.0, "ms": k7_dev[0],
+         "plain_ms": k7_dev[1], "bound_ms": k7_bound, "bound_by": k7_by, "library_ms": None},
+        {"name": "gather_particles", "route": "cuda", "source": "psvo_tpu_torch/csrc/resample_gather.cu",
+         "replaces": "psvo_tpu/ops/pallas_resample.py:489",
+         "launches": serve_launches["filter_posterior"][1], "max_abs_err": 0.0, "ms": k8_dev[0],
+         "plain_ms": k8_dev[1], "bound_ms": k8_bound, "bound_by": k8_by, "library_ms": k8_dev[2]},
+        {"name": "trunk_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/trunk_forward.cu",
+         "replaces": "psvo_tpu/ops/pallas_trunk.py:350",
+         "launches": serve_launches["filter_posterior"][2], "max_abs_err": k9_small_err,
+         "ms": k9_dev[0], "plain_ms": k9_dev[1], "bound_ms": k9_bound, "bound_by": k9_by,
+         "library_ms": None},
     ]
-    checks = [
-        {"name": "stream_noise", "route": "cuda", "source": "psvo_tpu_torch/csrc/stream_noise.cu",
-         "replaces": "psvo_tpu/ops/pallas_step.py:540", "launches": 0,
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
-        {"name": "ancestor_indices", "route": "cuda", "source": "psvo_tpu_torch/csrc/ancestor_indices.cu",
-         "replaces": "psvo_tpu/ops/pallas_resample.py:210", "launches": 0,
-         "max_abs_err": float(k3_err), "ms": k3_ms, "plain_ms": k3_plain,
-         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
-    ]
-    print(json.dumps({"check_kernels": checks}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -6,16 +6,20 @@ no compile cache — the CUDA kernels (`ops/fused_step.py`, sources in
 `csrc/`) are compiled on first use on a machine with a GPU.
 
 Ported so far: the FIVO/IWAE filter of the diagonal-Gaussian model class
-(FHN and Lorenz-63 data) with its gradients, PSVO's FFBSi smoothing, the
-optimizer and the train step, the evaluation, and the filtering and
-smoothing posterior APIs. In the kernel class the whole forward scan is one
-hand-written CUDA kernel and its backward another; the FFBSi sweep and its
-backward are two more.
+(FHN, Lorenz-63 and Lorenz-96 data) with its gradients, PSVO's FFBSi
+smoothing, the optimizer and the train step, the evaluation, and the
+filtering and smoothing posterior APIs, plus the loader of the reference's
+.npz params snapshots. In the whole-scan class (FHN, Lorenz-63) the forward
+scan is one hand-written CUDA kernel and its backward another; the FFBSi
+sweep and its backward are two more. The wide Lorenz-96 state is served step
+by step through three more: the large-K ancestor indices, the particle
+gather and the trunk kernel (`ops/resample_gather.py`, `ops/trunk.py`).
 """
 
 __version__ = "0.1.0"
 
 from psvo_tpu_torch import distributions, networks
+from psvo_tpu_torch.bridge import load_params_npz
 from psvo_tpu_torch.config import (
     PRESETS,
     Config,
@@ -50,6 +54,7 @@ __all__ = [
     "generate_dataset",
     "init_ssm",
     "load_dataset",
+    "load_params_npz",
     "make_eval_step",
     "make_objective",
     "make_optimizer",

@@ -6,7 +6,10 @@ The reference keeps parameters as a nested dict
 numpy arrays (`jax.tree_util.tree_map(np.asarray, params)` on the JAX side),
 `load_numpy_params` copies it into an `SSM` and `params_to_numpy` rebuilds
 it, bit for bit; `grads_to_numpy` gives the parameters' gradients in the same
-tree. Shapes and keys are checked; nothing is converted silently.
+tree. `load_params_npz` reads a snapshot that the reference's
+`benchmark.save_params_npz` wrote (one array per leaf, keyed by the leaf's
+path as `jax.tree_util.keystr` prints it, e.g. `['f']['layers'][0][0]`).
+Shapes and keys are checked; nothing is converted silently.
 """
 
 from __future__ import annotations
@@ -44,6 +47,29 @@ def _tree(ssm: SSM, leaf) -> dict:
         }
     tree["prior"] = {"mean": arr(ssm.prior_mean), "raw_scale": arr(ssm.prior_raw_scale)}
     return tree
+
+
+def load_params_npz(ssm: SSM, path) -> SSM:
+    """Copy a flat .npz params snapshot into `ssm`, in place. Every leaf of
+    the model's tree is looked up under its keystr path; a missing key or a
+    leaf of another shape raises, as the reference's loader does."""
+
+    with np.load(path) as data:
+        def fill(node, key: str):
+            if isinstance(node, dict):
+                return {k: fill(v, f"{key}[{k!r}]") for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return type(node)(fill(v, f"{key}[{i}]") for i, v in enumerate(node))
+            if key not in data.files:
+                raise ValueError(f"{path}: no leaf {key}")
+            arr = data[key]
+            if arr.shape != node.shape:
+                raise ValueError(f"{path}: leaf {key} has shape {arr.shape}, "
+                                 f"the model wants {node.shape}")
+            return arr
+
+        tree = fill(params_to_numpy(ssm), "")
+    return load_numpy_params(ssm, tree)
 
 
 def _copy(dst: torch.Tensor, src, where: str) -> None:

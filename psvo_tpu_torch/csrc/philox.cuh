@@ -1,5 +1,6 @@
 // Counter-based noise shared by the whole-scan forward kernel (in-kernel RNG
-// mode, scan_forward.cu) and the stream extractor (stream_noise.cu).
+// mode, scan_forward.cu), the per-step trunk kernel (trunk_forward.cu) and
+// the stream extractor (stream_noise.cu).
 //
 // Replaces the TPU hardware PRNG of psvo_tpu/ops/pallas_step.py
 // (_rng_seed / _rng_unit_bits / _rng_eps / _rng_sys_u). The draws keep that
@@ -62,17 +63,24 @@ __device__ __forceinline__ float box_muller(uint32_t bits1, uint32_t bits2, bool
   return __fmul_rn(rad, sin_branch ? sinf(ang) : cosf(ang));
 }
 
+// The Philox words of normal group j (state rows 2j and 2j + 1) of particle
+// i (of K) at (row, t); *sin_branch says which half of the pair it is.
+__device__ __forceinline__ Ctr4 eps_words(uint32_t k0, uint32_t k1, int row, int t, int i,
+                                          int K, int j, bool* sin_branch) {
+  const int half = K >> 1;
+  *sin_branch = i >= half;
+  const uint32_t p = uint32_t(*sin_branch ? i - half : i);
+  return philox4x32_10(Ctr4{p, uint32_t(t), uint32_t(row), uint32_t(1 + j)}, k0, k1);
+}
+
 // The DX normals of particle i (of K) at (row, t).
 template <int DX>
 __device__ __forceinline__ void draw_eps(uint32_t k0, uint32_t k1, int row, int t,
                                          int i, int K, float (&eps)[DX]) {
-  const int half = K >> 1;
-  const bool sin_branch = i >= half;
-  const uint32_t p = uint32_t(sin_branch ? i - half : i);
 #pragma unroll
   for (int j = 0; j < (DX + 1) / 2; ++j) {
-    const Ctr4 r =
-        philox4x32_10(Ctr4{p, uint32_t(t), uint32_t(row), uint32_t(1 + j)}, k0, k1);
+    bool sin_branch;
+    const Ctr4 r = eps_words(k0, k1, row, t, i, K, j, &sin_branch);
     eps[2 * j] = box_muller(r.x, r.y, sin_branch);
     if (2 * j + 1 < DX) eps[2 * j + 1] = box_muller(r.z, r.w, sin_branch);
   }

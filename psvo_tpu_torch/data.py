@@ -1,10 +1,11 @@
-"""Synthetic datasets (counterpart of `psvo_tpu/data.py`, the FHN and
-Lorenz-63 paths).
+"""Synthetic datasets (counterpart of `psvo_tpu/data.py`, the FHN, Lorenz-63
+and Lorenz-96 paths).
 
-Simulate `n_train + n_test` trajectories of the true FHN or Lorenz-63 model
-with process noise, observed through a linear Gaussian emission. Lorenz-63
-starts near the attractor's centre and is run 500 noise-free steps onto the
-attractor before the first recorded step, as in the reference. The draws
+Simulate `n_train + n_test` trajectories of the true FHN, Lorenz-63 or
+Lorenz-96 model with process noise, observed through a linear Gaussian
+emission. Lorenz-63 starts near the attractor's centre; both Lorenz systems
+are run 500 noise-free steps onto the attractor before the first recorded
+step, as in the reference. The draws
 come from a seeded `torch.Generator`, so a port dataset differs from a
 reference one of the same seed; `simulate_from_noise` takes the noise
 explicitly so the two simulators can be compared on the same draws. `save_dataset`/`load_dataset`
@@ -36,7 +37,7 @@ class Dataset:
 
 
 # Burn-in pushes chaotic initial states onto the attractor before recording.
-_BURN_IN = {"lorenz63": 500}
+_BURN_IN = {"lorenz63": 500, "lorenz96": 500}
 _X0_OFFSET = {"lorenz63": (0.0, 0.0, 25.0)}  # start near the attractor center
 
 

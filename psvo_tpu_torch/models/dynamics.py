@@ -1,9 +1,9 @@
 """Ground-truth dynamics (counterpart of `psvo_tpu/models/dynamics.py`).
 
-The FitzHugh–Nagumo and Lorenz-63 steppers that simulate the FHN and
-Lorenz-63 datasets. Steppers act on an arbitrary state axis (default last)
-and vectorize over every other axis. Lorenz-96 and the linear oracle
-dynamics wait for the slices that need them.
+The FitzHugh–Nagumo, Lorenz-63 and Lorenz-96 steppers that simulate the
+datasets of those names. Steppers act on an arbitrary state axis (default
+last) and vectorize over every other axis. The linear oracle dynamics wait
+for the slice that needs them.
 """
 
 from __future__ import annotations
@@ -74,7 +74,28 @@ class Lorenz63:
         return _STEPPERS[self.integrator](lambda z: self.drift(z, axis), x, self.dt)
 
 
-DYNAMICS = {"fhn": FitzHughNagumo, "lorenz63": Lorenz63}
+@dataclass(frozen=True)
+class Lorenz96:
+    """D-dimensional cyclic advection model: dx_i = (x_{i+1} − x_{i−2})·x_{i−1} − x_i + F,
+    with F = 8 and D = 40 in the classic setting (`dim` is kept for parity;
+    the drift works for any state width)."""
+
+    dim: int = 40
+    forcing: float = 8.0
+    dt: float = 0.05
+    integrator: str = "rk4"
+
+    def drift(self, x, axis: int = -1):
+        xp1 = torch.roll(x, -1, dims=axis)
+        xm1 = torch.roll(x, 1, dims=axis)
+        xm2 = torch.roll(x, 2, dims=axis)
+        return (xp1 - xm2) * xm1 - x + self.forcing
+
+    def step(self, x, axis: int = -1):
+        return _STEPPERS[self.integrator](lambda z: self.drift(z, axis), x, self.dt)
+
+
+DYNAMICS = {"fhn": FitzHughNagumo, "lorenz63": Lorenz63, "lorenz96": Lorenz96}
 
 
 def make_stepper(data_cfg):

@@ -8,8 +8,8 @@ p(x_0). Where the reference keeps a static `SSM` plus a params pytree, here
 layout [B, D, K]; the feature-last ones serve the k-step evaluation and the
 log-joint of the smoothed paths.
 
-Ported: the diagonal-Gaussian model class of the FHN FIVO and Lorenz-63
-PSVO slices. Controls (di > 0), bootstrap proposals, known dynamics,
+Ported: the diagonal-Gaussian model class of the FHN FIVO, Lorenz-63 PSVO
+and Lorenz-96 FIVO slices, at any state width. Controls (di > 0), bootstrap proposals, known dynamics,
 full-covariance heads, Poisson/Dirac emissions and the SVO backward
 proposal's GRU raise NotImplementedError until their slices land.
 """

@@ -41,6 +41,9 @@ SIGNATURES = {
     "psvo_ancestor_indices": [_P, _P, _P, _I, _I, _P],
     "psvo_ffbsi_forward": [_P] * 13 + [_I] * 5 + [_P],
     "psvo_ffbsi_backward": [_P] * 18 + [_I] * 5 + [_P],
+    "psvo_ancestor_indices_large": [_P, _P, _P, _I, _I, _P],
+    "psvo_gather_particles": [_P, _P, _P, _I, _I, _I, _P],
+    "psvo_trunk_forward": [_P] * 7 + [_U32, _U32] + [_I] * 11 + [_P],
 }
 
 def sources() -> list[Path]:

@@ -14,8 +14,10 @@ the card:
   whole-scan megakernel): the VJP of K1 from its residuals, all T−1 steps in
   reverse in one launch. Plain version: `scan_backward_reference`, an
   autograd replay of the forward on the saved ancestors.
-- K2 `stream_noise` (replaces `pallas_step.generate_stream_noise`): the exact
-  ε / u0 streams K1 draws in its in-kernel RNG mode. Plain version:
+- K2 `stream_noise` (replaces `pallas_step.generate_stream_noise` and
+  `pallas_trunk.generate_trunk_noise`): the exact ε / u0 streams K1 and the
+  trunk kernel K9 (`ops/trunk.py`) draw in their in-kernel RNG mode, for any
+  state width. Plain version:
   `stream_noise_reference`, Philox4x32-10 in int64 torch arithmetic.
 - K3 `ancestor_indices` (replaces `pallas_resample._two_level_indices` as the
   megakernel inlines it): systematic ancestors through K1's own index code.
@@ -186,12 +188,13 @@ def _unit24(bits):
     return (bits >> 8).to(torch.float32) * (2.0**-24)
 
 
-def stream_noise_reference(seed, t_len: int, batch: int, dx: int, k: int, device="cpu"):
-    """Plain version of K2: eps [t_len, B, dx, K], u0 [t_len, B] with the
-    counter layout of csrc/philox.cuh."""
+def stream_noise_reference(seed, t_len: int, batch: int, dx: int, k: int, device="cpu",
+                           t0: int = 0):
+    """Plain version of K2: eps [t_len, B, dx, K], u0 [t_len, B] of steps
+    t0 .. t0 + t_len − 1, with the counter layout of csrc/philox.cuh."""
     stream_noise_reference.calls += 1
     i64 = dict(dtype=torch.int64, device=device)
-    t = torch.arange(t_len, **i64)[:, None, None]
+    t = torch.arange(t0, t0 + t_len, **i64)[:, None, None]
     row = torch.arange(batch, **i64)[None, :, None]
     pair = torch.arange(k // 2, **i64)[None, None, :]
     zero = torch.zeros((), **i64)
@@ -214,14 +217,15 @@ stream_noise_reference.calls = 0
 
 
 def stream_noise(seed, t_len: int, batch: int, dx: int, k: int, device):
-    """K2: the in-kernel-RNG streams of K1 for `seed` (two uint32 words)."""
+    """K2: the in-kernel-RNG streams of K1 and K9 for `seed` (two uint32
+    words), steps 0 .. t_len − 1, any state width dx."""
     device = torch.device(device)
     if device.type == "cpu":
         return stream_noise_reference(seed, t_len, batch, dx, k, device)
     if device.type != "cuda":
         raise ValueError(f"stream_noise: unsupported device {device}")
-    if dx not in (1, 2, 3) or k % 2:
-        raise ValueError(f"stream_noise: dx={dx} (1..3) and even K={k} required")
+    if dx < 1 or k % 2:
+        raise ValueError(f"stream_noise: dx={dx} >= 1 and even K={k} required")
     lib = _build.load_library()
     eps = torch.empty((t_len, batch, dx, k), dtype=torch.float32, device=device)
     u0 = torch.empty((t_len, batch), dtype=torch.float32, device=device)

@@ -4,7 +4,8 @@ Both schemes are inverse-CDF lookups a_i = #{j : C_j <= u_i} over the
 inclusive CDF C of the normalized weights; they differ only in the sorted
 positions u: systematic u_i = (i + u0)/K with one u0 per row, multinomial
 sorted iid uniforms. The plain filter body uses these; the whole-scan
-kernel (`ops/fused_step.py`) carries its own index search.
+kernel (`ops/fused_step.py`) carries its own index search, and the trunk
+path resamples through the large-K kernels (`ops/resample_gather.py`).
 """
 
 from __future__ import annotations
@@ -66,27 +67,39 @@ def gather_particles(x, idx):
     return torch.gather(x, -1, index)
 
 
-def maybe_resample(u, logw, x, *, method: str = "systematic", ess_threshold: float = 1.0):
+def maybe_resample(u, logw, x, *, method: str = "systematic", ess_threshold: float = 1.0,
+                   use_kernel: bool = False):
     """ESS-adaptive resampling for one step (channel-major x [B, D, K]).
 
-    u [B, K] are the step's positions. Returns (x_out, logw_out,
+    u [B, K] are the step's sorted positions. Returns (x_out, logw_out,
     did_resample [B] bool, ess [B], idx [B, K]); resampled rows restart from
     log-weight 0. ess_threshold >= 1 resamples every row unconditionally.
+    The indices and the gather run through the large-K kernels K7/K8
+    (`ops.resample_gather`, the reference's use_pallas) for CUDA tensors or
+    when use_kernel asks for them (their plain versions on the CPU, with the
+    count form's index semantics); otherwise the plain histogram form.
     """
     batch, k = logw.shape
     ess = effective_sample_size(logw, dim=-1)
+    if use_kernel or logw.is_cuda:
+        # imported here: resample_gather imports this module
+        from psvo_tpu_torch.ops import resample_gather
+
+        idx, x_res = resample_gather.resample_and_gather(u, logw, x)
+    else:
+        logw_norm, _ = log_normalize(logw, dim=-1)
+        cumw = torch.cumsum(torch.exp(logw_norm), dim=-1)
+        if method == "systematic":
+            # recover the shared offset from the first affine position
+            idx = systematic_indices_histogram(cumw, u[:, 0] * k)
+        else:
+            idx = inverse_cdf_indices(cumw, u)
+        x_res = gather_particles(x, idx)
     if ess_threshold >= 1.0:
+        # every row resamples: no selection to make
         do = torch.ones((batch,), dtype=torch.bool, device=logw.device)
-    else:
-        do = ess / k < ess_threshold
-    logw_norm, _ = log_normalize(logw, dim=-1)
-    cumw = torch.cumsum(torch.exp(logw_norm), dim=-1)
-    if method == "systematic":
-        # recover the shared offset from the first affine position
-        idx = systematic_indices_histogram(cumw, u[:, 0] * k)
-    else:
-        idx = inverse_cdf_indices(cumw, u)
-    x_res = gather_particles(x, idx)
+        return x_res, torch.zeros_like(logw), do, ess, idx
+    do = ess / k < ess_threshold
     x_out = torch.where(do[:, None, None], x_res, x)
     logw_out = torch.where(do[:, None], torch.zeros_like(logw), logw)
     return x_out, logw_out, do, ess, idx

@@ -5,17 +5,23 @@ add the incremental log-weight log f + log g − log q, and accumulate
 logZ += lse(logw + α) − lse(logw); with resampling at every step each term is
 the FIVO increment lse(α) − log K.
 
-Two paths, chosen from what the call can observe:
+Three paths, chosen from what the call can observe:
 
-- the kernel class (`ops.fused_step.usable`: diagonal models of the FHN
+- the whole-scan class (`ops.fused_step.usable`: diagonal models of the FHN
   and Lorenz-63 shapes, systematic resampling at every step) runs
   `_forward_filter_fused`, whose steps t = 1..T−1 are one call of
   `fused_step.scan_forward` — the CUDA kernel K1 for CUDA tensors, its
   plain version for CPU tensors — and, when autograd records, one
   `fused_step.ScanForward`, whose backward is the CUDA kernel K4 (or its
   plain version);
+- the trunk class (`ops.trunk.usable`: the wide Lorenz-96 state, up to
+  K = 19200) runs `_forward_filter_trunk`, a Python loop over t of the
+  large-K resample (K7 indices, K8 gather) and the trunk kernel K9, with
+  the weight bookkeeping in tensor ops between them. It serves only: it
+  has no backward kernel yet, so on the card it refuses to run while
+  autograd records;
 - everything else runs the plain step body in a Python loop over t, on CPU
-  tensors only: a CUDA tensor outside the kernel class raises
+  tensors only: a CUDA tensor outside the kernel classes raises
   NotImplementedError rather than run plain PyTorch on the card.
 
 Public shapes follow the reference: particles are channel-major
@@ -36,7 +42,7 @@ import torch
 from psvo_tpu_torch.config import SMCConfig
 from psvo_tpu_torch.distributions import effective_sample_size, mvn_diag_log_prob_cm
 from psvo_tpu_torch.models.ssm import SSM
-from psvo_tpu_torch.ops import fused_step, resampling
+from psvo_tpu_torch.ops import fused_step, resampling, trunk
 
 
 def _lse(logw):
@@ -122,26 +128,16 @@ def _draw_noise(generator, cfg: SMCConfig, t_steps: int, batch: int, dx: int):
     return eps0, eps_scan, u_scan
 
 
-def _forward_filter_fused(
-    ssm: SSM,
-    generator: Optional[torch.Generator],
-    ys,
-    cfg: SMCConfig,
-    *,
-    cache: bool,
-    encoder_inputs=None,
-    streams: Optional[tuple] = None,
-) -> FilterResult:
-    """The kernel path: t = 0 and the fusion coefficients in plain tensor code,
-    then steps 1..T−1 as one `fused_step.scan_forward` call — through
-    `fused_step.ScanForward` when autograd records, whose saved residuals
-    take the place of the reference's remat, so gradients reach the t = 0
-    proposal, the fusion coefficients, ab and the packed head weights.
+def _fused_preamble(ssm: SSM, generator, ys, cfg: SMCConfig, encoder_inputs, streams):
+    """What both kernel paths compute before their steps (the reference's
+    `smc._fused_preamble`): the packed heads, t = 0 and each step's
+    coefficients, in plain tensor code, and the noise.
 
     Noise: `streams` = (eps0, eps_scan, u_scan) replays given draws (u_scan
     the sorted positions); otherwise eps0 comes from `generator` and, with
-    cfg.kernel_rng, the kernel draws the rest itself from a two-word seed
-    taken from the generator, else the streams are drawn too.
+    cfg.kernel_rng, a two-word seed taken from the generator for the kernel
+    to draw from (eps_scan and u_scan None), else the streams are drawn too.
+    Returns (consts, coef, x0, alpha0, eps_scan, u_scan, seed).
     """
     batch, t_steps, _ = ys.shape
     k, dx, dy = cfg.n_particles, ssm.dx, ssm.dy
@@ -164,7 +160,6 @@ def _forward_filter_fused(
         eps0, eps_scan, u_scan = _draw_noise(generator, cfg, t_steps, batch, dx)
 
     x0, alpha0 = _init_t0(ssm, eps0, ys_tm[0], enc_tm[0])
-    ell0 = _lse(alpha0) - math.log(k)
     # α's K-independent part: −log q's log-scale sum, log f's and log g's,
     # and g's Gaussian constant (f's and q's cancel)
     ab = (
@@ -174,6 +169,30 @@ def _forward_filter_fused(
         - dy * 0.5 * math.log(2.0 * math.pi)
     )
     coef = fused_step.pack_coef(aq[1:], cq[1:], sq[1:], ys_tm[1:], ab)
+    return consts, coef, x0, alpha0, eps_scan, u_scan, seed
+
+
+def _forward_filter_fused(
+    ssm: SSM,
+    generator: Optional[torch.Generator],
+    ys,
+    cfg: SMCConfig,
+    *,
+    cache: bool,
+    encoder_inputs=None,
+    streams: Optional[tuple] = None,
+) -> FilterResult:
+    """The kernel path: `_fused_preamble` (t = 0, the fusion coefficients and
+    the noise), then steps 1..T−1 as one `fused_step.scan_forward` call —
+    through `fused_step.ScanForward` when autograd records, whose saved
+    residuals take the place of the reference's remat, so gradients reach the
+    t = 0 proposal, the fusion coefficients, ab and the packed head weights.
+    With cfg.kernel_rng the kernel draws ε and the resampling offsets itself.
+    """
+    consts, coef, x0, alpha0, eps_scan, u_scan, seed = _fused_preamble(
+        ssm, generator, ys, cfg, encoder_inputs, streams
+    )
+    ell0 = _lse(alpha0) - math.log(cfg.n_particles)
     if torch.is_grad_enabled():
         outs = fused_step.ScanForward.apply(
             x0.contiguous(), alpha0.contiguous(), coef, consts["packed"], consts["sconst"],
@@ -206,6 +225,75 @@ def _forward_filter_fused(
     )
 
 
+def _forward_filter_trunk(
+    ssm: SSM,
+    generator: Optional[torch.Generator],
+    ys,
+    cfg: SMCConfig,
+    *,
+    cache: bool,
+    encoder_inputs=None,
+    streams: Optional[tuple] = None,
+) -> FilterResult:
+    """The trunk path: `_fused_preamble` (t = 0, the fusion coefficients and
+    the noise), then per step t = 1..T−1 the resample
+    (`resampling.maybe_resample` through K7/K8) and one `trunk.trunk_forward`
+    (K9), with ℓ, the ESS and the filtered mean as tensor ops on [B, K].
+    Nothing inside the loop waits for the device. With cfg.kernel_rng K9
+    draws each step's ε from the seed, and the positions u_scan come from
+    `generator` after it.
+    """
+    batch, t_steps, _ = ys.shape
+    k = cfg.n_particles
+    if ys.is_cuda and torch.is_grad_enabled() and any(p.requires_grad for p in ssm.parameters()):
+        raise NotImplementedError(
+            "the trunk path (ops.trunk) has no backward kernels yet: the VJP of "
+            "trunk_forward (counterpart of pallas_trunk._tr_bwd) and the segment-sum "
+            "scatter of the resample gather; train this configuration on CPU tensors, "
+            "or serve it under torch.no_grad()"
+        )
+    consts, coef, x0, alpha0, eps_scan, u_scan, seed = _fused_preamble(
+        ssm, generator, ys, cfg, encoder_inputs, streams
+    )
+    if seed is not None:
+        u_scan = resampling.bulk_positions(generator, t_steps - 1, batch, k, cfg.resampling)
+
+    x, logw = x0.contiguous(), alpha0.contiguous()
+    ells, esss, fmeans = [_lse(alpha0) - math.log(k)], [], []
+    xs = logws = None
+    if cache:
+        xs = x0.new_empty((t_steps, batch, ssm.dx, k))
+        logws = x0.new_empty((t_steps, batch, k))
+        xs[0], logws[0] = x0, alpha0
+    for t in range(t_steps - 1):
+        x, logw, _, ess, _ = resampling.maybe_resample(
+            u_scan[t], logw, x, method=cfg.resampling, ess_threshold=cfg.ess_threshold,
+            use_kernel=True,
+        )
+        noise = {"seed": seed, "t": t} if seed is not None else {"eps": eps_scan[t]}
+        x, alpha = trunk.trunk_forward(x, coef[t], consts, **noise)
+        logw_new = logw + alpha
+        ells.append(_lse(logw_new) - _lse(logw))
+        esss.append(ess)
+        fmeans.append(torch.einsum("bk,bdk->bd", torch.softmax(logw_new, dim=-1), x))
+        logw = logw_new
+        if cache:
+            xs[t + 1], logws[t + 1] = x, logw
+
+    increments = torch.stack(ells)
+    fmean0 = torch.einsum("bk,bdk->bd", torch.softmax(alpha0, dim=-1), x0)
+    return FilterResult(
+        log_z=torch.sum(increments, dim=0),
+        increments=increments,
+        ess=torch.stack([effective_sample_size(alpha0), *esss]),
+        x_last=x,
+        logw_last=logw,
+        xs=xs,
+        logws=logws,
+        filtered_means=torch.stack([fmean0, *fmeans]),
+    )
+
+
 def forward_filter(
     ssm: SSM,
     generator: Optional[torch.Generator],
@@ -225,21 +313,21 @@ def forward_filter(
     tensors the draws are replayed through the kernel.
     """
     batch, t_steps, _ = ys.shape
-    fused = t_steps >= 2 and fused_step.usable(ssm, cfg)
+    path = None
+    if t_steps >= 2 and fused_step.usable(ssm, cfg):
+        path = _forward_filter_fused
+    elif t_steps >= 2 and trunk.usable(ssm, cfg):
+        path = _forward_filter_trunk
     if ys.is_cuda:
-        if not fused:
+        if path is None:
             raise NotImplementedError(
                 "this configuration has no CUDA kernel yet (outside "
-                "ops.fused_step.usable); run it on CPU tensors"
+                "ops.fused_step.usable and ops.trunk.usable); run it on CPU tensors"
             )
-        return _forward_filter_fused(
-            ssm, generator, ys, cfg, cache=cache,
-            encoder_inputs=encoder_inputs, streams=noise,
-        )
-    if fused and noise is None:
-        return _forward_filter_fused(
-            ssm, generator, ys, cfg, cache=cache, encoder_inputs=encoder_inputs
-        )
+        return path(ssm, generator, ys, cfg, cache=cache, encoder_inputs=encoder_inputs,
+                    streams=noise)
+    if path is not None and noise is None:
+        return path(ssm, generator, ys, cfg, cache=cache, encoder_inputs=encoder_inputs)
 
     k = cfg.n_particles
     ys_tm = ys.transpose(0, 1)  # [T, B, Dy]

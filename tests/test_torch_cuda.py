@@ -302,3 +302,123 @@ def test_cuda_psvo_train_step_launches_the_four_kernels():
     assert [f.launches - n for f, n in zip(kernels, launches)] == [1, 1, 1, 1]
     assert [f.calls for f in plain] == calls
     assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+
+
+def _l96_cfg(hidden=16, k=128, t=6):
+    """The Lorenz-96 preset cut to a small size: K, T and the trunk width."""
+    net = NetConfig(hidden=(hidden, hidden))
+    cfg = PRESETS["lorenz96_fivo_k8192_sharded"].with_nets(
+        q0=net, q1=net, q2=net, f=net, qb=net, g=dataclasses.replace(net, sigma_init=0.5))
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, t_steps=t),
+                               smc=dataclasses.replace(cfg.smc, n_particles=k))
+
+
+def test_stream_noise_kernel_is_bit_equal_at_lorenz96_width():
+    dev = _cuda()
+    got = fused_step.stream_noise((3, 4), 3, 2, 40, 256, dev)
+    want = fused_step.stream_noise_reference((3, 4), 3, 2, 40, 256, dev)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("k", [128, 4096])
+def test_large_k_resample_kernels_match_plain(k):
+    """K7 gives the plain version's indices (ties, zero weights, floors and a
+    dominant particle included); K8 is bit-equal to the plain gather."""
+    from psvo_tpu_torch.ops import resample_gather as rg
+
+    dev = _cuda()
+    logw = _weight_rows(k, dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    u0 = torch.rand((logw.shape[0],), generator=g, device=dev)
+    pos = fused_step.systematic_positions(u0, k).contiguous()
+    launches = (rg.ancestor_indices_large.launches, rg.gather_particles.launches)
+    idx = rg.ancestor_indices_large(logw, pos)
+    assert torch.equal(idx, rg.ancestor_indices_large_reference(logw, pos))
+    x = torch.randn((logw.shape[0], 40, k), generator=g, device=dev)
+    assert torch.equal(rg.gather_particles(x, idx), rg.gather_particles_reference(x, idx))
+    assert (rg.ancestor_indices_large.launches, rg.gather_particles.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    with pytest.raises(ValueError, match="no kernel"):
+        rg.ancestor_indices_large(torch.zeros((2, 19456), device=dev),
+                                  torch.zeros((2, 19456), device=dev))
+
+
+@pytest.mark.parametrize("hidden", [16, 64])
+@pytest.mark.parametrize("rng", [False, True])
+def test_trunk_kernel_matches_plain(hidden, rng):
+    """K9 against its plain version at 2e-4, with the streamed ε and with the
+    in-kernel draw replayed through K2's extracted ε."""
+    from psvo_tpu_torch.ops import trunk
+
+    dev = _cuda()
+    cfg = _l96_cfg(hidden)
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    b, k, t = 3, 256, 4
+    x_res = torch.randn((b, 40, k), generator=g, device=dev) * 3.0
+    coef = torch.rand((b, 161), generator=g, device=dev) + 0.1
+    with torch.no_grad():
+        consts = fused_step.prepare(ssm)
+        if rng:
+            eps = fused_step.stream_noise((5, 6), t + 1, b, 40, k, dev)[0][t]
+            got = trunk.trunk_forward(x_res, coef, consts, seed=(5, 6), t=t)
+        else:
+            eps = torch.randn((b, 40, k), generator=g, device=dev)
+            got = trunk.trunk_forward(x_res, coef, consts, eps=eps)
+        want = trunk.trunk_forward_reference(x_res, coef, consts, eps)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4)
+
+
+def test_lorenz96_serving_launches_the_trunk_kernels():
+    """filter_posterior and make_eval_step on the trunk path: K7, K8 and K9 T−1
+    times per call, no plain version, finite outputs; the CPU replay of the
+    same draws agrees."""
+    from psvo_tpu_torch import infer, smc
+    from psvo_tpu_torch.ops import resample_gather as rg
+    from psvo_tpu_torch.ops import trunk
+    from psvo_tpu_torch.train import make_eval_step
+
+    dev = _cuda()
+    cfg = _l96_cfg()
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ys = torch.randn((4, 6, 40), generator=torch.Generator().manual_seed(2)).to(dev)
+    kernels = (rg.ancestor_indices_large, rg.gather_particles, trunk.trunk_forward)
+    plain = (rg.ancestor_indices_large_reference, rg.gather_particles_reference,
+             trunk.trunk_forward_reference, fused_step.stream_noise_reference)
+    launches, calls = [f.launches for f in kernels], [f.calls for f in plain]
+    means, xs, lws = infer.filter_posterior(ssm, ys, cfg, return_particles=True)
+    metrics = make_eval_step(ssm, cfg)(torch.Generator(device=dev).manual_seed(3), ys)
+    assert [f.launches - n for f, n in zip(kernels, launches)] == [10, 10, 10]
+    assert [f.calls for f in plain] == calls
+    assert tuple(xs.shape) == (4, 6, 128, 40) and bool(torch.isfinite(means).all())
+    assert torch.isfinite(metrics["elbo"]) and bool(torch.isfinite(metrics["r2_k"]).all())
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    state = gen.get_state()
+    with torch.no_grad():
+        got = smc.forward_filter(ssm, gen, ys, cfg.smc, cache=True)
+    gen.set_state(state)  # replay the draws on the CPU
+    eps0 = torch.randn((4, 40, 128), generator=gen, device=dev)
+    seed = tuple(int(v) for v in torch.randint(0, 2**32, (2,), generator=gen, device=dev))
+    u = smc.resampling.bulk_positions(gen, 5, 4, 128, "systematic")
+    eps = fused_step.stream_noise_reference(seed, 5, 4, 40, 128)[0]
+    ref = init_ssm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():
+        want = smc._forward_filter_trunk(ref, None, ys.cpu(), cfg.smc, cache=True,
+                                         streams=(eps0.cpu(), eps, u.cpu()))
+    torch.testing.assert_close(got.increments[:2].cpu(), want.increments[:2], rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(got.xs[:2].cpu(), want.xs[:2], rtol=2e-4, atol=2e-4)
+
+
+def test_lorenz96_training_on_the_card_raises():
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    dev = _cuda()
+    cfg = dataclasses.replace(_l96_cfg(), train=dataclasses.replace(
+        PRESETS["lorenz96_fivo_k8192_sharded"].train, steps_per_call=1))
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ys = torch.zeros((2, 6, 40), device=dev)
+    step = make_train_step(ssm, cfg, make_optimizer(cfg))
+    with pytest.raises(NotImplementedError, match="backward"):
+        step(torch.Generator(device=dev).manual_seed(0), ys)

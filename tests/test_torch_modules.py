@@ -108,7 +108,7 @@ def test_lorenz63_stepper_matches_reference(integrator):
     cfg = DataConfig(datatype="lorenz63", dx=3, dy=3, dyn_overrides=(("rho", 20.0),))
     assert tdyn.make_stepper(cfg) == tdyn.Lorenz63(rho=20.0)
     with pytest.raises(NotImplementedError):
-        tdyn.make_stepper(DataConfig(datatype="lorenz96", dx=40, dy=40))
+        tdyn.make_stepper(DataConfig(datatype="lgssm"))
 
 
 def test_fhn_simulator_matches_reference_on_its_noise():
