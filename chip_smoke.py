@@ -36,7 +36,8 @@ noise): serving through `smooth_posterior` and training through
 
 then `lorenz96_fivo_k8192_sharded` (Lorenz-96, Dx=Dy=40, FIVO, K=8192, B=8,
 T=100, relu heads (64, 64), in-kernel RNG) with the trained snapshot
-`checkpoints/l96_pretrained.npz`, served on one card by the trunk path:
+`checkpoints/l96_pretrained.npz`, served and trained on one card by the
+trunk path:
 
   (n) K2 at Dx=40 vs the plain Philox (bit-equal)
   (o) K7 ancestor_indices_large and K8 gather_particles vs their plain
@@ -46,6 +47,14 @@ T=100, relu heads (64, 64), in-kernel RNG) with the trained snapshot
   (q) serving through make_eval_step and filter_posterior (with and without
       the particles): launch counts, ELBO, R², time per call, peak memory
       and a profile by kernel
+  (r) K11 segment_sum_scatter vs its float64 plain version on the
+      adversarial rows of (o) at K=128, 2048 and 8192 (bit-equal on a second
+      launch), with its device time beside zeros + scatter_add_'s
+  (s) K10 trunk_backward vs its plain version on every step of one kernel
+      run, random cotangents, streamed ε and the in-kernel draw (small, full)
+  (t) training through make_train_step from the snapshot: 3 calls of one
+      step on minibatches of 8, launch counts (99 per kernel per step), loss,
+      grad norm, step time, peak memory and a profile by kernel
 
 Every phase prints its lines and its seconds; any failure exits non-zero.
 The second-to-last line is the kernels' JSON record (times beside the
@@ -127,6 +136,9 @@ FHN_KERNELS = {"K1": ("scan_forward_kernel",), "K4": ("scan_backward_kernel", "s
 PSVO_KERNELS = dict(FHN_KERNELS, K5=("ffbsi_forward_kernel",), K6=("ffbsi_backward_kernel",))
 L96_KERNELS = {"K9": ("trunk_forward_kernel",), "K7": ("ancestor_indices_large_kernel",),
                "K8": ("gather_particles_kernel",)}
+L96_TRAIN_KERNELS = dict(L96_KERNELS, K10=("trunk_backward_kernel", "trunk_sum_ctas_kernel",
+                                           "trunk_sum_tiles_kernel"),
+                         K11=("segment_sum_scatter_kernel",))
 L96 = "lorenz96_fivo_k8192_sharded"
 
 
@@ -571,6 +583,88 @@ def trunk_run(ssm, cfg, ys, gen, rng_seed=None):
                 maxd=float(torch.stack(maxd).max()), close=close_all, same=bool(same),
                 finite=bool(torch.isfinite(x).all() and torch.isfinite(logw).all()),
                 last=(x_res, coef[-1], consts, eps[-1]))
+
+
+def relu_ties(consts, x_res, x_new, tol=1e-5):
+    """[B, K] bool: the particles where a relu pre-activation of q1 or f (on
+    x_res) or of g (on x_new) lies within tol of the magnitude of its sum
+    (|b| + Σ|w·x|, in float64). There the sign, and so the relu's gradient
+    mask, depends on the order of the float32 sum: the kernel and its plain
+    version may take either side, and that one unit's whole cotangent then
+    passes on one side and not on the other."""
+    import torch
+    from psvo_tpu_torch.ops import fused_step
+
+    flag = torch.zeros((x_res.shape[0], x_res.shape[-1]), dtype=torch.bool, device=x_res.device)
+    for (layers, _), inp in zip(fused_step._unpack_nets(consts), (x_res, x_res, x_new)):
+        h = inp.double()
+        for w, b in layers:
+            w, b = w.double(), b.double()[:, None]
+            pre = torch.einsum("de,bdk->bek", w, h) + b
+            size = torch.einsum("de,bdk->bek", w.abs(), h.abs()) + b.abs()
+            flag |= (pre.abs() < tol * size).any(dim=1)
+            h = torch.relu(pre)
+    return flag
+
+
+def trunk_backward_run(ssm, cfg, ys, gen, rng_seed=None):
+    """K10 against its plain version on every step of one kernel run of the
+    trunk path (K7, K8, K9 on the run's own state), with random cotangents
+    of x_new and α: teacher-forced, so both see the same x_res and x_new.
+    The cotangents are zero on the particles of `relu_ties`, where a relu's
+    mask is a coin toss between two float32 summation orders; the raw
+    comparison, with every particle's cotangent, is reported beside it.
+    Returns the largest per-step relative L2 of each leaf (d_x_res, d_coef,
+    d_weights, d_sconst) and |Δ|, the raw ones, the particles zeroed, whether
+    a second launch on the last step gave the same bits, and the last step's
+    operands for timing."""
+    import torch
+    from psvo_tpu_torch import smc
+    from psvo_tpu_torch.ops import fused_step, trunk
+    from psvo_tpu_torch.ops import resample_gather as rg
+
+    batch, t_steps, _ = ys.shape
+    k, dx, dy, dev = cfg.smc.n_particles, ssm.dx, ssm.dy, ys.device
+    ys_tm = ys.transpose(0, 1)
+    consts = fused_step.prepare(ssm)
+    aq, cq, sq, logsq = fused_step.fusion_coeffs(ssm, cfg.smc, consts, ys_tm)
+    x, logw = smc._init_t0(ssm, torch.randn((batch, dx, k), generator=gen, device=dev),
+                           ys_tm[0], ys_tm[0])
+    ab = logsq[1:] - consts["log_sf_sum"] - consts["log_sg_sum"] - dy * 0.5 * math.log(2 * math.pi)
+    coef = fused_step.pack_coef(aq[1:], cq[1:], sq[1:], ys_tm[1:], ab)
+    pos = fused_step.systematic_positions(torch.rand((t_steps - 1, batch), generator=gen,
+                                                     device=dev), k)
+    if rng_seed is not None:
+        eps = fused_step.stream_noise(rng_seed, t_steps - 1, batch, dx, k, dev)[0]
+    else:
+        eps = torch.randn((t_steps - 1, batch, dx, k), generator=gen, device=dev)
+    x, logw = x.contiguous(), logw.contiguous()
+    rel, maxd, rel_raw, zeroed = [], [], [], 0
+    for t in range(t_steps - 1):
+        x_res = rg.gather_particles(x, rg.ancestor_indices_large(logw, pos[t].contiguous()))
+        noise = {"seed": rng_seed, "t": t} if rng_seed is not None else {"eps": eps[t]}
+        x_new, alpha = trunk.trunk_forward(x_res, coef[t], consts, **noise)
+        d_x_new = torch.randn(x_new.shape, generator=gen, device=dev)
+        d_alpha = torch.randn(alpha.shape, generator=gen, device=dev)
+        raw = (x_res, x_new, coef[t], consts, d_x_new, d_alpha)
+        rel_raw.append(torch.stack(
+            [(g - w).norm() / w.norm().clamp_min(1e-30) for g, w in
+             zip(trunk.trunk_backward(*raw, **noise),
+                 trunk.trunk_backward_reference(*raw[:4], eps[t], *raw[4:]))]))
+        keep = ~relu_ties(consts, x_res, x_new)
+        zeroed += int((~keep).sum())
+        bwd = (x_res, x_new, coef[t], consts, d_x_new * keep[:, None], d_alpha * keep)
+        got = trunk.trunk_backward(*bwd, **noise)
+        want = trunk.trunk_backward_reference(*bwd[:4], eps[t], *bwd[4:])
+        rel.append(torch.stack([(g - w).norm() / w.norm().clamp_min(1e-30)
+                                for g, w in zip(got, want)]))
+        maxd.append(torch.stack([(g - w).abs().max() for g, w in zip(got, want)]))
+        x, logw = x_new, alpha
+    same = all(torch.equal(a, b) for a, b in zip(got, trunk.trunk_backward(*bwd, **noise)))
+    return dict(rel=torch.stack(rel).amax(0).tolist(), maxd=torch.stack(maxd).amax(0).tolist(),
+                rel_raw=torch.stack(rel_raw).amax(0).tolist(), zeroed=zeroed,
+                n=(t_steps - 1) * batch * k, same=same, finite=all(bool(torch.isfinite(g).all()) for g in got),
+                last=(bwd, noise, eps[-1], got))
 
 
 def main() -> int:
@@ -1230,6 +1324,157 @@ def main() -> int:
         fail(f"serving {L96} gave non-finite outputs or the wrong shapes")
     phase_done("q")
 
+    # (r) K11 vs its float64 plain version on phase (o)'s adversarial rows
+    k11 = {}
+    for kk in (128, 2048, lk):
+        lw = weight_rows(kk, gen)
+        pos = fused_step.systematic_positions(torch.rand(lw.shape[0], device=dev, generator=gen),
+                                              kk).contiguous()
+        idx = rg.ancestor_indices_large(lw, pos)
+        g11 = torch.randn((lw.shape[0], 40, kk), device=dev, generator=gen)
+        got = rg.segment_sum_scatter(g11, idx)
+        again = rg.segment_sum_scatter(g11, idx)
+        want = rg.segment_sum_scatter_reference(g11.double(), idx)
+        torch.cuda.synchronize()
+        k11[kk] = dict(rel=float((got.double() - want).norm() / want.norm()),
+                       maxd=float((got.double() - want).abs().max()),
+                       same=bool(torch.equal(got, again)),
+                       orphans=bool((got[want == 0] == 0).all()),
+                       dominant=int(idx[6].unique().numel()))
+        r = k11[kk]
+        print(f"[r] K11 segment_sum_scatter [8, 40, {kk}] on the adversarial rows: rel L2 "
+              f"{r['rel']:.3e} against the float64 plain version, max|d| {r['maxd']:.3e}, "
+              f"bit-equal on a second launch {r['same']}, sources with no child exactly 0 "
+              f"{r['orphans']} (the dominant-particle row has {r['dominant']} ancestor)",
+              flush=True)
+        if not (r["rel"] <= 1e-6 and r["same"] and r["orphans"] and r["dominant"] == 1):
+            fail(f"K11 (K={kk}) disagrees with segment_sum_scatter_reference")
+    idx64 = idx.long()[:, None, :].expand(-1, 40, -1)
+    healthy = rg.ancestor_indices_large(torch.randn((8, lk), device=dev, generator=gen) * 3,
+                                        pos)
+    one = torch.full((8, lk), -50.0, device=dev)
+    one[torch.arange(8, device=dev), torch.randint(0, lk, (8,), device=dev, generator=gen)] = 0.0
+    degenerate = rg.ancestor_indices_large(one, pos)
+    k11_dev = [device_ms(lambda: rg.segment_sum_scatter(g11, idx)),
+               device_ms(lambda: rg.segment_sum_scatter_reference(g11, idx)),
+               device_ms(lambda: torch.zeros_like(g11).scatter_add_(-1, idx64, g11)),
+               device_ms(lambda: rg.segment_sum_scatter(g11, healthy)),
+               device_ms(lambda: rg.segment_sum_scatter(g11, degenerate))]
+    # g read once, the indices, d_x written once; one addition per element
+    k11_bound, k11_by = bound(float(g11.numel()), 2 * nbytes(g11) + nbytes(idx))
+    print(f"[r] K11 full [8, 40, {lk}]: device time per call (torch.profiler, 20 calls) "
+          f"{k11_dev[0]:.4f} ms on the adversarial rows, {k11_dev[3]:.4f} ms on healthy rows, "
+          f"{k11_dev[4]:.4f} ms with one ancestor per row; plain version {k11_dev[1]:.4f} ms, "
+          f"zeros + scatter_add_ on the int64 index {k11_dev[2]:.4f} ms; bound "
+          f"{k11_bound:.4f} ms ({k11_by})", flush=True)
+    del g11, idx64
+    phase_done("r")
+
+    # (s) K10 vs its plain version on every step of one kernel run, teacher-forced
+    k10 = {}
+    for label, small in (("small", True), ("full", False)):
+        cfg, batch = l96_config(small)
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 8), device=dev)
+        if not small:
+            pt.load_params_npz(ssm, snapshot)
+        ys = l_obs[:batch, :cfg.data.t_steps].contiguous()
+        tol = 1e-4 if small else 1e-3
+        for mode, rng_seed in (("stream", None), ("in-kernel RNG", (19, 0xF00D))):
+            with torch.no_grad():
+                r = trunk_backward_run(ssm, cfg, ys, gen, rng_seed)
+            k10[(label, mode)] = r
+            print(f"[s] K10 {label} B={batch} K={cfg.smc.n_particles} T={cfg.data.t_steps} {mode}, "
+                  f"every step: " + ", ".join(f"{n} rel L2 {e:.3e} max|d| {m:.3e}" for n, e, m in
+                                              zip(("d_x_res",) + leaves[1:], r["rel"], r["maxd"]))
+                  + f"; bit-equal on a second launch {r['same']}; bound rel L2 {tol:g}; cotangents "
+                  f"zeroed on {r['zeroed']} of {r['n']} particle-steps with a relu tie; with every "
+                  f"particle's cotangent, rel L2 " + ", ".join(f"{e:.3e}" for e in r["rel_raw"]),
+                  flush=True)
+            if not (r["finite"] and r["same"] and max(r["rel"]) <= tol):
+                fail(f"K10 ({label}, {mode}) disagrees with trunk_backward_reference")
+    k10_small_err = max(max(k10[("small", m)]["maxd"]) for m in ("stream", "in-kernel RNG"))
+    (bwd10, noise10, eps10, got10) = k10[("full", "in-kernel RNG")]["last"]
+    bwd10s, noise10s = k10[("full", "stream")]["last"][:2]
+    with torch.no_grad():
+        k10_dev = [device_ms(lambda: trunk.trunk_backward(*bwd10, **noise10)),
+                   device_ms(lambda: trunk.trunk_backward_reference(*bwd10[:4], eps10, *bwd10[4:])),
+                   device_ms(lambda: trunk.trunk_backward(*bwd10s, **noise10s))]
+    x_res, x_new = bwd10[0], bwd10[1]
+    n_part = x_res.shape[0] * x_res.shape[-1]
+    k10_flops = 3 * trunk_flops(bwd10[3]) * n_part
+    # x_res, x_new, d x_new, d α and the small operands in; d x_res and the gradients out
+    k10_bound, k10_by = bound(k10_flops, nbytes(x_res, x_new, bwd10[2], bwd10[3]["packed"],
+                                                bwd10[3]["sconst"], bwd10[4], bwd10[5], *got10))
+    k10_regs = re.search(r"trunk_backward_kernelILi40ELi40ELi64EE.*?Used (\d+) registers",
+                         _build.build_log(), re.S)
+    k10_spill = re.search(r"trunk_backward_kernelILi40ELi40ELi64EE[^\n]*\n[^\n]*\n\s*(\d+) bytes "
+                          r"stack frame, (\d+) bytes spill stores", _build.build_log())
+    print(f"[s] K10 full (B={x_res.shape[0]}, K={x_res.shape[-1]}, hidden 64): device time per "
+          f"call (torch.profiler, 20 calls) in-kernel RNG {k10_dev[0]:.4f} ms, stream "
+          f"{k10_dev[2]:.4f} ms, plain {k10_dev[1]:.4f} ms; bound {k10_bound:.4f} ms ({k10_by}, "
+          f"{k10_flops:.3e} FLOP); registers {k10_regs.group(1) if k10_regs else '?'}, spill "
+          f"stores {k10_spill.group(2) if k10_spill else '?'} B, shared memory "
+          f"{trunk.k10_smem_bytes(40, 40, 64, 1)} B per CTA", flush=True)
+    del bwd10, bwd10s, got10, eps10, x_res, x_new
+    k10.clear()
+    phase_done("s")
+
+    # (t) training the preset from the trained snapshot through make_train_step
+    cfg, batch = l_cfg, l_batch
+    n_per_call = cfg.train.steps_per_call
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    pt.load_params_npz(ssm, snapshot)
+    train_step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
+    obs = l_ds.obs_train.to(dev)
+    pick = torch.randint(0, obs.shape[0], (3, batch), generator=torch.Generator().manual_seed(SEED + 7))
+    train_batches = [obs[p.to(dev)].contiguous() for p in pick]  # [B, T, Dy] each
+    before = [p.detach().clone() for p in ssm.parameters()]
+    run_gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    t_kernels = (rg.ancestor_indices_large, rg.gather_particles, trunk.trunk_forward,
+                 trunk.trunk_backward, rg.segment_sum_scatter)
+    t_plain = l_plain + (trunk.trunk_backward_reference, rg.segment_sum_scatter_reference,
+                         fused_step.scan_backward_reference)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_train_gb = torch.cuda.memory_allocated() / 1e9
+    for f in t_kernels:
+        f.launches = 0
+    for f in t_plain:
+        f.calls = 0
+    call_s, train_metrics = [], []
+    for bt in train_batches:
+        t0 = time.perf_counter()
+        train_metrics.append(train_step(run_gen, bt))
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t0)
+    train_launches = [f.launches for f in t_kernels]
+    plain_calls = sum(f.calls for f in t_plain)
+    peak_train_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(m_["loss"]) for m_ in train_metrics]
+    norms = [float(m_["grad_norm"]) for m_ in train_metrics]
+    ess_mean = [float(m_["ess_mean"]) for m_ in train_metrics]
+    moved = any(not torch.equal(a, p) for a, p in zip(before, ssm.parameters()))
+    l96_step_ms = statistics.median(call_s[1:]) / n_per_call * 1e3
+    print(f"[t] training {L96} from the snapshot: {len(train_batches)} calls x {n_per_call} step, "
+          f"B={batch}, K={lk}: loss per call {[round(v, 3) for v in losses]}, grad norm "
+          f"{[round(v, 3) for v in norms]}, mean ESS {[round(v, 3) for v in ess_mean]}, "
+          f"parameters moved {moved}; launches K7/K8/K9/K10/K11 {train_launches}, plain-version "
+          f"calls {plain_calls}; call times {[round(v, 3) for v in call_s]} s, train step "
+          f"{l96_step_ms:.3f} ms (median of the calls after the first); peak device memory "
+          f"{peak_train_gb - held_train_gb:.3f} GB above the {held_train_gb:.3f} GB held before",
+          flush=True)
+    profile = device_breakdown(lambda: train_step(run_gen, train_batches[0]), n_per_call,
+                               L96_TRAIN_KERNELS)
+    print(f"[t] profile of one more call: {profile}", flush=True)
+    want_t = len(train_batches) * n_per_call * (cfg.data.t_steps - 1)
+    if train_launches != [want_t] * 5 or plain_calls != 0:
+        fail(f"training {L96} launched K7/K8/K9/K10/K11 {train_launches} (want {want_t} each), "
+             f"plain versions {plain_calls}")
+    if not (all(math.isfinite(v) for v in losses + norms) and moved):
+        fail(f"training {L96} gave non-finite losses or gradient norms, or left the parameters "
+             f"as they were")
+    phase_done("t")
+
     # K2: about 80 operations per normal (a Philox4x32-10 call, about 100 integer
     # operations, serves the particle's two normals; the Box-Muller transform about 30
     # each), counted at the fp32 rate; its output written once.
@@ -1278,6 +1523,16 @@ def main() -> int:
          "launches": serve_launches["filter_posterior"][2], "max_abs_err": k9_small_err,
          "ms": k9_dev[0], "plain_ms": k9_dev[1], "bound_ms": k9_bound, "bound_by": k9_by,
          "library_ms": None},
+        {"name": "trunk_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/trunk_backward.cu",
+         "replaces": "psvo_tpu/ops/pallas_trunk.py:419", "launches": train_launches[3],
+         "on_path": True, "max_abs_err": k10_small_err, "ms": k10_dev[0], "plain_ms": k10_dev[1],
+         "bound_ms": k10_bound, "bound_by": k10_by, "library_ms": None},
+        {"name": "segment_sum_scatter", "route": "cuda",
+         "source": "psvo_tpu_torch/csrc/resample_gather.cu",
+         "replaces": "psvo_tpu/ops/pallas_resample.py:902", "launches": train_launches[4],
+         "on_path": True, "max_abs_err": max(r["maxd"] for r in k11.values()), "ms": k11_dev[0],
+         "plain_ms": k11_dev[1], "bound_ms": k11_bound, "bound_by": k11_by,
+         "library_ms": k11_dev[2]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

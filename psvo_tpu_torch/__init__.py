@@ -13,7 +13,9 @@ filtering and smoothing posterior APIs, plus the loader of the reference's
 scan is one hand-written CUDA kernel and its backward another; the FFBSi
 sweep and its backward are two more. The wide Lorenz-96 state is served step
 by step through three more: the large-K ancestor indices, the particle
-gather and the trunk kernel (`ops/resample_gather.py`, `ops/trunk.py`).
+gather and the trunk kernel (`ops/resample_gather.py`, `ops/trunk.py`); and
+trained through two more, the trunk kernel's VJP and the segment-sum
+scatter that transposes the gather.
 """
 
 __version__ = "0.1.0"

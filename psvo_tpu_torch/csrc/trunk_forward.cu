@@ -9,7 +9,9 @@
 //   α = −½ Σ_d (z_f² − ε²) − ½ Σ_e z_g² + ab,  floored at −3e30,
 // with z_f = (x_new − m_f)/s_f, z_g = (y − m_g)/s_g and every K-independent
 // constant in ab (the same α as K1, step_math.cuh; the plain version is
-// fused_step._propose_weight plus the floor).
+// fused_step._propose_weight plus the floor). The tile layer, the tile moves
+// and α's sum are in trunk_tile.cuh, shared with the VJP K10, which
+// recomputes the trunks and α with them.
 //
 // Design. What bounds it is arithmetic: at Dx = Dy = 40 and hidden (64, 64)
 // the three trunks cost 55,296 FLOP per particle, 3.6e9 per step at B = 8,
@@ -35,12 +37,9 @@
 #include <cstdint>
 
 #include "philox.cuh"
+#include "trunk_tile.cuh"
 
 namespace psvo {
-
-constexpr int kTrunkThreads = 256;
-constexpr int kTile = 64;  // particles per tile
-constexpr int kParts = kTrunkThreads / kTile;  // threads summing one particle's α
 
 struct TrunkArgs {
   const float* x_res;    // [B, DX, K]
@@ -54,88 +53,25 @@ struct TrunkArgs {
   int use_rng, t, B, K, n_mid, n_weights, off_f, off_g;
 };
 
-// out[r][p] = b[r] + Σ_i w[i][r]·in[i][p] (relu'd when RELU) for r < R and
-// the tile's kTile particles; w is row-major [DIN][R] followed by b [R]
-// (x @ W + b), in and out are [rows][kTile], all in shared memory. The
-// caller synchronises before reading out.
-template <int DIN, int R, bool RELU>
-__device__ __forceinline__ void tile_layer(const float* __restrict__ w,
-                                           const float* __restrict__ in,
-                                           float* __restrict__ out) {
-  static_assert(R % 4 == 0, "4x4 register blocks need R % 4 == 0");
-  constexpr int kColGroups = kTile / 4;
-  const float* b = w + DIN * R;
-  for (int blk = threadIdx.x; blk < (R / 4) * kColGroups; blk += kTrunkThreads) {
-    const int r0 = (blk / kColGroups) * 4, p0 = (blk % kColGroups) * 4;
-    float acc[4][4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float bias = b[r0 + q];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[q][c] = bias;
-    }
-#pragma unroll 8
-    for (int i = 0; i < DIN; ++i) {
-      const float4 wv = *reinterpret_cast<const float4*>(w + i * R + r0);
-      const float4 xv = *reinterpret_cast<const float4*>(in + i * kTile + p0);
-      const float wq[4] = {wv.x, wv.y, wv.z, wv.w};
-      const float xc[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[q][c] = fmaf(wq[q], xc[c], acc[q][c]);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      float4 o = make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
-      if (RELU) {
-        o.x = fmaxf(o.x, 0.0f);
-        o.y = fmaxf(o.y, 0.0f);
-        o.z = fmaxf(o.z, 0.0f);
-        o.w = fmaxf(o.w, 0.0f);
-      }
-      *reinterpret_cast<float4*>(out + (r0 + q) * kTile + p0) = o;
-    }
-  }
-}
-
 // One relu MLP mean on the tile: [DIN -> H], n_mid x [H -> H], [H -> DOUT],
 // weights in fused_step.prepare's layout; h0 and h1 are [H][kTile] scratch.
 // Ends on a barrier: out is readable by all.
 template <int DIN, int H, int DOUT>
 __device__ __forceinline__ void tile_net(const float* __restrict__ w, int n_mid,
                                          const float* in, float* out, float* h0, float* h1) {
-  tile_layer<DIN, H, true>(w, in, h0);
+  tile_layer<DIN, H, true, kTile>(w, in, h0);
   __syncthreads();
   const float* p = w + DIN * H + H;
   for (int j = 0; j < n_mid; ++j) {
-    tile_layer<H, H, true>(p, h0, h1);
+    tile_layer<H, H, true, kTile>(p, h0, h1);
     __syncthreads();
     float* tmp = h0;
     h0 = h1;
     h1 = tmp;
     p += H * H + H;
   }
-  tile_layer<H, DOUT, false>(p, h0, out);
+  tile_layer<H, DOUT, false, kTile>(p, h0, out);
   __syncthreads();
-}
-
-// Copy rows x [rows][K] (row stride K, starting at particle k0) into a
-// [rows][kTile] tile, or the tile back out, as float4.
-template <bool kLoad>
-__device__ __forceinline__ void move_tile(float* tile, const float* src, float* dst, int rows,
-                                          int K, int k0) {
-  for (int v = threadIdx.x; v < rows * (kTile / 4); v += kTrunkThreads) {
-    const int d = v / (kTile / 4), p = (v % (kTile / 4)) * 4;
-    const size_t g = (size_t)d * K + k0 + p;
-    if (kLoad) {
-      *reinterpret_cast<float4*>(tile + d * kTile + p) =
-          *reinterpret_cast<const float4*>(src + g);
-    } else {
-      *reinterpret_cast<float4*>(dst + g) = *reinterpret_cast<const float4*>(tile + d * kTile + p);
-    }
-  }
 }
 
 template <int DX, int DY, int H>
@@ -163,7 +99,7 @@ __global__ void __launch_bounds__(kTrunkThreads, 1) trunk_forward_kernel(const T
     const int b = tile / tiles_per_row, k0 = (tile % tiles_per_row) * kTile;
     const size_t row = (size_t)b * DX * K;
     __syncthreads();  // the previous tile's readers are done (and the weights are in)
-    move_tile<true>(xa, a.x_res + row, nullptr, DX, K, k0);
+    move_tile<true, kTile>(xa, a.x_res + row, nullptr, DX, K, k0);
     if (a.use_rng) {
       for (int v = tid; v < ((DX + 1) / 2) * kTile; v += kTrunkThreads) {
         const int j = v / kTile, p = v % kTile;
@@ -173,7 +109,7 @@ __global__ void __launch_bounds__(kTrunkThreads, 1) trunk_forward_kernel(const T
         if (2 * j + 1 < DX) ep[(2 * j + 1) * kTile + p] = box_muller(r.z, r.w, sin_branch);
       }
     } else {
-      move_tile<true>(ep, a.eps + row, nullptr, DX, K, k0);
+      move_tile<true, kTile>(ep, a.eps + row, nullptr, DX, K, k0);
     }
     for (int i = tid; i < NC; i += kTrunkThreads) cf[i] = a.coef[(size_t)b * NC + i];
     __syncthreads();
@@ -188,31 +124,19 @@ __global__ void __launch_bounds__(kTrunkThreads, 1) trunk_forward_kernel(const T
       xb[v] = cf[DX + d] * xb[v] + cf[d] + cf[2 * DX + d] * ep[v];
     }
     __syncthreads();
-    move_tile<false>(xb, nullptr, a.x_new + row, DX, K, k0);
+    move_tile<false, kTile>(xb, nullptr, a.x_new + row, DX, K, k0);
 
     // g on the drawn particles, into x_res's tile (no longer read)
     tile_net<DX, H, DY>(wts + a.off_g, a.n_mid, xb, xa, h0, h1);
 
     // α: kParts threads per particle, each over every kParts-th row
     const int p = tid % kTile, part = tid / kTile;
-    float acc = 0.0f;
-    for (int d = part; d < DX; d += kParts) {
-      const float zf = (xb[d * kTile + p] - mf[d * kTile + p]) * a.sconst[d];
-      const float e = ep[d * kTile + p];
-      acc += zf * zf - e * e;
-    }
-    for (int q = part; q < DY; q += kParts) {
-      const float zg = (cf[3 * DX + q] - xa[q * kTile + p]) * a.sconst[DX + q];
-      acc += zg * zg;
-    }
-    red[part * kTile + p] = acc;
+    red[part * kTile + p] =
+        alpha_part<DX, DY, kTile>(xb, mf, ep, xa, cf + 3 * DX, a.sconst, p, part);
     __syncthreads();
     if (tid < kTile) {
-      float s = red[tid];
-#pragma unroll
-      for (int j = 1; j < kParts; ++j) s += red[j * kTile + tid];
       // finiteness floor: a diverged mean gives a finite, hopeless weight
-      a.alpha[(size_t)b * K + k0 + tid] = fmaxf(-0.5f * s + cf[NC - 1], -3e30f);
+      a.alpha[(size_t)b * K + k0 + tid] = fmaxf(alpha_total(red, tid, cf[NC - 1]), -3e30f);
     }
   }
 }

@@ -1,0 +1,110 @@
+// Tile pieces shared by the trunk kernel K9 (trunk_forward.cu) and its VJP
+// K10 (trunk_backward.cu): the block shape, one relu-MLP layer over a tile of
+// particles in shared memory, tile loads and stores, and α's sum. K10
+// recomputes the trunks and α with these same functions, so its m_f, m_g and
+// unfloored α carry K9's bits and the −3e30 floor cuts the same particles.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace psvo {
+
+constexpr int kTrunkThreads = 256;
+constexpr int kTile = 64;  // particles per tile
+constexpr int kParts = kTrunkThreads / kTile;  // threads summing one particle's α
+
+// out[r][p] = b[r] + Σ_i w[i][r]·in[i][p] (relu'd when RELU) for r < R and
+// the tile's kTile particles; w is row-major [DIN][R] followed by b [R]
+// (x @ W + b), in and out are [rows][S] (S >= kTile, a multiple of 4), all
+// in shared memory. The sum runs bias first, then i ascending, one fmaf per
+// term. The caller synchronises before reading out.
+template <int DIN, int R, bool RELU, int S>
+__device__ __forceinline__ void tile_layer(const float* __restrict__ w,
+                                           const float* __restrict__ in,
+                                           float* __restrict__ out) {
+  static_assert(R % 4 == 0, "4x4 register blocks need R % 4 == 0");
+  constexpr int kColGroups = kTile / 4;
+  const float* b = w + DIN * R;
+  for (int blk = threadIdx.x; blk < (R / 4) * kColGroups; blk += kTrunkThreads) {
+    const int r0 = (blk / kColGroups) * 4, p0 = (blk % kColGroups) * 4;
+    float acc[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float bias = b[r0 + q];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[q][c] = bias;
+    }
+#pragma unroll 8
+    for (int i = 0; i < DIN; ++i) {
+      const float4 wv = *reinterpret_cast<const float4*>(w + i * R + r0);
+      const float4 xv = *reinterpret_cast<const float4*>(in + i * S + p0);
+      const float wq[4] = {wv.x, wv.y, wv.z, wv.w};
+      const float xc[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[q][c] = fmaf(wq[q], xc[c], acc[q][c]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float4 o = make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+      if (RELU) {
+        o.x = fmaxf(o.x, 0.0f);
+        o.y = fmaxf(o.y, 0.0f);
+        o.z = fmaxf(o.z, 0.0f);
+        o.w = fmaxf(o.w, 0.0f);
+      }
+      *reinterpret_cast<float4*>(out + (r0 + q) * S + p0) = o;
+    }
+  }
+}
+
+// Copy rows x [rows][K] (row stride K, starting at particle k0) into a
+// [rows][S] tile, or the tile back out, as float4.
+template <bool kLoad, int S>
+__device__ __forceinline__ void move_tile(float* tile, const float* src, float* dst, int rows,
+                                          int K, int k0) {
+  for (int v = threadIdx.x; v < rows * (kTile / 4); v += kTrunkThreads) {
+    const int d = v / (kTile / 4), p = (v % (kTile / 4)) * 4;
+    const size_t g = (size_t)d * K + k0 + p;
+    if (kLoad) {
+      *reinterpret_cast<float4*>(tile + d * S + p) = *reinterpret_cast<const float4*>(src + g);
+    } else {
+      *reinterpret_cast<float4*>(dst + g) = *reinterpret_cast<const float4*>(tile + d * S + p);
+    }
+  }
+}
+
+// One thread's part of Σ_d (z_f² − ε²) + Σ_e z_g² for tile particle p: rows
+// part, part + kParts, ... of x_new, f's mean, ε ([DX][S] tiles) and g's
+// mean ([DY][S]), with y [DY] and sconst = (1/s_f, 1/s_g). Written op by op
+// with round-to-nearest intrinsics, so no contraction differs between the
+// kernels that call it.
+template <int DX, int DY, int S>
+__device__ __forceinline__ float alpha_part(const float* xn, const float* mf, const float* ep,
+                                            const float* mg, const float* y,
+                                            const float* sconst, int p, int part) {
+  float acc = 0.0f;
+  for (int d = part; d < DX; d += kParts) {
+    const float zf = __fmul_rn(__fsub_rn(xn[d * S + p], mf[d * S + p]), sconst[d]);
+    const float e = ep[d * S + p];
+    acc = __fadd_rn(acc, __fsub_rn(__fmul_rn(zf, zf), __fmul_rn(e, e)));
+  }
+  for (int q = part; q < DY; q += kParts) {
+    const float zg = __fmul_rn(__fsub_rn(y[q], mg[q * S + p]), sconst[DX + q]);
+    acc = __fadd_rn(acc, __fmul_rn(zg, zg));
+  }
+  return acc;
+}
+
+// The unfloored α of tile particle p from the kParts parts red[j][p]
+// ([kParts][kTile]), added in order, and the K-independent bias ab.
+__device__ __forceinline__ float alpha_total(const float* red, int p, float ab) {
+  float s = red[p];
+#pragma unroll
+  for (int j = 1; j < kParts; ++j) s = __fadd_rn(s, red[j * kTile + p]);
+  return __fadd_rn(__fmul_rn(-0.5f, s), ab);
+}
+
+}  // namespace psvo

@@ -393,10 +393,14 @@ def _unpack_nets(consts):
             _unpack_net(packed, off_g, dx, h, n_mid, dy))
 
 
-def _propose_weight(q1, f, g, x_res, e, aq, cq, sq, y, ab, sfi, sgi):
-    """One step after the resample: the fused draw and the unfloored α."""
+def _propose_weight(q1, f, g, x_res, e, aq, cq, sq, y, ab, sfi, sgi, x_new_value=None):
+    """One step after the resample: the fused draw and the unfloored α. With
+    x_new_value the draw takes that value (a kernel's saved output) and keeps
+    its gradient to m1, aq, cq and sq."""
     m1, m_f = _trunk_cm(q1, x_res), _trunk_cm(f, x_res)
     x_new = cq * m1 + aq + sq * e
+    if x_new_value is not None:
+        x_new = x_new_value + (x_new - x_new.detach())
     z_f = (x_new - m_f) * sfi
     z_g = (y - _trunk_cm(g, x_new)) * sgi
     alpha = -0.5 * (torch.sum(z_f * z_f - e * e, 1) + torch.sum(z_g * z_g, 1)) + ab

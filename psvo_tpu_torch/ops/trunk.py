@@ -1,5 +1,5 @@
-"""The per-step trunk kernel and its plain version (counterpart of
-`psvo_tpu/ops/pallas_trunk.py`, forward).
+"""The per-step trunk kernel, its VJP and their plain versions (counterpart
+of `psvo_tpu/ops/pallas_trunk.py`).
 
 Configurations whose state is too wide for the whole-scan kernel K1 (the
 Lorenz-96 preset: Dx = Dy = 40) filter step by step: the resample runs
@@ -12,14 +12,23 @@ through the large-K kernels (`ops/resample_gather.py`), then one launch of
   version: `trunk_forward_reference`, `fused_step._propose_weight` plus the
   floor. The operands are K1's: `fused_step.prepare`'s packed weights and
   `sconst`, and one step's row of `fused_step.pack_coef`.
+- K10 `trunk_backward` (replaces `pallas_trunk._tr_bwd`,
+  `csrc/trunk_backward.cu`): the VJP of K9 from its inputs and x_new —
+  recompute the trunks and α, cut dα where the floor clamped, backprop g, q1
+  and f — giving d x_res, the step's d_coef row (zero for y), the packed
+  weight gradients and d_sconst. Plain version: `trunk_backward_reference`,
+  an autograd replay of the plain forward.
+
+`TrunkForward` joins K9 and K10 as one `torch.autograd.Function`, the
+counterpart of `pallas_trunk.trunk_call`'s custom VJP; `trunk_forward` goes
+through it when autograd records. Its residuals are x_res and x_new in
+float32 (the reference's bf16 residuals were a TPU bandwidth means).
 
 ε comes as a stream [B, Dx, K] or is drawn in the kernel from a two-word
 seed and the step t, with K2's counter layout: `fused_step.stream_noise`
 extracts exactly what the kernel drew. The wrapper launches the kernel for
-CUDA tensors and runs the plain version for CPU tensors; it counts its
-launches (`trunk_forward.launches`), the plain version its calls. The
-kernel has no backward yet: on the card it refuses inputs that need a
-gradient.
+CUDA tensors and runs the plain version for CPU tensors; each wrapper
+counts its launches (`<wrapper>.launches`), each plain version its calls.
 """
 
 from __future__ import annotations
@@ -51,6 +60,24 @@ def smem_bytes(dx: int, dy: int, h: int, n_mid: int) -> int:
     return 4 * (n_w + (max(dx, dy) + 3 * dx + 2 * h + _PARTS) * TILE + nc + (-nc) % 4)
 
 
+def k10_smem_bytes(dx: int, dy: int, h: int, n_mid: int) -> int:
+    """Dynamic shared memory of K10 (csrc/trunk_backward.cu::
+    launch_trunk_backward): the three nets' weights, six [rows][68] tiles
+    (x_res, x_new, ε, f's mean, g's mean, d x_new), one net's n_mid + 1
+    hidden layers, the α partial sums, dα and one row's coefficients."""
+    n_w = 2 * _net_floats(dx, h, n_mid, dx) + _net_floats(dx, h, n_mid, dy)
+    nc = 3 * dx + dy + 1
+    rows = 5 * dx + max(dx, dy) + (n_mid + 1) * h
+    return 4 * (n_w + rows * (TILE + 4) + (_PARTS + 1) * TILE + nc + (-nc) % 4)
+
+
+def k10_ok(dx: int, dy: int, h: int, n_mid: int, k: int) -> bool:
+    """Whether K10 is instantiated for the shape: K9's dims and widths, K a
+    multiple of 64, its shared memory in one CTA."""
+    return ((dx, dy) in TRUNK_DIMS and h in HIDDEN_WIDTHS and k % TILE == 0
+            and k10_smem_bytes(dx, dy, h, n_mid) <= SMEM_LIMIT)
+
+
 def usable(ssm, cfg) -> bool:
     """Whether (ssm, smc-config) is in the trunk kernels' class: systematic
     resampling at every step, stop-gradient FIVO, relu q1/f/g trunks of one
@@ -80,20 +107,31 @@ def _split_coef(coef_t, dx: int, dy: int):
     return aq, cq, sq, coef_t[:, 3 * dx:3 * dx + dy, None], coef_t[:, -1:]
 
 
-def trunk_forward_reference(x_res, coef_t, consts, eps):
-    """Plain version of K9: x_res [B, Dx, K], coef_t [B, 3·Dx + Dy + 1],
-    eps [B, Dx, K] -> (x_new [B, Dx, K], α [B, K] floored at −3e30)."""
-    trunk_forward_reference.calls += 1
+def _trunk_math(x_res, coef_t, consts, eps, x_new_value=None):
+    """The plain step: (x_new, α floored at −3e30), differentiable; with
+    x_new_value the draw takes that value (see fused_step._propose_weight)."""
     dx, dy = consts["dx"], consts["dy"]
     q1, f, g = fused_step._unpack_nets(consts)
     sfi = consts["sconst"][:dx, None]
     sgi = consts["sconst"][dx:, None]
     x_new, alpha = fused_step._propose_weight(q1, f, g, x_res, eps, *_split_coef(coef_t, dx, dy),
-                                              sfi, sgi)
+                                              sfi, sgi, x_new_value)
     return x_new, torch.clamp(alpha, min=-3e30)
 
 
+def trunk_forward_reference(x_res, coef_t, consts, eps):
+    """Plain version of K9: x_res [B, Dx, K], coef_t [B, 3·Dx + Dy + 1],
+    eps [B, Dx, K] -> (x_new [B, Dx, K], α [B, K] floored at −3e30)."""
+    trunk_forward_reference.calls += 1
+    return _trunk_math(x_res, coef_t, consts, eps)
+
+
 trunk_forward_reference.calls = 0
+
+
+def _step_eps(seed, t, batch, dx, k, device):
+    """The ε that K9 draws from `seed` at step t, through K2's plain version."""
+    return fused_step.stream_noise_reference(seed, 1, batch, dx, k, device, t0=t)[0][0]
 
 
 def trunk_forward(x_res, coef_t, consts, *, eps=None, seed=None, t: int = 0):
@@ -101,21 +139,22 @@ def trunk_forward(x_res, coef_t, consts, *, eps=None, seed=None, t: int = 0):
     stream eps [B, Dx, K] or drawn in the kernel from `seed` (two uint32
     words) at step t, as K2 extracts it. CPU tensors run the plain version
     (in-kernel RNG replayed through K2's plain version); CUDA tensors launch
-    the kernel."""
+    the kernel. When autograd records, through `TrunkForward` (K10 its
+    backward)."""
     if (seed is None) == (eps is None):
         raise ValueError("trunk_forward: pass either eps or seed")
-    batch, dx, k = x_res.shape
-    if x_res.device.type == "cpu":
-        if seed is not None:
-            eps = fused_step.stream_noise_reference(seed, 1, batch, dx, k, x_res.device, t0=t)[0][0]
-        return trunk_forward_reference(x_res, coef_t, consts, eps)
-    if x_res.device.type != "cuda":
-        raise ValueError(f"trunk_forward: unsupported device {x_res.device}")
     if torch.is_grad_enabled() and any(
         v.requires_grad for v in (x_res, coef_t, consts["packed"], consts["sconst"])
     ):
-        raise RuntimeError("trunk_forward records no gradient (its backward kernel is not "
-                           "written yet); call it under torch.no_grad()")
+        return TrunkForward.apply(x_res, coef_t, consts["packed"], consts["sconst"], consts,
+                                  eps, seed, t)
+    batch, dx, k = x_res.shape
+    if x_res.device.type == "cpu":
+        if seed is not None:
+            eps = _step_eps(seed, t, batch, dx, k, x_res.device)
+        return trunk_forward_reference(x_res, coef_t, consts, eps)
+    if x_res.device.type != "cuda":
+        raise ValueError(f"trunk_forward: unsupported device {x_res.device}")
     dy, h, n_mid = consts["dy"], consts["hidden"], consts["n_mid"]
     dev = x_res.device
     if ((dx, dy) not in TRUNK_DIMS or h not in HIDDEN_WIDTHS or k % TILE
@@ -148,3 +187,131 @@ def trunk_forward(x_res, coef_t, consts, *, eps=None, seed=None, t: int = 0):
 
 
 trunk_forward.launches = 0
+
+
+def trunk_backward_reference(x_res, x_new, coef_t, consts, eps, d_x_new, d_alpha):
+    """Plain version of K10: replay the plain forward from x_res under
+    autograd, with the draw taking K9's saved x_new as its value, and
+    backpropagate the cotangents of x_new and α (the contract of
+    `pallas_trunk._tr_bwd`, which reads x_new as a residual): the α cotangent
+    is cut where the unfloored α < −3e30 (the gradient of torch.clamp); y
+    (coef columns 3·Dx .. 3·Dx + Dy) and ε get none. Returns (d_x_res,
+    d_coef_t, d_packed, d_sconst)."""
+    trunk_backward_reference.calls += 1
+    dx, dy = consts["dx"], consts["dy"]
+    with torch.enable_grad():
+        leaves = [v.detach().requires_grad_() for v in
+                  (x_res, coef_t, consts["packed"], consts["sconst"])]
+        x_res_, coef_, packed, sconst = leaves
+        y_cols = torch.zeros_like(coef_, dtype=torch.bool)
+        y_cols[:, 3 * dx:3 * dx + dy] = True
+        coef_ = torch.where(y_cols, coef_.detach(), coef_)  # y is data
+        outs = _trunk_math(x_res_, coef_, dict(consts, packed=packed, sconst=sconst), eps,
+                           x_new.detach())
+        grads = torch.autograd.grad(outs, leaves, (d_x_new, d_alpha), allow_unused=True)
+    return tuple(torch.zeros_like(v) if gr is None else gr for gr, v in zip(grads, leaves))
+
+
+trunk_backward_reference.calls = 0
+
+
+def trunk_backward(x_res, x_new, coef_t, consts, d_x_new, d_alpha, *, eps=None, seed=None,
+                   t: int = 0):
+    """K10: the VJP of K9 for one step. Takes K9's inputs (x_res, coef_t,
+    consts and the noise: eps [B, Dx, K] or the `seed` and step t it drew
+    from), its output x_new and the cotangents d_x_new [B, Dx, K] and d_alpha
+    [B, K]. Returns (d_x_res [B, Dx, K], d_coef_t [B, 3·Dx + Dy + 1],
+    d_packed [n_w], d_sconst [Dx + Dy]) as `trunk_backward_reference`, which
+    CPU tensors run (in-kernel RNG replayed through K2's plain version);
+    CUDA tensors launch the kernel, or raise for a shape it is not
+    instantiated for."""
+    if (seed is None) == (eps is None):
+        raise ValueError("trunk_backward: pass either eps or seed")
+    batch, dx, k = x_res.shape
+    if x_res.device.type == "cpu":
+        if seed is not None:
+            eps = _step_eps(seed, t, batch, dx, k, x_res.device)
+        return trunk_backward_reference(x_res, x_new, coef_t, consts, eps, d_x_new, d_alpha)
+    if x_res.device.type != "cuda":
+        raise ValueError(f"trunk_backward: unsupported device {x_res.device}")
+    dy, h, n_mid = consts["dy"], consts["hidden"], consts["n_mid"]
+    dev = x_res.device
+    if not k10_ok(dx, dy, h, n_mid, k):
+        raise ValueError(f"trunk_backward: no kernel for Dx={dx}, Dy={dy}, hidden={h}, "
+                         f"{n_mid} middle layers, K={k} ({k10_smem_bytes(dx, dy, h, n_mid)} B "
+                         f"of shared memory, at most {SMEM_LIMIT})")
+    packed = consts["packed"]
+    n_w = packed.numel()
+    _require(x_res, (batch, dx, k), "x_res", dev)
+    _require(x_new, (batch, dx, k), "x_new", dev)
+    _require(coef_t, (batch, 3 * dx + dy + 1), "coef_t", dev)
+    _require(packed, (n_w,), "weights", dev)
+    _require(consts["sconst"], (dx + dy,), "sconst", dev)
+    _require(d_x_new, (batch, dx, k), "d_x_new", dev)
+    _require(d_alpha, (batch, k), "d_alpha", dev)
+    if seed is None:
+        _require(eps, (batch, dx, k), "eps", dev)
+    for name, v in (("x_res", x_res), ("x_new", x_new), ("eps", eps), ("weights", packed)):
+        if v is not None and v.data_ptr() % 16:
+            raise ValueError(f"trunk_backward: {name} is not 16-byte aligned")
+    f32 = dict(dtype=torch.float32, device=dev)
+    max_ctas = torch.cuda.get_device_properties(dev).multi_processor_count
+    d_x_res = torch.empty((batch, dx, k), **f32)
+    d_coef = torch.empty(coef_t.shape, **f32)
+    partial = torch.empty((max_ctas, n_w + dx + dy), **f32)
+    coef_part = torch.empty((batch * (k // TILE), 3 * dx + 1), **f32)
+    grads = torch.empty((n_w + dx + dy,), **f32)
+    seed0, seed1 = (0, 0) if seed is None else seed
+    lib = _build.load_library()
+    _, off_f, off_g = consts["offsets"]
+    err = lib.psvo_trunk_backward(
+        x_res.data_ptr(), x_new.data_ptr(), _ptr(eps), coef_t.data_ptr(), packed.data_ptr(),
+        consts["sconst"].data_ptr(), d_x_new.data_ptr(), d_alpha.data_ptr(), d_x_res.data_ptr(),
+        partial.data_ptr(), coef_part.data_ptr(), grads.data_ptr(), d_coef.data_ptr(), seed0,
+        seed1, int(seed is not None), t, batch, k, dx, dy, h, n_mid, n_w, off_f, off_g, max_ctas,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    trunk_backward.launches += 1
+    _build.check(lib, err, "trunk_backward")
+    return d_x_res, d_coef, grads[:n_w], grads[n_w:]
+
+
+trunk_backward.launches = 0
+
+
+class TrunkForward(torch.autograd.Function):
+    """`trunk_forward` with `trunk_backward` as its VJP: the counterpart of
+    `pallas_trunk.trunk_call`'s custom VJP.
+
+    apply(x_res, coef_t, packed, sconst, consts, eps, seed, t) returns
+    (x_new, α). packed and sconst are consts["packed"] / consts["sconst"],
+    passed apart so autograd sees them. The forward saves x_res and x_new in
+    float32, coef_t, the weights and eps (or the seed and t it drew from);
+    ε gets no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, x_res, coef_t, packed, sconst, consts, eps, seed, t):
+        consts = dict(consts, packed=packed, sconst=sconst)
+        batch, dx, k = x_res.shape
+        if x_res.is_cuda and not k10_ok(dx, consts["dy"], consts["hidden"], consts["n_mid"], k):
+            raise ValueError("TrunkForward: this configuration has no backward kernel "
+                             "(trunk.trunk_backward)")
+        x_new, alpha = trunk_forward(x_res, coef_t, consts, eps=eps, seed=seed, t=t)
+        ctx.save_for_backward(x_res, x_new, coef_t, packed, sconst, eps)
+        ctx.static = {key: v for key, v in consts.items() if not torch.is_tensor(v)}
+        ctx.seed, ctx.t = seed, t
+        ctx.set_materialize_grads(False)
+        return x_new, alpha
+
+    @staticmethod
+    def backward(ctx, d_x_new, d_alpha):
+        x_res, x_new, coef_t, packed, sconst, eps = ctx.saved_tensors
+        consts = dict(ctx.static, packed=packed, sconst=sconst)
+        d_x_new = torch.zeros_like(x_new) if d_x_new is None else d_x_new.contiguous()
+        d_alpha = (torch.zeros(x_new.shape[0], x_new.shape[-1], dtype=x_new.dtype,
+                               device=x_new.device) if d_alpha is None else d_alpha.contiguous())
+        noise = {"seed": ctx.seed, "t": ctx.t} if ctx.seed is not None else {"eps": eps}
+        d_x_res, d_coef, d_packed, d_sconst = trunk_backward(
+            x_res, x_new, coef_t, consts, d_x_new, d_alpha, **noise)
+        return d_x_res, d_coef, d_packed, d_sconst, None, None, None, None

@@ -17,9 +17,10 @@ Three paths, chosen from what the call can observe:
 - the trunk class (`ops.trunk.usable`: the wide Lorenz-96 state, up to
   K = 19200) runs `_forward_filter_trunk`, a Python loop over t of the
   large-K resample (K7 indices, K8 gather) and the trunk kernel K9, with
-  the weight bookkeeping in tensor ops between them. It serves only: it
-  has no backward kernel yet, so on the card it refuses to run while
-  autograd records;
+  the weight bookkeeping in tensor ops between them; when autograd records,
+  the gather goes through `resample_gather.GatherParticles` (backward: the
+  segment-sum scatter K11) and the trunk through `trunk.TrunkForward`
+  (backward: K10), so the loss's gradient runs K10 and K11 once per step;
 - everything else runs the plain step body in a Python loop over t, on CPU
   tensors only: a CUDA tensor outside the kernel classes raises
   NotImplementedError rather than run plain PyTorch on the card.
@@ -242,16 +243,15 @@ def _forward_filter_trunk(
     Nothing inside the loop waits for the device. With cfg.kernel_rng K9
     draws each step's ε from the seed, and the positions u_scan come from
     `generator` after it.
+
+    Under autograd the gradient of ℓ = lse(logw + α) − lse(logw) reaches
+    t = 0, the fusion coefficients, ab and the packed head weights through
+    the two autograd Functions; resampled rows restart at log-weight 0 (a
+    constant), and the ESS and the filtered means are metrics that carry no
+    gradient, as K4 drops their cotangents on the whole-scan path.
     """
     batch, t_steps, _ = ys.shape
     k = cfg.n_particles
-    if ys.is_cuda and torch.is_grad_enabled() and any(p.requires_grad for p in ssm.parameters()):
-        raise NotImplementedError(
-            "the trunk path (ops.trunk) has no backward kernels yet: the VJP of "
-            "trunk_forward (counterpart of pallas_trunk._tr_bwd) and the segment-sum "
-            "scatter of the resample gather; train this configuration on CPU tensors, "
-            "or serve it under torch.no_grad()"
-        )
     consts, coef, x0, alpha0, eps_scan, u_scan, seed = _fused_preamble(
         ssm, generator, ys, cfg, encoder_inputs, streams
     )
@@ -274,14 +274,16 @@ def _forward_filter_trunk(
         x, alpha = trunk.trunk_forward(x, coef[t], consts, **noise)
         logw_new = logw + alpha
         ells.append(_lse(logw_new) - _lse(logw))
-        esss.append(ess)
-        fmeans.append(torch.einsum("bk,bdk->bd", torch.softmax(logw_new, dim=-1), x))
+        esss.append(ess.detach())
+        fmeans.append(torch.einsum("bk,bdk->bd", torch.softmax(logw_new.detach(), dim=-1),
+                                   x.detach()))
         logw = logw_new
         if cache:
             xs[t + 1], logws[t + 1] = x, logw
 
     increments = torch.stack(ells)
-    fmean0 = torch.einsum("bk,bdk->bd", torch.softmax(alpha0, dim=-1), x0)
+    alpha0 = alpha0.detach()
+    fmean0 = torch.einsum("bk,bdk->bd", torch.softmax(alpha0, dim=-1), x0.detach())
     return FilterResult(
         log_z=torch.sum(increments, dim=0),
         increments=increments,

@@ -411,14 +411,144 @@ def test_lorenz96_serving_launches_the_trunk_kernels():
     torch.testing.assert_close(got.xs[:2].cpu(), want.xs[:2], rtol=2e-4, atol=2e-4)
 
 
-def test_lorenz96_training_on_the_card_raises():
+@pytest.mark.parametrize("hidden", [16, 32, 64])
+@pytest.mark.parametrize("rng", [False, True])
+def test_trunk_backward_kernel_matches_plain(hidden, rng):
+    """K10 against trunk_backward_reference on K9's own output, per leaf to
+    1e-4 relative, with row 1 below the −3e30 floor (no α cotangent there);
+    a second launch gives the same bits."""
+    from psvo_tpu_torch.ops import trunk
+
+    dev = _cuda()
+    cfg = _l96_cfg(hidden)
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    b, k, t = 3, 256, 4
+    x_res = torch.randn((b, 40, k), generator=g, device=dev) * 3.0
+    coef = torch.rand((b, 161), generator=g, device=dev) + 0.1
+    coef[1, 120:160] = 1e16
+    with torch.no_grad():
+        consts = fused_step.prepare(ssm)
+        if rng:
+            eps = fused_step.stream_noise((5, 6), t + 1, b, 40, k, dev)[0][t]
+            noise = {"seed": (5, 6), "t": t}
+        else:
+            eps = torch.randn((b, 40, k), generator=g, device=dev)
+            noise = {"eps": eps}
+        x_new, alpha = trunk.trunk_forward(x_res, coef, consts, **noise)
+    assert bool((alpha[1] == -3e30).all())
+    d_x_new = torch.randn((b, 40, k), generator=g, device=dev)
+    d_alpha = torch.randn((b, k), generator=g, device=dev)
+    launches = trunk.trunk_backward.launches
+    got = trunk.trunk_backward(x_res, x_new, coef, consts, d_x_new, d_alpha, **noise)
+    again = trunk.trunk_backward(x_res, x_new, coef, consts, d_x_new, d_alpha, **noise)
+    assert trunk.trunk_backward.launches == launches + 2
+    want = trunk.trunk_backward_reference(x_res, x_new, coef, consts, eps, d_x_new, d_alpha)
+    for a, a2, w in zip(got, again, want):
+        assert torch.equal(a, a2)
+        assert _rel(a, w) <= 1e-4
+    assert float(got[1][1, -1]) == 0.0 and bool((got[1][:, 120:160] == 0).all())
+
+
+@pytest.mark.parametrize("k", [128, 2048, 8192])
+def test_segment_sum_scatter_kernel_matches_plain(k):
+    """K11 against the float64 plain version to 1e-6 relative on healthy rows,
+    ties, floors and one dominant particle (one ancestor takes every child),
+    sources with no child exactly 0, the same bits on a second launch."""
+    from psvo_tpu_torch.ops import resample_gather as rg
+
+    dev = _cuda()
+    logw = _weight_rows(k, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    pos = fused_step.systematic_positions(torch.rand((logw.shape[0],), generator=gen, device=dev),
+                                          k).contiguous()
+    idx = rg.ancestor_indices_large(logw, pos)
+    assert idx[4].unique().numel() == 1
+    g = torch.randn((logw.shape[0], 40, k), generator=gen, device=dev)
+    launches = rg.segment_sum_scatter.launches
+    got = rg.segment_sum_scatter(g, idx)
+    again = rg.segment_sum_scatter(g, idx)
+    assert rg.segment_sum_scatter.launches == launches + 2
+    want = rg.segment_sum_scatter_reference(g.double(), idx)
+    assert torch.equal(got, again)
+    assert _rel(got.double(), want) <= 1e-6
+    assert bool((got[want == 0] == 0).all())
+
+
+def test_cuda_tensor_outside_the_backward_kernels_raises():
+    from psvo_tpu_torch.ops import resample_gather as rg
+    from psvo_tpu_torch.ops import trunk
+
+    dev = _cuda()
+    ssm = init_ssm(_l96_cfg(), torch.Generator().manual_seed(0), device=dev)
+    with torch.no_grad():
+        consts = fused_step.prepare(ssm)
+    x = torch.zeros((2, 40, 96), device=dev)  # K not a multiple of 64
+    coef = torch.zeros((2, 161), device=dev)
+    with pytest.raises(ValueError, match="no kernel"):
+        trunk.trunk_backward(x, x, coef, consts, x, torch.zeros((2, 96), device=dev), eps=x)
+    with pytest.raises(ValueError, match="backward kernel"):
+        trunk.TrunkForward.apply(x.requires_grad_(), coef, consts["packed"], consts["sconst"],
+                                 consts, torch.zeros_like(x), None, 0)
+    big = torch.zeros((1, 2, rg.MAX_K + 256), device=dev)
+    with pytest.raises(ValueError, match="no kernel"):
+        rg.segment_sum_scatter(big, torch.zeros((1, rg.MAX_K + 256), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="idx"):
+        rg.segment_sum_scatter(big, torch.zeros((1, rg.MAX_K + 256), device=dev))
+
+
+def test_lorenz96_train_step_launches_the_trunk_kernels(monkeypatch):
+    """One make_train_step step of the cut Lorenz-96 preset on the card: K7,
+    K8, K9, K10 and K11 T−1 times each, no plain version, finite loss and
+    changed parameters; the raw gradients match the CPU replay of the same
+    draws (on the card's ancestors) to 5e-3 relative per leaf."""
+    from psvo_tpu_torch import bridge, smc
+    from psvo_tpu_torch.ops import resample_gather as rg
+    from psvo_tpu_torch.ops import trunk
     from psvo_tpu_torch.train import make_optimizer, make_train_step
 
     dev = _cuda()
     cfg = dataclasses.replace(_l96_cfg(), train=dataclasses.replace(
         PRESETS["lorenz96_fivo_k8192_sharded"].train, steps_per_call=1))
     ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
-    ys = torch.zeros((2, 6, 40), device=dev)
-    step = make_train_step(ssm, cfg, make_optimizer(cfg))
-    with pytest.raises(NotImplementedError, match="backward"):
-        step(torch.Generator(device=dev).manual_seed(0), ys)
+    before = [p.detach().clone() for p in ssm.parameters()]
+    ys = torch.randn((4, 6, 40), generator=torch.Generator().manual_seed(2)).to(dev) * 3.0
+    kernels = (rg.ancestor_indices_large, rg.gather_particles, trunk.trunk_forward,
+               trunk.trunk_backward, rg.segment_sum_scatter)
+    plain = (rg.ancestor_indices_large_reference, rg.gather_particles_reference,
+             trunk.trunk_forward_reference, trunk.trunk_backward_reference,
+             rg.segment_sum_scatter_reference, fused_step.stream_noise_reference)
+    ancestors, resample = [], rg.resample_and_gather
+
+    def recorded(u, logw, x):  # the card's ancestors, for the CPU replay
+        if x.is_cuda:
+            idx, x_res = resample(u, logw, x)
+            ancestors.append(idx.cpu())
+            return idx, x_res
+        idx = ancestors.pop(0)
+        return idx, rg.gather_particles(x.contiguous(), idx)
+
+    monkeypatch.setattr(rg, "resample_and_gather", recorded)
+    launches, calls = [f.launches for f in kernels], [f.calls for f in plain]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    state = gen.get_state()
+    metrics = make_train_step(ssm, cfg, make_optimizer(cfg))(gen, ys)
+    assert [f.launches - n for f, n in zip(kernels, launches)] == [5] * 5
+    assert [f.calls for f in plain] == calls
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    assert any(not torch.equal(a, p) for a, p in zip(before, ssm.parameters()))
+
+    gen.set_state(state)  # replay the draws on the CPU
+    eps0 = torch.randn((4, 40, 128), generator=gen, device=dev)
+    seed = tuple(int(v) for v in torch.randint(0, 2**32, (2,), generator=gen, device=dev))
+    u = smc.resampling.bulk_positions(gen, 5, 4, 128, "systematic")
+    eps = fused_step.stream_noise_reference(seed, 5, 4, 40, 128)[0]
+    ref = init_ssm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    fwd = smc._forward_filter_trunk(ref, None, ys.cpu(), cfg.smc, cache=False,
+                                    streams=(eps0.cpu(), eps, u.cpu()))
+    (-torch.mean(fwd.log_z)).backward()
+    assert not ancestors
+    got, want = bridge.grads_to_numpy(ssm), bridge.grads_to_numpy(ref)
+    for name in want:
+        for a, w in zip(_leaves(got[name]), _leaves(want[name])):
+            assert _rel(torch.from_numpy(a), torch.from_numpy(w)) <= 5e-3, name
