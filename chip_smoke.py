@@ -56,6 +56,25 @@ trunk path:
       step on minibatches of 8, launch counts (99 per kernel per step), loss,
       grad norm, step time, peak memory and a profile by kernel
 
+then `lorenz63_svo_k256` (Lorenz-63, SVO with the learned backward proposal,
+K=256, M=16, B=32, T=100, relu heads (64, 64), in-kernel RNG, the filter's
+cache on) with random weights:
+
+  (u) K1 and K4 at its settings (in-kernel draw, cache, K4 with the cache
+      cotangents and the seed) vs their plain versions on K2's streams
+      (small, full)
+  (v) K12 svo_sweep_forward vs its plain version: the free runs and every
+      step teacher-forced from the kernel's own x~_{t+1} (small, full);
+      device time
+  (w) K13 svo_sweep_backward vs its plain version on K12's x~, random
+      cotangents on all four outputs (zeroed on paths with a relu tie, both
+      figures reported), bit-equal on a second launch (small, full); device
+      time
+  (x) serving: smooth_posterior(method="svo") on three batches of 32;
+      shapes, launch counts, time per call, peak memory, profile by kernel
+  (y) training: 3 calls of 10 SVO train steps on minibatches of 32; launch
+      counts, loss and elbo_svo, step time, peak memory, profile by kernel
+
 Every phase prints its lines and its seconds; any failure exits non-zero.
 The second-to-last line is the kernels' JSON record (times beside the
 bound: the larger of the operations over 67 TFLOP/s fp32 and the bytes over
@@ -665,6 +684,125 @@ def trunk_backward_run(ssm, cfg, ys, gen, rng_seed=None):
                 rel_raw=torch.stack(rel_raw).amax(0).tolist(), zeroed=zeroed,
                 n=(t_steps - 1) * batch * k, same=same, finite=all(bool(torch.isfinite(g).all()) for g in got),
                 last=(bwd, noise, eps[-1], got))
+
+
+SVO = "lorenz63_svo_k256"
+SVO_KERNELS = dict(FHN_KERNELS, K12=("svo_forward_kernel",),
+                   K13=("svo_backward_kernel", "svo_sum_ctas_kernel"))
+
+
+def svo_flops(consts, n_path_steps: int) -> float:
+    """FLOP of the qb, f and g trunk forwards on n_path_steps (path, step) pairs."""
+    dx, dy, h, n_mid = consts["dx"], consts["dy"], consts["hidden"], consts["n_mid"]
+
+    def net(din, dout):
+        return 2 * (din * h + n_mid * h * h + h * dout)
+
+    return float(net(dx + dy, dx) + net(dx, dx) + net(dx, dy)) * n_path_steps
+
+
+def svo_operands(ssm, cfg, ys, gen):
+    """K12's operands as the SVO objective builds them, from one K1 run with
+    the preset's in-kernel draw and the cache: the anchors drawn from the
+    last weights, fresh ε, and y_t of t = 0 .. T-2."""
+    from types import SimpleNamespace
+
+    import torch
+    from psvo_tpu_torch import objectives
+    from psvo_tpu_torch.ops import fused_step, svo
+
+    inp = kernel_inputs(ssm, cfg, ys, gen)
+    x_last, alpha_last = fused_step.scan_forward(inp["x0"], inp["alpha0"], inp["coef"],
+                                                 inp["consts"], seed=(23, 29), cache=True)[:2]
+    batch, t_steps, _ = ys.shape
+    m, k = cfg.smc.n_smoothing_particles, cfg.smc.n_particles
+    x_anchor, _ = objectives._sample_final_particles(
+        objectives._gumbel(gen, (batch, m, k)), SimpleNamespace(x_last=x_last, logw_last=alpha_last))
+    eps = torch.randn((t_steps - 1, batch, m, ssm.dx), generator=gen, device=ys.device)
+    y = ys.transpose(0, 1)[:-1].contiguous()
+    return svo.prepare(ssm), (x_anchor.contiguous(), eps, y)
+
+
+def svo_forward_check(consts, ops):
+    """K12 against its plain version: the free runs (x_first, lp, lq, every
+    step of x~) and, teacher-forced, one plain step from each of the kernel's
+    own x~_{t+1}. Returns a dict."""
+    import torch
+    from psvo_tpu_torch.ops import svo
+
+    x_anchor, eps, y = ops
+    kern = svo.svo_sweep_forward(*ops, consts)
+    ref = svo.svo_sweep_forward_reference(*ops, consts)
+    t1, b, m, dx = eps.shape
+    x_next = torch.cat([kern[3][1:], x_anchor[None]]).reshape(t1 * b, m, dx)
+    x_tf, lp_tf, lq_tf = svo._step(svo._nets(consts), consts["sc"], dx, consts["dy"], x_next,
+                                   y.reshape(t1 * b, -1), eps.reshape(t1 * b, m, dx))
+    x_k = kern[3].reshape(t1 * b, m, dx)
+    torch.cuda.synchronize()
+
+    def rel(a, w):
+        return float(((a - w).abs() / (1 + w.abs())).max())
+
+    return dict(kern=kern, close=close(kern, ref, 2e-4), max_abs_err=max_err(kern, ref),
+                rel_x=rel(kern[3], ref[3]), rel_lp=rel(kern[1], ref[1]), rel_lq=rel(kern[2], ref[2]),
+                tf_x=rel(x_k, x_tf),
+                finite=all(bool(torch.isfinite(t).all()) for t in kern))
+
+
+def svo_relu_ties(consts, ops, xtilde, tol=1e-5):
+    """[B, M] bool: the paths on which, at some step, a relu pre-activation of
+    qb (on [x~_{t+1}; y_t]) or of f or g (on x~_t) lies within tol of the
+    magnitude of its sum (|b| + sum |w x|, in float64): there the relu's
+    gradient mask depends on the order of the float32 sum (see relu_ties)."""
+    import torch
+    from psvo_tpu_torch.ops import svo
+
+    x_anchor, _, y = ops
+    x_next = torch.cat([xtilde[1:], x_anchor[None]])
+    y_b = y[:, :, None, :].expand(-1, -1, x_next.shape[2], -1)
+    flag = torch.zeros(x_anchor.shape[:2], dtype=torch.bool, device=x_anchor.device)
+    for (layers, _), inp in zip(svo._nets(consts), (torch.cat([x_next, y_b], -1), xtilde, xtilde)):
+        h = inp.double()
+        for w, b in layers:
+            w, b = w.double(), b.double()
+            pre = h @ w + b
+            size = h.abs() @ w.abs() + b.abs()
+            flag |= (pre.abs() < tol * size).any(-1).any(0)
+            h = torch.relu(pre)
+    return flag
+
+
+def svo_backward_check(consts, ops, xtilde, gen):
+    """K13 against its plain version on K12's x~, with random cotangents of
+    all four outputs: raw, and zeroed on the paths of `svo_relu_ties`.
+    Returns per-leaf relative L2 (d_x_anchor, d_weights, d_sc) and |Δ| of the
+    masked run, the raw relative L2, the paths zeroed, whether a second launch
+    gave the same bits, and the masked run's operands for timing."""
+    import torch
+    from psvo_tpu_torch.ops import svo
+
+    dev = xtilde.device
+    b, m = xtilde.shape[1], xtilde.shape[2]
+    cots = [torch.randn(s, generator=gen, device=dev) for s in
+            ((b, m, xtilde.shape[3]), (b, m), (b, m), tuple(xtilde.shape))]
+
+    def rel(got, want):
+        return [float((g - w).norm() / w.norm().clamp_min(1e-30)) for g, w in zip(got, want)]
+
+    raw = rel(svo.svo_sweep_backward(*ops, consts, xtilde, *cots),
+              svo.svo_sweep_backward_reference(*ops, consts, xtilde, *cots))
+    tie = svo_relu_ties(consts, ops, xtilde)
+    keep = (~tie).float()
+    cots = [cots[0] * keep[..., None], cots[1] * keep, cots[2] * keep, cots[3] * keep[..., None]]
+    got = svo.svo_sweep_backward(*ops, consts, xtilde, *cots)
+    want = svo.svo_sweep_backward_reference(*ops, consts, xtilde, *cots)
+    again = svo.svo_sweep_backward(*ops, consts, xtilde, *cots)
+    torch.cuda.synchronize()
+    args = (*ops, consts, xtilde, *cots)
+    return dict(rel=rel(got, want), maxd=[float((g - w).abs().max()) for g, w in zip(got, want)],
+                rel_raw=raw, zeroed=int(tie.sum()), n=b * m,
+                same=all(torch.equal(g, a) for g, a in zip(got, again)),
+                finite=all(bool(torch.isfinite(g).all()) for g in got), args=args, got=got)
 
 
 def main() -> int:
@@ -1475,6 +1613,199 @@ def main() -> int:
              f"as they were")
     phase_done("t")
 
+    # (u) K1 and K4 at the SVO preset's settings: Dx=3, K=256, in-kernel draw, cache
+    from psvo_tpu_torch.ops import svo
+
+    s_cfg = pt.PRESETS[SVO]
+    s_ds = pt.generate_dataset(s_cfg.data, SEED)
+    s_obs = torch.cat([s_ds.obs_test, s_ds.obs_train]).to(dev)
+    for label, small in (("small", True), ("full", False)):
+        cfg, batch = slice_config(small, SVO)
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 10), device=dev)
+        ys = s_obs[:batch, :cfg.data.t_steps].contiguous()
+        with torch.no_grad():
+            r = check_scan(label, ssm, cfg, ys, gen, tol=2e-4, rng_seed=(31, 0xABCDEF))
+            rb = check_backward(ssm, cfg, ys, gen, (37, 0x5EED), cache=True)
+        tol = 1e-4 if small else 1e-3
+        print(f"[u] K1 {SVO} in-kernel RNG, cache, {label} B={batch} K={cfg.smc.n_particles} "
+              f"T={cfg.data.t_steps}: bit-equal to K1 on K2's streams; vs the plain replay "
+              f"{scan_line(r)}", flush=True)
+        print(f"[u] K4 {label} in-kernel RNG with the cache cotangents: "
+              + ", ".join(f"{n} rel L2 {e:.3e} max|d| {m:.3e}"
+                          for n, e, m in zip(leaves, rb["rel"], rb["maxd"]))
+              + f"; idx nondecreasing {rb['monotone']}; bound rel L2 {tol:g}", flush=True)
+        if not scan_ok(r, small):
+            fail(f"K1 ({SVO}, {label}) disagrees with the plain replay")
+        if not (rb["monotone"] and rb["finite"] and max(rb["rel"]) <= tol):
+            fail(f"K4 ({SVO}, {label}) disagrees with scan_backward_reference")
+    phase_done("u")
+
+    # (v) K12 vs its plain version, small and full
+    k12, k13 = {}, {}
+    for label, small in (("small", True), ("full", False)):
+        cfg, batch = slice_config(small, SVO)
+        if small:
+            cfg = dataclasses.replace(cfg, smc=dataclasses.replace(cfg.smc, n_smoothing_particles=8))
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 12), device=dev)
+        ys = s_obs[:batch, :cfg.data.t_steps].contiguous()
+        with torch.no_grad():
+            consts, ops = svo_operands(ssm, cfg, ys, gen)
+            r = svo_forward_check(consts, ops)
+        k12[label] = (consts, ops, r)
+        print(f"[v] K12 {label} B={batch} M={ops[0].shape[1]} T={cfg.data.t_steps} hidden="
+              f"{cfg.net('qb').hidden}: allclose(2e-4) {r['close']}, max|d| {r['max_abs_err']:.3e}; "
+              f"max |d|/(1+|x|): x~ {r['rel_x']:.3e}, lp {r['rel_lp']:.3e}, lq {r['rel_lq']:.3e}; "
+              f"teacher-forced x~ {r['tf_x']:.3e}; finite {r['finite']}", flush=True)
+        ok = r["close"] if small else (r["tf_x"] <= 1e-5 and r["rel_x"] <= 1e-4
+                                       and max(r["rel_lp"], r["rel_lq"]) <= 1e-4)
+        if not (ok and r["finite"]):
+            fail(f"K12 ({label}) disagrees with svo_sweep_forward_reference")
+    consts, ops, r = k12["full"]
+    with torch.no_grad():
+        k12_dev = [device_ms(lambda: svo.svo_sweep_forward(*ops, consts)),
+                   device_ms(lambda: svo.svo_sweep_forward_reference(*ops, consts), n=3),
+                   device_ms(lambda: svo.svo_sweep_forward(*ops, consts))]
+    t1_s, b_s, m_s = ops[1].shape[:3]
+    k12_flops = svo_flops(consts, t1_s * b_s * m_s)
+    k12_bound, k12_by = bound(k12_flops, nbytes(*ops, consts["packed"], consts["sc"], *r["kern"]))
+    k12_regs = re.search(r"svo_forward_kernelILi3ELi3ELi64EE.*?Used (\d+) registers",
+                         _build.build_log(), re.S)
+    print(f"[v] K12 full (B={b_s}, M={m_s}, T-1={t1_s}, hidden 64): device time per call "
+          f"(torch.profiler) {k12_dev[0]:.4f}/{k12_dev[2]:.4f} ms (20 calls each), plain "
+          f"{k12_dev[1]:.3f} ms (3 calls); bound {k12_bound:.4f} ms ({k12_by}, {k12_flops:.3e} "
+          f"FLOP); registers {k12_regs.group(1) if k12_regs else '?'}", flush=True)
+    phase_done("v")
+
+    # (w) K13 vs its plain version on K12's saved x~, small and full
+    for label in ("small", "full"):
+        consts, ops, r = k12[label]
+        with torch.no_grad():
+            rb = svo_backward_check(consts, ops, r["kern"][3], gen)
+        k13[label] = rb
+        tol = 1e-4 if label == "small" else 1e-3
+        print(f"[w] K13 {label}: " + ", ".join(
+                  f"{n} rel L2 {e:.3e} max|d| {m:.3e}"
+                  for n, e, m in zip(("d_x_anchor", "d_weights", "d_sc"), rb["rel"], rb["maxd"]))
+              + f"; bit-equal on a second launch {rb['same']}; bound rel L2 {tol:g}; cotangents "
+              f"zeroed on {rb['zeroed']} of {rb['n']} paths with a relu tie; with every path's "
+              f"cotangents, rel L2 " + ", ".join(f"{e:.3e}" for e in rb["rel_raw"]), flush=True)
+        if not (rb["finite"] and rb["same"] and max(rb["rel"]) <= tol):
+            fail(f"K13 ({label}) disagrees with svo_sweep_backward_reference")
+    args13 = k13["full"]["args"]
+    with torch.no_grad():
+        k13_dev = [device_ms(lambda: svo.svo_sweep_backward(*args13)),
+                   device_ms(lambda: svo.svo_sweep_backward_reference(*args13), n=3),
+                   device_ms(lambda: svo.svo_sweep_backward(*args13))]
+    k13_flops = 3 * k12_flops
+    k13_bound, k13_by = bound(k13_flops, nbytes(*args13[:3], args13[3]["packed"], args13[3]["sc"],
+                                                *args13[4:], *k13["full"]["got"]))
+    k13_regs = re.search(r"svo_backward_kernelILi3ELi3ELi64EE.*?Used (\d+) registers",
+                         _build.build_log(), re.S)
+    print(f"[w] K13 full: device time per call (torch.profiler) {k13_dev[0]:.4f}/{k13_dev[2]:.4f} "
+          f"ms (20 calls each), plain {k13_dev[1]:.3f} ms (3 calls); bound {k13_bound:.4f} ms "
+          f"({k13_by}, {k13_flops:.3e} FLOP); registers {k13_regs.group(1) if k13_regs else '?'}, "
+          f"shared memory {svo.k13_smem_bytes(3, 3, 64, 1, args13[3]['packed'].numel())} B per CTA",
+          flush=True)
+    k12_small_err = k12["small"][2]["max_abs_err"]
+    k13_small_err = max(k13["small"]["maxd"])
+    del k12, k13, args13
+    phase_done("w")
+
+    # (x) serving: smooth_posterior(method="svo") on three batches of 32
+    cfg, batch = s_cfg, 32
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    s_batches = [s_obs[i * batch:(i + 1) * batch].contiguous() for i in range(3)]
+    s_plain = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+               fused_step.stream_noise_reference, svo.svo_sweep_forward_reference,
+               svo.svo_sweep_backward_reference)
+    s_kernels = (fused_step.scan_forward, fused_step.scan_backward, svo.svo_sweep_forward,
+                 svo.svo_sweep_backward)
+    for fn in s_plain:
+        fn.calls = 0
+    for fn in s_kernels:
+        fn.launches = 0
+    run_gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    torch.cuda.synchronize()
+    held_svo_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    paths = [pt.smooth_posterior(ssm, ys, cfg, run_gen, method="svo") for ys in s_batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    serve_svo_gb = torch.cuda.max_memory_allocated() / 1e9 - held_svo_gb
+    svo_serve = [fn.launches for fn in s_kernels]
+    plain_calls = sum(fn.calls for fn in s_plain)
+    shapes_ok = all(tuple(p.shape) == (batch, 16, 100, 3) for p in paths)
+    finite = all(bool(torch.isfinite(p).all()) for p in paths)
+    svo_sp_ms = [time_ms(lambda: pt.smooth_posterior(ssm, s_batches[0], cfg, run_gen, method="svo"))
+                 for _ in range(2)]
+    print(f"[x] serving {SVO}: smooth_posterior(method='svo') x3 -> shapes "
+          f"{[tuple(p.shape) for p in paths]} ok {shapes_ok}, finite {finite}; launches "
+          f"K1/K4/K12/K13 {svo_serve}, plain-version calls {plain_calls}, wall {wall:.2f} s; "
+          f"{svo_sp_ms[0]:.3f}/{svo_sp_ms[1]:.3f} ms per call of B={batch} (median of 5 after 2 "
+          f"warm-up); peak device memory {serve_svo_gb:.3f} GB above the {held_svo_gb:.3f} GB "
+          f"held before", flush=True)
+    profile = device_breakdown(
+        lambda: pt.smooth_posterior(ssm, s_batches[0], cfg, run_gen, method="svo"), 1, SVO_KERNELS)
+    print(f"[x] profile of one more call: {profile}", flush=True)
+    if svo_serve != [3, 0, 3, 0] or plain_calls != 0:
+        fail(f"smooth_posterior(method='svo') launched K1/K4/K12/K13 {svo_serve} (want "
+             f"[3, 0, 3, 0]), plain versions {plain_calls}")
+    if not (shapes_ok and finite):
+        fail("smooth_posterior(method='svo') gave non-finite paths or the wrong shape")
+    del paths
+    phase_done("x")
+
+    # (y) training through make_train_step: 3 calls of steps_per_call SVO steps
+    n_per_call = cfg.train.steps_per_call
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    train_step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
+    obs = s_ds.obs_train.to(dev)
+    pick = torch.randint(0, obs.shape[0], (3, n_per_call, batch),
+                         generator=torch.Generator().manual_seed(SEED + 7))
+    train_batches = [obs[p.to(dev)].contiguous() for p in pick]
+    before = [p.detach().clone() for p in ssm.parameters()]
+    run_gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_svo_gb = torch.cuda.memory_allocated() / 1e9
+    for fn in s_plain:
+        fn.calls = 0
+    for fn in s_kernels:
+        fn.launches = 0
+    call_s, train_metrics = [], []
+    for bt in train_batches:
+        t0 = time.perf_counter()
+        train_metrics.append(train_step(run_gen, bt))
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t0)
+    svo_launches = [fn.launches for fn in s_kernels]
+    plain_calls = sum(fn.calls for fn in s_plain)
+    peak_svo_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(m_["loss"]) for m_ in train_metrics]
+    norms = [float(m_["grad_norm"]) for m_ in train_metrics]
+    elbos = [float(m_["elbo_svo"]) for m_ in train_metrics]
+    moved = any(not torch.equal(a, p) for a, p in zip(before, ssm.parameters()))
+    svo_step_ms = statistics.median(call_s[1:]) / n_per_call * 1e3
+    print(f"[y] training {SVO}: {len(train_batches)} calls x {n_per_call} steps, B={batch}: loss "
+          f"per call {[round(v, 3) for v in losses]}, elbo_svo {[round(v, 3) for v in elbos]}, "
+          f"grad norm {[round(v, 3) for v in norms]}, parameters moved {moved}; launches "
+          f"K1/K4/K12/K13 {svo_launches}, plain-version calls {plain_calls}; call times "
+          f"{[round(v, 3) for v in call_s]} s, train step {svo_step_ms:.3f} ms (median of the calls "
+          f"after the first, per step); peak device memory {peak_svo_gb - held_svo_gb:.3f} GB "
+          f"above the {held_svo_gb:.3f} GB held before", flush=True)
+    profile = device_breakdown(lambda: train_step(run_gen, train_batches[0]), n_per_call,
+                               SVO_KERNELS)
+    print(f"[y] profile of one more call: {profile}", flush=True)
+    want = len(train_batches) * n_per_call
+    if svo_launches != [want] * 4 or plain_calls != 0:
+        fail(f"SVO train path launched K1/K4/K12/K13 {svo_launches} times (want {want} each), "
+             f"plain versions {plain_calls}")
+    if not (all(math.isfinite(v) for v in losses + norms + elbos) and moved):
+        fail("SVO training gave non-finite losses, ELBOs or gradient norms, or left the "
+             "parameters as they were")
+    phase_done("y")
+
     # K2: about 80 operations per normal (a Philox4x32-10 call, about 100 integer
     # operations, serves the particle's two normals; the Box-Muller transform about 30
     # each), counted at the fp32 rate; its output written once.
@@ -1533,6 +1864,14 @@ def main() -> int:
          "on_path": True, "max_abs_err": max(r["maxd"] for r in k11.values()), "ms": k11_dev[0],
          "plain_ms": k11_dev[1], "bound_ms": k11_bound, "bound_by": k11_by,
          "library_ms": k11_dev[2]},
+        {"name": "svo_sweep_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/svo_sweep.cu",
+         "replaces": "psvo_tpu/ops/pallas_svo.py:446", "launches": svo_launches[2],
+         "on_path": True, "max_abs_err": k12_small_err, "ms": k12_dev[0], "plain_ms": k12_dev[1],
+         "bound_ms": k12_bound, "bound_by": k12_by, "library_ms": None},
+        {"name": "svo_sweep_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/svo_sweep.cu",
+         "replaces": "psvo_tpu/ops/pallas_svo.py:521", "launches": svo_launches[3],
+         "on_path": True, "max_abs_err": k13_small_err, "ms": k13_dev[0], "plain_ms": k13_dev[1],
+         "bound_ms": k13_bound, "bound_by": k13_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,9 +1,8 @@
 """Posterior inference on a trained model (counterpart of `psvo_tpu/infer.py`).
 
 `filter_posterior` serves filtering means (and optionally the particle
-cloud) and `smooth_posterior` smoothed trajectories by FFBSi, for
-observations [B, T, Dy]. The learned backward proposal of SVO waits for its
-slice.
+cloud) and `smooth_posterior` smoothed trajectories, by FFBSi or by SVO's
+learned backward proposal, for observations [B, T, Dy].
 """
 
 from __future__ import annotations
@@ -64,15 +63,14 @@ def smooth_posterior(
     noise: Optional[tuple] = None,
 ):
     """Smoothed posterior trajectories [B, M, T, Dx]: FFBSi over the forward
-    support ("psvo", the default), with M = n_samples or the config's
-    smoothing-particle count. method "svo" (the learned backward proposal)
-    is not ported yet and raises. The generator defaults to the run's
-    (seed + 18, on the device of ys); noise is the objective's replay hook
-    (`objectives.make_objective`).
+    support ("psvo", for any fitted model) or the learned backward proposal
+    q_b ("svo", for a model trained with it), with M = n_samples or the
+    config's smoothing-particle count. method defaults to the config's
+    objective when that is a smoothing one, else "psvo". The generator
+    defaults to the run's (seed + 18, on the device of ys); noise is the
+    objective's replay hook (`objectives.make_objective`).
     """
     method = method or (cfg.smc.objective if cfg.smc.objective in ("svo", "psvo") else "psvo")
-    if method != "psvo":
-        raise NotImplementedError(f"smooth_posterior: method={method!r} is not ported yet")
     if generator is None:
         generator = run_generator(cfg, 18, device=ys.device)
     m = n_samples or cfg.smc.n_smoothing_particles

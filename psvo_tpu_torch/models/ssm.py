@@ -9,7 +9,8 @@ layout [B, D, K]; the feature-last ones serve the k-step evaluation and the
 log-joint of the smoothed paths.
 
 Ported: the diagonal-Gaussian model class of the FHN FIVO, Lorenz-63 PSVO
-and Lorenz-96 FIVO slices, at any state width. Controls (di > 0), bootstrap proposals, known dynamics,
+and SVO, and Lorenz-96 FIVO slices, at any state width, with SVO's backward
+proposal q_b. Controls (di > 0), bootstrap proposals, known dynamics,
 full-covariance heads, Poisson/Dirac emissions and the SVO backward
 proposal's GRU raise NotImplementedError until their slices land.
 """
@@ -182,6 +183,13 @@ class SSM(nn.Module):
     def emission_mean(self, x):
         """Mean observation ŷ(x) [..., Dy]."""
         return self._mean_scale("g", x)[0]
+
+    def backward_propose(self, x_next, y_t):
+        """SVO's learned backward proposal q_b(x_t | x_{t+1}, y_t): the qb head
+        on [x_next; y_t], y_t broadcast over the paths. x_next [..., Dx],
+        y_t [..., Dy] (broadcastable) -> (mean, scale) [..., Dx]."""
+        y = y_t.expand(*x_next.shape[:-1], self.dy)
+        return self._mean_scale("qb", torch.cat([x_next, y], dim=-1))
 
 
 def init_ssm(cfg: Config, generator: torch.Generator, device="cuda") -> SSM:

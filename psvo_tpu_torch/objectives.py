@@ -11,9 +11,16 @@ paths, "direct" on the sampled-trajectory bound
 lse_m(log p(x̃^m, y) − log q̃(x̃^m)) − log M with q̃ the discrete backward path
 pmf. The module docstring of the reference derives both.
 
+SVO draws M trajectories backwards from anchors at the last filtering step
+with the learned proposal q_b and trains on
+lse_m(log p(x̃^m, y) − log q(x̃^m)) − log M, q's last term being the
+filter-density surrogate ρ_T (the reference's module docstring).
+
 The FFBSi sweep is `ops.ffbsi.FFBSiSweep`: the CUDA kernels K5/K6 for CUDA
-tensors, their plain versions for CPU tensors. SVO, the segmented long-T
-sweep (`smc.ffbsi_segments > 1`), the particle-sharded sweep and the chunked
+tensors, their plain versions for CPU tensors; SVO's sweep likewise
+`ops.svo.SVOSweep` (K12/K13), and outside `ops.svo.usable` the reference's
+scan body on CPU tensors. The segmented long-T sweep
+(`smc.ffbsi_segments > 1`), the particle-sharded sweep and the chunked
 log-joint (T − 1 ≥ 1024) wait for their slices.
 """
 
@@ -27,9 +34,11 @@ from typing import Optional
 import torch
 
 from psvo_tpu_torch.config import Config
-from psvo_tpu_torch.distributions import _HALF_LOG_2PI, log_normalize
+from psvo_tpu_torch.distributions import (
+    _HALF_LOG_2PI, _MIN_LOGP, log_normalize, mvn_diag_log_prob,
+)
 from psvo_tpu_torch.models.ssm import SSM
-from psvo_tpu_torch.ops import ffbsi
+from psvo_tpu_torch.ops import ffbsi, svo
 from psvo_tpu_torch.smc import FilterResult, forward_filter
 
 # Time steps per chunk of the support terms when they take no gradient: the
@@ -123,6 +132,61 @@ def _ffbsi_backward(ssm: SSM, gum_anchor, gum_scan, ys_tm, fwd: FilterResult, *,
     return smoothed, logp, lwn_anchor + lq_sweep
 
 
+def _predictive_mixture_logp(ssm: SSM, x_prev, logw_prev, x_query):
+    """log p̂(x_query | y_{1:t}) = lse_j [log Ŵ_t^j + log f(x_query | X_t^j)]:
+    x_prev [B, Dx, K], logw_prev [B, K], x_query [B, M, Dx] -> [B, M]. The
+    pairwise density is `ops.ffbsi.pair_logp` on the support terms, floored."""
+    logw_norm, _ = log_normalize(logw_prev, dim=-1)
+    r, mr, c = _pairwise_support_terms(ssm, x_prev)
+    pair = torch.clamp(ffbsi.pair_logp(x_query, r, mr, c), min=_MIN_LOGP)
+    return torch.logsumexp(pair + logw_norm[:, None, :], dim=-1)
+
+
+def _svo_scan(ssm: SSM, ys_tm, eps, x_anchor):
+    """The reference's lax.scan body over t = T−2 … 0 on the model's heads,
+    for CPU tensors outside `svo.usable`. Returns what `svo.run_svo_sweep`
+    returns."""
+    x = x_anchor
+    lp = torch.zeros(x_anchor.shape[:2], dtype=x_anchor.dtype)
+    lq = torch.zeros_like(lp)
+    xts = [None] * eps.shape[0]
+    for t in reversed(range(eps.shape[0])):
+        y_t = ys_tm[t][:, None, :]
+        mean_b, scale_b = ssm.backward_propose(x, y_t)
+        x_t = mean_b + scale_b * eps[t]
+        lp = lp + ssm.transition_log_prob(x_t, x) + ssm.emission_log_prob(x_t, y_t)
+        lq = lq + mvn_diag_log_prob(x_t, mean_b, scale_b)
+        x = xts[t] = x_t
+    return x, lp, lq, torch.stack(xts)
+
+
+def _svo_backward(ssm: SSM, gum_anchor, eps, ys_tm, fwd: FilterResult):
+    """Backward simulation with the learned proposal q_b. Returns (log w̃
+    [B, M], x̃ [T, B, M, Dx]).
+
+    The anchors x̃_{T−1} come from the last filtering distribution; the q
+    side's T-term is the continuous filter-density surrogate
+    ρ_T = log g(y_T | x̃_T) + log p̂(x̃_T | y_{1:T−1}) − ℓ_T, the p side's
+    log g(y_T | x̃_T); the sweep adds the rest, and the prior is taken at x̃_0.
+    """
+    x_anchor, _ = _sample_final_particles(gum_anchor, fwd)
+    log_g_t = ssm.emission_log_prob(x_anchor, ys_tm[-1][:, None, :])
+    log_pred = _predictive_mixture_logp(ssm, fwd.xs[-2], fwd.logws[-2], x_anchor)
+    log_rho_t = log_g_t + log_pred - fwd.increments[-1][:, None]
+    if svo.usable(ssm, x_anchor.shape[1]):
+        x_first, lp, lq, xtilde = svo.run_svo_sweep(ssm, ys_tm, eps, x_anchor)
+    elif x_anchor.is_cuda:
+        raise NotImplementedError(
+            "SVO: this configuration has no CUDA kernel yet (outside ops.svo.usable); run it "
+            "on CPU tensors"
+        )
+    else:
+        x_first, lp, lq, xtilde = _svo_scan(ssm, ys_tm, eps, x_anchor)
+    logp = log_g_t + lp + ssm.prior_log_prob(x_first)
+    logq = log_rho_t + lq
+    return logp - logq, torch.cat([xtilde, x_anchor[None]], dim=0)
+
+
 def _gumbel(generator, shape):
     """Standard Gumbel draws −log(−log U), U uniform on [tiny, 1), as
     jax.random.gumbel makes them; in place, so the largest tensor of the
@@ -136,8 +200,10 @@ def make_objective(ssm: SSM, cfg: Config):
 
     noise is the testing hook: the filter's draws (eps0, eps_scan, u_scan)
     (`smc.forward_filter`), and for PSVO also the backward Gumbels
-    (gum_anchor [B, M, K], gum_scan [T−1, B, M, K]) after them. Whatever it
-    leaves out is drawn from the generator, the filter's noise first.
+    (gum_anchor [B, M, K], gum_scan [T−1, B, M, K]) after them, for SVO the
+    anchor Gumbels and the backward proposal's noise (gum_anchor, eps_svo
+    [T−1, B, M, Dx]). Whatever it leaves out is drawn from the generator, the
+    filter's noise first, then in that order.
     """
     smc_cfg = cfg.smc
     if smc_cfg.objective == "iwae":
@@ -150,16 +216,16 @@ def make_objective(ssm: SSM, cfg: Config):
             "resampling='multinomial'; systematic resampling has no "
             "product-categorical ancestor density"
         )
-    if smc_cfg.objective not in ("iwae", "fivo", "psvo"):
-        raise NotImplementedError(f"objective={smc_cfg.objective!r} is not ported yet")
+    if smc_cfg.objective not in ("iwae", "fivo", "svo", "psvo"):
+        raise ValueError(f"unknown objective {smc_cfg.objective!r}")
     if smc_cfg.objective == "psvo" and smc_cfg.ffbsi_segments > 1:
         raise NotImplementedError("smc.ffbsi_segments > 1 (segmented long-T PSVO) is not ported yet")
-    psvo = smc_cfg.objective == "psvo"
+    smoothing = smc_cfg.objective in ("svo", "psvo")
     m = smc_cfg.n_smoothing_particles
 
     def objective(generator, ys, encoder_inputs=None, noise=None) -> ObjectiveOutput:
         fwd = forward_filter(
-            ssm, generator, ys, smc_cfg, cache=psvo, encoder_inputs=encoder_inputs,
+            ssm, generator, ys, smc_cfg, cache=smoothing, encoder_inputs=encoder_inputs,
             noise=None if noise is None else tuple(noise[:3]),
         )
         metrics = {
@@ -168,11 +234,25 @@ def make_objective(ssm: SSM, cfg: Config):
             "ess_min": torch.min(fwd.ess),
         }
         elbo = fwd.log_z
-        if not psvo:
+        if not smoothing:
             return ObjectiveOutput(-torch.mean(elbo), elbo, metrics, filter_result=fwd)
 
         batch, t_steps, _ = ys.shape
         k = smc_cfg.n_particles
+        if smc_cfg.objective == "svo":
+            if noise is not None and len(noise) == 5:
+                gum_anchor, eps = noise[3], noise[4]
+            elif generator is None:
+                raise ValueError("svo: pass a generator or the backward noise in noise")
+            else:
+                gum_anchor = _gumbel(generator, (batch, m, k))
+                eps = torch.randn((t_steps - 1, batch, m, ssm.dx), generator=generator,
+                                  device=generator.device)
+            logw_traj, x_tilde = _svo_backward(ssm, gum_anchor, eps, ys.transpose(0, 1), fwd)
+            elbo = torch.logsumexp(logw_traj, dim=-1) - math.log(m)
+            metrics["elbo_svo"] = torch.mean(elbo)
+            return ObjectiveOutput(-torch.mean(elbo), elbo, metrics, x_tilde, fwd)
+
         if noise is not None and len(noise) == 5:
             gum_anchor, gum_scan = noise[3], noise[4]
         elif generator is None:

@@ -99,20 +99,11 @@ def prepare(ssm) -> dict:
     buffer, so the layout the kernel reads is the one the CPU tests check.
     """
     hidden = ssm.nets["q1"].hidden
-    segs, offsets, off = [], [], 0
-    for name in ("q1", "f", "g"):
-        head = ssm.heads[name]
-        parts = [t.reshape(-1) for w, b in head.layers() for t in (w, b)]
-        parts += [head.mean_w.reshape(-1), head.mean_b]
-        flat = torch.cat(parts)
-        pad = (-flat.numel()) % 4
-        segs.append(torch.nn.functional.pad(flat, (0, pad)))
-        offsets.append(off)
-        off += flat.numel() + pad
+    packed, offsets = pack_heads(ssm, ("q1", "f", "g"))
     s_f, s_g = ssm.scale("f"), ssm.scale("g")
     return {
-        "packed": torch.cat(segs).contiguous(),
-        "offsets": tuple(offsets),
+        "packed": packed,
+        "offsets": offsets,
         "hidden": hidden[0],
         "n_mid": len(hidden) - 1,
         "dx": ssm.dx,
@@ -122,6 +113,23 @@ def prepare(ssm) -> dict:
         "log_sf_sum": torch.sum(torch.log(s_f)),
         "log_sg_sum": torch.sum(torch.log(s_g)),
     }
+
+
+def pack_heads(ssm, names):
+    """The heads `names` packed into one contiguous float32 buffer in
+    `prepare`'s per-net layout, each segment padded to a multiple of 4
+    floats; returns (packed, the segments' offsets)."""
+    segs, offsets, off = [], [], 0
+    for name in names:
+        head = ssm.heads[name]
+        parts = [t.reshape(-1) for w, b in head.layers() for t in (w, b)]
+        parts += [head.mean_w.reshape(-1), head.mean_b]
+        flat = torch.cat(parts)
+        pad = (-flat.numel()) % 4
+        segs.append(torch.nn.functional.pad(flat, (0, pad)))
+        offsets.append(off)
+        off += flat.numel() + pad
+    return torch.cat(segs).contiguous(), tuple(offsets)
 
 
 def fusion_coeffs(ssm, cfg, consts, enc_tm):

@@ -75,6 +75,19 @@ def psvo_noise(key, batch, t_steps, dx, k, m):
     return to_torch((*key_noise(k_fwd, batch, t_steps, dx, k), gum_anchor, gum_scan))
 
 
+def svo_noise(key, batch, t_steps, dx, k, m):
+    """The SVO objective's draws from `key`, as the reference derives them:
+    (eps0, eps_scan, u_scan) of the filter from the first half of the key,
+    then the anchor Gumbels gum_anchor [B, M, K] and the backward proposal's
+    noise eps_svo [T−1, B, M, Dx] from the second
+    (objectives._svo_backward), as torch tensors."""
+    k_fwd, k_bwd = jax.random.split(key)
+    k_anchor, k_eps = jax.random.split(k_bwd)
+    gum_anchor = jax.random.gumbel(k_anchor, (batch, m, k))
+    eps_svo = jax.random.normal(k_eps, (t_steps - 1, batch, m, dx))
+    return to_torch((*key_noise(k_fwd, batch, t_steps, dx, k), gum_anchor, eps_svo))
+
+
 def to_torch(arrays):
     return tuple(torch.from_numpy(np.array(a, np.float32)) for a in arrays)
 

@@ -552,3 +552,99 @@ def test_lorenz96_train_step_launches_the_trunk_kernels(monkeypatch):
     for name in want:
         for a, w in zip(_leaves(got[name]), _leaves(want[name])):
             assert _rel(torch.from_numpy(a), torch.from_numpy(w)) <= 5e-3, name
+
+
+def _svo_operands(dev, hidden, preset="lorenz63_svo_k256", b=4, m=8, t1=9, seed=0):
+    """An SVO sweep's operands on the card: a model with nudged random
+    weights, anchors, ε and observations at Lorenz-63 scales."""
+    from psvo_tpu_torch.ops import svo
+
+    net = NetConfig(hidden=hidden)
+    cfg = PRESETS[preset].with_nets(q0=net, q1=net, q2=net, f=net, qb=net,
+                                    g=dataclasses.replace(net, sigma_init=0.5))
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(seed), device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in ssm.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g, device=dev))
+        consts = svo.prepare(ssm)
+    dx, dy = ssm.dx, ssm.dy
+    x_anchor = torch.randn((b, m, dx), generator=g, device=dev) * 3.0
+    eps = torch.randn((t1, b, m, dx), generator=g, device=dev)
+    y = torch.randn((t1, b, dy), generator=g, device=dev) * 3.0
+    return ssm, consts, (x_anchor, eps, y)
+
+
+@pytest.mark.parametrize("preset,hidden", [("lorenz63_svo_k256", (16,)),
+                                           ("lorenz63_svo_k256", (16, 16)),
+                                           ("fhn_fivo_k1024_bench", (32, 32)),
+                                           ("lorenz63_svo_k256", (64, 64))])
+def test_svo_sweep_kernels_match_plain(preset, hidden):
+    """K12 matches its plain version (x~ to 1e-5, lp/lq to 1e-5 relative); K13
+    on K12's x~ matches the plain replay to 1e-4 relative per leaf, with all
+    cotangents and with d_lp alone, and gives the same bits on a second
+    launch."""
+    from psvo_tpu_torch.ops import svo
+
+    dev = _cuda()
+    _, consts, ops = _svo_operands(dev, hidden, preset)
+    launches = (svo.svo_sweep_forward.launches, svo.svo_sweep_backward.launches)
+    got = svo.svo_sweep_forward(*ops, consts)
+    want = svo.svo_sweep_forward_reference(*ops, consts)
+    for i in (0, 3):
+        torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=1e-5)
+    for i in (1, 2):
+        torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=1e-3)
+    g = torch.Generator(device=dev).manual_seed(5)
+    cots = [torch.randn(t.shape, generator=g, device=dev) for t in got]
+    for live in ((0, 1, 2, 3), (1,)):
+        kw = [cots[i] if i in live else None for i in range(4)]
+        k13 = svo.svo_sweep_backward(*ops, consts, got[3], *kw)
+        ref = svo.svo_sweep_backward_reference(*ops, consts, got[3], *kw)
+        for a, w in zip(k13, ref):
+            assert _rel(a, w) <= 1e-4
+        again = svo.svo_sweep_backward(*ops, consts, got[3], *kw)
+        assert all(torch.equal(a, b) for a, b in zip(k13, again))
+    assert (svo.svo_sweep_forward.launches, svo.svo_sweep_backward.launches) == (
+        launches[0] + 1, launches[1] + 4)
+
+
+def test_cuda_tensor_outside_the_svo_class_raises():
+    from psvo_tpu_torch.objectives import make_objective
+    from psvo_tpu_torch.ops import svo
+
+    dev = _cuda()
+    cfg = _small_cfg("lorenz63_svo_k256")
+    cfg = cfg.with_nets(qb=NetConfig(hidden=(16, 32)))  # not one uniform width
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    assert not svo.usable(ssm, cfg.smc.n_smoothing_particles)
+    ys = torch.randn((4, 6, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+    with pytest.raises(NotImplementedError, match="ops.svo.usable"):
+        make_objective(ssm, cfg)(torch.Generator(device=dev).manual_seed(3), ys)
+    _, consts, ops = _svo_operands(dev, (16, 16))
+    with pytest.raises(ValueError, match="x_anchor"):  # eps holds 4 paths per row, not 8
+        svo.svo_sweep_forward(ops[0], ops[1][:, :, :4].contiguous(), ops[2], consts)
+
+
+def test_cuda_svo_train_step_launches_the_four_kernels():
+    """One SVO train step on the card: K1, K4, K12 and K13 once each, no
+    plain version, finite loss and ELBO."""
+    from psvo_tpu_torch.ops import svo
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    dev = _cuda()
+    cfg = _small_cfg("lorenz63_svo_k256")
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ys = torch.randn((4, 6, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+    kernels = (fused_step.scan_forward, fused_step.scan_backward, svo.svo_sweep_forward,
+               svo.svo_sweep_backward)
+    plain = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+             svo.svo_sweep_forward_reference, svo.svo_sweep_backward_reference,
+             fused_step.stream_noise_reference)
+    launches, calls = [f.launches for f in kernels], [f.calls for f in plain]
+    metrics = make_train_step(ssm, cfg, make_optimizer(cfg))(torch.Generator(device=dev)
+                                                               .manual_seed(3), ys)
+    assert [f.launches - n for f, n in zip(kernels, launches)] == [1, 1, 1, 1]
+    assert [f.calls for f in plain] == calls
+    for name in ("loss", "grad_norm", "elbo_svo"):
+        assert torch.isfinite(metrics[name]), name

@@ -235,5 +235,6 @@ def test_smooth_posterior_matches_reference():
                                   noise=psvo_noise(key, B, 5, DX, K, M))
     assert got.shape == want.shape == (B, M, 5, DX)
     assert_close(got, want, _TOL)
-    with pytest.raises(NotImplementedError):
-        tinfer.smooth_posterior(tssm, torch.from_numpy(ys), tcfg, method="svo")
+    svo_paths = tinfer.smooth_posterior(tssm, torch.from_numpy(ys), tcfg, method="svo",
+                                        generator=torch.Generator().manual_seed(0))
+    assert svo_paths.shape == (B, M, 5, DX) and bool(torch.isfinite(svo_paths).all())

@@ -171,6 +171,6 @@ def test_preset_is_in_the_kernel_class_and_unported_modes_raise():
     _, _, tssm = models(jcfg, tcfg)
     with pytest.raises(ValueError, match="multinomial"):
         t_make_objective(tssm, tcfg)
-    _, svo_cfg = small_configs(objective="svo")
+    _, seg_cfg = small_configs(objective="psvo", ffbsi_segments=2)
     with pytest.raises(NotImplementedError):
-        t_make_objective(tssm, svo_cfg)
+        t_make_objective(tssm, seg_cfg)
