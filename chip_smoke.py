@@ -75,6 +75,29 @@ cache on) with random weights:
   (y) training: 3 calls of 10 SVO train steps on minibatches of 32; launch
       counts, loss and elbo_svo, step time, peak memory, profile by kernel
 
+then, with `fused_step.SCAN_FUSED` off (the per-step path of the
+reference's `pallas_step.SCAN_FUSED = False`: one K14 launch per filter
+step, one K15 launch per step of the backward, streamed noise):
+
+  (z) K14 step_forward vs step_forward_reference on every step of a chain
+      of K14 launches, teacher-forced from the kernel's own state, at Dx=2
+      (FHN) and Dx=3 (Lorenz-63), small and full; the chain against one K1
+      launch on the same streams (indices equal); device time per launch
+  (aa) K15 step_backward vs step_backward_reference on every step of those
+      chains' residuals, random cotangents of x_new, α and ℓ (zeroed on
+      particles with a relu tie, both figures reported), bit-equal on a
+      second launch; the chain of K15 launches against one K4 launch on the
+      same residuals; K15 at Dx=3, K=2048, beyond K4's shared memory; device
+      time per launch
+  (ab) fhn_fivo_k1024_bench: make_eval_step on three batches of 32 and 3
+      calls of 10 train steps; launch counts (99 K14 per filter, 99 K15 per
+      step, no K1 or K4, no plain version), loss, step time, peak memory and
+      profiles; one step's loss and gradients against the whole-scan path on
+      the same streams and weights
+  (ac) lorenz63_psvo_k1024: smooth_posterior on three batches of 32 and 3
+      calls of 10 PSVO train steps; launch counts (K14, K15, K5, K6), times,
+      peak memory and profiles
+
 Every phase prints its lines and its seconds; any failure exits non-zero.
 The second-to-last line is the kernels' JSON record (times beside the
 bound: the larger of the operations over 67 TFLOP/s fp32 and the bytes over
@@ -803,6 +826,140 @@ def svo_backward_check(consts, ops, xtilde, gen):
                 rel_raw=raw, zeroed=int(tie.sum()), n=b * m,
                 same=all(torch.equal(g, a) for g, a in zip(got, again)),
                 finite=all(bool(torch.isfinite(g).all()) for g in got), args=args, got=got)
+
+
+STEP_KERNELS = {"K14": ("step_forward_kernel",),
+                "K15": ("step_backward_kernel", "sum_rows_kernel")}
+STEP_PSVO_KERNELS = dict(STEP_KERNELS, K5=("ffbsi_forward_kernel",),
+                         K6=("ffbsi_backward_kernel",))
+
+
+STEP_OUTPUTS = ("x_new", "alpha", "ell", "ess", "filtered mean")
+
+
+def step_outputs(out):
+    """K14's float outputs, the stats split by column: x_new, α, ℓ, ESS and
+    the filtered mean."""
+    x_new, alpha, stats = out[:3]
+    return x_new, alpha, stats[:, 0], stats[:, 1], stats[:, 2:]
+
+
+def step_chain_check(ssm, cfg, ys, gen):
+    """K14 chained over T−1 steps on fresh streams. Every step is held to
+    step_forward_reference on the kernel's own incoming state (teacher-forced:
+    indices equal; x_new, α, ℓ, ESS and the filtered mean by relative L2,
+    and elementwise |Δ|/(1+|w|) reported), and the chain to one K1 launch on
+    the same streams (indices equal, the largest |Δ| of x_new, α and stats).
+    Returns a dict with the chain's residuals [x_all, alpha_all, stats, idx]
+    and K1's inputs."""
+    import torch
+    from psvo_tpu_torch.ops import fused_step
+
+    inp = kernel_inputs(ssm, cfg, ys, gen)
+    consts, coef, eps, pos = inp["consts"], inp["coef"], inp["eps"], inp["positions"]
+    k1 = fused_step.scan_forward(inp["x0"], inp["alpha0"], coef, consts, eps=eps, positions=pos,
+                                 cache=True, save_res=True)
+    x, lw = inp["x0"], inp["alpha0"]
+    steps, idx_bad, tf_l2, tf_rel, tf_abs = [], 0, [], [], 0.0
+    for t in range(coef.shape[0]):
+        out = fused_step.step_forward(x, lw, coef[t], consts, eps[t], pos[t])
+        ref = fused_step.step_forward_reference(x, lw, coef[t], consts, eps[t], pos[t])
+        idx_bad += int((out[3] != ref[3]).sum())
+        pairs = list(zip(step_outputs(out), step_outputs(ref)))
+        tf_l2.append(torch.stack([(a - w).norm() / w.norm().clamp_min(1e-30) for a, w in pairs]))
+        tf_rel.append(torch.stack([((a - w).abs() / (1 + w.abs())).max() for a, w in pairs]))
+        tf_abs = max(tf_abs, max_err(out[:3], ref[:3]))
+        steps.append(out)
+        x, lw = out[0], out[1]
+    torch.cuda.synchronize()
+    chain = [torch.stack([s[i] for s in steps]) for i in range(4)]
+    vs_k1 = [float((a.float() - b.float()).abs().max()) for a, b in
+             zip(chain, (k1[3], k1[4], k1[2], k1[5]))]
+    return dict(inp=inp, chain=chain, idx_bad=idx_bad, tf_l2=torch.stack(tf_l2).amax(0).tolist(),
+                tf_rel=torch.stack(tf_rel).amax(0).tolist(), tf_abs=tf_abs,
+                k1_idx=int((chain[3] != k1[5]).sum()), vs_k1=vs_k1[:3],
+                finite=all(bool(torch.isfinite(c).all()) for c in chain[:3]))
+
+
+def step_backward_check(res, gen):
+    """K15 against step_backward_reference on every step of a K14 chain's
+    residuals, with random d x_new, d α and d ℓ (and random dropped stats
+    columns): raw, and with d x_new and d α zeroed on the particles of
+    `relu_ties`; bit-equal on a second launch. Then the T−1 K15 launches
+    chained in reverse against one K4 launch on the same residuals, with
+    K4's cache cotangents (d x_new = the next step's d x + d_x_all[t]; d α =
+    d_alpha_all[t], plus d_alpha_last at the end) and d_ℓ = −1/B: d_x0,
+    d_coef and the summed weight and sconst gradients. Returns a dict, with
+    the last step's masked operands for timing."""
+    import torch
+    from psvo_tpu_torch.ops import fused_step
+    from psvo_tpu_torch.ops.resampling import gather_particles
+
+    inp, (x_all, alpha_all, stats, idx) = res["inp"], res["chain"]
+    consts, coef, eps, x0 = inp["consts"], inp["coef"], inp["eps"], inp["x0"]
+    t1, b, dx, k = x_all.shape
+    dev = x_all.device
+
+    def rel(got, want):
+        return torch.stack([(g - w).norm() / w.norm().clamp_min(1e-30) for g, w in zip(got, want)])
+
+    rels, raws, maxd, zeroed, same = [], [], [], 0, True
+    for t in range(t1):
+        x_in = x0 if t == 0 else x_all[t - 1]
+        d_stats = torch.randn(stats[t].shape, generator=gen, device=dev)
+        d_xn = torch.randn(x_in.shape, generator=gen, device=dev)
+        d_al = torch.randn(alpha_all[t].shape, generator=gen, device=dev)
+        args = (x_in, x_all[t], idx[t], stats[t], coef[t], consts, eps[t], d_stats)
+        plain = (x_in, coef[t], consts, eps[t], idx[t], d_stats)
+        raws.append(rel(fused_step.step_backward(*args, d_xn, d_al),
+                        fused_step.step_backward_reference(*plain, d_xn, d_al)))
+        keep = ~relu_ties(consts, gather_particles(x_in, idx[t]), x_all[t])
+        zeroed += int((~keep).sum())
+        d_xn, d_al = d_xn * keep[:, None], d_al * keep
+        got = fused_step.step_backward(*args, d_xn, d_al)
+        again = fused_step.step_backward(*args, d_xn, d_al)
+        want = fused_step.step_backward_reference(*plain, d_xn, d_al)
+        same &= all(torch.equal(g, a) for g, a in zip(got, again))
+        rels.append(rel(got, want))
+        maxd.append(torch.stack([(g - w).abs().max() for g, w in zip(got, want)]))
+    last = (args, d_xn, d_al, got)
+
+    d_stats = torch.randn(stats.shape, generator=gen, device=dev)
+    d_stats[..., 0] = -1.0 / b
+    d_x_last = torch.randn(x0.shape, generator=gen, device=dev)
+    d_a_last = torch.randn((b, k), generator=gen, device=dev)
+    d_x_all = torch.randn(x_all.shape, generator=gen, device=dev) * 0.1
+    d_a_all = torch.randn(alpha_all.shape, generator=gen, device=dev) * 0.1
+    k4 = fused_step.scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last, d_a_last,
+                                  d_x_all, d_a_all, eps=eps)
+    d_x, d_coef, d_packed, d_sconst = d_x_last, [None] * t1, 0.0, 0.0
+    for t in reversed(range(t1)):
+        d_al = d_a_all[t] + d_a_last if t == t1 - 1 else d_a_all[t]
+        d_x, d_coef[t], dp, ds = fused_step.step_backward(
+            x0 if t == 0 else x_all[t - 1], x_all[t], idx[t], stats[t], coef[t], consts, eps[t],
+            d_stats[t], d_x + d_x_all[t], d_al)
+        d_packed, d_sconst = d_packed + dp, d_sconst + ds
+    vs_k4 = rel((d_x, torch.stack(d_coef), d_packed, d_sconst), k4)
+    torch.cuda.synchronize()
+    return dict(rel=torch.stack(rels).amax(0).tolist(), maxd=torch.stack(maxd).amax(0).tolist(),
+                rel_raw=torch.stack(raws).amax(0).tolist(), zeroed=zeroed, n=t1 * b * k,
+                same=bool(same), vs_k4=vs_k4.tolist(), last=last,
+                finite=all(bool(torch.isfinite(g).all()) for g in got))
+
+
+def step_bounds(consts, fwd_args, fwd_out, bwd):
+    """Bounds of one K14 launch (its operands in, its outputs out, the three
+    trunks' FLOP per particle) and of one K15 launch (three times the FLOP, as
+    K4 per step; residuals and cotangents in, gradients out)."""
+    x = fwd_args[0]
+    n_part = x.shape[0] * x.shape[-1]
+    k14 = bound(trunk_flops(consts) * n_part,
+                nbytes(*fwd_args, consts["packed"], consts["sconst"], *fwd_out))
+    args, d_xn, d_al, got = bwd
+    k15 = bound(3 * trunk_flops(consts) * n_part,
+                nbytes(*args[:5], args[6], args[7], consts["packed"], consts["sconst"], d_xn, d_al,
+                       *got))
+    return k14, k15
 
 
 def main() -> int:
@@ -1806,6 +1963,296 @@ def main() -> int:
              "parameters as they were")
     phase_done("y")
 
+    # (z) K14 against its plain version, every step teacher-forced, and its chain against K1
+    from psvo_tpu_torch import smc as tsmc
+    from psvo_tpu_torch.ops.resampling import gather_particles
+
+    fhn = "fhn_fivo_k1024_bench"
+    l63_obs = torch.cat([lds.obs_test, lds.obs_train]).to(dev)  # l_obs holds Lorenz-96's now
+    step_runs = {}
+    for preset, obs_all, dy in ((fhn, None, 2), (l63, l63_obs, 3)):
+        for label, small in (("small", True), ("full", False)):
+            cfg, batch = slice_config(small, preset)
+            ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 14), device=dev)
+            if obs_all is None:
+                ys = torch.randn((batch, cfg.data.t_steps, dy), device=dev, generator=gen)
+            else:
+                ys = obs_all[:batch, :cfg.data.t_steps].contiguous()
+            with torch.no_grad():
+                r = step_chain_check(ssm, cfg, ys, gen)
+            step_runs[(preset, label)] = r
+            print(f"[z] K14 {preset} {label} B={batch} K={cfg.smc.n_particles} T={cfg.data.t_steps} "
+                  f"hidden={cfg.net('q1').hidden}: every step from the kernel's own state: "
+                  f"{r['idx_bad']} indices differ; max per-step rel L2 / max |d|/(1+|w|) "
+                  + ", ".join(f"{n} {e:.3e} / {m:.3e}" for n, e, m in
+                              zip(STEP_OUTPUTS, r["tf_l2"], r["tf_rel"]))
+                  + f" (max|d| {r['tf_abs']:.3e}); chain of {cfg.data.t_steps - 1} "
+                  f"launches vs one K1 launch on the same streams: {r['k1_idx']} indices differ, "
+                  f"max|d| x {r['vs_k1'][0]:.3e} alpha {r['vs_k1'][1]:.3e} stats "
+                  f"{r['vs_k1'][2]:.3e}; finite {r['finite']}", flush=True)
+            if not (r["finite"] and r["idx_bad"] == 0 and max(r["tf_l2"]) <= 1e-4
+                    and r["k1_idx"] == 0):
+                fail(f"K14 ({preset}, {label}) disagrees with step_forward_reference or with K1")
+    k14_small_err = max(step_runs[(p, "small")]["tf_abs"] for p in (fhn, l63))
+    full = step_runs[(fhn, "full")]
+    inp = full["inp"]
+    t_mid = inp["coef"].shape[0] // 2
+    x_mid = full["chain"][0][t_mid - 1].contiguous()
+    a_mid = full["chain"][1][t_mid - 1].contiguous()
+    k14_args = (x_mid, a_mid, inp["coef"][t_mid], inp["consts"], inp["eps"][t_mid],
+                inp["positions"][t_mid])
+    with torch.no_grad():
+        k14_dev = [device_ms(lambda: fused_step.step_forward(*k14_args)),
+                   device_ms(lambda: fused_step.step_forward_reference(*k14_args), n=5),
+                   device_ms(lambda: fused_step.step_forward(*k14_args))]
+        k14_out = fused_step.step_forward(*k14_args)
+    k14_regs = re.search(r"step_forward_kernelILi2ELi2ELi64EE.*?Used (\d+) registers",
+                         _build.build_log(), re.S)
+    print(f"[z] K14 full ({fhn}, B=32, K=1024, hidden 64, step {t_mid}): device time per launch "
+          f"(torch.profiler) {k14_dev[0]:.4f}/{k14_dev[2]:.4f} ms (20 launches each), plain "
+          f"{k14_dev[1]:.4f} ms (5 calls); registers {k14_regs.group(1) if k14_regs else '?'}",
+          flush=True)
+    phase_done("z")
+
+    # (aa) K15 against its plain version on K14's residuals; the chain against K4; K=2048
+    k15 = {}
+    for key, r in step_runs.items():
+        with torch.no_grad():
+            rb = step_backward_check(r, gen)
+        k15[key] = rb
+        tol = 1e-4 if key[1] == "small" else 1e-3
+        print(f"[aa] K15 {key[0]} {key[1]}, every step: " + ", ".join(
+                  f"{n} rel L2 {e:.3e} max|d| {m:.3e}"
+                  for n, e, m in zip(("d_x",) + leaves[1:], rb["rel"], rb["maxd"]))
+              + f"; bit-equal on a second launch {rb['same']}; bound rel L2 {tol:g}; cotangents "
+              f"zeroed on {rb['zeroed']} of {rb['n']} particle-steps with a relu tie; with every "
+              f"particle's, rel L2 " + ", ".join(f"{e:.3e}" for e in rb["rel_raw"])
+              + "; the chain vs one K4 launch, rel L2 " + ", ".join(f"{e:.3e}" for e in rb["vs_k4"])
+              + " (d_x0, d_coef, summed d_weights, d_sconst)", flush=True)
+        if not (rb["finite"] and rb["same"] and max(rb["rel"]) <= tol and max(rb["vs_k4"]) <= 1e-4):
+            fail(f"K15 ({key[0]}, {key[1]}) disagrees with step_backward_reference or with K4")
+        if key[1] == "small":
+            del rb["last"]
+    k15_small_err = max(max(k15[(p, "small")]["maxd"]) for p in (fhn, l63))
+    k15_args = k15[(fhn, "full")]["last"]
+    (k14_bound, k14_by), (k15_bound, k15_by) = step_bounds(inp["consts"], k14_args[:3] + k14_args[4:],
+                                                           k14_out, k15_args)
+    args15, d_xn15, d_al15, _ = k15_args
+    plain15 = (args15[0], args15[4], args15[5], args15[6], args15[2], args15[7], d_xn15, d_al15)
+    with torch.no_grad():
+        k15_dev = [device_ms(lambda: fused_step.step_backward(*args15, d_xn15, d_al15)),
+                   device_ms(lambda: fused_step.step_backward_reference(*plain15), n=5),
+                   device_ms(lambda: fused_step.step_backward(*args15, d_xn15, d_al15))]
+    # K15 at Dx=3, K=2048: one step of K14 at that width, then K15 against its plain version
+    wcfg, wbatch = slice_config(False, l63)
+    wcfg = dataclasses.replace(wcfg, smc=dataclasses.replace(wcfg.smc, n_particles=2048))
+    wssm = pt.init_ssm(wcfg, torch.Generator().manual_seed(SEED + 15), device=dev)
+    with torch.no_grad():
+        winp = kernel_inputs(wssm, wcfg, l63_obs[:wbatch].contiguous(), gen)
+        wc = winp["consts"]
+        x_new, alpha, stats, idx = fused_step.step_forward(winp["x0"], winp["alpha0"], winp["coef"][0],
+                                                           wc, winp["eps"][0], winp["positions"][0])
+        w_keep = ~relu_ties(wc, gather_particles(winp["x0"], idx), x_new)
+        w_cots = (torch.randn(stats.shape, generator=gen, device=dev),
+                  torch.randn(x_new.shape, generator=gen, device=dev) * w_keep[:, None],
+                  torch.randn(alpha.shape, generator=gen, device=dev) * w_keep)
+        w_args = (winp["x0"], x_new, idx, stats, winp["coef"][0], wc, winp["eps"][0], *w_cots)
+        w_got = fused_step.step_backward(*w_args)
+        w_want = fused_step.step_backward_reference(winp["x0"], winp["coef"][0], wc, winp["eps"][0],
+                                                    idx, *w_cots)
+        w_rel = [float((g - w).norm() / w.norm().clamp_min(1e-30)) for g, w in zip(w_got, w_want)]
+        w_dev = device_ms(lambda: fused_step.step_backward(*w_args))
+    k15_regs = re.findall(r"step_backward_kernelILi(\d)ELi\dELi64EE.*?Used (\d+) registers",
+                          _build.build_log(), re.S)
+    print(f"[aa] K15 at Dx=3, K=2048, B={wbatch}, hidden 64 (K4 runs to K="
+          f"{max(kk for kk in range(256, 4097, 256) if fused_step._k4_ok(wc, kk))} there, K15 to "
+          f"{max(kk for kk in range(256, 4097, 256) if fused_step._k15_ok(wc, kk))}), cotangents "
+          f"zeroed on {int((~w_keep).sum())} of {w_keep.numel()} particles with a relu tie: rel L2 "
+          + ", ".join(f"{e:.3e}" for e in w_rel) + f"; device time {w_dev:.4f} ms; shared memory "
+          f"{fused_step.k15_smem_bytes(wc, 2048)} B", flush=True)
+    print(f"[aa] K15 full ({fhn}, B=32, K=1024, hidden 64): device time per launch (torch.profiler) "
+          f"{k15_dev[0]:.4f}/{k15_dev[2]:.4f} ms (20 launches each, with sum_rows_kernel), plain "
+          f"{k15_dev[1]:.4f} ms (5 calls); bound {k15_bound:.4f} ms ({k15_by}); K14 bound "
+          f"{k14_bound:.4f} ms ({k14_by}); registers at hidden 64 (Dx, regs) {k15_regs}", flush=True)
+    if max(w_rel) > 1e-3:
+        fail("K15 at Dx=3, K=2048 disagrees with step_backward_reference")
+    del step_runs, k15, k15_args, args15, plain15, w_args, w_got, w_want, winp
+    phase_done("aa")
+
+    # (ab) fhn_fivo_k1024_bench with the toggle off: serving and training through K14/K15
+    step_plain = (fused_step.step_forward_reference, fused_step.step_backward_reference,
+                  fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+                  fused_step.stream_noise_reference, fused_step.ancestor_indices_reference)
+    step_kernels = (fused_step.step_forward, fused_step.step_backward, fused_step.scan_forward,
+                    fused_step.scan_backward)
+
+    def counted(fn):
+        for f in step_plain:
+            f.calls = 0
+        for f in step_kernels:
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, [f.launches for f in step_kernels], sum(f.calls for f in step_plain)
+
+    fused_step.SCAN_FUSED = False
+    cfg, batch = slice_config(small=False)
+    t1 = cfg.data.t_steps - 1
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    eval_step = pt.make_eval_step(ssm, cfg)
+    run_gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    metrics, ev_launch, ev_plain = counted(lambda: [eval_step(run_gen, ys) for ys in batches])
+    ev_step_ms = [time_ms(lambda: eval_step(run_gen, batches[0])) for _ in range(2)]
+    ev_profile = device_breakdown(lambda: eval_step(run_gen, batches[0]), 1, STEP_KERNELS)
+    elbos = [float(m_["elbo"]) for m_ in metrics]
+    print(f"[ab] serving {fhn}, per-step path: ELBO per batch {[round(e, 3) for e in elbos]}; "
+          f"launches K14/K15/K1/K4 {ev_launch} for {len(batches)} eval calls, plain-version calls "
+          f"{ev_plain}; eval_step {ev_step_ms[0]:.3f}/{ev_step_ms[1]:.3f} ms per call of B={batch} "
+          f"(median of 5 after 2 warm-up, two rounds)", flush=True)
+    print(f"[ab] profile of one more eval_step call: {ev_profile}", flush=True)
+    if ev_launch != [len(batches) * t1, 0, 0, 0] or ev_plain or not all(map(math.isfinite, elbos)):
+        fail(f"per-step serving launched K14/K15/K1/K4 {ev_launch}, plain versions {ev_plain}")
+
+    n_per_call = cfg.train.steps_per_call
+    train_step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
+    obs = ds.obs_train.to(dev)
+    pick = torch.randint(0, obs.shape[0], (3, n_per_call, batch),
+                         generator=torch.Generator().manual_seed(SEED + 7))
+    train_batches = [obs[p.to(dev)].contiguous() for p in pick]
+    before = [p.detach().clone() for p in ssm.parameters()]
+    run_gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_step_gb = torch.cuda.memory_allocated() / 1e9
+    call_s = []
+
+    def train_calls():
+        out = []
+        for bt in train_batches:
+            t0 = time.perf_counter()
+            out.append(train_step(run_gen, bt))
+            torch.cuda.synchronize()
+            call_s.append(time.perf_counter() - t0)
+        return out
+
+    train_metrics, step_train, plain_calls = counted(train_calls)
+    peak_step_gb = torch.cuda.max_memory_allocated() / 1e9 - held_step_gb
+    losses = [float(m_["loss"]) for m_ in train_metrics]
+    norms = [float(m_["grad_norm"]) for m_ in train_metrics]
+    moved = any(not torch.equal(a, p) for a, p in zip(before, ssm.parameters()))
+    step_fhn_ms = statistics.median(call_s[1:]) / n_per_call * 1e3
+    print(f"[ab] training {fhn}, per-step path: {len(train_batches)} calls x {n_per_call} steps, "
+          f"B={batch}: loss per call {[round(v, 3) for v in losses]}, grad norm "
+          f"{[round(v, 3) for v in norms]}, parameters moved {moved}; launches K14/K15/K1/K4 "
+          f"{step_train}, plain-version calls {plain_calls}; call times "
+          f"{[round(v, 3) for v in call_s]} s, train step {step_fhn_ms:.3f} ms (median of the calls "
+          f"after the first, per step); peak device memory {peak_step_gb:.3f} GB above the "
+          f"{held_step_gb:.3f} GB held before", flush=True)
+    profile = device_breakdown(lambda: train_step(run_gen, train_batches[0]), n_per_call,
+                               STEP_KERNELS)
+    print(f"[ab] profile of one more call: {profile}", flush=True)
+    want = len(train_batches) * n_per_call * t1
+    if step_train != [want, want, 0, 0] or plain_calls != 0:
+        fail(f"per-step training launched K14/K15/K1/K4 {step_train} (want [{want}, {want}, 0, 0]), "
+             f"plain versions {plain_calls}")
+    if not (all(math.isfinite(v) for v in losses + norms) and moved):
+        fail("per-step training gave non-finite losses or gradient norms, or left the parameters "
+             "as they were")
+    # one step's loss and gradients with the toggle off and on, same streams and weights
+    ab_ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 16), device=dev)
+    ab_ys = train_batches[0][0]
+    streams = tsmc._draw_noise(torch.Generator(device=dev).manual_seed(SEED + 17), cfg.smc,
+                                 cfg.data.t_steps, batch, 2)
+    ab = {}
+    for scan_fused in (True, False):
+        fused_step.SCAN_FUSED = scan_fused
+        for p in ab_ssm.parameters():
+            p.grad = None
+        fwd = tsmc._forward_filter_fused(ab_ssm, None, ab_ys, cfg.smc, cache=False,
+                                           streams=streams)
+        loss = -torch.mean(fwd.log_z)
+        loss.backward()
+        ab[scan_fused] = (float(loss), [p.grad.clone() for p in ab_ssm.parameters()
+                                        if p.grad is not None])
+    ab_rel = [float((a - b_).norm() / b_.norm().clamp_min(1e-30))
+              for a, b_ in zip(ab[False][1], ab[True][1])]
+    print(f"[ab] one step on the same streams and weights: loss per-step {ab[False][0]:.6f}, whole "
+          f"scan {ab[True][0]:.6f}; per-leaf gradient rel L2 max {max(ab_rel):.3e} over "
+          f"{len(ab_rel)} leaves", flush=True)
+    if abs(ab[False][0] - ab[True][0]) > 1e-6 * abs(ab[True][0]) or max(ab_rel) > 1e-4:
+        fail("the per-step path's loss or gradients differ from the whole-scan path's")
+    del ab, ab_ssm
+    phase_done("ab")
+
+    # (ac) lorenz63_psvo_k1024 with the toggle off: smooth_posterior and PSVO training
+    fused_step.SCAN_FUSED = False
+    step_kernels += (ffbsi.ffbsi_forward, ffbsi.ffbsi_backward)
+    step_plain += (ffbsi.ffbsi_forward_reference, ffbsi.ffbsi_backward_reference)
+    cfg, batch = lcfg, 32
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    run_gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_l_gb = torch.cuda.memory_allocated() / 1e9
+    paths, sp_launch, sp_plain = counted(
+        lambda: [pt.smooth_posterior(ssm, ys, cfg, run_gen) for ys in l_batches])
+    sp_peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_l_gb
+    shapes_ok = all(tuple(p.shape) == (batch, 16, 100, 3) for p in paths)
+    finite = all(bool(torch.isfinite(p).all()) for p in paths)
+    del paths
+    sp_step_ms = [time_ms(lambda: pt.smooth_posterior(ssm, l_batches[0], cfg, run_gen))
+                  for _ in range(2)]
+    sp_profile = device_breakdown(lambda: pt.smooth_posterior(ssm, l_batches[0], cfg, run_gen), 1,
+                                  STEP_PSVO_KERNELS)
+    print(f"[ac] serving {l63}, per-step path: smooth_posterior x{len(l_batches)} shapes ok "
+          f"{shapes_ok}, finite {finite}; launches K14/K15/K1/K4/K5/K6 {sp_launch}, plain-version "
+          f"calls {sp_plain}; {sp_step_ms[0]:.3f}/{sp_step_ms[1]:.3f} ms per call of B={batch} "
+          f"(median of 5 after 2 warm-up, two rounds); peak device memory {sp_peak_gb:.3f} GB above "
+          f"the {held_l_gb:.3f} GB held before", flush=True)
+    print(f"[ac] profile of one more call: {sp_profile}", flush=True)
+    n_calls = len(l_batches)
+    if sp_launch != [n_calls * t1, 0, 0, 0, n_calls, 0] or sp_plain or not (shapes_ok and finite):
+        fail(f"per-step smooth_posterior launched K14/K15/K1/K4/K5/K6 {sp_launch}, plain versions "
+             f"{sp_plain}, shapes ok {shapes_ok}, finite {finite}")
+
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    train_step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
+    obs = lds.obs_train.to(dev)
+    pick = torch.randint(0, obs.shape[0], (3, n_per_call, batch),
+                         generator=torch.Generator().manual_seed(SEED + 7))
+    train_batches = [obs[p.to(dev)].contiguous() for p in pick]
+    before = [p.detach().clone() for p in ssm.parameters()]
+    run_gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_l_gb = torch.cuda.memory_allocated() / 1e9
+    call_s = []
+    train_metrics, l_train, plain_calls = counted(train_calls)
+    peak_l_gb = torch.cuda.max_memory_allocated() / 1e9 - held_l_gb
+    losses = [float(m_["loss"]) for m_ in train_metrics]
+    norms = [float(m_["grad_norm"]) for m_ in train_metrics]
+    moved = any(not torch.equal(a, p) for a, p in zip(before, ssm.parameters()))
+    step_l63_ms = statistics.median(call_s[1:]) / n_per_call * 1e3
+    print(f"[ac] training {l63}, per-step path: {len(train_batches)} calls x {n_per_call} steps, "
+          f"B={batch}: loss per call {[round(v, 3) for v in losses]}, grad norm "
+          f"{[round(v, 3) for v in norms]}, parameters moved {moved}; launches K14/K15/K1/K4/K5/K6 "
+          f"{l_train}, plain-version calls {plain_calls}; call times {[round(v, 3) for v in call_s]} "
+          f"s, train step {step_l63_ms:.3f} ms (median of the calls after the first, per step); "
+          f"peak device memory {peak_l_gb:.3f} GB above the {held_l_gb:.3f} GB held before",
+          flush=True)
+    profile = device_breakdown(lambda: train_step(run_gen, train_batches[0]), n_per_call,
+                               STEP_PSVO_KERNELS)
+    print(f"[ac] profile of one more call: {profile}", flush=True)
+    n_steps = len(train_batches) * n_per_call
+    if l_train != [n_steps * t1, n_steps * t1, 0, 0, n_steps, n_steps] or plain_calls != 0:
+        fail(f"per-step PSVO training launched K14/K15/K1/K4/K5/K6 {l_train}, plain versions "
+             f"{plain_calls}")
+    if not (all(math.isfinite(v) for v in losses + norms) and moved):
+        fail("per-step PSVO training gave non-finite losses or gradient norms, or left the "
+             "parameters as they were")
+    fused_step.SCAN_FUSED = True
+    phase_done("ac")
+
     # K2: about 80 operations per normal (a Philox4x32-10 call, about 100 integer
     # operations, serves the particle's two normals; the Box-Muller transform about 30
     # each), counted at the fp32 rate; its output written once.
@@ -1872,6 +2319,14 @@ def main() -> int:
          "replaces": "psvo_tpu/ops/pallas_svo.py:521", "launches": svo_launches[3],
          "on_path": True, "max_abs_err": k13_small_err, "ms": k13_dev[0], "plain_ms": k13_dev[1],
          "bound_ms": k13_bound, "bound_by": k13_by, "library_ms": None},
+        {"name": "step_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/scan_forward.cu",
+         "replaces": "psvo_tpu/ops/pallas_step.py:954", "launches": step_train[0],
+         "on_path": True, "max_abs_err": k14_small_err, "ms": k14_dev[0], "plain_ms": k14_dev[1],
+         "bound_ms": k14_bound, "bound_by": k14_by, "library_ms": None},
+        {"name": "step_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/scan_backward.cu",
+         "replaces": "psvo_tpu/ops/pallas_step.py:1013", "launches": step_train[1],
+         "on_path": True, "max_abs_err": k15_small_err, "ms": k15_dev[0], "plain_ms": k15_dev[1],
+         "bound_ms": k15_bound, "bound_by": k15_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,6 +1,7 @@
 // K4 scan_backward: the backward of the whole forward FIVO filter (K1),
 // t = T-1 .. 1 in one launch, plus sum_rows_kernel, which sums the per-row
-// parameter gradients.
+// parameter gradients; and K15 step_backward (at the end): the backward of
+// one K14 step per launch, through the same step code.
 //
 // Replaces psvo_tpu/ops/pallas_step.py::_scan_bwd (kernel body
 // _scan_bwd_kernel), which inlines _bwd_core, _propose_weight_bwd_core,
@@ -342,258 +343,355 @@ __device__ __forceinline__ int lower_bound_idx(const int* a, int n, int v) {
   return lo;
 }
 
+// A CTA's shared memory in K4 and K15: the weights and their gradient sums,
+// four [H][kPS] activation tiles, the [D][kPS] tile arrays, K4's carry, the
+// step's d x_res [DX][K], the reduction scratch and the int32 ancestors [K].
+struct BwdSmem {
+  float *wts, *gacc;               // [n_weights] each
+  float *f1, *f2, *g1, *g2;        // [H][kPS]: f's buffers, then g's (then q1's)
+  float *xr, *xn, *ep;             // [DX][kPS]: x_res, x_new, ε
+  float *mf, *mg, *mq;             // trunk means
+  float *dmf, *dmg, *dmq;          // cotangents of the trunk means
+  float *dxn, *dxr;                // d x_new, d x_res of the tile
+  float* carry;                    // [DX][K] (K4 only)
+  float* dxres;                    // [DX][K]: d x_res of the whole step
+  float* red;                      // [kWarps]
+  int* idx_s;                      // [K]
+};
+
 template <int DX, int DY, int H>
-__global__ void __launch_bounds__(kThreads, 1) scan_backward_kernel(const BwdArgs a) {
+__device__ __forceinline__ BwdSmem carve_bwd(unsigned char* smem, int n_weights, int K,
+                                             bool carry) {
+  BwdSmem s;
+  s.wts = reinterpret_cast<float*>(smem);
+  s.gacc = s.wts + n_weights;
+  s.f1 = s.gacc + n_weights;
+  s.f2 = s.f1 + H * kPS;
+  s.g1 = s.f2 + H * kPS;
+  s.g2 = s.g1 + H * kPS;
+  s.xr = s.g2 + H * kPS;
+  s.xn = s.xr + DX * kPS;
+  s.ep = s.xn + DX * kPS;
+  s.mf = s.ep + DX * kPS;
+  s.mg = s.mf + DX * kPS;
+  s.mq = s.mg + DY * kPS;
+  s.dmf = s.mq + DX * kPS;
+  s.dmg = s.dmf + DX * kPS;
+  s.dmq = s.dmg + DY * kPS;
+  s.dxn = s.dmq + DX * kPS;
+  s.dxr = s.dxn + DX * kPS;
+  s.carry = s.dxr + DX * kPS;
+  s.dxres = s.carry + (carry ? DX * K : 0);
+  s.red = s.dxres + DX * K;
+  s.idx_s = reinterpret_cast<int*>(s.red + kWarps);
+  return s;
+}
+
+template <int DX, int DY, int H>
+size_t bwd_smem_bytes(int n_weights, int K, bool carry) {
+  return sizeof(float) * (2 * n_weights + 4 * H * kPS + (9 * DX + 2 * DY) * kPS +
+                          (carry ? 2 : 1) * DX * K + kWarps) +
+         sizeof(int) * K;
+}
+
+// One trajectory row's operands of one backward step, in device or shared
+// memory: K4 reads d x_new from its carry and scatters d x_{t-1} back into
+// it, K15 reads and writes device memory.
+struct BwdRow {
+  const float* x_prev;   // [DX][K]: the step's incoming particles (x_res = x_prev[idx])
+  const float* x_cur;    // [DX][K]: x_new
+  const int* idx;        // [K]: ancestors, nondecreasing
+  const float* eps;      // [DX][K]; stream mode only
+  const float* coef;     // [3*DX + DY + 1]: aq, cq, sq, y, ab
+  const float* stats;    // [2 + DX]: ℓ in column 0
+  const float* d_stats;  // [2 + DX]: column 0 is read
+  const float* d_xn;     // [DX][K] or null: the cotangent of x_new
+  const float* d_xn2;    // [DX][K] or null: a second one, added (K4's d_x_all)
+  const float* d_al;     // [K] or null: the cotangent of α
+  const float* d_al2;    // [K] or null: a second one, added
+  float* d_x;            // [DX][K]: d x_prev, written by the scatter
+  float* d_coef;         // [3*DX + DY + 1]
+};
+
+// The backward of one filter step of row b, t (module comment, 1.-9.):
+// accumulates the weight gradients into s.gacc and the sconst ones into
+// dsf/dsg, writes d x_prev and the d_coef row. K4 runs it once per t, K15
+// once per launch. Ends on a barrier.
+template <int DX, int DY, int H>
+__device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s, int K,
+                                              int off_f, int off_g, const float (&sfi)[DX],
+                                              const float (&sgi)[DY], float (&dsf)[DX],
+                                              float (&dsg)[DY], bool use_rng, uint32_t seed0,
+                                              uint32_t seed1, int b, int t) {
   using NQ = Net<DX, H, DX>;  // q1 and f
   using NG = Net<DX, H, DY>;  // g
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int K = a.K, B = a.B, b = blockIdx.x, tid = threadIdx.x;
-  float* wts = reinterpret_cast<float*>(smem);  // [n_weights]
-  float* gacc = wts + a.n_weights;              // [n_weights] weight-gradient sums
-  float* f1 = gacc + a.n_weights;               // 4 x [H][kPS] activations
-  float* f2 = f1 + H * kPS;
-  float* g1 = f2 + H * kPS;  // g's buffers, then q1's
-  float* g2 = g1 + H * kPS;
-  float* xr = g2 + H * kPS;  // tile arrays [D][kPS]: x_res, x_new, ε
-  float* xn = xr + DX * kPS;
-  float* ep = xn + DX * kPS;
-  float* mf = ep + DX * kPS;  // trunk means
-  float* mg = mf + DX * kPS;
-  float* mq = mg + DY * kPS;
-  float* dmf = mq + DX * kPS;  // cotangents of the trunk means
-  float* dmg = dmf + DX * kPS;
-  float* dmq = dmg + DY * kPS;
-  float* dxn = dmq + DX * kPS;  // d x_new
-  float* dxr = dxn + DX * kPS;  // d x_res
-  float* carry = dxr + DX * kPS;  // [DX][K]: d x_new of step t, then d x_{t-1}
-  float* dxres = carry + DX * K;  // [DX][K]: d x_res of the whole step
-  float* red = dxres + DX * K;    // [kWarps]
-  int* idx_s = reinterpret_cast<int*>(red + kWarps);  // [K]
+  const int tid = threadIdx.x;
+  const float* wq = s.wts;
+  const float* wf = s.wts + off_f;
+  const float* wg = s.wts + off_g;
+  float* gq = s.gacc;
+  float* gf = s.gacc + off_f;
+  float* gg = s.gacc + off_g;
+  constexpr int NC = 3 * DX + DY + 1;
+  const float log_k = logf(static_cast<float>(K));
+  const int p = tid;  // this thread's particle slot in a tile (tid < kP)
+  float *f1 = s.f1, *f2 = s.f2, *g1 = s.g1, *g2 = s.g2, *xr = s.xr, *xn = s.xn, *ep = s.ep;
+  float *mf = s.mf, *mg = s.mg, *mq = s.mq, *dmf = s.dmf, *dmg = s.dmg, *dmq = s.dmq;
+  float *dxn = s.dxn, *dxr = s.dxr;
 
-  for (int i = tid; i < a.n_weights; i += kThreads) {
-    wts[i] = a.weights[i];
-    gacc[i] = 0.0f;
+  const float* c = r.coef;
+  float cq[DX], y[DY];
+#pragma unroll
+  for (int d = 0; d < DX; ++d) cq[d] = c[DX + d];
+#pragma unroll
+  for (int q = 0; q < DY; ++q) y[q] = c[3 * DX + q];
+  const float ab = c[3 * DX + DY];
+  const float ell = r.stats[0];
+  const float d_ell = r.d_stats[0];
+  for (int i = tid; i < K; i += kThreads) s.idx_s[i] = r.idx[i];
+  float s_aq[DX], s_cq[DX], s_sq[DX], s_ab = 0.0f;
+#pragma unroll
+  for (int d = 0; d < DX; ++d) s_aq[d] = s_cq[d] = s_sq[d] = 0.0f;
+  __syncthreads();
+
+  for (int i0 = 0; i0 < K; i0 += kP) {
+    const int i = i0 + p;
+    const bool mine = p < kP && i < K;  // a live particle of this tile
+    // 1. operands of the tile
+    if (p < kP) {
+      float e[DX];
+      if (mine && use_rng) draw_eps<DX>(seed0, seed1, b, t, i, K, e);
+#pragma unroll
+      for (int d = 0; d < DX; ++d) {
+        xr[d * kPS + p] = mine ? r.x_prev[d * K + s.idx_s[i]] : 0.0f;
+        xn[d * kPS + p] = mine ? r.x_cur[d * K + i] : 0.0f;
+        ep[d * kPS + p] = !mine ? 0.0f : (use_rng ? e[d] : r.eps[d * K + i]);
+      }
+    }
+    __syncthreads();
+    // 2. recompute f on x_res and g on x_new
+    dense_relu_tile<DX, H>(wf + NQ::W1, wf + NQ::B1, xr, f1);
+    dense_relu_tile<DX, H>(wg + NG::W1, wg + NG::B1, xn, g1);
+    __syncthreads();
+    dense_relu_tile<H, H>(wf + NQ::W2, wf + NQ::B2, f1, f2);
+    dense_relu_tile<H, H>(wg + NG::W2, wg + NG::B2, g1, g2);
+    __syncthreads();
+    dense_out_tile<H, DX>(wf + NQ::W3, wf + NQ::B3, f2, mf);
+    dense_out_tile<H, DY>(wg + NG::W3, wg + NG::B3, g2, mg);
+    __syncthreads();
+    // 3. α, its cotangent, and the cotangents of m_f, m_g and x_new
+    if (p < kP) {
+      float xv[DX], mfv[DX], ev[DX], mgv[DY], da = 0.0f;
+#pragma unroll
+      for (int d = 0; d < DX; ++d) {
+        xv[d] = xn[d * kPS + p];
+        mfv[d] = mf[d * kPS + p];
+        ev[d] = ep[d * kPS + p];
+      }
+#pragma unroll
+      for (int q = 0; q < DY; ++q) mgv[q] = mg[q * kPS + p];
+      if (mine) {
+        const float al = alpha_unfloored<DX, DY>(xv, mfv, ev, y, mgv, sfi, sgi, ab);
+        if (al >= -3e30f) {  // no cotangent where the forward's floor clamped
+          float d_in = 0.0f;
+          if (r.d_al != nullptr) d_in += r.d_al[i];
+          if (r.d_al2 != nullptr) d_in += r.d_al2[i];
+          da = d_in + d_ell * expf(al - ell - log_k);
+        }
+        s_ab += da;
+      }
+#pragma unroll
+      for (int d = 0; d < DX; ++d) {
+        const float rf = xv[d] - mfv[d];
+        const float zf = rf * sfi[d];
+        float dx = 0.0f;
+        if (mine) {
+          if (r.d_xn != nullptr) dx = r.d_xn[d * K + i];
+          if (r.d_xn2 != nullptr) dx += r.d_xn2[d * K + i];
+          dsf[d] -= da * zf * rf;
+        }
+        dmf[d * kPS + p] = da * zf * sfi[d];
+        dxn[d * kPS + p] = dx - da * zf * sfi[d];
+      }
+#pragma unroll
+      for (int q = 0; q < DY; ++q) {
+        const float rg = y[q] - mgv[q];
+        const float zg = rg * sgi[q];
+        if (mine) dsg[q] -= da * zg * rg;
+        dmg[q * kPS + p] = da * zg * sgi[q];
+      }
+    }
+    __syncthreads();
+    // 4. backprop g (adds d x_new) and f (writes d x_res)
+    bwd_head_grads<DX, H, DX>(f2, dmf, gf);
+    bwd_head_grads<DX, H, DY>(g2, dmg, gg);
+    __syncthreads();
+    bwd_pre2<H, DX>(wf + NQ::W3, dmf, f2);
+    bwd_pre2<H, DY>(wg + NG::W3, dmg, g2);
+    __syncthreads();
+    bwd_mid_grads<DX, H, DX>(f1, f2, gf);
+    bwd_mid_grads<DX, H, DY>(g1, g2, gg);
+    __syncthreads();
+    bwd_pre1<H>(wf + NQ::W2, f2, f1);
+    bwd_pre1<H>(wg + NG::W2, g2, g1);
+    __syncthreads();
+    bwd_input<DX, H, DX, false>(wf + NQ::W1, xr, f1, gf, dxr);
+    bwd_input<DX, H, DY, true>(wg + NG::W1, xn, g1, gg, dxn);
+    __syncthreads();
+    // 5. recompute q1 on x_res, in g's buffers
+    dense_relu_tile<DX, H>(wq + NQ::W1, wq + NQ::B1, xr, g1);
+    __syncthreads();
+    dense_relu_tile<H, H>(wq + NQ::W2, wq + NQ::B2, g1, g2);
+    __syncthreads();
+    dense_out_tile<H, DX>(wq + NQ::W3, wq + NQ::B3, g2, mq);
+    __syncthreads();
+    // 6. the draw x_new = cq·m1 + aq + sq·ε: d m1 and the per-step sums
+    if (p < kP) {
+#pragma unroll
+      for (int d = 0; d < DX; ++d) {
+        const float dv = dxn[d * kPS + p];
+        dmq[d * kPS + p] = cq[d] * dv;
+        if (mine) {
+          s_aq[d] += dv;
+          s_cq[d] += dv * mq[d * kPS + p];
+          s_sq[d] += dv * ep[d * kPS + p];
+        }
+      }
+    }
+    __syncthreads();
+    // 7. backprop q1 (adds to d x_res)
+    bwd_head_grads<DX, H, DX>(g2, dmq, gq);
+    __syncthreads();
+    bwd_pre2<H, DX>(wq + NQ::W3, dmq, g2);
+    __syncthreads();
+    bwd_mid_grads<DX, H, DX>(g1, g2, gq);
+    __syncthreads();
+    bwd_pre1<H>(wq + NQ::W2, g2, g1);
+    __syncthreads();
+    bwd_input<DX, H, DX, true>(wq + NQ::W1, xr, g1, gq, dxr);
+    __syncthreads();
+    if (mine) {
+#pragma unroll
+      for (int d = 0; d < DX; ++d) s.dxres[d * K + i] = dxr[d * kPS + p];
+    }
   }
-  for (int i = tid; i < DX * K; i += kThreads)
-    carry[i] = a.d_x_last != nullptr ? a.d_x_last[(size_t)b * DX * K + i] : 0.0f;
-  float sfi[DX], sgi[DY], dsf[DX], dsg[DY];
+  __syncthreads();
+
+  // 8. scatter d x_res to the ancestors: a segmented sum over each run of
+  // equal ancestors, in particle order
+  for (int j = tid; j < K; j += kThreads) {
+    const int lo = lower_bound_idx(s.idx_s, K, j);
+    const int hi = lower_bound_idx(s.idx_s, K, j + 1);
+#pragma unroll
+    for (int d = 0; d < DX; ++d) {
+      float sum = 0.0f;
+      for (int i = lo; i < hi; ++i) sum += s.dxres[d * K + i];
+      r.d_x[d * K + j] = sum;
+    }
+  }
+  // 9. the step's d_coef row (the reductions' barriers also order the
+  // scatter's writes before the next step reads them)
 #pragma unroll
   for (int d = 0; d < DX; ++d) {
-    sfi[d] = a.sconst[d];
+    s_aq[d] = block_reduce<false>(s_aq[d], s.red);
+    s_cq[d] = block_reduce<false>(s_cq[d], s.red);
+    s_sq[d] = block_reduce<false>(s_sq[d], s.red);
+  }
+  s_ab = block_reduce<false>(s_ab, s.red);
+  if (tid == 0) {
+    float* dc = r.d_coef;
+#pragma unroll
+    for (int d = 0; d < DX; ++d) {
+      dc[d] = s_aq[d];
+      dc[DX + d] = s_cq[d];
+      dc[2 * DX + d] = s_sq[d];
+    }
+#pragma unroll
+    for (int q = 0; q < DY; ++q) dc[3 * DX + q] = 0.0f;  // y is data
+    dc[3 * DX + DY] = s_ab;
+  }
+}
+
+// Load the weights, zero their gradient sums and read sconst.
+template <int DX, int DY>
+__device__ __forceinline__ void bwd_prologue(const BwdSmem& s, const float* weights,
+                                             const float* sconst, int n_weights,
+                                             float (&sfi)[DX], float (&sgi)[DY],
+                                             float (&dsf)[DX], float (&dsg)[DY]) {
+  for (int i = threadIdx.x; i < n_weights; i += kThreads) {
+    s.wts[i] = weights[i];
+    s.gacc[i] = 0.0f;
+  }
+#pragma unroll
+  for (int d = 0; d < DX; ++d) {
+    sfi[d] = sconst[d];
     dsf[d] = 0.0f;
   }
 #pragma unroll
   for (int q = 0; q < DY; ++q) {
-    sgi[q] = a.sconst[DX + q];
+    sgi[q] = sconst[DX + q];
     dsg[q] = 0.0f;
-  }
-  const float* wq = wts;
-  const float* wf = wts + a.off_f;
-  const float* wg = wts + a.off_g;
-  float* gq = gacc;
-  float* gf = gacc + a.off_f;
-  float* gg = gacc + a.off_g;
-  constexpr int NC = 3 * DX + DY + 1;
-  const float log_k = logf(static_cast<float>(K));
-  const int p = tid;  // this thread's particle slot in a tile (tid < kP)
-
-  for (int t = a.T1 - 1; t >= 0; --t) {
-    const size_t row = (size_t)t * B + b;
-    const float* c = a.coef + row * NC;
-    float cq[DX], y[DY];
-#pragma unroll
-    for (int d = 0; d < DX; ++d) cq[d] = c[DX + d];
-#pragma unroll
-    for (int q = 0; q < DY; ++q) y[q] = c[3 * DX + q];
-    const float ab = c[3 * DX + DY];
-    const float ell = a.stats[row * (2 + DX)];
-    const float d_ell = a.d_stats[row * (2 + DX)];
-    const float* x_prev =
-        t == 0 ? a.x0 + (size_t)b * DX * K : a.x_all + ((size_t)(t - 1) * B + b) * DX * K;
-    const float* x_cur = a.x_all + row * DX * K;
-    for (int i = tid; i < K; i += kThreads) idx_s[i] = a.idx[row * K + i];
-    float s_aq[DX], s_cq[DX], s_sq[DX], s_ab = 0.0f;
-#pragma unroll
-    for (int d = 0; d < DX; ++d) s_aq[d] = s_cq[d] = s_sq[d] = 0.0f;
-    __syncthreads();
-
-    for (int i0 = 0; i0 < K; i0 += kP) {
-      const int i = i0 + p;
-      const bool mine = p < kP && i < K;  // a live particle of this tile
-      // 1. operands of the tile
-      if (p < kP) {
-        float e[DX];
-        if (mine && a.use_rng) draw_eps<DX>(a.seed0, a.seed1, b, t, i, K, e);
-#pragma unroll
-        for (int d = 0; d < DX; ++d) {
-          xr[d * kPS + p] = mine ? x_prev[d * K + idx_s[i]] : 0.0f;
-          xn[d * kPS + p] = mine ? x_cur[d * K + i] : 0.0f;
-          ep[d * kPS + p] = !mine ? 0.0f : (a.use_rng ? e[d] : a.eps[(row * DX + d) * K + i]);
-        }
-      }
-      __syncthreads();
-      // 2. recompute f on x_res and g on x_new
-      dense_relu_tile<DX, H>(wf + NQ::W1, wf + NQ::B1, xr, f1);
-      dense_relu_tile<DX, H>(wg + NG::W1, wg + NG::B1, xn, g1);
-      __syncthreads();
-      dense_relu_tile<H, H>(wf + NQ::W2, wf + NQ::B2, f1, f2);
-      dense_relu_tile<H, H>(wg + NG::W2, wg + NG::B2, g1, g2);
-      __syncthreads();
-      dense_out_tile<H, DX>(wf + NQ::W3, wf + NQ::B3, f2, mf);
-      dense_out_tile<H, DY>(wg + NG::W3, wg + NG::B3, g2, mg);
-      __syncthreads();
-      // 3. α, its cotangent, and the cotangents of m_f, m_g and x_new
-      if (p < kP) {
-        float xv[DX], mfv[DX], ev[DX], mgv[DY], da = 0.0f;
-#pragma unroll
-        for (int d = 0; d < DX; ++d) {
-          xv[d] = xn[d * kPS + p];
-          mfv[d] = mf[d * kPS + p];
-          ev[d] = ep[d * kPS + p];
-        }
-#pragma unroll
-        for (int q = 0; q < DY; ++q) mgv[q] = mg[q * kPS + p];
-        if (mine) {
-          const float al = alpha_unfloored<DX, DY>(xv, mfv, ev, y, mgv, sfi, sgi, ab);
-          if (al >= -3e30f) {  // no cotangent where the forward's floor clamped
-            float d_in = 0.0f;
-            if (t == a.T1 - 1 && a.d_alpha_last != nullptr) d_in += a.d_alpha_last[(size_t)b * K + i];
-            if (a.d_alpha_all != nullptr) d_in += a.d_alpha_all[row * K + i];
-            da = d_in + d_ell * expf(al - ell - log_k);
-          }
-          s_ab += da;
-        }
-#pragma unroll
-        for (int d = 0; d < DX; ++d) {
-          const float r = xv[d] - mfv[d];
-          const float zf = r * sfi[d];
-          float dx = 0.0f;
-          if (mine) {
-            dx = carry[d * K + i];
-            if (a.d_x_all != nullptr) dx += a.d_x_all[(row * DX + d) * K + i];
-            dsf[d] -= da * zf * r;
-          }
-          dmf[d * kPS + p] = da * zf * sfi[d];
-          dxn[d * kPS + p] = dx - da * zf * sfi[d];
-        }
-#pragma unroll
-        for (int q = 0; q < DY; ++q) {
-          const float r = y[q] - mgv[q];
-          const float zg = r * sgi[q];
-          if (mine) dsg[q] -= da * zg * r;
-          dmg[q * kPS + p] = da * zg * sgi[q];
-        }
-      }
-      __syncthreads();
-      // 4. backprop g (adds d x_new) and f (writes d x_res)
-      bwd_head_grads<DX, H, DX>(f2, dmf, gf);
-      bwd_head_grads<DX, H, DY>(g2, dmg, gg);
-      __syncthreads();
-      bwd_pre2<H, DX>(wf + NQ::W3, dmf, f2);
-      bwd_pre2<H, DY>(wg + NG::W3, dmg, g2);
-      __syncthreads();
-      bwd_mid_grads<DX, H, DX>(f1, f2, gf);
-      bwd_mid_grads<DX, H, DY>(g1, g2, gg);
-      __syncthreads();
-      bwd_pre1<H>(wf + NQ::W2, f2, f1);
-      bwd_pre1<H>(wg + NG::W2, g2, g1);
-      __syncthreads();
-      bwd_input<DX, H, DX, false>(wf + NQ::W1, xr, f1, gf, dxr);
-      bwd_input<DX, H, DY, true>(wg + NG::W1, xn, g1, gg, dxn);
-      __syncthreads();
-      // 5. recompute q1 on x_res, in g's buffers
-      dense_relu_tile<DX, H>(wq + NQ::W1, wq + NQ::B1, xr, g1);
-      __syncthreads();
-      dense_relu_tile<H, H>(wq + NQ::W2, wq + NQ::B2, g1, g2);
-      __syncthreads();
-      dense_out_tile<H, DX>(wq + NQ::W3, wq + NQ::B3, g2, mq);
-      __syncthreads();
-      // 6. the draw x_new = cq·m1 + aq + sq·ε: d m1 and the per-step sums
-      if (p < kP) {
-#pragma unroll
-        for (int d = 0; d < DX; ++d) {
-          const float dv = dxn[d * kPS + p];
-          dmq[d * kPS + p] = cq[d] * dv;
-          if (mine) {
-            s_aq[d] += dv;
-            s_cq[d] += dv * mq[d * kPS + p];
-            s_sq[d] += dv * ep[d * kPS + p];
-          }
-        }
-      }
-      __syncthreads();
-      // 7. backprop q1 (adds to d x_res)
-      bwd_head_grads<DX, H, DX>(g2, dmq, gq);
-      __syncthreads();
-      bwd_pre2<H, DX>(wq + NQ::W3, dmq, g2);
-      __syncthreads();
-      bwd_mid_grads<DX, H, DX>(g1, g2, gq);
-      __syncthreads();
-      bwd_pre1<H>(wq + NQ::W2, g2, g1);
-      __syncthreads();
-      bwd_input<DX, H, DX, true>(wq + NQ::W1, xr, g1, gq, dxr);
-      __syncthreads();
-      if (mine) {
-#pragma unroll
-        for (int d = 0; d < DX; ++d) dxres[d * K + i] = dxr[d * kPS + p];
-      }
-    }
-    __syncthreads();
-
-    // 8. scatter d x_res into the carry: a segmented sum over each run of
-    // equal ancestors, in particle order
-    for (int j = tid; j < K; j += kThreads) {
-      const int lo = lower_bound_idx(idx_s, K, j);
-      const int hi = lower_bound_idx(idx_s, K, j + 1);
-#pragma unroll
-      for (int d = 0; d < DX; ++d) {
-        float s = 0.0f;
-        for (int i = lo; i < hi; ++i) s += dxres[d * K + i];
-        carry[d * K + j] = s;
-      }
-    }
-    // 9. the step's d_coef row (the reductions' barriers also order the
-    // carry writes above before the next step reads it)
-#pragma unroll
-    for (int d = 0; d < DX; ++d) {
-      s_aq[d] = block_reduce<false>(s_aq[d], red);
-      s_cq[d] = block_reduce<false>(s_cq[d], red);
-      s_sq[d] = block_reduce<false>(s_sq[d], red);
-    }
-    s_ab = block_reduce<false>(s_ab, red);
-    if (tid == 0) {
-      float* dc = a.d_coef + row * NC;
-#pragma unroll
-      for (int d = 0; d < DX; ++d) {
-        dc[d] = s_aq[d];
-        dc[DX + d] = s_cq[d];
-        dc[2 * DX + d] = s_sq[d];
-      }
-#pragma unroll
-      for (int q = 0; q < DY; ++q) dc[3 * DX + q] = 0.0f;  // y is data
-      dc[3 * DX + DY] = s_ab;
-    }
-  }
-
-  for (int i = tid; i < DX * K; i += kThreads) a.d_x0[(size_t)b * DX * K + i] = carry[i];
-  const int n_row = a.n_weights + DX + DY;
-  float* part = a.partial + (size_t)b * n_row;
-  for (int i = tid; i < a.n_weights; i += kThreads) part[i] = gacc[i];
-#pragma unroll
-  for (int d = 0; d < DX; ++d) {
-    const float v = block_reduce<false>(dsf[d], red);
-    if (tid == 0) part[a.n_weights + d] = v;
-  }
-#pragma unroll
-  for (int q = 0; q < DY; ++q) {
-    const float v = block_reduce<false>(dsg[q], red);
-    if (tid == 0) part[a.n_weights + DX + q] = v;
   }
 }
 
+// The row's partial gradients: the weight sums, then d_sconst (block sums).
+template <int DX, int DY>
+__device__ __forceinline__ void write_partial(const BwdSmem& s, int n_weights,
+                                              float (&dsf)[DX], float (&dsg)[DY],
+                                              float* part) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < n_weights; i += kThreads) part[i] = s.gacc[i];
+#pragma unroll
+  for (int d = 0; d < DX; ++d) {
+    const float v = block_reduce<false>(dsf[d], s.red);
+    if (tid == 0) part[n_weights + d] = v;
+  }
+#pragma unroll
+  for (int q = 0; q < DY; ++q) {
+    const float v = block_reduce<false>(dsg[q], s.red);
+    if (tid == 0) part[n_weights + DX + q] = v;
+  }
+}
+
+template <int DX, int DY, int H>
+__global__ void __launch_bounds__(kThreads, 1) scan_backward_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int K = a.K, B = a.B, b = blockIdx.x, tid = threadIdx.x;
+  const BwdSmem s = carve_bwd<DX, DY, H>(smem, a.n_weights, K, true);
+  float sfi[DX], sgi[DY], dsf[DX], dsg[DY];
+  bwd_prologue<DX, DY>(s, a.weights, a.sconst, a.n_weights, sfi, sgi, dsf, dsg);
+  for (int i = tid; i < DX * K; i += kThreads)
+    s.carry[i] = a.d_x_last != nullptr ? a.d_x_last[(size_t)b * DX * K + i] : 0.0f;
+  constexpr int NC = 3 * DX + DY + 1;
+
+  for (int t = a.T1 - 1; t >= 0; --t) {
+    const size_t row = (size_t)t * B + b;
+    const BwdRow r{
+        t == 0 ? a.x0 + (size_t)b * DX * K : a.x_all + ((size_t)(t - 1) * B + b) * DX * K,
+        a.x_all + row * DX * K,
+        a.idx + row * K,
+        a.use_rng ? nullptr : a.eps + row * DX * K,
+        a.coef + row * NC,
+        a.stats + row * (2 + DX),
+        a.d_stats + row * (2 + DX),
+        s.carry,
+        a.d_x_all != nullptr ? a.d_x_all + row * DX * K : nullptr,
+        t == a.T1 - 1 && a.d_alpha_last != nullptr ? a.d_alpha_last + (size_t)b * K : nullptr,
+        a.d_alpha_all != nullptr ? a.d_alpha_all + row * K : nullptr,
+        s.carry,
+        a.d_coef + row * NC};
+    backward_step<DX, DY, H>(r, s, K, a.off_f, a.off_g, sfi, sgi, dsf, dsg, a.use_rng, a.seed0,
+                             a.seed1, b, t);
+  }
+
+  for (int i = tid; i < DX * K; i += kThreads) a.d_x0[(size_t)b * DX * K + i] = s.carry[i];
+  write_partial<DX, DY>(s, a.n_weights, dsf, dsg,
+                        a.partial + (size_t)b * (a.n_weights + DX + DY));
+}
+
 // out[e] = Σ_r partial[r][e], rows added in order: the B per-row partial
-// gradients of scan_backward_kernel (the TPU kernel accumulated them in its
-// own body, _accum_param_grads).
+// gradients of scan_backward_kernel and step_backward_kernel (the TPU kernels
+// accumulated them in their own body, _accum_param_grads).
 __global__ void sum_rows_kernel(const float* __restrict__ partial, int rows, int n,
                                 float* __restrict__ out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
@@ -603,30 +701,92 @@ __global__ void sum_rows_kernel(const float* __restrict__ partial, int rows, int
   out[e] = s;
 }
 
-template <int DX, int DY, int H>
-cudaError_t launch_backward(const BwdArgs& a, float* grads, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (2 * a.n_weights + 4 * H * kPS + (9 * DX + 2 * DY) * kPS +
-                       2 * DX * a.K + kWarps) +
-      sizeof(int) * a.K;
-  auto kernel = scan_backward_kernel<DX, DY, H>;
+// One CTA per trajectory row (K4, K15), then sum_rows_kernel over the rows'
+// n partial gradients into grads.
+template <class Args>
+cudaError_t launch_rows_and_sum(void (*kernel)(Args), const Args& a, size_t smem, int n,
+                                float* grads, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   kernel<<<a.B, kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int n = a.n_weights + DX + DY;
   sum_rows_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(a.partial, a.B, n,
                                                                          grads);
   return cudaGetLastError();
 }
 
+// K15 step_backward: the VJP of ONE K14 step per launch.
+//
+// Replaces psvo_tpu/ops/pallas_step.py::_step_bwd (kernel body _bwd_kernel,
+// which runs _bwd_core and accumulates the parameter gradients over its row
+// blocks): the backward of the per-step path of SCAN_FUSED = False, one call
+// per step in lax.scan's reverse loop.
+//
+// Design. K4's step (backward_step) on one step's residuals from device
+// memory: x (regathered as x_res = x[idx]), x_new, idx, the stats and ε; the
+// cotangents d x_new and d α come from autograd (the next step's d x and the
+// cache's cotangents, already summed), and d x goes back to device memory.
+// With no carry across steps, its shared memory holds one [DX][K] array
+// fewer than K4's, so K up to 4096 fits at Dx = 2 and 2560 at Dx = 3 with
+// hidden 64 (fused_step.k15_smem_bytes). Deterministic as K4: one owning
+// thread per gradient entry, the per-row partials added in row order by
+// sum_rows_kernel, no atomics; the 99 steps' gradients are summed by autograd.
+//
+// What bounds it. One step of K4's work (~26 kFLOP per particle and trunk)
+// on B CTAs: the fp32 CUDA cores, as K4; each launch also reloads the
+// weights into shared memory.
+struct StepBwdArgs {
+  const float* x;        // [B, DX, K]: the step's incoming particles
+  const float* x_new;    // [B, DX, K]
+  const int* idx;        // [B, K]: ancestors, nondecreasing in K
+  const float* stats;    // [B, 2 + DX]: ℓ in column 0
+  const float* coef;     // [B, 3*DX + DY + 1]: aq, cq, sq, y, ab
+  const float* eps;      // [B, DX, K]
+  const float* weights;  // q1 | f | g, fused_step.prepare's layout
+  const float* sconst;   // [DX + DY]: 1/s_f, 1/s_g
+  const float* d_stats;  // [B, 2 + DX]: column 0 is read
+  const float* d_x_new;  // [B, DX, K] or null
+  const float* d_alpha;  // [B, K] or null
+  float* d_x;            // [B, DX, K]
+  float* d_coef;         // [B, 3*DX + DY + 1]
+  float* partial;        // [B, n_weights + DX + DY]: per-row weight and sconst grads
+  int B, K, n_weights, off_f, off_g;
+};
+
+template <int DX, int DY, int H>
+__global__ void __launch_bounds__(kThreads, 1) step_backward_kernel(const StepBwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int K = a.K, b = blockIdx.x;
+  const BwdSmem s = carve_bwd<DX, DY, H>(smem, a.n_weights, K, false);
+  float sfi[DX], sgi[DY], dsf[DX], dsg[DY];
+  bwd_prologue<DX, DY>(s, a.weights, a.sconst, a.n_weights, sfi, sgi, dsf, dsg);
+  constexpr int NC = 3 * DX + DY + 1;
+  const size_t bx = (size_t)b * DX * K;
+  const BwdRow r{a.x + bx,
+                 a.x_new + bx,
+                 a.idx + (size_t)b * K,
+                 a.eps + bx,
+                 a.coef + (size_t)b * NC,
+                 a.stats + (size_t)b * (2 + DX),
+                 a.d_stats + (size_t)b * (2 + DX),
+                 a.d_x_new != nullptr ? a.d_x_new + bx : nullptr,
+                 nullptr,
+                 a.d_alpha != nullptr ? a.d_alpha + (size_t)b * K : nullptr,
+                 nullptr,
+                 a.d_x + bx,
+                 a.d_coef + (size_t)b * NC};
+  backward_step<DX, DY, H>(r, s, K, a.off_f, a.off_g, sfi, sgi, dsf, dsg, false, 0u, 0u, b, 0);
+  write_partial<DX, DY>(s, a.n_weights, dsf, dsg,
+                        a.partial + (size_t)b * (a.n_weights + DX + DY));
+}
+
 }  // namespace psvo
 
-// Plain C entry point (bound with ctypes by psvo_tpu_torch/ops/_build.py).
+// Plain C entry points (bound with ctypes by psvo_tpu_torch/ops/_build.py).
 // grads [n_weights + dx + dy] receives the weight gradients, then d_sconst;
-// partial [B, n_weights + dx + dy] is scratch. Returns a cudaError_t.
+// partial [B, n_weights + dx + dy] is scratch. Each returns a cudaError_t.
 extern "C" int psvo_scan_backward(const float* x0, const float* x_all, const int* idx,
                                   const float* stats, const float* coef, const float* eps,
                                   const float* weights, const float* sconst,
@@ -641,22 +801,33 @@ extern "C" int psvo_scan_backward(const float* x0, const float* x_all, const int
                         d_x_all, d_alpha_all, d_x0,  d_coef,       partial, seed0,
                         seed1,   use_rng,  B,        K,            T1,      n_weights,
                         off_f,   off_g};
+  if (n_mid != 1) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (dx == 2 && dy == 2 && n_mid == 1) {  // FitzHugh-Nagumo
-    switch (hidden) {
-      case 16: return psvo::launch_backward<2, 2, 16>(a, grads, s);
-      case 32: return psvo::launch_backward<2, 2, 32>(a, grads, s);
-      case 64: return psvo::launch_backward<2, 2, 64>(a, grads, s);
-      default: break;
-    }
-  }
-  if (dx == 3 && dy == 3 && n_mid == 1) {  // Lorenz-63
-    switch (hidden) {
-      case 16: return psvo::launch_backward<3, 3, 16>(a, grads, s);
-      case 32: return psvo::launch_backward<3, 3, 32>(a, grads, s);
-      case 64: return psvo::launch_backward<3, 3, 64>(a, grads, s);
-      default: break;
-    }
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return psvo::with_dims(dx, dy, hidden, [&](auto d) {
+    using D = decltype(d);
+    return psvo::launch_rows_and_sum(psvo::scan_backward_kernel<D::DX, D::DY, D::H>, a,
+                                     psvo::bwd_smem_bytes<D::DX, D::DY, D::H>(n_weights, K, true),
+                                     n_weights + D::DX + D::DY, grads, s);
+  });
+}
+
+extern "C" int psvo_step_backward(const float* x, const float* x_new, const int* idx,
+                                  const float* stats, const float* coef, const float* eps,
+                                  const float* weights, const float* sconst,
+                                  const float* d_stats, const float* d_x_new,
+                                  const float* d_alpha, float* d_x, float* d_coef,
+                                  float* partial, float* grads, int B, int K, int dx, int dy,
+                                  int hidden, int n_mid, int n_weights, int off_f, int off_g,
+                                  void* stream) {
+  const psvo::StepBwdArgs a{x,       x_new,   idx,   stats,  coef,    eps,       weights,
+                            sconst,  d_stats, d_x_new, d_alpha, d_x,   d_coef,    partial,
+                            B,       K,       n_weights, off_f, off_g};
+  if (n_mid != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return psvo::with_dims(dx, dy, hidden, [&](auto d) {
+    using D = decltype(d);
+    return psvo::launch_rows_and_sum(psvo::step_backward_kernel<D::DX, D::DY, D::H>, a,
+                                     psvo::bwd_smem_bytes<D::DX, D::DY, D::H>(n_weights, K, false),
+                                     n_weights + D::DX + D::DY, grads, s);
+  });
 }

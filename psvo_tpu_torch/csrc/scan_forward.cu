@@ -1,4 +1,5 @@
-// K1 scan_forward: the whole forward FIVO filter, t = 1 .. T-1, in one launch.
+// K1 scan_forward: the whole forward FIVO filter, t = 1 .. T-1, in one launch;
+// and K14 step_forward (at the end): one step of the same code per launch.
 //
 // Replaces psvo_tpu/ops/pallas_step.py::_scan_fwd (kernel body
 // _scan_fwd_kernel), which inlines _fwd_core, pallas_resample's
@@ -157,21 +158,155 @@ __device__ __forceinline__ void trunk(const float* __restrict__ w, int n_mid,
   }
 }
 
+// One trajectory row's operands and outputs of one filtering step, in device
+// memory. The carry (particles and log-weights) is in shared memory.
+struct StepRow {
+  const float* coef;  // [3*DX + DY + 1]: aq, cq, sq, y, ab
+  const float* eps;   // [DX][K]; stream mode only
+  const float* pos;   // [K] sorted positions; stream mode only
+  float* stats;       // [2 + DX]: ell, ess, filtered mean
+  float* x_out;       // [DX][K]: x_new, or null
+  float* alpha_out;   // [K]: α, or null
+  int* idx;           // [K]: ancestor indices, or null
+};
+
+// A CTA's shared memory in K1 and K14: the fp64 CDF, the weights, the
+// double-buffered particles, the log-weights and the reduction scratch.
+struct FwdSmem {
+  double* cdf;  // [K]
+  double* dred; // [kWarps]
+  float* wts;   // [n_weights]
+  float* xbuf;  // [2][DX][K]
+  float* lw;    // [K]
+  float* red;   // [kWarps]
+};
+
+template <int DX>
+__device__ __forceinline__ FwdSmem carve_fwd(unsigned char* smem, int n_weights, int K) {
+  FwdSmem s;
+  s.cdf = reinterpret_cast<double*>(smem);
+  s.dred = s.cdf + K;
+  s.wts = reinterpret_cast<float*>(s.dred + kWarps);
+  s.xbuf = s.wts + n_weights;
+  s.lw = s.xbuf + 2 * DX * K;
+  s.red = s.lw + K;
+  return s;
+}
+
+template <int DX>
+size_t fwd_smem_bytes(int n_weights, int K) {
+  return sizeof(double) * (K + kWarps) + sizeof(float) * (n_weights + 2 * DX * K + K + kWarps);
+}
+
+// One filtering step of row b, t, on the carry xc [DX][K] and s.lw: the ESS
+// and CDF of the incoming weights; per particle the ancestor, the q1 and f
+// trunks on the resampled particle, the fused draw into xn [DX][K], the g
+// trunk and α (over s.lw); then ℓ, the ESS and the filtered mean into
+// r.stats. K1 runs it once per t, K14 once per launch: the same code, so the
+// same bits. Ends on a barrier.
+template <int DX, int DY, int H>
+__device__ __forceinline__ void filter_step(const StepRow& r, const FwdSmem& s, const float* xc,
+                                            float* xn_buf, int K, int n_mid, int off_f, int off_g,
+                                            const float (&sfi)[DX], const float (&sgi)[DY],
+                                            bool use_rng, uint32_t seed0, uint32_t seed1, int b,
+                                            int t) {
+  static_assert(DX == DY, "the three heads share one trunk instance (one output width)");
+  const int tid = threadIdx.x;
+  const float* c = r.coef;
+  float aq[DX], cq[DX], sq[DX], y[DY];
+#pragma unroll
+  for (int d = 0; d < DX; ++d) {
+    aq[d] = c[d];
+    cq[d] = c[DX + d];
+    sq[d] = c[2 * DX + d];
+  }
+#pragma unroll
+  for (int e = 0; e < DY; ++e) y[e] = c[3 * DX + e];
+  const float ab = c[3 * DX + DY];
+  float* lw = s.lw;
+
+  // 1. ESS and the CDF of the incoming weights
+  const float m = block_max_of(lw, K, s.red);
+  float s1, s2;
+  const double total = block_cdf(lw, K, m, s.cdf, s.dred, s.red, &s1, &s2);
+  const float ess = s1 * s1 / fmaxf(s2, 1e-30f);
+  const float u0 = use_rng ? draw_u0(seed0, seed1, b, t) : 0.0f;
+
+  // 2. resample, propose and weight each particle
+  for (int i = tid; i < K; i += kThreads) {
+    const float pos = use_rng ? systematic_position(i, u0, K) : r.pos[i];
+    const int anc = ancestor(s.cdf, K, static_cast<double>(pos) * total);
+    float e[DX];
+    if (use_rng) {
+      draw_eps<DX>(seed0, seed1, b, t, i, K, e);
+    } else {
+#pragma unroll
+      for (int d = 0; d < DX; ++d) e[d] = r.eps[d * K + i];
+    }
+    // The three heads run through ONE copy of the (fully unrolled) trunk:
+    // q1 and f on the resampled particle, then g on the drawn one.
+    float xn[DX], m1[DX], mf[DX], mg[DY];
+#pragma unroll
+    for (int d = 0; d < DX; ++d) xn[d] = xc[d * K + anc];
+#pragma unroll 1
+    for (int n = 0; n < 3; ++n) {
+      if (n == 2) {
+#pragma unroll
+        for (int d = 0; d < DX; ++d) xn[d] = cq[d] * m1[d] + aq[d] + sq[d] * e[d];
+      }
+      const int off = n == 0 ? 0 : (n == 1 ? off_f : off_g);
+      trunk<DX, H, DY>(s.wts + off, n_mid, xn, mg);
+#pragma unroll
+      for (int d = 0; d < DX; ++d) {
+        if (n == 0) m1[d] = mg[d];
+        if (n == 1) mf[d] = mg[d];
+      }
+    }
+    // finiteness floor: a diverged mean gives a finite, hopeless weight
+    const float alpha =
+        fmaxf(alpha_unfloored<DX, DY>(xn, mf, e, y, mg, sfi, sgi, ab), -3e30f);
+#pragma unroll
+    for (int d = 0; d < DX; ++d) xn_buf[d * K + i] = xn[d];
+    lw[i] = alpha;
+    if (r.x_out != nullptr) {
+#pragma unroll
+      for (int d = 0; d < DX; ++d) r.x_out[d * K + i] = xn[d];
+    }
+    if (r.alpha_out != nullptr) r.alpha_out[i] = alpha;
+    if (r.idx != nullptr) r.idx[i] = anc;
+  }
+  __syncthreads();
+
+  // 3. logZ increment and filtered mean under the new weights
+  const float amax = block_max_of(lw, K, s.red);
+  float sw = 0.0f, sx[DX];
+#pragma unroll
+  for (int d = 0; d < DX; ++d) sx[d] = 0.0f;
+  for (int i = tid; i < K; i += kThreads) {
+    const float w = expf(lw[i] - amax);
+    sw += w;
+#pragma unroll
+    for (int d = 0; d < DX; ++d) sx[d] = fmaf(w, xn_buf[d * K + i], sx[d]);
+  }
+  sw = block_reduce<false>(sw, s.red);
+#pragma unroll
+  for (int d = 0; d < DX; ++d) sx[d] = block_reduce<false>(sx[d], s.red);
+  if (tid == 0) {
+    r.stats[0] = logf(sw) + amax - logf(static_cast<float>(K));
+    r.stats[1] = ess;
+#pragma unroll
+    for (int d = 0; d < DX; ++d) r.stats[2 + d] = sx[d] / sw;
+  }
+}
+
 template <int DX, int DY, int H>
 __global__ void __launch_bounds__(kThreads) scan_forward_kernel(const ScanArgs a) {
-  static_assert(DX == DY, "the three heads share one trunk instance (one output width)");
   extern __shared__ __align__(16) unsigned char smem[];
   const int K = a.K, B = a.B, b = blockIdx.x, tid = threadIdx.x;
-  double* cdf = reinterpret_cast<double*>(smem);              // [K]
-  double* dred = cdf + K;                                      // [kWarps]
-  float* wts = reinterpret_cast<float*>(dred + kWarps);        // [n_weights]
-  float* xbuf = wts + a.n_weights;                             // [2][DX][K]
-  float* lw = xbuf + 2 * DX * K;                               // [K]
-  float* red = lw + K;                                         // [kWarps]
-
-  for (int i = tid; i < a.n_weights; i += kThreads) wts[i] = a.weights[i];
-  for (int i = tid; i < DX * K; i += kThreads) xbuf[i] = a.x0[(size_t)b * DX * K + i];
-  for (int i = tid; i < K; i += kThreads) lw[i] = a.alpha0[(size_t)b * K + i];
+  const FwdSmem s = carve_fwd<DX>(smem, a.n_weights, K);
+  for (int i = tid; i < a.n_weights; i += kThreads) s.wts[i] = a.weights[i];
+  for (int i = tid; i < DX * K; i += kThreads) s.xbuf[i] = a.x0[(size_t)b * DX * K + i];
+  for (int i = tid; i < K; i += kThreads) s.lw[i] = a.alpha0[(size_t)b * K + i];
   float sfi[DX], sgi[DY];
 #pragma unroll
   for (int d = 0; d < DX; ++d) sfi[d] = a.sconst[d];
@@ -180,110 +315,30 @@ __global__ void __launch_bounds__(kThreads) scan_forward_kernel(const ScanArgs a
   __syncthreads();
 
   constexpr int NC = 3 * DX + DY + 1;
-  const float log_k = logf(static_cast<float>(K));
   int cur = 0;
   for (int t = 0; t < a.T1; ++t) {
     const size_t row = (size_t)t * B + b;
-    const float* c = a.coef + row * NC;
-    float aq[DX], cq[DX], sq[DX], y[DY];
-#pragma unroll
-    for (int d = 0; d < DX; ++d) {
-      aq[d] = c[d];
-      cq[d] = c[DX + d];
-      sq[d] = c[2 * DX + d];
-    }
-#pragma unroll
-    for (int e = 0; e < DY; ++e) y[e] = c[3 * DX + e];
-    const float ab = c[3 * DX + DY];
-
-    // 1. ESS and the CDF of the incoming weights
-    const float m = block_max_of(lw, K, red);
-    float s1, s2;
-    const double total = block_cdf(lw, K, m, cdf, dred, red, &s1, &s2);
-    const float ess = s1 * s1 / fmaxf(s2, 1e-30f);
-    const float u0 = a.use_rng ? draw_u0(a.seed0, a.seed1, b, t) : 0.0f;
-
-    // 2. resample, propose and weight each particle
-    const float* xc = xbuf + cur * DX * K;
-    float* xn_buf = xbuf + (cur ^ 1) * DX * K;
-    for (int i = tid; i < K; i += kThreads) {
-      const float pos = a.use_rng ? systematic_position(i, u0, K) : a.pos[row * K + i];
-      const int anc = ancestor(cdf, K, static_cast<double>(pos) * total);
-      float e[DX];
-      if (a.use_rng) {
-        draw_eps<DX>(a.seed0, a.seed1, b, t, i, K, e);
-      } else {
-#pragma unroll
-        for (int d = 0; d < DX; ++d) e[d] = a.eps[(row * DX + d) * K + i];
-      }
-      // The three heads run through ONE copy of the (fully unrolled) trunk:
-      // q1 and f on the resampled particle, then g on the drawn one.
-      float xn[DX], m1[DX], mf[DX], mg[DY];
-#pragma unroll
-      for (int d = 0; d < DX; ++d) xn[d] = xc[d * K + anc];
-#pragma unroll 1
-      for (int n = 0; n < 3; ++n) {
-        if (n == 2) {
-#pragma unroll
-          for (int d = 0; d < DX; ++d) xn[d] = cq[d] * m1[d] + aq[d] + sq[d] * e[d];
-        }
-        const int off = n == 0 ? 0 : (n == 1 ? a.off_f : a.off_g);
-        trunk<DX, H, DY>(wts + off, a.n_mid, xn, mg);
-#pragma unroll
-        for (int d = 0; d < DX; ++d) {
-          if (n == 0) m1[d] = mg[d];
-          if (n == 1) mf[d] = mg[d];
-        }
-      }
-      // finiteness floor: a diverged mean gives a finite, hopeless weight
-      const float alpha =
-          fmaxf(alpha_unfloored<DX, DY>(xn, mf, e, y, mg, sfi, sgi, ab), -3e30f);
-#pragma unroll
-      for (int d = 0; d < DX; ++d) xn_buf[d * K + i] = xn[d];
-      lw[i] = alpha;
-      if (a.x_all != nullptr) {
-#pragma unroll
-        for (int d = 0; d < DX; ++d) a.x_all[(row * DX + d) * K + i] = xn[d];
-      }
-      if (a.alpha_all != nullptr) a.alpha_all[row * K + i] = alpha;
-      if (a.idx != nullptr) a.idx[row * K + i] = anc;
-    }
-    __syncthreads();
-
-    // 3. logZ increment and filtered mean under the new weights
-    const float amax = block_max_of(lw, K, red);
-    float sw = 0.0f, sx[DX];
-#pragma unroll
-    for (int d = 0; d < DX; ++d) sx[d] = 0.0f;
-    for (int i = tid; i < K; i += kThreads) {
-      const float w = expf(lw[i] - amax);
-      sw += w;
-#pragma unroll
-      for (int d = 0; d < DX; ++d) sx[d] = fmaf(w, xn_buf[d * K + i], sx[d]);
-    }
-    sw = block_reduce<false>(sw, red);
-#pragma unroll
-    for (int d = 0; d < DX; ++d) sx[d] = block_reduce<false>(sx[d], red);
-    if (tid == 0) {
-      float* st = a.stats + row * (2 + DX);
-      st[0] = logf(sw) + amax - log_k;
-      st[1] = ess;
-#pragma unroll
-      for (int d = 0; d < DX; ++d) st[2 + d] = sx[d] / sw;
-    }
+    const StepRow r{a.coef + row * NC,
+                    a.use_rng ? nullptr : a.eps + row * DX * K,
+                    a.use_rng ? nullptr : a.pos + row * K,
+                    a.stats + row * (2 + DX),
+                    a.x_all != nullptr ? a.x_all + row * DX * K : nullptr,
+                    a.alpha_all != nullptr ? a.alpha_all + row * K : nullptr,
+                    a.idx != nullptr ? a.idx + row * K : nullptr};
+    filter_step<DX, DY, H>(r, s, s.xbuf + cur * DX * K, s.xbuf + (cur ^ 1) * DX * K, K,
+                           a.n_mid, a.off_f, a.off_g, sfi, sgi, a.use_rng, a.seed0, a.seed1,
+                           b, t);
     cur ^= 1;
   }
 
-  const float* xc = xbuf + cur * DX * K;
+  const float* xc = s.xbuf + cur * DX * K;
   for (int i = tid; i < DX * K; i += kThreads) a.x_last[(size_t)b * DX * K + i] = xc[i];
-  for (int i = tid; i < K; i += kThreads) a.alpha_last[(size_t)b * K + i] = lw[i];
+  for (int i = tid; i < K; i += kThreads) a.alpha_last[(size_t)b * K + i] = s.lw[i];
 }
 
-template <int DX, int DY, int H>
-cudaError_t launch_scan(const ScanArgs& a, cudaStream_t stream) {
-  const size_t smem = sizeof(double) * (a.K + kWarps) +
-                      sizeof(float) * (a.n_weights + 2 * DX * a.K + a.K + kWarps);
-  auto kernel = scan_forward_kernel<DX, DY, H>;
+// One CTA per trajectory row (K1, K14), with fwd_smem_bytes of shared memory.
+template <class Args>
+cudaError_t launch_rows(void (*kernel)(Args), const Args& a, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -291,10 +346,63 @@ cudaError_t launch_scan(const ScanArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// K14 step_forward: ONE filtering step, t-1 -> t, per launch.
+//
+// Replaces psvo_tpu/ops/pallas_step.py::_step_fwd (kernel body _fwd_kernel,
+// which runs _fwd_core: the per-step path of SCAN_FUSED = False, one
+// pallas_call per step under lax.scan). Its step is K1's filter_step on the
+// carry that K1 keeps in shared memory: here x and logw come from device
+// memory and x_new, α, the stats and the ancestor indices go back to it, the
+// residuals of K15 (scan_backward.cu), which regathers x_res = x[idx]
+// instead of storing it. Stream noise only, as the reference's per-step path.
+//
+// What bounds it. One step of K1's work (~9 MFLOP per row at K=1024 and
+// hidden (64, 64)) on B CTAs, arithmetic-bound as K1; each launch also
+// copies the weights (54 KB at hidden 64) into shared memory and pays the
+// launch itself, which K1 pays once for all T-1 steps.
+struct StepArgs {
+  const float* x;        // [B, DX, K]: particles of step t-1
+  const float* logw;     // [B, K]: their log-weights
+  const float* coef;     // [B, 3*DX + DY + 1]: aq, cq, sq, y, ab of step t
+  const float* eps;      // [B, DX, K]
+  const float* pos;      // [B, K] sorted positions
+  const float* weights;  // q1 | f | g, fused_step.prepare's layout
+  const float* sconst;   // [DX + DY]: 1/s_f, 1/s_g
+  float* x_new;          // [B, DX, K]
+  float* alpha;          // [B, K]
+  float* stats;          // [B, 2 + DX]: ell, ess, filtered mean
+  int* idx;              // [B, K]
+  int B, K, n_mid, n_weights, off_f, off_g;
+};
+
+template <int DX, int DY, int H>
+__global__ void __launch_bounds__(kThreads) step_forward_kernel(const StepArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int K = a.K, b = blockIdx.x, tid = threadIdx.x;
+  const FwdSmem s = carve_fwd<DX>(smem, a.n_weights, K);
+  for (int i = tid; i < a.n_weights; i += kThreads) s.wts[i] = a.weights[i];
+  for (int i = tid; i < DX * K; i += kThreads) s.xbuf[i] = a.x[(size_t)b * DX * K + i];
+  for (int i = tid; i < K; i += kThreads) s.lw[i] = a.logw[(size_t)b * K + i];
+  float sfi[DX], sgi[DY];
+#pragma unroll
+  for (int d = 0; d < DX; ++d) sfi[d] = a.sconst[d];
+#pragma unroll
+  for (int e = 0; e < DY; ++e) sgi[e] = a.sconst[DX + e];
+  __syncthreads();
+
+  constexpr int NC = 3 * DX + DY + 1;
+  const StepRow r{a.coef + (size_t)b * NC,     a.eps + (size_t)b * DX * K,
+                  a.pos + (size_t)b * K,       a.stats + (size_t)b * (2 + DX),
+                  a.x_new + (size_t)b * DX * K, a.alpha + (size_t)b * K,
+                  a.idx + (size_t)b * K};
+  filter_step<DX, DY, H>(r, s, s.xbuf, s.xbuf + DX * K, K, a.n_mid, a.off_f, a.off_g, sfi,
+                         sgi, false, 0u, 0u, b, 0);
+}
+
 }  // namespace psvo
 
-// Plain C entry point (bound with ctypes by psvo_tpu_torch/ops/_build.py).
-// Returns a cudaError_t; the launch is checked with cudaGetLastError().
+// Plain C entry points (bound with ctypes by psvo_tpu_torch/ops/_build.py).
+// Each returns a cudaError_t; the launch is checked with cudaGetLastError().
 extern "C" int psvo_scan_forward(const float* x0, const float* alpha0, const float* coef,
                                  const float* eps, const float* pos, const float* weights,
                                  const float* sconst, float* x_last, float* alpha_last,
@@ -307,23 +415,26 @@ extern "C" int psvo_scan_forward(const float* x0, const float* alpha0, const flo
                          seed1,  use_rng,   B,      K,         T1,    n_mid,  n_weights,
                          off_f,  off_g};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (dx == 2 && dy == 2) {  // FitzHugh-Nagumo
-    switch (hidden) {
-      case 16: return psvo::launch_scan<2, 2, 16>(a, s);
-      case 32: return psvo::launch_scan<2, 2, 32>(a, s);
-      case 64: return psvo::launch_scan<2, 2, 64>(a, s);
-      default: break;
-    }
-  }
-  if (dx == 3 && dy == 3) {  // Lorenz-63
-    switch (hidden) {
-      case 16: return psvo::launch_scan<3, 3, 16>(a, s);
-      case 32: return psvo::launch_scan<3, 3, 32>(a, s);
-      case 64: return psvo::launch_scan<3, 3, 64>(a, s);
-      default: break;
-    }
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return psvo::with_dims(dx, dy, hidden, [&](auto d) {
+    using D = decltype(d);
+    return psvo::launch_rows(psvo::scan_forward_kernel<D::DX, D::DY, D::H>, a,
+                             psvo::fwd_smem_bytes<D::DX>(n_weights, K), s);
+  });
+}
+
+extern "C" int psvo_step_forward(const float* x, const float* logw, const float* coef,
+                                 const float* eps, const float* pos, const float* weights,
+                                 const float* sconst, float* x_new, float* alpha, float* stats,
+                                 int* idx, int B, int K, int dx, int dy, int hidden, int n_mid,
+                                 int n_weights, int off_f, int off_g, void* stream) {
+  const psvo::StepArgs a{x,     logw,  coef,  eps, pos, weights, sconst, x_new, alpha,
+                         stats, idx,   B,     K,   n_mid, n_weights, off_f, off_g};
+  const auto s = static_cast<cudaStream_t>(stream);
+  return psvo::with_dims(dx, dy, hidden, [&](auto d) {
+    using D = decltype(d);
+    return psvo::launch_rows(psvo::step_forward_kernel<D::DX, D::DY, D::H>, a,
+                             psvo::fwd_smem_bytes<D::DX>(n_weights, K), s);
+  });
 }
 
 // Message of a CUDA error code returned by the entry points.

@@ -9,7 +9,12 @@
 //   z_f = (x_new − m_f) / s_f,  z_g = (y − m_g) / s_g,
 // with every K-independent constant folded into ab. The caller applies the
 // floor max(α, −3e30).
+//
+// Also with_dims, the dispatch of the four kernels' C entry points to their
+// instantiated shapes.
 #pragma once
+
+#include <cuda_runtime.h>
 
 namespace psvo {
 
@@ -30,6 +35,35 @@ __device__ __forceinline__ float alpha_unfloored(const float (&xn)[DX], const fl
     acc += zg * zg;
   }
   return -0.5f * acc + ab;
+}
+
+template <int DX_, int DY_, int H_>
+struct Dims {
+  static constexpr int DX = DX_, DY = DY_, H = H_;
+};
+
+// f(Dims<DX, DY, H>{}) for an instantiated shape: (Dx, Dy) ∈ {(2, 2), (3, 3)}
+// (FitzHugh-Nagumo, Lorenz-63) and hidden width 16, 32 or 64. Returns f's
+// cudaError_t as an int, or cudaErrorInvalidValue for any other shape.
+template <class F>
+int with_dims(int dx, int dy, int hidden, F&& f) {
+  if (dx == 2 && dy == 2) {
+    switch (hidden) {
+      case 16: return static_cast<int>(f(Dims<2, 2, 16>{}));
+      case 32: return static_cast<int>(f(Dims<2, 2, 32>{}));
+      case 64: return static_cast<int>(f(Dims<2, 2, 64>{}));
+      default: break;
+    }
+  }
+  if (dx == 3 && dy == 3) {
+    switch (hidden) {
+      case 16: return static_cast<int>(f(Dims<3, 3, 16>{}));
+      case 32: return static_cast<int>(f(Dims<3, 3, 32>{}));
+      case 64: return static_cast<int>(f(Dims<3, 3, 64>{}));
+      default: break;
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace psvo

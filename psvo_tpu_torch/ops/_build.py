@@ -48,6 +48,8 @@ SIGNATURES = {
     "psvo_trunk_backward": [_P] * 13 + [_U32, _U32] + [_I] * 12 + [_P],
     "psvo_svo_forward": [_P] * 9 + [_I] * 10 + [_P],
     "psvo_svo_backward": [_P] * 13 + [_I] * 11 + [_P],
+    "psvo_step_forward": [_P] * 11 + [_I] * 9 + [_P],
+    "psvo_step_backward": [_P] * 15 + [_I] * 9 + [_P],
 }
 
 def sources() -> list[Path]:

@@ -1,7 +1,7 @@
-"""Whole-scan filter kernels and their plain versions (counterpart of
-`psvo_tpu/ops/pallas_step.py`).
+"""Whole-scan and per-step filter kernels and their plain versions
+(counterpart of `psvo_tpu/ops/pallas_step.py`).
 
-Four hand-written CUDA kernels (`psvo_tpu_torch/csrc/`, built by
+Six hand-written CUDA kernels (`psvo_tpu_torch/csrc/`, built by
 `ops/_build.py`), each behind a wrapper that launches it for CUDA tensors and
 runs its plain PyTorch version for CPU tensors — never the plain version on
 the card:
@@ -23,10 +23,21 @@ the card:
   megakernel inlines it): systematic ancestors through K1's own index code.
   Plain version: `ancestor_indices_reference`.
 
+- K14 `step_forward` (replaces `pallas_step._step_fwd`, the per-step
+  megakernel): one step of K1 per launch, x and logw in, x_new, α, the stats
+  and the ancestors out. Plain version: `step_forward_reference`, one
+  iteration of `scan_forward_reference`'s loop.
+- K15 `step_backward` (replaces `pallas_step._step_bwd`): the VJP of one K14
+  step, K4's step on that step's residuals. Plain version:
+  `step_backward_reference`, the replay of one step.
+
 `ScanForward` joins K1 and K4 as one `torch.autograd.Function`, the
-counterpart of `pallas_step._scan_call`'s custom VJP. Each wrapper carries a
-launch count (`<wrapper>.launches`), raised only where the kernel is
-launched; each plain version a call count (`.calls`).
+counterpart of `pallas_step._scan_call`'s custom VJP; `StepForward` joins
+K14 and K15, the counterpart of `pallas_step._step_call`'s. `SCAN_FUSED`
+chooses between them, as `pallas_step.SCAN_FUSED` does: when it is False,
+`smc._forward_filter_fused` runs T−1 `StepForward` calls on streamed noise.
+Each wrapper carries a launch count (`<wrapper>.launches`), raised only
+where the kernel is launched; each plain version a call count (`.calls`).
 
 Index semantics (K1, K3 and their plain versions): the count form
 a_i = #{j : C_j <= pos_i·C_{K−1}}, clipped to K−1, on the inclusive CDF of
@@ -58,6 +69,7 @@ HIDDEN_WIDTHS = (16, 32, 64)  # trunk widths the kernel is instantiated for
 KERNEL_DIMS = ((2, 2), (3, 3))  # (Dx, Dy) instantiated: FitzHugh-Nagumo, Lorenz-63
 _THREADS = 256
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper (227 KB)
+SCAN_FUSED = True  # False: the filter runs one K14 launch per step (K15 per step backward)
 
 
 def usable(ssm, cfg) -> bool:
@@ -347,34 +359,12 @@ def scan_forward_reference(x0, alpha0, coef, consts, eps, positions, cache: bool
     [T−1, B, K] unless `save_res` (the residuals of the backward).
     """
     scan_forward_reference.calls += 1
-    dx, dy = consts["dx"], consts["dy"]
-    k = x0.shape[-1]
-    q1, f, g = _unpack_nets(consts)
-    sfi = consts["sconst"][:dx, None]
-    sgi = consts["sconst"][dx:, None]
-    log_k = math.log(k)
-
+    nets = _unpack_nets(consts)
     x, lw = x0, alpha0
     stats, xs, alphas, idxs = [], [], [], []
     for t in range(coef.shape[0]):
-        c = coef[t]
-        aq, cq, sq = (c[:, i * dx : (i + 1) * dx, None] for i in range(3))
-        y = c[:, 3 * dx : 3 * dx + dy, None]
-        ab = c[:, -1:]
-        # ESS of the incoming weights, then resample
-        w = torch.exp(lw - torch.amax(lw, dim=-1, keepdim=True))
-        ess = torch.sum(w, -1) ** 2 / torch.clamp(torch.sum(w * w, -1), min=1e-30)
-        idx = count_form_indices(lw, positions[t])
-        x_new, alpha = _propose_weight(q1, f, g, gather_particles(x, idx), eps[t],
-                                       aq, cq, sq, y, ab, sfi, sgi)
-        alpha = torch.clamp(alpha, min=-3e30)
-        # logZ increment and filtered mean
-        amax = torch.amax(alpha, dim=-1, keepdim=True)
-        w_new = torch.exp(alpha - amax)
-        sw = torch.sum(w_new, dim=-1, keepdim=True)
-        ell = torch.log(sw) + amax - log_k
-        fm = torch.einsum("bk,bdk->bd", w_new, x_new) / sw
-        stats.append(torch.cat([ell, ess[:, None], fm], dim=-1))
+        x_new, alpha, st, idx = _filter_step(nets, consts, x, lw, coef[t], eps[t], positions[t])
+        stats.append(st)
         if cache or save_res:
             xs.append(x_new)
         if cache:
@@ -389,6 +379,31 @@ def scan_forward_reference(x0, alpha0, coef, consts, eps, positions, cache: bool
 
 
 scan_forward_reference.calls = 0
+
+
+def _filter_step(nets, consts, x, lw, c, e, pos):
+    """One step of the plain versions of K1 and K14: ESS of the incoming
+    weights, the ancestors, the draw, α floored at −3e30, ℓ and the filtered
+    mean. Returns (x_new, alpha, stats [B, 2 + Dx], idx)."""
+    dx, dy = consts["dx"], consts["dy"]
+    q1, f, g = nets
+    aq, cq, sq = (c[:, i * dx : (i + 1) * dx, None] for i in range(3))
+    y = c[:, 3 * dx : 3 * dx + dy, None]
+    ab = c[:, -1:]
+    # ESS of the incoming weights, then resample
+    w = torch.exp(lw - torch.amax(lw, dim=-1, keepdim=True))
+    ess = torch.sum(w, -1) ** 2 / torch.clamp(torch.sum(w * w, -1), min=1e-30)
+    idx = count_form_indices(lw, pos)
+    x_new, alpha = _propose_weight(q1, f, g, gather_particles(x, idx), e, aq, cq, sq, y, ab,
+                                   consts["sconst"][:dx, None], consts["sconst"][dx:, None])
+    alpha = torch.clamp(alpha, min=-3e30)
+    # logZ increment and filtered mean
+    amax = torch.amax(alpha, dim=-1, keepdim=True)
+    w_new = torch.exp(alpha - amax)
+    sw = torch.sum(w_new, dim=-1, keepdim=True)
+    ell = torch.log(sw) + amax - math.log(x.shape[-1])
+    fm = torch.einsum("bk,bdk->bd", w_new, x_new) / sw
+    return x_new, alpha, torch.cat([ell, ess[:, None], fm], dim=-1), idx
 
 
 def _unpack_nets(consts):
@@ -537,6 +552,16 @@ def scan_backward_reference(x0, coef, consts, eps, idx, d_stats, d_x_last=None,
     3·Dx + Dy + 1], d_packed, d_sconst).
     """
     scan_backward_reference.calls += 1
+    return _replay_backward(x0, coef, consts, eps, idx, d_stats, d_x_last, d_alpha_last,
+                            d_x_all, d_alpha_all)
+
+
+scan_backward_reference.calls = 0
+
+
+def _replay_backward(x0, coef, consts, eps, idx, d_stats, d_x_last=None, d_alpha_last=None,
+                     d_x_all=None, d_alpha_all=None):
+    """The plain versions of K4 and K15: scan_backward_reference's replay."""
     dx, dy = consts["dx"], consts["dy"]
     k = x0.shape[-1]
     with torch.enable_grad():
@@ -564,11 +589,8 @@ def scan_backward_reference(x0, coef, consts, eps, idx, d_stats, d_x_last=None,
     return tuple(torch.zeros_like(v) if gr is None else gr for gr, v in zip(grads, leaves))
 
 
-scan_backward_reference.calls = 0
-
-
 def k4_smem_bytes(consts, k: int) -> int:
-    """Dynamic shared memory of K4 (csrc/scan_backward.cu::launch_backward):
+    """Dynamic shared memory of K4 (csrc/scan_backward.cu::bwd_smem_bytes):
     weights and their gradient sums, four [H][68] activation tiles, the
     [9·Dx + 2·Dy][68] tile arrays, the carry and d x_res [Dx][K], the
     reduction scratch and the int32 ancestors [K]."""
@@ -717,3 +739,208 @@ class ScanForward(torch.autograd.Function):
             dense(d_alpha_last), dense(d_x_all), dense(d_alpha_all), eps=eps, seed=ctx.seed,
         )
         return d_x0, None, d_coef, d_packed, d_sconst, None, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# K14 / K15: one filter step per launch (the per-step path, SCAN_FUSED off)
+# ---------------------------------------------------------------------------
+
+
+def step_forward_reference(x, logw, coef, consts, eps, positions):
+    """Plain version of K14: one iteration of `scan_forward_reference`'s loop.
+
+    x [B, Dx, K] and logw [B, K] of step t−1, coef [B, 3·Dx + Dy + 1] of step
+    t (pack_coef's layout), eps [B, Dx, K], positions [B, K]. Returns (x_new,
+    alpha, stats [B, 2 + Dx] = (ℓ, ESS, filtered mean), idx int32 [B, K]).
+    """
+    step_forward_reference.calls += 1
+    return _filter_step(_unpack_nets(consts), consts, x, logw, coef, eps, positions)
+
+
+step_forward_reference.calls = 0
+
+
+def step_forward(x, logw, coef, consts, eps, positions):
+    """K14: one filter step, operands and outputs as `step_forward_reference`.
+    CPU tensors run the plain version; CUDA tensors launch the kernel. It
+    takes no gradient itself: differentiate through `StepForward`."""
+    if x.device.type == "cpu":
+        return step_forward_reference(x, logw, coef, consts, eps, positions)
+    if x.device.type != "cuda":
+        raise ValueError(f"step_forward: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, logw, coef, consts["packed"], consts["sconst"])
+    ):
+        raise RuntimeError(
+            "step_forward records no gradient: differentiate through StepForward, "
+            "or call it under torch.no_grad()"
+        )
+    return _launch_step_forward(x, logw, coef, consts, eps, positions,
+                                torch.cuda.current_stream(x.device).cuda_stream)
+
+
+step_forward.launches = 0
+
+
+def _launch_step_forward(x, logw, coef, consts, eps, positions, stream):
+    """Check K14's operands, allocate its outputs and launch it on `stream`."""
+    dx, dy, h = consts["dx"], consts["dy"], consts["hidden"]
+    batch, k = logw.shape
+    dev = x.device
+    if (dx, dy) not in KERNEL_DIMS or h not in HIDDEN_WIDTHS or not _k_ok(k):
+        raise ValueError(f"step_forward: no kernel for Dx={dx}, Dy={dy}, hidden={h}, K={k}")
+    _require(x, (batch, dx, k), "x", dev)
+    _require(logw, (batch, k), "logw", dev)
+    _require(coef, (batch, 3 * dx + dy + 1), "coef", dev)
+    _require(eps, (batch, dx, k), "eps", dev)
+    _require(positions, (batch, k), "positions", dev)
+    _require(consts["packed"], consts["packed"].shape, "weights", dev)
+    _require(consts["sconst"], (dx + dy,), "sconst", dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    x_new = torch.empty((batch, dx, k), **f32)
+    alpha = torch.empty((batch, k), **f32)
+    stats = torch.empty((batch, 2 + dx), **f32)
+    idx = torch.empty((batch, k), dtype=torch.int32, device=dev)
+    lib = _build.load_library()
+    _, off_f, off_g = consts["offsets"]
+    err = lib.psvo_step_forward(
+        x.data_ptr(), logw.data_ptr(), coef.data_ptr(), eps.data_ptr(), positions.data_ptr(),
+        consts["packed"].data_ptr(), consts["sconst"].data_ptr(), x_new.data_ptr(),
+        alpha.data_ptr(), stats.data_ptr(), idx.data_ptr(), batch, k, dx, dy, h,
+        consts["n_mid"], consts["packed"].numel(), off_f, off_g, stream,
+    )
+    step_forward.launches += 1
+    _build.check(lib, err, "step_forward")
+    return x_new, alpha, stats, idx
+
+
+def step_backward_reference(x, coef, consts, eps, idx, d_stats, d_x_new=None, d_alpha=None):
+    """Plain version of K15: the VJP of one K14 step, an autograd replay of
+    `step_forward_reference` on the saved ancestors idx [B, K], under
+    `scan_backward_reference`'s contract (ℓ's cotangent honoured, those of
+    the ESS and the filtered mean dropped, none for logw, the positions or ε,
+    zero for y, the α cotangent cut below −3e30). Returns (d_x, d_coef
+    [B, 3·Dx + Dy + 1], d_packed, d_sconst)."""
+    step_backward_reference.calls += 1
+    d_x, d_coef, d_packed, d_sconst = _replay_backward(
+        x, coef[None], consts, eps[None], idx[None], d_stats[None], d_x_new, d_alpha)
+    return d_x, d_coef[0], d_packed, d_sconst
+
+
+step_backward_reference.calls = 0
+
+
+def k15_smem_bytes(consts, k: int) -> int:
+    """Dynamic shared memory of K15 (csrc/scan_backward.cu::bwd_smem_bytes):
+    K4's (`k4_smem_bytes`) less its carry, one [Dx][K] float array."""
+    return k4_smem_bytes(consts, k) - 4 * consts["dx"] * k
+
+
+def _k15_ok(consts, k: int) -> bool:
+    return ((consts["dx"], consts["dy"]) in KERNEL_DIMS and consts["hidden"] in HIDDEN_WIDTHS
+            and consts["n_mid"] == 1 and _k_ok(k) and k15_smem_bytes(consts, k) <= SMEM_LIMIT)
+
+
+def step_backward(x, x_new, idx, stats, coef, consts, eps, d_stats, d_x_new=None,
+                  d_alpha=None):
+    """K15: the VJP of one K14 step from its residuals: its input x and its
+    outputs x_new, the int32 ancestors idx (nondecreasing along K) and stats
+    (for ℓ), with its coef row and ε. Cotangents and outputs as
+    `step_backward_reference`, which CPU tensors run; CUDA tensors launch the
+    kernel, built for Dx = Dy = 2 and 3, hidden widths 16/32/64 with one
+    middle layer, and K as far as its shared memory holds (`k15_smem_bytes`:
+    at width 64, K up to 4096 at Dx = 2 and 2560 at Dx = 3)."""
+    if x.device.type == "cpu":
+        return step_backward_reference(x, coef, consts, eps, idx, d_stats, d_x_new, d_alpha)
+    if x.device.type != "cuda":
+        raise ValueError(f"step_backward: unsupported device {x.device}")
+    return _launch_step_backward(x, x_new, idx, stats, coef, consts, eps, d_stats, d_x_new,
+                                 d_alpha, torch.cuda.current_stream(x.device).cuda_stream)
+
+
+step_backward.launches = 0
+
+
+def _launch_step_backward(x, x_new, idx, stats, coef, consts, eps, d_stats, d_x_new, d_alpha,
+                          stream):
+    """Check K15's operands, allocate its outputs and launch it on `stream`."""
+    dx, dy = consts["dx"], consts["dy"]
+    batch, _, k = x.shape
+    dev = x.device
+    if not _k15_ok(consts, k):
+        raise ValueError(
+            f"step_backward: no kernel for Dx={dx}, Dy={dy}, hidden={consts['hidden']}, "
+            f"{consts['n_mid']} middle layers, K={k} ({k15_smem_bytes(consts, k)} B of shared "
+            f"memory, at most {SMEM_LIMIT})"
+        )
+    _require(x, (batch, dx, k), "x", dev)
+    _require(x_new, (batch, dx, k), "x_new", dev)
+    _require(idx, (batch, k), "idx", dev, torch.int32)
+    _require(stats, (batch, 2 + dx), "stats", dev)
+    _require(coef, (batch, 3 * dx + dy + 1), "coef", dev)
+    _require(eps, (batch, dx, k), "eps", dev)
+    _require(consts["packed"], consts["packed"].shape, "weights", dev)
+    _require(consts["sconst"], (dx + dy,), "sconst", dev)
+    _require(d_stats, stats.shape, "d_stats", dev)
+    if d_x_new is not None:
+        _require(d_x_new, x.shape, "d_x_new", dev)
+    if d_alpha is not None:
+        _require(d_alpha, (batch, k), "d_alpha", dev)
+    n_w = consts["packed"].numel()
+    f32 = dict(dtype=torch.float32, device=dev)
+    d_x = torch.empty((batch, dx, k), **f32)
+    d_coef = torch.empty(coef.shape, **f32)
+    partial = torch.empty((batch, n_w + dx + dy), **f32)
+    grads = torch.empty((n_w + dx + dy,), **f32)
+    lib = _build.load_library()
+    _, off_f, off_g = consts["offsets"]
+    err = lib.psvo_step_backward(
+        x.data_ptr(), x_new.data_ptr(), idx.data_ptr(), stats.data_ptr(), coef.data_ptr(),
+        eps.data_ptr(), consts["packed"].data_ptr(), consts["sconst"].data_ptr(),
+        d_stats.data_ptr(), _ptr(d_x_new), _ptr(d_alpha), d_x.data_ptr(), d_coef.data_ptr(),
+        partial.data_ptr(), grads.data_ptr(), batch, k, dx, dy, consts["hidden"],
+        consts["n_mid"], n_w, off_f, off_g, stream,
+    )
+    step_backward.launches += 1
+    _build.check(lib, err, "step_backward")
+    return d_x, d_coef, grads[:n_w], grads[n_w:]
+
+
+class StepForward(torch.autograd.Function):
+    """`step_forward` with `step_backward` as its VJP: the counterpart of
+    `pallas_step._step_call`'s custom VJP.
+
+    apply(x, logw, coef, packed, sconst, consts, eps, positions) returns
+    (x_new, alpha, stats) of one step. packed and sconst are
+    consts["packed"] / consts["sconst"], passed apart so autograd sees them.
+    When an input needs a gradient the forward keeps x, x_new, idx, stats,
+    coef, the weights and eps (views or outputs the chain holds anyway, plus
+    idx and stats), and the backward runs K15 on them; logw, eps and the
+    positions get no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, x, logw, coef, packed, sconst, consts, eps, positions):
+        consts = dict(consts, packed=packed, sconst=sconst)
+        save = any(ctx.needs_input_grad)
+        if save and x.is_cuda and not _k15_ok(consts, x.shape[-1]):
+            raise ValueError("StepForward: this configuration has no backward kernel "
+                             "(fused_step.step_backward)")
+        x_new, alpha, stats, idx = step_forward(x, logw, coef, consts, eps, positions)
+        if save:
+            ctx.save_for_backward(x, x_new, idx, stats, coef, packed, sconst, eps)
+            ctx.static = {key: v for key, v in consts.items() if not torch.is_tensor(v)}
+        ctx.set_materialize_grads(False)
+        return x_new, alpha, stats
+
+    @staticmethod
+    def backward(ctx, d_x_new, d_alpha, d_stats):
+        x, x_new, idx, stats, coef, packed, sconst, eps = ctx.saved_tensors
+        consts = dict(ctx.static, packed=packed, sconst=sconst)
+        d_stats = torch.zeros_like(stats) if d_stats is None else d_stats.contiguous()
+        d_x, d_coef, d_packed, d_sconst = step_backward(
+            x, x_new, idx, stats, coef, consts, eps, d_stats,
+            None if d_x_new is None else d_x_new.contiguous(),
+            None if d_alpha is None else d_alpha.contiguous(),
+        )
+        return d_x, None, d_coef, d_packed, d_sconst, None, None, None

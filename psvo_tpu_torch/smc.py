@@ -13,7 +13,8 @@ Three paths, chosen from what the call can observe:
   `fused_step.scan_forward` — the CUDA kernel K1 for CUDA tensors, its
   plain version for CPU tensors — and, when autograd records, one
   `fused_step.ScanForward`, whose backward is the CUDA kernel K4 (or its
-  plain version);
+  plain version); with `fused_step.SCAN_FUSED` off, a loop of one
+  `fused_step.StepForward` per step instead (K14 forward, K15 backward);
 - the trunk class (`ops.trunk.usable`: the wide Lorenz-96 state, up to
   K = 19200) runs `_forward_filter_trunk`, a Python loop over t of the
   large-K resample (K7 indices, K8 gather) and the trunk kernel K9, with
@@ -34,6 +35,7 @@ gradient, which needs multinomial resampling, is not ported yet).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -189,31 +191,43 @@ def _forward_filter_fused(
     residuals take the place of the reference's remat, so gradients reach the
     t = 0 proposal, the fusion coefficients, ab and the packed head weights.
     With cfg.kernel_rng the kernel draws ε and the resampling offsets itself.
+
+    With `fused_step.SCAN_FUSED` off, the per-step path of the reference
+    (`pallas_step._step_call` under lax.scan): a loop of T−1
+    `fused_step.StepForward` calls (K14, and K15 in the backward), or of
+    `fused_step.step_forward` under no_grad, on streamed noise only (the
+    reference turns the in-kernel draw off there too). Nothing in the loop
+    waits for the device.
     """
+    per_step = not fused_step.SCAN_FUSED
+    if per_step:
+        cfg = dataclasses.replace(cfg, kernel_rng=False)
     consts, coef, x0, alpha0, eps_scan, u_scan, seed = _fused_preamble(
         ssm, generator, ys, cfg, encoder_inputs, streams
     )
     ell0 = _lse(alpha0) - math.log(cfg.n_particles)
-    if torch.is_grad_enabled():
-        outs = fused_step.ScanForward.apply(
-            x0.contiguous(), alpha0.contiguous(), coef, consts["packed"], consts["sconst"],
-            consts, eps_scan, u_scan, seed, cache,
-        )
+    x0, alpha0 = x0.contiguous(), alpha0.contiguous()
+    xs = logws = None
+    if per_step:
+        x_last, logw_last, stats, xs, logws = _filter_steps(x0, alpha0, coef, consts, eps_scan,
+                                                            u_scan, cache)
     else:
-        outs = fused_step.scan_forward(
-            x0.contiguous(), alpha0.contiguous(), coef, consts,
-            eps=eps_scan, positions=u_scan, seed=seed, cache=cache,
-        )
-    x_last, logw_last, stats = outs[:3]
-    x_all, alpha_all = outs[3:5] if cache else (None, None)
+        if torch.is_grad_enabled():
+            outs = fused_step.ScanForward.apply(
+                x0, alpha0, coef, consts["packed"], consts["sconst"], consts, eps_scan, u_scan,
+                seed, cache,
+            )
+        else:
+            outs = fused_step.scan_forward(x0, alpha0, coef, consts, eps=eps_scan,
+                                           positions=u_scan, seed=seed, cache=cache)
+        x_last, logw_last, stats = outs[:3]
+        if cache:
+            xs = torch.cat([x0[None], outs[3]], dim=0)
+            logws = torch.cat([alpha0[None], outs[4]], dim=0)
 
     increments = torch.cat([ell0[None], stats[:, :, 0]], dim=0)
     ess = torch.cat([effective_sample_size(alpha0)[None], stats[:, :, 1]], dim=0)
     fmean0 = torch.einsum("bk,bdk->bd", torch.softmax(alpha0, dim=-1), x0)
-    xs = logws = None
-    if cache:
-        xs = torch.cat([x0[None], x_all], dim=0)
-        logws = torch.cat([alpha0[None], alpha_all], dim=0)
     return FilterResult(
         log_z=torch.sum(increments, dim=0),
         increments=increments,
@@ -224,6 +238,30 @@ def _forward_filter_fused(
         logws=logws,
         filtered_means=torch.cat([fmean0[None], stats[:, :, 2:]], dim=0),
     )
+
+
+def _filter_steps(x0, alpha0, coef, consts, eps_scan, u_scan, cache: bool):
+    """Steps 1..T−1 of the per-step path, one K14 launch each. Returns
+    (x_last, logw_last, stats [T−1, B, 2 + Dx], xs, logws), the last two
+    [T, ...] stacks under `cache`, else None. The stacks are built once at
+    the end: writing each step into a preallocated buffer under autograd
+    would make every step's backward copy the whole buffer's gradient."""
+    grad = torch.is_grad_enabled()
+    x, logw = x0, alpha0
+    xs, logws, stats = [x0], [alpha0], []
+    for c, e, u in zip(coef.unbind(0), eps_scan.unbind(0), u_scan.unbind(0)):
+        if grad:
+            x, logw, st = fused_step.StepForward.apply(x, logw, c, consts["packed"],
+                                                       consts["sconst"], consts, e, u)
+        else:
+            x, logw, st = fused_step.step_forward(x, logw, c, consts, e, u)[:3]
+        stats.append(st)
+        if cache:
+            xs.append(x)
+            logws.append(logw)
+    if not cache:
+        return x, logw, torch.stack(stats), None, None
+    return x, logw, torch.stack(stats), torch.stack(xs), torch.stack(logws)
 
 
 def _forward_filter_trunk(

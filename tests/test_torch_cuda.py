@@ -648,3 +648,130 @@ def test_cuda_svo_train_step_launches_the_four_kernels():
     assert [f.calls for f in plain] == calls
     for name in ("loss", "grad_norm", "elbo_svo"):
         assert torch.isfinite(metrics[name]), name
+
+
+def _step_operands(dev, dx, hidden, b=4, k=128, t1=5, seed=0):
+    """K1's operands on the card at Dx = Dy = dx with one hidden width."""
+    preset = "fhn_fivo_k1024_bench" if dx == 2 else "lorenz63_psvo_k1024"
+    net = NetConfig(hidden=(hidden, hidden))
+    cfg = PRESETS[preset].with_nets(q0=net, q1=net, q2=net, f=net, qb=net,
+                                    g=dataclasses.replace(net, sigma_init=0.5))
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(seed), device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        consts = fused_step.prepare(ssm)
+    x0 = torch.randn((b, dx, k), generator=g, device=dev) * 3.0
+    a0 = torch.randn((b, k), generator=g, device=dev)
+    coef = torch.rand((t1, b, 4 * dx + 1), generator=g, device=dev) + 0.1
+    eps = torch.randn((t1, b, dx, k), generator=g, device=dev)
+    pos = fused_step.systematic_positions(torch.rand((t1, b), generator=g, device=dev), k)
+    return consts, x0, a0, coef, eps, pos, g
+
+
+@pytest.mark.parametrize("hidden", [16, 32, 64])
+@pytest.mark.parametrize("dx", [2, 3])
+def test_step_kernels_match_plain(dx, hidden):
+    """K14, chained over T−1 steps, gives K1's bits on the same streams and
+    each step agrees with step_forward_reference on its own inputs (same
+    indices, values to 2e-4); K15 on each step's residuals matches
+    step_backward_reference to 1e-4 relative per leaf, with random d x_new,
+    d α and d ℓ, and gives the same bits on a second launch."""
+    dev = _cuda()
+    consts, x0, a0, coef, eps, pos, g = _step_operands(dev, dx, hidden)
+    launches = (fused_step.step_forward.launches, fused_step.step_backward.launches)
+    with torch.no_grad():
+        k1 = fused_step.scan_forward(x0, a0, coef, consts, eps=eps, positions=pos, cache=True,
+                                     save_res=True)
+        x, lw, steps = x0, a0, []
+        for t in range(coef.shape[0]):
+            out = fused_step.step_forward(x, lw, coef[t], consts, eps[t], pos[t])
+            ref = fused_step.step_forward_reference(x, lw, coef[t], consts, eps[t], pos[t])
+            assert torch.equal(out[3], ref[3])
+            for a, w in zip(out[:3], ref[:3]):
+                torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4)
+            steps.append(out)
+            x, lw = out[:2]
+    for i, want in ((0, k1[3]), (1, k1[4]), (2, k1[2]), (3, k1[5])):
+        assert torch.equal(torch.stack([s[i] for s in steps]), want)
+    for t, (x_new, alpha, stats, idx) in enumerate(steps):
+        x_in = x0 if t == 0 else steps[t - 1][0]
+        d_stats = torch.randn(stats.shape, generator=g, device=dev)
+        d_x_new = torch.randn(x_new.shape, generator=g, device=dev)
+        d_alpha = torch.randn(alpha.shape, generator=g, device=dev)
+        args = (x_in, x_new, idx, stats, coef[t], consts, eps[t], d_stats, d_x_new, d_alpha)
+        got = fused_step.step_backward(*args)
+        again = fused_step.step_backward(*args)
+        want = fused_step.step_backward_reference(x_in, coef[t], consts, eps[t], idx, d_stats,
+                                                  d_x_new, d_alpha)
+        for a, a2, w in zip(got, again, want):
+            assert torch.equal(a, a2)
+            assert _rel(a, w) <= 1e-4
+    t1 = coef.shape[0]
+    assert (fused_step.step_forward.launches, fused_step.step_backward.launches) == (
+        launches[0] + t1, launches[1] + 2 * t1)
+
+
+def test_step_backward_covers_k2048_at_lorenz_dims_and_refuses_outside():
+    """K15 at Dx = 3, K = 2048, hidden (64, 64), where K4's shared memory does
+    not reach, against its plain version; beyond its class (K = 2816 there,
+    or two middle layers) step_backward and StepForward raise."""
+    dev = _cuda()
+    consts, x0, a0, coef, eps, pos, g = _step_operands(dev, 3, 64, b=2, k=2048, t1=1)
+    assert not fused_step._k4_ok(consts, 2048) and fused_step._k15_ok(consts, 2048)
+    with torch.no_grad():
+        x_new, alpha, stats, idx = fused_step.step_forward(x0, a0, coef[0], consts, eps[0], pos[0])
+    d_stats = torch.randn(stats.shape, generator=g, device=dev)
+    d_x_new = torch.randn(x_new.shape, generator=g, device=dev)
+    d_alpha = torch.randn(alpha.shape, generator=g, device=dev)
+    got = fused_step.step_backward(x0, x_new, idx, stats, coef[0], consts, eps[0], d_stats,
+                                   d_x_new, d_alpha)
+    want = fused_step.step_backward_reference(x0, coef[0], consts, eps[0], idx, d_stats, d_x_new,
+                                              d_alpha)
+    for a, w in zip(got, want):
+        assert _rel(a, w) <= 1e-4
+    big = torch.zeros((1, 3, 2816), device=dev)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_step.step_backward(big, big, torch.zeros((1, 2816), dtype=torch.int32, device=dev),
+                                 stats[:1], coef[0, :1], consts, big, d_stats[:1])
+    deep = dict(consts, n_mid=2)
+    with pytest.raises(ValueError, match="backward kernel"):
+        fused_step.StepForward.apply(x0.requires_grad_(), a0, coef[0], consts["packed"],
+                                     consts["sconst"], deep, eps[0], pos[0])
+
+
+def test_per_step_train_step_launches_k14_and_k15(monkeypatch):
+    """One make_train_step step with fused_step.SCAN_FUSED off on the card:
+    K14 and K15 T−1 times each, no K1 or K4, no plain version; its raw
+    gradients match the per-step plain versions on CPU tensors replaying the
+    step's streams to 1e-4 relative per leaf."""
+    from psvo_tpu_torch import bridge
+    from psvo_tpu_torch.smc import _draw_noise, _forward_filter_fused
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    monkeypatch.setattr(fused_step, "SCAN_FUSED", False)
+    dev = _cuda()
+    cfg = _small_cfg()
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ref = init_ssm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    ys = torch.randn((4, 6, 2), generator=torch.Generator().manual_seed(2))
+    kernels = (fused_step.step_forward, fused_step.step_backward, fused_step.scan_forward,
+               fused_step.scan_backward)
+    plain = (fused_step.step_forward_reference, fused_step.step_backward_reference,
+             fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+             fused_step.stream_noise_reference)
+    launches, calls = [f.launches for f in kernels], [f.calls for f in plain]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    state = gen.get_state()
+    metrics = make_train_step(ssm, cfg, make_optimizer(cfg))(gen, ys.to(dev))
+    assert [f.launches - n for f, n in zip(kernels, launches)] == [5, 5, 0, 0]
+    assert [f.calls for f in plain] == calls
+    assert torch.isfinite(metrics["loss"])
+
+    gen.set_state(state)  # replay the step's streams
+    streams = tuple(t.cpu() for t in _draw_noise(gen, cfg.smc, 6, 4, 2))
+    fwd = _forward_filter_fused(ref, None, ys, cfg.smc, cache=False, streams=streams)
+    (-torch.mean(fwd.log_z)).backward()
+    got, want = bridge.grads_to_numpy(ssm), bridge.grads_to_numpy(ref)
+    for name in want:
+        for a, w in zip(_leaves(got[name]), _leaves(want[name])):
+            assert _rel(torch.from_numpy(a), torch.from_numpy(w)) <= 1e-4, name
