@@ -98,6 +98,18 @@ step, one K15 launch per step of the backward, streamed noise):
       calls of 10 PSVO train steps; launch counts (K14, K15, K5, K6), times,
       peak memory and profiles
 
+and, with the toggle back on, K1 and K4 on thread-block clusters (each row
+on C CTAs; every phase above launched them at the C that
+fused_step.cluster_size picks):
+
+  (ad) K1 and K4 at each cluster size C in {1, 2, 4, 8} that the gates and
+      the card admit, at the FHN shape (B=32, K=1024, hidden 64, Dx=2,
+      in-kernel draw) and the Lorenz-63 one (Dx=3, stream noise, cache): the
+      card's resident clusters per C and the chosen C; K1's outputs and K4's
+      d_x0 bit-equal to C=1, K4's other leaves within 1e-6 relative L2, each
+      bit-equal on a relaunch; times per C, C=1 and the chosen C alternated
+      (the chosen C must be faster)
+
 Every phase prints its lines and its seconds; any failure exits non-zero.
 The second-to-last line is the kernels' JSON record (times beside the
 bound: the larger of the operations over 67 TFLOP/s fp32 and the bytes over
@@ -962,6 +974,73 @@ def step_bounds(consts, fwd_args, fwd_out, bwd):
     return k14, k15
 
 
+def cluster_sweep(ssm, cfg, ys, gen, rng_seed=None, cache=False):
+    """K1 and K4 at every cluster size C that the gates and the card admit,
+    against C = 1 on the same inputs (K1's residual mode, the train path's):
+    every K1 output and K4's d_x0 bit for bit, K4's d_coef, weight and sconst
+    gradients by relative L2, each C bit-equal on a relaunch. Then CUDA-event
+    times of each C (median of 5 after 2 warm-up runs), C = 1 and the chosen
+    C alternated: 1, chosen, the others, chosen, 1. Returns a dict."""
+    import torch
+    from psvo_tpu_torch.ops import fused_step
+
+    inp = kernel_inputs(ssm, cfg, ys, gen)
+    consts, coef = inp["consts"], inp["coef"]
+    b, k, dev = coef.shape[1], cfg.smc.n_particles, ys.device
+    noise = ({"seed": rng_seed} if rng_seed is not None
+             else {"eps": inp["eps"], "positions": inp["positions"]})
+    bnoise = {"seed": rng_seed} if rng_seed is not None else {"eps": inp["eps"]}
+    max_active = [fused_step.max_active_clusters(kern, dev, consts, k) for kern in (0, 1)]
+    chosen = (fused_step.cluster_size(b, k, fused_step.K1_MIN_SLICE, max_active[0]),
+              fused_step.cluster_size(b, k, fused_step.K4_MIN_SLICE, max_active[1]))
+    sizes = ([c for c in fused_step.CLUSTER_SIZES if max_active[0][c] > 0
+              and (c == 1 or k % (c * fused_step.K1_MIN_SLICE) == 0)],
+             [c for c in fused_step.CLUSTER_SIZES if max_active[1][c] > 0
+              and fused_step._k4_ok(consts, k, c)])
+
+    def fwd(c):
+        return fused_step.scan_forward(inp["x0"], inp["alpha0"], coef, consts, cache=cache,
+                                       save_res=True, cluster=c, **noise)
+
+    def equal(xs, ys_):
+        return all(torch.equal(a, w) for a, w in zip(xs, ys_) if a is not None)
+
+    one = fwd(1)
+    k1 = {}
+    for c in sizes[0]:
+        got, again = fwd(c), fwd(c)
+        k1[c] = {"equal": equal(got, one), "same": equal(got, again)}
+    x_last, alpha_last, stats, x_all, alpha_all, idx = one
+    d_stats = torch.randn(stats.shape, generator=gen, device=dev)
+    d_stats[..., 0] = -1.0 / b
+    cots = [torch.randn(t.shape, generator=gen, device=dev) for t in (x_last, alpha_last)]
+    cots += ([torch.randn(t.shape, generator=gen, device=dev) * 0.1 for t in (x_all, alpha_all)]
+             if cache else [None, None])
+    bwd_args = (inp["x0"], x_all, idx, stats, coef, consts, d_stats, *cots)
+
+    def bwd(c):
+        return fused_step.scan_backward(*bwd_args, cluster=c, **bnoise)
+
+    base = bwd(1)
+    k4 = {}
+    for c in sizes[1]:
+        got, again = bwd(c), bwd(c)
+        k4[c] = {"dx0_equal": torch.equal(got[0], base[0]), "same": equal(got, again),
+                 "rel": [float((g - w).norm() / w.norm().clamp_min(1e-30))
+                         for g, w in zip(got[1:], base[1:])]}
+    torch.cuda.synchronize()
+    ms = []
+    for kern, fn in ((0, fwd), (1, bwd)):
+        c_ = chosen[kern]
+        order = [1, c_] + [c for c in sizes[kern] if c not in (1, c_)] + [c_, 1]
+        times = {}
+        with torch.no_grad():
+            for c in order:
+                times.setdefault(c, []).append(time_ms(lambda: fn(c)))
+        ms.append(times)
+    return dict(max_active=max_active, chosen=chosen, sizes=sizes, k1=k1, k4=k4, ms=ms)
+
+
 def main() -> int:
     # (a) the card
     try:
@@ -993,10 +1072,12 @@ def main() -> int:
     _build.load_library()
     build_s = time.perf_counter() - t0
     regs = re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) registers[^\n]*", _build.build_log(), re.S)
-    spills = re.findall(r"(\d+) bytes spill stores", _build.build_log())
+    spills = re.findall(r"Function properties for (\w+)\s+\d+ bytes stack frame, (\d+) bytes spill "
+                        r"stores", _build.build_log())
     print(f"[b] build {build_s:.1f} s; registers "
           + ", ".join(f"{n}={r}" for n, r in regs)
-          + f"; max spill stores {max(map(int, spills), default=0)} B", flush=True)
+          + f"; max spill stores {max((int(s) for _, s in spills), default=0)} B; spill stores "
+          + (", ".join(f"{n}={s} B" for n, s in spills if int(s)) or "none"), flush=True)
     phase_done("a, b: card and build")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2253,6 +2334,49 @@ def main() -> int:
     fused_step.SCAN_FUSED = True
     phase_done("ac")
 
+    # (ad) K1 and K4 by cluster size, at the FHN and Lorenz-63 shapes
+    sweeps_c = {}
+    for preset, ys, rng_seed, cache in ((fhn, batches[0], (21, 0xBEEF), False),
+                                        (l63, l_batches[0], None, True)):
+        cfg, batch = slice_config(False, preset)
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 19), device=dev)
+        with torch.no_grad():
+            sw = cluster_sweep(ssm, cfg, ys, gen, rng_seed, cache)
+        sweeps_c[preset] = sw
+        for kern, name_k, ok_key in ((0, "K1", "equal"), (1, "K4", "dx0_equal")):
+            print(f"[ad] {name_k} {preset} B={batch} K={cfg.smc.n_particles} "
+                  f"({'in-kernel draw' if rng_seed else 'stream'}{', cache' if cache else ''}): "
+                  f"max_active {sw['max_active'][kern]}, chosen C={sw['chosen'][kern]} "
+                  f"({batch * sw['chosen'][kern]} CTAs); times by C (ms, median of 5 after 2 "
+                  f"warm-up, in the order 1, chosen, others, chosen, 1) "
+                  + ", ".join(f"C={c}: " + "/".join(f"{v:.3f}" for v in ts)
+                              for c, ts in sw["ms"][kern].items()), flush=True)
+        for c, r in sw["k1"].items():
+            print(f"[ad] K1 {preset} C={c}: every output (x_last, alpha_last, stats, x_all, "
+                  f"alpha_all, idx; 99 free-running steps) bit-equal to C=1 {r['equal']}, "
+                  f"bit-equal on a relaunch {r['same']}", flush=True)
+        for c, r in sw["k4"].items():
+            print(f"[ad] K4 {preset} C={c}: d_x0 bit-equal to C=1 {r['dx0_equal']}, rel L2 to C=1 "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in zip(leaves[1:], r["rel"]))
+                  + f", bit-equal on a relaunch {r['same']}", flush=True)
+        if not all(r["equal"] and r["same"] for r in sw["k1"].values()):
+            fail(f"K1 on clusters ({preset}) is not bit-equal to one CTA per row")
+        if not all(r["dx0_equal"] and r["same"] and max(r["rel"]) <= 1e-6 for r in sw["k4"].values()):
+            fail(f"K4 on clusters ({preset}) disagrees with one CTA per row")
+        if min(sw["chosen"]) < 2:
+            fail(f"{preset}: K1/K4 chose C={sw['chosen']} at B={batch}, K={cfg.smc.n_particles}")
+    fhn_c = sweeps_c[fhn]
+    k1_c, k4_c = fhn_c["chosen"]
+    k1_ms, k1_ms_c1 = (statistics.mean(fhn_c["ms"][0][c]) for c in (k1_c, 1))
+    k4_ms, k4_ms_c1 = (statistics.mean(fhn_c["ms"][1][c]) for c in (k4_c, 1))
+    print(f"[ad] {fhn}: K1 at C={k1_c} {k1_ms:.3f} ms vs C=1 {k1_ms_c1:.3f} ms, bound {k1_bound:.3f} "
+          f"ms ({100 * k1_bound / k1_ms:.1f}% of it, {100 * k1_bound / k1_ms_c1:.1f}% at C=1); K4 at "
+          f"C={k4_c} {k4_ms:.3f} ms vs C=1 {k4_ms_c1:.3f} ms, bound {k4_bound:.3f} ms "
+          f"({100 * k4_bound / k4_ms:.1f}%, {100 * k4_bound / k4_ms_c1:.1f}% at C=1)", flush=True)
+    if not (k1_ms < k1_ms_c1 and k4_ms < k4_ms_c1):
+        fail("K1 or K4 at the chosen cluster size is not faster than at one CTA per row")
+    phase_done("ad")
+
     # K2: about 80 operations per normal (a Philox4x32-10 call, about 100 integer
     # operations, serves the particle's two normals; the Box-Muller transform about 30
     # each), counted at the fp32 rate; its output written once.
@@ -2272,11 +2396,13 @@ def main() -> int:
         {"name": "scan_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/scan_forward.cu",
          "replaces": "psvo_tpu/ops/pallas_step.py:1327", "launches": k1_train,
          "max_abs_err": results["small"]["max_abs_err"], "ms": k1_ms, "plain_ms": k1_plain,
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None, "cluster": k1_c,
+         "ms_c1": k1_ms_c1},
         {"name": "scan_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/scan_backward.cu",
          "replaces": "psvo_tpu/ops/pallas_step.py:1425", "launches": k4_train,
          "max_abs_err": max(bwd[("small", "stream")]["maxd"]), "ms": k4_ms, "plain_ms": k4_plain,
-         "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None},
+         "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None, "cluster": k4_c,
+         "ms_c1": k4_ms_c1},
         {"name": "ffbsi_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/ffbsi.cu",
          "replaces": "psvo_tpu/ops/pallas_ffbsi.py:294", "launches": psvo_launches[2],
          "max_abs_err": sweeps["small"][1]["max_abs_err"], "ms": k5[0], "plain_ms": k5[1],

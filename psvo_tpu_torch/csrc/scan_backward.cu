@@ -19,9 +19,12 @@
 // _propose_weight_bwd_core reads only the ℓ lane; α0, ε, the positions and
 // the seed get none; the α cotangent is cut where the unfloored α < −3e30.
 //
-// Design. One CTA per trajectory row b walks t in reverse and carries the
-// cotangent of x_new, [DX][K], in shared memory (the TPU kernel's dxc
-// scratch). Per step, over tiles of kP = 64 particles:
+// Design. Each trajectory row b runs on a thread-block cluster of C CTAs
+// (grid = B·C, cluster.cuh; the host picks C, fused_step.cluster_size),
+// which walks t in reverse. CTA rank r owns particles [r·K/C, (r+1)·K/C)
+// and carries their cotangent of x_new, [DX][K/C], in shared memory (the
+// TPU kernel's dxc scratch). Per step, over tiles of kP = 64 particles of
+// the own slice (K/C is a multiple of kP, so the tiles are those of C = 1):
 //   1. regather x_res = x_{t-1}[idx_t] (x_{-1} = x0), read x_new, and read ε
 //      or regenerate it from K1's Philox counters (b, t, i);
 //   2. recompute the f trunk on x_res and the g trunk on x_new in K1's fmaf
@@ -30,9 +33,17 @@
 //   3. dα = d_alpha_in + d_ℓ·softmax(α), the softmax as exp(α − ℓ − log K)
 //      from the ℓ that K1 wrote, so no extra pass over K is needed;
 //   4. backprop g and f, then recompute q1 on x_res (its m1 feeds the cq
-//      sum) and backprop it, accumulating the weight and sconst gradients;
-// then scatter d x_res into the carry, d x_{t-1}[j] = Σ_{i: idx_i = j}
-// d x_res_i, and write the step's d_coef row.
+//      sum) and backprop it, accumulating the weight and sconst gradients,
+//      and write d x_res of the slice into dxres[t & 1];
+// then the slice's d_coef sums (block reductions), one cluster barrier, and
+// the scatter: for each own ancestor j, d x_{t-1}[j] = Σ_{i: idx_i = j}
+// d x_res_i, over the run [lo, hi) of idx (full row in every CTA) in
+// particle order, reading the slices of ranks i / (K/C) through DSMEM, into
+// the CTA's own carry (step t−1 reads d x_new only of its own particles, so
+// the carry never crosses CTAs); rank 0 adds the C d_coef partials in rank
+// order. dxres and the partials are double-buffered by t's parity: a CTA
+// rewrites them at t−2, after step t−1's barrier, which every reader of
+// step t's reaches only after its scatter.
 //
 // What bounds it. About 78 kFLOP per particle-step at hidden (64, 64): the
 // three trunk recomputes, their input-side backward and the weight-gradient
@@ -44,24 +55,32 @@
 // block and issues two 16-byte loads per 16 FMAs. Shared memory at H=64
 // holds the weights (53.8 KB at Dx=Dy=2, 55.3 KB at 3), their gradient
 // accumulators (as much again), four [64][68] activation buffers (69.6 KB),
-// the tile arrays (7 or 9 KB), the carry, d x_res and idx (20 or 28.7 KB at
-// K=1024): 199 KB at Dx=2 and 218 KB at Dx=3 of the 227 KB a CTA may use
-// (fused_step.k4_smem_bytes; K up to 1536 fits at Dx=3). One CTA per SM, and
-// only B of the 132 SMs work.
-// Tensor cores (TF32/bf16 change the numerics) and splitting K across a
-// cluster are later work.
+// the tile arrays (7 or 9 KB), idx [K] (4.1 KB at K=1024), the carry and
+// d x_res [DX][K/C] (at C > 1 d x_res twice): 199 KB at Dx=2 and 213 KB at
+// Dx=3 at C = 1, 189 and 198 KB at C = 4 (K=1024), of the 227 KB a CTA may
+// use (fused_step.k4_smem_bytes; at Dx=3 K up to 1536 fits at C = 1, 3072
+// at C = 4). One CTA per SM: one CTA per row used B = 32 of the 132 SMs.
+// The H100 holds 66 clusters of 2 at once but only 30 of 4 (a cluster's
+// CTAs share one GPC), so at B = 32 the host picks C = 2: 64 SMs, at one
+// cluster barrier per step. Tensor cores (TF32/bf16 change the numerics)
+// are later work.
 //
 // Determinism. Every gradient entry has one owning thread, which adds its
 // tile sums in a fixed order; the per-step sums go through fixed block
-// reductions; the scatter is a segmented sum over each run of equal
-// ancestors, in particle order, which needs idx nondecreasing along K (K1's
-// indices from sorted positions are; chip_smoke.py asserts it on the
-// residuals); sum_rows_kernel adds the B row partials in row order. There
-// are no atomics: every run gives the same bits.
+// reductions and rank 0 adds the C slice sums in rank order; the scatter is
+// a segmented sum over each run of equal ancestors, in particle order, which
+// needs idx nondecreasing along K (K1's indices from sorted positions are;
+// chip_smoke.py asserts it on the residuals); sum_rows_kernel adds the B·C
+// CTA partials in order, in fp64. There are no atomics: every run gives the
+// same bits. d x_res of a particle does not depend on C, nor does the
+// scatter's order, so d_x0 is bit-equal for every C; d_coef and the weight
+// and sconst gradients are summed per slice first, within float32 rounding
+// of C = 1 (the sconst sums, which cancel, in fp64).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "cluster.cuh"
 #include "philox.cuh"
 #include "resample.cuh"
 #include "step_math.cuh"
@@ -88,9 +107,10 @@ struct BwdArgs {
   const float* d_alpha_all;  // [T1, B, K] or null
   float* d_x0;               // [B, DX, K]
   float* d_coef;             // [T1, B, 3*DX + DY + 1]
-  float* partial;            // [B, n_weights + DX + DY]: per-row weight and sconst grads
+  float* partial;            // [B*C, n_weights + DX + DY]: per-CTA weight and sconst grads
   uint32_t seed0, seed1;
   int use_rng, B, K, T1, n_weights, off_f, off_g;
+  int cluster;               // C: CTAs per row, K/C a multiple of kP when C > 1
 };
 
 // Offsets inside one net's segment of the packed buffer (one middle layer):
@@ -343,9 +363,21 @@ __device__ __forceinline__ int lower_bound_idx(const int* a, int n, int v) {
   return lo;
 }
 
+// The particles [lo, lo + n) that a CTA owns: rank `rank` of its row's
+// cluster of C CTAs (K15 and K4 at C = 1: the whole row).
+struct Slice {
+  int lo, n, rank, C;
+};
+
+// The d_coef entries a slice sums: aq, cq, sq per state dimension, then ab.
+template <int DX>
+constexpr int kCoefSums = 3 * DX + 1;
+
 // A CTA's shared memory in K4 and K15: the weights and their gradient sums,
-// four [H][kPS] activation tiles, the [D][kPS] tile arrays, K4's carry, the
-// step's d x_res [DX][K], the reduction scratch and the int32 ancestors [K].
+// four [H][kPS] activation tiles, the [D][kPS] tile arrays, K4's carry of the
+// slice, d x_res of the slice (twice at C > 1, by t's parity), the slice's
+// d_coef sums (C > 1, by t's parity), the reduction scratch and the int32
+// ancestors of the whole row [K].
 struct BwdSmem {
   float *wts, *gacc;               // [n_weights] each
   float *f1, *f2, *g1, *g2;        // [H][kPS]: f's buffers, then g's (then q1's)
@@ -353,15 +385,16 @@ struct BwdSmem {
   float *mf, *mg, *mq;             // trunk means
   float *dmf, *dmg, *dmq;          // cotangents of the trunk means
   float *dxn, *dxr;                // d x_new, d x_res of the tile
-  float* carry;                    // [DX][K] (K4 only)
-  float* dxres;                    // [DX][K]: d x_res of the whole step
+  float* carry;                    // [DX][n] (K4 only)
+  float* dxres;                    // [C > 1 ? 2 : 1][DX][n]: d x_res of the slice
+  float* part;                     // [2][kCoefSums] (C > 1 only)
   float* red;                      // [kWarps]
   int* idx_s;                      // [K]
 };
 
 template <int DX, int DY, int H>
-__device__ __forceinline__ BwdSmem carve_bwd(unsigned char* smem, int n_weights, int K,
-                                             bool carry) {
+__device__ __forceinline__ BwdSmem carve_bwd(unsigned char* smem, int n_weights, int K, int n,
+                                             bool carry, int C) {
   BwdSmem s;
   s.wts = reinterpret_cast<float*>(smem);
   s.gacc = s.wts + n_weights;
@@ -381,16 +414,18 @@ __device__ __forceinline__ BwdSmem carve_bwd(unsigned char* smem, int n_weights,
   s.dxn = s.dmq + DX * kPS;
   s.dxr = s.dxn + DX * kPS;
   s.carry = s.dxr + DX * kPS;
-  s.dxres = s.carry + (carry ? DX * K : 0);
-  s.red = s.dxres + DX * K;
+  s.dxres = s.carry + (carry ? DX * n : 0);
+  s.part = s.dxres + (C > 1 ? 2 : 1) * DX * n;
+  s.red = s.part + (C > 1 ? 2 * kCoefSums<DX> : 0);
   s.idx_s = reinterpret_cast<int*>(s.red + kWarps);
   return s;
 }
 
 template <int DX, int DY, int H>
-size_t bwd_smem_bytes(int n_weights, int K, bool carry) {
+size_t bwd_smem_bytes(int n_weights, int K, int n, bool carry, int C) {
   return sizeof(float) * (2 * n_weights + 4 * H * kPS + (9 * DX + 2 * DY) * kPS +
-                          (carry ? 2 : 1) * DX * K + kWarps) +
+                          (carry ? DX * n : 0) + (C > 1 ? 2 : 1) * DX * n +
+                          (C > 1 ? 2 * kCoefSums<DX> : 0) + kWarps) +
          sizeof(int) * K;
 }
 
@@ -405,24 +440,26 @@ struct BwdRow {
   const float* coef;     // [3*DX + DY + 1]: aq, cq, sq, y, ab
   const float* stats;    // [2 + DX]: ℓ in column 0
   const float* d_stats;  // [2 + DX]: column 0 is read
-  const float* d_xn;     // [DX][K] or null: the cotangent of x_new
+  const float* d_xn;     // [DX][ld] from particle `off`, or null: the cotangent of x_new
   const float* d_xn2;    // [DX][K] or null: a second one, added (K4's d_x_all)
   const float* d_al;     // [K] or null: the cotangent of α
   const float* d_al2;    // [K] or null: a second one, added
-  float* d_x;            // [DX][K]: d x_prev, written by the scatter
-  float* d_coef;         // [3*DX + DY + 1]
+  float* d_x;            // [DX][ld] from particle `off`: d x_prev, written by the scatter
+  float* d_coef;         // [3*DX + DY + 1]; written by rank 0
+  int ld, off;           // layout of d_xn and d_x: K4's carry of the slice, K15's rows
 };
 
-// The backward of one filter step of row b, t (module comment, 1.-9.):
-// accumulates the weight gradients into s.gacc and the sconst ones into
-// dsf/dsg, writes d x_prev and the d_coef row. K4 runs it once per t, K15
-// once per launch. Ends on a barrier.
+// The backward of one filter step of row b, t on the slice `sl` (module
+// comment, 1.-4. and the scatter): accumulates the weight gradients into
+// s.gacc and the sconst ones into dsf/dsg, writes d x_prev of the slice and
+// (rank 0) the d_coef row. K4 runs it once per t on each CTA of a row's
+// cluster, K15 once per launch on the whole row. Ends on a barrier.
 template <int DX, int DY, int H>
-__device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s, int K,
-                                              int off_f, int off_g, const float (&sfi)[DX],
-                                              const float (&sgi)[DY], float (&dsf)[DX],
-                                              float (&dsg)[DY], bool use_rng, uint32_t seed0,
-                                              uint32_t seed1, int b, int t) {
+__device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s, const Slice& sl,
+                                              int K, int off_f, int off_g,
+                                              const float (&sfi)[DX], const float (&sgi)[DY],
+                                              double (&dsf)[DX], double (&dsg)[DY], bool use_rng,
+                                              uint32_t seed0, uint32_t seed1, int b, int t) {
   using NQ = Net<DX, H, DX>;  // q1 and f
   using NG = Net<DX, H, DY>;  // g
   const int tid = threadIdx.x;
@@ -438,6 +475,8 @@ __device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s,
   float *f1 = s.f1, *f2 = s.f2, *g1 = s.g1, *g2 = s.g2, *xr = s.xr, *xn = s.xn, *ep = s.ep;
   float *mf = s.mf, *mg = s.mg, *mq = s.mq, *dmf = s.dmf, *dmg = s.dmg, *dmq = s.dmq;
   float *dxn = s.dxn, *dxr = s.dxr;
+  const int hi = sl.lo + sl.n;
+  float* dxres = s.dxres + (sl.C > 1 ? (t & 1) * DX * sl.n : 0);  // [DX][n]
 
   const float* c = r.coef;
   float cq[DX], y[DY];
@@ -454,9 +493,9 @@ __device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s,
   for (int d = 0; d < DX; ++d) s_aq[d] = s_cq[d] = s_sq[d] = 0.0f;
   __syncthreads();
 
-  for (int i0 = 0; i0 < K; i0 += kP) {
+  for (int i0 = sl.lo; i0 < hi; i0 += kP) {
     const int i = i0 + p;
-    const bool mine = p < kP && i < K;  // a live particle of this tile
+    const bool mine = p < kP && i < hi;  // a live particle of this tile
     // 1. operands of the tile
     if (p < kP) {
       float e[DX];
@@ -506,9 +545,9 @@ __device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s,
         const float zf = rf * sfi[d];
         float dx = 0.0f;
         if (mine) {
-          if (r.d_xn != nullptr) dx = r.d_xn[d * K + i];
+          if (r.d_xn != nullptr) dx = r.d_xn[d * r.ld + i - r.off];
           if (r.d_xn2 != nullptr) dx += r.d_xn2[d * K + i];
-          dsf[d] -= da * zf * rf;
+          dsf[d] -= static_cast<double>(da * zf * rf);
         }
         dmf[d * kPS + p] = da * zf * sfi[d];
         dxn[d * kPS + p] = dx - da * zf * sfi[d];
@@ -517,7 +556,7 @@ __device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s,
       for (int q = 0; q < DY; ++q) {
         const float rg = y[q] - mgv[q];
         const float zg = rg * sgi[q];
-        if (mine) dsg[q] -= da * zg * rg;
+        if (mine) dsg[q] -= static_cast<double>(da * zg * rg);
         dmg[q * kPS + p] = da * zg * sgi[q];
       }
     }
@@ -572,44 +611,66 @@ __device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s,
     __syncthreads();
     if (mine) {
 #pragma unroll
-      for (int d = 0; d < DX; ++d) s.dxres[d * K + i] = dxr[d * kPS + p];
+      for (int d = 0; d < DX; ++d) dxres[d * sl.n + i - sl.lo] = dxr[d * kPS + p];
     }
   }
-  __syncthreads();
 
-  // 8. scatter d x_res to the ancestors: a segmented sum over each run of
-  // equal ancestors, in particle order
-  for (int j = tid; j < K; j += kThreads) {
-    const int lo = lower_bound_idx(s.idx_s, K, j);
-    const int hi = lower_bound_idx(s.idx_s, K, j + 1);
-#pragma unroll
-    for (int d = 0; d < DX; ++d) {
-      float sum = 0.0f;
-      for (int i = lo; i < hi; ++i) sum += s.dxres[d * K + i];
-      r.d_x[d * K + j] = sum;
-    }
-  }
-  // 9. the step's d_coef row (the reductions' barriers also order the
-  // scatter's writes before the next step reads them)
+  // 8. the slice's d_coef sums (the reductions' barriers end the tile loop);
+  // one CTA writes the row, a cluster's CTAs leave their sums for rank 0
+  float sums[kCoefSums<DX>];
 #pragma unroll
   for (int d = 0; d < DX; ++d) {
-    s_aq[d] = block_reduce<false>(s_aq[d], s.red);
-    s_cq[d] = block_reduce<false>(s_cq[d], s.red);
-    s_sq[d] = block_reduce<false>(s_sq[d], s.red);
+    sums[d] = block_reduce<false>(s_aq[d], s.red);
+    sums[DX + d] = block_reduce<false>(s_cq[d], s.red);
+    sums[2 * DX + d] = block_reduce<false>(s_sq[d], s.red);
   }
-  s_ab = block_reduce<false>(s_ab, s.red);
-  if (tid == 0) {
+  sums[3 * DX] = block_reduce<false>(s_ab, s.red);
+  float* part = s.part + (t & 1) * kCoefSums<DX>;
+  if (tid == 0 && sl.C > 1) {
+#pragma unroll
+    for (int e = 0; e < kCoefSums<DX>; ++e) part[e] = sums[e];
+  }
+  // 9. publish d x_res and the sums to the cluster
+  if (sl.C > 1) {
+    cg::this_cluster().sync();
+    if (sl.rank == 0 && tid == 0) {  // add the slices' sums in rank order
+      for (int q = 1; q < sl.C; ++q) {
+        const float* pq = cg::this_cluster().map_shared_rank(part, q);
+#pragma unroll
+        for (int e = 0; e < kCoefSums<DX>; ++e) sums[e] += pq[e];
+      }
+    }
+  }
+  if (sl.rank == 0 && tid == 0) {
     float* dc = r.d_coef;
 #pragma unroll
-    for (int d = 0; d < DX; ++d) {
-      dc[d] = s_aq[d];
-      dc[DX + d] = s_cq[d];
-      dc[2 * DX + d] = s_sq[d];
-    }
+    for (int e = 0; e < 3 * DX; ++e) dc[e] = sums[e];
 #pragma unroll
     for (int q = 0; q < DY; ++q) dc[3 * DX + q] = 0.0f;  // y is data
-    dc[3 * DX + DY] = s_ab;
+    dc[3 * DX + DY] = sums[3 * DX];
   }
+
+  // 10. scatter d x_res to the own ancestors j: a segmented sum over each run
+  // of equal ancestors, in particle order, the run's particles read from the
+  // slices of the ranks that own them
+  for (int j = sl.lo + tid; j < hi; j += kThreads) {
+    const int i_lo = lower_bound_idx(s.idx_s, K, j);
+    const int i_hi = lower_bound_idx(s.idx_s, K, j + 1);
+    float sum[DX];
+#pragma unroll
+    for (int d = 0; d < DX; ++d) sum[d] = 0.0f;
+    for (int i = i_lo; i < i_hi;) {
+      const int q = i / sl.n, end = min(i_hi, (q + 1) * sl.n);
+      const float* src = q == sl.rank ? dxres : cg::this_cluster().map_shared_rank(dxres, q);
+      for (; i < end; ++i) {
+#pragma unroll
+        for (int d = 0; d < DX; ++d) sum[d] += src[d * sl.n + i - q * sl.n];
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < DX; ++d) r.d_x[d * r.ld + j - r.off] = sum[d];
+  }
+  __syncthreads();  // the scatter's writes before the next step reads them
 }
 
 // Load the weights, zero their gradient sums and read sconst.
@@ -617,7 +678,7 @@ template <int DX, int DY>
 __device__ __forceinline__ void bwd_prologue(const BwdSmem& s, const float* weights,
                                              const float* sconst, int n_weights,
                                              float (&sfi)[DX], float (&sgi)[DY],
-                                             float (&dsf)[DX], float (&dsg)[DY]) {
+                                             double (&dsf)[DX], double (&dsg)[DY]) {
   for (int i = threadIdx.x; i < n_weights; i += kThreads) {
     s.wts[i] = weights[i];
     s.gacc[i] = 0.0f;
@@ -625,43 +686,67 @@ __device__ __forceinline__ void bwd_prologue(const BwdSmem& s, const float* weig
 #pragma unroll
   for (int d = 0; d < DX; ++d) {
     sfi[d] = sconst[d];
-    dsf[d] = 0.0f;
+    dsf[d] = 0.0;
   }
 #pragma unroll
   for (int q = 0; q < DY; ++q) {
     sgi[q] = sconst[DX + q];
-    dsg[q] = 0.0f;
+    dsg[q] = 0.0;
   }
 }
 
-// The row's partial gradients: the weight sums, then d_sconst (block sums).
+// Block-wide fp64 sum; every thread gets it. `dred` holds kWarps doubles.
+__device__ __forceinline__ double block_sum_d(double v, double* dred) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  if (lane == 0) dred[warp] = v;
+  __syncthreads();
+  double r = dred[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) r += dred[w];
+  __syncthreads();
+  return r;
+}
+
+// The CTA's partial gradients: the weight sums, then d_sconst. The sconst
+// sums cancel over B·K·T terms, so they are kept in fp64 (the tile arrays,
+// idle after the last step, hold the reduction scratch): float32 sums in
+// another order differed by 3.5e-6–6.5e-6 relative between C = 1 and C > 1
+// at the FHN shape (PERF.md §6).
 template <int DX, int DY>
 __device__ __forceinline__ void write_partial(const BwdSmem& s, int n_weights,
-                                              float (&dsf)[DX], float (&dsg)[DY],
+                                              const double (&dsf)[DX], const double (&dsg)[DY],
                                               float* part) {
   const int tid = threadIdx.x;
+  double* dred = reinterpret_cast<double*>(s.xr);  // [DX][kPS] floats: room for kWarps
   for (int i = tid; i < n_weights; i += kThreads) part[i] = s.gacc[i];
 #pragma unroll
   for (int d = 0; d < DX; ++d) {
-    const float v = block_reduce<false>(dsf[d], s.red);
-    if (tid == 0) part[n_weights + d] = v;
+    const double v = block_sum_d(dsf[d], dred);
+    if (tid == 0) part[n_weights + d] = static_cast<float>(v);
   }
 #pragma unroll
   for (int q = 0; q < DY; ++q) {
-    const float v = block_reduce<false>(dsg[q], s.red);
-    if (tid == 0) part[n_weights + DX + q] = v;
+    const double v = block_sum_d(dsg[q], dred);
+    if (tid == 0) part[n_weights + DX + q] = static_cast<float>(v);
   }
 }
 
 template <int DX, int DY, int H>
 __global__ void __launch_bounds__(kThreads, 1) scan_backward_kernel(const BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int K = a.K, B = a.B, b = blockIdx.x, tid = threadIdx.x;
-  const BwdSmem s = carve_bwd<DX, DY, H>(smem, a.n_weights, K, true);
-  float sfi[DX], sgi[DY], dsf[DX], dsg[DY];
+  const int C = a.cluster, rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int K = a.K, B = a.B, b = blockIdx.x / C, tid = threadIdx.x;
+  const Slice sl{rank * (K / C), K / C, rank, C};
+  const BwdSmem s = carve_bwd<DX, DY, H>(smem, a.n_weights, K, sl.n, true, C);
+  float sfi[DX], sgi[DY];
+  double dsf[DX], dsg[DY];
   bwd_prologue<DX, DY>(s, a.weights, a.sconst, a.n_weights, sfi, sgi, dsf, dsg);
-  for (int i = tid; i < DX * K; i += kThreads)
-    s.carry[i] = a.d_x_last != nullptr ? a.d_x_last[(size_t)b * DX * K + i] : 0.0f;
+  for (int e = tid; e < DX * sl.n; e += kThreads) {  // the carry of the slice, [DX][n]
+    const int d = e / sl.n, i = sl.lo + e % sl.n;
+    s.carry[e] = a.d_x_last != nullptr ? a.d_x_last[((size_t)b * DX + d) * K + i] : 0.0f;
+  }
   constexpr int NC = 3 * DX + DY + 1;
 
   for (int t = a.T1 - 1; t >= 0; --t) {
@@ -679,30 +764,45 @@ __global__ void __launch_bounds__(kThreads, 1) scan_backward_kernel(const BwdArg
         t == a.T1 - 1 && a.d_alpha_last != nullptr ? a.d_alpha_last + (size_t)b * K : nullptr,
         a.d_alpha_all != nullptr ? a.d_alpha_all + row * K : nullptr,
         s.carry,
-        a.d_coef + row * NC};
-    backward_step<DX, DY, H>(r, s, K, a.off_f, a.off_g, sfi, sgi, dsf, dsg, a.use_rng, a.seed0,
-                             a.seed1, b, t);
+        a.d_coef + row * NC,
+        sl.n,
+        sl.lo};
+    backward_step<DX, DY, H>(r, s, sl, K, a.off_f, a.off_g, sfi, sgi, dsf, dsg, a.use_rng,
+                             a.seed0, a.seed1, b, t);
   }
 
-  for (int i = tid; i < DX * K; i += kThreads) a.d_x0[(size_t)b * DX * K + i] = s.carry[i];
+  for (int e = tid; e < DX * sl.n; e += kThreads) {
+    const int d = e / sl.n, i = sl.lo + e % sl.n;
+    a.d_x0[((size_t)b * DX + d) * K + i] = s.carry[e];
+  }
   write_partial<DX, DY>(s, a.n_weights, dsf, dsg,
-                        a.partial + (size_t)b * (a.n_weights + DX + DY));
+                        a.partial + ((size_t)b * C + rank) * (a.n_weights + DX + DY));
+  if (C > 1) cg::this_cluster().sync();  // no CTA leaves while another reads its d x_res
 }
 
-// out[e] = Σ_r partial[r][e], rows added in order: the B per-row partial
-// gradients of scan_backward_kernel and step_backward_kernel (the TPU kernels
-// accumulated them in their own body, _accum_param_grads).
+// out[e] = Σ_r partial[r][e], rows added in order in fp64: the per-CTA
+// partial gradients of scan_backward_kernel (B·C rows) and
+// step_backward_kernel (B) (the TPU kernels accumulated them in their own
+// body, _accum_param_grads).
 __global__ void sum_rows_kernel(const float* __restrict__ partial, int rows, int n,
                                 float* __restrict__ out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
-  float s = 0.0f;
+  double s = 0.0;
   for (int r = 0; r < rows; ++r) s += partial[(size_t)r * n + e];
-  out[e] = s;
+  out[e] = static_cast<float>(s);
 }
 
-// One CTA per trajectory row (K4, K15), then sum_rows_kernel over the rows'
-// n partial gradients into grads.
+// sum_rows_kernel over `rows` partial gradient rows of n entries into grads.
+inline cudaError_t sum_rows(const float* partial, int rows, int n, float* grads,
+                            cudaStream_t stream) {
+  sum_rows_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(partial, rows, n,
+                                                                         grads);
+  return cudaGetLastError();
+}
+
+// One CTA per trajectory row (K15), then sum_rows over the rows' n partial
+// gradients into grads.
 template <class Args>
 cudaError_t launch_rows_and_sum(void (*kernel)(Args), const Args& a, size_t smem, int n,
                                 float* grads, cudaStream_t stream) {
@@ -712,9 +812,7 @@ cudaError_t launch_rows_and_sum(void (*kernel)(Args), const Args& a, size_t smem
   kernel<<<a.B, kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  sum_rows_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(a.partial, a.B, n,
-                                                                         grads);
-  return cudaGetLastError();
+  return sum_rows(a.partial, a.B, n, grads, stream);
 }
 
 // K15 step_backward: the VJP of ONE K14 step per launch.
@@ -759,8 +857,9 @@ template <int DX, int DY, int H>
 __global__ void __launch_bounds__(kThreads, 1) step_backward_kernel(const StepBwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int K = a.K, b = blockIdx.x;
-  const BwdSmem s = carve_bwd<DX, DY, H>(smem, a.n_weights, K, false);
-  float sfi[DX], sgi[DY], dsf[DX], dsg[DY];
+  const BwdSmem s = carve_bwd<DX, DY, H>(smem, a.n_weights, K, K, false, 1);
+  float sfi[DX], sgi[DY];
+  double dsf[DX], dsg[DY];
   bwd_prologue<DX, DY>(s, a.weights, a.sconst, a.n_weights, sfi, sgi, dsf, dsg);
   constexpr int NC = 3 * DX + DY + 1;
   const size_t bx = (size_t)b * DX * K;
@@ -776,17 +875,29 @@ __global__ void __launch_bounds__(kThreads, 1) step_backward_kernel(const StepBw
                  a.d_alpha != nullptr ? a.d_alpha + (size_t)b * K : nullptr,
                  nullptr,
                  a.d_x + bx,
-                 a.d_coef + (size_t)b * NC};
-  backward_step<DX, DY, H>(r, s, K, a.off_f, a.off_g, sfi, sgi, dsf, dsg, false, 0u, 0u, b, 0);
+                 a.d_coef + (size_t)b * NC,
+                 K,
+                 0};
+  backward_step<DX, DY, H>(r, s, Slice{0, K, 0, 1}, K, a.off_f, a.off_g, sfi, sgi, dsf, dsg,
+                           false, 0u, 0u, b, 0);
   write_partial<DX, DY>(s, a.n_weights, dsf, dsg,
                         a.partial + (size_t)b * (a.n_weights + DX + DY));
+}
+
+int scan_backward_max_active(int dx, int dy, int hidden, int cluster, int smem, int* out) {
+  return with_dims(dx, dy, hidden, [&](auto d) {
+    using D = decltype(d);
+    return max_active_clusters(scan_backward_kernel<D::DX, D::DY, D::H>, cluster,
+                               static_cast<size_t>(smem), out);
+  });
 }
 
 }  // namespace psvo
 
 // Plain C entry points (bound with ctypes by psvo_tpu_torch/ops/_build.py).
 // grads [n_weights + dx + dy] receives the weight gradients, then d_sconst;
-// partial [B, n_weights + dx + dy] is scratch. Each returns a cudaError_t.
+// partial [B·cluster, n_weights + dx + dy] (K15: [B, ...]) is scratch. Each
+// returns a cudaError_t.
 extern "C" int psvo_scan_backward(const float* x0, const float* x_all, const int* idx,
                                   const float* stats, const float* coef, const float* eps,
                                   const float* weights, const float* sconst,
@@ -795,19 +906,25 @@ extern "C" int psvo_scan_backward(const float* x0, const float* x_all, const int
                                   const float* d_alpha_all, float* d_x0, float* d_coef,
                                   float* partial, float* grads, uint32_t seed0, uint32_t seed1,
                                   int use_rng, int B, int K, int T1, int dx, int dy, int hidden,
-                                  int n_mid, int n_weights, int off_f, int off_g, void* stream) {
+                                  int n_mid, int n_weights, int off_f, int off_g, int cluster,
+                                  void* stream) {
   const psvo::BwdArgs a{x0,      x_all,    idx,      stats,        coef,    eps,
                         weights, sconst,   d_stats,  d_x_last,     d_alpha_last,
                         d_x_all, d_alpha_all, d_x0,  d_coef,       partial, seed0,
                         seed1,   use_rng,  B,        K,            T1,      n_weights,
-                        off_f,   off_g};
-  if (n_mid != 1) return static_cast<int>(cudaErrorInvalidValue);
+                        off_f,   off_g,    cluster};
+  if (n_mid != 1 || cluster < 1 || K % cluster != 0 ||
+      (cluster > 1 && (K / cluster) % psvo::kP != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   return psvo::with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
-    return psvo::launch_rows_and_sum(psvo::scan_backward_kernel<D::DX, D::DY, D::H>, a,
-                                     psvo::bwd_smem_bytes<D::DX, D::DY, D::H>(n_weights, K, true),
-                                     n_weights + D::DX + D::DY, grads, s);
+    const int n = n_weights + D::DX + D::DY;
+    cudaError_t err = psvo::launch_clusters(
+        psvo::scan_backward_kernel<D::DX, D::DY, D::H>, a, B, cluster,
+        psvo::bwd_smem_bytes<D::DX, D::DY, D::H>(n_weights, K, K / cluster, true, cluster), s);
+    if (err != cudaSuccess) return err;
+    return psvo::sum_rows(partial, B * cluster, n, grads, s);
   });
 }
 
@@ -827,7 +944,8 @@ extern "C" int psvo_step_backward(const float* x, const float* x_new, const int*
   return psvo::with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
     return psvo::launch_rows_and_sum(psvo::step_backward_kernel<D::DX, D::DY, D::H>, a,
-                                     psvo::bwd_smem_bytes<D::DX, D::DY, D::H>(n_weights, K, false),
+                                     psvo::bwd_smem_bytes<D::DX, D::DY, D::H>(n_weights, K, K,
+                                                                              false, 1),
                                      n_weights + D::DX + D::DY, grads, s);
   });
 }

@@ -6,35 +6,51 @@
 // _two_level_indices, _gather_particles/_lane_gather, _trunk,
 // _propose_weight_core and the in-kernel RNG _rng_eps/_rng_sys_u.
 //
-// Design. One CTA per trajectory row b (grid = B) walks the time loop that
-// was the TPU kernel's sequential t grid axis. The carry — particles
-// x [Dx][K] (double-buffered, so the ancestor gather reads the old buffer
-// while the draw writes the new one) and log-weights [K] — lives in shared
-// memory for the whole scan, as do the q1/f/g weights (about 53 KB in fp32
-// at hidden (64, 64), hence dynamic shared memory above 48 KB). Per step:
-//   1. ESS of the incoming weights and their fp64 inclusive CDF
-//      (resample.cuh::block_cdf);
-//   2. per particle i: the ancestor a_i by binary search, x_res = x[:, a_i],
-//      the q1 and f trunks on x_res, the fused draw
-//      x_new = cq·m1 + aq + sq·ε, the g trunk on x_new, and
-//      α = −½Σ(z_f² − ε² + z_g²) + ab floored at −3e30;
-//   3. ℓ = lse(α) − log K and the filtered mean, by block reductions.
+// Design. Each trajectory row b runs on a thread-block cluster of C CTAs
+// (grid = B·C, cluster.cuh; the host picks C, fused_step.cluster_size), and
+// the cluster walks the time loop that was the TPU kernel's sequential t
+// grid axis. Every CTA keeps the whole row's carry in shared memory for the
+// whole scan — particles x [Dx][K] and log-weights [K], both double-buffered
+// by t's parity — with the q1/f/g weights (about 53 KB in fp32 at hidden
+// (64, 64), hence dynamic shared memory above 48 KB) and the fp64 CDF [K]:
+// 84.6 KB per CTA at Dx = 2, K = 1024, 94.1 KB at Dx = 3, 214 KB at Dx = 3,
+// K = MAX_K = 4096. CTA rank r owns particles [r·K/C, (r+1)·K/C). Per step:
+//   1. every CTA: the ESS of the incoming weights and their fp64 inclusive
+//      CDF over the whole row (resample.cuh::block_cdf), redundantly, so
+//      every CTA holds the same CDF and total and draws the same ancestors;
+//   2. per particle i of the own slice: the ancestor a_i by binary search,
+//      x_res = x[:, a_i] (from the CTA's own copy of the row), the q1 and f
+//      trunks on x_res, the fused draw x_new = cq·m1 + aq + sq·ε, the g trunk
+//      on x_new, and α = −½Σ(z_f² − ε² + z_g²) + ab floored at −3e30; x_new
+//      and α go into the other parity's buffers of all C CTAs (DSMEM stores);
+//   3. one cluster barrier: every CTA holds the new row;
+//   4. rank 0: ℓ = lse(α) − log K and the filtered mean over the whole row,
+//      by block reductions in K1's order, into stats.
+// With x and α double-buffered, one barrier per step is race-free: a CTA at
+// step t+1 writes the buffers that its neighbours last read before step t's
+// barrier. The particle arithmetic, the CDF and the reductions do not depend
+// on C, so every output is bit-equal for every C.
 // ε and the positions are either streamed operands or drawn in the kernel
-// (philox.cuh), which then reads no noise from device memory at all.
-// Residual mode (fused_step.ScanForward, the train step) also writes every
-// step's x_new into x_all and its ancestor indices into idx: what
-// _scan_fwd keeps for its backward (scan_backward.cu), which regathers the
-// resampled particles as x_{t-1}[idx_t] instead of storing them.
+// (philox.cuh, indexed by the particle's row index), which then reads no
+// noise from device memory at all. Residual mode (fused_step.ScanForward,
+// the train step) also writes every step's x_new into x_all and its ancestor
+// indices into idx: what _scan_fwd keeps for its backward (scan_backward.cu),
+// which regathers the resampled particles as x_{t-1}[idx_t] instead of
+// storing them.
 //
 // What bounds it. At B=32, K=1024, hidden (64, 64) one step is ~0.9 GFLOP
 // of fp32 FMAs on the CUDA cores (three trunks per particle, the 64x64
 // middle layer dominating) against ~0.5 MB of noise traffic, so it is
-// arithmetic-bound; but only B CTAs run, 32 of the card's 132 SMs, each
-// with 8 warps. The trunk keeps a particle's first hidden layer in registers
-// and streams the middle layer straight into the output layer, so no
-// activation touches shared or device memory; every weight read is a
-// warp-uniform shared-memory broadcast (float4 where rows allow).
-// Splitting K across a cluster to fill the card is later work.
+// arithmetic-bound. One CTA per row ran B = 32 CTAs on 32 of the card's 132
+// SMs; a cluster of C runs B·C CTAs, each with K/C of the trunk work, at the
+// price of one cluster barrier per step and the O(K) CDF, which every CTA
+// repeats. At 242 registers a thread (Dx = 2, hidden 64) one CTA fits an
+// SM, and the H100 holds 66 clusters of 2 but only 30 of 4 at once, so at
+// B = 32 the host picks C = 2 (64 SMs). The trunk keeps a particle's first
+// hidden layer in registers and streams the middle layer straight into the
+// output layer, so no activation touches shared or device memory; every
+// weight read is a warp-uniform shared-memory broadcast (float4 where rows
+// allow).
 //
 // The ones-channel bias folding and the PD=8 / HA=H+8 padding of the TPU
 // kernel existed for the MXU and Mosaic and are not carried over: the
@@ -43,6 +59,7 @@
 
 #include <cstdint>
 
+#include "cluster.cuh"
 #include "philox.cuh"
 #include "resample.cuh"
 #include "step_math.cuh"
@@ -65,6 +82,7 @@ struct ScanArgs {
   int* idx;              // [T1, B, K] ancestor indices or null (no residuals)
   uint32_t seed0, seed1;
   int use_rng, B, K, T1, n_mid, n_weights, off_f, off_g;
+  int cluster;           // C: CTAs per row, K % C == 0
 };
 
 // relu(x W + b) for one particle: W [DIN, H] row-major, then b [H].
@@ -171,13 +189,14 @@ struct StepRow {
 };
 
 // A CTA's shared memory in K1 and K14: the fp64 CDF, the weights, the
-// double-buffered particles, the log-weights and the reduction scratch.
+// particles and log-weights double-buffered by t's parity (K14 reads one
+// buffer and writes the other), and the reduction scratch.
 struct FwdSmem {
   double* cdf;  // [K]
   double* dred; // [kWarps]
   float* wts;   // [n_weights]
   float* xbuf;  // [2][DX][K]
-  float* lw;    // [K]
+  float* lw;    // [2][K]
   float* red;   // [kWarps]
 };
 
@@ -189,24 +208,70 @@ __device__ __forceinline__ FwdSmem carve_fwd(unsigned char* smem, int n_weights,
   s.wts = reinterpret_cast<float*>(s.dred + kWarps);
   s.xbuf = s.wts + n_weights;
   s.lw = s.xbuf + 2 * DX * K;
-  s.red = s.lw + K;
+  s.red = s.lw + 2 * K;
   return s;
 }
 
 template <int DX>
 size_t fwd_smem_bytes(int n_weights, int K) {
-  return sizeof(double) * (K + kWarps) + sizeof(float) * (n_weights + 2 * DX * K + K + kWarps);
+  return sizeof(double) * (K + kWarps) +
+         sizeof(float) * (n_weights + 2 * DX * K + 2 * K + kWarps);
 }
 
-// One filtering step of row b, t, on the carry xc [DX][K] and s.lw: the ESS
-// and CDF of the incoming weights; per particle the ancestor, the q1 and f
-// trunks on the resampled particle, the fused draw into xn [DX][K], the g
-// trunk and α (over s.lw); then ℓ, the ESS and the filtered mean into
-// r.stats. K1 runs it once per t, K14 once per launch: the same code, so the
-// same bits. Ends on a barrier.
-template <int DX, int DY, int H>
+// Where a step's x_new [DX][K] and α [K] go. K14 (one CTA per row): the
+// CTA's own buffers, published by a block barrier.
+struct CtaOut {
+  float *xn, *lw;
+  template <int DX>
+  __device__ __forceinline__ void put(int i, int K, const float (&x)[DX], float a) const {
+#pragma unroll
+    for (int d = 0; d < DX; ++d) xn[d * K + i] = x[d];
+    lw[i] = a;
+  }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
+// K1: the same buffers in each of the cluster's C CTAs (DSMEM stores; the
+// carve is the same in every CTA), published by a cluster barrier, which
+// also orders the stores before any CTA reads the row. A cluster of one
+// (C = 1, as at the SVO preset's K = 256) stores and syncs as K14 does.
+struct ClusterOut {
+  float *xn, *lw;
+  int ranks;
+  template <int DX>
+  __device__ __forceinline__ void put(int i, int K, const float (&x)[DX], float a) const {
+    if (ranks == 1) {
+      CtaOut{xn, lw}.template put<DX>(i, K, x, a);
+      return;
+    }
+    const cg::cluster_group cluster = cg::this_cluster();
+    for (int q = 0; q < ranks; ++q) {
+      float* xq = cluster.map_shared_rank(xn, q);
+#pragma unroll
+      for (int d = 0; d < DX; ++d) xq[d * K + i] = x[d];
+      cluster.map_shared_rank(lw, q)[i] = a;
+    }
+  }
+  __device__ __forceinline__ void sync() const {
+    if (ranks == 1)
+      __syncthreads();
+    else
+      cg::this_cluster().sync();
+  }
+};
+
+// One filtering step of row b, t, on the carry xc [DX][K] and lwc [K]: the
+// ESS and CDF of the incoming weights over the whole row; per particle i of
+// [lo, hi) the ancestor, the q1 and f trunks on the resampled particle, the
+// fused draw, the g trunk and α, handed to `out`; then, after out.sync(),
+// ℓ, the ESS and the filtered mean of the whole row into r.stats unless it
+// is null. K1 runs it once per t on each CTA of a row's cluster, K14 once
+// per launch on the whole row: the same code, so the same bits. Ends on a
+// barrier.
+template <int DX, int DY, int H, class Out>
 __device__ __forceinline__ void filter_step(const StepRow& r, const FwdSmem& s, const float* xc,
-                                            float* xn_buf, int K, int n_mid, int off_f, int off_g,
+                                            const float* lwc, const Out& out, int lo, int hi,
+                                            int K, int n_mid, int off_f, int off_g,
                                             const float (&sfi)[DX], const float (&sgi)[DY],
                                             bool use_rng, uint32_t seed0, uint32_t seed1, int b,
                                             int t) {
@@ -223,17 +288,16 @@ __device__ __forceinline__ void filter_step(const StepRow& r, const FwdSmem& s, 
 #pragma unroll
   for (int e = 0; e < DY; ++e) y[e] = c[3 * DX + e];
   const float ab = c[3 * DX + DY];
-  float* lw = s.lw;
 
   // 1. ESS and the CDF of the incoming weights
-  const float m = block_max_of(lw, K, s.red);
+  const float m = block_max_of(lwc, K, s.red);
   float s1, s2;
-  const double total = block_cdf(lw, K, m, s.cdf, s.dred, s.red, &s1, &s2);
+  const double total = block_cdf(lwc, K, m, s.cdf, s.dred, s.red, &s1, &s2);
   const float ess = s1 * s1 / fmaxf(s2, 1e-30f);
   const float u0 = use_rng ? draw_u0(seed0, seed1, b, t) : 0.0f;
 
-  // 2. resample, propose and weight each particle
-  for (int i = tid; i < K; i += kThreads) {
+  // 2. resample, propose and weight each particle of [lo, hi)
+  for (int i = lo + tid; i < hi; i += kThreads) {
     const float pos = use_rng ? systematic_position(i, u0, K) : r.pos[i];
     const int anc = ancestor(s.cdf, K, static_cast<double>(pos) * total);
     float e[DX];
@@ -265,9 +329,7 @@ __device__ __forceinline__ void filter_step(const StepRow& r, const FwdSmem& s, 
     // finiteness floor: a diverged mean gives a finite, hopeless weight
     const float alpha =
         fmaxf(alpha_unfloored<DX, DY>(xn, mf, e, y, mg, sfi, sgi, ab), -3e30f);
-#pragma unroll
-    for (int d = 0; d < DX; ++d) xn_buf[d * K + i] = xn[d];
-    lw[i] = alpha;
+    out.template put<DX>(i, K, xn, alpha);
     if (r.x_out != nullptr) {
 #pragma unroll
       for (int d = 0; d < DX; ++d) r.x_out[d * K + i] = xn[d];
@@ -275,9 +337,11 @@ __device__ __forceinline__ void filter_step(const StepRow& r, const FwdSmem& s, 
     if (r.alpha_out != nullptr) r.alpha_out[i] = alpha;
     if (r.idx != nullptr) r.idx[i] = anc;
   }
-  __syncthreads();
+  out.sync();
+  if (r.stats == nullptr) return;
 
   // 3. logZ increment and filtered mean under the new weights
+  const float* lw = out.lw;
   const float amax = block_max_of(lw, K, s.red);
   float sw = 0.0f, sx[DX];
 #pragma unroll
@@ -286,7 +350,7 @@ __device__ __forceinline__ void filter_step(const StepRow& r, const FwdSmem& s, 
     const float w = expf(lw[i] - amax);
     sw += w;
 #pragma unroll
-    for (int d = 0; d < DX; ++d) sx[d] = fmaf(w, xn_buf[d * K + i], sx[d]);
+    for (int d = 0; d < DX; ++d) sx[d] = fmaf(w, out.xn[d * K + i], sx[d]);
   }
   sw = block_reduce<false>(sw, s.red);
 #pragma unroll
@@ -302,7 +366,10 @@ __device__ __forceinline__ void filter_step(const StepRow& r, const FwdSmem& s, 
 template <int DX, int DY, int H>
 __global__ void __launch_bounds__(kThreads) scan_forward_kernel(const ScanArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int K = a.K, B = a.B, b = blockIdx.x, tid = threadIdx.x;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int C = a.cluster, rank = static_cast<int>(cluster.block_rank());
+  const int K = a.K, B = a.B, b = blockIdx.x / C, tid = threadIdx.x;
+  const int n = K / C, lo = rank * n;  // this CTA's particles [lo, lo + n)
   const FwdSmem s = carve_fwd<DX>(smem, a.n_weights, K);
   for (int i = tid; i < a.n_weights; i += kThreads) s.wts[i] = a.weights[i];
   for (int i = tid; i < DX * K; i += kThreads) s.xbuf[i] = a.x0[(size_t)b * DX * K + i];
@@ -312,7 +379,7 @@ __global__ void __launch_bounds__(kThreads) scan_forward_kernel(const ScanArgs a
   for (int d = 0; d < DX; ++d) sfi[d] = a.sconst[d];
 #pragma unroll
   for (int e = 0; e < DY; ++e) sgi[e] = a.sconst[DX + e];
-  __syncthreads();
+  cluster.sync();  // every CTA of the row has started before the first DSMEM store
 
   constexpr int NC = 3 * DX + DY + 1;
   int cur = 0;
@@ -321,22 +388,28 @@ __global__ void __launch_bounds__(kThreads) scan_forward_kernel(const ScanArgs a
     const StepRow r{a.coef + row * NC,
                     a.use_rng ? nullptr : a.eps + row * DX * K,
                     a.use_rng ? nullptr : a.pos + row * K,
-                    a.stats + row * (2 + DX),
+                    rank == 0 ? a.stats + row * (2 + DX) : nullptr,
                     a.x_all != nullptr ? a.x_all + row * DX * K : nullptr,
                     a.alpha_all != nullptr ? a.alpha_all + row * K : nullptr,
                     a.idx != nullptr ? a.idx + row * K : nullptr};
-    filter_step<DX, DY, H>(r, s, s.xbuf + cur * DX * K, s.xbuf + (cur ^ 1) * DX * K, K,
+    const ClusterOut out{s.xbuf + (cur ^ 1) * DX * K, s.lw + (cur ^ 1) * K, C};
+    filter_step<DX, DY, H>(r, s, s.xbuf + cur * DX * K, s.lw + cur * K, out, lo, lo + n, K,
                            a.n_mid, a.off_f, a.off_g, sfi, sgi, a.use_rng, a.seed0, a.seed1,
                            b, t);
     cur ^= 1;
   }
 
+  // the last step's barrier left the whole row in every CTA: each writes its slice
   const float* xc = s.xbuf + cur * DX * K;
-  for (int i = tid; i < DX * K; i += kThreads) a.x_last[(size_t)b * DX * K + i] = xc[i];
-  for (int i = tid; i < K; i += kThreads) a.alpha_last[(size_t)b * K + i] = s.lw[i];
+  const float* lc = s.lw + cur * K;
+  for (int e = tid; e < DX * n; e += kThreads) {
+    const int i = lo + e % n, d = e / n;
+    a.x_last[((size_t)b * DX + d) * K + i] = xc[d * K + i];
+  }
+  for (int i = lo + tid; i < lo + n; i += kThreads) a.alpha_last[(size_t)b * K + i] = lc[i];
 }
 
-// One CTA per trajectory row (K1, K14), with fwd_smem_bytes of shared memory.
+// One CTA per trajectory row (K14), with fwd_smem_bytes of shared memory.
 template <class Args>
 cudaError_t launch_rows(void (*kernel)(Args), const Args& a, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -395,8 +468,8 @@ __global__ void __launch_bounds__(kThreads) step_forward_kernel(const StepArgs a
                   a.pos + (size_t)b * K,       a.stats + (size_t)b * (2 + DX),
                   a.x_new + (size_t)b * DX * K, a.alpha + (size_t)b * K,
                   a.idx + (size_t)b * K};
-  filter_step<DX, DY, H>(r, s, s.xbuf, s.xbuf + DX * K, K, a.n_mid, a.off_f, a.off_g, sfi,
-                         sgi, false, 0u, 0u, b, 0);
+  filter_step<DX, DY, H>(r, s, s.xbuf, s.lw, CtaOut{s.xbuf + DX * K, s.lw + K}, 0, K, K,
+                         a.n_mid, a.off_f, a.off_g, sfi, sgi, false, 0u, 0u, b, 0);
 }
 
 }  // namespace psvo
@@ -409,16 +482,31 @@ extern "C" int psvo_scan_forward(const float* x0, const float* alpha0, const flo
                                  float* stats, float* x_all, float* alpha_all, int* idx,
                                  uint32_t seed0, uint32_t seed1, int use_rng, int B, int K,
                                  int T1, int dx, int dy, int hidden, int n_mid, int n_weights,
-                                 int off_f, int off_g, void* stream) {
+                                 int off_f, int off_g, int cluster, void* stream) {
   const psvo::ScanArgs a{x0,    alpha0,    coef,   eps,       pos,   weights, sconst,
                          x_last, alpha_last, stats, x_all,     alpha_all, idx, seed0,
                          seed1,  use_rng,   B,      K,         T1,    n_mid,  n_weights,
-                         off_f,  off_g};
+                         off_f,  off_g,     cluster};
+  if (cluster < 1 || K % cluster != 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   return psvo::with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
-    return psvo::launch_rows(psvo::scan_forward_kernel<D::DX, D::DY, D::H>, a,
-                             psvo::fwd_smem_bytes<D::DX>(n_weights, K), s);
+    return psvo::launch_clusters(psvo::scan_forward_kernel<D::DX, D::DY, D::H>, a, B, cluster,
+                                 psvo::fwd_smem_bytes<D::DX>(n_weights, K), s);
+  });
+}
+
+// How many clusters of `cluster` CTAs with `smem` bytes each can be resident
+// at once (cluster.cuh::max_active_clusters), into *out, for K1 (kernel 0)
+// or K4 (kernel 1) at (dx, dy, hidden). fused_step.cluster_size picks C from it.
+extern "C" int psvo_max_active_clusters(int kernel, int dx, int dy, int hidden, int cluster,
+                                        int smem, int* out) {
+  if (kernel == 1) return psvo::scan_backward_max_active(dx, dy, hidden, cluster, smem, out);
+  if (kernel != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return psvo::with_dims(dx, dy, hidden, [&](auto d) {
+    using D = decltype(d);
+    return psvo::max_active_clusters(psvo::scan_forward_kernel<D::DX, D::DY, D::H>, cluster,
+                                     static_cast<size_t>(smem), out);
   });
 }
 

@@ -35,8 +35,11 @@ _I = ctypes.c_int
 _U32 = ctypes.c_uint32
 # argtypes of each C entry point; every pointer and the stream are c_void_p
 SIGNATURES = {
-    "psvo_scan_forward": [_P] * 13 + [_U32, _U32] + [_I] * 11 + [_P],
-    "psvo_scan_backward": [_P] * 17 + [_U32, _U32] + [_I] * 11 + [_P],
+    # K1 and K4 end in (..., off_f, off_g, cluster, stream): C CTAs per row
+    "psvo_scan_forward": [_P] * 13 + [_U32, _U32] + [_I] * 12 + [_P],
+    "psvo_scan_backward": [_P] * 17 + [_U32, _U32] + [_I] * 12 + [_P],
+    # (kernel: 0 K1, 1 K4; dx, dy, hidden, cluster, smem bytes; int* out)
+    "psvo_max_active_clusters": [_I] * 6 + [_P],
     "psvo_stream_noise": [_P, _P, _U32, _U32, _I, _I, _I, _I, _P],
     "psvo_ancestor_indices": [_P, _P, _P, _I, _I, _P],
     "psvo_ffbsi_forward": [_P] * 13 + [_I] * 5 + [_P],

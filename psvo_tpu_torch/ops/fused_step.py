@@ -31,6 +31,14 @@ the card:
   step, K4's step on that step's residuals. Plain version:
   `step_backward_reference`, the replay of one step.
 
+K1 and K4 run each trajectory row on a thread-block cluster of C CTAs, each
+owning K/C particles (`csrc/cluster.cuh`). `cluster_size` picks C from the
+card's occupancy (`max_active_clusters`): the largest C in `CLUSTER_SIZES`
+whose B clusters are all resident at once. `scan_forward` and
+`scan_backward` take `cluster=` to force C and record the C of their last
+launch in `.last_cluster`. K1's outputs and K4's d_x0 are bit-equal for
+every C.
+
 `ScanForward` joins K1 and K4 as one `torch.autograd.Function`, the
 counterpart of `pallas_step._scan_call`'s custom VJP; `StepForward` joins
 K14 and K15, the counterpart of `pallas_step._step_call`'s. `SCAN_FUSED`
@@ -57,6 +65,8 @@ of `aug_net`/`pack_sm`, which existed for the TPU's matrix unit and Mosaic;
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -64,12 +74,16 @@ import torch
 from psvo_tpu_torch.ops import _build
 from psvo_tpu_torch.ops.resampling import gather_particles
 
-MAX_K = 4096  # shared memory: fp64 CDF + 2x particles + log-weights + weights
+MAX_K = 4096  # shared memory: fp64 CDF + 2x particles + 2x log-weights + weights
 HIDDEN_WIDTHS = (16, 32, 64)  # trunk widths the kernel is instantiated for
 KERNEL_DIMS = ((2, 2), (3, 3))  # (Dx, Dy) instantiated: FitzHugh-Nagumo, Lorenz-63
 _THREADS = 256
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper (227 KB)
 SCAN_FUSED = True  # False: the filter runs one K14 launch per step (K15 per step backward)
+CLUSTER_SIZES = (1, 2, 4, 8)  # CTAs per row of K1 and K4 (8: the portable cluster limit)
+K1_MIN_SLICE = 256  # particles per CTA of K1 at C > 1: one per thread at least
+K4_MIN_SLICE = 64  # particles per CTA of K4 at C > 1: one tile at least
+_K1, _K4 = 0, 1  # psvo_max_active_clusters' kernel argument
 
 
 def usable(ssm, cfg) -> bool:
@@ -318,6 +332,76 @@ ancestor_indices.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K1 and K4 on thread-block clusters (csrc/cluster.cuh)
+# ---------------------------------------------------------------------------
+
+
+def cluster_size(batch: int, k: int, min_slice: int, max_active: dict) -> int:
+    """C, the CTAs per trajectory row of K1 (min_slice 256) or K4 (64).
+
+    max_active maps C to the number of clusters of C CTAs the card holds at
+    once (0: the kernel does not fit at that C). Returns the largest C in
+    `CLUSTER_SIZES` with K a multiple of C·min_slice (C = 1 needs nothing)
+    whose B clusters all fit in one wave; else the smallest such C that fits
+    at all, in several waves; else 1. The count is the card's own, not its
+    SM count over C: a cluster needs its C SMs in one GPC, and the GPCs
+    differ in size.
+    """
+    fits = [c for c in CLUSTER_SIZES
+            if (c == 1 or k % (c * min_slice) == 0) and max_active.get(c, 0) > 0]
+    one_wave = [c for c in fits if batch <= max_active[c]]
+    if one_wave:
+        return max(one_wave)
+    return min(fits) if fits else 1
+
+
+def k1_smem_bytes(consts, k: int) -> int:
+    """Dynamic shared memory of one K1 CTA, any C
+    (csrc/scan_forward.cu::fwd_smem_bytes): the fp64 CDF [K], the weights, the
+    particles [2][Dx][K], the log-weights [2][K] and the reduction scratch."""
+    warps = _THREADS // 32
+    return 8 * (k + warps) + 4 * (consts["packed"].numel() + 2 * consts["dx"] * k + 2 * k + warps)
+
+
+def max_active_clusters(kernel: int, device, consts, k: int) -> dict:
+    """{C: clusters of C CTAs of K1 (`kernel` 0) or K4 (1) resident at once}
+    on `device` at these constants and K, from the card's occupancy query
+    (`psvo_max_active_clusters`); 0 where the CTA's shared memory exceeds
+    `SMEM_LIMIT` or C does not divide K. Cached per (device, kernel, shape)."""
+    smem = tuple((k1_smem_bytes(consts, k) if kernel == _K1 else k4_smem_bytes(consts, k, c))
+                 if k % c == 0 else SMEM_LIMIT + 1 for c in CLUSTER_SIZES)
+    return _max_active(kernel, torch.device(device).index, consts["dx"], consts["dy"],
+                       consts["hidden"], smem)
+
+
+@functools.cache
+def _max_active(kernel, device_index, dx, dy, hidden, smem):
+    lib = _build.load_library()
+    out = {}
+    for c, nbytes in zip(CLUSTER_SIZES, smem):
+        n = ctypes.c_int(0)
+        if nbytes <= SMEM_LIMIT:
+            err = lib.psvo_max_active_clusters(kernel, dx, dy, hidden, c, nbytes,
+                                               ctypes.addressof(n))
+            _build.check(lib, err, "max_active_clusters")
+        out[c] = n.value
+    return out
+
+
+def _pick_cluster(name: str, kernel: int, x0, consts, cluster) -> int:
+    """The C of one K1 or K4 launch: `cluster` if given (checked), else
+    cluster_size on the card's occupancy."""
+    batch, k = x0.shape[0], x0.shape[-1]
+    min_slice = K1_MIN_SLICE if kernel == _K1 else K4_MIN_SLICE
+    if cluster is None:
+        return cluster_size(batch, k, min_slice, max_active_clusters(kernel, x0.device, consts, k))
+    if cluster not in CLUSTER_SIZES or (cluster > 1 and k % (cluster * min_slice)):
+        raise ValueError(f"{name}: no cluster of {cluster} CTAs at K={k} (C in {CLUSTER_SIZES}, "
+                         f"K a multiple of C·{min_slice})")
+    return cluster
+
+
+# ---------------------------------------------------------------------------
 # K1: the whole forward scan
 # ---------------------------------------------------------------------------
 
@@ -446,7 +530,7 @@ def _ptr(t):
 
 
 def scan_forward(x0, alpha0, coef, consts, *, eps=None, positions=None, seed=None,
-                 cache: bool = False, save_res: bool = False):
+                 cache: bool = False, save_res: bool = False, cluster=None):
     """K1: the forward filter's steps t = 1..T−1 in one launch.
 
     Noise either as streams (eps [T−1, B, Dx, K] and sorted positions
@@ -454,8 +538,10 @@ def scan_forward(x0, alpha0, coef, consts, *, eps=None, positions=None, seed=Non
     systematic positions from per-step offsets, K2's streams). `save_res`
     also writes the backward's residuals, x_all and idx. Outputs as
     `scan_forward_reference`. CPU tensors run the plain version (in-kernel
-    RNG replayed through K2's plain version); CUDA tensors launch the kernel.
-    It takes no gradient itself: differentiate through `ScanForward`.
+    RNG replayed through K2's plain version); CUDA tensors launch the kernel
+    on clusters of `cluster` CTAs per row (None: `cluster_size`'s choice),
+    with the same bits for every C. It takes no gradient itself:
+    differentiate through `ScanForward`.
     """
     if (seed is None) == (eps is None or positions is None):
         raise ValueError("scan_forward: pass either (eps, positions) or seed")
@@ -477,15 +563,16 @@ def scan_forward(x0, alpha0, coef, consts, *, eps=None, positions=None, seed=Non
             "or call it under torch.no_grad()"
         )
     return _launch_scan_forward(x0, alpha0, coef, consts, eps, positions, seed, cache,
-                                save_res, torch.cuda.current_stream(x0.device).cuda_stream)
+                                save_res, cluster, torch.cuda.current_stream(x0.device).cuda_stream)
 
 
 scan_forward.launches = 0
+scan_forward.last_cluster = None
 
 
 def _launch_scan_forward(x0, alpha0, coef, consts, eps, positions, seed, cache, save_res,
-                         stream):
-    """Check K1's operands, allocate its outputs and launch it on `stream`."""
+                         cluster, stream):
+    """Check K1's operands, pick C, allocate the outputs and launch it on `stream`."""
     t_len, batch = coef.shape[0], coef.shape[1]
     dx, dy, k = consts["dx"], consts["dy"], x0.shape[-1]
     dev = x0.device
@@ -494,6 +581,7 @@ def _launch_scan_forward(x0, alpha0, coef, consts, eps, positions, seed, cache, 
         raise ValueError(
             f"scan_forward: no kernel for Dx={dx}, Dy={dy}, hidden={h}, K={k}"
         )
+    cluster = _pick_cluster("scan_forward", _K1, x0, consts, cluster)
     _require(x0, (batch, dx, k), "x0", dev)
     _require(alpha0, (batch, k), "alpha0", dev)
     _require(coef, (t_len, batch, 3 * dx + dy + 1), "coef", dev)
@@ -519,9 +607,10 @@ def _launch_scan_forward(x0, alpha0, coef, consts, eps, positions, seed, cache, 
         x_last.data_ptr(), alpha_last.data_ptr(), stats.data_ptr(),
         _ptr(x_all), _ptr(alpha_all), _ptr(idx),
         seed0, seed1, int(seed is not None), batch, k, t_len, dx, dy, h, n_mid,
-        consts["packed"].numel(), off_f, off_g, stream,
+        consts["packed"].numel(), off_f, off_g, cluster, stream,
     )
     scan_forward.launches += 1
+    scan_forward.last_cluster = cluster
     _build.check(lib, err, "scan_forward")
     return x_last, alpha_last, stats, x_all, alpha_all, idx
 
@@ -589,34 +678,45 @@ def _replay_backward(x0, coef, consts, eps, idx, d_stats, d_x_last=None, d_alpha
     return tuple(torch.zeros_like(v) if gr is None else gr for gr, v in zip(grads, leaves))
 
 
-def k4_smem_bytes(consts, k: int) -> int:
-    """Dynamic shared memory of K4 (csrc/scan_backward.cu::bwd_smem_bytes):
-    weights and their gradient sums, four [H][68] activation tiles, the
-    [9·Dx + 2·Dy][68] tile arrays, the carry and d x_res [Dx][K], the
-    reduction scratch and the int32 ancestors [K]."""
+def k4_smem_bytes(consts, k: int, cluster: int = 1) -> int:
+    """Dynamic shared memory of one K4 CTA on a cluster of `cluster` CTAs per
+    row (csrc/scan_backward.cu::bwd_smem_bytes): weights and their gradient
+    sums, four [H][68] activation tiles, the [9·Dx + 2·Dy][68] tile arrays,
+    the carry and d x_res of the slice [Dx][K/C] (d x_res twice and the
+    slice's 3·Dx + 1 d_coef sums twice at C > 1), the reduction scratch and
+    the int32 ancestors of the row [K]."""
     dx, dy, h = consts["dx"], consts["dy"], consts["hidden"]
     n_w = consts["packed"].numel()
-    floats = 2 * n_w + 4 * h * 68 + (9 * dx + 2 * dy) * 68 + 2 * dx * k + _THREADS // 32
+    n = k // cluster
+    slices = (3 * dx * n + 2 * (3 * dx + 1)) if cluster > 1 else 2 * dx * n
+    floats = 2 * n_w + 4 * h * 68 + (9 * dx + 2 * dy) * 68 + slices + _THREADS // 32
     return 4 * floats + 4 * k
 
 
-def _k4_ok(consts, k: int) -> bool:
+def _k4_ok(consts, k: int, cluster: int = 1) -> bool:
+    """Whether K4 runs at these constants and K on clusters of `cluster`."""
     return ((consts["dx"], consts["dy"]) in KERNEL_DIMS and consts["hidden"] in HIDDEN_WIDTHS
-            and consts["n_mid"] == 1 and _k_ok(k) and k4_smem_bytes(consts, k) <= SMEM_LIMIT)
+            and consts["n_mid"] == 1 and _k_ok(k) and cluster in CLUSTER_SIZES
+            and (cluster == 1 or k % (cluster * K4_MIN_SLICE) == 0)
+            and k4_smem_bytes(consts, k, cluster) <= SMEM_LIMIT)
 
 
 def scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last=None,
-                  d_alpha_last=None, d_x_all=None, d_alpha_all=None, *, eps=None, seed=None):
+                  d_alpha_last=None, d_x_all=None, d_alpha_all=None, *, eps=None, seed=None,
+                  cluster=None):
     """K4: the VJP of K1 over all T−1 steps in one launch.
 
     Takes K1's inputs (x0, coef, consts and the noise: eps [T−1, B, Dx, K] or
     the `seed` it drew from) and its outputs under save_res: x_all, the int32
     ancestors idx, nondecreasing along K, and stats (for ℓ). Cotangents and
     outputs as `scan_backward_reference`, which CPU tensors run (in-kernel
-    RNG replayed through K2's plain version); CUDA tensors launch the kernel.
+    RNG replayed through K2's plain version); CUDA tensors launch the kernel
+    on clusters of `cluster` CTAs per row (None: `cluster_size`'s choice;
+    d_x0 has the same bits for every C, the sums agree to float32 rounding).
     The kernel is built for Dx = Dy = 2 and 3, hidden widths 16/32/64 with
     one middle layer, and K as far as its shared memory holds
-    (`k4_smem_bytes`: at width 64, K up to 2304 at Dx = 2 and 1536 at 3).
+    (`k4_smem_bytes`: at width 64, K up to 2304 at Dx = 2 and 1536 at 3 at
+    C = 1; MAX_K and 3072 at C = 4).
     """
     if (seed is None) == (eps is None):
         raise ValueError("scan_backward: pass either eps or seed")
@@ -630,25 +730,36 @@ def scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last=None,
     if x0.device.type != "cuda":
         raise ValueError(f"scan_backward: unsupported device {x0.device}")
     return _launch_scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last,
-                                 d_alpha_last, d_x_all, d_alpha_all, eps, seed,
+                                 d_alpha_last, d_x_all, d_alpha_all, eps, seed, cluster,
                                  torch.cuda.current_stream(x0.device).cuda_stream)
 
 
 scan_backward.launches = 0
+scan_backward.last_cluster = None
+
+
+def _k4_class(consts, k: int) -> bool:
+    """Whether K4 runs at these constants and K on clusters of some size."""
+    return any(_k4_ok(consts, k, c) for c in CLUSTER_SIZES)
 
 
 def _launch_scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last,
-                          d_alpha_last, d_x_all, d_alpha_all, eps, seed, stream):
-    """Check K4's operands, allocate its outputs and launch it on `stream`."""
+                          d_alpha_last, d_x_all, d_alpha_all, eps, seed, cluster, stream):
+    """Check K4's operands, pick C, allocate the outputs and launch it on `stream`."""
     t_len, batch = coef.shape[0], coef.shape[1]
     dx, dy, k = consts["dx"], consts["dy"], x0.shape[-1]
     dev = x0.device
-    if not _k4_ok(consts, k):
+    if not _k4_class(consts, k):
         raise ValueError(
             f"scan_backward: no kernel for Dx={dx}, Dy={dy}, hidden={consts['hidden']}, "
             f"{consts['n_mid']} middle layers, K={k} ({k4_smem_bytes(consts, k)} B of shared "
-            f"memory, at most {SMEM_LIMIT})"
+            f"memory at C = 1, at most {SMEM_LIMIT})"
         )
+    cluster = _pick_cluster("scan_backward", _K4, x0, consts, cluster)
+    if not _k4_ok(consts, k, cluster):
+        raise ValueError(f"scan_backward: no kernel at K={k} on clusters of {cluster} "
+                         f"({k4_smem_bytes(consts, k, cluster)} B of shared memory, at most "
+                         f"{SMEM_LIMIT})")
     _require(x0, (batch, dx, k), "x0", dev)
     _require(x_all, (t_len, batch, dx, k), "x_all", dev)
     _require(idx, (t_len, batch, k), "idx", dev, torch.int32)
@@ -667,7 +778,7 @@ def _launch_scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last
     f32 = dict(dtype=torch.float32, device=dev)
     d_x0 = torch.empty((batch, dx, k), **f32)
     d_coef = torch.empty(coef.shape, **f32)
-    partial = torch.empty((batch, n_w + dx + dy), **f32)
+    partial = torch.empty((batch * cluster, n_w + dx + dy), **f32)
     grads = torch.empty((n_w + dx + dy,), **f32)
 
     seed0, seed1 = (0, 0) if seed is None else seed
@@ -679,9 +790,10 @@ def _launch_scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last
         d_stats.data_ptr(), _ptr(d_x_last), _ptr(d_alpha_last), _ptr(d_x_all),
         _ptr(d_alpha_all), d_x0.data_ptr(), d_coef.data_ptr(), partial.data_ptr(),
         grads.data_ptr(), seed0, seed1, int(seed is not None), batch, k, t_len, dx, dy,
-        consts["hidden"], consts["n_mid"], n_w, off_f, off_g, stream,
+        consts["hidden"], consts["n_mid"], n_w, off_f, off_g, cluster, stream,
     )
     scan_backward.launches += 1
+    scan_backward.last_cluster = cluster
     _build.check(lib, err, "scan_backward")
     return d_x0, d_coef, grads[:n_w], grads[n_w:]
 
@@ -708,7 +820,7 @@ class ScanForward(torch.autograd.Function):
     def forward(ctx, x0, alpha0, coef, packed, sconst, consts, eps, positions, seed, cache):
         consts = dict(consts, packed=packed, sconst=sconst)
         save = any(ctx.needs_input_grad)
-        if save and x0.is_cuda and not _k4_ok(consts, x0.shape[-1]):
+        if save and x0.is_cuda and not _k4_class(consts, x0.shape[-1]):
             raise ValueError("ScanForward: this configuration has no backward kernel "
                              "(fused_step.scan_backward)")
         x_last, alpha_last, stats, x_all, alpha_all, idx = scan_forward(

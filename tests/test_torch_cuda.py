@@ -775,3 +775,96 @@ def test_per_step_train_step_launches_k14_and_k15(monkeypatch):
     for name in want:
         for a, w in zip(_leaves(got[name]), _leaves(want[name])):
             assert _rel(torch.from_numpy(a), torch.from_numpy(w)) <= 1e-4, name
+
+
+@pytest.mark.parametrize("cluster", [2, 4])
+@pytest.mark.parametrize("dx", [2, 3])
+def test_scan_forward_on_clusters_is_bit_equal_to_one_cta_per_row(dx, cluster):
+    """K1 on clusters of C CTAs per row gives every output of C = 1 bit for
+    bit, with the streamed noise and with the in-kernel draw."""
+    dev = _cuda()
+    consts, x0, a0, coef, eps, pos, _ = _step_operands(dev, dx, 16, k=1024)
+    with torch.no_grad():
+        for noise in ({"eps": eps, "positions": pos}, {"seed": (5, 6)}):
+            one = fused_step.scan_forward(x0, a0, coef, consts, cache=True, save_res=True,
+                                          cluster=1, **noise)
+            got = fused_step.scan_forward(x0, a0, coef, consts, cache=True, save_res=True,
+                                          cluster=cluster, **noise)
+            assert fused_step.scan_forward.last_cluster == cluster
+            assert all(torch.equal(a, b) for a, b in zip(got, one))
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8])
+@pytest.mark.parametrize("dx", [2, 3])
+def test_scan_backward_on_clusters_matches_one_cta_per_row(dx, cluster):
+    """K4 on clusters of C CTAs per row: d_x0 bit-equal to C = 1, d_coef and
+    the weight and sconst gradients within 1e-6 relative (summed per slice
+    first), the same bits on a relaunch, and within 1e-4 of the plain version."""
+    dev = _cuda()
+    consts, x0, a0, coef, eps, pos, g = _step_operands(dev, dx, 16, k=512)
+    with torch.no_grad():
+        x_last, alpha_last, stats, x_all, alpha_all, idx = fused_step.scan_forward(
+            x0, a0, coef, consts, eps=eps, positions=pos, cache=True, save_res=True)
+    d_stats = torch.randn(stats.shape, generator=g, device=dev)
+    cots = [torch.randn(t.shape, generator=g, device=dev) * 0.1
+            for t in (x_last, alpha_last, x_all, alpha_all)]
+    args = (x0, x_all, idx, stats, coef, consts, d_stats, *cots)
+    one = fused_step.scan_backward(*args, eps=eps, cluster=1)
+    got = fused_step.scan_backward(*args, eps=eps, cluster=cluster)
+    assert fused_step.scan_backward.last_cluster == cluster
+    again = fused_step.scan_backward(*args, eps=eps, cluster=cluster)
+    assert torch.equal(got[0], one[0])
+    for a, w in zip(got[1:], one[1:]):
+        assert _rel(a, w) <= 1e-6
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = fused_step.scan_backward_reference(x0, coef, consts, eps, idx, d_stats, *cots)
+    for a, w in zip(got, want):
+        assert _rel(a, w) <= 1e-4
+
+
+def test_train_step_runs_k1_and_k4_on_clusters():
+    """One fhn_fivo_k1024_bench train step at its full widths (B = 32,
+    K = 1024, hidden (64, 64); T cut to 6): K1 and K4 launch once each, on
+    the cluster size that cluster_size picks from the card's occupancy, which
+    splits each row over C > 1 CTAs."""
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    dev = _cuda()
+    cfg = PRESETS["fhn_fivo_k1024_bench"]
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, t_steps=6),
+                              train=dataclasses.replace(cfg.train, steps_per_call=1))
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ys = torch.randn((32, 6, 2), generator=torch.Generator().manual_seed(2)).to(dev)
+    launches = (fused_step.scan_forward.launches, fused_step.scan_backward.launches)
+    metrics = make_train_step(ssm, cfg, make_optimizer(cfg))(torch.Generator(device=dev)
+                                                               .manual_seed(3), ys)
+    assert (fused_step.scan_forward.launches, fused_step.scan_backward.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert torch.isfinite(metrics["loss"])
+    with torch.no_grad():
+        consts = fused_step.prepare(ssm)
+    for fn, kernel, min_slice in ((fused_step.scan_forward, 0, fused_step.K1_MIN_SLICE),
+                                  (fused_step.scan_backward, 1, fused_step.K4_MIN_SLICE)):
+        max_active = fused_step.max_active_clusters(kernel, dev, consts, 1024)
+        assert fn.last_cluster == fused_step.cluster_size(32, 1024, min_slice, max_active) > 1
+
+
+def test_cluster_launch_outside_the_class_raises():
+    """A forced cluster that does not split K into whole slices raises; so
+    does K4 at Dx = 3, K = 2048 forced onto one CTA per row (no room), where
+    the chosen cluster runs it."""
+    dev = _cuda()
+    consts, x0, a0, coef, eps, pos, g = _step_operands(dev, 3, 64, b=2, k=2048, t1=1)
+    with torch.no_grad(), pytest.raises(ValueError, match="no cluster"):
+        fused_step.scan_forward(x0, a0, coef, consts, eps=eps, positions=pos, cluster=16)
+    with torch.no_grad():
+        _, _, stats, x_all, _, idx = fused_step.scan_forward(
+            x0, a0, coef, consts, eps=eps, positions=pos, save_res=True)
+    d_stats = torch.randn(stats.shape, generator=g, device=dev)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_step.scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, eps=eps, cluster=1)
+    got = fused_step.scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, eps=eps)
+    assert fused_step.scan_backward.last_cluster > 1
+    want = fused_step.scan_backward_reference(x0, coef, consts, eps, idx, d_stats)
+    for a, w in zip(got, want):
+        assert _rel(a, w) <= 1e-4
