@@ -110,11 +110,27 @@ fused_step.cluster_size picks):
       bit-equal on a relaunch; times per C, C=1 and the chosen C alternated
       (the chosen C must be faster)
 
-Every phase prints its lines and its seconds; any failure exits non-zero.
-The second-to-last line is the kernels' JSON record (times beside the
-bound: the larger of the operations over 67 TFLOP/s fp32 and the bytes over
-3.35 TB/s, the H100 SXM's published peaks); the last line is the device
-record. Imports nothing of JAX: the machine with the card has none.
+and K14 and K15 on S CTAs per row with no cluster (every phase from z on
+launched them at the S that fused_step.step_slices picks):
+
+  (ae) K14 and K15 at each slice count S in {1, 2, 4, 8} that the gates
+      admit, at the FHN and Lorenz-63 shapes (B=32, K=1024, hidden 64), on
+      the residuals of phase z's chains: the card's resident CTAs and the
+      chosen S; K14's outputs and K15's d_x bit-equal to S=1, K15's other
+      leaves within 1e-6 relative L2 (else no further from a float64 replay
+      than S=1's), each bit-equal on a relaunch; device times per S, S=1
+      and the chosen S alternated, alone (K15's sum_rows_kernel apart: the
+      partial-row traffic) and inside one per-step FHN train call, with
+      the step's device time and host-clock time per S
+
+Every phase prints its lines and its seconds; any failure prints its reason
+on stdout and stderr and exits non-zero. A torch.profiler window that comes
+back with no device events is run again (profiled_kernels), and the run
+ends with the count of such windows. The second-to-last line is the
+kernels' JSON record (times beside the bound: the larger of the operations
+over 67 TFLOP/s fp32 and the bytes over 3.35 TB/s, the H100 SXM's published
+peaks); the last line is the device record. Imports nothing of JAX: the
+machine with the card has none.
 """
 
 from __future__ import annotations
@@ -146,27 +162,66 @@ def phase_done(label: str) -> None:
 
 
 def fail(msg: str) -> None:
+    """Print msg on both streams (a caller that keeps only one still sees it)
+    and exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"chip_smoke.py FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+PROFILE_TRIES = 8
+PROFILE_WINDOWS = {"windows": 0, "empty": 0}
+
+
+def profiled_kernels(window, with_cpu: bool) -> list:
+    """The device events of one torch.profiler window around window() (and a
+    synchronize). Now and then a window comes back with no device events at
+    all although its kernels ran (on the H100 with torch 2.11, in a random
+    phase, in two of three runs of this script): such a window is run again,
+    a second later, up to PROFILE_TRIES times, and counted in PROFILE_WINDOWS;
+    a window that stays empty fails the run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if with_cpu else [ProfilerActivity.CUDA]
+    for attempt in range(1, PROFILE_TRIES + 1):
+        PROFILE_WINDOWS["windows"] += 1
+        with profile(activities=acts) as prof:
+            window()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kern:
+            return kern
+        PROFILE_WINDOWS["empty"] += 1
+        print(f"[profiler] a window recorded no device events (attempt {attempt} of "
+              f"{PROFILE_TRIES})", flush=True)
+        time.sleep(1.0)
+    fail(f"torch.profiler recorded no device time in {PROFILE_TRIES} windows in a row")
 
 
 def device_ms(fn, n: int = 20) -> float:
     """Device time per call of fn(): the kernels' own time from torch.profiler
     over n calls after one warm-up, without the host's launch gaps (which
     CUDA events around a short call include)."""
+    return sum(device_ms_by_kernel(fn, n).values())
+
+
+def device_ms_by_kernel(fn, n: int = 20) -> dict:
+    """device_ms split by kernel name: {name: ms per call of fn()}."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def window():
         for _ in range(n):
             fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kern:
-        fail("torch.profiler recorded no device time")
-    return sum(e.time_range.elapsed_us() for e in kern) / n / 1e3
+
+    kern = profiled_kernels(window, with_cpu=False)
+    out = {}
+    for e in kern:
+        out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / n / 1e3
+    return out
 
 
 def time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
@@ -202,15 +257,7 @@ def device_breakdown(fn, n_steps: int, groups: dict) -> str:
     every other kernel; the span runs from the first kernel's start to the
     last one's end, and idle is the share of it with no kernel running (one
     stream, so kernels do not overlap)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kern:
-        fail("torch.profiler recorded no device time")
+    kern = profiled_kernels(fn, with_cpu=True)
     span = max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)
     busy = sum(e.time_range.elapsed_us() for e in kern)
     per = 1e3 * n_steps  # us -> ms per step
@@ -1039,6 +1086,72 @@ def cluster_sweep(ssm, cfg, ys, gen, rng_seed=None, cache=False):
                 times.setdefault(c, []).append(time_ms(lambda: fn(c)))
         ms.append(times)
     return dict(max_active=max_active, chosen=chosen, sizes=sizes, k1=k1, k4=k4, ms=ms)
+
+
+def slice_sweep(fwd_args, bwd_args, gen):
+    """K14 and K15 at every slice count S that the gates admit, against S = 1
+    on one step's operands: K14 on fwd_args (every output bit for bit), K15
+    on bwd_args with random cotangents (d_x bit for bit; d_coef, the weight
+    and sconst gradients by relative L2, and where one exceeds 1e-6 its
+    distance from a float64 replay of step_backward_reference beside S = 1's),
+    each S bit-equal on a relaunch. Then device times per S from
+    torch.profiler (20 launches), S = 1 and the chosen S alternated: 1,
+    chosen, the others, chosen, 1; K15's sum_rows_kernel apart. Returns a dict."""
+    import torch
+    from psvo_tpu_torch.ops import fused_step
+
+    consts = fwd_args[3]
+    b, k = fwd_args[0].shape[0], fwd_args[0].shape[-1]
+    dev = fwd_args[0].device
+    mins = (fused_step.K1_MIN_SLICE, fused_step.K4_MIN_SLICE)
+    resident = [fused_step.resident_ctas(kern, dev, consts, k) for kern in (0, 1)]
+    chosen = [fused_step.step_slices(b, k, mins[kern], resident[kern]) for kern in (0, 1)]
+    sizes = [[s for s in fused_step.STEP_SLICES if s == 1 or k % (s * m) == 0] for m in mins]
+    x, x_new, idx, stats, coef, eps = bwd_args
+    cots = (torch.randn(stats.shape, generator=gen, device=dev),
+            torch.randn(x_new.shape, generator=gen, device=dev),
+            torch.randn((b, k), generator=gen, device=dev))
+    bwd_all = (x, x_new, idx, stats, coef, consts, eps, *cots)
+
+    def fwd(s):
+        return fused_step.step_forward(*fwd_args, slices=s)
+
+    def bwd(s):
+        return fused_step.step_backward(*bwd_all, slices=s)
+
+    def equal(xs, ys_):
+        return all(torch.equal(a, w) for a, w in zip(xs, ys_))
+
+    def rel(a, w):
+        return float((a - w).norm() / w.norm().clamp_min(1e-30))
+
+    one_f, one_b = fwd(1), bwd(1)
+    k14 = {s: {"equal": equal(fwd(s), one_f), "same": equal(fwd(s), fwd(s))} for s in sizes[0]}
+    k15, ref64 = {}, None
+    for s in sizes[1]:
+        got, again = bwd(s), bwd(s)
+        r = k15[s] = {"dx_equal": torch.equal(got[0], one_b[0]), "same": equal(got, again),
+                      "rel": [rel(g, w) for g, w in zip(got[1:], one_b[1:])], "vs64": {}}
+        for i, e in enumerate(r["rel"], 1):
+            if e > 1e-6:  # the sums against float64 instead: no further than S = 1's
+                if ref64 is None:
+                    c64 = dict(consts, packed=consts["packed"].double(),
+                               sconst=consts["sconst"].double())
+                    ref64 = fused_step.step_backward_reference(
+                        x.double(), coef.double(), c64, eps.double(), idx,
+                        *(c.double() for c in cots))
+                r["vs64"][i] = (rel(got[i].double(), ref64[i]), rel(one_b[i].double(), ref64[i]))
+    torch.cuda.synchronize()
+    ms = []
+    for kern, fn in ((0, fwd), (1, bwd)):
+        c_ = chosen[kern]
+        order = [1, c_] + [s for s in sizes[kern] if s not in (1, c_)] + [c_, 1]
+        times = {}
+        with torch.no_grad():
+            for s in order:
+                times.setdefault(s, []).append(device_ms_by_kernel(lambda: fn(s)))
+        ms.append(times)
+    return dict(resident=resident, chosen=chosen, sizes=sizes, k14=k14, k15=k15, ms=ms)
 
 
 def main() -> int:
@@ -2070,11 +2183,22 @@ def main() -> int:
                   + f" (max|d| {r['tf_abs']:.3e}); chain of {cfg.data.t_steps - 1} "
                   f"launches vs one K1 launch on the same streams: {r['k1_idx']} indices differ, "
                   f"max|d| x {r['vs_k1'][0]:.3e} alpha {r['vs_k1'][1]:.3e} stats "
-                  f"{r['vs_k1'][2]:.3e}; finite {r['finite']}", flush=True)
+                  f"{r['vs_k1'][2]:.3e}; finite {r['finite']}; K14 on "
+                  f"S={fused_step.step_forward.last_slices} CTAs per row", flush=True)
             if not (r["finite"] and r["idx_bad"] == 0 and max(r["tf_l2"]) <= 1e-4
                     and r["k1_idx"] == 0):
                 fail(f"K14 ({preset}, {label}) disagrees with step_forward_reference or with K1")
     k14_small_err = max(step_runs[(p, "small")]["tf_abs"] for p in (fhn, l63))
+    slice_inputs = {}  # phase ae's operands: step t_mid of each full chain, and its residuals
+    for preset in (fhn, l63):
+        rf = step_runs[(preset, "full")]
+        tm = rf["inp"]["coef"].shape[0] // 2
+        x_all, alpha_all, stats_all, idx_all = (c.clone() for c in rf["chain"])
+        slice_inputs[preset] = (
+            (x_all[tm - 1], alpha_all[tm - 1], rf["inp"]["coef"][tm], rf["inp"]["consts"],
+             rf["inp"]["eps"][tm], rf["inp"]["positions"][tm]),
+            (x_all[tm - 1], x_all[tm], idx_all[tm], stats_all[tm], rf["inp"]["coef"][tm],
+             rf["inp"]["eps"][tm]))
     full = step_runs[(fhn, "full")]
     inp = full["inp"]
     t_mid = inp["coef"].shape[0] // 2
@@ -2109,7 +2233,8 @@ def main() -> int:
               f"zeroed on {rb['zeroed']} of {rb['n']} particle-steps with a relu tie; with every "
               f"particle's, rel L2 " + ", ".join(f"{e:.3e}" for e in rb["rel_raw"])
               + "; the chain vs one K4 launch, rel L2 " + ", ".join(f"{e:.3e}" for e in rb["vs_k4"])
-              + " (d_x0, d_coef, summed d_weights, d_sconst)", flush=True)
+              + f" (d_x0, d_coef, summed d_weights, d_sconst); K15 on "
+              f"S={fused_step.step_backward.last_slices} CTAs per row", flush=True)
         if not (rb["finite"] and rb["same"] and max(rb["rel"]) <= tol and max(rb["vs_k4"]) <= 1e-4):
             fail(f"K15 ({key[0]}, {key[1]}) disagrees with step_backward_reference or with K4")
         if key[1] == "small":
@@ -2150,7 +2275,7 @@ def main() -> int:
           f"{max(kk for kk in range(256, 4097, 256) if fused_step._k15_ok(wc, kk))}), cotangents "
           f"zeroed on {int((~w_keep).sum())} of {w_keep.numel()} particles with a relu tie: rel L2 "
           + ", ".join(f"{e:.3e}" for e in w_rel) + f"; device time {w_dev:.4f} ms; shared memory "
-          f"{fused_step.k15_smem_bytes(wc, 2048)} B", flush=True)
+          f"{fused_step.k15_smem_bytes(wc)} B at any K", flush=True)
     print(f"[aa] K15 full ({fhn}, B=32, K=1024, hidden 64): device time per launch (torch.profiler) "
           f"{k15_dev[0]:.4f}/{k15_dev[2]:.4f} ms (20 launches each, with sum_rows_kernel), plain "
           f"{k15_dev[1]:.4f} ms (5 calls); bound {k15_bound:.4f} ms ({k15_by}); K14 bound "
@@ -2231,7 +2356,9 @@ def main() -> int:
           f"{held_step_gb:.3f} GB held before", flush=True)
     profile = device_breakdown(lambda: train_step(run_gen, train_batches[0]), n_per_call,
                                STEP_KERNELS)
-    print(f"[ab] profile of one more call: {profile}", flush=True)
+    print(f"[ab] profile of one more call: {profile}; K14 on S={fused_step.step_forward.last_slices}"
+          f", K15 on S={fused_step.step_backward.last_slices} CTAs per row", flush=True)
+    fhn_train_batch = train_batches[0]
     want = len(train_batches) * n_per_call * t1
     if step_train != [want, want, 0, 0] or plain_calls != 0:
         fail(f"per-step training launched K14/K15/K1/K4 {step_train} (want [{want}, {want}, 0, 0]), "
@@ -2377,6 +2504,89 @@ def main() -> int:
         fail("K1 or K4 at the chosen cluster size is not faster than at one CTA per row")
     phase_done("ad")
 
+    # (ae) K14 and K15 by slice count S, at the FHN and Lorenz-63 shapes
+    def k15_ms(t, part="step_backward_kernel"):
+        return sum(v for n_, v in t.items() if part in n_)
+
+    sweeps_s = {}
+    for preset in (fhn, l63):
+        with torch.no_grad():
+            sw = slice_sweep(*slice_inputs[preset], gen)
+        sweeps_s[preset] = sw
+        b_, k_ = slice_inputs[preset][0][0].shape[0], slice_inputs[preset][0][0].shape[-1]
+        n_w = slice_inputs[preset][0][3]["packed"].numel()
+        for kern, name_k in ((0, "K14"), (1, "K15")):
+            print(f"[ae] {name_k} {preset} B={b_} K={k_} hidden "
+                  f"{slice_inputs[preset][0][3]['hidden']}: resident CTAs "
+                  f"{sw['resident'][kern]}, chosen S={sw['chosen'][kern]} "
+                  f"({b_ * sw['chosen'][kern]} CTAs); device time per launch by S (ms, "
+                  f"torch.profiler over 20 launches, in the order 1, chosen, others, chosen, 1) "
+                  + ", ".join(f"S={s_}: " + "/".join(f"{sum(t.values()):.4f}" for t in ts)
+                              for s_, ts in sw["ms"][kern].items()), flush=True)
+        print(f"[ae] K15 {preset}: partial-row traffic, sum_rows_kernel per launch by S (ms; "
+              f"B·S rows of {n_w + 2 * slice_inputs[preset][0][0].shape[1]} floats) "
+              + ", ".join(f"S={s_}: " + "/".join(f"{k15_ms(t, 'sum_rows_kernel'):.4f}"
+                                                  for t in ts)
+                          for s_, ts in sw["ms"][1].items())
+              + "; step_backward_kernel alone " + ", ".join(
+                  f"S={s_}: " + "/".join(f"{k15_ms(t):.4f}" for t in ts)
+                  for s_, ts in sw["ms"][1].items()), flush=True)
+        for s_, r in sw["k14"].items():
+            print(f"[ae] K14 {preset} S={s_}: every output (x_new, alpha, stats, idx) bit-equal to "
+                  f"S=1 {r['equal']}, bit-equal on a relaunch {r['same']}", flush=True)
+        for s_, r in sw["k15"].items():
+            print(f"[ae] K15 {preset} S={s_}: d_x bit-equal to S=1 {r['dx_equal']}, rel L2 to S=1 "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in zip(leaves[1:], r["rel"]))
+                  + "".join(f"; {leaves[i]} vs a float64 replay {a:.3e} (S=1 {w:.3e})"
+                            for i, (a, w) in r["vs64"].items())
+                  + f", bit-equal on a relaunch {r['same']}", flush=True)
+        if not all(r["equal"] and r["same"] for r in sw["k14"].values()):
+            fail(f"K14 on slices ({preset}) is not bit-equal to one CTA per row")
+        for s_, r in sw["k15"].items():
+            sums_ok = all(e <= 1e-6 or (i in r["vs64"] and r["vs64"][i][0] <= r["vs64"][i][1])
+                          for i, e in enumerate(r["rel"], 1))
+            if not (r["dx_equal"] and r["same"] and sums_ok):
+                fail(f"K15 on {s_} slices ({preset}) disagrees with one CTA per row")
+        if min(sw["chosen"]) < 2:
+            fail(f"{preset}: K14/K15 chose S={sw['chosen']} at B={b_}, K={k_}")
+    # inside one per-step train call of FHN: K14's and K15's device time per launch by S
+    fused_step.SCAN_FUSED = False
+    cfg, batch = slice_config(small=False)
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 20), device=dev)
+    train_step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
+    run_gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    fhn_s = sweeps_s[fhn]
+    both = [s_ for s_ in fhn_s["sizes"][0] if s_ in fhn_s["sizes"][1]]
+    c_ = fhn_s["chosen"][0]
+    launches_per_call = cfg.train.steps_per_call * (cfg.data.t_steps - 1)
+    pick_s, in_step = fused_step.step_slices, {}
+    try:
+        for s_ in [1, c_] + [v for v in both if v not in (1, c_)] + [c_, 1]:
+            fused_step.step_slices = lambda *_, s_=s_: s_
+            t = device_ms_by_kernel(lambda: train_step(run_gen, fhn_train_batch), n=1)
+            t0 = time.perf_counter()
+            train_step(run_gen, fhn_train_batch)
+            torch.cuda.synchronize()
+            in_step.setdefault(s_, []).append(
+                (k15_ms(t, "step_forward_kernel") / launches_per_call,
+                 (k15_ms(t) + k15_ms(t, "sum_rows_kernel")) / launches_per_call,
+                 sum(t.values()) / cfg.train.steps_per_call,
+                 (time.perf_counter() - t0) / cfg.train.steps_per_call * 1e3))
+    finally:
+        fused_step.step_slices = pick_s
+        fused_step.SCAN_FUSED = True
+    print(f"[ae] inside one per-step train call of {fhn} ({cfg.train.steps_per_call} steps, "
+          f"{launches_per_call} launches of each), by S (K14 ms / K15 ms with sum_rows per launch, "
+          f"device busy ms per step, then one more call's host-clock ms per step; order 1, chosen, "
+          f"others, chosen, 1): "
+          + ", ".join(f"S={s_}: " + "; ".join(f"{a:.4f} / {b_:.4f}, {c:.2f}, {d:.2f}"
+                                              for a, b_, c, d in v)
+                      for s_, v in in_step.items()), flush=True)
+    k14_s, k15_s = fhn_s["chosen"]
+    k14_ms_s1 = statistics.mean(sum(t.values()) for t in fhn_s["ms"][0][1])
+    k15_ms_s1 = statistics.mean(sum(t.values()) for t in fhn_s["ms"][1][1])
+    phase_done("ae")
+
     # K2: about 80 operations per normal (a Philox4x32-10 call, about 100 integer
     # operations, serves the particle's two normals; the Box-Muller transform about 30
     # each), counted at the fp32 rate; its output written once.
@@ -2448,12 +2658,16 @@ def main() -> int:
         {"name": "step_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/scan_forward.cu",
          "replaces": "psvo_tpu/ops/pallas_step.py:954", "launches": step_train[0],
          "on_path": True, "max_abs_err": k14_small_err, "ms": k14_dev[0], "plain_ms": k14_dev[1],
-         "bound_ms": k14_bound, "bound_by": k14_by, "library_ms": None},
+         "bound_ms": k14_bound, "bound_by": k14_by, "library_ms": None, "slices": k14_s,
+         "ms_s1": k14_ms_s1},
         {"name": "step_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/scan_backward.cu",
          "replaces": "psvo_tpu/ops/pallas_step.py:1013", "launches": step_train[1],
          "on_path": True, "max_abs_err": k15_small_err, "ms": k15_dev[0], "plain_ms": k15_dev[1],
-         "bound_ms": k15_bound, "bound_by": k15_by, "library_ms": None},
+         "bound_ms": k15_bound, "bound_by": k15_by, "library_ms": None, "slices": k15_s,
+         "ms_s1": k15_ms_s1},
     ]
+    print(f"[profiler] {PROFILE_WINDOWS['windows']} profiler windows, "
+          f"{PROFILE_WINDOWS['empty']} of them with no device events and run again", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

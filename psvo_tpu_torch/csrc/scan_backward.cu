@@ -84,6 +84,7 @@
 #include "philox.cuh"
 #include "resample.cuh"
 #include "step_math.cuh"
+#include "step_slices.cuh"
 
 namespace psvo {
 
@@ -363,8 +364,8 @@ __device__ __forceinline__ int lower_bound_idx(const int* a, int n, int v) {
   return lo;
 }
 
-// The particles [lo, lo + n) that a CTA owns: rank `rank` of its row's
-// cluster of C CTAs (K15 and K4 at C = 1: the whole row).
+// The particles [lo, lo + n) that a K4 CTA owns: rank `rank` of its row's
+// cluster of C CTAs (C = 1: the whole row).
 struct Slice {
   int lo, n, rank, C;
 };
@@ -377,7 +378,8 @@ constexpr int kCoefSums = 3 * DX + 1;
 // four [H][kPS] activation tiles, the [D][kPS] tile arrays, K4's carry of the
 // slice, d x_res of the slice (twice at C > 1, by t's parity), the slice's
 // d_coef sums (C > 1, by t's parity), the reduction scratch and the int32
-// ancestors of the whole row [K].
+// ancestors of the whole row [K]. K15 keeps neither d x_res nor the
+// ancestors here (n = K = 0): its shared memory does not depend on K.
 struct BwdSmem {
   float *wts, *gacc;               // [n_weights] each
   float *f1, *f2, *g1, *g2;        // [H][kPS]: f's buffers, then g's (then q1's)
@@ -431,7 +433,7 @@ size_t bwd_smem_bytes(int n_weights, int K, int n, bool carry, int C) {
 
 // One trajectory row's operands of one backward step, in device or shared
 // memory: K4 reads d x_new from its carry and scatters d x_{t-1} back into
-// it, K15 reads and writes device memory.
+// it, K15 reads device memory (its scatter writes d_x there).
 struct BwdRow {
   const float* x_prev;   // [DX][K]: the step's incoming particles (x_res = x_prev[idx])
   const float* x_cur;    // [DX][K]: x_new
@@ -444,22 +446,37 @@ struct BwdRow {
   const float* d_xn2;    // [DX][K] or null: a second one, added (K4's d_x_all)
   const float* d_al;     // [K] or null: the cotangent of α
   const float* d_al2;    // [K] or null: a second one, added
-  float* d_x;            // [DX][ld] from particle `off`: d x_prev, written by the scatter
-  float* d_coef;         // [3*DX + DY + 1]; written by rank 0
+  float* d_x;            // [DX][ld] from particle `off`: d x_prev, written by K4's scatter
+  float* d_coef;         // [3*DX + DY + 1]; written by K4's rank 0
   int ld, off;           // layout of d_xn and d_x: K4's carry of the slice, K15's rows
 };
 
-// The backward of one filter step of row b, t on the slice `sl` (module
-// comment, 1.-4. and the scatter): accumulates the weight gradients into
-// s.gacc and the sconst ones into dsf/dsg, writes d x_prev of the slice and
-// (rank 0) the d_coef row. K4 runs it once per t on each CTA of a row's
-// cluster, K15 once per launch on the whole row. Ends on a barrier.
+// The d_coef row from the row's sums (aq, cq, sq per dimension, then ab).
+template <int DX, int DY>
+__device__ __forceinline__ void write_coef_row(float* dc, const float (&sums)[kCoefSums<DX>]) {
+#pragma unroll
+  for (int e = 0; e < 3 * DX; ++e) dc[e] = sums[e];
+#pragma unroll
+  for (int q = 0; q < DY; ++q) dc[3 * DX + q] = 0.0f;  // y is data
+  dc[3 * DX + DY] = sums[3 * DX];
+}
+
+// The backward of one filter step of row b, t on the particles [lo, hi)
+// (module comment, 1.-4. and 8.): accumulates the weight gradients into
+// s.gacc and the sconst ones into dsf/dsg, writes d x_res of particle i to
+// dxres[d·ld + i − lo] and leaves the slice's d_coef sums (aq, cq, sq per
+// dimension, then ab) in `sums`, in every thread. The ancestors come from
+// idx: K4's copy in shared memory, K15's row in device memory. K4 runs it
+// once per t on each CTA of a row's cluster, K15 once per launch on each
+// slice of the row. Ends on a barrier.
 template <int DX, int DY, int H>
-__device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s, const Slice& sl,
-                                              int K, int off_f, int off_g,
-                                              const float (&sfi)[DX], const float (&sgi)[DY],
-                                              double (&dsf)[DX], double (&dsg)[DY], bool use_rng,
-                                              uint32_t seed0, uint32_t seed1, int b, int t) {
+__device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s, const int* idx,
+                                               int lo, int hi, float* dxres, int ld, int K,
+                                               int off_f, int off_g, const float (&sfi)[DX],
+                                               const float (&sgi)[DY], double (&dsf)[DX],
+                                               double (&dsg)[DY], bool use_rng, uint32_t seed0,
+                                               uint32_t seed1, int b, int t,
+                                               float (&sums)[kCoefSums<DX>]) {
   using NQ = Net<DX, H, DX>;  // q1 and f
   using NG = Net<DX, H, DY>;  // g
   const int tid = threadIdx.x;
@@ -475,8 +492,6 @@ __device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s,
   float *f1 = s.f1, *f2 = s.f2, *g1 = s.g1, *g2 = s.g2, *xr = s.xr, *xn = s.xn, *ep = s.ep;
   float *mf = s.mf, *mg = s.mg, *mq = s.mq, *dmf = s.dmf, *dmg = s.dmg, *dmq = s.dmq;
   float *dxn = s.dxn, *dxr = s.dxr;
-  const int hi = sl.lo + sl.n;
-  float* dxres = s.dxres + (sl.C > 1 ? (t & 1) * DX * sl.n : 0);  // [DX][n]
 
   const float* c = r.coef;
   float cq[DX], y[DY];
@@ -487,13 +502,11 @@ __device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s,
   const float ab = c[3 * DX + DY];
   const float ell = r.stats[0];
   const float d_ell = r.d_stats[0];
-  for (int i = tid; i < K; i += kThreads) s.idx_s[i] = r.idx[i];
   float s_aq[DX], s_cq[DX], s_sq[DX], s_ab = 0.0f;
 #pragma unroll
   for (int d = 0; d < DX; ++d) s_aq[d] = s_cq[d] = s_sq[d] = 0.0f;
-  __syncthreads();
 
-  for (int i0 = sl.lo; i0 < hi; i0 += kP) {
+  for (int i0 = lo; i0 < hi; i0 += kP) {
     const int i = i0 + p;
     const bool mine = p < kP && i < hi;  // a live particle of this tile
     // 1. operands of the tile
@@ -502,7 +515,7 @@ __device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s,
       if (mine && use_rng) draw_eps<DX>(seed0, seed1, b, t, i, K, e);
 #pragma unroll
       for (int d = 0; d < DX; ++d) {
-        xr[d * kPS + p] = mine ? r.x_prev[d * K + s.idx_s[i]] : 0.0f;
+        xr[d * kPS + p] = mine ? r.x_prev[d * K + idx[i]] : 0.0f;
         xn[d * kPS + p] = mine ? r.x_cur[d * K + i] : 0.0f;
         ep[d * kPS + p] = !mine ? 0.0f : (use_rng ? e[d] : r.eps[d * K + i]);
       }
@@ -611,13 +624,11 @@ __device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s,
     __syncthreads();
     if (mine) {
 #pragma unroll
-      for (int d = 0; d < DX; ++d) dxres[d * sl.n + i - sl.lo] = dxr[d * kPS + p];
+      for (int d = 0; d < DX; ++d) dxres[d * ld + i - lo] = dxr[d * kPS + p];
     }
   }
 
-  // 8. the slice's d_coef sums (the reductions' barriers end the tile loop);
-  // one CTA writes the row, a cluster's CTAs leave their sums for rank 0
-  float sums[kCoefSums<DX>];
+  // 8. the slice's d_coef sums (the reductions' barriers end the tile loop)
 #pragma unroll
   for (int d = 0; d < DX; ++d) {
     sums[d] = block_reduce<false>(s_aq[d], s.red);
@@ -625,6 +636,28 @@ __device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s,
     sums[2 * DX + d] = block_reduce<false>(s_sq[d], s.red);
   }
   sums[3 * DX] = block_reduce<false>(s_ab, s.red);
+}
+
+// K4's backward of one filter step of row b, t on the slice `sl`: the tiles
+// (backward_tiles) on the slice, then the cluster's exchange (9.) and the
+// scatter (10.): d x_prev of the slice into the carry and (rank 0) the
+// d_coef row. Runs once per t on each CTA of a row's cluster. Ends on a
+// barrier.
+template <int DX, int DY, int H>
+__device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s, const Slice& sl,
+                                              int K, int off_f, int off_g,
+                                              const float (&sfi)[DX], const float (&sgi)[DY],
+                                              double (&dsf)[DX], double (&dsg)[DY], bool use_rng,
+                                              uint32_t seed0, uint32_t seed1, int b, int t) {
+  const int tid = threadIdx.x;
+  const int hi = sl.lo + sl.n;
+  float* dxres = s.dxres + (sl.C > 1 ? (t & 1) * DX * sl.n : 0);  // [DX][n]
+  for (int i = tid; i < K; i += kThreads) s.idx_s[i] = r.idx[i];
+  __syncthreads();
+  float sums[kCoefSums<DX>];
+  backward_tiles<DX, DY, H>(r, s, s.idx_s, sl.lo, hi, dxres, sl.n, K, off_f, off_g, sfi, sgi, dsf,
+                            dsg, use_rng, seed0, seed1, b, t, sums);
+  // a cluster's CTAs leave their sums for rank 0, which writes the row
   float* part = s.part + (t & 1) * kCoefSums<DX>;
   if (tid == 0 && sl.C > 1) {
 #pragma unroll
@@ -641,14 +674,7 @@ __device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s,
       }
     }
   }
-  if (sl.rank == 0 && tid == 0) {
-    float* dc = r.d_coef;
-#pragma unroll
-    for (int e = 0; e < 3 * DX; ++e) dc[e] = sums[e];
-#pragma unroll
-    for (int q = 0; q < DY; ++q) dc[3 * DX + q] = 0.0f;  // y is data
-    dc[3 * DX + DY] = sums[3 * DX];
-  }
+  if (sl.rank == 0 && tid == 0) write_coef_row<DX, DY>(r.d_coef, sums);
 
   // 10. scatter d x_res to the own ancestors j: a segmented sum over each run
   // of equal ancestors, in particle order, the run's particles read from the
@@ -782,7 +808,7 @@ __global__ void __launch_bounds__(kThreads, 1) scan_backward_kernel(const BwdArg
 
 // out[e] = Σ_r partial[r][e], rows added in order in fp64: the per-CTA
 // partial gradients of scan_backward_kernel (B·C rows) and
-// step_backward_kernel (B) (the TPU kernels accumulated them in their own
+// step_backward_kernel (B·S) (the TPU kernels accumulated them in their own
 // body, _accum_param_grads).
 __global__ void sum_rows_kernel(const float* __restrict__ partial, int rows, int n,
                                 float* __restrict__ out) {
@@ -801,20 +827,6 @@ inline cudaError_t sum_rows(const float* partial, int rows, int n, float* grads,
   return cudaGetLastError();
 }
 
-// One CTA per trajectory row (K15), then sum_rows over the rows' n partial
-// gradients into grads.
-template <class Args>
-cudaError_t launch_rows_and_sum(void (*kernel)(Args), const Args& a, size_t smem, int n,
-                                float* grads, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<a.B, kThreads, smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return sum_rows(a.partial, a.B, n, grads, stream);
-}
-
 // K15 step_backward: the VJP of ONE K14 step per launch.
 //
 // Replaces psvo_tpu/ops/pallas_step.py::_step_bwd (kernel body _bwd_kernel,
@@ -822,19 +834,29 @@ cudaError_t launch_rows_and_sum(void (*kernel)(Args), const Args& a, size_t smem
 // blocks): the backward of the per-step path of SCAN_FUSED = False, one call
 // per step in lax.scan's reverse loop.
 //
-// Design. K4's step (backward_step) on one step's residuals from device
+// Design. K4's tiles (backward_tiles) on one step's residuals from device
 // memory: x (regathered as x_res = x[idx]), x_new, idx, the stats and ε; the
 // cotangents d x_new and d α come from autograd (the next step's d x and the
-// cache's cotangents, already summed), and d x goes back to device memory.
-// With no carry across steps, its shared memory holds one [DX][K] array
-// fewer than K4's, so K up to 4096 fits at Dx = 2 and 2560 at Dx = 3 with
-// hidden 64 (fused_step.k15_smem_bytes). Deterministic as K4: one owning
-// thread per gradient entry, the per-row partials added in row order by
-// sum_rows_kernel, no atomics; the 99 steps' gradients are summed by autograd.
+// cache's cotangents, already summed). Each row runs on S CTAs with no
+// cluster (step_slices.cuh; the host picks S, fused_step.step_slices): CTA
+// (b, r) runs the kP-particle tiles of its slice, writes the slice's d x_res
+// to the scratch dxres [B, DX, K], its d_coef sums to coef_part [B, S, 3·DX
+// + 1] and its weight and sconst partials to row b·S + r of `partial`. The
+// row's last CTA to arrive scatters d x[j] = Σ_{i: idx_i = j} d x_res_i over
+// the whole row, reading d x_res from L2 in particle order with K4's
+// sequential adds, so d x is bit-equal for every S and to K4's d_x0 chain;
+// it adds the S d_coef sums in slice order. sum_rows_kernel then adds the
+// B·S partial rows in fp64. Neither d x_res nor the ancestors stay in shared
+// memory (the last CTA stages the row's ancestors in its idle activation
+// tiles), so the shared memory does not depend on K: every K ≤ MAX_K fits at
+// hidden 64 (fused_step.k15_smem_bytes). Deterministic: one owning thread per
+// gradient entry, fixed reductions, the one atomic only counts arrivals.
 //
 // What bounds it. One step of K4's work (~26 kFLOP per particle and trunk)
-// on B CTAs: the fp32 CUDA cores, as K4; each launch also reloads the
-// weights into shared memory.
+// on B·S CTAs: the fp32 CUDA cores, as K4 (one CTA per SM: 183 KB of shared
+// memory at Dx = 2, hidden 64). Each CTA also loads the weights, zeroes their
+// gradient sums and writes a partial row (55 KB each), and the launch itself
+// is paid per step.
 struct StepBwdArgs {
   const float* x;        // [B, DX, K]: the step's incoming particles
   const float* x_new;    // [B, DX, K]
@@ -849,15 +871,20 @@ struct StepBwdArgs {
   const float* d_alpha;  // [B, K] or null
   float* d_x;            // [B, DX, K]
   float* d_coef;         // [B, 3*DX + DY + 1]
-  float* partial;        // [B, n_weights + DX + DY]: per-row weight and sconst grads
+  float* dxres;          // [B, DX, K] scratch: d x_res of every particle
+  float* coef_part;      // [B, S, 3*DX + 1] scratch: the slices' d_coef sums
+  float* partial;        // [B*S, n_weights + DX + DY]: per-CTA weight and sconst grads
+  int* counter;          // [B]: arrivals per row, 0 between launches
   int B, K, n_weights, off_f, off_g;
+  int slices;            // S: CTAs per row, K % S == 0
 };
 
 template <int DX, int DY, int H>
 __global__ void __launch_bounds__(kThreads, 1) step_backward_kernel(const StepBwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int K = a.K, b = blockIdx.x;
-  const BwdSmem s = carve_bwd<DX, DY, H>(smem, a.n_weights, K, K, false, 1);
+  const int S = a.slices, K = a.K, b = blockIdx.x / S, tid = threadIdx.x;
+  const int n = K / S, lo = (blockIdx.x % S) * n;  // this CTA's particles [lo, lo + n)
+  const BwdSmem s = carve_bwd<DX, DY, H>(smem, a.n_weights, 0, 0, false, 1);
   float sfi[DX], sgi[DY];
   double dsf[DX], dsg[DY];
   bwd_prologue<DX, DY>(s, a.weights, a.sconst, a.n_weights, sfi, sgi, dsf, dsg);
@@ -878,10 +905,56 @@ __global__ void __launch_bounds__(kThreads, 1) step_backward_kernel(const StepBw
                  a.d_coef + (size_t)b * NC,
                  K,
                  0};
-  backward_step<DX, DY, H>(r, s, Slice{0, K, 0, 1}, K, a.off_f, a.off_g, sfi, sgi, dsf, dsg,
-                           false, 0u, 0u, b, 0);
+  float* dxres = a.dxres + bx;  // [DX][K]
+  float sums[kCoefSums<DX>];
+  __syncthreads();  // the weights are loaded
+  backward_tiles<DX, DY, H>(r, s, r.idx, lo, lo + n, dxres + lo, K, K, a.off_f, a.off_g, sfi,
+                            sgi, dsf, dsg, false, 0u, 0u, b, 0, sums);
   write_partial<DX, DY>(s, a.n_weights, dsf, dsg,
-                        a.partial + (size_t)b * (a.n_weights + DX + DY));
+                        a.partial + (size_t)blockIdx.x * (a.n_weights + DX + DY));
+  const float* parts = a.coef_part + (size_t)b * S * kCoefSums<DX>;  // [S][3*DX + 1]
+  if (tid == 0) {
+#pragma unroll
+    for (int e = 0; e < kCoefSums<DX>; ++e)
+      a.coef_part[(size_t)blockIdx.x * kCoefSums<DX> + e] = sums[e];
+  }
+  if (!last_to_arrive(a.counter + b, S)) return;
+
+  // the row's last CTA: the scatter over the whole row, a segmented sum over
+  // each run of equal ancestors in particle order (K4's order), with the
+  // row's ancestors staged in the idle activation tiles
+  int* idx_s = reinterpret_cast<int*>(s.f1);  // [K] <= 4·H·kPS ints
+  for (int i = tid; i < K; i += kThreads) idx_s[i] = r.idx[i];
+  __syncthreads();
+  for (int j = tid; j < K; j += kThreads) {
+    const int i_lo = lower_bound_idx(idx_s, K, j);
+    const int i_hi = lower_bound_idx(idx_s, K, j + 1);
+    float sum[DX];
+#pragma unroll
+    for (int d = 0; d < DX; ++d) sum[d] = 0.0f;
+    for (int i = i_lo; i < i_hi; ++i) {
+#pragma unroll
+      for (int d = 0; d < DX; ++d) sum[d] += __ldcg(dxres + d * K + i);
+    }
+#pragma unroll
+    for (int d = 0; d < DX; ++d) r.d_x[d * K + j] = sum[d];
+  }
+  if (tid == 0) {  // the slices' d_coef sums, added in slice order
+#pragma unroll
+    for (int e = 0; e < kCoefSums<DX>; ++e) sums[e] = __ldcg(parts + e);
+    for (int q = 1; q < S; ++q) {
+#pragma unroll
+      for (int e = 0; e < kCoefSums<DX>; ++e) sums[e] += __ldcg(parts + q * kCoefSums<DX> + e);
+    }
+    write_coef_row<DX, DY>(r.d_coef, sums);
+  }
+}
+
+int step_backward_resident(int dx, int dy, int hidden, int smem, int* out) {
+  return with_dims(dx, dy, hidden, [&](auto d) {
+    using D = decltype(d);
+    return max_resident(step_backward_kernel<D::DX, D::DY, D::H>, static_cast<size_t>(smem), out);
+  });
 }
 
 int scan_backward_max_active(int dx, int dy, int hidden, int cluster, int smem, int* out) {
@@ -896,8 +969,8 @@ int scan_backward_max_active(int dx, int dy, int hidden, int cluster, int smem, 
 
 // Plain C entry points (bound with ctypes by psvo_tpu_torch/ops/_build.py).
 // grads [n_weights + dx + dy] receives the weight gradients, then d_sconst;
-// partial [B·cluster, n_weights + dx + dy] (K15: [B, ...]) is scratch. Each
-// returns a cudaError_t.
+// partial [B·cluster, n_weights + dx + dy] (K15: [B·slices, ...]) is
+// scratch. Each returns a cudaError_t.
 extern "C" int psvo_scan_backward(const float* x0, const float* x_all, const int* idx,
                                   const float* stats, const float* coef, const float* eps,
                                   const float* weights, const float* sconst,
@@ -928,24 +1001,30 @@ extern "C" int psvo_scan_backward(const float* x0, const float* x_all, const int
   });
 }
 
+// K15 on `slices` CTAs per row; dxres [B, dx, K] and coef_part [B, slices,
+// 3·dx + 1] are scratch, counter [B] is 0 before the launch and after it.
 extern "C" int psvo_step_backward(const float* x, const float* x_new, const int* idx,
                                   const float* stats, const float* coef, const float* eps,
                                   const float* weights, const float* sconst,
                                   const float* d_stats, const float* d_x_new,
-                                  const float* d_alpha, float* d_x, float* d_coef,
-                                  float* partial, float* grads, int B, int K, int dx, int dy,
-                                  int hidden, int n_mid, int n_weights, int off_f, int off_g,
-                                  void* stream) {
-  const psvo::StepBwdArgs a{x,       x_new,   idx,   stats,  coef,    eps,       weights,
-                            sconst,  d_stats, d_x_new, d_alpha, d_x,   d_coef,    partial,
-                            B,       K,       n_weights, off_f, off_g};
-  if (n_mid != 1) return static_cast<int>(cudaErrorInvalidValue);
+                                  const float* d_alpha, float* d_x, float* d_coef, float* dxres,
+                                  float* coef_part, float* partial, float* grads, int* counter,
+                                  int B, int K, int dx, int dy, int hidden, int n_mid,
+                                  int n_weights, int off_f, int off_g, int slices, void* stream) {
+  const psvo::StepBwdArgs a{x,       x_new,   idx,       stats,   coef,      eps,
+                            weights, sconst,  d_stats,   d_x_new, d_alpha,   d_x,
+                            d_coef,  dxres,   coef_part, partial, counter,   B,
+                            K,       n_weights, off_f,   off_g,   slices};
+  // the last CTA stages the row's K ancestors in its four [hidden][kPS] tiles
+  if (n_mid != 1 || slices < 1 || K % slices != 0 || K > 4 * hidden * psvo::kPS)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   return psvo::with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
-    return psvo::launch_rows_and_sum(psvo::step_backward_kernel<D::DX, D::DY, D::H>, a,
-                                     psvo::bwd_smem_bytes<D::DX, D::DY, D::H>(n_weights, K, K,
-                                                                              false, 1),
-                                     n_weights + D::DX + D::DY, grads, s);
+    cudaError_t err = psvo::launch_slices(
+        psvo::step_backward_kernel<D::DX, D::DY, D::H>, a, B, slices,
+        psvo::bwd_smem_bytes<D::DX, D::DY, D::H>(n_weights, 0, 0, false, 1), s);
+    if (err != cudaSuccess) return err;
+    return psvo::sum_rows(partial, B * slices, n_weights + D::DX + D::DY, grads, s);
   });
 }

@@ -25,7 +25,7 @@
 //      and α go into the other parity's buffers of all C CTAs (DSMEM stores);
 //   3. one cluster barrier: every CTA holds the new row;
 //   4. rank 0: ℓ = lse(α) − log K and the filtered mean over the whole row,
-//      by block reductions in K1's order, into stats.
+//      by block reductions in K1's order, into stats (row_stats).
 // With x and α double-buffered, one barrier per step is race-free: a CTA at
 // step t+1 writes the buffers that its neighbours last read before step t's
 // barrier. The particle arithmetic, the CDF and the reductions do not depend
@@ -63,6 +63,7 @@
 #include "philox.cuh"
 #include "resample.cuh"
 #include "step_math.cuh"
+#include "step_slices.cuh"
 
 namespace psvo {
 
@@ -182,7 +183,6 @@ struct StepRow {
   const float* coef;  // [3*DX + DY + 1]: aq, cq, sq, y, ab
   const float* eps;   // [DX][K]; stream mode only
   const float* pos;   // [K] sorted positions; stream mode only
-  float* stats;       // [2 + DX]: ell, ess, filtered mean
   float* x_out;       // [DX][K]: x_new, or null
   float* alpha_out;   // [K]: α, or null
   int* idx;           // [K]: ancestor indices, or null
@@ -218,8 +218,8 @@ size_t fwd_smem_bytes(int n_weights, int K) {
          sizeof(float) * (n_weights + 2 * DX * K + 2 * K + kWarps);
 }
 
-// Where a step's x_new [DX][K] and α [K] go. K14 (one CTA per row): the
-// CTA's own buffers, published by a block barrier.
+// Where a step's x_new [DX][K] and α [K] go. K14: the CTA's own buffers,
+// published by a block barrier.
 struct CtaOut {
   float *xn, *lw;
   template <int DX>
@@ -263,13 +263,12 @@ struct ClusterOut {
 // One filtering step of row b, t, on the carry xc [DX][K] and lwc [K]: the
 // ESS and CDF of the incoming weights over the whole row; per particle i of
 // [lo, hi) the ancestor, the q1 and f trunks on the resampled particle, the
-// fused draw, the g trunk and α, handed to `out`; then, after out.sync(),
-// ℓ, the ESS and the filtered mean of the whole row into r.stats unless it
-// is null. K1 runs it once per t on each CTA of a row's cluster, K14 once
-// per launch on the whole row: the same code, so the same bits. Ends on a
-// barrier.
+// fused draw, the g trunk and α, handed to `out`; then out.sync(). Returns
+// the ESS. K1 runs it once per t on each CTA of a row's cluster, K14 once
+// per launch on each slice of the row: the same code, so the same bits.
+// Ends on a barrier.
 template <int DX, int DY, int H, class Out>
-__device__ __forceinline__ void filter_step(const StepRow& r, const FwdSmem& s, const float* xc,
+__device__ __forceinline__ float filter_step(const StepRow& r, const FwdSmem& s, const float* xc,
                                             const float* lwc, const Out& out, int lo, int hi,
                                             int K, int n_mid, int off_f, int off_g,
                                             const float (&sfi)[DX], const float (&sgi)[DY],
@@ -338,11 +337,19 @@ __device__ __forceinline__ void filter_step(const StepRow& r, const FwdSmem& s, 
     if (r.idx != nullptr) r.idx[i] = anc;
   }
   out.sync();
-  if (r.stats == nullptr) return;
+  return ess;
+}
 
-  // 3. logZ increment and filtered mean under the new weights
-  const float* lw = out.lw;
-  const float amax = block_max_of(lw, K, s.red);
+// 3. The logZ increment ℓ = log mean exp(α) and the filtered mean under the
+// new weights of the whole row (x_new xn [DX][K], α lw [K]), with the ESS of
+// the incoming ones, into stats [2 + DX], by block reductions in K1's order:
+// one CTA of the row runs it, whatever the row's CTA count, so the bits do
+// not depend on it.
+template <int DX>
+__device__ __forceinline__ void row_stats(const float* xn, const float* lw, int K, float ess,
+                                          float* red, float* stats) {
+  const int tid = threadIdx.x;
+  const float amax = block_max_of(lw, K, red);
   float sw = 0.0f, sx[DX];
 #pragma unroll
   for (int d = 0; d < DX; ++d) sx[d] = 0.0f;
@@ -350,16 +357,16 @@ __device__ __forceinline__ void filter_step(const StepRow& r, const FwdSmem& s, 
     const float w = expf(lw[i] - amax);
     sw += w;
 #pragma unroll
-    for (int d = 0; d < DX; ++d) sx[d] = fmaf(w, out.xn[d * K + i], sx[d]);
+    for (int d = 0; d < DX; ++d) sx[d] = fmaf(w, xn[d * K + i], sx[d]);
   }
-  sw = block_reduce<false>(sw, s.red);
+  sw = block_reduce<false>(sw, red);
 #pragma unroll
-  for (int d = 0; d < DX; ++d) sx[d] = block_reduce<false>(sx[d], s.red);
+  for (int d = 0; d < DX; ++d) sx[d] = block_reduce<false>(sx[d], red);
   if (tid == 0) {
-    r.stats[0] = logf(sw) + amax - logf(static_cast<float>(K));
-    r.stats[1] = ess;
+    stats[0] = logf(sw) + amax - logf(static_cast<float>(K));
+    stats[1] = ess;
 #pragma unroll
-    for (int d = 0; d < DX; ++d) r.stats[2 + d] = sx[d] / sw;
+    for (int d = 0; d < DX; ++d) stats[2 + d] = sx[d] / sw;
   }
 }
 
@@ -388,14 +395,15 @@ __global__ void __launch_bounds__(kThreads) scan_forward_kernel(const ScanArgs a
     const StepRow r{a.coef + row * NC,
                     a.use_rng ? nullptr : a.eps + row * DX * K,
                     a.use_rng ? nullptr : a.pos + row * K,
-                    rank == 0 ? a.stats + row * (2 + DX) : nullptr,
                     a.x_all != nullptr ? a.x_all + row * DX * K : nullptr,
                     a.alpha_all != nullptr ? a.alpha_all + row * K : nullptr,
                     a.idx != nullptr ? a.idx + row * K : nullptr};
     const ClusterOut out{s.xbuf + (cur ^ 1) * DX * K, s.lw + (cur ^ 1) * K, C};
-    filter_step<DX, DY, H>(r, s, s.xbuf + cur * DX * K, s.lw + cur * K, out, lo, lo + n, K,
-                           a.n_mid, a.off_f, a.off_g, sfi, sgi, a.use_rng, a.seed0, a.seed1,
-                           b, t);
+    const float ess =
+        filter_step<DX, DY, H>(r, s, s.xbuf + cur * DX * K, s.lw + cur * K, out, lo, lo + n, K,
+                               a.n_mid, a.off_f, a.off_g, sfi, sgi, a.use_rng, a.seed0, a.seed1,
+                               b, t);
+    if (rank == 0) row_stats<DX>(out.xn, out.lw, K, ess, s.red, a.stats + row * (2 + DX));
     cur ^= 1;
   }
 
@@ -409,16 +417,6 @@ __global__ void __launch_bounds__(kThreads) scan_forward_kernel(const ScanArgs a
   for (int i = lo + tid; i < lo + n; i += kThreads) a.alpha_last[(size_t)b * K + i] = lc[i];
 }
 
-// One CTA per trajectory row (K14), with fwd_smem_bytes of shared memory.
-template <class Args>
-cudaError_t launch_rows(void (*kernel)(Args), const Args& a, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<a.B, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
 // K14 step_forward: ONE filtering step, t-1 -> t, per launch.
 //
 // Replaces psvo_tpu/ops/pallas_step.py::_step_fwd (kernel body _fwd_kernel,
@@ -429,10 +427,23 @@ cudaError_t launch_rows(void (*kernel)(Args), const Args& a, size_t smem, cudaSt
 // residuals of K15 (scan_backward.cu), which regathers x_res = x[idx]
 // instead of storing it. Stream noise only, as the reference's per-step path.
 //
+// Design. Each row runs on S CTAs with no cluster (step_slices.cuh; the host
+// picks S, fused_step.step_slices). Every CTA loads the weights and the
+// whole row's x and logw, and computes the ESS and the fp64 CDF over the
+// whole row, redundantly, as K1's CTAs do at C > 1, so every slice draws the
+// same ancestors; it then runs filter_step's particle loop on its own slice
+// and writes that slice's x_new, α and ancestors. The row's last CTA to
+// arrive reads the other slices' x_new and α back from L2 into its buffers
+// and computes ℓ, the ESS and the filtered mean over the whole row in K1's
+// order (row_stats). So every output is bit-equal for every S, and a chain
+// of K14 launches gives one K1 launch's bits.
+//
 // What bounds it. One step of K1's work (~9 MFLOP per row at K=1024 and
-// hidden (64, 64)) on B CTAs, arithmetic-bound as K1; each launch also
-// copies the weights (54 KB at hidden 64) into shared memory and pays the
-// launch itself, which K1 pays once for all T-1 steps.
+// hidden (64, 64)) on B·S CTAs, arithmetic-bound as K1; every CTA also
+// copies the weights (54 KB at hidden 64) into shared memory and repeats
+// the O(K) CDF, and the launch itself is paid per step. At 220 registers a
+// thread (Dx = 2, hidden 64) one CTA fits an SM: B = 32 rows on 32 of the
+// card's 132 SMs at S = 1, 128 at S = 4.
 struct StepArgs {
   const float* x;        // [B, DX, K]: particles of step t-1
   const float* logw;     // [B, K]: their log-weights
@@ -445,17 +456,21 @@ struct StepArgs {
   float* alpha;          // [B, K]
   float* stats;          // [B, 2 + DX]: ell, ess, filtered mean
   int* idx;              // [B, K]
+  int* counter;          // [B]: arrivals per row, 0 between launches
   int B, K, n_mid, n_weights, off_f, off_g;
+  int slices;            // S: CTAs per row, K % S == 0
 };
 
 template <int DX, int DY, int H>
 __global__ void __launch_bounds__(kThreads) step_forward_kernel(const StepArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int K = a.K, b = blockIdx.x, tid = threadIdx.x;
+  const int S = a.slices, K = a.K, b = blockIdx.x / S, tid = threadIdx.x;
+  const int n = K / S, lo = (blockIdx.x % S) * n;  // this CTA's particles [lo, lo + n)
   const FwdSmem s = carve_fwd<DX>(smem, a.n_weights, K);
+  const size_t bx = (size_t)b * DX * K, bk = (size_t)b * K;
   for (int i = tid; i < a.n_weights; i += kThreads) s.wts[i] = a.weights[i];
-  for (int i = tid; i < DX * K; i += kThreads) s.xbuf[i] = a.x[(size_t)b * DX * K + i];
-  for (int i = tid; i < K; i += kThreads) s.lw[i] = a.logw[(size_t)b * K + i];
+  for (int i = tid; i < DX * K; i += kThreads) s.xbuf[i] = a.x[bx + i];
+  for (int i = tid; i < K; i += kThreads) s.lw[i] = a.logw[bk + i];
   float sfi[DX], sgi[DY];
 #pragma unroll
   for (int d = 0; d < DX; ++d) sfi[d] = a.sconst[d];
@@ -464,12 +479,23 @@ __global__ void __launch_bounds__(kThreads) step_forward_kernel(const StepArgs a
   __syncthreads();
 
   constexpr int NC = 3 * DX + DY + 1;
-  const StepRow r{a.coef + (size_t)b * NC,     a.eps + (size_t)b * DX * K,
-                  a.pos + (size_t)b * K,       a.stats + (size_t)b * (2 + DX),
-                  a.x_new + (size_t)b * DX * K, a.alpha + (size_t)b * K,
-                  a.idx + (size_t)b * K};
-  filter_step<DX, DY, H>(r, s, s.xbuf, s.lw, CtaOut{s.xbuf + DX * K, s.lw + K}, 0, K, K,
-                         a.n_mid, a.off_f, a.off_g, sfi, sgi, false, 0u, 0u, b, 0);
+  const StepRow r{a.coef + (size_t)b * NC, a.eps + bx,    a.pos + bk,
+                  a.x_new + bx,            a.alpha + bk, a.idx + bk};
+  float* xn = s.xbuf + DX * K;
+  float* lwn = s.lw + K;
+  const float ess = filter_step<DX, DY, H>(r, s, s.xbuf, s.lw, CtaOut{xn, lwn}, lo, lo + n, K,
+                                           a.n_mid, a.off_f, a.off_g, sfi, sgi, false, 0u, 0u,
+                                           b, 0);
+  if (!last_to_arrive(a.counter + b, S)) return;
+  // the row's last CTA: the other slices' x_new and α, then the row's statistics
+  for (int i = tid; i < K; i += kThreads) {
+    if (i >= lo && i < lo + n) continue;
+    lwn[i] = __ldcg(r.alpha_out + i);
+#pragma unroll
+    for (int d = 0; d < DX; ++d) xn[d * K + i] = __ldcg(r.x_out + d * K + i);
+  }
+  __syncthreads();
+  row_stats<DX>(xn, lwn, K, ess, s.red, a.stats + (size_t)b * (2 + DX));
 }
 
 }  // namespace psvo
@@ -510,18 +536,35 @@ extern "C" int psvo_max_active_clusters(int kernel, int dx, int dy, int hidden, 
   });
 }
 
+// K14 on `slices` CTAs per row; counter [B] is 0 before the launch and after it.
 extern "C" int psvo_step_forward(const float* x, const float* logw, const float* coef,
                                  const float* eps, const float* pos, const float* weights,
                                  const float* sconst, float* x_new, float* alpha, float* stats,
-                                 int* idx, int B, int K, int dx, int dy, int hidden, int n_mid,
-                                 int n_weights, int off_f, int off_g, void* stream) {
-  const psvo::StepArgs a{x,     logw,  coef,  eps, pos, weights, sconst, x_new, alpha,
-                         stats, idx,   B,     K,   n_mid, n_weights, off_f, off_g};
+                                 int* idx, int* counter, int B, int K, int dx, int dy, int hidden,
+                                 int n_mid, int n_weights, int off_f, int off_g, int slices,
+                                 void* stream) {
+  const psvo::StepArgs a{x,     logw,  coef,    eps, pos,   weights, sconst,    x_new, alpha,
+                         stats, idx,   counter, B,   K,     n_mid,   n_weights, off_f, off_g,
+                         slices};
+  if (slices < 1 || K % slices != 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   return psvo::with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
-    return psvo::launch_rows(psvo::step_forward_kernel<D::DX, D::DY, D::H>, a,
-                             psvo::fwd_smem_bytes<D::DX>(n_weights, K), s);
+    return psvo::launch_slices(psvo::step_forward_kernel<D::DX, D::DY, D::H>, a, B, slices,
+                               psvo::fwd_smem_bytes<D::DX>(n_weights, K), s);
+  });
+}
+
+// How many CTAs of K14 (kernel 0) or K15 (kernel 1) with `smem` bytes each the
+// current device holds at once, at (dx, dy, hidden), into *out.
+// fused_step.step_slices picks S from it.
+extern "C" int psvo_step_max_active(int kernel, int dx, int dy, int hidden, int smem, int* out) {
+  if (kernel == 1) return psvo::step_backward_resident(dx, dy, hidden, smem, out);
+  if (kernel != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return psvo::with_dims(dx, dy, hidden, [&](auto d) {
+    using D = decltype(d);
+    return psvo::max_resident(psvo::step_forward_kernel<D::DX, D::DY, D::H>,
+                              static_cast<size_t>(smem), out);
   });
 }
 

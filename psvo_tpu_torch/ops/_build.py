@@ -51,8 +51,11 @@ SIGNATURES = {
     "psvo_trunk_backward": [_P] * 13 + [_U32, _U32] + [_I] * 12 + [_P],
     "psvo_svo_forward": [_P] * 9 + [_I] * 10 + [_P],
     "psvo_svo_backward": [_P] * 13 + [_I] * 11 + [_P],
-    "psvo_step_forward": [_P] * 11 + [_I] * 9 + [_P],
-    "psvo_step_backward": [_P] * 15 + [_I] * 9 + [_P],
+    # K14 and K15: (..., counter, B, ..., off_g, slices, stream): S CTAs per row
+    "psvo_step_forward": [_P] * 12 + [_I] * 10 + [_P],
+    "psvo_step_backward": [_P] * 18 + [_I] * 10 + [_P],
+    # (kernel: 0 K14, 1 K15; dx, dy, hidden, smem bytes; int* out)
+    "psvo_step_max_active": [_I] * 5 + [_P],
 }
 
 def sources() -> list[Path]:

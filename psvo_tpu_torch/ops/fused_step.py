@@ -39,6 +39,15 @@ whose B clusters are all resident at once. `scan_forward` and
 launch in `.last_cluster`. K1's outputs and K4's d_x0 are bit-equal for
 every C.
 
+K14 and K15 run each row on S CTAs that form no cluster
+(`csrc/step_slices.cuh`), each owning K/S particles; the row's last CTA to
+finish does the row's one exchange through device memory. `step_slices`
+picks S from the card's count of resident CTAs (`resident_ctas`): the
+largest S in `STEP_SLICES` whose B·S CTAs are all resident at once.
+`step_forward` and `step_backward` take `slices=` to force S and record the
+S of their last launch in `.last_slices`. K14's outputs and K15's d_x are
+bit-equal for every S.
+
 `ScanForward` joins K1 and K4 as one `torch.autograd.Function`, the
 counterpart of `pallas_step._scan_call`'s custom VJP; `StepForward` joins
 K14 and K15, the counterpart of `pallas_step._step_call`'s. `SCAN_FUSED`
@@ -84,6 +93,8 @@ CLUSTER_SIZES = (1, 2, 4, 8)  # CTAs per row of K1 and K4 (8: the portable clust
 K1_MIN_SLICE = 256  # particles per CTA of K1 at C > 1: one per thread at least
 K4_MIN_SLICE = 64  # particles per CTA of K4 at C > 1: one tile at least
 _K1, _K4 = 0, 1  # psvo_max_active_clusters' kernel argument
+STEP_SLICES = (1, 2, 4, 8)  # CTAs per row of K14 (slices of K1_MIN_SLICE) and K15 (K4_MIN_SLICE)
+_K14, _K15 = 0, 1  # psvo_step_max_active's kernel argument
 
 
 def usable(ssm, cfg) -> bool:
@@ -872,10 +883,76 @@ def step_forward_reference(x, logw, coef, consts, eps, positions):
 step_forward_reference.calls = 0
 
 
-def step_forward(x, logw, coef, consts, eps, positions):
+# ---------------------------------------------------------------------------
+# K14 and K15 on S CTAs per row (csrc/step_slices.cuh)
+# ---------------------------------------------------------------------------
+
+
+def step_slices(batch: int, k: int, min_slice: int, resident: int) -> int:
+    """S, the CTAs per trajectory row of K14 (min_slice 256) or K15 (64).
+
+    resident is the number of the kernel's CTAs the card holds at once.
+    Returns the largest S in `STEP_SLICES` with K a multiple of S·min_slice
+    whose B·S CTAs are all resident at once; else 1. The count is the card's
+    own occupancy, not a constant.
+    """
+    fits = [s for s in STEP_SLICES if k % (s * min_slice) == 0 and batch * s <= resident]
+    return max(fits, default=1)
+
+
+def resident_ctas(kernel: int, device, consts, k: int) -> int:
+    """CTAs of K14 (`kernel` 0) or K15 (1) resident at once on `device` at
+    these constants and K, from the card's occupancy query
+    (`psvo_step_max_active`). Cached per (device, kernel, shape)."""
+    smem = k1_smem_bytes(consts, k) if kernel == _K14 else k15_smem_bytes(consts)
+    return _resident(kernel, torch.device(device).index, consts["dx"], consts["dy"],
+                     consts["hidden"], smem)
+
+
+@functools.cache
+def _resident(kernel, device_index, dx, dy, hidden, smem):
+    lib = _build.load_library()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.psvo_step_max_active(kernel, dx, dy, hidden, smem, ctypes.addressof(n))
+    _build.check(lib, err, "step_max_active")
+    return n.value
+
+
+def _pick_slices(name: str, kernel: int, x, consts, slices) -> int:
+    """The S of one K14 or K15 launch: `slices` if given (checked), else
+    step_slices on the card's occupancy."""
+    batch, k = x.shape[0], x.shape[-1]
+    min_slice = K1_MIN_SLICE if kernel == _K14 else K4_MIN_SLICE
+    if slices is None:
+        return step_slices(batch, k, min_slice, resident_ctas(kernel, x.device, consts, k))
+    if slices not in STEP_SLICES or (slices > 1 and k % (slices * min_slice)):
+        raise ValueError(f"{name}: no split into {slices} slices at K={k} (S in {STEP_SLICES}, "
+                         f"K a multiple of S·{min_slice})")
+    return slices
+
+
+_COUNTERS = {}
+
+
+def _arrival_counters(device, stream: int, batch: int):
+    """The rows' arrival counters of K14 and K15 on `stream`: int32 zeros,
+    at least `batch` of them, which every launch leaves at zero. Allocated
+    once per (device, stream), and again only for a larger batch: no launch
+    clears them, and two streams never share them."""
+    key = (str(device), stream)
+    counters = _COUNTERS.get(key)
+    if counters is None or counters.numel() < batch:
+        counters = _COUNTERS[key] = torch.zeros(batch, dtype=torch.int32, device=device)
+    return counters
+
+
+def step_forward(x, logw, coef, consts, eps, positions, *, slices=None):
     """K14: one filter step, operands and outputs as `step_forward_reference`.
-    CPU tensors run the plain version; CUDA tensors launch the kernel. It
-    takes no gradient itself: differentiate through `StepForward`."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel on
+    `slices` CTAs per row (None: `step_slices`'s choice), with the same bits
+    for every S. It takes no gradient itself: differentiate through
+    `StepForward`."""
     if x.device.type == "cpu":
         return step_forward_reference(x, logw, coef, consts, eps, positions)
     if x.device.type != "cuda":
@@ -887,20 +964,22 @@ def step_forward(x, logw, coef, consts, eps, positions):
             "step_forward records no gradient: differentiate through StepForward, "
             "or call it under torch.no_grad()"
         )
-    return _launch_step_forward(x, logw, coef, consts, eps, positions,
+    return _launch_step_forward(x, logw, coef, consts, eps, positions, slices,
                                 torch.cuda.current_stream(x.device).cuda_stream)
 
 
 step_forward.launches = 0
+step_forward.last_slices = None
 
 
-def _launch_step_forward(x, logw, coef, consts, eps, positions, stream):
-    """Check K14's operands, allocate its outputs and launch it on `stream`."""
+def _launch_step_forward(x, logw, coef, consts, eps, positions, slices, stream):
+    """Check K14's operands, pick S, allocate its outputs and launch it on `stream`."""
     dx, dy, h = consts["dx"], consts["dy"], consts["hidden"]
     batch, k = logw.shape
     dev = x.device
     if (dx, dy) not in KERNEL_DIMS or h not in HIDDEN_WIDTHS or not _k_ok(k):
         raise ValueError(f"step_forward: no kernel for Dx={dx}, Dy={dy}, hidden={h}, K={k}")
+    slices = _pick_slices("step_forward", _K14, x, consts, slices)
     _require(x, (batch, dx, k), "x", dev)
     _require(logw, (batch, k), "logw", dev)
     _require(coef, (batch, 3 * dx + dy + 1), "coef", dev)
@@ -913,15 +992,17 @@ def _launch_step_forward(x, logw, coef, consts, eps, positions, stream):
     alpha = torch.empty((batch, k), **f32)
     stats = torch.empty((batch, 2 + dx), **f32)
     idx = torch.empty((batch, k), dtype=torch.int32, device=dev)
+    counters = _arrival_counters(dev, stream, batch)
     lib = _build.load_library()
     _, off_f, off_g = consts["offsets"]
     err = lib.psvo_step_forward(
         x.data_ptr(), logw.data_ptr(), coef.data_ptr(), eps.data_ptr(), positions.data_ptr(),
         consts["packed"].data_ptr(), consts["sconst"].data_ptr(), x_new.data_ptr(),
-        alpha.data_ptr(), stats.data_ptr(), idx.data_ptr(), batch, k, dx, dy, h,
-        consts["n_mid"], consts["packed"].numel(), off_f, off_g, stream,
+        alpha.data_ptr(), stats.data_ptr(), idx.data_ptr(), counters.data_ptr(), batch, k, dx,
+        dy, h, consts["n_mid"], consts["packed"].numel(), off_f, off_g, slices, stream,
     )
     step_forward.launches += 1
+    step_forward.last_slices = slices
     _build.check(lib, err, "step_forward")
     return x_new, alpha, stats, idx
 
@@ -942,49 +1023,54 @@ def step_backward_reference(x, coef, consts, eps, idx, d_stats, d_x_new=None, d_
 step_backward_reference.calls = 0
 
 
-def k15_smem_bytes(consts, k: int) -> int:
-    """Dynamic shared memory of K15 (csrc/scan_backward.cu::bwd_smem_bytes):
-    K4's (`k4_smem_bytes`) less its carry, one [Dx][K] float array."""
-    return k4_smem_bytes(consts, k) - 4 * consts["dx"] * k
+def k15_smem_bytes(consts) -> int:
+    """Dynamic shared memory of one K15 CTA, any K and S
+    (csrc/scan_backward.cu::bwd_smem_bytes): K4's (`k4_smem_bytes`) without
+    the carry, d x_res and the ancestors, which K15 keeps in device memory."""
+    return k4_smem_bytes(consts, 0)
 
 
 def _k15_ok(consts, k: int) -> bool:
     return ((consts["dx"], consts["dy"]) in KERNEL_DIMS and consts["hidden"] in HIDDEN_WIDTHS
-            and consts["n_mid"] == 1 and _k_ok(k) and k15_smem_bytes(consts, k) <= SMEM_LIMIT)
+            and consts["n_mid"] == 1 and _k_ok(k) and k15_smem_bytes(consts) <= SMEM_LIMIT)
 
 
 def step_backward(x, x_new, idx, stats, coef, consts, eps, d_stats, d_x_new=None,
-                  d_alpha=None):
+                  d_alpha=None, *, slices=None):
     """K15: the VJP of one K14 step from its residuals: its input x and its
     outputs x_new, the int32 ancestors idx (nondecreasing along K) and stats
     (for ℓ), with its coef row and ε. Cotangents and outputs as
     `step_backward_reference`, which CPU tensors run; CUDA tensors launch the
-    kernel, built for Dx = Dy = 2 and 3, hidden widths 16/32/64 with one
-    middle layer, and K as far as its shared memory holds (`k15_smem_bytes`:
-    at width 64, K up to 4096 at Dx = 2 and 2560 at Dx = 3)."""
+    kernel on `slices` CTAs per row (None: `step_slices`'s choice; d_x has
+    the same bits for every S, the sums agree to float32 rounding). It is
+    built for Dx = Dy = 2 and 3, hidden widths 16/32/64 with one middle
+    layer, and every K up to MAX_K (`k15_smem_bytes` does not depend on K)."""
     if x.device.type == "cpu":
         return step_backward_reference(x, coef, consts, eps, idx, d_stats, d_x_new, d_alpha)
     if x.device.type != "cuda":
         raise ValueError(f"step_backward: unsupported device {x.device}")
     return _launch_step_backward(x, x_new, idx, stats, coef, consts, eps, d_stats, d_x_new,
-                                 d_alpha, torch.cuda.current_stream(x.device).cuda_stream)
+                                 d_alpha, slices, torch.cuda.current_stream(x.device).cuda_stream)
 
 
 step_backward.launches = 0
+step_backward.last_slices = None
 
 
 def _launch_step_backward(x, x_new, idx, stats, coef, consts, eps, d_stats, d_x_new, d_alpha,
-                          stream):
-    """Check K15's operands, allocate its outputs and launch it on `stream`."""
+                          slices, stream):
+    """Check K15's operands, pick S, allocate its outputs and scratch and
+    launch it on `stream`."""
     dx, dy = consts["dx"], consts["dy"]
     batch, _, k = x.shape
     dev = x.device
     if not _k15_ok(consts, k):
         raise ValueError(
             f"step_backward: no kernel for Dx={dx}, Dy={dy}, hidden={consts['hidden']}, "
-            f"{consts['n_mid']} middle layers, K={k} ({k15_smem_bytes(consts, k)} B of shared "
+            f"{consts['n_mid']} middle layers, K={k} ({k15_smem_bytes(consts)} B of shared "
             f"memory, at most {SMEM_LIMIT})"
         )
+    slices = _pick_slices("step_backward", _K15, x, consts, slices)
     _require(x, (batch, dx, k), "x", dev)
     _require(x_new, (batch, dx, k), "x_new", dev)
     _require(idx, (batch, k), "idx", dev, torch.int32)
@@ -1002,18 +1088,23 @@ def _launch_step_backward(x, x_new, idx, stats, coef, consts, eps, d_stats, d_x_
     f32 = dict(dtype=torch.float32, device=dev)
     d_x = torch.empty((batch, dx, k), **f32)
     d_coef = torch.empty(coef.shape, **f32)
-    partial = torch.empty((batch, n_w + dx + dy), **f32)
+    dxres = torch.empty((batch, dx, k), **f32)
+    coef_part = torch.empty((batch, slices, 3 * dx + 1), **f32)
+    partial = torch.empty((batch * slices, n_w + dx + dy), **f32)
     grads = torch.empty((n_w + dx + dy,), **f32)
+    counters = _arrival_counters(dev, stream, batch)
     lib = _build.load_library()
     _, off_f, off_g = consts["offsets"]
     err = lib.psvo_step_backward(
         x.data_ptr(), x_new.data_ptr(), idx.data_ptr(), stats.data_ptr(), coef.data_ptr(),
         eps.data_ptr(), consts["packed"].data_ptr(), consts["sconst"].data_ptr(),
         d_stats.data_ptr(), _ptr(d_x_new), _ptr(d_alpha), d_x.data_ptr(), d_coef.data_ptr(),
-        partial.data_ptr(), grads.data_ptr(), batch, k, dx, dy, consts["hidden"],
-        consts["n_mid"], n_w, off_f, off_g, stream,
+        dxres.data_ptr(), coef_part.data_ptr(), partial.data_ptr(), grads.data_ptr(),
+        counters.data_ptr(), batch, k, dx, dy, consts["hidden"], consts["n_mid"], n_w, off_f,
+        off_g, slices, stream,
     )
     step_backward.launches += 1
+    step_backward.last_slices = slices
     _build.check(lib, err, "step_backward")
     return d_x, d_coef, grads[:n_w], grads[n_w:]
 

@@ -114,8 +114,8 @@ def test_ctypes_signatures_carry_the_cluster_argument():
     assert sig["psvo_scan_backward"] == [ctypes.c_void_p] * 17 + [ctypes.c_uint32] * 2 + (
         [ctypes.c_int] * 12) + [ctypes.c_void_p]
     assert sig["psvo_max_active_clusters"] == [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    # the per-step kernels keep one CTA per row
-    assert sig["psvo_step_forward"] == [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    # the per-step kernels take no cluster: their rows' counters and a slice count instead
+    assert sig["psvo_step_forward"] == [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 @pytest.mark.parametrize("kernel,cluster,ok", [

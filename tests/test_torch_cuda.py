@@ -712,9 +712,10 @@ def test_step_kernels_match_plain(dx, hidden):
 
 
 def test_step_backward_covers_k2048_at_lorenz_dims_and_refuses_outside():
-    """K15 at Dx = 3, K = 2048, hidden (64, 64), where K4's shared memory does
-    not reach, against its plain version; beyond its class (K = 2816 there,
-    or two middle layers) step_backward and StepForward raise."""
+    """K15 at Dx = 3, K = 2048, hidden (64, 64), where K4's shared memory on
+    one CTA per row does not reach, against its plain version; beyond its
+    class (K = 4352 > MAX_K, or two middle layers) step_backward and
+    StepForward raise."""
     dev = _cuda()
     consts, x0, a0, coef, eps, pos, g = _step_operands(dev, 3, 64, b=2, k=2048, t1=1)
     assert not fused_step._k4_ok(consts, 2048) and fused_step._k15_ok(consts, 2048)
@@ -729,9 +730,9 @@ def test_step_backward_covers_k2048_at_lorenz_dims_and_refuses_outside():
                                               d_alpha)
     for a, w in zip(got, want):
         assert _rel(a, w) <= 1e-4
-    big = torch.zeros((1, 3, 2816), device=dev)
+    big = torch.zeros((1, 3, 4352), device=dev)
     with pytest.raises(ValueError, match="no kernel"):
-        fused_step.step_backward(big, big, torch.zeros((1, 2816), dtype=torch.int32, device=dev),
+        fused_step.step_backward(big, big, torch.zeros((1, 4352), dtype=torch.int32, device=dev),
                                  stats[:1], coef[0, :1], consts, big, d_stats[:1])
     deep = dict(consts, n_mid=2)
     with pytest.raises(ValueError, match="backward kernel"):
@@ -741,9 +742,10 @@ def test_step_backward_covers_k2048_at_lorenz_dims_and_refuses_outside():
 
 def test_per_step_train_step_launches_k14_and_k15(monkeypatch):
     """One make_train_step step with fused_step.SCAN_FUSED off on the card:
-    K14 and K15 T−1 times each, no K1 or K4, no plain version; its raw
-    gradients match the per-step plain versions on CPU tensors replaying the
-    step's streams to 1e-4 relative per leaf."""
+    K14 and K15 T−1 times each, on the S that step_slices picks from the
+    card's occupancy, no K1 or K4, no plain version; its raw gradients match
+    the per-step plain versions on CPU tensors replaying the step's streams
+    to 1e-4 relative per leaf."""
     from psvo_tpu_torch import bridge
     from psvo_tpu_torch.smc import _draw_noise, _forward_filter_fused
     from psvo_tpu_torch.train import make_optimizer, make_train_step
@@ -766,6 +768,7 @@ def test_per_step_train_step_launches_k14_and_k15(monkeypatch):
     assert [f.launches - n for f, n in zip(kernels, launches)] == [5, 5, 0, 0]
     assert [f.calls for f in plain] == calls
     assert torch.isfinite(metrics["loss"])
+    _assert_chosen_slices(ssm, 4, 128)
 
     gen.set_state(state)  # replay the step's streams
     streams = tuple(t.cpu() for t in _draw_noise(gen, cfg.smc, 6, 4, 2))
@@ -775,6 +778,90 @@ def test_per_step_train_step_launches_k14_and_k15(monkeypatch):
     for name in want:
         for a, w in zip(_leaves(got[name]), _leaves(want[name])):
             assert _rel(torch.from_numpy(a), torch.from_numpy(w)) <= 1e-4, name
+
+
+def _assert_chosen_slices(ssm, batch, k):
+    """K14's and K15's last launches ran on the S of step_slices at the card's
+    resident-CTA counts."""
+    with torch.no_grad():
+        consts = fused_step.prepare(ssm)
+    for fn, kernel, min_slice in ((fused_step.step_forward, 0, fused_step.K1_MIN_SLICE),
+                                  (fused_step.step_backward, 1, fused_step.K4_MIN_SLICE)):
+        resident = fused_step.resident_ctas(kernel, consts["packed"].device, consts, k)
+        assert resident >= 132  # at least one CTA per SM of an H100
+        assert fn.last_slices == fused_step.step_slices(batch, k, min_slice, resident)
+
+
+@pytest.mark.parametrize("dx", [2, 3])
+def test_step_forward_on_slices_is_bit_equal_to_one_cta_per_row(dx):
+    """K14 on S CTAs per row, chained over T−1 steps from its own state,
+    gives every output of S = 1 (x_new, α, ℓ, ESS, the filtered mean and the
+    ancestors) bit for bit at each S the gate admits at K = 1024."""
+    dev = _cuda()
+    consts, x0, a0, coef, eps, pos, _ = _step_operands(dev, dx, 16, k=1024)
+
+    def chain(slices):
+        x, lw, outs = x0, a0, []
+        for t in range(coef.shape[0]):
+            out = fused_step.step_forward(x, lw, coef[t], consts, eps[t], pos[t], slices=slices)
+            assert fused_step.step_forward.last_slices == slices
+            outs.append(out)
+            x, lw = out[:2]
+        return [torch.stack([o[i] for o in outs]) for i in range(4)]
+
+    with torch.no_grad():
+        one = chain(1)
+        for slices in (2, 4):
+            assert all(torch.equal(a, b) for a, b in zip(chain(slices), one))
+
+
+@pytest.mark.parametrize("slices", [2, 4, 8])
+@pytest.mark.parametrize("dx", [2, 3])
+def test_step_backward_on_slices_matches_one_cta_per_row(dx, slices):
+    """K15 on S CTAs per row: d_x bit-equal to S = 1, d_coef and the weight
+    and sconst gradients within 1e-6 relative (summed per slice first), the
+    same bits on a relaunch, and within 1e-4 of the plain version."""
+    dev = _cuda()
+    consts, x0, a0, coef, eps, pos, g = _step_operands(dev, dx, 16, k=512, t1=1)
+    with torch.no_grad():
+        x_new, alpha, stats, idx = fused_step.step_forward(x0, a0, coef[0], consts, eps[0], pos[0])
+    cots = [torch.randn(t.shape, generator=g, device=dev) for t in (stats, x_new, alpha)]
+    args = (x0, x_new, idx, stats, coef[0], consts, eps[0], *cots)
+    one = fused_step.step_backward(*args, slices=1)
+    got = fused_step.step_backward(*args, slices=slices)
+    assert fused_step.step_backward.last_slices == slices
+    again = fused_step.step_backward(*args, slices=slices)
+    assert torch.equal(got[0], one[0])
+    for a, w in zip(got[1:], one[1:]):
+        assert _rel(a, w) <= 1e-6
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = fused_step.step_backward_reference(x0, coef[0], consts, eps[0], idx, *cots)
+    for a, w in zip(got, want):
+        assert _rel(a, w) <= 1e-4
+
+
+def test_per_step_train_step_runs_k14_and_k15_on_slices(monkeypatch):
+    """One fhn_fivo_k1024_bench train step on the per-step path at its full
+    widths (B = 32, K = 1024, hidden (64, 64); T cut to 6): K14 and K15
+    launch T−1 times each on the S that step_slices picks from the card's
+    occupancy, which splits each row over S > 1 CTAs."""
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    monkeypatch.setattr(fused_step, "SCAN_FUSED", False)
+    dev = _cuda()
+    cfg = PRESETS["fhn_fivo_k1024_bench"]
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, t_steps=6),
+                              train=dataclasses.replace(cfg.train, steps_per_call=1))
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ys = torch.randn((32, 6, 2), generator=torch.Generator().manual_seed(2)).to(dev)
+    launches = (fused_step.step_forward.launches, fused_step.step_backward.launches)
+    metrics = make_train_step(ssm, cfg, make_optimizer(cfg))(torch.Generator(device=dev)
+                                                               .manual_seed(3), ys)
+    assert (fused_step.step_forward.launches, fused_step.step_backward.launches) == (
+        launches[0] + 5, launches[1] + 5)
+    assert torch.isfinite(metrics["loss"])
+    _assert_chosen_slices(ssm, 32, 1024)
+    assert min(fused_step.step_forward.last_slices, fused_step.step_backward.last_slices) > 1
 
 
 @pytest.mark.parametrize("cluster", [2, 4])

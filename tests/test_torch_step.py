@@ -241,9 +241,10 @@ def test_psvo_loss_and_gradients_agree_with_the_toggle_on_and_off(monkeypatch):
 
 
 def test_step_backward_class_is_wider_than_the_whole_scan_one():
-    """K15 keeps no carry, so its shared memory admits K up to 4096 at Dx = 2
-    and 2560 at Dx = 3 with hidden (64, 64), where K4 stops at 2304 and 1536;
-    one middle layer only, as K4."""
+    """K15 keeps no carry, and its d x_res and ancestors stay in device
+    memory, so its shared memory does not depend on K and admits every K up
+    to MAX_K = 4096 at Dx = 2 and 3 with hidden (64, 64), where K4 stops at
+    2304 and 1536 on one CTA per row; one middle layer only, as K4."""
     widths = {}
     for preset in ("fhn_fivo_k1024_bench", "lorenz63_psvo_k1024"):
         ssm = init_ssm(PRESETS[preset], torch.Generator().manual_seed(0), device="cpu")
@@ -251,7 +252,8 @@ def test_step_backward_class_is_wider_than_the_whole_scan_one():
         ks = range(256, fused_step.MAX_K + 1, 256)
         widths[ssm.dx] = (max(k for k in ks if fused_step._k4_ok(consts, k)),
                           max(k for k in ks if fused_step._k15_ok(consts, k)))
-        assert fused_step.k15_smem_bytes(consts, 1024) == (
-            fused_step.k4_smem_bytes(consts, 1024) - 4 * ssm.dx * 1024)
+        # K4's less the carry and d x_res [Dx][K] and the ancestors [K]
+        assert fused_step.k15_smem_bytes(consts) == (
+            fused_step.k4_smem_bytes(consts, 1024) - 4 * (2 * ssm.dx + 1) * 1024)
         assert not fused_step._k15_ok(dict(consts, n_mid=2), 1024)
-    assert widths == {2: (2304, 4096), 3: (1536, 2560)}
+    assert widths == {2: (2304, 4096), 3: (1536, 4096)}
