@@ -51,10 +51,14 @@ trunk path:
       adversarial rows of (o) at K=128, 2048 and 8192 (bit-equal on a second
       launch), with its device time beside zeros + scatter_add_'s
   (s) K10 trunk_backward vs its plain version on every step of one kernel
-      run, random cotangents, streamed ε and the in-kernel draw (small, full)
+      run, random cotangents, streamed ε and the in-kernel draw (small, full),
+      and vs the previous design (design="simt", fp32 FMA) within 1e-5; the
+      two designs timed alternately, three pairs per noise mode, beside the
+      fp32 bound and the split bound (forward on fp32, backward 3xTF32)
   (t) training through make_train_step from the snapshot: 3 calls of one
       step on minibatches of 8, launch counts (99 per kernel per step), loss,
-      grad norm, step time, peak memory and a profile by kernel
+      grad norm, step time, peak memory and a profile by kernel; every K10
+      launch the tensor-core design
 
 then `lorenz63_svo_k256` (Lorenz-63, SVO with the learned backward proposal,
 K=256, M=16, B=32, T=100, relu heads (64, 64), in-kernel RNG, the filter's
@@ -149,6 +153,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 FP32_PEAK = 67e12  # FLOP/s on the CUDA cores, H100 SXM at 700 W
 HBM_PEAK = 3.35e12  # bytes/s
+TF32_PEAK = 495e12  # FLOP/s on the tensor cores, dense TF32
 
 
 _LAST = [time.perf_counter()]
@@ -245,7 +250,7 @@ FHN_KERNELS = {"K1": ("scan_forward_kernel",), "K4": ("scan_backward_kernel", "s
 PSVO_KERNELS = dict(FHN_KERNELS, K5=("ffbsi_forward_kernel",), K6=("ffbsi_backward_kernel",))
 L96_KERNELS = {"K9": ("trunk_forward_kernel",), "K7": ("ancestor_indices_large_kernel",),
                "K8": ("gather_particles_kernel",)}
-L96_TRAIN_KERNELS = dict(L96_KERNELS, K10=("trunk_backward_kernel", "trunk_sum_ctas_kernel",
+L96_TRAIN_KERNELS = dict(L96_KERNELS, K10=("trunk_backward_tf32x3_kernel", "trunk_sum_ctas_kernel",
                                            "trunk_sum_tiles_kernel"),
                          K11=("segment_sum_scatter_kernel",))
 L96 = "lorenz96_fivo_k8192_sharded"
@@ -715,10 +720,13 @@ def trunk_backward_run(ssm, cfg, ys, gen, rng_seed=None):
     The cotangents are zero on the particles of `relu_ties`, where a relu's
     mask is a coin toss between two float32 summation orders; the raw
     comparison, with every particle's cotangent, is reported beside it.
+    The previous design (`design="simt"`) runs on every step's raw operands
+    too: both recompute the trunks in K9's order, so their relu masks and
+    floor cuts agree and no particle needs zeroing between them.
     Returns the largest per-step relative L2 of each leaf (d_x_res, d_coef,
-    d_weights, d_sconst) and |Δ|, the raw ones, the particles zeroed, whether
-    a second launch on the last step gave the same bits, and the last step's
-    operands for timing."""
+    d_weights, d_sconst) and |Δ|, the raw ones, those against the previous
+    design, the particles zeroed, whether a second launch on the last step
+    gave the same bits, and the last step's operands for timing."""
     import torch
     from psvo_tpu_torch import smc
     from psvo_tpu_torch.ops import fused_step, trunk
@@ -740,7 +748,7 @@ def trunk_backward_run(ssm, cfg, ys, gen, rng_seed=None):
     else:
         eps = torch.randn((t_steps - 1, batch, dx, k), generator=gen, device=dev)
     x, logw = x.contiguous(), logw.contiguous()
-    rel, maxd, rel_raw, zeroed = [], [], [], 0
+    rel, maxd, rel_raw, rel_simt, zeroed = [], [], [], [], 0
     for t in range(t_steps - 1):
         x_res = rg.gather_particles(x, rg.ancestor_indices_large(logw, pos[t].contiguous()))
         noise = {"seed": rng_seed, "t": t} if rng_seed is not None else {"eps": eps[t]}
@@ -748,10 +756,13 @@ def trunk_backward_run(ssm, cfg, ys, gen, rng_seed=None):
         d_x_new = torch.randn(x_new.shape, generator=gen, device=dev)
         d_alpha = torch.randn(alpha.shape, generator=gen, device=dev)
         raw = (x_res, x_new, coef[t], consts, d_x_new, d_alpha)
+        got_raw = trunk.trunk_backward(*raw, **noise)
         rel_raw.append(torch.stack(
             [(g - w).norm() / w.norm().clamp_min(1e-30) for g, w in
-             zip(trunk.trunk_backward(*raw, **noise),
-                 trunk.trunk_backward_reference(*raw[:4], eps[t], *raw[4:]))]))
+             zip(got_raw, trunk.trunk_backward_reference(*raw[:4], eps[t], *raw[4:]))]))
+        rel_simt.append(torch.stack(
+            [(g - w).norm() / w.norm().clamp_min(1e-30) for g, w in
+             zip(got_raw, trunk.trunk_backward(*raw, **noise, design="simt"))]))
         keep = ~relu_ties(consts, x_res, x_new)
         zeroed += int((~keep).sum())
         bwd = (x_res, x_new, coef[t], consts, d_x_new * keep[:, None], d_alpha * keep)
@@ -763,7 +774,8 @@ def trunk_backward_run(ssm, cfg, ys, gen, rng_seed=None):
         x, logw = x_new, alpha
     same = all(torch.equal(a, b) for a, b in zip(got, trunk.trunk_backward(*bwd, **noise)))
     return dict(rel=torch.stack(rel).amax(0).tolist(), maxd=torch.stack(maxd).amax(0).tolist(),
-                rel_raw=torch.stack(rel_raw).amax(0).tolist(), zeroed=zeroed,
+                rel_raw=torch.stack(rel_raw).amax(0).tolist(),
+                rel_simt=torch.stack(rel_simt).amax(0).tolist(), zeroed=zeroed,
                 n=(t_steps - 1) * batch * k, same=same, finite=all(bool(torch.isfinite(g).all()) for g in got),
                 last=(bwd, noise, eps[-1], got))
 
@@ -1877,33 +1889,56 @@ def main() -> int:
                                               zip(("d_x_res",) + leaves[1:], r["rel"], r["maxd"]))
                   + f"; bit-equal on a second launch {r['same']}; bound rel L2 {tol:g}; cotangents "
                   f"zeroed on {r['zeroed']} of {r['n']} particle-steps with a relu tie; with every "
-                  f"particle's cotangent, rel L2 " + ", ".join(f"{e:.3e}" for e in r["rel_raw"]),
-                  flush=True)
+                  f"particle's cotangent, rel L2 " + ", ".join(f"{e:.3e}" for e in r["rel_raw"])
+                  + "; against the previous design (simt), every particle, rel L2 "
+                  + ", ".join(f"{e:.3e}" for e in r["rel_simt"]) + " (bound 1e-05)", flush=True)
             if not (r["finite"] and r["same"] and max(r["rel"]) <= tol):
                 fail(f"K10 ({label}, {mode}) disagrees with trunk_backward_reference")
+            if not max(r["rel_simt"]) <= 1e-5:
+                fail(f"K10 ({label}, {mode}) is further than 1e-5 from the previous design")
     k10_small_err = max(max(k10[("small", m)]["maxd"]) for m in ("stream", "in-kernel RNG"))
     (bwd10, noise10, eps10, got10) = k10[("full", "in-kernel RNG")]["last"]
     bwd10s, noise10s = k10[("full", "stream")]["last"][:2]
+    # the new design and the previous one alternated, three pairs per noise mode
+    k10_pairs = {"in-kernel RNG": [], "stream": []}
     with torch.no_grad():
-        k10_dev = [device_ms(lambda: trunk.trunk_backward(*bwd10, **noise10)),
-                   device_ms(lambda: trunk.trunk_backward_reference(*bwd10[:4], eps10, *bwd10[4:])),
-                   device_ms(lambda: trunk.trunk_backward(*bwd10s, **noise10s))]
+        for mode, (b_, n_) in (("in-kernel RNG", (bwd10, noise10)), ("stream", (bwd10s, noise10s))):
+            for _ in range(3):
+                k10_pairs[mode].append(tuple(
+                    device_ms(lambda: trunk.trunk_backward(*b_, **n_, design=d))
+                    for d in ("tf32x3", "simt")))
+        k10_plain = device_ms(lambda: trunk.trunk_backward_reference(*bwd10[:4], eps10, *bwd10[4:]))
+    k10_ms = statistics.mean(p[0] for p in k10_pairs["in-kernel RNG"])
+    k10_ms_simt = statistics.mean(p[1] for p in k10_pairs["in-kernel RNG"])
     x_res, x_new = bwd10[0], bwd10[1]
     n_part = x_res.shape[0] * x_res.shape[-1]
     k10_flops = 3 * trunk_flops(bwd10[3]) * n_part
     # x_res, x_new, d x_new, d α and the small operands in; d x_res and the gradients out
     k10_bound, k10_by = bound(k10_flops, nbytes(x_res, x_new, bwd10[2], bwd10[3]["packed"],
                                                 bwd10[3]["sconst"], bwd10[4], bwd10[5], *got10))
-    k10_regs = re.search(r"trunk_backward_kernelILi40ELi40ELi64EE.*?Used (\d+) registers",
-                         _build.build_log(), re.S)
-    k10_spill = re.search(r"trunk_backward_kernelILi40ELi40ELi64EE[^\n]*\n[^\n]*\n\s*(\d+) bytes "
-                          r"stack frame, (\d+) bytes spill stores", _build.build_log())
-    print(f"[s] K10 full (B={x_res.shape[0]}, K={x_res.shape[-1]}, hidden 64): device time per "
-          f"call (torch.profiler, 20 calls) in-kernel RNG {k10_dev[0]:.4f} ms, stream "
-          f"{k10_dev[2]:.4f} ms, plain {k10_dev[1]:.4f} ms; bound {k10_bound:.4f} ms ({k10_by}, "
-          f"{k10_flops:.3e} FLOP); registers {k10_regs.group(1) if k10_regs else '?'}, spill "
-          f"stores {k10_spill.group(2) if k10_spill else '?'} B, shared memory "
-          f"{trunk.k10_smem_bytes(40, 40, 64, 1)} B per CTA", flush=True)
+    # the split bound of the tensor-core design: the three forward units (a third of the
+    # FLOP) on the fp32 cores, the six backward units in three TF32 passes on the tensor cores
+    k10_split = (k10_flops / 3 / FP32_PEAK + 3 * (2 * k10_flops / 3) / TF32_PEAK) * 1e3
+    log = _build.build_log()
+    k10_res = {}
+    for kname in ("trunk_backward_tf32x3_kernel", "trunk_backward_kernel"):
+        regs = re.search(kname + r"ILi40ELi40ELi64EE.*?Used (\d+) registers", log, re.S)
+        spill = re.search(kname + r"ILi40ELi40ELi64EE[^\n]*\n[^\n]*\n\s*(\d+) bytes "
+                          r"stack frame, (\d+) bytes spill stores", log)
+        k10_res[kname] = (regs.group(1) if regs else "?", spill.group(2) if spill else "?")
+    for mode, pairs in k10_pairs.items():
+        print(f"[s] K10 full (B={x_res.shape[0]}, K={x_res.shape[-1]}, hidden 64) {mode}: device "
+              f"time per call (torch.profiler, 20 calls), (tf32x3, simt) alternated "
+              + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in pairs) + " ms", flush=True)
+    print(f"[s] K10 tf32x3 {k10_ms:.4f} ms, simt {k10_ms_simt:.4f} ms (in-kernel RNG means); plain "
+          f"{k10_plain:.4f} ms; fp32 bound {k10_bound:.4f} ms ({k10_by}, {k10_flops:.3e} FLOP): "
+          f"tf32x3 at {100 * k10_bound / k10_ms:.1f}% of it, simt at "
+          f"{100 * k10_bound / k10_ms_simt:.1f}%; split bound {k10_split:.4f} ms (forward on fp32, "
+          f"backward 3xTF32): tf32x3 at {100 * k10_split / k10_ms:.1f}%; registers, spill stores "
+          f"tf32x3 {k10_res['trunk_backward_tf32x3_kernel']}, simt "
+          f"{k10_res['trunk_backward_kernel']}; shared memory per CTA tf32x3 "
+          f"{trunk.k10_smem_bytes(40, 40, 64, 1)} B, simt "
+          f"{trunk.k10_smem_bytes(40, 40, 64, 1, 'simt')} B", flush=True)
     del bwd10, bwd10s, got10, eps10, x_res, x_new
     k10.clear()
     phase_done("s")
@@ -1928,6 +1963,7 @@ def main() -> int:
     held_train_gb = torch.cuda.memory_allocated() / 1e9
     for f in t_kernels:
         f.launches = 0
+    trunk.trunk_backward.launches_by_design = dict.fromkeys(trunk.DESIGNS, 0)
     for f in t_plain:
         f.calls = 0
     call_s, train_metrics = [], []
@@ -1937,6 +1973,7 @@ def main() -> int:
         torch.cuda.synchronize()
         call_s.append(time.perf_counter() - t0)
     train_launches = [f.launches for f in t_kernels]
+    k10_by_design = dict(trunk.trunk_backward.launches_by_design)
     plain_calls = sum(f.calls for f in t_plain)
     peak_train_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(m_["loss"]) for m_ in train_metrics]
@@ -1947,7 +1984,8 @@ def main() -> int:
     print(f"[t] training {L96} from the snapshot: {len(train_batches)} calls x {n_per_call} step, "
           f"B={batch}, K={lk}: loss per call {[round(v, 3) for v in losses]}, grad norm "
           f"{[round(v, 3) for v in norms]}, mean ESS {[round(v, 3) for v in ess_mean]}, "
-          f"parameters moved {moved}; launches K7/K8/K9/K10/K11 {train_launches}, plain-version "
+          f"parameters moved {moved}; launches K7/K8/K9/K10/K11 {train_launches} (K10 by design "
+          f"{k10_by_design}), plain-version "
           f"calls {plain_calls}; call times {[round(v, 3) for v in call_s]} s, train step "
           f"{l96_step_ms:.3f} ms (median of the calls after the first); peak device memory "
           f"{peak_train_gb - held_train_gb:.3f} GB above the {held_train_gb:.3f} GB held before",
@@ -1956,9 +1994,10 @@ def main() -> int:
                                L96_TRAIN_KERNELS)
     print(f"[t] profile of one more call: {profile}", flush=True)
     want_t = len(train_batches) * n_per_call * (cfg.data.t_steps - 1)
-    if train_launches != [want_t] * 5 or plain_calls != 0:
-        fail(f"training {L96} launched K7/K8/K9/K10/K11 {train_launches} (want {want_t} each), "
-             f"plain versions {plain_calls}")
+    if (train_launches != [want_t] * 5 or plain_calls != 0
+            or k10_by_design != {"tf32x3": want_t, "simt": 0}):
+        fail(f"training {L96} launched K7/K8/K9/K10/K11 {train_launches} (want {want_t} each; "
+             f"K10 by design {k10_by_design}, want all tf32x3), plain versions {plain_calls}")
     if not (all(math.isfinite(v) for v in losses + norms) and moved):
         fail(f"training {L96} gave non-finite losses or gradient norms, or left the parameters "
              f"as they were")
@@ -2639,8 +2678,9 @@ def main() -> int:
          "library_ms": None},
         {"name": "trunk_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/trunk_backward.cu",
          "replaces": "psvo_tpu/ops/pallas_trunk.py:419", "launches": train_launches[3],
-         "on_path": True, "max_abs_err": k10_small_err, "ms": k10_dev[0], "plain_ms": k10_dev[1],
-         "bound_ms": k10_bound, "bound_by": k10_by, "library_ms": None},
+         "on_path": True, "max_abs_err": k10_small_err, "ms": k10_ms, "plain_ms": k10_plain,
+         "bound_ms": k10_bound, "bound_by": k10_by, "library_ms": None, "ms_simt": k10_ms_simt,
+         "bound_split_ms": k10_split},
         {"name": "segment_sum_scatter", "route": "cuda",
          "source": "psvo_tpu_torch/csrc/resample_gather.cu",
          "replaces": "psvo_tpu/ops/pallas_resample.py:902", "launches": train_launches[4],

@@ -14,40 +14,53 @@ constexpr int kTile = 64;  // particles per tile
 constexpr int kParts = kTrunkThreads / kTile;  // threads summing one particle's α
 
 // out[r][p] = b[r] + Σ_i w[i][r]·in[i][p] (relu'd when RELU) for r < R and
-// the tile's kTile particles; w is row-major [DIN][R] followed by b [R]
-// (x @ W + b), in and out are [rows][S] (S >= kTile, a multiple of 4), all
-// in shared memory. The sum runs bias first, then i ascending, one fmaf per
-// term. The caller synchronises before reading out.
-template <int DIN, int R, bool RELU, int S>
+// the tile's kTile particles; w is [DIN] rows of R weights at a row stride of
+// WS floats followed by b [R] (x @ W + b), in and out are [rows][S] (S >=
+// kTile, a multiple of 4), all in shared memory. NT threads share the
+// outputs in blocks of RB rows × 4 particles. The sum runs bias first, then
+// i ascending, one fmaf per term, whatever NT, RB and WS, so every mapping
+// gives the same bits. The caller synchronises before reading out.
+template <int DIN, int R, bool RELU, int S, int NT = kTrunkThreads, int RB = 4, int WS = R>
 __device__ __forceinline__ void tile_layer(const float* __restrict__ w,
                                            const float* __restrict__ in,
                                            float* __restrict__ out) {
-  static_assert(R % 4 == 0, "4x4 register blocks need R % 4 == 0");
+  static_assert((RB == 2 || RB == 4) && R % RB == 0 && WS % RB == 0,
+                "RB x 4 register blocks need R % RB == 0");
   constexpr int kColGroups = kTile / 4;
-  const float* b = w + DIN * R;
-  for (int blk = threadIdx.x; blk < (R / 4) * kColGroups; blk += kTrunkThreads) {
-    const int r0 = (blk / kColGroups) * 4, p0 = (blk % kColGroups) * 4;
-    float acc[4][4];
+  const float* b = w + DIN * WS;
+  for (int blk = threadIdx.x; blk < (R / RB) * kColGroups; blk += NT) {
+    const int r0 = (blk / kColGroups) * RB, p0 = (blk % kColGroups) * 4;
+    float acc[RB][4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < RB; ++q) {
       const float bias = b[r0 + q];
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[q][c] = bias;
     }
 #pragma unroll 8
     for (int i = 0; i < DIN; ++i) {
-      const float4 wv = *reinterpret_cast<const float4*>(w + i * R + r0);
+      float wq[RB];
+      if constexpr (RB == 4) {
+        const float4 wv = *reinterpret_cast<const float4*>(w + i * WS + r0);
+        wq[0] = wv.x;
+        wq[1] = wv.y;
+        wq[2] = wv.z;
+        wq[3] = wv.w;
+      } else {
+        const float2 wv = *reinterpret_cast<const float2*>(w + i * WS + r0);
+        wq[0] = wv.x;
+        wq[1] = wv.y;
+      }
       const float4 xv = *reinterpret_cast<const float4*>(in + i * S + p0);
-      const float wq[4] = {wv.x, wv.y, wv.z, wv.w};
       const float xc[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
+      for (int q = 0; q < RB; ++q) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[q][c] = fmaf(wq[q], xc[c], acc[q][c]);
       }
     }
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < RB; ++q) {
       float4 o = make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
       if (RELU) {
         o.x = fmaxf(o.x, 0.0f);
@@ -61,11 +74,11 @@ __device__ __forceinline__ void tile_layer(const float* __restrict__ w,
 }
 
 // Copy rows x [rows][K] (row stride K, starting at particle k0) into a
-// [rows][S] tile, or the tile back out, as float4.
-template <bool kLoad, int S>
+// [rows][S] tile, or the tile back out, as float4, NT threads.
+template <bool kLoad, int S, int NT = kTrunkThreads>
 __device__ __forceinline__ void move_tile(float* tile, const float* src, float* dst, int rows,
                                           int K, int k0) {
-  for (int v = threadIdx.x; v < rows * (kTile / 4); v += kTrunkThreads) {
+  for (int v = threadIdx.x; v < rows * (kTile / 4); v += NT) {
     const int d = v / (kTile / 4), p = (v % (kTile / 4)) * 4;
     const size_t g = (size_t)d * K + k0 + p;
     if (kLoad) {

@@ -48,7 +48,8 @@ SIGNATURES = {
     "psvo_gather_particles": [_P, _P, _P, _I, _I, _I, _P],
     "psvo_trunk_forward": [_P] * 7 + [_U32, _U32] + [_I] * 11 + [_P],
     "psvo_segment_sum_scatter": [_P, _P, _P, _I, _I, _I, _P],
-    "psvo_trunk_backward": [_P] * 13 + [_U32, _U32] + [_I] * 12 + [_P],
+    # K10 ends in (..., max_ctas, design, stream): 0 the tensor-core design, 1 the previous one
+    "psvo_trunk_backward": [_P] * 13 + [_U32, _U32] + [_I] * 13 + [_P],
     "psvo_svo_forward": [_P] * 9 + [_I] * 10 + [_P],
     "psvo_svo_backward": [_P] * 13 + [_I] * 11 + [_P],
     # K14 and K15: (..., counter, B, ..., off_g, slices, stream): S CTAs per row

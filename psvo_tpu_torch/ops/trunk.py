@@ -17,7 +17,10 @@ through the large-K kernels (`ops/resample_gather.py`), then one launch of
   recompute the trunks and α, cut dα where the floor clamped, backprop g, q1
   and f — giving d x_res, the step's d_coef row (zero for y), the packed
   weight gradients and d_sconst. Plain version: `trunk_backward_reference`,
-  an autograd replay of the plain forward.
+  an autograd replay of the plain forward. Its backward products run on the
+  tensor cores in 3xTF32 (`csrc/mma_tf32.cuh`), 512 threads a CTA; the
+  previous design, every product on the fp32 cores, stays callable with
+  `design="simt"` as its yardstick.
 
 `TrunkForward` joins K9 and K10 as one `torch.autograd.Function`, the
 counterpart of `pallas_trunk.trunk_call`'s custom VJP; `trunk_forward` goes
@@ -60,22 +63,41 @@ def smem_bytes(dx: int, dy: int, h: int, n_mid: int) -> int:
     return 4 * (n_w + (max(dx, dy) + 3 * dx + 2 * h + _PARTS) * TILE + nc + (-nc) % 4)
 
 
-def k10_smem_bytes(dx: int, dy: int, h: int, n_mid: int) -> int:
+DESIGNS = ("tf32x3", "simt")  # K10's designs: the tensor-core one, the previous one
+
+
+def _net_floats_padded(din: int, h: int, n_mid: int, dout: int) -> int:
+    """One net's floats in K10's shared memory (csrc/trunk_backward.cu::
+    padded_net): every weight row padded by 4 floats, padded to 4."""
+    n = din * (h + 4) + h + n_mid * (h * (h + 4) + h) + h * (dout + 4) + dout
+    return n + (-n) % 4
+
+
+def k10_smem_bytes(dx: int, dy: int, h: int, n_mid: int, design: str = "tf32x3") -> int:
     """Dynamic shared memory of K10 (csrc/trunk_backward.cu::
-    launch_trunk_backward): the three nets' weights, six [rows][68] tiles
-    (x_res, x_new, ε, f's mean, g's mean, d x_new), one net's n_mid + 1
-    hidden layers, the α partial sums, dα and one row's coefficients."""
-    n_w = 2 * _net_floats(dx, h, n_mid, dx) + _net_floats(dx, h, n_mid, dy)
+    launch_trunk_backward): the three nets' weights (rows padded by 4 floats
+    in the tf32x3 design), six tiles (x_res, x_new, ε, f's mean, g's mean,
+    d x_new) and one net's n_mid + 1 hidden layers at a row stride of 72
+    floats (68 in the simt design), the α partial sums, dα and one row's
+    coefficients."""
+    if design == "tf32x3":
+        n_w = 2 * _net_floats_padded(dx, h, n_mid, dx) + _net_floats_padded(dx, h, n_mid, dy)
+        stride = TILE + 8
+    elif design == "simt":
+        n_w = 2 * _net_floats(dx, h, n_mid, dx) + _net_floats(dx, h, n_mid, dy)
+        stride = TILE + 4
+    else:
+        raise ValueError(f"K10 has no design {design!r} (one of {DESIGNS})")
     nc = 3 * dx + dy + 1
     rows = 5 * dx + max(dx, dy) + (n_mid + 1) * h
-    return 4 * (n_w + rows * (TILE + 4) + (_PARTS + 1) * TILE + nc + (-nc) % 4)
+    return 4 * (n_w + rows * stride + (_PARTS + 1) * TILE + nc + (-nc) % 4)
 
 
-def k10_ok(dx: int, dy: int, h: int, n_mid: int, k: int) -> bool:
+def k10_ok(dx: int, dy: int, h: int, n_mid: int, k: int, design: str = "tf32x3") -> bool:
     """Whether K10 is instantiated for the shape: K9's dims and widths, K a
     multiple of 64, its shared memory in one CTA."""
     return ((dx, dy) in TRUNK_DIMS and h in HIDDEN_WIDTHS and k % TILE == 0
-            and k10_smem_bytes(dx, dy, h, n_mid) <= SMEM_LIMIT)
+            and k10_smem_bytes(dx, dy, h, n_mid, design) <= SMEM_LIMIT)
 
 
 def usable(ssm, cfg) -> bool:
@@ -216,17 +238,20 @@ trunk_backward_reference.calls = 0
 
 
 def trunk_backward(x_res, x_new, coef_t, consts, d_x_new, d_alpha, *, eps=None, seed=None,
-                   t: int = 0):
+                   t: int = 0, design: str = "tf32x3"):
     """K10: the VJP of K9 for one step. Takes K9's inputs (x_res, coef_t,
     consts and the noise: eps [B, Dx, K] or the `seed` and step t it drew
     from), its output x_new and the cotangents d_x_new [B, Dx, K] and d_alpha
     [B, K]. Returns (d_x_res [B, Dx, K], d_coef_t [B, 3·Dx + Dy + 1],
     d_packed [n_w], d_sconst [Dx + Dy]) as `trunk_backward_reference`, which
     CPU tensors run (in-kernel RNG replayed through K2's plain version);
-    CUDA tensors launch the kernel, or raise for a shape it is not
-    instantiated for."""
+    CUDA tensors launch the kernel of `design` ("tf32x3", the default and
+    the only one the main path runs; "simt", the previous design, kept as
+    its yardstick), or raise for a shape it is not instantiated for."""
     if (seed is None) == (eps is None):
         raise ValueError("trunk_backward: pass either eps or seed")
+    if design not in DESIGNS:
+        raise ValueError(f"trunk_backward: no design {design!r} (one of {DESIGNS})")
     batch, dx, k = x_res.shape
     if x_res.device.type == "cpu":
         if seed is not None:
@@ -236,10 +261,11 @@ def trunk_backward(x_res, x_new, coef_t, consts, d_x_new, d_alpha, *, eps=None, 
         raise ValueError(f"trunk_backward: unsupported device {x_res.device}")
     dy, h, n_mid = consts["dy"], consts["hidden"], consts["n_mid"]
     dev = x_res.device
-    if not k10_ok(dx, dy, h, n_mid, k):
-        raise ValueError(f"trunk_backward: no kernel for Dx={dx}, Dy={dy}, hidden={h}, "
-                         f"{n_mid} middle layers, K={k} ({k10_smem_bytes(dx, dy, h, n_mid)} B "
-                         f"of shared memory, at most {SMEM_LIMIT})")
+    if not k10_ok(dx, dy, h, n_mid, k, design):
+        raise ValueError(f"trunk_backward: no {design} kernel for Dx={dx}, Dy={dy}, hidden={h}, "
+                         f"{n_mid} middle layers, K={k} "
+                         f"({k10_smem_bytes(dx, dy, h, n_mid, design)} B of shared memory, at "
+                         f"most {SMEM_LIMIT})")
     packed = consts["packed"]
     n_w = packed.numel()
     _require(x_res, (batch, dx, k), "x_res", dev)
@@ -269,14 +295,16 @@ def trunk_backward(x_res, x_new, coef_t, consts, d_x_new, d_alpha, *, eps=None, 
         consts["sconst"].data_ptr(), d_x_new.data_ptr(), d_alpha.data_ptr(), d_x_res.data_ptr(),
         partial.data_ptr(), coef_part.data_ptr(), grads.data_ptr(), d_coef.data_ptr(), seed0,
         seed1, int(seed is not None), t, batch, k, dx, dy, h, n_mid, n_w, off_f, off_g, max_ctas,
-        torch.cuda.current_stream(dev).cuda_stream,
+        DESIGNS.index(design), torch.cuda.current_stream(dev).cuda_stream,
     )
     trunk_backward.launches += 1
+    trunk_backward.launches_by_design[design] += 1
     _build.check(lib, err, "trunk_backward")
     return d_x_res, d_coef, grads[:n_w], grads[n_w:]
 
 
 trunk_backward.launches = 0
+trunk_backward.launches_by_design = dict.fromkeys(DESIGNS, 0)  # which kernel the launches ran
 
 
 class TrunkForward(torch.autograd.Function):

@@ -411,15 +411,11 @@ def test_lorenz96_serving_launches_the_trunk_kernels():
     torch.testing.assert_close(got.xs[:2].cpu(), want.xs[:2], rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("hidden", [16, 32, 64])
-@pytest.mark.parametrize("rng", [False, True])
-def test_trunk_backward_kernel_matches_plain(hidden, rng):
-    """K10 against trunk_backward_reference on K9's own output, per leaf to
-    1e-4 relative, with row 1 below the −3e30 floor (no α cotangent there);
-    a second launch gives the same bits."""
+def _trunk_backward_operands(hidden, rng, dev):
+    """K10's operands on K9's own output at B=3, K=256, with row 1 below the
+    −3e30 floor; returns (args, noise, eps)."""
     from psvo_tpu_torch.ops import trunk
 
-    dev = _cuda()
     cfg = _l96_cfg(hidden)
     ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -439,15 +435,44 @@ def test_trunk_backward_kernel_matches_plain(hidden, rng):
     assert bool((alpha[1] == -3e30).all())
     d_x_new = torch.randn((b, 40, k), generator=g, device=dev)
     d_alpha = torch.randn((b, k), generator=g, device=dev)
+    return (x_res, x_new, coef, consts, d_x_new, d_alpha), noise, eps
+
+
+@pytest.mark.parametrize("design", ["tf32x3", "simt"])
+@pytest.mark.parametrize("hidden", [16, 32, 64])
+@pytest.mark.parametrize("rng", [False, True])
+def test_trunk_backward_kernel_matches_plain(hidden, rng, design):
+    """K10 (the tensor-core design and the previous one) against
+    trunk_backward_reference on K9's own output, per leaf to 1e-4 relative,
+    with row 1 below the −3e30 floor (no α cotangent there); a second launch
+    gives the same bits."""
+    from psvo_tpu_torch.ops import trunk
+
+    dev = _cuda()
+    args, noise, eps = _trunk_backward_operands(hidden, rng, dev)
     launches = trunk.trunk_backward.launches
-    got = trunk.trunk_backward(x_res, x_new, coef, consts, d_x_new, d_alpha, **noise)
-    again = trunk.trunk_backward(x_res, x_new, coef, consts, d_x_new, d_alpha, **noise)
+    got = trunk.trunk_backward(*args, **noise, design=design)
+    again = trunk.trunk_backward(*args, **noise, design=design)
     assert trunk.trunk_backward.launches == launches + 2
-    want = trunk.trunk_backward_reference(x_res, x_new, coef, consts, eps, d_x_new, d_alpha)
+    want = trunk.trunk_backward_reference(*args[:4], eps, *args[4:])
     for a, a2, w in zip(got, again, want):
         assert torch.equal(a, a2)
         assert _rel(a, w) <= 1e-4
     assert float(got[1][1, -1]) == 0.0 and bool((got[1][:, 120:160] == 0).all())
+
+
+@pytest.mark.parametrize("hidden", [16, 32, 64])
+def test_trunk_backward_designs_agree(hidden):
+    """K10's tensor-core design (3xTF32) within 1e-5 relative L2 per leaf of
+    the previous design (fp32 FMA), on the same operands."""
+    from psvo_tpu_torch.ops import trunk
+
+    dev = _cuda()
+    args, noise, _ = _trunk_backward_operands(hidden, True, dev)
+    new = trunk.trunk_backward(*args, **noise)
+    old = trunk.trunk_backward(*args, **noise, design="simt")
+    for a, b in zip(new, old):
+        assert _rel(a, b) <= 1e-5
 
 
 @pytest.mark.parametrize("k", [128, 2048, 8192])
@@ -485,8 +510,10 @@ def test_cuda_tensor_outside_the_backward_kernels_raises():
         consts = fused_step.prepare(ssm)
     x = torch.zeros((2, 40, 96), device=dev)  # K not a multiple of 64
     coef = torch.zeros((2, 161), device=dev)
-    with pytest.raises(ValueError, match="no kernel"):
-        trunk.trunk_backward(x, x, coef, consts, x, torch.zeros((2, 96), device=dev), eps=x)
+    for design in trunk.DESIGNS:
+        with pytest.raises(ValueError, match=f"no {design} kernel"):
+            trunk.trunk_backward(x, x, coef, consts, x, torch.zeros((2, 96), device=dev), eps=x,
+                                 design=design)
     with pytest.raises(ValueError, match="backward kernel"):
         trunk.TrunkForward.apply(x.requires_grad_(), coef, consts["packed"], consts["sconst"],
                                  consts, torch.zeros_like(x), None, 0)
