@@ -28,11 +28,16 @@ noise): serving through `smooth_posterior` and training through
   (j) K1 and K4 at the Lorenz-63 shape (Dx=Dy=3, stream mode, K4 with the
       cache cotangents) vs their plain versions (small, full)
   (k) K5 ffbsi_forward vs its plain version on the cache of one K1 run, and
-      K6 ffbsi_backward vs its plain version on K5's selections (small, full)
+      K6 ffbsi_backward vs its plain version on K5's selections (small, full);
+      K5's staged design vs the previous one (design="path"): sel, x~,
+      x_first and logp equal, logq within 1e-6; the two timed alternately,
+      three pairs (the staged design must be faster in each)
   (l) serving: smooth_posterior on three batches of 32 Lorenz-63
-      trajectories; shapes, launch counts, time per call
+      trajectories; shapes, launch counts (every K5 launch the staged
+      design), time per call
   (m) training: 3 calls of 10 PSVO train steps on Lorenz-63 minibatches of
-      32; launch counts, step time, peak memory, profile by kernel
+      32; launch counts (K5 all staged), step time, peak memory, profile by
+      kernel
 
 then `lorenz96_fivo_k8192_sharded` (Lorenz-96, Dx=Dy=40, FIVO, K=8192, B=8,
 T=100, relu heads (64, 64), in-kernel RNG) with the trained snapshot
@@ -72,12 +77,14 @@ cache on) with random weights:
       device time
   (w) K13 svo_sweep_backward vs its plain version on K12's x~, random
       cotangents on all four outputs (zeroed on paths with a relu tie, both
-      figures reported), bit-equal on a second launch (small, full); device
-      time
+      figures reported), bit-equal on a second launch (small, full), and
+      within 1e-5 of the previous design (design="chain"); the two timed
+      alternately, three pairs (the split design must be faster in each)
   (x) serving: smooth_posterior(method="svo") on three batches of 32;
       shapes, launch counts, time per call, peak memory, profile by kernel
   (y) training: 3 calls of 10 SVO train steps on minibatches of 32; launch
-      counts, loss and elbo_svo, step time, peak memory, profile by kernel
+      counts (every K13 launch the split design), loss and elbo_svo, step
+      time, peak memory, profile by kernel
 
 then, with `fused_step.SCAN_FUSED` off (the per-step path of the
 reference's `pallas_step.SCAN_FUSED = False`: one K14 launch per filter
@@ -99,8 +106,8 @@ step, one K15 launch per step of the backward, streamed noise):
       profiles; one step's loss and gradients against the whole-scan path on
       the same streams and weights
   (ac) lorenz63_psvo_k1024: smooth_posterior on three batches of 32 and 3
-      calls of 10 PSVO train steps; launch counts (K14, K15, K5, K6), times,
-      peak memory and profiles
+      calls of 10 PSVO train steps; launch counts (K14, K15, K5, K6; K5 all
+      staged), times, peak memory and profiles
 
 and, with the toggle back on, K1 and K4 on thread-block clusters (each row
 on C CTAs; every phase above launched them at the C that
@@ -133,7 +140,8 @@ back with no device events is run again (profiled_kernels), and the run
 ends with the count of such windows. The second-to-last line is the
 kernels' JSON record (times beside the bound: the larger of the operations
 over 67 TFLOP/s fp32 and the bytes over 3.35 TB/s, the H100 SXM's published
-peaks); the last line is the device record. Imports nothing of JAX: the
+peaks; K5's and K13's rows also carry "ms_prev", the previous design's time
+alternated with theirs); the last line is the device record. Imports nothing of JAX: the
 machine with the card has none.
 """
 
@@ -246,8 +254,26 @@ def time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def kernel_resources(mangled: str) -> str:
+    """Registers and spill stores of a kernel (its mangled name's start) from
+    the build's -Xptxas -v output."""
+    from psvo_tpu_torch.ops import _build
+
+    log = _build.build_log()
+    regs = re.search(re.escape(mangled) + r".*?Used (\d+) registers", log, re.S)
+    spill = re.search(re.escape(mangled) + r"[^\n]*\n[^\n]*\n\s*(\d+) bytes stack frame, (\d+) bytes "
+                      r"spill stores", log)
+    return (f"{regs.group(1) if regs else '?'} registers, "
+            f"{spill.group(2) if spill else '?'} bytes spill stores")
+
+
+def zero_designs(*fns) -> None:
+    for fn in fns:
+        fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
+
+
 FHN_KERNELS = {"K1": ("scan_forward_kernel",), "K4": ("scan_backward_kernel", "sum_rows_kernel")}
-PSVO_KERNELS = dict(FHN_KERNELS, K5=("ffbsi_forward_kernel",), K6=("ffbsi_backward_kernel",))
+PSVO_KERNELS = dict(FHN_KERNELS, K5=("ffbsi_staged_kernel",), K6=("ffbsi_backward_kernel",))
 L96_KERNELS = {"K9": ("trunk_forward_kernel",), "K7": ("ancestor_indices_large_kernel",),
                "K8": ("gather_particles_kernel",)}
 L96_TRAIN_KERNELS = dict(L96_KERNELS, K10=("trunk_backward_tf32x3_kernel", "trunk_sum_ctas_kernel",
@@ -782,7 +808,7 @@ def trunk_backward_run(ssm, cfg, ys, gen, rng_seed=None):
 
 SVO = "lorenz63_svo_k256"
 SVO_KERNELS = dict(FHN_KERNELS, K12=("svo_forward_kernel",),
-                   K13=("svo_backward_kernel", "svo_sum_ctas_kernel"))
+                   K13=("svo_backward_split_kernel", "svo_sum_ctas_kernel"))
 
 
 def svo_flops(consts, n_path_steps: int) -> float:
@@ -867,11 +893,13 @@ def svo_relu_ties(consts, ops, xtilde, tol=1e-5):
 
 
 def svo_backward_check(consts, ops, xtilde, gen):
-    """K13 against its plain version on K12's x~, with random cotangents of
-    all four outputs: raw, and zeroed on the paths of `svo_relu_ties`.
-    Returns per-leaf relative L2 (d_x_anchor, d_weights, d_sc) and |Δ| of the
-    masked run, the raw relative L2, the paths zeroed, whether a second launch
-    gave the same bits, and the masked run's operands for timing."""
+    """K13 (the split design) against its plain version on K12's x~, with
+    random cotangents of all four outputs: raw, and zeroed on the paths of
+    `svo_relu_ties`. Returns per-leaf relative L2 (d_x_anchor, d_weights,
+    d_sc) and |Δ| of the masked run, the raw relative L2, the paths zeroed,
+    the masked run's relative L2 against the previous design (chain),
+    whether a second launch gave the same bits, and the masked run's
+    operands for timing."""
     import torch
     from psvo_tpu_torch.ops import svo
 
@@ -891,17 +919,18 @@ def svo_backward_check(consts, ops, xtilde, gen):
     got = svo.svo_sweep_backward(*ops, consts, xtilde, *cots)
     want = svo.svo_sweep_backward_reference(*ops, consts, xtilde, *cots)
     again = svo.svo_sweep_backward(*ops, consts, xtilde, *cots)
+    prev = svo.svo_sweep_backward(*ops, consts, xtilde, *cots, design="chain")
     torch.cuda.synchronize()
     args = (*ops, consts, xtilde, *cots)
     return dict(rel=rel(got, want), maxd=[float((g - w).abs().max()) for g, w in zip(got, want)],
-                rel_raw=raw, zeroed=int(tie.sum()), n=b * m,
+                rel_raw=raw, zeroed=int(tie.sum()), n=b * m, rel_prev=rel(got, prev),
                 same=all(torch.equal(g, a) for g, a in zip(got, again)),
                 finite=all(bool(torch.isfinite(g).all()) for g in got), args=args, got=got)
 
 
 STEP_KERNELS = {"K14": ("step_forward_kernel",),
                 "K15": ("step_backward_kernel", "sum_rows_kernel")}
-STEP_PSVO_KERNELS = dict(STEP_KERNELS, K5=("ffbsi_forward_kernel",),
+STEP_PSVO_KERNELS = dict(STEP_KERNELS, K5=("ffbsi_staged_kernel",),
                          K6=("ffbsi_backward_kernel",))
 
 
@@ -1189,6 +1218,7 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     name = torch.cuda.get_device_name(0)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"[a] device={name} count={torch.cuda.device_count()} torch={torch.__version__} "
           f"cuda={torch.version.cuda} tf32=off", flush=True)
 
@@ -1512,11 +1542,27 @@ def main() -> int:
             fail(f"K5 ({label}) disagrees with ffbsi_forward_reference")
         if small and rf["flips"]:
             fail("K5 (small) picked other particles than its plain version")
+        # the staged design against the previous one on the same operands
+        with torch.no_grad():
+            prev = ffbsi.ffbsi_forward(*ops, design="path")
+        torch.cuda.synchronize()
+        kern = rf["kern"]
+        equal = [torch.equal(kern[i], prev[i]) for i in (4, 3, 0, 1)]
+        rel_q = float(((kern[2] - prev[2]).abs() / prev[2].abs().clamp_min(1e-30)).max())
+        p_k5 = ffbsi.k5_paths(batch, ops[0].shape[1], n_sms)
+        print(f"[k] K5 {label}, staged ({p_k5} paths a CTA, chunk "
+              f"{ffbsi.k5_chunk(ops[1].shape[2], ops[1].shape[3], p_k5)} particles) against the "
+              f"previous design (path): sel, x~, x_first, logp equal {equal}; logq max "
+              f"rel {rel_q:.3e} (bound 1e-06)", flush=True)
+        if not (all(equal) and rel_q <= 1e-6):
+            fail(f"K5 ({label}): the staged design disagrees with the previous one")
     ops, rf = sweeps["full"]
     with torch.no_grad():
-        k5 = [time_ms(lambda: ffbsi.ffbsi_forward(*ops)),
+        k5_pairs = [tuple(device_ms(lambda: ffbsi.ffbsi_forward(*ops, design=d))
+                          for d in ("staged", "path")) for _ in range(3)]
+        k5 = [statistics.mean(p_[0] for p_ in k5_pairs),
               time_ms(lambda: ffbsi.ffbsi_forward_reference(*ops))]
-        k5 += [time_ms(lambda: ffbsi.ffbsi_forward(*ops)),
+        k5 += [statistics.mean(p_[1] for p_ in k5_pairs),
                time_ms(lambda: ffbsi.ffbsi_forward_reference(*ops))]
         k6 = {mode: [time_ms(rb["kernel"]), time_ms(rb["plain"]), time_ms(rb["kernel"]),
                      time_ms(rb["plain"])] for mode, rb in rf["bwd"].items()}
@@ -1530,8 +1576,17 @@ def main() -> int:
     # selection compare per (t, b, m, j).
     k6_cost = {"all cotangents": (3 * (5 * dx + 6) + 4 * dx + 8) * n_pair, "paths only": n_pair}
     k6_bound = {mode: bound(k6_cost[mode], rb["n_bytes"]) for mode, rb in rf["bwd"].items()}
-    print(f"[k] full: K5 {k5[0]:.4f}/{k5[2]:.4f} ms vs plain {k5[1]:.3f}/{k5[3]:.3f} ms, bound "
-          f"{k5_bound:.4f} ms ({k5_by}); "
+    k5_p = ffbsi.k5_paths(batch, m, n_sms)
+    print(f"[k] K5 full, device time per call (torch.profiler, 20 calls), (staged, path) "
+          f"alternated: " + ", ".join(f"({a:.4f}, {b_:.4f})" for a, b_ in k5_pairs)
+          + f" ms; staged {kernel_resources(f'ffbsi_staged_kernelILi{dx}ELi{k5_p}ELb{int(ffbsi.k5_chunk(dx, k, k5_p) >= k)}EE')}, "
+          f"{ffbsi.k5_smem_bytes(dx, k, k5_p)} B of dynamic shared memory ({k5_p} paths a CTA, "
+          f"{batch * -(-m // k5_p)} CTAs, {ffbsi.k5_slots(dx, k, k5_p)} slots); path "
+          f"{kernel_resources(f'ffbsi_forward_kernelILi{dx}EE')}", flush=True)
+    if not all(a < b_ for a, b_ in k5_pairs):
+        fail("K5: the staged design is not faster than the previous one in every pair")
+    print(f"[k] full: K5 staged {k5[0]:.4f} ms (dev), path {k5[2]:.4f} ms (dev) vs plain "
+          f"{k5[1]:.3f}/{k5[3]:.3f} ms, bound {k5_bound:.4f} ms ({k5_by}); "
           + "; ".join(f"K6 {mode} {v[0]:.4f}/{v[2]:.4f} ms vs plain {v[1]:.3f}/{v[3]:.3f} ms, "
                       f"bound {k6_bound[mode][0]:.4f} ms ({k6_bound[mode][1]})"
                       for mode, v in k6.items()), flush=True)
@@ -1547,27 +1602,29 @@ def main() -> int:
     for fn in l_plain:
         fn.calls = 0
     fused_step.scan_forward.launches = ffbsi.ffbsi_forward.launches = 0
+    zero_designs(ffbsi.ffbsi_forward)
     run_gen = torch.Generator(device=dev).manual_seed(SEED + 18)
     t0 = time.perf_counter()
     paths = [pt.smooth_posterior(ssm, ys, cfg, run_gen) for ys in l_batches]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1_serve, k5_serve = fused_step.scan_forward.launches, ffbsi.ffbsi_forward.launches
+    k5_serve_designs = dict(ffbsi.ffbsi_forward.launches_by_design)
     plain_calls = sum(fn.calls for fn in l_plain)
     shapes_ok = all(tuple(p.shape) == (batch, 16, 100, 3) for p in paths)
     finite = all(bool(torch.isfinite(p).all()) for p in paths)
     sp_ms = [time_ms(lambda: pt.smooth_posterior(ssm, l_batches[0], cfg, run_gen)) for _ in range(2)]
     print(f"[l] serving {l63}: smooth_posterior x3 -> shapes {[tuple(p.shape) for p in paths]} "
-          f"ok {shapes_ok}, finite {finite}, K1 launches {k1_serve}, K5 launches {k5_serve}, "
-          f"plain-version calls {plain_calls}, wall {wall:.2f} s; smooth_posterior "
+          f"ok {shapes_ok}, finite {finite}, K1 launches {k1_serve}, K5 launches {k5_serve} (by "
+          f"design {k5_serve_designs}), plain-version calls {plain_calls}, wall {wall:.2f} s; smooth_posterior "
           f"{sp_ms[0]:.3f}/{sp_ms[1]:.3f} ms per call of B={batch} (median of 5 after 2 warm-up)",
           flush=True)
     profile = device_breakdown(lambda: pt.smooth_posterior(ssm, l_batches[0], cfg, run_gen), 1,
                                PSVO_KERNELS)
     print(f"[l] profile of one more call: {profile}", flush=True)
-    if k1_serve != 3 or k5_serve != 3 or plain_calls != 0:
-        fail(f"smooth_posterior launched K1 {k1_serve} and K5 {k5_serve} times (want 3 each), "
-             f"plain versions {plain_calls}")
+    if k1_serve != 3 or k5_serve != 3 or plain_calls != 0 or k5_serve_designs != {"staged": 3, "path": 0}:
+        fail(f"smooth_posterior launched K1 {k1_serve} and K5 {k5_serve} times (want 3 each, every "
+             f"K5 launch the staged design: {k5_serve_designs}), plain versions {plain_calls}")
     if not (shapes_ok and finite):
         fail("smooth_posterior gave non-finite paths or the wrong shape")
     phase_done("l")
@@ -1591,6 +1648,7 @@ def main() -> int:
         fn.calls = 0
     for fn in l_kernels:
         fn.launches = 0
+    zero_designs(ffbsi.ffbsi_forward)
     call_s, train_metrics = [], []
     for bt in train_batches:
         t0 = time.perf_counter()
@@ -1598,6 +1656,7 @@ def main() -> int:
         torch.cuda.synchronize()
         call_s.append(time.perf_counter() - t0)
     psvo_launches = [fn.launches for fn in l_kernels]
+    k5_train_designs = dict(ffbsi.ffbsi_forward.launches_by_design)
     plain_calls = sum(fn.calls for fn in l_plain)
     peak_psvo_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(m_["loss"]) for m_ in train_metrics]
@@ -1608,7 +1667,8 @@ def main() -> int:
     print(f"[m] training {l63}: {len(train_batches)} calls x {n_per_call} steps, B={batch}: loss "
           f"per call {[round(v, 3) for v in losses]}, grad norm {[round(v, 3) for v in norms]}, "
           f"log_joint_smoothed {[round(v, 2) for v in em]}, parameters moved {moved}; launches "
-          f"K1/K4/K5/K6 {psvo_launches}, plain-version calls {plain_calls}; call times "
+          f"K1/K4/K5/K6 {psvo_launches} (K5 by design {k5_train_designs}), plain-version calls "
+          f"{plain_calls}; call times "
           f"{[round(v, 3) for v in call_s]} s, train step {psvo_step_ms:.3f} ms (median of the calls "
           f"after the first, per step); peak device memory {peak_psvo_gb:.3f} GB, of which earlier "
           f"phases held {held_psvo_gb:.3f} GB before the run", flush=True)
@@ -1616,9 +1676,10 @@ def main() -> int:
                                PSVO_KERNELS)
     print(f"[m] profile of one more call: {profile}", flush=True)
     want = len(train_batches) * n_per_call
-    if psvo_launches != [want] * 4 or plain_calls != 0:
-        fail(f"PSVO train path launched K1/K4/K5/K6 {psvo_launches} times (want {want} each), "
-             f"plain versions {plain_calls}")
+    if (psvo_launches != [want] * 4 or plain_calls != 0
+            or k5_train_designs != {"staged": want, "path": 0}):
+        fail(f"PSVO train path launched K1/K4/K5/K6 {psvo_launches} times (want {want} each, every "
+             f"K5 launch the staged design: {k5_train_designs}), plain versions {plain_calls}")
     if not (all(math.isfinite(v) for v in losses + norms) and moved):
         fail("PSVO training gave non-finite losses or gradient norms, or left the parameters as they were")
     phase_done("m")
@@ -2078,24 +2139,38 @@ def main() -> int:
                   for n, e, m in zip(("d_x_anchor", "d_weights", "d_sc"), rb["rel"], rb["maxd"]))
               + f"; bit-equal on a second launch {rb['same']}; bound rel L2 {tol:g}; cotangents "
               f"zeroed on {rb['zeroed']} of {rb['n']} paths with a relu tie; with every path's "
-              f"cotangents, rel L2 " + ", ".join(f"{e:.3e}" for e in rb["rel_raw"]), flush=True)
+              f"cotangents, rel L2 " + ", ".join(f"{e:.3e}" for e in rb["rel_raw"])
+              + "; against the previous design (chain) " + ", ".join(f"{e:.3e}" for e in rb["rel_prev"])
+              + " (bound 1e-05)", flush=True)
         if not (rb["finite"] and rb["same"] and max(rb["rel"]) <= tol):
             fail(f"K13 ({label}) disagrees with svo_sweep_backward_reference")
+        if not max(rb["rel_prev"]) <= 1e-5:
+            fail(f"K13 ({label}) is further than 1e-5 from the previous design")
     args13 = k13["full"]["args"]
     with torch.no_grad():
-        k13_dev = [device_ms(lambda: svo.svo_sweep_backward(*args13)),
+        # the split design and the previous one alternated, three pairs
+        k13_pairs = [tuple(device_ms(lambda: svo.svo_sweep_backward(*args13, design=d))
+                           for d in ("split", "chain")) for _ in range(3)]
+        k13_dev = [statistics.mean(p_[0] for p_ in k13_pairs),
                    device_ms(lambda: svo.svo_sweep_backward_reference(*args13), n=3),
-                   device_ms(lambda: svo.svo_sweep_backward(*args13))]
+                   statistics.mean(p_[1] for p_ in k13_pairs)]
     k13_flops = 3 * k12_flops
     k13_bound, k13_by = bound(k13_flops, nbytes(*args13[:3], args13[3]["packed"], args13[3]["sc"],
                                                 *args13[4:], *k13["full"]["got"]))
-    k13_regs = re.search(r"svo_backward_kernelILi3ELi3ELi64EE.*?Used (\d+) registers",
-                         _build.build_log(), re.S)
-    print(f"[w] K13 full: device time per call (torch.profiler) {k13_dev[0]:.4f}/{k13_dev[2]:.4f} "
-          f"ms (20 calls each), plain {k13_dev[1]:.3f} ms (3 calls); bound {k13_bound:.4f} ms "
-          f"({k13_by}, {k13_flops:.3e} FLOP); registers {k13_regs.group(1) if k13_regs else '?'}, "
-          f"shared memory {svo.k13_smem_bytes(3, 3, 64, 1, args13[3]['packed'].numel())} B per CTA",
-          flush=True)
+    n_w13 = args13[3]["packed"].numel()
+    rows13 = svo.k13_tile_rows(3, 3, 64, 1, n_w13)
+    p13 = svo.k13_paths(b_s * m_s, n_sms, rows13)
+    print(f"[w] K13 full: device time per call (torch.profiler, 20 calls), (split, chain) "
+          f"alternated: " + ", ".join(f"({a:.4f}, {b_:.4f})" for a, b_ in k13_pairs)
+          + f" ms; plain {k13_dev[1]:.3f} ms (3 calls); bound {k13_bound:.4f} ms ({k13_by}, "
+          f"{k13_flops:.3e} FLOP): split at {100 * k13_bound / k13_dev[0]:.1f}% of it, chain at "
+          f"{100 * k13_bound / k13_dev[2]:.1f}%; split {kernel_resources('svo_backward_split_kernelILi3ELi3ELi64EE')}, "
+          f"{svo.k13_smem_bytes(3, 3, 64, 1, n_w13)} B of shared memory per CTA, tiles of "
+          f"{rows13} rows, {p13} paths a group ({-(-b_s * m_s // p13)} groups); chain "
+          f"{kernel_resources('svo_backward_kernelILi3ELi3ELi64EE')}, "
+          f"{svo.k13_smem_bytes(3, 3, 64, 1, n_w13, 'chain')} B", flush=True)
+    if not all(a < b_ for a, b_ in k13_pairs):
+        fail("K13: the split design is not faster than the previous one in every pair")
     k12_small_err = k12["small"][2]["max_abs_err"]
     k13_small_err = max(k13["small"]["maxd"])
     del k12, k13, args13
@@ -2114,6 +2189,7 @@ def main() -> int:
         fn.calls = 0
     for fn in s_kernels:
         fn.launches = 0
+    zero_designs(svo.svo_sweep_backward)
     run_gen = torch.Generator(device=dev).manual_seed(SEED + 18)
     torch.cuda.synchronize()
     held_svo_gb = torch.cuda.memory_allocated() / 1e9
@@ -2124,6 +2200,7 @@ def main() -> int:
     wall = time.perf_counter() - t0
     serve_svo_gb = torch.cuda.max_memory_allocated() / 1e9 - held_svo_gb
     svo_serve = [fn.launches for fn in s_kernels]
+    k13_serve_designs = dict(svo.svo_sweep_backward.launches_by_design)
     plain_calls = sum(fn.calls for fn in s_plain)
     shapes_ok = all(tuple(p.shape) == (batch, 16, 100, 3) for p in paths)
     finite = all(bool(torch.isfinite(p).all()) for p in paths)
@@ -2138,9 +2215,10 @@ def main() -> int:
     profile = device_breakdown(
         lambda: pt.smooth_posterior(ssm, s_batches[0], cfg, run_gen, method="svo"), 1, SVO_KERNELS)
     print(f"[x] profile of one more call: {profile}", flush=True)
-    if svo_serve != [3, 0, 3, 0] or plain_calls != 0:
+    if (svo_serve != [3, 0, 3, 0] or plain_calls != 0
+            or k13_serve_designs != {"split": 0, "chain": 0}):
         fail(f"smooth_posterior(method='svo') launched K1/K4/K12/K13 {svo_serve} (want "
-             f"[3, 0, 3, 0]), plain versions {plain_calls}")
+             f"[3, 0, 3, 0]; K13 by design {k13_serve_designs}), plain versions {plain_calls}")
     if not (shapes_ok and finite):
         fail("smooth_posterior(method='svo') gave non-finite paths or the wrong shape")
     del paths
@@ -2163,6 +2241,7 @@ def main() -> int:
         fn.calls = 0
     for fn in s_kernels:
         fn.launches = 0
+    zero_designs(svo.svo_sweep_backward)
     call_s, train_metrics = [], []
     for bt in train_batches:
         t0 = time.perf_counter()
@@ -2170,6 +2249,7 @@ def main() -> int:
         torch.cuda.synchronize()
         call_s.append(time.perf_counter() - t0)
     svo_launches = [fn.launches for fn in s_kernels]
+    k13_train_designs = dict(svo.svo_sweep_backward.launches_by_design)
     plain_calls = sum(fn.calls for fn in s_plain)
     peak_svo_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(m_["loss"]) for m_ in train_metrics]
@@ -2180,7 +2260,8 @@ def main() -> int:
     print(f"[y] training {SVO}: {len(train_batches)} calls x {n_per_call} steps, B={batch}: loss "
           f"per call {[round(v, 3) for v in losses]}, elbo_svo {[round(v, 3) for v in elbos]}, "
           f"grad norm {[round(v, 3) for v in norms]}, parameters moved {moved}; launches "
-          f"K1/K4/K12/K13 {svo_launches}, plain-version calls {plain_calls}; call times "
+          f"K1/K4/K12/K13 {svo_launches} (K13 by design {k13_train_designs}), plain-version calls "
+          f"{plain_calls}; call times "
           f"{[round(v, 3) for v in call_s]} s, train step {svo_step_ms:.3f} ms (median of the calls "
           f"after the first, per step); peak device memory {peak_svo_gb - held_svo_gb:.3f} GB "
           f"above the {held_svo_gb:.3f} GB held before", flush=True)
@@ -2188,9 +2269,10 @@ def main() -> int:
                                SVO_KERNELS)
     print(f"[y] profile of one more call: {profile}", flush=True)
     want = len(train_batches) * n_per_call
-    if svo_launches != [want] * 4 or plain_calls != 0:
-        fail(f"SVO train path launched K1/K4/K12/K13 {svo_launches} times (want {want} each), "
-             f"plain versions {plain_calls}")
+    if (svo_launches != [want] * 4 or plain_calls != 0
+            or k13_train_designs != {"split": want, "chain": 0}):
+        fail(f"SVO train path launched K1/K4/K12/K13 {svo_launches} times (want {want} each, every "
+             f"K13 launch the split design: {k13_train_designs}), plain versions {plain_calls}")
     if not (all(math.isfinite(v) for v in losses + norms + elbos) and moved):
         fail("SVO training gave non-finite losses, ELBOs or gradient norms, or left the "
              "parameters as they were")
@@ -2441,8 +2523,10 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held_l_gb = torch.cuda.memory_allocated() / 1e9
+    zero_designs(ffbsi.ffbsi_forward)
     paths, sp_launch, sp_plain = counted(
         lambda: [pt.smooth_posterior(ssm, ys, cfg, run_gen) for ys in l_batches])
+    sp_designs = dict(ffbsi.ffbsi_forward.launches_by_design)
     sp_peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_l_gb
     shapes_ok = all(tuple(p.shape) == (batch, 16, 100, 3) for p in paths)
     finite = all(bool(torch.isfinite(p).all()) for p in paths)
@@ -2452,15 +2536,17 @@ def main() -> int:
     sp_profile = device_breakdown(lambda: pt.smooth_posterior(ssm, l_batches[0], cfg, run_gen), 1,
                                   STEP_PSVO_KERNELS)
     print(f"[ac] serving {l63}, per-step path: smooth_posterior x{len(l_batches)} shapes ok "
-          f"{shapes_ok}, finite {finite}; launches K14/K15/K1/K4/K5/K6 {sp_launch}, plain-version "
-          f"calls {sp_plain}; {sp_step_ms[0]:.3f}/{sp_step_ms[1]:.3f} ms per call of B={batch} "
+          f"{shapes_ok}, finite {finite}; launches K14/K15/K1/K4/K5/K6 {sp_launch} (K5 by design "
+          f"{sp_designs}), plain-version calls {sp_plain}; {sp_step_ms[0]:.3f}/{sp_step_ms[1]:.3f} "
+          f"ms per call of B={batch} "
           f"(median of 5 after 2 warm-up, two rounds); peak device memory {sp_peak_gb:.3f} GB above "
           f"the {held_l_gb:.3f} GB held before", flush=True)
     print(f"[ac] profile of one more call: {sp_profile}", flush=True)
     n_calls = len(l_batches)
-    if sp_launch != [n_calls * t1, 0, 0, 0, n_calls, 0] or sp_plain or not (shapes_ok and finite):
-        fail(f"per-step smooth_posterior launched K14/K15/K1/K4/K5/K6 {sp_launch}, plain versions "
-             f"{sp_plain}, shapes ok {shapes_ok}, finite {finite}")
+    if (sp_launch != [n_calls * t1, 0, 0, 0, n_calls, 0] or sp_plain or not (shapes_ok and finite)
+            or sp_designs != {"staged": n_calls, "path": 0}):
+        fail(f"per-step smooth_posterior launched K14/K15/K1/K4/K5/K6 {sp_launch} (K5 by design "
+             f"{sp_designs}), plain versions {sp_plain}, shapes ok {shapes_ok}, finite {finite}")
 
     ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
     train_step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
@@ -2474,7 +2560,9 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     held_l_gb = torch.cuda.memory_allocated() / 1e9
     call_s = []
+    zero_designs(ffbsi.ffbsi_forward)
     train_metrics, l_train, plain_calls = counted(train_calls)
+    l_train_designs = dict(ffbsi.ffbsi_forward.launches_by_design)
     peak_l_gb = torch.cuda.max_memory_allocated() / 1e9 - held_l_gb
     losses = [float(m_["loss"]) for m_ in train_metrics]
     norms = [float(m_["grad_norm"]) for m_ in train_metrics]
@@ -2483,7 +2571,8 @@ def main() -> int:
     print(f"[ac] training {l63}, per-step path: {len(train_batches)} calls x {n_per_call} steps, "
           f"B={batch}: loss per call {[round(v, 3) for v in losses]}, grad norm "
           f"{[round(v, 3) for v in norms]}, parameters moved {moved}; launches K14/K15/K1/K4/K5/K6 "
-          f"{l_train}, plain-version calls {plain_calls}; call times {[round(v, 3) for v in call_s]} "
+          f"{l_train} (K5 by design {l_train_designs}), plain-version calls {plain_calls}; call "
+          f"times {[round(v, 3) for v in call_s]} "
           f"s, train step {step_l63_ms:.3f} ms (median of the calls after the first, per step); "
           f"peak device memory {peak_l_gb:.3f} GB above the {held_l_gb:.3f} GB held before",
           flush=True)
@@ -2491,9 +2580,10 @@ def main() -> int:
                                STEP_PSVO_KERNELS)
     print(f"[ac] profile of one more call: {profile}", flush=True)
     n_steps = len(train_batches) * n_per_call
-    if l_train != [n_steps * t1, n_steps * t1, 0, 0, n_steps, n_steps] or plain_calls != 0:
-        fail(f"per-step PSVO training launched K14/K15/K1/K4/K5/K6 {l_train}, plain versions "
-             f"{plain_calls}")
+    if (l_train != [n_steps * t1, n_steps * t1, 0, 0, n_steps, n_steps] or plain_calls != 0
+            or l_train_designs != {"staged": n_steps, "path": 0}):
+        fail(f"per-step PSVO training launched K14/K15/K1/K4/K5/K6 {l_train} (K5 by design "
+             f"{l_train_designs}), plain versions {plain_calls}")
     if not (all(math.isfinite(v) for v in losses + norms) and moved):
         fail("per-step PSVO training gave non-finite losses or gradient norms, or left the "
              "parameters as they were")
@@ -2655,7 +2745,7 @@ def main() -> int:
         {"name": "ffbsi_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/ffbsi.cu",
          "replaces": "psvo_tpu/ops/pallas_ffbsi.py:294", "launches": psvo_launches[2],
          "max_abs_err": sweeps["small"][1]["max_abs_err"], "ms": k5[0], "plain_ms": k5[1],
-         "bound_ms": k5_bound, "bound_by": k5_by, "library_ms": None},
+         "bound_ms": k5_bound, "bound_by": k5_by, "library_ms": None, "ms_prev": k5[2]},
         {"name": "ffbsi_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/ffbsi.cu",
          "replaces": "psvo_tpu/ops/pallas_ffbsi.py:358", "launches": psvo_launches[3],
          "max_abs_err": max(max(rb["maxd"]) for rb in sweeps["small"][1]["bwd"].values()),
@@ -2694,7 +2784,7 @@ def main() -> int:
         {"name": "svo_sweep_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/svo_sweep.cu",
          "replaces": "psvo_tpu/ops/pallas_svo.py:521", "launches": svo_launches[3],
          "on_path": True, "max_abs_err": k13_small_err, "ms": k13_dev[0], "plain_ms": k13_dev[1],
-         "bound_ms": k13_bound, "bound_by": k13_by, "library_ms": None},
+         "bound_ms": k13_bound, "bound_by": k13_by, "library_ms": None, "ms_prev": k13_dev[2]},
         {"name": "step_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/scan_forward.cu",
          "replaces": "psvo_tpu/ops/pallas_step.py:954", "launches": step_train[0],
          "on_path": True, "max_abs_err": k14_small_err, "ms": k14_dev[0], "plain_ms": k14_dev[1],

@@ -29,24 +29,50 @@
 // carry x~_{t+1}, the activations and lp/lq stay in shared memory and
 // registers. Nothing is padded to 128 lanes: a path is H threads.
 //
-// K13 walks t ascending from K12's saved x~ and carries d x~_{t+1} from step
-// to step (the TPU kernel's dq_c): per step it recomputes the three trunks
-// (the same device functions as K12, so the same bits and floor cuts),
-// backprops f and g into x~_t, then the draw and qb into x~_{t+1}. The
-// weight gradients need no atomics: each CTA (persistent, at most one per SM)
-// keeps one sum per weight in shared memory, owned by one thread, which adds
-// the step's outer products of its P paths in path order; the CTAs write
-// their rows to a [CTAs, n_weights + 2*DX + DY + 3] buffer that
-// svo_sum_ctas_kernel adds row by row in order: the same bits every launch.
-// Transposed copies of the first and middle layers let thread i read row i
-// of a weight matrix without bank conflicts in the backward.
+// K13 has two designs; the path runs the split design.
+//
+// The split design (svo_backward_split_kernel) takes the VJP apart. Nearly
+// all of it is parallel over the (t, path) rows: K12 saved every x~_t, so
+// qb's input [x~_{t+1}; y_t] and f's and g's input x~_t are known for every
+// row at once, and so are f's and g's density cotangents, their backprop
+// into x~_t and the z_f part dxz_t of x~_{t+1}'s cotangent. The only serial
+// part is linear: with J_t = d m_b / d x~_{t+1} (Dx x Dx at the row's relu
+// masks) and u_t = d_xtilde_t + dfx_t + dgx_t, carry_0 = d_x_first,
+// dmb_t = u_t + carry_t, carry_{t+1} = dxz_t + J_t^T dmb_t, d_x_anchor =
+// carry_{T-1}. A persistent CTA takes a group of P paths (enough groups to
+// fill the SMs once) and walks t ascending in tiles of rows / P steps: per
+// tile it recomputes the three trunks with K12's per-unit arithmetic (the
+// same relu masks and floor cuts), runs f's and g's VJP, J_t by Dx cotangent
+// passes through qb, the recurrence (one thread per path, on the tile's rows
+// in shared memory), then qb's VJP from dmb_t; every layer a register-
+// blocked product over the tile's rows (4 rows x 4 units a thread, weight
+// rows padded to H + 4 floats), the weight sums outer products over the rows
+// into the CTA's sums. Nothing is written to device memory between the
+// passes.
+//
+// The chain design (svo_backward_kernel, the previous one, kept as its
+// yardstick) keeps the TPU kernel's shape: it walks t ascending from K12's
+// saved x~ and carries d x~_{t+1} from step to step (the TPU kernel's dq_c):
+// per step it recomputes the three trunks (the same device functions as
+// K12), backprops f and g into x~_t, then the draw and qb into x~_{t+1}.
+//
+// In both the weight gradients need no atomics: each CTA keeps one sum per
+// weight in shared memory, owned by one thread, which adds its rows' (chain:
+// the step's P paths') outer products in a fixed order; the CTAs write their
+// rows to a [CTAs, n_weights + 2*DX + DY + 3] buffer that svo_sum_ctas_kernel
+// adds row by row in order: the same bits every launch. The chain design's
+// transposed copies of the first and middle layers let thread i read row i of
+// a weight matrix without bank conflicts.
 //
 // What bounds them. Per path-step the forward is 13,632 MACs at Dx = Dy = 3,
 // hidden (64, 64): 1.38e9 FLOP per launch at the preset, 0.021 ms at 67
-// TFLOP/s; its bytes (eps and x~, 0.6 MB each) take 0.0004 ms. K13 does about
-// three times the work, 0.062 ms. Both are latency-bound: each step is eight
-// (K12) or about fourteen (K13) dependent phases with a barrier after each,
-// 99 steps long, on 128 CTAs.
+// TFLOP/s; its bytes (eps and x~, 0.6 MB each) take 0.0004 ms. K13's bound
+// counts three times that work, 0.062 ms. K12 and K13's chain design are
+// latency-bound: each step is eight (K12) or about fourteen (chain) dependent
+// phases with a barrier after each, 99 steps long. K13's split design does
+// about 53.6k MACs a row (5.4e9 FLOP a launch, the recompute, J_t and the
+// weight sums included) in phases as wide as a tile's 64 rows, about 40 a
+// tile with a barrier after each: its products from shared memory bound it.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -477,6 +503,586 @@ __global__ void svo_sum_ctas_kernel(const float* __restrict__ partial, int rows,
   out[e] = s;
 }
 
+// ---------------------------------------------------------------------------
+// K13, design "split": the VJP as parallel passes around a Dx-wide recurrence
+// ---------------------------------------------------------------------------
+
+constexpr int kRowFloats = 56;  // per tile row: qin 8, xt, ep, dmn, ux, dxz, dmb 4 each, jac 12, sg 12
+
+// One net's weights in the split design's shared memory: fused_step.prepare's
+// layout with every row of a matrix whose output width is H padded to H + 4
+// floats (a warp's strided rows then fall in distinct banks).
+template <int DIN, int H, int DOUT>
+struct Padded {
+  static constexpr int WS = H + 4;
+  __host__ __device__ static constexpr int mid(int l) {  // layer l >= 1; mid(n_mid + 1) = head
+    return DIN * WS + H + (l - 1) * (H * WS + H);
+  }
+  __host__ __device__ static constexpr int floats(int n_mid) {
+    return round4(mid(n_mid + 1) + H * DOUT + DOUT);
+  }
+};
+
+// Copy one net from the packed layout (src) into the padded one (dst), pads zeroed.
+template <int DIN, int H, int DOUT>
+__device__ void stage_padded(const float* __restrict__ src, int n_mid, float* __restrict__ dst) {
+  using N = Padded<DIN, H, DOUT>;
+  constexpr int WS = N::WS;
+  const int head = N::mid(n_mid + 1), n = N::floats(n_mid);
+  for (int e = threadIdx.x; e < n; e += kThreads) {
+    float v = 0.0f;
+    if (e < head) {
+      const int l = e < N::mid(1) ? 0 : (e - N::mid(1)) / (H * WS + H) + 1;
+      const int rel = l == 0 ? e : e - N::mid(l);
+      const int rows = l == 0 ? DIN : H;
+      const int base = l == 0 ? 0 : mid_off(DIN, H, l);
+      if (rel < rows * WS) {
+        if (rel % WS < H) v = src[base + (rel / WS) * H + rel % WS];
+      } else {
+        v = src[base + rows * H + rel - rows * WS];  // the layer's bias
+      }
+    } else if (e - head < H * DOUT + DOUT) {
+      v = src[head_off(DIN, H, n_mid) + e - head];
+    }
+    dst[e] = v;
+  }
+}
+
+// out[r][j] = relu(b[j] + sum_i w[i][j] in[r][i]) for the nr rows of a tile:
+// K12's hidden_unit per output (four partial sums by i mod 4, one fmaf per
+// term, added bias + ((s0 + s1) + (s2 + s3))), so the relu masks are K12's.
+// w is [RI][H + 4] then b [H]; in has a row stride of is floats, out of H + 4.
+// A thread owns a block of 4 rows x 4 units.
+template <int RI, int H>
+__device__ __forceinline__ void split_forward(const float* __restrict__ w,
+                                              const float* __restrict__ in, int is,
+                                              float* __restrict__ out, int nr) {
+  constexpr int WS = H + 4, JB = H / 4;
+  for (int blk = threadIdx.x; blk < (nr / 4) * JB; blk += kThreads) {
+    const int r0 = (blk / JB) * 4, j0 = (blk % JB) * 4;
+    float s[4][4][4];  // [i & 3][row][unit]
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[k][q][c] = 0.0f;
+    if constexpr (RI % 4 == 0) {
+#pragma unroll 2
+      for (int i = 0; i < RI; i += 4) {
+        float x[4][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 v = *reinterpret_cast<const float4*>(in + (r0 + q) * is + i);
+          x[q][0] = v.x;
+          x[q][1] = v.y;
+          x[q][2] = v.z;
+          x[q][3] = v.w;
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float4 wv = *reinterpret_cast<const float4*>(w + (i + k) * WS + j0);
+          const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) s[k][q][c] = fmaf(wc[c], x[q][k], s[k][q][c]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const float4 wv = *reinterpret_cast<const float4*>(w + i * WS + j0);
+        const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float x = in[(r0 + q) * is + i];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[i & 3][q][c] = fmaf(wc[c], x, s[i & 3][q][c]);
+        }
+      }
+    }
+    const float4 bv = *reinterpret_cast<const float4*>(w + RI * WS + j0);
+    const float bc[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float v[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        v[c] = bc[c] + ((s[0][q][c] + s[1][q][c]) + (s[2][q][c] + s[3][q][c]));
+        v[c] = v[c] < 0.0f ? 0.0f : v[c];
+      }
+      *reinterpret_cast<float4*>(out + (r0 + q) * WS + j0) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// m[r][o] = b3[o] + sum_j h[r][j] W3[j][o]: K12's head_unit per output.
+template <int H, int DOUT>
+__device__ __forceinline__ void split_head(const float* __restrict__ w3,
+                                           const float* __restrict__ h, float* __restrict__ m,
+                                           int nr) {
+  constexpr int WS = H + 4;
+  for (int e = threadIdx.x; e < nr * DOUT; e += kThreads) {
+    const int r = e / DOUT, o = e % DOUT;
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < H; j += 4) {
+      const float4 hv = *reinterpret_cast<const float4*>(h + r * WS + j);
+      s[0] = fmaf(hv.x, w3[j * DOUT + o], s[0]);
+      s[1] = fmaf(hv.y, w3[(j + 1) * DOUT + o], s[1]);
+      s[2] = fmaf(hv.z, w3[(j + 2) * DOUT + o], s[2]);
+      s[3] = fmaf(hv.w, w3[(j + 3) * DOUT + o], s[3]);
+    }
+    m[r * 4 + o] = w3[H * DOUT + o] + ((s[0] + s[1]) + (s[2] + s[3]));
+  }
+}
+
+// g[i][j] += sum_r a[r][i] c[r][j] and g[RI*H + j] += sum_r c[r][j] over the
+// nr rows in order (g in the packed layout, [RI][H] then the bias). A thread
+// owns a block of 4 i x 4 j; a row stride of as floats, c's of H + 4.
+template <int RI, int H>
+__device__ __forceinline__ void split_grads(const float* __restrict__ a, int as,
+                                            const float* __restrict__ c, int nr,
+                                            float* __restrict__ g) {
+  constexpr int WS = H + 4, IB = (RI + 3) / 4, JB = H / 4;
+  for (int blk = threadIdx.x; blk < IB * JB; blk += kThreads) {
+    const int i0 = (blk / JB) * 4, j0 = (blk % JB) * 4;
+    float acc[4][4], bs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[k][q] = 0.0f;
+    for (int r = 0; r < nr; ++r) {
+      const float4 cv = *reinterpret_cast<const float4*>(c + r * WS + j0);
+      const float cc[4] = {cv.x, cv.y, cv.z, cv.w};
+      float x[4];
+      if constexpr (RI % 4 == 0) {
+        const float4 v = *reinterpret_cast<const float4*>(a + r * as + i0);
+        x[0] = v.x;
+        x[1] = v.y;
+        x[2] = v.z;
+        x[3] = v.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) x[k] = i0 + k < RI ? a[r * as + i0 + k] : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[k][q] = fmaf(x[k], cc[q], acc[k][q]);
+      if (i0 == 0) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) bs[q] += cc[q];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (i0 + k < RI) {
+        float4* gp = reinterpret_cast<float4*>(g + (i0 + k) * H + j0);
+        const float4 v = *gp;
+        *gp = make_float4(v.x + acc[k][0], v.y + acc[k][1], v.z + acc[k][2], v.w + acc[k][3]);
+      }
+    }
+    if (i0 == 0) {
+      float4* gp = reinterpret_cast<float4*>(g + RI * H + j0);
+      const float4 v = *gp;
+      *gp = make_float4(v.x + bs[0], v.y + bs[1], v.z + bs[2], v.w + bs[3]);
+    }
+  }
+}
+
+// The head's sums: g[j][o] += sum_r h[r][j] dm[r][o], g[H*DOUT + o] += sum_r dm[r][o].
+template <int H, int DOUT>
+__device__ __forceinline__ void split_head_grads(const float* __restrict__ h,
+                                                 const float* __restrict__ dm, int nr,
+                                                 float* __restrict__ g) {
+  constexpr int WS = H + 4;
+  for (int e = threadIdx.x; e < H * DOUT + DOUT; e += kThreads) {
+    float s = 0.0f;
+    if (e < H * DOUT) {
+      const int j = e / DOUT, o = e % DOUT;
+      for (int r = 0; r < nr; ++r) s = fmaf(h[r * WS + j], dm[r * 4 + o], s);
+    } else {
+      for (int r = 0; r < nr; ++r) s += dm[r * 4 + e - H * DOUT];
+    }
+    g[e] += s;
+  }
+}
+
+// acc[q][k] = sum_o w[i][o] cout[r0 + q][o] with i = ib + k*H/4 (strided, so
+// that a quarter-warp's weight rows fall in distinct banks): a thread's block
+// of the cotangent of a layer's input. Returns false for a thread with no block.
+template <int H>
+__device__ __forceinline__ bool split_back_block(const float* __restrict__ w,
+                                                 const float* __restrict__ cout, int nr,
+                                                 float (&acc)[4][4], int& r0, int& ib) {
+  constexpr int WS = H + 4, IB = H / 4;
+  const int blk = threadIdx.x;
+  if (blk >= (nr / 4) * IB) return false;
+  r0 = (blk / IB) * 4;
+  ib = blk % IB;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[q][k] = 0.0f;
+#pragma unroll 4
+  for (int o = 0; o < H; o += 4) {
+    float4 cv[4], wv[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) cv[q] = *reinterpret_cast<const float4*>(cout + (r0 + q) * WS + o);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wv[k] = *reinterpret_cast<const float4*>(w + (ib + k * IB) * WS + o);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float s = acc[q][k];
+        s = fmaf(wv[k].x, cv[q].x, s);
+        s = fmaf(wv[k].y, cv[q].y, s);
+        s = fmaf(wv[k].z, cv[q].z, s);
+        acc[q][k] = fmaf(wv[k].w, cv[q].w, s);
+      }
+  }
+  return true;
+}
+
+// Write a block from split_back_block into dst (row stride H + 4) as
+// relu_cut(mask, acc), mask read at the same place in mask_src.
+template <int H>
+__device__ __forceinline__ void split_put_block(const float (&acc)[4][4], int r0, int ib,
+                                                const float* mask_src, float* dst) {
+  constexpr int WS = H + 4, IB = H / 4;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int at = (r0 + q) * WS + ib + k * IB;
+      dst[at] = relu_cut(mask_src[at], acc[q][k]);
+    }
+}
+
+// sum_j w[j] v[j] over H (both 16-byte aligned), in one fixed order.
+template <int H>
+__device__ __forceinline__ float split_dot(const float* __restrict__ w, const float* __restrict__ v) {
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < H; j += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(w + j);
+    const float4 b = *reinterpret_cast<const float4*>(v + j);
+    s[0] = fmaf(a.x, b.x, s[0]);
+    s[1] = fmaf(a.y, b.y, s[1]);
+    s[2] = fmaf(a.z, b.z, s[2]);
+    s[3] = fmaf(a.w, b.w, s[3]);
+  }
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+// A net's hidden layers (K12's arithmetic) into A [n_mid + 1][rows][H + 4] and
+// its mean into m [rows][4].
+template <int DIN, int H, int DOUT>
+__device__ __forceinline__ void split_net_forward(const float* w, const float* in, int is,
+                                                  float* A, int rows, int n_mid, float* m,
+                                                  int nr) {
+  using N = Padded<DIN, H, DOUT>;
+  constexpr int WS = H + 4;
+  split_forward<DIN, H>(w, in, is, A, nr);
+  __syncthreads();
+  for (int l = 1; l <= n_mid; ++l) {
+    split_forward<H, H>(w + N::mid(l), A + (l - 1) * rows * WS, WS, A + l * rows * WS, nr);
+    __syncthreads();
+  }
+  split_head<H, DOUT>(w + N::mid(n_mid + 1), A + n_mid * rows * WS, m, nr);
+  __syncthreads();
+}
+
+// A net's VJP from its mean's cotangent dm [rows][4]: its weight sums into g
+// (packed layout), the last layer's pre-activation cotangent into X [rows][H
+// + 4] (in the same phase as the head's sums), the others in place of A's
+// hidden layers, and with TO_X the input cotangent sum_j W1[i][j] c_1[r][j]
+// added to ux [rows][4] (i < DIN).
+template <int DIN, int H, int DOUT, bool TO_X>
+__device__ __forceinline__ void split_net_backward(const float* w, float* A, int rows, int n_mid,
+                                                   const float* a_in, int as, const float* dm,
+                                                   float* g, float* X, float* ux, int nr) {
+  using N = Padded<DIN, H, DOUT>;
+  constexpr int WS = H + 4;
+  const float* hl = A + n_mid * rows * WS;
+  const float* w3 = w + N::mid(n_mid + 1);
+  split_head_grads<H, DOUT>(hl, dm, nr, g + head_off(DIN, H, n_mid));
+  for (int e = threadIdx.x; e < nr * H; e += kThreads) {
+    const int r = e / H, j = e % H;
+    float s = 0.0f;
+#pragma unroll
+    for (int o = 0; o < DOUT; ++o) s = fmaf(w3[j * DOUT + o], dm[r * 4 + o], s);
+    X[r * WS + j] = relu_cut(hl[r * WS + j], s);
+  }
+  __syncthreads();
+  for (int l = n_mid; l >= 1; --l) {
+    float* below = A + (l - 1) * rows * WS;
+    const float* above = l == n_mid ? X : A + l * rows * WS;
+    split_grads<H, H>(below, WS, above, nr, g + mid_off(DIN, H, l));
+    float acc[4][4];
+    int r0 = 0, ib = 0;
+    const bool mine = split_back_block<H>(w + N::mid(l), above, nr, acc, r0, ib);
+    __syncthreads();
+    if (mine) split_put_block<H>(acc, r0, ib, below, below);
+    __syncthreads();
+  }
+  const float* c1 = n_mid == 0 ? X : A;
+  split_grads<DIN, H>(a_in, as, c1, nr, g);
+  if constexpr (TO_X) {
+    for (int e = threadIdx.x; e < nr * DIN; e += kThreads) {
+      const int r = e / DIN, i = e % DIN;
+      ux[r * 4 + i] += split_dot<H>(w + i * WS, c1 + r * WS);
+    }
+  }
+  __syncthreads();
+}
+
+// J[r][o][i] = d m_b[o] / d x_next[i] at the tile's relu masks (in AQ), by DX
+// cotangent passes through qb, one after the other; X [rows][H + 4] is
+// scratch. (The DX passes side by side, one barrier a layer for all of them,
+// were slower on the H100; PERF.md.)
+template <int DQ, int H, int DX>
+__device__ __forceinline__ void split_jacobian(const float* wq, const float* AQ, int rows,
+                                               int n_mid, float* X, float* jac, int nr) {
+  using N = Padded<DQ, H, DX>;
+  constexpr int WS = H + 4;
+  const float* hl = AQ + n_mid * rows * WS;
+  const float* w3 = wq + N::mid(n_mid + 1);
+  for (int o = 0; o < DX; ++o) {
+    for (int e = threadIdx.x; e < nr * H; e += kThreads) {
+      const int r = e / H, j = e % H;
+      X[r * WS + j] = relu_cut(hl[r * WS + j], w3[j * DX + o]);
+    }
+    __syncthreads();
+    for (int l = n_mid; l >= 1; --l) {
+      float acc[4][4];
+      int r0 = 0, ib = 0;
+      const bool mine = split_back_block<H>(wq + N::mid(l), X, nr, acc, r0, ib);
+      __syncthreads();
+      if (mine) split_put_block<H>(acc, r0, ib, AQ + (l - 1) * rows * WS, X);
+      __syncthreads();
+    }
+    for (int e = threadIdx.x; e < nr * DX; e += kThreads) {
+      const int r = e / DX, i = e % DX;
+      jac[r * 12 + o * DX + i] = split_dot<H>(wq + i * WS, X + r * WS);
+    }
+    __syncthreads();
+  }
+}
+
+// Dynamic shared memory of the split design, in floats.
+template <int DX, int DY, int H>
+__host__ __device__ constexpr int split_smem_floats(int n_mid, int n_weights, int rows) {
+  return Padded<DX + DY, H, DX>::floats(n_mid) + Padded<DX, H, DX>::floats(n_mid) +
+         Padded<DX, H, DY>::floats(n_mid) + round4(n_weights + 2 * DX + DY + 3) +
+         (2 * (n_mid + 1) + 1) * rows * (H + 4) + kRowFloats * rows;
+}
+
+// The split design. Rows are (t, path) pairs. A CTA takes a group of P paths
+// and walks t ascending in tiles of CH = rows / P steps (tile row c*P + p is
+// step t0 + c of path p), so the carry's recurrence stays inside the CTA.
+// Per tile, every phase parallel over the tile's rows but step 5:
+//   1. qb's hidden layers on [x~_{t+1}; y_t] (K12's arithmetic, masks and all);
+//   2. f on x~_t, its density term's cotangents (cut where K12 floored the
+//      term), f's VJP: the f weight sums and dfx; the z_f part dxz of the
+//      carry; the noise term's cut;
+//   3. the same for g (dgx), in f's buffers;
+//   4. J_t = d m_b / d x~_{t+1} by Dx cotangent passes through qb;
+//   5. one thread per path: dmb_t = u_t + carry_t with u_t = d_xtilde_t +
+//      dfx_t + dgx_t, carry_{t+1} = dxz_t + J_t^T dmb_t (carry_0 =
+//      d_x_first; the last carry is d_x_anchor);
+//   6. qb's VJP from dmb_t: the qb weight sums and d s_b = dmb . eps;
+//   7. the tile's sc sums.
+// Every sum has one owning thread and a fixed order (rows ascending within a
+// tile, tiles in order); the CTAs' rows go to svo_sum_ctas_kernel as in the
+// chain design.
+template <int DX, int DY, int H>
+__global__ void __launch_bounds__(kThreads, 1) svo_backward_split_kernel(const BwdArgs a, int rows,
+                                                                         int P) {
+  constexpr int DQ = DX + DY, NS = 2 * DX + DY + 3, WS = H + 4, c0 = 2 * DX + DY;
+  using NQ = Padded<DQ, H, DX>;
+  using NF = Padded<DX, H, DX>;
+  using NG = Padded<DX, H, DY>;
+  extern __shared__ __align__(16) float smem[];
+  const int n_mid = a.n_mid, L = n_mid + 1, n_row = a.n_weights + NS;
+  const int tid = threadIdx.x;
+  float* wq = smem;
+  float* wf = wq + NQ::floats(n_mid);
+  float* wg = wf + NF::floats(n_mid);
+  float* gsum = wg + NG::floats(n_mid);      // [n_row]: this CTA's sums
+  float* aq = gsum + round4(n_row);          // [L][rows][WS]: qb's hidden layers
+  float* af = aq + L * rows * WS;            // [L][rows][WS]: f's, then g's
+  float* xb = af + L * rows * WS;            // [rows][WS]: scratch
+  float* qin = xb + rows * WS;               // [rows][8]: [x~_{t+1}; y_t]
+  float* xt = qin + rows * 8;                // [rows][4]: x~_t
+  float* ep = xt + rows * 4;                 // [rows][4]: eps_t
+  float* dmn = ep + rows * 4;                // [rows][4]: f's / g's mean, then its cotangent
+  float* ux = dmn + rows * 4;                // [rows][4]: u_t
+  float* dxz = ux + rows * 4;                // [rows][4]
+  float* dmb = dxz + rows * 4;               // [rows][4]
+  float* jac = dmb + rows * 4;               // [rows][12]: J[o][i] at o*DX + i
+  float* sg = jac + rows * 12;               // [rows][12]: the row's sc terms
+
+  stage_padded<DQ, H, DX>(a.weights, n_mid, wq);
+  stage_padded<DX, H, DX>(a.weights + a.off_f, n_mid, wf);
+  stage_padded<DX, H, DY>(a.weights + a.off_g, n_mid, wg);
+  for (int i = tid; i < n_row; i += kThreads) gsum[i] = 0.0f;
+  __syncthreads();
+
+  const int NP = a.B * a.M, groups = (NP + P - 1) / P, CH = rows / P;
+  float carry[DX];
+  for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    if (tid < P) {
+      const int path = grp * P + tid;
+#pragma unroll
+      for (int d = 0; d < DX; ++d) {
+        carry[d] = path < NP && a.d_x_first != nullptr ? a.d_x_first[(size_t)path * DX + d] : 0.0f;
+      }
+    }
+    for (int t0 = 0; t0 < a.T1; t0 += CH) {
+      const int steps = a.T1 - t0 < CH ? a.T1 - t0 : CH;
+      const int nr = round4(steps * P);
+      // 0. the tile's operands; dead rows (past T-1 or NP) are zero throughout
+      for (int r = tid; r < nr; r += kThreads) {
+        const int c = r / P, path = grp * P + r % P, t = t0 + c;
+        const bool live = c < steps && path < NP;
+        float xn[DX], x[DX], e[DX], u[DX];
+#pragma unroll
+        for (int d = 0; d < DX; ++d) xn[d] = x[d] = e[d] = u[d] = 0.0f;
+        if (live) {
+          const size_t at = ((size_t)t * NP + path) * DX;
+#pragma unroll
+          for (int d = 0; d < DX; ++d) {
+            xn[d] = t == a.T1 - 1 ? a.x_anchor[(size_t)path * DX + d] : a.xtilde[at + NP * DX + d];
+            x[d] = a.xtilde[at + d];
+            e[d] = a.eps[at + d];
+            u[d] = a.d_xtilde != nullptr ? a.d_xtilde[at + d] : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int d = 0; d < DX; ++d) {
+          qin[r * 8 + d] = xn[d];
+          xt[r * 4 + d] = x[d];
+          ep[r * 4 + d] = e[d];
+          ux[r * 4 + d] = u[d];
+          dmb[r * 4 + d] = 0.0f;
+        }
+        const int b = live ? path / a.M : 0;
+#pragma unroll
+        for (int q = 0; q < DY; ++q) qin[r * 8 + DX + q] = live ? a.y[((size_t)t * a.B + b) * DY + q] : 0.0f;
+#pragma unroll
+        for (int i = 0; i < 12; ++i) sg[r * 12 + i] = 0.0f;
+      }
+      __syncthreads();
+      // 1. qb's hidden layers and f's forward, layer by layer in the same phases
+      split_forward<DQ, H>(wq, qin, 8, aq, nr);
+      split_forward<DX, H>(wf, xt, 4, af, nr);
+      __syncthreads();
+      for (int l = 1; l <= n_mid; ++l) {
+        split_forward<H, H>(wq + NQ::mid(l), aq + (l - 1) * rows * WS, WS, aq + l * rows * WS, nr);
+        split_forward<H, H>(wf + NF::mid(l), af + (l - 1) * rows * WS, WS, af + l * rows * WS, nr);
+        __syncthreads();
+      }
+      split_head<H, DX>(wf + NF::mid(n_mid + 1), af + n_mid * rows * WS, dmn, nr);
+      __syncthreads();
+      // 2. the f and noise terms' cotangents, f's backward
+      for (int r = tid; r < nr; r += kThreads) {
+        const int c = r / P, path = grp * P + r % P;
+        const bool live = c < steps && path < NP;
+        float zf[DX], sf = 0.0f, se = 0.0f;
+#pragma unroll
+        for (int d = 0; d < DX; ++d) {
+          zf[d] = __fmul_rn(__fsub_rn(qin[r * 8 + d], dmn[r * 4 + d]), a.sc[d]);
+          sf = __fadd_rn(sf, __fmul_rn(zf[d], zf[d]));
+          se = __fadd_rn(se, __fmul_rn(ep[r * 4 + d], ep[r * 4 + d]));
+        }
+        const float tf = __fadd_rn(__fmul_rn(-0.5f, sf), a.sc[c0]);
+        const float tb = __fadd_rn(__fmul_rn(-0.5f, se), a.sc[c0 + 2]);
+        const float dlf = live && a.d_lp != nullptr && !(tf < kMinLogp) ? a.d_lp[path] : 0.0f;
+        const float dlb = live && a.d_lq != nullptr && !(tb < kMinLogp) ? a.d_lq[path] : 0.0f;
+#pragma unroll
+        for (int d = 0; d < DX; ++d) {
+          const float dz = -dlf * zf[d], rr = qin[r * 8 + d] - dmn[r * 4 + d];
+          dmn[r * 4 + d] = -dz * a.sc[d];
+          dxz[r * 4 + d] = dz * a.sc[d];
+          sg[r * 12 + d] = dz * rr;
+        }
+        sg[r * 12 + c0] = dlf;
+        sg[r * 12 + c0 + 2] = dlb;
+      }
+      __syncthreads();
+      split_net_backward<DX, H, DX, true>(wf, af, rows, n_mid, xt, 4, dmn, gsum + a.off_f, xb, ux,
+                                          nr);
+      // 3. g likewise
+      split_net_forward<DX, H, DY>(wg, xt, 4, af, rows, n_mid, dmn, nr);
+      for (int r = tid; r < nr; r += kThreads) {
+        const int c = r / P, path = grp * P + r % P;
+        const bool live = c < steps && path < NP;
+        float zg[DY], sgs = 0.0f;
+#pragma unroll
+        for (int q = 0; q < DY; ++q) {
+          zg[q] = __fmul_rn(__fsub_rn(qin[r * 8 + DX + q], dmn[r * 4 + q]), a.sc[DX + q]);
+          sgs = __fadd_rn(sgs, __fmul_rn(zg[q], zg[q]));
+        }
+        const float tg = __fadd_rn(__fmul_rn(-0.5f, sgs), a.sc[c0 + 1]);
+        const float dlg = live && a.d_lp != nullptr && !(tg < kMinLogp) ? a.d_lp[path] : 0.0f;
+#pragma unroll
+        for (int q = 0; q < DY; ++q) {
+          const float dz = -dlg * zg[q], rr = qin[r * 8 + DX + q] - dmn[r * 4 + q];
+          dmn[r * 4 + q] = -dz * a.sc[DX + q];
+          sg[r * 12 + DX + q] = dz * rr;
+        }
+        sg[r * 12 + c0 + 1] = dlg;
+      }
+      __syncthreads();
+      split_net_backward<DX, H, DY, true>(wg, af, rows, n_mid, xt, 4, dmn, gsum + a.off_g, xb, ux,
+                                          nr);
+      // 4. J_t
+      split_jacobian<DQ, H, DX>(wq, aq, rows, n_mid, xb, jac, nr);
+      // 5. the recurrence, one thread per path, t ascending
+      if (tid < P && grp * P + tid < NP) {
+        const int path = grp * P + tid;
+        for (int c = 0; c < steps; ++c) {
+          const int r = c * P + tid;
+          float mb[DX];
+#pragma unroll
+          for (int d = 0; d < DX; ++d) {
+            mb[d] = ux[r * 4 + d] + carry[d];
+            dmb[r * 4 + d] = mb[d];
+            sg[r * 12 + DQ + d] = mb[d] * ep[r * 4 + d];  // d s_b
+          }
+#pragma unroll
+          for (int i = 0; i < DX; ++i) {
+            float s = dxz[r * 4 + i];
+#pragma unroll
+            for (int o = 0; o < DX; ++o) s = fmaf(jac[r * 12 + o * DX + i], mb[o], s);
+            carry[i] = s;
+          }
+          if (t0 + c == a.T1 - 1) {
+#pragma unroll
+            for (int d = 0; d < DX; ++d) a.d_x_anchor[(size_t)path * DX + d] = carry[d];
+          }
+        }
+      }
+      __syncthreads();
+      // 6. qb's VJP from dmb
+      split_net_backward<DQ, H, DX, false>(wq, aq, rows, n_mid, qin, 8, dmb, gsum, xb, nullptr, nr);
+      // 7. the tile's sc sums, rows in order
+      for (int e = tid; e < NS; e += kThreads) {
+        float s = 0.0f;
+        for (int r = 0; r < nr; ++r) s += sg[r * 12 + e];
+        gsum[a.n_weights + e] += s;
+      }
+      __syncthreads();
+    }
+  }
+  float* row = a.partial + (size_t)blockIdx.x * n_row;
+  for (int i = tid; i < n_row; i += kThreads) row[i] = gsum[i];
+}
+
 template <int DX, int DY, int H>
 cudaError_t launch_forward(const FwdArgs& a, cudaStream_t stream) {
   constexpr int P = kThreads / H;
@@ -523,6 +1129,37 @@ cudaError_t launch_backward(const BwdArgs& a, int max_ctas, float* grads, cudaSt
   return cudaGetLastError();
 }
 
+template <int DX, int DY, int H>
+cudaError_t launch_backward_split(const BwdArgs& a, int max_ctas, int rows, int P, float* grads,
+                                  cudaStream_t stream) {
+  constexpr int NS = 2 * DX + DY + 3;
+  if (rows < 4 || rows % 4 != 0 || rows * H > 4096 || P < 1 || P > rows) {
+    return cudaErrorInvalidValue;
+  }
+  const int n_row = a.n_weights + NS;
+  const size_t smem = sizeof(float) * split_smem_floats<DX, DY, H>(a.n_mid, a.n_weights, rows);
+  auto kernel = svo_backward_split_kernel<DX, DY, H>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) {
+    return err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int groups = (a.B * a.M + P - 1) / P;
+  int grid = groups < sms * per_sm ? groups : sms * per_sm;
+  if (grid > max_ctas) grid = max_ctas;
+  kernel<<<grid, kThreads, smem, stream>>>(a, rows, P);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  svo_sum_ctas_kernel<<<(n_row + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      a.partial, grid, n_row, grads);
+  return cudaGetLastError();
+}
+
 template <template <int, int, int> class Launch, typename... Ts>
 int dispatch(int dx, int dy, int hidden, Ts... args) {
   if (dx == 2 && dy == 2) {
@@ -552,9 +1189,14 @@ struct Forward {
 };
 
 template <int DX, int DY, int H>
-struct Backward {
-  static int run(const BwdArgs& a, int max_ctas, float* grads, cudaStream_t s) {
-    return static_cast<int>(launch_backward<DX, DY, H>(a, max_ctas, grads, s));
+struct Backward {  // design 0: split, 1: chain
+  static int run(const BwdArgs& a, int max_ctas, int design, int rows, int paths, float* grads,
+                 cudaStream_t s) {
+    if (design == 0) {
+      return static_cast<int>(launch_backward_split<DX, DY, H>(a, max_ctas, rows, paths, grads, s));
+    }
+    if (design == 1) return static_cast<int>(launch_backward<DX, DY, H>(a, max_ctas, grads, s));
+    return static_cast<int>(cudaErrorInvalidValue);
   }
 };
 
@@ -564,7 +1206,8 @@ struct Backward {
 // Plain C entry points (bound with ctypes by psvo_tpu_torch/ops/_build.py).
 // Each returns a cudaError_t. grads [n_weights + 2*dx + dy + 3] receives the
 // weight gradients, then sc's; partial [max_ctas, n_weights + 2*dx + dy + 3]
-// is scratch.
+// is scratch. K13's design: 0 the split design (tile_rows rows a tile, paths
+// paths a CTA group), 1 the chain design (tile_rows and paths unread).
 extern "C" int psvo_svo_forward(const float* x_anchor, const float* eps, const float* y,
                                 const float* weights, const float* sc, float* x_first, float* lp,
                                 float* lq, float* xtilde, int B, int M, int T1, int dx, int dy,
@@ -582,10 +1225,10 @@ extern "C" int psvo_svo_backward(const float* x_anchor, const float* eps, const 
                                  const float* d_xtilde, float* d_x_anchor, float* partial,
                                  float* grads, int B, int M, int T1, int dx, int dy, int hidden,
                                  int n_mid, int n_weights, int off_f, int off_g, int max_ctas,
-                                 void* stream) {
+                                 int design, int tile_rows, int paths, void* stream) {
   const psvo::svo::BwdArgs a{x_anchor, eps,    y,          weights, sc,    xtilde, d_x_first,
                              d_lp,     d_lq,   d_xtilde,   d_x_anchor, partial, B, M,
                              T1,       n_mid,  n_weights,  off_f,   off_g};
-  return psvo::svo::dispatch<psvo::svo::Backward>(dx, dy, hidden, a, max_ctas, grads,
-                                                  static_cast<cudaStream_t>(stream));
+  return psvo::svo::dispatch<psvo::svo::Backward>(dx, dy, hidden, a, max_ctas, design, tile_rows,
+                                                  paths, grads, static_cast<cudaStream_t>(stream));
 }

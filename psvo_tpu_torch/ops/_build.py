@@ -42,7 +42,8 @@ SIGNATURES = {
     "psvo_max_active_clusters": [_I] * 6 + [_P],
     "psvo_stream_noise": [_P, _P, _U32, _U32, _I, _I, _I, _I, _P],
     "psvo_ancestor_indices": [_P, _P, _P, _I, _I, _P],
-    "psvo_ffbsi_forward": [_P] * 13 + [_I] * 5 + [_P],
+    # K5 ends in (..., dx, design, paths, chunk, stream): 0 the staged design, 1 the previous one
+    "psvo_ffbsi_forward": [_P] * 13 + [_I] * 8 + [_P],
     "psvo_ffbsi_backward": [_P] * 18 + [_I] * 5 + [_P],
     "psvo_ancestor_indices_large": [_P, _P, _P, _I, _I, _P],
     "psvo_gather_particles": [_P, _P, _P, _I, _I, _I, _P],
@@ -51,7 +52,8 @@ SIGNATURES = {
     # K10 ends in (..., max_ctas, design, stream): 0 the tensor-core design, 1 the previous one
     "psvo_trunk_backward": [_P] * 13 + [_U32, _U32] + [_I] * 13 + [_P],
     "psvo_svo_forward": [_P] * 9 + [_I] * 10 + [_P],
-    "psvo_svo_backward": [_P] * 13 + [_I] * 11 + [_P],
+    # K13 ends in (..., max_ctas, design, tile_rows, paths, stream): 0 the split design, 1 the chain
+    "psvo_svo_backward": [_P] * 13 + [_I] * 14 + [_P],
     # K14 and K15: (..., counter, B, ..., off_g, slices, stream): S CTAs per row
     "psvo_step_forward": [_P] * 12 + [_I] * 10 + [_P],
     "psvo_step_backward": [_P] * 18 + [_I] * 10 + [_P],

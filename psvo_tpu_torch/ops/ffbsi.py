@@ -15,7 +15,13 @@ the card:
     x̃_t    = xs[:, idx]
   It also returns the selections, which K6 reads instead of recomputing the
   argmax. Plain version: `ffbsi_forward_reference`, a loop over t of the
-  body of `objectives._make_ffbsi_body`.
+  body of `objectives._make_ffbsi_body`. Two designs, with the same outputs
+  bit for bit; the path runs "staged" (`ffbsi_staged_kernel`): a CTA serves
+  `k5_paths` paths of one row from the row's operands, copied into shared
+  memory a chunk (`k5_chunk`) ahead of the compute. "path"
+  (`ffbsi_forward_kernel`, the previous design: one CTA a path, loading its
+  row's operands from L2 every step) stays callable with `design="path"`
+  as its yardstick.
 - K6 `ffbsi_backward` (replaces `pallas_ffbsi._scan_bwd`, the VJP kernel):
   the VJP of K5 on K5's selections. Plain version: `ffbsi_backward_reference`,
   an autograd replay of the sweep with the selections held fixed.
@@ -24,7 +30,8 @@ the card:
 contract of `pallas_ffbsi.ffbsi_scan`'s custom VJP: no gradient through the
 discrete choice, none for gum, cotangents to x_anchor, xs, r, mr, c, lwn and
 lg. Each wrapper carries a launch count (`<wrapper>.launches`), raised only
-where the kernel is launched; each plain version a call count (`.calls`).
+where the kernel is launched (K5's also by design, `.launches_by_design`);
+each plain version a call count (`.calls`).
 
 Layout: x_anchor [B, M, Dx]; xs, r, mr [T−1, B, Dx, K]; c, lwn, lg
 [T−1, B, K]; gum [T−1, B, M, K], all float32. Outputs: x_first [B, M, Dx]
@@ -45,15 +52,59 @@ import torch
 
 from psvo_tpu_torch.distributions import _MIN_LOGP
 from psvo_tpu_torch.ops import _build
-from psvo_tpu_torch.ops.fused_step import _ptr, _require
+from psvo_tpu_torch.ops.fused_step import SMEM_LIMIT, _ptr, _require
 
 KERNEL_DX = (2, 3)  # state widths K5 and K6 are instantiated for
 MAX_M = 256  # smoothed paths per row (K6 keeps per-path state in shared memory)
+DESIGNS = ("staged", "path")  # K5's designs: the one the path runs, the previous one
+PATHS_PER_CTA = (1, 2, 4, 8)  # K5 staged: paths of one row a CTA serves
+_THREADS = 256
+_STATIC_SMEM = 24576  # K5 staged: bytes kept for its static shared memory (the lse window)
 
 
 def usable(dx: int, m: int) -> bool:
     """Whether a sweep of Dx = dx with m smoothed paths is in K5/K6's class."""
     return dx in KERNEL_DX and 1 <= m <= MAX_M
+
+
+def k5_paths(batch: int, m: int, n_sms: int) -> int:
+    """Paths of one row a CTA of K5's staged design serves: the fewest in
+    PATHS_PER_CTA whose batch * ceil(m / P) CTAs fit the card's SMs in one
+    wave, else the most (each CTA then reads its row's operands for more
+    paths)."""
+    for p in PATHS_PER_CTA:
+        if batch * -(-m // p) <= n_sms:
+            return p
+    return PATHS_PER_CTA[-1]
+
+
+def _slot_bytes(dx: int, chunk: int, p: int) -> int:
+    """One slot of K5's staged design: a chunk's r, mr, xs (Dx rows each), c,
+    lwn, lg and p Gumbel rows, each row `chunk` floats rounded up to 4."""
+    return 4 * (3 * dx + 3 + p) * ((chunk + 3) // 4 * 4)
+
+
+def k5_slots(dx: int, k: int, p: int) -> int:
+    """Slots of K5's staged ring (csrc/ffbsi.cu::ffbsi_staged_slots): 3 where
+    three fit a CTA's shared memory, else 2."""
+    chunk = min(k5_chunk(dx, k, p), k)
+    return 3 if 3 * _slot_bytes(dx, chunk, p) <= SMEM_LIMIT - _STATIC_SMEM else 2
+
+
+def k5_smem_bytes(dx: int, k: int, p: int) -> int:
+    """Dynamic shared memory of K5's staged design at K = k: `k5_slots`
+    slots of a `k5_chunk` chunk."""
+    return k5_slots(dx, k, p) * _slot_bytes(dx, min(k5_chunk(dx, k, p), k), p)
+
+
+def k5_chunk(dx: int, k: int, p: int) -> int:
+    """Particles a stage of K5's staged design copies: the whole row where two
+    slots of it fit a CTA's shared memory, else the largest multiple of 256
+    that fits (each thread then sees its particles in the same order)."""
+    budget = SMEM_LIMIT - _STATIC_SMEM
+    if 2 * _slot_bytes(dx, k, p) <= budget:
+        return k
+    return budget // (2 * _slot_bytes(dx, _THREADS, p)) * _THREADS
 
 
 def pair_logp(q, r, mr, c):
@@ -141,18 +192,27 @@ def ffbsi_forward_reference(x_anchor, xs, r, mr, c, lwn, lg, gum):
 ffbsi_forward_reference.calls = 0
 
 
-def ffbsi_forward(x_anchor, xs, r, mr, c, lwn, lg, gum):
+def ffbsi_forward(x_anchor, xs, r, mr, c, lwn, lg, gum, design: str = "staged"):
     """K5: the FFBSi reverse sweep in one launch. Returns (x_first, logp,
     logq, xtilde, sel). CPU tensors run the plain version; CUDA tensors
-    launch the kernel. It takes no gradient itself: differentiate through
+    launch the kernel of `design` ("staged", the default and the only one
+    the path runs: a CTA serves `k5_paths` paths of a row from operands
+    staged a chunk ahead in shared memory; "path", the previous design, one
+    CTA a path, kept as its yardstick), or raise for a shape outside its
+    class. It takes no gradient itself: differentiate through
     `FFBSiSweep`."""
+    if design not in DESIGNS:
+        raise ValueError(f"ffbsi_forward: no design {design!r} (one of {DESIGNS})")
     if x_anchor.device.type == "cpu":
         return ffbsi_forward_reference(x_anchor, xs, r, mr, c, lwn, lg, gum)
     if x_anchor.device.type != "cuda":
         raise ValueError(f"ffbsi_forward: unsupported device {x_anchor.device}")
-    t_len, batch, m, dx, k = _check_sweep(x_anchor, xs, r, mr, c, lwn, lg, "ffbsi_forward")
+    t_len, batch, m, dx, k = _check_sweep(x_anchor, xs, r, mr, c, lwn, lg,
+                                          f"ffbsi_forward ({design})")
     dev = x_anchor.device
     _require(gum, (t_len, batch, m, k), "gum", dev)
+    p = k5_paths(batch, m, torch.cuda.get_device_properties(dev).multi_processor_count)
+    chunk = k5_chunk(dx, k, p)
     f32 = dict(dtype=torch.float32, device=dev)
     x_first = torch.empty((batch, m, dx), **f32)
     logp = torch.empty((batch, m), **f32)
@@ -164,14 +224,16 @@ def ffbsi_forward(x_anchor, xs, r, mr, c, lwn, lg, gum):
         x_anchor.data_ptr(), xs.data_ptr(), r.data_ptr(), mr.data_ptr(), c.data_ptr(),
         lwn.data_ptr(), lg.data_ptr(), gum.data_ptr(), x_first.data_ptr(), logp.data_ptr(),
         logq.data_ptr(), xtilde.data_ptr(), sel.data_ptr(), batch, m, k, t_len, dx,
-        torch.cuda.current_stream(dev).cuda_stream,
+        DESIGNS.index(design), p, chunk, torch.cuda.current_stream(dev).cuda_stream,
     )
     ffbsi_forward.launches += 1
-    _build.check(lib, err, "ffbsi_forward")
+    ffbsi_forward.launches_by_design[design] += 1
+    _build.check(lib, err, f"ffbsi_forward ({design})")
     return x_first, logp, logq, xtilde, sel
 
 
 ffbsi_forward.launches = 0
+ffbsi_forward.launches_by_design = dict.fromkeys(DESIGNS, 0)  # which kernel the launches ran
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,17 @@ the card:
 - K13 `svo_sweep_backward` (replaces `pallas_svo._scan_bwd`, the VJP kernel):
   the VJP of K12 from its saved trajectories. Plain version:
   `svo_sweep_backward_reference`, an autograd replay of the plain forward in
-  which every draw takes K12's saved x̃_t as its value.
+  which every draw takes K12's saved x̃_t as its value. Two designs; the
+  path runs "split" (`svo_backward_split_kernel`): everything but one
+  Dx-wide linear recurrence is parallel over the (t, path) rows — the
+  trunks' recompute, f's and g's VJP, J_t = ∂m_b/∂x̃_{t+1}, qb's VJP and the
+  weight sums — and the carry obeys carry_0 = d_x_first, dmb_t = u_t +
+  carry_t, carry_{t+1} = dxz_t + J_tᵀ dmb_t (u_t = d_xtilde_t + dfx_t +
+  dgx_t, dxz_t the z_f part); a CTA takes `k13_paths` paths and walks t in
+  tiles of `k13_tile_rows` rows. "chain" (`svo_backward_kernel`, the
+  previous design, the TPU kernel's shape: every path walks t carrying
+  d x̃_{t+1} through the whole step's VJP) stays callable with
+  `design="chain"` as its yardstick.
 
 `SVOSweep` joins them as one `torch.autograd.Function` with the gradient
 contract of `pallas_svo.svo_scan`'s custom VJP: cotangents to x_anchor, to
@@ -26,7 +36,8 @@ the packed qb/f/g weights and biases, and to the scale operand sc = (1/s_f,
 scales (the TPU kernel's sconst operand and d_sm stream); a density term
 under its floor passes no cotangent to its constant; zero for ε, none for y.
 Each wrapper carries a launch count (`<wrapper>.launches`), raised only where
-the kernel is launched; each plain version a call count (`.calls`).
+the kernel is launched (K13's also by design, `.launches_by_design`); each
+plain version a call count (`.calls`).
 
 Layout: x_anchor [B, M, Dx]; eps [T−1, B, M, Dx] (ε_t at index t); y
 [T−1, B, Dy] (y_t of t = 0 … T−2); packed: qb | f | g in
@@ -58,16 +69,71 @@ def n_sc(dx: int, dy: int) -> int:
     return 2 * dx + dy + 3
 
 
-def k13_smem_bytes(dx: int, dy: int, h: int, n_mid: int, n_weights: int) -> int:
-    """Dynamic shared memory of K13 (csrc/svo_sweep.cu::launch_backward): the
-    weights, transposed copies of the first and middle layers, the CTA's
-    gradient sums and 256 / h paths' buffers."""
-    def r4(n):
-        return (n + 3) // 4 * 4
+DESIGNS = ("split", "chain")  # K13's designs: the one the path runs, the previous one
+_ROW_FLOATS = 56  # per tile row of the split design (csrc/svo_sweep.cu::kRowFloats)
 
-    nt = (dx + dy) * h + 2 * dx * h + 3 * n_mid * h * h
-    paths = _THREADS // h * (80 + 6 * (n_mid + 1) * h)
-    return 4 * (n_weights + r4(nt) + r4(n_weights + n_sc(dx, dy)) + paths)
+
+def _r4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def k13_smem_bytes(dx: int, dy: int, h: int, n_mid: int, n_weights: int, design: str = "split",
+                   rows: int | None = None) -> int:
+    """Dynamic shared memory of K13 (csrc/svo_sweep.cu). "split"
+    (split_smem_floats): the three nets with every row of an h-wide matrix
+    padded to h + 4 floats, the CTA's gradient sums, qb's and f's (then g's)
+    n_mid + 1 hidden layers and one scratch layer of `rows` tile rows at a
+    stride of h + 4, and 56 floats per row (rows: `k13_tile_rows`'s, or 16
+    where none fits). "chain" (launch_backward): the weights, transposed
+    copies of the first and middle layers, the CTA's gradient sums and
+    256 / h paths' buffers."""
+    if design == "chain":
+        nt = (dx + dy) * h + 2 * dx * h + 3 * n_mid * h * h
+        paths = _THREADS // h * (80 + 6 * (n_mid + 1) * h)
+        return 4 * (n_weights + _r4(nt) + _r4(n_weights + n_sc(dx, dy)) + paths)
+    if design != "split":
+        raise ValueError(f"K13 has no design {design!r} (one of {DESIGNS})")
+    if rows is None:
+        rows = k13_tile_rows(dx, dy, h, n_mid, n_weights) or 16
+
+    def padded(din, dout):
+        ws = h + 4
+        return _r4(din * ws + h + n_mid * (h * ws + h) + h * dout + dout)
+
+    nets = padded(dx + dy, dx) + padded(dx, dx) + padded(dx, dy)
+    layers = (2 * (n_mid + 1) + 1) * rows * (h + 4)
+    return 4 * (nets + _r4(n_weights + n_sc(dx, dy)) + layers + _ROW_FLOATS * rows)
+
+
+def k13_tile_rows(dx: int, dy: int, h: int, n_mid: int, n_weights: int) -> int | None:
+    """Rows of a tile of K13's split design: 4096 / h (one 4 x 4 block of a
+    hidden layer per thread), halved until its shared memory fits a CTA,
+    at least 16; None where even 16 do not fit."""
+    rows = 4096 // h
+    while rows >= 16:
+        if k13_smem_bytes(dx, dy, h, n_mid, n_weights, "split", rows) <= SMEM_LIMIT:
+            return rows
+        rows //= 2
+    return None
+
+
+def k13_paths(n_paths: int, n_sms: int, rows: int) -> int:
+    """Paths of a CTA's group in K13's split design: enough that the groups
+    fill the card's SMs in one wave, at most a tile's rows (a tile then holds
+    rows // paths steps of each path)."""
+    return max(1, min(rows, -(-n_paths // n_sms)))
+
+
+def k13_ok(dx: int, dy: int, h: int, n_mid: int, n_weights: int, design: str = "split") -> bool:
+    """Whether K13's `design` is instantiated for the shape: (Dx, Dy) and the
+    width instantiated, and its shared memory in one CTA."""
+    if design not in DESIGNS:
+        raise ValueError(f"K13 has no design {design!r} (one of {DESIGNS})")
+    if (dx, dy) not in KERNEL_DIMS or h not in HIDDEN_WIDTHS:
+        return False
+    if design == "split":
+        return k13_tile_rows(dx, dy, h, n_mid, n_weights) is not None
+    return k13_smem_bytes(dx, dy, h, n_mid, n_weights, "chain") <= SMEM_LIMIT
 
 
 def _n_weights(dx: int, dy: int, h: int, n_mid: int) -> int:
@@ -81,9 +147,11 @@ def _n_weights(dx: int, dy: int, h: int, n_mid: int) -> int:
 def usable(ssm, m: int) -> bool:
     """Whether SVO's sweep for (ssm, m smoothed paths) is in K12/K13's class:
     qb, f and g constant-diagonal relu MLPs of one uniform hidden width in
-    `fused_step.HIDDEN_WIDTHS` whose K13 buffers fit a CTA's shared memory;
-    (Dx, Dy) in {(2, 2), (3, 3)}; a Gaussian emission; no qb GRU, known
-    dynamics or controls; 1 <= m <= MAX_M."""
+    `fused_step.HIDDEN_WIDTHS` whose K13 buffers fit a CTA's shared memory in
+    both designs (the split design fits every shape the chain design does,
+    so the class is the chain design's, as before the split); (Dx, Dy) in
+    {(2, 2), (3, 3)}; a Gaussian emission; no qb GRU, known dynamics or
+    controls; 1 <= m <= MAX_M."""
     hidden = ssm.nets["qb"].hidden
     if not (len(hidden) >= 1 and hidden[0] in HIDDEN_WIDTHS
             and all(h == hidden[0] for h in hidden)):
@@ -96,8 +164,8 @@ def usable(ssm, m: int) -> bool:
         and ssm.emission in ("linear_gaussian", "identity_gaussian")
         and all(ssm.nets[n].hidden == hidden and ssm.nets[n].activation == "relu"
                 and ssm.nets[n].cov_type == "const" for n in _NETS)
-        and k13_smem_bytes(ssm.dx, ssm.dy, h, n_mid, _n_weights(ssm.dx, ssm.dy, h, n_mid))
-        <= SMEM_LIMIT
+        and all(k13_ok(ssm.dx, ssm.dy, h, n_mid, _n_weights(ssm.dx, ssm.dy, h, n_mid), d)
+                for d in DESIGNS)
     )
 
 
@@ -177,19 +245,21 @@ def _sweep(nets, sc, dx, dy, x_anchor, eps, y, xtilde=None):
     return x, lp, lq, torch.stack(xts)
 
 
-def _check_sweep(x_anchor, eps, y, consts, what):
-    """Shapes, type, device and contiguity of a sweep's operands; returns
-    (T−1, B, M, Dx, Dy)."""
+def _check_sweep(x_anchor, eps, y, consts, what, design=None):
+    """Shapes, type, device and contiguity of a sweep's operands, in the
+    class of K13's `design` (None: of both, `usable`'s class, which K12
+    takes); returns (T−1, B, M, Dx, Dy)."""
     if eps.dim() != 4 or x_anchor.dim() != 3:
         raise ValueError(f"{what}: eps must be [T-1, B, M, Dx] and x_anchor [B, M, Dx]")
     t_len, batch, m, dx = eps.shape
     dy, h, n_mid = consts["dy"], consts["hidden"], consts["n_mid"]
     n_w = consts["packed"].numel()
-    if ((dx, dy) not in KERNEL_DIMS or h not in HIDDEN_WIDTHS or not 1 <= m <= MAX_M
-            or t_len < 1 or consts["dx"] != dx
-            or k13_smem_bytes(dx, dy, h, n_mid, n_w) > SMEM_LIMIT):
-        raise ValueError(f"{what}: no kernel for Dx={dx}, Dy={dy}, hidden={h}, {n_mid} middle "
-                         f"layers, M={m}, T-1={t_len}")
+    designs = DESIGNS if design is None else (design,)
+    if (not 1 <= m <= MAX_M or t_len < 1 or consts["dx"] != dx
+            or not all(k13_ok(dx, dy, h, n_mid, n_w, d) for d in designs)):
+        kind = f"{design} kernel" if design else "kernel"
+        raise ValueError(f"{what}: no {kind} for Dx={dx}, Dy={dy}, hidden={h}, {n_mid} "
+                         f"middle layers, M={m}, T-1={t_len}")
     dev = x_anchor.device
     _require(x_anchor, (batch, m, dx), "x_anchor", dev)
     _require(eps, (t_len, batch, m, dx), "eps", dev)
@@ -280,10 +350,15 @@ svo_sweep_backward_reference.calls = 0
 
 
 def svo_sweep_backward(x_anchor, eps, y, consts, xtilde, d_x_first=None, d_lp=None, d_lq=None,
-                       d_xtilde=None):
-    """K13: the VJP of K12 over the whole sweep in one launch, from K12's
-    xtilde. Cotangents and outputs as `svo_sweep_backward_reference`, which
-    CPU tensors run; CUDA tensors launch the kernel."""
+                       d_xtilde=None, design: str = "split"):
+    """K13: the VJP of K12 over the whole sweep in one launch (and the sum of
+    its CTAs' gradient rows), from K12's xtilde. Cotangents and outputs as
+    `svo_sweep_backward_reference`, which CPU tensors run; CUDA tensors
+    launch the kernel of `design` ("split", the default and the only one
+    the path runs; "chain", the previous design, kept as its yardstick), or
+    raise for a shape it is not instantiated for."""
+    if design not in DESIGNS:
+        raise ValueError(f"svo_sweep_backward: no design {design!r} (one of {DESIGNS})")
     if x_anchor.device.type == "cpu":
         return svo_sweep_backward_reference(x_anchor, eps, y, consts, xtilde, d_x_first, d_lp,
                                             d_lq, d_xtilde)
@@ -292,17 +367,21 @@ def svo_sweep_backward(x_anchor, eps, y, consts, xtilde, d_x_first=None, d_lp=No
     dev = x_anchor.device
     return _launch_backward(x_anchor, eps, y, consts, xtilde, d_x_first, d_lp, d_lq, d_xtilde,
                             torch.cuda.get_device_properties(dev).multi_processor_count,
-                            torch.cuda.current_stream(dev).cuda_stream)
+                            torch.cuda.current_stream(dev).cuda_stream, design)
 
 
 svo_sweep_backward.launches = 0
+svo_sweep_backward.launches_by_design = dict.fromkeys(DESIGNS, 0)  # which kernel the launches ran
 
 
 def _launch_backward(x_anchor, eps, y, consts, xtilde, d_x_first, d_lp, d_lq, d_xtilde,
-                     max_ctas, stream):
+                     max_ctas, stream, design="split"):
     """Check K13's operands, allocate its outputs and scratch (max_ctas rows
-    of gradient sums) and launch it on `stream`."""
-    t_len, batch, m, dx, dy = _check_sweep(x_anchor, eps, y, consts, "svo_sweep_backward")
+    of gradient sums) and launch the kernel of `design` on `stream`; the
+    split design's tile rows and paths a CTA from `k13_tile_rows` and
+    `k13_paths` (max_ctas SMs)."""
+    t_len, batch, m, dx, dy = _check_sweep(x_anchor, eps, y, consts, "svo_sweep_backward",
+                                           design)
     dev = x_anchor.device
     _require(xtilde, (t_len, batch, m, dx), "xtilde", dev)
     for t, shape, name in ((d_x_first, x_anchor.shape, "d_x_first"), (d_lp, (batch, m), "d_lp"),
@@ -315,15 +394,20 @@ def _launch_backward(x_anchor, eps, y, consts, xtilde, d_x_first, d_lp, d_lq, d_
     d_anchor = torch.empty(x_anchor.shape, **f32)
     partial = torch.empty((max_ctas, n_row), **f32)
     grads = torch.empty((n_row,), **f32)
+    h, n_mid = consts["hidden"], consts["n_mid"]
+    rows = k13_tile_rows(dx, dy, h, n_mid, n_w) if design == "split" else 0
+    paths = k13_paths(batch * m, max_ctas, rows) if design == "split" else 0
     lib = _build.load_library()
     _, off_f, off_g = consts["offsets"]
     err = lib.psvo_svo_backward(
         x_anchor.data_ptr(), eps.data_ptr(), y.data_ptr(), consts["packed"].data_ptr(),
         consts["sc"].data_ptr(), xtilde.data_ptr(), _ptr(d_x_first), _ptr(d_lp), _ptr(d_lq),
         _ptr(d_xtilde), d_anchor.data_ptr(), partial.data_ptr(), grads.data_ptr(), batch, m,
-        t_len, dx, dy, consts["hidden"], consts["n_mid"], n_w, off_f, off_g, max_ctas, stream,
+        t_len, dx, dy, h, n_mid, n_w, off_f, off_g, max_ctas, DESIGNS.index(design), rows,
+        paths, stream,
     )
     svo_sweep_backward.launches += 1
+    svo_sweep_backward.launches_by_design[design] += 1
     _build.check(lib, err, "svo_sweep_backward")
     return d_anchor, grads[:n_w], grads[n_w:]
 

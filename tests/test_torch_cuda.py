@@ -241,15 +241,18 @@ def _sweep(dev, dx, b=4, m=8, k=128, t1=9, seed=0):
     return [t.contiguous() for t in (x_anchor, xs, r, mean * r, c, lwn, lg, -torch.log(-torch.log(u)))]
 
 
+@pytest.mark.parametrize("design", ffbsi.DESIGNS)
 @pytest.mark.parametrize("dx", [2, 3])
-def test_ffbsi_kernels_match_plain(dx):
-    """K5 picks the plain version's particles (identical selections and
-    paths, logp/logq to 1e-5); K6 on K5's selections matches the plain replay
-    to 1e-4 relative per leaf, with all cotangents and with the paths' alone."""
+def test_ffbsi_kernels_match_plain(dx, design):
+    """K5 (each design) picks the plain version's particles (identical
+    selections and paths, logp/logq to 1e-5); K6 on K5's selections matches
+    the plain replay to 1e-4 relative per leaf, with all cotangents and with
+    the paths' alone."""
     dev = _cuda()
     ops = _sweep(dev, dx)
     launches = (ffbsi.ffbsi_forward.launches, ffbsi.ffbsi_backward.launches)
-    got = ffbsi.ffbsi_forward(*ops)
+    by_design = dict(ffbsi.ffbsi_forward.launches_by_design)
+    got = ffbsi.ffbsi_forward(*ops, design=design)
     want = ffbsi.ffbsi_forward_reference(*ops)
     assert torch.equal(got[4], want[4]) and torch.equal(got[3], want[3])
     assert torch.equal(got[0], want[0])
@@ -271,14 +274,34 @@ def test_ffbsi_kernels_match_plain(dx):
                 assert _rel(a, w) <= 1e-4
     assert (ffbsi.ffbsi_forward.launches, ffbsi.ffbsi_backward.launches) == (
         launches[0] + 1, launches[1] + 2)
+    assert ffbsi.ffbsi_forward.launches_by_design == {
+        d: n + (d == design) for d, n in by_design.items()}
+
+
+@pytest.mark.parametrize("dx,b,m,k", [(3, 4, 8, 128), (3, 32, 16, 256), (2, 32, 16, 1000),
+                                      (3, 32, 16, 4096), (3, 40, 64, 384), (2, 3, 5, 130)])
+def test_ffbsi_forward_designs_agree(dx, b, m, k):
+    """K5's staged design against the previous one (design="path") on the
+    same operands: sel, x~, x_first and logp equal bit for bit, logq within
+    1e-6 relative. The shapes reach 1, 4 and 8 paths a CTA (`k5_paths` on
+    the card's SMs), the whole row staged and K = 4096 in chunks
+    (`k5_chunk`), and K not a multiple of 4 (4-byte copies)."""
+    dev = _cuda()
+    ops = _sweep(dev, dx, b=b, m=m, k=k, t1=6, seed=k)
+    staged = ffbsi.ffbsi_forward(*ops, design="staged")
+    path = ffbsi.ffbsi_forward(*ops, design="path")
+    for i in (4, 3, 0, 1):
+        assert torch.equal(staged[i], path[i]), i
+    assert float(((staged[2] - path[2]).abs() / path[2].abs()).max()) <= 1e-6
 
 
 def test_cuda_tensor_outside_the_ffbsi_class_raises():
     dev = _cuda()
     ops = _sweep(dev, 3)
     wide = (torch.zeros((4, 8, 4), device=dev), torch.zeros((9, 4, 4, 128), device=dev))
-    with pytest.raises(ValueError, match="no kernel"):  # Dx = 4: not instantiated
-        ffbsi.ffbsi_forward(*wide, *ops[2:])
+    for design in ffbsi.DESIGNS:  # Dx = 4: not instantiated
+        with pytest.raises(ValueError, match=f"ffbsi_forward \\({design}\\): no kernel"):
+            ffbsi.ffbsi_forward(*wide, *ops[2:], design=design)
     with pytest.raises(ValueError, match="gum"):
         ffbsi.ffbsi_forward(*ops[:7], ops[7][:, :, :4].contiguous())
 
@@ -602,20 +625,23 @@ def _svo_operands(dev, hidden, preset="lorenz63_svo_k256", b=4, m=8, t1=9, seed=
     return ssm, consts, (x_anchor, eps, y)
 
 
-@pytest.mark.parametrize("preset,hidden", [("lorenz63_svo_k256", (16,)),
-                                           ("lorenz63_svo_k256", (16, 16)),
-                                           ("fhn_fivo_k1024_bench", (32, 32)),
-                                           ("lorenz63_svo_k256", (64, 64))])
-def test_svo_sweep_kernels_match_plain(preset, hidden):
+_SVO_SHAPES = [("lorenz63_svo_k256", (16,)), ("lorenz63_svo_k256", (16, 16)),
+               ("fhn_fivo_k1024_bench", (32, 32)), ("lorenz63_svo_k256", (64, 64))]
+
+
+@pytest.mark.parametrize("design", ["split", "chain"])
+@pytest.mark.parametrize("preset,hidden", _SVO_SHAPES)
+def test_svo_sweep_kernels_match_plain(preset, hidden, design):
     """K12 matches its plain version (x~ to 1e-5, lp/lq to 1e-5 relative); K13
-    on K12's x~ matches the plain replay to 1e-4 relative per leaf, with all
-    cotangents and with d_lp alone, and gives the same bits on a second
-    launch."""
+    (each design) on K12's x~ matches the plain replay to 1e-4 relative per
+    leaf, with all cotangents and with d_lp alone, and gives the same bits on
+    a second launch."""
     from psvo_tpu_torch.ops import svo
 
     dev = _cuda()
     _, consts, ops = _svo_operands(dev, hidden, preset)
     launches = (svo.svo_sweep_forward.launches, svo.svo_sweep_backward.launches)
+    by_design = dict(svo.svo_sweep_backward.launches_by_design)
     got = svo.svo_sweep_forward(*ops, consts)
     want = svo.svo_sweep_forward_reference(*ops, consts)
     for i in (0, 3):
@@ -626,14 +652,60 @@ def test_svo_sweep_kernels_match_plain(preset, hidden):
     cots = [torch.randn(t.shape, generator=g, device=dev) for t in got]
     for live in ((0, 1, 2, 3), (1,)):
         kw = [cots[i] if i in live else None for i in range(4)]
-        k13 = svo.svo_sweep_backward(*ops, consts, got[3], *kw)
+        k13 = svo.svo_sweep_backward(*ops, consts, got[3], *kw, design=design)
         ref = svo.svo_sweep_backward_reference(*ops, consts, got[3], *kw)
         for a, w in zip(k13, ref):
             assert _rel(a, w) <= 1e-4
-        again = svo.svo_sweep_backward(*ops, consts, got[3], *kw)
+        again = svo.svo_sweep_backward(*ops, consts, got[3], *kw, design=design)
         assert all(torch.equal(a, b) for a, b in zip(k13, again))
     assert (svo.svo_sweep_forward.launches, svo.svo_sweep_backward.launches) == (
         launches[0] + 1, launches[1] + 4)
+    assert svo.svo_sweep_backward.launches_by_design == {
+        d: n + 4 * (d == design) for d, n in by_design.items()}
+
+
+@pytest.mark.parametrize("preset,hidden,b,m,t1", [
+    ("lorenz63_svo_k256", (16,), 4, 8, 9), ("lorenz63_svo_k256", (16, 16), 4, 8, 40),
+    ("fhn_fivo_k1024_bench", (32, 32), 8, 16, 20), ("lorenz63_svo_k256", (64, 64), 32, 16, 99),
+    ("lorenz63_svo_k256", (16, 16, 16), 2, 3, 150)])
+def test_svo_backward_designs_agree(preset, hidden, b, m, t1):
+    """K13's split design within 1e-5 relative L2 per leaf of the previous
+    one (design="chain") on K12's x~, with every cotangent; the paths with a
+    relu tie (a pre-activation within 1e-5 of its size, where the mask is a
+    coin toss between two float32 sums) get none. The shapes give groups of
+    1 to 4 paths a CTA and 1 to 10 tiles a group."""
+    from psvo_tpu_torch.ops import svo
+
+    dev = _cuda()
+    _, consts, ops = _svo_operands(dev, hidden, preset, b=b, m=m, t1=t1)
+    xtilde = svo.svo_sweep_forward(*ops, consts)[3]
+    keep = ~_svo_relu_ties(consts, ops, xtilde)
+    g = torch.Generator(device=dev).manual_seed(7)
+    cots = [torch.randn(s, generator=g, device=dev) for s in
+            ((b, m, ops[0].shape[-1]), (b, m), (b, m), tuple(xtilde.shape))]
+    cots = [cots[0] * keep[..., None], cots[1] * keep, cots[2] * keep, cots[3] * keep[..., None]]
+    split = svo.svo_sweep_backward(*ops, consts, xtilde, *cots, design="split")
+    chain = svo.svo_sweep_backward(*ops, consts, xtilde, *cots, design="chain")
+    for a, w in zip(split, chain):
+        assert _rel(a, w) <= 1e-5
+
+
+def _svo_relu_ties(consts, ops, xtilde, tol=1e-5):
+    """[B, M] bool: paths where a relu pre-activation of qb, f or g lies
+    within tol of the magnitude of its sum (float64)."""
+    from psvo_tpu_torch.ops import svo
+
+    x_anchor, _, y = ops
+    x_next = torch.cat([xtilde[1:], x_anchor[None]])
+    y_b = y[:, :, None, :].expand(-1, -1, x_next.shape[2], -1)
+    flag = torch.zeros(x_anchor.shape[:2], dtype=torch.bool, device=x_anchor.device)
+    for (layers, _), inp in zip(svo._nets(consts), (torch.cat([x_next, y_b], -1), xtilde, xtilde)):
+        h = inp.double()
+        for w, bias in layers:
+            pre = h @ w.double() + bias.double()
+            flag |= (pre.abs() < tol * (h.abs() @ w.double().abs() + bias.double().abs())).any(-1).any(0)
+            h = torch.relu(pre)
+    return flag
 
 
 def test_cuda_tensor_outside_the_svo_class_raises():
@@ -651,6 +723,10 @@ def test_cuda_tensor_outside_the_svo_class_raises():
     _, consts, ops = _svo_operands(dev, (16, 16))
     with pytest.raises(ValueError, match="x_anchor"):  # eps holds 4 paths per row, not 8
         svo.svo_sweep_forward(ops[0], ops[1][:, :, :4].contiguous(), ops[2], consts)
+    xtilde = svo.svo_sweep_forward(*ops, consts)[3]
+    for design in svo.DESIGNS:  # a width that is not instantiated
+        with pytest.raises(ValueError, match=f"no {design} kernel"):
+            svo.svo_sweep_backward(*ops, dict(consts, hidden=48), xtilde, design=design)
 
 
 def test_cuda_svo_train_step_launches_the_four_kernels():

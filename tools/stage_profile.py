@@ -1,0 +1,276 @@
+#!/usr/bin/env python3
+"""Per-stage cycle profiles of K5's staged design and K13's split design on
+one GPU, and the variants that show what holds K5 back.
+
+    python3 tools/stage_profile.py
+
+Builds the port's kernels as `chip_smoke.py` does, then copies of
+`csrc/ffbsi.cu` and `csrc/svo_sweep.cu` patched three ways, each with nvcc
+into `psvo_tpu_torch/_build/stage_profile/` (gitignored):
+
+- "marks": `clock64()` at the stage boundaries of `ffbsi_staged_kernel` and
+  `svo_backward_split_kernel`; CTA 0's thread 0 adds each stage's cycles
+  into a device array, read back after one launch;
+- "compute only": K5 staged without the copies inside its loop (the first
+  chunks stay in their slots and are computed again and again: wrong
+  results, the time of everything but the copies);
+- "one copy a span": K5 staged with one bulk copy a span of a whole row
+  (sixteen at P = 4) instead of seven.
+
+Operands at the presets' shapes, drawn from a seed: K5 at
+`lorenz63_psvo_k1024`'s (B=32, M=16, K=1024, T-1=99, Dx=3; support terms of
+a transition near the support, normalized log-weights, Gumbels), K13 at
+`lorenz63_svo_k256`'s (B=32, M=16, T-1=99, hidden (64, 64), random weights
+nudged from init). Times are device time per call from torch.profiler over
+20 calls, designs alternated. Exits non-zero without a card or if a patch's
+anchor is missing from the sources. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+MARK = ('__device__ long long g_prof{n}[32];\n'
+        '#define PROF{n}(i) do {{ const long long now_ = clock64(); if (blockIdx.x == 0 && '
+        'threadIdx.x == 0) g_prof{n}[i] += now_ - prof_t_; prof_t_ = now_; }} while (0)\n'
+        'extern "C" int psvo_prof{n}(long long* out) {{ cudaMemcpyFromSymbol(out, g_prof{n}, '
+        'sizeof(g_prof{n})); long long z[32] = {{0}}; return (int)cudaMemcpyToSymbol(g_prof{n}, z, '
+        'sizeof(z)); }}\n')
+K5_STAGES = ["wait for the chunk, barrier, next chunk's copies issued", "the logits",
+             "butterflies", "barrier", "argmax merge, the pick, logp (lse window every 32 steps)"]
+K13_STAGES = ["tile operands", "qb and f forward", "-", "f terms", "f backward", "g forward",
+              "g terms", "g backward", "J_t", "the recurrence", "qb backward", "sc sums"]
+
+
+def sub(text: str, old: str, new: str) -> str:
+    if old not in text:
+        sys.exit(f"stage_profile: anchor not found: {old[:70]!r}")
+    return text.replace(old, new, 1)
+
+
+def marked_k5(src: str) -> str:
+    s = sub(src, '#include "resample.cuh"\n', '#include "resample.cuh"\n' + MARK.format(n=5))
+    s = sub(s, "  for (int s = 0; s < total; ++s) {\n    if (vec) {\n",
+            "  long long prof_t_ = clock64();\n  for (int s = 0; s < total; ++s) {\n    if (vec) {\n")
+    s = sub(s, "    const int t = T1 - 1 - s / NCH, ch = s % NCH, j0 = ch * KC;\n",
+            "    PROF5(0);\n    const int t = T1 - 1 - s / NCH, ch = s % NCH, j0 = ch * KC;\n")
+    s = sub(s, "    if (ch + 1 < NCH) continue;", "    PROF5(1);\n    if (ch + 1 < NCH) continue;")
+    s = sub(s, "    __syncthreads();\n    // the argmax over the eight warps",
+            "    PROF5(2);\n    __syncthreads();\n    PROF5(3);\n    // the argmax over the eight warps")
+    return sub(s, "      }\n    }\n  }\n#pragma unroll\n  for (int p = 0; p < P; ++p) {\n"
+               "    if (tid == 32 * p && m0 + p < M) {\n      const size_t pt",
+               "      }\n    }\n    PROF5(4);\n  }\n#pragma unroll\n  for (int p = 0; p < P; ++p) {\n"
+               "    if (tid == 32 * p && m0 + p < M) {\n      const size_t pt")
+
+
+def marked_k13(src: str) -> str:
+    s = sub(src, "#include <cstdint>\n", "#include <cstdint>\n" + MARK.format(n=13))
+    s = sub(s, "  const int NP = a.B * a.M, groups = (NP + P - 1) / P, CH = rows / P;\n",
+            "  const int NP = a.B * a.M, groups = (NP + P - 1) / P, CH = rows / P;\n"
+            "  long long prof_t_ = clock64();\n")
+    for anchor, i in (("      // 1. qb's hidden layers and f's forward", 0),
+                      ("      // 2. the f and noise terms' cotangents", 1),
+                      ("      split_net_backward<DX, H, DX, true>(wf", 3),
+                      ("      // 3. g likewise\n", 4),
+                      ("      split_net_backward<DX, H, DY, true>(wg", 6),
+                      ("      // 4. J_t", 7),
+                      ("      // 5. the recurrence, one thread per path, t ascending\n", 8),
+                      ("      // 6. qb's VJP from dmb\n", 9),
+                      ("      // 7. the tile's sc sums, rows in order\n", 10)):
+        s = sub(s, anchor, f"      PROF13({i});\n" + anchor)
+    s = sub(s, "      split_net_forward<DX, H, DY>(wg, xt, 4, af, rows, n_mid, dmn, nr);\n",
+            "      split_net_forward<DX, H, DY>(wg, xt, 4, af, rows, n_mid, dmn, nr);\n"
+            "      PROF13(5);\n")
+    return sub(s, "s += sg[r * 12 + e];\n        gsum[a.n_weights + e] += s;\n      }\n"
+               "      __syncthreads();\n",
+               "s += sg[r * 12 + e];\n        gsum[a.n_weights + e] += s;\n      }\n"
+               "      __syncthreads();\n      PROF13(11);\n")
+
+
+def compute_only_k5(src: str) -> str:
+    i0 = src.index("    if (vec) {\n      mbar_wait(&s_bar[s % NS]")
+    tail = "    } else {\n      cp_async_wait<0>();\n    }\n"
+    i1 = src.index(tail, i0) + len(tail)
+    s = (src[:i0] + "    if (s < NS - 1) {\n      if (vec) mbar_wait(&s_bar[s], 0);\n"
+         "      else cp_async_wait<0>();\n    }\n" + src[i1:])
+    return sub(s, "    if (s + NS - 1 < total) {  // into chunk s - 1's slot\n      stage(s + NS - 1);\n"
+               "      if (!vec) cp_async_commit();\n    }\n", "")
+
+
+def one_copy_a_span_k5(src: str) -> str:
+    return sub(src, "    if (n == K) {\n      const unsigned row_bytes", "    if (false) {\n      const unsigned row_bytes")
+
+
+def build_variant(name: str, files: dict, out_root: Path, nvcc: str, flags, arch) -> Path:
+    """Compile `files` (name -> source text) with the csrc headers into a
+    shared library; returns its path."""
+    from psvo_tpu_torch.ops import _build
+
+    d = out_root / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    for f in _build.CSRC.glob("*.cuh"):
+        shutil.copy(f, d / f.name)
+    files = dict(files, err='#include <cuda_runtime.h>\nextern "C" const char* '
+                            'psvo_error_string(int e) { return cudaGetErrorString('
+                            '(cudaError_t)e); }\n')
+    procs = []
+    for stem, text in files.items():
+        (d / f"{stem}.cu").write_text(text)
+        procs.append(subprocess.Popen([nvcc, *flags, "-I", str(d), "-c", "-o", str(d / f"{stem}.o"),
+                                       str(d / f"{stem}.cu")], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    for p in procs:
+        out = p.communicate()[0]
+        if p.returncode:
+            sys.exit(f"stage_profile: nvcc failed for {name}:\n{out[-4000:]}")
+    lib = d / "lib.so"
+    subprocess.run([nvcc, *arch, "-shared", "-o", str(lib), *[str(d / f"{s}.o") for s in files]],
+                   check=True)
+    return lib
+
+
+def load(path: Path, names):
+    from psvo_tpu_torch.ops import _build
+
+    lib = ctypes.CDLL(str(path))
+    for n in names:
+        fn = getattr(lib, n)
+        fn.argtypes = _build.SIGNATURES[n] if n in _build.SIGNATURES else [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.psvo_error_string.argtypes = [ctypes.c_int]
+    lib.psvo_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def device_ms(fn, n: int = 20) -> float:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ev:
+        sys.exit("stage_profile: torch.profiler recorded no device time")
+    return sum(e.time_range.elapsed_us() for e in ev) / n / 1e3
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("stage_profile: no CUDA device", file=sys.stderr)
+        return 1
+    from psvo_tpu_torch.config import PRESETS, NetConfig
+    from psvo_tpu_torch.models.ssm import init_ssm
+    from psvo_tpu_torch.ops import _build, ffbsi, svo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    real = _build.load_library()
+    f5 = (_build.CSRC / "ffbsi.cu").read_text()
+    f13 = (_build.CSRC / "svo_sweep.cu").read_text()
+    out_root = _build.BUILD_ROOT / "stage_profile"
+    args = (out_root, _build.nvcc(), _build.NVCC_FLAGS, _build.ARCH_FLAGS)
+    k5_names = ("psvo_ffbsi_forward",)
+    marks = load(build_variant("marks", {"ffbsi": marked_k5(f5), "svo_sweep": marked_k13(f13)},
+                               *args), k5_names + ("psvo_svo_forward", "psvo_svo_backward",
+                                                   "psvo_prof5", "psvo_prof13"))
+    variants = {name: load(build_variant(name, {"ffbsi": patch(f5)}, *args), k5_names)
+                for name, patch in (("compute only", compute_only_k5),
+                                    ("one copy a span", one_copy_a_span_k5))}
+
+    def prof(lib, name):
+        buf = (ctypes.c_longlong * 32)()
+        getattr(lib, name)(ctypes.cast(buf, ctypes.c_void_p))
+        return list(buf)
+
+    def with_lib(lib, fn):
+        _build.load_library = lambda: lib
+        try:
+            return fn()
+        finally:
+            _build.load_library = lambda: real
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    t1, b, m, k, dx = 99, 32, 16, 1024, 3
+    xs = torch.randn((t1, b, dx, k), generator=g, device=dev) * 8.0
+    mean = xs + torch.randn(xs.shape, generator=g, device=dev)
+    scale = 0.5 + 1.5 * torch.rand(xs.shape, generator=g, device=dev)
+    r = 1.0 / (scale * scale)
+    c = -0.5 * (mean * mean * r).sum(2) - torch.log(scale).sum(2) - dx * 0.9189385332
+    lwn = torch.log_softmax(torch.randn((t1, b, k), generator=g, device=dev) * 2.0, dim=-1)
+    lg = torch.randn((t1, b, k), generator=g, device=dev)
+    u = torch.rand((t1, b, m, k), generator=g, device=dev).clamp_min(1e-30)
+    ops = [v.contiguous() for v in (xs[-1, :, :, :m].transpose(1, 2), xs, r, mean * r, c, lwn, lg,
+                                    -torch.log(-torch.log(u)))]
+    p5 = ffbsi.k5_paths(b, m, torch.cuda.get_device_properties(dev).multi_processor_count)
+    with torch.no_grad():
+        staged, path = ffbsi.ffbsi_forward(*ops), ffbsi.ffbsi_forward(*ops, design="path")
+        equal = all(torch.equal(x, y) for x, y in zip(staged, path))
+        pairs = [(device_ms(lambda: ffbsi.ffbsi_forward(*ops)),
+                  device_ms(lambda: ffbsi.ffbsi_forward(*ops, design="path"))) for _ in range(3)]
+        print(f"K5 B={b} M={m} K={k} T-1={t1} Dx={dx}, {p5} paths a CTA: staged equal to path in "
+              f"every output {equal}; (staged, path) ms " + ", ".join(f"({x:.4f}, {y:.4f})"
+                                                                       for x, y in pairs), flush=True)
+        for name, lib in variants.items():
+            print(f"K5 staged, {name}: " + ", ".join(
+                f"{with_lib(lib, lambda: device_ms(lambda: ffbsi.ffbsi_forward(*ops))):.4f}"
+                for _ in range(2)) + " ms", flush=True)
+        prof(marks, "psvo_prof5")
+        with_lib(marks, lambda: ffbsi.ffbsi_forward(*ops))
+        torch.cuda.synchronize()
+        cyc = prof(marks, "psvo_prof5")[:len(K5_STAGES)]
+        print(f"K5 staged, CTA 0 thread 0, cycles over the sweep ({t1} steps): " + "; ".join(
+            f"{n} {v} ({100 * v / sum(cyc):.1f}%)" for n, v in zip(K5_STAGES, cyc))
+            + f"; total {sum(cyc)}", flush=True)
+
+    net = NetConfig(hidden=(64, 64))
+    cfg = PRESETS["lorenz63_svo_k256"].with_nets(q0=net, q1=net, q2=net, f=net, qb=net,
+                                                 g=dataclasses.replace(net, sigma_init=0.5))
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    with torch.no_grad():
+        for prm in ssm.parameters():
+            prm.add_(0.05 * torch.randn(prm.shape, generator=g, device=dev))
+        consts = svo.prepare(ssm)
+        so = (torch.randn((b, m, 3), generator=g, device=dev) * 3.0,
+              torch.randn((t1, b, m, 3), generator=g, device=dev),
+              torch.randn((t1, b, 3), generator=g, device=dev) * 3.0)
+        xt = svo.svo_sweep_forward(*so, consts)[3]
+        cots = [torch.randn(s, generator=g, device=dev)
+                for s in ((b, m, 3), (b, m), (b, m), tuple(xt.shape))]
+        pairs = [(device_ms(lambda: svo.svo_sweep_backward(*so, consts, xt, *cots)),
+                  device_ms(lambda: svo.svo_sweep_backward(*so, consts, xt, *cots, design="chain")))
+                 for _ in range(3)]
+        print(f"K13 B={b} M={m} T-1={t1} hidden (64, 64): (split, chain) ms "
+              + ", ".join(f"({x:.4f}, {y:.4f})" for x, y in pairs), flush=True)
+        prof(marks, "psvo_prof13")
+        with_lib(marks, lambda: svo.svo_sweep_backward(*so, consts, xt, *cots))
+        torch.cuda.synchronize()
+        cyc = [v for v, n in zip(prof(marks, "psvo_prof13"), K13_STAGES) if n != "-"]
+        names = [n for n in K13_STAGES if n != "-"]
+        print("K13 split, CTA 0 thread 0, cycles over its tiles: " + "; ".join(
+            f"{n} {v} ({100 * v / sum(cyc):.1f}%)" for n, v in zip(names, cyc))
+            + f"; total {sum(cyc)}", flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
