@@ -47,11 +47,14 @@ trunk path:
   (n) K2 at Dx=40 vs the plain Philox (bit-equal)
   (o) K7 ancestor_indices_large and K8 gather_particles vs their plain
       versions on adversarial rows (small, full)
-  (p) K9 trunk_forward vs its plain version on every step of one kernel
-      run, with the streamed ε and the in-kernel draw (small, full)
+  (p) K9 trunk_forward (the async design) vs its plain version on every
+      step of one kernel run, with the streamed ε and the in-kernel draw
+      (small, full), and bit-equal to the previous design (design="tile")
+      on every step; the two timed alternately, three pairs per noise mode
+      (the async design must be faster in each)
   (q) serving through make_eval_step and filter_posterior (with and without
-      the particles): launch counts, ELBO, R², time per call, peak memory
-      and a profile by kernel
+      the particles): launch counts (every K9 launch the async design),
+      ELBO, R², time per call, peak memory and a profile by kernel
   (r) K11 segment_sum_scatter vs its float64 plain version on the
       adversarial rows of (o) at K=128, 2048 and 8192 (bit-equal on a second
       launch), with its device time beside zeros + scatter_add_'s
@@ -62,8 +65,8 @@ trunk path:
       fp32 bound and the split bound (forward on fp32, backward 3xTF32)
   (t) training through make_train_step from the snapshot: 3 calls of one
       step on minibatches of 8, launch counts (99 per kernel per step), loss,
-      grad norm, step time, peak memory and a profile by kernel; every K10
-      launch the tensor-core design
+      grad norm, step time, peak memory and a profile by kernel; every K9
+      launch the async design, every K10 launch the tensor-core design
 
 then `lorenz63_svo_k256` (Lorenz-63, SVO with the learned backward proposal,
 K=256, M=16, B=32, T=100, relu heads (64, 64), in-kernel RNG, the filter's
@@ -72,19 +75,22 @@ cache on) with random weights:
   (u) K1 and K4 at its settings (in-kernel draw, cache, K4 with the cache
       cotangents and the seed) vs their plain versions on K2's streams
       (small, full)
-  (v) K12 svo_sweep_forward vs its plain version: the free runs and every
-      step teacher-forced from the kernel's own x~_{t+1} (small, full);
-      device time
+  (v) K12 svo_sweep_forward (the split design) vs its plain version: the
+      free runs and every step teacher-forced from the kernel's own
+      x~_{t+1} (small, full), and bit-equal to the previous design
+      (design="chain") in x_first, lp, lq and x~; the two timed
+      alternately, three pairs (the split design must be faster in each)
   (w) K13 svo_sweep_backward vs its plain version on K12's x~, random
       cotangents on all four outputs (zeroed on paths with a relu tie, both
       figures reported), bit-equal on a second launch (small, full), and
       within 1e-5 of the previous design (design="chain"); the two timed
       alternately, three pairs (the split design must be faster in each)
   (x) serving: smooth_posterior(method="svo") on three batches of 32;
-      shapes, launch counts, time per call, peak memory, profile by kernel
+      shapes, launch counts (every K12 launch the split design), time per
+      call, peak memory, profile by kernel
   (y) training: 3 calls of 10 SVO train steps on minibatches of 32; launch
-      counts (every K13 launch the split design), loss and elbo_svo, step
-      time, peak memory, profile by kernel
+      counts (every K12 and K13 launch the split design), loss and
+      elbo_svo, step time, peak memory, profile by kernel
 
 then, with `fused_step.SCAN_FUSED` off (the per-step path of the
 reference's `pallas_step.SCAN_FUSED = False`: one K14 launch per filter
@@ -140,8 +146,8 @@ back with no device events is run again (profiled_kernels), and the run
 ends with the count of such windows. The second-to-last line is the
 kernels' JSON record (times beside the bound: the larger of the operations
 over 67 TFLOP/s fp32 and the bytes over 3.35 TB/s, the H100 SXM's published
-peaks; K5's and K13's rows also carry "ms_prev", the previous design's time
-alternated with theirs); the last line is the device record. Imports nothing of JAX: the
+peaks; K5's, K9's, K12's and K13's rows also carry "ms_prev", the previous
+design's time alternated with theirs); the last line is the device record. Imports nothing of JAX: the
 machine with the card has none.
 """
 
@@ -274,7 +280,7 @@ def zero_designs(*fns) -> None:
 
 FHN_KERNELS = {"K1": ("scan_forward_kernel",), "K4": ("scan_backward_kernel", "sum_rows_kernel")}
 PSVO_KERNELS = dict(FHN_KERNELS, K5=("ffbsi_staged_kernel",), K6=("ffbsi_backward_kernel",))
-L96_KERNELS = {"K9": ("trunk_forward_kernel",), "K7": ("ancestor_indices_large_kernel",),
+L96_KERNELS = {"K9": ("trunk_forward_async_kernel",), "K7": ("ancestor_indices_large_kernel",),
                "K8": ("gather_particles_kernel",)}
 L96_TRAIN_KERNELS = dict(L96_KERNELS, K10=("trunk_backward_tf32x3_kernel", "trunk_sum_ctas_kernel",
                                            "trunk_sum_tiles_kernel"),
@@ -649,13 +655,14 @@ def weight_rows(k: int, gen):
 def trunk_run(ssm, cfg, ys, gen, rng_seed=None):
     """One kernel run of the trunk path over all T−1 steps (K7, K8, K9 on the
     run's own state), holding K9's plain version to every step's x_res
-    (teacher-forced), and with the in-kernel draw also K9's stream mode on
-    K2's ε (bit-equal); beside it the plain versions' own free run on the
-    same noise. Returns the per-step relative L2 of x_new and α, the largest
-    |Δ|, whether every step was allclose at 2e-4, the rows whose free runs
-    took another ancestor somewhere (and the first such step), log Ẑ's
-    relative difference over all rows and over the rows without, and the
-    last step's operands."""
+    (teacher-forced) and the previous design (design="tile", bit-equal),
+    and with the in-kernel draw also K9's stream mode on K2's ε (bit-equal);
+    beside it the plain versions' own free run on the same noise. Returns
+    the per-step relative L2 of x_new and α, the largest |Δ|, whether every
+    step was allclose at 2e-4, whether every step was bit-equal to the tile
+    design, the rows whose free runs took another ancestor somewhere (and
+    the first such step), log Ẑ's relative difference over all rows and over
+    the rows without, and the last step's operands."""
     import torch
     from psvo_tpu_torch import smc
     from psvo_tpu_torch.ops import fused_step, trunk
@@ -680,7 +687,7 @@ def trunk_run(ssm, cfg, ys, gen, rng_seed=None):
     x_p, logw_p = x, logw  # the plain versions' own free run
     flip_step = torch.full((batch,), -1, device=dev)
     ell_k, ell_p = [], []
-    rel, maxd, close_all, same = [], [], True, True
+    rel, maxd, close_all, same, same_tile = [], [], True, True, True
     for t in range(t_steps - 1):
         idx = rg.ancestor_indices_large(logw, pos[t].contiguous())
         idx_p = rg.ancestor_indices_large_reference(logw_p, pos[t])
@@ -689,12 +696,14 @@ def trunk_run(ssm, cfg, ys, gen, rng_seed=None):
         x_p, logw_p = trunk.trunk_forward_reference(rg.gather_particles_reference(x_p, idx_p),
                                                     coef[t], consts, eps[t])
         x_res = rg.gather_particles(x, idx)
+        noise = {"seed": rng_seed, "t": t} if rng_seed is not None else {"eps": eps[t]}
+        got = trunk.trunk_forward(x_res, coef[t], consts, **noise)
+        same_tile &= all(torch.equal(a, b) for a, b in
+                         zip(got, trunk.trunk_forward(x_res, coef[t], consts, **noise,
+                                                      design="tile")))
         if rng_seed is not None:
-            got = trunk.trunk_forward(x_res, coef[t], consts, seed=rng_seed, t=t)
             same &= all(torch.equal(a, b) for a, b in
                         zip(got, trunk.trunk_forward(x_res, coef[t], consts, eps=eps[t])))
-        else:
-            got = trunk.trunk_forward(x_res, coef[t], consts, eps=eps[t])
         want = trunk.trunk_forward_reference(x_res, coef[t], consts, eps[t])
         rel.append(torch.stack([(g - w).norm() / w.norm().clamp_min(1e-30)
                                 for g, w in zip(got, want)]))
@@ -713,7 +722,7 @@ def trunk_run(ssm, cfg, ys, gen, rng_seed=None):
                 rel_z=float(rel_z.max()),
                 rel_z_clean=float(rel_z[clean].max()) if bool(clean.any()) else None,
                 maxd=float(torch.stack(maxd).max()), close=close_all, same=bool(same),
-                finite=bool(torch.isfinite(x).all() and torch.isfinite(logw).all()),
+                same_tile=bool(same_tile), finite=bool(torch.isfinite(x).all() and torch.isfinite(logw).all()),
                 last=(x_res, coef[-1], consts, eps[-1]))
 
 
@@ -807,7 +816,7 @@ def trunk_backward_run(ssm, cfg, ys, gen, rng_seed=None):
 
 
 SVO = "lorenz63_svo_k256"
-SVO_KERNELS = dict(FHN_KERNELS, K12=("svo_forward_kernel",),
+SVO_KERNELS = dict(FHN_KERNELS, K12=("svo_forward_split_kernel",),
                    K13=("svo_backward_split_kernel", "svo_sum_ctas_kernel"))
 
 
@@ -844,14 +853,16 @@ def svo_operands(ssm, cfg, ys, gen):
 
 
 def svo_forward_check(consts, ops):
-    """K12 against its plain version: the free runs (x_first, lp, lq, every
-    step of x~) and, teacher-forced, one plain step from each of the kernel's
-    own x~_{t+1}. Returns a dict."""
+    """K12 (the split design) against its plain version: the free runs
+    (x_first, lp, lq, every step of x~) and, teacher-forced, one plain step
+    from each of the kernel's own x~_{t+1}; and against the previous design
+    (design="chain"), bit for bit in all four outputs. Returns a dict."""
     import torch
     from psvo_tpu_torch.ops import svo
 
     x_anchor, eps, y = ops
     kern = svo.svo_sweep_forward(*ops, consts)
+    prev = svo.svo_sweep_forward(*ops, consts, design="chain")
     ref = svo.svo_sweep_forward_reference(*ops, consts)
     t1, b, m, dx = eps.shape
     x_next = torch.cat([kern[3][1:], x_anchor[None]]).reshape(t1 * b, m, dx)
@@ -865,7 +876,7 @@ def svo_forward_check(consts, ops):
 
     return dict(kern=kern, close=close(kern, ref, 2e-4), max_abs_err=max_err(kern, ref),
                 rel_x=rel(kern[3], ref[3]), rel_lp=rel(kern[1], ref[1]), rel_lq=rel(kern[2], ref[2]),
-                tf_x=rel(x_k, x_tf),
+                tf_x=rel(x_k, x_tf), same_prev=all(torch.equal(a, b) for a, b in zip(kern, prev)),
                 finite=all(bool(torch.isfinite(t).all()) for t in kern))
 
 
@@ -1782,6 +1793,7 @@ def main() -> int:
                   f"max per-step rel L2 x_new {r['rel_x']:.3e} alpha {r['rel_a']:.3e}, max|d| "
                   f"{r['maxd']:.3e}, finite {r['finite']}"
                   + (f", bit-equal to stream mode on K2's eps {r['same']}" if rng_seed else "")
+                  + f", every step bit-equal to the previous design (tile) {r['same_tile']}"
                   + f"; free runs: {r['flip_rows']} of {batch} rows with an ancestor flip (first "
                   f"flip step per row {r['first_flips']}), max rel d logZ {r['rel_z']:.3e}, over "
                   f"rows without "
@@ -1791,6 +1803,8 @@ def main() -> int:
                 and (r["rel_z_clean"] is None or r["rel_z_clean"] <= 1e-4)
             if not (ok and r["finite"] and r["same"]):
                 fail(f"K9 ({label}, {mode}) disagrees with trunk_forward_reference")
+            if not r["same_tile"]:
+                fail(f"K9's async design ({label}, {mode}) is not bit-equal to the tile design")
     k9_small_err = max(k9[("small", m)]["maxd"] for m in ("stream", "in-kernel RNG"))
     x_res, coef_t, l_consts, eps_t = k9[("full", "in-kernel RNG")]["last"]
     with torch.no_grad():
@@ -1802,28 +1816,37 @@ def main() -> int:
                         reps=20),
                 time_ms(lambda: trunk.trunk_forward_reference(x_res, coef_t, l_consts, eps_t),
                         reps=20)]
-        k9_dev = [device_ms(lambda: trunk.trunk_forward(x_res, coef_t, l_consts, seed=(17, 0xBEEF),
-                                                        t=98)),
+        # the async design and the previous one alternated, three pairs per noise mode
+        k9_pairs = {mode: [tuple(device_ms(lambda: trunk.trunk_forward(x_res, coef_t, l_consts,
+                                                                       **noise, design=d))
+                                 for d in trunk.K9_DESIGNS) for _ in range(3)]
+                    for mode, noise in (("RNG", {"seed": (17, 0xBEEF), "t": 98}),
+                                        ("stream", {"eps": eps_t}))}
+        k9_dev = [statistics.mean(p_[0] for p_ in k9_pairs["RNG"]),
                   device_ms(lambda: trunk.trunk_forward_reference(x_res, coef_t, l_consts, eps_t)),
-                  device_ms(lambda: trunk.trunk_forward(x_res, coef_t, l_consts, eps=eps_t))]
+                  statistics.mean(p_[0] for p_ in k9_pairs["stream"]),
+                  statistics.mean(p_[1] for p_ in k9_pairs["RNG"])]
     n_part = x_res.shape[0] * x_res.shape[-1]
     # x_res and the step's small operands in, x_new and α out (ε drawn in the kernel)
     k9_bound, k9_by = bound(trunk_flops(l_consts) * n_part,
                             2 * nbytes(x_res) + nbytes(coef_t, l_consts["packed"],
                                                        l_consts["sconst"]) + 4 * n_part)
-    k9_regs = re.search(r"trunk_forward_kernelILi40ELi40ELi64EE.*?Used (\d+) registers",
-                        _build.build_log(), re.S)
-    k9_spill = re.search(r"trunk_forward_kernelILi40ELi40ELi64EE[^\n]*\n[^\n]*\n\s*(\d+) bytes "
-                         r"stack frame, (\d+) bytes spill stores", _build.build_log())
+    k9_plan = trunk.k9_plan(40, 40, 64, 1)
     print(f"[p] K9 full (B={x_res.shape[0]}, K={x_res.shape[-1]}, hidden 64): in-kernel RNG "
           f"{k9t[0]:.4f}/{k9t[3]:.4f} ms, stream {k9t[2]:.4f} ms, plain {k9t[1]:.4f}/{k9t[4]:.4f} ms "
           f"(alternated, CUDA events around one call, median of 20); device time per call "
-          f"(torch.profiler, 20 calls) in-kernel RNG {k9_dev[0]:.4f} ms, stream {k9_dev[2]:.4f} ms, "
-          f"plain {k9_dev[1]:.4f} ms; bound {k9_bound:.4f} ms ({k9_by}, "
-          f"{trunk_flops(l_consts) * n_part:.3e} FLOP); registers "
-          f"{k9_regs.group(1) if k9_regs else '?'}, spill stores "
-          f"{k9_spill.group(2) if k9_spill else '?'} B, shared memory "
-          f"{trunk.smem_bytes(40, 40, 64, 1)} B per CTA", flush=True)
+          f"(torch.profiler, 20 calls), (async, tile) alternated: "
+          + "; ".join(f"{mode} " + ", ".join(f"({a:.4f}, {b_:.4f})" for a, b_ in v)
+                      for mode, v in k9_pairs.items())
+          + f" ms, plain {k9_dev[1]:.4f} ms; bound {k9_bound:.4f} ms ({k9_by}, "
+          f"{trunk_flops(l_consts) * n_part:.3e} FLOP): async at {100 * k9_bound / k9_dev[0]:.1f}% "
+          f"of it, tile at {100 * k9_bound / k9_dev[3]:.1f}% (RNG); async "
+          f"{kernel_resources('trunk_forward_async_kernelILi40ELi40ELi64EE')}, (pair, prefetch) "
+          f"{k9_plan}, {trunk.k9_smem_bytes(40, 40, 64, 1, *k9_plan)} B of shared memory per CTA; "
+          f"tile {kernel_resources('trunk_forward_kernelILi40ELi40ELi64EE')}, "
+          f"{trunk.smem_bytes(40, 40, 64, 1)} B", flush=True)
+    if not all(a < b_ for v in k9_pairs.values() for a, b_ in v):
+        fail("K9: the async design is not faster than the tile design in every pair")
     del x_res, eps_t
     k9.clear()
     phase_done("p")
@@ -1846,16 +1869,19 @@ def main() -> int:
     torch.cuda.synchronize()
     held_l96_gb = torch.cuda.memory_allocated() / 1e9
     outs, serve_launches, serve_peak = {}, {}, {}
+    k9_serve_designs = {}
     for label, fn in calls.items():
         for f in l_kernels:
             f.launches = 0
         for f in l_plain:
             f.calls = 0
+        zero_designs(trunk.trunk_forward)
         torch.cuda.reset_peak_memory_stats()
         outs[label] = fn()
         torch.cuda.synchronize()
         serve_peak[label] = torch.cuda.max_memory_allocated() / 1e9 - held_l96_gb
         serve_launches[label] = [f.launches for f in l_kernels] + [sum(f.calls for f in l_plain)]
+        k9_serve_designs[label] = dict(trunk.trunk_forward.launches_by_design)
     metrics = outs["eval_step"]
     means = outs["filter_posterior"]
     p_means, parts, lws = outs["filter_posterior(return_particles)"]
@@ -1872,7 +1898,7 @@ def main() -> int:
     print(f"[q] serving {L96} (B={batch}, K={lk}, T={t_steps}, trained snapshot): ELBO "
           f"{float(metrics['elbo']):.3f}, mean ESS {float(metrics['ess_mean']):.3f}, R2(1..10) {r2}, "
           f"shapes ok {shapes_ok}, finite {finite}; launches K7/K8/K9 and plain-version calls per "
-          f"call {serve_launches}", flush=True)
+          f"call {serve_launches}; K9 by design {k9_serve_designs}", flush=True)
     for label in calls:
         print(f"[q] {label}: {serve_ms[label]:.3f}/{serve_ms_2[label]:.3f} ms per call (CUDA "
               f"events, median of 5 after 2 warm-up, two rounds); peak device memory "
@@ -1882,6 +1908,8 @@ def main() -> int:
     want_launch = [t_steps - 1] * 3 + [0]
     if any(v != want_launch for v in serve_launches.values()):
         fail(f"serving {L96} launched K7/K8/K9 {serve_launches} (want {want_launch} per call)")
+    if any(v != {"async": t_steps - 1, "tile": 0} for v in k9_serve_designs.values()):
+        fail(f"serving {L96}: K9 by design {k9_serve_designs} (want every launch async)")
     if not (shapes_ok and finite):
         fail(f"serving {L96} gave non-finite outputs or the wrong shapes")
     phase_done("q")
@@ -2024,7 +2052,7 @@ def main() -> int:
     held_train_gb = torch.cuda.memory_allocated() / 1e9
     for f in t_kernels:
         f.launches = 0
-    trunk.trunk_backward.launches_by_design = dict.fromkeys(trunk.DESIGNS, 0)
+    zero_designs(trunk.trunk_backward, trunk.trunk_forward)
     for f in t_plain:
         f.calls = 0
     call_s, train_metrics = [], []
@@ -2035,6 +2063,7 @@ def main() -> int:
         call_s.append(time.perf_counter() - t0)
     train_launches = [f.launches for f in t_kernels]
     k10_by_design = dict(trunk.trunk_backward.launches_by_design)
+    k9_by_design = dict(trunk.trunk_forward.launches_by_design)
     plain_calls = sum(f.calls for f in t_plain)
     peak_train_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(m_["loss"]) for m_ in train_metrics]
@@ -2045,8 +2074,8 @@ def main() -> int:
     print(f"[t] training {L96} from the snapshot: {len(train_batches)} calls x {n_per_call} step, "
           f"B={batch}, K={lk}: loss per call {[round(v, 3) for v in losses]}, grad norm "
           f"{[round(v, 3) for v in norms]}, mean ESS {[round(v, 3) for v in ess_mean]}, "
-          f"parameters moved {moved}; launches K7/K8/K9/K10/K11 {train_launches} (K10 by design "
-          f"{k10_by_design}), plain-version "
+          f"parameters moved {moved}; launches K7/K8/K9/K10/K11 {train_launches} (K9 by design "
+          f"{k9_by_design}, K10 by design {k10_by_design}), plain-version "
           f"calls {plain_calls}; call times {[round(v, 3) for v in call_s]} s, train step "
           f"{l96_step_ms:.3f} ms (median of the calls after the first); peak device memory "
           f"{peak_train_gb - held_train_gb:.3f} GB above the {held_train_gb:.3f} GB held before",
@@ -2056,9 +2085,11 @@ def main() -> int:
     print(f"[t] profile of one more call: {profile}", flush=True)
     want_t = len(train_batches) * n_per_call * (cfg.data.t_steps - 1)
     if (train_launches != [want_t] * 5 or plain_calls != 0
-            or k10_by_design != {"tf32x3": want_t, "simt": 0}):
+            or k10_by_design != {"tf32x3": want_t, "simt": 0}
+            or k9_by_design != {"async": want_t, "tile": 0}):
         fail(f"training {L96} launched K7/K8/K9/K10/K11 {train_launches} (want {want_t} each; "
-             f"K10 by design {k10_by_design}, want all tf32x3), plain versions {plain_calls}")
+             f"K9 by design {k9_by_design}, want all async; K10 by design {k10_by_design}, want "
+             f"all tf32x3), plain versions {plain_calls}")
     if not (all(math.isfinite(v) for v in losses + norms) and moved):
         fail(f"training {L96} gave non-finite losses or gradient norms, or left the parameters "
              f"as they were")
@@ -2106,25 +2137,38 @@ def main() -> int:
         print(f"[v] K12 {label} B={batch} M={ops[0].shape[1]} T={cfg.data.t_steps} hidden="
               f"{cfg.net('qb').hidden}: allclose(2e-4) {r['close']}, max|d| {r['max_abs_err']:.3e}; "
               f"max |d|/(1+|x|): x~ {r['rel_x']:.3e}, lp {r['rel_lp']:.3e}, lq {r['rel_lq']:.3e}; "
-              f"teacher-forced x~ {r['tf_x']:.3e}; finite {r['finite']}", flush=True)
+              f"teacher-forced x~ {r['tf_x']:.3e}; finite {r['finite']}; bit-equal to the previous "
+              f"design (chain) in x_first, lp, lq and x~ {r['same_prev']}", flush=True)
         ok = r["close"] if small else (r["tf_x"] <= 1e-5 and r["rel_x"] <= 1e-4
                                        and max(r["rel_lp"], r["rel_lq"]) <= 1e-4)
         if not (ok and r["finite"]):
             fail(f"K12 ({label}) disagrees with svo_sweep_forward_reference")
+        if not r["same_prev"]:
+            fail(f"K12's split design ({label}) is not bit-equal to the chain design")
     consts, ops, r = k12["full"]
     with torch.no_grad():
-        k12_dev = [device_ms(lambda: svo.svo_sweep_forward(*ops, consts)),
+        # the split design and the previous one alternated, three pairs
+        k12_pairs = [tuple(device_ms(lambda: svo.svo_sweep_forward(*ops, consts, design=d))
+                           for d in svo.K12_DESIGNS) for _ in range(3)]
+        k12_dev = [statistics.mean(p_[0] for p_ in k12_pairs),
                    device_ms(lambda: svo.svo_sweep_forward_reference(*ops, consts), n=3),
-                   device_ms(lambda: svo.svo_sweep_forward(*ops, consts))]
+                   statistics.mean(p_[1] for p_ in k12_pairs)]
     t1_s, b_s, m_s = ops[1].shape[:3]
     k12_flops = svo_flops(consts, t1_s * b_s * m_s)
     k12_bound, k12_by = bound(k12_flops, nbytes(*ops, consts["packed"], consts["sc"], *r["kern"]))
-    k12_regs = re.search(r"svo_forward_kernelILi3ELi3ELi64EE.*?Used (\d+) registers",
-                         _build.build_log(), re.S)
+    k12_plan = svo.k12_plan(3, 3, 64, 1, b_s * m_s, n_sms, t1_s)
     print(f"[v] K12 full (B={b_s}, M={m_s}, T-1={t1_s}, hidden 64): device time per call "
-          f"(torch.profiler) {k12_dev[0]:.4f}/{k12_dev[2]:.4f} ms (20 calls each), plain "
-          f"{k12_dev[1]:.3f} ms (3 calls); bound {k12_bound:.4f} ms ({k12_by}, {k12_flops:.3e} "
-          f"FLOP); registers {k12_regs.group(1) if k12_regs else '?'}", flush=True)
+          f"(torch.profiler, 20 calls), (split, chain) alternated: "
+          + ", ".join(f"({a:.4f}, {b_:.4f})" for a, b_ in k12_pairs)
+          + f" ms; plain {k12_dev[1]:.3f} ms (3 calls); bound {k12_bound:.4f} ms ({k12_by}, "
+          f"{k12_flops:.3e} FLOP): split at {100 * k12_bound / k12_dev[0]:.1f}% of it, chain at "
+          f"{100 * k12_bound / k12_dev[2]:.1f}%; split "
+          f"{kernel_resources('svo_forward_split_kernelILi3ELi3ELi64EE')}, (paths, tile rows, "
+          f"steps a chunk) {k12_plan}, {svo.k12_smem_bytes(3, 3, 64, 1, *k12_plan)} B of shared "
+          f"memory per CTA; chain {kernel_resources('svo_forward_kernelILi3ELi3ELi64EE')}",
+          flush=True)
+    if not all(a < b_ for a, b_ in k12_pairs):
+        fail("K12: the split design is not faster than the chain design in every pair")
     phase_done("v")
 
     # (w) K13 vs its plain version on K12's saved x~, small and full
@@ -2189,7 +2233,7 @@ def main() -> int:
         fn.calls = 0
     for fn in s_kernels:
         fn.launches = 0
-    zero_designs(svo.svo_sweep_backward)
+    zero_designs(svo.svo_sweep_backward, svo.svo_sweep_forward)
     run_gen = torch.Generator(device=dev).manual_seed(SEED + 18)
     torch.cuda.synchronize()
     held_svo_gb = torch.cuda.memory_allocated() / 1e9
@@ -2201,6 +2245,7 @@ def main() -> int:
     serve_svo_gb = torch.cuda.max_memory_allocated() / 1e9 - held_svo_gb
     svo_serve = [fn.launches for fn in s_kernels]
     k13_serve_designs = dict(svo.svo_sweep_backward.launches_by_design)
+    k12_serve_designs = dict(svo.svo_sweep_forward.launches_by_design)
     plain_calls = sum(fn.calls for fn in s_plain)
     shapes_ok = all(tuple(p.shape) == (batch, 16, 100, 3) for p in paths)
     finite = all(bool(torch.isfinite(p).all()) for p in paths)
@@ -2208,7 +2253,8 @@ def main() -> int:
                  for _ in range(2)]
     print(f"[x] serving {SVO}: smooth_posterior(method='svo') x3 -> shapes "
           f"{[tuple(p.shape) for p in paths]} ok {shapes_ok}, finite {finite}; launches "
-          f"K1/K4/K12/K13 {svo_serve}, plain-version calls {plain_calls}, wall {wall:.2f} s; "
+          f"K1/K4/K12/K13 {svo_serve} (K12 by design {k12_serve_designs}), plain-version calls "
+          f"{plain_calls}, wall {wall:.2f} s; "
           f"{svo_sp_ms[0]:.3f}/{svo_sp_ms[1]:.3f} ms per call of B={batch} (median of 5 after 2 "
           f"warm-up); peak device memory {serve_svo_gb:.3f} GB above the {held_svo_gb:.3f} GB "
           f"held before", flush=True)
@@ -2216,9 +2262,11 @@ def main() -> int:
         lambda: pt.smooth_posterior(ssm, s_batches[0], cfg, run_gen, method="svo"), 1, SVO_KERNELS)
     print(f"[x] profile of one more call: {profile}", flush=True)
     if (svo_serve != [3, 0, 3, 0] or plain_calls != 0
-            or k13_serve_designs != {"split": 0, "chain": 0}):
+            or k13_serve_designs != {"split": 0, "chain": 0}
+            or k12_serve_designs != {"split": 3, "chain": 0}):
         fail(f"smooth_posterior(method='svo') launched K1/K4/K12/K13 {svo_serve} (want "
-             f"[3, 0, 3, 0]; K13 by design {k13_serve_designs}), plain versions {plain_calls}")
+             f"[3, 0, 3, 0]; K12 by design {k12_serve_designs}, want all split; K13 by design "
+             f"{k13_serve_designs}), plain versions {plain_calls}")
     if not (shapes_ok and finite):
         fail("smooth_posterior(method='svo') gave non-finite paths or the wrong shape")
     del paths
@@ -2241,7 +2289,7 @@ def main() -> int:
         fn.calls = 0
     for fn in s_kernels:
         fn.launches = 0
-    zero_designs(svo.svo_sweep_backward)
+    zero_designs(svo.svo_sweep_backward, svo.svo_sweep_forward)
     call_s, train_metrics = [], []
     for bt in train_batches:
         t0 = time.perf_counter()
@@ -2250,6 +2298,7 @@ def main() -> int:
         call_s.append(time.perf_counter() - t0)
     svo_launches = [fn.launches for fn in s_kernels]
     k13_train_designs = dict(svo.svo_sweep_backward.launches_by_design)
+    k12_train_designs = dict(svo.svo_sweep_forward.launches_by_design)
     plain_calls = sum(fn.calls for fn in s_plain)
     peak_svo_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(m_["loss"]) for m_ in train_metrics]
@@ -2260,7 +2309,8 @@ def main() -> int:
     print(f"[y] training {SVO}: {len(train_batches)} calls x {n_per_call} steps, B={batch}: loss "
           f"per call {[round(v, 3) for v in losses]}, elbo_svo {[round(v, 3) for v in elbos]}, "
           f"grad norm {[round(v, 3) for v in norms]}, parameters moved {moved}; launches "
-          f"K1/K4/K12/K13 {svo_launches} (K13 by design {k13_train_designs}), plain-version calls "
+          f"K1/K4/K12/K13 {svo_launches} (K12 by design {k12_train_designs}, K13 by design "
+          f"{k13_train_designs}), plain-version calls "
           f"{plain_calls}; call times "
           f"{[round(v, 3) for v in call_s]} s, train step {svo_step_ms:.3f} ms (median of the calls "
           f"after the first, per step); peak device memory {peak_svo_gb - held_svo_gb:.3f} GB "
@@ -2270,9 +2320,11 @@ def main() -> int:
     print(f"[y] profile of one more call: {profile}", flush=True)
     want = len(train_batches) * n_per_call
     if (svo_launches != [want] * 4 or plain_calls != 0
-            or k13_train_designs != {"split": want, "chain": 0}):
+            or k13_train_designs != {"split": want, "chain": 0}
+            or k12_train_designs != {"split": want, "chain": 0}):
         fail(f"SVO train path launched K1/K4/K12/K13 {svo_launches} times (want {want} each, every "
-             f"K13 launch the split design: {k13_train_designs}), plain versions {plain_calls}")
+             f"K12 and K13 launch the split design: {k12_train_designs}, {k13_train_designs}), "
+             f"plain versions {plain_calls}")
     if not (all(math.isfinite(v) for v in losses + norms + elbos) and moved):
         fail("SVO training gave non-finite losses, ELBOs or gradient norms, or left the "
              "parameters as they were")
@@ -2765,7 +2817,7 @@ def main() -> int:
          "replaces": "psvo_tpu/ops/pallas_trunk.py:350",
          "launches": serve_launches["filter_posterior"][2], "max_abs_err": k9_small_err,
          "ms": k9_dev[0], "plain_ms": k9_dev[1], "bound_ms": k9_bound, "bound_by": k9_by,
-         "library_ms": None},
+         "library_ms": None, "ms_prev": k9_dev[3]},
         {"name": "trunk_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/trunk_backward.cu",
          "replaces": "psvo_tpu/ops/pallas_trunk.py:419", "launches": train_launches[3],
          "on_path": True, "max_abs_err": k10_small_err, "ms": k10_ms, "plain_ms": k10_plain,
@@ -2780,7 +2832,7 @@ def main() -> int:
         {"name": "svo_sweep_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/svo_sweep.cu",
          "replaces": "psvo_tpu/ops/pallas_svo.py:446", "launches": svo_launches[2],
          "on_path": True, "max_abs_err": k12_small_err, "ms": k12_dev[0], "plain_ms": k12_dev[1],
-         "bound_ms": k12_bound, "bound_by": k12_by, "library_ms": None},
+         "bound_ms": k12_bound, "bound_by": k12_by, "library_ms": None, "ms_prev": k12_dev[2]},
         {"name": "svo_sweep_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/svo_sweep.cu",
          "replaces": "psvo_tpu/ops/pallas_svo.py:521", "launches": svo_launches[3],
          "on_path": True, "max_abs_err": k13_small_err, "ms": k13_dev[0], "plain_ms": k13_dev[1],

@@ -76,6 +76,13 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// 16 bytes; both addresses 16-byte aligned. Bypasses L1 (data read once).
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem_dst)),
+               "l"(gmem_src)
+               : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");

@@ -18,18 +18,27 @@
 // autograd there carries its cotangent to the three scales (the TPU kernel's
 // sconst operand and d_sm stream).
 //
-// Design. Paths are independent and each walks a chain of T-1 dependent
-// steps of three small MLPs (B*M = 512 paths, 99 steps at the preset). A CTA
-// of 256 threads holds P = 256/H paths; thread (p, j) owns hidden unit j of
-// path p in every layer (one fixed-order dot product of the layer's input,
-// read from shared memory, with column j of the weights: neighbouring threads
-// read neighbouring weights). A net's mean is summed by thread o < dout over
-// the H hidden units. One barrier per layer; f and g run in the same phases.
-// The nets' weights stay in shared memory (56 KB at hidden (64, 64)); the
-// carry x~_{t+1}, the activations and lp/lq stay in shared memory and
-// registers. Nothing is padded to 128 lanes: a path is H threads.
+// K12 and K13 each have two designs; the paths run the split designs.
 //
-// K13 has two designs; the path runs the split design.
+// K12's split design (svo_forward_split_kernel) keeps only what is serial on
+// the chain: x~_t = qb([x~_{t+1}; y_t]) + s_b*eps_t depends on the step
+// before, while f, g and the three density terms read x~_t and x~_{t+1}
+// only. A CTA holds P paths (enough CTAs to fill the SMs once), each on H
+// threads of its own (two warps at H = 64) that synchronise only among
+// themselves: qb's first layer and first middle layer run from weight
+// columns held in registers, one hidden unit a thread, the head's four
+// partial sums on four lanes. eps and y of a chunk of steps are copied in
+// before its chain
+// starts. Then f, g and the terms run over the chunk's (t, path) rows as
+// register-blocked tile products (K13's split_forward / split_head), and each
+// path adds its rows' terms t descending: the chain design's order for every
+// value, so its bits.
+//
+// K12's chain design (svo_forward_kernel, the previous one, kept as its
+// yardstick) does the whole step on the chain: a CTA of 256 threads holds
+// P = 256/H paths, thread (p, j) owns hidden unit j of path p in every layer
+// of qb, f and g, a net's mean is summed by thread o < dout over the H hidden
+// units, with a barrier of the CTA after each of eight phases a step.
 //
 // The split design (svo_backward_split_kernel) takes the VJP apart. Nearly
 // all of it is parallel over the (t, path) rows: K12 saved every x~_t, so
@@ -67,15 +76,21 @@
 // What bounds them. Per path-step the forward is 13,632 MACs at Dx = Dy = 3,
 // hidden (64, 64): 1.38e9 FLOP per launch at the preset, 0.021 ms at 67
 // TFLOP/s; its bytes (eps and x~, 0.6 MB each) take 0.0004 ms. K13's bound
-// counts three times that work, 0.062 ms. K12 and K13's chain design are
-// latency-bound: each step is eight (K12) or about fourteen (chain) dependent
-// phases with a barrier after each, 99 steps long. K13's split design does
+// counts three times that work, 0.062 ms. K12's chain design and K13's are
+// latency-bound: each step is eight (K12) or about fourteen (K13) dependent
+// phases with a barrier after each, 99 steps long. K12's split design is a
+// chain of about 4.6k MACs a step on H threads a path (its length set by
+// latency, 99 steps), then 9k MACs a row of f and g from shared memory, its
+// products bounding that pass. K13's split design does
 // about 53.6k MACs a row (5.4e9 FLOP a launch, the recompute, J_t and the
 // weight sums included) in phases as wide as a tile's 64 rows, about 40 a
 // tile with a barrier after each: its products from shared memory bound it.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "async_copy.cuh"
+#include "named_barrier.cuh"
 
 namespace psvo {
 namespace svo {
@@ -1083,6 +1098,252 @@ __global__ void __launch_bounds__(kThreads, 1) svo_backward_split_kernel(const B
   for (int i = tid; i < n_row; i += kThreads) row[i] = gsum[i];
 }
 
+// ---------------------------------------------------------------------------
+// K12, design "split": the serial chain of qb and the draw, then f, g and the
+// density terms as parallel passes over the chain's rows
+// ---------------------------------------------------------------------------
+
+// A path of the split design's chain is a group of H threads, thread gl
+// owning hidden unit gl: half a warp at H = 16 (a warp holds two paths), a
+// warp at 32, two warps at 64. Synchronise the threads of path slot p:
+// their warp below two warps (its paths run in step), else a named barrier
+// of the path's two warps.
+template <int H>
+__device__ __forceinline__ void path_sync(int p) {
+  if constexpr (H <= 32) {
+    __syncwarp();
+  } else {
+    named_barrier(1 + p, H);
+  }
+}
+
+// Dynamic shared memory of K12's split design, in floats: qb in the packed
+// layout, f and g padded (as K13's split design holds them), two hidden
+// vectors and x~ (4 floats) per chain slot (paths rounded up to whole
+// warps), f's and g's two ping-pong hidden layers and means for a tile of
+// `rows` rows, and 18 floats for each of the `steps` x `paths` chain rows
+// (x~_t, x~_{t+1}, eps_t, y_t and the row's two terms).
+template <int DX, int DY, int H>
+__host__ __device__ constexpr int fwd_split_smem_floats(int n_mid, int off_f, int paths, int rows,
+                                                        int steps) {
+  return round4(off_f) + Padded<DX, H, DX>::floats(n_mid) + Padded<DX, H, DY>::floats(n_mid) +
+         (paths * H + 31) / 32 * 32 / H * (2 * H + 4) + 4 * rows * (H + 4) + 8 * rows +
+         18 * round4(steps * paths);
+}
+
+// The split design. A CTA takes P paths and walks t = T-2 .. 0 in chunks of
+// TC steps; chain row c*P + p is step t0 - c of path p. Per chunk:
+//   1. eps_t and y_t of the chunk's rows into shared memory (cp.async);
+//   2. the chain, each path on its own H threads, which synchronise only
+//      among themselves (their warp, or a named barrier of two warps): qb's
+//      first layer (weights in registers), its first middle layer (each
+//      thread's weight column in registers; later ones from shared memory),
+//      its head (each output's four partial sums j = k mod 4 on four lanes,
+//      joined as b3 + ((s0 + s1) + (s2 + s3))), the draw; x~_t is stored and
+//      passed to the path's threads through shared memory for the next step;
+//   3. f and g on the chunk's x~_t in tiles of R rows (K13's split_forward /
+//      split_head: hidden_unit's and head_unit's rounding per output), then
+//      step_terms once per row, in parallel;
+//   4. each path's lp and lq, its rows' terms added t descending.
+// Every value is computed in the chain design's order, so the outputs carry
+// its bits.
+template <int DX, int DY, int H>
+__global__ void __launch_bounds__(kThreads, 1)
+    svo_forward_split_kernel(const FwdArgs a, int P, int R, int TC) {
+  constexpr int DQ = DX + DY, WS = H + 4;
+  using NF = Padded<DX, H, DX>;
+  using NG = Padded<DX, H, DY>;
+  extern __shared__ __align__(16) float smem[];
+  const int n_mid = a.n_mid, tid = threadIdx.x, NP = a.B * a.M;
+  const int slots = (P * H + 31) / 32 * 32 / H, RC = round4(TC * P);
+  float* wq = smem;                    // qb, packed
+  float* wf = wq + round4(a.off_f);    // f, padded
+  float* wg = wf + NF::floats(n_mid);  // g, padded
+  float* hb = wg + NG::floats(n_mid);  // [slots][2][H]: the chain's hidden vectors
+  float* xs = hb + slots * 2 * H;      // [slots][4]: the chain's x~_{t+1}
+  float* af = xs + slots * 4;          // [2][R][WS]: f's hidden layers
+  float* ag = af + 2 * R * WS;         // [2][R][WS]: g's
+  float* mf = ag + 2 * R * WS;         // [R][4]: f's mean
+  float* mg = mf + R * 4;              // [R][4]: g's mean
+  float* xt = mg + R * 4;              // [RC][4]: x~_t of each chain row
+  float* xn = xt + RC * 4;             // [RC][4]: x~_{t+1}
+  float* ep = xn + RC * 4;             // [RC][4]: eps_t
+  float* yv = ep + RC * 4;             // [RC][4]: y_t
+  float* tl = yv + RC * 4;             // [RC][2]: the row's lp and lq terms
+
+  // eps_t and y_t of the chunk's n rows (dead paths: zero noise, row 0's y)
+  auto stage = [&](int t0, int n) {
+    for (int e = tid; e < n * DQ; e += kThreads) {
+      const int row = e / DQ, d = e % DQ, q = blockIdx.x * P + row % P, t = t0 - row / P;
+      if (d < DX) {
+        if (q < NP) {
+          cp_async4(ep + row * 4 + d, a.eps + ((size_t)t * NP + q) * DX + d);
+        } else {
+          ep[row * 4 + d] = 0.0f;
+        }
+      } else {
+        const int b = q < NP ? q / a.M : 0;
+        cp_async4(yv + row * 4 + d - DX, a.y + ((size_t)t * a.B + b) * DY + d - DX);
+      }
+    }
+    cp_async_commit();
+  };
+  const int first = a.T1 < TC ? a.T1 : TC;
+  stage(a.T1 - 1, first * P);
+  for (int i = tid; i < a.off_f / 4; i += kThreads) {
+    reinterpret_cast<float4*>(wq)[i] = reinterpret_cast<const float4*>(a.weights)[i];
+  }
+  stage_padded<DX, H, DX>(a.weights + a.off_f, n_mid, wf);
+  stage_padded<DX, H, DY>(a.weights + a.off_g, n_mid, wg);
+  for (int i = tid; i < RC * 4; i += kThreads) xt[i] = 0.0f;  // a tile's pad rows stay finite
+
+  // the chain's threads: path slot p, unit gl of its group; head lane (ho, hk)
+  const bool chain = tid < slots * H;
+  const int p = tid / H, gl = tid % H, pr = p < P ? p : P - 1;
+  const int path = blockIdx.x * P + p;
+  const bool live = p < P && path < NP;
+  const bool head = gl < 4 * DX;
+  const int ho = head ? gl / 4 : DX - 1, hk = gl % 4;
+  float* h0 = hb + (chain ? p : 0) * 2 * H;
+  float* h1 = h0 + H;
+  float* xp = xs + (chain ? p : 0) * 4;  // the path's x~_{t+1}
+  if (chain && gl < DX) xp[gl] = live ? a.x_anchor[(size_t)path * DX + gl] : 0.0f;
+  float xo = live ? a.x_anchor[(size_t)path * DX + ho] : 0.0f;  // head lanes: x~_{t+1}[ho]
+  const float sb = a.sc[DQ + ho];
+  float lp = 0.0f, lq = 0.0f;  // thread p < P: path p's sums
+
+  for (int t0 = a.T1 - 1; t0 >= 0; t0 -= TC) {
+    const int steps = t0 + 1 < TC ? t0 + 1 : TC, n = steps * P;
+    if (t0 != a.T1 - 1) stage(t0, n);
+    cp_async_wait<0>();
+    __syncthreads();
+    if (chain) {
+      float w1[DQ], wm[H], w3[H / 4];
+#pragma unroll
+      for (int i = 0; i < DQ; ++i) w1[i] = wq[i * H + gl];
+      const float b1 = wq[DQ * H + gl];
+      const float* m1 = wq + mid_off(DQ, H, 1);
+#pragma unroll
+      for (int i = 0; i < H; ++i) wm[i] = n_mid >= 1 ? m1[i * H + gl] : 0.0f;
+      const float bm = n_mid >= 1 ? m1[H * H + gl] : 0.0f;
+      const float* w3p = wq + head_off(DQ, H, n_mid);
+#pragma unroll
+      for (int m = 0; m < H / 4; ++m) w3[m] = w3p[(4 * m + hk) * DX + ho];
+      const float b3 = w3p[H * DX + ho];
+      for (int c = 0; c < steps; ++c) {
+        const int row = c * P + pr, t = t0 - c;
+        float qin[DQ];
+#pragma unroll
+        for (int d = 0; d < DX; ++d) qin[d] = xp[d];
+#pragma unroll
+        for (int q = 0; q < DY; ++q) qin[DX + q] = yv[row * 4 + q];
+        {
+          float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int i = 0; i < DQ; ++i) s[i & 3] = fmaf(w1[i], qin[i], s[i & 3]);
+          const float v = b1 + ((s[0] + s[1]) + (s[2] + s[3]));
+          h0[gl] = v < 0.0f ? 0.0f : v;
+        }
+        path_sync<H>(p);
+        float* hin = h0;
+        float* hout = h1;
+        if (n_mid >= 1) {
+          float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int i = 0; i < H; i += 4) {
+            const float4 hv = *reinterpret_cast<const float4*>(hin + i);
+            s[0] = fmaf(wm[i], hv.x, s[0]);
+            s[1] = fmaf(wm[i + 1], hv.y, s[1]);
+            s[2] = fmaf(wm[i + 2], hv.z, s[2]);
+            s[3] = fmaf(wm[i + 3], hv.w, s[3]);
+          }
+          const float v = bm + ((s[0] + s[1]) + (s[2] + s[3]));
+          hout[gl] = v < 0.0f ? 0.0f : v;
+          path_sync<H>(p);
+          hin = h1;
+          hout = h0;
+        }
+        for (int l = 2; l <= n_mid; ++l) {
+          hout[gl] = hidden_unit<H, H>(wq + mid_off(DQ, H, l), hin, gl);
+          path_sync<H>(p);
+          float* tmp = hin;
+          hin = hout;
+          hout = tmp;
+        }
+        // the head: lane (ho, hk) adds the terms j = hk mod 4 of output ho
+        float s = 0.0f;
+#pragma unroll
+        for (int m = 0; m < H / 4; ++m) s = fmaf(hin[4 * m + hk], w3[m], s);
+        s = s + __shfl_xor_sync(0xffffffffu, s, 1);
+        s = s + __shfl_xor_sync(0xffffffffu, s, 2);
+        const float x = __fadd_rn(b3 + s, __fmul_rn(sb, ep[row * 4 + ho]));
+        if (head && hk == 0) {
+          if (p < P) {
+            xt[row * 4 + ho] = x;
+            xn[row * 4 + ho] = xo;
+            if (live) a.xtilde[((size_t)t * NP + path) * DX + ho] = x;
+          }
+          xp[ho] = x;  // every thread of the path read x~_{t+1} before the first sync
+        }
+        xo = x;
+        path_sync<H>(p);  // x~_t is the next step's query; the head's reads are done
+      }
+    }
+    __syncthreads();
+    // f and g on the chunk's rows, a tile at a time, then each row's terms
+    for (int r0 = 0; r0 < n; r0 += R) {
+      const int cnt = n - r0 < R ? n - r0 : R, nr = round4(cnt);
+      split_forward<DX, H>(wf, xt + r0 * 4, 4, af, nr);
+      split_forward<DX, H>(wg, xt + r0 * 4, 4, ag, nr);
+      __syncthreads();
+      for (int l = 1; l <= n_mid; ++l) {
+        const int i = ((l - 1) & 1) * R * WS, o = (l & 1) * R * WS;
+        split_forward<H, H>(wf + NF::mid(l), af + i, WS, af + o, nr);
+        split_forward<H, H>(wg + NG::mid(l), ag + i, WS, ag + o, nr);
+        __syncthreads();
+      }
+      const int last = (n_mid & 1) * R * WS;
+      split_head<H, DX>(wf + NF::mid(n_mid + 1), af + last, mf, nr);
+      split_head<H, DY>(wg + NG::mid(n_mid + 1), ag + last, mg, nr);
+      __syncthreads();
+      for (int r = tid; r < cnt; r += kThreads) {
+        const int row = r0 + r;
+        float zf[DX], zg[DY], tf, tg, tb;
+        step_terms<DX, DY>(xn + row * 4, mf + r * 4, yv + row * 4, mg + r * 4, ep + row * 4, a.sc,
+                           zf, zg, tf, tg, tb);
+        tl[row * 2] = floor_logp(tf) + floor_logp(tg);
+        tl[row * 2 + 1] = floor_logp(tb);
+      }
+    }
+    __syncthreads();
+    if (tid < P) {  // t descending, as the chain design adds them
+      for (int c = 0; c < steps; ++c) {
+        lp += tl[(c * P + tid) * 2];
+        lq += tl[(c * P + tid) * 2 + 1];
+      }
+    }
+  }
+  if (chain && live && head && hk == 0) a.x_first[(size_t)path * DX + ho] = xo;
+  if (tid < P && (int)blockIdx.x * P + tid < NP) {
+    a.lp[blockIdx.x * P + tid] = lp;
+    a.lq[blockIdx.x * P + tid] = lq;
+  }
+}
+
+template <int DX, int DY, int H>
+cudaError_t launch_forward_split(const FwdArgs& a, int P, int R, int TC, cudaStream_t stream) {
+  if (P < 1 || P * H > kThreads || R < 4 || R % 4 != 0 || TC < 1 || a.off_f % 4 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = sizeof(float) * fwd_split_smem_floats<DX, DY, H>(a.n_mid, a.off_f, P, R, TC);
+  auto kernel = svo_forward_split_kernel<DX, DY, H>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<(a.B * a.M + P - 1) / P, kThreads, smem, stream>>>(a, P, R, TC);
+  return cudaGetLastError();
+}
+
 template <int DX, int DY, int H>
 cudaError_t launch_forward(const FwdArgs& a, cudaStream_t stream) {
   constexpr int P = kThreads / H;
@@ -1182,9 +1443,14 @@ int dispatch(int dx, int dy, int hidden, Ts... args) {
 }
 
 template <int DX, int DY, int H>
-struct Forward {
-  static int run(const FwdArgs& a, cudaStream_t s) {
-    return static_cast<int>(launch_forward<DX, DY, H>(a, s));
+struct Forward {  // design 0: split, 1: chain
+  static int run(const FwdArgs& a, int design, int paths, int tile_rows, int steps,
+                 cudaStream_t s) {
+    if (design == 0) {
+      return static_cast<int>(launch_forward_split<DX, DY, H>(a, paths, tile_rows, steps, s));
+    }
+    if (design == 1) return static_cast<int>(launch_forward<DX, DY, H>(a, s));
+    return static_cast<int>(cudaErrorInvalidValue);
   }
 };
 
@@ -1204,19 +1470,22 @@ struct Backward {  // design 0: split, 1: chain
 }  // namespace psvo
 
 // Plain C entry points (bound with ctypes by psvo_tpu_torch/ops/_build.py).
-// Each returns a cudaError_t. grads [n_weights + 2*dx + dy + 3] receives the
-// weight gradients, then sc's; partial [max_ctas, n_weights + 2*dx + dy + 3]
-// is scratch. K13's design: 0 the split design (tile_rows rows a tile, paths
-// paths a CTA group), 1 the chain design (tile_rows and paths unread).
+// Each returns a cudaError_t. K12's design: 0 the split design (paths paths a
+// CTA, tile_rows rows a tile of its parallel pass, steps steps a chunk), 1 the
+// chain design (paths, tile_rows and steps unread). grads [n_weights + 2*dx +
+// dy + 3] receives the weight gradients, then sc's; partial [max_ctas,
+// n_weights + 2*dx + dy + 3] is scratch. K13's design: 0 the split design
+// (tile_rows rows a tile, paths paths a CTA group), 1 the chain design
+// (tile_rows and paths unread).
 extern "C" int psvo_svo_forward(const float* x_anchor, const float* eps, const float* y,
                                 const float* weights, const float* sc, float* x_first, float* lp,
                                 float* lq, float* xtilde, int B, int M, int T1, int dx, int dy,
                                 int hidden, int n_mid, int n_weights, int off_f, int off_g,
-                                void* stream) {
+                                int design, int paths, int tile_rows, int steps, void* stream) {
   const psvo::svo::FwdArgs a{x_anchor, eps, y,  weights, sc, x_first, lp,        lq,
                              xtilde,   B,   M,  T1,      n_mid, n_weights, off_f, off_g};
-  return psvo::svo::dispatch<psvo::svo::Forward>(dx, dy, hidden, a,
-                                                 static_cast<cudaStream_t>(stream));
+  return psvo::svo::dispatch<psvo::svo::Forward>(dx, dy, hidden, a, design, paths, tile_rows,
+                                                 steps, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int psvo_svo_backward(const float* x_anchor, const float* eps, const float* y,

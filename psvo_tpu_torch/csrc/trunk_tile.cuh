@@ -16,19 +16,20 @@ constexpr int kParts = kTrunkThreads / kTile;  // threads summing one particle's
 // out[r][p] = b[r] + Σ_i w[i][r]·in[i][p] (relu'd when RELU) for r < R and
 // the tile's kTile particles; w is [DIN] rows of R weights at a row stride of
 // WS floats followed by b [R] (x @ W + b), in and out are [rows][S] (S >=
-// kTile, a multiple of 4), all in shared memory. NT threads share the
-// outputs in blocks of RB rows × 4 particles. The sum runs bias first, then
-// i ascending, one fmaf per term, whatever NT, RB and WS, so every mapping
-// gives the same bits. The caller synchronises before reading out.
+// kTile, a multiple of 4), all in shared memory. NT threads, numbered tid
+// (tile_layer: threadIdx.x), share the outputs in blocks of RB rows × 4
+// particles. The sum runs bias first, then i ascending, one fmaf per term,
+// whatever NT, RB and WS, so every mapping gives the same bits. The caller
+// synchronises before reading out.
 template <int DIN, int R, bool RELU, int S, int NT = kTrunkThreads, int RB = 4, int WS = R>
-__device__ __forceinline__ void tile_layer(const float* __restrict__ w,
-                                           const float* __restrict__ in,
-                                           float* __restrict__ out) {
-  static_assert((RB == 2 || RB == 4) && R % RB == 0 && WS % RB == 0,
+__device__ __forceinline__ void tile_layer_at(const float* __restrict__ w,
+                                              const float* __restrict__ in,
+                                              float* __restrict__ out, int tid) {
+  static_assert((RB == 2 || RB == 4 || RB == 8) && R % RB == 0 && WS % RB == 0,
                 "RB x 4 register blocks need R % RB == 0");
   constexpr int kColGroups = kTile / 4;
   const float* b = w + DIN * WS;
-  for (int blk = threadIdx.x; blk < (R / RB) * kColGroups; blk += NT) {
+  for (int blk = tid; blk < (R / RB) * kColGroups; blk += NT) {
     const int r0 = (blk / kColGroups) * RB, p0 = (blk % kColGroups) * 4;
     float acc[RB][4];
 #pragma unroll
@@ -40,12 +41,15 @@ __device__ __forceinline__ void tile_layer(const float* __restrict__ w,
 #pragma unroll 8
     for (int i = 0; i < DIN; ++i) {
       float wq[RB];
-      if constexpr (RB == 4) {
-        const float4 wv = *reinterpret_cast<const float4*>(w + i * WS + r0);
-        wq[0] = wv.x;
-        wq[1] = wv.y;
-        wq[2] = wv.z;
-        wq[3] = wv.w;
+      if constexpr (RB >= 4) {
+#pragma unroll
+        for (int q = 0; q < RB; q += 4) {
+          const float4 wv = *reinterpret_cast<const float4*>(w + i * WS + r0 + q);
+          wq[q] = wv.x;
+          wq[q + 1] = wv.y;
+          wq[q + 2] = wv.z;
+          wq[q + 3] = wv.w;
+        }
       } else {
         const float2 wv = *reinterpret_cast<const float2*>(w + i * WS + r0);
         wq[0] = wv.x;
@@ -71,6 +75,13 @@ __device__ __forceinline__ void tile_layer(const float* __restrict__ w,
       *reinterpret_cast<float4*>(out + (r0 + q) * S + p0) = o;
     }
   }
+}
+
+template <int DIN, int R, bool RELU, int S, int NT = kTrunkThreads, int RB = 4, int WS = R>
+__device__ __forceinline__ void tile_layer(const float* __restrict__ w,
+                                           const float* __restrict__ in,
+                                           float* __restrict__ out) {
+  tile_layer_at<DIN, R, RELU, S, NT, RB, WS>(w, in, out, threadIdx.x);
 }
 
 // Copy rows x [rows][K] (row stride K, starting at particle k0) into a

@@ -14,6 +14,14 @@ the card:
     lp  += max(−½·Σ z_f² + c_f, −1e30) + max(−½·Σ z_g² + c_g, −1e30)
     z_f  = (x_next − f(x̃_t))·(1/s_f),  z_g = (y_t − g(x̃_t))·(1/s_g)
   Plain version: `svo_sweep_forward_reference`, a loop over t of that body.
+  Two designs, with the same bits; the path runs "split"
+  (`svo_forward_split_kernel`): only qb and the draw stay on the serial
+  chain, each path on its own threads, and f, g and the density terms run
+  afterwards over all the (t, path) rows at once, each path's terms then
+  added t descending; a CTA takes `k12_plan`'s paths and chunks of steps.
+  "chain" (`svo_forward_kernel`, the previous design: the whole step on the
+  chain, eight CTA barriers a step) stays callable with `design="chain"` as
+  its yardstick.
 - K13 `svo_sweep_backward` (replaces `pallas_svo._scan_bwd`, the VJP kernel):
   the VJP of K12 from its saved trajectories. Plain version:
   `svo_sweep_backward_reference`, an autograd replay of the plain forward in
@@ -36,8 +44,8 @@ the packed qb/f/g weights and biases, and to the scale operand sc = (1/s_f,
 scales (the TPU kernel's sconst operand and d_sm stream); a density term
 under its floor passes no cotangent to its constant; zero for ε, none for y.
 Each wrapper carries a launch count (`<wrapper>.launches`), raised only where
-the kernel is launched (K13's also by design, `.launches_by_design`); each
-plain version a call count (`.calls`).
+the kernel is launched (also by design, `.launches_by_design`); each plain
+version a call count (`.calls`).
 
 Layout: x_anchor [B, M, Dx]; eps [T−1, B, M, Dx] (ε_t at index t); y
 [T−1, B, Dy] (y_t of t = 0 … T−2); packed: qb | f | g in
@@ -70,11 +78,67 @@ def n_sc(dx: int, dy: int) -> int:
 
 
 DESIGNS = ("split", "chain")  # K13's designs: the one the path runs, the previous one
+K12_DESIGNS = ("split", "chain")  # K12's designs: the one the path runs, the previous one
 _ROW_FLOATS = 56  # per tile row of the split design (csrc/svo_sweep.cu::kRowFloats)
 
 
 def _r4(n: int) -> int:
     return (n + 3) // 4 * 4
+
+
+def _padded_floats(din: int, dout: int, h: int, n_mid: int) -> int:
+    """One net in the split designs' shared memory: every row of an h-wide
+    matrix padded to h + 4 floats (csrc/svo_sweep.cu::Padded)."""
+    ws = h + 4
+    return _r4(din * ws + h + n_mid * (h * ws + h) + h * dout + dout)
+
+
+def k12_max_paths(h: int) -> int:
+    """The most paths one CTA of K12's split design holds: its 256 threads,
+    h a path (one hidden unit a thread; csrc/svo_sweep.cu::path_sync)."""
+    return _THREADS // h
+
+
+def k12_smem_bytes(dx: int, dy: int, h: int, n_mid: int, paths: int, rows: int,
+                   steps: int) -> int:
+    """Dynamic shared memory of K12's split design
+    (csrc/svo_sweep.cu::fwd_split_smem_floats): qb in the packed layout, f and
+    g with every row of an h-wide matrix padded to h + 4 floats, two hidden
+    vectors of h floats and x̃ (4 floats) per chain slot (`paths` rounded up
+    to whole warps), f's and g's two hidden layers (stride h + 4) and means
+    (4 floats) for a tile of `rows` rows, and 18 floats for each of `steps`
+    x `paths` chain rows, rounded up to 4 rows."""
+    slots = -(-paths * h // 32) * 32 // h
+    qb = _r4((dx + dy) * h + h + n_mid * (h * h + h) + h * dx + dx)
+    return 4 * (qb + _padded_floats(dx, dx, h, n_mid) + _padded_floats(dx, dy, h, n_mid)
+                + slots * (2 * h + 4) + 4 * rows * (h + 4) + 8 * rows + 18 * _r4(steps * paths))
+
+
+def k12_plan(dx: int, dy: int, h: int, n_mid: int, n_paths: int, n_sms: int,
+             t1: int) -> tuple[int, int, int] | None:
+    """(paths a CTA, rows a tile of the parallel pass, steps a chunk) of
+    K12's split design: the fewest paths a CTA whose CTAs fill the SMs in one
+    wave (at most `k12_max_paths`); 4096 / h rows (one 4 x 4 block of a hidden
+    layer per thread), halved until one chunk step fits, at least 16; then
+    as many steps as fit, at most T − 1. None where even that does not
+    fit."""
+    paths = max(1, min(k12_max_paths(h), -(-n_paths // n_sms)))
+    rows = 4096 // h
+    while rows >= 16 and k12_smem_bytes(dx, dy, h, n_mid, paths, rows, 1) > SMEM_LIMIT:
+        rows //= 2
+    if rows < 16:
+        return None
+    fixed = k12_smem_bytes(dx, dy, h, n_mid, paths, rows, 0)
+    steps = min(t1, (SMEM_LIMIT - fixed) // 72 // 4 * 4 // paths)
+    return (paths, rows, steps) if steps >= 1 else None
+
+
+def k12_ok(dx: int, dy: int, h: int, n_mid: int) -> bool:
+    """Whether K12's split design is instantiated for the shape and holds
+    its largest CTA (`k12_max_paths` paths, a 16-row tile, one step a chunk)
+    in shared memory, so `k12_plan` finds a plan for any B, M and T."""
+    return ((dx, dy) in KERNEL_DIMS and h in HIDDEN_WIDTHS
+            and k12_smem_bytes(dx, dy, h, n_mid, k12_max_paths(h), 16, 1) <= SMEM_LIMIT)
 
 
 def k13_smem_bytes(dx: int, dy: int, h: int, n_mid: int, n_weights: int, design: str = "split",
@@ -96,11 +160,8 @@ def k13_smem_bytes(dx: int, dy: int, h: int, n_mid: int, n_weights: int, design:
     if rows is None:
         rows = k13_tile_rows(dx, dy, h, n_mid, n_weights) or 16
 
-    def padded(din, dout):
-        ws = h + 4
-        return _r4(din * ws + h + n_mid * (h * ws + h) + h * dout + dout)
-
-    nets = padded(dx + dy, dx) + padded(dx, dx) + padded(dx, dy)
+    nets = (_padded_floats(dx + dy, dx, h, n_mid) + _padded_floats(dx, dx, h, n_mid)
+            + _padded_floats(dx, dy, h, n_mid))
     layers = (2 * (n_mid + 1) + 1) * rows * (h + 4)
     return 4 * (nets + _r4(n_weights + n_sc(dx, dy)) + layers + _ROW_FLOATS * rows)
 
@@ -148,10 +209,11 @@ def usable(ssm, m: int) -> bool:
     """Whether SVO's sweep for (ssm, m smoothed paths) is in K12/K13's class:
     qb, f and g constant-diagonal relu MLPs of one uniform hidden width in
     `fused_step.HIDDEN_WIDTHS` whose K13 buffers fit a CTA's shared memory in
-    both designs (the split design fits every shape the chain design does,
-    so the class is the chain design's, as before the split); (Dx, Dy) in
-    {(2, 2), (3, 3)}; a Gaussian emission; no qb GRU, known dynamics or
-    controls; 1 <= m <= MAX_M."""
+    both designs, and K12's split design's (`k12_ok`; both split designs
+    fit every shape the chain designs do, so the class is the chain
+    designs', as before the splits); (Dx, Dy) in {(2, 2), (3, 3)}; a
+    Gaussian emission; no qb GRU, known dynamics or controls; 1 <= m <=
+    MAX_M."""
     hidden = ssm.nets["qb"].hidden
     if not (len(hidden) >= 1 and hidden[0] in HIDDEN_WIDTHS
             and all(h == hidden[0] for h in hidden)):
@@ -166,6 +228,7 @@ def usable(ssm, m: int) -> bool:
                 and ssm.nets[n].cov_type == "const" for n in _NETS)
         and all(k13_ok(ssm.dx, ssm.dy, h, n_mid, _n_weights(ssm.dx, ssm.dy, h, n_mid), d)
                 for d in DESIGNS)
+        and k12_ok(ssm.dx, ssm.dy, h, n_mid)
     )
 
 
@@ -247,8 +310,8 @@ def _sweep(nets, sc, dx, dy, x_anchor, eps, y, xtilde=None):
 
 def _check_sweep(x_anchor, eps, y, consts, what, design=None):
     """Shapes, type, device and contiguity of a sweep's operands, in the
-    class of K13's `design` (None: of both, `usable`'s class, which K12
-    takes); returns (T−1, B, M, Dx, Dy)."""
+    class of K13's `design` (None: of both and K12's, `usable`'s class, which
+    K12 takes); returns (T−1, B, M, Dx, Dy)."""
     if eps.dim() != 4 or x_anchor.dim() != 3:
         raise ValueError(f"{what}: eps must be [T-1, B, M, Dx] and x_anchor [B, M, Dx]")
     t_len, batch, m, dx = eps.shape
@@ -256,7 +319,8 @@ def _check_sweep(x_anchor, eps, y, consts, what, design=None):
     n_w = consts["packed"].numel()
     designs = DESIGNS if design is None else (design,)
     if (not 1 <= m <= MAX_M or t_len < 1 or consts["dx"] != dx
-            or not all(k13_ok(dx, dy, h, n_mid, n_w, d) for d in designs)):
+            or not all(k13_ok(dx, dy, h, n_mid, n_w, d) for d in designs)
+            or (design is None and not k12_ok(dx, dy, h, n_mid))):
         kind = f"{design} kernel" if design else "kernel"
         raise ValueError(f"{what}: no {kind} for Dx={dx}, Dy={dy}, hidden={h}, {n_mid} "
                          f"middle layers, M={m}, T-1={t_len}")
@@ -284,38 +348,51 @@ def svo_sweep_forward_reference(x_anchor, eps, y, consts):
 svo_sweep_forward_reference.calls = 0
 
 
-def svo_sweep_forward(x_anchor, eps, y, consts):
+def svo_sweep_forward(x_anchor, eps, y, consts, design: str = "split"):
     """K12: SVO's reverse sweep in one launch. Returns (x_first, lp, lq,
     xtilde). CPU tensors run the plain version; CUDA tensors launch the
-    kernel. It takes no gradient itself: differentiate through `SVOSweep`."""
+    kernel of `design` ("split", the default and the only one the paths run;
+    "chain", the previous design, kept as its yardstick: the same bits). It
+    takes no gradient itself: differentiate through `SVOSweep`."""
+    if design not in K12_DESIGNS:
+        raise ValueError(f"svo_sweep_forward: no design {design!r} (one of {K12_DESIGNS})")
     if x_anchor.device.type == "cpu":
         return svo_sweep_forward_reference(x_anchor, eps, y, consts)
     if x_anchor.device.type != "cuda":
         raise ValueError(f"svo_sweep_forward: unsupported device {x_anchor.device}")
-    return _launch_forward(x_anchor, eps, y, consts,
-                           torch.cuda.current_stream(x_anchor.device).cuda_stream)
+    dev = x_anchor.device
+    return _launch_forward(x_anchor, eps, y, consts, torch.cuda.current_stream(dev).cuda_stream,
+                           design, torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
 svo_sweep_forward.launches = 0
+svo_sweep_forward.launches_by_design = dict.fromkeys(K12_DESIGNS, 0)  # which kernel the launches ran
 
 
-def _launch_forward(x_anchor, eps, y, consts, stream):
-    """Check K12's operands, allocate its outputs and launch it on `stream`."""
+def _launch_forward(x_anchor, eps, y, consts, stream, design="split", n_sms=132, plan=None):
+    """Check K12's operands, allocate its outputs and launch the kernel of
+    `design` on `stream`; the split design's (paths, tile rows, steps a
+    chunk) from `k12_plan` for `n_sms` SMs unless `plan` gives them."""
     t_len, batch, m, dx, dy = _check_sweep(x_anchor, eps, y, consts, "svo_sweep_forward")
     f32 = dict(dtype=torch.float32, device=x_anchor.device)
     x_first = torch.empty((batch, m, dx), **f32)
     lp = torch.empty((batch, m), **f32)
     lq = torch.empty((batch, m), **f32)
     xtilde = torch.empty((t_len, batch, m, dx), **f32)
+    h, n_mid = consts["hidden"], consts["n_mid"]
+    if design == "split" and plan is None:
+        plan = k12_plan(dx, dy, h, n_mid, batch * m, n_sms, t_len)
+    paths, rows, steps = plan if design == "split" else (0, 0, 0)
     lib = _build.load_library()
     _, off_f, off_g = consts["offsets"]
     err = lib.psvo_svo_forward(
         x_anchor.data_ptr(), eps.data_ptr(), y.data_ptr(), consts["packed"].data_ptr(),
         consts["sc"].data_ptr(), x_first.data_ptr(), lp.data_ptr(), lq.data_ptr(),
-        xtilde.data_ptr(), batch, m, t_len, dx, dy, consts["hidden"], consts["n_mid"],
-        consts["packed"].numel(), off_f, off_g, stream,
+        xtilde.data_ptr(), batch, m, t_len, dx, dy, h, n_mid, consts["packed"].numel(), off_f,
+        off_g, K12_DESIGNS.index(design), paths, rows, steps, stream,
     )
     svo_sweep_forward.launches += 1
+    svo_sweep_forward.launches_by_design[design] += 1
     _build.check(lib, err, "svo_sweep_forward")
     return x_first, lp, lq, xtilde
 

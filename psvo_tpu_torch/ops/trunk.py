@@ -11,7 +11,13 @@ through the large-K kernels (`ops/resample_gather.py`), then one launch of
   α = −½Σ(z_f² − ε² + z_g²) + ab floored at −3e30, for one step. Plain
   version: `trunk_forward_reference`, `fused_step._propose_weight` plus the
   floor. The operands are K1's: `fused_step.prepare`'s packed weights and
-  `sconst`, and one step's row of `fused_step.pack_coef`.
+  `sconst`, and one step's row of `fused_step.pack_coef`. Two designs, with
+  the same bits; the paths run "async" (512 threads a CTA: 8 warps run the
+  nets, q1 and f layer by layer side by side in 8 x 4 register blocks, while
+  the other 8 load the next tile's coefficients and draw its ε; the next
+  tile's x_res and streamed ε copied in while the current one computes;
+  `k9_plan` leaves out what does not fit); "tile" (256 threads, the previous
+  design) stays callable with `design="tile"` as its yardstick.
 - K10 `trunk_backward` (replaces `pallas_trunk._tr_bwd`,
   `csrc/trunk_backward.cu`): the VJP of K9 from its inputs and x_new —
   recompute the trunks and α, cut dα where the floor clamped, backprop g, q1
@@ -31,7 +37,8 @@ float32 (the reference's bf16 residuals were a TPU bandwidth means).
 seed and the step t, with K2's counter layout: `fused_step.stream_noise`
 extracts exactly what the kernel drew. The wrapper launches the kernel for
 CUDA tensors and runs the plain version for CPU tensors; each wrapper
-counts its launches (`<wrapper>.launches`), each plain version its calls.
+counts its launches (`<wrapper>.launches`, by design `.launches_by_design`),
+each plain version its calls.
 """
 
 from __future__ import annotations
@@ -61,6 +68,31 @@ def smem_bytes(dx: int, dy: int, h: int, n_mid: int) -> int:
     n_w = 2 * _net_floats(dx, h, n_mid, dx) + _net_floats(dx, h, n_mid, dy)
     nc = 3 * dx + dy + 1
     return 4 * (n_w + (max(dx, dy) + 3 * dx + 2 * h + _PARTS) * TILE + nc + (-nc) % 4)
+
+
+K9_DESIGNS = ("async", "tile")  # K9's designs: the one the paths run, the previous one
+K9_PLANS = ((True, True), (True, False), (False, True), (False, False))  # (pair, prefetch)
+
+
+def k9_smem_bytes(dx: int, dy: int, h: int, n_mid: int, pair: bool = True,
+                  prefetch: bool = True) -> int:
+    """Dynamic shared memory of K9's async design (csrc/trunk_forward.cu::
+    async_smem_floats): the tile design's (`smem_bytes`), plus with `pair`
+    f's two hidden layers, plus with `prefetch` a second ε tile, a second
+    row of coefficients and, unless f's spare hidden layer is wide enough
+    for it (pair, h >= Dy), a tile for g's mean."""
+    own_gm = prefetch and not (pair and h >= dy)
+    extra = (2 * h if pair else 0) + (dx if prefetch else 0) + (dy if own_gm else 0)
+    nc = 3 * dx + dy + 1
+    return smem_bytes(dx, dy, h, n_mid) + 4 * (extra * TILE + (nc + (-nc) % 4 if prefetch else 0))
+
+
+def k9_plan(dx: int, dy: int, h: int, n_mid: int) -> tuple[bool, bool]:
+    """(pair, prefetch) of K9's async design: the first of `K9_PLANS` whose
+    shared memory fits a CTA. (False, False) is the tile design's layout, so
+    every shape in `usable`'s class has a plan."""
+    return next((pl for pl in K9_PLANS if k9_smem_bytes(dx, dy, h, n_mid, *pl) <= SMEM_LIMIT),
+                (False, False))
 
 
 DESIGNS = ("tf32x3", "simt")  # K10's designs: the tensor-core one, the previous one
@@ -156,20 +188,24 @@ def _step_eps(seed, t, batch, dx, k, device):
     return fused_step.stream_noise_reference(seed, 1, batch, dx, k, device, t0=t)[0][0]
 
 
-def trunk_forward(x_res, coef_t, consts, *, eps=None, seed=None, t: int = 0):
+def trunk_forward(x_res, coef_t, consts, *, eps=None, seed=None, t: int = 0,
+                  design: str = "async"):
     """K9: one step of the trunk path after the resample. Noise either as the
     stream eps [B, Dx, K] or drawn in the kernel from `seed` (two uint32
     words) at step t, as K2 extracts it. CPU tensors run the plain version
     (in-kernel RNG replayed through K2's plain version); CUDA tensors launch
-    the kernel. When autograd records, through `TrunkForward` (K10 its
-    backward)."""
+    the kernel of `design` ("async", the default and the only one the paths
+    run; "tile", the previous design, kept as its yardstick: the same bits).
+    When autograd records, through `TrunkForward` (K10 its backward)."""
     if (seed is None) == (eps is None):
         raise ValueError("trunk_forward: pass either eps or seed")
+    if design not in K9_DESIGNS:
+        raise ValueError(f"trunk_forward: no design {design!r} (one of {K9_DESIGNS})")
     if torch.is_grad_enabled() and any(
         v.requires_grad for v in (x_res, coef_t, consts["packed"], consts["sconst"])
     ):
         return TrunkForward.apply(x_res, coef_t, consts["packed"], consts["sconst"], consts,
-                                  eps, seed, t)
+                                  eps, seed, t, design)
     batch, dx, k = x_res.shape
     if x_res.device.type == "cpu":
         if seed is not None:
@@ -195,20 +231,24 @@ def trunk_forward(x_res, coef_t, consts, *, eps=None, seed=None, t: int = 0):
     x_new = torch.empty_like(x_res)
     alpha = torch.empty((batch, k), dtype=torch.float32, device=dev)
     seed0, seed1 = (0, 0) if seed is None else seed
+    pair, prefetch = k9_plan(dx, dy, h, n_mid) if design == "async" else (False, False)
     lib = _build.load_library()
     _, off_f, off_g = consts["offsets"]  # q1 sits at offset 0
     err = lib.psvo_trunk_forward(
         x_res.data_ptr(), _ptr(eps), coef_t.data_ptr(), consts["packed"].data_ptr(),
         consts["sconst"].data_ptr(), x_new.data_ptr(), alpha.data_ptr(), seed0, seed1,
         int(seed is not None), t, batch, k, dx, dy, h, n_mid, consts["packed"].numel(), off_f,
-        off_g, torch.cuda.current_stream(dev).cuda_stream,
+        off_g, K9_DESIGNS.index(design), int(pair), int(prefetch),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     trunk_forward.launches += 1
+    trunk_forward.launches_by_design[design] += 1
     _build.check(lib, err, "trunk_forward")
     return x_new, alpha
 
 
 trunk_forward.launches = 0
+trunk_forward.launches_by_design = dict.fromkeys(K9_DESIGNS, 0)  # which kernel the launches ran
 
 
 def trunk_backward_reference(x_res, x_new, coef_t, consts, eps, d_x_new, d_alpha):
@@ -311,21 +351,21 @@ class TrunkForward(torch.autograd.Function):
     """`trunk_forward` with `trunk_backward` as its VJP: the counterpart of
     `pallas_trunk.trunk_call`'s custom VJP.
 
-    apply(x_res, coef_t, packed, sconst, consts, eps, seed, t) returns
-    (x_new, α). packed and sconst are consts["packed"] / consts["sconst"],
-    passed apart so autograd sees them. The forward saves x_res and x_new in
-    float32, coef_t, the weights and eps (or the seed and t it drew from);
-    ε gets no gradient.
+    apply(x_res, coef_t, packed, sconst, consts, eps, seed, t, design)
+    returns (x_new, α), `design` K9's. packed and sconst are
+    consts["packed"] / consts["sconst"], passed apart so autograd sees them.
+    The forward saves x_res and x_new in float32, coef_t, the weights and
+    eps (or the seed and t it drew from); ε gets no gradient.
     """
 
     @staticmethod
-    def forward(ctx, x_res, coef_t, packed, sconst, consts, eps, seed, t):
+    def forward(ctx, x_res, coef_t, packed, sconst, consts, eps, seed, t, design="async"):
         consts = dict(consts, packed=packed, sconst=sconst)
         batch, dx, k = x_res.shape
         if x_res.is_cuda and not k10_ok(dx, consts["dy"], consts["hidden"], consts["n_mid"], k):
             raise ValueError("TrunkForward: this configuration has no backward kernel "
                              "(trunk.trunk_backward)")
-        x_new, alpha = trunk_forward(x_res, coef_t, consts, eps=eps, seed=seed, t=t)
+        x_new, alpha = trunk_forward(x_res, coef_t, consts, eps=eps, seed=seed, t=t, design=design)
         ctx.save_for_backward(x_res, x_new, coef_t, packed, sconst, eps)
         ctx.static = {key: v for key, v in consts.items() if not torch.is_tensor(v)}
         ctx.seed, ctx.t = seed, t
@@ -342,4 +382,4 @@ class TrunkForward(torch.autograd.Function):
         noise = {"seed": ctx.seed, "t": ctx.t} if ctx.seed is not None else {"eps": eps}
         d_x_res, d_coef, d_packed, d_sconst = trunk_backward(
             x_res, x_new, coef_t, consts, d_x_new, d_alpha, **noise)
-        return d_x_res, d_coef, d_packed, d_sconst, None, None, None, None
+        return d_x_res, d_coef, d_packed, d_sconst, None, None, None, None, None

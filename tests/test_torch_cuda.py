@@ -1058,3 +1058,130 @@ def test_cluster_launch_outside_the_class_raises():
     want = fused_step.scan_backward_reference(x0, coef, consts, eps, idx, d_stats)
     for a, w in zip(got, want):
         assert _rel(a, w) <= 1e-4
+
+
+@pytest.mark.parametrize("m", [1, 16, 33])
+@pytest.mark.parametrize("preset,hidden", [("fhn_fivo_k1024_bench", 16), ("fhn_fivo_k1024_bench", 32),
+                                           ("fhn_fivo_k1024_bench", 64), ("lorenz63_svo_k256", 16),
+                                           ("lorenz63_svo_k256", 32), ("lorenz63_svo_k256", 64)])
+def test_svo_forward_split_is_bit_equal_to_chain(preset, hidden, m):
+    """K12's split design gives the chain design's bits in x_first, lp, lq and
+    x~, at (Dx, Dy) = (2, 2) and (3, 3), hidden 16, 32 and 64, M in {1, 16,
+    33}: with its own plan (one chunk) and with chunks of 7 steps."""
+    from psvo_tpu_torch.ops import svo
+
+    dev = _cuda()
+    _, consts, ops = _svo_operands(dev, (hidden, hidden), preset, b=3, m=m, t1=20)
+    by_design = dict(svo.svo_sweep_forward.launches_by_design)
+    split = svo.svo_sweep_forward(*ops, consts)
+    chain = svo.svo_sweep_forward(*ops, consts, design="chain")
+    assert all(torch.equal(a, c) for a, c in zip(split, chain))
+    paths = svo.k12_plan(consts["dx"], consts["dy"], hidden, 1, 3 * m, 132, 20)[0]
+    plan = (paths, 64, 7)
+    chunked = svo._launch_forward(*ops, consts, torch.cuda.current_stream(dev).cuda_stream,
+                                  "split", plan=plan)
+    assert all(torch.equal(a, c) for a, c in zip(chunked, chain))
+    assert svo.svo_sweep_forward.launches_by_design == {
+        "split": by_design["split"] + 2, "chain": by_design["chain"] + 1}
+    with pytest.raises(ValueError, match="no design"):
+        svo.svo_sweep_forward(*ops, consts, design="warp")
+
+
+def _k9_launch(x_res, coef, consts, noise, t, pair, prefetch):
+    """K9's async design with an explicit (pair, prefetch), through its C entry point."""
+    from psvo_tpu_torch.ops import _build
+
+    b, dx, k = x_res.shape
+    x_new = torch.empty_like(x_res)
+    alpha = torch.empty((b, k), device=x_res.device)
+    seed = noise.get("seed") or (0, 0)
+    lib = _build.load_library()
+    _, off_f, off_g = consts["offsets"]
+    err = lib.psvo_trunk_forward(
+        x_res.data_ptr(), noise["eps"].data_ptr() if "eps" in noise else None, coef.data_ptr(),
+        consts["packed"].data_ptr(), consts["sconst"].data_ptr(), x_new.data_ptr(),
+        alpha.data_ptr(), seed[0], seed[1], int("seed" in noise), t, b, k, dx, consts["dy"],
+        consts["hidden"], consts["n_mid"], consts["packed"].numel(), off_f, off_g, 0, int(pair),
+        int(prefetch), torch.cuda.current_stream(x_res.device).cuda_stream)
+    _build.check(lib, err, "psvo_trunk_forward")
+    return x_new, alpha
+
+
+@pytest.mark.parametrize("hidden", [16, 32, 64])
+@pytest.mark.parametrize("rng", [False, True])
+def test_trunk_forward_async_is_bit_equal_to_tile(hidden, rng):
+    """K9's async design gives the tile design's bits in x_new and α, with the
+    streamed ε and the in-kernel draw, at hidden 16, 32 and 64; K = 3840 at B
+    = 3 is 180 tiles, a ragged second wave of the persistent grid; row 1 lies
+    below the −3e30 floor. At hidden 64 every (pair, prefetch) part-set of
+    the design gives the same bits too."""
+    from psvo_tpu_torch.ops import trunk
+
+    dev = _cuda()
+    ssm = init_ssm(_l96_cfg(hidden), torch.Generator().manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    b, k, t = 3, 3840, 4
+    x_res = torch.randn((b, 40, k), generator=g, device=dev) * 3.0
+    coef = torch.rand((b, 161), generator=g, device=dev) + 0.1
+    coef[1, 120:160] = 1e16
+    noise = {"seed": (5, 6), "t": t} if rng else {"eps": torch.randn((b, 40, k), generator=g,
+                                                                       device=dev)}
+    with torch.no_grad():
+        consts = fused_step.prepare(ssm)
+        by_design = dict(trunk.trunk_forward.launches_by_design)
+        new = trunk.trunk_forward(x_res, coef, consts, **noise)
+        old = trunk.trunk_forward(x_res, coef, consts, **noise, design="tile")
+        assert trunk.trunk_forward.launches_by_design == {
+            "async": by_design["async"] + 1, "tile": by_design["tile"] + 1}
+        assert all(torch.equal(a, o) for a, o in zip(new, old))
+        assert bool((new[1][1] == -3e30).all())
+        if hidden == 64:
+            for pair, prefetch in trunk.K9_PLANS:
+                got = _k9_launch(x_res, coef, consts, noise, t, pair, prefetch)
+                assert all(torch.equal(a, o) for a, o in zip(got, old)), (pair, prefetch)
+    with pytest.raises(ValueError, match="no design"):
+        trunk.trunk_forward(x_res, coef, consts, **noise, design="simt")
+
+
+def test_svo_paths_launch_only_the_split_designs():
+    """SVO serving (smooth_posterior) and one train step: every K12 and K13
+    launch is the split design."""
+    from psvo_tpu_torch import infer
+    from psvo_tpu_torch.ops import svo
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    dev = _cuda()
+    cfg = _small_cfg("lorenz63_svo_k256")
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ys = torch.randn((4, 6, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+    fns = (svo.svo_sweep_forward, svo.svo_sweep_backward)
+    before = [dict(f.launches_by_design) for f in fns]
+    paths = infer.smooth_posterior(ssm, ys, cfg, torch.Generator(device=dev).manual_seed(3),
+                                   method="svo")
+    assert bool(torch.isfinite(paths).all())
+    make_train_step(ssm, cfg, make_optimizer(cfg))(torch.Generator(device=dev).manual_seed(4), ys)
+    got = [{d: f.launches_by_design[d] - n[d] for d in n} for f, n in zip(fns, before)]
+    assert got == [{"split": 2, "chain": 0}, {"split": 1, "chain": 0}]
+
+
+def test_lorenz96_paths_launch_only_the_async_design():
+    """Lorenz-96 serving (filter_posterior) and one train step: every K9
+    launch is the async design (T − 1 per call), every K10 launch the
+    tensor-core one."""
+    from psvo_tpu_torch import infer
+    from psvo_tpu_torch.ops import trunk
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    dev = _cuda()
+    cfg = dataclasses.replace(_l96_cfg(), train=dataclasses.replace(
+        PRESETS["lorenz96_fivo_k8192_sharded"].train, steps_per_call=1))
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ys = torch.randn((4, 6, 40), generator=torch.Generator().manual_seed(2)).to(dev) * 3.0
+    k9, k10 = dict(trunk.trunk_forward.launches_by_design), dict(trunk.trunk_backward.launches_by_design)
+    means = infer.filter_posterior(ssm, ys, cfg)
+    assert bool(torch.isfinite(means).all())
+    make_train_step(ssm, cfg, make_optimizer(cfg))(torch.Generator(device=dev).manual_seed(4), ys)
+    assert {d: trunk.trunk_forward.launches_by_design[d] - n for d, n in k9.items()} == {
+        "async": 10, "tile": 0}
+    assert {d: trunk.trunk_backward.launches_by_design[d] - n for d, n in k10.items()} == {
+        "tf32x3": 5, "simt": 0}

@@ -20,6 +20,13 @@ J_t^T) must miss. The kernel itself is held to its plain version and to the
 previous design on the card (`tests/test_torch_cuda.py`, `chip_smoke.py`
 phase w); here, without a card, the shared-memory layouts, the gates and the
 ctypes signatures.
+
+K12's split design (`ops/svo.py::svo_sweep_forward`) keeps only qb and the
+draw on the serial chain and computes f, g and the density terms per (t,
+path) row afterwards, each path's terms then added t descending: the plain
+step teacher-forced from the plain x̃ on every row gives the plain sweep's
+x̃, lp and lq exactly. Its shared memory, its plan and its unchanged class
+are checked here; its bits against the chain design on the card (phase v).
 """
 
 import ctypes
@@ -194,6 +201,8 @@ def test_k13_paths_a_group(n_paths, n_sms, rows, want):
 # (entry point, its C source, the parameters before the stream, the designs)
 _ENTRIES = [("psvo_svo_backward", "svo_sweep.cu", ["max_ctas", "design", "tile_rows", "paths"],
              svo.DESIGNS),
+            ("psvo_svo_forward", "svo_sweep.cu", ["off_g", "design", "paths", "tile_rows", "steps"],
+             svo.K12_DESIGNS),
             ("psvo_ffbsi_forward", "ffbsi.cu", ["dx", "design", "paths", "chunk"], ffbsi.DESIGNS)]
 
 
@@ -235,6 +244,10 @@ def test_svo_usable_class_is_unchanged(dims, h, n_mid, admitted):
         n_w = svo._n_weights(*dims, h, n_mid)
         assert svo.k13_ok(*dims, h, n_mid, n_w, "split")
         assert svo.k13_smem_bytes(*dims, h, n_mid, n_w, "split") <= SMEM_LIMIT
+        assert svo.k12_ok(*dims, h, n_mid)  # K12's split design takes it too
+        for n_paths, t1 in ((1, 1), (512, 99), (32 * 1024, 1000)):
+            paths, rows, steps = svo.k12_plan(*dims, h, n_mid, n_paths, 132, t1)
+            assert svo.k12_smem_bytes(*dims, h, n_mid, paths, rows, steps) <= SMEM_LIMIT
 
 
 _FFBSI_CASES = [(dx, m, dx in (2, 3) and 1 <= m <= 256) for dx in (1, 2, 3, 4)
@@ -288,3 +301,83 @@ def test_unknown_designs_raise():
         ffbsi.ffbsi_forward(x, x, x, x, x, x, x, x, design="warp")
     with pytest.raises(ValueError, match="no design"):
         svo.svo_sweep_backward(x, x, x, {}, x, design="tiles")
+
+
+def test_unknown_k12_design_raises():
+    x = torch.zeros((1, 2, 3))
+    with pytest.raises(ValueError, match="no design"):
+        svo.svo_sweep_forward(x, x, x, {}, design="tiles")
+
+
+@pytest.mark.parametrize("dims,h,n_mid,paths,rows,steps", [
+    ((3, 3), 64, 1, 4, 64, 99), ((2, 2), 64, 1, 4, 64, 99), ((3, 3), 32, 1, 4, 128, 99),
+    ((3, 3), 16, 1, 4, 256, 99), ((3, 3), 16, 13, 16, 16, 1), ((2, 2), 32, 4, 8, 16, 1),
+    ((2, 2), 64, 1, 4, 16, 1)])
+def test_k12_shared_memory(dims, h, n_mid, paths, rows, steps):
+    """K12's split design's bytes: qb packed, f and g with h-wide rows padded
+    to h + 4 floats, two hidden vectors and x̃ (4 floats) per chain slot
+    (paths of h threads rounded up to whole warps), f's and g's two hidden
+    layers and means for a tile, 18 floats a chain row. At the preset (B=32,
+    M=16, T−1=99, hidden 64) one chunk of the whole sweep: 4 paths a CTA,
+    tiles of 64 rows, 160,560 bytes; the largest CTAs of the widest classes
+    fit."""
+    dx, dy = dims
+    qb = (dx + dy) * h + h + n_mid * (h * h + h) + h * dx + dx
+    slots = -(-paths * h // 32) * 32 // h
+    want = 4 * (qb + (-qb) % 4 + _padded(dx, dx, h, n_mid) + _padded(dx, dy, h, n_mid)
+                + slots * (2 * h + 4) + 4 * rows * (h + 4) + 8 * rows
+                + 18 * (-(-steps * paths // 4) * 4))
+    assert svo.k12_smem_bytes(dx, dy, h, n_mid, paths, rows, steps) == want <= SMEM_LIMIT
+    if (dims, h, n_mid) == ((3, 3), 64, 1):
+        assert want == 160560 and svo.k12_plan(dx, dy, h, n_mid, 512, 132, 99) == (4, 64, 99)
+    assert svo.k12_ok(dx, dy, h, n_mid)
+
+
+@pytest.mark.parametrize("n_paths,t1,want", [(512, 99, (4, 64, 99)), (32, 99, (1, 64, 99)),
+                                             (512, 5000, (4, 64, 348)),
+                                             (1 << 16, 99, (4, 64, 99))])
+def test_k12_plan(n_paths, t1, want):
+    """Paths a CTA enough to fill 132 SMs in one wave (at most 4 at hidden
+    64: two warps a path), 64-row tiles, and as many steps a chunk as fit
+    (all of T − 1 at the preset)."""
+    assert svo.k12_plan(3, 3, 64, 1, n_paths, 132, t1) == want
+
+
+def _lp_lq_by_rows(nets, sc, dx, dy, x_anchor, eps, y, xtilde):
+    """The split decomposition: each step's terms from the plain step on its
+    row, teacher-forced from the plain x̃ (x̃_{t+1} for x_next), then added t
+    descending."""
+    lp = torch.zeros(x_anchor.shape[:2], dtype=x_anchor.dtype)
+    lq = torch.zeros_like(lp)
+    xs = []
+    for t in reversed(range(eps.shape[0])):
+        x_next = x_anchor if t == eps.shape[0] - 1 else xtilde[t + 1]
+        x_t, lp_t, lq_t = svo._step(nets, sc, dx, dy, x_next, y[t], eps[t])
+        xs.append(x_t)
+        lp, lq = lp + lp_t, lq + lq_t
+    return lp, lq, torch.stack(xs[::-1])
+
+
+@pytest.mark.parametrize("hidden", [(16,), (16, 16), (32, 32), (64, 64), (16, 16, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_split_decomposition_of_the_sweep(hidden, dtype):
+    """K12's split design computes x̃ on the chain and f, g and the terms
+    per row afterwards: svo._step teacher-forced from the plain x̃ on every
+    row, the rows' terms then added t descending, gives the plain sweep's
+    x̃, lp and lq exactly (in the loop's own batch shapes); all the rows at
+    once in one batch agree to rounding."""
+    consts, ops, _, _ = _operands(hidden, dtype)
+    nets, sc, dx, dy = svo._nets(consts), consts["sc"], consts["dx"], consts["dy"]
+    x_first, lp, lq, xs = svo._sweep(nets, sc, dx, dy, *ops)
+    lp_r, lq_r, xs_r = _lp_lq_by_rows(nets, sc, dx, dy, *ops, xs)
+    assert torch.equal(xs_r, xs) and torch.equal(lp_r, lp) and torch.equal(lq_r, lq)
+    x_anchor, eps, y = ops
+    t1, b, m, _ = eps.shape
+    x_next = torch.cat([xs[1:], x_anchor[None]]).reshape(t1 * b, m, dx)
+    x_all, lp_t, lq_t = svo._step(nets, sc, dx, dy, x_next, y.reshape(t1 * b, dy),
+                                  eps.reshape(t1 * b, m, dx))
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(x_all.reshape(xs.shape), xs, rtol=tol, atol=tol)
+    lp_sum = lp_t.reshape(t1, b, m).flip(0).cumsum(0)[-1]
+    torch.testing.assert_close(lp_sum, lp, rtol=tol, atol=tol * 100)
+    torch.testing.assert_close(lq_t.reshape(t1, b, m).sum(0), lq, rtol=tol, atol=tol * 100)

@@ -11,6 +11,12 @@ mantissa bits, as `cvt.rna.tf32.f32` and the kernel's integer version of
 it do; lo truncated) at the shapes of K10's stages. The kernel itself is
 held to its plain version and to the previous design on the card
 (`tests/test_torch_cuda.py`, `chip_smoke.py` phase s).
+
+K9's async design (`ops/trunk.py::trunk_forward`, `csrc/trunk_forward.cu`)
+has its host side here too: its shared memory and the parts of it that fit
+(`k9_plan`), the unchanged class of `trunk.usable`, the design argument
+and its ctypes signature; its bits against the tile design are checked on
+the card (`tests/test_torch_cuda.py`, `chip_smoke.py` phase p).
 """
 
 import ctypes
@@ -149,3 +155,78 @@ def test_ctypes_signature_carries_the_design():
     assert [n for _, n in params][-3:] == ["max_ctas", "design", "stream"]
     assert trunk.DESIGNS == ("tf32x3", "simt")
     assert "design == 0" in src and "trunk_backward_tf32x3_kernel" in src
+
+
+@pytest.mark.parametrize("hidden,pair_prefetch,want", [(16, (True, True), 99456),
+                                                       (32, (True, True), 140800),
+                                                       (64, (True, True), 231680),
+                                                       (64, (False, False), 188016)])
+def test_k9_shared_memory_at_lorenz96(hidden, pair_prefetch, want):
+    """K9's async design at Dx = Dy = 40, one middle layer: the tile design's
+    bytes, plus f's two hidden layers (pair), a second ε tile, a second row
+    of 164 coefficients and, where f's spare hidden layer is narrower than
+    Dy = 40, a tile for g's mean (prefetch). Both parts fit at every width,
+    at hidden 64 with 768 bytes to spare; without them it is the tile
+    design's layout."""
+    pair, prefetch = pair_prefetch
+    own_gm = prefetch and not (pair and hidden >= 40)
+    extra = (2 * hidden if pair else 0) + (40 if prefetch else 0) + (40 if own_gm else 0)
+    assert trunk.k9_smem_bytes(40, 40, hidden, 1, pair, prefetch) == want
+    assert want == (trunk.smem_bytes(40, 40, hidden, 1) + 4 * 64 * extra
+                    + (4 * 164 if prefetch else 0)) <= SMEM_LIMIT
+    assert trunk.k9_plan(40, 40, hidden, 1) == (True, True)
+    if hidden == 64:
+        assert SMEM_LIMIT - trunk.k9_smem_bytes(40, 40, 64, 1) == 768
+
+
+def _l96_ssm(hidden, n_mid):
+    from psvo_tpu_torch.config import PRESETS, NetConfig
+    from psvo_tpu_torch.models.ssm import SSM
+
+    net = NetConfig(hidden=(hidden,) * (n_mid + 1))
+    cfg = PRESETS["lorenz96_fivo_k8192_sharded"]
+    return SSM(cfg.with_nets(q0=net, q1=net, q2=net, f=net, qb=net, g=net)), cfg.smc
+
+
+# the widest n_mid trunk.usable admitted before the async design, per width
+_TRUNK_CLASS = {16: 50, 32: 11, 64: 1}
+_TRUNK_CASES = [(h, n_mid, n_mid <= top) for h, top in _TRUNK_CLASS.items()
+                for n_mid in sorted({0, 1, top - 2, top - 1, top, top + 1}) if n_mid >= 0]
+
+
+@pytest.mark.parametrize("hidden,n_mid,admitted", _TRUNK_CASES)
+def test_trunk_usable_class_is_unchanged(hidden, n_mid, admitted):
+    """trunk.usable admits exactly the shapes it admitted before the async
+    design (n_mid up to 50, 11 and 1 at widths 16, 32 and 64), and for each
+    the async design finds a plan that fits: the parts that fit, down to
+    the tile design's layout (at hidden 32, n_mid 10 and 11)."""
+    ssm, smc = _l96_ssm(hidden, n_mid)
+    assert trunk.usable(ssm, smc) == admitted
+    if admitted:
+        pair, prefetch = trunk.k9_plan(40, 40, hidden, n_mid)
+        assert trunk.k9_smem_bytes(40, 40, hidden, n_mid, pair, prefetch) <= SMEM_LIMIT
+        assert trunk.k9_smem_bytes(40, 40, hidden, n_mid, False, False) == trunk.smem_bytes(
+            40, 40, hidden, n_mid)
+        if (hidden, n_mid) in ((32, 10), (32, 11), (16, 50)):
+            assert (pair, prefetch) == (False, False)
+
+
+def test_unknown_k9_design_raises():
+    x = torch.zeros((1, 40, 64))
+    with pytest.raises(ValueError, match="no design"):
+        trunk.trunk_forward(x, torch.zeros((1, 161)), {}, eps=x, design="simt")
+
+
+def test_k9_ctypes_signature_carries_the_design():
+    """psvo_trunk_forward's argtypes match its C parameters, with the design
+    and the async design's two parts last before the stream; design 0 is the
+    async kernel (K9_DESIGNS[0]), 1 the tile one."""
+    src = (_build.CSRC / "trunk_forward.cu").read_text()
+    m = re.search(r'extern "C" int psvo_trunk_forward\((.*?)\)\s*\{', src, re.S)
+    params = [tuple(p.strip().rsplit(None, 1)) for p in m.group(1).split(",")]
+    want = [ctypes.c_void_p if "*" in t else ctypes.c_uint32 if t == "uint32_t" else ctypes.c_int
+            for t, _ in params]
+    assert _build.SIGNATURES["psvo_trunk_forward"] == want
+    assert [n for _, n in params][-4:] == ["design", "pair", "prefetch", "stream"]
+    assert trunk.K9_DESIGNS == ("async", "tile")
+    assert "design == 0" in src and "trunk_forward_async_kernel" in src

@@ -5,12 +5,16 @@ one GPU, and the variants that show what holds K5 back.
     python3 tools/stage_profile.py
 
 Builds the port's kernels as `chip_smoke.py` does, then copies of
-`csrc/ffbsi.cu` and `csrc/svo_sweep.cu` patched three ways, each with nvcc
-into `psvo_tpu_torch/_build/stage_profile/` (gitignored):
+`csrc/ffbsi.cu`, `csrc/svo_sweep.cu` and `csrc/trunk_forward.cu` patched
+three ways, each with nvcc into `psvo_tpu_torch/_build/stage_profile/`
+(gitignored):
 
-- "marks": `clock64()` at the stage boundaries of `ffbsi_staged_kernel` and
-  `svo_backward_split_kernel`; CTA 0's thread 0 adds each stage's cycles
-  into a device array, read back after one launch;
+- "marks": `clock64()` at the stage boundaries of `ffbsi_staged_kernel`,
+  `svo_backward_split_kernel`, both designs of K12 (`svo_forward_split_kernel`,
+  `svo_forward_kernel`) and of K9 (`trunk_forward_async_kernel`,
+  `trunk_forward_kernel`); CTA 0's thread 0 adds each stage's cycles into a
+  device array, read back after one launch (a stage's cycles include the
+  barrier that closes it);
 - "compute only": K5 staged without the copies inside its loop (the first
   chunks stay in their slots and are computed again and again: wrong
   results, the time of everything but the copies);
@@ -21,8 +25,10 @@ Operands at the presets' shapes, drawn from a seed: K5 at
 `lorenz63_psvo_k1024`'s (B=32, M=16, K=1024, T-1=99, Dx=3; support terms of
 a transition near the support, normalized log-weights, Gumbels), K13 at
 `lorenz63_svo_k256`'s (B=32, M=16, T-1=99, hidden (64, 64), random weights
-nudged from init). Times are device time per call from torch.profiler over
-20 calls, designs alternated. Exits non-zero without a card or if a patch's
+nudged from init), K12 on the same operands, K9 at
+`lorenz96_fivo_k8192_sharded`'s (B=8, K=8192, Dx=Dy=40, hidden (64, 64),
+random weights; streamed ε and the in-kernel draw). Times are device time
+per call from torch.profiler over 20 calls, designs alternated. Exits non-zero without a card or if a patch's
 anchor is missing from the sources. Imports nothing of JAX.
 """
 
@@ -49,6 +55,19 @@ K5_STAGES = ["wait for the chunk, barrier, next chunk's copies issued", "the log
              "butterflies", "barrier", "argmax merge, the pick, logp (lse window every 32 steps)"]
 K13_STAGES = ["tile operands", "qb and f forward", "-", "f terms", "f backward", "g forward",
               "g terms", "g backward", "J_t", "the recurrence", "qb backward", "sc sums"]
+K12_SPLIT_STAGES = ["chunk copies wait, barrier", "chain: registers loaded", "chain: qb's first layer, the path's barrier",
+                    "chain: middle layers", "chain: head (16-deep sums, two shuffles)",
+                    "chain: draw, stores, the path's barrier", "barrier after the chain",
+                    "f and g over the rows, terms", "barrier, sums"]
+K12_CHAIN_STAGES = ["operands, barrier", "qb's first layer, barrier", "qb's middle layers",
+                    "qb's head, the draw, barrier", "f's and g's first layers, barrier",
+                    "f's and g's middle layers", "f's and g's heads, barrier",
+                    "terms (one thread), barrier"]
+K9_ASYNC_STAGES = ["copy wait, barrier (the other warps' draw of this tile's ε)",
+                   "q1 and f side by side, next copies started", "the draw, x_new out",
+                   "g", "α"]
+K9_TILE_STAGES = ["top barrier", "loads (x_res; ε or the draw), coefficients, barrier",
+                  "q1, then f", "the draw, barrier, x_new out", "g", "α, barrier"]
 
 
 def sub(text: str, old: str, new: str) -> str:
@@ -94,6 +113,90 @@ def marked_k13(src: str) -> str:
                "      __syncthreads();\n",
                "s += sg[r * 12 + e];\n        gsum[a.n_weights + e] += s;\n      }\n"
                "      __syncthreads();\n      PROF13(11);\n")
+
+
+def marked_k12(src: str) -> str:
+    """Stage marks in both K12 designs (thread 0 of CTA 0: a chain lane of
+    the split design)."""
+    s = sub(src, '#include "async_copy.cuh"\n',
+            '#include "async_copy.cuh"\n' + MARK.format(n=12) + MARK.format(n=120))
+    s = sub(s, "  float lp = 0.0f, lq = 0.0f;  // thread p < P: path p's sums\n",
+            "  float lp = 0.0f, lq = 0.0f;  // thread p < P: path p's sums\n"
+            "  long long prof_t_ = clock64();\n")
+    s = sub(s, "    cp_async_wait<0>();\n    __syncthreads();\n    if (chain) {\n",
+            "    cp_async_wait<0>();\n    __syncthreads();\n    PROF12(0);\n    if (chain) {\n")
+    s = sub(s, "      const float b3 = w3p[H * DX + ho];\n",
+            "      const float b3 = w3p[H * DX + ho];\n      PROF12(1);\n")
+    s = sub(s, "          h0[gl] = v < 0.0f ? 0.0f : v;\n        }\n        path_sync<H>(p);\n",
+            "          h0[gl] = v < 0.0f ? 0.0f : v;\n        }\n        path_sync<H>(p);\n"
+            "        PROF12(2);\n")
+    s = sub(s, "        // the head: lane (ho, hk) adds the terms j = hk mod 4 of output ho\n",
+            "        PROF12(3);\n        // the head: lane (ho, hk) adds the terms j = hk mod 4 of output ho\n")
+    s = sub(s, "        s = s + __shfl_xor_sync(0xffffffffu, s, 2);\n",
+            "        s = s + __shfl_xor_sync(0xffffffffu, s, 2);\n        PROF12(4);\n")
+    s = sub(s, "the head's reads are done\n      }\n    }\n    __syncthreads();\n",
+            "the head's reads are done\n        PROF12(5);\n      }\n"
+            "    }\n    __syncthreads();\n    PROF12(6);\n")
+    s = sub(s, "    __syncthreads();\n    if (tid < P) {  // t descending",
+            "    PROF12(7);\n    __syncthreads();\n    if (tid < P) {  // t descending")
+    s = sub(s, "        lq += tl[(c * P + tid) * 2 + 1];\n      }\n    }\n  }\n",
+            "        lq += tl[(c * P + tid) * 2 + 1];\n      }\n    }\n    PROF12(8);\n  }\n")
+    # the chain design
+    s = sub(s, "  float lp = 0.0f, lq = 0.0f;  // thread j == 0 of each path\n",
+            "  float lp = 0.0f, lq = 0.0f;  // thread j == 0 of each path\n  long long prof_t_ = clock64();\n")
+    s = sub(s, "    if (j < DX) ep[j] = live ? a.eps[((size_t)t * NP + path) * DX + j] : 0.0f;\n    __syncthreads();\n",
+            "    if (j < DX) ep[j] = live ? a.eps[((size_t)t * NP + path) * DX + j] : 0.0f;\n    __syncthreads();\n"
+            "    PROF120(0);\n")
+    s = sub(s, "    hq[j] = hidden_unit<DQ, H>(wq, qin, j);\n    __syncthreads();\n",
+            "    hq[j] = hidden_unit<DQ, H>(wq, qin, j);\n    __syncthreads();\n    PROF120(1);\n")
+    s = sub(s, "    if (j < DX) {\n      const float mb = head_unit",
+            "    PROF120(2);\n    if (j < DX) {\n      const float mb = head_unit")
+    s = sub(s, "      if (live) a.xtilde[((size_t)t * NP + path) * DX + j] = x;\n    }\n    __syncthreads();\n",
+            "      if (live) a.xtilde[((size_t)t * NP + path) * DX + j] = x;\n    }\n    __syncthreads();\n"
+            "    PROF120(3);\n")
+    s = sub(s, "    hg[j] = hidden_unit<DX, H>(wg, xt, j);\n    __syncthreads();\n",
+            "    hg[j] = hidden_unit<DX, H>(wg, xt, j);\n    __syncthreads();\n    PROF120(4);\n")
+    s = sub(s, "    if (j < DX) {\n      mf[j] = head_unit", "    PROF120(5);\n    if (j < DX) {\n      mf[j] = head_unit")
+    s = sub(s, "hg + n_mid * H, j - DX);\n    }\n    __syncthreads();\n",
+            "hg + n_mid * H, j - DX);\n    }\n    __syncthreads();\n    PROF120(6);\n")
+    return sub(s, "    __syncthreads();  // thread 0 is done with qin and ep\n",
+               "    __syncthreads();  // thread 0 is done with qin and ep\n    PROF120(7);\n")
+
+
+def marked_k9(src: str) -> str:
+    """Stage marks in both K9 designs (CTA 0's thread 0)."""
+    s = sub(src, '#include "trunk_tile.cuh"\n',
+            '#include "trunk_tile.cuh"\n' + MARK.format(n=9) + MARK.format(n=90))
+    # the tile design
+    s = sub(s, "  for (int tile = blockIdx.x; tile < a.B * tiles_per_row; tile += gridDim.x) {\n",
+            "  long long prof_t_ = clock64();\n"
+            "  for (int tile = blockIdx.x; tile < a.B * tiles_per_row; tile += gridDim.x) {\n")
+    s = sub(s, "weights are in)\n    move_tile<true, kTile>(xa,",
+            "weights are in)\n    PROF90(0);\n    move_tile<true, kTile>(xa,")
+    s = sub(s, "    for (int i = tid; i < NC; i += kTrunkThreads) cf[i] = a.coef[(size_t)b * NC + i];\n"
+               "    __syncthreads();\n",
+            "    for (int i = tid; i < NC; i += kTrunkThreads) cf[i] = a.coef[(size_t)b * NC + i];\n"
+            "    __syncthreads();\n    PROF90(1);\n")
+    s = sub(s, "    tile_net<DX, H, DX>(wts + a.off_f, a.n_mid, xa, mf, h0, h1);\n",
+            "    tile_net<DX, H, DX>(wts + a.off_f, a.n_mid, xa, mf, h0, h1);\n    PROF90(2);\n")
+    s = sub(s, "    move_tile<false, kTile>(xb, nullptr, a.x_new + row, DX, K, k0);\n",
+            "    move_tile<false, kTile>(xb, nullptr, a.x_new + row, DX, K, k0);\n    PROF90(3);\n")
+    s = sub(s, "    tile_net<DX, H, DY>(wts + a.off_g, a.n_mid, xb, xa, h0, h1);\n",
+            "    tile_net<DX, H, DY>(wts + a.off_g, a.n_mid, xb, xa, h0, h1);\n    PROF90(4);\n")
+    s = sub(s, "-3e30f);\n    }\n  }\n}\n\n// ----",
+            "-3e30f);\n    }\n    PROF90(5);\n  }\n}\n\n// ----")
+    # the async design (thread 0 is in the compute group)
+    s = sub(s, "  int slot = 0;\n", "  int slot = 0;\n  long long prof_t_ = clock64();\n")
+    s = sub(s, "      operands(tile, ep, cf, tid, NT);\n    }\n    __syncthreads();\n",
+            "      operands(tile, ep, cf, tid, NT);\n    }\n    __syncthreads();\n    PROF9(0);\n")
+    s = sub(s, "    // the fused draw, in place of q1's mean, and x_new out\n",
+            "    PROF9(1);\n    // the fused draw, in place of q1's mean, and x_new out\n")
+    s = sub(s, "    // g on the drawn particles\n", "    PROF9(2);\n    // g on the drawn particles\n")
+    s = sub(s, "    // α: kParts threads per particle, each over every kParts-th row\n    {",
+            "    PROF9(3);\n    // α: kParts threads per particle, each over every kParts-th row\n    {")
+    return sub(s, "-3e30f);\n    }\n  }\n}\n\ntemplate <int DX, int DY, int H>\ncudaError_t launch_trunk_async",
+               "-3e30f);\n    }\n    PROF9(4);\n  }\n}\n\ntemplate <int DX, int DY, int H>\n"
+               "cudaError_t launch_trunk_async")
 
 
 def compute_only_k5(src: str) -> str:
@@ -158,14 +261,75 @@ def device_ms(fn, n: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for _ in range(8):  # a window now and then records no device events (chip_smoke.py)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ev:
+            return sum(e.time_range.elapsed_us() for e in ev) / n / 1e3
+    sys.exit("stage_profile: torch.profiler recorded no device time in 8 windows")
+
+
+def show(label: str, names, cyc) -> None:
+    print(f"{label}: " + "; ".join(f"{n} {v} ({100 * v / max(sum(cyc), 1):.1f}%)"
+                                   for n, v in zip(names, cyc)) + f"; total {sum(cyc)}", flush=True)
+
+
+def k12_profiles(marks, prof, with_lib, so, consts) -> None:
+    """K12's two designs on the SVO operands: alternated times, then one
+    marked launch of each."""
+    from psvo_tpu_torch.ops import svo
+
+    pairs = [tuple(device_ms(lambda: svo.svo_sweep_forward(*so, consts, design=d))
+                   for d in svo.K12_DESIGNS) for _ in range(3)]
+    b, m = so[0].shape[:2]
+    print(f"K12 B={b} M={m} T-1={so[1].shape[0]} hidden (64, 64), plan "
+          f"{svo.k12_plan(3, 3, 64, 1, b * m, 132, so[1].shape[0])}: (split, chain) ms "
+          + ", ".join(f"({x:.4f}, {y:.4f})" for x, y in pairs), flush=True)
+    for design, name, stages in (("split", "psvo_prof12", K12_SPLIT_STAGES),
+                                 ("chain", "psvo_prof120", K12_CHAIN_STAGES)):
+        prof(marks, name)
+        with_lib(marks, lambda: svo.svo_sweep_forward(*so, consts, design=design))
+        import torch
         torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not ev:
-        sys.exit("stage_profile: torch.profiler recorded no device time")
-    return sum(e.time_range.elapsed_us() for e in ev) / n / 1e3
+        show(f"K12 {design}, CTA 0 thread 0, cycles over the sweep", stages,
+             prof(marks, name)[:len(stages)])
+
+
+def k9_profiles(marks, prof, with_lib, dev, g) -> None:
+    """K9's two designs at the Lorenz-96 preset's shape (B=8, K=8192, hidden
+    (64, 64), random weights), both noise modes: alternated times, then one
+    marked launch of each."""
+    import torch
+    from psvo_tpu_torch.config import PRESETS, NetConfig
+    from psvo_tpu_torch.models.ssm import init_ssm
+    from psvo_tpu_torch.ops import fused_step, trunk
+
+    net = NetConfig(hidden=(64, 64))
+    cfg = PRESETS["lorenz96_fivo_k8192_sharded"].with_nets(q0=net, q1=net, q2=net, f=net, g=net)
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    with torch.no_grad():
+        consts = fused_step.prepare(ssm)
+        x_res = torch.randn((8, 40, 8192), generator=g, device=dev) * 3.0
+        coef = torch.rand((8, 161), generator=g, device=dev) + 0.1
+        eps = torch.randn((8, 40, 8192), generator=g, device=dev)
+        for mode, noise in (("RNG", {"seed": (5, 6), "t": 3}), ("stream", {"eps": eps})):
+            pairs = [tuple(device_ms(lambda: trunk.trunk_forward(x_res, coef, consts, **noise,
+                                                                  design=d))
+                           for d in trunk.K9_DESIGNS) for _ in range(3)]
+            print(f"K9 B=8 K=8192 hidden (64, 64) {mode}, (pair, prefetch) "
+                  f"{trunk.k9_plan(40, 40, 64, 1)}: (async, tile) ms "
+                  + ", ".join(f"({x:.4f}, {y:.4f})" for x, y in pairs), flush=True)
+            for design, name, stages in (("async", "psvo_prof9", K9_ASYNC_STAGES),
+                                         ("tile", "psvo_prof90", K9_TILE_STAGES)):
+                prof(marks, name)
+                with_lib(marks, lambda: trunk.trunk_forward(x_res, coef, consts, **noise,
+                                                            design=design))
+                torch.cuda.synchronize()
+                show(f"K9 {design} {mode}, CTA 0 thread 0, cycles over its tiles", stages,
+                     prof(marks, name)[:len(stages)])
 
 
 def main() -> int:
@@ -186,10 +350,14 @@ def main() -> int:
     f13 = (_build.CSRC / "svo_sweep.cu").read_text()
     out_root = _build.BUILD_ROOT / "stage_profile"
     args = (out_root, _build.nvcc(), _build.NVCC_FLAGS, _build.ARCH_FLAGS)
+    f9 = (_build.CSRC / "trunk_forward.cu").read_text()
     k5_names = ("psvo_ffbsi_forward",)
-    marks = load(build_variant("marks", {"ffbsi": marked_k5(f5), "svo_sweep": marked_k13(f13)},
-                               *args), k5_names + ("psvo_svo_forward", "psvo_svo_backward",
-                                                   "psvo_prof5", "psvo_prof13"))
+    marks = load(build_variant("marks", {"ffbsi": marked_k5(f5),
+                                         "svo_sweep": marked_k13(marked_k12(f13)),
+                                         "trunk_forward": marked_k9(f9)}, *args),
+                 k5_names + ("psvo_svo_forward", "psvo_svo_backward", "psvo_trunk_forward",
+                             "psvo_prof5", "psvo_prof13", "psvo_prof12", "psvo_prof120",
+                             "psvo_prof9", "psvo_prof90"))
     variants = {name: load(build_variant(name, {"ffbsi": patch(f5)}, *args), k5_names)
                 for name, patch in (("compute only", compute_only_k5),
                                     ("one copy a span", one_copy_a_span_k5))}
@@ -267,6 +435,8 @@ def main() -> int:
         print("K13 split, CTA 0 thread 0, cycles over its tiles: " + "; ".join(
             f"{n} {v} ({100 * v / sum(cyc):.1f}%)" for n, v in zip(names, cyc))
             + f"; total {sum(cyc)}", flush=True)
+        k12_profiles(marks, prof, with_lib, so, consts)
+    k9_profiles(marks, prof, with_lib, dev, g)
     print(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     return 0
