@@ -46,18 +46,26 @@ trunk path:
 
   (n) K2 at Dx=40 vs the plain Philox (bit-equal)
   (o) K7 ancestor_indices_large and K8 gather_particles vs their plain
-      versions on adversarial rows (small, full)
+      versions on adversarial rows (small, full); K7's cluster design equal
+      to the previous one (design="row") and the same on a second launch;
+      the two timed alternately, three pairs (the cluster design must be
+      faster in each)
   (p) K9 trunk_forward (the async design) vs its plain version on every
       step of one kernel run, with the streamed ε and the in-kernel draw
       (small, full), and bit-equal to the previous design (design="tile")
       on every step; the two timed alternately, three pairs per noise mode
       (the async design must be faster in each)
   (q) serving through make_eval_step and filter_posterior (with and without
-      the particles): launch counts (every K9 launch the async design),
+      the particles): launch counts (every K9 launch the async design,
+      every K7 launch the cluster design),
       ELBO, R², time per call, peak memory and a profile by kernel
   (r) K11 segment_sum_scatter vs its float64 plain version on the
       adversarial rows of (o) at K=128, 2048 and 8192 (bit-equal on a second
-      launch), with its device time beside zeros + scatter_add_'s
+      launch), with its device time beside zeros + scatter_add_'s; the tiled
+      design against the previous one (design="row"), max |d| printed, the
+      two timed alternately, three pairs on the adversarial rows and one
+      each on healthy and one-ancestor rows (the tiled design must be
+      faster in each)
   (s) K10 trunk_backward vs its plain version on every step of one kernel
       run, random cotangents, streamed ε and the in-kernel draw (small, full),
       and vs the previous design (design="simt", fp32 FMA) within 1e-5; the
@@ -66,7 +74,8 @@ trunk path:
   (t) training through make_train_step from the snapshot: 3 calls of one
       step on minibatches of 8, launch counts (99 per kernel per step), loss,
       grad norm, step time, peak memory and a profile by kernel; every K9
-      launch the async design, every K10 launch the tensor-core design
+      launch the async design, every K10 launch the tensor-core design,
+      every K7 launch the cluster design, every K11 launch the tiled design
 
 then `lorenz63_svo_k256` (Lorenz-63, SVO with the learned backward proposal,
 K=256, M=16, B=32, T=100, relu heads (64, 64), in-kernel RNG, the filter's
@@ -146,8 +155,8 @@ back with no device events is run again (profiled_kernels), and the run
 ends with the count of such windows. The second-to-last line is the
 kernels' JSON record (times beside the bound: the larger of the operations
 over 67 TFLOP/s fp32 and the bytes over 3.35 TB/s, the H100 SXM's published
-peaks; K5's, K9's, K12's and K13's rows also carry "ms_prev", the previous
-design's time alternated with theirs); the last line is the device record. Imports nothing of JAX: the
+peaks; K5's, K7's, K9's, K11's, K12's and K13's rows also carry "ms_prev", the
+previous design's time alternated with theirs); the last line is the device record. Imports nothing of JAX: the
 machine with the card has none.
 """
 
@@ -280,11 +289,11 @@ def zero_designs(*fns) -> None:
 
 FHN_KERNELS = {"K1": ("scan_forward_kernel",), "K4": ("scan_backward_kernel", "sum_rows_kernel")}
 PSVO_KERNELS = dict(FHN_KERNELS, K5=("ffbsi_staged_kernel",), K6=("ffbsi_backward_kernel",))
-L96_KERNELS = {"K9": ("trunk_forward_async_kernel",), "K7": ("ancestor_indices_large_kernel",),
+L96_KERNELS = {"K9": ("trunk_forward_async_kernel",), "K7": ("ancestor_indices_cluster_kernel",),
                "K8": ("gather_particles_kernel",)}
 L96_TRAIN_KERNELS = dict(L96_KERNELS, K10=("trunk_backward_tf32x3_kernel", "trunk_sum_ctas_kernel",
                                            "trunk_sum_tiles_kernel"),
-                         K11=("segment_sum_scatter_kernel",))
+                         K11=("segment_sum_tiled_kernel",))
 L96 = "lorenz96_fivo_k8192_sharded"
 
 
@@ -662,7 +671,8 @@ def trunk_run(ssm, cfg, ys, gen, rng_seed=None):
     step was allclose at 2e-4, whether every step was bit-equal to the tile
     design, the rows whose free runs took another ancestor somewhere (and
     the first such step), log Ẑ's relative difference over all rows and over
-    the rows without, and the last step's operands."""
+    the rows without, K7's index mismatches against its plain version on the
+    same log-weights over every step, and the last step's operands."""
     import torch
     from psvo_tpu_torch import smc
     from psvo_tpu_torch.ops import fused_step, trunk
@@ -687,9 +697,10 @@ def trunk_run(ssm, cfg, ys, gen, rng_seed=None):
     x_p, logw_p = x, logw  # the plain versions' own free run
     flip_step = torch.full((batch,), -1, device=dev)
     ell_k, ell_p = [], []
-    rel, maxd, close_all, same, same_tile = [], [], True, True, True
+    rel, maxd, close_all, same, same_tile, k7_bad = [], [], True, True, True, 0
     for t in range(t_steps - 1):
         idx = rg.ancestor_indices_large(logw, pos[t].contiguous())
+        k7_bad += int((idx != rg.ancestor_indices_large_reference(logw, pos[t])).sum())
         idx_p = rg.ancestor_indices_large_reference(logw_p, pos[t])
         flipped = (idx != idx_p).any(dim=-1) & (flip_step < 0)
         flip_step = torch.where(flipped, torch.full_like(flip_step, t), flip_step)
@@ -723,7 +734,7 @@ def trunk_run(ssm, cfg, ys, gen, rng_seed=None):
                 rel_z_clean=float(rel_z[clean].max()) if bool(clean.any()) else None,
                 maxd=float(torch.stack(maxd).max()), close=close_all, same=bool(same),
                 same_tile=bool(same_tile), finite=bool(torch.isfinite(x).all() and torch.isfinite(logw).all()),
-                last=(x_res, coef[-1], consts, eps[-1]))
+                k7_bad=k7_bad, last=(x_res, coef[-1], consts, eps[-1]))
 
 
 def relu_ties(consts, x_res, x_new, tol=1e-5):
@@ -761,7 +772,8 @@ def trunk_backward_run(ssm, cfg, ys, gen, rng_seed=None):
     Returns the largest per-step relative L2 of each leaf (d_x_res, d_coef,
     d_weights, d_sconst) and |Δ|, the raw ones, those against the previous
     design, the particles zeroed, whether a second launch on the last step
-    gave the same bits, and the last step's operands for timing."""
+    gave the same bits, K7's index mismatches against its plain version over
+    every step, and the last step's operands for timing."""
     import torch
     from psvo_tpu_torch import smc
     from psvo_tpu_torch.ops import fused_step, trunk
@@ -783,9 +795,11 @@ def trunk_backward_run(ssm, cfg, ys, gen, rng_seed=None):
     else:
         eps = torch.randn((t_steps - 1, batch, dx, k), generator=gen, device=dev)
     x, logw = x.contiguous(), logw.contiguous()
-    rel, maxd, rel_raw, rel_simt, zeroed = [], [], [], [], 0
+    rel, maxd, rel_raw, rel_simt, zeroed, k7_bad = [], [], [], [], 0, 0
     for t in range(t_steps - 1):
-        x_res = rg.gather_particles(x, rg.ancestor_indices_large(logw, pos[t].contiguous()))
+        idx = rg.ancestor_indices_large(logw, pos[t].contiguous())
+        k7_bad += int((idx != rg.ancestor_indices_large_reference(logw, pos[t])).sum())
+        x_res = rg.gather_particles(x, idx)
         noise = {"seed": rng_seed, "t": t} if rng_seed is not None else {"eps": eps[t]}
         x_new, alpha = trunk.trunk_forward(x_res, coef[t], consts, **noise)
         d_x_new = torch.randn(x_new.shape, generator=gen, device=dev)
@@ -812,7 +826,7 @@ def trunk_backward_run(ssm, cfg, ys, gen, rng_seed=None):
                 rel_raw=torch.stack(rel_raw).amax(0).tolist(),
                 rel_simt=torch.stack(rel_simt).amax(0).tolist(), zeroed=zeroed,
                 n=(t_steps - 1) * batch * k, same=same, finite=all(bool(torch.isfinite(g).all()) for g in got),
-                last=(bwd, noise, eps[-1], got))
+                k7_bad=k7_bad, last=(bwd, noise, eps[-1], got))
 
 
 SVO = "lorenz63_svo_k256"
@@ -1726,20 +1740,25 @@ def main() -> int:
                                               kk).contiguous()
         idx7 = rg.ancestor_indices_large(lw, pos)
         again = rg.ancestor_indices_large(lw, pos)
+        idx7_row = rg.ancestor_indices_large(lw, pos, design="row")
         idx7_r = rg.ancestor_indices_large_reference(lw, pos)
         xg = torch.randn((lw.shape[0], dd, kk), device=dev, generator=gen)
         out8 = rg.gather_particles(xg, idx7)
         out8_r = rg.gather_particles_reference(xg, idx7)
         torch.cuda.synchronize()
         k7_bad = int((idx7 != idx7_r).sum())
+        k7_bad_row = int((idx7 != idx7_row).sum())
+        row_bad = int((idx7_row != idx7_r).sum())
         k7_same = bool(torch.equal(idx7, again))
         k8_equal = bool(torch.equal(out8, out8_r))
         dominant = int(idx7[6].unique().numel())
-        print(f"[o] K7/K8 {label} [8, {kk}], D={dd}: K7 mismatches {k7_bad} (same indices on a "
-              f"second launch {k7_same}), K8 bit-equal {k8_equal} (the dominant-particle row draws "
-              f"{dominant} distinct ancestor(s))", flush=True)
-        if k7_bad or not k7_same or not k8_equal or dominant != 1:
-            fail(f"K7/K8 ({label}) disagree with their plain versions")
+        print(f"[o] K7/K8 {label} [8, {kk}], D={dd}: K7 cluster design (C = "
+              f"{rg.k7_cluster(8, kk, n_sms)}) mismatches {k7_bad} against the "
+              f"plain version, {k7_bad_row} against the row design (row against plain {row_bad}), "
+              f"same indices on a second launch {k7_same}; K8 bit-equal {k8_equal} (the "
+              f"dominant-particle row draws {dominant} distinct ancestor(s))", flush=True)
+        if k7_bad or k7_bad_row or row_bad or not k7_same or not k8_equal or dominant != 1:
+            fail(f"K7/K8 ({label}) disagree with their plain versions or K7's designs disagree")
     lw = torch.randn((l_batch, lk), device=dev, generator=gen) * 3
     pos = fused_step.systematic_positions(torch.rand(l_batch, device=dev, generator=gen), lk)
     pos = pos.contiguous()
@@ -1755,8 +1774,12 @@ def main() -> int:
            time_ms(lambda: rg.ancestor_indices_large_reference(lw, pos), reps=20)]
     k8 += [time_ms(lambda: rg.gather_particles(xg, idx7), reps=20),
            time_ms(lambda: rg.gather_particles_reference(xg, idx7), reps=20)]
-    k7_dev = [device_ms(lambda: rg.ancestor_indices_large(lw, pos)),
-              device_ms(lambda: rg.ancestor_indices_large_reference(lw, pos))]
+    # the cluster design and the previous one alternated, three pairs
+    k7_pairs = [tuple(device_ms(lambda: rg.ancestor_indices_large(lw, pos, design=d))
+                      for d in rg.K7_DESIGNS) for _ in range(3)]
+    k7_dev = [statistics.mean(p_[0] for p_ in k7_pairs),
+              device_ms(lambda: rg.ancestor_indices_large_reference(lw, pos)),
+              statistics.mean(p_[1] for p_ in k7_pairs)]
     k8_dev = [device_ms(lambda: rg.gather_particles(xg, idx7)),
               device_ms(lambda: rg.gather_particles_reference(xg, idx7)),
               device_ms(lambda: torch.gather(xg, -1, idx64))]
@@ -1771,6 +1794,17 @@ def main() -> int:
           f"median of 20. Device time per call (torch.profiler, 20 calls): K7 {k7_dev[0]:.4f} ms, "
           f"plain {k7_dev[1]:.4f} ms; K8 {k8_dev[0]:.4f} ms, plain {k8_dev[1]:.4f} ms, "
           f"torch.gather {k8_dev[2]:.4f} ms", flush=True)
+    k7_c = rg.k7_cluster(l_batch, lk, n_sms)
+    print(f"[o] K7 full [8, {lk}], device time per call (torch.profiler, 20 calls), (cluster, row) "
+          f"alternated: " + ", ".join(f"({a:.4f}, {b_:.4f})" for a, b_ in k7_pairs)
+          + f" ms; bound {k7_bound:.5f} ms: cluster at {100 * k7_bound / k7_dev[0]:.1f}% of it, row "
+          f"at {100 * k7_bound / k7_dev[2]:.1f}%; cluster C = {k7_c} ({l_batch * k7_c} CTAs), "
+          f"{kernel_resources('ancestor_indices_cluster_kernel')}, "
+          f"{rg.k7_cluster_smem_bytes(lk, k7_c)} B of shared memory per CTA; row "
+          f"{kernel_resources('ancestor_indices_large_kernel')}, {rg.k7_smem_bytes(lk)} B",
+          flush=True)
+    if not all(a < b_ for a, b_ in k7_pairs):
+        fail("K7: the cluster design is not faster than the row design in every pair")
     phase_done("o")
 
     # (p) K9 vs its plain version on every step of one kernel run
@@ -1794,6 +1828,7 @@ def main() -> int:
                   f"{r['maxd']:.3e}, finite {r['finite']}"
                   + (f", bit-equal to stream mode on K2's eps {r['same']}" if rng_seed else "")
                   + f", every step bit-equal to the previous design (tile) {r['same_tile']}"
+                  + f"; K7 index mismatches against its plain version, every step {r['k7_bad']}"
                   + f"; free runs: {r['flip_rows']} of {batch} rows with an ancestor flip (first "
                   f"flip step per row {r['first_flips']}), max rel d logZ {r['rel_z']:.3e}, over "
                   f"rows without "
@@ -1805,6 +1840,8 @@ def main() -> int:
                 fail(f"K9 ({label}, {mode}) disagrees with trunk_forward_reference")
             if not r["same_tile"]:
                 fail(f"K9's async design ({label}, {mode}) is not bit-equal to the tile design")
+            if r["k7_bad"]:
+                fail(f"K7 ({label}, {mode}) gave other indices than its plain version in the trunk run")
     k9_small_err = max(k9[("small", m)]["maxd"] for m in ("stream", "in-kernel RNG"))
     x_res, coef_t, l_consts, eps_t = k9[("full", "in-kernel RNG")]["last"]
     with torch.no_grad():
@@ -1869,19 +1906,20 @@ def main() -> int:
     torch.cuda.synchronize()
     held_l96_gb = torch.cuda.memory_allocated() / 1e9
     outs, serve_launches, serve_peak = {}, {}, {}
-    k9_serve_designs = {}
+    k9_serve_designs, k7_serve_designs = {}, {}
     for label, fn in calls.items():
         for f in l_kernels:
             f.launches = 0
         for f in l_plain:
             f.calls = 0
-        zero_designs(trunk.trunk_forward)
+        zero_designs(trunk.trunk_forward, rg.ancestor_indices_large)
         torch.cuda.reset_peak_memory_stats()
         outs[label] = fn()
         torch.cuda.synchronize()
         serve_peak[label] = torch.cuda.max_memory_allocated() / 1e9 - held_l96_gb
         serve_launches[label] = [f.launches for f in l_kernels] + [sum(f.calls for f in l_plain)]
         k9_serve_designs[label] = dict(trunk.trunk_forward.launches_by_design)
+        k7_serve_designs[label] = dict(rg.ancestor_indices_large.launches_by_design)
     metrics = outs["eval_step"]
     means = outs["filter_posterior"]
     p_means, parts, lws = outs["filter_posterior(return_particles)"]
@@ -1898,7 +1936,8 @@ def main() -> int:
     print(f"[q] serving {L96} (B={batch}, K={lk}, T={t_steps}, trained snapshot): ELBO "
           f"{float(metrics['elbo']):.3f}, mean ESS {float(metrics['ess_mean']):.3f}, R2(1..10) {r2}, "
           f"shapes ok {shapes_ok}, finite {finite}; launches K7/K8/K9 and plain-version calls per "
-          f"call {serve_launches}; K9 by design {k9_serve_designs}", flush=True)
+          f"call {serve_launches}; K9 by design {k9_serve_designs}; K7 by design "
+          f"{k7_serve_designs}", flush=True)
     for label in calls:
         print(f"[q] {label}: {serve_ms[label]:.3f}/{serve_ms_2[label]:.3f} ms per call (CUDA "
               f"events, median of 5 after 2 warm-up, two rounds); peak device memory "
@@ -1910,6 +1949,8 @@ def main() -> int:
         fail(f"serving {L96} launched K7/K8/K9 {serve_launches} (want {want_launch} per call)")
     if any(v != {"async": t_steps - 1, "tile": 0} for v in k9_serve_designs.values()):
         fail(f"serving {L96}: K9 by design {k9_serve_designs} (want every launch async)")
+    if any(v != {"cluster": t_steps - 1, "row": 0} for v in k7_serve_designs.values()):
+        fail(f"serving {L96}: K7 by design {k7_serve_designs} (want every launch the cluster one)")
     if not (shapes_ok and finite):
         fail(f"serving {L96} gave non-finite outputs or the wrong shapes")
     phase_done("q")
@@ -1924,10 +1965,13 @@ def main() -> int:
         g11 = torch.randn((lw.shape[0], 40, kk), device=dev, generator=gen)
         got = rg.segment_sum_scatter(g11, idx)
         again = rg.segment_sum_scatter(g11, idx)
+        row = rg.segment_sum_scatter(g11, idx, design="row")
         want = rg.segment_sum_scatter_reference(g11.double(), idx)
         torch.cuda.synchronize()
         k11[kk] = dict(rel=float((got.double() - want).norm() / want.norm()),
                        maxd=float((got.double() - want).abs().max()),
+                       d_row=float((got - row).abs().max()),
+                       rel_row=float((row.double() - want).norm() / want.norm()),
                        same=bool(torch.equal(got, again)),
                        orphans=bool((got[want == 0] == 0).all()),
                        dominant=int(idx[6].unique().numel()))
@@ -1935,8 +1979,9 @@ def main() -> int:
         print(f"[r] K11 segment_sum_scatter [8, 40, {kk}] on the adversarial rows: rel L2 "
               f"{r['rel']:.3e} against the float64 plain version, max|d| {r['maxd']:.3e}, "
               f"bit-equal on a second launch {r['same']}, sources with no child exactly 0 "
-              f"{r['orphans']} (the dominant-particle row has {r['dominant']} ancestor)",
-              flush=True)
+              f"{r['orphans']} (the dominant-particle row has {r['dominant']} ancestor); tiled "
+              f"design {rg.k11_plan(kk)} (P, tiles), max|d| from the row design {r['d_row']:.3e} "
+              f"(the row design's rel L2 {r['rel_row']:.3e})", flush=True)
         if not (r["rel"] <= 1e-6 and r["same"] and r["orphans"] and r["dominant"] == 1):
             fail(f"K11 (K={kk}) disagrees with segment_sum_scatter_reference")
     idx64 = idx.long()[:, None, :].expand(-1, 40, -1)
@@ -1945,11 +1990,17 @@ def main() -> int:
     one = torch.full((8, lk), -50.0, device=dev)
     one[torch.arange(8, device=dev), torch.randint(0, lk, (8,), device=dev, generator=gen)] = 0.0
     degenerate = rg.ancestor_indices_large(one, pos)
-    k11_dev = [device_ms(lambda: rg.segment_sum_scatter(g11, idx)),
+    # the tiled design and the previous one alternated: three pairs on the
+    # adversarial rows, one each on healthy and one-ancestor rows
+    k11_pairs = {rows: [tuple(device_ms(lambda: rg.segment_sum_scatter(g11, ix, design=d))
+                              for d in rg.K11_DESIGNS) for _ in range(n)]
+                 for rows, ix, n in (("adversarial", idx, 3), ("healthy", healthy, 1),
+                                     ("one ancestor", degenerate, 1))}
+    k11_dev = [statistics.mean(p_[0] for p_ in k11_pairs["adversarial"]),
                device_ms(lambda: rg.segment_sum_scatter_reference(g11, idx)),
                device_ms(lambda: torch.zeros_like(g11).scatter_add_(-1, idx64, g11)),
-               device_ms(lambda: rg.segment_sum_scatter(g11, healthy)),
-               device_ms(lambda: rg.segment_sum_scatter(g11, degenerate))]
+               k11_pairs["healthy"][0][0], k11_pairs["one ancestor"][0][0],
+               statistics.mean(p_[1] for p_ in k11_pairs["adversarial"])]
     # g read once, the indices, d_x written once; one addition per element
     k11_bound, k11_by = bound(float(g11.numel()), 2 * nbytes(g11) + nbytes(idx))
     print(f"[r] K11 full [8, 40, {lk}]: device time per call (torch.profiler, 20 calls) "
@@ -1957,6 +2008,18 @@ def main() -> int:
           f"{k11_dev[4]:.4f} ms with one ancestor per row; plain version {k11_dev[1]:.4f} ms, "
           f"zeros + scatter_add_ on the int64 index {k11_dev[2]:.4f} ms; bound "
           f"{k11_bound:.4f} ms ({k11_by})", flush=True)
+    k11_per, k11_c = rg.k11_plan(lk)
+    print(f"[r] K11 full, (tiled, row) alternated: "
+          + "; ".join(f"{rows} " + ", ".join(f"({a:.4f}, {b_:.4f})" for a, b_ in v)
+                      for rows, v in k11_pairs.items())
+          + f" ms; tiled at {100 * k11_bound / k11_dev[0]:.1f}% of the bound, row at "
+          f"{100 * k11_bound / k11_dev[5]:.1f}% (adversarial); tiled P = {k11_per}, {k11_c} tiles a "
+          f"row ({l_batch * k11_c * -(-40 // (32 // k11_per))} CTAs), "
+          f"{kernel_resources(f'segment_sum_tiled_kernelILi{k11_per}E')}, "
+          f"{rg.k11_smem_bytes(k11_per)} B of shared memory per CTA; row "
+          f"{kernel_resources('segment_sum_scatter_kernel')}, {4 * lk} B", flush=True)
+    if not all(a < b_ for v in k11_pairs.values() for a, b_ in v):
+        fail("K11: the tiled design is not faster than the row design in every pair")
     del g11, idx64
     phase_done("r")
 
@@ -1980,11 +2043,14 @@ def main() -> int:
                   f"zeroed on {r['zeroed']} of {r['n']} particle-steps with a relu tie; with every "
                   f"particle's cotangent, rel L2 " + ", ".join(f"{e:.3e}" for e in r["rel_raw"])
                   + "; against the previous design (simt), every particle, rel L2 "
-                  + ", ".join(f"{e:.3e}" for e in r["rel_simt"]) + " (bound 1e-05)", flush=True)
+                  + ", ".join(f"{e:.3e}" for e in r["rel_simt"]) + " (bound 1e-05); K7 index "
+                  f"mismatches against its plain version, every step {r['k7_bad']}", flush=True)
             if not (r["finite"] and r["same"] and max(r["rel"]) <= tol):
                 fail(f"K10 ({label}, {mode}) disagrees with trunk_backward_reference")
             if not max(r["rel_simt"]) <= 1e-5:
                 fail(f"K10 ({label}, {mode}) is further than 1e-5 from the previous design")
+            if r["k7_bad"]:
+                fail(f"K7 ({label}, {mode}) gave other indices than its plain version in the trunk run")
     k10_small_err = max(max(k10[("small", m)]["maxd"]) for m in ("stream", "in-kernel RNG"))
     (bwd10, noise10, eps10, got10) = k10[("full", "in-kernel RNG")]["last"]
     bwd10s, noise10s = k10[("full", "stream")]["last"][:2]
@@ -2052,7 +2118,8 @@ def main() -> int:
     held_train_gb = torch.cuda.memory_allocated() / 1e9
     for f in t_kernels:
         f.launches = 0
-    zero_designs(trunk.trunk_backward, trunk.trunk_forward)
+    zero_designs(trunk.trunk_backward, trunk.trunk_forward, rg.ancestor_indices_large,
+                 rg.segment_sum_scatter)
     for f in t_plain:
         f.calls = 0
     call_s, train_metrics = [], []
@@ -2064,6 +2131,8 @@ def main() -> int:
     train_launches = [f.launches for f in t_kernels]
     k10_by_design = dict(trunk.trunk_backward.launches_by_design)
     k9_by_design = dict(trunk.trunk_forward.launches_by_design)
+    k7_by_design = dict(rg.ancestor_indices_large.launches_by_design)
+    k11_by_design = dict(rg.segment_sum_scatter.launches_by_design)
     plain_calls = sum(f.calls for f in t_plain)
     peak_train_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(m_["loss"]) for m_ in train_metrics]
@@ -2075,7 +2144,8 @@ def main() -> int:
           f"B={batch}, K={lk}: loss per call {[round(v, 3) for v in losses]}, grad norm "
           f"{[round(v, 3) for v in norms]}, mean ESS {[round(v, 3) for v in ess_mean]}, "
           f"parameters moved {moved}; launches K7/K8/K9/K10/K11 {train_launches} (K9 by design "
-          f"{k9_by_design}, K10 by design {k10_by_design}), plain-version "
+          f"{k9_by_design}, K10 by design {k10_by_design}, K7 by design {k7_by_design}, K11 by "
+          f"design {k11_by_design}), plain-version "
           f"calls {plain_calls}; call times {[round(v, 3) for v in call_s]} s, train step "
           f"{l96_step_ms:.3f} ms (median of the calls after the first); peak device memory "
           f"{peak_train_gb - held_train_gb:.3f} GB above the {held_train_gb:.3f} GB held before",
@@ -2086,10 +2156,13 @@ def main() -> int:
     want_t = len(train_batches) * n_per_call * (cfg.data.t_steps - 1)
     if (train_launches != [want_t] * 5 or plain_calls != 0
             or k10_by_design != {"tf32x3": want_t, "simt": 0}
-            or k9_by_design != {"async": want_t, "tile": 0}):
+            or k9_by_design != {"async": want_t, "tile": 0}
+            or k7_by_design != {"cluster": want_t, "row": 0}
+            or k11_by_design != {"tiled": want_t, "row": 0}):
         fail(f"training {L96} launched K7/K8/K9/K10/K11 {train_launches} (want {want_t} each; "
              f"K9 by design {k9_by_design}, want all async; K10 by design {k10_by_design}, want "
-             f"all tf32x3), plain versions {plain_calls}")
+             f"all tf32x3; K7 {k7_by_design}, want all cluster; K11 {k11_by_design}, want all "
+             f"tiled), plain versions {plain_calls}")
     if not (all(math.isfinite(v) for v in losses + norms) and moved):
         fail(f"training {L96} gave non-finite losses or gradient norms, or left the parameters "
              f"as they were")
@@ -2808,7 +2881,8 @@ def main() -> int:
          "source": "psvo_tpu_torch/csrc/resample_gather.cu",
          "replaces": "psvo_tpu/ops/pallas_resample.py:338",
          "launches": serve_launches["filter_posterior"][0], "max_abs_err": 0.0, "ms": k7_dev[0],
-         "plain_ms": k7_dev[1], "bound_ms": k7_bound, "bound_by": k7_by, "library_ms": None},
+         "plain_ms": k7_dev[1], "bound_ms": k7_bound, "bound_by": k7_by, "library_ms": None,
+         "ms_prev": k7_dev[2]},
         {"name": "gather_particles", "route": "cuda", "source": "psvo_tpu_torch/csrc/resample_gather.cu",
          "replaces": "psvo_tpu/ops/pallas_resample.py:489",
          "launches": serve_launches["filter_posterior"][1], "max_abs_err": 0.0, "ms": k8_dev[0],
@@ -2828,7 +2902,7 @@ def main() -> int:
          "replaces": "psvo_tpu/ops/pallas_resample.py:902", "launches": train_launches[4],
          "on_path": True, "max_abs_err": max(r["maxd"] for r in k11.values()), "ms": k11_dev[0],
          "plain_ms": k11_dev[1], "bound_ms": k11_bound, "bound_by": k11_by,
-         "library_ms": k11_dev[2]},
+         "library_ms": k11_dev[2], "ms_prev": k11_dev[5]},
         {"name": "svo_sweep_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/svo_sweep.cu",
          "replaces": "psvo_tpu/ops/pallas_svo.py:446", "launches": svo_launches[2],
          "on_path": True, "max_abs_err": k12_small_err, "ms": k12_dev[0], "plain_ms": k12_dev[1],

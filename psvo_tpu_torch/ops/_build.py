@@ -45,11 +45,12 @@ SIGNATURES = {
     # K5 ends in (..., dx, design, paths, chunk, stream): 0 the staged design, 1 the previous one
     "psvo_ffbsi_forward": [_P] * 13 + [_I] * 8 + [_P],
     "psvo_ffbsi_backward": [_P] * 18 + [_I] * 5 + [_P],
-    "psvo_ancestor_indices_large": [_P, _P, _P, _I, _I, _P],
+    # K7 and K11 end in (..., design, ...plan, stream): 0 the new design, 1 the row one
+    "psvo_ancestor_indices_large": [_P, _P, _P, _I, _I, _I, _I, _P],
     "psvo_gather_particles": [_P, _P, _P, _I, _I, _I, _P],
     # K9 ends in (..., off_g, design, pair, prefetch, stream): 0 the async design, 1 the tile one
     "psvo_trunk_forward": [_P] * 7 + [_U32, _U32] + [_I] * 14 + [_P],
-    "psvo_segment_sum_scatter": [_P, _P, _P, _I, _I, _I, _P],
+    "psvo_segment_sum_scatter": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # K10 ends in (..., max_ctas, design, stream): 0 the tensor-core design, 1 the previous one
     "psvo_trunk_backward": [_P] * 13 + [_U32, _U32] + [_I] * 13 + [_P],
     # K12 ends in (..., off_g, design, paths, tile_rows, steps, stream): 0 the split design, 1 the chain

@@ -1185,3 +1185,80 @@ def test_lorenz96_paths_launch_only_the_async_design():
         "async": 10, "tile": 0}
     assert {d: trunk.trunk_backward.launches_by_design[d] - n for d, n in k10.items()} == {
         "tf32x3": 5, "simt": 0}
+
+
+@pytest.mark.parametrize("k", [128, 1024, 8192, 19200])
+def test_resample_designs_agree(k):
+    """K7's cluster design gives the row design's and the plain version's
+    indices on the adversarial rows (systematic and sorted multinomial
+    positions), at the C that k7_cluster picks and at every C the class
+    admits; K11's tiled design is within 1e-6 of the row design and of the
+    float64 plain version, childless sources exactly 0, the same bits on a
+    second launch, on one-ancestor rows too."""
+    from psvo_tpu_torch.ops import _build
+    from psvo_tpu_torch.ops import resample_gather as rg
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    logw = _weight_rows(k, dev)
+    b = logw.shape[0]
+    systematic = fused_step.systematic_positions(torch.rand((b,), generator=gen, device=dev), k)
+    multinomial = torch.sort(torch.rand((b, k), generator=gen, device=dev), -1).values
+    for pos in (systematic.contiguous(), multinomial.contiguous()):
+        want = rg.ancestor_indices_large_reference(logw, pos)
+        row = rg.ancestor_indices_large(logw, pos, design="row")
+        got = rg.ancestor_indices_large(logw, pos)
+        assert torch.equal(got, want) and torch.equal(row, want)
+        assert torch.equal(rg.ancestor_indices_large(logw, pos), got)
+    lib = _build.load_library()
+    for c in rg.CLUSTER_SIZES:
+        if c > 1 and k % (c * 256):
+            continue
+        idx = torch.empty((b, k), dtype=torch.int32, device=dev)
+        err = lib.psvo_ancestor_indices_large(logw.data_ptr(), systematic.data_ptr(),
+                                              idx.data_ptr(), b, k, 0, c,
+                                              torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, err, "ancestor_indices_large")
+        assert torch.equal(idx, rg.ancestor_indices_large_reference(logw, systematic)), c
+    one = torch.full((b, k), -50.0, device=dev)
+    one[torch.arange(b, device=dev), torch.randint(0, k, (b,), generator=gen, device=dev)] = 0.0
+    for idx in (rg.ancestor_indices_large(logw, systematic.contiguous()),
+                rg.ancestor_indices_large(one, systematic.contiguous())):
+        g = torch.randn((b, 40, k), generator=gen, device=dev)
+        before = dict(rg.segment_sum_scatter.launches_by_design)
+        got = rg.segment_sum_scatter(g, idx)
+        again = rg.segment_sum_scatter(g, idx)
+        row = rg.segment_sum_scatter(g, idx, design="row")
+        assert {d: rg.segment_sum_scatter.launches_by_design[d] - n for d, n in before.items()} == {
+            "tiled": 2, "row": 1}
+        want = rg.segment_sum_scatter_reference(g.double(), idx)
+        assert torch.equal(got, again)
+        assert _rel(got.double(), want) <= 1e-6 and _rel(got, row) <= 1e-6
+        assert bool((got[want == 0] == 0).all())
+
+
+def test_lorenz96_paths_launch_only_the_new_resample_designs():
+    """Lorenz-96 serving (filter_posterior) and one train step: every K7
+    launch is the cluster design (T − 1 per filter), every K11 launch the
+    tiled design (T − 1 per train step), no plain version."""
+    from psvo_tpu_torch import infer
+    from psvo_tpu_torch.ops import resample_gather as rg
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    dev = _cuda()
+    cfg = dataclasses.replace(_l96_cfg(), train=dataclasses.replace(
+        PRESETS["lorenz96_fivo_k8192_sharded"].train, steps_per_call=1))
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ys = torch.randn((4, 6, 40), generator=torch.Generator().manual_seed(2)).to(dev) * 3.0
+    k7, k11 = (dict(rg.ancestor_indices_large.launches_by_design),
+               dict(rg.segment_sum_scatter.launches_by_design))
+    plain = (rg.ancestor_indices_large_reference.calls, rg.segment_sum_scatter_reference.calls)
+    means = infer.filter_posterior(ssm, ys, cfg)
+    assert bool(torch.isfinite(means).all())
+    make_train_step(ssm, cfg, make_optimizer(cfg))(torch.Generator(device=dev).manual_seed(4), ys)
+    assert {d: rg.ancestor_indices_large.launches_by_design[d] - n for d, n in k7.items()} == {
+        "cluster": 10, "row": 0}
+    assert {d: rg.segment_sum_scatter.launches_by_design[d] - n for d, n in k11.items()} == {
+        "tiled": 5, "row": 0}
+    assert (rg.ancestor_indices_large_reference.calls,
+            rg.segment_sum_scatter_reference.calls) == plain

@@ -2,7 +2,8 @@
 """Per-stage cycle profiles of K5's staged design and K13's split design on
 one GPU, and the variants that show what holds K5 back.
 
-    python3 tools/stage_profile.py
+    python3 tools/stage_profile.py            # every kernel below
+    python3 tools/stage_profile.py resample   # K7 and K11 alone
 
 Builds the port's kernels as `chip_smoke.py` does, then copies of
 `csrc/ffbsi.cu`, `csrc/svo_sweep.cu` and `csrc/trunk_forward.cu` patched
@@ -12,7 +13,9 @@ three ways, each with nvcc into `psvo_tpu_torch/_build/stage_profile/`
 - "marks": `clock64()` at the stage boundaries of `ffbsi_staged_kernel`,
   `svo_backward_split_kernel`, both designs of K12 (`svo_forward_split_kernel`,
   `svo_forward_kernel`) and of K9 (`trunk_forward_async_kernel`,
-  `trunk_forward_kernel`); CTA 0's thread 0 adds each stage's cycles into a
+  `trunk_forward_kernel`), K7's cluster design (`ancestor_indices_cluster_kernel`)
+  and K11's tiled design (`segment_sum_tiled_kernel`); CTA 0's thread 0 adds
+  each stage's cycles into a
   device array, read back after one launch (a stage's cycles include the
   barrier that closes it);
 - "compute only": K5 staged without the copies inside its loop (the first
@@ -27,7 +30,9 @@ a transition near the support, normalized log-weights, Gumbels), K13 at
 `lorenz63_svo_k256`'s (B=32, M=16, T-1=99, hidden (64, 64), random weights
 nudged from init), K12 on the same operands, K9 at
 `lorenz96_fivo_k8192_sharded`'s (B=8, K=8192, Dx=Dy=40, hidden (64, 64),
-random weights; streamed ε and the in-kernel draw). Times are device time
+random weights; streamed ε and the in-kernel draw), K7 and K11 at its
+resampling step's ([8, 8192] healthy log-weights; [8, 40, 8192] on their
+ancestors and on rows of one ancestor). Times are device time
 per call from torch.profiler over 20 calls, designs alternated. Exits non-zero without a card or if a patch's
 anchor is missing from the sources. Imports nothing of JAX.
 """
@@ -68,6 +73,16 @@ K9_ASYNC_STAGES = ["copy wait, barrier (the other warps' draw of this tile's ε)
                    "g", "α"]
 K9_TILE_STAGES = ["top barrier", "loads (x_res; ε or the draw), coefficients, barrier",
                   "q1, then f", "the draw, barrier, x_new out", "g", "α, barrier"]
+K7_STAGES = ["the slice in, its max", "cluster barrier, the row max over DSMEM",
+             "the slice's scan (exp, a thread's weights, the warp's shuffles)",
+             "barrier, the warps' prefixes, cluster barrier", "the offsets over DSMEM",
+             "the slice pushed to every CTA over DSMEM, cluster barrier",
+             "the searches, the indices out"]
+K11_STAGES = ["loads issued, the stage zeroed", "run flags (waits on idx), their warp scan",
+              "each row's thread and warp scans (waits on g)", "barrier",
+              "the warps' prefixes, barrier, each particle's sum in the tile", "cluster barrier",
+              "the carry over DSMEM",
+              "each run's total into its owner's stage", "cluster barrier", "the stage out"]
 
 
 def sub(text: str, old: str, new: str) -> str:
@@ -197,6 +212,43 @@ def marked_k9(src: str) -> str:
     return sub(s, "-3e30f);\n    }\n  }\n}\n\ntemplate <int DX, int DY, int H>\ncudaError_t launch_trunk_async",
                "-3e30f);\n    }\n    PROF9(4);\n  }\n}\n\ntemplate <int DX, int DY, int H>\n"
                "cudaError_t launch_trunk_async")
+
+
+def marked_resample(src: str) -> str:
+    """Stage marks in K7's cluster design and K11's tiled design (CTA 0's
+    thread 0: rank 0 of the first row's cluster)."""
+    s = sub(src, '#include "resample.cuh"\n',
+            '#include "resample.cuh"\n' + MARK.format(n=7) + MARK.format(n=11))
+    s = sub(s, "  // 1. the slice in, its max; the row max over the cluster\n",
+            "  long long prof_t_ = clock64();\n  // 1. the slice in, its max; the row max over the cluster\n")
+    s = sub(s, "  if (tid == 0) *smax = m;\n", "  PROF7(0);\n  if (tid == 0) *smax = m;\n")
+    s = sub(s, "  // 2. the slice's inclusive scan", "  PROF7(1);\n  // 2. the slice's inclusive scan")
+    s = sub(s, "  __syncthreads();\n  for (int w = 0; w < warp; ++w) excl += dred[w];\n",
+            "  PROF7(2);\n  __syncthreads();\n  for (int w = 0; w < warp; ++w) excl += dred[w];\n")
+    s = sub(s, "  // 3. the offsets:", "  PROF7(3);\n  // 3. the offsets:")
+    s = sub(s, "  // 4. this slice, offset,", "  PROF7(4);\n  // 4. this slice, offset,")
+    s = sub(s, "  cluster.sync();  // every slice in every CTA; no DSMEM access after this\n",
+            "  cluster.sync();  // every slice in every CTA; no DSMEM access after this\n  PROF7(5);\n")
+    s = sub(s, "\n  }\n}\n\n// ---- K11, the tiled design ----",
+            "\n  }\n  PROF7(6);\n}\n\n// ---- K11, the tiled design ----")
+    s = sub(s, "  // the indices, the loads of every row, and the stage zeroed\n",
+            "  long long prof_t_ = clock64();\n  // the indices, the loads of every row, and the stage zeroed\n")
+    for anchor, i in (("  // the run flags, once for the R rows", 0),
+                      ("  // each row: the thread's aggregate", 1),
+                      ("  __syncthreads();\n\n  // each row's warp prefixes", 2),
+                      ("  cluster.sync();  // the aggregates and the zeroed stages", 4),
+                      ("  // each run's total, every row, into the stage", 6),
+                      ("  cluster.sync();  // every total staged", 7)):
+        s = sub(s, anchor, f"  PROF11({i});\n" + anchor)
+    s = sub(s, "  __syncthreads();\n\n  // each row's warp prefixes",
+            "  __syncthreads();\n  PROF11(3);\n\n  // each row's warp prefixes")
+    s = sub(s, "  cluster.sync();  // the aggregates and the zeroed stages; every CTA has started\n",
+            "  cluster.sync();  // the aggregates and the zeroed stages; every CTA has started\n"
+            "  PROF11(5);\n")
+    s = sub(s, "  cluster.sync();  // every total staged; no DSMEM access after this\n",
+            "  cluster.sync();  // every total staged; no DSMEM access after this\n  PROF11(8);\n")
+    return sub(s, "\n    }\n  }\n}\n\ninline bool aligned16",
+               "\n    }\n  }\n  PROF11(9);\n}\n\ninline bool aligned16")
 
 
 def compute_only_k5(src: str) -> str:
@@ -332,6 +384,59 @@ def k9_profiles(marks, prof, with_lib, dev, g) -> None:
                      prof(marks, name)[:len(stages)])
 
 
+def resample_profiles(marks, prof, with_lib, dev, g) -> None:
+    """K7's and K11's designs at the Lorenz-96 preset's shapes: alternated
+    times, K11's tiled design at every (P, C) its kernel admits, then one
+    marked launch of each new design."""
+    import torch
+    from psvo_tpu_torch.ops import _build, fused_step
+    from psvo_tpu_torch.ops import resample_gather as rg
+
+    k = 8192
+    lw = torch.randn((8, k), generator=g, device=dev) * 3.0
+    pos = fused_step.systematic_positions(torch.rand(8, generator=g, device=dev), k).contiguous()
+    pairs = [tuple(device_ms(lambda: rg.ancestor_indices_large(lw, pos, design=d))
+                   for d in rg.K7_DESIGNS) for _ in range(3)]
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"K7 B=8 K={k}, C = {rg.k7_cluster(8, k, n_sms)}: (cluster, row) ms "
+          + ", ".join(f"({x:.4f}, {y:.4f})" for x, y in pairs), flush=True)
+    prof(marks, "psvo_prof7")
+    with_lib(marks, lambda: rg.ancestor_indices_large(lw, pos))
+    torch.cuda.synchronize()
+    show("K7 cluster, CTA 0 thread 0, cycles", K7_STAGES, prof(marks, "psvo_prof7")[:len(K7_STAGES)])
+    one = torch.full((8, k), -50.0, device=dev)
+    one[torch.arange(8, device=dev), torch.randint(0, k, (8,), generator=g, device=dev)] = 0.0
+    x = torch.randn((8, 40, k), generator=g, device=dev)
+    lib = _build.load_library()
+
+    def tiled(ix, per, c):  # K11's tiled design at a given (P, C), through its C entry point
+        out = torch.empty_like(x)
+        err = lib.psvo_segment_sum_scatter(x.data_ptr(), ix.data_ptr(), out.data_ptr(), 8, 40, k,
+                                           0, per, c, torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, err, "segment_sum_scatter")
+        return out
+
+    plans = [(per, -(-k // (256 * per))) for per in rg.K11_PER if -(-k // (256 * per)) <= 8]
+    for rows, logw in (("healthy", lw), ("one ancestor", one)):
+        idx = rg.ancestor_indices_large(logw, pos)
+        order = plans + plans[::-1]  # each (P, C) twice, in turns
+        times = {}
+        for pc in order:
+            times.setdefault(pc, []).append(device_ms(lambda: tiled(idx, *pc)))
+        print(f"K11 [8, 40, {k}] {rows}, tiled by (P, C), two turns: "
+              + ", ".join(f"{pc} " + " / ".join(f"{v:.4f}" for v in ts) for pc, ts in times.items()),
+              flush=True)
+        pairs = [tuple(device_ms(lambda: rg.segment_sum_scatter(x, idx, design=d))
+                       for d in rg.K11_DESIGNS) for _ in range(3)]
+        print(f"K11 [8, 40, {k}] {rows}, (P, tiles) {rg.k11_plan(k)}: (tiled, row) ms "
+              + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in pairs), flush=True)
+        prof(marks, "psvo_prof11")
+        with_lib(marks, lambda: rg.segment_sum_scatter(x, idx))
+        torch.cuda.synchronize()
+        show(f"K11 tiled {rows}, CTA 0 thread 0, cycles", K11_STAGES,
+             prof(marks, "psvo_prof11")[:len(K11_STAGES)])
+
+
 def main() -> int:
     import torch
 
@@ -346,21 +451,11 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     real = _build.load_library()
-    f5 = (_build.CSRC / "ffbsi.cu").read_text()
-    f13 = (_build.CSRC / "svo_sweep.cu").read_text()
     out_root = _build.BUILD_ROOT / "stage_profile"
     args = (out_root, _build.nvcc(), _build.NVCC_FLAGS, _build.ARCH_FLAGS)
-    f9 = (_build.CSRC / "trunk_forward.cu").read_text()
-    k5_names = ("psvo_ffbsi_forward",)
-    marks = load(build_variant("marks", {"ffbsi": marked_k5(f5),
-                                         "svo_sweep": marked_k13(marked_k12(f13)),
-                                         "trunk_forward": marked_k9(f9)}, *args),
-                 k5_names + ("psvo_svo_forward", "psvo_svo_backward", "psvo_trunk_forward",
-                             "psvo_prof5", "psvo_prof13", "psvo_prof12", "psvo_prof120",
-                             "psvo_prof9", "psvo_prof90"))
-    variants = {name: load(build_variant(name, {"ffbsi": patch(f5)}, *args), k5_names)
-                for name, patch in (("compute only", compute_only_k5),
-                                    ("one copy a span", one_copy_a_span_k5))}
+    fr = marked_resample((_build.CSRC / "resample_gather.cu").read_text())
+    rg_names = ("psvo_ancestor_indices_large", "psvo_segment_sum_scatter", "psvo_prof7",
+                "psvo_prof11")
 
     def prof(lib, name):
         buf = (ctypes.c_longlong * 32)()
@@ -376,6 +471,26 @@ def main() -> int:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    if sys.argv[1:] == ["resample"]:
+        marks = load(build_variant("marks_resample", {"resample_gather": fr}, *args), rg_names)
+        resample_profiles(marks, prof, with_lib, dev, g)
+        print(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                              "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
+        return 0
+    f5 = (_build.CSRC / "ffbsi.cu").read_text()
+    f13 = (_build.CSRC / "svo_sweep.cu").read_text()
+    f9 = (_build.CSRC / "trunk_forward.cu").read_text()
+    k5_names = ("psvo_ffbsi_forward",)
+    marks = load(build_variant("marks", {"ffbsi": marked_k5(f5),
+                                         "svo_sweep": marked_k13(marked_k12(f13)),
+                                         "trunk_forward": marked_k9(f9),
+                                         "resample_gather": fr}, *args),
+                 k5_names + ("psvo_svo_forward", "psvo_svo_backward", "psvo_trunk_forward",
+                             "psvo_prof5", "psvo_prof13", "psvo_prof12", "psvo_prof120",
+                             "psvo_prof9", "psvo_prof90") + rg_names)
+    variants = {name: load(build_variant(name, {"ffbsi": patch(f5)}, *args), k5_names)
+                for name, patch in (("compute only", compute_only_k5),
+                                    ("one copy a span", one_copy_a_span_k5))}
     t1, b, m, k, dx = 99, 32, 16, 1024, 3
     xs = torch.randn((t1, b, dx, k), generator=g, device=dev) * 8.0
     mean = xs + torch.randn(xs.shape, generator=g, device=dev)
@@ -437,6 +552,7 @@ def main() -> int:
             + f"; total {sum(cyc)}", flush=True)
         k12_profiles(marks, prof, with_lib, so, consts)
     k9_profiles(marks, prof, with_lib, dev, g)
+    resample_profiles(marks, prof, with_lib, dev, g)
     print(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     return 0
