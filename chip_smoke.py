@@ -16,7 +16,10 @@ noise): serving through `smooth_posterior` and training through
   (a) the card (nvidia-smi name and power limit); TF32 off
   (b) kernel build time and per-kernel registers
   (c) K3 ancestor_indices vs its plain version on adversarial rows
-  (d) K2 stream_noise vs the plain Philox (bit-equal)
+  (d) K2 stream_noise, the pair design and the previous one (design=
+      "particle"), each bit-equal to the plain Philox and to the other; their
+      device times alternated, three pairs (the pair design must be faster
+      in each)
   (e) K1 scan_forward, stream mode, vs scan_forward_reference (small, full)
   (f) K1 in-kernel RNG vs K1 and the plain version replaying K2's streams
   (g) serving: eval on batches of 32 and filter_posterior; launch counts
@@ -28,23 +31,28 @@ noise): serving through `smooth_posterior` and training through
   (j) K1 and K4 at the Lorenz-63 shape (Dx=Dy=3, stream mode, K4 with the
       cache cotangents) vs their plain versions (small, full)
   (k) K5 ffbsi_forward vs its plain version on the cache of one K1 run, and
-      K6 ffbsi_backward vs its plain version on K5's selections (small, full);
-      K5's staged design vs the previous one (design="path"): sel, x~,
-      x_first and logp equal, logq within 1e-6; the two timed alternately,
-      three pairs (the staged design must be faster in each)
+      K6 ffbsi_backward vs its plain version on K5's selections (small, full;
+      every cotangent, the direct bound's, the paths alone); K5's staged
+      design vs the previous one (design="path"): sel, x~, x_first and logp
+      equal, logq within 1e-6; K6's staged design vs the previous one
+      (design="row"): the paths alone bit-equal, otherwise within 1e-5
+      relative L2 per leaf, each design bit-equal on a relaunch, also at
+      M=256 and at K=8192 (chunked rows); both kernels' designs timed
+      alternately by device time, three pairs per cotangent pattern (the
+      staged design must be faster in each)
   (l) serving: smooth_posterior on three batches of 32 Lorenz-63
       trajectories; shapes, launch counts (every K5 launch the staged
       design), time per call
   (m) training: 3 calls of 10 PSVO train steps on Lorenz-63 minibatches of
-      32; launch counts (K5 all staged), step time, peak memory, profile by
-      kernel
+      32; launch counts (K5 and K6 all staged), step time, peak memory,
+      profile by kernel
 
 then `lorenz96_fivo_k8192_sharded` (Lorenz-96, Dx=Dy=40, FIVO, K=8192, B=8,
 T=100, relu heads (64, 64), in-kernel RNG) with the trained snapshot
 `checkpoints/l96_pretrained.npz`, served and trained on one card by the
 trunk path:
 
-  (n) K2 at Dx=40 vs the plain Philox (bit-equal)
+  (n) K2 at Dx=40 as in (d), both designs
   (o) K7 ancestor_indices_large and K8 gather_particles vs their plain
       versions on adversarial rows (small, full); K7's cluster design equal
       to the previous one (design="row") and the same on a second launch;
@@ -121,8 +129,8 @@ step, one K15 launch per step of the backward, streamed noise):
       profiles; one step's loss and gradients against the whole-scan path on
       the same streams and weights
   (ac) lorenz63_psvo_k1024: smooth_posterior on three batches of 32 and 3
-      calls of 10 PSVO train steps; launch counts (K14, K15, K5, K6; K5 all
-      staged), times, peak memory and profiles
+      calls of 10 PSVO train steps; launch counts (K14, K15, K5, K6; K5 and
+      K6 all staged), times, peak memory and profiles
 
 and, with the toggle back on, K1 and K4 on thread-block clusters (each row
 on C CTAs; every phase above launched them at the C that
@@ -149,14 +157,24 @@ launched them at the S that fused_step.step_slices picks):
       partial-row traffic) and inside one per-step FHN train call, with
       the step's device time and host-clock time per S
 
+and, with the toggle on, `lorenz63_psvo_k1024` under psvo_bound="direct":
+
+  (af) 3 PSVO train steps (one a call) on minibatches of 32, whose K6
+      launches take the all-cotangents branch: step time, a profile by
+      kernel, launch counts (K1, K4, K5, K6 once a step, K5 and K6 staged),
+      no plain version
+
 Every phase prints its lines and its seconds; any failure prints its reason
 on stdout and stderr and exits non-zero. A torch.profiler window that comes
-back with no device events is run again (profiled_kernels), and the run
-ends with the count of such windows. The second-to-last line is the
+back with no device events is run again (profiled_kernels); device time
+per call is the mean of a kernel's recorded events times its launches a
+call, as windows often hold part of a kernel's events (device_ms); the
+run ends with the count of both kinds of window. The second-to-last line is the
 kernels' JSON record (times beside the bound: the larger of the operations
 over 67 TFLOP/s fp32 and the bytes over 3.35 TB/s, the H100 SXM's published
-peaks; K5's, K7's, K9's, K11's, K12's and K13's rows also carry "ms_prev", the
-previous design's time alternated with theirs); the last line is the device record. Imports nothing of JAX: the
+peaks; K2's, K5's, K6's, K7's, K9's, K11's, K12's and K13's rows also carry
+"ms_prev", the previous design's time alternated with theirs; K6's row has
+both branches, K2's both widths); the last line is the device record. Imports nothing of JAX: the
 machine with the card has none.
 """
 
@@ -198,7 +216,7 @@ def fail(msg: str) -> None:
 
 
 PROFILE_TRIES = 8
-PROFILE_WINDOWS = {"windows": 0, "empty": 0}
+PROFILE_WINDOWS = {"windows": 0, "empty": 0, "partial": 0}
 
 
 def profiled_kernels(window, with_cpu: bool) -> list:
@@ -235,7 +253,12 @@ def device_ms(fn, n: int = 20) -> float:
 
 
 def device_ms_by_kernel(fn, n: int = 20) -> dict:
-    """device_ms split by kernel name: {name: ms per call of fn()}."""
+    """device_ms split by kernel name: {name: ms per call of fn()}, each the
+    mean of the name's recorded events times its launches a call (its events
+    over n, rounded). On the H100 with torch 2.11 a window often records only
+    part of a kernel's events (17 of 20 is common, once about half): a sum
+    over n calls would read low by the share dropped. Such windows are
+    counted in PROFILE_WINDOWS."""
     import torch
 
     fn()
@@ -246,10 +269,14 @@ def device_ms_by_kernel(fn, n: int = 20) -> dict:
             fn()
 
     kern = profiled_kernels(window, with_cpu=False)
-    out = {}
+    total, count = {}, {}
     for e in kern:
-        out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / n / 1e3
-    return out
+        total[e.name] = total.get(e.name, 0.0) + e.time_range.elapsed_us()
+        count[e.name] = count.get(e.name, 0) + 1
+    if any(c % n for c in count.values()):
+        PROFILE_WINDOWS["partial"] += 1
+    return {name: total[name] / count[name] * max(1, round(count[name] / n)) / 1e3
+            for name in total}
 
 
 def time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
@@ -288,7 +315,8 @@ def zero_designs(*fns) -> None:
 
 
 FHN_KERNELS = {"K1": ("scan_forward_kernel",), "K4": ("scan_backward_kernel", "sum_rows_kernel")}
-PSVO_KERNELS = dict(FHN_KERNELS, K5=("ffbsi_staged_kernel",), K6=("ffbsi_backward_kernel",))
+K6_KERNELS = ("ffbsi_bwd_paths_kernel", "ffbsi_bwd_staged_kernel")  # the staged design's two kernels
+PSVO_KERNELS = dict(FHN_KERNELS, K5=("ffbsi_staged_kernel",), K6=K6_KERNELS)
 L96_KERNELS = {"K9": ("trunk_forward_async_kernel",), "K7": ("ancestor_indices_cluster_kernel",),
                "K8": ("gather_particles_kernel",)}
 L96_TRAIN_KERNELS = dict(L96_KERNELS, K10=("trunk_backward_tf32x3_kernel", "trunk_sum_ctas_kernel",
@@ -302,7 +330,8 @@ def device_breakdown(fn, n_steps: int, groups: dict) -> str:
     into the kernels of `groups` (name -> substrings of kernel names) and
     every other kernel; the span runs from the first kernel's start to the
     last one's end, and idle is the share of it with no kernel running (one
-    stream, so kernels do not overlap)."""
+    stream, so kernels do not overlap). Each group prints the events it
+    recorded: the profiler may drop some, and its time is theirs."""
     kern = profiled_kernels(fn, with_cpu=True)
     span = max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)
     busy = sum(e.time_range.elapsed_us() for e in kern)
@@ -312,7 +341,7 @@ def device_breakdown(fn, n_steps: int, groups: dict) -> str:
         mine = [e for e in kern if any(k in e.name for k in keys)]
         us = sum(e.time_range.elapsed_us() for e in mine)
         named, n_named = named + us, n_named + len(mine)
-        parts.append(f"{label} {us / per:.3f}")
+        parts.append(f"{label} {us / per:.3f} ({len(mine)} events)")
     others = {}
     for e in kern:
         if not any(k in e.name for keys in groups.values() for k in keys):
@@ -607,15 +636,14 @@ def check_ffbsi(ops, gen):
     cots = [torch.randn(t.shape, generator=gen, device=t.device) for t in kern[:4]]
     names = ("d_x_first", "d_logp", "d_logq", "d_xtilde")
     bwd = {}
-    for mode, live, needs in (("all cotangents", (0, 1, 2, 3), (True,) * 5),
-                              ("paths only", (0, 3), (False,) * 5)):
+    for mode, (live, needs) in K6_MODES.items():
         kw = {n: cots[i] if i in live else None for i, n in enumerate(names)}
         args = (x_anchor, xs, r, mr, c, lwn, lg, sel, xtilde)
         got = ffbsi.ffbsi_backward(*args, needs=needs, **kw)
         want = ffbsi.ffbsi_backward_reference(*args, needs=needs, **kw)
         torch.cuda.synchronize()
         pairs = [(g, w) for g, w in zip(got, want) if w is not None]
-        reads = (x_anchor, xtilde, sel, r, mr, c, lwn) if len(live) == 4 else (sel,)
+        reads = (x_anchor, xtilde, sel, r, mr, c, lwn) if mode != "paths only" else (sel,)
         bwd[mode] = dict(
             rel=[float((g - w).norm() / w.norm().clamp_min(1e-30)) for g, w in pairs],
             maxd=[float((g - w).abs().max()) for g, w in pairs],
@@ -625,6 +653,7 @@ def check_ffbsi(ops, gen):
             plain=lambda a=args, n=needs, k=kw: ffbsi.ffbsi_backward_reference(*a, needs=n, **k),
             n_bytes=nbytes(*reads, *[v for v in kw.values() if v is not None],
                            *[g for g, _ in pairs]),
+            args=args, kw=kw, needs=needs,
         )
     return dict(flips=int(differ.sum()), flip_paths=int((~clean).sum()), same_x=same_x,
                 rel_logp=rel[0], rel_logq=rel[1],
@@ -632,6 +661,112 @@ def check_ffbsi(ops, gen):
                                 for a, b in zip(kern[:4], ref[:4])),
                 finite=all(bool(torch.isfinite(t).all()) for t in kern[:4]),
                 bwd=bwd, kern=kern)
+
+
+def k2_check(seed, t1, b, dx, k, dev, label):
+    """K2's pair and particle designs against the plain Philox, bit for bit,
+    and against each other; their device times alternated, three pairs (the
+    pair design must be faster in each). Returns a dict."""
+    import torch
+    from psvo_tpu_torch.ops import fused_step
+
+    want = fused_step.stream_noise_reference(seed, t1, b, dx, k, dev)
+    got = {d: fused_step.stream_noise(seed, t1, b, dx, k, dev, design=d)
+           for d in fused_step.K2_DESIGNS}
+    torch.cuda.synchronize()
+    bad = {d: [int((g[i] != want[i]).sum()) for i in (0, 1)] for d, g in got.items()}
+    same = all(torch.equal(got["pair"][i], got["particle"][i]) for i in (0, 1))
+    pairs = [tuple(device_ms(lambda: fused_step.stream_noise(seed, t1, b, dx, k, dev, design=d))
+                   for d in fused_step.K2_DESIGNS) for _ in range(3)]
+    plain = time_ms(lambda: fused_step.stream_noise_reference(seed, t1, b, dx, k, dev), reps=5)
+    eps, u0 = got["pair"]
+    bound_ms, by = bound(80.0 * eps.numel(), nbytes(eps, u0))
+    r = dict(ms=statistics.mean(p_[0] for p_ in pairs), ms_prev=statistics.mean(p_[1] for p_ in pairs),
+             plain=plain, bound=bound_ms, by=by, err=float((eps - want[0]).abs().max()),
+             ctas=fused_step.k2_plan(t1, b, dx, k)["ctas"])
+    print(f"[{label}] K2 stream_noise [{t1},{b},{dx},{k}]: (eps, u0) mismatches with the plain Philox "
+          f"{bad}; pair and particle bit-equal {same}; eps mean {float(eps.mean()):.4f} std "
+          f"{float(eps.std()):.4f}, u0 mean {float(u0.mean()):.4f}; device time (pair, particle) "
+          f"alternated: " + ", ".join(f"({a:.4f}, {c:.4f})" for a, c in pairs)
+          + f" ms ({r['ctas']} CTAs, {kernel_resources('stream_noise_pair_kernel')}); plain "
+          f"{plain:.4f} ms (events); bound {bound_ms:.4f} ms ({by})", flush=True)
+    if any(sum(v) for v in bad.values()) or not same:
+        fail(f"K2 at [{t1},{b},{dx},{k}] is not bit-equal to the plain Philox in both designs")
+    if not all(a < c for a, c in pairs):
+        fail(f"K2 at [{t1},{b},{dx},{k}]: the pair design is not faster than the particle one in "
+             f"every pair")
+    return r
+
+
+def ffbsi_sweep(dev, dx, b, m, k, t1, gen):
+    """K6's operands off the presets' shapes: support terms of a transition
+    with means near the support, normalized weights, anchors; K5's
+    selections and trajectories on them."""
+    import torch
+    from psvo_tpu_torch.ops import ffbsi
+
+    xs = torch.randn((t1, b, dx, k), generator=gen, device=dev) * 8.0
+    mean = xs + torch.randn(xs.shape, generator=gen, device=dev)
+    scale = 0.5 + 1.5 * torch.rand(xs.shape, generator=gen, device=dev)
+    r = 1.0 / (scale * scale)
+    c = -0.5 * (mean * mean * r).sum(2) - torch.log(scale).sum(2) - dx * 0.9189385332
+    lwn = torch.log_softmax(torch.randn((t1, b, k), generator=gen, device=dev) * 2.0, dim=-1)
+    lg = torch.randn((t1, b, k), generator=gen, device=dev)
+    u = torch.rand((t1, b, m, k), generator=gen, device=dev).clamp_min(1e-30)
+    ops = [v.contiguous() for v in (torch.randn((b, m, dx), generator=gen, device=dev) * 8.0, xs, r,
+                                    mean * r, c, lwn, lg, -torch.log(-torch.log(u)))]
+    with torch.no_grad():
+        fwd = ffbsi.ffbsi_forward(*ops)
+    return (*ops[:7], fwd[4], fwd[3]), fwd
+
+
+K6_MODES = {  # live cotangents among d_x_first, d_logp, d_logq, d_xtilde; the support's needs
+    "all cotangents": ((0, 1, 2, 3), (True,) * 5),
+    "direct bound": ((2, 3), (True, True, True, True, False)),  # what its train step hands K6
+    "paths only": ((0, 3), (False,) * 5),  # the forward bound's
+}
+
+
+def k6_design_check(args, kw, needs):
+    """K6 staged against the row design on the same operands and cotangents:
+    per-leaf relative L2, whether every leaf is bit-equal, and whether each
+    design gives its own bits again on a relaunch."""
+    import torch
+    from psvo_tpu_torch.ops import ffbsi
+
+    st = ffbsi.ffbsi_backward(*args, needs=needs, **kw)
+    again = ffbsi.ffbsi_backward(*args, needs=needs, **kw)
+    row = ffbsi.ffbsi_backward(*args, needs=needs, design="row", **kw)
+    row2 = ffbsi.ffbsi_backward(*args, needs=needs, design="row", **kw)
+    torch.cuda.synchronize()
+    pairs = [(a, w) for a, w in zip(st, row) if a is not None]
+    return dict(staged=st, row=row,
+                rel=[float((a - w).norm() / w.norm().clamp_min(1e-30)) for a, w in pairs],
+                equal=all(torch.equal(a, w) for a, w in pairs),
+                relaunch=all(torch.equal(a, w) for a, w in zip(st + row, again + row2)
+                             if a is not None),
+                finite=all(bool(torch.isfinite(a).all()) for a, _ in pairs))
+
+
+def k6_wide_check(args, kw, needs, staged, plain, row):
+    """Per leaf, the relative L2 distance of the staged design, the float32
+    plain version and the row design to the plain version replayed in
+    float64. Under the direct bound's cotangents (d_logp = 0) d_q is a
+    difference of two nearly equal sums, so every float32 order lies about
+    1e-4 to 1e-3 from the others there; the staged design must then be as
+    close to float64 as the plain version (within twice, or the tolerance)
+    and as the row design (within twice, or 1e-5)."""
+    from psvo_tpu_torch.ops import ffbsi
+
+    wide = [a.double() if a.is_floating_point() else a for a in args]
+    w64 = ffbsi.ffbsi_backward_reference(*wide, needs=needs,
+                                         **{n: None if v is None else v.double() for n, v in kw.items()})
+
+    def dist(got):
+        return [float((g.double() - w).norm() / w.norm().clamp_min(1e-300))
+                for g, w in zip(got, w64) if w is not None]
+
+    return dist(staged), dist(plain), dist(row)
 
 
 def l96_config(small: bool):
@@ -955,8 +1090,7 @@ def svo_backward_check(consts, ops, xtilde, gen):
 
 STEP_KERNELS = {"K14": ("step_forward_kernel",),
                 "K15": ("step_backward_kernel", "sum_rows_kernel")}
-STEP_PSVO_KERNELS = dict(STEP_KERNELS, K5=("ffbsi_staged_kernel",),
-                         K6=("ffbsi_backward_kernel",))
+STEP_PSVO_KERNELS = dict(STEP_KERNELS, K5=("ffbsi_staged_kernel",), K6=K6_KERNELS)
 
 
 STEP_OUTPUTS = ("x_new", "alpha", "ell", "ess", "filtered mean")
@@ -1297,23 +1431,10 @@ def main() -> int:
         fail("K3 disagrees with the plain indices")
     phase_done("c")
 
-    # (d) K2 vs plain Philox at the slice shape
+    # (d) K2 vs plain Philox at the slice shape, both designs
     seed = (0x1234ABCD, 0x0F0F1234)
     t1, b_, dx = 99, 32, 2
-    e_k, u_k = fused_step.stream_noise(seed, t1, b_, dx, k, dev)
-    e_r, u_r = fused_step.stream_noise_reference(seed, t1, b_, dx, k, dev)
-    torch.cuda.synchronize()
-    e_bad = int((e_k != e_r).sum())
-    u_bad = int((u_k != u_r).sum())
-    k2_err = float((e_k - e_r).abs().max())
-    moments = (float(e_k.mean()), float(e_k.std()), float(u_k.mean()))
-    k2_ms = time_ms(lambda: fused_step.stream_noise(seed, t1, b_, dx, k, dev), reps=20)
-    k2_plain = time_ms(lambda: fused_step.stream_noise_reference(seed, t1, b_, dx, k, dev), reps=5)
-    print(f"[d] K2 stream_noise [{t1},{b_},{dx},{k}]: eps mismatches {e_bad}, u0 mismatches {u_bad}, "
-          f"max |d| {k2_err:.3e}; eps mean {moments[0]:.4f} std {moments[1]:.4f}, u0 mean "
-          f"{moments[2]:.4f}; {k2_ms:.4f} ms vs plain {k2_plain:.4f} ms", flush=True)
-    if e_bad or u_bad:
-        fail("K2 is not bit-equal to the plain Philox")
+    k2 = k2_check(seed, t1, b_, dx, k, dev, "d")
     phase_done("d")
 
     # (e) K1 stream mode vs plain, small and full
@@ -1557,12 +1678,34 @@ def main() -> int:
               f"paths; paths without: x~ equal {rf['same_x']}, max rel d logp {rf['rel_logp']:.3e}, "
               f"logq {rf['rel_logq']:.3e}; max|d| {rf['max_abs_err']:.3e}", flush=True)
         for mode, rb in rf["bwd"].items():
-            print(f"[k] K6 {label} {mode}: per-leaf rel L2 "
-                  + ", ".join(f"{e:.3e}" for e in rb["rel"]) + " (d_x_anchor, d_xs"
-                  + (", d_r, d_mr, d_c, d_lwn, d_lg" if len(rb["rel"]) > 2 else "")
-                  + f"), max|d| {max(rb['maxd']):.3e}; bound rel L2 {tol:g}", flush=True)
-            if not (rb["finite"] and rb["nones"] and max(rb["rel"]) <= tol):
+            dc = k6_design_check(rb["args"], rb["kw"], rb["needs"])
+            print(f"[k] K6 {label} {mode} (staged): per-leaf rel L2 against the plain version "
+                  + ", ".join(f"{e:.3e}" for e in rb["rel"]) + " (d_x_anchor, d_xs, then the "
+                  f"wanted ones of d_r, d_mr, d_c, d_lwn, d_lg), max|d| {max(rb['maxd']):.3e}; "
+                  f"bound rel L2 {tol:g}; against the row design "
+                  + ("bit-equal" if dc["equal"] else "max rel L2 " + f"{max(dc['rel']):.3e}")
+                  + f"; bit-equal on relaunch {dc['relaunch']}", flush=True)
+            if not (rb["finite"] and rb["nones"] and dc["relaunch"] and dc["finite"]):
+                fail(f"K6 ({label}, {mode}): non-finite, a leaf wrongly None, or not bit-equal on "
+                     f"relaunch")
+            if mode == "direct bound":
+                with torch.no_grad():
+                    plain = ffbsi.ffbsi_backward_reference(*rb["args"], needs=rb["needs"], **rb["kw"])
+                d_st, d_pl, d_rw = k6_wide_check(rb["args"], rb["kw"], rb["needs"], dc["staged"],
+                                                 plain, dc["row"])
+                print(f"[k] K6 {label} direct bound: per-leaf rel L2 to the float64 plain replay, "
+                      f"staged {', '.join(f'{e:.3e}' for e in d_st)}; float32 plain "
+                      f"{', '.join(f'{e:.3e}' for e in d_pl)}; row "
+                      f"{', '.join(f'{e:.3e}' for e in d_rw)}", flush=True)
+                if not all(a <= max(tol, 2 * p_) and a <= max(1e-5, 2 * r_)
+                           for a, p_, r_ in zip(d_st, d_pl, d_rw)):
+                    fail(f"K6 ({label}, direct bound): the staged design is further from the "
+                         f"float64 replay than the plain version or the row design")
+                continue
+            if max(rb["rel"]) > tol:
                 fail(f"K6 ({label}, {mode}) disagrees with ffbsi_backward_reference")
+            if not (max(dc["rel"]) <= 1e-5 and (mode != "paths only" or dc["equal"])):
+                fail(f"K6 ({label}, {mode}): the staged design disagrees with the row design")
         if not (rf["finite"] and rf["same_x"] and rf["rel_logq"] <= 1e-5 and rf["rel_logp"] <= 1e-5):
             fail(f"K5 ({label}) disagrees with ffbsi_forward_reference")
         if small and rf["flips"]:
@@ -1589,17 +1732,25 @@ def main() -> int:
               time_ms(lambda: ffbsi.ffbsi_forward_reference(*ops))]
         k5 += [statistics.mean(p_[1] for p_ in k5_pairs),
                time_ms(lambda: ffbsi.ffbsi_forward_reference(*ops))]
-        k6 = {mode: [time_ms(rb["kernel"]), time_ms(rb["plain"]), time_ms(rb["kernel"]),
-                     time_ms(rb["plain"])] for mode, rb in rf["bwd"].items()}
+        k6 = {}  # mode: (staged, row) device ms alternated, three pairs; plain ms (events)
+        for mode, rb in rf["bwd"].items():
+            a_, kw_, n_ = rb["args"], rb["kw"], rb["needs"]
+            pairs = [tuple(device_ms(lambda: ffbsi.ffbsi_backward(*a_, needs=n_, design=d, **kw_))
+                           for d in ffbsi.K6_DESIGNS) for _ in range(3)]
+            k6[mode] = dict(pairs=pairs, plain=time_ms(rb["plain"]),
+                            ms=statistics.mean(p_[0] for p_ in pairs),
+                            ms_prev=statistics.mean(p_[1] for p_ in pairs))
     t1, batch, m, dx, k = ops[1].shape[0], ops[1].shape[1], ops[0].shape[1], ops[1].shape[2], ops[1].shape[3]
     n_pair = t1 * batch * m * k
     # K5: per (t, b, m, j) the pair (5 operations per state dimension and 3 more), the
     # logit, the Gumbel add and compare, and the running exp-sum: 5·Dx + 8.
     k5_bound, k5_by = bound((5 * dx + 8) * n_pair, nbytes(*ops, *rf["kern"]))
-    # K6 with pair cotangents: three passes of the pair and its exp (5·Dx + 6 each) and the
-    # accumulations of d_c, d_r, d_mr, d_lwn, d_lg, d_q (4·Dx + 8); on the paths alone one
-    # selection compare per (t, b, m, j).
-    k6_cost = {"all cotangents": (3 * (5 * dx + 6) + 4 * dx + 8) * n_pair, "paths only": n_pair}
+    # K6 with pair cotangents: one evaluation of the pair with its floor and logit
+    # (5·Dx + 6), the exp and the sums e, e·mr, e·r (2·Dx + 3), d_pair and its
+    # per-particle sums (2·Dx + 9) per (t, b, m, j); on the paths alone one selection
+    # compare per (t, b, m, j).
+    k6_cost = {mode: (9 * dx + 18) * n_pair for mode in k6}
+    k6_cost["paths only"] = n_pair
     k6_bound = {mode: bound(k6_cost[mode], rb["n_bytes"]) for mode, rb in rf["bwd"].items()}
     k5_p = ffbsi.k5_paths(batch, m, n_sms)
     print(f"[k] K5 full, device time per call (torch.profiler, 20 calls), (staged, path) "
@@ -1611,10 +1762,52 @@ def main() -> int:
     if not all(a < b_ for a, b_ in k5_pairs):
         fail("K5: the staged design is not faster than the previous one in every pair")
     print(f"[k] full: K5 staged {k5[0]:.4f} ms (dev), path {k5[2]:.4f} ms (dev) vs plain "
-          f"{k5[1]:.3f}/{k5[3]:.3f} ms, bound {k5_bound:.4f} ms ({k5_by}); "
-          + "; ".join(f"K6 {mode} {v[0]:.4f}/{v[2]:.4f} ms vs plain {v[1]:.3f}/{v[3]:.3f} ms, "
-                      f"bound {k6_bound[mode][0]:.4f} ms ({k6_bound[mode][1]})"
-                      for mode, v in k6.items()), flush=True)
+          f"{k5[1]:.3f}/{k5[3]:.3f} ms, bound {k5_bound:.4f} ms ({k5_by})", flush=True)
+    for mode, v in k6.items():
+        print(f"[k] full: K6 {mode}, device time (staged, row) alternated: "
+              + ", ".join(f"({a:.4f}, {b_:.4f})" for a, b_ in v["pairs"])
+              + f" ms; plain {v['plain']:.3f} ms (events); bound {k6_bound[mode][0]:.4f} ms "
+              f"({k6_bound[mode][1]})", flush=True)
+        if not all(a < b_ for a, b_ in v["pairs"]):
+            fail(f"K6 ({mode}): the staged design is not faster than the row design in every pair")
+    print(f"[k] K6 staged: all-cotangents kernel "
+          f"{kernel_resources(f'ffbsi_bwd_staged_kernelILi{dx}ELi{ffbsi.K6_GROUP}ELb1EE')}, "
+          f"{ffbsi.k6_smem_bytes(dx, m, k)} B of dynamic shared memory, a persistent CTA per slot "
+          f"the card holds; paths-only kernel {kernel_resources(f'ffbsi_bwd_paths_kernelILi{dx}EE')}; "
+          f"row design {kernel_resources(f'ffbsi_backward_kernelILi{dx}EE')}", flush=True)
+    # K6 off the preset's shapes: M = 256, and K = 8192 (chunked rows), on a generator of
+    # their own (the later phases' draws stay as they were)
+    gen_x = torch.Generator(device=dev).manual_seed(SEED + 31)
+    for label, (b_x, m_x, k_x, t_x) in (("M=256", (8, 256, 1024, 20)), ("K=8192", (2, 16, 8192, 20))):
+        args_x, fwd_x = ffbsi_sweep(dev, 3, b_x, m_x, k_x, t_x, gen_x)
+        cots_x = [torch.randn(t_.shape, generator=gen_x, device=dev) for t_ in fwd_x[:4]]
+        for mode, (live, needs) in K6_MODES.items():
+            kw_x = {n_: cots_x[i] if i in live else None
+                    for i, n_ in enumerate(("d_x_first", "d_logp", "d_logq", "d_xtilde"))}
+            with torch.no_grad():
+                got = ffbsi.ffbsi_backward(*args_x, needs=needs, **kw_x)
+            want = ffbsi.ffbsi_backward_reference(*args_x, needs=needs, **kw_x)
+            rel = [float((g_ - w_).norm() / w_.norm().clamp_min(1e-30))
+                   for g_, w_ in zip(got, want) if w_ is not None]
+            dc = k6_design_check(args_x, kw_x, needs)
+            print(f"[k] K6 {label} (B={b_x}, M={m_x}, K={k_x}, T-1={t_x}) {mode}: max rel L2 against "
+                  f"the plain version {max(rel):.3e} (bound 1e-3), against the row design "
+                  + ("bit-equal" if dc["equal"] else f"{max(dc['rel']):.3e}")
+                  + f", bit-equal on relaunch {dc['relaunch']}", flush=True)
+            if not (dc["finite"] and dc["relaunch"]):
+                fail(f"K6 at {label} ({mode}): non-finite or not bit-equal on relaunch")
+            if mode == "direct bound":
+                d_st, d_pl, d_rw = k6_wide_check(args_x, kw_x, needs, dc["staged"], want, dc["row"])
+                print(f"[k] K6 {label} direct bound: max rel L2 to the float64 plain replay, staged "
+                      f"{max(d_st):.3e}, float32 plain {max(d_pl):.3e}, row {max(d_rw):.3e}", flush=True)
+                if not all(a <= max(1e-3, 2 * p_) and a <= max(1e-5, 2 * r_)
+                           for a, p_, r_ in zip(d_st, d_pl, d_rw)):
+                    fail(f"K6 at {label} (direct bound): the staged design is further from the "
+                         f"float64 replay than the plain version or the row design")
+            elif not (max(rel) <= 1e-3 and max(dc["rel"]) <= 1e-5
+                      and (mode != "paths only" or dc["equal"])):
+                fail(f"K6 at {label} ({mode}) disagrees with the plain version or the row design")
+        del args_x, fwd_x, cots_x
     phase_done("k")
 
     # (l) serving: smooth_posterior on three batches of 32 Lorenz-63 trajectories
@@ -1673,7 +1866,7 @@ def main() -> int:
         fn.calls = 0
     for fn in l_kernels:
         fn.launches = 0
-    zero_designs(ffbsi.ffbsi_forward)
+    zero_designs(ffbsi.ffbsi_forward, ffbsi.ffbsi_backward)
     call_s, train_metrics = [], []
     for bt in train_batches:
         t0 = time.perf_counter()
@@ -1682,6 +1875,7 @@ def main() -> int:
         call_s.append(time.perf_counter() - t0)
     psvo_launches = [fn.launches for fn in l_kernels]
     k5_train_designs = dict(ffbsi.ffbsi_forward.launches_by_design)
+    k6_train_designs = dict(ffbsi.ffbsi_backward.launches_by_design)
     plain_calls = sum(fn.calls for fn in l_plain)
     peak_psvo_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(m_["loss"]) for m_ in train_metrics]
@@ -1692,8 +1886,8 @@ def main() -> int:
     print(f"[m] training {l63}: {len(train_batches)} calls x {n_per_call} steps, B={batch}: loss "
           f"per call {[round(v, 3) for v in losses]}, grad norm {[round(v, 3) for v in norms]}, "
           f"log_joint_smoothed {[round(v, 2) for v in em]}, parameters moved {moved}; launches "
-          f"K1/K4/K5/K6 {psvo_launches} (K5 by design {k5_train_designs}), plain-version calls "
-          f"{plain_calls}; call times "
+          f"K1/K4/K5/K6 {psvo_launches} (K5 by design {k5_train_designs}, K6 {k6_train_designs}), "
+          f"plain-version calls {plain_calls}; call times "
           f"{[round(v, 3) for v in call_s]} s, train step {psvo_step_ms:.3f} ms (median of the calls "
           f"after the first, per step); peak device memory {peak_psvo_gb:.3f} GB, of which earlier "
           f"phases held {held_psvo_gb:.3f} GB before the run", flush=True)
@@ -1702,35 +1896,23 @@ def main() -> int:
     print(f"[m] profile of one more call: {profile}", flush=True)
     want = len(train_batches) * n_per_call
     if (psvo_launches != [want] * 4 or plain_calls != 0
-            or k5_train_designs != {"staged": want, "path": 0}):
+            or k5_train_designs != {"staged": want, "path": 0}
+            or k6_train_designs != {"staged": want, "row": 0}):
         fail(f"PSVO train path launched K1/K4/K5/K6 {psvo_launches} times (want {want} each, every "
-             f"K5 launch the staged design: {k5_train_designs}), plain versions {plain_calls}")
+             f"K5 and K6 launch the staged design: {k5_train_designs}, {k6_train_designs}), plain "
+             f"versions {plain_calls}")
     if not (all(math.isfinite(v) for v in losses + norms) and moved):
         fail("PSVO training gave non-finite losses or gradient norms, or left the parameters as they were")
     phase_done("m")
 
-    # (n) K2 at the Lorenz-96 width vs the plain Philox
+    # (n) K2 at the Lorenz-96 width vs the plain Philox, both designs
     from psvo_tpu_torch.ops import resample_gather as rg
     from psvo_tpu_torch.ops import trunk
 
     l_cfg, l_batch = l96_config(small=False)
     lk = l_cfg.smc.n_particles
     seed40 = (0x2468ACE0, 0x13579BDF)
-    e40_k, u40_k = fused_step.stream_noise(seed40, 3, l_batch, 40, lk, dev)
-    e40_r, u40_r = fused_step.stream_noise_reference(seed40, 3, l_batch, 40, lk, dev)
-    torch.cuda.synchronize()
-    e40_bad, u40_bad = int((e40_k != e40_r).sum()), int((u40_k != u40_r).sum())
-    k2l_ms = time_ms(lambda: fused_step.stream_noise(seed40, 3, l_batch, 40, lk, dev), reps=20)
-    k2l_plain = time_ms(lambda: fused_step.stream_noise_reference(seed40, 3, l_batch, 40, lk, dev))
-    k2l_dev = device_ms(lambda: fused_step.stream_noise(seed40, 3, l_batch, 40, lk, dev))
-    k2l_bound, k2l_by = bound(80.0 * e40_k.numel(), nbytes(e40_k, u40_k))  # as phase (d)'s K2
-    print(f"[n] K2 stream_noise [3,{l_batch},40,{lk}]: eps mismatches {e40_bad}, u0 mismatches "
-          f"{u40_bad}, eps mean {float(e40_k.mean()):.4f} std {float(e40_k.std()):.4f}; "
-          f"{k2l_ms:.4f} ms (device time {k2l_dev:.4f} ms) vs plain {k2l_plain:.4f} ms; bound "
-          f"{k2l_bound:.4f} ms ({k2l_by})", flush=True)
-    if e40_bad or u40_bad:
-        fail("K2 at Dx=40 is not bit-equal to the plain Philox")
-    del e40_k, e40_r
+    k2l = k2_check(seed40, 3, l_batch, 40, lk, dev, "n")
     phase_done("n")
 
     # (o) K7 and K8 vs their plain versions, adversarial rows, small and full
@@ -2685,9 +2867,10 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     held_l_gb = torch.cuda.memory_allocated() / 1e9
     call_s = []
-    zero_designs(ffbsi.ffbsi_forward)
+    zero_designs(ffbsi.ffbsi_forward, ffbsi.ffbsi_backward)
     train_metrics, l_train, plain_calls = counted(train_calls)
     l_train_designs = dict(ffbsi.ffbsi_forward.launches_by_design)
+    l_train_k6 = dict(ffbsi.ffbsi_backward.launches_by_design)
     peak_l_gb = torch.cuda.max_memory_allocated() / 1e9 - held_l_gb
     losses = [float(m_["loss"]) for m_ in train_metrics]
     norms = [float(m_["grad_norm"]) for m_ in train_metrics]
@@ -2696,7 +2879,8 @@ def main() -> int:
     print(f"[ac] training {l63}, per-step path: {len(train_batches)} calls x {n_per_call} steps, "
           f"B={batch}: loss per call {[round(v, 3) for v in losses]}, grad norm "
           f"{[round(v, 3) for v in norms]}, parameters moved {moved}; launches K14/K15/K1/K4/K5/K6 "
-          f"{l_train} (K5 by design {l_train_designs}), plain-version calls {plain_calls}; call "
+          f"{l_train} (K5 by design {l_train_designs}, K6 {l_train_k6}), plain-version calls "
+          f"{plain_calls}; call "
           f"times {[round(v, 3) for v in call_s]} "
           f"s, train step {step_l63_ms:.3f} ms (median of the calls after the first, per step); "
           f"peak device memory {peak_l_gb:.3f} GB above the {held_l_gb:.3f} GB held before",
@@ -2706,9 +2890,10 @@ def main() -> int:
     print(f"[ac] profile of one more call: {profile}", flush=True)
     n_steps = len(train_batches) * n_per_call
     if (l_train != [n_steps * t1, n_steps * t1, 0, 0, n_steps, n_steps] or plain_calls != 0
-            or l_train_designs != {"staged": n_steps, "path": 0}):
+            or l_train_designs != {"staged": n_steps, "path": 0}
+            or l_train_k6 != {"staged": n_steps, "row": 0}):
         fail(f"per-step PSVO training launched K14/K15/K1/K4/K5/K6 {l_train} (K5 by design "
-             f"{l_train_designs}), plain versions {plain_calls}")
+             f"{l_train_designs}, K6 {l_train_k6}), plain versions {plain_calls}")
     if not (all(math.isfinite(v) for v in losses + norms) and moved):
         fail("per-step PSVO training gave non-finite losses or gradient norms, or left the "
              "parameters as they were")
@@ -2841,18 +3026,75 @@ def main() -> int:
     k15_ms_s1 = statistics.mean(sum(t.values()) for t in fhn_s["ms"][1][1])
     phase_done("ae")
 
-    # K2: about 80 operations per normal (a Philox4x32-10 call, about 100 integer
-    # operations, serves the particle's two normals; the Box-Muller transform about 30
-    # each), counted at the fp32 rate; its output written once.
+    # (af) PSVO training under the direct bound: K6's all-cotangents branch on the path
+    dcfg = dataclasses.replace(lcfg, smc=dataclasses.replace(lcfg.smc, psvo_bound="direct"),
+                               train=dataclasses.replace(lcfg.train, steps_per_call=1))
+    batch = 32
+    ssm = pt.init_ssm(dcfg, torch.Generator().manual_seed(SEED), device=dev)
+    train_step = pt.make_train_step(ssm, dcfg, pt.make_optimizer(dcfg))
+    obs = lds.obs_train.to(dev)
+    pick = torch.randint(0, obs.shape[0], (3, batch), generator=torch.Generator().manual_seed(SEED + 23))
+    direct_batches = [obs[p_.to(dev)].contiguous() for p_ in pick]
+    before = [p_.detach().clone() for p_ in ssm.parameters()]
+    run_gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    l_kernels = (fused_step.scan_forward, fused_step.scan_backward, ffbsi.ffbsi_forward,
+                 ffbsi.ffbsi_backward)
+    l_plain = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+               fused_step.stream_noise_reference, fused_step.ancestor_indices_reference,
+               ffbsi.ffbsi_forward_reference, ffbsi.ffbsi_backward_reference)
+    for fn in l_plain:
+        fn.calls = 0
+    for fn in l_kernels:
+        fn.launches = 0
+    zero_designs(ffbsi.ffbsi_forward, ffbsi.ffbsi_backward)
+    torch.cuda.synchronize()
+    step_s, direct_metrics = [], []
+    for bt in direct_batches:
+        t0 = time.perf_counter()
+        direct_metrics.append(train_step(run_gen, bt))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    direct_launches = [fn.launches for fn in l_kernels]
+    direct_designs = (dict(ffbsi.ffbsi_forward.launches_by_design),
+                      dict(ffbsi.ffbsi_backward.launches_by_design))
+    plain_calls = sum(fn.calls for fn in l_plain)
+    losses = [float(m_["loss"]) for m_ in direct_metrics]
+    norms = [float(m_["grad_norm"]) for m_ in direct_metrics]
+    moved = any(not torch.equal(a_, p_) for a_, p_ in zip(before, ssm.parameters()))
+    direct_step_ms = statistics.median(step_s[1:]) * 1e3
+    print(f"[af] training {l63} under psvo_bound=\"direct\": {len(direct_batches)} steps, B={batch}: "
+          f"loss {[round(v, 3) for v in losses]}, grad norm {[round(v, 3) for v in norms]}, "
+          f"parameters moved {moved}; launches K1/K4/K5/K6 {direct_launches} (K5 by design "
+          f"{direct_designs[0]}, K6 {direct_designs[1]}), plain-version calls {plain_calls}; step "
+          f"times {[round(1e3 * v, 3) for v in step_s]} ms, train step {direct_step_ms:.3f} ms "
+          f"(median of the steps after the first)", flush=True)
+    profile = device_breakdown(lambda: train_step(run_gen, direct_batches[0]), 1, PSVO_KERNELS)
+    print(f"[af] profile of one more step: {profile}", flush=True)
+    n_direct = len(direct_batches)
+    if (direct_launches != [n_direct] * 4 or plain_calls != 0
+            or direct_designs != ({"staged": n_direct, "path": 0}, {"staged": n_direct, "row": 0})):
+        fail(f"direct-bound PSVO training launched K1/K4/K5/K6 {direct_launches} (want {n_direct} "
+             f"each, K5 and K6 all staged: {direct_designs}), plain versions {plain_calls}")
+    if not (all(math.isfinite(v) for v in losses + norms) and moved):
+        fail("direct-bound PSVO training gave non-finite losses or gradient norms, or left the "
+             "parameters as they were")
+    phase_done("af")
+
     # K3: the CDF scan and a binary search per particle; logw and u0 in, int32 indices out.
-    k2_bound, k2_by = bound(80.0 * e_k.numel(), nbytes(e_k, u_k))
     k3_bound, k3_by = bound(2.0 * bl.numel() * (1 + math.log2(bl.shape[-1])),
                             nbytes(bl, bu) + bl.numel() * 4)
     kernels = [
+        # K2: about 80 operations per normal (the count of earlier runs: a Philox4x32-10
+        # call of about 100 integer operations per two normals, the Box-Muller transform
+        # about 30 each), counted at the fp32 rate; its output written once. "ms" and
+        # "ms_prev" are the pair and particle designs' device times at the FHN width,
+        # "*_l96" at Lorenz-96's.
         {"name": "stream_noise", "route": "cuda", "source": "psvo_tpu_torch/csrc/stream_noise.cu",
          "replaces": "psvo_tpu/ops/pallas_step.py:540", "launches": 0, "on_path": False,
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+         "max_abs_err": k2["err"], "ms": k2["ms"], "plain_ms": k2["plain"],
+         "bound_ms": k2["bound"], "bound_by": k2["by"], "library_ms": None,
+         "ms_prev": k2["ms_prev"], "ms_l96": k2l["ms"], "ms_prev_l96": k2l["ms_prev"],
+         "plain_ms_l96": k2l["plain"], "bound_ms_l96": k2l["bound"]},
         {"name": "ancestor_indices", "route": "cuda", "source": "psvo_tpu_torch/csrc/ancestor_indices.cu",
          "replaces": "psvo_tpu/ops/pallas_resample.py:210", "launches": 0, "on_path": False,
          "max_abs_err": float(k3_err), "ms": k3_ms, "plain_ms": k3_plain,
@@ -2871,12 +3113,20 @@ def main() -> int:
          "replaces": "psvo_tpu/ops/pallas_ffbsi.py:294", "launches": psvo_launches[2],
          "max_abs_err": sweeps["small"][1]["max_abs_err"], "ms": k5[0], "plain_ms": k5[1],
          "bound_ms": k5_bound, "bound_by": k5_by, "library_ms": None, "ms_prev": k5[2]},
+        # K6: "ms" the paths-only branch (the forward bound's, on the path), "*_all" and
+        # "*_direct" the all-cotangents branch with every cotangent and with the direct
+        # bound's; "ms_prev*" the row design's, alternated with the staged one.
         {"name": "ffbsi_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/ffbsi.cu",
          "replaces": "psvo_tpu/ops/pallas_ffbsi.py:358", "launches": psvo_launches[3],
          "max_abs_err": max(max(rb["maxd"]) for rb in sweeps["small"][1]["bwd"].values()),
-         "ms": k6["paths only"][0], "plain_ms": k6["paths only"][1],
+         "ms": k6["paths only"]["ms"], "plain_ms": k6["paths only"]["plain"],
          "bound_ms": k6_bound["paths only"][0], "bound_by": k6_bound["paths only"][1],
-         "library_ms": None},
+         "library_ms": None, "ms_prev": k6["paths only"]["ms_prev"],
+         "ms_all": k6["all cotangents"]["ms"], "ms_prev_all": k6["all cotangents"]["ms_prev"],
+         "plain_ms_all": k6["all cotangents"]["plain"],
+         "bound_ms_all": k6_bound["all cotangents"][0],
+         "ms_direct": k6["direct bound"]["ms"], "ms_prev_direct": k6["direct bound"]["ms_prev"],
+         "bound_ms_direct": k6_bound["direct bound"][0], "launches_direct": direct_launches[3]},
         {"name": "ancestor_indices_large", "route": "cuda",
          "source": "psvo_tpu_torch/csrc/resample_gather.cu",
          "replaces": "psvo_tpu/ops/pallas_resample.py:338",
@@ -2923,7 +3173,9 @@ def main() -> int:
          "ms_s1": k15_ms_s1},
     ]
     print(f"[profiler] {PROFILE_WINDOWS['windows']} profiler windows, "
-          f"{PROFILE_WINDOWS['empty']} of them with no device events and run again", flush=True)
+          f"{PROFILE_WINDOWS['empty']} of them with no device events (run again); of the timing "
+          f"windows, {PROFILE_WINDOWS['partial']} recorded part of a kernel's events (timed by "
+          f"the mean of those recorded)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -52,12 +52,14 @@
 // Besides the op's outputs K5 writes the selections sel [T-1, B, M] (int32)
 // for K6.
 //
-// K6 design. The TPU kernel recomputes each step's argmax from gum; K6 reads
-// K5's selections instead, the same function without gum's bytes (the
+// K6 has two designs; the path runs the staged design (see "K6, design
+// staged" below). Both read K5's selections where the TPU kernel recomputes
+// each step's argmax from gum: the same function without gum's bytes (the
 // largest operand), and teacher-forced as K4 is on K1's ancestors. d_q, the
 // cotangent of step t's query, depends only on step t's own inputs (the TPU
-// kernel's dq_c scratch only hands it on to step t+1's output), so one CTA
-// per (t, b) runs all steps at once:
+// kernel's dq_c scratch only hands it on to step t+1's output), so every
+// step runs at once. The row design (ffbsi_backward_kernel, the previous
+// one, kept as design "row", its yardstick) runs one CTA per (t, b):
 //   1. one warp per path: the online max and sum of exp of the logits;
 //   2. one thread per particle j adds the M paths' terms in path order:
 //      d_pair = oh*(gp + gq) - soft*gq, cut to 0 where the unfloored pair <
@@ -83,6 +85,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <limits>
+#include <type_traits>
 
 #include "async_copy.cuh"
 #include "resample.cuh"
@@ -836,6 +840,812 @@ __global__ void __launch_bounds__(kThreads) ffbsi_backward_kernel(const FfbsiBwd
   }
 }
 
+// ---- K6, design "staged" ----
+//
+// Replaces the row design above (ffbsi_backward_kernel, kept as design "row",
+// its yardstick). It computes what pallas_ffbsi._bwd_kernel computes, on K5's
+// selections, in two kernels, one per branch:
+//
+// Paths only (no d_logp, no d_logq: PSVO training under the forward bound).
+// No pair carries a cotangent, so d_q = 0 and the op is a scatter: d_xs of
+// point t is zero but at the at most M selected particles. Bytes bound it (at
+// the preset the 38.9 MB of d_xs it writes: 0.0119 ms); the row design spent
+// its time on dependent loads before its first store. ffbsi_bwd_paths_kernel
+// runs a persistent grid, as many CTAs an SM as fit, each owning batches of
+// kK6PathRows whole (t, b) rows of d_xs: per batch it streams zeros with
+// 16-byte stores that wait on no load while the batch's selections and
+// cotangents arrive (cp.async, issued a batch ahead into the other of two
+// buffers); after one barrier it patches the selected particles
+// (patch_point). Nothing of the pair is loaded.
+//
+// All cotangents (ffbsi_bwd_staged_kernel). The row design evaluated each
+// (m, j) pair three times (one warp per path twice, 32 dependent loads deep,
+// and once per particle with an IEEE division per (m, j)), each pass
+// reloading r, mr, c and lwn from device memory. Here a persistent grid (as
+// many CTAs as the card holds: two an SM at 128 registers) walks the (t, b)
+// rows; each row's r, mr, c and lwn (32 KB at Dx = 3, K = 1024) and its
+// paths' queries, cotangents and selections are copied into one of two
+// shared-memory buffers while the CTA works on the previous row (bulk copies
+// on an mbarrier where K is a multiple of 4, else cp.async), and the d_xs
+// rows it will patch are zeroed then too. Thread tid owns the kK6Per
+// consecutive particles tid*4 .. tid*4 + 3 and evaluates each (m, j) pair
+// once, for G = kK6Group paths at a time, in the plain version's order of
+// rounded operations (pair_vals: Lorenz-63's expanded pair cancels, so a
+// fused product would move the logits), the logits held in registers. Per
+// path the CTA takes the exact max (warp reduce-scatter, then the eight
+// warps), then e_j = exp(logit_j - max) and, in one more reduce-scatter and
+// merge of the eight warps in order, sum e, sum e*mr_d and sum e*r_d; 1/sum
+// is taken once per path. d_pair = oh*(gp + gq) - s with s = e*gq/sum: each
+// thread adds s, -1/2 q^2 s and q s per particle over the paths in path
+// order, and after the last group the picks' oh*(gp + gq) terms, and writes
+// d_c, d_r, d_mr, d_lwn and d_lg with 16-byte stores. The floor's cut (d_pair
+// = 0 where the unfloored pair < -1e30) costs nothing per pair: a floored
+// logit lies 1e30 below any unfloored one, so its e is exactly 0 and a path
+// never picks it, unless the path's own max is floored (below -1e29); only
+// such a group recomputes its pairs and cuts them one by one. d_q needs no
+// pass of its own:
+//   d_q_d = [pick not cut]*(gp + gq)*(mr_d[pick] - q_d*r_d[pick])
+//           - gq/sum * (sum e*mr_d - q_d * sum e*r_d)   (cut pairs left out).
+// Then d_xs is patched as above, with cot = d_q + d_xtilde. Bytes bound it
+// (0.0779 ms at the preset); the stage marks of tools/stage_profile.py show
+// where the time goes (PERF.md).
+//
+// Rows past kK6Chunk = 1024 particles (ONE false) do not fit the registers
+// (nor, past K ~ 7,000, shared memory): one CTA per (t, b) stages them in
+// chunks of 1024, twice. A first pass merges each chunk's per-path max and
+// sums into running ones (rescaled, chunk order) in shared memory; a second
+// pass recomputes the logits chunk by chunk, forms d_pair from the final max
+// and sum and writes the chunk's cotangents. Both designs are deterministic:
+// no atomics.
+constexpr int kK6Per = 4;                      // consecutive particles a thread owns
+constexpr int kK6Chunk = kThreads * kK6Per;    // particles a pass covers
+constexpr int kK6Group = 8;                    // G: paths whose logits a thread holds
+constexpr int kK6PathRows = 1;                 // paths only: rows of d_xs a CTA zeroes at once
+constexpr int kK6MaxM = 256;                   // ops/ffbsi.py MAX_M
+constexpr float kNegInf = -std::numeric_limits<float>::infinity();
+
+inline bool k6_aligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// n floats from p zeroed by the block (16-byte stores where vec: p 16-byte
+// aligned, n a multiple of 4).
+__device__ __forceinline__ void zero_span(float* p, int n, bool vec) {
+  if (vec) {
+    float4* p4 = reinterpret_cast<float4*>(p);
+    for (int i = threadIdx.x; i < n / 4; i += kThreads) p4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    for (int i = threadIdx.x; i < n; i += kThreads) p[i] = 0.0f;
+  }
+}
+
+// d_xs of one point (out: [DX][K], already zeroed and ordered before by a
+// barrier): each selected particle gets the sum over the paths that selected
+// it of their cotangents cot(e, d), in path order from 0.0f, written by the
+// thread of the first path that selected it: the row design's sums bit for
+// bit. Paths m0 + tid, m0 + tid + step, ... of the point are this thread's.
+template <int DX, class Cot>
+__device__ __forceinline__ void patch_point(float* out, int K, int M, Cot cot, const int* sel,
+                                            int first, int step) {
+  for (int m = first; m < M; m += step) {
+    const int j = sel[m];
+    bool owner = true;
+#pragma unroll 4
+    for (int e = 0; e < m; ++e) owner = owner && sel[e] != j;
+    if (!owner) continue;
+    float s[DX];
+#pragma unroll
+    for (int d = 0; d < DX; ++d) s[d] = 0.0f;
+#pragma unroll 4
+    for (int e = m; e < M; ++e) {
+      if (sel[e] == j) {
+#pragma unroll
+        for (int d = 0; d < DX; ++d) s[d] += cot(e, d);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < DX; ++d) out[d * K + j] = s[d];
+  }
+}
+
+// Shared memory of the paths-only kernel, in floats: two buffers of R rows'
+// selections [M] (ints), d_xtilde [M][DX] and (point 0) d_x_first [M][DX].
+__host__ __device__ inline int k6_paths_floats(int M, int DX, int R) {
+  return 2 * R * (M + 2 * M * DX);
+}
+
+template <int DX>
+__global__ void __launch_bounds__(kThreads) ffbsi_bwd_paths_kernel(const FfbsiBwdArgs a, int vec,
+                                                                    int R) {
+  extern __shared__ __align__(16) float sp[];
+  const int M = a.M, K = a.K, B = a.B, T1 = a.T1, rows = T1 * B, tid = threadIdx.x;
+  const int per_row = M + 2 * M * DX, batches = (rows + R - 1) / R;
+  // batch `batch`'s selections and cotangents into buffer bf (4-byte
+  // cp.async; zeros where a cotangent is absent), committed
+  auto issue = [&](int batch, float* bf) {
+    for (int e = tid; e < R * M; e += kThreads) {
+      const int r = e / M, m = e % M, row = batch * R + r;
+      if (row < rows) cp_async4(bf + r * per_row + m, a.sel + (size_t)row * M + m);
+    }
+    for (int e = tid; e < R * M * DX; e += kThreads) {
+      const int r = e / (M * DX), i = e % (M * DX), row = batch * R + r;
+      if (row >= rows) continue;
+      float* dst = bf + r * per_row + M;
+      if (a.d_xtilde != nullptr) cp_async4(dst + i, a.d_xtilde + (size_t)row * M * DX + i);
+      else dst[i] = 0.0f;
+      if (row < B) {  // point 0
+        if (a.d_x_first != nullptr) cp_async4(dst + M * DX + i, a.d_x_first + (size_t)row * M * DX + i);
+        else dst[M * DX + i] = 0.0f;
+      }
+    }
+    cp_async_commit();
+  };
+  int batch = blockIdx.x;
+  if (batch < batches) issue(batch, sp);
+  for (int it = 0; batch < batches; batch += gridDim.x, ++it) {
+    float* bf = sp + (it & 1) * R * per_row;
+    for (int r = 0; r < R; ++r) {  // stores that wait on no load
+      const int row = batch * R + r;
+      if (row >= rows) break;
+      zero_span(a.d_xs + (size_t)row * DX * K, DX * K, vec);
+      // no pair cotangent: the support terms' cotangents are zero, and so is the anchor's
+      if (a.d_r != nullptr) zero_span(a.d_r + (size_t)row * DX * K, DX * K, vec);
+      if (a.d_mr != nullptr) zero_span(a.d_mr + (size_t)row * DX * K, DX * K, vec);
+      if (a.d_c != nullptr) zero_span(a.d_c + (size_t)row * K, K, vec);
+      if (a.d_lwn != nullptr) zero_span(a.d_lwn + (size_t)row * K, K, vec);
+      if (a.d_lg != nullptr) zero_span(a.d_lg + (size_t)row * K, K, vec);
+      if (row / B == T1 - 1) zero_span(a.d_x_anchor + (size_t)(row % B) * M * DX, M * DX, false);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the batch's operands in, the zeros before the patch, the other buffer free
+    if (batch + (int)gridDim.x < batches) issue(batch + gridDim.x, sp + ((it + 1) & 1) * R * per_row);
+    for (int r = 0; r < R; ++r) {
+      const int row = batch * R + r;
+      if (row >= rows) break;
+      const float* xt = bf + r * per_row + M;
+      const float* xf = xt + M * DX;
+      const bool zero_pt = row < B;  // point 0: d_xtilde[0] + d_x_first; else 0 + d_xtilde[t]
+      // the paths of the R rows are spread over the threads: row r takes
+      // thread (tid - r * M) mod 256's turn
+      const int first = (tid - r * M % kThreads + kThreads) % kThreads;
+      patch_point<DX>(a.d_xs + (size_t)row * DX * K, K, M,
+                      [&](int e, int d) {
+                        return zero_pt ? xt[e * DX + d] + xf[e * DX + d] : 0.0f + xt[e * DX + d];
+                      },
+                      reinterpret_cast<const int*>(bf + r * per_row), first, kThreads);
+    }
+  }
+}
+
+// Reduce-scatter of G per-path partials v[0..G) across a warp (+, or max):
+// at each level (xor O, H paths kept) a lane keeps half the paths it holds
+// and adds its partner's partials of those, then plain butterflies. Returns
+// the warp's total of path lane / (32 / G), the same bits in each of that
+// path's lanes. The levels are template steps, so every index is static and
+// v stays in registers.
+template <bool MAX, int H, int O, int G>
+__device__ __forceinline__ void scatter_level(float (&v)[G], int lane) {
+  if constexpr (H >= 1) {
+    const bool up = (lane & O) != 0;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float send = up ? v[i] : v[i + H];
+      const float keep = up ? v[i + H] : v[i];
+      const float got = __shfl_xor_sync(kFull, send, O);
+      v[i] = MAX ? fmaxf(keep, got) : keep + got;
+    }
+    scatter_level<MAX, H / 2, O / 2>(v, lane);
+  }
+}
+
+template <int G, bool MAX>
+__device__ __forceinline__ float warp_scatter(float (&v)[G]) {
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two up to 32");
+  scatter_level<MAX, G / 2, 16>(v, threadIdx.x & 31);
+  float r = v[0];
+#pragma unroll
+  for (int o = 16 / G; o >= 1; o >>= 1) {
+    const float got = __shfl_xor_sync(kFull, r, o);
+    r = MAX ? fmaxf(r, got) : r + got;
+  }
+  return r;
+}
+
+// Shared memory of the all-cotangents kernel, in floats; ops/ffbsi.py::
+// k6_smem_bytes mirrors it. A row buffer holds what one (t, b) reads: a
+// chunk's r, mr, c and lwn (rows of KC floats), the queries, d_xtilde of
+// point t + 1 and, for step 0, d_xtilde[0] and d_x_first, the paths' d logp
+// and d logq, the selections of step t and of point t + 1. Whole rows (ONE)
+// keep two buffers: the next row's copies land in one while the CTA works
+// on the other.
+struct K6Layout {
+  int KC, st, pq, pxn, px0, pxf, pgp, pgq, psel, nsel, buf;  // inside a buffer; buf its floats
+  int pst, dq, cot, csel, red, redm, total;                 // from the start
+};
+
+__host__ __device__ inline int k6_up4(int n) { return (n + 3) & ~3; }
+
+template <int DX, int G, bool ONE>
+__host__ __device__ inline K6Layout k6_layout(int M, int K) {
+  K6Layout l;
+  l.KC = ONE ? k6_up4(K) : kK6Chunk;
+  int o = 0;
+  l.st = o;   o += (2 * DX + 2) * l.KC;
+  l.pq = o;   o += k6_up4(M * DX);
+  l.pxn = o;  o += k6_up4(M * DX);
+  l.px0 = o;  o += k6_up4(M * DX);
+  l.pxf = o;  o += k6_up4(M * DX);
+  l.pgp = o;  o += k6_up4(M);
+  l.pgq = o;  o += k6_up4(M);
+  l.psel = o; o += k6_up4(M);                                  // ints
+  l.nsel = o; o += k6_up4(M);                                  // ints
+  l.buf = o;
+  o *= ONE ? 2 : 1;
+  l.pst = o;  o += k6_up4(M * (2 + 2 * DX));                   // max, sum, sum e*mr, sum e*r
+  l.dq = o;   o += k6_up4(M * DX);
+  l.cot = o;  o += k6_up4(M * DX);
+  l.csel = o; o += k6_up4(M);                                  // ints: the pick's pair is floored
+  l.red = o;  o += (1 + 2 * DX) * G * kWarps;                  // [quantity][path][warp]
+  l.redm = o; o += G * kWarps;                                 // [path][warp]
+  l.total = o;
+  return l;
+}
+
+// The r, mr, c and lwn of particles j0 .. j0 + n - 1 of row `row` into the
+// stage (rows of KC floats): 16-byte cp.async where vec, else 4-byte.
+template <int DX>
+__device__ __forceinline__ void k6_stage(const FfbsiBwdArgs& a, float* st, int KC, size_t row,
+                                         int j0, int n, bool vec) {
+  const int K = a.K;
+  for (int sp = 0; sp < 2 * DX + 2; ++sp) {
+    const float* src = sp < DX       ? a.r + (row * DX + sp) * K
+                       : sp < 2 * DX ? a.mr + (row * DX + sp - DX) * K
+                       : sp == 2 * DX ? a.c + row * K
+                                      : a.lwn + row * K;
+    src += j0;
+    float* dst = st + sp * KC;
+    if (vec) {
+      for (int u = threadIdx.x; u < n / 4; u += kThreads) cp_async16(dst + 4 * u, src + 4 * u);
+    } else {
+      for (int u = threadIdx.x; u < n; u += kThreads) cp_async4(dst + u, src + u);
+    }
+  }
+}
+
+// Whole rows with vec: thread 0 copies row `row`'s r and mr (DX rows each,
+// back to back in device memory as in the stage), c and lwn as four bulk
+// copies that complete on bar.
+template <int DX>
+__device__ __forceinline__ void k6_stage_bulk(const FfbsiBwdArgs& a, float* st, size_t row,
+                                              uint64_t* bar) {
+  if (threadIdx.x != 0) return;
+  const int K = a.K;
+  const unsigned bytes = static_cast<unsigned>(K * sizeof(float));
+  bulk_fence();  // the block's reads of this buffer (ordered by a barrier) come first
+  mbar_expect_tx(bar, (2 * DX + 2) * bytes);
+  bulk_copy(st, a.r + row * DX * K, DX * bytes, bar);
+  bulk_copy(st + DX * K, a.mr + row * DX * K, DX * bytes, bar);
+  bulk_copy(st + 2 * DX * K, a.c + row * K, bytes, bar);
+  bulk_copy(st + (2 * DX + 1) * K, a.lwn + row * K, bytes, bar);
+}
+
+// Row (t, b)'s paths into buffer bf: queries, cotangents and selections
+// by 4-byte cp.async, zeros where a cotangent is absent.
+template <int DX>
+__device__ __forceinline__ void k6_paths(const FfbsiBwdArgs& a, float* bf, const K6Layout& L,
+                                         int t, int b) {
+  const int M = a.M, B = a.B, T1 = a.T1, MD = M * DX;
+  const size_t row = (size_t)t * B + b;
+  const float* q = t == T1 - 1 ? a.x_anchor + (size_t)b * MD : a.xtilde + (row + B) * MD;
+  for (int i = threadIdx.x; i < MD; i += kThreads) {
+    cp_async4(bf + L.pq + i, q + i);
+    if (t + 1 < T1 && a.d_xtilde != nullptr) {
+      cp_async4(bf + L.pxn + i, a.d_xtilde + (row + B) * MD + i);
+    } else {
+      bf[L.pxn + i] = 0.0f;
+    }
+    if (t == 0) {
+      if (a.d_xtilde != nullptr) cp_async4(bf + L.px0 + i, a.d_xtilde + (size_t)b * MD + i);
+      else bf[L.px0 + i] = 0.0f;
+      if (a.d_x_first != nullptr) cp_async4(bf + L.pxf + i, a.d_x_first + (size_t)b * MD + i);
+      else bf[L.pxf + i] = 0.0f;
+    }
+  }
+  int* psel = reinterpret_cast<int*>(bf + L.psel);
+  int* nsel = reinterpret_cast<int*>(bf + L.nsel);
+  for (int i = threadIdx.x; i < M; i += kThreads) {
+    if (a.d_logp != nullptr) cp_async4(bf + L.pgp + i, a.d_logp + (size_t)b * M + i);
+    else bf[L.pgp + i] = 0.0f;
+    if (a.d_logq != nullptr) cp_async4(bf + L.pgq + i, a.d_logq + (size_t)b * M + i);
+    else bf[L.pgq + i] = 0.0f;
+    cp_async4(psel + i, a.sel + row * M + i);
+    if (t + 1 < T1) cp_async4(nsel + i, a.sel + (row + B) * M + i);
+    else nsel[i] = 0;
+  }
+}
+
+// The d_xs points that step t's CTA patches, zeroed: t + 1 (none at the last
+// step) and, at step 0, point 0.
+template <int DX>
+__device__ __forceinline__ void k6_zero_points(const FfbsiBwdArgs& a, int t, int b, bool vec) {
+  const size_t row = (size_t)t * a.B + b, n = (size_t)DX * a.K;
+  if (t + 1 < a.T1) zero_span(a.d_xs + (row + a.B) * n, DX * a.K, vec);
+  if (t == 0) zero_span(a.d_xs + (size_t)b * n, DX * a.K, vec);
+}
+
+template <int DX, int G, bool ONE>
+__global__ void __launch_bounds__(kThreads, 2) ffbsi_bwd_staged_kernel(const FfbsiBwdArgs a,
+                                                                        int vec) {
+  extern __shared__ __align__(16) float sm[];
+  constexpr int PT = kK6Per, NQ = 1 + 2 * DX, S = 2 + 2 * DX;
+  constexpr float kCareful = -1e29f;  // a path max below it: its floored pairs may weigh
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int M = a.M, K = a.K, B = a.B, T1 = a.T1;
+  const K6Layout L = k6_layout<DX, G, ONE>(M, K);
+  const int KC = L.KC, NG = (M + G - 1) / G;
+  float* pst = sm + L.pst;
+  float* dq = sm + L.dq;
+  float* cot = sm + L.cot;
+  int* csel = reinterpret_cast<int*>(sm + L.csel);
+  float* red = sm + L.red;
+  float* redm = sm + L.redm;
+  const int jt = tid * PT;  // this thread's first particle in a chunk
+
+  float E[G][PT];  // logits, then e = exp(logit - max)
+  // per particle: sum of s = e*gq/sum over the pairs not cut, over the cut
+  // ones, and of -1/2 q^2 s and q s (d_pair = oh*(gp + gq) - s)
+  float A[PT], X[PT], DR[DX][PT], DMR[DX][PT];
+
+  // the pair of path m and this thread's particle i of the staged chunk
+  auto raw_of = [&](const float* bf, int m, int i) {
+    const float* st = bf + L.st;
+    float q[DX], qq[DX], rr[DX], mm[DX];
+#pragma unroll
+    for (int d = 0; d < DX; ++d) {
+      q[d] = bf[L.pq + m * DX + d];
+      qq[d] = __fmul_rn(q[d], q[d]);
+      rr[d] = st[d * KC + jt + i];
+      mm[d] = st[(DX + d) * KC + jt + i];
+    }
+    return pair_vals<DX>(q, qq, rr, mm, st[2 * DX * KC + jt + i]);
+  };
+
+  // logits of paths g0 .. g0 + G - 1 on this thread's particles of the staged
+  // chunk (n particles); -inf past the end
+  auto logits = [&](const float* bf, int g0, int n) {
+    if (jt >= n) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+#pragma unroll
+        for (int i = 0; i < PT; ++i) E[g][i] = kNegInf;
+      }
+      return;
+    }
+    const float* st = bf + L.st;
+    float rv[DX][PT], mv[DX][PT], cv[PT], lv[PT];
+#pragma unroll
+    for (int d = 0; d < DX; ++d) {
+      const float4 r4 = *reinterpret_cast<const float4*>(st + d * KC + jt);
+      const float4 m4 = *reinterpret_cast<const float4*>(st + (DX + d) * KC + jt);
+      rv[d][0] = r4.x; rv[d][1] = r4.y; rv[d][2] = r4.z; rv[d][3] = r4.w;
+      mv[d][0] = m4.x; mv[d][1] = m4.y; mv[d][2] = m4.z; mv[d][3] = m4.w;
+    }
+    const float4 c4 = *reinterpret_cast<const float4*>(st + 2 * DX * KC + jt);
+    const float4 l4 = *reinterpret_cast<const float4*>(st + (2 * DX + 1) * KC + jt);
+    cv[0] = c4.x; cv[1] = c4.y; cv[2] = c4.z; cv[3] = c4.w;
+    lv[0] = l4.x; lv[1] = l4.y; lv[2] = l4.z; lv[3] = l4.w;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int m = g0 + g < M ? g0 + g : M - 1;
+      float q[DX], qq[DX];
+#pragma unroll
+      for (int d = 0; d < DX; ++d) {
+        q[d] = bf[L.pq + m * DX + d];
+        qq[d] = __fmul_rn(q[d], q[d]);
+      }
+#pragma unroll
+      for (int i = 0; i < PT; ++i) {
+        float rr[DX], mm[DX];
+#pragma unroll
+        for (int d = 0; d < DX; ++d) {
+          rr[d] = rv[d][i];
+          mm[d] = mv[d][i];
+        }
+        const float raw = pair_vals<DX>(q, qq, rr, mm, cv[i]);
+        E[g][i] = g0 + g < M && jt + i < n ? __fadd_rn(fmaxf(raw, kMinLogp), lv[i]) : kNegInf;
+      }
+    }
+  };
+
+  // e = exp(logit - mx) in place
+  auto exps = [&](const float (&mx)[G]) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int i = 0; i < PT; ++i) E[g][i] = __expf(E[g][i] - mx[g]);
+    }
+  };
+
+  // per path of the group: the exact max (mx; a path past M gets 0, so its
+  // e are exp(-inf) = 0), e in E, and the CTA's sum e, sum e*mr_d and
+  // sum e*r_d over the particles not cut by the floor, merged over the
+  // eight warps in order; every thread gets mx and sum e, threads tid < G
+  // path g0 + tid's max in mx_own and its sums in q_out. careful: some
+  // path's max is floored, so its floored pairs weigh and are cut one by one.
+  auto stats = [&](const float* bf, int g0, int n, float (&mx)[G], float (&sum)[G],
+                   float (&q_out)[NQ], float& mx_own, bool& careful) {
+    float v[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      v[g] = E[g][0];
+#pragma unroll
+      for (int i = 1; i < PT; ++i) v[g] = fmaxf(v[g], E[g][i]);
+    }
+    const float wm = warp_scatter<G, true>(v);
+    if (lane % (32 / G) == 0) redm[(lane / (32 / G)) * kWarps + warp] = wm;
+    __syncthreads();
+    careful = false;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float4 w0 = *reinterpret_cast<const float4*>(redm + g * kWarps);
+      const float4 w1 = *reinterpret_cast<const float4*>(redm + g * kWarps + 4);
+      const float x = fmaxf(fmaxf(fmaxf(w0.x, w0.y), fmaxf(w0.z, w0.w)),
+                            fmaxf(fmaxf(w1.x, w1.y), fmaxf(w1.z, w1.w)));
+      mx[g] = g0 + g < M ? x : 0.0f;
+      careful = careful || mx[g] < kCareful;
+      if (tid == g) mx_own = mx[g];
+    }
+    exps(mx);
+    const float* st = bf + L.st;
+    // sum e over every pair; sum e*mr_d, sum e*r_d over the pairs not cut
+    // (a floored pair's e is exactly 0 unless its path's max is floored
+    // too: only then, CUT, is each pair tested)
+    auto sums = [&](auto CUT) {
+#pragma unroll
+      for (int qn = 0; qn < NQ; ++qn) {
+        const int d = qn <= DX ? qn - 1 : qn - 1 - DX;
+        const float* src = st + (qn <= DX ? DX + d : d) * KC + jt;  // mr_d, then r_d
+        float x[PT];
+#pragma unroll
+        for (int i = 0; i < PT; ++i) x[i] = qn > 0 && jt + i < n ? src[i] : 0.0f;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float s = 0.0f;
+#pragma unroll
+          for (int i = 0; i < PT; ++i) {
+            if (qn == 0) {
+              s += E[g][i];
+            } else {
+              if constexpr (decltype(CUT)::value) {
+                if (jt + i < n && g0 + g < M && raw_of(bf, g0 + g, i) < kMinLogp) continue;
+              }
+              s = fmaf(E[g][i], x[i], s);
+            }
+          }
+          v[g] = s;
+        }
+        const float ws = warp_scatter<G, false>(v);
+        if (lane % (32 / G) == 0) red[(qn * G + lane / (32 / G)) * kWarps + warp] = ws;
+      }
+    };
+    if (careful) {
+      sums(std::true_type{});
+    } else {
+      sums(std::false_type{});
+    }
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float4 w0 = *reinterpret_cast<const float4*>(red + g * kWarps);
+      const float4 w1 = *reinterpret_cast<const float4*>(red + g * kWarps + 4);
+      sum[g] = ((((((w0.x + w0.y) + w0.z) + w0.w) + w1.x) + w1.y) + w1.z) + w1.w;
+    }
+    if (tid < G) {
+#pragma unroll
+      for (int qn = 0; qn < NQ; ++qn) {
+        const float* w = red + (qn * G + tid) * kWarps;
+        float s = w[0];
+        for (int u = 1; u < kWarps; ++u) s += w[u];
+        q_out[qn] = s;
+      }
+    }
+  };
+
+  auto clear = [&]() {
+#pragma unroll
+    for (int i = 0; i < PT; ++i) {
+      A[i] = X[i] = 0.0f;
+#pragma unroll
+      for (int d = 0; d < DX; ++d) DR[d][i] = DMR[d][i] = 0.0f;
+    }
+  };
+
+  // the soft part of d_pair, s = e*gq/sum, added per particle over paths
+  // g0 .. in path order; where careful, a floored pair's s goes to X alone
+  // (the floor's cut)
+  auto accumulate = [&](const float* bf, int g0, int n, const float (&inv)[G], bool careful) {
+    auto body = [&](auto CUT) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int m = g0 + g;
+        if (m >= M) break;
+        const float w = bf[L.pgq + m] * inv[g];
+        float q[DX], nh[DX];
+#pragma unroll
+        for (int d = 0; d < DX; ++d) {
+          q[d] = bf[L.pq + m * DX + d];
+          nh[d] = -0.5f * __fmul_rn(q[d], q[d]);
+        }
+#pragma unroll
+        for (int i = 0; i < PT; ++i) {
+          const float s = E[g][i] * w;
+          if constexpr (decltype(CUT)::value) {
+            if (jt + i < n && raw_of(bf, m, i) < kMinLogp) {
+              X[i] += s;
+              continue;
+            }
+          }
+          A[i] += s;
+#pragma unroll
+          for (int d = 0; d < DX; ++d) {
+            DR[d][i] = fmaf(nh[d], s, DR[d][i]);
+            DMR[d][i] = fmaf(q[d], s, DMR[d][i]);
+          }
+        }
+      }
+    };
+    if (careful) {
+      body(std::true_type{});
+    } else {
+      body(std::false_type{});
+    }
+  };
+
+  // the picks' part of d_pair (oh*(gp + gq), none where the pick's pair is
+  // floored) added to this thread's particles of the chunk at j0, paths in
+  // order; then the cotangents, 16-byte stores where vec
+  auto finish = [&](const float* bf, size_t row, int j0, int n) {
+    if (jt >= n) return;
+    float dc[PT], dlwn[PT], dlg[PT], dr[DX][PT], dmr[DX][PT];
+#pragma unroll
+    for (int i = 0; i < PT; ++i) dc[i] = dlwn[i] = dlg[i] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < DX; ++d) {
+#pragma unroll
+      for (int i = 0; i < PT; ++i) dr[d][i] = dmr[d][i] = 0.0f;
+    }
+    const int* psel = reinterpret_cast<const int*>(bf + L.psel);
+#pragma unroll 4
+    for (int m = 0; m < M; ++m) {
+      const int u = psel[m] - j0 - jt;
+      if (u < 0 || u >= PT) continue;
+      const float gp = bf[L.pgp + m], gq = bf[L.pgq + m], gsum = gp + gq;
+      const bool cut = csel[m] != 0;
+#pragma unroll
+      for (int i = 0; i < PT; ++i) {
+        if (i != u) continue;
+        dlwn[i] += gq;
+        dlg[i] += gp;
+        if (cut) continue;
+        dc[i] += gsum;
+#pragma unroll
+        for (int d = 0; d < DX; ++d) {
+          const float q = bf[L.pq + m * DX + d];
+          dr[d][i] += -0.5f * __fmul_rn(q, q) * gsum;
+          dmr[d][i] += q * gsum;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < PT; ++i) {
+      dlwn[i] -= A[i] + X[i];
+      dc[i] -= A[i];
+#pragma unroll
+      for (int d = 0; d < DX; ++d) {
+        dr[d][i] -= DR[d][i];
+        dmr[d][i] -= DMR[d][i];
+      }
+    }
+    const int j = j0 + jt;
+    auto put = [&](float* base, const float (&x)[PT]) {
+      if (vec && jt + PT <= n) {
+        *reinterpret_cast<float4*>(base + j) = make_float4(x[0], x[1], x[2], x[3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < PT; ++i) {
+          if (jt + i < n) base[j + i] = x[i];
+        }
+      }
+    };
+    if (a.d_c != nullptr) put(a.d_c + row * K, dc);
+    if (a.d_lwn != nullptr) put(a.d_lwn + row * K, dlwn);
+    if (a.d_lg != nullptr) put(a.d_lg + row * K, dlg);
+#pragma unroll
+    for (int d = 0; d < DX; ++d) {
+      if (a.d_r != nullptr) put(a.d_r + (row * DX + d) * K, dr[d]);
+      if (a.d_mr != nullptr) put(a.d_mr + (row * DX + d) * K, dmr[d]);
+    }
+  };
+
+  // d_q of every (path, dimension) from the sums in pst, and whether each
+  // pick's pair is floored; r, mr, c at the pick from the stage (whole row)
+  // or device memory
+  auto dq_pass = [&](const float* bf, size_t row) {
+    const int* psel = reinterpret_cast<const int*>(bf + L.psel);
+    for (int i = tid; i < M * DX; i += kThreads) {
+      const int m = i / DX, d = i % DX, js = psel[m];
+      const float* p = pst + m * S;
+      float q[DX], qq[DX], rs[DX], ms[DX];
+#pragma unroll
+      for (int e = 0; e < DX; ++e) {
+        q[e] = bf[L.pq + m * DX + e];
+        qq[e] = __fmul_rn(q[e], q[e]);
+        rs[e] = ONE ? bf[L.st + e * KC + js] : a.r[(row * DX + e) * K + js];
+        ms[e] = ONE ? bf[L.st + (DX + e) * KC + js] : a.mr[(row * DX + e) * K + js];
+      }
+      const float c_s = ONE ? bf[L.st + 2 * DX * KC + js] : a.c[row * K + js];
+      const bool cut_s = pair_vals<DX>(q, qq, rs, ms, c_s) < kMinLogp;
+      if (d == 0) csel[m] = cut_s;
+      const float gq = bf[L.pgq + m], gsum = bf[L.pgp + m] + gq, w = gq * (1.0f / p[1]);
+      const float sa = (cut_s ? 0.0f : gsum * ms[d]) - w * p[2 + d];
+      const float sb = (cut_s ? 0.0f : gsum * rs[d]) - w * p[2 + DX + d];
+      dq[i] = sa - q[d] * sb;
+    }
+  };
+
+  // d_q to the query: the anchor at the last step, else point t + 1's
+  // patch; step 0 also patches point 0 (d_xtilde[0] + d_x_first)
+  auto patch_row = [&](const float* bf, int t, int b) {
+    const size_t row = (size_t)t * B + b;
+    if (t == T1 - 1) {
+      for (int i = tid; i < M * DX; i += kThreads) a.d_x_anchor[(size_t)b * M * DX + i] = dq[i];
+    } else {
+      for (int i = tid; i < M * DX; i += kThreads) cot[i] = dq[i] + bf[L.pxn + i];
+      __syncthreads();
+      patch_point<DX>(a.d_xs + (row + B) * DX * K, K, M,
+                      [&](int e, int d) { return cot[e * DX + d]; },
+                      reinterpret_cast<const int*>(bf + L.nsel), tid, kThreads);
+    }
+    if (t == 0) {
+      __syncthreads();
+      for (int i = tid; i < M * DX; i += kThreads) cot[i] = bf[L.px0 + i] + bf[L.pxf + i];
+      __syncthreads();
+      patch_point<DX>(a.d_xs + (size_t)b * DX * K, K, M,
+                      [&](int e, int d) { return cot[e * DX + d]; },
+                      reinterpret_cast<const int*>(bf + L.psel), tid, kThreads);
+    }
+  };
+
+  float mx[G], sum[G], inv[G], q_out[NQ], mx_own = 0.0f;
+  bool careful;
+  if constexpr (ONE) {
+    // a persistent CTA walks rows (t, b); the next row's copies are in
+    // flight while it works on this one
+    // (with vec the stage comes by bulk copies on one mbarrier a buffer)
+    __shared__ __align__(8) uint64_t s_bar[2];
+    if (vec && tid == 0) {
+      mbar_init(&s_bar[0], 1);
+      mbar_init(&s_bar[1], 1);
+      mbar_init_fence();
+    }
+    __syncthreads();
+    const int rows = T1 * B;
+    int row = blockIdx.x;
+    auto stage_row = [&](float* buffer, int r, uint64_t* bar) {
+      if (vec) {
+        k6_stage_bulk<DX>(a, buffer + L.st, r, bar);
+      } else {
+        k6_stage<DX>(a, buffer + L.st, KC, r, 0, K, false);
+      }
+    };
+    if (row < rows) {
+      stage_row(sm, row, &s_bar[0]);
+      k6_paths<DX>(a, sm, L, row / B, row % B);
+      cp_async_commit();
+      k6_zero_points<DX>(a, row / B, row % B, vec);
+    }
+    for (int it = 0; row < rows; row += gridDim.x, ++it) {
+      float* bf = sm + (it & 1) * L.buf;
+      const int t = row / B, b = row % B;
+      cp_async_wait<0>();
+      if (vec) mbar_wait(&s_bar[it & 1], (it >> 1) & 1);  // the buffer's (it / 2)-th fill
+      __syncthreads();  // this row's buffer is in; every thread is done with the other one
+      const int nx = row + gridDim.x;
+      if (nx < rows) {
+        float* nb = sm + ((it + 1) & 1) * L.buf;
+        stage_row(nb, nx, &s_bar[(it + 1) & 1]);
+        k6_paths<DX>(a, nb, L, nx / B, nx % B);
+        cp_async_commit();
+        k6_zero_points<DX>(a, nx / B, nx % B, vec);
+      }
+      clear();
+      for (int g0 = 0; g0 < M; g0 += G) {
+        logits(bf, g0, K);
+        stats(bf, g0, K, mx, sum, q_out, mx_own, careful);
+        if (tid < G && g0 + tid < M) {
+          float* p = pst + (g0 + tid) * S;
+          p[0] = mx_own;
+#pragma unroll
+          for (int qn = 0; qn < NQ; ++qn) p[1 + qn] = q_out[qn];
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) inv[g] = 1.0f / sum[g];
+        accumulate(bf, g0, K, inv, careful);
+      }
+      __syncthreads();  // every path's sums in pst
+      dq_pass(bf, row);
+      __syncthreads();  // d_q and the picks' floors
+      finish(bf, row, 0, K);
+      patch_row(bf, t, b);
+    }
+  } else {
+    // a row past kK6Chunk particles: one CTA per (t, b), chunks staged twice
+    const int t = blockIdx.x, b = blockIdx.y, NCH = (K + kK6Chunk - 1) / kK6Chunk;
+    const size_t row = (size_t)t * B + b;
+    float* bf = sm;
+    for (int i = tid; i < M; i += kThreads) {
+      pst[i * S] = kNegInf;
+#pragma unroll
+      for (int u = 1; u < S; ++u) pst[i * S + u] = 0.0f;
+    }
+    k6_stage<DX>(a, bf + L.st, KC, row, 0, kK6Chunk, vec);
+    k6_paths<DX>(a, bf, L, t, b);
+    cp_async_commit();
+    k6_zero_points<DX>(a, t, b, vec);
+    cp_async_wait<0>();
+    __syncthreads();
+    // pass 1: the per-path max and sums over every chunk, merged in chunk order
+    for (int ch = 0; ch < NCH; ++ch) {
+      const int j0 = ch * kK6Chunk, n = K - j0 < kK6Chunk ? K - j0 : kK6Chunk;
+      if (ch > 0) {
+        __syncthreads();  // every thread is done with the previous chunk
+        k6_stage<DX>(a, bf + L.st, KC, row, j0, n, vec);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      for (int g0 = 0; g0 < M; g0 += G) {
+        logits(bf, g0, n);
+        stats(bf, g0, n, mx, sum, q_out, mx_own, careful);
+        if (tid < G && g0 + tid < M) {  // the path's owner merges the chunk into its running sums
+          float* p = pst + (g0 + tid) * S;
+          const float cm = mx_own, nm = fmaxf(p[0], cm);
+          const float fa = expf(p[0] - nm), fb = expf(cm - nm);
+          p[0] = nm;
+#pragma unroll
+          for (int qn = 0; qn < NQ; ++qn) p[1 + qn] = p[1 + qn] * fa + q_out[qn] * fb;
+        }
+      }
+    }
+    __syncthreads();  // the running sums are final
+    dq_pass(bf, row);
+    // pass 2: the logits again, d_pair from the final max and sum, chunk by chunk
+    for (int ch = 0; ch < NCH; ++ch) {
+      const int j0 = ch * kK6Chunk, n = K - j0 < kK6Chunk ? K - j0 : kK6Chunk;
+      __syncthreads();  // d_q and the picks' floors; every thread is done with the stage
+      k6_stage<DX>(a, bf + L.st, KC, row, j0, n, vec);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      clear();
+      for (int g0 = 0; g0 < M; g0 += G) {
+        logits(bf, g0, n);
+        careful = false;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const int m = g0 + g < M ? g0 + g : M - 1;
+          mx[g] = g0 + g < M ? pst[m * S] : 0.0f;
+          inv[g] = 1.0f / pst[m * S + 1];
+          careful = careful || mx[g] < kCareful;
+        }
+        exps(mx);
+        accumulate(bf, g0, n, inv, careful);
+      }
+      finish(bf, row, j0, n);
+    }
+    __syncthreads();
+    patch_row(bf, t, b);
+  }
+}
+
 template <int DX>
 cudaError_t launch_ffbsi_forward(const FfbsiFwdArgs& a, cudaStream_t stream) {
   ffbsi_forward_kernel<DX><<<a.B * a.M, kThreads, 0, stream>>>(a);
@@ -886,6 +1696,57 @@ cudaError_t launch_ffbsi_backward(const FfbsiBwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// K6 staged: the paths-only kernel on a persistent grid, or the
+// all-cotangents kernel, one CTA per (t, b), whole row (K <= kK6Chunk) or
+// chunked. 16-byte copies and stores where K is a multiple of 4 and every
+// row operand and output is 16-byte aligned.
+template <int DX>
+cudaError_t launch_ffbsi_bwd_staged(const FfbsiBwdArgs& a, cudaStream_t stream) {
+  if (a.M < 1 || a.M > kK6MaxM) return cudaErrorInvalidValue;
+  const void* spans[] = {a.r, a.mr, a.c, a.lwn, a.d_xs, a.d_r, a.d_mr, a.d_c, a.d_lwn, a.d_lg};
+  int vec = a.K % 4 == 0;
+  for (const void* p : spans) vec = vec && k6_aligned(p);
+  cudaError_t err;
+  int device, sms, per_sm;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) {
+    return err;
+  }
+  if (a.d_logp == nullptr && a.d_logq == nullptr) {  // paths only: batches of kK6PathRows rows
+    constexpr int R = kK6PathRows;
+    const size_t smem = sizeof(float) * k6_paths_floats(a.M, DX, R);
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ffbsi_bwd_paths_kernel<DX>,
+                                                             kThreads, smem)) != cudaSuccess) {
+      return err;
+    }
+    const int batches = (a.T1 * a.B + R - 1) / R;
+    const int ctas = batches < sms * per_sm ? batches : sms * per_sm;
+    ffbsi_bwd_paths_kernel<DX><<<ctas, kThreads, smem, stream>>>(a, vec, R);
+    return cudaGetLastError();
+  }
+  constexpr int G = kK6Group;
+  const bool one = a.K <= kK6Chunk;
+  const size_t smem = sizeof(float) * (one ? k6_layout<DX, G, true>(a.M, a.K).total
+                                           : k6_layout<DX, G, false>(a.M, a.K).total);
+  auto kernel = one ? ffbsi_bwd_staged_kernel<DX, G, true> : ffbsi_bwd_staged_kernel<DX, G, false>;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(smem))) != cudaSuccess) {
+    return err;
+  }
+  if (!one) {
+    kernel<<<dim3(a.T1, a.B), kThreads, smem, stream>>>(a, vec);
+    return cudaGetLastError();
+  }
+  // whole rows: as many persistent CTAs as the card holds at once
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+      cudaSuccess) {
+    return err;
+  }
+  const int rows = a.T1 * a.B, ctas = rows < sms * per_sm ? rows : sms * per_sm;
+  kernel<<<ctas, kThreads, smem, stream>>>(a, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace psvo
 
 // Plain C entry points (bound with ctypes by psvo_tpu_torch/ops/_build.py).
@@ -920,12 +1781,20 @@ extern "C" int psvo_ffbsi_backward(const float* x_anchor, const float* xtilde, c
                                    const float* d_logq, const float* d_xtilde, float* d_x_anchor,
                                    float* d_xs, float* d_r, float* d_mr, float* d_c, float* d_lwn,
                                    float* d_lg, int B, int M, int K, int T1, int dx,
-                                   void* stream) {
+                                   int design, void* stream) {
   const psvo::FfbsiBwdArgs a{x_anchor, xtilde, sel,   r,     mr,   c,   lwn,  d_x_first,
                              d_logp,   d_logq, d_xtilde, d_x_anchor, d_xs, d_r, d_mr, d_c,
                              d_lwn,    d_lg,   B,     M,     K,    T1};
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (dx) {
+  if (design == 0) {  // staged
+    switch (dx) {
+      case 2: return psvo::launch_ffbsi_bwd_staged<2>(a, s);
+      case 3: return psvo::launch_ffbsi_bwd_staged<3>(a, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (design != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dx) {  // row: one CTA per (t, b), three passes of the pair
     case 2: return psvo::launch_ffbsi_backward<2>(a, s);
     case 3: return psvo::launch_ffbsi_backward<3>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

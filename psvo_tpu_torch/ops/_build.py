@@ -40,11 +40,13 @@ SIGNATURES = {
     "psvo_scan_backward": [_P] * 17 + [_U32, _U32] + [_I] * 12 + [_P],
     # (kernel: 0 K1, 1 K4; dx, dy, hidden, cluster, smem bytes; int* out)
     "psvo_max_active_clusters": [_I] * 6 + [_P],
-    "psvo_stream_noise": [_P, _P, _U32, _U32, _I, _I, _I, _I, _P],
+    # K2 ends in (..., K, design, stream): 0 the pair design, 1 the particle one
+    "psvo_stream_noise": [_P, _P, _U32, _U32, _I, _I, _I, _I, _I, _P],
     "psvo_ancestor_indices": [_P, _P, _P, _I, _I, _P],
     # K5 ends in (..., dx, design, paths, chunk, stream): 0 the staged design, 1 the previous one
     "psvo_ffbsi_forward": [_P] * 13 + [_I] * 8 + [_P],
-    "psvo_ffbsi_backward": [_P] * 18 + [_I] * 5 + [_P],
+    # K6 ends in (..., dx, design, stream): 0 the staged design, 1 the row one
+    "psvo_ffbsi_backward": [_P] * 18 + [_I] * 6 + [_P],
     # K7 and K11 end in (..., design, ...plan, stream): 0 the new design, 1 the row one
     "psvo_ancestor_indices_large": [_P, _P, _P, _I, _I, _I, _I, _P],
     "psvo_gather_particles": [_P, _P, _P, _I, _I, _I, _P],

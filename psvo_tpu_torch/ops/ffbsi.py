@@ -24,13 +24,21 @@ the card:
   as its yardstick.
 - K6 `ffbsi_backward` (replaces `pallas_ffbsi._scan_bwd`, the VJP kernel):
   the VJP of K5 on K5's selections. Plain version: `ffbsi_backward_reference`,
-  an autograd replay of the sweep with the selections held fixed.
+  an autograd replay of the sweep with the selections held fixed. Two
+  designs; the path runs "staged": without pair cotangents a persistent
+  grid zeroes d_xs row by row and patches the selected particles; with
+  them a persistent grid walks the (t, b) rows, each staged in shared
+  memory (`k6_smem_bytes`) a row ahead, and evaluates each pair once,
+  threads owning K6_PER consecutive particles, K6_GROUP paths at a time
+  (rows past K6_CHUNK particles: a CTA per (t, b), in chunks). "row"
+  (`ffbsi_backward_kernel`, the previous design: one CTA per (t, b), three
+  passes of the pair) stays callable with `design="row"`.
 
 `FFBSiSweep` joins them as one `torch.autograd.Function` with the gradient
 contract of `pallas_ffbsi.ffbsi_scan`'s custom VJP: no gradient through the
 discrete choice, none for gum, cotangents to x_anchor, xs, r, mr, c, lwn and
 lg. Each wrapper carries a launch count (`<wrapper>.launches`), raised only
-where the kernel is launched (K5's also by design, `.launches_by_design`);
+where the kernel is launched (also by design, `.launches_by_design`);
 each plain version a call count (`.calls`).
 
 Layout: x_anchor [B, M, Dx]; xs, r, mr [T−1, B, Dx, K]; c, lwn, lg
@@ -58,6 +66,10 @@ KERNEL_DX = (2, 3)  # state widths K5 and K6 are instantiated for
 MAX_M = 256  # smoothed paths per row (K6 keeps per-path state in shared memory)
 DESIGNS = ("staged", "path")  # K5's designs: the one the path runs, the previous one
 PATHS_PER_CTA = (1, 2, 4, 8)  # K5 staged: paths of one row a CTA serves
+K6_DESIGNS = ("staged", "row")  # K6's designs: the one the path runs, the previous one
+K6_PER = 4  # K6 staged: consecutive particles a thread owns
+K6_CHUNK = 256 * K6_PER  # K6 staged: particles a pass covers (longer rows go in chunks)
+K6_GROUP = 8  # K6 staged: paths whose logits a thread holds at once
 _THREADS = 256
 _STATIC_SMEM = 24576  # K5 staged: bytes kept for its static shared memory (the lse window)
 
@@ -279,20 +291,45 @@ def ffbsi_backward_reference(x_anchor, xs, r, mr, c, lwn, lg, sel, xtilde=None, 
 ffbsi_backward_reference.calls = 0
 
 
+def k6_smem_bytes(dx: int, m: int, k: int) -> int:
+    """Dynamic shared memory of K6-staged's all-cotangents kernel
+    (csrc/ffbsi.cu::k6_layout). A row buffer: r, mr, c, lwn of K particles
+    (at most K6_CHUNK; rows rounded up to 4), the queries, three cotangent
+    blocks [M][Dx], d logp, d logq and two rows of selections; two buffers
+    for whole rows (K <= K6_CHUNK), one for chunked ones; then the paths'
+    sums, d_q, cotangents, the picks' floors and the reduction scratch."""
+    def up4(n):
+        return (n + 3) // 4 * 4
+
+    whole = k <= K6_CHUNK
+    buf = (2 * dx + 2) * (up4(k) if whole else K6_CHUNK) + 4 * up4(m * dx) + 4 * up4(m)
+    rest = (up4(m * (2 + 2 * dx)) + 2 * up4(m * dx) + up4(m)
+            + (2 + 2 * dx) * K6_GROUP * 8)
+    return 4 * (buf * (2 if whole else 1) + rest)
+
+
 def ffbsi_backward(x_anchor, xs, r, mr, c, lwn, lg, sel, xtilde, d_x_first=None, d_logp=None,
-                   d_logq=None, d_xtilde=None, needs=(True,) * 5):
+                   d_logq=None, d_xtilde=None, needs=(True,) * 5, design: str = "staged"):
     """K6: the VJP of K5 over the whole sweep in one launch, on K5's
     selections sel and trajectories xtilde. Cotangents and outputs as
     `ffbsi_backward_reference`, which CPU tensors run; CUDA tensors launch
-    the kernel. The kernel reads x_anchor, xtilde, sel, r, mr, c and lwn; of
-    xs and lg only the shapes. Without d_logp and d_logq no pair carries a
-    cotangent, and the kernel only scatters the trajectories' cotangents."""
+    the kernel of `design` ("staged", the default and the only one the path
+    runs; "row", the previous design, one CTA per (t, b) with three passes
+    of the pair, kept as its yardstick). The kernel reads x_anchor, xtilde,
+    sel, r, mr, c and lwn; of xs and lg only the shapes. Without d_logp and
+    d_logq no pair carries a cotangent, and the kernel only scatters the
+    trajectories' cotangents: the staged design then zeroes d_xs row by row
+    on a persistent grid and patches the selected particles, bit for bit
+    the row design's d_xs and d_x_anchor."""
+    if design not in K6_DESIGNS:
+        raise ValueError(f"ffbsi_backward: no design {design!r} (one of {K6_DESIGNS})")
     if x_anchor.device.type == "cpu":
         return ffbsi_backward_reference(x_anchor, xs, r, mr, c, lwn, lg, sel, xtilde, d_x_first,
                                         d_logp, d_logq, d_xtilde, needs)
     if x_anchor.device.type != "cuda":
         raise ValueError(f"ffbsi_backward: unsupported device {x_anchor.device}")
-    t_len, batch, m, dx, k = _check_sweep(x_anchor, xs, r, mr, c, lwn, lg, "ffbsi_backward")
+    t_len, batch, m, dx, k = _check_sweep(x_anchor, xs, r, mr, c, lwn, lg,
+                                          f"ffbsi_backward ({design})")
     dev = x_anchor.device
     _require(sel, (t_len, batch, m), "sel", dev, torch.int32)
     _require(xtilde, (t_len, batch, m, dx), "xtilde", dev)
@@ -313,15 +350,17 @@ def ffbsi_backward(x_anchor, xs, r, mr, c, lwn, lg, sel, xtilde, d_x_first=None,
         x_anchor.data_ptr(), xtilde.data_ptr(), sel.data_ptr(), r.data_ptr(), mr.data_ptr(),
         c.data_ptr(), lwn.data_ptr(), _ptr(d_x_first), _ptr(d_logp), _ptr(d_logq),
         _ptr(d_xtilde), d_anchor.data_ptr(), d_xs.data_ptr(), _ptr(d_r), _ptr(d_mr), _ptr(d_c),
-        _ptr(d_lwn), _ptr(d_lg), batch, m, k, t_len, dx,
+        _ptr(d_lwn), _ptr(d_lg), batch, m, k, t_len, dx, K6_DESIGNS.index(design),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     ffbsi_backward.launches += 1
-    _build.check(lib, err, "ffbsi_backward")
+    ffbsi_backward.launches_by_design[design] += 1
+    _build.check(lib, err, f"ffbsi_backward ({design})")
     return d_anchor, d_xs, d_r, d_mr, d_c, d_lwn, d_lg
 
 
 ffbsi_backward.launches = 0
+ffbsi_backward.launches_by_design = dict.fromkeys(K6_DESIGNS, 0)  # which kernel the launches ran
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,9 @@ the card:
   `pallas_trunk.generate_trunk_noise`): the exact ε / u0 streams K1 and the
   trunk kernel K9 (`ops/trunk.py`) draw in their in-kernel RNG mode, for any
   state width. Plain version:
-  `stream_noise_reference`, Philox4x32-10 in int64 torch arithmetic.
+  `stream_noise_reference`, Philox4x32-10 in int64 torch arithmetic. Two
+  designs with the same bits: "pair" (the default, one thread per Philox
+  call, `k2_plan`) and "particle" (the previous one, its yardstick).
 - K3 `ancestor_indices` (replaces `pallas_resample._two_level_indices` as the
   megakernel inlines it): systematic ancestors through K1's own index code.
   Plain version: `ancestor_indices_reference`.
@@ -261,29 +263,50 @@ def stream_noise_reference(seed, t_len: int, batch: int, dx: int, k: int, device
 stream_noise_reference.calls = 0
 
 
-def stream_noise(seed, t_len: int, batch: int, dx: int, k: int, device):
+K2_DESIGNS = ("pair", "particle")  # K2's designs: the one every caller takes, the previous one
+K2_THREADS = 256  # pairs a CTA of the pair design serves (csrc/stream_noise.cu::kPairThreads)
+
+
+def k2_plan(t_len: int, batch: int, dx: int, k: int) -> dict:
+    """The pair design's grid (csrc/stream_noise.cu): (t·B + row, group
+    j < ceil(dx/2), tile of K2_THREADS pairs), one thread per (t, row, pair
+    p < K/2, group j); thread x of CTA (tr, j, z) takes pair z·K2_THREADS + x."""
+    groups, tiles = (dx + 1) // 2, -(-(k // 2) // K2_THREADS)
+    return dict(grid=(t_len * batch, groups, tiles), ctas=t_len * batch * groups * tiles)
+
+
+def stream_noise(seed, t_len: int, batch: int, dx: int, k: int, device, design: str = "pair"):
     """K2: the in-kernel-RNG streams of K1 and K9 for `seed` (two uint32
-    words), steps 0 .. t_len − 1, any state width dx."""
+    words), steps 0 .. t_len − 1, any state width dx. CUDA launches the
+    kernel of `design` ("pair", the default: one thread per Philox call,
+    which writes both halves of each Box-Muller pair; "particle", the
+    previous design, one CTA per (t, row), kept as its yardstick); both give
+    the plain version's bits."""
+    if design not in K2_DESIGNS:
+        raise ValueError(f"stream_noise: no design {design!r} (one of {K2_DESIGNS})")
     device = torch.device(device)
     if device.type == "cpu":
         return stream_noise_reference(seed, t_len, batch, dx, k, device)
     if device.type != "cuda":
         raise ValueError(f"stream_noise: unsupported device {device}")
-    if dx < 1 or k % 2:
-        raise ValueError(f"stream_noise: dx={dx} >= 1 and even K={k} required")
+    if dx < 1 or k < 2 or k % 2:
+        raise ValueError(f"stream_noise: dx={dx} >= 1 and even K={k} >= 2 required")
     lib = _build.load_library()
     eps = torch.empty((t_len, batch, dx, k), dtype=torch.float32, device=device)
     u0 = torch.empty((t_len, batch), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.psvo_stream_noise(
-        eps.data_ptr(), u0.data_ptr(), seed[0], seed[1], t_len, batch, dx, k, stream
+        eps.data_ptr(), u0.data_ptr(), seed[0], seed[1], t_len, batch, dx, k,
+        K2_DESIGNS.index(design), stream
     )
     stream_noise.launches += 1
-    _build.check(lib, err, "stream_noise")
+    stream_noise.launches_by_design[design] += 1
+    _build.check(lib, err, f"stream_noise ({design})")
     return eps, u0
 
 
 stream_noise.launches = 0
+stream_noise.launches_by_design = dict.fromkeys(K2_DESIGNS, 0)  # which kernel the launches ran
 
 
 # ---------------------------------------------------------------------------

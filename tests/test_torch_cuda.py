@@ -295,6 +295,81 @@ def test_ffbsi_forward_designs_agree(dx, b, m, k):
     assert float(((staged[2] - path[2]).abs() / path[2].abs()).max()) <= 1e-6
 
 
+_K6_MODES = {  # live cotangents among d_x_first, d_logp, d_logq, d_xtilde; needs
+    "all cotangents": ((0, 1, 2, 3), (True,) * 5),
+    "paths only": ((0, 3), (False,) * 5),
+    "pairs, no support wanted": ((1, 2, 3), (False,) * 5),
+}
+
+
+@pytest.mark.parametrize("dx", [2, 3])
+@pytest.mark.parametrize("m", [1, 16, 256])
+@pytest.mark.parametrize("k", [128, 1000, 8192])
+def test_ffbsi_backward_staged_matches_row_and_plain(dx, m, k):
+    """K6's staged design against the previous one (design="row") and the
+    plain version on K5's selections: the paths alone bit-equal to the row
+    design (d_xs, d_x_anchor), otherwise within 1e-5 relative L2 per leaf;
+    1e-4 against the plain version; None where a leaf is not wanted; each
+    design bit-equal on a relaunch; the launches counted by design. K = 8192
+    takes the chunked rows, K = 1000 the 4-byte copies."""
+    dev = _cuda()
+    ops = _sweep(dev, dx, b=2, m=m, k=k, t1=4, seed=m + k)
+    g = torch.Generator(device=dev).manual_seed(5)
+    ops[0] = (torch.randn((2, m, dx), generator=g, device=dev) * 8.0).contiguous()  # M may pass K
+    fwd = ffbsi.ffbsi_forward(*ops)
+    x_anchor, xs, r, mr, c, lwn, lg, _ = ops
+    args = (x_anchor, xs, r, mr, c, lwn, lg, fwd[4], fwd[3])
+    cots = [torch.randn(t.shape, generator=g, device=dev) for t in fwd[:4]]
+    for mode, (live, needs) in _K6_MODES.items():
+        kw = {n: cots[i] if i in live else None
+              for i, n in enumerate(("d_x_first", "d_logp", "d_logq", "d_xtilde"))}
+        before = dict(ffbsi.ffbsi_backward.launches_by_design)
+        staged = ffbsi.ffbsi_backward(*args, needs=needs, **kw)
+        again = ffbsi.ffbsi_backward(*args, needs=needs, **kw)
+        row = ffbsi.ffbsi_backward(*args, needs=needs, design="row", **kw)
+        assert ffbsi.ffbsi_backward.launches_by_design == {
+            "staged": before["staged"] + 2, "row": before["row"] + 1}
+        want = ffbsi.ffbsi_backward_reference(*args, needs=needs, **kw)
+        for a, a2, w_row, w in zip(staged, again, row, want):
+            assert (a is None) == (w is None) == (w_row is None)
+            if a is None:
+                continue
+            assert torch.equal(a, a2)
+            if mode == "paths only":
+                assert torch.equal(a, w_row)
+            assert _rel(a, w_row) <= 1e-5 and _rel(a, w) <= 1e-4, mode
+
+
+@pytest.mark.parametrize("dx", [1, 2, 3, 40])
+@pytest.mark.parametrize("k", [2, 1026, 8192])
+def test_stream_noise_pair_matches_particle_and_plain(dx, k):
+    """K2's pair design, bit for bit the previous one (design="particle")
+    and the plain Philox; the launches counted by design."""
+    dev = _cuda()
+    before = dict(fused_step.stream_noise.launches_by_design)
+    pair = fused_step.stream_noise((11, 12), 3, 2, dx, k, dev)
+    particle = fused_step.stream_noise((11, 12), 3, 2, dx, k, dev, design="particle")
+    want = fused_step.stream_noise_reference((11, 12), 3, 2, dx, k, dev)
+    assert fused_step.stream_noise.launches_by_design == {
+        "pair": before["pair"] + 1, "particle": before["particle"] + 1}
+    for a, b, w in zip(pair, particle, want):
+        assert torch.equal(a, b) and torch.equal(a, w)
+
+
+def test_cuda_tensor_outside_the_k2_and_k6_classes_raises():
+    dev = _cuda()
+    with pytest.raises(ValueError, match="even K"):
+        fused_step.stream_noise((1, 2), 2, 2, 2, 7, dev)
+    ops = _sweep(dev, 3)
+    fwd = ffbsi.ffbsi_forward(*ops)
+    wide = (torch.zeros((4, 8, 4), device=dev), torch.zeros((9, 4, 4, 128), device=dev))
+    for design in ffbsi.K6_DESIGNS:  # Dx = 4: not instantiated
+        with pytest.raises(ValueError, match=f"ffbsi_backward \\({design}\\): no kernel"):
+            ffbsi.ffbsi_backward(*wide, *ops[2:7], fwd[4], fwd[3], design=design)
+    with pytest.raises(ValueError, match="sel"):
+        ffbsi.ffbsi_backward(*ops[:7], fwd[4].long(), fwd[3])
+
+
 def test_cuda_tensor_outside_the_ffbsi_class_raises():
     dev = _cuda()
     ops = _sweep(dev, 3)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Per-stage cycle profiles of K5's staged design and K13's split design on
-one GPU, and the variants that show what holds K5 back.
+"""Per-stage cycle profiles of the redesigned kernels on one GPU, and the
+variants that show what holds K5 back.
 
     python3 tools/stage_profile.py            # every kernel below
     python3 tools/stage_profile.py resample   # K7 and K11 alone
+    python3 tools/stage_profile.py ffbsi      # K6 alone
 
 Builds the port's kernels as `chip_smoke.py` does, then copies of
 `csrc/ffbsi.cu`, `csrc/svo_sweep.cu` and `csrc/trunk_forward.cu` patched
@@ -13,8 +14,10 @@ three ways, each with nvcc into `psvo_tpu_torch/_build/stage_profile/`
 - "marks": `clock64()` at the stage boundaries of `ffbsi_staged_kernel`,
   `svo_backward_split_kernel`, both designs of K12 (`svo_forward_split_kernel`,
   `svo_forward_kernel`) and of K9 (`trunk_forward_async_kernel`,
-  `trunk_forward_kernel`), K7's cluster design (`ancestor_indices_cluster_kernel`)
-  and K11's tiled design (`segment_sum_tiled_kernel`); CTA 0's thread 0 adds
+  `trunk_forward_kernel`), K7's cluster design (`ancestor_indices_cluster_kernel`),
+  K11's tiled design (`segment_sum_tiled_kernel`) and K6's staged design
+  (`ffbsi_bwd_staged_kernel`, whole rows, over every row its persistent CTA 0
+  takes; `ffbsi_bwd_paths_kernel`); CTA 0's thread 0 adds
   each stage's cycles into a
   device array, read back after one launch (a stage's cycles include the
   barrier that closes it);
@@ -32,7 +35,9 @@ nudged from init), K12 on the same operands, K9 at
 `lorenz96_fivo_k8192_sharded`'s (B=8, K=8192, Dx=Dy=40, hidden (64, 64),
 random weights; streamed ε and the in-kernel draw), K7 and K11 at its
 resampling step's ([8, 8192] healthy log-weights; [8, 40, 8192] on their
-ancestors and on rows of one ancestor). Times are device time
+ancestors and on rows of one ancestor), K6 on K5's selections at
+`lorenz63_psvo_k1024`'s shape with every cotangent, the direct bound's and the
+paths' alone (both designs). Times are device time
 per call from torch.profiler over 20 calls, designs alternated. Exits non-zero without a card or if a patch's
 anchor is missing from the sources. Imports nothing of JAX.
 """
@@ -51,7 +56,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 MARK = ('__device__ long long g_prof{n}[32];\n'
-        '#define PROF{n}(i) do {{ const long long now_ = clock64(); if (blockIdx.x == 0 && '
+        '#define PROF{n}(i) do {{ const long long now_ = clock64(); if (blockIdx.x == 0 && {cta}'
         'threadIdx.x == 0) g_prof{n}[i] += now_ - prof_t_; prof_t_ = now_; }} while (0)\n'
         'extern "C" int psvo_prof{n}(long long* out) {{ cudaMemcpyFromSymbol(out, g_prof{n}, '
         'sizeof(g_prof{n})); long long z[32] = {{0}}; return (int)cudaMemcpyToSymbol(g_prof{n}, z, '
@@ -78,6 +83,13 @@ K7_STAGES = ["the slice in, its max", "cluster barrier, the row max over DSMEM",
              "barrier, the warps' prefixes, cluster barrier", "the offsets over DSMEM",
              "the slice pushed to every CTA over DSMEM, cluster barrier",
              "the searches, the indices out"]
+K6_STAGES = ["wait for the row's copies, barrier", "the next row's copies and zeros issued",
+             "the logits (one pair evaluation a (m, j))", "max: reduce-scatter, barrier",
+             "e = exp(logit - max)", "sums: reduce-scatter, barrier", "the sums merged over the warps",
+             "the soft part of d_pair, per particle", "d_q, barriers", "the picks' part, the stores",
+             "the patch (cotangents, barrier, owners)"]
+K6_PATHS_STAGES = ["the zero stores issued", "wait for the batch's copies, barrier",
+                   "the next batch's copies issued", "the patch"]
 K11_STAGES = ["loads issued, the stage zeroed", "run flags (waits on idx), their warp scan",
               "each row's thread and warp scans (waits on g)", "barrier",
               "the warps' prefixes, barrier, each particle's sum in the tile", "cluster barrier",
@@ -92,7 +104,7 @@ def sub(text: str, old: str, new: str) -> str:
 
 
 def marked_k5(src: str) -> str:
-    s = sub(src, '#include "resample.cuh"\n', '#include "resample.cuh"\n' + MARK.format(n=5))
+    s = sub(src, '#include "resample.cuh"\n', '#include "resample.cuh"\n' + MARK.format(cta="", n=5))
     s = sub(s, "  for (int s = 0; s < total; ++s) {\n    if (vec) {\n",
             "  long long prof_t_ = clock64();\n  for (int s = 0; s < total; ++s) {\n    if (vec) {\n")
     s = sub(s, "    const int t = T1 - 1 - s / NCH, ch = s % NCH, j0 = ch * KC;\n",
@@ -106,8 +118,49 @@ def marked_k5(src: str) -> str:
                "    if (tid == 32 * p && m0 + p < M) {\n      const size_t pt")
 
 
+def marked_k6(src: str) -> str:
+    """Stage marks in K6's staged design: the all-cotangents kernel (CTA 0
+    of its persistent grid, whole rows, over all its rows) and the
+    paths-only kernel (CTA 0's rows)."""
+    s = sub(src, '#include "resample.cuh"\n',
+            '#include "resample.cuh"\n' + MARK.format(cta="blockIdx.y == 0 && ", n=6)
+            + MARK.format(cta="", n=60))
+    s = sub(s, "  const int jt = tid * PT;  // this thread's first particle in a chunk\n",
+            "  const int jt = tid * PT;  // this thread's first particle in a chunk\n"
+            "  long long prof_t_ = clock64();\n")
+    s = sub(s, "      __syncthreads();  // this row's buffer is in",
+            "      __syncthreads();  PROF6(0);  // this row's buffer is in")
+    s = sub(s, "        k6_zero_points<DX>(a, nx / B, nx % B, vec);\n      }\n      clear();\n",
+            "        k6_zero_points<DX>(a, nx / B, nx % B, vec);\n      }\n      PROF6(1);\n      clear();\n")
+    s = sub(s, "        logits(bf, g0, K);\n", "        logits(bf, g0, K);\n        PROF6(2);\n")
+    s = sub(s, "redm[(lane / (32 / G)) * kWarps + warp] = wm;\n    __syncthreads();\n",
+            "redm[(lane / (32 / G)) * kWarps + warp] = wm;\n    __syncthreads();\n    PROF6(3);\n")
+    s = sub(s, "    exps(mx);\n    const float* st = bf + L.st;\n",
+            "    exps(mx);\n    PROF6(4);\n    const float* st = bf + L.st;\n")
+    s = sub(s, "      sums(std::false_type{});\n    }\n    __syncthreads();\n",
+            "      sums(std::false_type{});\n    }\n    __syncthreads();\n    PROF6(5);\n")
+    s = sub(s, "        q_out[qn] = s;\n      }\n    }\n  };", "        q_out[qn] = s;\n      }\n    }\n    PROF6(6);\n  };")
+    s = sub(s, "        accumulate(bf, g0, K, inv, careful);\n",
+            "        accumulate(bf, g0, K, inv, careful);\n        PROF6(7);\n")
+    s = sub(s, "      dq_pass(bf, row);\n      __syncthreads();  // d_q and the picks' floors\n",
+            "      dq_pass(bf, row);\n      __syncthreads();  // d_q and the picks' floors\n      PROF6(8);\n")
+    s = sub(s, "      finish(bf, row, 0, K);\n", "      finish(bf, row, 0, K);\n      PROF6(9);\n")
+    s = sub(s, "      patch_row(bf, t, b);\n    }\n  } else {",
+            "      patch_row(bf, t, b);\n      PROF6(10);\n    }\n  } else {")
+    # the paths-only kernel
+    s = sub(s, "  if (batch < batches) issue(batch, sp);\n",
+            "  if (batch < batches) issue(batch, sp);\n  long long prof_t_ = clock64();\n")
+    s = sub(s, "    cp_async_wait<0>();\n    __syncthreads();  // the batch's operands in",
+            "    PROF60(0);\n    cp_async_wait<0>();\n    __syncthreads();  PROF60(1);  // the batch's operands in")
+    s = sub(s, "issue(batch + gridDim.x, sp + ((it + 1) & 1) * R * per_row);\n",
+            "issue(batch + gridDim.x, sp + ((it + 1) & 1) * R * per_row);\n    PROF60(2);\n")
+    return sub(s, "                      reinterpret_cast<const int*>(bf + r * per_row), first, kThreads);\n    }\n",
+               "                      reinterpret_cast<const int*>(bf + r * per_row), first, kThreads);\n    }\n"
+               "    PROF60(3);\n")
+
+
 def marked_k13(src: str) -> str:
-    s = sub(src, "#include <cstdint>\n", "#include <cstdint>\n" + MARK.format(n=13))
+    s = sub(src, "#include <cstdint>\n", "#include <cstdint>\n" + MARK.format(cta="", n=13))
     s = sub(s, "  const int NP = a.B * a.M, groups = (NP + P - 1) / P, CH = rows / P;\n",
             "  const int NP = a.B * a.M, groups = (NP + P - 1) / P, CH = rows / P;\n"
             "  long long prof_t_ = clock64();\n")
@@ -134,7 +187,7 @@ def marked_k12(src: str) -> str:
     """Stage marks in both K12 designs (thread 0 of CTA 0: a chain lane of
     the split design)."""
     s = sub(src, '#include "async_copy.cuh"\n',
-            '#include "async_copy.cuh"\n' + MARK.format(n=12) + MARK.format(n=120))
+            '#include "async_copy.cuh"\n' + MARK.format(cta="", n=12) + MARK.format(cta="", n=120))
     s = sub(s, "  float lp = 0.0f, lq = 0.0f;  // thread p < P: path p's sums\n",
             "  float lp = 0.0f, lq = 0.0f;  // thread p < P: path p's sums\n"
             "  long long prof_t_ = clock64();\n")
@@ -181,7 +234,7 @@ def marked_k12(src: str) -> str:
 def marked_k9(src: str) -> str:
     """Stage marks in both K9 designs (CTA 0's thread 0)."""
     s = sub(src, '#include "trunk_tile.cuh"\n',
-            '#include "trunk_tile.cuh"\n' + MARK.format(n=9) + MARK.format(n=90))
+            '#include "trunk_tile.cuh"\n' + MARK.format(cta="", n=9) + MARK.format(cta="", n=90))
     # the tile design
     s = sub(s, "  for (int tile = blockIdx.x; tile < a.B * tiles_per_row; tile += gridDim.x) {\n",
             "  long long prof_t_ = clock64();\n"
@@ -218,7 +271,7 @@ def marked_resample(src: str) -> str:
     """Stage marks in K7's cluster design and K11's tiled design (CTA 0's
     thread 0: rank 0 of the first row's cluster)."""
     s = sub(src, '#include "resample.cuh"\n',
-            '#include "resample.cuh"\n' + MARK.format(n=7) + MARK.format(n=11))
+            '#include "resample.cuh"\n' + MARK.format(cta="", n=7) + MARK.format(cta="", n=11))
     s = sub(s, "  // 1. the slice in, its max; the row max over the cluster\n",
             "  long long prof_t_ = clock64();\n  // 1. the slice in, its max; the row max over the cluster\n")
     s = sub(s, "  if (tid == 0) *smax = m;\n", "  PROF7(0);\n  if (tid == 0) *smax = m;\n")
@@ -319,8 +372,12 @@ def device_ms(fn, n: int = 20) -> float:
                 fn()
             torch.cuda.synchronize()
         ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if ev:
-            return sum(e.time_range.elapsed_us() for e in ev) / n / 1e3
+        if ev:  # a kernel's mean event times its launches a call: windows drop some events
+            total, count = {}, {}
+            for e in ev:
+                total[e.name] = total.get(e.name, 0.0) + e.time_range.elapsed_us()
+                count[e.name] = count.get(e.name, 0) + 1
+            return sum(total[k] / count[k] * max(1, round(count[k] / n)) for k in total) / 1e3
     sys.exit("stage_profile: torch.profiler recorded no device time in 8 windows")
 
 
@@ -382,6 +439,56 @@ def k9_profiles(marks, prof, with_lib, dev, g) -> None:
                 torch.cuda.synchronize()
                 show(f"K9 {design} {mode}, CTA 0 thread 0, cycles over its tiles", stages,
                      prof(marks, name)[:len(stages)])
+
+
+def ffbsi_operands(dev, g):
+    """K5's operands at `lorenz63_psvo_k1024`'s shape (B=32, M=16, K=1024,
+    T-1=99, Dx=3): support terms of a transition near the support, normalized
+    log-weights, Gumbels, anchors."""
+    import torch
+
+    t1, b, m, k, dx = 99, 32, 16, 1024, 3
+    xs = torch.randn((t1, b, dx, k), generator=g, device=dev) * 8.0
+    mean = xs + torch.randn(xs.shape, generator=g, device=dev)
+    scale = 0.5 + 1.5 * torch.rand(xs.shape, generator=g, device=dev)
+    r = 1.0 / (scale * scale)
+    c = -0.5 * (mean * mean * r).sum(2) - torch.log(scale).sum(2) - dx * 0.9189385332
+    lwn = torch.log_softmax(torch.randn((t1, b, k), generator=g, device=dev) * 2.0, dim=-1)
+    lg = torch.randn((t1, b, k), generator=g, device=dev)
+    u = torch.rand((t1, b, m, k), generator=g, device=dev).clamp_min(1e-30)
+    return [v.contiguous() for v in (xs[-1, :, :, :m].transpose(1, 2), xs, r, mean * r, c, lwn, lg,
+                                     -torch.log(-torch.log(u)))]
+
+
+def ffbsi_profiles(marks, prof, with_lib, dev, g) -> None:
+    """K6's two designs on K5's selections at the PSVO preset's shape, the
+    three cotangent patterns (all four outputs; the direct bound's d logq and
+    d x~ with d_lg not wanted; the paths alone): alternated times, then one
+    marked launch of the staged design on each branch."""
+    import torch
+    from psvo_tpu_torch.ops import ffbsi
+
+    ops = ffbsi_operands(dev, g)
+    with torch.no_grad():
+        fwd = ffbsi.ffbsi_forward(*ops)
+    cots = [torch.randn(t.shape, generator=g, device=dev) for t in fwd[:4]]
+    args = (*ops[:7], fwd[4], fwd[3])
+    modes = {"all cotangents": dict(d_x_first=cots[0], d_logp=cots[1], d_logq=cots[2],
+                                    d_xtilde=cots[3], needs=(True,) * 5),
+             "direct bound": dict(d_logq=cots[2], d_xtilde=cots[3],
+                                  needs=(True, True, True, True, False)),
+             "paths only": dict(d_x_first=cots[0], d_xtilde=cots[3], needs=(False,) * 5)}
+    for mode, kw in modes.items():
+        pairs = [tuple(device_ms(lambda: ffbsi.ffbsi_backward(*args, **kw, design=d))
+                       for d in ffbsi.K6_DESIGNS) for _ in range(3)]
+        print(f"K6 B=32 M=16 K=1024 T-1=99 Dx=3, {mode}: (staged, row) ms "
+              + ", ".join(f"({x:.4f}, {y:.4f})" for x, y in pairs), flush=True)
+        name, stages = (("psvo_prof60", K6_PATHS_STAGES) if mode == "paths only"
+                        else ("psvo_prof6", K6_STAGES))
+        prof(marks, name)
+        with_lib(marks, lambda: ffbsi.ffbsi_backward(*args, **kw))
+        torch.cuda.synchronize()
+        show(f"K6 staged, {mode}, CTA 0 thread 0, cycles", stages, prof(marks, name)[:len(stages)])
 
 
 def resample_profiles(marks, prof, with_lib, dev, g) -> None:
@@ -471,37 +578,34 @@ def main() -> int:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    if sys.argv[1:] == ["resample"]:
-        marks = load(build_variant("marks_resample", {"resample_gather": fr}, *args), rg_names)
-        resample_profiles(marks, prof, with_lib, dev, g)
+    f5 = (_build.CSRC / "ffbsi.cu").read_text()
+    k6_names = ("psvo_ffbsi_forward", "psvo_ffbsi_backward", "psvo_prof6", "psvo_prof60")
+    if sys.argv[1:] in (["resample"], ["ffbsi"]):
+        if sys.argv[1] == "resample":
+            marks = load(build_variant("marks_resample", {"resample_gather": fr}, *args), rg_names)
+            resample_profiles(marks, prof, with_lib, dev, g)
+        else:
+            marks = load(build_variant("marks_ffbsi", {"ffbsi": marked_k6(f5)}, *args), k6_names)
+            ffbsi_profiles(marks, prof, with_lib, dev, g)
         print(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
                               "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
         return 0
-    f5 = (_build.CSRC / "ffbsi.cu").read_text()
     f13 = (_build.CSRC / "svo_sweep.cu").read_text()
     f9 = (_build.CSRC / "trunk_forward.cu").read_text()
     k5_names = ("psvo_ffbsi_forward",)
-    marks = load(build_variant("marks", {"ffbsi": marked_k5(f5),
+    marks = load(build_variant("marks", {"ffbsi": marked_k6(marked_k5(f5)),
                                          "svo_sweep": marked_k13(marked_k12(f13)),
                                          "trunk_forward": marked_k9(f9),
                                          "resample_gather": fr}, *args),
-                 k5_names + ("psvo_svo_forward", "psvo_svo_backward", "psvo_trunk_forward",
+                 k5_names + ("psvo_ffbsi_backward", "psvo_prof6", "psvo_prof60",
+                             "psvo_svo_forward", "psvo_svo_backward", "psvo_trunk_forward",
                              "psvo_prof5", "psvo_prof13", "psvo_prof12", "psvo_prof120",
                              "psvo_prof9", "psvo_prof90") + rg_names)
     variants = {name: load(build_variant(name, {"ffbsi": patch(f5)}, *args), k5_names)
                 for name, patch in (("compute only", compute_only_k5),
                                     ("one copy a span", one_copy_a_span_k5))}
     t1, b, m, k, dx = 99, 32, 16, 1024, 3
-    xs = torch.randn((t1, b, dx, k), generator=g, device=dev) * 8.0
-    mean = xs + torch.randn(xs.shape, generator=g, device=dev)
-    scale = 0.5 + 1.5 * torch.rand(xs.shape, generator=g, device=dev)
-    r = 1.0 / (scale * scale)
-    c = -0.5 * (mean * mean * r).sum(2) - torch.log(scale).sum(2) - dx * 0.9189385332
-    lwn = torch.log_softmax(torch.randn((t1, b, k), generator=g, device=dev) * 2.0, dim=-1)
-    lg = torch.randn((t1, b, k), generator=g, device=dev)
-    u = torch.rand((t1, b, m, k), generator=g, device=dev).clamp_min(1e-30)
-    ops = [v.contiguous() for v in (xs[-1, :, :, :m].transpose(1, 2), xs, r, mean * r, c, lwn, lg,
-                                    -torch.log(-torch.log(u)))]
+    ops = ffbsi_operands(dev, g)
     p5 = ffbsi.k5_paths(b, m, torch.cuda.get_device_properties(dev).multi_processor_count)
     with torch.no_grad():
         staged, path = ffbsi.ffbsi_forward(*ops), ffbsi.ffbsi_forward(*ops, design="path")
@@ -553,6 +657,7 @@ def main() -> int:
         k12_profiles(marks, prof, with_lib, so, consts)
     k9_profiles(marks, prof, with_lib, dev, g)
     resample_profiles(marks, prof, with_lib, dev, g)
+    ffbsi_profiles(marks, prof, with_lib, dev, g)
     print(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     return 0
