@@ -164,6 +164,31 @@ and, with the toggle on, `lorenz63_psvo_k1024` under psvo_bound="direct":
       kernel, launch counts (K1, K4, K5, K6 once a step, K5 and K6 staged),
       no plain version
 
+and `fhn_fivo_controls` (FHN with Di = 2 exogenous controls, FIVO, K=128,
+B=32, T=100, relu heads (64, 64), stream noise) with random weights, its
+data and controls from seed 0, whose q1 and f take the controls as a
+per-(t, row) first-layer term in the coefficient rows:
+
+  (ag) K1, K4, K14 and K15 in their control mode against their plain
+      versions (small, full at K=128, and full at K=1024): K1 (stream, and
+      the in-kernel draw small) allclose 2e-4 small, teacher-forced full; K4
+      on one K1 run's residuals per leaf within 1e-4 small and 1e-3 full, the
+      controls' d_coef columns too; the K14 chain against step_forward_reference
+      and one K1 launch; K15 per step with relu-tie cotangents zeroed; the
+      control mode with zero controls bit-equal to the uncontrolled launch
+      on the same weights; at K=1024 K1 and K4 on clusters of 2 against one
+      CTA a row (the controls' columns within 1e-6) and K14/K15 at each slice
+      count S against S=1 (S=4 included); the four kernels' times at the
+      preset's size beside their plain versions and bounds
+  (ah) serving through make_eval_step and filter_posterior with controls on
+      three batches of 32: one K1 launch a call, no plain version, log Z, R2,
+      time per call; negated controls move log Z; a call without controls
+      is refused
+  (ai) training through make_train_step: 3 calls of 10 steps (B=32) on the
+      whole-scan path (30 K1 and 30 K4 launches) and with
+      `fused_step.SCAN_FUSED` off (2970 K14 and 2970 K15), no plain version,
+      W_u's rows moved; step time, peak memory and a profile by kernel
+
 Every phase prints its lines and its seconds; any failure prints its reason
 on stdout and stderr and exits non-zero. A torch.profiler window that comes
 back with no device events is run again (profiled_kernels); device time
@@ -174,7 +199,9 @@ kernels' JSON record (times beside the bound: the larger of the operations
 over 67 TFLOP/s fp32 and the bytes over 3.35 TB/s, the H100 SXM's published
 peaks; K2's, K5's, K6's, K7's, K9's, K11's, K12's and K13's rows also carry
 "ms_prev", the previous design's time alternated with theirs; K6's row has
-both branches, K2's both widths); the last line is the device record. Imports nothing of JAX: the
+both branches, K2's both widths; K1, K4, K14 and K15 appear once more as
+"(controls)", their control mode at fhn_fivo_controls' size); the last line
+is the device record. Imports nothing of JAX: the
 machine with the card has none.
 """
 
@@ -371,8 +398,10 @@ def slice_config(small: bool, preset: str = "fhn_fivo_k1024_bench"):
     return cfg, 4
 
 
-def kernel_inputs(ssm, cfg, ys, gen):
-    """What _forward_filter_fused hands K1, plus ell0, with fresh streams."""
+def kernel_inputs(ssm, cfg, ys, gen, controls=None):
+    """What _forward_filter_fused hands K1, plus ell0, with fresh streams; for
+    a model with controls (ssm.di > 0) the coef rows end in the controls'
+    first-layer terms (`controls` [B, T, Di], or fresh N(0, 1) draws)."""
     import torch
     from psvo_tpu_torch import smc
     from psvo_tpu_torch.ops import fused_step
@@ -387,7 +416,12 @@ def kernel_inputs(ssm, cfg, ys, gen):
     u0 = torch.rand((t_steps - 1, batch), generator=gen, device=dev)
     x0, alpha0 = smc._init_t0(ssm, eps0, ys_tm[0], ys_tm[0])
     ab = logsq[1:] - consts["log_sf_sum"] - consts["log_sg_sum"] - ssm.dy * 0.5 * math.log(2 * math.pi)
-    coef = fused_step.pack_coef(aq[1:], cq[1:], sq[1:], ys_tm[1:], ab)
+    ctrl_bias = None
+    if ssm.di:
+        if controls is None:
+            controls = torch.randn((batch, t_steps, ssm.di), generator=gen, device=dev)
+        ctrl_bias = fused_step.control_term(consts, controls.transpose(0, 1)[1:])
+    coef = fused_step.pack_coef(aq[1:], cq[1:], sq[1:], ys_tm[1:], ab, ctrl_bias)
     ell0 = torch.logsumexp(alpha0, -1) - math.log(k)
     return dict(x0=x0.contiguous(), alpha0=alpha0.contiguous(), coef=coef, consts=consts,
                 eps=eps, positions=fused_step.systematic_positions(u0, k), ell0=ell0)
@@ -572,8 +606,11 @@ def check_backward(ssm, cfg, ys, gen, rng_seed=None, cache=False):
                                               d_stats, *cots)
     torch.cuda.synchronize()
     rel = [float((g - w).norm() / w.norm().clamp_min(1e-30)) for g, w in zip(got, want)]
+    h2 = 2 * inp["consts"]["hidden"] if ssm.di else 0  # the controls' d_coef columns
     return dict(
         rel=rel, maxd=[float((g - w).abs().max()) for g, w in zip(got, want)],
+        rel_ctrl=float((got[1][..., -h2:] - want[1][..., -h2:]).norm()
+                       / want[1][..., -h2:].norm().clamp_min(1e-30)) if h2 else None,
         monotone=bool((idx[..., 1:] >= idx[..., :-1]).all()),
         finite=all(bool(torch.isfinite(g).all()) for g in got),
         kernel=lambda: fused_step.scan_backward(*bwd, **noise),
@@ -872,21 +909,27 @@ def trunk_run(ssm, cfg, ys, gen, rng_seed=None):
                 k7_bad=k7_bad, last=(x_res, coef[-1], consts, eps[-1]))
 
 
-def relu_ties(consts, x_res, x_new, tol=1e-5):
+def relu_ties(consts, x_res, x_new, tol=1e-5, coef_row=None):
     """[B, K] bool: the particles where a relu pre-activation of q1 or f (on
     x_res) or of g (on x_new) lies within tol of the magnitude of its sum
     (|b| + Σ|w·x|, in float64). There the sign, and so the relu's gradient
     mask, depends on the order of the float32 sum: the kernel and its plain
     version may take either side, and that one unit's whole cotangent then
-    passes on one side and not on the other."""
+    passes on one side and not on the other. With controls, coef_row (the
+    step's pack_coef row) supplies q1's and f's first-layer control terms."""
     import torch
     from psvo_tpu_torch.ops import fused_step
 
+    cb = (None, None, None)
+    if coef_row is not None and consts.get("di"):
+        cb = (*fused_step._split_coef(coef_row, consts)[5], None)
     flag = torch.zeros((x_res.shape[0], x_res.shape[-1]), dtype=torch.bool, device=x_res.device)
-    for (layers, _), inp in zip(fused_step._unpack_nets(consts), (x_res, x_res, x_new)):
+    for (layers, _), inp, c in zip(fused_step._unpack_nets(consts), (x_res, x_res, x_new), cb):
         h = inp.double()
-        for w, b in layers:
+        for i, (w, b) in enumerate(layers):
             w, b = w.double(), b.double()[:, None]
+            if i == 0 and c is not None:
+                b = b + c.double()[:, :, None]
             pre = torch.einsum("de,bdk->bek", w, h) + b
             size = torch.einsum("de,bdk->bek", w.abs(), h.abs()) + b.abs()
             flag |= (pre.abs() < tol * size).any(dim=1)
@@ -1162,7 +1205,8 @@ def step_backward_check(res, gen):
     def rel(got, want):
         return torch.stack([(g - w).norm() / w.norm().clamp_min(1e-30) for g, w in zip(got, want)])
 
-    rels, raws, maxd, zeroed, same = [], [], [], 0, True
+    h2 = 2 * consts["hidden"] if consts.get("di") else 0  # the controls' d_coef columns
+    rels, raws, maxd, zeroed, same, rel_ctrl = [], [], [], 0, True, 0.0
     for t in range(t1):
         x_in = x0 if t == 0 else x_all[t - 1]
         d_stats = torch.randn(stats[t].shape, generator=gen, device=dev)
@@ -1172,7 +1216,7 @@ def step_backward_check(res, gen):
         plain = (x_in, coef[t], consts, eps[t], idx[t], d_stats)
         raws.append(rel(fused_step.step_backward(*args, d_xn, d_al),
                         fused_step.step_backward_reference(*plain, d_xn, d_al)))
-        keep = ~relu_ties(consts, gather_particles(x_in, idx[t]), x_all[t])
+        keep = ~relu_ties(consts, gather_particles(x_in, idx[t]), x_all[t], coef_row=coef[t])
         zeroed += int((~keep).sum())
         d_xn, d_al = d_xn * keep[:, None], d_al * keep
         got = fused_step.step_backward(*args, d_xn, d_al)
@@ -1180,6 +1224,8 @@ def step_backward_check(res, gen):
         want = fused_step.step_backward_reference(*plain, d_xn, d_al)
         same &= all(torch.equal(g, a) for g, a in zip(got, again))
         rels.append(rel(got, want))
+        if h2:
+            rel_ctrl = max(rel_ctrl, float(rel((got[1][..., -h2:],), (want[1][..., -h2:],))[0]))
         maxd.append(torch.stack([(g - w).abs().max() for g, w in zip(got, want)]))
     last = (args, d_xn, d_al, got)
 
@@ -1202,7 +1248,7 @@ def step_backward_check(res, gen):
     torch.cuda.synchronize()
     return dict(rel=torch.stack(rels).amax(0).tolist(), maxd=torch.stack(maxd).amax(0).tolist(),
                 rel_raw=torch.stack(raws).amax(0).tolist(), zeroed=zeroed, n=t1 * b * k,
-                same=bool(same), vs_k4=vs_k4.tolist(), last=last,
+                same=bool(same), vs_k4=vs_k4.tolist(), last=last, rel_ctrl=rel_ctrl,
                 finite=all(bool(torch.isfinite(g).all()) for g in got))
 
 
@@ -1352,6 +1398,394 @@ def slice_sweep(fwd_args, bwd_args, gen):
                 times.setdefault(s, []).append(device_ms_by_kernel(lambda: fn(s)))
         ms.append(times)
     return dict(resident=resident, chosen=chosen, sizes=sizes, k14=k14, k15=k15, ms=ms)
+
+
+CTRL = "fhn_fivo_controls"
+
+
+def controlled_config(small: bool, k: int = 128, steps_per_call: int = 1):
+    """fhn_fivo_controls (or slice_config's small cut of it) at k particles
+    and steps_per_call train steps a call."""
+    cfg, batch = slice_config(small, CTRL)
+    return dataclasses.replace(
+        cfg, smc=dataclasses.replace(cfg.smc, n_particles=k),
+        train=dataclasses.replace(cfg.train, steps_per_call=steps_per_call)), batch
+
+
+def zero_control_bits(ssm, cfg, ys, gen):
+    """A controlled model's kernels with zero controls against the same
+    kernels launched uncontrolled (ctrl 0: the code every uncontrolled model
+    runs) on the same weights, inputs and cotangents: K1's outputs, K4's d_x0,
+    weight and sconst gradients and d_coef's uncontrolled columns, and one
+    mid step's K14 outputs and K15 leaves, bit for bit. Returns
+    {kernel: bit-equal}."""
+    import torch
+    from psvo_tpu_torch.ops import fused_step
+
+    b, t_steps, _ = ys.shape
+    inp = kernel_inputs(ssm, cfg, ys, gen,
+                        controls=torch.zeros((b, t_steps, ssm.di), device=ys.device))
+    consts, coef, eps, pos, x0 = inp["consts"], inp["coef"], inp["eps"], inp["positions"], inp["x0"]
+    n0 = coef.shape[-1] - 2 * consts["hidden"]
+    plain_c, coef0 = dict(consts, di=0, ctrl_w=None), coef[..., :n0].contiguous()
+    out = {}
+
+    def equal(xs, ws):
+        return all(torch.equal(a, w) for a, w in zip(xs, ws) if a is not None)
+
+    k1 = [fused_step.scan_forward(x0, inp["alpha0"], c, cs, eps=eps, positions=pos, cache=True,
+                                  save_res=True) for c, cs in ((coef, consts), (coef0, plain_c))]
+    out["K1"] = equal(k1[0], k1[1])
+    x_last, alpha_last, stats, x_all, alpha_all, idx = k1[1]
+    cots = [torch.randn(t.shape, generator=gen, device=ys.device)
+            for t in (stats, x_last, alpha_last, x_all, alpha_all)]
+    k4 = [fused_step.scan_backward(x0, x_all, idx, stats, c, cs, *cots, eps=eps)
+          for c, cs in ((coef, consts), (coef0, plain_c))]
+    out["K4"] = equal((k4[0][0], k4[0][1][..., :n0], *k4[0][2:]), k4[1])
+    t = coef.shape[0] // 2
+    k14 = [fused_step.step_forward(x_all[t - 1], alpha_all[t - 1], c[t], cs, eps[t], pos[t])
+           for c, cs in ((coef, consts), (coef0, plain_c))]
+    out["K14"] = equal(k14[0], k14[1])
+    k15 = [fused_step.step_backward(x_all[t - 1], x_all[t], idx[t], stats[t], c[t], cs, eps[t],
+                                    cots[0][t], cots[3][t], cots[4][t])
+           for c, cs in ((coef, consts), (coef0, plain_c))]
+    out["K15"] = equal((k15[0][0], k15[0][1][..., :n0], *k15[0][2:]), k15[1])
+    torch.cuda.synchronize()
+    return out
+
+
+def controls_phases(pt, dev, card: str) -> dict:
+    """Phases (ag)-(ai): fhn_fivo_controls' kernels against their plain
+    versions, served and trained through the entry points. Returns what the
+    kernels' JSON record needs."""
+    import torch
+    from psvo_tpu_torch.ops import fused_step
+
+    leaves = ("d_x0", "d_coef", "d_weights", "d_sconst")
+    # (ag) K1, K4, K14 and K15 with controls (fhn_fivo_controls) against their plain versions
+    gen_c = torch.Generator(device=dev).manual_seed(SEED + 40)  # this phase's own draws
+    cds = pt.generate_dataset(pt.PRESETS[CTRL].data, SEED)
+    c_obs = torch.cat([cds.obs_test, cds.obs_train]).to(dev)
+    c_u = torch.cat([cds.controls_test, cds.controls_train]).to(dev)
+    ag = {}
+    for label, small, k_ in (("small", True, 128), ("full", False, 128), ("full K=1024", False, 1024)):
+        cfg, batch = controlled_config(small, k_)
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 41), device=dev)
+        ys = c_obs[:batch, :cfg.data.t_steps].contiguous()
+        tol = 1e-4 if small else 1e-3
+        shape = (f"B={batch} K={k_} T={cfg.data.t_steps} hidden={cfg.net('q1').hidden} "
+                 f"Di={cfg.data.di}")
+        modes = [("stream", None)] + ([("in-kernel RNG", (9, 0xC0DE))] if small else [])
+        for mode, rng_seed in modes:
+            with torch.no_grad():
+                r = check_scan(f"K1 controls {label}", ssm, cfg, ys, gen_c, tol=2e-4,
+                               rng_seed=rng_seed)
+            print(f"[ag] K1 controls {label} {mode} {shape}, C={fused_step.scan_forward.last_cluster}"
+                  f": {scan_line(r)}", flush=True)
+            if not scan_ok(r, small):
+                fail(f"K1 with controls ({label}, {mode}) disagrees with scan_forward_reference")
+            bmodes = [(mode, rng_seed, False)]
+            if small and rng_seed is None:
+                bmodes.append(("stream, cache cotangents", None, True))
+            for bmode, bseed, cache in bmodes:
+                with torch.no_grad():
+                    rb = check_backward(ssm, cfg, ys, gen_c, bseed, cache)
+                print(f"[ag] K4 controls {label} {bmode}, C={fused_step.scan_backward.last_cluster}: "
+                      + ", ".join(f"{n} rel L2 {e:.3e} max|d| {m:.3e}"
+                                  for n, e, m in zip(leaves, rb["rel"], rb["maxd"]))
+                      + f"; the controls' d_coef columns rel L2 {rb['rel_ctrl']:.3e}; idx "
+                      f"nondecreasing {rb['monotone']}; bound rel L2 {tol:g}", flush=True)
+                if not (rb["monotone"] and rb["finite"] and max(rb["rel"] + [rb["rel_ctrl"]]) <= tol):
+                    fail(f"K4 with controls ({label}, {bmode}) disagrees with "
+                         f"scan_backward_reference")
+            ag[(label, "K1")], ag[(label, "K4")] = r, rb
+        with torch.no_grad():
+            rs = step_chain_check(ssm, cfg, ys, gen_c)
+        print(f"[ag] K14 controls {label} {shape}, S={fused_step.step_forward.last_slices}: every "
+              f"step from the kernel's own state: {rs['idx_bad']} indices differ; max per-step rel "
+              f"L2 " + ", ".join(f"{n} {e:.3e}" for n, e in zip(STEP_OUTPUTS, rs["tf_l2"]))
+              + f" (max|d| {rs['tf_abs']:.3e}); the chain vs one K1 launch: {rs['k1_idx']} indices "
+              f"differ, max|d| x {rs['vs_k1'][0]:.3e} alpha {rs['vs_k1'][1]:.3e} stats "
+              f"{rs['vs_k1'][2]:.3e}", flush=True)
+        if not (rs["finite"] and rs["idx_bad"] == 0 and max(rs["tf_l2"]) <= 1e-4
+                and rs["k1_idx"] == 0):
+            fail(f"K14 with controls ({label}) disagrees with step_forward_reference or with K1")
+        with torch.no_grad():
+            rbs = step_backward_check(rs, gen_c)
+        print(f"[ag] K15 controls {label}, S={fused_step.step_backward.last_slices}, every step: "
+              + ", ".join(f"{n} rel L2 {e:.3e} max|d| {m:.3e}"
+                          for n, e, m in zip(("d_x",) + leaves[1:], rbs["rel"], rbs["maxd"]))
+              + f"; the controls' d_coef columns rel L2 {rbs['rel_ctrl']:.3e}; bit-equal on a "
+              f"second launch {rbs['same']}; cotangents zeroed on {rbs['zeroed']} of {rbs['n']} "
+              f"particle-steps with a relu tie; the chain vs one K4 launch, rel L2 "
+              + ", ".join(f"{e:.3e}" for e in rbs["vs_k4"]) + f"; bound rel L2 {tol:g}", flush=True)
+        if not (rbs["finite"] and rbs["same"] and max(rbs["rel"] + [rbs["rel_ctrl"]]) <= tol
+                and max(rbs["vs_k4"]) <= 1e-4):
+            fail(f"K15 with controls ({label}) disagrees with step_backward_reference or with K4")
+        ag[(label, "K14")], ag[(label, "K15")] = rs, rbs
+        with torch.no_grad():
+            bits = zero_control_bits(ssm, cfg, ys, gen_c)
+        print(f"[ag] {label}: the control mode with zero controls vs the uncontrolled launch on "
+              f"the same weights, bit-equal: {bits}", flush=True)
+        if not all(bits.values()):
+            fail(f"the control mode with zero controls is not the uncontrolled launch ({label})")
+        if label == "full K=1024":
+            # K1 and K4 on clusters of 2 (the new columns' cross-CTA sums) vs one CTA a row,
+            # and K14/K15 on every slice count S vs S = 1 (4 at B=32, K=1024)
+            with torch.no_grad():
+                inp = kernel_inputs(ssm, cfg, ys, gen_c)
+                f_c = {c: fused_step.scan_forward(inp["x0"], inp["alpha0"], inp["coef"],
+                                                  inp["consts"], eps=inp["eps"],
+                                                  positions=inp["positions"], save_res=True,
+                                                  cluster=c) for c in (1, 2)}
+                x_last, alpha_last, stats, x_all, _, idx = f_c[1]
+                cots = [torch.randn(v.shape, generator=gen_c, device=dev)
+                        for v in (stats, x_last, alpha_last)]
+                b_c = {c: fused_step.scan_backward(inp["x0"], x_all, idx, stats, inp["coef"],
+                                                   inp["consts"], *cots, eps=inp["eps"], cluster=c)
+                       for c in (1, 2)}
+                h2 = 2 * inp["consts"]["hidden"]
+
+                def rel(a, w):
+                    return float((a - w).norm() / w.norm().clamp_min(1e-30))
+
+                rel_c = [rel(a, w) for a, w in zip(b_c[2][1:], b_c[1][1:])]
+                ctrl_cols = (b_c[2][1][..., -h2:], b_c[1][1][..., -h2:])
+                rel_cc = rel(*ctrl_cols)
+                k1_eq = all(torch.equal(a, w) for a, w in zip(f_c[2], f_c[1]) if a is not None)
+                vs64 = {}  # a sum beyond 1e-6: its distance from a float64 replay, C = 2 and 1
+                if max(rel_c) > 1e-6:
+                    c64 = dict(inp["consts"], packed=inp["consts"]["packed"].double(),
+                               sconst=inp["consts"]["sconst"].double())
+                    ref64 = fused_step.scan_backward_reference(
+                        inp["x0"].double(), inp["coef"].double(), c64, inp["eps"].double(), idx,
+                        *(c_.double() for c_ in cots))
+                    vs64 = {i: (rel(b_c[2][i].double(), ref64[i]), rel(b_c[1][i].double(), ref64[i]))
+                            for i, e in enumerate(rel_c, 1) if e > 1e-6}
+            print(f"[ag] K1/K4 controls on clusters of 2 vs 1 (B={batch}, K={k_}): K1 bit-equal "
+                  f"{k1_eq}; K4 d_x0 bit-equal {torch.equal(b_c[2][0], b_c[1][0])}, rel L2 "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in zip(leaves[1:], rel_c))
+                  + "".join(f"; {leaves[i]} vs a float64 replay {a:.3e} (C=1 {w:.3e})"
+                            for i, (a, w) in vs64.items())
+                  + f", the controls' d_coef columns {rel_cc:.3e} (bit-equal "
+                  f"{torch.equal(*ctrl_cols)}); bound: the controls' columns 1e-6, the other "
+                  f"sums 1e-6 or no further from float64 than C=1's (as phase ae)", flush=True)
+            sums_ok = all(e <= 1e-6 or vs64[i][0] <= vs64[i][1] for i, e in enumerate(rel_c, 1))
+            if not (k1_eq and torch.equal(b_c[2][0], b_c[1][0]) and rel_cc <= 1e-6 and sums_ok):
+                fail("K1/K4 with controls on clusters of 2 disagree with one CTA per row")
+            tm = inp["coef"].shape[0] // 2
+            x_all_s, alpha_all_s, stats_s, idx_s = (c.clone() for c in rs["chain"])
+            ri = rs["inp"]
+            with torch.no_grad():
+                sw = slice_sweep(
+                    (x_all_s[tm - 1], alpha_all_s[tm - 1], ri["coef"][tm], ri["consts"],
+                     ri["eps"][tm], ri["positions"][tm]),
+                    (x_all_s[tm - 1], x_all_s[tm], idx_s[tm], stats_s[tm], ri["coef"][tm],
+                     ri["eps"][tm]), gen_c)
+            print(f"[ag] K14/K15 controls by slice count (B={batch}, K={k_}): chosen S "
+                  f"{sw['chosen']}; K14 bit-equal to S=1 "
+                  + ", ".join(f"S={s_}: {v['equal'] and v['same']}" for s_, v in sw["k14"].items())
+                  + "; K15 d_x bit-equal to S=1 and rel L2 of the other leaves "
+                  + ", ".join(f"S={s_}: {v['dx_equal']} " + "/".join(f"{e:.2e}" for e in v["rel"])
+                              for s_, v in sw["k15"].items()), flush=True)
+            if not (all(v["equal"] and v["same"] for v in sw["k14"].values())
+                    and all(v["dx_equal"] and v["same"] for v in sw["k15"].values())
+                    and 4 in sw["k14"] and sw["chosen"][0] >= 2):
+                fail("K14/K15 with controls on slices disagree with one CTA per row")
+    # times at the preset's size (B=32, K=128, T=100, hidden (64, 64), stream noise)
+    cfg, batch = controlled_config(False)
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 41), device=dev)
+    ys = c_obs[:batch].contiguous()
+    with torch.no_grad():
+        inp = kernel_inputs(ssm, cfg, ys, gen_c, controls=c_u[:batch].contiguous())
+        args = (inp["x0"], inp["alpha0"], inp["coef"], inp["consts"])
+        noise = dict(eps=inp["eps"], positions=inp["positions"])
+        k1c = [time_ms(lambda: fused_step.scan_forward(*args, **noise)),
+               time_ms(lambda: fused_step.scan_forward_reference(*args, inp["eps"],
+                                                                 inp["positions"]))]
+        k1c += [time_ms(lambda: fused_step.scan_forward(*args, **noise)),
+                time_ms(lambda: fused_step.scan_forward_reference(*args, inp["eps"],
+                                                                  inp["positions"]))]
+        rb = ag[("full", "K4")]
+        k4c = [time_ms(rb["kernel"]), time_ms(rb["plain"]), time_ms(rb["kernel"]),
+               time_ms(rb["plain"])]
+        outs_c = fused_step.scan_forward(*args, **noise)
+        # the control mode against the same shape without it (the control columns dropped),
+        # alternated: controlled, uncontrolled, uncontrolled, controlled
+        plain_c = dict(inp["consts"], di=0, ctrl_w=None)
+        coef0 = inp["coef"][..., :-2 * inp["consts"]["hidden"]].contiguous()
+        res = fused_step.scan_forward(*args, **noise, save_res=True)
+        d_st = torch.randn(res[2].shape, generator=gen_c, device=dev)
+        k1_pair = [(args, noise), (args[:2] + (coef0, plain_c), noise)]
+        k4_pair = [(inp["coef"], inp["consts"]), (coef0, plain_c)]
+        k1_vs = [time_ms(lambda: fused_step.scan_forward(*k1_pair[i][0], **k1_pair[i][1]))
+                 for i in (0, 1, 1, 0)]
+        k4_vs = [time_ms(lambda: fused_step.scan_backward(inp["x0"], res[3], res[5], res[2],
+                                                          *k4_pair[i], d_st, eps=inp["eps"]))
+                 for i in (0, 1, 1, 0)]
+    consts_c = inp["consts"]
+    t1c, kc = inp["coef"].shape[0], inp["x0"].shape[-1]
+    glue = 2 * (2 * consts_c["hidden"]) * cfg.data.di * t1c * batch  # u·W_u per (t, row)
+    k1c_bound = bound(trunk_flops(consts_c) * t1c * batch * kc + glue,
+                      nbytes(*args[:3], consts_c["packed"], consts_c["sconst"], inp["eps"],
+                             inp["positions"], *outs_c[:3]))
+    k4c_bound = bound(rb["flops"] + glue, rb["n_bytes"])
+    rs, rbs = ag[("full", "K14")], ag[("full", "K15")]
+    ri = rs["inp"]
+    tm = ri["coef"].shape[0] // 2
+    k14c_args = (rs["chain"][0][tm - 1].contiguous(), rs["chain"][1][tm - 1].contiguous(),
+                 ri["coef"][tm], ri["consts"], ri["eps"][tm], ri["positions"][tm])
+    args15, d_xn15, d_al15, _ = rbs["last"]
+    plain15 = (args15[0], args15[4], args15[5], args15[6], args15[2], args15[7], d_xn15, d_al15)
+    with torch.no_grad():
+        k14c = [device_ms(lambda: fused_step.step_forward(*k14c_args)),
+                device_ms(lambda: fused_step.step_forward_reference(*k14c_args), n=5),
+                device_ms(lambda: fused_step.step_forward(*k14c_args))]
+        k14c_out = fused_step.step_forward(*k14c_args)
+        k15c = [device_ms(lambda: fused_step.step_backward(*args15, d_xn15, d_al15)),
+                device_ms(lambda: fused_step.step_backward_reference(*plain15), n=5),
+                device_ms(lambda: fused_step.step_backward(*args15, d_xn15, d_al15))]
+    k14c_bound, k15c_bound = step_bounds(ri["consts"], k14c_args[:3] + k14c_args[4:], k14c_out,
+                                         rbs["last"])
+    print(f"[ag] {card}: {CTRL} (B=32, K=128, T=100, hidden (64, 64), Di=2, stream noise): K1 "
+          f"{k1c[0]:.3f}/{k1c[2]:.3f} ms vs plain {k1c[1]:.3f}/{k1c[3]:.3f} ms, bound "
+          f"{k1c_bound[0]:.4f} ms ({k1c_bound[1]}); K4 {k4c[0]:.3f}/{k4c[2]:.3f} ms vs plain "
+          f"{k4c[1]:.3f}/{k4c[3]:.3f} ms, bound {k4c_bound[0]:.4f} ms ({k4c_bound[1]}) (CUDA events, "
+          f"kernel/plain alternated, median of 5 after 2 warm-up); K14 "
+          f"{k14c[0]:.4f}/{k14c[2]:.4f} ms vs plain {k14c[1]:.4f} ms, bound {k14c_bound[0]:.4f} ms "
+          f"({k14c_bound[1]}); K15 {k15c[0]:.4f}/{k15c[2]:.4f} ms vs plain {k15c[1]:.4f} ms, bound "
+          f"{k15c_bound[0]:.4f} ms ({k15c_bound[1]}) (device time per launch, torch.profiler); "
+          f"the glue's u·W_u {glue:.3e} FLOP a call; the control mode against the same shape "
+          f"without it (controlled, uncontrolled, uncontrolled, controlled, CUDA events): K1 "
+          + "/".join(f"{v:.3f}" for v in k1_vs) + " ms, K4 " + "/".join(f"{v:.3f}" for v in k4_vs)
+          + " ms", flush=True)
+    ctrl_small_err = {"K1": ag[("small", "K1")]["max_abs_err"],
+                      "K4": max(ag[("small", "K4")]["maxd"]),
+                      "K14": ag[("small", "K14")]["tf_abs"],
+                      "K15": max(ag[("small", "K15")]["maxd"])}
+    del ag
+    phase_done("ag")
+
+    # (ah) fhn_fivo_controls served: make_eval_step and filter_posterior with controls
+    c_kernels = (fused_step.scan_forward, fused_step.scan_backward, fused_step.step_forward,
+                 fused_step.step_backward)
+    c_plain = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+               fused_step.step_forward_reference, fused_step.step_backward_reference,
+               fused_step.stream_noise_reference, fused_step.ancestor_indices_reference)
+
+    def c_counted(fn):
+        for f in c_plain:
+            f.calls = 0
+        for f in c_kernels:
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, [f.launches for f in c_kernels], sum(f.calls for f in c_plain)
+
+    cfg, batch = pt.PRESETS[CTRL], 32
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    c_batches = [(c_obs[i * batch:(i + 1) * batch].contiguous(),
+                  c_u[i * batch:(i + 1) * batch].contiguous()) for i in range(3)]
+    eval_step = pt.make_eval_step(ssm, cfg)
+    run_gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+
+    def serve():
+        ms = [eval_step(run_gen, ys_, controls=u_) for ys_, u_ in c_batches]
+        return ms, [pt.filter_posterior(ssm, ys_, cfg, controls=u_) for ys_, u_ in c_batches]
+
+    (metrics, means), serve_launch, serve_plain = c_counted(serve)
+    elbos = [float(m_["elbo"]) for m_ in metrics]
+    r2_1 = [float(m_["r2_k"][0]) for m_ in metrics]
+    ys0, u0 = c_batches[0]
+    ev_ms = [time_ms(lambda: eval_step(run_gen, ys0, controls=u0)) for _ in range(2)]
+    fp_ms = time_ms(lambda: pt.filter_posterior(ssm, ys0, cfg, controls=u0))
+    flipped = []
+    for sign in (1.0, -1.0):
+        g_ = torch.Generator(device=dev).manual_seed(SEED + 44)
+        flipped.append(float(eval_step(g_, ys0, controls=sign * u0)["elbo"]))
+    try:
+        pt.filter_posterior(ssm, ys0, cfg)
+        refused = False
+    except ValueError:
+        refused = True
+    shapes_ok = all(tuple(m_.shape) == (batch, cfg.data.t_steps, 2) for m_ in means)
+    finite = all(math.isfinite(v) for v in elbos + r2_1) and all(
+        bool(torch.isfinite(m_).all()) for m_ in means)
+    print(f"[ah] {card}: serving {CTRL} (B=32, K=128, T=100, hidden (64, 64), Di=2): log Z per "
+          f"batch (elbo) {[round(e, 3) for e in elbos]}, R2(1) {[round(v, 4) for v in r2_1]}; "
+          f"launches K1/K4/K14/K15 {serve_launch} for 3 eval_step and 3 filter_posterior calls, "
+          f"plain-version calls {serve_plain}; eval_step {ev_ms[0]:.3f}/{ev_ms[1]:.3f} ms, "
+          f"filter_posterior {fp_ms:.3f} ms per call of B={batch} (CUDA events, median of 5 after 2 "
+          f"warm-up); log Z with the controls {flipped[0]:.4f}, negated {flipped[1]:.4f}; "
+          f"filter_posterior without controls refused {refused}; shapes ok {shapes_ok}", flush=True)
+    if serve_launch != [6, 0, 0, 0] or serve_plain:
+        fail(f"controlled serving launched K1/K4/K14/K15 {serve_launch} (want [6, 0, 0, 0]), plain "
+             f"versions {serve_plain}")
+    if not (finite and shapes_ok and refused and abs(flipped[0] - flipped[1]) > 1e-3):
+        fail("controlled serving: non-finite or misshapen output, negated controls left log Z as "
+             "it was, or a call without controls was not refused")
+    phase_done("ah")
+
+    # (ai) fhn_fivo_controls trained: 3 calls of 10 steps, whole scan (K1/K4) then per step (K14/K15)
+    cfg, batch = controlled_config(False, 128, steps_per_call=10)
+    obs_t, ctl_t = cds.obs_train.to(dev), cds.controls_train.to(dev)
+    pick = torch.randint(0, obs_t.shape[0], (3, 10, batch),
+                         generator=torch.Generator().manual_seed(SEED + 43))
+    c_train = [(obs_t[p_.to(dev)].contiguous(), ctl_t[p_.to(dev)].contiguous()) for p_ in pick]
+    ctrl_train = {}
+    for scan_fused in (True, False):
+        fused_step.SCAN_FUSED = scan_fused
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+        train_step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
+        before = [p_.detach().clone() for p_ in ssm.parameters()]
+        w_u = [ssm.heads[n_].weights[0][2:].detach().clone() for n_ in ("q1", "f")]
+        run_gen = torch.Generator(device=dev).manual_seed(SEED + 45)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9
+        call_s = []
+
+        def train_calls():
+            out = []
+            for bt, ut in c_train:
+                t0 = time.perf_counter()
+                out.append(train_step(run_gen, bt, controls=ut))
+                torch.cuda.synchronize()
+                call_s.append(time.perf_counter() - t0)
+            return out
+
+        tm_, launch, plain_n = c_counted(train_calls)
+        peak = torch.cuda.max_memory_allocated() / 1e9 - held
+        losses = [float(m_["loss"]) for m_ in tm_]
+        norms = [float(m_["grad_norm"]) for m_ in tm_]
+        moved = any(not torch.equal(a_, p_) for a_, p_ in zip(before, ssm.parameters()))
+        w_u_moved = all(not torch.equal(a_, ssm.heads[n_].weights[0][2:])
+                        for a_, n_ in zip(w_u, ("q1", "f")))
+        step_ms = statistics.median(call_s[1:]) / 10 * 1e3
+        path = "whole scan" if scan_fused else "per step"
+        profile = device_breakdown(lambda: train_step(run_gen, c_train[0][0],
+                                                      controls=c_train[0][1]),
+                                   10, FHN_KERNELS if scan_fused else STEP_KERNELS)
+        print(f"[ai] {card}: training {CTRL}, {path}: 3 calls x 10 steps, B={batch}: loss per call "
+              f"{[round(v, 3) for v in losses]}, grad norm {[round(v, 3) for v in norms]}, "
+              f"parameters moved {moved} (W_u rows too {w_u_moved}); launches K1/K4/K14/K15 "
+              f"{launch}, plain-version calls {plain_n}; call times {[round(v, 3) for v in call_s]}"
+              f" s, train step {step_ms:.3f} ms (median of the calls after the first, per step); "
+              f"peak device memory {peak:.3f} GB above the {held:.3f} GB held before", flush=True)
+        print(f"[ai] profile of one more call ({path}): {profile}", flush=True)
+        t1c = cfg.data.t_steps - 1
+        want = [30, 30, 0, 0] if scan_fused else [0, 0, 30 * t1c, 30 * t1c]
+        if launch != want or plain_n:
+            fail(f"controlled training ({path}) launched K1/K4/K14/K15 {launch} (want {want}), "
+                 f"plain versions {plain_n}")
+        if not (all(math.isfinite(v) for v in losses + norms) and moved and w_u_moved):
+            fail(f"controlled training ({path}) gave non-finite losses or gradient norms, or left "
+                 f"the parameters (W_u's rows) as they were")
+        ctrl_train[scan_fused] = (launch, step_ms, peak)
+    fused_step.SCAN_FUSED = True
+    phase_done("ai")
+    return dict(k1=k1c, k4=k4c, k14=k14c, k15=k15c, k1_bound=k1c_bound, k4_bound=k4c_bound,
+                k14_bound=k14c_bound, k15_bound=k15c_bound, err=ctrl_small_err, train=ctrl_train)
 
 
 def main() -> int:
@@ -3080,6 +3514,9 @@ def main() -> int:
              "parameters as they were")
     phase_done("af")
 
+    ctrl = controls_phases(pt, dev, card)
+
+
     # K3: the CDF scan and a binary search per particle; logw and u0 in, int32 indices out.
     k3_bound, k3_by = bound(2.0 * bl.numel() * (1 + math.log2(bl.shape[-1])),
                             nbytes(bl, bu) + bl.numel() * 4)
@@ -3099,7 +3536,7 @@ def main() -> int:
          "replaces": "psvo_tpu/ops/pallas_resample.py:210", "launches": 0, "on_path": False,
          "max_abs_err": float(k3_err), "ms": k3_ms, "plain_ms": k3_plain,
          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
-        {"name": "scan_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/scan_forward.cu",
+        {"name": "scan_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/scan_forward.cuh",
          "replaces": "psvo_tpu/ops/pallas_step.py:1327", "launches": k1_train,
          "max_abs_err": results["small"]["max_abs_err"], "ms": k1_ms, "plain_ms": k1_plain,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None, "cluster": k1_c,
@@ -3161,7 +3598,7 @@ def main() -> int:
          "replaces": "psvo_tpu/ops/pallas_svo.py:521", "launches": svo_launches[3],
          "on_path": True, "max_abs_err": k13_small_err, "ms": k13_dev[0], "plain_ms": k13_dev[1],
          "bound_ms": k13_bound, "bound_by": k13_by, "library_ms": None, "ms_prev": k13_dev[2]},
-        {"name": "step_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/scan_forward.cu",
+        {"name": "step_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/scan_forward.cuh",
          "replaces": "psvo_tpu/ops/pallas_step.py:954", "launches": step_train[0],
          "on_path": True, "max_abs_err": k14_small_err, "ms": k14_dev[0], "plain_ms": k14_dev[1],
          "bound_ms": k14_bound, "bound_by": k14_by, "library_ms": None, "slices": k14_s,
@@ -3171,6 +3608,33 @@ def main() -> int:
          "on_path": True, "max_abs_err": k15_small_err, "ms": k15_dev[0], "plain_ms": k15_dev[1],
          "bound_ms": k15_bound, "bound_by": k15_by, "library_ms": None, "slices": k15_s,
          "ms_s1": k15_ms_s1},
+        # K1, K4, K14 and K15 in their control mode (fhn_fivo_controls: B=32, K=128, T=100,
+        # hidden (64, 64), Di=2, stream noise): launches from phase ai's training runs, times
+        # from phase ag, bounds with the glue's u·W_u counted in.
+        {"name": "scan_forward (controls)", "route": "cuda",
+         "source": "psvo_tpu_torch/csrc/scan_forward.cuh", "replaces": "psvo_tpu/ops/pallas_step.py:1327",
+         "launches": ctrl["train"][True][0][0], "on_path": True, "max_abs_err": ctrl["err"]["K1"],
+         "ms": ctrl["k1"][0], "plain_ms": ctrl["k1"][1], "bound_ms": ctrl["k1_bound"][0],
+         "bound_by": ctrl["k1_bound"][1],
+         "library_ms": None},
+        {"name": "scan_backward (controls)", "route": "cuda",
+         "source": "psvo_tpu_torch/csrc/scan_backward.cu", "replaces": "psvo_tpu/ops/pallas_step.py:1425",
+         "launches": ctrl["train"][True][0][1], "on_path": True, "max_abs_err": ctrl["err"]["K4"],
+         "ms": ctrl["k4"][0], "plain_ms": ctrl["k4"][1], "bound_ms": ctrl["k4_bound"][0],
+         "bound_by": ctrl["k4_bound"][1],
+         "library_ms": None},
+        {"name": "step_forward (controls)", "route": "cuda",
+         "source": "psvo_tpu_torch/csrc/scan_forward.cuh", "replaces": "psvo_tpu/ops/pallas_step.py:954",
+         "launches": ctrl["train"][False][0][2], "on_path": True, "max_abs_err": ctrl["err"]["K14"],
+         "ms": ctrl["k14"][0], "plain_ms": ctrl["k14"][1],
+         "bound_ms": ctrl["k14_bound"][0], "bound_by": ctrl["k14_bound"][1],
+         "library_ms": None},
+        {"name": "step_backward (controls)", "route": "cuda",
+         "source": "psvo_tpu_torch/csrc/scan_backward.cu", "replaces": "psvo_tpu/ops/pallas_step.py:1013",
+         "launches": ctrl["train"][False][0][3], "on_path": True, "max_abs_err": ctrl["err"]["K15"],
+         "ms": ctrl["k15"][0], "plain_ms": ctrl["k15"][1],
+         "bound_ms": ctrl["k15_bound"][0], "bound_by": ctrl["k15_bound"][1],
+         "library_ms": None},
     ]
     print(f"[profiler] {PROFILE_WINDOWS['windows']} profiler windows, "
           f"{PROFILE_WINDOWS['empty']} of them with no device events (run again); of the timing "

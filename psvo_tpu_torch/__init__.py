@@ -15,7 +15,9 @@ sweep and its backward are two more. The wide Lorenz-96 state is served step
 by step through three more: the large-K ancestor indices, the particle
 gather and the trunk kernel (`ops/resample_gather.py`, `ops/trunk.py`); and
 trained through two more, the trunk kernel's VJP and the segment-sum
-scatter that transposes the gather.
+scatter that transposes the gather. Models with exogenous controls
+(data.di > 0, `controls=` on the entry points) run the whole-scan and
+per-step filter kernels in their control mode, for FIVO and IWAE.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-// Thread-block clusters for K1 (scan_forward.cu) and K4 (scan_backward.cu):
+// Thread-block clusters for K1 (scan_forward.cuh) and K4 (scan_backward.cu):
 // one trajectory row on a cluster of C CTAs, each CTA owning a contiguous
 // slice of K/C particles, the slices joined through distributed shared
 // memory (DSMEM). Here: the launch of B·C CTAs in clusters of C, and the

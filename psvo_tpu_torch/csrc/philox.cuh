@@ -1,5 +1,5 @@
 // Counter-based noise shared by the whole-scan forward kernel (in-kernel RNG
-// mode, scan_forward.cu), the per-step trunk kernel (trunk_forward.cu) and
+// mode, scan_forward.cuh), the per-step trunk kernel (trunk_forward.cu) and
 // the stream extractor (stream_noise.cu).
 //
 // Replaces the TPU hardware PRNG of psvo_tpu/ops/pallas_step.py

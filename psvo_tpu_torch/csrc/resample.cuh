@@ -1,5 +1,5 @@
 // Block-level pieces of the resampling step, shared by the whole-scan forward
-// kernel (scan_forward.cu) and the standalone index kernel (ancestor_indices.cu).
+// kernel (scan_forward.cuh) and the standalone index kernel (ancestor_indices.cu).
 //
 // Replaces psvo_tpu/ops/pallas_resample.py::_two_level_indices as the TPU
 // megakernel inlines it. There the CDF was a triangular-ones MXU contraction

@@ -65,6 +65,18 @@
 // cluster barrier per step. Tensor cores (TF32/bf16 change the numerics)
 // are later work.
 //
+// Controls (ctrl = 1, data.di > 0; scan_forward.cuh says how K1 takes them):
+// each step copies b1 + c of q1 and f into shared memory (cb) for the
+// recompute of their first layers, so the recompute has K1's bits, and the
+// thread that owns b1[o] in the weight-gradient sums also adds the tile's
+// Σ_p of that unit's pre-activation cotangent to the step's sum csum[o], in
+// fp64. The row's d_coef gets those 2H sums after ab (rank 0 adds the C
+// slices' sums in rank order, in fp64, K15's last CTA the S slices' in slice
+// order): the VJP of c, from which autograd through fused_step.control_term
+// gives W_u's gradient. The tiles are those of C = 1 at every C, so the fp64
+// sums of their float32 tile sums round to the same float32 at every C but
+// for a tie within the last bit.
+//
 // Determinism. Every gradient entry has one owning thread, which adds its
 // tile sums in a fixed order; the per-step sums go through fixed block
 // reductions and rank 0 adds the C slice sums in rank order; the scatter is
@@ -97,7 +109,7 @@ struct BwdArgs {
   const float* x_all;        // [T1, B, DX, K]: x_new of every step (K1 residual)
   const int* idx;            // [T1, B, K]: ancestors (K1 residual), nondecreasing in K
   const float* stats;        // [T1, B, 2 + DX]: ℓ in column 0
-  const float* coef;         // [T1, B, 3*DX + DY + 1]: aq, cq, sq, y, ab
+  const float* coef;         // [T1, B, 3*DX + DY + 1 (+ 2H)]: aq, cq, sq, y, ab (, c_q1, c_f)
   const float* eps;          // [T1, B, DX, K]; stream mode only
   const float* weights;      // q1 | f | g, fused_step.prepare's layout
   const float* sconst;       // [DX + DY]: 1/s_f, 1/s_g
@@ -107,10 +119,11 @@ struct BwdArgs {
   const float* d_x_all;      // [T1, B, DX, K] or null
   const float* d_alpha_all;  // [T1, B, K] or null
   float* d_x0;               // [B, DX, K]
-  float* d_coef;             // [T1, B, 3*DX + DY + 1]
+  float* d_coef;             // [T1, B, 3*DX + DY + 1 (+ 2H)]
   float* partial;            // [B*C, n_weights + DX + DY]: per-CTA weight and sconst grads
   uint32_t seed0, seed1;
   int use_rng, B, K, T1, n_weights, off_f, off_g;
+  int ctrl;                  // 1: coef rows end in the controls' q1 and f first-layer terms [2H]
   int cluster;               // C: CTAs per row, K/C a multiple of kP when C > 1
 };
 
@@ -319,12 +332,13 @@ __device__ __forceinline__ void bwd_pre1(const float* __restrict__ w2,
 }
 
 // Backward stage 5: dW1[d][i] += Σ_p x[d][p]·dpre1[i][p], db1[i] += Σ_p dpre1[i][p],
-// and the input cotangent dx[d][p] (= or +=) Σ_i W1[d][i]·dpre1[i][p].
+// and the input cotangent dx[d][p] (= or +=) Σ_i W1[d][i]·dpre1[i][p]. With
+// csum (controls), the owner of db1[i] also adds the tile's sum to csum[i].
 template <int DIN, int H, int DOUT, bool kAdd>
 __device__ __forceinline__ void bwd_input(const float* __restrict__ w1,
                                           const float* __restrict__ x,
                                           const float* __restrict__ dpre1, float* g,
-                                          float* __restrict__ dx) {
+                                          float* __restrict__ dx, double* csum = nullptr) {
   using N = Net<DIN, H, DOUT>;
   constexpr int NG = DIN * H + H;  // W1 then b1 in the segment
   for (int e = threadIdx.x; e < NG + DIN * kP; e += kThreads) {
@@ -341,6 +355,7 @@ __device__ __forceinline__ void bwd_input(const float* __restrict__ w1,
         for (int c = 0; c < 4; ++c) s = is_w ? fmaf(xv[c], dv[c], s) : s + dv[c];
       }
       g[N::W1 + e] += s;
+      if (!is_w && csum != nullptr) csum[e - DIN * H] += static_cast<double>(s);
     } else {
       const int f = e - NG, d = f / kP, p = f % kP;
       float s = 0.0f;
@@ -376,10 +391,12 @@ constexpr int kCoefSums = 3 * DX + 1;
 
 // A CTA's shared memory in K4 and K15: the weights and their gradient sums,
 // four [H][kPS] activation tiles, the [D][kPS] tile arrays, K4's carry of the
-// slice, d x_res of the slice (twice at C > 1, by t's parity), the slice's
-// d_coef sums (C > 1, by t's parity), the reduction scratch and the int32
-// ancestors of the whole row [K]. K15 keeps neither d x_res nor the
-// ancestors here (n = K = 0): its shared memory does not depend on K.
+// slice, d x_res of the slice (twice at C > 1, by t's parity), with controls
+// the step's first-layer biases of q1 and f and their cotangent sums (twice,
+// by t's parity), the slice's d_coef sums (C > 1, by t's parity), the
+// reduction scratch and the int32 ancestors of the whole row [K]. K15 keeps
+// neither d x_res nor the ancestors here (n = K = 0): its shared memory does
+// not depend on K.
 struct BwdSmem {
   float *wts, *gacc;               // [n_weights] each
   float *f1, *f2, *g1, *g2;        // [H][kPS]: f's buffers, then g's (then q1's)
@@ -389,6 +406,8 @@ struct BwdSmem {
   float *dxn, *dxr;                // d x_new, d x_res of the tile
   float* carry;                    // [DX][n] (K4 only)
   float* dxres;                    // [C > 1 ? 2 : 1][DX][n]: d x_res of the slice
+  float* cb;                       // [2H]: b1 + c of q1, then of f (ctrl only)
+  double* csum;                    // [2][2H]: Σ of their pre-activation cotangents (ctrl only)
   float* part;                     // [2][kCoefSums] (C > 1 only)
   float* red;                      // [kWarps]
   int* idx_s;                      // [K]
@@ -396,7 +415,7 @@ struct BwdSmem {
 
 template <int DX, int DY, int H>
 __device__ __forceinline__ BwdSmem carve_bwd(unsigned char* smem, int n_weights, int K, int n,
-                                             bool carry, int C) {
+                                             bool carry, int C, bool ctrl) {
   BwdSmem s;
   s.wts = reinterpret_cast<float*>(smem);
   s.gacc = s.wts + n_weights;
@@ -417,18 +436,33 @@ __device__ __forceinline__ BwdSmem carve_bwd(unsigned char* smem, int n_weights,
   s.dxr = s.dxn + DX * kPS;
   s.carry = s.dxr + DX * kPS;
   s.dxres = s.carry + (carry ? DX * n : 0);
-  s.part = s.dxres + (C > 1 ? 2 : 1) * DX * n;
+  s.cb = s.dxres + (C > 1 ? 2 : 1) * DX * n;  // 16-byte aligned, as every extent before it
+  s.csum = reinterpret_cast<double*>(s.cb + (ctrl ? 2 * H : 0));  // 8-byte aligned: H % 16 == 0
+  s.part = reinterpret_cast<float*>(s.csum + (ctrl ? 4 * H : 0));
   s.red = s.part + (C > 1 ? 2 * kCoefSums<DX> : 0);
   s.idx_s = reinterpret_cast<int*>(s.red + kWarps);
   return s;
 }
 
 template <int DX, int DY, int H>
-size_t bwd_smem_bytes(int n_weights, int K, int n, bool carry, int C) {
+size_t bwd_smem_bytes(int n_weights, int K, int n, bool carry, int C, bool ctrl) {
   return sizeof(float) * (2 * n_weights + 4 * H * kPS + (9 * DX + 2 * DY) * kPS +
-                          (carry ? DX * n : 0) + (C > 1 ? 2 : 1) * DX * n +
+                          (carry ? DX * n : 0) + (C > 1 ? 2 : 1) * DX * n + (ctrl ? 2 * H : 0) +
                           (C > 1 ? 2 * kCoefSums<DX> : 0) + kWarps) +
-         sizeof(int) * K;
+         sizeof(double) * (ctrl ? 4 * H : 0) + sizeof(int) * K;
+}
+
+// With controls, before a step's tiles: cb = b1 + c of q1 and f, the same
+// float adds as K1's (scan_forward.cuh::filter_step), and csum zeroed. The
+// weights must be in s.wts; the tiles' first barrier publishes both.
+template <int DX, int DY, int H>
+__device__ __forceinline__ void load_control_bias(const BwdSmem& s, const float* coef, int off_f,
+                                                  double* csum) {
+  const float* cu = coef + 3 * DX + DY + 1;
+  for (int o = threadIdx.x; o < 2 * H; o += kThreads) {
+    s.cb[o] = s.wts[(o < H ? 0 : off_f) + DX * H + o % H] + cu[o];
+    csum[o] = 0.0;
+  }
 }
 
 // One trajectory row's operands of one backward step, in device or shared
@@ -439,7 +473,7 @@ struct BwdRow {
   const float* x_cur;    // [DX][K]: x_new
   const int* idx;        // [K]: ancestors, nondecreasing
   const float* eps;      // [DX][K]; stream mode only
-  const float* coef;     // [3*DX + DY + 1]: aq, cq, sq, y, ab
+  const float* coef;     // [3*DX + DY + 1 (+ 2H)]: aq, cq, sq, y, ab (, c_q1, c_f)
   const float* stats;    // [2 + DX]: ℓ in column 0
   const float* d_stats;  // [2 + DX]: column 0 is read
   const float* d_xn;     // [DX][ld] from particle `off`, or null: the cotangent of x_new
@@ -447,7 +481,7 @@ struct BwdRow {
   const float* d_al;     // [K] or null: the cotangent of α
   const float* d_al2;    // [K] or null: a second one, added
   float* d_x;            // [DX][ld] from particle `off`: d x_prev, written by K4's scatter
-  float* d_coef;         // [3*DX + DY + 1]; written by K4's rank 0
+  float* d_coef;         // [3*DX + DY + 1 (+ 2H)]; written by K4's rank 0
   int ld, off;           // layout of d_xn and d_x: K4's carry of the slice, K15's rows
 };
 
@@ -468,7 +502,9 @@ __device__ __forceinline__ void write_coef_row(float* dc, const float (&sums)[kC
 // dimension, then ab) in `sums`, in every thread. The ancestors come from
 // idx: K4's copy in shared memory, K15's row in device memory. K4 runs it
 // once per t on each CTA of a row's cluster, K15 once per launch on each
-// slice of the row. Ends on a barrier.
+// slice of the row. With controls (csum not null) q1's and f's first layers
+// read their biases from s.cb and their pre-activation cotangents are summed
+// into csum [2H] (load_control_bias set both up). Ends on a barrier.
 template <int DX, int DY, int H>
 __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s, const int* idx,
                                                int lo, int hi, float* dxres, int ld, int K,
@@ -476,7 +512,7 @@ __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s
                                                const float (&sgi)[DY], double (&dsf)[DX],
                                                double (&dsg)[DY], bool use_rng, uint32_t seed0,
                                                uint32_t seed1, int b, int t,
-                                               float (&sums)[kCoefSums<DX>]) {
+                                               float (&sums)[kCoefSums<DX>], double* csum) {
   using NQ = Net<DX, H, DX>;  // q1 and f
   using NG = Net<DX, H, DY>;  // g
   const int tid = threadIdx.x;
@@ -486,12 +522,15 @@ __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s
   float* gq = s.gacc;
   float* gf = s.gacc + off_f;
   float* gg = s.gacc + off_g;
-  constexpr int NC = 3 * DX + DY + 1;
   const float log_k = logf(static_cast<float>(K));
   const int p = tid;  // this thread's particle slot in a tile (tid < kP)
   float *f1 = s.f1, *f2 = s.f2, *g1 = s.g1, *g2 = s.g2, *xr = s.xr, *xn = s.xn, *ep = s.ep;
   float *mf = s.mf, *mg = s.mg, *mq = s.mq, *dmf = s.dmf, *dmg = s.dmg, *dmq = s.dmq;
   float *dxn = s.dxn, *dxr = s.dxr;
+  const bool ctrl = csum != nullptr;
+  const float* bq = ctrl ? s.cb : wq + NQ::B1;      // q1's first-layer bias
+  const float* bf = ctrl ? s.cb + H : wf + NQ::B1;  // f's
+  double* csum_f = ctrl ? csum + H : nullptr;
 
   const float* c = r.coef;
   float cq[DX], y[DY];
@@ -522,7 +561,7 @@ __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s
     }
     __syncthreads();
     // 2. recompute f on x_res and g on x_new
-    dense_relu_tile<DX, H>(wf + NQ::W1, wf + NQ::B1, xr, f1);
+    dense_relu_tile<DX, H>(wf + NQ::W1, bf, xr, f1);
     dense_relu_tile<DX, H>(wg + NG::W1, wg + NG::B1, xn, g1);
     __syncthreads();
     dense_relu_tile<H, H>(wf + NQ::W2, wf + NQ::B2, f1, f2);
@@ -587,11 +626,11 @@ __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s
     bwd_pre1<H>(wf + NQ::W2, f2, f1);
     bwd_pre1<H>(wg + NG::W2, g2, g1);
     __syncthreads();
-    bwd_input<DX, H, DX, false>(wf + NQ::W1, xr, f1, gf, dxr);
+    bwd_input<DX, H, DX, false>(wf + NQ::W1, xr, f1, gf, dxr, csum_f);
     bwd_input<DX, H, DY, true>(wg + NG::W1, xn, g1, gg, dxn);
     __syncthreads();
     // 5. recompute q1 on x_res, in g's buffers
-    dense_relu_tile<DX, H>(wq + NQ::W1, wq + NQ::B1, xr, g1);
+    dense_relu_tile<DX, H>(wq + NQ::W1, bq, xr, g1);
     __syncthreads();
     dense_relu_tile<H, H>(wq + NQ::W2, wq + NQ::B2, g1, g2);
     __syncthreads();
@@ -620,7 +659,7 @@ __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s
     __syncthreads();
     bwd_pre1<H>(wq + NQ::W2, g2, g1);
     __syncthreads();
-    bwd_input<DX, H, DX, true>(wq + NQ::W1, xr, g1, gq, dxr);
+    bwd_input<DX, H, DX, true>(wq + NQ::W1, xr, g1, gq, dxr, csum);
     __syncthreads();
     if (mine) {
 #pragma unroll
@@ -648,15 +687,20 @@ __device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s,
                                               int K, int off_f, int off_g,
                                               const float (&sfi)[DX], const float (&sgi)[DY],
                                               double (&dsf)[DX], double (&dsg)[DY], bool use_rng,
-                                              uint32_t seed0, uint32_t seed1, int b, int t) {
+                                              uint32_t seed0, uint32_t seed1, int b, int t,
+                                              bool ctrl) {
   const int tid = threadIdx.x;
   const int hi = sl.lo + sl.n;
   float* dxres = s.dxres + (sl.C > 1 ? (t & 1) * DX * sl.n : 0);  // [DX][n]
   for (int i = tid; i < K; i += kThreads) s.idx_s[i] = r.idx[i];
   __syncthreads();
+  // csum by t's parity, as the partials: rank 0 reads a neighbour's before
+  // step t−1's cluster barrier, after which that neighbour rezeroes it at t−2
+  double* csum = ctrl ? s.csum + (t & 1) * 2 * H : nullptr;
+  if (ctrl) load_control_bias<DX, DY, H>(s, r.coef, off_f, csum);
   float sums[kCoefSums<DX>];
   backward_tiles<DX, DY, H>(r, s, s.idx_s, sl.lo, hi, dxres, sl.n, K, off_f, off_g, sfi, sgi, dsf,
-                            dsg, use_rng, seed0, seed1, b, t, sums);
+                            dsg, use_rng, seed0, seed1, b, t, sums, csum);
   // a cluster's CTAs leave their sums for rank 0, which writes the row
   float* part = s.part + (t & 1) * kCoefSums<DX>;
   if (tid == 0 && sl.C > 1) {
@@ -675,6 +719,13 @@ __device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s,
     }
   }
   if (sl.rank == 0 && tid == 0) write_coef_row<DX, DY>(r.d_coef, sums);
+  if (ctrl && sl.rank == 0) {  // the controls' columns: the slices' sums in rank order
+    for (int o = tid; o < 2 * H; o += kThreads) {
+      double v = csum[o];
+      for (int q = 1; q < sl.C; ++q) v += cg::this_cluster().map_shared_rank(csum, q)[o];
+      r.d_coef[3 * DX + DY + 1 + o] = static_cast<float>(v);
+    }
+  }
 
   // 10. scatter d x_res to the own ancestors j: a segmented sum over each run
   // of equal ancestors, in particle order, the run's particles read from the
@@ -765,7 +816,8 @@ __global__ void __launch_bounds__(kThreads, 1) scan_backward_kernel(const BwdArg
   const int C = a.cluster, rank = static_cast<int>(cg::this_cluster().block_rank());
   const int K = a.K, B = a.B, b = blockIdx.x / C, tid = threadIdx.x;
   const Slice sl{rank * (K / C), K / C, rank, C};
-  const BwdSmem s = carve_bwd<DX, DY, H>(smem, a.n_weights, K, sl.n, true, C);
+  const bool ctrl = a.ctrl != 0;
+  const BwdSmem s = carve_bwd<DX, DY, H>(smem, a.n_weights, K, sl.n, true, C, ctrl);
   float sfi[DX], sgi[DY];
   double dsf[DX], dsg[DY];
   bwd_prologue<DX, DY>(s, a.weights, a.sconst, a.n_weights, sfi, sgi, dsf, dsg);
@@ -773,7 +825,7 @@ __global__ void __launch_bounds__(kThreads, 1) scan_backward_kernel(const BwdArg
     const int d = e / sl.n, i = sl.lo + e % sl.n;
     s.carry[e] = a.d_x_last != nullptr ? a.d_x_last[((size_t)b * DX + d) * K + i] : 0.0f;
   }
-  constexpr int NC = 3 * DX + DY + 1;
+  const int NC = 3 * DX + DY + 1 + (ctrl ? 2 * H : 0);
 
   for (int t = a.T1 - 1; t >= 0; --t) {
     const size_t row = (size_t)t * B + b;
@@ -794,7 +846,7 @@ __global__ void __launch_bounds__(kThreads, 1) scan_backward_kernel(const BwdArg
         sl.n,
         sl.lo};
     backward_step<DX, DY, H>(r, s, sl, K, a.off_f, a.off_g, sfi, sgi, dsf, dsg, a.use_rng,
-                             a.seed0, a.seed1, b, t);
+                             a.seed0, a.seed1, b, t, ctrl);
   }
 
   for (int e = tid; e < DX * sl.n; e += kThreads) {
@@ -841,7 +893,8 @@ inline cudaError_t sum_rows(const float* partial, int rows, int n, float* grads,
 // cluster (step_slices.cuh; the host picks S, fused_step.step_slices): CTA
 // (b, r) runs the kP-particle tiles of its slice, writes the slice's d x_res
 // to the scratch dxres [B, DX, K], its d_coef sums to coef_part [B, S, 3·DX
-// + 1] and its weight and sconst partials to row b·S + r of `partial`. The
+// + 1 (+ 2H with controls)] and its weight and sconst partials to row b·S + r
+// of `partial`. The
 // row's last CTA to arrive scatters d x[j] = Σ_{i: idx_i = j} d x_res_i over
 // the whole row, reading d x_res from L2 in particle order with K4's
 // sequential adds, so d x is bit-equal for every S and to K4's d_x0 chain;
@@ -862,7 +915,7 @@ struct StepBwdArgs {
   const float* x_new;    // [B, DX, K]
   const int* idx;        // [B, K]: ancestors, nondecreasing in K
   const float* stats;    // [B, 2 + DX]: ℓ in column 0
-  const float* coef;     // [B, 3*DX + DY + 1]: aq, cq, sq, y, ab
+  const float* coef;     // [B, 3*DX + DY + 1 (+ 2H)]: aq, cq, sq, y, ab (, c_q1, c_f)
   const float* eps;      // [B, DX, K]
   const float* weights;  // q1 | f | g, fused_step.prepare's layout
   const float* sconst;   // [DX + DY]: 1/s_f, 1/s_g
@@ -870,12 +923,13 @@ struct StepBwdArgs {
   const float* d_x_new;  // [B, DX, K] or null
   const float* d_alpha;  // [B, K] or null
   float* d_x;            // [B, DX, K]
-  float* d_coef;         // [B, 3*DX + DY + 1]
+  float* d_coef;         // [B, 3*DX + DY + 1 (+ 2H)]
   float* dxres;          // [B, DX, K] scratch: d x_res of every particle
-  float* coef_part;      // [B, S, 3*DX + 1] scratch: the slices' d_coef sums
+  float* coef_part;      // [B, S, 3*DX + 1 (+ 2H)] scratch: the slices' d_coef sums
   float* partial;        // [B*S, n_weights + DX + DY]: per-CTA weight and sconst grads
   int* counter;          // [B]: arrivals per row, 0 between launches
   int B, K, n_weights, off_f, off_g;
+  int ctrl;              // 1: coef rows end in the controls' q1 and f first-layer terms [2H]
   int slices;            // S: CTAs per row, K % S == 0
 };
 
@@ -884,11 +938,13 @@ __global__ void __launch_bounds__(kThreads, 1) step_backward_kernel(const StepBw
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = a.slices, K = a.K, b = blockIdx.x / S, tid = threadIdx.x;
   const int n = K / S, lo = (blockIdx.x % S) * n;  // this CTA's particles [lo, lo + n)
-  const BwdSmem s = carve_bwd<DX, DY, H>(smem, a.n_weights, 0, 0, false, 1);
+  const bool ctrl = a.ctrl != 0;
+  const BwdSmem s = carve_bwd<DX, DY, H>(smem, a.n_weights, 0, 0, false, 1, ctrl);
   float sfi[DX], sgi[DY];
   double dsf[DX], dsg[DY];
   bwd_prologue<DX, DY>(s, a.weights, a.sconst, a.n_weights, sfi, sgi, dsf, dsg);
-  constexpr int NC = 3 * DX + DY + 1;
+  const int NC = 3 * DX + DY + 1 + (ctrl ? 2 * H : 0);
+  const int CS = kCoefSums<DX> + (ctrl ? 2 * H : 0);  // a slice's d_coef sums
   const size_t bx = (size_t)b * DX * K;
   const BwdRow r{a.x + bx,
                  a.x_new + bx,
@@ -908,15 +964,21 @@ __global__ void __launch_bounds__(kThreads, 1) step_backward_kernel(const StepBw
   float* dxres = a.dxres + bx;  // [DX][K]
   float sums[kCoefSums<DX>];
   __syncthreads();  // the weights are loaded
+  double* csum = ctrl ? s.csum : nullptr;
+  if (ctrl) load_control_bias<DX, DY, H>(s, r.coef, a.off_f, csum);
   backward_tiles<DX, DY, H>(r, s, r.idx, lo, lo + n, dxres + lo, K, K, a.off_f, a.off_g, sfi,
-                            sgi, dsf, dsg, false, 0u, 0u, b, 0, sums);
+                            sgi, dsf, dsg, false, 0u, 0u, b, 0, sums, csum);
   write_partial<DX, DY>(s, a.n_weights, dsf, dsg,
                         a.partial + (size_t)blockIdx.x * (a.n_weights + DX + DY));
-  const float* parts = a.coef_part + (size_t)b * S * kCoefSums<DX>;  // [S][3*DX + 1]
+  const float* parts = a.coef_part + (size_t)b * S * CS;  // [S][CS]
   if (tid == 0) {
 #pragma unroll
     for (int e = 0; e < kCoefSums<DX>; ++e)
-      a.coef_part[(size_t)blockIdx.x * kCoefSums<DX> + e] = sums[e];
+      a.coef_part[(size_t)blockIdx.x * CS + e] = sums[e];
+  }
+  if (ctrl) {  // write_partial's barriers ordered the tiles' csum sums before this
+    for (int o = tid; o < 2 * H; o += kThreads)
+      a.coef_part[(size_t)blockIdx.x * CS + kCoefSums<DX> + o] = static_cast<float>(csum[o]);
   }
   if (!last_to_arrive(a.counter + b, S)) return;
 
@@ -944,9 +1006,16 @@ __global__ void __launch_bounds__(kThreads, 1) step_backward_kernel(const StepBw
     for (int e = 0; e < kCoefSums<DX>; ++e) sums[e] = __ldcg(parts + e);
     for (int q = 1; q < S; ++q) {
 #pragma unroll
-      for (int e = 0; e < kCoefSums<DX>; ++e) sums[e] += __ldcg(parts + q * kCoefSums<DX> + e);
+      for (int e = 0; e < kCoefSums<DX>; ++e) sums[e] += __ldcg(parts + q * CS + e);
     }
     write_coef_row<DX, DY>(r.d_coef, sums);
+  }
+  if (ctrl) {  // the controls' columns, likewise
+    for (int o = tid; o < 2 * H; o += kThreads) {
+      float v = __ldcg(parts + kCoefSums<DX> + o);
+      for (int q = 1; q < S; ++q) v += __ldcg(parts + q * CS + kCoefSums<DX> + o);
+      r.d_coef[3 * DX + DY + 1 + o] = v;
+    }
   }
 }
 
@@ -979,13 +1048,13 @@ extern "C" int psvo_scan_backward(const float* x0, const float* x_all, const int
                                   const float* d_alpha_all, float* d_x0, float* d_coef,
                                   float* partial, float* grads, uint32_t seed0, uint32_t seed1,
                                   int use_rng, int B, int K, int T1, int dx, int dy, int hidden,
-                                  int n_mid, int n_weights, int off_f, int off_g, int cluster,
-                                  void* stream) {
+                                  int n_mid, int n_weights, int off_f, int off_g, int ctrl,
+                                  int cluster, void* stream) {
   const psvo::BwdArgs a{x0,      x_all,    idx,      stats,        coef,    eps,
                         weights, sconst,   d_stats,  d_x_last,     d_alpha_last,
                         d_x_all, d_alpha_all, d_x0,  d_coef,       partial, seed0,
                         seed1,   use_rng,  B,        K,            T1,      n_weights,
-                        off_f,   off_g,    cluster};
+                        off_f,   off_g,    ctrl,     cluster};
   if (n_mid != 1 || cluster < 1 || K % cluster != 0 ||
       (cluster > 1 && (K / cluster) % psvo::kP != 0))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -995,14 +1064,17 @@ extern "C" int psvo_scan_backward(const float* x0, const float* x_all, const int
     const int n = n_weights + D::DX + D::DY;
     cudaError_t err = psvo::launch_clusters(
         psvo::scan_backward_kernel<D::DX, D::DY, D::H>, a, B, cluster,
-        psvo::bwd_smem_bytes<D::DX, D::DY, D::H>(n_weights, K, K / cluster, true, cluster), s);
+        psvo::bwd_smem_bytes<D::DX, D::DY, D::H>(n_weights, K, K / cluster, true, cluster,
+                                                 ctrl != 0),
+        s);
     if (err != cudaSuccess) return err;
     return psvo::sum_rows(partial, B * cluster, n, grads, s);
   });
 }
 
 // K15 on `slices` CTAs per row; dxres [B, dx, K] and coef_part [B, slices,
-// 3·dx + 1] are scratch, counter [B] is 0 before the launch and after it.
+// 3·dx + 1 (+ 2·hidden with ctrl)] are scratch, counter [B] is 0 before the
+// launch and after it.
 extern "C" int psvo_step_backward(const float* x, const float* x_new, const int* idx,
                                   const float* stats, const float* coef, const float* eps,
                                   const float* weights, const float* sconst,
@@ -1010,11 +1082,12 @@ extern "C" int psvo_step_backward(const float* x, const float* x_new, const int*
                                   const float* d_alpha, float* d_x, float* d_coef, float* dxres,
                                   float* coef_part, float* partial, float* grads, int* counter,
                                   int B, int K, int dx, int dy, int hidden, int n_mid,
-                                  int n_weights, int off_f, int off_g, int slices, void* stream) {
+                                  int n_weights, int off_f, int off_g, int ctrl, int slices,
+                                  void* stream) {
   const psvo::StepBwdArgs a{x,       x_new,   idx,       stats,   coef,      eps,
                             weights, sconst,  d_stats,   d_x_new, d_alpha,   d_x,
                             d_coef,  dxres,   coef_part, partial, counter,   B,
-                            K,       n_weights, off_f,   off_g,   slices};
+                            K,       n_weights, off_f,   off_g,   ctrl,      slices};
   // the last CTA stages the row's K ancestors in its four [hidden][kPS] tiles
   if (n_mid != 1 || slices < 1 || K % slices != 0 || K > 4 * hidden * psvo::kPS)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1023,7 +1096,7 @@ extern "C" int psvo_step_backward(const float* x, const float* x_new, const int*
     using D = decltype(d);
     cudaError_t err = psvo::launch_slices(
         psvo::step_backward_kernel<D::DX, D::DY, D::H>, a, B, slices,
-        psvo::bwd_smem_bytes<D::DX, D::DY, D::H>(n_weights, 0, 0, false, 1), s);
+        psvo::bwd_smem_bytes<D::DX, D::DY, D::H>(n_weights, 0, 0, false, 1, ctrl != 0), s);
     if (err != cudaSuccess) return err;
     return psvo::sum_rows(partial, B * slices, n_weights + D::DX + D::DY, grads, s);
   });

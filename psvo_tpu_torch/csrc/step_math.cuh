@@ -1,4 +1,4 @@
-// The per-particle log-weight shared by the forward scan (scan_forward.cu)
+// The per-particle log-weight shared by the forward scan (scan_forward.cuh)
 // and its backward (scan_backward.cu), so that the backward's recompute of α
 // is the forward's own arithmetic and its −3e30 floor cut falls on exactly
 // the particles the forward floored.

@@ -1,4 +1,4 @@
-// K14 (scan_forward.cu) and K15 (scan_backward.cu) on S CTAs per trajectory
+// K14 (scan_forward.cuh) and K15 (scan_backward.cu) on S CTAs per trajectory
 // row, with no cluster: CTA b·S + r owns the particles [r·K/S, (r+1)·K/S) of
 // row b. The row's CTAs need not be resident together and never wait for one
 // another. Each writes its slice's results to device memory and arrives at

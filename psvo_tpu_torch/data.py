@@ -5,7 +5,10 @@ Simulate `n_train + n_test` trajectories of the true FHN, Lorenz-63 or
 Lorenz-96 model with process noise, observed through a linear Gaussian
 emission. Lorenz-63 starts near the attractor's centre; both Lorenz systems
 are run 500 noise-free steps onto the attractor before the first recorded
-step, as in the reference. The draws
+step, as in the reference. With data.di > 0 the simulator also draws iid
+N(0, 1) controls u_t [Di] and a fixed map b_ctrl = control_scale·N(0, 1)
+[Di, Dx] / √Di, and steps x_{t+1} = step(x_t) + u_t·b_ctrl + proc_scale·n,
+as the reference does. The draws
 come from a seeded `torch.Generator`, so a port dataset differs from a
 reference one of the same seed; `simulate_from_noise` takes the noise
 explicitly so the two simulators can be compared on the same draws. `save_dataset`/`load_dataset`
@@ -49,9 +52,14 @@ def emission_map(cfg: DataConfig, generator: torch.Generator):
     return torch.randn((cfg.dx, cfg.dy), generator=generator) / math.sqrt(cfg.dx)
 
 
-def simulate_from_noise(cfg: DataConfig, c_emit, x0_noise, proc_noise, obs_noise):
+def simulate_from_noise(cfg: DataConfig, c_emit, x0_noise, proc_noise, obs_noise,
+                        controls=None, b_ctrl=None):
     """Deterministic simulator: x0 noise [n, Dx], process noise [T, n, Dx],
-    observation noise [T, n, Dy] -> (hidden [n, T, Dx], obs [n, T, Dy])."""
+    observation noise [T, n, Dy] and, with data.di > 0, controls [T, n, Di]
+    and their map b_ctrl [Di, Dx] -> (hidden [n, T, Dx], obs [n, T, Dy])."""
+    if (controls is None) != (b_ctrl is None) or (controls is not None) != bool(cfg.di):
+        raise ValueError(f"simulate_from_noise: di={cfg.di} needs controls and b_ctrl "
+                         "together, and only then")
     stepper = dyn.make_stepper(cfg)
     offset = torch.tensor(_X0_OFFSET.get(cfg.datatype, (0.0,) * cfg.dx),
                           dtype=x0_noise.dtype, device=x0_noise.device)
@@ -60,35 +68,44 @@ def simulate_from_noise(cfg: DataConfig, c_emit, x0_noise, proc_noise, obs_noise
         x = stepper.step(x)
     xs, ys = [], []
     for t in range(cfg.t_steps):
-        x = stepper.step(x) + cfg.proc_scale * proc_noise[t]
+        x = stepper.step(x)
+        if controls is not None:
+            x = x + controls[t] @ b_ctrl
+        x = x + cfg.proc_scale * proc_noise[t]
         xs.append(x)
         ys.append(x @ c_emit + cfg.obs_scale * obs_noise[t])
     return torch.stack(xs, dim=1), torch.stack(ys, dim=1)
 
 
 def generate_dataset(cfg: DataConfig, seed: int) -> Dataset:
-    if cfg.di or cfg.emission not in ("linear_gaussian", "identity_gaussian"):
-        raise NotImplementedError(
-            "only uncontrolled Gaussian-emission datasets are ported"
-        )
+    if cfg.emission not in ("linear_gaussian", "identity_gaussian"):
+        raise NotImplementedError("only Gaussian-emission datasets are ported")
     gen = torch.Generator().manual_seed(seed)
     n = cfg.n_train + cfg.n_test
     c_emit = emission_map(cfg, gen)
     x0_noise = torch.randn((n, cfg.dx), generator=gen)
     proc = torch.randn((cfg.t_steps, n, cfg.dx), generator=gen)
     obs_noise = torch.randn((cfg.t_steps, n, cfg.dy), generator=gen)
-    hidden, obs = simulate_from_noise(cfg, c_emit, x0_noise, proc, obs_noise)
+    u = b_ctrl = None
+    if cfg.di:  # drawn after the rest, so an uncontrolled dataset keeps its draws
+        u = torch.randn((cfg.t_steps, n, cfg.di), generator=gen)
+        b_ctrl = cfg.control_scale * torch.randn((cfg.di, cfg.dx), generator=gen) / math.sqrt(cfg.di)
+    hidden, obs = simulate_from_noise(cfg, c_emit, x0_noise, proc, obs_noise, u, b_ctrl)
     if not bool(torch.isfinite(hidden).all()):
         raise ValueError(
             f"simulated {cfg.datatype} trajectories diverged (non-finite states); "
-            "reduce proc_scale or the integrator dt"
+            "reduce control_scale/proc_scale or the integrator dt"
         )
+    ctrl = None if u is None else u.transpose(0, 1)  # [n, T, Di]
     return Dataset(
         obs_train=obs[: cfg.n_train],
         obs_test=obs[cfg.n_train :],
         hidden_train=hidden[: cfg.n_train],
         hidden_test=hidden[cfg.n_train :],
         emission_matrix=c_emit,
+        controls_train=None if ctrl is None else ctrl[: cfg.n_train].contiguous(),
+        controls_test=None if ctrl is None else ctrl[cfg.n_train :].contiguous(),
+        control_matrix=b_ctrl,
     )
 
 

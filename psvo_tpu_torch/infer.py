@@ -2,7 +2,9 @@
 
 `filter_posterior` serves filtering means (and optionally the particle
 cloud) and `smooth_posterior` smoothed trajectories, by FFBSi or by SVO's
-learned backward proposal, for observations [B, T, Dy].
+learned backward proposal, for observations [B, T, Dy]. A model with
+controls (data.di > 0) needs its exogenous inputs, controls=[B, T, Di];
+both refuse a call that leaves them out, or passes them to a di = 0 model.
 """
 
 from __future__ import annotations
@@ -14,10 +16,23 @@ import torch
 
 from psvo_tpu_torch.config import Config
 from psvo_tpu_torch.models.ssm import SSM
-from psvo_tpu_torch.objectives import make_objective
+from psvo_tpu_torch.objectives import _controls_kw, make_objective
 from psvo_tpu_torch.smc import forward_filter
 from psvo_tpu_torch.train import filtered_means
 from psvo_tpu_torch.utils.rng import run_generator
+
+
+def _check_controls(ssm: SSM, controls) -> None:
+    """A di > 0 model inferred without its controls would silently run zeros
+    through q1 and f: a wrong posterior with no error. Refuse instead, and
+    refuse controls that a di = 0 model would never read."""
+    if ssm.di and controls is None:
+        raise ValueError(
+            f"model conditions on di={ssm.di} control inputs; pass "
+            "controls=[B, T, di] (the same exogenous inputs used in training)"
+        )
+    if not ssm.di and controls is not None:
+        raise ValueError("model has di=0: controls were passed but never used")
 
 
 @torch.no_grad()
@@ -30,19 +45,22 @@ def filter_posterior(
     return_particles: bool = False,
     encoder_inputs=None,
     noise: Optional[tuple] = None,
+    controls=None,
 ):
     """Filtering posterior: means [B, T, Dx]; with return_particles also the
     particles [B, T, K, Dx] and log-weights [B, T, K].
 
     Uses the config's particle count and resampling scheme; the generator
     defaults to the run's (seed + 17, on the device of ys). noise is the
-    filter's replay hook (smc.forward_filter).
+    filter's replay hook (smc.forward_filter). controls [B, T, Di] are
+    required when the model has di > 0, and refused when it has none.
     """
+    _check_controls(ssm, controls)
     if generator is None:
         generator = run_generator(cfg, 17, device=ys.device)
     fwd = forward_filter(
         ssm, generator, ys, cfg.smc, cache=return_particles,
-        encoder_inputs=encoder_inputs, noise=noise,
+        encoder_inputs=encoder_inputs, noise=noise, **_controls_kw(controls),
     )
     means = filtered_means(fwd)
     if return_particles:
@@ -61,6 +79,7 @@ def smooth_posterior(
     method: Optional[str] = None,
     encoder_inputs=None,
     noise: Optional[tuple] = None,
+    controls=None,
 ):
     """Smoothed posterior trajectories [B, M, T, Dx]: FFBSi over the forward
     support ("psvo", for any fitted model) or the learned backward proposal
@@ -68,8 +87,11 @@ def smooth_posterior(
     config's smoothing-particle count. method defaults to the config's
     objective when that is a smoothing one, else "psvo". The generator
     defaults to the run's (seed + 18, on the device of ys); noise is the
-    objective's replay hook (`objectives.make_objective`).
+    objective's replay hook (`objectives.make_objective`). controls as in
+    `filter_posterior`; smoothing with controls is not ported yet (the
+    objective raises NotImplementedError).
     """
+    _check_controls(ssm, controls)
     method = method or (cfg.smc.objective if cfg.smc.objective in ("svo", "psvo") else "psvo")
     if generator is None:
         generator = run_generator(cfg, 18, device=ys.device)
@@ -77,5 +99,5 @@ def smooth_posterior(
     run_cfg = dataclasses.replace(
         cfg, smc=dataclasses.replace(cfg.smc, objective=method, n_smoothing_particles=m)
     )
-    out = make_objective(ssm, run_cfg)(generator, ys, encoder_inputs, noise)
+    out = make_objective(ssm, run_cfg)(generator, ys, encoder_inputs, noise, controls)
     return out.smoothed.permute(1, 2, 0, 3)  # [T, B, M, Dx] -> [B, M, T, Dx]

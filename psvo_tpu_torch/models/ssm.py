@@ -10,9 +10,11 @@ log-joint of the smoothed paths.
 
 Ported: the diagonal-Gaussian model class of the FHN FIVO, Lorenz-63 PSVO
 and SVO, and Lorenz-96 FIVO slices, at any state width, with SVO's backward
-proposal q_b. Controls (di > 0), bootstrap proposals, known dynamics,
-full-covariance heads, Poisson/Dirac emissions and the SVO backward
-proposal's GRU raise NotImplementedError until their slices land.
+proposal q_b, and exogenous controls u_t [Di] (di > 0): q1 and f then
+condition on [x_{t−1}; u_t], their first layers [Dx + Di, H]; g, q0, q2 and
+q_b see no controls. Bootstrap proposals, known dynamics, full-covariance
+heads, Poisson/Dirac emissions and the SVO backward proposal's GRU raise
+NotImplementedError until their slices land.
 """
 
 from __future__ import annotations
@@ -46,7 +48,6 @@ class SSM(nn.Module):
         unported = [
             name
             for name, on in (
-                ("data.di > 0 (controls)", self.di > 0),
                 ("smc.use_bootstrap", self.use_bootstrap),
                 ("smc.transition='known'", self.transition_known),
                 ("smc.qb_rnn", self.qb_rnn),
@@ -66,8 +67,8 @@ class SSM(nn.Module):
 
         dx, dy, enc = self.dx, self.dy, self.enc_dim
         dims = {
-            "q0": (enc, dx), "q1": (dx, dx), "q2": (enc, dx),
-            "f": (dx, dx), "g": (dx, dy), "qb": (dx + dy, dx),
+            "q0": (enc, dx), "q1": (dx + self.di, dx), "q2": (enc, dx),
+            "f": (dx + self.di, dx), "g": (dx, dy), "qb": (dx + dy, dx),
         }
         self.heads = nn.ModuleDict(
             {k: networks.MLPHead(*dims[k], self.nets[k].hidden) for k in dims}
@@ -113,6 +114,31 @@ class SSM(nn.Module):
             self.heads[name].raw_scale, self.nets[name].sigma_min
         )
 
+    # -- control-input concat -------------------------------------------------
+
+    def _with_control(self, x, u):
+        """Feature-last [x; u]: x [..., Dx] with u either [B, Di] (broadcast
+        over the middle axes) or position-matched [..., Di]; zeros for u None.
+        x itself when di = 0."""
+        if not self.di:
+            return x
+        if u is None:
+            u = x.new_zeros((*x.shape[:-1], self.di))
+        elif not (u.dim() == x.dim() and u.shape[:-1] == x.shape[:-1]):
+            u = u.reshape(u.shape[0], *([1] * (x.dim() - 2)), self.di).expand(
+                *x.shape[:-1], self.di)
+        return torch.cat([x, u], dim=-1)
+
+    def _with_control_cm(self, x, u):
+        """Channel-major [x; u]: x [..., Dx, K], u [..., Di] (leading dims
+        broadcast) -> [..., Dx + Di, K]; zeros for u None. x itself when
+        di = 0."""
+        if not self.di:
+            return x
+        shape = (*x.shape[:-2], self.di, x.shape[-1])
+        u_b = x.new_zeros(shape) if u is None else u[..., :, None].expand(shape)
+        return torch.cat([x, u_b], dim=-2)
+
     # -- prior and proposals --------------------------------------------------
 
     def prior_params(self):
@@ -137,13 +163,15 @@ class SSM(nn.Module):
         it for all T at once, outside the time loop."""
         return self._mean_scale("q2", enc)
 
-    def step_heads_cm(self, x_prev, y_t=None, q2_ms=None):
-        """All per-step diagonal conditionals on x_prev [B, Dx, K]:
-        (mean_q, scale_q, mean_f, scale_f), each [B, Dx, K]. q2_ms supplies
-        the precomputed q2 (mean, scale) [B, Dx]; y_t is read only without it.
+    def step_heads_cm(self, x_prev, y_t=None, q2_ms=None, u=None):
+        """All per-step diagonal conditionals on x_prev [B, Dx, K] (and the
+        step's controls u [B, Di]): (mean_q, scale_q, mean_f, scale_f), each
+        [B, Dx, K]. q2_ms supplies the precomputed q2 (mean, scale) [B, Dx];
+        y_t is read only without it.
         """
-        m1, s1 = self._mean_scale_cm("q1", x_prev)
-        mean_f, scale_f = self._mean_scale_cm("f", x_prev)
+        x_in = self._with_control_cm(x_prev, u)
+        m1, s1 = self._mean_scale_cm("q1", x_in)
+        mean_f, scale_f = self._mean_scale_cm("f", x_in)
         if self.use_2q:
             m2, s2 = q2_ms if q2_ms is not None else self.q2_mean_scale(y_t)
             mean_q, scale_q = dist.mvn_product(m1, s1, m2[..., None], s2[..., None])
@@ -156,19 +184,21 @@ class SSM(nn.Module):
         mean, scale = self._mean_scale_cm("g", x)
         return dist.mvn_diag_log_prob_cm(y[..., :, None], mean, scale)
 
-    def transition_params_cm(self, x_prev):
-        """Diagonal transition: x_prev [..., Dx, K] -> (mean, scale) [..., Dx, K]."""
-        return self._mean_scale_cm("f", x_prev)
+    def transition_params_cm(self, x_prev, u=None):
+        """Diagonal transition: x_prev [..., Dx, K] (controls u [..., Di]) ->
+        (mean, scale) [..., Dx, K]."""
+        return self._mean_scale_cm("f", self._with_control_cm(x_prev, u))
 
     # -- feature-last (smoothed-path log-joint, k-step evaluation) ---------------
 
-    def transition_params(self, x_prev):
-        """Diagonal transition -> (mean, scale), feature-last."""
-        return self._mean_scale("f", x_prev)
+    def transition_params(self, x_prev, u=None):
+        """Diagonal transition -> (mean, scale), feature-last; u as in
+        `_with_control`."""
+        return self._mean_scale("f", self._with_control(x_prev, u))
 
-    def transition_log_prob(self, x_prev, x):
-        """log f(x | x_prev): [..., Dx] x [..., Dx] -> [...]."""
-        mean, scale = self.transition_params(x_prev)
+    def transition_log_prob(self, x_prev, x, u=None):
+        """log f(x | x_prev[, u]): [..., Dx] x [..., Dx] -> [...]."""
+        mean, scale = self.transition_params(x_prev, u)
         return dist.mvn_diag_log_prob(x, mean, scale)
 
     def emission_log_prob(self, x, y):
@@ -176,9 +206,10 @@ class SSM(nn.Module):
         mean, scale = self._mean_scale("g", x)
         return dist.mvn_diag_log_prob(y, mean, scale)
 
-    def transition_mean(self, x_prev):
-        """Mean next state [..., Dx] — k-step prediction rollouts."""
-        return self._mean_scale("f", x_prev)[0]
+    def transition_mean(self, x_prev, u=None):
+        """Mean next state [..., Dx] — k-step prediction rollouts; u as in
+        `_with_control`."""
+        return self.transition_params(x_prev, u)[0]
 
     def emission_mean(self, x):
         """Mean observation ŷ(x) [..., Dy]."""

@@ -16,6 +16,10 @@ with the learned proposal q_b and trains on
 lse_m(log p(x̃^m, y) − log q(x̃^m)) − log M, q's last term being the
 filter-density surrogate ρ_T (the reference's module docstring).
 
+Controls [B, T, Di] (data.di > 0) reach IWAE and FIVO through the filter
+(`smc.forward_filter`); PSVO and SVO with controls raise NotImplementedError
+until their support terms and sweeps take them.
+
 The FFBSi sweep is `ops.ffbsi.FFBSiSweep`: the CUDA kernels K5/K6 for CUDA
 tensors, their plain versions for CPU tensors; SVO's sweep likewise
 `ops.svo.SVOSweep` (K12/K13), and outside `ops.svo.usable` the reference's
@@ -195,8 +199,15 @@ def _gumbel(generator, shape):
     return u.clamp_(min=torch.finfo(u.dtype).tiny).log_().neg_().log_().neg_()
 
 
+def _controls_kw(controls) -> dict:
+    """forward_filter's controls= only when there are some: an uncontrolled
+    call keeps the filter's call as it was."""
+    return {} if controls is None else {"controls": controls}
+
+
 def make_objective(ssm: SSM, cfg: Config):
-    """Return objective(generator, ys, encoder_inputs=None, noise=None).
+    """Return objective(generator, ys, encoder_inputs=None, noise=None,
+    controls=None); controls [B, T, Di] are a di > 0 model's exogenous inputs.
 
     noise is the testing hook: the filter's draws (eps0, eps_scan, u_scan)
     (`smc.forward_filter`), and for PSVO also the backward Gumbels
@@ -221,12 +232,17 @@ def make_objective(ssm: SSM, cfg: Config):
     if smc_cfg.objective == "psvo" and smc_cfg.ffbsi_segments > 1:
         raise NotImplementedError("smc.ffbsi_segments > 1 (segmented long-T PSVO) is not ported yet")
     smoothing = smc_cfg.objective in ("svo", "psvo")
+    if smoothing and ssm.di:
+        raise NotImplementedError(
+            f"{smc_cfg.objective} with controls (data.di > 0) is not ported yet: its support "
+            "terms and backward sweep take no controls")
     m = smc_cfg.n_smoothing_particles
 
-    def objective(generator, ys, encoder_inputs=None, noise=None) -> ObjectiveOutput:
+    def objective(generator, ys, encoder_inputs=None, noise=None,
+                  controls=None) -> ObjectiveOutput:
         fwd = forward_filter(
             ssm, generator, ys, smc_cfg, cache=smoothing, encoder_inputs=encoder_inputs,
-            noise=None if noise is None else tuple(noise[:3]),
+            noise=None if noise is None else tuple(noise[:3]), **_controls_kw(controls),
         )
         metrics = {
             "log_z_fwd": torch.mean(fwd.log_z),

@@ -35,11 +35,12 @@ _I = ctypes.c_int
 _U32 = ctypes.c_uint32
 # argtypes of each C entry point; every pointer and the stream are c_void_p
 SIGNATURES = {
-    # K1 and K4 end in (..., off_f, off_g, cluster, stream): C CTAs per row
-    "psvo_scan_forward": [_P] * 13 + [_U32, _U32] + [_I] * 12 + [_P],
-    "psvo_scan_backward": [_P] * 17 + [_U32, _U32] + [_I] * 12 + [_P],
-    # (kernel: 0 K1, 1 K4; dx, dy, hidden, cluster, smem bytes; int* out)
-    "psvo_max_active_clusters": [_I] * 6 + [_P],
+    # K1 and K4 end in (..., off_f, off_g, ctrl, cluster, stream): ctrl 1 when the coef
+    # rows carry the controls' first-layer terms, C CTAs per row
+    "psvo_scan_forward": [_P] * 13 + [_U32, _U32] + [_I] * 13 + [_P],
+    "psvo_scan_backward": [_P] * 17 + [_U32, _U32] + [_I] * 13 + [_P],
+    # (kernel: 0 K1, 1 K4; dx, dy, hidden, ctrl, cluster, smem bytes; int* out)
+    "psvo_max_active_clusters": [_I] * 7 + [_P],
     # K2 ends in (..., K, design, stream): 0 the pair design, 1 the particle one
     "psvo_stream_noise": [_P, _P, _U32, _U32, _I, _I, _I, _I, _I, _P],
     "psvo_ancestor_indices": [_P, _P, _P, _I, _I, _P],
@@ -59,11 +60,11 @@ SIGNATURES = {
     "psvo_svo_forward": [_P] * 9 + [_I] * 14 + [_P],
     # K13 ends in (..., max_ctas, design, tile_rows, paths, stream): 0 the split design, 1 the chain
     "psvo_svo_backward": [_P] * 13 + [_I] * 14 + [_P],
-    # K14 and K15: (..., counter, B, ..., off_g, slices, stream): S CTAs per row
-    "psvo_step_forward": [_P] * 12 + [_I] * 10 + [_P],
-    "psvo_step_backward": [_P] * 18 + [_I] * 10 + [_P],
-    # (kernel: 0 K14, 1 K15; dx, dy, hidden, smem bytes; int* out)
-    "psvo_step_max_active": [_I] * 5 + [_P],
+    # K14 and K15: (..., counter, B, ..., off_g, ctrl, slices, stream): S CTAs per row
+    "psvo_step_forward": [_P] * 12 + [_I] * 11 + [_P],
+    "psvo_step_backward": [_P] * 18 + [_I] * 11 + [_P],
+    # (kernel: 0 K14, 1 K15; dx, dy, hidden, ctrl, smem bytes; int* out)
+    "psvo_step_max_active": [_I] * 6 + [_P],
 }
 
 def sources() -> list[Path]:

@@ -69,6 +69,21 @@ a boundary.
 every K-independent constant in ab, floored at −3e30; the plain body floors
 each density at `_MIN_LOGP` = −1e30. They differ only on diverged particles.
 
+Controls (data.di > 0). The reference carries u_t as extra rows of every
+particle's state (`pallas_step._fused_preamble`), the 8-sublane tile's free
+rows. Here u_t, the same for all K particles of a row, is folded into a
+per-(t, row) first-layer bias instead: `control_term` computes
+c = u_t·W_u for q1 and f (W_u the layer-1 rows Dx .. Dx + Di, `prepare`'s
+"ctrl_w") as one [T−1, B, Di] × [Di, 2H] product outside any kernel, and
+`pack_coef` appends it to the step's coefficient row. K1 and K14 start that
+layer's accumulator from b + c, K4 and K15 write Σ_k of its pre-activation
+cotangent into the row's d_coef columns, and autograd through the product
+gives W_u its gradient (and u none). The particle state stays [B, Dx, K]
+and the packed weights hold W1's first Dx rows. K1 and K14 are built
+both ways (a template flag: a run-time one slowed K14 without controls) and
+K4 and K15 once (a run-time `ctrl`), so every (Dx, Dy) in `KERNEL_DIMS` takes
+controls while Dx + Di <= 7; di = 0 runs the unchanged code.
+
 Not ported: the ones-channel bias folding and the PD = 8 / HA = H+8 padding
 of `aug_net`/`pack_sm`, which existed for the TPU's matrix unit and Mosaic;
 `prepare` hands the kernels plain weights and biases.
@@ -88,6 +103,7 @@ from psvo_tpu_torch.ops.resampling import gather_particles
 MAX_K = 4096  # shared memory: fp64 CDF + 2x particles + 2x log-weights + weights
 HIDDEN_WIDTHS = (16, 32, 64)  # trunk widths the kernel is instantiated for
 KERNEL_DIMS = ((2, 2), (3, 3))  # (Dx, Dy) instantiated: FitzHugh-Nagumo, Lorenz-63
+MAX_STATE_AND_CONTROLS = 7  # Dx + Di at most: the reference's gate (pallas_step.usable)
 _THREADS = 256
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper (227 KB)
 SCAN_FUSED = True  # False: the filter runs one K14 launch per step (K15 per step backward)
@@ -100,7 +116,8 @@ _K14, _K15 = 0, 1  # psvo_step_max_active's kernel argument
 
 
 def usable(ssm, cfg) -> bool:
-    """Whether (ssm, smc-config) is in the kernel's class."""
+    """Whether (ssm, smc-config) is in the kernel's class; with controls
+    (ssm.di > 0) while Dx + Di <= 7."""
     k = cfg.n_particles
     hidden = ssm.nets["q1"].hidden
     nets = [ssm.nets[n] for n in ("q1", "f", "g")]
@@ -109,6 +126,7 @@ def usable(ssm, cfg) -> bool:
         and cfg.ess_threshold >= 1.0
         and cfg.use_stop_gradient
         and (ssm.dx, ssm.dy) in KERNEL_DIMS
+        and ssm.dx + ssm.di <= MAX_STATE_AND_CONTROLS
         and _k_ok(k)
         and len(hidden) >= 1
         and hidden[0] in HIDDEN_WIDTHS
@@ -132,14 +150,21 @@ def prepare(ssm) -> dict:
     float32 buffer, the inverse f/g scales and the log-scale sums.
 
     Buffer layout, per net (q1, f, g), each segment padded to a multiple of
-    4 floats: W1 [Din, H], b1 [H], then per middle layer Wm [H, H], bm [H],
+    4 floats: W1 [Dx, H], b1 [H], then per middle layer Wm [H, H], bm [H],
     then W3 [H, Dout], b3 [Dout] — weights as the reference stores them
     (x @ W + b). `scan_forward_reference` reads the weights back out of this
     buffer, so the layout the kernel reads is the one the CPU tests check.
+    With controls (di > 0) the buffer holds the first Dx rows of q1's and f's
+    W1, and "ctrl_w" [Di, 2H] their remaining rows, q1's then f's
+    (`control_term`).
     """
     hidden = ssm.nets["q1"].hidden
-    packed, offsets = pack_heads(ssm, ("q1", "f", "g"))
+    dx = ssm.dx
+    packed, offsets = pack_heads(ssm, ("q1", "f", "g"), first_rows=dx)
     s_f, s_g = ssm.scale("f"), ssm.scale("g")
+    ctrl_w = None
+    if ssm.di:
+        ctrl_w = torch.cat([ssm.heads[n].weights[0][dx:] for n in ("q1", "f")], dim=1)
     return {
         "packed": packed,
         "offsets": offsets,
@@ -147,6 +172,8 @@ def prepare(ssm) -> dict:
         "n_mid": len(hidden) - 1,
         "dx": ssm.dx,
         "dy": ssm.dy,
+        "di": ssm.di,
+        "ctrl_w": ctrl_w,
         "sconst": torch.cat([1.0 / s_f, 1.0 / s_g]).contiguous(),
         "s_q1": ssm.scale("q1"),
         "log_sf_sum": torch.sum(torch.log(s_f)),
@@ -154,14 +181,18 @@ def prepare(ssm) -> dict:
     }
 
 
-def pack_heads(ssm, names):
+def pack_heads(ssm, names, first_rows=None):
     """The heads `names` packed into one contiguous float32 buffer in
     `prepare`'s per-net layout, each segment padded to a multiple of 4
-    floats; returns (packed, the segments' offsets)."""
+    floats; returns (packed, the segments' offsets). With first_rows, only
+    that many rows of each first-layer weight."""
     segs, offsets, off = [], [], 0
     for name in names:
         head = ssm.heads[name]
-        parts = [t.reshape(-1) for w, b in head.layers() for t in (w, b)]
+        layers = head.layers()
+        if first_rows is not None:
+            layers[0] = (layers[0][0][:first_rows], layers[0][1])
+        parts = [t.reshape(-1) for w, b in layers for t in (w, b)]
         parts += [head.mean_w.reshape(-1), head.mean_b]
         flat = torch.cat(parts)
         pad = (-flat.numel()) % 4
@@ -194,10 +225,27 @@ def fusion_coeffs(ssm, cfg, consts, enc_tm):
     return aq, cq, sq, torch.sum(torch.log(sq), dim=-1)
 
 
-def pack_coef(aq, cq, sq, y, ab):
+def control_term(consts, ctrl):
+    """The controls' part of q1's and f's first layer for each (t, row):
+    ctrl [T−1, B, Di] @ ctrl_w [Di, 2H] -> [T−1, B, 2H], q1's H then f's. One
+    plain product outside any kernel; the controls are data and get no
+    gradient."""
+    return torch.matmul(ctrl, consts["ctrl_w"])
+
+
+def coef_width(consts) -> int:
+    """Columns of a pack_coef row: 3·Dx + Dy + 1, and 2H more with controls."""
+    return 3 * consts["dx"] + consts["dy"] + 1 + 2 * consts["hidden"] * _ctrl(consts)
+
+
+def pack_coef(aq, cq, sq, y, ab, ctrl_bias=None):
     """Per-step small operands of K1 as one [T−1, B, 3·Dx + Dy + 1] tensor:
-    aq, cq, sq, y, then the K-independent α bias ab."""
-    return torch.cat([aq, cq, sq, y, ab[..., None]], dim=-1).contiguous()
+    aq, cq, sq, y, then the K-independent α bias ab; with controls also
+    ctrl_bias [T−1, B, 2H] (`control_term`), [T−1, B, 3·Dx + Dy + 1 + 2H]."""
+    parts = [aq, cq, sq, y, ab[..., None]]
+    if ctrl_bias is not None:
+        parts.append(ctrl_bias)
+    return torch.cat(parts, dim=-1).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -391,10 +439,13 @@ def cluster_size(batch: int, k: int, min_slice: int, max_active: dict) -> int:
 
 def k1_smem_bytes(consts, k: int) -> int:
     """Dynamic shared memory of one K1 CTA, any C
-    (csrc/scan_forward.cu::fwd_smem_bytes): the fp64 CDF [K], the weights, the
-    particles [2][Dx][K], the log-weights [2][K] and the reduction scratch."""
+    (csrc/scan_forward.cuh::fwd_smem_bytes): the fp64 CDF [K], the weights, the
+    particles [2][Dx][K], the log-weights [2][K], the reduction scratch and,
+    with controls, the step's first-layer biases of q1 and f [2H]."""
     warps = _THREADS // 32
-    return 8 * (k + warps) + 4 * (consts["packed"].numel() + 2 * consts["dx"] * k + 2 * k + warps)
+    cb = 2 * consts["hidden"] * _ctrl(consts)
+    return 8 * (k + warps) + 4 * (consts["packed"].numel() + 2 * consts["dx"] * k + 2 * k + warps
+                                  + cb)
 
 
 def max_active_clusters(kernel: int, device, consts, k: int) -> dict:
@@ -405,17 +456,17 @@ def max_active_clusters(kernel: int, device, consts, k: int) -> dict:
     smem = tuple((k1_smem_bytes(consts, k) if kernel == _K1 else k4_smem_bytes(consts, k, c))
                  if k % c == 0 else SMEM_LIMIT + 1 for c in CLUSTER_SIZES)
     return _max_active(kernel, torch.device(device).index, consts["dx"], consts["dy"],
-                       consts["hidden"], smem)
+                       consts["hidden"], _ctrl(consts), smem)
 
 
 @functools.cache
-def _max_active(kernel, device_index, dx, dy, hidden, smem):
+def _max_active(kernel, device_index, dx, dy, hidden, ctrl, smem):
     lib = _build.load_library()
     out = {}
     for c, nbytes in zip(CLUSTER_SIZES, smem):
         n = ctypes.c_int(0)
         if nbytes <= SMEM_LIMIT:
-            err = lib.psvo_max_active_clusters(kernel, dx, dy, hidden, c, nbytes,
+            err = lib.psvo_max_active_clusters(kernel, dx, dy, hidden, ctrl, c, nbytes,
                                                ctypes.addressof(n))
             _build.check(lib, err, "max_active_clusters")
         out[c] = n.value
@@ -456,12 +507,14 @@ def _unpack_net(packed, offset: int, din: int, h: int, n_mid: int, dout: int):
     return layers, (take(h, dout), take(dout))
 
 
-def _trunk_cm(net, x):
-    """relu MLP mean on channel-major x [B, Din, K] -> [B, Dout, K]."""
+def _trunk_cm(net, x, cb=None):
+    """relu MLP mean on channel-major x [B, Din, K] -> [B, Dout, K]; cb
+    [B, H] adds to the first layer's bias (the controls' term)."""
     layers, (w3, b3) = net
     h = x
-    for w, b in layers:
-        h = torch.relu(torch.einsum("de,bdk->bek", w, h) + b[:, None])
+    for i, (w, b) in enumerate(layers):
+        bias = b[:, None] if i or cb is None else (b + cb)[:, :, None]
+        h = torch.relu(torch.einsum("de,bdk->bek", w, h) + bias)
     return torch.einsum("de,bdk->bek", w3, h) + b3[:, None]
 
 
@@ -469,7 +522,7 @@ def scan_forward_reference(x0, alpha0, coef, consts, eps, positions, cache: bool
                            save_res: bool = False):
     """Plain version of K1: the same step math as a loop over t (stream mode).
 
-    x0 [B, Dx, K], alpha0 [B, K], coef [T−1, B, 3·Dx + Dy + 1] (pack_coef),
+    x0 [B, Dx, K], alpha0 [B, K], coef [T−1, B, coef_width] (pack_coef),
     eps [T−1, B, Dx, K], positions [T−1, B, K]. Returns (x_last, alpha_last,
     stats [T−1, B, 2 + Dx] = (ℓ, ESS, filtered mean), x_all, alpha_all, idx):
     x_all [T−1, B, Dx, K] (x_new per step) is None unless `cache` or
@@ -503,17 +556,15 @@ def _filter_step(nets, consts, x, lw, c, e, pos):
     """One step of the plain versions of K1 and K14: ESS of the incoming
     weights, the ancestors, the draw, α floored at −3e30, ℓ and the filtered
     mean. Returns (x_new, alpha, stats [B, 2 + Dx], idx)."""
-    dx, dy = consts["dx"], consts["dy"]
+    dx = consts["dx"]
     q1, f, g = nets
-    aq, cq, sq = (c[:, i * dx : (i + 1) * dx, None] for i in range(3))
-    y = c[:, 3 * dx : 3 * dx + dy, None]
-    ab = c[:, -1:]
+    aq, cq, sq, y, ab, cb = _split_coef(c, consts)
     # ESS of the incoming weights, then resample
     w = torch.exp(lw - torch.amax(lw, dim=-1, keepdim=True))
     ess = torch.sum(w, -1) ** 2 / torch.clamp(torch.sum(w * w, -1), min=1e-30)
     idx = count_form_indices(lw, pos)
     x_new, alpha = _propose_weight(q1, f, g, gather_particles(x, idx), e, aq, cq, sq, y, ab,
-                                   consts["sconst"][:dx, None], consts["sconst"][dx:, None])
+                                   consts["sconst"][:dx, None], consts["sconst"][dx:, None], cb=cb)
     alpha = torch.clamp(alpha, min=-3e30)
     # logZ increment and filtered mean
     amax = torch.amax(alpha, dim=-1, keepdim=True)
@@ -522,6 +573,19 @@ def _filter_step(nets, consts, x, lw, c, e, pos):
     ell = torch.log(sw) + amax - math.log(x.shape[-1])
     fm = torch.einsum("bk,bdk->bd", w_new, x_new) / sw
     return x_new, alpha, torch.cat([ell, ess[:, None], fm], dim=-1), idx
+
+
+def _split_coef(c, consts):
+    """One step's pack_coef row c [B, coef_width] as aq, cq, sq [B, Dx, 1],
+    y [B, Dy, 1], ab [B, 1] and the controls' first-layer terms (q1's and
+    f's [B, H] each, or None without controls)."""
+    dx, dy, h = consts["dx"], consts["dy"], consts["hidden"]
+    aq, cq, sq = (c[:, i * dx : (i + 1) * dx, None] for i in range(3))
+    n0 = 3 * dx + dy
+    cb = None
+    if _ctrl(consts):
+        cb = (c[:, n0 + 1 : n0 + 1 + h], c[:, n0 + 1 + h : n0 + 1 + 2 * h])
+    return aq, cq, sq, c[:, 3 * dx : n0, None], c[:, n0 : n0 + 1], cb
 
 
 def _unpack_nets(consts):
@@ -534,11 +598,13 @@ def _unpack_nets(consts):
             _unpack_net(packed, off_g, dx, h, n_mid, dy))
 
 
-def _propose_weight(q1, f, g, x_res, e, aq, cq, sq, y, ab, sfi, sgi, x_new_value=None):
+def _propose_weight(q1, f, g, x_res, e, aq, cq, sq, y, ab, sfi, sgi, x_new_value=None, cb=None):
     """One step after the resample: the fused draw and the unfloored α. With
     x_new_value the draw takes that value (a kernel's saved output) and keeps
-    its gradient to m1, aq, cq and sq."""
-    m1, m_f = _trunk_cm(q1, x_res), _trunk_cm(f, x_res)
+    its gradient to m1, aq, cq and sq. cb: the controls' first-layer terms
+    of q1 and f ([B, H] each), or None."""
+    cb_q1, cb_f = (None, None) if cb is None else cb
+    m1, m_f = _trunk_cm(q1, x_res, cb_q1), _trunk_cm(f, x_res, cb_f)
     x_new = cq * m1 + aq + sq * e
     if x_new_value is not None:
         x_new = x_new_value + (x_new - x_new.detach())
@@ -561,6 +627,12 @@ def _require(t, shape, name, device, dtype=torch.float32):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _ctrl(consts) -> int:
+    """The C entry points' ctrl flag: 1 when the coef rows carry the
+    controls' first-layer terms (di > 0)."""
+    return int(bool(consts.get("di")))
 
 
 def scan_forward(x0, alpha0, coef, consts, *, eps=None, positions=None, seed=None,
@@ -618,7 +690,7 @@ def _launch_scan_forward(x0, alpha0, coef, consts, eps, positions, seed, cache, 
     cluster = _pick_cluster("scan_forward", _K1, x0, consts, cluster)
     _require(x0, (batch, dx, k), "x0", dev)
     _require(alpha0, (batch, k), "alpha0", dev)
-    _require(coef, (t_len, batch, 3 * dx + dy + 1), "coef", dev)
+    _require(coef, (t_len, batch, coef_width(consts)), "coef", dev)
     _require(consts["packed"], consts["packed"].shape, "weights", dev)
     _require(consts["sconst"], (dx + dy,), "sconst", dev)
     if seed is None:
@@ -641,7 +713,7 @@ def _launch_scan_forward(x0, alpha0, coef, consts, eps, positions, seed, cache, 
         x_last.data_ptr(), alpha_last.data_ptr(), stats.data_ptr(),
         _ptr(x_all), _ptr(alpha_all), _ptr(idx),
         seed0, seed1, int(seed is not None), batch, k, t_len, dx, dy, h, n_mid,
-        consts["packed"].numel(), off_f, off_g, cluster, stream,
+        consts["packed"].numel(), off_f, off_g, _ctrl(consts), cluster, stream,
     )
     scan_forward.launches += 1
     scan_forward.last_cluster = cluster
@@ -668,11 +740,12 @@ def scan_backward_reference(x0, coef, consts, eps, idx, d_stats, d_x_last=None,
       columns 1 and up), as `_propose_weight_bwd_core` reads only the ℓ lane;
     - none for α0 (it reaches the scan only through resampling and ESS), for
       ε, the positions and the seed, or for the observations y (coef columns
-      3·Dx .. 3·Dx + Dy get zero);
+      3·Dx .. 3·Dx + Dy get zero); with controls the last 2H coef columns
+      get Σ_k of q1's and f's first-layer pre-activation cotangents;
     - the α cotangent is cut where the unfloored α < −3e30 (the gradient of
       torch.clamp).
     Missing cotangents (None) are zero. Returns (d_x0, d_coef [T−1, B,
-    3·Dx + Dy + 1], d_packed, d_sconst).
+    coef_width], d_packed, d_sconst).
     """
     scan_backward_reference.calls += 1
     return _replay_backward(x0, coef, consts, eps, idx, d_stats, d_x_last, d_alpha_last,
@@ -685,7 +758,7 @@ scan_backward_reference.calls = 0
 def _replay_backward(x0, coef, consts, eps, idx, d_stats, d_x_last=None, d_alpha_last=None,
                      d_x_all=None, d_alpha_all=None):
     """The plain versions of K4 and K15: scan_backward_reference's replay."""
-    dx, dy = consts["dx"], consts["dy"]
+    dx = consts["dx"]
     k = x0.shape[-1]
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in
@@ -695,11 +768,9 @@ def _replay_backward(x0, coef, consts, eps, idx, d_stats, d_x_last=None, d_alpha
         sfi, sgi = sconst[:dx, None], sconst[dx:, None]
         x, ells, xs, alphas = x0_, [], [], []
         for t in range(coef.shape[0]):
-            c = coef_[t]
-            aq, cq, sq = (c[:, i * dx : (i + 1) * dx, None] for i in range(3))
-            y = c[:, 3 * dx : 3 * dx + dy, None].detach()
+            aq, cq, sq, y, ab, cb = _split_coef(coef_[t], consts)
             x_new, alpha = _propose_weight(q1, f, g, gather_particles(x, idx[t]), eps[t],
-                                           aq, cq, sq, y, c[:, -1:], sfi, sgi)
+                                           aq, cq, sq, y.detach(), ab, sfi, sgi, cb=cb)
             alpha = torch.clamp(alpha, min=-3e30)
             ells.append(torch.logsumexp(alpha, dim=-1) - math.log(k))
             xs.append(x_new)
@@ -718,13 +789,16 @@ def k4_smem_bytes(consts, k: int, cluster: int = 1) -> int:
     sums, four [H][68] activation tiles, the [9·Dx + 2·Dy][68] tile arrays,
     the carry and d x_res of the slice [Dx][K/C] (d x_res twice and the
     slice's 3·Dx + 1 d_coef sums twice at C > 1), the reduction scratch and
-    the int32 ancestors of the row [K]."""
+    the int32 ancestors of the row [K]; with controls also the step's
+    first-layer biases of q1 and f [2H] and their fp64 cotangent sums
+    [2][2H]."""
     dx, dy, h = consts["dx"], consts["dy"], consts["hidden"]
     n_w = consts["packed"].numel()
     n = k // cluster
     slices = (3 * dx * n + 2 * (3 * dx + 1)) if cluster > 1 else 2 * dx * n
-    floats = 2 * n_w + 4 * h * 68 + (9 * dx + 2 * dy) * 68 + slices + _THREADS // 32
-    return 4 * floats + 4 * k
+    floats = (2 * n_w + 4 * h * 68 + (9 * dx + 2 * dy) * 68 + slices + _THREADS // 32
+              + 2 * h * _ctrl(consts))
+    return 4 * floats + 4 * k + 8 * 4 * h * _ctrl(consts)
 
 
 def _k4_ok(consts, k: int, cluster: int = 1) -> bool:
@@ -798,7 +872,7 @@ def _launch_scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last
     _require(x_all, (t_len, batch, dx, k), "x_all", dev)
     _require(idx, (t_len, batch, k), "idx", dev, torch.int32)
     _require(stats, (t_len, batch, 2 + dx), "stats", dev)
-    _require(coef, (t_len, batch, 3 * dx + dy + 1), "coef", dev)
+    _require(coef, (t_len, batch, coef_width(consts)), "coef", dev)
     _require(consts["packed"], consts["packed"].shape, "weights", dev)
     _require(consts["sconst"], (dx + dy,), "sconst", dev)
     _require(d_stats, stats.shape, "d_stats", dev)
@@ -824,7 +898,7 @@ def _launch_scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last
         d_stats.data_ptr(), _ptr(d_x_last), _ptr(d_alpha_last), _ptr(d_x_all),
         _ptr(d_alpha_all), d_x0.data_ptr(), d_coef.data_ptr(), partial.data_ptr(),
         grads.data_ptr(), seed0, seed1, int(seed is not None), batch, k, t_len, dx, dy,
-        consts["hidden"], consts["n_mid"], n_w, off_f, off_g, cluster, stream,
+        consts["hidden"], consts["n_mid"], n_w, off_f, off_g, _ctrl(consts), cluster, stream,
     )
     scan_backward.launches += 1
     scan_backward.last_cluster = cluster
@@ -895,7 +969,7 @@ class ScanForward(torch.autograd.Function):
 def step_forward_reference(x, logw, coef, consts, eps, positions):
     """Plain version of K14: one iteration of `scan_forward_reference`'s loop.
 
-    x [B, Dx, K] and logw [B, K] of step t−1, coef [B, 3·Dx + Dy + 1] of step
+    x [B, Dx, K] and logw [B, K] of step t−1, coef [B, coef_width] of step
     t (pack_coef's layout), eps [B, Dx, K], positions [B, K]. Returns (x_new,
     alpha, stats [B, 2 + Dx] = (ℓ, ESS, filtered mean), idx int32 [B, K]).
     """
@@ -929,15 +1003,15 @@ def resident_ctas(kernel: int, device, consts, k: int) -> int:
     (`psvo_step_max_active`). Cached per (device, kernel, shape)."""
     smem = k1_smem_bytes(consts, k) if kernel == _K14 else k15_smem_bytes(consts)
     return _resident(kernel, torch.device(device).index, consts["dx"], consts["dy"],
-                     consts["hidden"], smem)
+                     consts["hidden"], _ctrl(consts), smem)
 
 
 @functools.cache
-def _resident(kernel, device_index, dx, dy, hidden, smem):
+def _resident(kernel, device_index, dx, dy, hidden, ctrl, smem):
     lib = _build.load_library()
     n = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        err = lib.psvo_step_max_active(kernel, dx, dy, hidden, smem, ctypes.addressof(n))
+        err = lib.psvo_step_max_active(kernel, dx, dy, hidden, ctrl, smem, ctypes.addressof(n))
     _build.check(lib, err, "step_max_active")
     return n.value
 
@@ -1005,7 +1079,7 @@ def _launch_step_forward(x, logw, coef, consts, eps, positions, slices, stream):
     slices = _pick_slices("step_forward", _K14, x, consts, slices)
     _require(x, (batch, dx, k), "x", dev)
     _require(logw, (batch, k), "logw", dev)
-    _require(coef, (batch, 3 * dx + dy + 1), "coef", dev)
+    _require(coef, (batch, coef_width(consts)), "coef", dev)
     _require(eps, (batch, dx, k), "eps", dev)
     _require(positions, (batch, k), "positions", dev)
     _require(consts["packed"], consts["packed"].shape, "weights", dev)
@@ -1022,7 +1096,8 @@ def _launch_step_forward(x, logw, coef, consts, eps, positions, slices, stream):
         x.data_ptr(), logw.data_ptr(), coef.data_ptr(), eps.data_ptr(), positions.data_ptr(),
         consts["packed"].data_ptr(), consts["sconst"].data_ptr(), x_new.data_ptr(),
         alpha.data_ptr(), stats.data_ptr(), idx.data_ptr(), counters.data_ptr(), batch, k, dx,
-        dy, h, consts["n_mid"], consts["packed"].numel(), off_f, off_g, slices, stream,
+        dy, h, consts["n_mid"], consts["packed"].numel(), off_f, off_g, _ctrl(consts), slices,
+        stream,
     )
     step_forward.launches += 1
     step_forward.last_slices = slices
@@ -1036,7 +1111,7 @@ def step_backward_reference(x, coef, consts, eps, idx, d_stats, d_x_new=None, d_
     `scan_backward_reference`'s contract (ℓ's cotangent honoured, those of
     the ESS and the filtered mean dropped, none for logw, the positions or ε,
     zero for y, the α cotangent cut below −3e30). Returns (d_x, d_coef
-    [B, 3·Dx + Dy + 1], d_packed, d_sconst)."""
+    [B, coef_width], d_packed, d_sconst)."""
     step_backward_reference.calls += 1
     d_x, d_coef, d_packed, d_sconst = _replay_backward(
         x, coef[None], consts, eps[None], idx[None], d_stats[None], d_x_new, d_alpha)
@@ -1098,7 +1173,7 @@ def _launch_step_backward(x, x_new, idx, stats, coef, consts, eps, d_stats, d_x_
     _require(x_new, (batch, dx, k), "x_new", dev)
     _require(idx, (batch, k), "idx", dev, torch.int32)
     _require(stats, (batch, 2 + dx), "stats", dev)
-    _require(coef, (batch, 3 * dx + dy + 1), "coef", dev)
+    _require(coef, (batch, coef_width(consts)), "coef", dev)
     _require(eps, (batch, dx, k), "eps", dev)
     _require(consts["packed"], consts["packed"].shape, "weights", dev)
     _require(consts["sconst"], (dx + dy,), "sconst", dev)
@@ -1112,7 +1187,8 @@ def _launch_step_backward(x, x_new, idx, stats, coef, consts, eps, d_stats, d_x_
     d_x = torch.empty((batch, dx, k), **f32)
     d_coef = torch.empty(coef.shape, **f32)
     dxres = torch.empty((batch, dx, k), **f32)
-    coef_part = torch.empty((batch, slices, 3 * dx + 1), **f32)
+    coef_part = torch.empty((batch, slices, 3 * dx + 1 + 2 * consts["hidden"] * _ctrl(consts)),
+                            **f32)
     partial = torch.empty((batch * slices, n_w + dx + dy), **f32)
     grads = torch.empty((n_w + dx + dy,), **f32)
     counters = _arrival_counters(dev, stream, batch)
@@ -1124,7 +1200,7 @@ def _launch_step_backward(x, x_new, idx, stats, coef, consts, eps, d_stats, d_x_
         d_stats.data_ptr(), _ptr(d_x_new), _ptr(d_alpha), d_x.data_ptr(), d_coef.data_ptr(),
         dxres.data_ptr(), coef_part.data_ptr(), partial.data_ptr(), grads.data_ptr(),
         counters.data_ptr(), batch, k, dx, dy, consts["hidden"], consts["n_mid"], n_w, off_f,
-        off_g, slices, stream,
+        off_g, _ctrl(consts), slices, stream,
     )
     step_backward.launches += 1
     step_backward.last_slices = slices

@@ -136,7 +136,8 @@ def usable(ssm, cfg) -> bool:
     """Whether (ssm, smc-config) is in the trunk kernels' class: systematic
     resampling at every step, stop-gradient FIVO, relu q1/f/g trunks of one
     uniform instantiated width, an instantiated (Dx, Dy), K that K7 holds
-    and K9 tiles, and the weights and tiles in one CTA's shared memory."""
+    and K9 tiles, and the weights and tiles in one CTA's shared memory. No
+    controls (ssm.di > 0): K9 and K10 read no control term yet."""
     k = cfg.n_particles
     hidden = ssm.nets["q1"].hidden
     nets = [ssm.nets[n] for n in ("q1", "f", "g")]
@@ -144,6 +145,7 @@ def usable(ssm, cfg) -> bool:
         cfg.resampling == "systematic"
         and cfg.ess_threshold >= 1.0
         and cfg.use_stop_gradient
+        and not ssm.di
         and (ssm.dx, ssm.dy) in TRUNK_DIMS
         and k % TILE == 0
         and resample_gather.k_ok(k)

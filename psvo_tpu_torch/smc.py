@@ -26,6 +26,12 @@ Three paths, chosen from what the call can observe:
   tensors only: a CUDA tensor outside the kernel classes raises
   NotImplementedError rather than run plain PyTorch on the card.
 
+Controls [B, T, Di] (data.di > 0) are exogenous inputs: step t's q1 and f
+see [x_{t−1}; u_t], so the carry into step t holds u_t (`controls=`; zeros
+when None, as the reference's `_controls_tm`). The plain body concatenates
+them; the whole-scan and per-step paths fold them into the coefficient rows
+(`fused_step.control_term`); the trunk class takes none.
+
 Public shapes follow the reference: particles are channel-major
 [B, Dx, K], `FilterResult.xs` is [T, B, Dx, K] and `filtered_means`
 [T, B, Dx]. Gradients follow the reference's stop-gradient FIVO: none
@@ -79,6 +85,13 @@ def _init_t0(ssm: SSM, eps0, y0, enc0):
     return x0, alpha0
 
 
+def _controls_tm(controls, batch: int, t_steps: int, di: int, device):
+    """Time-major [T, B, Di] control inputs; zeros when absent (Di may be 0)."""
+    if controls is not None:
+        return controls.transpose(0, 1)
+    return torch.zeros((t_steps, batch, di), device=device)
+
+
 def _q2_tm(ssm: SSM, cfg: SMCConfig, enc_tm):
     """The encoder proposal q2 for all T in one batched call, or None."""
     if cfg.use_2q:
@@ -89,21 +102,22 @@ def _q2_tm(ssm: SSM, cfg: SMCConfig, enc_tm):
 def _make_step_body(ssm: SSM, cfg: SMCConfig):
     """One plain filtering step t: (maybe) resample -> propose -> weight.
 
-    body((x, logw), (y_t, q2_t, eps_t, u_t)) -> ((x_new, logw_new),
-    (ell, ess, fmean)); q2_t is the step's precomputed q2 (mean, scale) or None.
+    body((x, logw), (y_t, q2_t, ctrl_t, eps_t, u_t)) -> ((x_new, logw_new),
+    (ell, ess, fmean)); q2_t is the step's precomputed q2 (mean, scale) or
+    None, ctrl_t its controls [B, Di], u_t the resampling uniforms.
     """
     resample_on = cfg.resampling != "none"
 
     def body(carry, inputs):
         x, logw = carry
-        y_t, q2_t, eps_t, u_t = inputs
+        y_t, q2_t, ctrl_t, eps_t, u_t = inputs
         if resample_on:
             x, logw, _, ess, _ = resampling.maybe_resample(
                 u_t, logw, x, method=cfg.resampling, ess_threshold=cfg.ess_threshold
             )
         else:
             ess = effective_sample_size(logw, dim=-1)
-        mean_q, scale_q, mean_f, scale_f = ssm.step_heads_cm(x, y_t, q2_t)
+        mean_q, scale_q, mean_f, scale_f = ssm.step_heads_cm(x, y_t, q2_t, ctrl_t)
         x_new = mean_q + scale_q * eps_t  # [B, Dx, K]
         alpha = (
             mvn_diag_log_prob_cm(x_new, mean_f, scale_f)
@@ -131,10 +145,13 @@ def _draw_noise(generator, cfg: SMCConfig, t_steps: int, batch: int, dx: int):
     return eps0, eps_scan, u_scan
 
 
-def _fused_preamble(ssm: SSM, generator, ys, cfg: SMCConfig, encoder_inputs, streams):
+def _fused_preamble(ssm: SSM, generator, ys, cfg: SMCConfig, encoder_inputs, streams,
+                    controls=None):
     """What both kernel paths compute before their steps (the reference's
     `smc._fused_preamble`): the packed heads, t = 0 and each step's
-    coefficients, in plain tensor code, and the noise.
+    coefficients, in plain tensor code, and the noise. With controls
+    (ssm.di > 0) each step's coefficient row also carries u_t's first-layer
+    terms of q1 and f (`fused_step.control_term`; zeros for None).
 
     Noise: `streams` = (eps0, eps_scan, u_scan) replays given draws (u_scan
     the sorted positions); otherwise eps0 comes from `generator` and, with
@@ -171,7 +188,11 @@ def _fused_preamble(ssm: SSM, generator, ys, cfg: SMCConfig, encoder_inputs, str
         - consts["log_sg_sum"]
         - dy * 0.5 * math.log(2.0 * math.pi)
     )
-    coef = fused_step.pack_coef(aq[1:], cq[1:], sq[1:], ys_tm[1:], ab)
+    ctrl_bias = None
+    if ssm.di:
+        ctrl_tm = _controls_tm(controls, batch, t_steps, ssm.di, ys.device)
+        ctrl_bias = fused_step.control_term(consts, ctrl_tm[1:])
+    coef = fused_step.pack_coef(aq[1:], cq[1:], sq[1:], ys_tm[1:], ab, ctrl_bias)
     return consts, coef, x0, alpha0, eps_scan, u_scan, seed
 
 
@@ -184,9 +205,11 @@ def _forward_filter_fused(
     cache: bool,
     encoder_inputs=None,
     streams: Optional[tuple] = None,
+    controls=None,
 ) -> FilterResult:
-    """The kernel path: `_fused_preamble` (t = 0, the fusion coefficients and
-    the noise), then steps 1..T−1 as one `fused_step.scan_forward` call —
+    """The kernel path: `_fused_preamble` (t = 0, the fusion coefficients,
+    the controls' terms and the noise), then steps 1..T−1 as one
+    `fused_step.scan_forward` call —
     through `fused_step.ScanForward` when autograd records, whose saved
     residuals take the place of the reference's remat, so gradients reach the
     t = 0 proposal, the fusion coefficients, ab and the packed head weights.
@@ -203,7 +226,7 @@ def _forward_filter_fused(
     if per_step:
         cfg = dataclasses.replace(cfg, kernel_rng=False)
     consts, coef, x0, alpha0, eps_scan, u_scan, seed = _fused_preamble(
-        ssm, generator, ys, cfg, encoder_inputs, streams
+        ssm, generator, ys, cfg, encoder_inputs, streams, controls
     )
     ell0 = _lse(alpha0) - math.log(cfg.n_particles)
     x0, alpha0 = x0.contiguous(), alpha0.contiguous()
@@ -343,10 +366,13 @@ def forward_filter(
     cache: bool = False,
     encoder_inputs=None,
     noise: Optional[tuple] = None,
+    controls=None,
 ) -> FilterResult:
     """Run the forward SMC pass on observations ys [B, T, Dy].
 
     encoder_inputs optionally replaces what the encoder proposal q2 sees.
+    controls [B, T, Di] are the exogenous inputs of a di > 0 model: step t
+    consumes controls[:, t] (zeros when None; ignored when di = 0).
     noise is the testing hook of the reference: (eps0 [B,Dx,K], eps_scan
     [T−1,B,Dx,K], u_scan [T−1,B,K]) replacing the generator's draws. On CPU
     tensors it forces the plain step body, as in the reference; on CUDA
@@ -358,6 +384,7 @@ def forward_filter(
         path = _forward_filter_fused
     elif t_steps >= 2 and trunk.usable(ssm, cfg):
         path = _forward_filter_trunk
+    kw = {"controls": controls} if path is _forward_filter_fused else {}
     if ys.is_cuda:
         if path is None:
             raise NotImplementedError(
@@ -365,14 +392,15 @@ def forward_filter(
                 "ops.fused_step.usable and ops.trunk.usable); run it on CPU tensors"
             )
         return path(ssm, generator, ys, cfg, cache=cache, encoder_inputs=encoder_inputs,
-                    streams=noise)
+                    streams=noise, **kw)
     if path is not None and noise is None:
-        return path(ssm, generator, ys, cfg, cache=cache, encoder_inputs=encoder_inputs)
+        return path(ssm, generator, ys, cfg, cache=cache, encoder_inputs=encoder_inputs, **kw)
 
     k = cfg.n_particles
     ys_tm = ys.transpose(0, 1)  # [T, B, Dy]
     enc_tm = encoder_inputs.transpose(0, 1) if encoder_inputs is not None else ys_tm
     q2 = _q2_tm(ssm, cfg, enc_tm)
+    ctrl_tm = _controls_tm(controls, batch, t_steps, ssm.di, ys.device)
     if noise is not None:
         eps0, eps_scan, u_scan = noise
     else:
@@ -386,7 +414,8 @@ def forward_filter(
     xs, logws, ells, esss, fmeans = [x0], [alpha0], [ell0], [], []
     for t in range(1, t_steps):
         q2_t = (q2[0][t], q2[1][t]) if q2 is not None else None
-        carry, (ell, ess, fmean) = body(carry, (ys_tm[t], q2_t, eps_scan[t - 1], u_scan[t - 1]))
+        carry, (ell, ess, fmean) = body(
+            carry, (ys_tm[t], q2_t, ctrl_tm[t], eps_scan[t - 1], u_scan[t - 1]))
         if cache:
             xs.append(carry[0])
             logws.append(carry[1])

@@ -118,14 +118,16 @@ def make_optimizer(cfg: Config) -> Optimizer:
 
 
 def make_train_step(ssm: SSM, cfg: Config, optimizer: Optimizer) -> Callable:
-    """train_step(generator, batch, encoder_inputs=None, noise=None) -> metrics.
+    """train_step(generator, batch, encoder_inputs=None, noise=None,
+    controls=None) -> metrics.
 
     One optimizer step on the objective's loss, updating ssm's parameters in
     place; each parameter's `.grad` keeps that step's raw gradient. With
     cfg.train.steps_per_call = N > 1, batch is [N, B, T, Dy] (encoder_inputs
     likewise, noise a sequence of N noise tuples) and the N steps run in
     order on the same generator, so N steps in one call equal N single
-    calls; the metrics are the last step's. Metrics: the objective's, plus
+    calls; the metrics are the last step's. controls [B, T, Di] (with N > 1
+    [N, B, T, Di]) are a di > 0 model's exogenous inputs. Metrics: the objective's, plus
     `loss` and `grad_norm` (the global norm of the raw gradients). The
     optimizer state is `train_step.opt_state`.
     """
@@ -136,10 +138,10 @@ def make_train_step(ssm: SSM, cfg: Config, optimizer: Optimizer) -> Callable:
     opt_state = optimizer.init(params)
     n_per_call = max(int(cfg.train.steps_per_call), 1)
 
-    def one_step(generator, ys, encoder_inputs, noise):
+    def one_step(generator, ys, encoder_inputs, noise, controls):
         for p in params:
             p.grad = None
-        out = objective(generator, ys, encoder_inputs, noise)
+        out = objective(generator, ys, encoder_inputs, noise, controls)
         out.loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         optimizer.update(params, grads, opt_state)
@@ -148,9 +150,9 @@ def make_train_step(ssm: SSM, cfg: Config, optimizer: Optimizer) -> Callable:
         metrics["grad_norm"] = global_norm(grads)
         return metrics
 
-    def train_step(generator, batch, encoder_inputs=None, noise=None):
+    def train_step(generator, batch, encoder_inputs=None, noise=None, controls=None):
         if n_per_call == 1:
-            return one_step(generator, batch, encoder_inputs, noise)
+            return one_step(generator, batch, encoder_inputs, noise, controls)
         if batch.shape[0] != n_per_call:
             raise ValueError(f"steps_per_call={n_per_call}: batch {tuple(batch.shape)} "
                              f"must be [{n_per_call}, B, T, Dy]")
@@ -159,6 +161,7 @@ def make_train_step(ssm: SSM, cfg: Config, optimizer: Optimizer) -> Callable:
                 generator, batch[i],
                 None if encoder_inputs is None else encoder_inputs[i],
                 None if noise is None else noise[i],
+                None if controls is None else controls[i],
             )
         return metrics
 
@@ -176,32 +179,38 @@ def filtered_means(fwd):
     return means.transpose(0, 1)
 
 
-def k_step_predictions(ssm: SSM, filt_means, k_max: int):
+def k_step_predictions(ssm: SSM, filt_means, k_max: int, controls=None):
     """Roll the mean dynamics k steps from each filtered mean and emit.
 
     Returns ŷ [k_max, B, T, Dy]: ŷ[k-1, :, t] predicts y_{t+k} (valid for
-    t + k < T; the caller masks)."""
+    t + k < T; the caller masks). With controls [B, T, Di] (di > 0), rollout
+    step j from time t consumes the known future control u_{t+j} (zeros past
+    the horizon, masked anyway); a di > 0 model without them rolls on zeros."""
     preds = []
     x = filt_means
-    for _ in range(k_max):
-        x = ssm.transition_mean(x)
+    for j in range(1, k_max + 1):
+        u = None
+        if ssm.di and controls is not None:
+            u = torch.nn.functional.pad(controls[:, j:], (0, 0, 0, j))
+        x = ssm.transition_mean(x, u)
         preds.append(ssm.emission_mean(x))
     return torch.stack(preds)
 
 
 def make_eval_step(ssm: SSM, cfg: Config) -> Callable:
-    """eval_step(generator, ys, encoder_inputs=None, noise=None) -> metrics:
-    the objective's metrics plus elbo, mse_k and r2_k [k_max]."""
+    """eval_step(generator, ys, encoder_inputs=None, noise=None, controls=None)
+    -> metrics: the objective's metrics plus elbo, mse_k and r2_k [k_max].
+    controls [B, T, Di] feed the filter and the k-step rollouts."""
     objective = make_objective(ssm, cfg)
     k_max = cfg.train.mse_k_steps
 
     @torch.no_grad()
-    def eval_step(generator, ys, encoder_inputs=None, noise=None):
-        out = objective(generator, ys, encoder_inputs, noise)
+    def eval_step(generator, ys, encoder_inputs=None, noise=None, controls=None):
+        out = objective(generator, ys, encoder_inputs, noise, controls)
         fm = filtered_means(out.filter_result)  # [B, T, Dx]
         # horizons beyond the trajectory have no targets
         k_max_eff = min(k_max, ys.shape[1] - 1)
-        preds = k_step_predictions(ssm, fm, k_max_eff)
+        preds = k_step_predictions(ssm, fm, k_max_eff, controls)
         t_steps = ys.shape[1]
         var_y = torch.var(ys, dim=(0, 1), unbiased=False).mean()
         mse = torch.stack(

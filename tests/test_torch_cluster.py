@@ -108,14 +108,14 @@ def test_k1_shared_memory_admits_max_k():
 
 def test_ctypes_signatures_carry_the_cluster_argument():
     sig = _build.SIGNATURES
-    # ... n_mid, n_weights, off_f, off_g, cluster, stream
+    # ... n_mid, n_weights, off_f, off_g, ctrl, cluster, stream
     assert sig["psvo_scan_forward"] == [ctypes.c_void_p] * 13 + [ctypes.c_uint32] * 2 + (
-        [ctypes.c_int] * 12) + [ctypes.c_void_p]
+        [ctypes.c_int] * 13) + [ctypes.c_void_p]
     assert sig["psvo_scan_backward"] == [ctypes.c_void_p] * 17 + [ctypes.c_uint32] * 2 + (
-        [ctypes.c_int] * 12) + [ctypes.c_void_p]
-    assert sig["psvo_max_active_clusters"] == [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        [ctypes.c_int] * 13) + [ctypes.c_void_p]
+    assert sig["psvo_max_active_clusters"] == [ctypes.c_int] * 7 + [ctypes.c_void_p]
     # the per-step kernels take no cluster: their rows' counters and a slice count instead
-    assert sig["psvo_step_forward"] == [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    assert sig["psvo_step_forward"] == [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
 @pytest.mark.parametrize("kernel,cluster,ok", [

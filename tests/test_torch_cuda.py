@@ -1337,3 +1337,183 @@ def test_lorenz96_paths_launch_only_the_new_resample_designs():
         "tiled": 5, "row": 0}
     assert (rg.ancestor_indices_large_reference.calls,
             rg.segment_sum_scatter_reference.calls) == plain
+
+
+# -- exogenous controls (data.di > 0) -------------------------------------------------
+
+
+def _controlled_operands(dev, dx, hidden=16, b=4, k=128, t1=5, di=2, seed=0):
+    """K1's operands with controls on the card: the model of a controlled
+    preset shape (Dx = Dy = dx, di controls), coefficient rows that end in
+    the controls' first-layer terms of random controls."""
+    cfg = PRESETS["fhn_fivo_controls" if dx == 2 else "lorenz63_psvo_k1024"]
+    net = NetConfig(hidden=(hidden, hidden))
+    cfg = dataclasses.replace(cfg.with_nets(q0=net, q1=net, q2=net, f=net, qb=net,
+                                            g=dataclasses.replace(net, sigma_init=0.5)),
+                              data=dataclasses.replace(cfg.data, di=di))
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(seed), device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        consts = fused_step.prepare(ssm)
+        u = torch.randn((t1, b, di), generator=g, device=dev)
+        coef = torch.cat([torch.rand((t1, b, 4 * dx + 1), generator=g, device=dev) + 0.1,
+                          fused_step.control_term(consts, u)], dim=-1).contiguous()
+    x0 = torch.randn((b, dx, k), generator=g, device=dev) * 3.0
+    a0 = torch.randn((b, k), generator=g, device=dev)
+    eps = torch.randn((t1, b, dx, k), generator=g, device=dev)
+    pos = fused_step.systematic_positions(torch.rand((t1, b), generator=g, device=dev), k)
+    return ssm, consts, x0, a0, coef, eps, pos, g
+
+
+@pytest.mark.parametrize("dx, k, cluster", [(2, 128, 1), (2, 1024, 2), (3, 128, 1)])
+def test_controlled_scan_kernels_match_plain(dx, k, cluster):
+    """K1 and K4 with controls (the coef rows' 2H extra columns) on clusters
+    of `cluster` CTAs per row: K1 against its plain version to 2e-4 (K = 128)
+    or bit-equal to one CTA per row (K = 1024, where a free run may flip an
+    ancestor against the plain one), K4 against its plain version on one K1
+    run's residuals, every cotangent live, to 1e-4 relative per leaf
+    (d_coef's control columns included); bit-equal on a relaunch."""
+    dev = _cuda()
+    _, consts, x0, a0, coef, eps, pos, g = _controlled_operands(dev, dx, k=k)
+    with torch.no_grad():
+        got = fused_step.scan_forward(x0, a0, coef, consts, eps=eps, positions=pos, cache=True,
+                                      save_res=True, cluster=cluster)
+        if cluster == 1:
+            want = fused_step.scan_forward_reference(x0, a0, coef, consts, eps, pos, cache=True)
+            for a, w in zip(got[:5], want[:5]):
+                torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4)
+        else:
+            one = fused_step.scan_forward(x0, a0, coef, consts, eps=eps, positions=pos,
+                                          cache=True, save_res=True, cluster=1)
+            assert all(torch.equal(a, w) for a, w in zip(got, one))
+    x_last, alpha_last, stats, x_all, alpha_all, idx = got
+    d_stats = torch.randn(stats.shape, generator=g, device=dev)
+    cots = [torch.randn(t.shape, generator=g, device=dev) for t in (x_last, alpha_last)]
+    cots += [torch.randn(t.shape, generator=g, device=dev) * 0.1 for t in (x_all, alpha_all)]
+    bwd = (x0, x_all, idx, stats, coef, consts, d_stats, *cots)
+    k4 = fused_step.scan_backward(*bwd, eps=eps, cluster=cluster)
+    again = fused_step.scan_backward(*bwd, eps=eps, cluster=cluster)
+    plain = fused_step.scan_backward_reference(x0, coef, consts, eps, idx, d_stats, *cots)
+    assert all(torch.equal(a, b) for a, b in zip(k4, again))
+    for a, w in zip(k4, plain):
+        assert _rel(a, w) <= 1e-4
+    assert _rel(k4[1][..., -2 * consts["hidden"]:], plain[1][..., -2 * consts["hidden"]:]) <= 1e-4
+
+
+@pytest.mark.parametrize("slices", [1, 4])
+def test_controlled_step_kernels_match_plain(slices):
+    """K14 chained over T−1 steps with controls gives K1's bits on the same
+    streams and each step agrees with step_forward_reference; K15 on each
+    step's residuals matches step_backward_reference to 1e-4 relative per
+    leaf (the control columns of d_coef included), on `slices` CTAs a row."""
+    dev = _cuda()
+    _, consts, x0, a0, coef, eps, pos, g = _controlled_operands(dev, 2, k=1024)
+    with torch.no_grad():
+        k1 = fused_step.scan_forward(x0, a0, coef, consts, eps=eps, positions=pos, cache=True,
+                                     save_res=True)
+        x, lw, steps = x0, a0, []
+        for t in range(coef.shape[0]):
+            out = fused_step.step_forward(x, lw, coef[t], consts, eps[t], pos[t], slices=slices)
+            ref = fused_step.step_forward_reference(x, lw, coef[t], consts, eps[t], pos[t])
+            assert torch.equal(out[3], ref[3])
+            for a, w in zip(out[:3], ref[:3]):
+                torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4)
+            steps.append(out)
+            x, lw = out[:2]
+    for i, want in ((0, k1[3]), (1, k1[4]), (2, k1[2]), (3, k1[5])):
+        assert torch.equal(torch.stack([s[i] for s in steps]), want)
+    for t, (x_new, alpha, stats, idx) in enumerate(steps):
+        x_in = x0 if t == 0 else steps[t - 1][0]
+        cots = [torch.randn(v.shape, generator=g, device=dev) for v in (stats, x_new, alpha)]
+        got = fused_step.step_backward(x_in, x_new, idx, stats, coef[t], consts, eps[t], *cots,
+                                       slices=slices)
+        want = fused_step.step_backward_reference(x_in, coef[t], consts, eps[t], idx, *cots)
+        for a, w in zip(got, want):
+            assert _rel(a, w) <= 1e-4
+
+
+def test_uncontrolled_launch_equals_controlled_launch_with_zero_controls():
+    """The control mode adds c to the first-layer bias and nothing else: with
+    zero controls K1's outputs and K4's d_x0 and weight gradients are the
+    uncontrolled launch's bits on the same weights."""
+    dev = _cuda()
+    _, consts, x0, a0, coef, eps, pos, g = _controlled_operands(dev, 2, k=1024)
+    t1, b = coef.shape[:2]
+    zero = torch.cat([coef[..., :9], torch.zeros((t1, b, 2 * consts["hidden"]), device=dev)], -1)
+    plain_consts = dict(consts, di=0, ctrl_w=None)
+    with torch.no_grad():
+        ctrl = fused_step.scan_forward(x0, a0, zero.contiguous(), consts, eps=eps, positions=pos,
+                                       save_res=True)
+        none = fused_step.scan_forward(x0, a0, coef[..., :9].contiguous(), plain_consts, eps=eps,
+                                       positions=pos, save_res=True)
+    assert all(torch.equal(a, w) for a, w in zip(ctrl, none) if a is not None)
+    d_stats = torch.randn(ctrl[2].shape, generator=g, device=dev)
+    d_x = torch.randn(x0.shape, generator=g, device=dev)
+    k4c = fused_step.scan_backward(x0, ctrl[3], ctrl[5], ctrl[2], zero.contiguous(), consts,
+                                   d_stats, d_x, eps=eps)
+    k4n = fused_step.scan_backward(x0, none[3], none[5], none[2], coef[..., :9].contiguous(),
+                                   plain_consts, d_stats, d_x, eps=eps)
+    assert torch.equal(k4c[0], k4n[0]) and torch.equal(k4c[2], k4n[2])
+    assert torch.equal(k4c[1][..., :9], k4n[1])
+
+
+@pytest.mark.parametrize("scan_fused", [True, False])
+def test_controlled_train_step_runs_the_kernels(monkeypatch, scan_fused):
+    """One make_train_step step of the controlled preset's shape (hidden 16)
+    on the card: K1 and K4 once (or K14 and K15 T−1 times with SCAN_FUSED
+    off), no plain version; its raw gradients, W_u's rows included, match the
+    plain versions on CPU tensors replaying the step's streams to 1e-4
+    relative per leaf."""
+    from psvo_tpu_torch import bridge
+    from psvo_tpu_torch.smc import _draw_noise, _forward_filter_fused
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    monkeypatch.setattr(fused_step, "SCAN_FUSED", scan_fused)
+    dev = _cuda()
+    cfg = _small_cfg("fhn_fivo_controls")
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ref = init_ssm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    ys = torch.randn((4, 6, 2), generator=torch.Generator().manual_seed(2))
+    u = torch.randn((4, 6, 2), generator=torch.Generator().manual_seed(5))
+    kernels = (fused_step.scan_forward, fused_step.scan_backward, fused_step.step_forward,
+               fused_step.step_backward)
+    plain = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+             fused_step.step_forward_reference, fused_step.step_backward_reference)
+    launches, calls = [f.launches for f in kernels], [f.calls for f in plain]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    state = gen.get_state()
+    make_train_step(ssm, cfg, make_optimizer(cfg))(gen, ys.to(dev), controls=u.to(dev))
+    assert [f.launches - n for f, n in zip(kernels, launches)] == (
+        [1, 1, 0, 0] if scan_fused else [0, 0, 5, 5])
+    assert [f.calls for f in plain] == calls
+    gen.set_state(state)
+    streams = tuple(t.cpu() for t in _draw_noise(gen, cfg.smc, 6, 4, 2))
+    fwd = _forward_filter_fused(ref, None, ys, cfg.smc, cache=False, streams=streams, controls=u)
+    (-torch.mean(fwd.log_z)).backward()
+    got, want = bridge.grads_to_numpy(ssm), bridge.grads_to_numpy(ref)
+    for name in want:
+        for a, w in zip(_leaves(got[name]), _leaves(want[name])):
+            assert _rel(torch.from_numpy(a), torch.from_numpy(w)) <= 1e-4, name
+
+
+def test_cuda_controls_outside_the_kernel_classes_raise():
+    """A controlled model on CUDA tensors outside the built classes raises
+    rather than run plain PyTorch on the card: the trunk class (Lorenz-96
+    with controls), Dx + Di > 7, PSVO and SVO."""
+    from psvo_tpu_torch.objectives import make_objective
+    from psvo_tpu_torch.smc import forward_filter
+
+    dev = _cuda()
+    for preset, di, shape in (("lorenz96_fivo_k8192_sharded", 2, (2, 5, 40)),
+                              ("fhn_fivo_controls", 6, (2, 5, 2))):
+        cfg = PRESETS[preset]
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, di=di))
+        ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+        with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+            forward_filter(ssm, torch.Generator(device=dev), torch.zeros(shape, device=dev),
+                           cfg.smc, controls=torch.zeros((*shape[:2], di), device=dev))
+    for preset in ("lorenz63_psvo_k1024", "lorenz63_svo_k256"):
+        cfg = PRESETS[preset]
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, di=2))
+        with pytest.raises(NotImplementedError, match="controls"):
+            make_objective(init_ssm(cfg, torch.Generator().manual_seed(0), device=dev), cfg)

@@ -160,11 +160,10 @@ def test_preset_is_in_the_kernel_class_and_unported_modes_raise():
     from psvo_tpu_torch.config import PRESETS
     from psvo_tpu_torch.models.ssm import SSM
 
-    for name in ("fhn_fivo_k1024_bench", "lorenz63_psvo_k1024"):
+    for name in ("fhn_fivo_k1024_bench", "lorenz63_psvo_k1024", "fhn_fivo_controls"):
         cfg = PRESETS[name]
         assert fused_step.usable(SSM(cfg), cfg.smc), name
-    for name in ("fhn_fivo_controls", "fhn_fivo_tril", "fhn_fivo_dirac",
-                 "fhn_fivo_known_dynamics"):
+    for name in ("fhn_fivo_tril", "fhn_fivo_dirac", "fhn_fivo_known_dynamics"):
         with pytest.raises(NotImplementedError):
             SSM(PRESETS[name])
     jcfg, tcfg = small_configs(use_stop_gradient=False)

@@ -1,0 +1,166 @@
+#!/usr/bin/env python3
+"""Hold the kernels K1, K4, K14 and K15 of two checkouts of the port to the
+same bits, and time them, on an uncontrolled model (data.di = 0), on one GPU.
+
+    python3 tools/uncontrolled_bits.py dump ROOT OUT.pt   # ROOT: a checkout of the repo
+    python3 tools/uncontrolled_bits.py compare A.pt B.pt
+    python3 tools/uncontrolled_bits.py time ROOT
+
+`dump` imports `psvo_tpu_torch` from ROOT, builds its kernels, and saves the
+outputs of K1 (stream noise and the in-kernel draw, with the cache and the
+residuals), K4 (every cotangent), a chain of K14 and K15 on each step, at the
+FHN shape (B = 32, K = 1024, hidden (64, 64), Dx = 2) and the Lorenz-63 one
+(Dx = 3), all on inputs made on the card from fixed seeds. `compare` prints
+whether every tensor of the two dumps is bit-equal and exits non-zero if
+not. `time` prints the four kernels' times at the FHN shape (CUDA events
+around n back-to-back calls over n, n = 5 for K1/K4 and 50 for K14/K15 at
+a mid step, the median of 5 after 2 warm-up). Run
+`dump` and `time` once per checkout, each in its own process (both
+packages have one name), on one card in one call; for times, alternate
+them: ROOT A, B, B, A.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+
+
+def _import(root: str):
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import psvo_tpu_torch as pt
+
+    if not pt.__file__.startswith(os.path.abspath(root)):
+        sys.exit(f"psvo_tpu_torch came from {pt.__file__}, not from {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch, pt
+
+
+def _operands(torch, pt, preset, dx, t_steps):
+    """The model of `preset` (random weights, seed 0) and K1's operands at
+    B = 32, K = 1024 on the card, from fixed seeds."""
+    from psvo_tpu_torch.ops import fused_step
+
+    dev = torch.device("cuda:0")
+    cfg = pt.PRESETS[preset]
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, t_steps=t_steps))
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    b, k, t1 = 32, 1024, t_steps - 1
+    with torch.no_grad():
+        consts = fused_step.prepare(ssm)
+    x0 = torch.randn((b, dx, k), generator=g, device=dev) * 2.0
+    a0 = torch.randn((b, k), generator=g, device=dev)
+    coef = torch.rand((t1, b, 4 * dx + 1), generator=g, device=dev) + 0.1
+    eps = torch.randn((t1, b, dx, k), generator=g, device=dev)
+    pos = fused_step.systematic_positions(torch.rand((t1, b), generator=g, device=dev), k)
+    return consts, x0, a0, coef, eps, pos, g
+
+
+def time_kernels(root: str) -> None:
+    torch, pt = _import(root)
+    from psvo_tpu_torch.ops import fused_step
+
+    consts, x0, a0, coef, eps, pos, g = _operands(torch, pt, "fhn_fivo_k1024_bench", 2, 100)
+
+    def ms(fn, n):
+        for _ in range(2):
+            fn()
+        times = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / n)
+        return sorted(times)[2]
+
+    with torch.no_grad():
+        k1 = fused_step.scan_forward(x0, a0, coef, consts, eps=eps, positions=pos, save_res=True)
+        x_last, alpha_last, stats, x_all, _, idx = k1
+        cots = [torch.randn(t.shape, generator=g, device=x0.device) for t in (stats, x_last)]
+        t = coef.shape[0] // 2
+        step = (x_all[t - 1], a0, coef[t], consts, eps[t], pos[t])
+        out = fused_step.step_forward(*step)
+        got = {
+            "K1": ms(lambda: fused_step.scan_forward(x0, a0, coef, consts, eps=eps, positions=pos),
+                     5),
+            "K4": ms(lambda: fused_step.scan_backward(x0, x_all, idx, stats, coef, consts, *cots,
+                                                      eps=eps), 5),
+            "K14": ms(lambda: fused_step.step_forward(*step), 50),
+            "K15": ms(lambda: fused_step.step_backward(x_all[t - 1], out[0], out[3], out[2],
+                                                       coef[t], consts, eps[t], cots[0][t]), 50),
+        }
+    print(f"{_card()}: {root}: " + ", ".join(f"{n} {v:.4f} ms" for n, v in got.items()),
+          flush=True)
+
+
+def dump(root: str, out: str) -> None:
+    torch, pt = _import(root)
+    from psvo_tpu_torch.ops import fused_step
+
+    outs = {}
+    for preset, dx in (("fhn_fivo_k1024_bench", 2), ("lorenz63_psvo_k1024", 3)):
+        consts, x0, a0, coef, eps, pos, g = _operands(torch, pt, preset, dx, 20)
+        dev, t1 = x0.device, coef.shape[0]
+        with torch.no_grad():
+            k1 = fused_step.scan_forward(x0, a0, coef, consts, eps=eps, positions=pos, cache=True,
+                                         save_res=True)
+            k1_rng = fused_step.scan_forward(x0, a0, coef, consts, seed=(5, 7), cache=True,
+                                             save_res=True)
+            x_last, alpha_last, stats, x_all, alpha_all, idx = k1
+            cots = [torch.randn(t.shape, generator=g, device=dev)
+                    for t in (stats, x_last, alpha_last, x_all, alpha_all)]
+            k4 = fused_step.scan_backward(x0, x_all, idx, stats, coef, consts, *cots, eps=eps)
+            x, lw, k14, k15 = x0, a0, [], []
+            for t in range(t1):
+                step = fused_step.step_forward(x, lw, coef[t], consts, eps[t], pos[t])
+                k14.append(step)
+                k15.append(fused_step.step_backward(x, step[0], step[3], step[2], coef[t], consts,
+                                                    eps[t], cots[0][t], cots[3][t], cots[4][t]))
+                x, lw = step[0], step[1]
+        torch.cuda.synchronize()
+        for name, ts in (("K1", k1), ("K1_rng", k1_rng), ("K4", k4)):
+            for i, v in enumerate(ts):
+                if v is not None:
+                    outs[f"{preset}/{name}/{i}"] = v.cpu()
+        for name, steps in (("K14", k14), ("K15", k15)):
+            for i in range(len(steps[0])):
+                outs[f"{preset}/{name}/{i}"] = torch.stack([s[i] for s in steps]).cpu()
+    torch.save(outs, out)
+    print(f"dumped {len(outs)} tensors from {pt.__file__} to {out}", flush=True)
+
+
+def compare(a_path: str, b_path: str) -> int:
+    import torch
+
+    a, b = torch.load(a_path), torch.load(b_path)
+    if set(a) != set(b):
+        print(f"FAIL: the dumps hold different tensors: {sorted(set(a) ^ set(b))}")
+        return 1
+    bad = [name for name in sorted(a) if not torch.equal(a[name], b[name])]
+    print(f"{_card()}: {len(a) - len(bad)} of {len(a)} tensors bit-equal"
+          + (f"; differing: {bad}" if bad else ""), flush=True)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "dump":
+        dump(sys.argv[2], sys.argv[3])
+    elif len(sys.argv) == 3 and sys.argv[1] == "time":
+        time_kernels(sys.argv[2])
+    elif len(sys.argv) == 4 and sys.argv[1] == "compare":
+        sys.exit(compare(sys.argv[2], sys.argv[3]))
+    else:
+        sys.exit(__doc__)
