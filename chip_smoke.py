@@ -189,6 +189,25 @@ per-(t, row) first-layer term in the coefficient rows:
       `fused_step.SCAN_FUSED` off (2970 K14 and 2970 K15), no plain version,
       W_u's rows moved; step time, peak memory and a profile by kernel
 
+and `lorenz63_psvo_k1024_t1025_seg8`, the reference's long-T configuration
+(psvo_tpu/benchmark.py:1069-1089: lorenz63_psvo_k1024 at B=8, T=1025,
+smc.ffbsi_segments S=8, one train step a call), with random weights:
+
+  (aj) S=8 against S=1 on the same streams and Gumbels at T=1025: the
+      forward's log Z, increments and last particles, each segment's replay
+      (recompute_segment) against the unsegmented cache, and the smoothed
+      paths bit-equal; the loss within 1e-6 relative and every gradient leaf
+      within 1e-4 relative L2 and cosine 1 - 1e-6 (SEG_TOL)
+  (ak) T=1025: one smooth_posterior call at S=8 and 3 train steps at S=8
+      and at S=1, each after a warm-up: host-clock ms, a profile (device
+      busy, idle share), K1/K4/K5/K6 launches (S=8: 32/16/17/9 a train step,
+      16/0/9/0 a serving call), peak memory after reset_peak_memory_stats
+      (S=8's train peak must be below S=1's)
+  (al) T=8193: one smooth_posterior call and 2 train steps at S=8 (no
+      warm-up: the kernels are warm from ak), the same columns, finite
+      losses; S=1's peak reckoned from the shapes and, under 70 GB, 2 train
+      steps at S=1, the same columns
+
 Every phase prints its lines and its seconds; any failure prints its reason
 on stdout and stderr and exits non-zero. A torch.profiler window that comes
 back with no device events is run again (profiled_kernels); device time
@@ -200,7 +219,8 @@ over 67 TFLOP/s fp32 and the bytes over 3.35 TB/s, the H100 SXM's published
 peaks; K2's, K5's, K6's, K7's, K9's, K11's, K12's and K13's rows also carry
 "ms_prev", the previous design's time alternated with theirs; K6's row has
 both branches, K2's both widths; K1, K4, K14 and K15 appear once more as
-"(controls)", their control mode at fhn_fivo_controls' size); the last line
+"(controls)", their control mode at fhn_fivo_controls' size; K1's, K4's, K5's
+and K6's rows carry their segmented launches, "launches_seg_*"); the last line
 is the device record. Imports nothing of JAX: the
 machine with the card has none.
 """
@@ -1786,6 +1806,225 @@ def controls_phases(pt, dev, card: str) -> dict:
     phase_done("ai")
     return dict(k1=k1c, k4=k4c, k14=k14c, k15=k15c, k1_bound=k1c_bound, k4_bound=k4c_bound,
                 k14_bound=k14c_bound, k15_bound=k15c_bound, err=ctrl_small_err, train=ctrl_train)
+
+
+LONG_T = "lorenz63_psvo_k1024_t1025_seg8"
+SEG_TOL = {"loss": 1e-6, "grad_rel": 1e-4, "grad_cos": 1 - 1e-6}  # phase aj, set before its first run
+
+
+def long_t_config(pt, t_steps: int, segments: int):
+    """The reference's long-T configuration (psvo_tpu/benchmark.py:1069-1089):
+    lorenz63_psvo_k1024 (K=1024, M=16, relu heads (64, 64), stream noise) at
+    B=8, T=t_steps, S=segments, one train step a call."""
+    cfg = pt.PRESETS["lorenz63_psvo_k1024"]
+    return dataclasses.replace(
+        cfg, name=LONG_T,
+        data=dataclasses.replace(cfg.data, t_steps=t_steps, n_train=16, n_test=8),
+        smc=dataclasses.replace(cfg.smc, ffbsi_segments=segments),
+        train=dataclasses.replace(cfg.train, batch_size=8, steps_per_call=1))
+
+
+def psvo_peak_gb(t_steps: int, b: int, k: int, m: int, dx: int) -> float:
+    """The unsegmented PSVO train step's largest live set in GB, reckoned from
+    the shapes (float32 and int32): the filter's cache xs and logws [T, B, ·,
+    K], K1's saved ancestors [T−1, B, K], the Gumbel stack [T−1, B, M, K],
+    the support terms r and mr [T−1, B, Dx, K] with c, lwn and lg [T−1, B, K],
+    and the backward's d_xs [T−1, B, Dx, K], all live at once."""
+    t1 = t_steps - 1
+    return 4 * (t_steps * b * k * (dx + 1) + t1 * b * k + t1 * b * m * k
+                + t1 * b * k * (2 * dx + 3) + t1 * b * k * dx) / 1e9
+
+
+def seg_launches(seg: dict, i: int) -> dict:
+    """Kernel i of (K1, K4, K5, K6)'s launches on the segmented path: a train
+    step and a serving call at T=1025 and S=8 (phase ak), a train step at
+    T=8193 and S=8 (phase al)."""
+    return {"launches_seg_train": seg["ak"][8]["train"]["launches"][i],
+            "launches_seg_serve": seg["ak"][8]["serve"]["launches"][i],
+            "launches_seg_train_t8193": seg["al"][8]["train"]["launches"][i]}
+
+
+def segmented_phases(pt, dev, card: str) -> dict:
+    """Phases (aj)-(al): segmented long-T PSVO (smc.ffbsi_segments) of the
+    reference's lorenz63_psvo_k1024_t1025_seg8 held bit-equal to the
+    unsegmented path on the same draws, then served and trained at T=1025
+    and T=8193. Returns the launches per call for the kernels' JSON record."""
+    import torch
+    from psvo_tpu_torch import smc
+    from psvo_tpu_torch.objectives import _gumbel
+    from psvo_tpu_torch.ops import ffbsi, fused_step
+
+    kernels = (fused_step.scan_forward, fused_step.scan_backward, ffbsi.ffbsi_forward,
+               ffbsi.ffbsi_backward)
+    plain = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+             fused_step.stream_noise_reference, fused_step.ancestor_indices_reference,
+             ffbsi.ffbsi_forward_reference, ffbsi.ffbsi_backward_reference)
+
+    def counted(fn):
+        for f in plain:
+            f.calls = 0
+        for f in kernels:
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, [f.launches for f in kernels], sum(f.calls for f in plain)
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # (aj) the same draws: S = 8 against S = 1 at T = 1025
+    cfg1 = long_t_config(pt, 1025, 1)
+    cfg8 = long_t_config(pt, 1025, 8)
+    b, k, m, dx = 8, cfg1.smc.n_particles, cfg1.smc.n_smoothing_particles, 3
+    t_steps = cfg1.data.t_steps
+    ds = pt.generate_dataset(cfg1.data, SEED)
+    ys = ds.obs_train[:b].to(dev).contiguous()
+    ssm = pt.init_ssm(cfg1, torch.Generator().manual_seed(SEED + 50), device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 51)  # this phase's own draws
+    u0 = torch.rand((t_steps - 1, b), generator=g, device=dev)
+    gum = _gumbel(g, (t_steps, b, m, k))
+    noise = (torch.randn((b, dx, k), generator=g, device=dev),
+             torch.randn((t_steps - 1, b, dx, k), generator=g, device=dev),
+             fused_step.systematic_positions(u0, k), gum[0], gum[1:])
+    with torch.no_grad():
+        whole = smc.forward_filter(ssm, None, ys, cfg1.smc, cache=True, noise=noise[:3])
+        seg, seg_cache = smc.forward_filter_segmented(ssm, None, ys, cfg8.smc, 8, noise=noise[:3])
+        fwd_equal = {n_: torch.equal(getattr(seg, n_), getattr(whole, n_))
+                     for n_ in ("log_z", "increments", "x_last", "logw_last")}
+        seg_len = (t_steps - 1) // 8
+        replay_equal = []
+        for s_ in range(8):
+            xs_, lw_ = smc.recompute_segment(seg_cache, s_)
+            rows = slice(1 + s_ * seg_len, 1 + (s_ + 1) * seg_len)
+            replay_equal.append(torch.equal(xs_, whole.xs[rows])
+                                and torch.equal(lw_, whole.logws[rows]))
+    del whole, seg, seg_cache, xs_, lw_
+    outs, grads = [], []
+    for cfg in (cfg1, cfg8):
+        out = pt.make_objective(ssm, cfg)(None, ys, noise=noise)
+        for p_ in ssm.parameters():
+            p_.grad = None
+        out.loss.backward()
+        outs.append((out.loss.detach(), out.smoothed.detach()))
+        grads.append([p_.grad.clone() for p_ in ssm.parameters() if p_.grad is not None])
+        del out
+    free()
+    loss_rel = float((outs[1][0] - outs[0][0]).abs() / outs[0][0].abs())
+    paths_equal = torch.equal(outs[1][1], outs[0][1])
+    paths_share = float((outs[1][1] == outs[0][1]).float().mean())
+    rel = [float((a_ - w_).norm() / w_.norm().clamp_min(1e-30)) for a_, w_ in zip(*grads[::-1])]
+    cos = [float(torch.nn.functional.cosine_similarity(a_.flatten(), w_.flatten(), dim=0))
+           for a_, w_ in zip(*grads[::-1])]
+    print(f"[aj] {card}: {LONG_T} (B={b}, T={t_steps}, K={k}, M={m}), S=8 against S=1 on the same "
+          f"streams and Gumbels: forward bit-equal {fwd_equal}; each segment's replay bit-equal to "
+          f"the unsegmented cache {replay_equal}; smoothed paths bit-equal {paths_equal} (share "
+          f"of equal entries {paths_share:.6f}); loss {float(outs[0][0]):.6f} / "
+          f"{float(outs[1][0]):.6f}, relative difference {loss_rel:.3e} (tolerance "
+          f"{SEG_TOL['loss']}); {len(rel)} gradient leaves: relative L2 max {max(rel):.3e} "
+          f"(tolerance {SEG_TOL['grad_rel']}), cosine min {min(cos):.9f} (tolerance "
+          f"{SEG_TOL['grad_cos']})", flush=True)
+    if not (all(fwd_equal.values()) and all(replay_equal) and paths_equal):
+        fail("the segmented forward, a replay or the smoothed paths differ from the unsegmented "
+             "path's bits on the same draws")
+    if (loss_rel > SEG_TOL["loss"] or max(rel) > SEG_TOL["grad_rel"]
+            or min(cos) < SEG_TOL["grad_cos"]):
+        fail("the segmented loss or gradients differ from the unsegmented path's beyond the "
+             "stated tolerances")
+    del grads, outs, noise, gum
+    free()
+    phase_done("aj")
+
+    def drive(label, cfg, ys_, n_train, warm=True):
+        """One timed smooth_posterior call (S > 1) and n_train timed train
+        steps, each after a warm-up call (warm); host ms, launches, peak
+        memory and a profile of one more call or step."""
+        ssm_ = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 52), device=dev)
+        run_gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+        res = {}
+        if cfg.smc.ffbsi_segments > 1:
+            if warm:
+                pt.smooth_posterior(ssm_, ys_, cfg, run_gen)
+                free()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() / 1e9
+            t0 = time.perf_counter()
+            paths, launch, plain_n = counted(lambda: pt.smooth_posterior(ssm_, ys_, cfg, run_gen))
+            host = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            ok = tuple(paths.shape) == (b, m, ys_.shape[1], dx) and bool(torch.isfinite(paths).all())
+            del paths
+            prof = device_breakdown(lambda: pt.smooth_posterior(ssm_, ys_, cfg, run_gen), 1,
+                                    PSVO_KERNELS)
+            print(f"[{label}] serving: one smooth_posterior call {host:.3f} ms (host clock), "
+                  f"launches K1/K4/K5/K6 {launch}, plain-version calls {plain_n}, paths of the "
+                  f"right shape and finite {ok}; peak device memory {peak:.3f} GB ({held:.3f} GB "
+                  f"held before); profile of one more call: {prof}", flush=True)
+            if not ok or plain_n or launch[0] == 0 or launch[2] == 0:
+                fail(f"{label} serving: launches {launch}, plain versions {plain_n}, paths ok {ok}")
+            res["serve"] = dict(ms=host, launches=launch, peak=peak)
+            free()
+        if n_train:
+            train_step = pt.make_train_step(ssm_, cfg, pt.make_optimizer(cfg))
+            if warm:
+                train_step(run_gen, ys_)
+                free()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() / 1e9
+            step_ms = []
+
+            def steps():
+                out = []
+                for _ in range(n_train):
+                    t0 = time.perf_counter()
+                    out.append(train_step(run_gen, ys_))
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            metrics, launch, plain_n = counted(steps)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            losses = [float(m_["loss"]) for m_ in metrics]
+            norms = [float(m_["grad_norm"]) for m_ in metrics]
+            prof = device_breakdown(lambda: train_step(run_gen, ys_), 1, PSVO_KERNELS)
+            print(f"[{label}] training: {n_train} steps{' after a warm-up' if warm else ''}, host ms "
+                  f"{[round(v, 3) for v in step_ms]}, loss {[round(v, 3) for v in losses]}, grad "
+                  f"norm {[round(v, 3) for v in norms]}; launches K1/K4/K5/K6 {launch} "
+                  f"({[v / n_train for v in launch]} a step), plain-version calls {plain_n}; peak "
+                  f"device memory {peak:.3f} GB ({held:.3f} GB held before); profile of one more "
+                  f"step: {prof}", flush=True)
+            if plain_n or 0 in launch or not all(math.isfinite(v) for v in losses + norms):
+                fail(f"{label} training: launches {launch}, plain versions {plain_n}, losses "
+                     f"{losses}, grad norms {norms}")
+            res["train"] = dict(ms=statistics.median(step_ms), launches=[v // n_train for v in launch],
+                                peak=peak)
+        del ssm_
+        free()
+        return res
+
+    # (ak) T = 1025: serve at S = 8, train at S = 8 and S = 1
+    ak = {S: drive(f"ak S={S}", long_t_config(pt, 1025, S), ys, 3) for S in (8, 1)}
+    if not ak[8]["train"]["peak"] < ak[1]["train"]["peak"]:
+        fail(f"at T=1025 the S=8 train step's peak ({ak[8]['train']['peak']:.3f} GB) is not below "
+             f"S=1's ({ak[1]['train']['peak']:.3f} GB)")
+    want = [32, 16, 17, 9]  # a train step at S=8: K1 4 passes, K4 2, K5 2 and t=0, K6 1 and t=0
+    if ak[8]["train"]["launches"] != want or ak[8]["serve"]["launches"] != [16, 0, 9, 0]:
+        fail(f"S=8 launches {ak[8]['train']['launches']} a train step (want {want}), "
+             f"{ak[8]['serve']['launches']} a serving call (want [16, 0, 9, 0])")
+    phase_done("ak")
+
+    # (al) T = 8193: serve and train at S = 8; S = 1 only if its reckoned peak fits
+    ds_long = pt.generate_dataset(long_t_config(pt, 8193, 8).data, SEED)
+    ys_long = ds_long.obs_train[:b].to(dev).contiguous()
+    # the kernels and the glue's operations are warm from (ak): no warm-up calls
+    al = {8: drive("al S=8", long_t_config(pt, 8193, 8), ys_long, 2, warm=False)}
+    reckoned = psvo_peak_gb(8193, b, k, m, dx)
+    print(f"[al] S=1 at T=8193: reckoned peak {reckoned:.3f} GB (the cache, K1's ancestors, the "
+          f"Gumbel stack, the support terms and d_xs), under 70 GB: {reckoned < 70}", flush=True)
+    if reckoned < 70:
+        al[1] = drive("al S=1", long_t_config(pt, 8193, 1), ys_long, 2, warm=False)
+    phase_done("al")
+    return dict(ak=ak, al=al)
 
 
 def main() -> int:
@@ -3515,6 +3754,7 @@ def main() -> int:
     phase_done("af")
 
     ctrl = controls_phases(pt, dev, card)
+    seg = segmented_phases(pt, dev, card)
 
 
     # K3: the CDF scan and a binary search per particle; logw and u0 in, int32 indices out.
@@ -3540,16 +3780,17 @@ def main() -> int:
          "replaces": "psvo_tpu/ops/pallas_step.py:1327", "launches": k1_train,
          "max_abs_err": results["small"]["max_abs_err"], "ms": k1_ms, "plain_ms": k1_plain,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None, "cluster": k1_c,
-         "ms_c1": k1_ms_c1},
+         "ms_c1": k1_ms_c1, **seg_launches(seg, 0)},
         {"name": "scan_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/scan_backward.cu",
          "replaces": "psvo_tpu/ops/pallas_step.py:1425", "launches": k4_train,
          "max_abs_err": max(bwd[("small", "stream")]["maxd"]), "ms": k4_ms, "plain_ms": k4_plain,
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None, "cluster": k4_c,
-         "ms_c1": k4_ms_c1},
+         "ms_c1": k4_ms_c1, **seg_launches(seg, 1)},
         {"name": "ffbsi_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/ffbsi.cu",
          "replaces": "psvo_tpu/ops/pallas_ffbsi.py:294", "launches": psvo_launches[2],
          "max_abs_err": sweeps["small"][1]["max_abs_err"], "ms": k5[0], "plain_ms": k5[1],
-         "bound_ms": k5_bound, "bound_by": k5_by, "library_ms": None, "ms_prev": k5[2]},
+         "bound_ms": k5_bound, "bound_by": k5_by, "library_ms": None, "ms_prev": k5[2],
+         **seg_launches(seg, 2)},
         # K6: "ms" the paths-only branch (the forward bound's, on the path), "*_all" and
         # "*_direct" the all-cotangents branch with every cotangent and with the direct
         # bound's; "ms_prev*" the row design's, alternated with the staged one.
@@ -3563,7 +3804,8 @@ def main() -> int:
          "plain_ms_all": k6["all cotangents"]["plain"],
          "bound_ms_all": k6_bound["all cotangents"][0],
          "ms_direct": k6["direct bound"]["ms"], "ms_prev_direct": k6["direct bound"]["ms_prev"],
-         "bound_ms_direct": k6_bound["direct bound"][0], "launches_direct": direct_launches[3]},
+         "bound_ms_direct": k6_bound["direct bound"][0], "launches_direct": direct_launches[3],
+         **seg_launches(seg, 3)},
         {"name": "ancestor_indices_large", "route": "cuda",
          "source": "psvo_tpu_torch/csrc/resample_gather.cu",
          "replaces": "psvo_tpu/ops/pallas_resample.py:338",

@@ -1,9 +1,9 @@
 """Ground-truth dynamics (counterpart of `psvo_tpu/models/dynamics.py`).
 
 The FitzHugh–Nagumo, Lorenz-63 and Lorenz-96 steppers that simulate the
-datasets of those names. Steppers act on an arbitrary state axis (default
-last) and vectorize over every other axis. The linear oracle dynamics wait
-for the slice that needs them.
+datasets of those names, and the linear map of the LGSSM data (`lgssm`, the
+Kalman/RTS oracle's system). Steppers act on an arbitrary state axis
+(default last) and vectorize over every other axis.
 """
 
 from __future__ import annotations
@@ -95,13 +95,51 @@ class Lorenz96:
         return _STEPPERS[self.integrator](lambda z: self.drift(z, axis), x, self.dt)
 
 
+@dataclass(frozen=True)
+class LinearDynamics:
+    """x_{t+1} = A x_t + c, the LGSSM oracle's system."""
+
+    matrix: tuple  # row-major nested tuple, so the dataclass stays hashable
+    offset: tuple = ()
+
+    @property
+    def dim(self) -> int:
+        return len(self.matrix)
+
+    def step(self, x, axis: int = -1):
+        a = torch.tensor(self.matrix, dtype=torch.float32, device=x.device)
+        if axis in (-1, x.dim() - 1):
+            out = x @ a.T
+            if self.offset:
+                out = out + torch.tensor(self.offset, dtype=torch.float32, device=x.device)
+            return out
+        if axis not in (-2, x.dim() - 2):
+            raise ValueError(f"LinearDynamics.step: axis {axis} must be the last or second-last")
+        out = torch.einsum("ij,...jk->...ik", a, x)
+        if self.offset:
+            out = out + torch.tensor(self.offset, dtype=torch.float32, device=x.device)[:, None]
+        return out
+
+
 DYNAMICS = {"fhn": FitzHughNagumo, "lorenz63": Lorenz63, "lorenz96": Lorenz96}
+
+
+def _lgssm_dynamics(dx: int) -> LinearDynamics:
+    """The reference's stable rotation of the LGSSM data: 0.9·R(0.3), its
+    entries rounded to float32, cut to the top-left [Dx, Dx] block."""
+    theta = torch.tensor(0.3, dtype=torch.float32)
+    c, s = 0.9 * torch.cos(theta), 0.9 * torch.sin(theta)
+    a = torch.stack([torch.stack([c, -s]), torch.stack([s, c])])[:dx, :dx]
+    return LinearDynamics(matrix=tuple(tuple(float(v) for v in row) for row in a.tolist()))
 
 
 def make_stepper(data_cfg):
     """Ground-truth stepper for a DataConfig."""
+    if data_cfg.datatype == "lgssm":
+        return _lgssm_dynamics(data_cfg.dx)
     if data_cfg.datatype not in DYNAMICS:
         raise NotImplementedError(
-            f"datatype={data_cfg.datatype!r}: only {sorted(DYNAMICS)} dynamics are ported"
+            f"datatype={data_cfg.datatype!r}: only {sorted(DYNAMICS)} and lgssm dynamics are "
+            "ported"
         )
     return DYNAMICS[data_cfg.datatype](**dict(data_cfg.dyn_overrides))

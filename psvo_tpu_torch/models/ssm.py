@@ -12,9 +12,13 @@ Ported: the diagonal-Gaussian model class of the FHN FIVO, Lorenz-63 PSVO
 and SVO, and Lorenz-96 FIVO slices, at any state width, with SVO's backward
 proposal q_b, and exogenous controls u_t [Di] (di > 0): q1 and f then
 condition on [x_{t−1}; u_t], their first layers [Dx + Di, H]; g, q0, q2 and
-q_b see no controls. Bootstrap proposals, known dynamics, full-covariance
-heads, Poisson/Dirac emissions and the SVO backward proposal's GRU raise
-NotImplementedError until their slices land.
+q_b see no controls. Bootstrap mode (smc.use_bootstrap, the Kalman oracle's
+model): t = 0 proposes from the prior and every later step from f, so q0,
+q1 and q2 go unused; no kernel class takes it, so it runs on CPU tensors
+only. Heads may have no hidden layer (hidden=(), the oracle's linear
+heads). Known dynamics, full-covariance heads, Poisson/Dirac emissions and
+the SVO backward proposal's GRU raise NotImplementedError until their
+slices land.
 """
 
 from __future__ import annotations
@@ -48,7 +52,6 @@ class SSM(nn.Module):
         unported = [
             name
             for name, on in (
-                ("smc.use_bootstrap", self.use_bootstrap),
                 ("smc.transition='known'", self.transition_known),
                 ("smc.qb_rnn", self.qb_rnn),
                 (f"data.emission={self.emission!r}",
@@ -70,6 +73,7 @@ class SSM(nn.Module):
             "q0": (enc, dx), "q1": (dx + self.di, dx), "q2": (enc, dx),
             "f": (dx + self.di, dx), "g": (dx, dy), "qb": (dx + dy, dx),
         }
+        self._dims = dims
         self.heads = nn.ModuleDict(
             {k: networks.MLPHead(*dims[k], self.nets[k].hidden) for k in dims}
         )
@@ -81,7 +85,7 @@ class SSM(nn.Module):
     def init(self, generator: torch.Generator) -> "SSM":
         """(Re)draw every parameter with the reference's scheme (in place)."""
         for name in ("q0", "q1", "q2", "f", "g", "qb"):
-            din, dout = self.heads[name].weights[0].shape[0], self.heads[name].mean_w.shape[1]
+            din, dout = self._dims[name]
             cfg = self.nets[name]
             fresh = networks.init_mlp_head(
                 generator, din, dout, cfg.hidden,
@@ -155,7 +159,12 @@ class SSM(nn.Module):
         return dist.mvn_diag_log_prob_cm(x, mean[:, None], scale[:, None])
 
     def propose_initial(self, y0):
-        """q0(x_0 | y_0) -> (mean, scale), feature-last."""
+        """q0(x_0 | y_0) -> (mean, scale), feature-last; bootstrap mode
+        proposes from the prior."""
+        if self.use_bootstrap:
+            mean, scale = self.prior_params()
+            shape = (*y0.shape[:-1], self.dx)
+            return mean.expand(shape), scale.expand(shape)
         return self._mean_scale("q0", y0)
 
     def q2_mean_scale(self, enc):
@@ -167,8 +176,11 @@ class SSM(nn.Module):
         """All per-step diagonal conditionals on x_prev [B, Dx, K] (and the
         step's controls u [B, Di]): (mean_q, scale_q, mean_f, scale_f), each
         [B, Dx, K]. q2_ms supplies the precomputed q2 (mean, scale) [B, Dx];
-        y_t is read only without it.
+        y_t is read only without it. Bootstrap mode proposes from f itself.
         """
+        if self.use_bootstrap:
+            mean_f, scale_f = self.transition_params_cm(x_prev, u)
+            return mean_f, scale_f, mean_f, scale_f
         x_in = self._with_control_cm(x_prev, u)
         m1, s1 = self._mean_scale_cm("q1", x_in)
         mean_f, scale_f = self._mean_scale_cm("f", x_in)

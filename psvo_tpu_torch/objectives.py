@@ -23,14 +23,23 @@ until their support terms and sweeps take them.
 The FFBSi sweep is `ops.ffbsi.FFBSiSweep`: the CUDA kernels K5/K6 for CUDA
 tensors, their plain versions for CPU tensors; SVO's sweep likewise
 `ops.svo.SVOSweep` (K12/K13), and outside `ops.svo.usable` the reference's
-scan body on CPU tensors. The segmented long-T sweep
-(`smc.ffbsi_segments > 1`), the particle-sharded sweep and the chunked
-log-joint (T − 1 ≥ 1024) wait for their slices.
+scan body on CPU tensors.
+
+Long T (`smc.ffbsi_segments` = S > 1, PSVO): the forward keeps only the
+carries at S segment boundaries (`smc.forward_filter_segmented`); the
+backward sweep walks the segments in reverse, each one replayed
+(`smc.recompute_segment`), given its own Gumbels and swept by one
+`FFBSiSweep`, under one checkpoint, so no O(T·B·K) tensor persists; t = 0
+is a one-step sweep of its own. The selected-path log-joint runs in
+512-step chunks, each under a checkpoint, whenever T − 1 is a multiple of
+512 with at least two chunks, segmented or not. The particle-sharded sweep
+waits for its slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -43,7 +52,10 @@ from psvo_tpu_torch.distributions import (
 )
 from psvo_tpu_torch.models.ssm import SSM
 from psvo_tpu_torch.ops import ffbsi, svo
-from psvo_tpu_torch.smc import FilterResult, forward_filter
+from psvo_tpu_torch.smc import (
+    FilterResult, SegmentedCache, _checkpointed, _segment_seeds, forward_filter,
+    forward_filter_segmented, recompute_segment,
+)
 
 # Time steps per chunk of the support terms when they take no gradient: the
 # transition trunk's activations of a chunk, not of all T − 1 steps, are live
@@ -102,10 +114,61 @@ def _sample_final_particles(gum, fwd: FilterResult):
 def _selected_path_log_joint(ssm: SSM, x_tilde, ys_tm):
     """log p_θ(x̃, y) [B, M] on the selected trajectories x_tilde [T, B, M, Dx]
     (the direct form; equal in value and gradient to gathering full-support
-    densities, since the selected particle is the support atom)."""
+    densities, since the selected particle is the support atom). Chunked
+    (`_logjoint_chunked`) when T − 1 is a multiple of _LOGJOINT_CHUNK with at
+    least two chunks."""
+    t_steps = x_tilde.shape[0]
+    if t_steps - 1 >= 2 * _LOGJOINT_CHUNK and (t_steps - 1) % _LOGJOINT_CHUNK == 0:
+        return _logjoint_chunked(ssm, x_tilde, ys_tm)
     lp_f = ssm.transition_log_prob(x_tilde[:-1], x_tilde[1:])
     lp_g = ssm.emission_log_prob(x_tilde, ys_tm[:, :, None, :])
     return torch.sum(lp_f, dim=0) + torch.sum(lp_g, dim=0) + ssm.prior_log_prob(x_tilde[0])
+
+
+# Time steps per chunk of the long-T log-joint (the reference's
+# `_LOGJOINT_CHUNK`): each chunk's transition and emission heads run under a
+# checkpoint, so their activations on [L, B, M, ·] exist one chunk at a time.
+_LOGJOINT_CHUNK = 512
+
+
+def _chunk_log_joint(ssm: SSM, x_prev, x_chunk, ys_chunk):
+    """Σ over one chunk's steps of log f(x_t | x_{t−1}) + log g(y_t | x_t):
+    x_prev [B, M, Dx] the step before the chunk, x_chunk [L, B, M, Dx],
+    ys_chunk [L, B, Dy] -> [B, M]."""
+    pairs_prev = torch.cat([x_prev[None], x_chunk[:-1]], dim=0)
+    lp_f = ssm.transition_log_prob(pairs_prev, x_chunk)
+    lp_g = ssm.emission_log_prob(x_chunk, ys_chunk[:, :, None, :])
+    return torch.sum(lp_f, dim=0) + torch.sum(lp_g, dim=0)
+
+
+def _logjoint_chunked(ssm: SSM, x_tilde, ys_tm):
+    """The selected-path log-joint in chunks of _LOGJOINT_CHUNK steps, each
+    under a checkpoint (the reference's `_logjoint_chunked`): the direct
+    form's value and gradient with its sums reassociated, and only one
+    chunk's activations live."""
+    length = _LOGJOINT_CHUNK
+    x0 = x_tilde[0]
+    lp0 = ssm.prior_log_prob(x0) + ssm.emission_log_prob(x0, ys_tm[0][:, None, :])
+    parts = [_checkpointed(True, functools.partial(_chunk_log_joint, ssm), x_tilde[lo - 1],
+                           x_tilde[lo:lo + length], ys_tm[lo:lo + length])
+             for lo in range(1, x_tilde.shape[0], length)]
+    return lp0 + torch.sum(torch.stack(parts), dim=0)
+
+
+def _ffbsi_sweep(ssm: SSM, x_query, xs, logws, gum, differentiable: bool):
+    """One `ffbsi.FFBSiSweep` from the queries x_query [B, M, Dx] over the
+    support xs [n, B, Dx, K] with the cumulative log-weights logws
+    [n, B, K] and Gumbels gum [n, B, M, K]: the support terms and the
+    normalized weights, which carry no gradient unless `differentiable`.
+    Returns (x_first, logp, logq, xtilde)."""
+    r, mr, c = _support_terms(ssm, xs, differentiable)
+    lwn, _ = log_normalize(logws, dim=-1)
+    if not differentiable:
+        lwn = lwn.detach()
+    # the in-sweep logp is discarded (the log-joint is recomputed on the
+    # selected paths), so its emission stream is zeros
+    return ffbsi.FFBSiSweep.apply(x_query.contiguous(), xs.contiguous(), r, mr, c,
+                                  lwn.contiguous(), torch.zeros_like(lwn), gum.contiguous())
 
 
 def _ffbsi_backward(ssm: SSM, gum_anchor, gum_scan, ys_tm, fwd: FilterResult, *,
@@ -119,21 +182,74 @@ def _ffbsi_backward(ssm: SSM, gum_anchor, gum_scan, ys_tm, fwd: FilterResult, *,
     only the selected particles' cotangents reach the filter.
     """
     x_anchor, lwn_anchor = _sample_final_particles(gum_anchor, fwd)
-    x_support = fwd.xs[:-1]
-    r, mr, c = _support_terms(ssm, x_support, differentiable_sweep)
-    lwn, _ = log_normalize(fwd.logws[:-1], dim=-1)  # [T−1, B, K]
-    if not differentiable_sweep:
-        lwn = lwn.detach()
-    # the in-sweep logp is discarded (the log-joint is recomputed below), so
-    # its emission stream is zeros
-    lg = torch.zeros_like(lwn)
-    _, _, lq_sweep, xtilde = ffbsi.FFBSiSweep.apply(
-        x_anchor.contiguous(), x_support.contiguous(), r, mr, c, lwn.contiguous(), lg,
-        gum_scan.contiguous(),
-    )
+    _, _, lq_sweep, xtilde = _ffbsi_sweep(ssm, x_anchor, fwd.xs[:-1], fwd.logws[:-1], gum_scan,
+                                          differentiable_sweep)
     smoothed = torch.cat([xtilde, x_anchor[None]], dim=0)
     logp = _selected_path_log_joint(ssm, smoothed, ys_tm)
     return smoothed, logp, lwn_anchor + lq_sweep
+
+
+def _ffbsi_backward_segmented(ssm: SSM, smc_cfg, gum_anchor, gumbels, ys_tm,
+                              fwd: FilterResult, cache: SegmentedCache, *,
+                              differentiable_sweep: bool):
+    """FFBSi over a segmented forward (the reference's
+    `_ffbsi_backward_segmented`). Returns what `_ffbsi_backward` returns.
+
+    Segment s holds the support t = 1 + s·L … s·L + L; the sweep consumes
+    t ≤ T − 2, so the last segment drops its final step (the anchors' time).
+    In reverse over segments: replay segment s (`smc.recompute_segment`),
+    form its support terms and normalized weights, draw its Gumbels
+    (`gumbels(s, lo, n)`: [n, B, M, K] for steps lo … lo + n − 1), and run
+    one `ffbsi.FFBSiSweep` (K5, K6 in the backward) from the previous
+    segment's x_first, under `smc._checkpointed`: only the carries and the
+    sweep's [L, B, M, Dx] paths persist. logq adds up across segments, and
+    the anchor's cotangent reaches the next segment through K6's d_x_anchor.
+    t = 0 is a one-step sweep through the same Function.
+    """
+    t_steps = ys_tm.shape[0]
+    seg_len = cache.seg_len
+    x_q, lwn_anchor = _sample_final_particles(gum_anchor, fwd)
+    x_anchor, logq = x_q, lwn_anchor
+
+    def segment_sweep(x_query, s, lo, n_sup):
+        xs_seg, logws_seg = recompute_segment(cache, s)
+        return _ffbsi_sweep(ssm, x_query, xs_seg[:n_sup], logws_seg[:n_sup],
+                            gumbels(s, lo, n_sup), differentiable_sweep)
+
+    pieces = []  # the segments' paths, in reverse time order
+    for s in reversed(range(len(cache.seg_x))):
+        lo = 1 + s * seg_len
+        n_sup = min(s * seg_len + seg_len, t_steps - 2) - lo + 1
+        if n_sup <= 0:
+            continue
+        x_q, _, lq, xtilde = _checkpointed(
+            smc_cfg.remat, lambda xq, s=s, lo=lo, n=n_sup: segment_sweep(xq, s, lo, n), x_q)
+        logq = logq + lq
+        pieces.append(xtilde)
+    _, _, lq0, x0_tilde = _ffbsi_sweep(ssm, x_q, cache.x0[None], cache.alpha0[None],
+                                       gumbels(None, 0, 1), differentiable_sweep)
+    smoothed = torch.cat([x0_tilde, *reversed(pieces), x_anchor[None]], dim=0)
+    logp = _selected_path_log_joint(ssm, smoothed, ys_tm)
+    return smoothed, logp, logq + lq0
+
+
+def _segment_gumbels(generator, noise, n_segments: int, batch: int, m: int, k: int):
+    """gumbels(s, lo, n) -> the Gumbels [n, B, M, K] of support steps lo …
+    lo + n − 1: the slice of the given gum_scan (noise[4]), else segment s's
+    own, from a fresh generator seeded with its seed (drawn here, from the
+    run's generator, after the anchors' Gumbels), and for t = 0 (s None)
+    one more draw from the run's generator."""
+    if noise is not None and len(noise) == 5:
+        gum_scan = noise[4]
+        return lambda s, lo, n: gum_scan[lo:lo + n]
+    seeds = _segment_seeds(generator, n_segments, False)
+    dev = generator.device
+
+    def gumbels(s, lo, n):
+        gen = generator if s is None else torch.Generator(device=dev).manual_seed(seeds[s])
+        return _gumbel(gen, (n, batch, m, k))
+
+    return gumbels
 
 
 def _predictive_mixture_logp(ssm: SSM, x_prev, logw_prev, x_query):
@@ -214,7 +330,11 @@ def make_objective(ssm: SSM, cfg: Config):
     (gum_anchor [B, M, K], gum_scan [T−1, B, M, K]) after them, for SVO the
     anchor Gumbels and the backward proposal's noise (gum_anchor, eps_svo
     [T−1, B, M, Dx]). Whatever it leaves out is drawn from the generator, the
-    filter's noise first, then in that order.
+    filter's noise first, then in that order. Segmented PSVO
+    (smc.ffbsi_segments > 1) takes the same hook, each segment its slices;
+    from the generator it draws eps0 and one seed per forward segment, then
+    gum_anchor, one seed per segment's Gumbels and t = 0's Gumbels
+    (`_segment_gumbels`), and never the whole [T−1, B, M, K] stack.
     """
     smc_cfg = cfg.smc
     if smc_cfg.objective == "iwae":
@@ -229,8 +349,7 @@ def make_objective(ssm: SSM, cfg: Config):
         )
     if smc_cfg.objective not in ("iwae", "fivo", "svo", "psvo"):
         raise ValueError(f"unknown objective {smc_cfg.objective!r}")
-    if smc_cfg.objective == "psvo" and smc_cfg.ffbsi_segments > 1:
-        raise NotImplementedError("smc.ffbsi_segments > 1 (segmented long-T PSVO) is not ported yet")
+    segmented = smc_cfg.objective == "psvo" and smc_cfg.ffbsi_segments > 1
     smoothing = smc_cfg.objective in ("svo", "psvo")
     if smoothing and ssm.di:
         raise NotImplementedError(
@@ -240,10 +359,17 @@ def make_objective(ssm: SSM, cfg: Config):
 
     def objective(generator, ys, encoder_inputs=None, noise=None,
                   controls=None) -> ObjectiveOutput:
-        fwd = forward_filter(
-            ssm, generator, ys, smc_cfg, cache=smoothing, encoder_inputs=encoder_inputs,
-            noise=None if noise is None else tuple(noise[:3]), **_controls_kw(controls),
-        )
+        filter_noise = None if noise is None else tuple(noise[:3])
+        if segmented:
+            fwd, seg_cache = forward_filter_segmented(
+                ssm, generator, ys, smc_cfg, smc_cfg.ffbsi_segments,
+                encoder_inputs=encoder_inputs, noise=filter_noise, **_controls_kw(controls),
+            )
+        else:
+            fwd = forward_filter(
+                ssm, generator, ys, smc_cfg, cache=smoothing, encoder_inputs=encoder_inputs,
+                noise=filter_noise, **_controls_kw(controls),
+            )
         metrics = {
             "log_z_fwd": torch.mean(fwd.log_z),
             "ess_mean": torch.mean(fwd.ess),
@@ -269,18 +395,23 @@ def make_objective(ssm: SSM, cfg: Config):
             metrics["elbo_svo"] = torch.mean(elbo)
             return ObjectiveOutput(-torch.mean(elbo), elbo, metrics, x_tilde, fwd)
 
-        if noise is not None and len(noise) == 5:
-            gum_anchor, gum_scan = noise[3], noise[4]
-        elif generator is None:
+        given = noise is not None and len(noise) == 5
+        if not given and generator is None:
             raise ValueError("psvo: pass a generator or the backward Gumbels in noise")
-        else:
-            gum_anchor = _gumbel(generator, (batch, m, k))
-            gum_scan = _gumbel(generator, (t_steps - 1, batch, m, k))
+        gum_anchor = noise[3] if given else _gumbel(generator, (batch, m, k))
         direct_bound = smc_cfg.psvo_bound == "direct"
-        x_tilde, logp_joint, logq_pmf = _ffbsi_backward(
-            ssm, gum_anchor, gum_scan, ys.transpose(0, 1), fwd,
-            differentiable_sweep=direct_bound,
-        )
+        if segmented:
+            gumbels = _segment_gumbels(generator, noise, smc_cfg.ffbsi_segments, batch, m, k)
+            x_tilde, logp_joint, logq_pmf = _ffbsi_backward_segmented(
+                ssm, smc_cfg, gum_anchor, gumbels, ys.transpose(0, 1), fwd, seg_cache,
+                differentiable_sweep=direct_bound,
+            )
+        else:
+            gum_scan = noise[4] if given else _gumbel(generator, (t_steps - 1, batch, m, k))
+            x_tilde, logp_joint, logq_pmf = _ffbsi_backward(
+                ssm, gum_anchor, gum_scan, ys.transpose(0, 1), fwd,
+                differentiable_sweep=direct_bound,
+            )
         # the sampled-trajectory bound; log q̃ is a pmf over the K-particle
         # support, so it carries a support-size offset (reference docstring)
         direct = torch.logsumexp(logp_joint - logq_pmf, dim=-1) - math.log(m)

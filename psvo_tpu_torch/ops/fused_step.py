@@ -117,12 +117,15 @@ _K14, _K15 = 0, 1  # psvo_step_max_active's kernel argument
 
 def usable(ssm, cfg) -> bool:
     """Whether (ssm, smc-config) is in the kernel's class; with controls
-    (ssm.di > 0) while Dx + Di <= 7."""
+    (ssm.di > 0) while Dx + Di <= 7. Not bootstrap mode, whose proposal is f
+    (the kernels draw from the fused q1/q2 proposal and weight by f, g and
+    q), as the reference's gate (`pallas_step.usable`)."""
     k = cfg.n_particles
     hidden = ssm.nets["q1"].hidden
     nets = [ssm.nets[n] for n in ("q1", "f", "g")]
     return (
-        cfg.resampling == "systematic"
+        not cfg.use_bootstrap
+        and cfg.resampling == "systematic"
         and cfg.ess_threshold >= 1.0
         and cfg.use_stop_gradient
         and (ssm.dx, ssm.dy) in KERNEL_DIMS

@@ -212,8 +212,8 @@ def usable(ssm, m: int) -> bool:
     both designs, and K12's split design's (`k12_ok`; both split designs
     fit every shape the chain designs do, so the class is the chain
     designs', as before the splits); (Dx, Dy) in {(2, 2), (3, 3)}; a
-    Gaussian emission; no qb GRU, known dynamics or controls; 1 <= m <=
-    MAX_M."""
+    Gaussian emission; no qb GRU, known dynamics, controls or bootstrap
+    mode; 1 <= m <= MAX_M."""
     hidden = ssm.nets["qb"].hidden
     if not (len(hidden) >= 1 and hidden[0] in HIDDEN_WIDTHS
             and all(h == hidden[0] for h in hidden)):
@@ -222,7 +222,7 @@ def usable(ssm, m: int) -> bool:
     return (
         (ssm.dx, ssm.dy) in KERNEL_DIMS
         and 1 <= m <= MAX_M
-        and not (ssm.qb_rnn or ssm.transition_known or ssm.di)
+        and not (ssm.qb_rnn or ssm.transition_known or ssm.di or ssm.use_bootstrap)
         and ssm.emission in ("linear_gaussian", "identity_gaussian")
         and all(ssm.nets[n].hidden == hidden and ssm.nets[n].activation == "relu"
                 and ssm.nets[n].cov_type == "const" for n in _NETS)

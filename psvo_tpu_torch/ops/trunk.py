@@ -137,12 +137,15 @@ def usable(ssm, cfg) -> bool:
     resampling at every step, stop-gradient FIVO, relu q1/f/g trunks of one
     uniform instantiated width, an instantiated (Dx, Dy), K that K7 holds
     and K9 tiles, and the weights and tiles in one CTA's shared memory. No
-    controls (ssm.di > 0): K9 and K10 read no control term yet."""
+    controls (ssm.di > 0): K9 and K10 read no control term yet. Not
+    bootstrap mode, as the reference's gate (`pallas_trunk.usable`): K9
+    draws from q1/q2 and weights by f, g and q."""
     k = cfg.n_particles
     hidden = ssm.nets["q1"].hidden
     nets = [ssm.nets[n] for n in ("q1", "f", "g")]
     return (
-        cfg.resampling == "systematic"
+        not cfg.use_bootstrap
+        and cfg.resampling == "systematic"
         and cfg.ess_threshold >= 1.0
         and cfg.use_stop_gradient
         and not ssm.di

@@ -26,6 +26,20 @@ Three paths, chosen from what the call can observe:
   tensors only: a CUDA tensor outside the kernel classes raises
   NotImplementedError rather than run plain PyTorch on the card.
 
+Bootstrap mode (smc.use_bootstrap) proposes from the prior at t = 0 and
+from f after, so α0 = log g and α_t = log g; no kernel class takes it (the
+gates exclude it, as the reference's do), so it runs the plain body on CPU
+tensors and raises on CUDA ones.
+
+Long T: `forward_filter_segmented` keeps only the carries entering each of
+S segments (`SegmentedCache`). In the whole-scan class each segment is one
+`fused_step.ScanForward` (K1, K4 in the backward) from its carry over its
+rows of the coefficient tensor; otherwise, on CPU tensors, the plain body
+runs per segment. Under smc.remat each segment runs under
+`torch.utils.checkpoint`, and draws its noise from a seed of its own inside
+the checkpoint, so that only the carries persist. `recompute_segment`
+replays a segment through the same code, bit for bit.
+
 Controls [B, T, Di] (data.di > 0) are exogenous inputs: step t's q1 and f
 see [x_{t−1}; u_t], so the carry into step t holds u_t (`controls=`; zeros
 when None, as the reference's `_controls_tm`). The plain body concatenates
@@ -74,12 +88,16 @@ class FilterResult:
 
 def _init_t0(ssm: SSM, eps0, y0, enc0):
     """t=0: x0 = mean0 + scale0·eps0 ~ q0(·|y0), weighted against the prior:
-    α0 = log p(x0) + log g(y0|x0) − log q0(x0)."""
+    α0 = log p(x0) + log g(y0|x0) − log q0(x0); in bootstrap mode q0 is the
+    prior, the two cancel and α0 = log g(y0|x0)."""
     mean0, scale0 = ssm.propose_initial(enc0)  # [B, Dx]
     x0 = mean0[:, :, None] + scale0[:, :, None] * eps0  # [B, Dx, K]
+    log_g0 = ssm.emission_log_prob_cm(x0, y0)
+    if ssm.use_bootstrap:
+        return x0, log_g0
     alpha0 = (
         ssm.prior_log_prob_cm(x0)
-        + ssm.emission_log_prob_cm(x0, y0)
+        + log_g0
         - mvn_diag_log_prob_cm(x0, mean0[:, :, None], scale0[:, :, None])
     )
     return x0, alpha0
@@ -93,8 +111,9 @@ def _controls_tm(controls, batch: int, t_steps: int, di: int, device):
 
 
 def _q2_tm(ssm: SSM, cfg: SMCConfig, enc_tm):
-    """The encoder proposal q2 for all T in one batched call, or None."""
-    if cfg.use_2q:
+    """The encoder proposal q2 for all T in one batched call, or None (also
+    in bootstrap mode, which proposes from f)."""
+    if cfg.use_2q and not cfg.use_bootstrap:
         return ssm.q2_mean_scale(enc_tm)  # 2x [T, B, Dx]
     return None
 
@@ -119,11 +138,15 @@ def _make_step_body(ssm: SSM, cfg: SMCConfig):
             ess = effective_sample_size(logw, dim=-1)
         mean_q, scale_q, mean_f, scale_f = ssm.step_heads_cm(x, y_t, q2_t, ctrl_t)
         x_new = mean_q + scale_q * eps_t  # [B, Dx, K]
-        alpha = (
-            mvn_diag_log_prob_cm(x_new, mean_f, scale_f)
-            + ssm.emission_log_prob_cm(x_new, y_t)
-            - mvn_diag_log_prob_cm(x_new, mean_q, scale_q)
-        )
+        log_g = ssm.emission_log_prob_cm(x_new, y_t)
+        if ssm.use_bootstrap:  # q = f: the densities cancel
+            alpha = log_g
+        else:
+            alpha = (
+                mvn_diag_log_prob_cm(x_new, mean_f, scale_f)
+                + log_g
+                - mvn_diag_log_prob_cm(x_new, mean_q, scale_q)
+            )
         logw_new = logw + alpha
         ell = _lse(logw_new) - _lse(logw)
         fmean = torch.einsum("bk,bdk->bd", torch.softmax(logw_new, dim=-1), x_new)
@@ -146,7 +169,7 @@ def _draw_noise(generator, cfg: SMCConfig, t_steps: int, batch: int, dx: int):
 
 
 def _fused_preamble(ssm: SSM, generator, ys, cfg: SMCConfig, encoder_inputs, streams,
-                    controls=None):
+                    controls=None, segmented: bool = False):
     """What both kernel paths compute before their steps (the reference's
     `smc._fused_preamble`): the packed heads, t = 0 and each step's
     coefficients, in plain tensor code, and the noise. With controls
@@ -156,7 +179,8 @@ def _fused_preamble(ssm: SSM, generator, ys, cfg: SMCConfig, encoder_inputs, str
     Noise: `streams` = (eps0, eps_scan, u_scan) replays given draws (u_scan
     the sorted positions); otherwise eps0 comes from `generator` and, with
     cfg.kernel_rng, a two-word seed taken from the generator for the kernel
-    to draw from (eps_scan and u_scan None), else the streams are drawn too.
+    to draw from (eps_scan and u_scan None), else the streams are drawn too;
+    `segmented` draws eps0 alone (each segment draws its own noise).
     Returns (consts, coef, x0, alpha0, eps_scan, u_scan, seed).
     """
     batch, t_steps, _ = ys.shape
@@ -170,6 +194,8 @@ def _fused_preamble(ssm: SSM, generator, ys, cfg: SMCConfig, encoder_inputs, str
     seed = eps_scan = u_scan = None
     if streams is not None:
         eps0, eps_scan, u_scan = streams
+    elif segmented:
+        eps0 = torch.randn((batch, dx, k), generator=generator, device=generator.device)
     elif cfg.kernel_rng:
         dev = generator.device
         eps0 = torch.randn((batch, dx, k), generator=generator, device=dev)
@@ -435,3 +461,266 @@ def forward_filter(
         logws=torch.stack(logws) if cache else None,
         filtered_means=torch.stack([fmean0, *fmeans]),
     )
+
+
+# ---------------------------------------------------------------------------
+# Segmented filtering: the long-T path
+#
+# FFBSi needs the whole forward history, O(T·B·K·Dx). The segmented forward
+# keeps only the carries entering each of S segments; `recompute_segment`
+# replays a segment from its carry, on the same noise and through the same
+# code, bit for bit, just before the backward sweep consumes it.
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SegmentedCache:
+    """What replays any forward segment bit for bit (the reference's
+    `smc.SegmentedCache`): the carries entering each segment and the
+    segment's own function, which holds its noise (a seed per segment, or
+    the slices of given streams) and, on the kernel path, its rows of the
+    coefficient tensor."""
+
+    x0: torch.Tensor  # [B, Dx, K] initial particles
+    alpha0: torch.Tensor  # [B, K] t = 0 log-weights
+    seg_x: list  # S x [B, Dx, K], the carry entering each segment
+    seg_logw: list  # S x [B, K]
+    seg_len: int  # L = (T − 1) / S steps a segment
+    fused: bool  # the kernel path (K1/K4 per segment) or the plain step body
+    segment: object  # segment(s, x, logw, cache) -> (x_last, logw_last, stats, xs, logws)
+
+
+def _segment_seeds(generator, n_segments: int, kernel_rng: bool):
+    """One seed per segment from the run's generator, in one draw: K1's
+    two-word seed under kernel_rng (its Philox counter restarts at t = 0 in
+    every launch, so segments sharing one seed would repeat segment 0's
+    noise), else the seed of a fresh `torch.Generator` for the segment's
+    streams (drawn inside the segment's function, so a checkpoint's replay
+    draws them again; checkpointing restores only the default generators)."""
+    dev = generator.device
+    if kernel_rng:
+        words = torch.randint(0, 2**32, (n_segments, 2), generator=generator, device=dev)
+        return [tuple(int(v) for v in row) for row in words.tolist()]
+    return torch.randint(0, 2**62, (n_segments,), generator=generator, device=dev).tolist()
+
+
+def _segment_streams(cfg: SMCConfig, seed, seg_len: int, batch: int, dx: int, device):
+    """A segment's (eps [L, B, Dx, K], u [L, B, K]) from its seed, drawn as
+    `_draw_noise` draws the whole run's (the reference's
+    `_segment_randomness`)."""
+    k = cfg.n_particles
+    gen = torch.Generator(device=device).manual_seed(seed)
+    eps = torch.randn((seg_len, batch, dx, k), generator=gen, device=device)
+    if cfg.resampling != "none":
+        u = resampling.bulk_positions(gen, seg_len, batch, k, cfg.resampling)
+    else:
+        u = torch.zeros((seg_len, batch, 1), device=device)
+    return eps, u
+
+
+def _checkpointed(remat: bool, fn, *args):
+    """fn(*args) under `torch.utils.checkpoint` (non-reentrant) when remat
+    asks for it and autograd records: only the inputs persist, and the
+    backward runs fn again. fn draws its noise from explicit generators, so
+    the default generators' states need not be kept."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 preserve_rng_state=False)
+    return fn(*args)
+
+
+def _segmented_result(ell0, alpha0, x0, stats, x_last, logw_last) -> FilterResult:
+    """The FilterResult of a segmented forward from its per-segment stats
+    [T−1, B, 2 + Dx] (ℓ, ESS, filtered mean); no particle cache."""
+    increments = torch.cat([ell0[None], stats[:, :, 0]], dim=0)
+    fmean0 = torch.einsum("bk,bdk->bd", torch.softmax(alpha0, dim=-1), x0)
+    return FilterResult(
+        log_z=torch.sum(increments, dim=0),
+        increments=increments,
+        ess=torch.cat([effective_sample_size(alpha0)[None], stats[:, :, 1]], dim=0),
+        x_last=x_last,
+        logw_last=logw_last,
+        filtered_means=torch.cat([fmean0[None], stats[:, :, 2:]], dim=0),
+    )
+
+
+def _run_segments(cfg: SMCConfig, segment, x0, alpha0, n_segments: int):
+    """Chain the segments from (x0, α0), each under `_checkpointed`. Returns
+    (seg_x, seg_logw, stats [T−1, B, 2 + Dx], x_last, logw_last)."""
+    x, logw = x0, alpha0
+    seg_x, seg_logw, stats = [], [], []
+    for s in range(n_segments):
+        seg_x.append(x)
+        seg_logw.append(logw)
+        x, logw, st = _checkpointed(cfg.remat,
+                                    lambda x_, lw_, s=s: segment(s, x_, lw_, False)[:3], x, logw)
+        stats.append(st)
+    return seg_x, seg_logw, torch.cat(stats, dim=0), x, logw
+
+
+def _forward_filter_segmented_fused(
+    ssm: SSM,
+    generator: Optional[torch.Generator],
+    ys,
+    cfg: SMCConfig,
+    n_segments: int,
+    *,
+    encoder_inputs=None,
+    streams: Optional[tuple] = None,
+    controls=None,
+) -> tuple[FilterResult, SegmentedCache]:
+    """The segmented forward of the whole-scan class: `_fused_preamble` for
+    all T (t = 0 and the K-independent coefficient rows), then each segment
+    one `fused_step.ScanForward` (K1, and K4 in the backward) from the
+    segment's carry over its L rows of `coef`, under `_checkpointed`. What
+    persists is the boundary carries, `coef` and the seeds: the kernel's
+    O(L·B·K) residuals and the segment's streams live one segment at a time.
+
+    Noise: `streams` = (eps0, eps_scan, u_scan) replays given draws, each
+    segment its slice; otherwise eps0 comes from `generator`, then one seed
+    per segment (`_segment_seeds`: K1's own under cfg.kernel_rng, else the
+    seed of the segment's streams).
+    """
+    batch, t_steps, _ = ys.shape
+    dx = ssm.dx
+    seg_len = (t_steps - 1) // n_segments
+    kernel_rng = cfg.kernel_rng and streams is None
+    consts, coef, x0, alpha0, _, _, _ = _fused_preamble(
+        ssm, generator, ys, cfg, encoder_inputs, streams, controls, segmented=True
+    )
+    seeds = None if streams is not None else _segment_seeds(generator, n_segments, kernel_rng)
+    x0, alpha0 = x0.contiguous(), alpha0.contiguous()
+    packed, sconst = consts["packed"], consts["sconst"]
+
+    def segment(s, x, logw, cache):
+        rows = slice(s * seg_len, (s + 1) * seg_len)
+        eps = pos = seed = None
+        if streams is not None:
+            eps, pos = streams[1][rows], streams[2][rows]
+        elif kernel_rng:
+            seed = seeds[s]
+        else:
+            eps, pos = _segment_streams(cfg, seeds[s], seg_len, batch, dx, x.device)
+        if torch.is_grad_enabled():
+            outs = fused_step.ScanForward.apply(x, logw, coef[rows], packed, sconst, consts, eps,
+                                                pos, seed, cache)
+        else:
+            outs = fused_step.scan_forward(x, logw, coef[rows], consts, eps=eps, positions=pos,
+                                           seed=seed, cache=cache)
+        return (*outs[:3], *(outs[3:5] if cache else (None, None)))
+
+    seg_x, seg_logw, stats, x_last, logw_last = _run_segments(cfg, segment, x0, alpha0,
+                                                              n_segments)
+    ell0 = _lse(alpha0) - math.log(cfg.n_particles)
+    result = _segmented_result(ell0, alpha0, x0, stats, x_last, logw_last)
+    return result, SegmentedCache(x0, alpha0, seg_x, seg_logw, seg_len, True, segment)
+
+
+def _forward_filter_segmented_plain(
+    ssm: SSM,
+    generator: Optional[torch.Generator],
+    ys,
+    cfg: SMCConfig,
+    n_segments: int,
+    *,
+    encoder_inputs=None,
+    streams: Optional[tuple] = None,
+    controls=None,
+) -> tuple[FilterResult, SegmentedCache]:
+    """The segmented forward of the plain step body (CPU tensors only), the
+    reference's `forward_filter_segmented`: each segment runs
+    `_make_step_body` from its carry, under `_checkpointed`. Noise as in
+    `_forward_filter_segmented_fused` without the kernel's own seed."""
+    batch, t_steps, _ = ys.shape
+    k, dx = cfg.n_particles, ssm.dx
+    seg_len = (t_steps - 1) // n_segments
+    ys_tm = ys.transpose(0, 1)
+    enc_tm = encoder_inputs.transpose(0, 1) if encoder_inputs is not None else ys_tm
+    q2 = _q2_tm(ssm, cfg, enc_tm)
+    ctrl_tm = _controls_tm(controls, batch, t_steps, ssm.di, ys.device)
+    if streams is not None:
+        eps0, seeds = streams[0], None
+    else:
+        eps0 = torch.randn((batch, dx, k), generator=generator, device=generator.device)
+        seeds = _segment_seeds(generator, n_segments, False)
+    x0, alpha0 = _init_t0(ssm, eps0, ys_tm[0], enc_tm[0])
+    body = _make_step_body(ssm, cfg)
+
+    def segment(s, x, logw, cache):
+        rows = slice(s * seg_len, (s + 1) * seg_len)
+        if streams is not None:
+            eps, u = streams[1][rows], streams[2][rows]
+        else:
+            eps, u = _segment_streams(cfg, seeds[s], seg_len, batch, dx, x.device)
+        carry, stats, xs, logws = (x, logw), [], [], []
+        for j in range(seg_len):
+            t = 1 + s * seg_len + j
+            q2_t = (q2[0][t], q2[1][t]) if q2 is not None else None
+            carry, (ell, ess, fmean) = body(carry, (ys_tm[t], q2_t, ctrl_tm[t], eps[j], u[j]))
+            stats.append(torch.cat([ell[:, None], ess[:, None], fmean], dim=-1))
+            xs.append(carry[0])
+            logws.append(carry[1])
+        if not cache:
+            return (*carry, torch.stack(stats), None, None)
+        return (*carry, torch.stack(stats), torch.stack(xs), torch.stack(logws))
+
+    seg_x, seg_logw, stats, x_last, logw_last = _run_segments(cfg, segment, x0, alpha0,
+                                                              n_segments)
+    ell0 = _lse(alpha0) - math.log(k)
+    result = _segmented_result(ell0, alpha0, x0, stats, x_last, logw_last)
+    return result, SegmentedCache(x0, alpha0, seg_x, seg_logw, seg_len, False, segment)
+
+
+def forward_filter_segmented(
+    ssm: SSM,
+    generator: Optional[torch.Generator],
+    ys,
+    cfg: SMCConfig,
+    n_segments: int,
+    *,
+    encoder_inputs=None,
+    noise: Optional[tuple] = None,
+    controls=None,
+) -> tuple[FilterResult, SegmentedCache]:
+    """Forward pass that keeps the carries at S = n_segments segment
+    boundaries instead of the per-step cache; requires (T − 1) % S == 0.
+    Returns (FilterResult without xs/logws, SegmentedCache).
+
+    The whole-scan class runs K1 per segment (`_forward_filter_segmented_fused`;
+    their plain versions on CPU tensors); a CUDA tensor outside it, or with
+    `fused_step.SCAN_FUSED` off (no per-step segmented route), raises. CPU
+    tensors outside it, or with the noise hook, run the plain step body, as
+    the unsegmented `forward_filter` does. noise = (eps0, eps_scan, u_scan)
+    over all T replaces the draws.
+    """
+    batch, t_steps, _ = ys.shape
+    if (t_steps - 1) % n_segments:
+        raise ValueError(f"T-1={t_steps - 1} not divisible by {n_segments} segments")
+    fused = t_steps >= 2 and fused_step.usable(ssm, cfg)
+    kw = dict(encoder_inputs=encoder_inputs, streams=noise, controls=controls)
+    if ys.is_cuda:
+        if not fused:
+            raise NotImplementedError(
+                "this configuration has no CUDA kernel yet (outside ops.fused_step.usable); "
+                "run the segmented filter on CPU tensors"
+            )
+        if not fused_step.SCAN_FUSED:
+            raise NotImplementedError(
+                "segmented filtering with fused_step.SCAN_FUSED off has no CUDA route yet "
+                "(the per-step kernels K14/K15 do not serve segments)"
+            )
+        return _forward_filter_segmented_fused(ssm, generator, ys, cfg, n_segments, **kw)
+    if fused and fused_step.SCAN_FUSED and noise is None:
+        return _forward_filter_segmented_fused(ssm, generator, ys, cfg, n_segments, **kw)
+    return _forward_filter_segmented_plain(ssm, generator, ys, cfg, n_segments, **kw)
+
+
+def recompute_segment(cache: SegmentedCache, s: int):
+    """Re-run forward segment s from its stored carry, through the code that
+    ran it (K1 with its cache on the kernel path) on the same noise. Returns
+    (xs [L, B, Dx, K], logws [L, B, K]), the filter's cache at t = 1 + s·L …
+    s·L + L, bit for bit the forward's. Differentiable; the caller
+    checkpoints it (the objective checkpoints each segment's replay together
+    with its sweep)."""
+    out = cache.segment(s, cache.seg_x[s], cache.seg_logw[s], True)
+    return out[3], out[4]

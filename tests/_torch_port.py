@@ -13,6 +13,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from psvo_tpu import config as jconfig
@@ -48,6 +49,16 @@ def models(jcfg, tcfg, seed=0):
     return jssm, params, tssm
 
 
+@pytest.fixture
+def psvo_interpret(monkeypatch):
+    """The reference's whole-scan, resampling and FFBSi Pallas kernels in
+    interpret mode for one test: the PSVO kernel path on the CPU."""
+    from psvo_tpu.ops import pallas_ffbsi, pallas_resample, pallas_step
+
+    for mod in (pallas_ffbsi, pallas_resample, pallas_step):
+        monkeypatch.setattr(mod, "_INTERPRET", True)
+
+
 def key_noise(key, batch, t_steps, dx, k, method="systematic"):
     """(eps0, eps_scan, u_scan) as numpy, derived from `key` as the
     reference's forward_filter derives them."""
@@ -75,6 +86,30 @@ def psvo_noise(key, batch, t_steps, dx, k, m):
     return to_torch((*key_noise(k_fwd, batch, t_steps, dx, k), gum_anchor, gum_scan))
 
 
+def segmented_psvo_noise(key, batch, t_steps, dx, k, m, n_segments, method="systematic"):
+    """Segmented PSVO's draws from `key`, as the reference derives them, in
+    the shape of `psvo_noise`: the filter's eps0 and one key pair per segment
+    (`smc.forward_filter_segmented`, smc.py:836-839, and its fused form's
+    preamble), each segment's (ε, u) from `smc._segment_randomness`
+    (smc.py:231) laid end to end as eps_scan and u_scan; then the Gumbels of
+    `objectives._ffbsi_backward_segmented` (objectives.py:599-603, 650,
+    694), one key per support step, the same as the unsegmented sweep's."""
+    from psvo_tpu import objectives as jobjectives
+
+    k_fwd, k_bwd = jax.random.split(key)
+    k0, k_prop, k_res = jax.random.split(k_fwd, 3)
+    eps0 = jax.random.normal(k0, (batch, dx, k))
+    seg_len = (t_steps - 1) // n_segments
+    eps, u = [], []
+    for kp, kr in zip(jax.random.split(k_prop, n_segments), jax.random.split(k_res, n_segments)):
+        eps.append(jax.random.normal(kp, (seg_len, batch, dx, k)))
+        u.append(j_resampling.bulk_positions(kr, seg_len, batch, k, method))
+    k_anchor, k_cat = jax.random.split(k_bwd)
+    gum_anchor = jax.random.gumbel(k_anchor, (batch, m, k))
+    gum_scan = jobjectives._gumbel_from_keys(jax.random.split(k_cat, t_steps - 1), (batch, m, k))
+    return to_torch((eps0, np.concatenate(eps), np.concatenate(u), gum_anchor, gum_scan))
+
+
 def svo_noise(key, batch, t_steps, dx, k, m):
     """The SVO objective's draws from `key`, as the reference derives them:
     (eps0, eps_scan, u_scan) of the filter from the first half of the key,
@@ -98,3 +133,14 @@ def observations(batch, t_steps, dy=2, seed=1):
 
 def assert_close(got, want, tol):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=tol, atol=tol)
+
+
+def assert_grads_close(got_tree, want_tree, rtol, atol):
+    """Every leaf of the port's gradient tree (`bridge.grads_to_numpy`)
+    against the reference's `jax.grad` tree, named by its path on failure."""
+    flat_want, _ = jax.tree_util.tree_flatten_with_path(want_tree)
+    flat_got = jax.tree_util.tree_leaves(got_tree)
+    assert len(flat_got) == len(flat_want)
+    for (path, want), got in zip(flat_want, flat_got):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=rtol, atol=atol,
+                                   err_msg=jax.tree_util.keystr(path))

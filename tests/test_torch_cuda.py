@@ -1517,3 +1517,89 @@ def test_cuda_controls_outside_the_kernel_classes_raise():
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, di=2))
         with pytest.raises(NotImplementedError, match="controls"):
             make_objective(init_ssm(cfg, torch.Generator().manual_seed(0), device=dev), cfg)
+
+
+def test_cuda_bootstrap_model_raises():
+    """A bootstrap model lies outside every kernel class (its proposal is f),
+    so on CUDA tensors the filter raises rather than run the kernels' model
+    or plain PyTorch on the card; so does a segmented PSVO model's."""
+    from psvo_tpu_torch.objectives import make_objective
+    from psvo_tpu_torch.smc import forward_filter
+
+    dev = _cuda()
+    for preset, shape in (("fhn_fivo_k1024_bench", (2, 5, 2)),
+                          ("lorenz96_fivo_k8192_sharded", (2, 5, 40))):
+        cfg = PRESETS[preset]
+        cfg = dataclasses.replace(cfg, smc=dataclasses.replace(cfg.smc, use_bootstrap=True))
+        ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+        with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+            forward_filter(ssm, torch.Generator(device=dev), torch.zeros(shape, device=dev),
+                           cfg.smc)
+    cfg = _small_cfg("lorenz63_psvo_k1024", use_bootstrap=True, ffbsi_segments=5)
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+        make_objective(ssm, cfg)(torch.Generator(device=dev), torch.zeros((2, 6, 3), device=dev))
+
+
+def _seg_noise(dev, t, b, k, m, dx=3):
+    g = torch.Generator(device=dev).manual_seed(11)
+    from psvo_tpu_torch.objectives import _gumbel
+
+    u0 = torch.rand((t - 1, b), generator=g, device=dev)
+    gum = _gumbel(g, (t, b, m, k))
+    return (torch.randn((b, dx, k), generator=g, device=dev),
+            torch.randn((t - 1, b, dx, k), generator=g, device=dev),
+            fused_step.systematic_positions(u0, k), gum[0], gum[1:])
+
+
+@pytest.mark.parametrize("bound", ["forward", "direct"])
+def test_cuda_segmented_psvo_matches_unsegmented(bound):
+    """Segmented PSVO (S = 4) against S = 1 on the card, on the same streams
+    and Gumbels (T = 17, B = 4, K = 128, M = 8): the forward's log Ẑ,
+    increments and last particles, each replayed segment and the smoothed
+    paths bit-equal; the loss within 1e-6 and every gradient leaf within
+    1e-4 relative L2 (the sums are only reassociated); K1, K4, K5 and K6
+    each launched, no plain version called."""
+    from psvo_tpu_torch import smc
+    from psvo_tpu_torch.objectives import make_objective
+
+    dev = _cuda()
+    t, b, m = 17, 4, 8
+    cfg = _small_cfg("lorenz63_psvo_k1024", psvo_bound=bound, n_smoothing_particles=m)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, t_steps=t))
+    noise = _seg_noise(dev, t, b, 128, m)
+    ys = torch.randn((b, t, 3), generator=torch.Generator(device=dev).manual_seed(2),
+                     device=dev) * 5.0
+    seg_cfg = dataclasses.replace(cfg, smc=dataclasses.replace(cfg.smc, ffbsi_segments=4))
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    with torch.no_grad():
+        whole = smc.forward_filter(ssm, None, ys, cfg.smc, cache=True, noise=noise[:3])
+        fwd, cache = smc.forward_filter_segmented(ssm, None, ys, seg_cfg.smc, 4, noise=noise[:3])
+        for name in ("log_z", "increments", "x_last", "logw_last"):
+            assert torch.equal(getattr(fwd, name), getattr(whole, name)), name
+        for s in range(4):
+            xs, logws = smc.recompute_segment(cache, s)
+            assert torch.equal(xs, whole.xs[1 + 4 * s:5 + 4 * s])
+            assert torch.equal(logws, whole.logws[1 + 4 * s:5 + 4 * s])
+    plain = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+             ffbsi.ffbsi_forward_reference, ffbsi.ffbsi_backward_reference)
+    kernels = (fused_step.scan_forward, fused_step.scan_backward, ffbsi.ffbsi_forward,
+               ffbsi.ffbsi_backward)
+    calls = [f.calls for f in plain]
+    outs, grads = [], []
+    for c in (cfg, seg_cfg):
+        launches = [f.launches for f in kernels]
+        out = make_objective(ssm, c)(None, ys, noise=noise)
+        for p in ssm.parameters():
+            p.grad = None
+        out.loss.backward()
+        assert all(f.launches > n for f, n in zip(kernels, launches))
+        outs.append(out)
+        grads.append([p.grad.clone() for p in ssm.parameters() if p.grad is not None])
+    assert [f.calls for f in plain] == calls
+    assert torch.equal(outs[1].smoothed, outs[0].smoothed)
+    loss = [float(o.loss.detach()) for o in outs]
+    assert abs(loss[1] - loss[0]) <= 1e-6 * abs(loss[0])
+    assert len(grads[0]) == len(grads[1])
+    for a, w in zip(grads[1], grads[0]):
+        assert _rel(a, w) <= 1e-4

@@ -107,8 +107,14 @@ def test_lorenz63_stepper_matches_reference(integrator):
     assert_close(got.step(T(xt)), want.step(xt), 1e-5)
     cfg = DataConfig(datatype="lorenz63", dx=3, dy=3, dyn_overrides=(("rho", 20.0),))
     assert tdyn.make_stepper(cfg) == tdyn.Lorenz63(rho=20.0)
+    lg = jdyn.make_stepper(jdata.DataConfig(datatype="lgssm"))
+    got_lg = tdyn.make_stepper(DataConfig(datatype="lgssm"))
+    assert isinstance(got_lg, tdyn.LinearDynamics)
+    np.testing.assert_allclose(np.asarray(got_lg.matrix), np.asarray(lg.matrix), rtol=1e-6)
+    x2 = xt[..., :2].copy()
+    assert_close(got_lg.step(T(x2)), lg.step(x2), 1e-6)
     with pytest.raises(NotImplementedError):
-        tdyn.make_stepper(DataConfig(datatype="lgssm"))
+        tdyn.make_stepper(DataConfig(datatype="no_such_dynamics"))
 
 
 def test_fhn_simulator_matches_reference_on_its_noise():

@@ -29,7 +29,7 @@ import torch
 
 from psvo_tpu import infer as jinfer
 from psvo_tpu.objectives import make_objective as j_make_objective
-from psvo_tpu.ops import pallas_ffbsi, pallas_resample, pallas_step
+from psvo_tpu.ops import pallas_ffbsi
 from psvo_tpu_torch import bridge
 from psvo_tpu_torch import objectives as tobjectives
 from psvo_tpu_torch import smc as tsmc
@@ -38,7 +38,10 @@ from psvo_tpu_torch import train as ttrain
 from psvo_tpu_torch.models.ssm import init_ssm
 from psvo_tpu_torch.objectives import make_objective as t_make_objective
 from psvo_tpu_torch.ops import ffbsi, fused_step
-from tests._torch_port import assert_close, models, observations, psvo_noise, small_configs
+from tests._torch_port import (
+    assert_close, assert_grads_close, models, observations, psvo_interpret, psvo_noise,
+    small_configs,
+)
 
 torch.set_num_threads(1)
 
@@ -48,12 +51,7 @@ B, K, M, DX = 8, 128, 8, 3
 
 
 def _assert_grads_close(got_tree, want_tree):
-    flat_want, _ = jax.tree_util.tree_flatten_with_path(want_tree)
-    flat_got = jax.tree_util.tree_leaves(got_tree)
-    assert len(flat_got) == len(flat_want)
-    for (path, want), got in zip(flat_want, flat_got):
-        np.testing.assert_allclose(got, np.asarray(want), rtol=_RTOL, atol=_ATOL,
-                                   err_msg=jax.tree_util.keystr(path))
+    assert_grads_close(got_tree, want_tree, _RTOL, _ATOL)
 
 
 def _sweep_inputs(seed, t1=5):
@@ -161,13 +159,7 @@ def test_psvo_objective_matches_reference(bound):
     _assert_grads_close(bridge.grads_to_numpy(tssm), want_grads)
 
 
-@pytest.fixture
-def _interpret(monkeypatch):
-    for mod in (pallas_ffbsi, pallas_resample, pallas_step):
-        monkeypatch.setattr(mod, "_INTERPRET", True)
-
-
-def test_psvo_kernel_path_gradients_match_reference_kernels(_interpret, monkeypatch):
+def test_psvo_kernel_path_gradients_match_reference_kernels(psvo_interpret, monkeypatch):
     """The whole kernel path on CPU tensors — ScanForward (K1/K4's plain
     versions) with the particle cache, then FFBSiSweep (K5/K6's) — against
     jax.value_and_grad through the reference's whole-scan and FFBSi Pallas

@@ -13,6 +13,8 @@ runs on CPU tensors) to the reference's whole-scan Pallas kernel in
 interpret mode.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import pytest
@@ -170,6 +172,8 @@ def test_preset_is_in_the_kernel_class_and_unported_modes_raise():
     _, _, tssm = models(jcfg, tcfg)
     with pytest.raises(ValueError, match="multinomial"):
         t_make_objective(tssm, tcfg)
+    # segmented PSVO is ported, but not with controls
     _, seg_cfg = small_configs(objective="psvo", ffbsi_segments=2)
-    with pytest.raises(NotImplementedError):
-        t_make_objective(tssm, seg_cfg)
+    seg_cfg = dataclasses.replace(seg_cfg, data=dataclasses.replace(seg_cfg.data, di=1))
+    with pytest.raises(NotImplementedError, match="controls"):
+        t_make_objective(SSM(seg_cfg), seg_cfg)
