@@ -208,6 +208,33 @@ smc.ffbsi_segments S=8, one train step a call), with random weights:
       losses; S=1's peak reckoned from the shapes and, under 70 GB, 2 train
       steps at S=1, the same columns
 
+and the product surface, `psvo_tpu_torch.cli.main` called in-process as
+`python -m psvo_tpu_torch.cli` would run, results under a temporary
+directory (cli_phases), each command's K1/K4/K5/K6 launches counted and no
+plain version or K14/K15 allowed:
+
+  (am) K1 at B = n_test = 40 (the eval's and the plots' batch) against its
+      plain version for the three presets below (chosen C printed); then the
+      README's Quick start, `train --preset fhn_fivo_k128 --steps 200 --set
+      train.eval_every=50`: four finite history records, the test ELBO at
+      200 above that at 50, K1 launched 200 + 4 + 1 times (steps, evals, the
+      plots' latents) and K4 200, params.json, metrics.jsonl, history.json
+      and checkpoints/200.pt written; the train step (1000 / steps_per_sec
+      of each eval window), the eval call at B = 40, one checkpoint restore
+      and save, the peak memory, the plots note, and a profile of one more
+      train call (10 steps) by kernel
+  (an) `train --preset fhn_fivo_k1024_bench --steps 40` (evals and saves
+      every 20) with `--profile`, then `--steps 60 --resume` twice, each from
+      a fresh copy of its checkpoints: "resumed from step 40", history at 60,
+      the two resumes' parameters, moments, counters and generator at step
+      60 bit-equal, launches as in (am); the Chrome trace parses (its K1 and
+      K4 events counted and printed; the launch counters decide)
+  (ao) `train --preset lorenz63_psvo_k1024 --steps 20` (evals and saves
+      every 10; K1 and K5 23 times, K4 and K6 20), then `eval --checkpoint`:
+      finite `elbo` and `elbo_psvo_direct`, the "PSVO bounds" line on
+      stderr, the eval's parameters equal to the checkpoint's, K1 and K5
+      once
+
 Every phase prints its lines and its seconds; any failure prints its reason
 on stdout and stderr and exits non-zero. A torch.profiler window that comes
 back with no device events is run again (profiled_kernels); device time
@@ -228,6 +255,7 @@ machine with the card has none.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -2027,6 +2055,290 @@ def segmented_phases(pt, dev, card: str) -> dict:
     return dict(ak=ak, al=al)
 
 
+
+CLI_KERNELS = ("K1", "K4", "K5", "K6")
+
+
+def cli_launches(figs: dict, i: int) -> dict:
+    """Kernel i of (K1, K4, K5, K6)'s launches in the CLI's runs: fhn_fivo_k128's
+    200 steps (am), fhn_fivo_k1024_bench's 40 steps and one resume to 60 (an),
+    lorenz63_psvo_k1024's 20 steps and its eval (ao); evals and the plots'
+    latents included."""
+    return {"launches_cli": {"am": figs["am"]["launches"][i], "an": figs["an"]["launches"][i],
+                             "an_resume": figs["an"]["resume_launches"][i],
+                             "ao": figs["ao"]["launches"][i],
+                             "ao_eval": figs["ao"]["eval_launches"][i]}}
+
+
+def run_cli(cli, argv, echo: bool = True):
+    """cli.main(argv) in-process, its stdout and stderr captured: (stdout,
+    stderr). The output is printed after it, a line at a time with [cli]
+    before it (stdout only with echo). A non-zero exit or an exception fails
+    the run."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    rc, exc = None, None
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = cli.main(argv)
+        except (Exception, SystemExit) as e:  # reported below, with the output so far
+            exc = e
+    for line in (out.getvalue().splitlines() if echo or exc is not None else []):
+        print(f"[cli] {line}", flush=True)
+    for line in err.getvalue().splitlines():
+        print(f"[cli stderr] {line}", flush=True)
+    if exc is not None or rc != 0:
+        fail(f"cli {' '.join(argv)}: exit {rc}, {exc!r}")
+    return out.getvalue(), err.getvalue()
+
+
+def cli_phases(pt, dev, card: str) -> dict:
+    """Phases (am)-(ao): the product surface, `psvo_tpu_torch.cli.main`
+    driven in-process as `python -m psvo_tpu_torch.cli` would be, with the
+    results under a temporary directory: fhn_fivo_k128 (the README's Quick
+    start), fhn_fivo_k1024_bench with a profile and two resumes from one
+    checkpoint, and lorenz63_psvo_k1024 trained and then evaluated from its
+    checkpoint. Each run counts K1, K4, K5 and K6 launches and plain-version
+    calls. Returns the figures for the kernels' JSON record."""
+    import shutil
+    import tempfile
+
+    import torch
+    from psvo_tpu_torch import cli
+    from psvo_tpu_torch.ops import ffbsi, fused_step
+    from psvo_tpu_torch.utils.checkpoint import Checkpointer
+
+    kernels = (fused_step.scan_forward, fused_step.scan_backward, ffbsi.ffbsi_forward,
+               ffbsi.ffbsi_backward)
+    plain = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+             fused_step.stream_noise_reference, fused_step.ancestor_indices_reference,
+             ffbsi.ffbsi_forward_reference, ffbsi.ffbsi_backward_reference)
+    per_step = (fused_step.step_forward, fused_step.step_backward)  # K14/K15: off this path
+
+    def zero():
+        for f in plain:
+            f.calls = 0
+        for f in kernels + per_step:
+            f.launches = 0
+
+    def counted(label, argv, want):
+        """One CLI command with its launches, plain calls and peak memory."""
+        zero()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out, err = run_cli(cli, argv, echo=argv[0] == "train")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = [f.launches for f in kernels]
+        plain_calls = sum(f.calls for f in plain) + sum(f.launches for f in per_step)
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        if launches != want or plain_calls:
+            fail(f"({label}) cli {argv[0]} launched K1/K4/K5/K6 {launches} (want {want}), "
+                 f"plain versions and K14/K15 {plain_calls} times")
+        res = dict(out=out, err=err, launches=launches, peak=peak, wall=wall)
+        if argv[0] == "train":
+            path = next(ln.split(": ", 1)[1] for ln in out.splitlines()
+                        if ln.startswith("results: "))
+            res.update(path=path, history=json.load(open(os.path.join(path, "history.json"))),
+                       note=next(ln for ln in out.splitlines() if ln.startswith("plots:")))
+        return res
+
+    def history_ok(label, hist, steps):
+        keys = ("train_loss", "train_elbo", "test_elbo", "r2_1", "ess_mean", "grad_norm")
+        if [r["step"] for r in hist] != steps or not all(
+                math.isfinite(r[k]) for r in hist for k in keys):
+            fail(f"({label}) history steps {[r['step'] for r in hist]} (want {steps}) or a "
+                 f"non-finite record: {hist}")
+
+    def step_ms(hist):
+        """ms a step by the Trainer's steps_per_sec (each window ends in its eval)."""
+        return [round(1e3 / r["steps_per_sec"], 3) for r in hist]
+
+    def serve_and_checkpoint(preset, sets, ckdir):
+        """The eval call's ms at B = n_test (CUDA events, median of 5 after 2
+        warm-up), and one checkpoint restore and save (host clock to a
+        synchronize) of the preset's Trainer state."""
+        cfg = cli.apply_overrides(pt.preset(preset), sets)
+        ds, ssm = cli.build(cfg, None, dev)
+        tr = pt.Trainer(cfg, ssm)
+        gc.collect()  # no collection of earlier phases' garbage inside the timed calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if Checkpointer(ckdir, cfg.resume_hash()).restore(tr.state) is None:
+            fail(f"no checkpoint in {ckdir}")
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        Checkpointer(os.path.join(tmp, f"save_{preset}"), cfg.resume_hash()).save(tr.state, True)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        obs = ds.obs_test.to(dev)
+        gen_e = torch.Generator(device=dev).manual_seed(SEED + 62)
+        eval_ms = time_ms(lambda: tr.eval_step(gen_e, obs))
+        return dict(eval_ms=eval_ms, restore_ms=restore_ms, save_ms=save_ms,
+                    n_test=obs.shape[0]), tr, ds
+
+    def summary(label, preset, run, times):
+        print(f"[{label}] {preset} through the CLI: test ELBO by eval "
+              f"{[round(r['test_elbo'], 3) for r in run['history']]} at steps "
+              f"{[r['step'] for r in run['history']]}, R²(1) "
+              f"{[round(r['r2_1'], 3) for r in run['history']]}; K1/K4/K5/K6 launches "
+              f"{run['launches']}, no plain version; train step by eval window "
+              f"{step_ms(run['history'])} ms (1000 / steps_per_sec, each window with its eval); "
+              f"eval call {times['eval_ms']:.3f} ms at B={times['n_test']}; checkpoint restore "
+              f"{times['restore_ms']:.3f} ms, save {times['save_ms']:.3f} ms; peak device memory "
+              f"{run['peak']:.3f} GB above what was held; the command {run['wall']:.1f} s; "
+              f"{run['note']} ({card})", flush=True)
+
+    tmp = tempfile.mkdtemp(prefix="psvo_cli_")
+    root = os.path.join(tmp, "results")
+    figures = {}
+    try:
+        # (am) K1 at the eval's batch (B = n_test = 40) against its plain version, then
+        # the README's Quick start: fhn_fivo_k128, 200 steps, an eval every 50
+        for preset, rng_seed in (("fhn_fivo_k128", (9, 0xC0FFEE)),
+                                 ("fhn_fivo_k1024_bench", (9, 0xC0FFEE)),
+                                 ("lorenz63_psvo_k1024", None)):
+            cfg = pt.PRESETS[preset]
+            ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 60), device=dev)
+            ys = pt.generate_dataset(cfg.data, SEED).obs_test.to(dev)
+            own = torch.Generator(device=dev).manual_seed(SEED + 61)
+            with torch.no_grad():
+                r = check_scan(f"am {preset}", ssm, cfg, ys, own, tol=2e-4, rng_seed=rng_seed)
+            k = cfg.smc.n_particles
+            chosen = fused_step.cluster_size(
+                ys.shape[0], k, fused_step.K1_MIN_SLICE,
+                fused_step.max_active_clusters(0, dev, fused_step.prepare(ssm), k))
+            print(f"[am] K1 {preset} at B={ys.shape[0]} (the eval's batch), K={k}, C={chosen}, "
+                  f"{'in-kernel draw' if rng_seed else 'stream'}, cache: {scan_line(r)}",
+                  flush=True)
+            if not scan_ok(r, small=False):
+                fail(f"K1 at B={ys.shape[0]} ({preset}) disagrees with its plain version")
+        am = counted("am", ["train", "--preset", "fhn_fivo_k128", "--steps", "200", "--set",
+                            "train.eval_every=50", "--results-root", root],
+                     [200 + 4 + 1, 200, 0, 0])  # the steps, 4 evals, the plots' latents
+        hist = am["history"]
+        history_ok("am", hist, [50, 100, 150, 200])
+        files = [os.path.join(am["path"], f) for f in ("params.json", "metrics.jsonl",
+                                                         "history.json", "checkpoints/200.pt")]
+        if not all(os.path.exists(f) for f in files):
+            fail(f"(am) missing among {files}")
+        if not hist[-1]["test_elbo"] > hist[0]["test_elbo"]:
+            fail(f"(am) the test ELBO did not rise: {[r['test_elbo'] for r in hist]}")
+        am_t, tr, ds = serve_and_checkpoint("fhn_fivo_k128", [],
+                                            os.path.join(am["path"], "checkpoints"))
+        summary("am", "fhn_fivo_k128", am, am_t)
+        # the preset's first breakdown: one more train call of the restored Trainer's step
+        spc, bsz = tr.cfg.train.steps_per_call, tr.cfg.train.batch_size
+        pick = torch.randint(0, ds.obs_train.shape[0], (spc, bsz),
+                             generator=torch.Generator().manual_seed(SEED + 63))
+        batch = ds.obs_train[pick].to(dev)
+        gen_p = torch.Generator(device=dev).manual_seed(SEED + 64)
+        profile = device_breakdown(lambda: tr.train_step(gen_p, batch), spc, FHN_KERNELS)
+        print(f"[am] profile of one more train call ({spc} steps, B={bsz}): {profile}",
+              flush=True)
+        figures["am"] = dict(launches=am["launches"], step_ms=step_ms(hist), peak=am["peak"],
+                             profile=profile, **am_t)
+        phase_done("am")
+
+        # (an) the main path's preset: 40 steps with a profile, then two resumes to 60
+        # from fresh copies of the step-40 checkpoints
+        prof = os.path.join(tmp, "an_profile")
+        cad = ["--set", "train.eval_every=20", "--set", "train.save_every=20"]
+        an = counted("an", ["train", "--preset", "fhn_fivo_k1024_bench", "--steps", "40", *cad,
+                            "--profile", prof, "--results-root", root], [40 + 2 + 1, 40, 0, 0])
+        history_ok("an", an["history"], [20, 40])
+        resumes, payloads = [], []
+        for i in range(2):
+            copy = os.path.join(tmp, f"an_resume_{i}")
+            shutil.copytree(os.path.join(an["path"], "checkpoints"), copy)
+            res = counted("an", ["train", "--preset", "fhn_fivo_k1024_bench", "--steps", "60",
+                                 *cad, "--resume", copy, "--results-root", root],
+                          [20 + 1 + 1, 20, 0, 0])
+            if "resumed from step 40" not in res["out"]:
+                fail("(an) the resumed run did not say 'resumed from step 40'")
+            history_ok("an", res["history"], [60])
+            resumes.append(res)
+            payloads.append(torch.load(os.path.join(copy, "60.pt"), map_location="cpu",
+                                       weights_only=True))
+        a, b = payloads
+        same = dict(
+            params=all(torch.equal(a["params"][n], b["params"][n]) for n in a["params"]),
+            moments=all(torch.equal(x, y) for x, y in zip(a["opt_state"]["mu"] + a["opt_state"]["nu"],
+                                                          b["opt_state"]["mu"] + b["opt_state"]["nu"])),
+            counters=all(torch.equal(a["opt_state"][c], b["opt_state"][c])
+                         for c in ("count", "notfinite_count")),
+            generator=torch.equal(a["generator"], b["generator"]))
+        trace_path = os.path.join(prof, "trace.json")
+        with open(trace_path) as fh:
+            events = json.load(fh)["traceEvents"]
+        dev_events = [e for e in events if e.get("cat") == "kernel"]
+        n_k1 = sum("scan_forward_kernel" in e.get("name", "") for e in dev_events)
+        n_k4 = sum("scan_backward_kernel" in e.get("name", "") for e in dev_events)
+        n_events, n_dev = len(events), len(dev_events)
+        del events, dev_events  # millions of objects: let no later timing collect them
+        print(f"[an] profile: {trace_path} {os.path.getsize(trace_path) / 1e6:.1f} MB, "
+              f"{n_events} events, {n_dev} device kernels, K1 {n_k1} and K4 {n_k4} "
+              f"of them (the window traces steps 21-40: 20 each if the profiler drops none)",
+              flush=True)
+        print(f"[an] two resumes from one step-40 checkpoint, bit-equal at step 60: {same}; "
+              f"test ELBO at 60 {[r['history'][0]['test_elbo'] for r in resumes]}", flush=True)
+        if not all(same.values()):
+            fail(f"(an) two resumes from one checkpoint differ: {same}")
+        an_t = serve_and_checkpoint("fhn_fivo_k1024_bench", [],
+                                    os.path.join(tmp, "an_resume_0"))[0]
+        an["history"] = an["history"] + resumes[0]["history"]
+        summary("an", "fhn_fivo_k1024_bench", an, an_t)
+        figures["an"] = dict(launches=an["launches"], resume_launches=resumes[0]["launches"],
+                             step_ms=step_ms(an["history"]),
+                             resume_step_ms=[step_ms(r["history"])[0] for r in resumes],
+                             peak=an["peak"], trace_k1=n_k1, trace_k4=n_k4, **an_t)
+        phase_done("an")
+
+        # (ao) PSVO through the CLI: train, then eval from the checkpoint
+        ao = counted("ao", ["train", "--preset", "lorenz63_psvo_k1024", "--steps", "20", "--set",
+                            "train.eval_every=10", "--set", "train.save_every=10",
+                            "--results-root", root], [20 + 2 + 1, 20, 20 + 2 + 1, 20])
+        history_ok("ao", ao["history"], [10, 20])
+        ck = os.path.join(ao["path"], "checkpoints")
+        captured, build = {}, cli.build
+
+        def capturing_build(*args, **kw):
+            captured["out"] = build(*args, **kw)
+            return captured["out"]
+
+        cli.build = capturing_build
+        try:
+            ev = counted("ao", ["eval", "--preset", "lorenz63_psvo_k1024", "--checkpoint", ck],
+                         [1, 0, 1, 0])
+        finally:
+            cli.build = build
+        out = json.loads(ev["out"])
+        saved = torch.load(os.path.join(ck, "20.pt"), map_location="cpu", weights_only=True)
+        live = captured["out"][1].state_dict()
+        same_params = all(torch.equal(live[n].cpu(), saved["params"][n]) for n in saved["params"])
+        print(f"[ao] cli eval of the step-20 checkpoint: elbo {out['elbo']:.3f}, "
+              f"elbo_psvo_direct {out['elbo_psvo_direct']:.3f}, R²(1) {out['r2_k'][0]:.3f}; "
+              f"K1/K4/K5/K6 launches {ev['launches']}; the eval's parameters equal the "
+              f"checkpoint's {same_params}; the PSVO bounds line on stderr "
+              f"{'PSVO bounds' in ev['err']}", flush=True)
+        if not (math.isfinite(out["elbo"]) and math.isfinite(out["elbo_psvo_direct"])
+                and "PSVO bounds" in ev["err"] and same_params):
+            fail("(ao) cli eval: a non-finite bound, no PSVO bounds line, or parameters other "
+                 "than the checkpoint's")
+        ao_t = serve_and_checkpoint("lorenz63_psvo_k1024", [], ck)[0]
+        summary("ao", "lorenz63_psvo_k1024", ao, ao_t)
+        figures["ao"] = dict(launches=ao["launches"], eval_launches=ev["launches"],
+                             step_ms=step_ms(ao["history"]), peak=ao["peak"], **ao_t)
+        phase_done("ao")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return figures
+
+
 def main() -> int:
     # (a) the card
     try:
@@ -3755,6 +4067,7 @@ def main() -> int:
 
     ctrl = controls_phases(pt, dev, card)
     seg = segmented_phases(pt, dev, card)
+    cli_figs = cli_phases(pt, dev, card)
 
 
     # K3: the CDF scan and a binary search per particle; logw and u0 in, int32 indices out.
@@ -3780,17 +4093,17 @@ def main() -> int:
          "replaces": "psvo_tpu/ops/pallas_step.py:1327", "launches": k1_train,
          "max_abs_err": results["small"]["max_abs_err"], "ms": k1_ms, "plain_ms": k1_plain,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None, "cluster": k1_c,
-         "ms_c1": k1_ms_c1, **seg_launches(seg, 0)},
+         "ms_c1": k1_ms_c1, **seg_launches(seg, 0), **cli_launches(cli_figs, 0)},
         {"name": "scan_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/scan_backward.cu",
          "replaces": "psvo_tpu/ops/pallas_step.py:1425", "launches": k4_train,
          "max_abs_err": max(bwd[("small", "stream")]["maxd"]), "ms": k4_ms, "plain_ms": k4_plain,
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None, "cluster": k4_c,
-         "ms_c1": k4_ms_c1, **seg_launches(seg, 1)},
+         "ms_c1": k4_ms_c1, **seg_launches(seg, 1), **cli_launches(cli_figs, 1)},
         {"name": "ffbsi_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/ffbsi.cu",
          "replaces": "psvo_tpu/ops/pallas_ffbsi.py:294", "launches": psvo_launches[2],
          "max_abs_err": sweeps["small"][1]["max_abs_err"], "ms": k5[0], "plain_ms": k5[1],
          "bound_ms": k5_bound, "bound_by": k5_by, "library_ms": None, "ms_prev": k5[2],
-         **seg_launches(seg, 2)},
+         **seg_launches(seg, 2), **cli_launches(cli_figs, 2)},
         # K6: "ms" the paths-only branch (the forward bound's, on the path), "*_all" and
         # "*_direct" the all-cotangents branch with every cotangent and with the direct
         # bound's; "ms_prev*" the row design's, alternated with the staged one.
@@ -3805,7 +4118,7 @@ def main() -> int:
          "bound_ms_all": k6_bound["all cotangents"][0],
          "ms_direct": k6["direct bound"]["ms"], "ms_prev_direct": k6["direct bound"]["ms_prev"],
          "bound_ms_direct": k6_bound["direct bound"][0], "launches_direct": direct_launches[3],
-         **seg_launches(seg, 3)},
+         **seg_launches(seg, 3), **cli_launches(cli_figs, 3)},
         {"name": "ancestor_indices_large", "route": "cuda",
          "source": "psvo_tpu_torch/csrc/resample_gather.cu",
          "replaces": "psvo_tpu/ops/pallas_resample.py:338",

@@ -21,7 +21,9 @@ per-step filter kernels in their control mode, for FIVO and IWAE. PSVO
 runs long sequences segmented (`smc.ffbsi_segments`): the filter keeps only
 the segment boundaries and replays each segment for the backward sweep.
 Bootstrap mode and the LGSSM data (the Kalman oracle's model) run on the
-CPU.
+CPU. The product surface: the `Trainer` (`train.py`), checkpoints and
+resume, metric and result files, plots, and the command line
+(`python -m psvo_tpu_torch.cli`: presets, train, eval, data).
 """
 
 __version__ = "0.1.0"
@@ -43,7 +45,13 @@ from psvo_tpu_torch.infer import filter_posterior, smooth_posterior
 from psvo_tpu_torch.models.ssm import SSM, init_ssm
 from psvo_tpu_torch.objectives import make_objective
 from psvo_tpu_torch.smc import FilterResult, forward_filter
-from psvo_tpu_torch.train import make_eval_step, make_optimizer, make_train_step
+from psvo_tpu_torch.train import (
+    Trainer,
+    TrainState,
+    make_eval_step,
+    make_optimizer,
+    make_train_step,
+)
 
 __all__ = [
     "Config",
@@ -56,6 +64,8 @@ __all__ = [
     "SMCConfig",
     "SSM",
     "TrainConfig",
+    "TrainState",
+    "Trainer",
     "distributions",
     "filter_posterior",
     "forward_filter",

@@ -3,23 +3,29 @@
 The optimizer (`make_optimizer`: zero_nans → global-norm clip → Adam, with
 non-finite updates skipped, optax's semantics written out in tensor ops),
 the train step (`make_train_step`), and the test ELBO and k-step-ahead
-prediction R² of the reference's evaluation. The Trainer (epochs,
-checkpoints, early stopping) and the step's `debug_checks` wait for their
-slice.
+prediction R² of the reference's evaluation, and the Trainer around them
+(`TrainState`, `Trainer`: minibatches drawn as the reference draws them,
+the eval cadence, early stopping, keep_best, checkpoints, metrics and a
+profiler window). With `train.debug_checks` the step checks every tensor
+it makes for finite values and names the first that is not.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import time
 from dataclasses import dataclass
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
+import numpy as np
 import torch
 
 from psvo_tpu_torch.config import Config
 from psvo_tpu_torch.distributions import log_normalize
 from psvo_tpu_torch.models.ssm import SSM
 from psvo_tpu_torch.objectives import make_objective
+from psvo_tpu_torch.utils.rng import run_generator
 
 
 def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float) -> Callable:
@@ -117,6 +123,20 @@ def make_optimizer(cfg: Config) -> Optimizer:
     return Optimizer(lr, t.clip_norm)
 
 
+def _first_nonfinite(named) -> Optional[str]:
+    """The name of the first tensor of (name, tensor) pairs holding a NaN or
+    an inf, else None; one host sync for all of them."""
+    named = list(named)
+    finite = torch.stack([torch.isfinite(t).all() for _, t in named]).tolist()
+    return next((name for (name, _), ok in zip(named, finite) if not ok), None)
+
+
+def _require_finite(named, where: str) -> None:
+    name = _first_nonfinite(named)
+    if name is not None:
+        raise FloatingPointError(f"debug_checks: {name} is not finite {where}")
+
+
 def make_train_step(ssm: SSM, cfg: Config, optimizer: Optimizer) -> Callable:
     """train_step(generator, batch, encoder_inputs=None, noise=None,
     controls=None) -> metrics.
@@ -129,22 +149,57 @@ def make_train_step(ssm: SSM, cfg: Config, optimizer: Optimizer) -> Callable:
     calls; the metrics are the last step's. controls [B, T, Di] (with N > 1
     [N, B, T, Di]) are a di > 0 model's exogenous inputs. Metrics: the objective's, plus
     `loss` and `grad_norm` (the global norm of the raw gradients). The
-    optimizer state is `train_step.opt_state`.
+    optimizer state is `train_step.opt_state`; `train_step.single_step`
+    takes one step on a [B, T, Dy] batch whatever N is (the Trainer's tail
+    chunk, when n_steps is not a multiple of N).
+
+    With cfg.train.debug_checks (debug builds only) each step runs its
+    forward and backward under `torch.autograd.detect_anomaly(check_nan=True)`
+    and checks, in the order the step makes them, the parameters entering the
+    step, the loss, each gradient and each updated parameter for finite
+    values: the first that is not raises FloatingPointError naming it (a
+    parameter by its `named_parameters()` name), the port's counterpart of
+    the reference's checkify float checks; a NaN made inside the backward
+    raises it with anomaly mode's report of the function that made it. The
+    checks fetch values to the host, so a checked step syncs every time.
     """
-    if cfg.train.debug_checks:
-        raise NotImplementedError("train.debug_checks (checkify float checks) is not ported yet")
     objective = make_objective(ssm, cfg)
-    params = list(ssm.parameters())
+    named = list(ssm.named_parameters())
+    params = [p for _, p in named]
     opt_state = optimizer.init(params)
     n_per_call = max(int(cfg.train.steps_per_call), 1)
+    debug = cfg.train.debug_checks
 
-    def one_step(generator, ys, encoder_inputs, noise, controls):
-        for p in params:
-            p.grad = None
+    def loss_and_grads(generator, ys, encoder_inputs, noise, controls):
         out = objective(generator, ys, encoder_inputs, noise, controls)
         out.loss.backward()
+        return out
+
+    def checked_loss_and_grads(generator, ys, encoder_inputs, noise, controls):
+        _require_finite(named, "entering the step")
+        with torch.autograd.detect_anomaly(check_nan=True):
+            out = objective(generator, ys, encoder_inputs, noise, controls)
+            _require_finite([("the loss", out.loss.detach())], "after the forward")
+            try:
+                out.loss.backward()
+            except RuntimeError as exc:
+                if "nan" not in str(exc).lower():
+                    raise
+                raise FloatingPointError(f"debug_checks: the backward made a NaN: {exc}") from exc
+        _require_finite([(f"the gradient of {name}", p.grad) for name, p in named
+                         if p.grad is not None], "after the backward")
+        return out
+
+    forward_backward = checked_loss_and_grads if debug else loss_and_grads
+
+    def one_step(generator, ys, encoder_inputs=None, noise=None, controls=None):
+        for p in params:
+            p.grad = None
+        out = forward_backward(generator, ys, encoder_inputs, noise, controls)
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         optimizer.update(params, grads, opt_state)
+        if debug:
+            _require_finite(named, "after the update")
         metrics = {name: v.detach() for name, v in out.metrics.items()}
         metrics["loss"] = out.loss.detach()
         metrics["grad_norm"] = global_norm(grads)
@@ -166,6 +221,7 @@ def make_train_step(ssm: SSM, cfg: Config, optimizer: Optimizer) -> Callable:
         return metrics
 
     train_step.opt_state = opt_state
+    train_step.single_step = one_step
     return train_step
 
 
@@ -226,3 +282,246 @@ def make_eval_step(ssm: SSM, cfg: Config) -> Callable:
         return metrics
 
     return eval_step
+
+
+# ---------------------------------------------------------------------------
+# The Trainer
+# ---------------------------------------------------------------------------
+
+# objective-specific eval metrics kept in the history records when present:
+# PSVO's direct smoothing bound and EM log-joint, SVO's backward bound
+_EXTRA_METRICS = ("elbo_psvo_direct", "log_joint_smoothed", "elbo_svo")
+
+
+@dataclass
+class TrainState:
+    """What a checkpoint saves. The parameters live in `model` (trained in
+    place); `opt_state` is the train step's own `OptState`; `generator` feeds
+    the train and eval steps in order."""
+
+    model: SSM
+    opt_state: OptState
+    generator: torch.Generator
+    step: int = 0
+    best_elbo: float = -math.inf
+    evals_since_best: int = 0
+    best_params: Optional[dict] = None  # state_dict at the best test ELBO (keep_best)
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device`. To a card through pinned memory, without
+    waiting for the work queued there (a pageable copy would)."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _on_device(a, device: torch.device):
+    return None if a is None else torch.as_tensor(a).to(device)
+
+
+class Trainer:
+    """The loop around the train and eval steps (`psvo_tpu.train.Trainer`):
+    minibatches, the eval cadence, early stopping, keep_best, metric records,
+    checkpoints and a profiler window. It runs on the device of the model's
+    parameters. Between evals it never waits for the device: the minibatch
+    indices go up asynchronously and no train metric is read; each eval
+    fetches its record in one copy."""
+
+    def __init__(self, cfg: Config, ssm: SSM, *, metrics_writer=None, checkpointer=None,
+                 profile_dir=None):
+        self.cfg = cfg
+        self.ssm = ssm
+        self.device = next(ssm.parameters()).device
+        self.profile_dir = profile_dir  # torch.profiler trace target
+        self.optimizer = make_optimizer(cfg)
+        self.train_step = make_train_step(ssm, cfg, self.optimizer)
+        self.eval_step = make_eval_step(ssm, cfg)
+        self.state = TrainState(ssm, self.train_step.opt_state,
+                                run_generator(cfg, 1, self.device))
+        self.metrics_writer = metrics_writer
+        self.checkpointer = checkpointer
+        self.history: list[dict] = []
+
+    def restore(self) -> int:
+        """Restore the newest checkpoint, if any, into the live state; return
+        the step it leaves the run at."""
+        if self.checkpointer is not None:
+            restored = self.checkpointer.restore(self.state)
+            if restored is not None:
+                self.state = restored
+        return self.state.step
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(self.profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        print(f"profiler trace written to {path}", flush=True)
+
+    def run(
+        self,
+        obs_train,
+        obs_test,
+        n_steps: Optional[int] = None,
+        hidden_train=None,
+        hidden_test=None,
+        controls_train=None,
+        controls_test=None,
+    ) -> list[dict]:
+        cfg = self.cfg
+        dev = self.device
+        n_train = obs_train.shape[0]
+        bsz = min(cfg.train.batch_size, n_train)
+        steps_per_epoch = max(n_train // bsz, 1)
+        if n_steps is None:
+            # epoch accounting: each epoch one pass over shuffled
+            # without-replacement minibatches
+            if cfg.train.epochs > 0:
+                n_steps = cfg.train.epochs * steps_per_epoch
+            else:
+                n_steps = cfg.train.n_steps
+        obs_train = _on_device(obs_train, dev)
+        obs_test = _on_device(obs_test, dev)
+        # q_uses_true_x: the encoder proposal sees the true latents
+        use_true_x = cfg.smc.q_uses_true_x
+        if use_true_x and (hidden_train is None or hidden_test is None):
+            raise ValueError("q_uses_true_x=True requires hidden_train/test latents")
+        hidden_train = _on_device(hidden_train, dev) if use_true_x else None
+        hidden_test = _on_device(hidden_test, dev) if use_true_x else None
+        use_controls = self.ssm.di > 0
+        if use_controls and (controls_train is None or controls_test is None):
+            raise ValueError("data.di > 0 requires controls_train/test")
+        controls_train = _on_device(controls_train, dev) if use_controls else None
+        controls_test = _on_device(controls_test, dev) if use_controls else None
+        # made anew in each run, as the reference's: a resumed run re-draws
+        # the first minibatches of the run it continues
+        rng = np.random.default_rng(cfg.seed + 2)
+        epoch_perm = None
+
+        st = self.state
+        gen = st.generator
+        t_start = time.perf_counter()
+        steps_done_at = st.step
+        stop = False
+        spc = max(int(cfg.train.steps_per_call), 1)
+        if spc > 1:
+            # chunked stepping must land exactly on the eval/save boundaries
+            for fname, cad in (("eval_every", cfg.train.eval_every),
+                               ("save_every", cfg.train.save_every)):
+                if cad % spc != 0:
+                    raise ValueError(
+                        f"train.{fname}={cad} must be a multiple of "
+                        f"train.steps_per_call={spc}"
+                    )
+        profile_window, prof = None, None
+        if self.profile_dir:
+            # a steady-state window, past the first eval; aligned to chunks
+            w0 = cfg.train.eval_every + spc if spc > 1 else cfg.train.eval_every + 1
+            profile_window = (w0, w0 + max(10 // spc, 1) * spc)
+
+        def _indices(step):
+            nonlocal epoch_perm
+            if cfg.train.epochs > 0:
+                pos = step % steps_per_epoch
+                if pos == 0 or epoch_perm is None:
+                    epoch_perm = rng.permutation(n_train)
+                return epoch_perm[pos * bsz : (pos + 1) * bsz]
+            return rng.choice(n_train, size=bsz, replace=False)
+
+        def _take(a, idx):
+            return None if a is None else a[idx]
+
+        while st.step < n_steps and not stop:
+            chunk = min(spc, n_steps - st.step)
+            if profile_window and st.step + chunk == profile_window[0]:
+                prof = self._start_profile()
+            idx = _upload(np.stack([_indices(st.step + j) for j in range(chunk)]), dev)
+            batch, enc, ctrl = (_take(a, idx) for a in (obs_train, hidden_train, controls_train))
+            if spc == 1:
+                metrics = self.train_step(gen, batch[0], _take(enc, 0), None, _take(ctrl, 0))
+            elif chunk == spc:
+                metrics = self.train_step(gen, batch, enc, None, ctrl)
+            else:
+                # a tail chunk (n_steps not a multiple of N): the train step
+                # takes exactly N, so its steps run one at a time, in the same
+                # order on the same generator
+                for j in range(chunk):
+                    metrics = self.train_step.single_step(
+                        gen, batch[j], _take(enc, j), None, _take(ctrl, j))
+            st.step += chunk
+            if prof is not None and st.step == profile_window[1]:
+                self._stop_profile(prof)
+                prof, profile_window = None, None
+
+            if st.step % cfg.train.eval_every == 0 or st.step == n_steps:
+                ev = self.eval_step(gen, obs_test, hidden_test, None, controls_test)
+                extras = [k for k in _EXTRA_METRICS if k in ev]
+                scalars = [metrics["loss"], metrics.get("log_z_fwd", -metrics["loss"]),
+                           ev["elbo"], ev["ess_mean"], metrics["grad_norm"]]
+                scalars += [ev[k] for k in extras]
+                fetched = torch.cat([torch.stack(scalars).float(),
+                                     ev["r2_k"].float()]).tolist()  # waits for the device
+                dt = time.perf_counter() - t_start
+                steps_s = (st.step - steps_done_at) / max(dt, 1e-9)
+                t_start, steps_done_at = time.perf_counter(), st.step
+                n_sc = len(scalars)
+                r2_k = fetched[n_sc:]
+                rec = {
+                    "step": st.step,
+                    "train_loss": fetched[0],
+                    "train_elbo": fetched[1],
+                    "test_elbo": fetched[2],
+                    "r2_1": r2_k[0],
+                    "r2_k": r2_k,
+                    "ess_mean": fetched[3],
+                    "grad_norm": fetched[4],
+                    "steps_per_sec": steps_s,
+                }
+                rec.update(zip(extras, fetched[5:n_sc]))
+                self.history.append(rec)
+                if self.metrics_writer is not None:
+                    self.metrics_writer.write(rec)
+                print(
+                    f"step {rec['step']:6d}  train_elbo {rec['train_elbo']:10.2f}  "
+                    f"test_elbo {rec['test_elbo']:10.2f}  R²(1) {rec['r2_1']:6.3f}  "
+                    f"{steps_s:6.1f} steps/s",
+                    flush=True,
+                )
+
+                if rec["test_elbo"] > st.best_elbo + 1e-6:
+                    st.best_elbo = rec["test_elbo"]
+                    st.evals_since_best = 0
+                    if cfg.train.keep_best:
+                        st.best_params = {k: v.detach().clone()
+                                          for k, v in self.ssm.state_dict().items()}
+                else:
+                    st.evals_since_best += 1
+                    if st.evals_since_best >= cfg.train.patience:
+                        print("early stopping: patience exhausted", flush=True)
+                        stop = True
+
+            if self.checkpointer is not None and st.step % cfg.train.save_every == 0:
+                self.checkpointer.save(st)
+
+        if prof is not None:  # the run ended inside the window
+            self._stop_profile(prof)
+        if cfg.train.keep_best and st.best_params is not None:
+            # model selection: end the run on the best-test-ELBO params
+            self.ssm.load_state_dict(st.best_params)
+        if self.checkpointer is not None:
+            self.checkpointer.save(st, force=True)
+        return self.history
