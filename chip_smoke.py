@@ -235,19 +235,61 @@ plain version or K14/K15 allowed:
       stderr, the eval's parameters equal to the checkpoint's, K1 and K5
       once
 
+and the general filter path, the counterpart of the reference's plain scan,
+for the presets the reference's kernel gates exclude (general_phases; on
+CUDA tensors it resamples through K7 and K8, K11 in the backward):
+`fhn_iwae_k16` (IWAE, K=16, no resampling, 50 steps a call),
+`fhn_fivo_known_dynamics`, `fhn_fivo_tril` and `fhn_fivo_dirac` (FIVO,
+K=128), B=32, T=100, relu heads (64, 64), random weights, data from seed 0:
+
+  (ap) each preset: one make_eval_step and one filter_posterior call, 3
+      calls of one train step each (fhn_iwae_k16's 50 steps a call cut to
+      one: the path is host-bound); launches (K7 and K8 T-1 = 99 a filter, K11 99 a
+      train step, none for IWAE; no other kernel, no plain version, no CUDA
+      tensor in the plain histogram resampler), a finite loss, test ELBO
+      and gradient norm, the train step (host clock), the eval call (CUDA
+      events), peak memory and profiles of one more train and eval call
+  (aq) the general path on the card against itself on the CPU, on the same
+      draws made on the CPU (the CPU resampling with K7's and K8's plain
+      versions, the count form): at B=4, T=20, K=128 (16 for IWAE) log Z and the
+      increments within 2e-4 and every gradient leaf within rtol 5e-3,
+      atol 5e-4; at B=32, T=100, K=128 the loss within 1e-3, the gradient
+      norms within 1% and their cosine >= 0.99 (GENERAL_TOL)
+  (ar) bootstrap FIVO against the Kalman log-likelihood on the card: the
+      LGSSM of tests/test_torch_oracle.py (K=4096, 4 seeds, every row within
+      0.35 nats, the mean error under 0.1) and the correlated-noise tril case
+      of tests/test_parity_modes.py (K=2048, every row within 0.5);
+      tests/reference_numpy/kalman.py loaded by its path
+  (as) `train --preset fhn_fivo_tril` and `fhn_iwae_k16 --steps 100` with an
+      eval every 50 through the CLI: the history, the results files and the
+      launches
+
+(ap) begins with K7, K8 and K11 at the general path's shape (B=32, K=128,
+D=2) against their plain versions, timed beside them and beside
+torch.gather and zeros + scatter_add_. The profiles of phases ak, al and ap
+record the device's activity alone (an eager step of ~50,000 operations
+makes the profiler's CPU events cost half a minute a window).
+
 Every phase prints its lines and its seconds; any failure prints its reason
 on stdout and stderr and exits non-zero. A torch.profiler window that comes
-back with no device events is run again (profiled_kernels); device time
+back with no device events is run again (profiled_kernels), and if the
+profiler stays empty the callers time by CUDA events instead; device time
 per call is the mean of a kernel's recorded events times its launches a
-call, as windows often hold part of a kernel's events (device_ms); the
-run ends with the count of both kinds of window. The second-to-last line is the
+call, as windows often hold part of a kernel's events (device_ms). The
+alternated design pairs, held to "the new design faster in every pair", are
+timed by CUDA events around 20 calls queued behind a spin kernel, the median
+of three windows (pair_ms): a profiler window that drops all of one kernel's
+events reads a design at half its time. The run ends with the count of each
+kind of window. The second-to-last line is the
 kernels' JSON record (times beside the bound: the larger of the operations
 over 67 TFLOP/s fp32 and the bytes over 3.35 TB/s, the H100 SXM's published
 peaks; K2's, K5's, K6's, K7's, K9's, K11's, K12's and K13's rows also carry
 "ms_prev", the previous design's time alternated with theirs; K6's row has
 both branches, K2's both widths; K1, K4, K14 and K15 appear once more as
 "(controls)", their control mode at fhn_fivo_controls' size; K1's, K4's, K5's
-and K6's rows carry their segmented launches, "launches_seg_*"); the last line
+and K6's rows carry their segmented launches, "launches_seg_*"; K7, K8 and K11
+appear once more as "(general path)", at B=32, K=128, D=2, with the launches
+of phase ap's training runs); the last line
 is the device record. Imports nothing of JAX: the
 machine with the card has none.
 """
@@ -255,6 +297,7 @@ machine with the card has none.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -291,33 +334,92 @@ def fail(msg: str) -> None:
 
 
 PROFILE_TRIES = 8
-PROFILE_WINDOWS = {"windows": 0, "empty": 0, "partial": 0}
+PROFILE_WINDOWS = {"windows": 0, "empty": 0, "partial": 0, "events": 0, "queue_ran_dry": 0}
+PROFILER_DEAD = [False]  # PROFILE_TRIES windows in a row came back empty
 
 
-def profiled_kernels(window, with_cpu: bool) -> list:
+def profiled_kernels(window, with_cpu: bool):
     """The device events of one torch.profiler window around window() (and a
-    synchronize). Now and then a window comes back with no device events at
-    all although its kernels ran (on the H100 with torch 2.11, in a random
-    phase, in two of three runs of this script): such a window is run again,
-    a second later, up to PROFILE_TRIES times, and counted in PROFILE_WINDOWS;
-    a window that stays empty fails the run."""
+    synchronize), or None if the profiler recorded none. Now and then a
+    window comes back with no device events at all although its kernels ran
+    (on the H100 with torch 2.11, in a random phase): such a window is run
+    again, a second later, up to PROFILE_TRIES times, and counted in
+    PROFILE_WINDOWS. Sometimes the profiler then stays empty for the rest of
+    the process: after PROFILE_TRIES empty windows in a row every later
+    window is tried once, and the callers time by CUDA events instead while
+    it stays empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if with_cpu else [ProfilerActivity.CUDA]
-    for attempt in range(1, PROFILE_TRIES + 1):
+    tries = 1 if PROFILER_DEAD[0] else PROFILE_TRIES
+    for attempt in range(1, tries + 1):
         PROFILE_WINDOWS["windows"] += 1
         with profile(activities=acts) as prof:
             window()
             torch.cuda.synchronize()
         kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         if kern:
+            PROFILER_DEAD[0] = False
             return kern
         PROFILE_WINDOWS["empty"] += 1
-        print(f"[profiler] a window recorded no device events (attempt {attempt} of "
-              f"{PROFILE_TRIES})", flush=True)
-        time.sleep(1.0)
-    fail(f"torch.profiler recorded no device time in {PROFILE_TRIES} windows in a row")
+        if not PROFILER_DEAD[0]:
+            print(f"[profiler] a window recorded no device events (attempt {attempt} of "
+                  f"{PROFILE_TRIES})", flush=True)
+            time.sleep(1.0)
+    if not PROFILER_DEAD[0]:
+        print(f"[profiler] {PROFILE_TRIES} windows in a row recorded no device events: timing by "
+              f"CUDA events while the profiler stays empty", flush=True)
+    PROFILER_DEAD[0] = True
+    PROFILE_WINDOWS["events"] += 1
+    return None
+
+
+_SPIN_CYCLES_PER_MS = [0.0]
+
+
+def queued_ms(fn, n: int = 20) -> float:
+    """Device time per call of fn(): CUDA events around n calls queued behind
+    a spin kernel (torch.cuda._sleep) that holds the card while the host
+    launches them, so that they run back to back and the span holds their
+    time and the card's own gaps between kernels, not the host's. If the
+    spin ended before the host had queued the n calls, the queue may have
+    run dry: the window runs again with a spin twice as long (four times at
+    most, then counted in PROFILE_WINDOWS["queue_ran_dry"])."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    if not _SPIN_CYCLES_PER_MS[0]:
+        torch.cuda._sleep(1000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        torch.cuda.synchronize()
+        _SPIN_CYCLES_PER_MS[0] = 1e7 / start.elapsed_time(end)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = 2.0 * host_ms + 1.0
+    for _ in range(4):
+        spun = torch.cuda.Event()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * _SPIN_CYCLES_PER_MS[0]))
+        spun.record()
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        dry = spun.query()
+        torch.cuda.synchronize()
+        if not dry:
+            return start.elapsed_time(end) / n
+        spin_ms *= 2.0
+    PROFILE_WINDOWS["queue_ran_dry"] += 1
+    return start.elapsed_time(end) / n
 
 
 def device_ms(fn, n: int = 20) -> float:
@@ -327,13 +429,24 @@ def device_ms(fn, n: int = 20) -> float:
     return sum(device_ms_by_kernel(fn, n).values())
 
 
+def pair_ms(fn, windows: int = 3) -> float:
+    """queued_ms(fn) as the median of `windows` windows: the alternated
+    design pairs, each held to "the new design faster in every pair", take
+    it. torch.profiler is not fit for that gate: its windows on the H100 with
+    torch 2.11 often drop a kernel's events, and now and then all of one
+    kernel's events, reading a design at about half its time (K6, K9 and K11
+    so far), which inverts a pair that the design did not invert."""
+    return statistics.median(queued_ms(fn) for _ in range(windows))
+
+
 def device_ms_by_kernel(fn, n: int = 20) -> dict:
     """device_ms split by kernel name: {name: ms per call of fn()}, each the
     mean of the name's recorded events times its launches a call (its events
     over n, rounded). On the H100 with torch 2.11 a window often records only
     part of a kernel's events (17 of 20 is common, once about half): a sum
     over n calls would read low by the share dropped. Such windows are
-    counted in PROFILE_WINDOWS."""
+    counted in PROFILE_WINDOWS. While the profiler records nothing the
+    whole call is timed by queued_ms, under the one name EVENTS_KEY."""
     import torch
 
     fn()
@@ -344,6 +457,8 @@ def device_ms_by_kernel(fn, n: int = 20) -> dict:
             fn()
 
     kern = profiled_kernels(window, with_cpu=False)
+    if kern is None:
+        return {EVENTS_KEY: queued_ms(fn, n)}
     total, count = {}, {}
     for e in kern:
         total[e.name] = total.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -352,6 +467,10 @@ def device_ms_by_kernel(fn, n: int = 20) -> dict:
         PROFILE_WINDOWS["partial"] += 1
     return {name: total[name] / count[name] * max(1, round(count[name] / n)) / 1e3
             for name in total}
+
+
+EVENTS_KEY = "all kernels (CUDA events, the profiler recorded none)"
+PAIR_HOW = "CUDA events over 20 queued calls, median of three windows"
 
 
 def time_ms(fn, reps: int = 5, warmup: int = 2) -> float:
@@ -400,14 +519,28 @@ L96_TRAIN_KERNELS = dict(L96_KERNELS, K10=("trunk_backward_tf32x3_kernel", "trun
 L96 = "lorenz96_fivo_k8192_sharded"
 
 
-def device_breakdown(fn, n_steps: int, groups: dict) -> str:
+def device_breakdown(fn, n_steps: int, groups: dict, with_cpu: bool = True) -> str:
     """Run fn() once under torch.profiler and split the device time per step
     into the kernels of `groups` (name -> substrings of kernel names) and
     every other kernel; the span runs from the first kernel's start to the
     last one's end, and idle is the share of it with no kernel running (one
     stream, so kernels do not overlap). Each group prints the events it
-    recorded: the profiler may drop some, and its time is theirs."""
-    kern = profiled_kernels(fn, with_cpu=True)
+    recorded: the profiler may drop some, and its time is theirs. Without
+    `with_cpu` the window records the device's activity alone (the same
+    kernel events; an eager step of ~50,000 operations would otherwise make
+    the profiler spend half a minute on its CPU events)."""
+    import torch
+
+    kern = profiled_kernels(fn, with_cpu=with_cpu)
+    if kern is None:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return (f"span, device busy and idle not measured (torch.profiler recorded no device "
+                f"events); one more call {start.elapsed_time(end) / n_steps:.3f} ms/step by CUDA "
+                f"events, the host's gaps included")
     span = max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)
     busy = sum(e.time_range.elapsed_us() for e in kern)
     per = 1e3 * n_steps  # us -> ms per step
@@ -761,7 +894,7 @@ def k2_check(seed, t1, b, dx, k, dev, label):
     torch.cuda.synchronize()
     bad = {d: [int((g[i] != want[i]).sum()) for i in (0, 1)] for d, g in got.items()}
     same = all(torch.equal(got["pair"][i], got["particle"][i]) for i in (0, 1))
-    pairs = [tuple(device_ms(lambda: fused_step.stream_noise(seed, t1, b, dx, k, dev, design=d))
+    pairs = [tuple(pair_ms(lambda: fused_step.stream_noise(seed, t1, b, dx, k, dev, design=d))
                    for d in fused_step.K2_DESIGNS) for _ in range(3)]
     plain = time_ms(lambda: fused_step.stream_noise_reference(seed, t1, b, dx, k, dev), reps=5)
     eps, u0 = got["pair"]
@@ -771,7 +904,8 @@ def k2_check(seed, t1, b, dx, k, dev, label):
              ctas=fused_step.k2_plan(t1, b, dx, k)["ctas"])
     print(f"[{label}] K2 stream_noise [{t1},{b},{dx},{k}]: (eps, u0) mismatches with the plain Philox "
           f"{bad}; pair and particle bit-equal {same}; eps mean {float(eps.mean()):.4f} std "
-          f"{float(eps.std()):.4f}, u0 mean {float(u0.mean()):.4f}; device time (pair, particle) "
+          f"{float(eps.std()):.4f}, u0 mean {float(u0.mean()):.4f}; device time ({PAIR_HOW}) "
+          f"(pair, particle) "
           f"alternated: " + ", ".join(f"({a:.4f}, {c:.4f})" for a, c in pairs)
           + f" ms ({r['ctas']} CTAs, {kernel_resources('stream_noise_pair_kernel')}); plain "
           f"{plain:.4f} ms (events); bound {bound_ms:.4f} ms ({by})", flush=True)
@@ -1983,7 +2117,7 @@ def segmented_phases(pt, dev, card: str) -> dict:
             ok = tuple(paths.shape) == (b, m, ys_.shape[1], dx) and bool(torch.isfinite(paths).all())
             del paths
             prof = device_breakdown(lambda: pt.smooth_posterior(ssm_, ys_, cfg, run_gen), 1,
-                                    PSVO_KERNELS)
+                                    PSVO_KERNELS, with_cpu=False)
             print(f"[{label}] serving: one smooth_posterior call {host:.3f} ms (host clock), "
                   f"launches K1/K4/K5/K6 {launch}, plain-version calls {plain_n}, paths of the "
                   f"right shape and finite {ok}; peak device memory {peak:.3f} GB ({held:.3f} GB "
@@ -2014,7 +2148,8 @@ def segmented_phases(pt, dev, card: str) -> dict:
             peak = torch.cuda.max_memory_allocated() / 1e9
             losses = [float(m_["loss"]) for m_ in metrics]
             norms = [float(m_["grad_norm"]) for m_ in metrics]
-            prof = device_breakdown(lambda: train_step(run_gen, ys_), 1, PSVO_KERNELS)
+            prof = device_breakdown(lambda: train_step(run_gen, ys_), 1, PSVO_KERNELS,
+                                    with_cpu=False)
             print(f"[{label}] training: {n_train} steps{' after a warm-up' if warm else ''}, host ms "
                   f"{[round(v, 3) for v in step_ms]}, loss {[round(v, 3) for v in losses]}, grad "
                   f"norm {[round(v, 3) for v in norms]}; launches K1/K4/K5/K6 {launch} "
@@ -2054,6 +2189,474 @@ def segmented_phases(pt, dev, card: str) -> dict:
     phase_done("al")
     return dict(ak=ak, al=al)
 
+
+
+GENERAL = ("fhn_iwae_k16", "fhn_fivo_known_dynamics", "fhn_fivo_tril", "fhn_fivo_dirac")
+# phase aq, set before its first run: the small size per value and per gradient leaf (the
+# CPU tests' bands), the full size as the reference's _grads_agree (benchmark.py:697-729)
+GENERAL_TOL = {"value": 2e-4, "grad_rtol": 5e-3, "grad_atol": 5e-4, "full_loss": 1e-3,
+               "full_norm": 1e-2, "full_cos": 0.99}
+GENERAL_PATH_KERNELS = {"K7": ("ancestor_indices",), "K8": ("gather_particles_kernel",),
+                        "K11": ("segment_sum",)}
+
+
+def general_counters():
+    """(the general path's kernels K7, K8, K11; every other kernel wrapper;
+    every plain version) of the port, for launch and call counts."""
+    from psvo_tpu_torch.ops import ffbsi, fused_step, svo, trunk
+    from psvo_tpu_torch.ops import resample_gather as rg
+
+    mine = (rg.ancestor_indices_large, rg.gather_particles, rg.segment_sum_scatter)
+    others = (fused_step.scan_forward, fused_step.scan_backward, fused_step.step_forward,
+              fused_step.step_backward, trunk.trunk_forward, trunk.trunk_backward,
+              ffbsi.ffbsi_forward, ffbsi.ffbsi_backward, svo.svo_sweep_forward,
+              svo.svo_sweep_backward, fused_step.stream_noise, fused_step.ancestor_indices)
+    plain = (rg.ancestor_indices_large_reference, rg.gather_particles_reference,
+             rg.segment_sum_scatter_reference, fused_step.scan_forward_reference,
+             fused_step.scan_backward_reference, fused_step.step_forward_reference,
+             fused_step.step_backward_reference, fused_step.stream_noise_reference,
+             fused_step.ancestor_indices_reference, trunk.trunk_forward_reference,
+             trunk.trunk_backward_reference, ffbsi.ffbsi_forward_reference,
+             ffbsi.ffbsi_backward_reference, svo.svo_sweep_forward_reference,
+             svo.svo_sweep_backward_reference)
+    return mine, others, plain
+
+
+def kalman_module():
+    """tests/reference_numpy/kalman.py, loaded by its path: the package's
+    __init__ imports the NumPy SMC oracle, which imports JAX."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "tests", "reference_numpy", "kalman.py")
+    spec = importlib.util.spec_from_file_location("psvo_kalman_oracle", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def lgssm_case(full: bool):
+    """(A, C, L_q, L_r, mu0, s0) of the Kalman oracle's LGSSM: tests/helpers.
+    default_lgssm (diagonal noise, q 0.4, r 0.5) or, with `full`,
+    tests/test_parity_modes.py::_full_cov_case (correlated noise)."""
+    import numpy as np
+
+    theta = 0.4
+    a = 0.85 * np.array([[np.cos(theta), -np.sin(theta)], [np.sin(theta), np.cos(theta)]],
+                        np.float32)
+    c = np.eye(2, dtype=np.float32)
+    if full:
+        q_chol = np.array([[0.5, 0.0], [0.3, 0.4]], np.float32)
+        r_chol = np.array([[0.4, 0.0], [-0.2, 0.3]], np.float32)
+    else:
+        q_chol, r_chol = 0.4 * np.eye(2, dtype=np.float32), 0.5 * np.eye(2, dtype=np.float32)
+    return a, c, q_chol, r_chol, np.zeros(2, np.float32), 1.0
+
+
+def simulate_lgssm(rng, a, c, q_chol, r_chol, mu0, s0, t_steps, batch):
+    """tests/helpers.simulate_lgssm_full (and, with diagonal factors,
+    simulate_lgssm: the same draws in the same order) -> (xs, ys)."""
+    import numpy as np
+
+    xs = np.zeros((batch, t_steps, 2), np.float32)
+    ys = np.zeros((batch, t_steps, 2), np.float32)
+    x = mu0 + s0 * rng.standard_normal((batch, 2))
+    for t in range(t_steps):
+        if t > 0:
+            x = x @ a.T + rng.standard_normal((batch, 2)) @ q_chol.T
+        xs[:, t] = x
+        ys[:, t] = x @ c.T + rng.standard_normal((batch, 2)) @ r_chol.T
+    return xs, ys
+
+
+def lgssm_model(pt, case, k: int, t_steps: int, full: bool, dev):
+    """The oracle's exact model in the port (tests/helpers.lgssm_setup or
+    lgssm_full_setup): bootstrap FIVO, linear heads with hidden=(), f and g
+    set to (A, L_q) and (C, L_r), constant diagonal or "tril" scales."""
+    import torch
+    from psvo_tpu_torch.config import Config, DataConfig, NetConfig, SMCConfig
+
+    a, c, q_chol, r_chol, mu0, s0 = case
+    floor = 1e-4  # tests/helpers.SIGMA_MIN
+
+    def raw(scale, sigma_min):
+        return math.log(math.expm1(max(scale - sigma_min, 1e-8)))
+
+    lin = NetConfig(hidden=(), cov_type="const", sigma_init=1.0, sigma_min=floor)
+    fg = dataclasses.replace(lin, cov_type="tril") if full else lin
+    cfg = Config(
+        name="lgssm_oracle",
+        data=DataConfig(datatype="lgssm", dx=2, dy=2, t_steps=t_steps),
+        smc=SMCConfig(objective="fivo", n_particles=k, resampling="systematic",
+                      use_bootstrap=True),
+    ).with_nets(q0=lin, q1=lin, q2=lin, f=fg, g=fg, qb=lin)
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():
+        for name, mat, chol in (("f", a, q_chol), ("g", c, r_chol)):
+            head = ssm.heads[name]
+            head.mean_w.copy_(torch.tensor(mat.T))
+            head.mean_b.zero_()
+            if full:
+                head.tril_diag.copy_(torch.tensor([raw(float(chol[i, i]), floor) for i in range(2)]))
+                head.tril_off.copy_(torch.tensor([float(chol[1, 0])]))
+            else:
+                head.raw_scale.fill_(raw(float(chol[0, 0]), floor))
+        ssm.prior_mean.copy_(torch.tensor(mu0))
+        ssm.prior_raw_scale.fill_(raw(s0, 1e-3))
+    return cfg, ssm.to(dev)
+
+
+def general_phases(pt, dev, card: str) -> dict:
+    """Phases (ap)-(as): the general filter path (the reference's plain scan:
+    K7/K8 resampling, K11 in the backward) for the presets that the
+    reference's kernel gates exclude, served and trained through the entry
+    points at full width; against itself on the CPU on the same draws;
+    bootstrap FIVO against the Kalman oracle; and the CLI. Returns the
+    figures for the kernels' JSON record."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from psvo_tpu_torch import cli, smc
+    from psvo_tpu_torch.ops import resampling
+    from psvo_tpu_torch.ops import resample_gather as rg
+
+    mine, others, plain = general_counters()
+    hist_calls = [0]  # the plain histogram resampler, which no CUDA tensor may reach
+    hist_fns = {n: getattr(resampling, n) for n in ("systematic_indices_histogram",
+                                                    "inverse_cdf_indices")}
+
+    def guarded(fn):
+        def wrapper(cumw, *a):
+            if cumw.is_cuda:
+                hist_calls[0] += 1
+            return fn(cumw, *a)
+        return wrapper
+
+    for n_, f_ in hist_fns.items():
+        setattr(resampling, n_, guarded(f_))
+
+    def zero():
+        for f in mine + others:
+            f.launches = 0
+        for f in plain:
+            f.calls = 0
+        hist_calls[0] = 0
+
+    def counted(fn):
+        """fn() with its K7/K8/K11 launches, every other kernel's launches and
+        the plain versions' calls (the histogram resampler's on CUDA tensors
+        among them)."""
+        zero()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, [f.launches for f in mine], sum(f.launches for f in others),
+                sum(f.calls for f in plain) + hist_calls[0])
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    figures = {}
+    # (ap) first K7, K8 and K11 at the general path's shape (B = 32, K = 128, D = 2): device
+    # times beside their plain versions, bounds and library calls
+    b, k = 32, 128
+    g = torch.Generator(device=dev).manual_seed(SEED + 75)
+    lw = torch.randn((b, k), device=dev, generator=g) * 3
+    pos = resampling.bulk_positions(g, 1, b, k, "systematic")[0].contiguous()
+    idx = rg.ancestor_indices_large(lw, pos)
+    xg = torch.randn((b, 2, k), device=dev, generator=g)
+    cot = torch.randn((b, 2, k), device=dev, generator=g)
+    idx64 = idx.long()[:, None, :].expand(-1, 2, -1)
+    # K7's indices and K8's values exact; K11 against its float64 plain version
+    errs = [float((idx != rg.ancestor_indices_large_reference(lw, pos)).sum()),
+            float((rg.gather_particles(xg, idx) - rg.gather_particles_reference(xg, idx))
+                  .abs().max()),
+            float((rg.segment_sum_scatter(cot, idx).double() - rg.segment_sum_scatter_reference(
+                cot.double(), idx)).abs().max())]
+    k7 = [device_ms(lambda: rg.ancestor_indices_large(lw, pos)),
+          device_ms(lambda: rg.ancestor_indices_large_reference(lw, pos)), None]
+    k8 = [device_ms(lambda: rg.gather_particles(xg, idx)),
+          device_ms(lambda: rg.gather_particles_reference(xg, idx)),
+          device_ms(lambda: torch.gather(xg, -1, idx64))]
+    k11 = [device_ms(lambda: rg.segment_sum_scatter(cot, idx)),
+           device_ms(lambda: rg.segment_sum_scatter_reference(cot, idx)),
+           device_ms(lambda: torch.zeros_like(cot).scatter_add_(-1, idx64, cot))]
+    bounds = [bound(2.0 * lw.numel() * (1 + math.log2(k)), nbytes(lw, pos, idx)),
+              bound(0.0, 2 * nbytes(xg) + nbytes(idx)),
+              bound(cot.numel(), 2 * nbytes(cot) + nbytes(idx))]
+    for name, t_, (bd, by), e_ in zip(("K7", "K8", "K11"), (k7, k8, k11), bounds, errs):
+        print(f"[ap] {name} at the general path's shape (B={b}, K={k}, D=2): device time "
+              f"{t_[0]:.4f} ms (torch.profiler, 20 calls), plain {t_[1]:.4f} ms, library "
+              f"{'none' if t_[2] is None else f'{t_[2]:.4f} ms'}; bound {bd:.6f} ms ({by}); "
+              f"max |d| against the plain version {e_:.3e}", flush=True)
+    if errs[0] or errs[1] or errs[2] > 1e-5:
+        fail(f"K7/K8/K11 at the general path's shape disagree with their plain versions: {errs} "
+             "(K7, K8 exact; K11 within 1e-5 of float64)")
+    figures["kernels"] = dict(k7=k7, k8=k8, k11=k11, bounds=bounds, errs=errs)
+    # (ap) the four presets at full width on generate_dataset(seed 0)
+    ap = {}
+    for preset in GENERAL:
+        # one step a call: fhn_iwae_k16's 50-step calls (a dispatch-amortising chunk of the
+        # reference's) take about a minute each on this host-bound path; the CLI (as) runs them
+        cfg = pt.PRESETS[preset]
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, steps_per_call=1))
+        t_steps, b = cfg.data.t_steps, cfg.train.batch_size
+        resamples = cfg.smc.objective != "iwae"
+        per_filter = [t_steps - 1] * 2 + [0] if resamples else [0, 0, 0]
+        ds = pt.generate_dataset(cfg.data, SEED)
+        obs_test = ds.obs_test[:b].to(dev)
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 70), device=dev)
+        run_gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+        eval_step = pt.make_eval_step(ssm, cfg)
+        with torch.no_grad():
+            ev, ev_l, ev_o, ev_p = counted(lambda: eval_step(run_gen, obs_test))
+            means, fp_l, fp_o, fp_p = counted(lambda: pt.filter_posterior(ssm, obs_test, cfg, run_gen))
+        test_elbo = float(ev["elbo"])
+        means_ok = (tuple(means.shape) == (b, t_steps, cfg.data.dx)
+                    and bool(torch.isfinite(means).all()))
+        if ev_l != per_filter or fp_l != per_filter or ev_o or fp_o or ev_p or fp_p:
+            fail(f"(ap) {preset} serving launched K7/K8/K11 {ev_l} / {fp_l} (want {per_filter} a "
+                 f"filter), other kernels {ev_o} / {fp_o}, plain versions {ev_p} / {fp_p}")
+        if not (math.isfinite(test_elbo) and means_ok):
+            fail(f"(ap) {preset} serving: test ELBO {test_elbo}, filtered means ok {means_ok}")
+        eval_ms = time_ms(lambda: eval_step(run_gen, obs_test))
+        print(f"[ap] {preset} served: K7/K8/K11 {ev_l} / {fp_l}, test ELBO {test_elbo:.3f}, eval "
+              f"{eval_ms:.3f} ms", flush=True)
+        # training: 3 calls of the preset's steps_per_call steps on random minibatches
+        spc = max(int(cfg.train.steps_per_call), 1)
+        pick = torch.randint(0, ds.obs_train.shape[0], (3, spc, b),
+                             generator=torch.Generator().manual_seed(SEED + 72))
+        batches = [ds.obs_train[p_].to(dev) if spc > 1 else ds.obs_train[p_[0]].to(dev)
+                   for p_ in pick]
+        train_step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
+        before = [p_.detach().clone() for p_ in ssm.parameters()]
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        call_ms = []
+
+        def calls():
+            out = []
+            for batch in batches:
+                t0 = time.perf_counter()
+                out.append(train_step(run_gen, batch))
+                torch.cuda.synchronize()
+                call_ms.append((time.perf_counter() - t0) * 1e3)
+                print(f"[ap] {preset} train call {len(call_ms)}: {call_ms[-1]:.1f} ms", flush=True)
+            return out
+
+        metrics, tr_l, tr_o, tr_p = counted(calls)
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        n_steps = 3 * spc
+        per_step = [t_steps - 1] * 3 if resamples else [0, 0, 0]
+        losses = [float(m_["loss"]) for m_ in metrics]
+        norms = [float(m_["grad_norm"]) for m_ in metrics]
+        moved = any(not torch.equal(a_, p_) for a_, p_ in zip(before, ssm.parameters()))
+        step_ms = statistics.median(call_ms[1:]) / spc
+        groups = GENERAL_PATH_KERNELS
+        # one step in the profile (a window of 50 eager steps holds ~10^6 events)
+        one = batches[0][0] if spc > 1 else batches[0]
+        profile = device_breakdown(lambda: train_step.single_step(run_gen, one), 1, groups,
+                                   with_cpu=False)
+        serve_profile = device_breakdown(lambda: eval_step(run_gen, obs_test), 1, groups,
+                                         with_cpu=False)
+        print(f"[ap] {preset} (B={b}, K={cfg.smc.n_particles}, T={t_steps}, hidden "
+              f"{cfg.net('q1').hidden}, {cfg.smc.objective}, resampling {cfg.smc.resampling}; "
+              f"smc.reference_path {smc.reference_path(ssm, cfg.smc)!r}): serving K7/K8/K11 "
+              f"{ev_l} (eval) / {fp_l} (filter_posterior), test ELBO {test_elbo:.3f}, eval "
+              f"{eval_ms:.3f} ms (CUDA events, median of 5 after 2); training {n_steps} steps in "
+              f"3 calls: loss {[round(v, 3) for v in losses]}, grad norm "
+              f"{[round(v, 3) for v in norms]}, parameters moved {moved}, launches K7/K8/K11 "
+              f"{tr_l} (want {[v * n_steps for v in per_step]}), other kernels {tr_o}, plain "
+              f"versions {tr_p}; train step {step_ms:.3f} ms (host clock, median of the calls "
+              f"after the first, per step; calls {[round(v, 3) for v in call_ms]} ms); peak "
+              f"device memory {peak:.3f} GB above what was held ({card})", flush=True)
+        print(f"[ap] {preset} profile of one more train step: {profile}", flush=True)
+        print(f"[ap] {preset} profile of one more eval call: {serve_profile}", flush=True)
+        if tr_l != [v * n_steps for v in per_step] or tr_o or tr_p:
+            fail(f"(ap) {preset} training launched K7/K8/K11 {tr_l} (want "
+                 f"{[v * n_steps for v in per_step]}), other kernels {tr_o}, plain versions {tr_p}")
+        if not (all(math.isfinite(v) for v in losses + norms) and moved):
+            fail(f"(ap) {preset} training: losses {losses}, grad norms {norms}, moved {moved}")
+        ap[preset] = dict(serve=ev_l, train=[v // n_steps for v in tr_l], train_total=tr_l,
+                          eval_ms=eval_ms,
+                          step_ms=step_ms, peak=peak, profile=profile, elbo=test_elbo,
+                          serve_profile=serve_profile)
+        del ssm, train_step, eval_step, metrics, batches
+        free()
+    figures["ap"] = ap
+    phase_done("ap")
+
+    # (aq) the general path on the card against itself on the CPU on the same draws (made on
+    # the CPU), the CPU resampling with K7's plain version (the count form), so the indices
+    # are the card's
+    kernel_form = functools.partial(resampling.maybe_resample, use_kernel=True)
+    aq = {}
+    for label, b, t_steps in (("small", 4, 20), ("full", 32, 100)):
+        for preset in GENERAL:
+            cfg = pt.PRESETS[preset]
+            k = min(cfg.smc.n_particles, 128)  # fhn_iwae_k16 keeps K = 16 (at 128 the
+            # reference's trunk class takes IWAE)
+            cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, t_steps=t_steps),
+                                      smc=dataclasses.replace(cfg.smc, n_particles=k))
+            cpu_ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 73), device="cpu")
+            card_ssm = copy.deepcopy(cpu_ssm).to(dev)
+            ys = pt.generate_dataset(cfg.data, SEED).obs_train[:b].contiguous()
+            g = torch.Generator().manual_seed(SEED + 74)
+            method = "none" if cfg.smc.objective == "iwae" else cfg.smc.resampling
+            noise = (torch.randn((b, 2, k), generator=g),
+                     torch.randn((t_steps - 1, b, 2, k), generator=g),
+                     resampling.bulk_positions(g, t_steps - 1, b, k, method) if method != "none"
+                     else torch.zeros((t_steps - 1, b, 1)))
+            runs = []
+
+            def loss_and_grads(model, where):
+                out = pt.make_objective(model, cfg)(None, ys.to(where),
+                                                    noise=tuple(n_.to(where) for n_ in noise))
+                out.loss.backward()
+                return out
+
+            for model, where in ((card_ssm, dev), (cpu_ssm, torch.device("cpu"))):
+                if where.type == "cpu":
+                    resampling.maybe_resample = kernel_form
+                try:
+                    out, launches, other, plain_n = counted(lambda: loss_and_grads(model, where))
+                finally:
+                    resampling.maybe_resample = kernel_form.func
+                grads = [p_.grad.detach().double().cpu().flatten() if p_.grad is not None
+                         else torch.zeros(p_.numel(), dtype=torch.float64)
+                         for p_ in model.parameters()]
+                runs.append(dict(loss=float(out.loss.detach()), log_z=out.elbo.detach().cpu(),
+                                 inc=out.filter_result.increments.detach().cpu(), grads=grads,
+                                 launches=launches, other=other, plain=plain_n))
+            card_r, cpu_r = runs
+            ga, gc_ = torch.cat(card_r["grads"]), torch.cat(cpu_r["grads"])
+            na, nc = float(ga.norm()), float(gc_.norm())
+            cos = float(ga @ gc_ / max(na * nc, 1e-30))
+            d_logz = float((card_r["log_z"] - cpu_r["log_z"]).abs().max())
+            d_inc = float((card_r["inc"] - cpu_r["inc"]).abs().max())
+            leaf_bad = sum(int(not torch.allclose(a_, c_, rtol=GENERAL_TOL["grad_rtol"],
+                                                  atol=GENERAL_TOL["grad_atol"]))
+                           for a_, c_ in zip(card_r["grads"], cpu_r["grads"]))
+            leaf_max = max(float((a_ - c_).abs().max()) for a_, c_ in zip(card_r["grads"],
+                                                                          cpu_r["grads"]))
+            want = [t_steps - 1] * 3 if method != "none" else [0, 0, 0]
+            if label == "small":
+                ok = (np.allclose(card_r["log_z"], cpu_r["log_z"], rtol=GENERAL_TOL["value"],
+                                  atol=GENERAL_TOL["value"])
+                      and np.allclose(card_r["inc"], cpu_r["inc"], rtol=GENERAL_TOL["value"],
+                                      atol=GENERAL_TOL["value"]) and leaf_bad == 0)
+            else:
+                ok = (np.allclose(card_r["loss"], cpu_r["loss"], rtol=GENERAL_TOL["full_loss"],
+                                  atol=GENERAL_TOL["full_loss"])
+                      and abs(na - nc) <= GENERAL_TOL["full_norm"] * max(na, nc) + 1e-3
+                      and cos >= GENERAL_TOL["full_cos"])
+            print(f"[aq] {label} {preset} (B={b}, T={t_steps}, K={k}): card against CPU on the "
+                  f"same draws: loss {card_r['loss']:.6f} / {cpu_r['loss']:.6f}, max |d| log Z "
+                  f"{d_logz:.3e}, increments {d_inc:.3e}; gradient norm {na:.6f} / {nc:.6f}, "
+                  f"cosine {cos:.9f}, leaves outside rtol {GENERAL_TOL['grad_rtol']} atol "
+                  f"{GENERAL_TOL['grad_atol']}: {leaf_bad} of {len(card_r['grads'])} "
+                  f"(max |d| {leaf_max:.3e}); card launches K7/K8/K11 {card_r['launches']} (want "
+                  f"{want}), other kernels {card_r['other']}, plain versions {card_r['plain']}",
+                  flush=True)
+            if not ok:
+                fail(f"(aq) {label} {preset}: the general path on the card disagrees with the CPU")
+            if card_r["launches"] != want or card_r["other"] or card_r["plain"]:
+                fail(f"(aq) {label} {preset}: card launches {card_r['launches']} (want {want}), "
+                     f"other kernels {card_r['other']}, plain versions {card_r['plain']}")
+            aq[(label, preset)] = dict(d_logz=d_logz, cos=cos, leaf_max=leaf_max)
+            del cpu_ssm, card_ssm, runs
+            free()
+    figures["aq"] = aq
+    phase_done("aq")
+
+    # (ar) bootstrap FIVO against the Kalman oracle on the card
+    kalman = kalman_module()
+    ar = {}
+    for label, full, seed_, t_steps, batch, k, row_tol, mean_tol in (
+            ("diagonal noise", False, 42, 20, 4, 4096, 0.35, 0.1),
+            ("correlated noise (tril)", True, 11, 20, 3, 2048, 0.5, None)):
+        case = lgssm_case(full)
+        a, c, q_chol, r_chol, mu0, s0 = case
+        _, ys_np = simulate_lgssm(np.random.default_rng(seed_), a, c, q_chol, r_chol, mu0, s0,
+                                  t_steps, batch)
+        kf = np.array([kalman.kalman_filter(ys_np[i], a, c, q_chol @ q_chol.T, r_chol @ r_chol.T,
+                                            mu0, s0 ** 2 * np.eye(2))[0] for i in range(batch)])
+        cfg, ssm = lgssm_model(pt, case, k, t_steps, full, dev)
+        objective = pt.make_objective(ssm, cfg)
+        ys = torch.from_numpy(ys_np).to(dev)
+        with torch.no_grad():
+            outs, launches, other, plain_n = counted(lambda: [
+                objective(torch.Generator(device=dev).manual_seed(s_), ys).elbo.cpu().numpy()
+                for s_ in range(4)])
+        err = np.mean(outs, axis=0) - kf
+        print(f"[ar] bootstrap FIVO, {label} LGSSM (B={batch}, T={t_steps}, K={k}, 4 seeds) on "
+              f"the card against the Kalman log-likelihood: errors {np.round(err, 4).tolist()} "
+              f"nats (every row within {row_tol}"
+              + (f", mean {float(np.mean(err)):.4f} under {mean_tol}" if mean_tol else "")
+              + f"); launches K7/K8/K11 {launches}, other kernels {other}, plain versions "
+              f"{plain_n}", flush=True)
+        if not (np.all(np.abs(err) < row_tol) and (mean_tol is None or np.mean(err) < mean_tol)):
+            fail(f"(ar) bootstrap FIVO ({label}) misses the Kalman oracle: {err}")
+        if launches != [4 * (t_steps - 1)] * 2 + [0] or other or plain_n:
+            fail(f"(ar) {label}: launches {launches}, other kernels {other}, plain {plain_n}")
+        ar[label] = err.tolist()
+        del ssm, objective
+        free()
+    figures["ar"] = ar
+    phase_done("ar")
+
+    # (as) the CLI on the card: 100 steps of fhn_fivo_tril and fhn_iwae_k16, an eval every 50
+    tmp = tempfile.mkdtemp(prefix="psvo_general_cli_")
+    as_ = {}
+    try:
+        for preset in ("fhn_fivo_tril", "fhn_iwae_k16"):
+            argv = ["train", "--preset", preset, "--steps", "100", "--set", "train.eval_every=50",
+                    "--results-root", os.path.join(tmp, "results")]
+            t_steps = pt.PRESETS[preset].data.t_steps
+            resamples = pt.PRESETS[preset].smc.objective != "iwae"
+            n_filters = 100 + 2 + 1  # the steps, 2 evals, the plots' latents
+            want = ([(t_steps - 1) * n_filters] * 2 + [(t_steps - 1) * 100] if resamples
+                    else [0, 0, 0])
+            free()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            (out, _), launches, other, plain_n = counted(lambda: run_cli(cli, argv))
+            wall = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+            path = next(ln.split(": ", 1)[1] for ln in out.splitlines()
+                        if ln.startswith("results: "))
+            hist = json.load(open(os.path.join(path, "history.json")))
+            files = [os.path.join(path, f) for f in ("params.json", "metrics.jsonl",
+                                                     "history.json", "checkpoints/100.pt")]
+            keys = ("train_loss", "train_elbo", "test_elbo", "r2_1", "grad_norm")
+            print(f"[as] cli train --preset {preset} --steps 100: history steps "
+                  f"{[r['step'] for r in hist]}, test ELBO {[round(r['test_elbo'], 3) for r in hist]}"
+                  f", R²(1) {[round(r['r2_1'], 3) for r in hist]}, train step by eval window "
+                  f"{[round(1e3 / r['steps_per_sec'], 3) for r in hist]} ms; launches K7/K8/K11 "
+                  f"{launches} (want {want}), other kernels {other}, plain versions {plain_n}; "
+                  f"files written {all(os.path.exists(f) for f in files)}; peak device memory "
+                  f"{peak:.3f} GB; the command {wall:.1f} s ({card})", flush=True)
+            if ([r["step"] for r in hist] != [50, 100]
+                    or not all(math.isfinite(r[k_]) for r in hist for k_ in keys)
+                    or not all(os.path.exists(f) for f in files)):
+                fail(f"(as) cli train {preset}: history {hist}, files {files}")
+            if launches != want or other or plain_n:
+                fail(f"(as) cli train {preset}: launches {launches} (want {want}), other kernels "
+                     f"{other}, plain versions {plain_n}")
+            as_[preset] = dict(launches=launches, step_ms=[1e3 / r["steps_per_sec"] for r in hist],
+                               peak=peak)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for n_, f_ in hist_fns.items():
+            setattr(resampling, n_, f_)
+    figures["as"] = as_
+    phase_done("as")
+
+    return figures
 
 
 CLI_KERNELS = ("K1", "K4", "K5", "K6")
@@ -2711,7 +3314,7 @@ def main() -> int:
             fail(f"K5 ({label}): the staged design disagrees with the previous one")
     ops, rf = sweeps["full"]
     with torch.no_grad():
-        k5_pairs = [tuple(device_ms(lambda: ffbsi.ffbsi_forward(*ops, design=d))
+        k5_pairs = [tuple(pair_ms(lambda: ffbsi.ffbsi_forward(*ops, design=d))
                           for d in ("staged", "path")) for _ in range(3)]
         k5 = [statistics.mean(p_[0] for p_ in k5_pairs),
               time_ms(lambda: ffbsi.ffbsi_forward_reference(*ops))]
@@ -2720,7 +3323,7 @@ def main() -> int:
         k6 = {}  # mode: (staged, row) device ms alternated, three pairs; plain ms (events)
         for mode, rb in rf["bwd"].items():
             a_, kw_, n_ = rb["args"], rb["kw"], rb["needs"]
-            pairs = [tuple(device_ms(lambda: ffbsi.ffbsi_backward(*a_, needs=n_, design=d, **kw_))
+            pairs = [tuple(pair_ms(lambda: ffbsi.ffbsi_backward(*a_, needs=n_, design=d, **kw_))
                            for d in ffbsi.K6_DESIGNS) for _ in range(3)]
             k6[mode] = dict(pairs=pairs, plain=time_ms(rb["plain"]),
                             ms=statistics.mean(p_[0] for p_ in pairs),
@@ -2738,7 +3341,8 @@ def main() -> int:
     k6_cost["paths only"] = n_pair
     k6_bound = {mode: bound(k6_cost[mode], rb["n_bytes"]) for mode, rb in rf["bwd"].items()}
     k5_p = ffbsi.k5_paths(batch, m, n_sms)
-    print(f"[k] K5 full, device time per call (torch.profiler, 20 calls), (staged, path) "
+    print(f"[k] K5 full, device time per call ({PAIR_HOW}), "
+          f"(staged, path) "
           f"alternated: " + ", ".join(f"({a:.4f}, {b_:.4f})" for a, b_ in k5_pairs)
           + f" ms; staged {kernel_resources(f'ffbsi_staged_kernelILi{dx}ELi{k5_p}ELb{int(ffbsi.k5_chunk(dx, k, k5_p) >= k)}EE')}, "
           f"{ffbsi.k5_smem_bytes(dx, k, k5_p)} B of dynamic shared memory ({k5_p} paths a CTA, "
@@ -2749,7 +3353,8 @@ def main() -> int:
     print(f"[k] full: K5 staged {k5[0]:.4f} ms (dev), path {k5[2]:.4f} ms (dev) vs plain "
           f"{k5[1]:.3f}/{k5[3]:.3f} ms, bound {k5_bound:.4f} ms ({k5_by})", flush=True)
     for mode, v in k6.items():
-        print(f"[k] full: K6 {mode}, device time (staged, row) alternated: "
+        print(f"[k] full: K6 {mode}, device time ({PAIR_HOW}) (staged, "
+              f"row) alternated: "
               + ", ".join(f"({a:.4f}, {b_:.4f})" for a, b_ in v["pairs"])
               + f" ms; plain {v['plain']:.3f} ms (events); bound {k6_bound[mode][0]:.4f} ms "
               f"({k6_bound[mode][1]})", flush=True)
@@ -2942,7 +3547,7 @@ def main() -> int:
     k8 += [time_ms(lambda: rg.gather_particles(xg, idx7), reps=20),
            time_ms(lambda: rg.gather_particles_reference(xg, idx7), reps=20)]
     # the cluster design and the previous one alternated, three pairs
-    k7_pairs = [tuple(device_ms(lambda: rg.ancestor_indices_large(lw, pos, design=d))
+    k7_pairs = [tuple(pair_ms(lambda: rg.ancestor_indices_large(lw, pos, design=d))
                       for d in rg.K7_DESIGNS) for _ in range(3)]
     k7_dev = [statistics.mean(p_[0] for p_ in k7_pairs),
               device_ms(lambda: rg.ancestor_indices_large_reference(lw, pos)),
@@ -2962,7 +3567,8 @@ def main() -> int:
           f"plain {k7_dev[1]:.4f} ms; K8 {k8_dev[0]:.4f} ms, plain {k8_dev[1]:.4f} ms, "
           f"torch.gather {k8_dev[2]:.4f} ms", flush=True)
     k7_c = rg.k7_cluster(l_batch, lk, n_sms)
-    print(f"[o] K7 full [8, {lk}], device time per call (torch.profiler, 20 calls), (cluster, row) "
+    print(f"[o] K7 full [8, {lk}], device time per call ({PAIR_HOW}), "
+          f"(cluster, row) "
           f"alternated: " + ", ".join(f"({a:.4f}, {b_:.4f})" for a, b_ in k7_pairs)
           + f" ms; bound {k7_bound:.5f} ms: cluster at {100 * k7_bound / k7_dev[0]:.1f}% of it, row "
           f"at {100 * k7_bound / k7_dev[2]:.1f}%; cluster C = {k7_c} ({l_batch * k7_c} CTAs), "
@@ -3021,8 +3627,8 @@ def main() -> int:
                 time_ms(lambda: trunk.trunk_forward_reference(x_res, coef_t, l_consts, eps_t),
                         reps=20)]
         # the async design and the previous one alternated, three pairs per noise mode
-        k9_pairs = {mode: [tuple(device_ms(lambda: trunk.trunk_forward(x_res, coef_t, l_consts,
-                                                                       **noise, design=d))
+        k9_pairs = {mode: [tuple(pair_ms(lambda: trunk.trunk_forward(x_res, coef_t, l_consts,
+                                                                     **noise, design=d))
                                  for d in trunk.K9_DESIGNS) for _ in range(3)]
                     for mode, noise in (("RNG", {"seed": (17, 0xBEEF), "t": 98}),
                                         ("stream", {"eps": eps_t}))}
@@ -3039,7 +3645,7 @@ def main() -> int:
     print(f"[p] K9 full (B={x_res.shape[0]}, K={x_res.shape[-1]}, hidden 64): in-kernel RNG "
           f"{k9t[0]:.4f}/{k9t[3]:.4f} ms, stream {k9t[2]:.4f} ms, plain {k9t[1]:.4f}/{k9t[4]:.4f} ms "
           f"(alternated, CUDA events around one call, median of 20); device time per call "
-          f"(torch.profiler, 20 calls), (async, tile) alternated: "
+          f"({PAIR_HOW}), (async, tile) alternated: "
           + "; ".join(f"{mode} " + ", ".join(f"({a:.4f}, {b_:.4f})" for a, b_ in v)
                       for mode, v in k9_pairs.items())
           + f" ms, plain {k9_dev[1]:.4f} ms; bound {k9_bound:.4f} ms ({k9_by}, "
@@ -3159,7 +3765,7 @@ def main() -> int:
     degenerate = rg.ancestor_indices_large(one, pos)
     # the tiled design and the previous one alternated: three pairs on the
     # adversarial rows, one each on healthy and one-ancestor rows
-    k11_pairs = {rows: [tuple(device_ms(lambda: rg.segment_sum_scatter(g11, ix, design=d))
+    k11_pairs = {rows: [tuple(pair_ms(lambda: rg.segment_sum_scatter(g11, ix, design=d))
                               for d in rg.K11_DESIGNS) for _ in range(n)]
                  for rows, ix, n in (("adversarial", idx, 3), ("healthy", healthy, 1),
                                      ("one ancestor", degenerate, 1))}
@@ -3176,7 +3782,7 @@ def main() -> int:
           f"zeros + scatter_add_ on the int64 index {k11_dev[2]:.4f} ms; bound "
           f"{k11_bound:.4f} ms ({k11_by})", flush=True)
     k11_per, k11_c = rg.k11_plan(lk)
-    print(f"[r] K11 full, (tiled, row) alternated: "
+    print(f"[r] K11 full, (tiled, row) alternated ({PAIR_HOW} each): "
           + "; ".join(f"{rows} " + ", ".join(f"({a:.4f}, {b_:.4f})" for a, b_ in v)
                       for rows, v in k11_pairs.items())
           + f" ms; tiled at {100 * k11_bound / k11_dev[0]:.1f}% of the bound, row at "
@@ -3388,7 +3994,7 @@ def main() -> int:
     consts, ops, r = k12["full"]
     with torch.no_grad():
         # the split design and the previous one alternated, three pairs
-        k12_pairs = [tuple(device_ms(lambda: svo.svo_sweep_forward(*ops, consts, design=d))
+        k12_pairs = [tuple(pair_ms(lambda: svo.svo_sweep_forward(*ops, consts, design=d))
                            for d in svo.K12_DESIGNS) for _ in range(3)]
         k12_dev = [statistics.mean(p_[0] for p_ in k12_pairs),
                    device_ms(lambda: svo.svo_sweep_forward_reference(*ops, consts), n=3),
@@ -3398,7 +4004,7 @@ def main() -> int:
     k12_bound, k12_by = bound(k12_flops, nbytes(*ops, consts["packed"], consts["sc"], *r["kern"]))
     k12_plan = svo.k12_plan(3, 3, 64, 1, b_s * m_s, n_sms, t1_s)
     print(f"[v] K12 full (B={b_s}, M={m_s}, T-1={t1_s}, hidden 64): device time per call "
-          f"(torch.profiler, 20 calls), (split, chain) alternated: "
+          f"({PAIR_HOW}), (split, chain) alternated: "
           + ", ".join(f"({a:.4f}, {b_:.4f})" for a, b_ in k12_pairs)
           + f" ms; plain {k12_dev[1]:.3f} ms (3 calls); bound {k12_bound:.4f} ms ({k12_by}, "
           f"{k12_flops:.3e} FLOP): split at {100 * k12_bound / k12_dev[0]:.1f}% of it, chain at "
@@ -3433,7 +4039,7 @@ def main() -> int:
     args13 = k13["full"]["args"]
     with torch.no_grad():
         # the split design and the previous one alternated, three pairs
-        k13_pairs = [tuple(device_ms(lambda: svo.svo_sweep_backward(*args13, design=d))
+        k13_pairs = [tuple(pair_ms(lambda: svo.svo_sweep_backward(*args13, design=d))
                            for d in ("split", "chain")) for _ in range(3)]
         k13_dev = [statistics.mean(p_[0] for p_ in k13_pairs),
                    device_ms(lambda: svo.svo_sweep_backward_reference(*args13), n=3),
@@ -3444,7 +4050,8 @@ def main() -> int:
     n_w13 = args13[3]["packed"].numel()
     rows13 = svo.k13_tile_rows(3, 3, 64, 1, n_w13)
     p13 = svo.k13_paths(b_s * m_s, n_sms, rows13)
-    print(f"[w] K13 full: device time per call (torch.profiler, 20 calls), (split, chain) "
+    print(f"[w] K13 full: device time per call ({PAIR_HOW}), "
+          f"(split, chain) "
           f"alternated: " + ", ".join(f"({a:.4f}, {b_:.4f})" for a, b_ in k13_pairs)
           + f" ms; plain {k13_dev[1]:.3f} ms (3 calls); bound {k13_bound:.4f} ms ({k13_by}, "
           f"{k13_flops:.3e} FLOP): split at {100 * k13_bound / k13_dev[0]:.1f}% of it, chain at "
@@ -4068,6 +4675,7 @@ def main() -> int:
     ctrl = controls_phases(pt, dev, card)
     seg = segmented_phases(pt, dev, card)
     cli_figs = cli_phases(pt, dev, card)
+    gen_figs = general_phases(pt, dev, card)
 
 
     # K3: the CDF scan and a binary search per particle; logw and u0 in, int32 indices out.
@@ -4191,10 +4799,30 @@ def main() -> int:
          "bound_ms": ctrl["k15_bound"][0], "bound_by": ctrl["k15_bound"][1],
          "library_ms": None},
     ]
+    # K7, K8 and K11 on the general path (the presets the reference's kernel gates exclude, at
+    # B=32, K=128, D=2): launches from phase ap's training runs of the three resampling presets
+    # (99 a step each; "launches_serve" a filter), times and bounds at that shape
+    gk = gen_figs["kernels"]
+    resampling_presets = [p_ for p_ in GENERAL if gen_figs["ap"][p_]["train_total"][0]]
+    for i, (kernel, times, source_line) in enumerate((
+            ("ancestor_indices_large", gk["k7"], "psvo_tpu/ops/pallas_resample.py:338"),
+            ("gather_particles", gk["k8"], "psvo_tpu/ops/pallas_resample.py:489"),
+            ("segment_sum_scatter", gk["k11"], "psvo_tpu/ops/pallas_resample.py:902"))):
+        kernels.append({
+            "name": f"{kernel} (general path)", "route": "cuda",
+            "source": "psvo_tpu_torch/csrc/resample_gather.cu", "replaces": source_line,
+            "launches": sum(gen_figs["ap"][p_]["train_total"][i] for p_ in resampling_presets),
+            "on_path": True, "max_abs_err": gk["errs"][i], "ms": times[0], "plain_ms": times[1],
+            "bound_ms": gk["bounds"][i][0], "bound_by": gk["bounds"][i][1],
+            "library_ms": times[2],
+            "launches_serve": gen_figs["ap"][resampling_presets[0]]["serve"][i],
+            "launches_cli": gen_figs["as"]["fhn_fivo_tril"]["launches"][i]})
     print(f"[profiler] {PROFILE_WINDOWS['windows']} profiler windows, "
           f"{PROFILE_WINDOWS['empty']} of them with no device events (run again); of the timing "
           f"windows, {PROFILE_WINDOWS['partial']} recorded part of a kernel's events (timed by "
-          f"the mean of those recorded)", flush=True)
+          f"the mean of those recorded), {PROFILE_WINDOWS['events']} timed by CUDA events "
+          f"instead (the profiler recorded none); {PROFILE_WINDOWS['queue_ran_dry']} queued "
+          f"windows ran dry", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,8 +1,12 @@
 """Exact conversion between the reference's params pytree and the port's model.
 
 The reference keeps parameters as a nested dict
-`{"q0"|"q1"|"q2"|"f"|"g"|"qb": {"layers": [(W, b), ...], "mean": (W, b),
-"raw_scale": s}, "prior": {"mean": m, "raw_scale": s}}`. Given that tree as
+`{"q0"|"q1"|"q2"|"f"|"g"|"qb": head, "prior": {"mean": m, "raw_scale": s}}`.
+A head is `{"layers": [(W, b), ...], "mean": (W, b)}` plus the leaves of its
+cov_type (`networks.MLPHead`): "raw_scale" s, "scale_head" (W, b),
+"raw_tril" {"diag", "off"}, or "tril_diag_head" (W, b) and "tril_off_head"
+(W, b), none for a mean-only head; a known-dynamics f is `{"raw_scale"[,
+"ctrl_w"]}` (`networks.KnownTransition`). Given that tree as
 numpy arrays (`jax.tree_util.tree_map(np.asarray, params)` on the JAX side),
 `load_numpy_params` copies it into an `SSM` and `params_to_numpy` rebuilds
 it, bit for bit; `grads_to_numpy` gives the parameters' gradients in the same
@@ -17,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from psvo_tpu_torch import networks
 from psvo_tpu_torch.models.ssm import SSM
 
 HEADS = ("q0", "q1", "q2", "f", "g", "qb")
@@ -33,18 +38,40 @@ def grads_to_numpy(ssm: SSM) -> dict:
     return _tree(ssm, lambda t: torch.zeros_like(t) if t.grad is None else t.grad)
 
 
+def _head_leaves(head):
+    """(key, leaf) pairs of one head in the reference's layout: each leaf a
+    tensor, or a tuple / dict of tensors."""
+    if isinstance(head, networks.KnownTransition):
+        return [("raw_scale", head.raw_scale)] + (
+            [("ctrl_w", head.ctrl_w)] if hasattr(head, "ctrl_w") else [])
+    leaves = [("layers", [(w, b) for w, b in head.layers()]),
+              ("mean", (head.mean_w, head.mean_b))]
+    if head.cov_type == "const":
+        leaves.append(("raw_scale", head.raw_scale))
+    elif head.cov_type == "head":
+        leaves.append(("scale_head", (head.scale_w, head.scale_b)))
+    elif head.cov_type == "tril":
+        leaves.append(("raw_tril", {"diag": head.tril_diag, "off": head.tril_off}))
+    elif head.cov_type == "tril_head":
+        leaves += [("tril_diag_head", (head.tril_diag_w, head.tril_diag_b)),
+                   ("tril_off_head", (head.tril_off_w, head.tril_off_b))]
+    return leaves
+
+
+def _map(node, fn):
+    if isinstance(node, dict):
+        return {k: _map(v, fn) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_map(v, fn) for v in node)
+    return fn(node)
+
+
 def _tree(ssm: SSM, leaf) -> dict:
     def arr(t):
         return leaf(t).detach().cpu().numpy().copy()
 
-    tree = {}
-    for name in HEADS:
-        head = ssm.heads[name]
-        tree[name] = {
-            "layers": [(arr(w), arr(b)) for w, b in head.layers()],
-            "mean": (arr(head.mean_w), arr(head.mean_b)),
-            "raw_scale": arr(head.raw_scale),
-        }
+    tree = {name: {k: _map(v, arr) for k, v in _head_leaves(ssm.heads[name])}
+            for name in HEADS}
     tree["prior"] = {"mean": arr(ssm.prior_mean), "raw_scale": arr(ssm.prior_raw_scale)}
     return tree
 
@@ -81,24 +108,39 @@ def _copy(dst: torch.Tensor, src, where: str) -> None:
     dst.copy_(torch.tensor(src))
 
 
+def _copy_node(dst, src, where: str) -> None:
+    """Copy a leaf, or a tuple / list / dict of leaves, of the same layout."""
+    if isinstance(dst, dict):
+        if not isinstance(src, dict) or set(src) != set(dst):
+            raise ValueError(f"{where}: keys {sorted(src) if isinstance(src, dict) else src!r} "
+                             f"!= model's {sorted(dst)}")
+        for k in dst:
+            _copy_node(dst[k], src[k], f"{where}.{k}")
+        return
+    if isinstance(dst, (list, tuple)):
+        if not isinstance(src, (list, tuple)) or len(src) != len(dst):
+            raise ValueError(f"{where}: {len(src) if isinstance(src, (list, tuple)) else src!r} "
+                             f"entries != model's {len(dst)}")
+        for i, (d, s_) in enumerate(zip(dst, src)):
+            _copy_node(d, s_, f"{where}[{i}]")
+        return
+    _copy(dst, src, where)
+
+
 def load_numpy_params(ssm: SSM, tree: dict) -> SSM:
-    """Copy the reference's params pytree (numpy leaves) into `ssm`, in place."""
+    """Copy the reference's params pytree (numpy leaves) into `ssm`, in place;
+    every head's keys must be those of its cov_type (or a known-dynamics f's)."""
     expected = set(HEADS) | {"prior"}
     if set(tree) != expected:
         raise ValueError(f"params keys {sorted(tree)} != {sorted(expected)}")
     with torch.no_grad():
         for name in HEADS:
-            head, src = ssm.heads[name], tree[name]
-            if set(src) != {"layers", "mean", "raw_scale"}:
-                raise ValueError(f"{name}: unsupported head keys {sorted(src)}")
-            if len(src["layers"]) != len(head.weights):
-                raise ValueError(f"{name}: {len(src['layers'])} layers != model's {len(head.weights)}")
-            for i, ((w, b), (dw, db)) in enumerate(zip(src["layers"], head.layers())):
-                _copy(dw, w, f"{name}.layers[{i}].W")
-                _copy(db, b, f"{name}.layers[{i}].b")
-            _copy(head.mean_w, src["mean"][0], f"{name}.mean.W")
-            _copy(head.mean_b, src["mean"][1], f"{name}.mean.b")
-            _copy(head.raw_scale, src["raw_scale"], f"{name}.raw_scale")
+            leaves, src = dict(_head_leaves(ssm.heads[name])), tree[name]
+            if set(src) != set(leaves):
+                raise ValueError(f"{name}: unsupported head keys {sorted(src)} (the model's "
+                                 f"are {sorted(leaves)})")
+            for key, dst in leaves.items():
+                _copy_node(dst, src[key], f"{name}.{key}")
         _copy(ssm.prior_mean, tree["prior"]["mean"], "prior.mean")
         _copy(ssm.prior_raw_scale, tree["prior"]["raw_scale"], "prior.raw_scale")
     return ssm

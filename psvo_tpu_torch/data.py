@@ -1,9 +1,11 @@
 """Synthetic datasets (counterpart of `psvo_tpu/data.py`, the FHN, Lorenz-63
 and Lorenz-96 paths).
 
-Simulate `n_train + n_test` trajectories of the true FHN, Lorenz-63 or
-Lorenz-96 model with process noise, observed through a linear Gaussian
-emission. Lorenz-63 starts near the attractor's centre; both Lorenz systems
+Simulate `n_train + n_test` trajectories of the true FHN, Lorenz-63,
+Lorenz-96 or LGSSM model with process noise, observed through the linear
+map C with Gaussian noise (data.emission "linear_gaussian" or
+"identity_gaussian"), exactly (a Dirac emission, "dirac": y = x·C), or as
+Poisson counts of rate exp(tanh(x·C)) ("poisson"), as in the reference. Lorenz-63 starts near the attractor's centre; both Lorenz systems
 are run 500 noise-free steps onto the attractor before the first recorded
 step, as in the reference. With data.di > 0 the simulator also draws iid
 N(0, 1) controls u_t [Di] and a fixed map b_ctrl = control_scale·N(0, 1)
@@ -56,7 +58,10 @@ def simulate_from_noise(cfg: DataConfig, c_emit, x0_noise, proc_noise, obs_noise
                         controls=None, b_ctrl=None):
     """Deterministic simulator: x0 noise [n, Dx], process noise [T, n, Dx],
     observation noise [T, n, Dy] and, with data.di > 0, controls [T, n, Di]
-    and their map b_ctrl [Di, Dx] -> (hidden [n, T, Dx], obs [n, T, Dy])."""
+    and their map b_ctrl [Di, Dx] -> (hidden [n, T, Dx], obs [n, T, Dy]).
+    A Dirac emission observes x·C and reads no noise; for a Poisson one obs
+    is the rate exp(tanh(x·C)), from which `generate_dataset` draws the
+    counts."""
     if (controls is None) != (b_ctrl is None) or (controls is not None) != bool(cfg.di):
         raise ValueError(f"simulate_from_noise: di={cfg.di} needs controls and b_ctrl "
                          "together, and only then")
@@ -73,13 +78,19 @@ def simulate_from_noise(cfg: DataConfig, c_emit, x0_noise, proc_noise, obs_noise
             x = x + controls[t] @ b_ctrl
         x = x + cfg.proc_scale * proc_noise[t]
         xs.append(x)
-        ys.append(x @ c_emit + cfg.obs_scale * obs_noise[t])
+        proj = x @ c_emit
+        if cfg.emission == "poisson":
+            ys.append(torch.exp(torch.tanh(proj)))
+        elif cfg.emission == "dirac":
+            ys.append(proj)
+        else:
+            ys.append(proj + cfg.obs_scale * obs_noise[t])
     return torch.stack(xs, dim=1), torch.stack(ys, dim=1)
 
 
 def generate_dataset(cfg: DataConfig, seed: int) -> Dataset:
-    if cfg.emission not in ("linear_gaussian", "identity_gaussian"):
-        raise NotImplementedError("only Gaussian-emission datasets are ported")
+    if cfg.emission not in ("linear_gaussian", "identity_gaussian", "poisson", "dirac"):
+        raise ValueError(f"unknown emission {cfg.emission!r}")
     gen = torch.Generator().manual_seed(seed)
     n = cfg.n_train + cfg.n_test
     c_emit = emission_map(cfg, gen)
@@ -91,6 +102,8 @@ def generate_dataset(cfg: DataConfig, seed: int) -> Dataset:
         u = torch.randn((cfg.t_steps, n, cfg.di), generator=gen)
         b_ctrl = cfg.control_scale * torch.randn((cfg.di, cfg.dx), generator=gen) / math.sqrt(cfg.di)
     hidden, obs = simulate_from_noise(cfg, c_emit, x0_noise, proc, obs_noise, u, b_ctrl)
+    if cfg.emission == "poisson":  # drawn last, so the other draws keep their order
+        obs = torch.poisson(obs, generator=gen)
     if not bool(torch.isfinite(hidden).all()):
         raise ValueError(
             f"simulated {cfg.datatype} trajectories diverged (non-finite states); "

@@ -8,17 +8,29 @@ p(x_0). Where the reference keeps a static `SSM` plus a params pytree, here
 layout [B, D, K]; the feature-last ones serve the k-step evaluation and the
 log-joint of the smoothed paths.
 
-Ported: the diagonal-Gaussian model class of the FHN FIVO, Lorenz-63 PSVO
-and SVO, and Lorenz-96 FIVO slices, at any state width, with SVO's backward
-proposal q_b, and exogenous controls u_t [Di] (di > 0): q1 and f then
-condition on [x_{t−1}; u_t], their first layers [Dx + Di, H]; g, q0, q2 and
-q_b see no controls. Bootstrap mode (smc.use_bootstrap, the Kalman oracle's
-model): t = 0 proposes from the prior and every later step from f, so q0,
-q1 and q2 go unused; no kernel class takes it, so it runs on CPU tensors
-only. Heads may have no hidden layer (hidden=(), the oracle's linear
-heads). Known dynamics, full-covariance heads, Poisson/Dirac emissions and
-the SVO backward proposal's GRU raise NotImplementedError until their
-slices land.
+The reference's model modes:
+
+- exogenous controls u_t [Di] (di > 0): q1 and f condition on
+  [x_{t−1}; u_t], their first layers [Dx + Di, H]; g, q0, q2 and q_b see
+  no controls;
+- bootstrap mode (smc.use_bootstrap): t = 0 proposes from the prior and
+  every later step from f, so q0, q1 and q2 go unused;
+- known dynamics (smc.transition = "known"): f's mean is the true stepper
+  (`models.dynamics.make_stepper`), plus u_t·ctrl_w with controls, and only
+  its diagonal noise scale is learned (`networks.KnownTransition`);
+- full covariances on f and g: cov_type "tril" (a constant Cholesky factor)
+  or "tril_head" (a packed factor per input); "head" gives a state-dependent
+  diagonal scale. Proposals stay diagonal: the use_2q fusion and the draws
+  are diagonal;
+- Poisson counts and Dirac emissions: g is a mean-only head (the log-rate,
+  or the observation map of a Dirac delta, which adds 0 to the weights);
+- smc.q_uses_true_x: q0 and q2 read the true latents (width Dx).
+
+Which of these a kernel class takes is the gates' business
+(`ops.fused_step.usable`, `ops.trunk.usable`, `ops.ffbsi.usable`,
+`ops.svo.usable`, `smc.reference_path`). Heads may have no hidden layer
+(hidden=(), the oracle's linear heads). The SVO backward proposal's GRU
+(smc.qb_rnn) raises NotImplementedError until its slice lands.
 """
 
 from __future__ import annotations
@@ -29,8 +41,9 @@ from torch import nn
 from psvo_tpu_torch import distributions as dist
 from psvo_tpu_torch import networks
 from psvo_tpu_torch.config import Config
+from psvo_tpu_torch.models import dynamics as dyn
 
-_GAUSSIAN_EMISSIONS = ("linear_gaussian", "identity_gaussian")
+_FULL = ("tril", "tril_head")
 
 
 class SSM(nn.Module):
@@ -48,25 +61,28 @@ class SSM(nn.Module):
         self.qb_rnn = cfg.smc.qb_rnn
         self.enc_dim = cfg.data.dx if cfg.smc.q_uses_true_x else cfg.data.dy
         self.nets = {k: v for k, v in cfg.nets}
+        self.stepper = dyn.make_stepper(cfg.data) if self.transition_known else None
+        # f_tril / g_tril: a full covariance, constant or per input;
+        # *_tril_head: the per-input one
+        f_cov, g_cov = self.nets["f"].cov_type, self.nets["g"].cov_type
+        self.f_tril = not self.transition_known and f_cov in _FULL
+        self.g_tril = g_cov in _FULL
+        self.f_tril_head = not self.transition_known and f_cov == "tril_head"
+        self.g_tril_head = g_cov == "tril_head"
 
-        unported = [
-            name
-            for name, on in (
-                ("smc.transition='known'", self.transition_known),
-                ("smc.qb_rnn", self.qb_rnn),
-                (f"data.emission={self.emission!r}",
-                 self.emission not in _GAUSSIAN_EMISSIONS),
-            )
-            if on
-        ] + [
-            f"nets[{k!r}].cov_type={v.cov_type!r}"
-            for k, v in self.nets.items()
-            if v.cov_type != "const"
-        ]
-        if unported:
-            raise NotImplementedError(
-                "not ported yet: " + ", ".join(unported)
-            )
+        if self.qb_rnn:
+            raise NotImplementedError("not ported yet: smc.qb_rnn")
+        for q in ("q0", "q1", "q2", "qb"):
+            if self.nets[q].cov_type in _FULL:
+                raise ValueError(
+                    f"cov_type={self.nets[q].cov_type!r} is not supported on proposal head "
+                    f"{q!r}: the use_2q precision fusion and reparameterized draws are "
+                    "diagonal; use it on 'f' or 'g'"
+                )
+        if self.transition_known and f_cov in _FULL:
+            raise ValueError("transition='known' uses a diagonal learned noise scale")
+        if self.emission == "poisson" and self.g_tril:
+            raise ValueError("poisson emissions have no covariance head")
 
         dx, dy, enc = self.dx, self.dy, self.enc_dim
         dims = {
@@ -74,9 +90,16 @@ class SSM(nn.Module):
             "f": (dx + self.di, dx), "g": (dx, dy), "qb": (dx + dy, dx),
         }
         self._dims = dims
-        self.heads = nn.ModuleDict(
-            {k: networks.MLPHead(*dims[k], self.nets[k].hidden) for k in dims}
-        )
+        self._covs = {k: self.nets[k].cov_type for k in dims}
+        if self.emission in ("poisson", "dirac"):
+            self._covs["g"] = "none"
+        heads = {
+            k: networks.MLPHead(*dims[k], self.nets[k].hidden, self._covs[k])
+            for k in dims if not (k == "f" and self.transition_known)
+        }
+        if self.transition_known:
+            heads["f"] = networks.KnownTransition(dx, self.di)
+        self.heads = nn.ModuleDict({k: heads[k] for k in dims})
         self.prior_mean = nn.Parameter(torch.zeros(dx))
         self.prior_raw_scale = nn.Parameter(torch.zeros(dx))
 
@@ -87,9 +110,16 @@ class SSM(nn.Module):
         for name in ("q0", "q1", "q2", "f", "g", "qb"):
             din, dout = self._dims[name]
             cfg = self.nets[name]
+            if name == "f" and self.transition_known:
+                with torch.no_grad():
+                    f = self.heads["f"]
+                    f.raw_scale.fill_(networks.raw_scale_init(cfg.sigma_init, cfg.sigma_min))
+                    if self.di:
+                        f.ctrl_w.zero_()
+                continue
             fresh = networks.init_mlp_head(
                 generator, din, dout, cfg.hidden,
-                cov_type=cfg.cov_type, sigma_init=cfg.sigma_init,
+                cov_type=self._covs[name], sigma_init=cfg.sigma_init,
                 sigma_min=cfg.sigma_min,
             )
             self.heads[name].load_state_dict(fresh.state_dict())
@@ -111,6 +141,27 @@ class SSM(nn.Module):
         return networks.mlp_mean_scale_cm(
             self.heads[name], x, activation=cfg.activation, sigma_min=cfg.sigma_min
         )
+
+    def _mean(self, name: str, x):
+        """Mean-only application (Poisson log-rate, Dirac map, tril mean)."""
+        return networks.mlp_mean(self.heads[name], x, activation=self.nets[name].activation)
+
+    def _mean_cm(self, name: str, x):
+        return networks.mlp_mean_cm(self.heads[name], x, activation=self.nets[name].activation)
+
+    def _mean_tril_cm(self, name: str, x):
+        cfg = self.nets[name]
+        return networks.mlp_mean_tril_cm(self.heads[name], x, activation=cfg.activation,
+                                         sigma_min=cfg.sigma_min)
+
+    def _mean_tril(self, name: str, x):
+        cfg = self.nets[name]
+        return networks.mlp_mean_tril(self.heads[name], x, activation=cfg.activation,
+                                      sigma_min=cfg.sigma_min)
+
+    def _chol(self, name: str):
+        """The constant Cholesky factor of a "tril" head."""
+        return self.heads[name].chol(self.nets[name].sigma_min)
 
     def scale(self, name: str):
         """The constant diagonal scale [D] of head `name`."""
@@ -172,59 +223,140 @@ class SSM(nn.Module):
         it for all T at once, outside the time loop."""
         return self._mean_scale("q2", enc)
 
+    def propose_cm(self, x_prev, y_t=None, q2_ms=None, u=None):
+        """The diagonal proposal on x_prev [B, Dx, K] (controls u [B, Di]):
+        q1, fused with q2 under use_2q; f itself in bootstrap mode (a
+        diagonal f). -> (mean, scale) [B, Dx, K]."""
+        if self.use_bootstrap:
+            return self.transition_params_cm(x_prev, u)
+        m1, s1 = self._mean_scale_cm("q1", self._with_control_cm(x_prev, u))
+        if not self.use_2q:
+            return m1, s1
+        m2, s2 = q2_ms if q2_ms is not None else self.q2_mean_scale(y_t)
+        return dist.mvn_product(m1, s1, m2[..., None], s2[..., None])
+
     def step_heads_cm(self, x_prev, y_t=None, q2_ms=None, u=None):
         """All per-step diagonal conditionals on x_prev [B, Dx, K] (and the
         step's controls u [B, Di]): (mean_q, scale_q, mean_f, scale_f), each
         [B, Dx, K]. q2_ms supplies the precomputed q2 (mean, scale) [B, Dx];
         y_t is read only without it. Bootstrap mode proposes from f itself.
+        Diagonal f only: the filter routes a full-covariance f through
+        `propose_cm` and `transition_log_prob_cm`.
         """
         if self.use_bootstrap:
             mean_f, scale_f = self.transition_params_cm(x_prev, u)
             return mean_f, scale_f, mean_f, scale_f
-        x_in = self._with_control_cm(x_prev, u)
-        m1, s1 = self._mean_scale_cm("q1", x_in)
-        mean_f, scale_f = self._mean_scale_cm("f", x_in)
-        if self.use_2q:
-            m2, s2 = q2_ms if q2_ms is not None else self.q2_mean_scale(y_t)
-            mean_q, scale_q = dist.mvn_product(m1, s1, m2[..., None], s2[..., None])
-        else:
-            mean_q, scale_q = m1, s1
+        mean_q, scale_q = self.propose_cm(x_prev, y_t, q2_ms, u)
+        mean_f, scale_f = self.transition_params_cm(x_prev, u)
         return mean_q, scale_q, mean_f, scale_f
 
-    def emission_log_prob_cm(self, x, y):
-        """x [B, Dx, K], y [B, Dy] -> [B, K] (diagonal Gaussian emission)."""
-        mean, scale = self._mean_scale_cm("g", x)
-        return dist.mvn_diag_log_prob_cm(y[..., :, None], mean, scale)
+    def _known_drift(self, mean, u):
+        """Known dynamics' control drift u·ctrl_w added to a feature-last mean
+        [..., Dx]; u is [B, Di] (broadcast over the middle axes) or
+        position-matched [..., Di], as in `_with_control`."""
+        if not self.di or u is None:
+            return mean
+        drift = u @ self.heads["f"].ctrl_w
+        if not (drift.dim() == mean.dim() and drift.shape[:-1] == mean.shape[:-1]):
+            drift = drift.reshape(drift.shape[0], *([1] * (mean.dim() - 2)), self.dx)
+        return mean + drift
+
+    def _known_scale(self):
+        return networks.scale_from_raw(self.heads["f"].raw_scale, self.nets["f"].sigma_min)
 
     def transition_params_cm(self, x_prev, u=None):
         """Diagonal transition: x_prev [..., Dx, K] (controls u [..., Di]) ->
-        (mean, scale) [..., Dx, K]."""
+        (mean, scale) [..., Dx, K]; known dynamics step x_prev with the true
+        stepper."""
+        if self.transition_known:
+            mean = self.stepper.step(x_prev, axis=-2)
+            if self.di and u is not None:
+                mean = mean + (u @ self.heads["f"].ctrl_w)[..., :, None]
+            return mean, self._known_scale()[:, None].expand(mean.shape)
         return self._mean_scale_cm("f", self._with_control_cm(x_prev, u))
+
+    def transition_full_cm(self, x_prev, u=None):
+        """Constant full-covariance transition (f "tril"): -> (mean
+        [..., Dx, K], chol [Dx, Dx])."""
+        return self._mean_cm("f", self._with_control_cm(x_prev, u)), self._chol("f")
+
+    def transition_tril_cm(self, x_prev, u=None):
+        """Per-state full-covariance transition (f "tril_head"): -> (mean,
+        diag [..., Dx, K], off [..., Dx(Dx−1)/2, K])."""
+        return self._mean_tril_cm("f", self._with_control_cm(x_prev, u))
+
+    def transition_log_prob_cm(self, x_prev, x, u=None):
+        """log f(x | x_prev[, u]), channel-major -> [..., K]."""
+        if self.f_tril_head:
+            return dist.mvn_tril_log_prob_cm(x, *self.transition_tril_cm(x_prev, u))
+        if self.f_tril:
+            return dist.mvn_full_log_prob_cm(x, *self.transition_full_cm(x_prev, u))
+        mean, scale = self.transition_params_cm(x_prev, u)
+        return dist.mvn_diag_log_prob_cm(x, mean, scale)
+
+    def emission_log_prob_cm(self, x, y):
+        """log g(y | x): x [B, Dx, K], y [B, Dy] -> [B, K]."""
+        y = y[..., :, None]
+        if self.emission == "dirac":  # a constant density: adds 0
+            return torch.zeros((*x.shape[:-2], x.shape[-1]), dtype=x.dtype, device=x.device)
+        if self.emission == "poisson":
+            return dist.poisson_log_prob_cm(y, self._mean_cm("g", x))
+        if self.g_tril_head:
+            return dist.mvn_tril_log_prob_cm(y, *self._mean_tril_cm("g", x))
+        if self.g_tril:
+            return dist.mvn_full_log_prob_cm(y, self._mean_cm("g", x), self._chol("g"))
+        mean, scale = self._mean_scale_cm("g", x)
+        return dist.mvn_diag_log_prob_cm(y, mean, scale)
 
     # -- feature-last (smoothed-path log-joint, k-step evaluation) ---------------
 
     def transition_params(self, x_prev, u=None):
         """Diagonal transition -> (mean, scale), feature-last; u as in
         `_with_control`."""
+        if self.transition_known:
+            mean = self._known_drift(self.stepper.step(x_prev), u)
+            return mean, self._known_scale().expand(mean.shape)
         return self._mean_scale("f", self._with_control(x_prev, u))
 
     def transition_log_prob(self, x_prev, x, u=None):
         """log f(x | x_prev[, u]): [..., Dx] x [..., Dx] -> [...]."""
+        if self.f_tril_head:
+            mean, chol = self._mean_tril("f", self._with_control(x_prev, u))
+            return dist.mvn_full_log_prob(x, mean, chol)
+        if self.f_tril:
+            mean = self._mean("f", self._with_control(x_prev, u))
+            return dist.mvn_full_log_prob(x, mean, self._chol("f"))
         mean, scale = self.transition_params(x_prev, u)
         return dist.mvn_diag_log_prob(x, mean, scale)
 
     def emission_log_prob(self, x, y):
         """log g(y | x): x [..., Dx], y [..., Dy] -> [...]."""
+        if self.emission == "dirac":
+            return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        if self.emission == "poisson":
+            return dist.poisson_log_prob(y, self._mean("g", x))
+        if self.g_tril_head:
+            return dist.mvn_full_log_prob(y, *self._mean_tril("g", x))
+        if self.g_tril:
+            return dist.mvn_full_log_prob(y, self._mean("g", x), self._chol("g"))
         mean, scale = self._mean_scale("g", x)
         return dist.mvn_diag_log_prob(y, mean, scale)
 
     def transition_mean(self, x_prev, u=None):
         """Mean next state [..., Dx] — k-step prediction rollouts; u as in
         `_with_control`."""
+        if self.transition_known:
+            return self._known_drift(self.stepper.step(x_prev), u)
+        if self.f_tril:
+            return self._mean("f", self._with_control(x_prev, u))
         return self.transition_params(x_prev, u)[0]
 
     def emission_mean(self, x):
-        """Mean observation ŷ(x) [..., Dy]."""
+        """Mean observation ŷ(x) [..., Dy]: the rate of a Poisson emission."""
+        if self.emission == "poisson":
+            return torch.exp(self._mean("g", x))
+        if self.emission == "dirac" or self.g_tril:
+            return self._mean("g", x)
         return self._mean_scale("g", x)[0]
 
     def backward_propose(self, x_next, y_t):

@@ -20,6 +20,14 @@ Controls [B, T, Di] (data.di > 0) reach IWAE and FIVO through the filter
 (`smc.forward_filter`); PSVO and SVO with controls raise NotImplementedError
 until their support terms and sweeps take them.
 
+The model modes (known dynamics, "head"/"tril"/"tril_head" scales, Poisson
+and Dirac emissions, bootstrap mode) reach every objective on CPU tensors;
+PSVO with a full-covariance f sweeps through the reference's scan body
+(`_plain_ffbsi_sweep`), as the reference's FFBSi kernel excludes it. On CUDA
+tensors IWAE and FIVO run them through the general path
+(`smc.forward_filter`); PSVO and SVO whose forward takes no kernel path
+raise NotImplementedError.
+
 The FFBSi sweep is `ops.ffbsi.FFBSiSweep`: the CUDA kernels K5/K6 for CUDA
 tensors, their plain versions for CPU tensors; SVO's sweep likewise
 `ops.svo.SVOSweep` (K12/K13), and outside `ops.svo.usable` the reference's
@@ -51,7 +59,7 @@ from psvo_tpu_torch.distributions import (
     _HALF_LOG_2PI, _MIN_LOGP, log_normalize, mvn_diag_log_prob,
 )
 from psvo_tpu_torch.models.ssm import SSM
-from psvo_tpu_torch.ops import ffbsi, svo
+from psvo_tpu_torch.ops import ffbsi, fused_step, svo, trunk
 from psvo_tpu_torch.smc import (
     FilterResult, SegmentedCache, _checkpointed, _segment_seeds, forward_filter,
     forward_filter_segmented, recompute_segment,
@@ -73,32 +81,117 @@ class ObjectiveOutput:
 
 
 def _pairwise_support_terms(ssm: SSM, x_support):
-    """Support-side terms of the pairwise transition density (diagonal f):
-    x_support [..., Dx, K] -> r = 1/s², mr = m·r [..., Dx, K] and
-    c = −½Σ_d m²r − Σ_d log s − Dx·½log 2π [..., K]; `ops.ffbsi.pair_logp`
-    contracts them with the queries."""
+    """Support-side terms of the pairwise transition density f(q | x_j) on
+    x_support [..., Dx, K] (the reference's `_pairwise_support_terms`), a
+    dict that `_pairwise_query_logp` contracts with the queries:
+
+    - diagonal f: r = 1/s², mr = m·r [..., Dx, K] and
+      c = −½Σ_d m²r − Σ_d log s − Dx·½log 2π [..., K] (`ops.ffbsi.pair_logp`);
+    - a constant Cholesky factor L ("tril"): the whitened mean L⁻¹m as mr,
+      r = 1, c likewise, and L itself, which whitens the queries;
+    - a per-state factor ("tril_head"): the precision P = L⁻ᵀL⁻¹ row-major
+      as pflat [..., Dx², K], w = P·m [..., Dx, K] and c = −½ mᵀPm −
+      Σ log diag − Dx·½log 2π, with L⁻¹ unrolled over the small Dx."""
+    d = x_support.shape[-2]
+    if ssm.f_tril_head:
+        mean, diag, off = ssm.transition_tril_cm(x_support)
+
+        def chol(i, j):  # packed lower-triangular entry, i >= j
+            return diag[..., i, :] if i == j else off[..., i * (i - 1) // 2 + j, :]
+
+        linv = [[None] * d for _ in range(d)]
+        for i in range(d):
+            linv[i][i] = 1.0 / diag[..., i, :]
+            for j in range(i - 1, -1, -1):
+                acc = sum(chol(i, kk) * linv[kk][j] for kk in range(j, i))
+                linv[i][j] = -acc * linv[i][i]
+        m_w = [sum(linv[i][j] * mean[..., j, :] for j in range(i + 1)) for i in range(d)]
+        t3 = sum(v * v for v in m_w)
+        w = torch.stack([sum(linv[i][j] * m_w[i] for i in range(j, d)) for j in range(d)],
+                        dim=-2)
+        pflat = torch.stack([sum(linv[i][a] * linv[i][b] for i in range(max(a, b), d))
+                             for a in range(d) for b in range(d)], dim=-2)
+        logdet = torch.sum(torch.log(diag), dim=-2)
+        return {"pflat": pflat, "w": w, "c": -0.5 * t3 - logdet - d * _HALF_LOG_2PI}
+    if ssm.f_tril:
+        mean, chol_f = ssm.transition_full_cm(x_support)
+        mean = torch.linalg.solve_triangular(chol_f.expand(*mean.shape[:-2], d, d), mean,
+                                             upper=False)
+        logdet = torch.sum(torch.log(torch.diagonal(chol_f)))
+        t3 = torch.sum(mean * mean, dim=-2)
+        return {"r": torch.ones_like(mean), "mr": mean,
+                "c": -0.5 * t3 - logdet - d * _HALF_LOG_2PI, "chol": chol_f}
     mean, scale = ssm.transition_params_cm(x_support)
     r = 1.0 / (scale * scale)
     logdet = torch.sum(torch.log(scale), dim=-2)
     t3 = torch.sum(mean * mean * r, dim=-2)
-    d = x_support.shape[-2]
-    return r, mean * r, -0.5 * t3 - logdet - d * _HALF_LOG_2PI
+    return {"r": r, "mr": mean * r, "c": -0.5 * t3 - logdet - d * _HALF_LOG_2PI}
+
+
+def _pairwise_query_logp(ssm: SSM, sup: dict, x_query):
+    """The pairwise log f(q_m | x_j), floored: one step's support terms
+    (`_pairwise_support_terms` of [B, Dx, K]) against the queries x_query
+    [B, M, Dx] -> [B, M, K]."""
+    if ssm.f_tril_head:
+        qq = (x_query[..., :, None] * x_query[..., None, :]).flatten(-2)
+        t1 = torch.einsum("bmp,bpk->bmk", qq, sup["pflat"])
+        t2 = torch.einsum("bmd,bdk->bmk", x_query, sup["w"])
+        logp = -0.5 * t1 + t2 + sup["c"][:, None, :]
+    else:
+        if ssm.f_tril:
+            d = x_query.shape[-1]
+            chol = sup["chol"].expand(*x_query.shape[:-2], d, d)
+            x_query = torch.linalg.solve_triangular(chol, x_query.transpose(-1, -2),
+                                                    upper=False).transpose(-1, -2)
+        logp = ffbsi.pair_logp(x_query, sup["r"], sup["mr"], sup["c"])
+    return torch.clamp(logp, min=_MIN_LOGP)
 
 
 def _support_terms(ssm: SSM, x_support, differentiable: bool):
-    """(r, mr, c) of every support step [T−1, B, ·, K], contiguous. Without a
-    gradient they are computed in chunks of time steps, into their outputs."""
+    """(r, mr, c) of every support step [T−1, B, ·, K] of a diagonal f,
+    contiguous, for K5/K6. Without a gradient they are computed in chunks of
+    time steps, into their outputs."""
+    names = ("r", "mr", "c")
     if differentiable:
-        return tuple(t.contiguous() for t in _pairwise_support_terms(ssm, x_support))
+        sup = _pairwise_support_terms(ssm, x_support)
+        return tuple(sup[n].contiguous() for n in names)
     r, mr = torch.empty_like(x_support), torch.empty_like(x_support)
     t_len, batch, _, k = x_support.shape
     c = x_support.new_empty((t_len, batch, k))
     with torch.no_grad():
         for i in range(0, x_support.shape[0], _SUPPORT_CHUNK):
-            for out, part in zip((r, mr, c), _pairwise_support_terms(
-                    ssm, x_support[i:i + _SUPPORT_CHUNK])):
-                out[i:i + _SUPPORT_CHUNK] = part
+            sup = _pairwise_support_terms(ssm, x_support[i:i + _SUPPORT_CHUNK])
+            for out, n in zip((r, mr, c), names):
+                out[i:i + _SUPPORT_CHUNK] = sup[n]
     return r, mr, c
+
+
+def _plain_ffbsi_sweep(ssm: SSM, x_query, xs, logws, gum, differentiable: bool):
+    """The reference's FFBSi scan body (`objectives._make_ffbsi_body`) as a
+    loop over t = n−1 … 0, for a full-covariance f, which K5/K6 do not take
+    (`ops.ffbsi.usable`), on CPU tensors: per step the pairwise density of
+    the queries against the support, the Gumbel-argmax draw and the path
+    pmf. Returns what `ffbsi.FFBSiSweep` returns (x_first, logp (zeros: the
+    log-joint is recomputed on the selected paths), logq, xtilde)."""
+    sup = _pairwise_support_terms(ssm, xs)
+    lwn, _ = log_normalize(logws, dim=-1)
+    if not differentiable:
+        sup = {n: v.detach() for n, v in sup.items()}
+        lwn = lwn.detach()
+    x = x_query
+    logq = torch.zeros(x_query.shape[:2], dtype=x_query.dtype, device=x_query.device)
+    paths = [None] * xs.shape[0]
+    for t in reversed(range(xs.shape[0])):
+        sup_t = {n: (v if n == "chol" else v[t]) for n, v in sup.items()}
+        pair = _pairwise_query_logp(ssm, sup_t, x)
+        logits = pair + lwn[t][:, None, :]
+        idx = torch.argmax(logits + gum[t], dim=-1)  # [B, M]
+        pair_sel = torch.gather(pair, 2, idx[..., None])[..., 0]
+        lwn_sel = torch.gather(lwn[t], 1, idx)
+        logq = logq + pair_sel + lwn_sel - torch.logsumexp(logits, dim=-1)
+        x = paths[t] = torch.gather(xs[t], 2, idx[:, None, :].expand(-1, xs.shape[2], -1)
+                                    ).transpose(1, 2)
+    return x, torch.zeros_like(logq), logq, torch.stack(paths)
 
 
 def _sample_final_particles(gum, fwd: FilterResult):
@@ -156,11 +249,16 @@ def _logjoint_chunked(ssm: SSM, x_tilde, ys_tm):
 
 
 def _ffbsi_sweep(ssm: SSM, x_query, xs, logws, gum, differentiable: bool):
-    """One `ffbsi.FFBSiSweep` from the queries x_query [B, M, Dx] over the
-    support xs [n, B, Dx, K] with the cumulative log-weights logws
-    [n, B, K] and Gumbels gum [n, B, M, K]: the support terms and the
-    normalized weights, which carry no gradient unless `differentiable`.
-    Returns (x_first, logp, logq, xtilde)."""
+    """One FFBSi sweep from the queries x_query [B, M, Dx] over the support
+    xs [n, B, Dx, K] with the cumulative log-weights logws [n, B, K] and
+    Gumbels gum [n, B, M, K]: the support terms and the normalized weights,
+    which carry no gradient unless `differentiable`, then one
+    `ffbsi.FFBSiSweep`; for a full-covariance f, outside K5/K6's class,
+    `_plain_ffbsi_sweep` (CPU tensors only: such a model's forward takes no
+    kernel path, so `make_objective` refuses it on the card). Returns
+    (x_first, logp, logq, xtilde)."""
+    if ssm.f_tril:
+        return _plain_ffbsi_sweep(ssm, x_query, xs, logws, gum, differentiable)
     r, mr, c = _support_terms(ssm, xs, differentiable)
     lwn, _ = log_normalize(logws, dim=-1)
     if not differentiable:
@@ -254,11 +352,10 @@ def _segment_gumbels(generator, noise, n_segments: int, batch: int, m: int, k: i
 
 def _predictive_mixture_logp(ssm: SSM, x_prev, logw_prev, x_query):
     """log p̂(x_query | y_{1:t}) = lse_j [log Ŵ_t^j + log f(x_query | X_t^j)]:
-    x_prev [B, Dx, K], logw_prev [B, K], x_query [B, M, Dx] -> [B, M]. The
-    pairwise density is `ops.ffbsi.pair_logp` on the support terms, floored."""
+    x_prev [B, Dx, K], logw_prev [B, K], x_query [B, M, Dx] -> [B, M]; the
+    pairwise density of `_pairwise_query_logp`."""
     logw_norm, _ = log_normalize(logw_prev, dim=-1)
-    r, mr, c = _pairwise_support_terms(ssm, x_prev)
-    pair = torch.clamp(ffbsi.pair_logp(x_query, r, mr, c), min=_MIN_LOGP)
+    pair = _pairwise_query_logp(ssm, _pairwise_support_terms(ssm, x_prev), x_query)
     return torch.logsumexp(pair + logw_norm[:, None, :], dim=-1)
 
 
@@ -315,6 +412,12 @@ def _gumbel(generator, shape):
     return u.clamp_(min=torch.finfo(u.dtype).tiny).log_().neg_().log_().neg_()
 
 
+def _kernel_forward(ssm: SSM, smc_cfg, t_steps: int) -> bool:
+    """Whether the forward filter of (ssm, smc_cfg) runs a kernel path (the
+    whole-scan or the trunk class) rather than the general path."""
+    return t_steps >= 2 and (fused_step.usable(ssm, smc_cfg) or trunk.usable(ssm, smc_cfg))
+
+
 def _controls_kw(controls) -> dict:
     """forward_filter's controls= only when there are some: an uncontrolled
     call keeps the filter's call as it was."""
@@ -360,6 +463,11 @@ def make_objective(ssm: SSM, cfg: Config):
     def objective(generator, ys, encoder_inputs=None, noise=None,
                   controls=None) -> ObjectiveOutput:
         filter_noise = None if noise is None else tuple(noise[:3])
+        if smoothing and ys.is_cuda and not _kernel_forward(ssm, smc_cfg, ys.shape[1]):
+            raise NotImplementedError(
+                f"{smc_cfg.objective} with this model has no CUDA kernel yet: its forward "
+                "filter is outside ops.fused_step.usable and ops.trunk.usable, and the general "
+                "path serves FIVO and IWAE only on the card; run it on CPU tensors")
         if segmented:
             fwd, seg_cache = forward_filter_segmented(
                 ssm, generator, ys, smc_cfg, smc_cfg.ffbsi_segments,

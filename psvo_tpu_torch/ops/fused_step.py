@@ -117,14 +117,17 @@ _K14, _K15 = 0, 1  # psvo_step_max_active's kernel argument
 
 def usable(ssm, cfg) -> bool:
     """Whether (ssm, smc-config) is in the kernel's class; with controls
-    (ssm.di > 0) while Dx + Di <= 7. Not bootstrap mode, whose proposal is f
-    (the kernels draw from the fused q1/q2 proposal and weight by f, g and
-    q), as the reference's gate (`pallas_step.usable`)."""
+    (ssm.di > 0) while Dx + Di <= 7. As the reference's gate
+    (`pallas_step.usable`), not bootstrap mode, whose proposal is f (the
+    kernels draw from the fused q1/q2 proposal and weight by f, g and q),
+    nor known dynamics, Poisson or Dirac emissions, or a q1/f/g scale other
+    than a constant diagonal (`model_in_class`)."""
     k = cfg.n_particles
     hidden = ssm.nets["q1"].hidden
     nets = [ssm.nets[n] for n in ("q1", "f", "g")]
     return (
         not cfg.use_bootstrap
+        and model_in_class(ssm)
         and cfg.resampling == "systematic"
         and cfg.ess_threshold >= 1.0
         and cfg.use_stop_gradient
@@ -135,6 +138,18 @@ def usable(ssm, cfg) -> bool:
         and hidden[0] in HIDDEN_WIDTHS
         and all(h == hidden[0] for h in hidden)
         and all(nc.hidden == hidden and nc.activation == "relu" for nc in nets)
+    )
+
+
+def model_in_class(ssm) -> bool:
+    """The model modes every whole-step and trunk kernel takes, as the
+    reference's gates (`pallas_step.py:143-152`, `pallas_trunk.py:94-99`):
+    a learned f (not known dynamics), a Gaussian emission, and constant
+    diagonal scales on q1, f and g (no "head", "tril" or "tril_head")."""
+    return (
+        not ssm.transition_known
+        and ssm.emission not in ("poisson", "dirac")
+        and all(ssm.nets[n].cov_type == "const" for n in ("q1", "f", "g"))
     )
 
 

@@ -139,12 +139,15 @@ def usable(ssm, cfg) -> bool:
     and K9 tiles, and the weights and tiles in one CTA's shared memory. No
     controls (ssm.di > 0): K9 and K10 read no control term yet. Not
     bootstrap mode, as the reference's gate (`pallas_trunk.usable`): K9
-    draws from q1/q2 and weights by f, g and q."""
+    draws from q1/q2 and weights by f, g and q; nor, as that gate, known
+    dynamics, Poisson or Dirac emissions or a q1/f/g scale other than a
+    constant diagonal (`fused_step.model_in_class`)."""
     k = cfg.n_particles
     hidden = ssm.nets["q1"].hidden
     nets = [ssm.nets[n] for n in ("q1", "f", "g")]
     return (
         not cfg.use_bootstrap
+        and fused_step.model_in_class(ssm)
         and cfg.resampling == "systematic"
         and cfg.ess_threshold >= 1.0
         and cfg.use_stop_gradient

@@ -22,14 +22,22 @@ Three paths, chosen from what the call can observe:
   the gather goes through `resample_gather.GatherParticles` (backward: the
   segment-sum scatter K11) and the trunk through `trunk.TrunkForward`
   (backward: K10), so the loss's gradient runs K10 and K11 once per step;
-- everything else runs the plain step body in a Python loop over t, on CPU
-  tensors only: a CUDA tensor outside the kernel classes raises
-  NotImplementedError rather than run plain PyTorch on the card.
+- everything else runs the plain step body in a Python loop over t, the
+  counterpart of the reference's plain scan (`psvo_tpu/smc.py:671-760`). On
+  CUDA tensors it serves the configurations that the reference's own gates
+  send to that scan (`reference_path`): bootstrap mode, known dynamics,
+  full-covariance or state-dependent heads, Poisson and Dirac emissions, no
+  resampling (IWAE), and shapes outside the reference's kernels. There it
+  resamples through K7 and K8 (`resampling.maybe_resample`), and its
+  backward runs K11 (`resample_gather.GatherParticles`); without
+  resampling it launches no kernel. A configuration that the reference
+  sends to one of its kernels, but that no port kernel class takes, raises
+  NotImplementedError on CUDA tensors rather than run plain PyTorch where
+  the reference runs a kernel.
 
 Bootstrap mode (smc.use_bootstrap) proposes from the prior at t = 0 and
-from f after, so α0 = log g and α_t = log g; no kernel class takes it (the
-gates exclude it, as the reference's do), so it runs the plain body on CPU
-tensors and raises on CUDA ones.
+from f after, so α0 = log g and α_t = log g (with a full-covariance f, the
+correlated draw mean + L·ε).
 
 Long T: `forward_filter_segmented` keeps only the carries entering each of
 S segments (`SegmentedCache`). In the whole-scan class each segment is one
@@ -63,7 +71,9 @@ from typing import Optional
 import torch
 
 from psvo_tpu_torch.config import SMCConfig
-from psvo_tpu_torch.distributions import effective_sample_size, mvn_diag_log_prob_cm
+from psvo_tpu_torch.distributions import (
+    effective_sample_size, mvn_diag_log_prob_cm, mvn_tril_sample_cm,
+)
 from psvo_tpu_torch.models.ssm import SSM
 from psvo_tpu_torch.ops import fused_step, resampling, trunk
 
@@ -118,14 +128,68 @@ def _q2_tm(ssm: SSM, cfg: SMCConfig, enc_tm):
     return None
 
 
-def _make_step_body(ssm: SSM, cfg: SMCConfig):
+def _make_step_body(ssm: SSM, cfg: SMCConfig, remat: bool = False):
     """One plain filtering step t: (maybe) resample -> propose -> weight.
 
     body((x, logw), (y_t, q2_t, ctrl_t, eps_t, u_t)) -> ((x_new, logw_new),
     (ell, ess, fmean)); q2_t is the step's precomputed q2 (mean, scale) or
     None, ctrl_t its controls [B, Di], u_t the resampling uniforms.
+
+    The proposal, by model (the reference's `smc._make_step_body`): in
+    bootstrap mode with a full-covariance f the correlated draw
+    x = mean_f + L·ε (a constant L, or the per-state packed factor) and
+    α = log g; with a full-covariance f the diagonal proposal, weighted by
+    f's full density; otherwise the diagonal path, q1 (⊗ q2) and f from
+    `ssm.step_heads_cm`.
+
+    With `remat` (the reference's smc.remat) the propose-and-weight part runs
+    under `torch.utils.checkpoint` when autograd records, so that the
+    backward recomputes it from its inputs. The resampling stays outside,
+    as the reference's policy saves the resampled particles and the
+    ancestors: the backward never repeats the resample (K7 and K8 on the
+    card), and the gather's own backward (K11) runs once a step. The
+    checkpoint is the reentrant one: its forward records no graph, so the
+    host does less work a step than with the non-reentrant form on this
+    eager loop; it takes tensors only (q2_t goes in as its two halves), and
+    the parameters read inside get their gradients from its backward.
     """
     resample_on = cfg.resampling != "none"
+
+    def propose_weight(x, logw, y_t, q2_t, ctrl_t, eps_t):
+        if ssm.f_tril and ssm.use_bootstrap:
+            if ssm.f_tril_head:
+                x_new = mvn_tril_sample_cm(eps_t, *ssm.transition_tril_cm(x, ctrl_t))
+            else:
+                mean_f, chol_f = ssm.transition_full_cm(x, ctrl_t)
+                x_new = mean_f + torch.einsum("de,...ek->...dk", chol_f, eps_t)
+            alpha = ssm.emission_log_prob_cm(x_new, y_t)
+        elif ssm.f_tril:
+            mean_q, scale_q = ssm.propose_cm(x, y_t, q2_t, ctrl_t)
+            x_new = mean_q + scale_q * eps_t
+            alpha = (
+                ssm.transition_log_prob_cm(x, x_new, ctrl_t)
+                + ssm.emission_log_prob_cm(x_new, y_t)
+                - mvn_diag_log_prob_cm(x_new, mean_q, scale_q)
+            )
+        else:
+            mean_q, scale_q, mean_f, scale_f = ssm.step_heads_cm(x, y_t, q2_t, ctrl_t)
+            x_new = mean_q + scale_q * eps_t  # [B, Dx, K]
+            log_g = ssm.emission_log_prob_cm(x_new, y_t)
+            if ssm.use_bootstrap:  # q = f: the densities cancel
+                alpha = log_g
+            else:
+                alpha = (
+                    mvn_diag_log_prob_cm(x_new, mean_f, scale_f)
+                    + log_g
+                    - mvn_diag_log_prob_cm(x_new, mean_q, scale_q)
+                )
+        logw_new = logw + alpha
+        ell = _lse(logw_new) - _lse(logw)
+        fmean = torch.einsum("bk,bdk->bd", torch.softmax(logw_new, dim=-1), x_new)
+        return x_new, logw_new, ell, fmean
+
+    def flat_propose_weight(x, logw, y_t, m2, s2, ctrl_t, eps_t):
+        return propose_weight(x, logw, y_t, None if m2 is None else (m2, s2), ctrl_t, eps_t)
 
     def body(carry, inputs):
         x, logw = carry
@@ -136,20 +200,13 @@ def _make_step_body(ssm: SSM, cfg: SMCConfig):
             )
         else:
             ess = effective_sample_size(logw, dim=-1)
-        mean_q, scale_q, mean_f, scale_f = ssm.step_heads_cm(x, y_t, q2_t, ctrl_t)
-        x_new = mean_q + scale_q * eps_t  # [B, Dx, K]
-        log_g = ssm.emission_log_prob_cm(x_new, y_t)
-        if ssm.use_bootstrap:  # q = f: the densities cancel
-            alpha = log_g
+        if remat and torch.is_grad_enabled():
+            m2, s2 = q2_t if q2_t is not None else (None, None)
+            x_new, logw_new, ell, fmean = torch.utils.checkpoint.checkpoint(
+                flat_propose_weight, x, logw, y_t, m2, s2, ctrl_t, eps_t, use_reentrant=True,
+                preserve_rng_state=False)
         else:
-            alpha = (
-                mvn_diag_log_prob_cm(x_new, mean_f, scale_f)
-                + log_g
-                - mvn_diag_log_prob_cm(x_new, mean_q, scale_q)
-            )
-        logw_new = logw + alpha
-        ell = _lse(logw_new) - _lse(logw)
-        fmean = torch.einsum("bk,bdk->bd", torch.softmax(logw_new, dim=-1), x_new)
+            x_new, logw_new, ell, fmean = propose_weight(x, logw, y_t, q2_t, ctrl_t, eps_t)
         return (x_new, logw_new), (ell, ess, fmean)
 
     return body
@@ -383,6 +440,58 @@ def _forward_filter_trunk(
     )
 
 
+# The reference's kernel gates, as constants of its TPU kernels: particles a
+# tile (`pallas_resample.Q`), the whole-step kernel's K cap
+# (`pallas_step.MAX_K`), the trunk kernel's tile and state rows
+# (`pallas_trunk.K_TILE`, `MAX_PD`).
+_REF_Q, _REF_STEP_MAX_K, _REF_K_TILE, _REF_MAX_PD = 128, 2048, 2048, 56
+_REFERENCE_KERNELS = {"fused": "whole-step kernel (pallas_step)",
+                      "trunk": "trunk kernel (pallas_trunk)"}
+
+
+def reference_path(ssm: SSM, cfg: SMCConfig) -> str:
+    """The path the reference's `forward_filter` takes for (ssm, cfg) on its
+    accelerator: "fused" (`pallas_step.usable`), "trunk"
+    (`pallas_trunk.usable`) or "scan", its plain scan, which resamples through
+    its resampling kernel (`ops/resampling.py:176-183`). It mirrors the two
+    gates mode by mode (pallas_step.py:131-169, pallas_trunk.py:81-121) with
+    the reference's defaults (its kernels on, no mesh) at a batch that is a
+    whole number of its row blocks: the port's kernels have no row block, so
+    the batch size never moves a configuration from one route to another.
+
+    On CUDA tensors the port's plain loop, the counterpart of that scan
+    (resampling through K7/K8, K11 in the backward), serves only "scan"
+    configurations that no port kernel class takes; a configuration the
+    reference sends to a kernel whose class the port has not instantiated for
+    it (multinomial resampling at the FHN width, a (Dx, Dy) outside
+    `fused_step.KERNEL_DIMS`, ESS-adaptive resampling) raises."""
+    k = cfg.n_particles
+    nets = [ssm.nets[n] for n in ("q1", "f", "g")]
+    hidden = nets[0].hidden
+    common = (
+        not (cfg.use_bootstrap or ssm.transition_known)
+        and ssm.emission not in ("poisson", "dirac")
+        and not (ssm.f_tril or ssm.g_tril)
+        and k % _REF_Q == 0
+        and len(hidden) >= 1
+        and all(h == hidden[0] for h in hidden)
+        and hidden[0] % 8 == 0
+        and all(nc.hidden == hidden and nc.cov_type == "const" and nc.activation == "relu"
+                for nc in nets)
+    )
+    if not common:
+        return "scan"
+    widest = max(ssm.dx + ssm.di, ssm.dy)
+    if (cfg.resampling in ("systematic", "multinomial") and cfg.ess_threshold >= 1.0
+            and cfg.use_stop_gradient and k <= _REF_STEP_MAX_K and widest <= 7):
+        return "fused"
+    pd = -(-(widest + 1) // 8) * 8
+    tile = min(k, _REF_K_TILE if pd <= 16 else _REF_K_TILE // 2)
+    if pd <= _REF_MAX_PD and not (k > tile and k % tile):
+        return "trunk"
+    return "scan"
+
+
 def forward_filter(
     ssm: SSM,
     generator: Optional[torch.Generator],
@@ -402,7 +511,10 @@ def forward_filter(
     noise is the testing hook of the reference: (eps0 [B,Dx,K], eps_scan
     [T−1,B,Dx,K], u_scan [T−1,B,K]) replacing the generator's draws. On CPU
     tensors it forces the plain step body, as in the reference; on CUDA
-    tensors the draws are replayed through the kernel.
+    tensors the draws are replayed through the kernels of the path.
+    Dispatch (the module docstring): the whole-scan class, the trunk class,
+    then the plain loop, on CUDA tensors only where `reference_path` says
+    "scan".
     """
     batch, t_steps, _ = ys.shape
     path = None
@@ -412,14 +524,18 @@ def forward_filter(
         path = _forward_filter_trunk
     kw = {"controls": controls} if path is _forward_filter_fused else {}
     if ys.is_cuda:
-        if path is None:
+        if path is not None:
+            return path(ssm, generator, ys, cfg, cache=cache, encoder_inputs=encoder_inputs,
+                        streams=noise, **kw)
+        ref = reference_path(ssm, cfg)
+        if t_steps >= 2 and ref != "scan":
             raise NotImplementedError(
-                "this configuration has no CUDA kernel yet (outside "
-                "ops.fused_step.usable and ops.trunk.usable); run it on CPU tensors"
+                f"this configuration has no CUDA kernel yet: the reference runs it through its "
+                f"{_REFERENCE_KERNELS[ref]}, whose class the port's kernels do not cover for it "
+                "(outside ops.fused_step.usable and ops.trunk.usable; ROADMAP queue 2 B); run "
+                "it on CPU tensors"
             )
-        return path(ssm, generator, ys, cfg, cache=cache, encoder_inputs=encoder_inputs,
-                    streams=noise, **kw)
-    if path is not None and noise is None:
+    elif path is not None and noise is None:
         return path(ssm, generator, ys, cfg, cache=cache, encoder_inputs=encoder_inputs, **kw)
 
     k = cfg.n_particles
@@ -435,7 +551,7 @@ def forward_filter(
     x0, alpha0 = _init_t0(ssm, eps0, ys_tm[0], enc_tm[0])
     ell0 = _lse(alpha0) - math.log(k)
 
-    body = _make_step_body(ssm, cfg)
+    body = _make_step_body(ssm, cfg, remat=cfg.remat)
     carry = (x0, alpha0)
     xs, logws, ells, esss, fmeans = [x0], [alpha0], [ell0], [], []
     for t in range(1, t_steps):

@@ -1521,9 +1521,13 @@ def test_cuda_controls_outside_the_kernel_classes_raise():
 
 def test_cuda_bootstrap_model_raises():
     """A bootstrap model lies outside every kernel class (its proposal is f),
-    so on CUDA tensors the filter raises rather than run the kernels' model
-    or plain PyTorch on the card; so does a segmented PSVO model's."""
+    as the reference's gates say; on CUDA tensors its filter runs the general
+    path, the counterpart of the reference's plain scan: K7 and K8 once a
+    step, no other kernel and no plain version, at the FHN and Lorenz-96
+    shapes. A segmented PSVO bootstrap model still raises: its forward has
+    no CUDA route."""
     from psvo_tpu_torch.objectives import make_objective
+    from psvo_tpu_torch.ops import resample_gather as rg
     from psvo_tpu_torch.smc import forward_filter
 
     dev = _cuda()
@@ -1532,13 +1536,187 @@ def test_cuda_bootstrap_model_raises():
         cfg = PRESETS[preset]
         cfg = dataclasses.replace(cfg, smc=dataclasses.replace(cfg.smc, use_bootstrap=True))
         ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
-        with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-            forward_filter(ssm, torch.Generator(device=dev), torch.zeros(shape, device=dev),
-                           cfg.smc)
+        before = [rg.ancestor_indices_large.launches, rg.gather_particles.launches,
+                  fused_step.scan_forward.launches]
+        with torch.no_grad():
+            out = forward_filter(ssm, torch.Generator(device=dev), torch.zeros(shape, device=dev),
+                                 cfg.smc)
+        assert bool(torch.isfinite(out.log_z).all())
+        assert [rg.ancestor_indices_large.launches, rg.gather_particles.launches,
+                fused_step.scan_forward.launches] == [before[0] + 4, before[1] + 4, before[2]]
     cfg = _small_cfg("lorenz63_psvo_k1024", use_bootstrap=True, ffbsi_segments=5)
     ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):
         make_objective(ssm, cfg)(torch.Generator(device=dev), torch.zeros((2, 6, 3), device=dev))
+
+
+# The general path (the reference's plain scan) on the card: one dispatch test a mode
+_MODES = {
+    "known dynamics": dict(smc={"transition": "known"}),
+    "known dynamics, controls": dict(smc={"transition": "known"}, di=2),
+    "f tril": dict(nets={"f": "tril"}),
+    "f tril_head": dict(nets={"f": "tril_head"}),
+    "f head": dict(nets={"f": "head"}),
+    "g tril": dict(nets={"g": "tril"}),
+    "g tril_head": dict(nets={"g": "tril_head"}),
+    "dirac": dict(emission="dirac"),
+    "poisson": dict(emission="poisson"),
+    "bootstrap": dict(smc={"use_bootstrap": True}),
+    "bootstrap, f tril": dict(smc={"use_bootstrap": True}, nets={"f": "tril"}),
+    "bootstrap, f tril_head": dict(smc={"use_bootstrap": True}, nets={"f": "tril_head"}),
+    "iwae": dict(smc={"objective": "iwae", "resampling": "none"}, k=16),  # fhn_iwae_k16's K
+}
+
+
+def _mode_cfg(mode, t=6):
+    """The small FHN model (hidden (16, 16), K = 128, T = 6) in one mode."""
+    spec = _MODES[mode]
+    k = spec.get("k", 128)
+    cfg = _small_cfg("fhn_fivo_k128", **spec.get("smc", {}))
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, t_steps=t, di=spec.get("di", 0),
+        emission=spec.get("emission", cfg.data.emission)),
+        smc=dataclasses.replace(cfg.smc, n_particles=k, kernel_rng=False))
+    return cfg.with_nets(**{n: dataclasses.replace(cfg.net(n), cov_type=c)
+                            for n, c in spec.get("nets", {}).items()})
+
+
+def _general_counters():
+    from psvo_tpu_torch.ops import resample_gather as rg
+    from psvo_tpu_torch.ops import svo, trunk
+
+    mine = (rg.ancestor_indices_large, rg.gather_particles, rg.segment_sum_scatter)
+    others = (fused_step.scan_forward, fused_step.scan_backward, fused_step.step_forward,
+              fused_step.step_backward, trunk.trunk_forward, trunk.trunk_backward,
+              ffbsi.ffbsi_forward, ffbsi.ffbsi_backward, svo.svo_sweep_forward,
+              svo.svo_sweep_backward)
+    plain = (rg.ancestor_indices_large_reference, rg.gather_particles_reference,
+             rg.segment_sum_scatter_reference, fused_step.scan_forward_reference,
+             fused_step.scan_backward_reference, fused_step.step_forward_reference,
+             fused_step.step_backward_reference, trunk.trunk_forward_reference,
+             trunk.trunk_backward_reference)
+    return mine, others, plain
+
+
+@pytest.mark.parametrize("mode", sorted(_MODES))
+def test_cuda_mode_runs_the_general_path(mode):
+    """Each mode outside the reference's kernel gates: no kernel gate admits
+    it, and on CUDA tensors the filter (no grad) launches K7 and K8 once a
+    step and a FIVO train step's backward K11 once a step (none of them
+    without resampling), no other kernel and no plain version; the loss and
+    the gradients are finite."""
+    from psvo_tpu_torch import smc
+    from psvo_tpu_torch.ops import trunk
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    dev = _cuda()
+    cfg = _mode_cfg(mode)
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    assert not fused_step.usable(ssm, cfg.smc) and not trunk.usable(ssm, cfg.smc)
+    assert smc.reference_path(ssm, cfg.smc) == "scan"
+    mine, others, plain = _general_counters()
+    b, t = 4, cfg.data.t_steps
+    ys = torch.randn((b, t, 2), generator=torch.Generator().manual_seed(1)).abs().round().to(dev)
+    ctrl = {} if not cfg.data.di else {"controls": torch.zeros((b, t, cfg.data.di), device=dev)}
+    resamples = cfg.smc.objective != "iwae"
+
+    def counts():
+        return [f.launches for f in mine], [f.launches for f in others], [f.calls for f in plain]
+
+    start = counts()
+    with torch.no_grad():
+        out = smc.forward_filter(ssm, torch.Generator(device=dev).manual_seed(2), ys, cfg.smc,
+                                 **ctrl)
+    after = counts()
+    per = (t - 1) if resamples else 0
+    assert [a - s for a, s in zip(after[0], start[0])] == [per, per, 0]
+    assert after[1:] == start[1:]
+    assert bool(torch.isfinite(out.log_z).all())
+    step = make_train_step(ssm, cfg, make_optimizer(cfg))
+    metrics = step(torch.Generator(device=dev).manual_seed(3), ys, **ctrl)
+    final = counts()
+    assert [f - a for f, a in zip(final[0], after[0])] == [per, per, per]
+    assert final[1:] == start[1:]
+    assert all(bool(torch.isfinite(metrics[n])) for n in ("loss", "grad_norm"))
+
+
+@pytest.mark.parametrize("mode", ["f tril", "known dynamics", "iwae"])
+def test_cuda_general_path_matches_the_cpu(mode):
+    """The general path on the card against itself on the CPU, on the same
+    draws (made on the CPU) and weights, the CPU resampling through K7's and
+    K8's plain versions (the count form), so the ancestors agree: log Ẑ and
+    the increments within 2e-4, every gradient leaf within rtol 5e-3, atol
+    5e-4."""
+    import copy
+    import functools
+
+    from psvo_tpu_torch.objectives import make_objective
+    from psvo_tpu_torch.ops import resampling
+
+    dev = _cuda()
+    cfg = _mode_cfg(mode, t=12)
+    cpu_ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card_ssm = copy.deepcopy(cpu_ssm).to(dev)
+    b, t, k = 4, cfg.data.t_steps, cfg.smc.n_particles
+    g = torch.Generator().manual_seed(5)
+    ys = torch.randn((b, t, 2), generator=g)
+    method = cfg.smc.resampling
+    noise = (torch.randn((b, 2, k), generator=g), torch.randn((t - 1, b, 2, k), generator=g),
+             resampling.bulk_positions(g, t - 1, b, k, method) if method != "none"
+             else torch.zeros((t - 1, b, 1)))
+    card = make_objective(card_ssm, cfg)(None, ys.to(dev), noise=tuple(n.to(dev) for n in noise))
+    card.loss.backward()
+    plain_resample = resampling.maybe_resample
+    resampling.maybe_resample = functools.partial(plain_resample, use_kernel=True)
+    try:
+        cpu = make_objective(cpu_ssm, cfg)(None, ys, noise=noise)
+        cpu.loss.backward()
+    finally:
+        resampling.maybe_resample = plain_resample
+    torch.testing.assert_close(card.elbo.detach().cpu(), cpu.elbo.detach(), rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(card.filter_result.increments.detach().cpu(),
+                               cpu.filter_result.increments.detach(), rtol=2e-4, atol=2e-4)
+    for (name, p_card), p_cpu in zip(card_ssm.named_parameters(), cpu_ssm.parameters()):
+        if p_cpu.grad is None:
+            assert p_card.grad is None, name
+            continue
+        torch.testing.assert_close(p_card.grad.cpu(), p_cpu.grad, rtol=5e-3, atol=5e-4,
+                                   msg=name)
+
+
+def test_cuda_reference_kernel_class_outside_the_ports_raises():
+    """A configuration the reference runs through one of its kernels, but no
+    port kernel class takes, raises on CUDA tensors rather than run the plain
+    loop where the reference runs a kernel: multinomial resampling at the FHN
+    width (the reference's whole-step kernel), IWAE at K = 128 and
+    ESS-adaptive resampling (its trunk kernel)."""
+    from psvo_tpu_torch import smc
+
+    dev = _cuda()
+    cfg = _small_cfg("fhn_fivo_k128")
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ys = torch.zeros((8, 6, 2), device=dev)
+    for kw, route in (({"resampling": "multinomial"}, "fused"),
+                      ({"resampling": "none"}, "trunk"),
+                      ({"ess_threshold": 0.5}, "trunk")):
+        smc_cfg = dataclasses.replace(cfg.smc, **kw)
+        assert smc.reference_path(ssm, smc_cfg) == route
+        with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+            smc.forward_filter(ssm, torch.Generator(device=dev), ys, smc_cfg)
+
+
+@pytest.mark.parametrize("objective", ["psvo", "svo"])
+def test_cuda_smoothing_with_a_general_path_model_raises(objective):
+    """PSVO and SVO whose forward takes no kernel path (here known dynamics)
+    have no CUDA route in the port yet: a clear NotImplementedError."""
+    from psvo_tpu_torch.objectives import make_objective
+
+    dev = _cuda()
+    preset = "lorenz63_psvo_k1024" if objective == "psvo" else "lorenz63_svo_k256"
+    cfg = _small_cfg(preset, transition="known")
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+        make_objective(ssm, cfg)(torch.Generator(device=dev), torch.zeros((4, 6, 3), device=dev))
 
 
 def _seg_noise(dev, t, b, k, m, dx=3):

@@ -166,8 +166,12 @@ def test_preset_is_in_the_kernel_class_and_unported_modes_raise():
         cfg = PRESETS[name]
         assert fused_step.usable(SSM(cfg), cfg.smc), name
     for name in ("fhn_fivo_tril", "fhn_fivo_dirac", "fhn_fivo_known_dynamics"):
-        with pytest.raises(NotImplementedError):
-            SSM(PRESETS[name])
+        cfg = PRESETS[name]  # ported: built, and outside the kernel class
+        assert not fused_step.usable(SSM(cfg), cfg.smc), name
+    qb_rnn = PRESETS["lorenz63_svo_k256"]
+    qb_rnn = dataclasses.replace(qb_rnn, smc=dataclasses.replace(qb_rnn.smc, qb_rnn=True))
+    with pytest.raises(NotImplementedError, match="qb_rnn"):
+        SSM(qb_rnn)
     jcfg, tcfg = small_configs(use_stop_gradient=False)
     _, _, tssm = models(jcfg, tcfg)
     with pytest.raises(ValueError, match="multinomial"):
