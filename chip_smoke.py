@@ -260,9 +260,50 @@ K=128), B=32, T=100, relu heads (64, 64), random weights, data from seed 0:
       0.35 nats, the mean error under 0.1) and the correlated-noise tril case
       of tests/test_parity_modes.py (K=2048, every row within 0.5);
       tests/reference_numpy/kalman.py loaded by its path
-  (as) `train --preset fhn_fivo_tril` and `fhn_iwae_k16 --steps 100` with an
-      eval every 50 through the CLI: the history, the results files and the
-      launches
+  (as) `train --preset fhn_fivo_tril` and `fhn_iwae_k16 --steps 20` with an
+      eval every 10 through the CLI (AS_STEPS; fhn_iwae_k16's 50 steps a
+      call cut to 10): the history, the results files and the launches
+
+and the smoothing objectives with Di = 2 exogenous controls (the controls
+of fhn_fivo_controls: control scale 0.5), whose K1/K4 run in their control
+mode, K5/K6 on support terms that take u_{t+1}, and K12/K13 in their
+control mode (f's first layer from b1 + u_{t+1}·W_u), random weights, data
+and controls from seed 0 (smoothing_controls_phases); each compares one
+train step on the card with the plain versions on the CPU on the same
+draws by value, norm and cosine (CPU_TOL):
+
+  (at) lorenz63_psvo_k1024 with controls (K=1024, M=16, B=32, T=100) under
+      psvo_bound "forward" and "direct": the card against the CPU at B=8,
+      T=20; one smooth_posterior call (K1 and K5 once) and 3 train steps
+      (K1, K4, K5, K6 three times each), no plain version; segmented: the
+      card against the CPU at B=4, T=17, S=2, and one train step at B=8,
+      T=1025, S=8 (K1/K4/K5/K6 32/16/17/9)
+  (au) lorenz63_svo_k256 with controls (K=256, M=16, B=32, T=100): K12 and
+      K13 in their control mode against their plain versions (small, full:
+      K12 allclose 2e-4 small, teacher-forced full; K13 per leaf, d_cbias
+      included, within 1e-4 small and 1e-3 full with relu-tie paths zeroed;
+      bit-equal on a relaunch; a zero bias bit-equal to the uncontrolled
+      launch), both timed beside the same shape uncontrolled, alternated; the
+      card against the CPU at B=8, T=20; one smooth_posterior(method="svo")
+      call (K1 and K12 once) and 3 train steps (K1, K4, K12, K13 three times
+      each, all split), a profile of one more step
+
+and multinomial resampling (sorted iid positions, streamed: the in-kernel
+draw makes systematic positions only) on every kernel path
+(multinomial_phases):
+
+  (av) fhn_fivo_k1024_bench with resampling "multinomial": K1 (small: its
+      plain version's free run to 2e-4) teacher-forced, every step's
+      ancestors the count form on the kernel's own weights, bit-equal at
+      every cluster size C, and a chain of K14 launches equal to it; K1 and
+      K14 timed beside their plain versions; then whole scan and with
+      SCAN_FUSED off: the card against the CPU at B=4, T=20, one eval (K1
+      once, or K14 99 times) and 3 train steps (K1/K4 3 each, or K14/K15
+      297), no K2; lorenz96_fivo_k8192_sharded from the snapshot: the card
+      against the CPU on the trunk path at B=2, T=20, K7 on the served run's
+      weights and fresh sorted positions equal to its plain version, one
+      filter_posterior (K7, K8, K9 99 each) and one train step (K7-K11 99
+      each)
 
 (ap) begins with K7, K8 and K11 at the general path's shape (B=32, K=128,
 D=2) against their plain versions, timed beside them and beside
@@ -289,7 +330,10 @@ both branches, K2's both widths; K1, K4, K14 and K15 appear once more as
 "(controls)", their control mode at fhn_fivo_controls' size; K1's, K4's, K5's
 and K6's rows carry their segmented launches, "launches_seg_*"; K7, K8 and K11
 appear once more as "(general path)", at B=32, K=128, D=2, with the launches
-of phase ap's training runs); the last line
+of phase ap's training runs; K12 and K13 as "(controls)", their control mode
+at lorenz63_svo_k256's size with Di=2, "ms_uncontrolled" the same shape
+without controls; K1 and K14 as "(multinomial)", at fhn_fivo_k1024_bench's
+size on multinomial positions); the last line
 is the device record. Imports nothing of JAX: the
 machine with the card has none.
 """
@@ -1254,11 +1298,12 @@ def svo_forward_check(consts, ops):
                 finite=all(bool(torch.isfinite(t).all()) for t in kern))
 
 
-def svo_relu_ties(consts, ops, xtilde, tol=1e-5):
+def svo_relu_ties(consts, ops, xtilde, tol=1e-5, cbias=None):
     """[B, M] bool: the paths on which, at some step, a relu pre-activation of
-    qb (on [x~_{t+1}; y_t]) or of f or g (on x~_t) lies within tol of the
-    magnitude of its sum (|b| + sum |w x|, in float64): there the relu's
-    gradient mask depends on the order of the float32 sum (see relu_ties)."""
+    qb (on [x~_{t+1}; y_t]) or of f or g (on x~_t; f's first layer from
+    b1 + cbias in the control mode) lies within tol of the magnitude of its
+    sum (|b| + sum |w x|, in float64): there the relu's gradient mask depends
+    on the order of the float32 sum (see relu_ties)."""
     import torch
     from psvo_tpu_torch.ops import svo
 
@@ -1266,10 +1311,14 @@ def svo_relu_ties(consts, ops, xtilde, tol=1e-5):
     x_next = torch.cat([xtilde[1:], x_anchor[None]])
     y_b = y[:, :, None, :].expand(-1, -1, x_next.shape[2], -1)
     flag = torch.zeros(x_anchor.shape[:2], dtype=torch.bool, device=x_anchor.device)
-    for (layers, _), inp in zip(svo._nets(consts), (torch.cat([x_next, y_b], -1), xtilde, xtilde)):
+    nets = svo._nets(consts)
+    for n, ((layers, _), inp) in enumerate(zip(nets, (torch.cat([x_next, y_b], -1), xtilde,
+                                                      xtilde))):
         h = inp.double()
-        for w, b in layers:
+        for i, (w, b) in enumerate(layers):
             w, b = w.double(), b.double()
+            if cbias is not None and n == 1 and i == 0:
+                b = b + cbias[:, :, None, :].double()
             pre = h @ w + b
             size = h.abs() @ w.abs() + b.abs()
             flag |= (pre.abs() < tol * size).any(-1).any(0)
@@ -2196,6 +2245,7 @@ GENERAL = ("fhn_iwae_k16", "fhn_fivo_known_dynamics", "fhn_fivo_tril", "fhn_fivo
 # CPU tests' bands), the full size as the reference's _grads_agree (benchmark.py:697-729)
 GENERAL_TOL = {"value": 2e-4, "grad_rtol": 5e-3, "grad_atol": 5e-4, "full_loss": 1e-3,
                "full_norm": 1e-2, "full_cos": 0.99}
+AS_STEPS = 20  # phase as: CLI train steps a preset (at most AS_STEPS // 2 a call), evals at 10, 20
 GENERAL_PATH_KERNELS = {"K7": ("ancestor_indices",), "K8": ("gather_particles_kernel",),
                         "K11": ("segment_sum",)}
 
@@ -2608,17 +2658,21 @@ def general_phases(pt, dev, card: str) -> dict:
     figures["ar"] = ar
     phase_done("ar")
 
-    # (as) the CLI on the card: 100 steps of fhn_fivo_tril and fhn_iwae_k16, an eval every 50
+    # (as) the CLI on the card: 20 steps of fhn_fivo_tril and fhn_iwae_k16, an eval every 10
     tmp = tempfile.mkdtemp(prefix="psvo_general_cli_")
     as_ = {}
     try:
         for preset in ("fhn_fivo_tril", "fhn_iwae_k16"):
-            argv = ["train", "--preset", preset, "--steps", "100", "--set", "train.eval_every=50",
-                    "--results-root", os.path.join(tmp, "results")]
+            # fhn_iwae_k16 takes 50 steps a call: cut to 10, so that an eval every 10 fits
+            per_call = min(pt.PRESETS[preset].train.steps_per_call, AS_STEPS // 2)
+            argv = ["train", "--preset", preset, "--steps", str(AS_STEPS), "--set",
+                    f"train.eval_every={AS_STEPS // 2}", "--set",
+                    f"train.steps_per_call={per_call}", "--results-root",
+                    os.path.join(tmp, "results")]
             t_steps = pt.PRESETS[preset].data.t_steps
             resamples = pt.PRESETS[preset].smc.objective != "iwae"
-            n_filters = 100 + 2 + 1  # the steps, 2 evals, the plots' latents
-            want = ([(t_steps - 1) * n_filters] * 2 + [(t_steps - 1) * 100] if resamples
+            n_filters = AS_STEPS + 2 + 1  # the steps, 2 evals, the plots' latents
+            want = ([(t_steps - 1) * n_filters] * 2 + [(t_steps - 1) * AS_STEPS] if resamples
                     else [0, 0, 0])
             free()
             torch.cuda.reset_peak_memory_stats()
@@ -2631,16 +2685,16 @@ def general_phases(pt, dev, card: str) -> dict:
                         if ln.startswith("results: "))
             hist = json.load(open(os.path.join(path, "history.json")))
             files = [os.path.join(path, f) for f in ("params.json", "metrics.jsonl",
-                                                     "history.json", "checkpoints/100.pt")]
+                                                     "history.json", f"checkpoints/{AS_STEPS}.pt")]
             keys = ("train_loss", "train_elbo", "test_elbo", "r2_1", "grad_norm")
-            print(f"[as] cli train --preset {preset} --steps 100: history steps "
+            print(f"[as] cli train --preset {preset} --steps {AS_STEPS}: history steps "
                   f"{[r['step'] for r in hist]}, test ELBO {[round(r['test_elbo'], 3) for r in hist]}"
                   f", R²(1) {[round(r['r2_1'], 3) for r in hist]}, train step by eval window "
                   f"{[round(1e3 / r['steps_per_sec'], 3) for r in hist]} ms; launches K7/K8/K11 "
                   f"{launches} (want {want}), other kernels {other}, plain versions {plain_n}; "
                   f"files written {all(os.path.exists(f) for f in files)}; peak device memory "
                   f"{peak:.3f} GB; the command {wall:.1f} s ({card})", flush=True)
-            if ([r["step"] for r in hist] != [50, 100]
+            if ([r["step"] for r in hist] != [AS_STEPS // 2, AS_STEPS]
                     or not all(math.isfinite(r[k_]) for r in hist for k_ in keys)
                     or not all(os.path.exists(f) for f in files)):
                 fail(f"(as) cli train {preset}: history {hist}, files {files}")
@@ -2656,6 +2710,585 @@ def general_phases(pt, dev, card: str) -> dict:
     figures["as"] = as_
     phase_done("as")
 
+    return figures
+
+
+# phases at-av, set before their first run: the card against the CPU on the same draws by
+# value, norm and direction, as phase aq's full size (docs/DESIGN.md: at scale an ancestor or
+# an FFBSi pick near a boundary may flip between two devices' roundings, so per-leaf allclose
+# is the wrong test); the kernels against their plain versions as phases v, w and z
+CPU_TOL = {"loss": 1e-3, "norm": 1e-2, "cos": 0.99}
+SMOOTHING_KERNELS = {"K1": ("scan_forward_kernel",), "K4": ("scan_backward_kernel",
+                                                            "sum_rows_kernel"),
+                     "K12": ("svo_forward_split_kernel",),
+                     "K13": ("svo_backward_split_kernel", "svo_sum_ctas_kernel",
+                             "svo_bias_sum_kernel")}
+
+
+def with_controls(cfg, steps_per_call: int = 1, **smc):
+    """cfg with fhn_fivo_controls' controls (Di = 2, control scale 0.5,
+    psvo_tpu/config.py:392-399), `smc` changes and steps_per_call train steps
+    a call."""
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, di=2, control_scale=0.5),
+        smc=dataclasses.replace(cfg.smc, **smc),
+        train=dataclasses.replace(cfg.train, steps_per_call=steps_per_call))
+
+
+def kernel_counts(kernels, plain, fn):
+    """fn() with the launches of `kernels` and the calls of the `plain`
+    versions it made."""
+    import torch
+
+    for f in kernels:
+        f.launches = 0
+    for f in plain:
+        f.calls = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [f.launches for f in kernels], sum(f.calls for f in plain)
+
+
+def card_vs_cpu(pt, dev, cfg, ys, u, seed: int, path: str = "fused", load=None) -> dict:
+    """One train step's loss and gradient of cfg's objective on the card (its
+    kernels) and on the CPU (their plain versions: the whole-scan class's
+    path, segmented with smc.ffbsi_segments > 1, or the trunk path), on the
+    same draws made on the CPU (the filter's ε and sorted positions, then
+    PSVO's Gumbels or SVO's anchors and ε): the losses, the gradient norms,
+    their cosine, the largest relative L2 of a leaf, and whether CPU_TOL
+    holds. ys, u: CPU tensors; `load(ssm)` sets the weights (else seed)."""
+    import torch
+    from psvo_tpu_torch import objectives, smc
+    from psvo_tpu_torch.ops import resampling
+
+    b, t, _ = ys.shape
+    sc = cfg.smc
+    k, m, dx = sc.n_particles, sc.n_smoothing_particles, cfg.data.dx
+    g = torch.Generator().manual_seed(seed)
+    noise = [torch.randn((b, dx, k), generator=g), torch.randn((t - 1, b, dx, k), generator=g),
+             resampling.bulk_positions(g, t - 1, b, k, sc.resampling)]
+    if sc.objective in ("psvo", "svo"):
+        noise.append(objectives._gumbel(g, (b, m, k)))
+        noise.append(objectives._gumbel(g, (t - 1, b, m, k)) if sc.objective == "psvo"
+                     else torch.randn((t - 1, b, m, dx), generator=g))
+    fused = functools.partial(smc._forward_filter_trunk if path == "trunk"
+                              else smc._forward_filter_fused)
+
+    def cpu_filter(ssm, generator, ys_, cfg_, *, cache, encoder_inputs, noise, **kw):
+        return fused(ssm, generator, ys_, cfg_, cache=cache, encoder_inputs=encoder_inputs,
+                     streams=noise, **kw)
+
+    def cpu_segmented(ssm, generator, ys_, cfg_, n, *, encoder_inputs, noise, **kw):
+        return smc._forward_filter_segmented_fused(ssm, generator, ys_, cfg_, n,
+                                                   encoder_inputs=encoder_inputs, streams=noise,
+                                                   **kw)
+
+    losses, grads = [], []
+    for dev_ in (dev, torch.device("cpu")):
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(seed), device=dev_)
+        if load is not None:
+            load(ssm)
+        kw = {} if u is None else {"controls": u.to(dev_)}
+        real = (objectives.forward_filter, objectives.forward_filter_segmented)
+        if dev_ != dev:
+            objectives.forward_filter, objectives.forward_filter_segmented = (cpu_filter,
+                                                                              cpu_segmented)
+        try:
+            out = objectives.make_objective(ssm, cfg)(None, ys.to(dev_),
+                                                      noise=[n_.to(dev_) for n_ in noise], **kw)
+            out.loss.backward()
+        finally:
+            objectives.forward_filter, objectives.forward_filter_segmented = real
+        losses.append(float(out.loss.detach()))
+        grads.append([torch.zeros(p.shape, dtype=torch.float64) if p.grad is None
+                      else p.grad.detach().cpu().double() for p in ssm.parameters()])
+    flat = [torch.cat([g_.reshape(-1) for g_ in gs]) for gs in grads]
+    norms = [float(f.norm()) for f in flat]
+    cos = float(flat[0] @ flat[1] / max(norms[0] * norms[1], 1e-300))
+    leaf = max(float((a - w).norm() / w.norm().clamp_min(1e-30)) for a, w in zip(*grads))
+    rel_loss = abs(losses[0] - losses[1]) / max(1.0, abs(losses[1]))
+    rel_norm = abs(norms[0] - norms[1]) / max(norms[1], 1e-30)
+    ok = (all(math.isfinite(v) for v in losses + norms) and rel_loss <= CPU_TOL["loss"]
+          and rel_norm <= CPU_TOL["norm"] and cos >= CPU_TOL["cos"])
+    return dict(losses=losses, norms=norms, cos=cos, leaf=leaf, rel_loss=rel_loss,
+                rel_norm=rel_norm, ok=ok)
+
+
+def vs_line(r: dict) -> str:
+    return (f"loss card {r['losses'][0]:.6f} CPU {r['losses'][1]:.6f} (rel {r['rel_loss']:.2e}), "
+            f"grad norm {r['norms'][0]:.5f}/{r['norms'][1]:.5f} (rel {r['rel_norm']:.2e}), cosine "
+            f"{r['cos']:.8f}, largest leaf rel L2 {r['leaf']:.2e}; bound {CPU_TOL}")
+
+
+def svo_ctrl_check(consts, ops, cbias, gen):
+    """K12 and K13 in their control mode against their plain versions on the
+    same cbias: K12's free runs (allclose 2e-4) and, teacher-forced, one plain
+    step from each of the kernel's own x~_{t+1}; K13 on K12's x~ with random
+    cotangents zeroed on the relu-tie paths (cbias counted in f's first
+    layer), per leaf (d_cbias last), bit-equal on a second launch; and the
+    control mode with a zero bias bit-equal to the uncontrolled launch on the
+    same weights."""
+    import torch
+    from psvo_tpu_torch.ops import svo
+
+    x_anchor, eps, y = ops
+    kern = svo.svo_sweep_forward(*ops, consts, cbias=cbias)
+    ref = svo.svo_sweep_forward_reference(*ops, consts, cbias)
+    t1, b, m, dx = eps.shape
+    x_next = torch.cat([kern[3][1:], x_anchor[None]]).reshape(t1 * b, m, dx)
+    x_tf = svo._step(svo._nets(consts), consts["sc"], dx, consts["dy"], x_next,
+                     y.reshape(t1 * b, -1), eps.reshape(t1 * b, m, dx),
+                     cb_t=cbias.reshape(t1 * b, -1))[0]
+
+    def rel_max(a, w):
+        return float(((a - w).abs() / (1 + w.abs())).max())
+
+    def rel(got, want):
+        return [float((g_ - w).norm() / w.norm().clamp_min(1e-30)) for g_, w in zip(got, want)]
+
+    tie = svo_relu_ties(consts, ops, kern[3], cbias=cbias)
+    keep = (~tie).float()
+    cots = [torch.randn(s, generator=gen, device=eps.device)
+            for s in ((b, m, dx), (b, m), (b, m), tuple(kern[3].shape))]
+    cots = [cots[0] * keep[..., None], cots[1] * keep, cots[2] * keep, cots[3] * keep[..., None]]
+    got = svo.svo_sweep_backward(*ops, consts, kern[3], *cots, cbias=cbias)
+    want = svo.svo_sweep_backward_reference(*ops, consts, kern[3], *cots, cbias=cbias)
+    again = svo.svo_sweep_backward(*ops, consts, kern[3], *cots, cbias=cbias)
+    zero = torch.zeros_like(cbias)
+    zf, uf = (svo.svo_sweep_forward(*ops, consts, cbias=zero), svo.svo_sweep_forward(*ops, consts))
+    zb = svo.svo_sweep_backward(*ops, consts, kern[3], *cots, cbias=zero)
+    ub = svo.svo_sweep_backward(*ops, consts, kern[3], *cots)
+    torch.cuda.synchronize()
+    return dict(kern=kern, close=close(kern, ref, 2e-4), max_abs_err=max_err(kern, ref),
+                rel_x=rel_max(kern[3], ref[3]), rel_lp=rel_max(kern[1], ref[1]),
+                rel_lq=rel_max(kern[2], ref[2]),
+                tf_x=rel_max(kern[3].reshape(t1 * b, m, dx), x_tf),
+                rel=rel(got, want), maxd=[float((g_ - w).abs().max()) for g_, w in zip(got, want)],
+                same=all(torch.equal(g_, a) for g_, a in zip(got, again)),
+                zero_bits=(all(torch.equal(a, w) for a, w in zip(zf, uf))
+                           and all(torch.equal(a, w) for a, w in zip(zb[:3], ub))),
+                zeroed=int(tie.sum()), n=b * m, got=got, cots=cots,
+                finite=all(bool(torch.isfinite(v).all()) for v in (*kern, *got)))
+
+
+def smoothing_controls_phases(pt, dev, card: str) -> dict:
+    """Phases (at)-(au): PSVO and SVO with Di = 2 exogenous controls (the
+    controls of fhn_fivo_controls) on the card at the full width of their
+    presets: the kernels of each path against their plain versions, the card
+    against the CPU on the same draws, served and trained through the entry
+    points with launch counts. Returns what the kernels' JSON record needs."""
+    import torch
+    from psvo_tpu_torch.ops import ffbsi, fused_step, svo
+
+    plain = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+             fused_step.stream_noise_reference, fused_step.ancestor_indices_reference,
+             fused_step.step_forward_reference, fused_step.step_backward_reference,
+             ffbsi.ffbsi_forward_reference, ffbsi.ffbsi_backward_reference,
+             svo.svo_sweep_forward_reference, svo.svo_sweep_backward_reference)
+    psvo_k = (fused_step.scan_forward, fused_step.scan_backward, ffbsi.ffbsi_forward,
+              ffbsi.ffbsi_backward)
+    svo_k = (fused_step.scan_forward, fused_step.scan_backward, svo.svo_sweep_forward,
+             svo.svo_sweep_backward)
+    figures = {}
+
+    def batches(obs, ctl, n, b, seed):
+        pick = torch.randint(0, obs.shape[0], (n, b), generator=torch.Generator().manual_seed(seed))
+        return [(obs[p_.to(dev)].contiguous(), ctl[p_.to(dev)].contiguous()) for p_ in pick]
+
+    def train(ssm, cfg, kernels, data, seed):
+        """len(data) train steps (one a call): launches, plain calls, losses, step times."""
+        step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
+        run_gen = torch.Generator(device=dev).manual_seed(seed)
+        step_s = []
+
+        def run():
+            out = []
+            for ys_, u_ in data:
+                t0 = time.perf_counter()
+                out.append(step(run_gen, ys_, controls=u_))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+            return out
+
+        metrics, launches, plain_n = kernel_counts(kernels, plain, run)
+        losses = [float(m_["loss"]) for m_ in metrics]
+        return launches, plain_n, losses, step_s
+
+    # (at) controlled PSVO: lorenz63_psvo_k1024 with Di = 2 (K=1024, M=16, B=32, T=100)
+    p_base = pt.PRESETS["lorenz63_psvo_k1024"]
+    p_ds = pt.generate_dataset(with_controls(p_base).data, SEED)
+    p_obs, p_ctl = p_ds.obs_train.to(dev), p_ds.controls_train.to(dev)
+    at = {}
+    for bound_ in ("forward", "direct"):
+        cfg = with_controls(p_base, psvo_bound=bound_)
+        vs = card_vs_cpu(pt, dev, cfg, p_obs[:8, :20].cpu(), p_ctl[:8, :20].cpu(), SEED + 60)
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+        ys, u = p_obs[:32].contiguous(), p_ctl[:32].contiguous()
+        run_gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+        pt.smooth_posterior(ssm, ys, cfg, run_gen, controls=u)  # warm-up
+        t0 = time.perf_counter()
+        paths, serve, serve_plain = kernel_counts(
+            psvo_k, plain, lambda: pt.smooth_posterior(ssm, ys, cfg, run_gen, controls=u))
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        c1 = fused_step.scan_forward.last_cluster
+        launches, train_plain, losses, step_s = train(
+            ssm, cfg, psvo_k, batches(p_obs, p_ctl, 3, 32, SEED + 62), SEED + 63)
+        ok_paths = tuple(paths.shape) == (32, 16, 100, 3) and bool(torch.isfinite(paths).all())
+        print(f"[at] {card}: PSVO with Di=2, psvo_bound={bound_!r} (K=1024, M=16, hidden "
+              f"(64, 64)): the card vs the CPU, one train step at B=8, T=20: {vs_line(vs)}; "
+              f"smooth_posterior B=32, T=100: paths {tuple(paths.shape)} finite {ok_paths}, "
+              f"K1/K4/K5/K6 {serve} (K1 in its control mode, C={c1}), plain versions "
+              f"{serve_plain}, {serve_ms:.1f} ms (host clock, after a warm-up); 3 train steps "
+              f"(B=32): loss {[round(v, 3) for v in losses]}, K1/K4/K5/K6 {launches}, plain "
+              f"versions {train_plain}, step times {[round(1e3 * v, 1) for v in step_s]} ms",
+              flush=True)
+        if not vs["ok"]:
+            fail(f"(at) controlled PSVO ({bound_}): the card disagrees with the CPU")
+        if serve != [1, 0, 1, 0] or serve_plain or not ok_paths:
+            fail(f"(at) controlled smooth_posterior launched K1/K4/K5/K6 {serve} (want "
+                 f"[1, 0, 1, 0]), plain versions {serve_plain}, paths ok {ok_paths}")
+        if launches != [3] * 4 or train_plain or not all(math.isfinite(v) for v in losses):
+            fail(f"(at) controlled PSVO training launched K1/K4/K5/K6 {launches} (want 3 each), "
+                 f"plain versions {train_plain}, losses {losses}")
+        at[bound_] = dict(serve=serve, train=launches, vs=vs, step_ms=[1e3 * v for v in step_s])
+    # segmented: S = 2 against the CPU at T = 17, then one train step at B=8, T=1025, S=8
+    seg_cfg = with_controls(long_t_config(pt, 1025, 8))
+    seg_ds = pt.generate_dataset(seg_cfg.data, SEED)
+    s_obs, s_ctl = seg_ds.obs_train[:8], seg_ds.controls_train[:8]
+    vs = card_vs_cpu(pt, dev, with_controls(long_t_config(pt, 17, 2)), s_obs[:4, :17],
+                     s_ctl[:4, :17], SEED + 64)
+    ssm = pt.init_ssm(seg_cfg, torch.Generator().manual_seed(SEED), device=dev)
+    launches, seg_plain, losses, step_s = train(
+        ssm, seg_cfg, psvo_k, [(s_obs.to(dev).contiguous(), s_ctl.to(dev).contiguous())],
+        SEED + 65)
+    print(f"[at] segmented PSVO with Di=2: the card vs the CPU at B=4, T=17, S=2: {vs_line(vs)}; "
+          f"one train step at B=8, T=1025, S=8: loss {losses[0]:.3f}, K1/K4/K5/K6 {launches} "
+          f"(want [32, 16, 17, 9]), plain versions {seg_plain}, {1e3 * step_s[0]:.1f} ms (host "
+          f"clock, the first step)", flush=True)
+    if not vs["ok"]:
+        fail("(at) segmented controlled PSVO: the card disagrees with the CPU")
+    if launches != [32, 16, 17, 9] or seg_plain or not math.isfinite(losses[0]):
+        fail(f"(at) segmented controlled PSVO launched K1/K4/K5/K6 {launches}, plain versions "
+             f"{seg_plain}, loss {losses}")
+    at["segmented"] = dict(train=launches, vs=vs)
+    figures["at"] = at
+    del ssm
+    torch.cuda.empty_cache()
+    phase_done("at")
+
+    # (au) controlled SVO: lorenz63_svo_k256 with Di = 2 (K=256, M=16, B=32, T=100)
+    v_base = pt.PRESETS[SVO]
+    v_ds = pt.generate_dataset(with_controls(v_base).data, SEED)
+    v_obs, v_ctl = v_ds.obs_train.to(dev), v_ds.controls_train.to(dev)
+    gen_v = torch.Generator(device=dev).manual_seed(SEED + 70)
+    au = {}
+    for label, small in (("small", True), ("full", False)):
+        cfg, batch = slice_config(small, SVO)
+        cfg = with_controls(cfg, **({"n_smoothing_particles": 8} if small else {}))
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 12), device=dev)
+        ys = v_obs[:batch, :cfg.data.t_steps].contiguous()
+        u_tm = v_ctl[:batch, :cfg.data.t_steps].transpose(0, 1)
+        with torch.no_grad():
+            consts, ops = svo_operands(ssm, cfg, ys, gen_v)
+            cbias = svo.control_term(consts, u_tm[1:])
+            r = svo_ctrl_check(consts, ops, cbias, gen_v)
+        tol = 1e-4 if small else 1e-3
+        print(f"[au] K12/K13 control mode {label} B={batch} M={ops[0].shape[1]} "
+              f"T={cfg.data.t_steps} hidden={cfg.net('qb').hidden} Di=2: K12 allclose(2e-4) "
+              f"{r['close']}, max|d| {r['max_abs_err']:.3e}; max |d|/(1+|x|): x~ {r['rel_x']:.3e}, "
+              f"lp {r['rel_lp']:.3e}, lq {r['rel_lq']:.3e}; teacher-forced x~ {r['tf_x']:.3e}; K13 "
+              + ", ".join(f"{n} rel L2 {e:.3e} max|d| {m_:.3e}" for n, e, m_ in
+                          zip(("d_x_anchor", "d_weights", "d_sc", "d_cbias"), r["rel"], r["maxd"]))
+              + f" (bound {tol:g}; cotangents zeroed on {r['zeroed']} of {r['n']} paths with a "
+              f"relu tie); bit-equal on a second launch {r['same']}; zero controls bit-equal to "
+              f"the uncontrolled launch {r['zero_bits']}", flush=True)
+        ok12 = r["close"] if small else (r["tf_x"] <= 1e-5 and r["rel_x"] <= 1e-4
+                                         and max(r["rel_lp"], r["rel_lq"]) <= 1e-4)
+        if not (ok12 and r["finite"]):
+            fail(f"(au) K12's control mode ({label}) disagrees with its plain version")
+        if not (len(r["rel"]) == 4 and max(r["rel"]) <= tol and r["same"]):
+            fail(f"(au) K13's control mode ({label}) disagrees with its plain version")
+        if not r["zero_bits"]:
+            fail(f"(au) K12/K13 with zero controls differ from the uncontrolled launch ({label})")
+        au[label] = (consts, ops, cbias, r)
+    consts, ops, cbias, r = au["full"]
+    with torch.no_grad():
+        k12_t = [(pair_ms(lambda: svo.svo_sweep_forward(*ops, consts, cbias=cbias)),
+                  pair_ms(lambda: svo.svo_sweep_forward(*ops, consts))) for _ in range(3)]
+        args13 = (*ops, consts, r["kern"][3], *r["cots"])
+        k13_t = [(pair_ms(lambda: svo.svo_sweep_backward(*args13, cbias=cbias)),
+                  pair_ms(lambda: svo.svo_sweep_backward(*args13))) for _ in range(3)]
+        k12_plain = device_ms(lambda: svo.svo_sweep_forward_reference(*ops, consts, cbias), n=3)
+        k13_plain = device_ms(lambda: svo.svo_sweep_backward_reference(*args13, cbias=cbias), n=3)
+    t1_s, b_s, m_s = ops[1].shape[:3]
+    glue = 2 * cfg.data.di * consts["hidden"] * t1_s * b_s  # u·W_u per (t, row)
+    k12_flops = svo_flops(consts, t1_s * b_s * m_s) + glue
+    k12c_bound = bound(k12_flops, nbytes(*ops, consts["packed"], consts["sc"], cbias, *r["kern"]))
+    k13c_bound = bound(3 * k12_flops, nbytes(*args13[:3], consts["packed"], consts["sc"],
+                                              *args13[4:], cbias, *r["got"]))
+    k12_ms = statistics.mean(p_[0] for p_ in k12_t)
+    k13_ms = statistics.mean(p_[0] for p_ in k13_t)
+    print(f"[au] {card}: full (B={b_s}, M={m_s}, T-1={t1_s}, hidden 64, Di=2), device time per "
+          f"call ({PAIR_HOW}), (control mode, the same shape uncontrolled) alternated: K12 "
+          + ", ".join(f"({a:.4f}, {b_:.4f})" for a, b_ in k12_t) + " ms, K13 "
+          + ", ".join(f"({a:.4f}, {b_:.4f})" for a, b_ in k13_t)
+          + f" ms; plain K12 {k12_plain:.3f} ms, K13 {k13_plain:.3f} ms (3 calls); bounds K12 "
+          f"{k12c_bound[0]:.4f} ms ({k12c_bound[1]}), K13 {k13c_bound[0]:.4f} ms "
+          f"({k13c_bound[1]}), the glue's u·W_u {glue:.3e} FLOP counted in; control builds "
+          f"{kernel_resources('svo_forward_split_kernelILi3ELi3ELi64ELb1EE')} (K12), "
+          f"{kernel_resources('svo_backward_split_kernelILi3ELi3ELi64ELb1EE')} (K13)", flush=True)
+    figures["k12"] = dict(ms=k12_ms, plain=k12_plain, bound=k12c_bound,
+                          ms_unc=statistics.mean(p_[1] for p_ in k12_t),
+                          err=au["small"][3]["max_abs_err"])
+    figures["k13"] = dict(ms=k13_ms, plain=k13_plain, bound=k13c_bound,
+                          ms_unc=statistics.mean(p_[1] for p_ in k13_t),
+                          err=max(au["small"][3]["maxd"]))
+    del au, args13
+    # the card against the CPU, then served and trained at the preset's size
+    cfg = with_controls(v_base)
+    vs = card_vs_cpu(pt, dev, cfg, v_obs[:8, :20].cpu(), v_ctl[:8, :20].cpu(), SEED + 72)
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    ys, u = v_obs[:32].contiguous(), v_ctl[:32].contiguous()
+    run_gen = torch.Generator(device=dev).manual_seed(SEED + 73)
+    pt.smooth_posterior(ssm, ys, cfg, run_gen, method="svo", controls=u)  # warm-up
+    zero_designs(svo.svo_sweep_forward, svo.svo_sweep_backward)
+    t0 = time.perf_counter()
+    paths, serve, serve_plain = kernel_counts(
+        svo_k, plain, lambda: pt.smooth_posterior(ssm, ys, cfg, run_gen, method="svo", controls=u))
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    zero_designs(svo.svo_sweep_forward, svo.svo_sweep_backward)
+    launches, train_plain, losses, step_s = train(
+        ssm, cfg, svo_k, batches(v_obs, v_ctl, 3, 32, SEED + 74), SEED + 75)
+    designs = (dict(svo.svo_sweep_forward.launches_by_design),
+               dict(svo.svo_sweep_backward.launches_by_design))
+    ok_paths = tuple(paths.shape) == (32, 16, 100, 3) and bool(torch.isfinite(paths).all())
+    print(f"[au] {card}: SVO with Di=2 (K=256, M=16, hidden (64, 64)): the card vs the CPU, one "
+          f"train step at B=8, T=20: {vs_line(vs)}; smooth_posterior(method='svo') B=32, T=100: "
+          f"paths {tuple(paths.shape)} finite {ok_paths}, K1/K4/K12/K13 {serve}, plain versions "
+          f"{serve_plain}, {serve_ms:.1f} ms (host clock, after a warm-up); 3 train steps (B=32): "
+          f"loss {[round(v, 3) for v in losses]}, K1/K4/K12/K13 {launches} (K12, K13 by design "
+          f"{designs}), plain versions {train_plain}, step times "
+          f"{[round(1e3 * v, 1) for v in step_s]} ms", flush=True)
+    one_more = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
+    profile = device_breakdown(lambda: one_more(run_gen, ys, controls=u), 1, SMOOTHING_KERNELS)
+    print(f"[au] profile of one more train step: {profile}", flush=True)
+    if not vs["ok"]:
+        fail("(au) controlled SVO: the card disagrees with the CPU")
+    if serve != [1, 0, 1, 0] or serve_plain or not ok_paths:
+        fail(f"(au) controlled smooth_posterior(method='svo') launched K1/K4/K12/K13 {serve} "
+             f"(want [1, 0, 1, 0]), plain versions {serve_plain}, paths ok {ok_paths}")
+    if (launches != [3] * 4 or train_plain or not all(math.isfinite(v) for v in losses)
+            or designs != ({"split": 3, "chain": 0}, {"split": 3, "chain": 0})):
+        fail(f"(au) controlled SVO training launched K1/K4/K12/K13 {launches} (want 3 each, all "
+             f"split: {designs}), plain versions {train_plain}, losses {losses}")
+    figures["au"] = dict(serve=serve, train=launches, vs=vs, step_ms=[1e3 * v for v in step_s])
+    del ssm
+    torch.cuda.empty_cache()
+    phase_done("au")
+    return figures
+
+
+def multinomial_phases(pt, dev, card: str) -> dict:
+    """Phase (av): multinomial resampling (sorted iid positions, streamed) on
+    the whole-scan, per-step and trunk paths: K1 and K14 teacher-forced
+    against the count form at every cluster size and slice count, K7 on a
+    served run's weights; the card against the CPU; fhn_fivo_k1024_bench
+    served and trained through K1/K4 and K14/K15, and
+    lorenz96_fivo_k8192_sharded from its snapshot through K7-K11. Returns
+    what the kernels' JSON record needs."""
+    import torch
+    from psvo_tpu_torch.ops import fused_step, resample_gather as rg, trunk
+
+    plain = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+             fused_step.stream_noise_reference, fused_step.ancestor_indices_reference,
+             fused_step.step_forward_reference, fused_step.step_backward_reference,
+             rg.ancestor_indices_large_reference, rg.gather_particles_reference,
+             trunk.trunk_forward_reference, trunk.trunk_backward_reference,
+             rg.segment_sum_scatter_reference)
+    fused_k = (fused_step.scan_forward, fused_step.scan_backward, fused_step.step_forward,
+               fused_step.step_backward, fused_step.stream_noise)
+    trunk_k = (rg.ancestor_indices_large, rg.gather_particles, trunk.trunk_forward,
+               trunk.trunk_backward, rg.segment_sum_scatter)
+    figures = {}
+
+    def multinomial(cfg):
+        return dataclasses.replace(cfg, smc=dataclasses.replace(cfg.smc, resampling="multinomial"),
+                                   train=dataclasses.replace(cfg.train, steps_per_call=1))
+
+    # (av) K1 and K14 on multinomial positions: the small size against the plain version, the
+    # full size teacher-forced (every step's ancestors the count form on the kernel's own
+    # incoming weights) at each cluster size C, and K14's chain against one K1 launch
+    gen_m = torch.Generator(device=dev).manual_seed(SEED + 80)
+    f_base = pt.PRESETS["fhn_fivo_k1024_bench"]
+    f_ds = pt.generate_dataset(f_base.data, SEED)
+    f_obs = f_ds.obs_train.to(dev)
+    for label, small in (("small", True), ("full", False)):
+        cfg, batch = slice_config(small)
+        cfg = multinomial(cfg)
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 81), device=dev)
+        with torch.no_grad():
+            inp = kernel_inputs(ssm, cfg, f_obs[:batch, :cfg.data.t_steps].contiguous(), gen_m)
+            t1, k = inp["coef"].shape[0], inp["x0"].shape[-1]
+            pos = torch.sort(torch.rand((t1, batch, k), generator=gen_m, device=dev), -1).values
+            args = (inp["x0"], inp["alpha0"], inp["coef"], inp["consts"])
+            sizes = [c for c in fused_step.CLUSTER_SIZES
+                     if c == 1 or k // c >= fused_step.K1_MIN_SLICE]
+            runs = {c: fused_step.scan_forward(*args, eps=inp["eps"], positions=pos, cache=True,
+                                               save_res=True, cluster=c) for c in sizes}
+            chosen = fused_step.scan_forward(*args, eps=inp["eps"], positions=pos)
+            c_pick = fused_step.scan_forward.last_cluster
+            one = runs[1]
+            incoming = torch.cat([inp["alpha0"][None], one[4][:-1]])
+            tf_bad = sum(
+                int((one[5][t] != fused_step.count_form_indices(incoming[t], pos[t])).sum())
+                for t in range(t1))
+            c_equal = {c: all(torch.equal(a, w) for a, w in zip(r_, one)) for c, r_ in runs.items()}
+            x, lw, chain_bad = inp["x0"], inp["alpha0"], 0
+            for t in range(t1):
+                x, lw, _, idx = fused_step.step_forward(x, lw, inp["coef"][t], inp["consts"],
+                                                        inp["eps"][t], pos[t])
+                chain_bad += int((idx != one[5][t]).sum()) + int(not torch.equal(x, one[3][t]))
+            s_pick = fused_step.step_forward.last_slices
+            chosen_equal = all(torch.equal(a, w) for a, w in zip(chosen[:3], one[:3]))
+            ref = fused_step.scan_forward_reference(*args, inp["eps"], pos, cache=True)
+            err = max_err(one[:5], ref[:5])
+        print(f"[av] K1/K14 multinomial {label} B={batch} K={k} T={cfg.data.t_steps}: "
+              f"teacher-forced, {tf_bad} of {t1 * batch * k} ancestors differ from the count form "
+              f"on the kernel's own weights; outputs bit-equal to C=1 by cluster size {c_equal} "
+              f"(chosen C {c_pick}, its outputs bit-equal {chosen_equal}); "
+              f"the chain of K14 launches (S={s_pick}) vs K1: {chain_bad} differing "
+              f"ancestors or steps; vs the plain free run max|d| {err:.3e}", flush=True)
+        if tf_bad or not (all(c_equal.values()) and chosen_equal) or chain_bad:
+            fail(f"(av) K1/K14 on multinomial positions ({label}): ancestors off the count form "
+                 f"({tf_bad}), cluster sizes {c_equal}, the K14 chain {chain_bad}")
+        if small and not close(one[:5], ref[:5], 2e-4):
+            fail(f"(av) K1 on multinomial positions (small) disagrees with its plain version")
+        figures[label] = dict(err=err)
+    with torch.no_grad():
+        k1m = [device_ms(lambda: fused_step.scan_forward(*args, eps=inp["eps"], positions=pos)),
+               device_ms(lambda: fused_step.scan_forward_reference(*args, inp["eps"], pos), n=3)]
+        tm = t1 // 2
+        k14_args = (one[3][tm - 1], one[4][tm - 1], inp["coef"][tm], inp["consts"],
+                    inp["eps"][tm], pos[tm])
+        k14_out = fused_step.step_forward(*k14_args)
+        k14_ref = fused_step.step_forward_reference(*k14_args)
+        k14m = [device_ms(lambda: fused_step.step_forward(*k14_args)),
+                device_ms(lambda: fused_step.step_forward_reference(*k14_args), n=5)]
+    consts_m = inp["consts"]
+    k1m_bound = bound(trunk_flops(consts_m) * t1 * batch * k,
+                      nbytes(*args[:3], consts_m["packed"], consts_m["sconst"], inp["eps"], pos,
+                             *chosen[:3]))
+    k14m_bound = bound(trunk_flops(consts_m) * batch * k,
+                       nbytes(*k14_args[:3], k14_args[4], k14_args[5], consts_m["packed"],
+                              consts_m["sconst"], *k14_out))
+    k14_err = max_err(k14_out[:3], k14_ref[:3])
+    print(f"[av] {card}: fhn_fivo_k1024_bench with multinomial positions (B=32, K=1024, T=100, "
+          f"stream noise): K1 {k1m[0]:.3f} ms vs plain {k1m[1]:.3f} ms, bound {k1m_bound[0]:.4f} "
+          f"ms ({k1m_bound[1]}); K14 at a mid step {k14m[0]:.4f} ms vs plain {k14m[1]:.4f} ms, "
+          f"bound {k14m_bound[0]:.4f} ms ({k14m_bound[1]}), its max|d| against the plain step "
+          f"{k14_err:.3e} (device time per launch, torch.profiler)", flush=True)
+    figures["k1"] = dict(ms=k1m[0], plain=k1m[1], bound=k1m_bound)
+    figures["k14"] = dict(ms=k14m[0], plain=k14m[1], bound=k14m_bound, err=k14_err)
+    del runs, chosen, ref, one
+
+    # the card against the CPU, then served (one eval) and trained (3 steps), whole scan and
+    # per step
+    cfg = multinomial(f_base)
+    served = {}
+    for scan_fused in (True, False):
+        fused_step.SCAN_FUSED = scan_fused
+        vs = card_vs_cpu(pt, dev, cfg, f_obs[:4, :20].cpu(), None, SEED + 82)
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+        run_gen = torch.Generator(device=dev).manual_seed(SEED + 83)
+        eval_step = pt.make_eval_step(ssm, cfg)
+        ev, serve, serve_plain = kernel_counts(fused_k, plain,
+                                               lambda: eval_step(run_gen, f_obs[:32].contiguous()))
+        step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
+        pick = torch.randint(0, f_obs.shape[0], (3, 32),
+                             generator=torch.Generator().manual_seed(SEED + 84))
+        step_s = []
+
+        def run():
+            out = []
+            for p_ in pick:
+                t0 = time.perf_counter()
+                out.append(step(run_gen, f_obs[p_.to(dev)].contiguous()))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+            return out
+
+        metrics, launches, train_plain = kernel_counts(fused_k, plain, run)
+        losses = [float(m_["loss"]) for m_ in metrics]
+        path = "whole scan" if scan_fused else "per step"
+        want_s, want_t = (([1, 0, 0, 0, 0], [3, 3, 0, 0, 0]) if scan_fused
+                          else ([0, 0, 99, 0, 0], [0, 0, 297, 297, 0]))
+        print(f"[av] {card}: fhn_fivo_k1024_bench multinomial, {path}: the card vs the CPU, one "
+              f"train step at B=4, T=20: {vs_line(vs)}; eval B=32: elbo {float(ev['elbo']):.3f}, "
+              f"K1/K4/K14/K15/K2 {serve} (want {want_s}), plain versions {serve_plain}; 3 train "
+              f"steps (B=32): loss {[round(v, 3) for v in losses]}, K1/K4/K14/K15/K2 {launches} "
+              f"(want {want_t}), plain versions {train_plain}, step times "
+              f"{[round(1e3 * v, 1) for v in step_s]} ms", flush=True)
+        if not vs["ok"]:
+            fail(f"(av) multinomial FIVO ({path}): the card disagrees with the CPU")
+        if (serve != want_s or launches != want_t or serve_plain or train_plain
+                or not all(math.isfinite(v) for v in losses + [float(ev["elbo"])])):
+            fail(f"(av) multinomial FIVO ({path}) launched {serve} / {launches} (want {want_s} / "
+                 f"{want_t}), plain versions {serve_plain}/{train_plain}, losses {losses}")
+        served[scan_fused] = dict(serve=serve, train=launches, vs=vs)
+    fused_step.SCAN_FUSED = True
+    figures["fhn"] = served
+    del ssm
+    torch.cuda.empty_cache()
+
+    # Lorenz-96 from the trained snapshot: K7 on the served run's weights and fresh sorted
+    # positions against its plain version, the card against the CPU, one filter_posterior and
+    # one train step
+    l_cfg = multinomial(pt.PRESETS[L96])
+    l_ds = pt.generate_dataset(l_cfg.data, SEED)
+    l_obs = l_ds.obs_test.to(dev)
+
+    def snapshot(ssm_):
+        pt.load_params_npz(ssm_, os.path.join(ROOT, "checkpoints/l96_pretrained.npz"))
+
+    vs = card_vs_cpu(pt, dev, l_cfg, l_ds.obs_test[:2, :20], None, SEED + 85, path="trunk",
+                     load=snapshot)
+    ssm = pt.init_ssm(l_cfg, torch.Generator().manual_seed(SEED), device=dev)
+    snapshot(ssm)
+    ys = l_obs[:8].contiguous()
+    run_gen = torch.Generator(device=dev).manual_seed(SEED + 86)
+    (means, _, logws), serve, serve_plain = kernel_counts(
+        trunk_k, plain, lambda: pt.filter_posterior(ssm, ys, l_cfg, run_gen, return_particles=True))
+    k_l = logws.shape[-1]
+    with torch.no_grad():
+        pos_l = torch.sort(torch.rand((logws.shape[1] - 1, 8, k_l), generator=gen_m, device=dev),
+                           -1).values
+        k7_bad = sum(int((rg.ancestor_indices_large(logws[:, t].contiguous(), pos_l[t])
+                          != rg.ancestor_indices_large_reference(logws[:, t].contiguous(),
+                                                                 pos_l[t])).sum())
+                     for t in range(pos_l.shape[0]))
+    step = pt.make_train_step(ssm, l_cfg, pt.make_optimizer(l_cfg))
+    t0 = time.perf_counter()
+    metrics, launches, train_plain = kernel_counts(
+        trunk_k, plain, lambda: step(run_gen, l_ds.obs_train[:8].to(dev).contiguous()))
+    step_ms = (time.perf_counter() - t0) * 1e3
+    loss = float(metrics["loss"])
+    print(f"[av] {card}: {L96} multinomial from the snapshot (B=8, K=8192, T=100): the card vs "
+          f"the CPU, one train step at B=2, T=20: {vs_line(vs)}; K7 on the served run's weights "
+          f"and fresh sorted positions, {k7_bad} of {pos_l.numel()} ancestors differ from its "
+          f"plain version; filter_posterior: means {tuple(means.shape)}, K7/K8/K9/K10/K11 "
+          f"{serve} (want [99, 99, 99, 0, 0]), plain versions {serve_plain}; one train step: loss "
+          f"{loss:.3f}, K7/K8/K9/K10/K11 {launches} (want [99] * 5), plain versions "
+          f"{train_plain}, {step_ms:.1f} ms (host clock)", flush=True)
+    if not vs["ok"]:
+        fail("(av) multinomial trunk path: the card disagrees with the CPU")
+    if (k7_bad or serve != [99, 99, 99, 0, 0] or launches != [99] * 5 or serve_plain
+            or train_plain or not math.isfinite(loss) or not bool(torch.isfinite(means).all())):
+        fail(f"(av) multinomial trunk path: K7 off its plain version {k7_bad}, launches {serve} / "
+             f"{launches}, plain versions {serve_plain}/{train_plain}, loss {loss}")
+    figures["l96"] = dict(serve=serve, train=launches, vs=vs)
+    del ssm, logws
+    torch.cuda.empty_cache()
+    phase_done("av")
     return figures
 
 
@@ -4009,7 +4642,7 @@ def main() -> int:
           + f" ms; plain {k12_dev[1]:.3f} ms (3 calls); bound {k12_bound:.4f} ms ({k12_by}, "
           f"{k12_flops:.3e} FLOP): split at {100 * k12_bound / k12_dev[0]:.1f}% of it, chain at "
           f"{100 * k12_bound / k12_dev[2]:.1f}%; split "
-          f"{kernel_resources('svo_forward_split_kernelILi3ELi3ELi64EE')}, (paths, tile rows, "
+          f"{kernel_resources('svo_forward_split_kernelILi3ELi3ELi64ELb0EE')}, (paths, tile rows, "
           f"steps a chunk) {k12_plan}, {svo.k12_smem_bytes(3, 3, 64, 1, *k12_plan)} B of shared "
           f"memory per CTA; chain {kernel_resources('svo_forward_kernelILi3ELi3ELi64EE')}",
           flush=True)
@@ -4055,7 +4688,8 @@ def main() -> int:
           f"alternated: " + ", ".join(f"({a:.4f}, {b_:.4f})" for a, b_ in k13_pairs)
           + f" ms; plain {k13_dev[1]:.3f} ms (3 calls); bound {k13_bound:.4f} ms ({k13_by}, "
           f"{k13_flops:.3e} FLOP): split at {100 * k13_bound / k13_dev[0]:.1f}% of it, chain at "
-          f"{100 * k13_bound / k13_dev[2]:.1f}%; split {kernel_resources('svo_backward_split_kernelILi3ELi3ELi64EE')}, "
+          f"{100 * k13_bound / k13_dev[2]:.1f}%; split "
+          f"{kernel_resources('svo_backward_split_kernelILi3ELi3ELi64ELb0EE')}, "
           f"{svo.k13_smem_bytes(3, 3, 64, 1, n_w13)} B of shared memory per CTA, tiles of "
           f"{rows13} rows, {p13} paths a group ({-(-b_s * m_s // p13)} groups); chain "
           f"{kernel_resources('svo_backward_kernelILi3ELi3ELi64EE')}, "
@@ -4676,6 +5310,8 @@ def main() -> int:
     seg = segmented_phases(pt, dev, card)
     cli_figs = cli_phases(pt, dev, card)
     gen_figs = general_phases(pt, dev, card)
+    sm_figs = smoothing_controls_phases(pt, dev, card)
+    mn_figs = multinomial_phases(pt, dev, card)
 
 
     # K3: the CDF scan and a binary search per particle; logw and u0 in, int32 indices out.
@@ -4753,11 +5389,13 @@ def main() -> int:
          "on_path": True, "max_abs_err": max(r["maxd"] for r in k11.values()), "ms": k11_dev[0],
          "plain_ms": k11_dev[1], "bound_ms": k11_bound, "bound_by": k11_by,
          "library_ms": k11_dev[2], "ms_prev": k11_dev[5]},
-        {"name": "svo_sweep_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/svo_sweep.cu",
+        {"name": "svo_sweep_forward", "route": "cuda",
+         "source": "psvo_tpu_torch/csrc/svo_sweep.cuh",
          "replaces": "psvo_tpu/ops/pallas_svo.py:446", "launches": svo_launches[2],
          "on_path": True, "max_abs_err": k12_small_err, "ms": k12_dev[0], "plain_ms": k12_dev[1],
          "bound_ms": k12_bound, "bound_by": k12_by, "library_ms": None, "ms_prev": k12_dev[2]},
-        {"name": "svo_sweep_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/svo_sweep.cu",
+        {"name": "svo_sweep_backward", "route": "cuda",
+         "source": "psvo_tpu_torch/csrc/svo_sweep.cuh",
          "replaces": "psvo_tpu/ops/pallas_svo.py:521", "launches": svo_launches[3],
          "on_path": True, "max_abs_err": k13_small_err, "ms": k13_dev[0], "plain_ms": k13_dev[1],
          "bound_ms": k13_bound, "bound_by": k13_by, "library_ms": None, "ms_prev": k13_dev[2]},
@@ -4817,6 +5455,35 @@ def main() -> int:
             "library_ms": times[2],
             "launches_serve": gen_figs["ap"][resampling_presets[0]]["serve"][i],
             "launches_cli": gen_figs["as"]["fhn_fivo_tril"]["launches"][i]})
+    # K12 and K13 in their control mode (lorenz63_svo_k256 with Di=2: B=32, M=16, T=100, hidden
+    # (64, 64)): launches from phase au's training steps, times and bounds (the glue's u·W_u
+    # counted in) from phase au, "ms_uncontrolled" the same shape without controls alternated
+    # with it; K1 and K14 on multinomial positions (fhn_fivo_k1024_bench, stream noise):
+    # launches from phase av's training steps, times and bounds from phase av
+    for kernel, fig, source, line, launches in (
+            ("svo_sweep_forward (controls)", sm_figs["k12"], "psvo_tpu_torch/csrc/svo_sweep.cuh",
+             "psvo_tpu/ops/pallas_svo.py:446", sm_figs["au"]["train"][2]),
+            ("svo_sweep_backward (controls)", sm_figs["k13"], "psvo_tpu_torch/csrc/svo_sweep.cuh",
+             "psvo_tpu/ops/pallas_svo.py:521", sm_figs["au"]["train"][3])):
+        kernels.append({"name": kernel, "route": "cuda", "source": source, "replaces": line,
+                        "launches": launches, "on_path": True, "max_abs_err": fig["err"],
+                        "ms": fig["ms"], "plain_ms": fig["plain"], "bound_ms": fig["bound"][0],
+                        "bound_by": fig["bound"][1], "library_ms": None,
+                        "ms_uncontrolled": fig["ms_unc"]})
+    kernels.append({"name": "scan_forward (multinomial)", "route": "cuda",
+                    "source": "psvo_tpu_torch/csrc/scan_forward.cuh",
+                    "replaces": "psvo_tpu/ops/pallas_step.py:1327",
+                    "launches": mn_figs["fhn"][True]["train"][0], "on_path": True,
+                    "max_abs_err": mn_figs["small"]["err"], "ms": mn_figs["k1"]["ms"],
+                    "plain_ms": mn_figs["k1"]["plain"], "bound_ms": mn_figs["k1"]["bound"][0],
+                    "bound_by": mn_figs["k1"]["bound"][1], "library_ms": None})
+    kernels.append({"name": "step_forward (multinomial)", "route": "cuda",
+                    "source": "psvo_tpu_torch/csrc/scan_forward.cuh",
+                    "replaces": "psvo_tpu/ops/pallas_step.py:954",
+                    "launches": mn_figs["fhn"][False]["train"][2], "on_path": True,
+                    "max_abs_err": mn_figs["k14"]["err"], "ms": mn_figs["k14"]["ms"],
+                    "plain_ms": mn_figs["k14"]["plain"], "bound_ms": mn_figs["k14"]["bound"][0],
+                    "bound_by": mn_figs["k14"]["bound"][1], "library_ms": None})
     print(f"[profiler] {PROFILE_WINDOWS['windows']} profiler windows, "
           f"{PROFILE_WINDOWS['empty']} of them with no device events (run again); of the timing "
           f"windows, {PROFILE_WINDOWS['partial']} recorded part of a kernel's events (timed by "

@@ -17,7 +17,9 @@ gather and the trunk kernel (`ops/resample_gather.py`, `ops/trunk.py`); and
 trained through two more, the trunk kernel's VJP and the segment-sum
 scatter that transposes the gather. Models with exogenous controls
 (data.di > 0, `controls=` on the entry points) run the whole-scan and
-per-step filter kernels in their control mode, for FIVO and IWAE. PSVO
+per-step filter kernels in their control mode, for every objective, and
+SVO's sweep kernels in theirs; multinomial resampling runs on every kernel
+path. PSVO
 runs long sequences segmented (`smc.ffbsi_segments`): the filter keeps only
 the segment boundaries and replays each segment for the backward sweep.
 Bootstrap mode and the LGSSM data (the Kalman oracle's model) run on the

@@ -88,8 +88,8 @@ def smooth_posterior(
     objective when that is a smoothing one, else "psvo". The generator
     defaults to the run's (seed + 18, on the device of ys); noise is the
     objective's replay hook (`objectives.make_objective`). controls as in
-    `filter_posterior`; smoothing with controls is not ported yet (the
-    objective raises NotImplementedError).
+    `filter_posterior`: both methods take them (FFBSi's support terms and
+    log-joint, SVO's f and predictive mixture see u_{t+1}).
     """
     _check_controls(ssm, controls)
     method = method or (cfg.smc.objective if cfg.smc.objective in ("svo", "psvo") else "psvo")

@@ -16,9 +16,11 @@ with the learned proposal q_b and trains on
 lse_m(log p(x̃^m, y) − log q(x̃^m)) − log M, q's last term being the
 filter-density surrogate ρ_T (the reference's module docstring).
 
-Controls [B, T, Di] (data.di > 0) reach IWAE and FIVO through the filter
-(`smc.forward_filter`); PSVO and SVO with controls raise NotImplementedError
-until their support terms and sweeps take them.
+Controls [B, T, Di] (data.di > 0) reach every objective through the filter
+(`smc.forward_filter`). PSVO's support terms and selected-path log-joint take
+u_{t+1}, the control into the step after the support's (the reference's
+`ctrl_tm[1:]`); SVO's predictive mixture takes u_T and its sweep runs f on
+[x̃_t; u_{t+1}] (`ops.svo.run_svo_sweep`, K12/K13's control mode).
 
 The model modes (known dynamics, "head"/"tril"/"tril_head" scales, Poisson
 and Dirac emissions, bootstrap mode) reach every objective on CPU tensors;
@@ -61,7 +63,7 @@ from psvo_tpu_torch.distributions import (
 from psvo_tpu_torch.models.ssm import SSM
 from psvo_tpu_torch.ops import ffbsi, fused_step, svo, trunk
 from psvo_tpu_torch.smc import (
-    FilterResult, SegmentedCache, _checkpointed, _segment_seeds, forward_filter,
+    FilterResult, SegmentedCache, _checkpointed, _controls_tm, _segment_seeds, forward_filter,
     forward_filter_segmented, recompute_segment,
 )
 
@@ -80,10 +82,11 @@ class ObjectiveOutput:
     filter_result: Optional[FilterResult] = None
 
 
-def _pairwise_support_terms(ssm: SSM, x_support):
+def _pairwise_support_terms(ssm: SSM, x_support, u=None):
     """Support-side terms of the pairwise transition density f(q | x_j) on
-    x_support [..., Dx, K] (the reference's `_pairwise_support_terms`), a
-    dict that `_pairwise_query_logp` contracts with the queries:
+    x_support [..., Dx, K] with controls u [..., Di] (None: zeros; the
+    reference's `_pairwise_support_terms`), a dict that `_pairwise_query_logp`
+    contracts with the queries:
 
     - diagonal f: r = 1/s², mr = m·r [..., Dx, K] and
       c = −½Σ_d m²r − Σ_d log s − Dx·½log 2π [..., K] (`ops.ffbsi.pair_logp`);
@@ -94,7 +97,7 @@ def _pairwise_support_terms(ssm: SSM, x_support):
       Σ log diag − Dx·½log 2π, with L⁻¹ unrolled over the small Dx."""
     d = x_support.shape[-2]
     if ssm.f_tril_head:
-        mean, diag, off = ssm.transition_tril_cm(x_support)
+        mean, diag, off = ssm.transition_tril_cm(x_support, u)
 
         def chol(i, j):  # packed lower-triangular entry, i >= j
             return diag[..., i, :] if i == j else off[..., i * (i - 1) // 2 + j, :]
@@ -114,14 +117,14 @@ def _pairwise_support_terms(ssm: SSM, x_support):
         logdet = torch.sum(torch.log(diag), dim=-2)
         return {"pflat": pflat, "w": w, "c": -0.5 * t3 - logdet - d * _HALF_LOG_2PI}
     if ssm.f_tril:
-        mean, chol_f = ssm.transition_full_cm(x_support)
+        mean, chol_f = ssm.transition_full_cm(x_support, u)
         mean = torch.linalg.solve_triangular(chol_f.expand(*mean.shape[:-2], d, d), mean,
                                              upper=False)
         logdet = torch.sum(torch.log(torch.diagonal(chol_f)))
         t3 = torch.sum(mean * mean, dim=-2)
         return {"r": torch.ones_like(mean), "mr": mean,
                 "c": -0.5 * t3 - logdet - d * _HALF_LOG_2PI, "chol": chol_f}
-    mean, scale = ssm.transition_params_cm(x_support)
+    mean, scale = ssm.transition_params_cm(x_support, u)
     r = 1.0 / (scale * scale)
     logdet = torch.sum(torch.log(scale), dim=-2)
     t3 = torch.sum(mean * mean * r, dim=-2)
@@ -147,33 +150,35 @@ def _pairwise_query_logp(ssm: SSM, sup: dict, x_query):
     return torch.clamp(logp, min=_MIN_LOGP)
 
 
-def _support_terms(ssm: SSM, x_support, differentiable: bool):
-    """(r, mr, c) of every support step [T−1, B, ·, K] of a diagonal f,
-    contiguous, for K5/K6. Without a gradient they are computed in chunks of
-    time steps, into their outputs."""
+def _support_terms(ssm: SSM, x_support, differentiable: bool, u=None):
+    """(r, mr, c) of every support step [T−1, B, ·, K] of a diagonal f with
+    its controls u [T−1, B, Di] (or None), contiguous, for K5/K6. Without a
+    gradient they are computed in chunks of time steps, into their
+    outputs."""
     names = ("r", "mr", "c")
     if differentiable:
-        sup = _pairwise_support_terms(ssm, x_support)
+        sup = _pairwise_support_terms(ssm, x_support, u)
         return tuple(sup[n].contiguous() for n in names)
     r, mr = torch.empty_like(x_support), torch.empty_like(x_support)
     t_len, batch, _, k = x_support.shape
     c = x_support.new_empty((t_len, batch, k))
     with torch.no_grad():
         for i in range(0, x_support.shape[0], _SUPPORT_CHUNK):
-            sup = _pairwise_support_terms(ssm, x_support[i:i + _SUPPORT_CHUNK])
+            sup = _pairwise_support_terms(ssm, x_support[i:i + _SUPPORT_CHUNK],
+                                          None if u is None else u[i:i + _SUPPORT_CHUNK])
             for out, n in zip((r, mr, c), names):
                 out[i:i + _SUPPORT_CHUNK] = sup[n]
     return r, mr, c
 
 
-def _plain_ffbsi_sweep(ssm: SSM, x_query, xs, logws, gum, differentiable: bool):
+def _plain_ffbsi_sweep(ssm: SSM, x_query, xs, logws, gum, differentiable: bool, u=None):
     """The reference's FFBSi scan body (`objectives._make_ffbsi_body`) as a
     loop over t = n−1 … 0, for a full-covariance f, which K5/K6 do not take
     (`ops.ffbsi.usable`), on CPU tensors: per step the pairwise density of
     the queries against the support, the Gumbel-argmax draw and the path
     pmf. Returns what `ffbsi.FFBSiSweep` returns (x_first, logp (zeros: the
     log-joint is recomputed on the selected paths), logq, xtilde)."""
-    sup = _pairwise_support_terms(ssm, xs)
+    sup = _pairwise_support_terms(ssm, xs, u)
     lwn, _ = log_normalize(logws, dim=-1)
     if not differentiable:
         sup = {n: v.detach() for n, v in sup.items()}
@@ -204,16 +209,26 @@ def _sample_final_particles(gum, fwd: FilterResult):
     return x_t.transpose(1, 2), torch.gather(logw_norm, 1, idx)
 
 
-def _selected_path_log_joint(ssm: SSM, x_tilde, ys_tm):
+def _path_controls(ctrl, m: int):
+    """Controls [L, B, Di] broadcast over the M paths, [L, B, M, Di]; None
+    stays None."""
+    if ctrl is None:
+        return None
+    return ctrl[:, :, None, :].expand(-1, -1, m, -1)
+
+
+def _selected_path_log_joint(ssm: SSM, x_tilde, ys_tm, ctrl_tm=None):
     """log p_θ(x̃, y) [B, M] on the selected trajectories x_tilde [T, B, M, Dx]
     (the direct form; equal in value and gradient to gathering full-support
-    densities, since the selected particle is the support atom). Chunked
+    densities, since the selected particle is the support atom); with
+    controls ctrl_tm [T, B, Di] the step into x̃_t sees u_t. Chunked
     (`_logjoint_chunked`) when T − 1 is a multiple of _LOGJOINT_CHUNK with at
     least two chunks."""
     t_steps = x_tilde.shape[0]
     if t_steps - 1 >= 2 * _LOGJOINT_CHUNK and (t_steps - 1) % _LOGJOINT_CHUNK == 0:
-        return _logjoint_chunked(ssm, x_tilde, ys_tm)
-    lp_f = ssm.transition_log_prob(x_tilde[:-1], x_tilde[1:])
+        return _logjoint_chunked(ssm, x_tilde, ys_tm, ctrl_tm)
+    u = None if ctrl_tm is None else _path_controls(ctrl_tm[1:], x_tilde.shape[2])
+    lp_f = ssm.transition_log_prob(x_tilde[:-1], x_tilde[1:], u)
     lp_g = ssm.emission_log_prob(x_tilde, ys_tm[:, :, None, :])
     return torch.sum(lp_f, dim=0) + torch.sum(lp_g, dim=0) + ssm.prior_log_prob(x_tilde[0])
 
@@ -224,17 +239,17 @@ def _selected_path_log_joint(ssm: SSM, x_tilde, ys_tm):
 _LOGJOINT_CHUNK = 512
 
 
-def _chunk_log_joint(ssm: SSM, x_prev, x_chunk, ys_chunk):
-    """Σ over one chunk's steps of log f(x_t | x_{t−1}) + log g(y_t | x_t):
+def _chunk_log_joint(ssm: SSM, x_prev, x_chunk, ys_chunk, u_chunk=None):
+    """Σ over one chunk's steps of log f(x_t | x_{t−1}, u_t) + log g(y_t | x_t):
     x_prev [B, M, Dx] the step before the chunk, x_chunk [L, B, M, Dx],
-    ys_chunk [L, B, Dy] -> [B, M]."""
+    ys_chunk [L, B, Dy], u_chunk [L, B, Di] or None -> [B, M]."""
     pairs_prev = torch.cat([x_prev[None], x_chunk[:-1]], dim=0)
-    lp_f = ssm.transition_log_prob(pairs_prev, x_chunk)
+    lp_f = ssm.transition_log_prob(pairs_prev, x_chunk, _path_controls(u_chunk, x_chunk.shape[2]))
     lp_g = ssm.emission_log_prob(x_chunk, ys_chunk[:, :, None, :])
     return torch.sum(lp_f, dim=0) + torch.sum(lp_g, dim=0)
 
 
-def _logjoint_chunked(ssm: SSM, x_tilde, ys_tm):
+def _logjoint_chunked(ssm: SSM, x_tilde, ys_tm, ctrl_tm=None):
     """The selected-path log-joint in chunks of _LOGJOINT_CHUNK steps, each
     under a checkpoint (the reference's `_logjoint_chunked`): the direct
     form's value and gradient with its sums reassociated, and only one
@@ -243,23 +258,25 @@ def _logjoint_chunked(ssm: SSM, x_tilde, ys_tm):
     x0 = x_tilde[0]
     lp0 = ssm.prior_log_prob(x0) + ssm.emission_log_prob(x0, ys_tm[0][:, None, :])
     parts = [_checkpointed(True, functools.partial(_chunk_log_joint, ssm), x_tilde[lo - 1],
-                           x_tilde[lo:lo + length], ys_tm[lo:lo + length])
+                           x_tilde[lo:lo + length], ys_tm[lo:lo + length],
+                           *(() if ctrl_tm is None else (ctrl_tm[lo:lo + length],)))
              for lo in range(1, x_tilde.shape[0], length)]
     return lp0 + torch.sum(torch.stack(parts), dim=0)
 
 
-def _ffbsi_sweep(ssm: SSM, x_query, xs, logws, gum, differentiable: bool):
+def _ffbsi_sweep(ssm: SSM, x_query, xs, logws, gum, differentiable: bool, u=None):
     """One FFBSi sweep from the queries x_query [B, M, Dx] over the support
-    xs [n, B, Dx, K] with the cumulative log-weights logws [n, B, K] and
-    Gumbels gum [n, B, M, K]: the support terms and the normalized weights,
+    xs [n, B, Dx, K] with the cumulative log-weights logws [n, B, K], Gumbels
+    gum [n, B, M, K] and the controls into the step after each support step,
+    u [n, B, Di] (or None): the support terms and the normalized weights,
     which carry no gradient unless `differentiable`, then one
     `ffbsi.FFBSiSweep`; for a full-covariance f, outside K5/K6's class,
     `_plain_ffbsi_sweep` (CPU tensors only: such a model's forward takes no
     kernel path, so `make_objective` refuses it on the card). Returns
     (x_first, logp, logq, xtilde)."""
     if ssm.f_tril:
-        return _plain_ffbsi_sweep(ssm, x_query, xs, logws, gum, differentiable)
-    r, mr, c = _support_terms(ssm, xs, differentiable)
+        return _plain_ffbsi_sweep(ssm, x_query, xs, logws, gum, differentiable, u)
+    r, mr, c = _support_terms(ssm, xs, differentiable, u)
     lwn, _ = log_normalize(logws, dim=-1)
     if not differentiable:
         lwn = lwn.detach()
@@ -269,9 +286,10 @@ def _ffbsi_sweep(ssm: SSM, x_query, xs, logws, gum, differentiable: bool):
                                   lwn.contiguous(), torch.zeros_like(lwn), gum.contiguous())
 
 
-def _ffbsi_backward(ssm: SSM, gum_anchor, gum_scan, ys_tm, fwd: FilterResult, *,
+def _ffbsi_backward(ssm: SSM, gum_anchor, gum_scan, ys_tm, fwd: FilterResult, ctrl_tm=None, *,
                     differentiable_sweep: bool):
-    """FFBSi backward simulation over the forward support. Returns (smoothed
+    """FFBSi backward simulation over the forward support; with controls
+    ctrl_tm [T, B, Di] support step t pairs with u_{t+1}. Returns (smoothed
     [T, B, M, Dx], log p(smoothed, y) [B, M], log q̃ [B, M]).
 
     The sweep only selects; the log-joint is evaluated afterwards on the
@@ -281,14 +299,15 @@ def _ffbsi_backward(ssm: SSM, gum_anchor, gum_scan, ys_tm, fwd: FilterResult, *,
     """
     x_anchor, lwn_anchor = _sample_final_particles(gum_anchor, fwd)
     _, _, lq_sweep, xtilde = _ffbsi_sweep(ssm, x_anchor, fwd.xs[:-1], fwd.logws[:-1], gum_scan,
-                                          differentiable_sweep)
+                                          differentiable_sweep,
+                                          None if ctrl_tm is None else ctrl_tm[1:])
     smoothed = torch.cat([xtilde, x_anchor[None]], dim=0)
-    logp = _selected_path_log_joint(ssm, smoothed, ys_tm)
+    logp = _selected_path_log_joint(ssm, smoothed, ys_tm, ctrl_tm)
     return smoothed, logp, lwn_anchor + lq_sweep
 
 
 def _ffbsi_backward_segmented(ssm: SSM, smc_cfg, gum_anchor, gumbels, ys_tm,
-                              fwd: FilterResult, cache: SegmentedCache, *,
+                              fwd: FilterResult, cache: SegmentedCache, ctrl_tm=None, *,
                               differentiable_sweep: bool):
     """FFBSi over a segmented forward (the reference's
     `_ffbsi_backward_segmented`). Returns what `_ffbsi_backward` returns.
@@ -302,17 +321,23 @@ def _ffbsi_backward_segmented(ssm: SSM, smc_cfg, gum_anchor, gumbels, ys_tm,
     segment's x_first, under `smc._checkpointed`: only the carries and the
     sweep's [L, B, M, Dx] paths persist. logq adds up across segments, and
     the anchor's cotangent reaches the next segment through K6's d_x_anchor.
-    t = 0 is a one-step sweep through the same Function.
+    t = 0 is a one-step sweep through the same Function. With controls
+    ctrl_tm [T, B, Di], support step t pairs with u_{t+1}: a segment's slice
+    ctrl_tm[lo + 1 : lo + n + 1], and t = 0 u_1 (the reference's `ctrl_sup`
+    and its t = 0 step).
     """
     t_steps = ys_tm.shape[0]
     seg_len = cache.seg_len
     x_q, lwn_anchor = _sample_final_particles(gum_anchor, fwd)
     x_anchor, logq = x_q, lwn_anchor
 
+    def controls(lo, n):
+        return None if ctrl_tm is None else ctrl_tm[lo + 1:lo + 1 + n]
+
     def segment_sweep(x_query, s, lo, n_sup):
         xs_seg, logws_seg = recompute_segment(cache, s)
         return _ffbsi_sweep(ssm, x_query, xs_seg[:n_sup], logws_seg[:n_sup],
-                            gumbels(s, lo, n_sup), differentiable_sweep)
+                            gumbels(s, lo, n_sup), differentiable_sweep, controls(lo, n_sup))
 
     pieces = []  # the segments' paths, in reverse time order
     for s in reversed(range(len(cache.seg_x))):
@@ -325,9 +350,9 @@ def _ffbsi_backward_segmented(ssm: SSM, smc_cfg, gum_anchor, gumbels, ys_tm,
         logq = logq + lq
         pieces.append(xtilde)
     _, _, lq0, x0_tilde = _ffbsi_sweep(ssm, x_q, cache.x0[None], cache.alpha0[None],
-                                       gumbels(None, 0, 1), differentiable_sweep)
+                                       gumbels(None, 0, 1), differentiable_sweep, controls(0, 1))
     smoothed = torch.cat([x0_tilde, *reversed(pieces), x_anchor[None]], dim=0)
-    logp = _selected_path_log_joint(ssm, smoothed, ys_tm)
+    logp = _selected_path_log_joint(ssm, smoothed, ys_tm, ctrl_tm)
     return smoothed, logp, logq + lq0
 
 
@@ -350,19 +375,20 @@ def _segment_gumbels(generator, noise, n_segments: int, batch: int, m: int, k: i
     return gumbels
 
 
-def _predictive_mixture_logp(ssm: SSM, x_prev, logw_prev, x_query):
-    """log p̂(x_query | y_{1:t}) = lse_j [log Ŵ_t^j + log f(x_query | X_t^j)]:
-    x_prev [B, Dx, K], logw_prev [B, K], x_query [B, M, Dx] -> [B, M]; the
-    pairwise density of `_pairwise_query_logp`."""
+def _predictive_mixture_logp(ssm: SSM, x_prev, logw_prev, x_query, u=None):
+    """log p̂(x_query | y_{1:t}) = lse_j [log Ŵ_t^j + log f(x_query | X_t^j, u)]:
+    x_prev [B, Dx, K], logw_prev [B, K], x_query [B, M, Dx], the controls
+    into the query's step u [B, Di] (or None) -> [B, M]; the pairwise density
+    of `_pairwise_query_logp`."""
     logw_norm, _ = log_normalize(logw_prev, dim=-1)
-    pair = _pairwise_query_logp(ssm, _pairwise_support_terms(ssm, x_prev), x_query)
+    pair = _pairwise_query_logp(ssm, _pairwise_support_terms(ssm, x_prev, u), x_query)
     return torch.logsumexp(pair + logw_norm[:, None, :], dim=-1)
 
 
-def _svo_scan(ssm: SSM, ys_tm, eps, x_anchor):
+def _svo_scan(ssm: SSM, ys_tm, eps, x_anchor, ctrl_tm=None):
     """The reference's lax.scan body over t = T−2 … 0 on the model's heads,
-    for CPU tensors outside `svo.usable`. Returns what `svo.run_svo_sweep`
-    returns."""
+    f on [x̃_t; u_{t+1}] with controls ctrl_tm [T, B, Di], for CPU tensors
+    outside `svo.usable`. Returns what `svo.run_svo_sweep` returns."""
     x = x_anchor
     lp = torch.zeros(x_anchor.shape[:2], dtype=x_anchor.dtype)
     lq = torch.zeros_like(lp)
@@ -371,15 +397,17 @@ def _svo_scan(ssm: SSM, ys_tm, eps, x_anchor):
         y_t = ys_tm[t][:, None, :]
         mean_b, scale_b = ssm.backward_propose(x, y_t)
         x_t = mean_b + scale_b * eps[t]
-        lp = lp + ssm.transition_log_prob(x_t, x) + ssm.emission_log_prob(x_t, y_t)
+        u = None if ctrl_tm is None else ctrl_tm[t + 1]
+        lp = lp + ssm.transition_log_prob(x_t, x, u) + ssm.emission_log_prob(x_t, y_t)
         lq = lq + mvn_diag_log_prob(x_t, mean_b, scale_b)
         x = xts[t] = x_t
     return x, lp, lq, torch.stack(xts)
 
 
-def _svo_backward(ssm: SSM, gum_anchor, eps, ys_tm, fwd: FilterResult):
-    """Backward simulation with the learned proposal q_b. Returns (log w̃
-    [B, M], x̃ [T, B, M, Dx]).
+def _svo_backward(ssm: SSM, gum_anchor, eps, ys_tm, fwd: FilterResult, ctrl_tm=None):
+    """Backward simulation with the learned proposal q_b; with controls
+    ctrl_tm [T, B, Di] the mixture takes u_T and the sweep's f u_{t+1}.
+    Returns (log w̃ [B, M], x̃ [T, B, M, Dx]).
 
     The anchors x̃_{T−1} come from the last filtering distribution; the q
     side's T-term is the continuous filter-density surrogate
@@ -388,17 +416,18 @@ def _svo_backward(ssm: SSM, gum_anchor, eps, ys_tm, fwd: FilterResult):
     """
     x_anchor, _ = _sample_final_particles(gum_anchor, fwd)
     log_g_t = ssm.emission_log_prob(x_anchor, ys_tm[-1][:, None, :])
-    log_pred = _predictive_mixture_logp(ssm, fwd.xs[-2], fwd.logws[-2], x_anchor)
+    log_pred = _predictive_mixture_logp(ssm, fwd.xs[-2], fwd.logws[-2], x_anchor,
+                                        None if ctrl_tm is None else ctrl_tm[-1])
     log_rho_t = log_g_t + log_pred - fwd.increments[-1][:, None]
     if svo.usable(ssm, x_anchor.shape[1]):
-        x_first, lp, lq, xtilde = svo.run_svo_sweep(ssm, ys_tm, eps, x_anchor)
+        x_first, lp, lq, xtilde = svo.run_svo_sweep(ssm, ys_tm, eps, x_anchor, ctrl_tm)
     elif x_anchor.is_cuda:
         raise NotImplementedError(
             "SVO: this configuration has no CUDA kernel yet (outside ops.svo.usable); run it "
             "on CPU tensors"
         )
     else:
-        x_first, lp, lq, xtilde = _svo_scan(ssm, ys_tm, eps, x_anchor)
+        x_first, lp, lq, xtilde = _svo_scan(ssm, ys_tm, eps, x_anchor, ctrl_tm)
     logp = log_g_t + lp + ssm.prior_log_prob(x_first)
     logq = log_rho_t + lq
     return logp - logq, torch.cat([xtilde, x_anchor[None]], dim=0)
@@ -454,10 +483,6 @@ def make_objective(ssm: SSM, cfg: Config):
         raise ValueError(f"unknown objective {smc_cfg.objective!r}")
     segmented = smc_cfg.objective == "psvo" and smc_cfg.ffbsi_segments > 1
     smoothing = smc_cfg.objective in ("svo", "psvo")
-    if smoothing and ssm.di:
-        raise NotImplementedError(
-            f"{smc_cfg.objective} with controls (data.di > 0) is not ported yet: its support "
-            "terms and backward sweep take no controls")
     m = smc_cfg.n_smoothing_particles
 
     def objective(generator, ys, encoder_inputs=None, noise=None,
@@ -489,6 +514,8 @@ def make_objective(ssm: SSM, cfg: Config):
 
         batch, t_steps, _ = ys.shape
         k = smc_cfg.n_particles
+        # time-major controls for the backward pass (zeros when absent), or None at di = 0
+        ctrl_tm = _controls_tm(controls, batch, t_steps, ssm.di, ys.device) if ssm.di else None
         if smc_cfg.objective == "svo":
             if noise is not None and len(noise) == 5:
                 gum_anchor, eps = noise[3], noise[4]
@@ -498,7 +525,8 @@ def make_objective(ssm: SSM, cfg: Config):
                 gum_anchor = _gumbel(generator, (batch, m, k))
                 eps = torch.randn((t_steps - 1, batch, m, ssm.dx), generator=generator,
                                   device=generator.device)
-            logw_traj, x_tilde = _svo_backward(ssm, gum_anchor, eps, ys.transpose(0, 1), fwd)
+            logw_traj, x_tilde = _svo_backward(ssm, gum_anchor, eps, ys.transpose(0, 1), fwd,
+                                               ctrl_tm)
             elbo = torch.logsumexp(logw_traj, dim=-1) - math.log(m)
             metrics["elbo_svo"] = torch.mean(elbo)
             return ObjectiveOutput(-torch.mean(elbo), elbo, metrics, x_tilde, fwd)
@@ -511,13 +539,13 @@ def make_objective(ssm: SSM, cfg: Config):
         if segmented:
             gumbels = _segment_gumbels(generator, noise, smc_cfg.ffbsi_segments, batch, m, k)
             x_tilde, logp_joint, logq_pmf = _ffbsi_backward_segmented(
-                ssm, smc_cfg, gum_anchor, gumbels, ys.transpose(0, 1), fwd, seg_cache,
+                ssm, smc_cfg, gum_anchor, gumbels, ys.transpose(0, 1), fwd, seg_cache, ctrl_tm,
                 differentiable_sweep=direct_bound,
             )
         else:
             gum_scan = noise[4] if given else _gumbel(generator, (t_steps - 1, batch, m, k))
             x_tilde, logp_joint, logq_pmf = _ffbsi_backward(
-                ssm, gum_anchor, gum_scan, ys.transpose(0, 1), fwd,
+                ssm, gum_anchor, gum_scan, ys.transpose(0, 1), fwd, ctrl_tm,
                 differentiable_sweep=direct_bound,
             )
         # the sampled-trajectory bound; log q̃ is a pmf over the K-particle

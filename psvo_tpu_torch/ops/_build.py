@@ -56,10 +56,12 @@ SIGNATURES = {
     "psvo_segment_sum_scatter": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # K10 ends in (..., max_ctas, design, stream): 0 the tensor-core design, 1 the previous one
     "psvo_trunk_backward": [_P] * 13 + [_U32, _U32] + [_I] * 13 + [_P],
-    # K12 ends in (..., off_g, design, paths, tile_rows, steps, stream): 0 the split design, 1 the chain
-    "psvo_svo_forward": [_P] * 9 + [_I] * 14 + [_P],
-    # K13 ends in (..., max_ctas, design, tile_rows, paths, stream): 0 the split design, 1 the chain
-    "psvo_svo_backward": [_P] * 13 + [_I] * 14 + [_P],
+    # K12 ends in (..., off_g, design, paths, tile_rows, steps, stream): 0 the split design, 1 the
+    # chain; a non-null cbias (the sixth pointer) runs the split design's control mode
+    "psvo_svo_forward": [_P] * 10 + [_I] * 14 + [_P],
+    # K13 ends in (..., max_ctas, design, tile_rows, paths, stream): 0 the split design, 1 the
+    # chain; with cbias also bias_part (scratch) and d_cbias, the last two pointers
+    "psvo_svo_backward": [_P] * 16 + [_I] * 14 + [_P],
     # K14 and K15: (..., counter, B, ..., off_g, ctrl, slices, stream): S CTAs per row
     "psvo_step_forward": [_P] * 12 + [_I] * 11 + [_P],
     "psvo_step_backward": [_P] * 18 + [_I] * 11 + [_P],

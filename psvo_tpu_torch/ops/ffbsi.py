@@ -74,14 +74,14 @@ _THREADS = 256
 _STATIC_SMEM = 24576  # K5 staged: bytes kept for its static shared memory (the lse window)
 
 
-def usable(dx: int, m: int, di: int = 0, f_tril: bool = False) -> bool:
+def usable(dx: int, m: int, f_tril: bool = False) -> bool:
     """Whether a sweep of Dx = dx with m smoothed paths is in K5/K6's class;
-    not for a model with controls (di > 0), whose support terms do not take
-    them yet (the PSVO objective refuses such a model), nor, as the
-    reference's gate (`pallas_ffbsi.py:58`), for a full-covariance
-    transition (`f_tril`: cov_type "tril" or "tril_head" on f), whose
-    pairwise density is not the diagonal r/mr/c form."""
-    return di == 0 and not f_tril and dx in KERNEL_DX and 1 <= m <= MAX_M
+    a model with controls too (the support terms r, mr and c take them, so
+    the kernels read none), but not, as the reference's gate
+    (`pallas_ffbsi.py:58`), a full-covariance transition (`f_tril`: cov_type
+    "tril" or "tril_head" on f), whose pairwise density is not the diagonal
+    r/mr/c form."""
+    return not f_tril and dx in KERNEL_DX and 1 <= m <= MAX_M
 
 
 def k5_paths(batch: int, m: int, n_sms: int) -> int:

@@ -116,8 +116,11 @@ _K14, _K15 = 0, 1  # psvo_step_max_active's kernel argument
 
 
 def usable(ssm, cfg) -> bool:
-    """Whether (ssm, smc-config) is in the kernel's class; with controls
-    (ssm.di > 0) while Dx + Di <= 7. As the reference's gate
+    """Whether (ssm, smc-config) is in the kernel's class: systematic or
+    multinomial resampling at every step (the kernels search any sorted
+    position stream; multinomial streams its positions, as the reference's
+    whole-step kernel does); with controls (ssm.di > 0) while Dx + Di <= 7.
+    As the reference's gate
     (`pallas_step.usable`), not bootstrap mode, whose proposal is f (the
     kernels draw from the fused q1/q2 proposal and weight by f, g and q),
     nor known dynamics, Poisson or Dirac emissions, or a q1/f/g scale other
@@ -128,7 +131,7 @@ def usable(ssm, cfg) -> bool:
     return (
         not cfg.use_bootstrap
         and model_in_class(ssm)
-        and cfg.resampling == "systematic"
+        and cfg.resampling in ("systematic", "multinomial")
         and cfg.ess_threshold >= 1.0
         and cfg.use_stop_gradient
         and (ssm.dx, ssm.dy) in KERNEL_DIMS
@@ -202,14 +205,16 @@ def prepare(ssm) -> dict:
 def pack_heads(ssm, names, first_rows=None):
     """The heads `names` packed into one contiguous float32 buffer in
     `prepare`'s per-net layout, each segment padded to a multiple of 4
-    floats; returns (packed, the segments' offsets). With first_rows, only
-    that many rows of each first-layer weight."""
+    floats; returns (packed, the segments' offsets). With first_rows (an int
+    for every head, or a dict by head name), only that many rows of each
+    first-layer weight."""
     segs, offsets, off = [], [], 0
     for name in names:
         head = ssm.heads[name]
         layers = head.layers()
-        if first_rows is not None:
-            layers[0] = (layers[0][0][:first_rows], layers[0][1])
+        rows = first_rows.get(name) if isinstance(first_rows, dict) else first_rows
+        if rows is not None:
+            layers[0] = (layers[0][0][:rows], layers[0][1])
         parts = [t.reshape(-1) for w, b in layers for t in (w, b)]
         parts += [head.mean_w.reshape(-1), head.mean_b]
         flat = torch.cat(parts)
@@ -245,9 +250,10 @@ def fusion_coeffs(ssm, cfg, consts, enc_tm):
 
 def control_term(consts, ctrl):
     """The controls' part of q1's and f's first layer for each (t, row):
-    ctrl [T−1, B, Di] @ ctrl_w [Di, 2H] -> [T−1, B, 2H], q1's H then f's. One
-    plain product outside any kernel; the controls are data and get no
-    gradient."""
+    ctrl [T−1, B, Di] @ ctrl_w [Di, 2H] -> [T−1, B, 2H], q1's H then f's
+    (K12/K13's `svo.prepare` holds f's alone, [Di, H]: their f bias). One
+    plain product outside any kernel, its result contiguous; the controls
+    are data and get no gradient."""
     return torch.matmul(ctrl, consts["ctrl_w"])
 
 

@@ -47,9 +47,29 @@ Each wrapper carries a launch count (`<wrapper>.launches`), raised only where
 the kernel is launched (also by design, `.launches_by_design`); each plain
 version a call count (`.calls`).
 
+Controls (data.di > 0). The reference feeds u_{t+1} to f as extra input
+rows of x̃_t (`pallas_svo.py:602-617`). Here, as K1 does with q1 and f
+(`fused_step.control_term`), u_{t+1}, the same for the M paths of a row, is
+folded into a per-(t, row) first-layer bias of f: `control_term` (K1's,
+`fused_step.control_term`, on this module's "ctrl_w") computes
+cbias = u_{t+1}·W_u ([T−1, B, Di] × [Di, H], W_u the rows Dx .. Dx + Di of
+f's first layer, `prepare`'s "ctrl_w") as one plain product outside any
+kernel, and the packed buffer holds W1's first Dx rows. K12's split design
+starts f's first layer from b1 + cbias[t, b] in its parallel pass (the chain
+runs qb alone, which takes no controls), and K13's split design does so in
+its recompute and writes d_cbias[t, b] = Σ over the row's paths of f's
+first-layer pre-activation cotangent: each CTA group's paths of a row are
+summed in path order into a partial row of its own, and a second kernel
+adds a row's partials in group order, so the bits repeat. Autograd through
+the product gives W_u its gradient (the controls, data, get none). Both
+designs are built both ways (a template flag; `csrc/svo_sweep_ctrl.cu`
+builds the control mode), so di = 0 runs the unchanged code; the chain
+designs, the yardsticks, take no controls.
+
 Layout: x_anchor [B, M, Dx]; eps [T−1, B, M, Dx] (ε_t at index t); y
 [T−1, B, Dy] (y_t of t = 0 … T−2); packed: qb | f | g in
-`fused_step.prepare`'s per-net layout; sc [2·Dx + Dy + 3]. Outputs: x_first
+`fused_step.prepare`'s per-net layout; sc [2·Dx + Dy + 3]; cbias [T−1, B, H]
+or None. Outputs: x_first
 [B, M, Dx] (= x̃_0), lp and lq [B, M] (the in-sweep sums only: the anchor's
 terms and the prior are added outside), xtilde [T−1, B, M, Dx] with
 xtilde[t] = x̃_t. Not ported: the TPU kernel's lane packing of its small
@@ -64,7 +84,8 @@ import torch
 from psvo_tpu_torch.distributions import _HALF_LOG_2PI, _MIN_LOGP
 from psvo_tpu_torch.ops import _build
 from psvo_tpu_torch.ops.fused_step import (
-    HIDDEN_WIDTHS, KERNEL_DIMS, SMEM_LIMIT, _ptr, _require, _unpack_net, pack_heads,
+    HIDDEN_WIDTHS, KERNEL_DIMS, MAX_STATE_AND_CONTROLS, SMEM_LIMIT, _ptr, _require, _unpack_net,
+    control_term, pack_heads,
 )
 
 MAX_M = 1024  # smoothed paths per row (the flattened B·M paths have no limit of their own)
@@ -211,9 +232,10 @@ def usable(ssm, m: int) -> bool:
     `fused_step.HIDDEN_WIDTHS` whose K13 buffers fit a CTA's shared memory in
     both designs, and K12's split design's (`k12_ok`; both split designs
     fit every shape the chain designs do, so the class is the chain
-    designs', as before the splits); (Dx, Dy) in {(2, 2), (3, 3)}; a
-    Gaussian emission; no qb GRU, known dynamics, controls or bootstrap
-    mode; 1 <= m <= MAX_M."""
+    designs', as before the splits); (Dx, Dy) in {(2, 2), (3, 3)}; controls
+    while Dx + Di <= 7 (the reference's gate, `pallas_svo.py:122`); a
+    Gaussian emission; no qb GRU, known dynamics or bootstrap mode;
+    1 <= m <= MAX_M."""
     hidden = ssm.nets["qb"].hidden
     if not (len(hidden) >= 1 and hidden[0] in HIDDEN_WIDTHS
             and all(h == hidden[0] for h in hidden)):
@@ -222,7 +244,8 @@ def usable(ssm, m: int) -> bool:
     return (
         (ssm.dx, ssm.dy) in KERNEL_DIMS
         and 1 <= m <= MAX_M
-        and not (ssm.qb_rnn or ssm.transition_known or ssm.di or ssm.use_bootstrap)
+        and ssm.dx + ssm.di <= MAX_STATE_AND_CONTROLS
+        and not (ssm.qb_rnn or ssm.transition_known or ssm.use_bootstrap)
         and ssm.emission in ("linear_gaussian", "identity_gaussian")
         and all(ssm.nets[n].hidden == hidden and ssm.nets[n].activation == "relu"
                 and ssm.nets[n].cov_type == "const" for n in _NETS)
@@ -236,10 +259,12 @@ def prepare(ssm) -> dict:
     """Per-call constants of K12/K13: the qb, f and g weights and biases
     packed into one float32 buffer (`fused_step.pack_heads`), and sc =
     (1/s_f, 1/s_g, s_b, c_f, c_g, c_b) with c_f = −Σ log s_f − Dx·½log 2π,
-    c_g = −Σ log s_g − Dy·½log 2π, c_b = −Σ log s_b − Dx·½log 2π. Both keep
-    their autograd history to the model's parameters."""
+    c_g = −Σ log s_g − Dy·½log 2π, c_b = −Σ log s_b − Dx·½log 2π. With
+    controls (di > 0) the buffer holds the first Dx rows of f's W1 and
+    "ctrl_w" [Di, H] its remaining rows (`control_term`). All keep their
+    autograd history to the model's parameters."""
     hidden = ssm.nets["qb"].hidden
-    packed, offsets = pack_heads(ssm, _NETS)
+    packed, offsets = pack_heads(ssm, _NETS, first_rows={"f": ssm.dx} if ssm.di else None)
     s_f, s_g, s_b = ssm.scale("f"), ssm.scale("g"), ssm.scale("qb")
     dx, dy = ssm.dx, ssm.dy
     consts = torch.stack([
@@ -254,6 +279,8 @@ def prepare(ssm) -> dict:
         "n_mid": len(hidden) - 1,
         "dx": dx,
         "dy": dy,
+        "di": ssm.di,
+        "ctrl_w": ssm.heads["f"].weights[0][dx:] if ssm.di else None,
         "sc": torch.cat([1.0 / s_f, 1.0 / s_g, s_b, consts]).contiguous(),
     }
 
@@ -268,19 +295,24 @@ def _nets(consts, packed=None):
             _unpack_net(packed, off_g, dx, h, n_mid, dy))
 
 
-def _mlp(net, x):
-    """relu MLP mean, feature-last: [..., Din] -> [..., Dout]."""
+def _mlp(net, x, cb=None):
+    """relu MLP mean, feature-last: [..., Din] -> [..., Dout]; cb [B, H] (or
+    None) is added to the first layer's bias, broadcast over the middle
+    axes."""
     layers, (w3, b3) = net
     h = x
-    for w, b in layers:
+    for i, (w, b) in enumerate(layers):
+        if i == 0 and cb is not None:
+            b = b + cb.reshape(cb.shape[0], *([1] * (x.dim() - 2)), cb.shape[-1])
         h = torch.relu(h @ w + b)
     return h @ w3 + b3
 
 
-def _step(nets, sc, dx, dy, x_next, y_t, eps_t, x_value=None):
-    """One reverse step from x_next [B, M, Dx] with y_t [B, Dy] and ε_t
-    [B, M, Dx]: returns (x̃_t, lp_t, lq_t). With x_value the draw takes that
-    value (K12's saved x̃_t) and keeps its gradient to qb, s_b and x_next."""
+def _step(nets, sc, dx, dy, x_next, y_t, eps_t, x_value=None, cb_t=None):
+    """One reverse step from x_next [B, M, Dx] with y_t [B, Dy], ε_t
+    [B, M, Dx] and f's control bias cb_t [B, H] (or None): returns (x̃_t,
+    lp_t, lq_t). With x_value the draw takes that value (K12's saved x̃_t)
+    and keeps its gradient to qb, s_b and x_next."""
     qb, f, g = nets
     sfi, sgi, s_b = sc[:dx], sc[dx:dx + dy], sc[dx + dy:2 * dx + dy]
     c_f, c_g, c_b = sc[2 * dx + dy], sc[2 * dx + dy + 1], sc[2 * dx + dy + 2]
@@ -288,7 +320,7 @@ def _step(nets, sc, dx, dy, x_next, y_t, eps_t, x_value=None):
     x_t = _mlp(qb, torch.cat([x_next, y], dim=-1)) + s_b * eps_t
     if x_value is not None:
         x_t = x_value + (x_t - x_t.detach())
-    z_f = (x_next - _mlp(f, x_t)) * sfi
+    z_f = (x_next - _mlp(f, x_t, cb_t)) * sfi
     z_g = (y - _mlp(g, x_t)) * sgi
     lp_t = (torch.clamp(-0.5 * torch.sum(z_f * z_f, dim=-1) + c_f, min=_MIN_LOGP)
             + torch.clamp(-0.5 * torch.sum(z_g * z_g, dim=-1) + c_g, min=_MIN_LOGP))
@@ -296,22 +328,24 @@ def _step(nets, sc, dx, dy, x_next, y_t, eps_t, x_value=None):
     return x_t, lp_t, lq_t
 
 
-def _sweep(nets, sc, dx, dy, x_anchor, eps, y, xtilde=None):
+def _sweep(nets, sc, dx, dy, x_anchor, eps, y, xtilde=None, cbias=None):
     x = x_anchor
     lp = torch.zeros(x_anchor.shape[:2], dtype=x_anchor.dtype, device=x_anchor.device)
     lq = torch.zeros_like(lp)
     xts = [None] * eps.shape[0]
     for t in reversed(range(eps.shape[0])):
         x, lp_t, lq_t = _step(nets, sc, dx, dy, x, y[t], eps[t],
-                              None if xtilde is None else xtilde[t])
+                              None if xtilde is None else xtilde[t],
+                              None if cbias is None else cbias[t])
         lp, lq, xts[t] = lp + lp_t, lq + lq_t, x
     return x, lp, lq, torch.stack(xts)
 
 
-def _check_sweep(x_anchor, eps, y, consts, what, design=None):
-    """Shapes, type, device and contiguity of a sweep's operands, in the
-    class of K13's `design` (None: of both and K12's, `usable`'s class, which
-    K12 takes); returns (T−1, B, M, Dx, Dy)."""
+def _check_sweep(x_anchor, eps, y, consts, what, design=None, cbias=None):
+    """Shapes, type, device and contiguity of a sweep's operands (cbias, f's
+    control bias, [T−1, B, H] or None), in the class of K13's `design`
+    (None: of both and K12's, `usable`'s class, which K12 takes); returns
+    (T−1, B, M, Dx, Dy)."""
     if eps.dim() != 4 or x_anchor.dim() != 3:
         raise ValueError(f"{what}: eps must be [T-1, B, M, Dx] and x_anchor [B, M, Dx]")
     t_len, batch, m, dx = eps.shape
@@ -330,7 +364,15 @@ def _check_sweep(x_anchor, eps, y, consts, what, design=None):
     _require(y, (t_len, batch, dy), "y", dev)
     _require(consts["packed"], (n_w,), "weights", dev)
     _require(consts["sc"], (n_sc(dx, dy),), "sc", dev)
+    if cbias is not None:
+        _require(cbias, (t_len, batch, h), "cbias", dev)
     return t_len, batch, m, dx, dy
+
+
+def _split_only(what, design, cbias):
+    if cbias is not None and design != "split":
+        raise ValueError(f"{what}: the {design} design takes no controls (only the split design "
+                         "has a control mode)")
 
 
 # ---------------------------------------------------------------------------
@@ -338,42 +380,49 @@ def _check_sweep(x_anchor, eps, y, consts, what, design=None):
 # ---------------------------------------------------------------------------
 
 
-def svo_sweep_forward_reference(x_anchor, eps, y, consts):
+def svo_sweep_forward_reference(x_anchor, eps, y, consts, cbias=None):
     """Plain version of K12: the sweep as a loop over t = T−2 … 0. Operands
     and outputs as the module docstring says."""
     svo_sweep_forward_reference.calls += 1
-    return _sweep(_nets(consts), consts["sc"], consts["dx"], consts["dy"], x_anchor, eps, y)
+    return _sweep(_nets(consts), consts["sc"], consts["dx"], consts["dy"], x_anchor, eps, y,
+                  cbias=cbias)
 
 
 svo_sweep_forward_reference.calls = 0
 
 
-def svo_sweep_forward(x_anchor, eps, y, consts, design: str = "split"):
+def svo_sweep_forward(x_anchor, eps, y, consts, design: str = "split", cbias=None):
     """K12: SVO's reverse sweep in one launch. Returns (x_first, lp, lq,
     xtilde). CPU tensors run the plain version; CUDA tensors launch the
     kernel of `design` ("split", the default and the only one the paths run;
-    "chain", the previous design, kept as its yardstick: the same bits). It
-    takes no gradient itself: differentiate through `SVOSweep`."""
+    "chain", the previous design, kept as its yardstick: the same bits), the
+    split design's control mode with cbias (`control_term`). It takes no
+    gradient itself: differentiate through `SVOSweep`."""
     if design not in K12_DESIGNS:
         raise ValueError(f"svo_sweep_forward: no design {design!r} (one of {K12_DESIGNS})")
+    _split_only("svo_sweep_forward", design, cbias)
     if x_anchor.device.type == "cpu":
-        return svo_sweep_forward_reference(x_anchor, eps, y, consts)
+        return svo_sweep_forward_reference(x_anchor, eps, y, consts, cbias)
     if x_anchor.device.type != "cuda":
         raise ValueError(f"svo_sweep_forward: unsupported device {x_anchor.device}")
     dev = x_anchor.device
     return _launch_forward(x_anchor, eps, y, consts, torch.cuda.current_stream(dev).cuda_stream,
-                           design, torch.cuda.get_device_properties(dev).multi_processor_count)
+                           design, torch.cuda.get_device_properties(dev).multi_processor_count,
+                           cbias=cbias)
 
 
 svo_sweep_forward.launches = 0
 svo_sweep_forward.launches_by_design = dict.fromkeys(K12_DESIGNS, 0)  # which kernel the launches ran
 
 
-def _launch_forward(x_anchor, eps, y, consts, stream, design="split", n_sms=132, plan=None):
+def _launch_forward(x_anchor, eps, y, consts, stream, design="split", n_sms=132, plan=None,
+                    cbias=None):
     """Check K12's operands, allocate its outputs and launch the kernel of
-    `design` on `stream`; the split design's (paths, tile rows, steps a
-    chunk) from `k12_plan` for `n_sms` SMs unless `plan` gives them."""
-    t_len, batch, m, dx, dy = _check_sweep(x_anchor, eps, y, consts, "svo_sweep_forward")
+    `design` on `stream` (its control mode with cbias); the split design's
+    (paths, tile rows, steps a chunk) from `k12_plan` for `n_sms` SMs unless
+    `plan` gives them."""
+    t_len, batch, m, dx, dy = _check_sweep(x_anchor, eps, y, consts, "svo_sweep_forward",
+                                           cbias=cbias)
     f32 = dict(dtype=torch.float32, device=x_anchor.device)
     x_first = torch.empty((batch, m, dx), **f32)
     lp = torch.empty((batch, m), **f32)
@@ -387,7 +436,7 @@ def _launch_forward(x_anchor, eps, y, consts, stream, design="split", n_sms=132,
     _, off_f, off_g = consts["offsets"]
     err = lib.psvo_svo_forward(
         x_anchor.data_ptr(), eps.data_ptr(), y.data_ptr(), consts["packed"].data_ptr(),
-        consts["sc"].data_ptr(), x_first.data_ptr(), lp.data_ptr(), lq.data_ptr(),
+        consts["sc"].data_ptr(), _ptr(cbias), x_first.data_ptr(), lp.data_ptr(), lq.data_ptr(),
         xtilde.data_ptr(), batch, m, t_len, dx, dy, h, n_mid, consts["packed"].numel(), off_f,
         off_g, K12_DESIGNS.index(design), paths, rows, steps, stream,
     )
@@ -403,18 +452,20 @@ def _launch_forward(x_anchor, eps, y, consts, stream, design="split", n_sms=132,
 
 
 def svo_sweep_backward_reference(x_anchor, eps, y, consts, xtilde, d_x_first=None, d_lp=None,
-                                 d_lq=None, d_xtilde=None):
+                                 d_lq=None, d_xtilde=None, cbias=None):
     """Plain version of K13: replay the sweep from x_anchor under autograd,
     every draw taking K12's saved x̃_t as its value (the reference's VJP
     reads x̃_t and x̃_{t+1} from its residuals), then backpropagate the given
     cotangents (None: zero). A density term's cotangent is cut where it was
     floored (the gradient of torch.clamp). Returns (d_x_anchor, d_packed,
-    d_sc); ε and y get none."""
+    d_sc), and d_cbias after them with cbias; ε and y get none."""
     svo_sweep_backward_reference.calls += 1
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in (x_anchor, consts["packed"], consts["sc"])]
-        xa, packed, sc = leaves
-        outs = _sweep(_nets(consts, packed), sc, consts["dx"], consts["dy"], xa, eps, y, xtilde)
+        tensors = (x_anchor, consts["packed"], consts["sc"]) + (() if cbias is None else (cbias,))
+        leaves = [t.detach().requires_grad_() for t in tensors]
+        xa, packed, sc = leaves[:3]
+        outs = _sweep(_nets(consts, packed), sc, consts["dx"], consts["dy"], xa, eps, y, xtilde,
+                      None if cbias is None else leaves[3])
         live = [(o, g) for o, g in zip(outs, (d_x_first, d_lp, d_lq, d_xtilde)) if g is not None]
         grads = [None] * len(leaves)
         if live:
@@ -427,38 +478,48 @@ svo_sweep_backward_reference.calls = 0
 
 
 def svo_sweep_backward(x_anchor, eps, y, consts, xtilde, d_x_first=None, d_lp=None, d_lq=None,
-                       d_xtilde=None, design: str = "split"):
+                       d_xtilde=None, design: str = "split", cbias=None):
     """K13: the VJP of K12 over the whole sweep in one launch (and the sum of
-    its CTAs' gradient rows), from K12's xtilde. Cotangents and outputs as
+    its CTAs' gradient rows; with cbias, the split design's control mode,
+    also d_cbias), from K12's xtilde. Cotangents and outputs as
     `svo_sweep_backward_reference`, which CPU tensors run; CUDA tensors
     launch the kernel of `design` ("split", the default and the only one
     the path runs; "chain", the previous design, kept as its yardstick), or
     raise for a shape it is not instantiated for."""
     if design not in DESIGNS:
         raise ValueError(f"svo_sweep_backward: no design {design!r} (one of {DESIGNS})")
+    _split_only("svo_sweep_backward", design, cbias)
     if x_anchor.device.type == "cpu":
         return svo_sweep_backward_reference(x_anchor, eps, y, consts, xtilde, d_x_first, d_lp,
-                                            d_lq, d_xtilde)
+                                            d_lq, d_xtilde, cbias)
     if x_anchor.device.type != "cuda":
         raise ValueError(f"svo_sweep_backward: unsupported device {x_anchor.device}")
     dev = x_anchor.device
     return _launch_backward(x_anchor, eps, y, consts, xtilde, d_x_first, d_lp, d_lq, d_xtilde,
                             torch.cuda.get_device_properties(dev).multi_processor_count,
-                            torch.cuda.current_stream(dev).cuda_stream, design)
+                            torch.cuda.current_stream(dev).cuda_stream, design, cbias)
 
 
 svo_sweep_backward.launches = 0
 svo_sweep_backward.launches_by_design = dict.fromkeys(DESIGNS, 0)  # which kernel the launches ran
 
 
+def k13_bias_groups(m: int, paths: int) -> int:
+    """Partial rows of d_cbias per (t, row) in K13's control mode: the most
+    CTA groups of `paths` consecutive paths that one row's m paths can
+    straddle (csrc/svo_sweep.cuh::bias_groups)."""
+    return (m - 1) // paths + 2
+
+
 def _launch_backward(x_anchor, eps, y, consts, xtilde, d_x_first, d_lp, d_lq, d_xtilde,
-                     max_ctas, stream, design="split"):
+                     max_ctas, stream, design="split", cbias=None):
     """Check K13's operands, allocate its outputs and scratch (max_ctas rows
-    of gradient sums) and launch the kernel of `design` on `stream`; the
+    of gradient sums; with cbias the partial rows of d_cbias, [T−1, B,
+    k13_bias_groups, H]) and launch the kernel of `design` on `stream`; the
     split design's tile rows and paths a CTA from `k13_tile_rows` and
     `k13_paths` (max_ctas SMs)."""
     t_len, batch, m, dx, dy = _check_sweep(x_anchor, eps, y, consts, "svo_sweep_backward",
-                                           design)
+                                           design, cbias)
     dev = x_anchor.device
     _require(xtilde, (t_len, batch, m, dx), "xtilde", dev)
     for t, shape, name in ((d_x_first, x_anchor.shape, "d_x_first"), (d_lp, (batch, m), "d_lp"),
@@ -474,19 +535,24 @@ def _launch_backward(x_anchor, eps, y, consts, xtilde, d_x_first, d_lp, d_lq, d_
     h, n_mid = consts["hidden"], consts["n_mid"]
     rows = k13_tile_rows(dx, dy, h, n_mid, n_w) if design == "split" else 0
     paths = k13_paths(batch * m, max_ctas, rows) if design == "split" else 0
+    bias_part = d_cbias = None
+    if cbias is not None:
+        bias_part = torch.empty((t_len, batch, k13_bias_groups(m, paths), h), **f32)
+        d_cbias = torch.empty((t_len, batch, h), **f32)
     lib = _build.load_library()
     _, off_f, off_g = consts["offsets"]
     err = lib.psvo_svo_backward(
         x_anchor.data_ptr(), eps.data_ptr(), y.data_ptr(), consts["packed"].data_ptr(),
-        consts["sc"].data_ptr(), xtilde.data_ptr(), _ptr(d_x_first), _ptr(d_lp), _ptr(d_lq),
-        _ptr(d_xtilde), d_anchor.data_ptr(), partial.data_ptr(), grads.data_ptr(), batch, m,
-        t_len, dx, dy, h, n_mid, n_w, off_f, off_g, max_ctas, DESIGNS.index(design), rows,
-        paths, stream,
+        consts["sc"].data_ptr(), _ptr(cbias), xtilde.data_ptr(), _ptr(d_x_first), _ptr(d_lp),
+        _ptr(d_lq), _ptr(d_xtilde), d_anchor.data_ptr(), partial.data_ptr(), grads.data_ptr(),
+        _ptr(bias_part), _ptr(d_cbias), batch, m, t_len, dx, dy, h, n_mid, n_w, off_f, off_g,
+        max_ctas, DESIGNS.index(design), rows, paths, stream,
     )
     svo_sweep_backward.launches += 1
     svo_sweep_backward.launches_by_design[design] += 1
     _build.check(lib, err, "svo_sweep_backward")
-    return d_anchor, grads[:n_w], grads[n_w:]
+    out = (d_anchor, grads[:n_w], grads[n_w:])
+    return out if cbias is None else (*out, d_cbias)
 
 
 # ---------------------------------------------------------------------------
@@ -498,47 +564,56 @@ class SVOSweep(torch.autograd.Function):
     """`svo_sweep_forward` with `svo_sweep_backward` as its VJP: the
     counterpart of `pallas_svo.svo_scan`'s custom VJP.
 
-    apply(x_anchor, eps, y, packed, sc, consts) returns (x_first, lp, lq,
-    xtilde); packed and sc are consts["packed"] / consts["sc"], passed apart
-    so autograd sees them. When an input needs a gradient the forward saves
-    its operands and xtilde, and the backward runs K13 on them; eps and y get
-    none.
+    apply(x_anchor, eps, y, packed, sc, cbias, consts) returns (x_first, lp,
+    lq, xtilde); packed and sc are consts["packed"] / consts["sc"], passed
+    apart so autograd sees them, and cbias f's control bias
+    (`control_term`) or None. When an input needs a gradient the forward
+    saves its operands and xtilde, and the backward runs K13 on them; eps
+    and y get none.
     """
 
     @staticmethod
-    def forward(ctx, x_anchor, eps, y, packed, sc, consts):
+    def forward(ctx, x_anchor, eps, y, packed, sc, cbias, consts):
         consts = dict(consts, packed=packed, sc=sc)
-        x_first, lp, lq, xtilde = svo_sweep_forward(x_anchor, eps, y, consts)
+        x_first, lp, lq, xtilde = svo_sweep_forward(x_anchor, eps, y, consts, cbias=cbias)
         if any(ctx.needs_input_grad):
-            ctx.save_for_backward(x_anchor, eps, y, packed, sc, xtilde)
+            ctx.save_for_backward(x_anchor, eps, y, packed, sc, cbias, xtilde)
             ctx.static = {key: v for key, v in consts.items() if not torch.is_tensor(v)}
         ctx.set_materialize_grads(False)
         return x_first, lp, lq, xtilde
 
     @staticmethod
     def backward(ctx, d_x_first, d_lp, d_lq, d_xtilde):
-        x_anchor, eps, y, packed, sc, xtilde = ctx.saved_tensors
+        x_anchor, eps, y, packed, sc, cbias, xtilde = ctx.saved_tensors
         consts = dict(ctx.static, packed=packed, sc=sc)
 
         def dense(t):
             return None if t is None else t.contiguous()
 
-        d_anchor, d_packed, d_sc = svo_sweep_backward(
+        grads = svo_sweep_backward(
             x_anchor, eps, y, consts, xtilde, dense(d_x_first), dense(d_lp), dense(d_lq),
-            dense(d_xtilde),
+            dense(d_xtilde), cbias=cbias,
         )
-        return d_anchor, None, None, d_packed, d_sc, None
+        d_cbias = grads[3] if cbias is not None else None
+        return grads[0], None, None, grads[1], grads[2], d_cbias, None
 
 
-def run_svo_sweep(ssm, ys_tm, eps, x_anchor):
+def run_svo_sweep(ssm, ys_tm, eps, x_anchor, ctrl_tm=None):
     """The sweep on the model's heads (the counterpart of
     `pallas_svo.run_svo_sweep`): ys_tm [T, B, Dy], eps [T−1, B, M, Dx],
-    x_anchor [B, M, Dx]. Returns (x_first [B, M, Dx], lp [B, M], lq [B, M],
-    xtilde [T−1, B, M, Dx]); gradients reach x_anchor and the qb, f and g
-    heads' weights, biases and scales."""
+    x_anchor [B, M, Dx], and with controls (di > 0) ctrl_tm [T, B, Di]
+    (None: zeros), f seeing u_{t+1} at step t. Returns (x_first [B, M, Dx],
+    lp [B, M], lq [B, M], xtilde [T−1, B, M, Dx]); gradients reach x_anchor
+    and the qb, f and g heads' weights (f's control rows too), biases and
+    scales."""
     consts = prepare(ssm)
     y = ys_tm[:-1].contiguous()
     args = (x_anchor.contiguous(), eps.contiguous(), y)
+    cbias = None
+    if ssm.di:
+        ctrl = (torch.zeros((*ys_tm.shape[:2], ssm.di), device=ys_tm.device)
+                if ctrl_tm is None else ctrl_tm)
+        cbias = control_term(consts, ctrl[1:])
     if torch.is_grad_enabled():
-        return SVOSweep.apply(*args, consts["packed"], consts["sc"], consts)
-    return svo_sweep_forward(*args, consts)
+        return SVOSweep.apply(*args, consts["packed"], consts["sc"], cbias, consts)
+    return svo_sweep_forward(*args, consts, cbias=cbias)

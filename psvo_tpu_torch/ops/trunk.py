@@ -134,7 +134,8 @@ def k10_ok(dx: int, dy: int, h: int, n_mid: int, k: int, design: str = "tf32x3")
 
 def usable(ssm, cfg) -> bool:
     """Whether (ssm, smc-config) is in the trunk kernels' class: systematic
-    resampling at every step, stop-gradient FIVO, relu q1/f/g trunks of one
+    or multinomial resampling at every step (K7 searches any sorted position
+    stream), stop-gradient FIVO, relu q1/f/g trunks of one
     uniform instantiated width, an instantiated (Dx, Dy), K that K7 holds
     and K9 tiles, and the weights and tiles in one CTA's shared memory. No
     controls (ssm.di > 0): K9 and K10 read no control term yet. Not
@@ -148,7 +149,7 @@ def usable(ssm, cfg) -> bool:
     return (
         not cfg.use_bootstrap
         and fused_step.model_in_class(ssm)
-        and cfg.resampling == "systematic"
+        and cfg.resampling in ("systematic", "multinomial")
         and cfg.ess_threshold >= 1.0
         and cfg.use_stop_gradient
         and not ssm.di

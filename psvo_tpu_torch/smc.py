@@ -8,7 +8,8 @@ the FIVO increment lse(α) − log K.
 Three paths, chosen from what the call can observe:
 
 - the whole-scan class (`ops.fused_step.usable`: diagonal models of the FHN
-  and Lorenz-63 shapes, systematic resampling at every step) runs
+  and Lorenz-63 shapes, systematic or multinomial resampling at every step)
+  runs
   `_forward_filter_fused`, whose steps t = 1..T−1 are one call of
   `fused_step.scan_forward` — the CUDA kernel K1 for CUDA tensors, its
   plain version for CPU tensors — and, when autograd records, one
@@ -296,7 +297,9 @@ def _forward_filter_fused(
     through `fused_step.ScanForward` when autograd records, whose saved
     residuals take the place of the reference's remat, so gradients reach the
     t = 0 proposal, the fusion coefficients, ab and the packed head weights.
-    With cfg.kernel_rng the kernel draws ε and the resampling offsets itself.
+    With cfg.kernel_rng the kernel draws ε and the resampling offsets itself;
+    multinomial resampling streams both (its sorted positions from
+    `resampling.bulk_positions`).
 
     With `fused_step.SCAN_FUSED` off, the per-step path of the reference
     (`pallas_step._step_call` under lax.scan): a loop of T−1
@@ -306,7 +309,10 @@ def _forward_filter_fused(
     waits for the device.
     """
     per_step = not fused_step.SCAN_FUSED
-    if per_step:
+    if per_step or cfg.resampling != "systematic":
+        # the in-kernel draw makes systematic positions only: multinomial's
+        # sorted iid positions would need a sort inside the kernel, so they
+        # are streamed, with ε (the reference's `smc.py:419-429`)
         cfg = dataclasses.replace(cfg, kernel_rng=False)
     consts, coef, x0, alpha0, eps_scan, u_scan, seed = _fused_preamble(
         ssm, generator, ys, cfg, encoder_inputs, streams, controls
@@ -463,8 +469,8 @@ def reference_path(ssm: SSM, cfg: SMCConfig) -> str:
     (resampling through K7/K8, K11 in the backward), serves only "scan"
     configurations that no port kernel class takes; a configuration the
     reference sends to a kernel whose class the port has not instantiated for
-    it (multinomial resampling at the FHN width, a (Dx, Dy) outside
-    `fused_step.KERNEL_DIMS`, ESS-adaptive resampling) raises."""
+    it (a (Dx, Dy) outside `fused_step.KERNEL_DIMS`, ESS-adaptive
+    resampling, IWAE at a K the trunk kernel tiles) raises."""
     k = cfg.n_particles
     nets = [ssm.nets[n] for n in ("q1", "f", "g")]
     hidden = nets[0].hidden
@@ -694,13 +700,14 @@ def _forward_filter_segmented_fused(
 
     Noise: `streams` = (eps0, eps_scan, u_scan) replays given draws, each
     segment its slice; otherwise eps0 comes from `generator`, then one seed
-    per segment (`_segment_seeds`: K1's own under cfg.kernel_rng, else the
-    seed of the segment's streams).
+    per segment (`_segment_seeds`: K1's own under cfg.kernel_rng with
+    systematic resampling, else the seed of the segment's streams, whose
+    positions follow cfg.resampling).
     """
     batch, t_steps, _ = ys.shape
     dx = ssm.dx
     seg_len = (t_steps - 1) // n_segments
-    kernel_rng = cfg.kernel_rng and streams is None
+    kernel_rng = cfg.kernel_rng and streams is None and cfg.resampling == "systematic"
     consts, coef, x0, alpha0, _, _, _ = _fused_preamble(
         ssm, generator, ys, cfg, encoder_inputs, streams, controls, segmented=True
     )

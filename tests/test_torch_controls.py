@@ -21,8 +21,9 @@ gradient test, tests/test_pallas_step.py). Checked:
 - `make_eval_step` with the k-step rollouts on the shifted controls,
   `filter_posterior`'s control checks, negated controls moving log Ẑ;
 - the controlled simulator step and the npz round trip;
-- the kernel-class gates for a controlled model, and the refusals (PSVO and
-  SVO with controls, the trunk class, an unbuilt shape).
+- the kernel-class gates for a controlled model (the FFBSi and SVO sweeps
+  take one; tests/test_torch_controlled_smoothing.py holds them to the
+  reference), and the refusals (the trunk class, an unbuilt shape).
 """
 
 import ctypes
@@ -409,24 +410,39 @@ def test_fused_step_gate_admits_built_controlled_shapes(_interpret, datatype, di
 
 
 def test_other_kernel_classes_refuse_controls():
-    """The trunk class (K7–K11), the FFBSi sweep (K5/K6) and SVO's (K12/K13)
-    refuse a controlled model; the same model without controls is in each."""
+    """The trunk class (K7–K11) refuses a controlled model; the same model
+    without controls is in it. The FFBSi sweep (K5/K6, whose support terms
+    take the controls) and SVO's (K12/K13, in their control mode) take one
+    while Dx + Di <= 7, as the reference's SVO gate (`pallas_svo.py:122`)."""
     l96 = PRESETS["lorenz96_fivo_k8192_sharded"]
     l96_ctrl = dataclasses.replace(l96, data=dataclasses.replace(l96.data, di=2))
     assert trunk.usable(SSM(l96), l96.smc) and not trunk.usable(SSM(l96_ctrl), l96_ctrl.smc)
-    assert ffbsi.usable(2, 16) and not ffbsi.usable(2, 16, di=2)
+    assert ffbsi.usable(2, 16) and ffbsi.usable(3, 16)
     svo_cfg = PRESETS["lorenz63_svo_k256"]
-    svo_ctrl = dataclasses.replace(svo_cfg, data=dataclasses.replace(svo_cfg.data, di=2))
-    assert svo.usable(SSM(svo_cfg), 16) and not svo.usable(SSM(svo_ctrl), 16)
+    for di, want in ((0, True), (2, True), (4, True), (5, False)):
+        cfg = dataclasses.replace(svo_cfg, data=dataclasses.replace(svo_cfg.data, di=di))
+        assert svo.usable(SSM(cfg), 16) is want, di
 
 
 @pytest.mark.parametrize("objective", ["psvo", "svo"])
 def test_smoothing_objectives_refuse_controls(objective):
-    """PSVO and SVO with di > 0 raise until their support terms and sweeps
-    take controls, on any device (the check needs no tensor)."""
-    _, tcfg = controlled_configs(objective=objective)
-    with pytest.raises(NotImplementedError, match="controls"):
-        t_make_objective(SSM(tcfg), tcfg)
+    """PSVO and SVO with di > 0 no longer refuse: their support terms and
+    sweeps take the controls, and the objective runs on CPU tensors with
+    finite values; negated controls move its loss (the controls reach the
+    backward pass). tests/test_torch_controlled_smoothing.py holds them to
+    the reference."""
+    _, tcfg = controlled_configs(objective=objective, n_smoothing_particles=4)
+    tssm = SSM(tcfg).init(torch.Generator().manual_seed(0))
+    ys = torch.from_numpy(observations(4, 6, seed=2))
+    u = torch.from_numpy(controls(4, 6))
+    losses = []
+    for sign in (1.0, -1.0):
+        with torch.no_grad():
+            out = t_make_objective(tssm, tcfg)(torch.Generator().manual_seed(1), ys,
+                                               controls=sign * u)
+        assert bool(torch.isfinite(out.loss)) and bool(torch.isfinite(out.smoothed).all())
+        losses.append(float(out.loss))
+    assert abs(losses[0] - losses[1]) > 1e-4
 
 
 def test_the_controlled_preset_is_in_the_kernel_class():

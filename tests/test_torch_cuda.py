@@ -88,6 +88,9 @@ def test_scan_forward_kernel_matches_plain(rng):
 
 
 def test_cuda_tensor_outside_the_kernel_class_raises():
+    """Multinomial resampling is inside the whole-scan class: the filter
+    launches K1 once on its streamed positions and runs no plain version.
+    ESS-adaptive resampling, which no port class takes, still raises."""
     dev = _cuda()
     cfg = PRESETS["fhn_fivo_k1024_bench"]
     ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
@@ -95,8 +98,15 @@ def test_cuda_tensor_outside_the_kernel_class_raises():
     from psvo_tpu_torch.smc import forward_filter
 
     multinomial = dataclasses.replace(cfg.smc, resampling="multinomial")
+    launches, calls = fused_step.scan_forward.launches, fused_step.scan_forward_reference.calls
+    with torch.no_grad():
+        fwd = forward_filter(ssm, torch.Generator(device=dev), ys, multinomial)
+    assert fused_step.scan_forward.launches == launches + 1
+    assert fused_step.scan_forward_reference.calls == calls
+    assert bool(torch.isfinite(fwd.log_z).all())
     with pytest.raises(NotImplementedError):
-        forward_filter(ssm, torch.Generator(device=dev), ys, multinomial)
+        forward_filter(ssm, torch.Generator(device=dev), ys,
+                       dataclasses.replace(cfg.smc, ess_threshold=0.5))
 
 
 def _small_cfg(preset="fhn_fivo_k1024_bench", **smc):
@@ -679,14 +689,15 @@ def test_lorenz96_train_step_launches_the_trunk_kernels(monkeypatch):
             assert _rel(torch.from_numpy(a), torch.from_numpy(w)) <= 5e-3, name
 
 
-def _svo_operands(dev, hidden, preset="lorenz63_svo_k256", b=4, m=8, t1=9, seed=0):
-    """An SVO sweep's operands on the card: a model with nudged random
-    weights, anchors, ε and observations at Lorenz-63 scales."""
+def _svo_operands(dev, hidden, preset="lorenz63_svo_k256", b=4, m=8, t1=9, seed=0, di=0):
+    """An SVO sweep's operands on the card: a model (with di controls) with
+    nudged random weights, anchors, ε and observations at Lorenz-63 scales."""
     from psvo_tpu_torch.ops import svo
 
     net = NetConfig(hidden=hidden)
     cfg = PRESETS[preset].with_nets(q0=net, q1=net, q2=net, f=net, qb=net,
                                     g=dataclasses.replace(net, sigma_init=0.5))
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, di=di))
     ssm = init_ssm(cfg, torch.Generator().manual_seed(seed), device=dev)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     with torch.no_grad():
@@ -765,20 +776,25 @@ def test_svo_backward_designs_agree(preset, hidden, b, m, t1):
         assert _rel(a, w) <= 1e-5
 
 
-def _svo_relu_ties(consts, ops, xtilde, tol=1e-5):
+def _svo_relu_ties(consts, ops, xtilde, tol=1e-5, cbias=None):
     """[B, M] bool: paths where a relu pre-activation of qb, f or g lies
-    within tol of the magnitude of its sum (float64)."""
+    within tol of the magnitude of its sum (float64); with cbias, f's first
+    layer starts from b1 + cbias (the control mode)."""
     from psvo_tpu_torch.ops import svo
 
     x_anchor, _, y = ops
     x_next = torch.cat([xtilde[1:], x_anchor[None]])
     y_b = y[:, :, None, :].expand(-1, -1, x_next.shape[2], -1)
     flag = torch.zeros(x_anchor.shape[:2], dtype=torch.bool, device=x_anchor.device)
-    for (layers, _), inp in zip(svo._nets(consts), (torch.cat([x_next, y_b], -1), xtilde, xtilde)):
+    inputs = (torch.cat([x_next, y_b], -1), xtilde, xtilde)
+    for n, ((layers, _), inp) in enumerate(zip(svo._nets(consts), inputs)):
         h = inp.double()
-        for w, bias in layers:
-            pre = h @ w.double() + bias.double()
-            flag |= (pre.abs() < tol * (h.abs() @ w.double().abs() + bias.double().abs())).any(-1).any(0)
+        for i, (w, bias) in enumerate(layers):
+            bias = bias.double()
+            if cbias is not None and n == 1 and i == 0:
+                bias = bias + cbias[:, :, None, :].double()
+            pre = h @ w.double() + bias
+            flag |= (pre.abs() < tol * (h.abs() @ w.double().abs() + bias.abs())).any(-1).any(0)
             h = torch.relu(pre)
     return flag
 
@@ -1499,7 +1515,8 @@ def test_controlled_train_step_runs_the_kernels(monkeypatch, scan_fused):
 def test_cuda_controls_outside_the_kernel_classes_raise():
     """A controlled model on CUDA tensors outside the built classes raises
     rather than run plain PyTorch on the card: the trunk class (Lorenz-96
-    with controls), Dx + Di > 7, PSVO and SVO."""
+    with controls), Dx + Di > 7, and PSVO and SVO at Dx + Di > 7 (their
+    forward filter has no kernel path there; at Dx + Di <= 7 both run)."""
     from psvo_tpu_torch.objectives import make_objective
     from psvo_tpu_torch.smc import forward_filter
 
@@ -1514,9 +1531,12 @@ def test_cuda_controls_outside_the_kernel_classes_raise():
                            cfg.smc, controls=torch.zeros((*shape[:2], di), device=dev))
     for preset in ("lorenz63_psvo_k1024", "lorenz63_svo_k256"):
         cfg = PRESETS[preset]
-        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, di=2))
-        with pytest.raises(NotImplementedError, match="controls"):
-            make_objective(init_ssm(cfg, torch.Generator().manual_seed(0), device=dev), cfg)
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, di=5))
+        objective = make_objective(init_ssm(cfg, torch.Generator().manual_seed(0), device=dev),
+                                   cfg)
+        with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+            objective(torch.Generator(device=dev), torch.zeros((2, 5, 3), device=dev),
+                      controls=torch.zeros((2, 5, 5), device=dev))
 
 
 def test_cuda_bootstrap_model_raises():
@@ -1687,9 +1707,10 @@ def test_cuda_general_path_matches_the_cpu(mode):
 def test_cuda_reference_kernel_class_outside_the_ports_raises():
     """A configuration the reference runs through one of its kernels, but no
     port kernel class takes, raises on CUDA tensors rather than run the plain
-    loop where the reference runs a kernel: multinomial resampling at the FHN
-    width (the reference's whole-step kernel), IWAE at K = 128 and
-    ESS-adaptive resampling (its trunk kernel)."""
+    loop where the reference runs a kernel: IWAE at K = 128 and ESS-adaptive
+    resampling (its trunk kernel). Multinomial resampling at the FHN width
+    (the reference's whole-step kernel) is in the port's whole-scan class
+    now: one K1 launch, no plain version."""
     from psvo_tpu_torch import smc
 
     dev = _cuda()
@@ -1701,6 +1722,14 @@ def test_cuda_reference_kernel_class_outside_the_ports_raises():
                       ({"ess_threshold": 0.5}, "trunk")):
         smc_cfg = dataclasses.replace(cfg.smc, **kw)
         assert smc.reference_path(ssm, smc_cfg) == route
+        if route == "fused":
+            launches = fused_step.scan_forward.launches
+            calls = fused_step.scan_forward_reference.calls
+            with torch.no_grad():
+                smc.forward_filter(ssm, torch.Generator(device=dev), ys, smc_cfg)
+            assert fused_step.scan_forward.launches == launches + 1
+            assert fused_step.scan_forward_reference.calls == calls
+            continue
         with pytest.raises(NotImplementedError, match="no CUDA kernel"):
             smc.forward_filter(ssm, torch.Generator(device=dev), ys, smc_cfg)
 
@@ -1781,3 +1810,237 @@ def test_cuda_segmented_psvo_matches_unsegmented(bound):
     assert len(grads[0]) == len(grads[1])
     for a, w in zip(grads[1], grads[0]):
         assert _rel(a, w) <= 1e-4
+
+
+# -- controlled smoothing (K12/K13's control mode) and multinomial resampling ---------------
+
+
+def _controlled_svo_operands(dev, hidden, preset="lorenz63_svo_k256", b=4, m=8, t1=9, seed=0):
+    """An SVO sweep's operands with Di = 2 controls: `_svo_operands` on the
+    preset with data.di = 2, and f's control bias from controls at scale 0.5."""
+    from psvo_tpu_torch.ops import svo
+
+    _, consts, ops = _svo_operands(dev, hidden, preset, b=b, m=m, t1=t1, seed=seed, di=2)
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    u = 0.5 * torch.randn((t1, b, 2), generator=g, device=dev)
+    with torch.no_grad():
+        cbias = svo.control_term(consts, u)
+    return consts, ops, cbias
+
+
+@pytest.mark.parametrize("preset,hidden,b,m,t1", [
+    ("lorenz63_svo_k256", (16,), 4, 8, 9), ("lorenz63_svo_k256", (16, 16), 4, 3, 40),
+    ("fhn_fivo_k1024_bench", (32, 32), 8, 16, 20), ("lorenz63_svo_k256", (64, 64), 32, 16, 99)])
+def test_controlled_svo_kernels_match_plain(preset, hidden, b, m, t1):
+    """K12 and K13 in their control mode (f's first layer from b1 + cbias)
+    against their plain versions: K12's four outputs to 1e-5 (lp/lq to 1e-5
+    relative, atol 1e-3), K13 on K12's x~ with every cotangent (zeroed on the
+    paths with a relu tie) within 1e-4 relative L2 per leaf, d_cbias
+    included, and bit-equal on a second launch. M = 3 puts a CTA group's
+    paths across rows, so a row's d_cbias adds partial rows of two groups.
+    The chain designs take no controls."""
+    from psvo_tpu_torch.ops import svo
+
+    dev = _cuda()
+    consts, ops, cbias = _controlled_svo_operands(dev, hidden, preset, b, m, t1)
+    launches = (svo.svo_sweep_forward.launches, svo.svo_sweep_backward.launches)
+    with torch.no_grad():
+        got = svo.svo_sweep_forward(*ops, consts, cbias=cbias)
+        want = svo.svo_sweep_forward_reference(*ops, consts, cbias)
+    for i in (0, 3):
+        torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=1e-5)
+    for i in (1, 2):
+        torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=1e-3)
+    keep = (~_svo_relu_ties(consts, ops, got[3], cbias=cbias)).float()
+    g = torch.Generator(device=dev).manual_seed(5)
+    cots = [torch.randn(t.shape, generator=g, device=dev) for t in got]
+    cots = [cots[0] * keep[..., None], cots[1] * keep, cots[2] * keep, cots[3] * keep[..., None]]
+    k13 = svo.svo_sweep_backward(*ops, consts, got[3], *cots, cbias=cbias)
+    ref = svo.svo_sweep_backward_reference(*ops, consts, got[3], *cots, cbias=cbias)
+    again = svo.svo_sweep_backward(*ops, consts, got[3], *cots, cbias=cbias)
+    assert len(k13) == len(ref) == 4
+    for a, w in zip(k13, ref):
+        assert _rel(a, w) <= 1e-4
+    assert all(torch.equal(a, c) for a, c in zip(k13, again))
+    assert (svo.svo_sweep_forward.launches, svo.svo_sweep_backward.launches) == (
+        launches[0] + 1, launches[1] + 2)
+    with pytest.raises(ValueError, match="no controls"):
+        svo.svo_sweep_forward(*ops, consts, design="chain", cbias=cbias)
+    with pytest.raises(ValueError, match="no controls"):
+        svo.svo_sweep_backward(*ops, consts, got[3], design="chain", cbias=cbias)
+
+
+def test_controlled_svo_kernels_with_zero_controls_keep_the_uncontrolled_bits():
+    """The control mode with a zero bias gives the uncontrolled launch's K12
+    outputs and K13 leaves bit for bit (adding +0 to b1 changes no finite
+    value), and d_cbias equals the sum over each row's paths of what the
+    plain version gives."""
+    from psvo_tpu_torch.ops import svo
+
+    dev = _cuda()
+    consts, ops, cbias = _controlled_svo_operands(dev, (16, 16), b=4, m=8, t1=12)
+    zero = torch.zeros_like(cbias)
+    with torch.no_grad():
+        ctl = svo.svo_sweep_forward(*ops, consts, cbias=zero)
+        unc = svo.svo_sweep_forward(*ops, consts)
+    assert all(torch.equal(a, b) for a, b in zip(ctl, unc))
+    g = torch.Generator(device=dev).manual_seed(9)
+    cots = [torch.randn(t.shape, generator=g, device=dev) for t in ctl]
+    k13c = svo.svo_sweep_backward(*ops, consts, ctl[3], *cots, cbias=zero)
+    k13u = svo.svo_sweep_backward(*ops, consts, ctl[3], *cots)
+    assert all(torch.equal(a, b) for a, b in zip(k13c[:3], k13u))
+    ref = svo.svo_sweep_backward_reference(*ops, consts, ctl[3], *cots, cbias=zero)
+    assert _rel(k13c[3], ref[3]) <= 1e-4
+
+
+@pytest.mark.parametrize("objective,bound", [("psvo", "forward"), ("psvo", "direct"),
+                                             ("svo", "forward")])
+def test_controlled_smoothing_train_step_runs_the_kernels(objective, bound):
+    """One controlled PSVO (both bounds) or SVO train step (Di = 2, hidden
+    16) on the card: K1, K4 and K5/K6 (PSVO) or K12/K13 (SVO) once each, no
+    plain version; its loss and raw gradients, W_u's rows included, match
+    the plain versions on CPU tensors on the same draws (the whole-scan
+    class's plain versions, as on the card) to 1e-4 and 1e-3 relative per
+    leaf."""
+    from psvo_tpu_torch import bridge, objectives
+    from psvo_tpu_torch.ops import svo
+    from psvo_tpu_torch.smc import _forward_filter_fused
+
+    dev = _cuda()
+    preset = "lorenz63_psvo_k1024" if objective == "psvo" else "lorenz63_svo_k256"
+    cfg = _small_cfg(preset)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, di=2),
+                              smc=dataclasses.replace(cfg.smc, psvo_bound=bound,
+                                                      n_smoothing_particles=8))
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ref = init_ssm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    b, t, k, m = 4, 6, cfg.smc.n_particles, 8
+    g = torch.Generator().manual_seed(2)
+    ys, u = torch.randn((b, t, 3), generator=g) * 3.0, torch.randn((b, t, 2), generator=g) * 0.5
+    noise = [torch.randn((b, 3, k), generator=g), torch.randn((t - 1, b, 3, k), generator=g),
+             fused_step.systematic_positions(torch.rand((t - 1, b), generator=g), k),
+             objectives._gumbel(g, (b, m, k))]
+    noise.append(objectives._gumbel(g, (t - 1, b, m, k)) if objective == "psvo"
+                 else torch.randn((t - 1, b, m, 3), generator=g))
+    second = (ffbsi.ffbsi_forward, ffbsi.ffbsi_backward) if objective == "psvo" else (
+        svo.svo_sweep_forward, svo.svo_sweep_backward)
+    kernels = (fused_step.scan_forward, fused_step.scan_backward, *second)
+    plain = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+             ffbsi.ffbsi_forward_reference, ffbsi.ffbsi_backward_reference,
+             svo.svo_sweep_forward_reference, svo.svo_sweep_backward_reference)
+    launches, calls = [f.launches for f in kernels], [f.calls for f in plain]
+    out = objectives.make_objective(ssm, cfg)(None, ys.to(dev), noise=[n.to(dev) for n in noise],
+                                              controls=u.to(dev))
+    out.loss.backward()
+    assert [f.launches - n for f, n in zip(kernels, launches)] == [1, 1, 1, 1]
+    assert [f.calls for f in plain] == calls
+
+    def fused_filter(ssm_, generator, ys_, cfg_, *, cache, encoder_inputs, noise, controls):
+        return _forward_filter_fused(ssm_, generator, ys_, cfg_, cache=cache,
+                                     encoder_inputs=encoder_inputs, streams=noise,
+                                     controls=controls)
+
+    real = objectives.forward_filter
+    objectives.forward_filter = fused_filter
+    try:
+        want = objectives.make_objective(ref, cfg)(None, ys, noise=noise, controls=u)
+    finally:
+        objectives.forward_filter = real
+    want.loss.backward()
+    got_loss, want_loss = float(out.loss.detach()), float(want.loss.detach())
+    assert abs(got_loss - want_loss) <= 1e-4 * (1 + abs(want_loss))
+    got_g, want_g = bridge.grads_to_numpy(ssm), bridge.grads_to_numpy(ref)
+    for name in want_g:
+        for a, w in zip(_leaves(got_g[name]), _leaves(want_g[name])):
+            assert _rel(torch.from_numpy(a), torch.from_numpy(w)) <= 1e-3, name
+
+
+@pytest.mark.parametrize("dx, k, cluster", [(2, 128, 1), (2, 1024, 1), (2, 1024, 2),
+                                            (3, 1024, 4), (3, 2048, 8)])
+def test_multinomial_scan_and_step_kernels_match_plain(dx, k, cluster):
+    """K1 on sorted multinomial positions (iid uniforms, sorted per row; they
+    bunch where the weight is, so a CTA of a cluster searches CDF parts that
+    other CTAs own): every step's ancestors equal the plain version's count
+    form on K1's own incoming weights, teacher-forced, at each cluster size;
+    outputs bit-equal to one CTA per row; a chain of K14 launches on the same
+    positions gives K1's bits; K4 and K15 read only the saved ancestors."""
+    dev = _cuda()
+    net = NetConfig(hidden=(16, 16))
+    preset = "fhn_fivo_k1024_bench" if dx == 2 else "lorenz63_psvo_k1024"
+    cfg = PRESETS[preset].with_nets(q0=net, q1=net, q2=net, f=net, qb=net,
+                                    g=dataclasses.replace(net, sigma_init=0.5))
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    b, t1 = 4, 6
+    x0 = torch.randn((b, dx, k), generator=g, device=dev) * 2.0
+    a0 = torch.randn((b, k), generator=g, device=dev) * 2.0
+    coef = torch.rand((t1, b, 4 * dx + 1), generator=g, device=dev) + 0.1
+    eps = torch.randn((t1, b, dx, k), generator=g, device=dev)
+    pos = torch.sort(torch.rand((t1, b, k), generator=g, device=dev), dim=-1).values
+    with torch.no_grad():
+        consts = fused_step.prepare(ssm)
+        got = fused_step.scan_forward(x0, a0, coef, consts, eps=eps, positions=pos, cache=True,
+                                      save_res=True, cluster=cluster)
+        one = fused_step.scan_forward(x0, a0, coef, consts, eps=eps, positions=pos, cache=True,
+                                      save_res=True, cluster=1)
+        assert all(torch.equal(a, w) for a, w in zip(got, one))
+        lw = torch.cat([a0[None], got[4][:-1]])
+        for t in range(t1):
+            want = fused_step.count_form_indices(lw[t], pos[t])
+            assert torch.equal(got[5][t], want), t
+        x, lwc = x0, a0
+        for t in range(t1):
+            x, lwc, st, idx = fused_step.step_forward(x, lwc, coef[t], consts, eps[t], pos[t])
+            assert torch.equal(idx, got[5][t]) and torch.equal(x, got[3][t])
+        if k == 128:
+            want = fused_step.scan_forward_reference(x0, a0, coef, consts, eps, pos, cache=True)
+            for a, w in zip(got[:5], want[:5]):
+                torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("scan_fused", [True, False])
+def test_multinomial_train_step_runs_the_kernels(monkeypatch, scan_fused):
+    """One FIVO train step with multinomial resampling on the card: K1 and
+    K4 once (K14/K15 T − 1 times with SCAN_FUSED off), on streamed noise
+    even under kernel_rng (K1's in-kernel draw makes systematic positions
+    only), no K2 or plain version; the Lorenz-96 trunk path with
+    multinomial positions launches K7, K8 and K9 once a step."""
+    from psvo_tpu_torch.ops import resample_gather as rg
+    from psvo_tpu_torch.ops import trunk
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    monkeypatch.setattr(fused_step, "SCAN_FUSED", scan_fused)
+    dev = _cuda()
+    cfg = _small_cfg("fhn_fivo_k1024_bench")
+    cfg = dataclasses.replace(cfg, smc=dataclasses.replace(cfg.smc, resampling="multinomial",
+                                                           kernel_rng=True),
+                              train=dataclasses.replace(cfg.train, steps_per_call=1))
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ys = torch.randn((4, 6, 2), generator=torch.Generator().manual_seed(2)).to(dev)
+    kernels = (fused_step.scan_forward, fused_step.scan_backward, fused_step.step_forward,
+               fused_step.step_backward, fused_step.stream_noise)
+    plain = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+             fused_step.step_forward_reference, fused_step.step_backward_reference)
+    launches, calls = [f.launches for f in kernels], [f.calls for f in plain]
+    metrics = make_train_step(ssm, cfg, make_optimizer(cfg))(
+        torch.Generator(device=dev).manual_seed(3), ys)
+    assert [f.launches - n for f, n in zip(kernels, launches)] == (
+        [1, 1, 0, 0, 0] if scan_fused else [0, 0, 5, 5, 0])
+    assert [f.calls for f in plain] == calls
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    l96 = PRESETS["lorenz96_fivo_k8192_sharded"]
+    net = NetConfig(hidden=(16, 16))
+    l96 = dataclasses.replace(l96.with_nets(q0=net, q1=net, q2=net, f=net, qb=net, g=net),
+                              smc=dataclasses.replace(l96.smc, n_particles=256,
+                                                      resampling="multinomial"))
+    lssm = init_ssm(l96, torch.Generator().manual_seed(0), device=dev)
+    assert trunk.usable(lssm, l96.smc)
+    from psvo_tpu_torch.smc import forward_filter
+
+    tk = (rg.ancestor_indices_large, rg.gather_particles, trunk.trunk_forward)
+    before = [f.launches for f in tk]
+    with torch.no_grad():
+        fwd = forward_filter(lssm, torch.Generator(device=dev).manual_seed(4),
+                             torch.randn((2, 5, 40), device=dev), l96.smc)
+    assert [f.launches - n for f, n in zip(tk, before)] == [4, 4, 4]
+    assert bool(torch.isfinite(fwd.log_z).all())

@@ -233,7 +233,7 @@ def test_ffbsi_gate_excludes_a_full_covariance_f(cov):
     ssm = SSM(cfg.with_nets(f=dataclasses.replace(cfg.net("f"), cov_type=cov)))
     assert ssm.f_tril
     assert ffbsi.usable(3, 16) and ffbsi.usable(3, 16, f_tril=False)
-    assert not ffbsi.usable(ssm.dx, 16, ssm.di, f_tril=ssm.f_tril)
+    assert not ffbsi.usable(ssm.dx, 16, f_tril=ssm.f_tril)
 
 
 def _reference_route(jssm, smc_cfg, batch):

@@ -21,7 +21,8 @@ reference's own kernel-vs-scan tolerances).
   rtol 1e-5, atol 1e-6, the reference's test) at T − 1 = 1024.
 - The bytes autograd saves (`saved_tensors_hooks`): at S = 4 they grow with
   neither T nor K the way S = 1's do.
-- Refusals: (T − 1) % S and segmented PSVO with controls.
+- Refusals: (T − 1) % S; segmented PSVO with controls runs (zero controls
+  equal none).
 """
 
 import dataclasses
@@ -297,8 +298,9 @@ def test_segmented_saved_bytes_do_not_grow_with_t_times_k():
 
 
 def test_segmented_refusals():
-    """(T − 1) % S != 0 raises the reference's error, and segmented PSVO with
-    controls stays refused."""
+    """(T − 1) % S != 0 raises the reference's error; segmented PSVO with
+    controls is no longer refused: it runs, finite, and zero controls give
+    the loss of controls=None bit for bit."""
     _, tcfg = _configs(3)  # T − 1 = 8
     tssm = init_ssm(tcfg, torch.Generator().manual_seed(0), device="cpu")
     ys = torch.from_numpy(observations(2, T, dy=DX, seed=1))
@@ -307,5 +309,8 @@ def test_segmented_refusals():
     _, ccfg = _configs(2)
     ccfg = dataclasses.replace(ccfg, data=dataclasses.replace(ccfg.data, di=1))
     cssm = init_ssm(ccfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="controls"):
-        t_make_objective(cssm, ccfg)
+    ys9 = torch.from_numpy(observations(2, T, dy=DX, seed=1))
+    with torch.no_grad():
+        outs = [t_make_objective(cssm, ccfg)(torch.Generator().manual_seed(0), ys9, controls=u)
+                for u in (torch.zeros((2, T, 1)), None)]
+    assert bool(torch.isfinite(outs[0].loss)) and torch.equal(outs[0].loss, outs[1].loss)

@@ -150,8 +150,16 @@ def test_cpu_dispatch_and_in_kernel_rng_replay():
         want = tsmc.forward_filter(tssm, None, ys, tcfg.smc, cache=True, noise=noise)
     _compare_filter(got, want, cache=True)
 
-    # outside the kernel class the plain body runs
-    _, plain_cfg = small_configs(t=5, resampling="multinomial")
+    # multinomial resampling is in the kernel class, on streamed positions
+    # (no K2 replay); outside it (ESS-adaptive) the plain body runs
+    _, multi_cfg = small_configs(t=5, resampling="multinomial", kernel_rng=True)
+    calls = fused_step.scan_forward_reference.calls
+    noise_calls = fused_step.stream_noise_reference.calls
+    with torch.no_grad():
+        tsmc.forward_filter(tssm, torch.Generator().manual_seed(0), ys, multi_cfg.smc)
+    assert fused_step.scan_forward_reference.calls == calls + 1
+    assert fused_step.stream_noise_reference.calls == noise_calls
+    _, plain_cfg = small_configs(t=5, ess_threshold=0.5)
     calls = fused_step.scan_forward_reference.calls
     with torch.no_grad():
         tsmc.forward_filter(tssm, torch.Generator().manual_seed(0), ys, plain_cfg.smc)
@@ -176,8 +184,7 @@ def test_preset_is_in_the_kernel_class_and_unported_modes_raise():
     _, _, tssm = models(jcfg, tcfg)
     with pytest.raises(ValueError, match="multinomial"):
         t_make_objective(tssm, tcfg)
-    # segmented PSVO is ported, but not with controls
+    # segmented PSVO is ported, with controls too: the objective builds
     _, seg_cfg = small_configs(objective="psvo", ffbsi_segments=2)
     seg_cfg = dataclasses.replace(seg_cfg, data=dataclasses.replace(seg_cfg.data, di=1))
-    with pytest.raises(NotImplementedError, match="controls"):
-        t_make_objective(SSM(seg_cfg), seg_cfg)
+    assert callable(t_make_objective(SSM(seg_cfg), seg_cfg))

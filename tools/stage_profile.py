@@ -7,7 +7,7 @@ variants that show what holds K5 back.
     python3 tools/stage_profile.py ffbsi      # K6 alone
 
 Builds the port's kernels as `chip_smoke.py` does, then copies of
-`csrc/ffbsi.cu`, `csrc/svo_sweep.cu` and `csrc/trunk_forward.cu` patched
+`csrc/ffbsi.cu`, `csrc/svo_sweep.cuh` and `csrc/trunk_forward.cu` patched
 three ways, each with nvcc into `psvo_tpu_torch/_build/stage_profile/`
 (gitignored):
 
@@ -318,9 +318,28 @@ def one_copy_a_span_k5(src: str) -> str:
     return sub(src, "    if (n == K) {\n      const unsigned row_bytes", "    if (false) {\n      const unsigned row_bytes")
 
 
+# K12/K13's control build, which the marked copies leave out: its entry points answer
+# cudaErrorInvalidValue, so that the library links without a second copy of the marks
+CTRL_STUB = """#include <cuda_runtime.h>
+namespace psvo {
+namespace svo {
+struct FwdArgs;
+struct BwdArgs;
+int forward_ctrl(const FwdArgs&, int, int, int, int, int, int, cudaStream_t) {
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+int backward_ctrl(const BwdArgs&, int, int, int, int, int, int, float*, cudaStream_t) {
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+}  // namespace svo
+}  // namespace psvo
+"""
+
+
 def build_variant(name: str, files: dict, out_root: Path, nvcc: str, flags, arch) -> Path:
     """Compile `files` (name -> source text) with the csrc headers into a
-    shared library; returns its path."""
+    shared library; a name ending in ".cuh" replaces that header instead of
+    being compiled. Returns the library's path."""
     from psvo_tpu_torch.ops import _build
 
     d = out_root / name
@@ -328,6 +347,9 @@ def build_variant(name: str, files: dict, out_root: Path, nvcc: str, flags, arch
     d.mkdir(parents=True)
     for f in _build.CSRC.glob("*.cuh"):
         shutil.copy(f, d / f.name)
+    files = dict(files)
+    for header in [n for n in files if n.endswith(".cuh")]:
+        (d / header).write_text(files.pop(header))
     files = dict(files, err='#include <cuda_runtime.h>\nextern "C" const char* '
                             'psvo_error_string(int e) { return cudaGetErrorString('
                             '(cudaError_t)e); }\n')
@@ -590,11 +612,13 @@ def main() -> int:
         print(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
                               "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
         return 0
-    f13 = (_build.CSRC / "svo_sweep.cu").read_text()
+    f13 = (_build.CSRC / "svo_sweep.cuh").read_text()
     f9 = (_build.CSRC / "trunk_forward.cu").read_text()
     k5_names = ("psvo_ffbsi_forward",)
     marks = load(build_variant("marks", {"ffbsi": marked_k6(marked_k5(f5)),
-                                         "svo_sweep": marked_k13(marked_k12(f13)),
+                                         "svo_sweep.cuh": marked_k13(marked_k12(f13)),
+                                         "svo_sweep": (_build.CSRC / "svo_sweep.cu").read_text(),
+                                         "svo_sweep_ctrl": CTRL_STUB,
                                          "trunk_forward": marked_k9(f9),
                                          "resample_gather": fr}, *args),
                  k5_names + ("psvo_ffbsi_backward", "psvo_prof6", "psvo_prof60",

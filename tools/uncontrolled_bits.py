@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Hold the kernels K1, K4, K14 and K15 of two checkouts of the port to the
-same bits, and time them, on an uncontrolled model (data.di = 0), on one GPU.
+"""Hold the kernels K1, K4, K14 and K15 (and K12, K13) of two checkouts of the
+port to the same bits, and time them, on an uncontrolled model (data.di = 0),
+on one GPU.
 
     python3 tools/uncontrolled_bits.py dump ROOT OUT.pt   # ROOT: a checkout of the repo
     python3 tools/uncontrolled_bits.py compare A.pt B.pt
@@ -10,7 +11,9 @@ same bits, and time them, on an uncontrolled model (data.di = 0), on one GPU.
 outputs of K1 (stream noise and the in-kernel draw, with the cache and the
 residuals), K4 (every cotangent), a chain of K14 and K15 on each step, at the
 FHN shape (B = 32, K = 1024, hidden (64, 64), Dx = 2) and the Lorenz-63 one
-(Dx = 3), all on inputs made on the card from fixed seeds. `compare` prints
+(Dx = 3), and K12 and K13 (the split designs, every cotangent) at the SVO
+preset's (B = 32, M = 16, T = 100, hidden (64, 64), Dx = 3), all on inputs
+made on the card from fixed seeds. `compare` prints
 whether every tensor of the two dumps is bit-equal and exits non-zero if
 not. `time` prints the four kernels' times at the FHN shape (CUDA events
 around n back-to-back calls over n, n = 5 for K1/K4 and 50 for K14/K15 at
@@ -138,8 +141,36 @@ def dump(root: str, out: str) -> None:
         for name, steps in (("K14", k14), ("K15", k15)):
             for i in range(len(steps[0])):
                 outs[f"{preset}/{name}/{i}"] = torch.stack([s[i] for s in steps]).cpu()
+    outs.update(_svo_dump(torch, pt))
     torch.save(outs, out)
     print(f"dumped {len(outs)} tensors from {pt.__file__} to {out}", flush=True)
+
+
+def _svo_dump(torch, pt) -> dict:
+    """K12's four outputs and K13's three leaves at lorenz63_svo_k256's shape,
+    on operands made on the card from fixed seeds."""
+    from psvo_tpu_torch.ops import svo
+
+    dev = torch.device("cuda:0")
+    cfg = pt.PRESETS["lorenz63_svo_k256"]
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    b, m, t1 = 32, cfg.smc.n_smoothing_particles, cfg.data.t_steps - 1
+    with torch.no_grad():
+        for p in ssm.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g, device=dev))
+        consts = svo.prepare(ssm)
+    ops = (torch.randn((b, m, 3), generator=g, device=dev) * 3.0,
+           torch.randn((t1, b, m, 3), generator=g, device=dev),
+           torch.randn((t1, b, 3), generator=g, device=dev) * 3.0)
+    with torch.no_grad():
+        k12 = svo.svo_sweep_forward(*ops, consts)
+        cots = [torch.randn(t.shape, generator=g, device=dev) for t in k12]
+        k13 = svo.svo_sweep_backward(*ops, consts, k12[3], *cots)
+    torch.cuda.synchronize()
+    outs = {f"svo/K12/{i}": v.cpu() for i, v in enumerate(k12)}
+    outs.update({f"svo/K13/{i}": v.cpu() for i, v in enumerate(k13)})
+    return outs
 
 
 def compare(a_path: str, b_path: str) -> int:
