@@ -305,6 +305,36 @@ draw makes systematic positions only) on every kernel path
       filter_posterior (K7, K8, K9 99 each) and one train step (K7-K11 99
       each)
 
+and the reference's trunk class (trunk_class_phases): what its trunk gate
+takes beyond the whole-scan class — ESS-adaptive resampling, IWAE at K >= 128,
+the full FIVO gradient, controls — through K7/K8, K9 (K10/K11 in training)
+at the FHN, Lorenz-63 and Lorenz-96 widths:
+
+  (aw) K9 and K10 at (Dx, Dy) = (2, 2) and (3, 3) (fhn_fivo_k1024_bench and
+      lorenz63_psvo_k1024: B=32, K=1024, T=100, hidden (64, 64), random
+      weights) on every step of one kernel run, teacher-forced: K9 with the
+      streamed ε and the in-kernel draw (bit-equal to stream mode on K2's ε
+      and to the tile design), per-step rel L2 1e-4; K10 (the simt design at
+      these widths) per leaf within 1e-3 with relu-tie cotangents zeroed,
+      bit-equal on a relaunch; both timed (pair_ms) beside their plain
+      versions; then K9 and K10 in their control mode (Di=2) at
+      fhn_fivo_controls' width (B=32, K=1024) and Lorenz-96's (B=8, K=8192)
+      against their plain versions (K9 allclose 2e-4, K10 per leaf within
+      1e-4, the controls' d_coef columns included), zero controls bit-equal
+      to the uncontrolled launch, timed beside it
+  (ax) six configurations at full width, one --set each (TRUNK_CLASS):
+      fhn_fivo_k1024_bench with smc.ess_threshold=0.5, and with multinomial
+      resampling and use_stop_gradient=false (the full FIVO gradient);
+      fhn_iwae_k16 at K=128; lorenz63_psvo_k1024 with ess_threshold=0.5 (the
+      trunk path's cache, then K5/K6); fhn_fivo_controls with
+      ess_threshold=0.5; lorenz96_fivo_k8192_sharded with Di=2 (fresh
+      weights). Each: the card against the CPU on the same draws at B=4 (B=2
+      for Lorenz-96), T=20 (CPU_TOL); one serving call (make_eval_step, or
+      smooth_posterior for PSVO); 3 train steps with launch counts (K7/K8 99
+      each a filter when resampling is on, none for IWAE; K9 99; K10 and K11
+      99 a train step, no K11 for IWAE; K5/K6 once for PSVO; no K1/K4/K14/K15
+      and no plain version); a profile of one more step
+
 (ap) begins with K7, K8 and K11 at the general path's shape (B=32, K=128,
 D=2) against their plain versions, timed beside them and beside
 torch.gather and zeros + scatter_add_. The profiles of phases ak, al and ap
@@ -333,7 +363,9 @@ appear once more as "(general path)", at B=32, K=128, D=2, with the launches
 of phase ap's training runs; K12 and K13 as "(controls)", their control mode
 at lorenz63_svo_k256's size with Di=2, "ms_uncontrolled" the same shape
 without controls; K1 and K14 as "(multinomial)", at fhn_fivo_k1024_bench's
-size on multinomial positions); the last line
+size on multinomial positions; K9 and K10 as "(FHN width)", "(Lorenz-63
+width)", "(controls, FHN width)" and "(controls, Lorenz-96 width)", from
+phases aw and ax); the last line
 is the device record. Imports nothing of JAX: the
 machine with the card has none.
 """
@@ -2749,24 +2781,33 @@ def kernel_counts(kernels, plain, fn):
     return out, [f.launches for f in kernels], sum(f.calls for f in plain)
 
 
-def card_vs_cpu(pt, dev, cfg, ys, u, seed: int, path: str = "fused", load=None) -> dict:
+def card_vs_cpu(pt, dev, cfg, ys, u, seed: int, path: str = "fused", load=None,
+                replay_ancestors: bool = False) -> dict:
     """One train step's loss and gradient of cfg's objective on the card (its
     kernels) and on the CPU (their plain versions: the whole-scan class's
     path, segmented with smc.ffbsi_segments > 1, or the trunk path), on the
     same draws made on the CPU (the filter's ε and sorted positions, then
     PSVO's Gumbels or SVO's anchors and ε): the losses, the gradient norms,
     their cosine, the largest relative L2 of a leaf, and whether CPU_TOL
-    holds. ys, u: CPU tensors; `load(ssm)` sets the weights (else seed)."""
+    holds. ys, u: CPU tensors; `load(ssm)` sets the weights (else seed).
+    With `replay_ancestors` (the trunk path) the CPU takes the card's
+    ancestor indices, step by step, in place of its own (K7's plain version):
+    the full FIVO gradient's score term weights each pick by a return-to-go
+    of hundreds of nats, so an ancestor that a last-bit α difference moves
+    across a CDF boundary moves the gradient by far more than the
+    arithmetic does; teacher-forcing the ancestors compares the rest."""
     import torch
     from psvo_tpu_torch import objectives, smc
-    from psvo_tpu_torch.ops import resampling
+    from psvo_tpu_torch.ops import resample_gather, resampling
 
     b, t, _ = ys.shape
     sc = cfg.smc
     k, m, dx = sc.n_particles, sc.n_smoothing_particles, cfg.data.dx
     g = torch.Generator().manual_seed(seed)
+    resample = sc.objective != "iwae" and sc.resampling != "none"
     noise = [torch.randn((b, dx, k), generator=g), torch.randn((t - 1, b, dx, k), generator=g),
-             resampling.bulk_positions(g, t - 1, b, k, sc.resampling)]
+             resampling.bulk_positions(g, t - 1, b, k, sc.resampling) if resample
+             else torch.zeros((t - 1, b, 1))]
     if sc.objective in ("psvo", "svo"):
         noise.append(objectives._gumbel(g, (b, m, k)))
         noise.append(objectives._gumbel(g, (t - 1, b, m, k)) if sc.objective == "psvo"
@@ -2783,6 +2824,18 @@ def card_vs_cpu(pt, dev, cfg, ys, u, seed: int, path: str = "fused", load=None) 
                                                    encoder_inputs=encoder_inputs, streams=noise,
                                                    **kw)
 
+    resample = resample_gather.resample_and_gather
+    card_idx = []
+
+    def record(u_, logw, x):
+        idx, x_res = resample(u_, logw, x)
+        card_idx.append(idx.cpu())
+        return idx, x_res
+
+    def replay(u_, logw, x):
+        idx = card_idx.pop(0)
+        return idx, resample_gather.gather_particles(x.contiguous(), idx)
+
     losses, grads = [], []
     for dev_ in (dev, torch.device("cpu")):
         ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(seed), device=dev_)
@@ -2793,12 +2846,15 @@ def card_vs_cpu(pt, dev, cfg, ys, u, seed: int, path: str = "fused", load=None) 
         if dev_ != dev:
             objectives.forward_filter, objectives.forward_filter_segmented = (cpu_filter,
                                                                               cpu_segmented)
+        if replay_ancestors:
+            resample_gather.resample_and_gather = record if dev_ == dev else replay
         try:
             out = objectives.make_objective(ssm, cfg)(None, ys.to(dev_),
                                                       noise=[n_.to(dev_) for n_ in noise], **kw)
             out.loss.backward()
         finally:
             objectives.forward_filter, objectives.forward_filter_segmented = real
+            resample_gather.resample_and_gather = resample
         losses.append(float(out.loss.detach()))
         grads.append([torch.zeros(p.shape, dtype=torch.float64) if p.grad is None
                       else p.grad.detach().cpu().double() for p in ssm.parameters()])
@@ -3289,6 +3345,309 @@ def multinomial_phases(pt, dev, card: str) -> dict:
     del ssm, logws
     torch.cuda.empty_cache()
     phase_done("av")
+    return figures
+
+
+# The reference's trunk class at full width (trunk_class_phases): (label, preset, smc changes,
+# data changes), one --set each on a preset; data from generate_dataset seed 0, random weights
+TRUNK_CLASS = (
+    ("fhn ess", "fhn_fivo_k1024_bench", {"ess_threshold": 0.5}, {}),
+    ("fhn full gradient", "fhn_fivo_k1024_bench",
+     {"resampling": "multinomial", "use_stop_gradient": False}, {}),
+    ("fhn iwae k128", "fhn_iwae_k16", {"n_particles": 128}, {}),
+    ("l63 psvo ess", "lorenz63_psvo_k1024", {"ess_threshold": 0.5}, {}),
+    ("fhn controls ess", "fhn_fivo_controls", {"ess_threshold": 0.5}, {}),
+    ("l96 controls", L96, {}, {"di": 2, "control_scale": 0.5}),
+)
+TRUNK_CLASS_KERNELS = {"K7": ("ancestor_indices",), "K8": ("gather_particles_kernel",),
+                       "K9": ("trunk_forward_async_kernel",),
+                       "K10": ("trunk_backward_kernel", "trunk_backward_tf32x3_kernel",
+                               "trunk_sum_ctas_kernel", "trunk_sum_tiles_kernel"),
+                       "K11": ("segment_sum",), "K5": ("ffbsi_staged_kernel",), "K6": K6_KERNELS}
+
+
+def trunk_ctrl_check(pt, dev, preset: str, b: int, k: int, gen) -> dict:
+    """K9 and K10 in their control mode (Di = 2) at preset's width, hidden
+    64, on operands made on the card (x_res, the coefficient row, the
+    controls' terms from random controls through the model's W_u): K9 with
+    streamed ε and the in-kernel draw against its plain version (allclose
+    2e-4), K10 per leaf (the controls' d_coef columns included) against its
+    plain version with the relu-tie particles' cotangents zeroed (rel L2
+    1e-4), bit-equal on a relaunch; with zero controls both bit-equal to the
+    uncontrolled launch on the same weights; both timed (pair_ms) beside the
+    uncontrolled launch and their plain versions (device_ms), with bounds."""
+    import torch
+    from psvo_tpu_torch.ops import fused_step, trunk
+
+    cfg = pt.PRESETS[preset]
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, di=2, control_scale=0.5))
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 95), device=dev)
+    dx = ssm.dx
+    with torch.no_grad():
+        consts = fused_step.prepare(ssm)
+        unc = dict(consts, di=0, ctrl_w=None)
+        x_res = torch.randn((b, dx, k), generator=gen, device=dev) * 2.0
+        base = torch.rand((b, 4 * dx + 1), generator=gen, device=dev) + 0.1
+        u = 0.5 * torch.randn((1, b, 2), generator=gen, device=dev)
+        coef = torch.cat([base, fused_step.control_term(consts, u)[0]], -1).contiguous()
+        zero = torch.cat([base, torch.zeros_like(coef[:, 4 * dx + 1:])], -1).contiguous()
+        eps = torch.randn((b, dx, k), generator=gen, device=dev)
+        seed = (29, 0xACE)
+        eps_rng = fused_step.stream_noise(seed, 6, b, dx, k, dev)[0][5]
+        out = {}
+        for mode, noise, e in (("stream", {"eps": eps}, eps), ("rng", {"seed": seed, "t": 5},
+                                                               eps_rng)):
+            got = trunk.trunk_forward(x_res, coef, consts, **noise)
+            want = trunk.trunk_forward_reference(x_res, coef, consts, e)
+            keep = ~relu_ties(consts, x_res, got[0], coef_row=coef)
+            cots = [torch.randn(got[0].shape, generator=gen, device=dev) * keep[:, None],
+                    torch.randn(got[1].shape, generator=gen, device=dev) * keep]
+            gb = trunk.trunk_backward(x_res, got[0], coef, consts, *cots, **noise)
+            wb = trunk.trunk_backward_reference(x_res, got[0], coef, consts, e, *cots)
+            rel = [float((a - w).norm() / w.norm().clamp_min(1e-30)) for a, w in zip(gb, wb)]
+            again = trunk.trunk_backward(x_res, got[0], coef, consts, *cots, **noise)
+            z9 = all(torch.equal(a, c) for a, c in zip(trunk.trunk_forward(x_res, zero, consts,
+                                                                           **noise),
+                                                       trunk.trunk_forward(x_res, base, unc,
+                                                                           **noise)))
+            zb = trunk.trunk_backward(x_res, got[0], zero, consts, *cots, **noise)
+            ub = trunk.trunk_backward(x_res, got[0], base, unc, *cots, **noise)
+            z10 = (torch.equal(zb[0], ub[0]) and torch.equal(zb[1][:, :4 * dx + 1], ub[1])
+                   and torch.equal(zb[2], ub[2]) and torch.equal(zb[3], ub[3]))
+            out[mode] = dict(err9=max_err(got, want), close9=close(got, want, 2e-4), rel10=rel,
+                             err10=max_err(gb, wb), same=all(torch.equal(a, c)
+                                                             for a, c in zip(gb, again)),
+                             zero9=z9, zero10=z10, zeroed=int((~keep).sum()))
+        x_new = got[0]
+        t9 = [pair_ms(lambda: trunk.trunk_forward(x_res, coef, consts, seed=seed, t=5)),
+              pair_ms(lambda: trunk.trunk_forward(x_res, base, unc, seed=seed, t=5)),
+              device_ms(lambda: trunk.trunk_forward_reference(x_res, coef, consts, eps_rng), n=3)]
+        bwd = (x_res, x_new, coef, consts, *cots)
+        t10 = [pair_ms(lambda: trunk.trunk_backward(*bwd, seed=seed, t=5)),
+               pair_ms(lambda: trunk.trunk_backward(x_res, x_new, base, unc, *cots, seed=seed,
+                                                    t=5)),
+               device_ms(lambda: trunk.trunk_backward_reference(*bwd[:4], eps_rng, *bwd[4:]),
+                         n=3)]
+    n_part = b * k
+    h = consts["hidden"]
+    # K9: x_res and the row's operands in, x_new and α out (ε drawn in the kernel); the
+    # controls' first-layer terms add 2H per particle
+    b9 = bound((trunk_flops(consts) + 2 * h) * n_part,
+               2 * nbytes(x_res) + nbytes(coef, consts["packed"], consts["sconst"]) + 4 * n_part)
+    b10 = bound((3 * trunk_flops(consts) + 4 * h) * n_part,
+                nbytes(x_res, x_new, coef, consts["packed"], consts["sconst"], *cots, *gb))
+    return dict(modes=out, k9=t9, k10=t10, b9=b9, b10=b10, design=trunk.k10_design(dx, dx),
+                plan=trunk.k9_plan(dx, dx, h, consts["n_mid"]))
+
+
+def trunk_class_phases(pt, dev, card: str) -> dict:
+    """Phases (aw)-(ax): the reference's trunk class on the card. K9 and K10
+    at the FHN and Lorenz-63 widths against their plain versions, and in their
+    control mode at FHN's and Lorenz-96's; then the configurations the
+    reference sends to its trunk kernel at full width (TRUNK_CLASS): the card
+    against the CPU on the same draws, one serving call, 3 train steps with
+    launch counts and no plain version, and a profile of one more step.
+    Returns what the kernels' JSON record and PERF.md need."""
+    import torch
+    from psvo_tpu_torch.ops import ffbsi, fused_step, resample_gather as rg, trunk
+
+    figures = {"aw": {}, "ctrl": {}, "ax": {}}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    leaves = ("d_x_res", "d_coef", "d_weights", "d_sconst")
+
+    # (aw) K9 and K10 at (2, 2) and (3, 3): every step of one kernel run, teacher-forced
+    for preset, dx in (("fhn_fivo_k1024_bench", 2), ("lorenz63_psvo_k1024", 3)):
+        cfg = pt.PRESETS[preset]
+        batch = cfg.train.batch_size
+        ds = pt.generate_dataset(cfg.data, SEED)
+        ys = ds.obs_train[:batch].to(dev).contiguous()
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 91), device=dev)
+        runs = {}
+        for mode, rng_seed in (("stream", None), ("in-kernel RNG", (23, 0xC0DE))):
+            with torch.no_grad():
+                r = trunk_run(ssm, cfg, ys, gen, rng_seed)
+                rb = trunk_backward_run(ssm, cfg, ys, gen, rng_seed)
+            runs[mode] = (r, rb)
+            print(f"[aw] K9 {preset} (Dx=Dy={dx}) B={batch} K={cfg.smc.n_particles} "
+                  f"T={cfg.data.t_steps} hidden 64 {mode}: max per-step rel L2 x_new "
+                  f"{r['rel_x']:.3e} alpha {r['rel_a']:.3e}, max|d| {r['maxd']:.3e}, every step "
+                  f"allclose(2e-4) {r['close']}, finite {r['finite']}"
+                  + (f", bit-equal to stream mode on K2's eps {r['same']}" if rng_seed else "")
+                  + f", bit-equal to the tile design {r['same_tile']}; K7 mismatches {r['k7_bad']}"
+                  f"; free runs: {r['flip_rows']} of {batch} rows with an ancestor flip, max rel d "
+                  f"logZ over rows without "
+                  + ("none" if r["rel_z_clean"] is None else f"{r['rel_z_clean']:.3e}"),
+                  flush=True)
+            print(f"[aw] K10 {preset} {mode} ({trunk.k10_design(dx, dx)} design), every step: "
+                  + ", ".join(f"{n} rel L2 {e:.3e} max|d| {m:.3e}" for n, e, m in
+                              zip(leaves, rb["rel"], rb["maxd"]))
+                  + f"; bit-equal on a relaunch {rb['same']}; bound rel L2 1e-3; cotangents zeroed "
+                  f"on {rb['zeroed']} of {rb['n']} particle-steps with a relu tie; every particle's "
+                  f"cotangent: rel L2 " + ", ".join(f"{e:.3e}" for e in rb["rel_raw"]), flush=True)
+            ok9 = (max(r["rel_x"], r["rel_a"]) <= 1e-4 and r["finite"] and r["same"]
+                   and r["same_tile"] and not r["k7_bad"]
+                   and (r["rel_z_clean"] is None or r["rel_z_clean"] <= 1e-4))
+            if not ok9:
+                fail(f"(aw) K9 at Dx={dx} ({mode}) disagrees with its plain version")
+            if not (rb["finite"] and rb["same"] and max(rb["rel"]) <= 1e-3 and not rb["k7_bad"]):
+                fail(f"(aw) K10 at Dx={dx} ({mode}) disagrees with its plain version")
+        x_res, coef_t, consts, eps_t = runs["in-kernel RNG"][0]["last"]
+        bwd, noise, eps10, got10 = runs["in-kernel RNG"][1]["last"]
+        with torch.no_grad():
+            t9 = [pair_ms(lambda: trunk.trunk_forward(x_res, coef_t, consts, seed=(23, 0xC0DE),
+                                                      t=98)),
+                  device_ms(lambda: trunk.trunk_forward_reference(x_res, coef_t, consts, eps_t),
+                            n=5)]
+            t10 = [pair_ms(lambda: trunk.trunk_backward(*bwd, **noise)),
+                   device_ms(lambda: trunk.trunk_backward_reference(*bwd[:4], eps10, *bwd[4:]),
+                             n=5)]
+        n_part = x_res.shape[0] * x_res.shape[-1]
+        b9 = bound(trunk_flops(consts) * n_part,
+                   2 * nbytes(x_res) + nbytes(coef_t, consts["packed"], consts["sconst"])
+                   + 4 * n_part)
+        b10 = bound(3 * trunk_flops(consts) * n_part,
+                    nbytes(bwd[0], bwd[1], bwd[2], consts["packed"], consts["sconst"], bwd[4],
+                           bwd[5], *got10))
+        plan = trunk.k9_plan(dx, dx, 64, 1)
+        print(f"[aw] {card}: {preset} (B={batch}, K=1024, hidden 64) device time per call "
+              f"({PAIR_HOW}): K9 {t9[0]:.4f} ms (in-kernel draw, plan {plan}) vs plain "
+              f"{t9[1]:.4f} ms (torch.profiler), bound {b9[0]:.4f} ms ({b9[1]}); K10 "
+              f"{t10[0]:.4f} ms ({trunk.k10_design(dx, dx)}) vs plain {t10[1]:.4f} ms, bound "
+              f"{b10[0]:.4f} ms ({b10[1]}); async K9 "
+              f"{kernel_resources(f'trunk_forward_async_kernelILi{dx}ELi{dx}ELi64ELb0EE')}, K10 "
+              f"{kernel_resources(f'trunk_backward_kernelILi{dx}ELi{dx}ELi64ELb0EE')}", flush=True)
+        figures["aw"][dx] = dict(
+            err9=max(runs[m][0]["maxd"] for m in runs),
+            err10=max(max(runs[m][1]["maxd"]) for m in runs), k9=t9, k10=t10, b9=b9, b10=b10)
+        del runs, bwd, got10, x_res
+        torch.cuda.empty_cache()
+    # the control mode at fhn_fivo_controls' width (B=32, K=1024) and Lorenz-96's (B=8, K=8192)
+    for preset, b, k in ((CTRL, 32, 1024), (L96, 8, 8192)):
+        c = trunk_ctrl_check(pt, dev, preset, b, k, gen)
+        for mode, r in c["modes"].items():
+            print(f"[aw] {preset} with Di=2 (B={b}, K={k}, hidden 64) {mode}: K9 control mode "
+                  f"max|d| {r['err9']:.3e} allclose(2e-4) {r['close9']}; K10 ({c['design']}) rel "
+                  f"L2 " + ", ".join(f"{n} {e:.3e}" for n, e in zip(leaves, r["rel10"]))
+                  + f" (bound 1e-4, {r['zeroed']} relu-tie particles' cotangents zeroed), "
+                  f"bit-equal on a relaunch {r['same']}; zero controls bit-equal to the "
+                  f"uncontrolled launch: K9 {r['zero9']}, K10 {r['zero10']}", flush=True)
+            if not (r["close9"] and max(r["rel10"]) <= 1e-4 and r["same"] and r["zero9"]
+                    and r["zero10"]):
+                fail(f"(aw) K9/K10 in their control mode ({preset}, {mode}) disagree with their "
+                     f"plain versions or the uncontrolled launch")
+        print(f"[aw] {card}: {preset} with Di=2 (B={b}, K={k}) device time per call "
+              f"({PAIR_HOW}): K9 controls {c['k9'][0]:.4f} ms, uncontrolled {c['k9'][1]:.4f} ms, "
+              f"plain {c['k9'][2]:.4f} ms (plan {c['plan']}), bound {c['b9'][0]:.4f} ms "
+              f"({c['b9'][1]}); K10 controls {c['k10'][0]:.4f} ms, uncontrolled "
+              f"{c['k10'][1]:.4f} ms, plain {c['k10'][2]:.4f} ms, bound {c['b10'][0]:.4f} ms "
+              f"({c['b10'][1]})", flush=True)
+        figures["ctrl"][preset] = c
+    torch.cuda.empty_cache()
+    phase_done("aw")
+
+    # (ax) the configurations of the trunk class at full width
+    plain = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+             fused_step.stream_noise_reference, fused_step.step_forward_reference,
+             fused_step.step_backward_reference, rg.ancestor_indices_large_reference,
+             rg.gather_particles_reference, trunk.trunk_forward_reference,
+             trunk.trunk_backward_reference, rg.segment_sum_scatter_reference,
+             ffbsi.ffbsi_forward_reference, ffbsi.ffbsi_backward_reference)
+    kernels = (rg.ancestor_indices_large, rg.gather_particles, trunk.trunk_forward,
+               trunk.trunk_backward, rg.segment_sum_scatter, ffbsi.ffbsi_forward,
+               ffbsi.ffbsi_backward, fused_step.scan_forward, fused_step.scan_backward,
+               fused_step.step_forward, fused_step.step_backward)
+    names = "K7/K8/K9/K10/K11/K5/K6/K1/K4/K14/K15"
+    for i, (label, preset, smc_kw, data_kw) in enumerate(TRUNK_CLASS):
+        base = pt.PRESETS[preset]
+        cfg = dataclasses.replace(
+            base, smc=dataclasses.replace(base.smc, **smc_kw),
+            data=dataclasses.replace(base.data, **data_kw),
+            train=dataclasses.replace(base.train, steps_per_call=1))
+        psvo = cfg.smc.objective == "psvo"
+        resample = cfg.smc.objective != "iwae"
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+        if not (trunk.usable(ssm, cfg.smc) and not fused_step.usable(ssm, cfg.smc)):
+            fail(f"(ax) {label}: not in the trunk class")
+        ds = pt.generate_dataset(cfg.data, SEED)
+        obs = ds.obs_train
+        ctl = ds.controls_train if cfg.data.di else None
+        b_cpu = 2 if preset == L96 else 4
+        score = not cfg.smc.use_stop_gradient
+        vs = card_vs_cpu(pt, dev, cfg, obs[:b_cpu, :20],
+                         None if ctl is None else ctl[:b_cpu, :20], SEED + 100 + i, path="trunk",
+                         replay_ancestors=score)
+        if score:  # the free run, reported: its ancestors part where α's last bits differ
+            free = card_vs_cpu(pt, dev, cfg, obs[:b_cpu, :20], None, SEED + 100 + i,
+                               path="trunk")
+            print(f"[ax] {label}: the card vs the CPU with their own ancestors (reported, not "
+                  f"gated): {vs_line(free)}", flush=True)
+        batch = cfg.train.batch_size
+        ys = obs[:batch].to(dev).contiguous()
+        ckw = {} if ctl is None else {"controls": ctl[:batch].to(dev).contiguous()}
+        run_gen = torch.Generator(device=dev).manual_seed(SEED + 110 + i)
+        if psvo:
+            serve_fn = lambda: pt.smooth_posterior(ssm, ys, cfg, run_gen, **ckw)  # noqa: E731
+        else:
+            eval_step = pt.make_eval_step(ssm, cfg)
+            serve_fn = lambda: eval_step(run_gen, ys, **ckw)  # noqa: E731
+        serve_fn()  # warm-up
+        t0 = time.perf_counter()
+        served, serve, serve_plain = kernel_counts(kernels, plain, serve_fn)
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
+        pick = torch.randint(0, obs.shape[0], (3, batch),
+                             generator=torch.Generator().manual_seed(SEED + 120 + i))
+        data = [(obs[p_].to(dev).contiguous(),
+                 {} if ctl is None else {"controls": ctl[p_].to(dev).contiguous()})
+                for p_ in pick]
+        step_s = []
+
+        def run():
+            out = []
+            for ys_, kw_ in data:
+                t1 = time.perf_counter()
+                out.append(step(run_gen, ys_, **kw_))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t1)
+            return out
+
+        metrics, launches, train_plain = kernel_counts(kernels, plain, run)
+        losses = [float(m_["loss"]) for m_ in metrics]
+        n = cfg.data.t_steps - 1
+        r_ = n if resample else 0
+        want_serve = [r_, r_, n, 0, 0, int(psvo), 0, 0, 0, 0, 0]
+        want_train = [3 * r_, 3 * r_, 3 * n, 3 * n, 3 * r_, 3 * int(psvo), 3 * int(psvo), 0, 0, 0,
+                      0]
+        profile = device_breakdown(lambda: step(run_gen, *data[0][:1], **data[0][1]), 1,
+                                   TRUNK_CLASS_KERNELS, with_cpu=False)
+        if psvo:
+            serve_out = f"paths {tuple(served.shape)} finite {bool(torch.isfinite(served).all())}"
+            serve_ok = bool(torch.isfinite(served).all())
+        else:
+            serve_out = (f"elbo {float(served['elbo']):.3f}, ess_mean "
+                         f"{float(served['ess_mean']):.1f}")
+            serve_ok = math.isfinite(float(served["elbo"]))
+        print(f"[ax] {card}: {label} ({preset} with {dict(smc_kw, **data_kw)}; K="
+              f"{cfg.smc.n_particles}, B={batch}, T={cfg.data.t_steps}): the card vs the CPU, one "
+              f"train step at B={b_cpu}, T=20"
+              + (" (the CPU on the card's ancestors)" if score else "") + f": {vs_line(vs)}; serving "
+              f"({'smooth_posterior' if psvo else 'make_eval_step'}) {serve_out}, {names} "
+              f"{serve} (want {want_serve}), plain versions {serve_plain}, {serve_ms:.1f} ms (host "
+              f"clock, after a warm-up); 3 train steps: loss {[round(v, 3) for v in losses]}, "
+              f"{names} {launches} (want {want_train}), plain versions {train_plain}, step times "
+              f"{[round(1e3 * v, 1) for v in step_s]} ms (host clock)", flush=True)
+        print(f"[ax] {label}: profile of one more train step: {profile}", flush=True)
+        if not vs["ok"]:
+            fail(f"(ax) {label}: the card disagrees with the CPU")
+        if (serve != want_serve or launches != want_train or serve_plain or train_plain
+                or not serve_ok or not all(math.isfinite(v) for v in losses)):
+            fail(f"(ax) {label} launched {serve} / {launches} (want {want_serve} / {want_train}), "
+                 f"plain versions {serve_plain}/{train_plain}, losses {losses}")
+        figures["ax"][label] = dict(serve=serve, train=launches, vs=vs, serve_ms=serve_ms,
+                                    step_ms=[1e3 * v for v in step_s], profile=profile)
+        del ssm, step, data
+        torch.cuda.empty_cache()
+    phase_done("ax")
     return figures
 
 
@@ -4284,7 +4643,7 @@ def main() -> int:
           + f" ms, plain {k9_dev[1]:.4f} ms; bound {k9_bound:.4f} ms ({k9_by}, "
           f"{trunk_flops(l_consts) * n_part:.3e} FLOP): async at {100 * k9_bound / k9_dev[0]:.1f}% "
           f"of it, tile at {100 * k9_bound / k9_dev[3]:.1f}% (RNG); async "
-          f"{kernel_resources('trunk_forward_async_kernelILi40ELi40ELi64EE')}, (pair, prefetch) "
+          f"{kernel_resources('trunk_forward_async_kernelILi40ELi40ELi64ELb0EE')}, (pair, prefetch) "
           f"{k9_plan}, {trunk.k9_smem_bytes(40, 40, 64, 1, *k9_plan)} B of shared memory per CTA; "
           f"tile {kernel_resources('trunk_forward_kernelILi40ELi40ELi64EE')}, "
           f"{trunk.smem_bytes(40, 40, 64, 1)} B", flush=True)
@@ -4483,8 +4842,8 @@ def main() -> int:
     log = _build.build_log()
     k10_res = {}
     for kname in ("trunk_backward_tf32x3_kernel", "trunk_backward_kernel"):
-        regs = re.search(kname + r"ILi40ELi40ELi64EE.*?Used (\d+) registers", log, re.S)
-        spill = re.search(kname + r"ILi40ELi40ELi64EE[^\n]*\n[^\n]*\n\s*(\d+) bytes "
+        regs = re.search(kname + r"ILi40ELi40ELi64ELb0EE.*?Used (\d+) registers", log, re.S)
+        spill = re.search(kname + r"ILi40ELi40ELi64ELb0EE[^\n]*\n[^\n]*\n\s*(\d+) bytes "
                           r"stack frame, (\d+) bytes spill stores", log)
         k10_res[kname] = (regs.group(1) if regs else "?", spill.group(2) if spill else "?")
     for mode, pairs in k10_pairs.items():
@@ -5312,6 +5671,7 @@ def main() -> int:
     gen_figs = general_phases(pt, dev, card)
     sm_figs = smoothing_controls_phases(pt, dev, card)
     mn_figs = multinomial_phases(pt, dev, card)
+    tc_figs = trunk_class_phases(pt, dev, card)
 
 
     # K3: the CDF scan and a binary search per particle; logw and u0 in, int32 indices out.
@@ -5373,12 +5733,12 @@ def main() -> int:
          "replaces": "psvo_tpu/ops/pallas_resample.py:489",
          "launches": serve_launches["filter_posterior"][1], "max_abs_err": 0.0, "ms": k8_dev[0],
          "plain_ms": k8_dev[1], "bound_ms": k8_bound, "bound_by": k8_by, "library_ms": k8_dev[2]},
-        {"name": "trunk_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/trunk_forward.cu",
+        {"name": "trunk_forward", "route": "cuda", "source": "psvo_tpu_torch/csrc/trunk_forward.cuh",
          "replaces": "psvo_tpu/ops/pallas_trunk.py:350",
          "launches": serve_launches["filter_posterior"][2], "max_abs_err": k9_small_err,
          "ms": k9_dev[0], "plain_ms": k9_dev[1], "bound_ms": k9_bound, "bound_by": k9_by,
          "library_ms": None, "ms_prev": k9_dev[3]},
-        {"name": "trunk_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/trunk_backward.cu",
+        {"name": "trunk_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/trunk_backward.cuh",
          "replaces": "psvo_tpu/ops/pallas_trunk.py:419", "launches": train_launches[3],
          "on_path": True, "max_abs_err": k10_small_err, "ms": k10_ms, "plain_ms": k10_plain,
          "bound_ms": k10_bound, "bound_by": k10_by, "library_ms": None, "ms_simt": k10_ms_simt,
@@ -5484,6 +5844,42 @@ def main() -> int:
                     "max_abs_err": mn_figs["k14"]["err"], "ms": mn_figs["k14"]["ms"],
                     "plain_ms": mn_figs["k14"]["plain"], "bound_ms": mn_figs["k14"]["bound"][0],
                     "bound_by": mn_figs["k14"]["bound"][1], "library_ms": None})
+    # K9 and K10 at the FHN and Lorenz-63 widths (B=32, K=1024, hidden (64, 64), in-kernel draw)
+    # and in their control mode (Di=2) at fhn_fivo_controls' width (B=32, K=1024) and
+    # Lorenz-96's (B=8, K=8192): launches from phase ax's training steps of the configurations
+    # at that width, times and bounds from phase aw ("ms_uncontrolled" the same launch without
+    # controls, alternated with it)
+    ax = tc_figs["ax"]
+    for label, fig, ax_labels in (
+            ("FHN width", tc_figs["aw"][2], ("fhn ess", "fhn full gradient", "fhn iwae k128")),
+            ("Lorenz-63 width", tc_figs["aw"][3], ("l63 psvo ess",))):
+        for i, (kernel, src, line) in enumerate((
+                ("trunk_forward", "psvo_tpu_torch/csrc/trunk_forward.cuh",
+                 "psvo_tpu/ops/pallas_trunk.py:350"),
+                ("trunk_backward", "psvo_tpu_torch/csrc/trunk_backward.cuh",
+                 "psvo_tpu/ops/pallas_trunk.py:419"))):
+            t_, b_ = (fig["k9"], fig["b9"]) if i == 0 else (fig["k10"], fig["b10"])
+            kernels.append({"name": f"{kernel} ({label})", "route": "cuda", "source": src,
+                            "replaces": line,
+                            "launches": sum(ax[l_]["train"][2 + i] for l_ in ax_labels),
+                            "on_path": True, "max_abs_err": fig["err9"] if i == 0 else fig["err10"],
+                            "ms": t_[0], "plain_ms": t_[1], "bound_ms": b_[0], "bound_by": b_[1],
+                            "library_ms": None})
+    for label, preset, ax_label in (("controls, FHN width", CTRL, "fhn controls ess"),
+                                    ("controls, Lorenz-96 width", L96, "l96 controls")):
+        c = tc_figs["ctrl"][preset]
+        for i, (kernel, src, line) in enumerate((
+                ("trunk_forward", "psvo_tpu_torch/csrc/trunk_forward.cuh",
+                 "psvo_tpu/ops/pallas_trunk.py:350"),
+                ("trunk_backward", "psvo_tpu_torch/csrc/trunk_backward.cuh",
+                 "psvo_tpu/ops/pallas_trunk.py:419"))):
+            t_, b_ = (c["k9"], c["b9"]) if i == 0 else (c["k10"], c["b10"])
+            err = max(r[("err9", "err10")[i]] for r in c["modes"].values())
+            kernels.append({"name": f"{kernel} ({label})", "route": "cuda", "source": src,
+                            "replaces": line, "launches": ax[ax_label]["train"][2 + i],
+                            "on_path": True, "max_abs_err": err, "ms": t_[0], "plain_ms": t_[2],
+                            "bound_ms": b_[0], "bound_by": b_[1], "library_ms": None,
+                            "ms_uncontrolled": t_[1]})
     print(f"[profiler] {PROFILE_WINDOWS['windows']} profiler windows, "
           f"{PROFILE_WINDOWS['empty']} of them with no device events (run again); of the timing "
           f"windows, {PROFILE_WINDOWS['partial']} recorded part of a kernel's events (timed by "

@@ -15,9 +15,13 @@ sweep and its backward are two more. The wide Lorenz-96 state is served step
 by step through three more: the large-K ancestor indices, the particle
 gather and the trunk kernel (`ops/resample_gather.py`, `ops/trunk.py`); and
 trained through two more, the trunk kernel's VJP and the segment-sum
-scatter that transposes the gather. Models with exogenous controls
-(data.di > 0, `controls=` on the entry points) run the whole-scan and
-per-step filter kernels in their control mode, for every objective, and
+scatter that transposes the gather. The same step-by-step trunk path
+serves the reference's trunk class at the FHN and Lorenz-63 widths too:
+ESS-adaptive resampling, IWAE at K >= 128 and the full FIVO gradient
+(`smc.use_stop_gradient=False`, whose score-function term the filter
+returns as `FilterResult.score_surrogate`). Models with exogenous controls
+(data.di > 0, `controls=` on the entry points) run the whole-scan,
+per-step and trunk kernels in their control mode, for every objective, and
 SVO's sweep kernels in theirs; multinomial resampling runs on every kernel
 path. PSVO
 runs long sequences segmented (`smc.ffbsi_segments`): the filter keeps only

@@ -13,19 +13,30 @@ constexpr int kTrunkThreads = 256;
 constexpr int kTile = 64;  // particles per tile
 constexpr int kParts = kTrunkThreads / kTile;  // threads summing one particle's α
 
+// The widest register block of at most `most` rows (8, 4, 2 or 1) that
+// divides a layer of r rows: 4 at the trunk widths (16, 32, 40, 64) when
+// most = 4, 2 or 1 for the FHN and Lorenz-63 means (2 and 3 rows).
+__host__ __device__ constexpr int row_block(int r, int most) {
+  return most >= 8 && r % 8 == 0 ? 8 : most >= 4 && r % 4 == 0 ? 4 : r % 2 == 0 ? 2 : 1;
+}
+
 // out[r][p] = b[r] + Σ_i w[i][r]·in[i][p] (relu'd when RELU) for r < R and
 // the tile's kTile particles; w is [DIN] rows of R weights at a row stride of
 // WS floats followed by b [R] (x @ W + b), in and out are [rows][S] (S >=
 // kTile, a multiple of 4), all in shared memory. NT threads, numbered tid
 // (tile_layer: threadIdx.x), share the outputs in blocks of RB rows × 4
 // particles. The sum runs bias first, then i ascending, one fmaf per term,
-// whatever NT, RB and WS, so every mapping gives the same bits. The caller
-// synchronises before reading out.
-template <int DIN, int R, bool RELU, int S, int NT = kTrunkThreads, int RB = 4, int WS = R>
+// whatever NT, RB and WS, so every mapping gives the same bits. With CB (the
+// control mode of a first layer) the bias is b[r] + cb[r], cb the row's
+// control term [R] in device memory (fused_step.control_term), added before
+// the products. The caller synchronises before reading out.
+template <int DIN, int R, bool RELU, int S, int NT = kTrunkThreads, int RB = row_block(R, 4),
+          int WS = R, bool CB = false>
 __device__ __forceinline__ void tile_layer_at(const float* __restrict__ w,
                                               const float* __restrict__ in,
-                                              float* __restrict__ out, int tid) {
-  static_assert((RB == 2 || RB == 4 || RB == 8) && R % RB == 0 && WS % RB == 0,
+                                              float* __restrict__ out, int tid,
+                                              const float* __restrict__ cb = nullptr) {
+  static_assert((RB == 1 || RB == 2 || RB == 4 || RB == 8) && R % RB == 0 && WS % RB == 0,
                 "RB x 4 register blocks need R % RB == 0");
   constexpr int kColGroups = kTile / 4;
   const float* b = w + DIN * WS;
@@ -34,7 +45,8 @@ __device__ __forceinline__ void tile_layer_at(const float* __restrict__ w,
     float acc[RB][4];
 #pragma unroll
     for (int q = 0; q < RB; ++q) {
-      const float bias = b[r0 + q];
+      float bias = b[r0 + q];
+      if constexpr (CB) bias = __fadd_rn(bias, __ldg(cb + r0 + q));
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[q][c] = bias;
     }
@@ -50,10 +62,12 @@ __device__ __forceinline__ void tile_layer_at(const float* __restrict__ w,
           wq[q + 2] = wv.z;
           wq[q + 3] = wv.w;
         }
-      } else {
+      } else if constexpr (RB == 2) {
         const float2 wv = *reinterpret_cast<const float2*>(w + i * WS + r0);
         wq[0] = wv.x;
         wq[1] = wv.y;
+      } else {
+        wq[0] = w[i * WS + r0];
       }
       const float4 xv = *reinterpret_cast<const float4*>(in + i * S + p0);
       const float xc[4] = {xv.x, xv.y, xv.z, xv.w};
@@ -77,11 +91,13 @@ __device__ __forceinline__ void tile_layer_at(const float* __restrict__ w,
   }
 }
 
-template <int DIN, int R, bool RELU, int S, int NT = kTrunkThreads, int RB = 4, int WS = R>
+template <int DIN, int R, bool RELU, int S, int NT = kTrunkThreads, int RB = row_block(R, 4),
+          int WS = R, bool CB = false>
 __device__ __forceinline__ void tile_layer(const float* __restrict__ w,
                                            const float* __restrict__ in,
-                                           float* __restrict__ out) {
-  tile_layer_at<DIN, R, RELU, S, NT, RB, WS>(w, in, out, threadIdx.x);
+                                           float* __restrict__ out,
+                                           const float* __restrict__ cb = nullptr) {
+  tile_layer_at<DIN, R, RELU, S, NT, RB, WS, CB>(w, in, out, threadIdx.x, cb);
 }
 
 // Copy rows x [rows][K] (row stride K, starting at particle k0) into a

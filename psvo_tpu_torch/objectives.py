@@ -510,7 +510,13 @@ def make_objective(ssm: SSM, cfg: Config):
         }
         elbo = fwd.log_z
         if not smoothing:
-            return ObjectiveOutput(-torch.mean(elbo), elbo, metrics, filter_result=fwd)
+            loss = -torch.mean(elbo)
+            if fwd.score_surrogate is not None:
+                # the full FIVO gradient: the resampling distribution's
+                # REINFORCE term at zero value (use_stop_gradient=False)
+                sur = torch.mean(fwd.score_surrogate)
+                loss = loss - (sur - sur.detach())
+            return ObjectiveOutput(loss, elbo, metrics, filter_result=fwd)
 
         batch, t_steps, _ = ys.shape
         k = smc_cfg.n_particles

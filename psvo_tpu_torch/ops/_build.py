@@ -51,11 +51,13 @@ SIGNATURES = {
     # K7 and K11 end in (..., design, ...plan, stream): 0 the new design, 1 the row one
     "psvo_ancestor_indices_large": [_P, _P, _P, _I, _I, _I, _I, _P],
     "psvo_gather_particles": [_P, _P, _P, _I, _I, _I, _P],
-    # K9 ends in (..., off_g, design, pair, prefetch, stream): 0 the async design, 1 the tile one
-    "psvo_trunk_forward": [_P] * 7 + [_U32, _U32] + [_I] * 14 + [_P],
+    # K9 ends in (..., off_g, design, pair, prefetch, ctrl, stream): 0 the async design, 1 the
+    # tile one; ctrl 1 when the coef rows carry the controls' first-layer terms
+    "psvo_trunk_forward": [_P] * 7 + [_U32, _U32] + [_I] * 15 + [_P],
     "psvo_segment_sum_scatter": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # K10 ends in (..., max_ctas, design, stream): 0 the tensor-core design, 1 the previous one
-    "psvo_trunk_backward": [_P] * 13 + [_U32, _U32] + [_I] * 13 + [_P],
+    # K10 ends in (..., max_ctas, design, ctrl, stream): 0 the tensor-core design, 1 the previous
+    # one; ctrl as K9's
+    "psvo_trunk_backward": [_P] * 13 + [_U32, _U32] + [_I] * 14 + [_P],
     # K12 ends in (..., off_g, design, paths, tile_rows, steps, stream): 0 the split design, 1 the
     # chain; a non-null cbias (the sixth pointer) runs the split design's control mode
     "psvo_svo_forward": [_P] * 10 + [_I] * 14 + [_P],
@@ -127,7 +129,8 @@ def build(out_dir: Path) -> Path:
         f"{seconds:.1f} s with the link\n" + "\n".join(log)
     )
     if failed:
-        os.unlink(tmp)
+        if os.path.exists(tmp):  # a failed link may have removed it
+            os.unlink(tmp)
         raise RuntimeError("nvcc failed:\n" + "\n".join(f[-8000:] for f in failed))
     os.replace(tmp, lib)
     return lib

@@ -1,32 +1,42 @@
 """The per-step trunk kernel, its VJP and their plain versions (counterpart
 of `psvo_tpu/ops/pallas_trunk.py`).
 
-Configurations whose state is too wide for the whole-scan kernel K1 (the
-Lorenz-96 preset: Dx = Dy = 40) filter step by step: the resample runs
-through the large-K kernels (`ops/resample_gather.py`), then one launch of
+The trunk class filters step by step: the resample runs through the
+large-K kernels (`ops/resample_gather.py`), then one launch of K9. It serves
+what the reference's trunk gate takes (`pallas_trunk.usable`): the wide
+Lorenz-96 state (Dx = Dy = 40), and at the FHN and Lorenz-63 widths (2, 2)
+and (3, 3) what the whole-scan class leaves to it — ESS-adaptive
+resampling, no resampling (IWAE), the full FIVO gradient (its score term
+taken outside the kernels, from K7's indices) — with or without controls.
 
-- K9 `trunk_forward` (replaces `pallas_trunk._tr_fwd`, `csrc/trunk_forward.cu`):
+- K9 `trunk_forward` (replaces `pallas_trunk._tr_fwd`, `csrc/trunk_forward.cuh`):
   the q1 and f trunks on the resampled particles, the fused draw
   x_new = cq·m1 + aq + sq·ε, the g trunk on x_new and
   α = −½Σ(z_f² − ε² + z_g²) + ab floored at −3e30, for one step. Plain
   version: `trunk_forward_reference`, `fused_step._propose_weight` plus the
   floor. The operands are K1's: `fused_step.prepare`'s packed weights and
-  `sconst`, and one step's row of `fused_step.pack_coef`. Two designs, with
-  the same bits; the paths run "async" (512 threads a CTA: 8 warps run the
-  nets, q1 and f layer by layer side by side in 8 x 4 register blocks, while
-  the other 8 load the next tile's coefficients and draw its ε; the next
-  tile's x_res and streamed ε copied in while the current one computes;
-  `k9_plan` leaves out what does not fit); "tile" (256 threads, the previous
-  design) stays callable with `design="tile"` as its yardstick.
+  `sconst`, and one step's row of `fused_step.pack_coef`; with controls
+  (di > 0) that row also carries u_t's first-layer terms of q1 and f
+  (`fused_step.control_term`), which the kernel's control mode adds to
+  those layers' bias. Two designs, with the same bits; the paths run
+  "async" (512 threads a CTA: 8 warps run the nets, q1 and f layer by layer
+  side by side in 8 x 4 register blocks, while the other 8 load the next
+  tile's coefficients and draw its ε; the next tile's x_res and streamed ε
+  copied in while the current one computes; `k9_plan` leaves out what does
+  not fit); "tile" (256 threads, the previous design) stays callable with
+  `design="tile"` as its yardstick (uncontrolled only).
 - K10 `trunk_backward` (replaces `pallas_trunk._tr_bwd`,
-  `csrc/trunk_backward.cu`): the VJP of K9 from its inputs and x_new —
+  `csrc/trunk_backward.cuh`): the VJP of K9 from its inputs and x_new —
   recompute the trunks and α, cut dα where the floor clamped, backprop g, q1
-  and f — giving d x_res, the step's d_coef row (zero for y), the packed
-  weight gradients and d_sconst. Plain version: `trunk_backward_reference`,
-  an autograd replay of the plain forward. Its backward products run on the
-  tensor cores in 3xTF32 (`csrc/mma_tf32.cuh`), 512 threads a CTA; the
-  previous design, every product on the fp32 cores, stays callable with
-  `design="simt"` as its yardstick.
+  and f — giving d x_res, the step's d_coef row (zero for y; with controls
+  the per-row sums of q1's and f's first-layer cotangents in the control
+  columns), the packed weight gradients and d_sconst. Plain version:
+  `trunk_backward_reference`, an autograd replay of the plain forward. At
+  Lorenz-96's width its backward products run on the tensor cores in 3xTF32
+  (`csrc/mma_tf32.cuh`), 512 threads a CTA ("tf32x3"); the previous design,
+  every product on the fp32 cores ("simt"), stays callable as its yardstick
+  and is the design of the small widths, whose first and last layers (2 or
+  3 wide) do not tile m16n8k8 (`k10_design`).
 
 `TrunkForward` joins K9 and K10 as one `torch.autograd.Function`, the
 counterpart of `pallas_trunk.trunk_call`'s custom VJP; `trunk_forward` goes
@@ -48,8 +58,10 @@ import torch
 from psvo_tpu_torch.ops import _build, fused_step, resample_gather
 from psvo_tpu_torch.ops.fused_step import SMEM_LIMIT, _ptr, _require
 
-TRUNK_DIMS = ((40, 40),)  # (Dx, Dy) instantiated: Lorenz-96
+TRUNK_DIMS = ((2, 2), (3, 3), (40, 40))  # (Dx, Dy) instantiated: FHN, Lorenz-63, Lorenz-96
+K10_TF32_DIMS = ((40, 40),)  # (Dx, Dy) of K10's tensor-core design
 HIDDEN_WIDTHS = (16, 32, 64)  # trunk widths instantiated
+_REF_MAX_ROWS = 55  # max(Dx + Di, Dy) + 1 <= pallas_trunk.MAX_PD = 56 rows
 TILE = 64  # particles per tile of the kernel
 _PARTS = 4  # threads summing one particle's α
 
@@ -61,7 +73,7 @@ def _net_floats(din: int, h: int, n_mid: int, dout: int) -> int:
 
 
 def smem_bytes(dx: int, dy: int, h: int, n_mid: int) -> int:
-    """Dynamic shared memory of K9 (csrc/trunk_forward.cu::launch_trunk): the
+    """Dynamic shared memory of K9 (csrc/trunk_forward.cuh::launch_trunk): the
     three nets' weights, the [rows][TILE] tiles (x_res / g's mean, q1's mean
     / x_new, f's mean, ε, two hidden layers, the α partial sums) and one
     row's coefficients."""
@@ -76,7 +88,7 @@ K9_PLANS = ((True, True), (True, False), (False, True), (False, False))  # (pair
 
 def k9_smem_bytes(dx: int, dy: int, h: int, n_mid: int, pair: bool = True,
                   prefetch: bool = True) -> int:
-    """Dynamic shared memory of K9's async design (csrc/trunk_forward.cu::
+    """Dynamic shared memory of K9's async design (csrc/trunk_forward.cuh::
     async_smem_floats): the tile design's (`smem_bytes`), plus with `pair`
     f's two hidden layers, plus with `prefetch` a second ε tile, a second
     row of coefficients and, unless f's spare hidden layer is wide enough
@@ -98,15 +110,22 @@ def k9_plan(dx: int, dy: int, h: int, n_mid: int) -> tuple[bool, bool]:
 DESIGNS = ("tf32x3", "simt")  # K10's designs: the tensor-core one, the previous one
 
 
+def k10_design(dx: int, dy: int) -> str:
+    """K10's design on the paths: the tensor-core one at Lorenz-96's width,
+    the previous one at the small widths (their 2- and 3-wide first and last
+    layers do not tile m16n8k8)."""
+    return "tf32x3" if (dx, dy) in K10_TF32_DIMS else "simt"
+
+
 def _net_floats_padded(din: int, h: int, n_mid: int, dout: int) -> int:
-    """One net's floats in K10's shared memory (csrc/trunk_backward.cu::
+    """One net's floats in K10's shared memory (csrc/trunk_backward.cuh::
     padded_net): every weight row padded by 4 floats, padded to 4."""
     n = din * (h + 4) + h + n_mid * (h * (h + 4) + h) + h * (dout + 4) + dout
     return n + (-n) % 4
 
 
 def k10_smem_bytes(dx: int, dy: int, h: int, n_mid: int, design: str = "tf32x3") -> int:
-    """Dynamic shared memory of K10 (csrc/trunk_backward.cu::
+    """Dynamic shared memory of K10 (csrc/trunk_backward.cuh::
     launch_trunk_backward): the three nets' weights (rows padded by 4 floats
     in the tf32x3 design), six tiles (x_res, x_new, ε, f's mean, g's mean,
     d x_new) and one net's n_mid + 1 hidden layers at a row stride of 72
@@ -125,35 +144,42 @@ def k10_smem_bytes(dx: int, dy: int, h: int, n_mid: int, design: str = "tf32x3")
     return 4 * (n_w + rows * stride + (_PARTS + 1) * TILE + nc + (-nc) % 4)
 
 
-def k10_ok(dx: int, dy: int, h: int, n_mid: int, k: int, design: str = "tf32x3") -> bool:
-    """Whether K10 is instantiated for the shape: K9's dims and widths, K a
-    multiple of 64, its shared memory in one CTA."""
+def k10_ok(dx: int, dy: int, h: int, n_mid: int, k: int, design: str | None = None) -> bool:
+    """Whether K10 is instantiated for the shape: K9's dims and widths (the
+    tensor-core design at `K10_TF32_DIMS` alone), K a multiple of 64, its
+    shared memory in one CTA. design None: `k10_design`'s."""
+    design = design or k10_design(dx, dy)
     return ((dx, dy) in TRUNK_DIMS and h in HIDDEN_WIDTHS and k % TILE == 0
+            and (design != "tf32x3" or (dx, dy) in K10_TF32_DIMS)
             and k10_smem_bytes(dx, dy, h, n_mid, design) <= SMEM_LIMIT)
 
 
 def usable(ssm, cfg) -> bool:
-    """Whether (ssm, smc-config) is in the trunk kernels' class: systematic
-    or multinomial resampling at every step (K7 searches any sorted position
-    stream), stop-gradient FIVO, relu q1/f/g trunks of one
-    uniform instantiated width, an instantiated (Dx, Dy), K that K7 holds
-    and K9 tiles, and the weights and tiles in one CTA's shared memory. No
-    controls (ssm.di > 0): K9 and K10 read no control term yet. Not
-    bootstrap mode, as the reference's gate (`pallas_trunk.usable`): K9
-    draws from q1/q2 and weights by f, g and q; nor, as that gate, known
-    dynamics, Poisson or Dirac emissions or a q1/f/g scale other than a
-    constant diagonal (`fused_step.model_in_class`)."""
+    """Whether (ssm, smc-config) is in the trunk kernels' class: what the
+    reference's trunk gate takes (`pallas_trunk.usable`) — systematic or
+    multinomial resampling at every step or ESS-adaptive (K7 searches any
+    sorted position stream, and the ESS test runs outside the kernels), no
+    resampling (IWAE), the full FIVO gradient (its score term is taken
+    outside the kernels, from K7's indices), controls (di > 0: u_t's
+    first-layer terms of q1 and f ride in the coefficient rows, the
+    reference's max(Dx + Di, Dy) + 1 <= 56 state rows), relu q1/f/g trunks of
+    one uniform width — at the instantiated (Dx, Dy) (`TRUNK_DIMS`) and hidden
+    width (`HIDDEN_WIDTHS`), K that K7 holds and K9 tiles, and the weights
+    and tiles in one CTA's shared memory. Not bootstrap mode, as the
+    reference's gate: K9 draws from q1/q2 and weights by f, g and q; nor, as
+    that gate, known dynamics, Poisson or Dirac emissions or a q1/f/g scale
+    other than a constant diagonal (`fused_step.model_in_class`). The
+    whole-scan class (`fused_step.usable`) goes first where it also takes a
+    configuration."""
     k = cfg.n_particles
     hidden = ssm.nets["q1"].hidden
     nets = [ssm.nets[n] for n in ("q1", "f", "g")]
     return (
         not cfg.use_bootstrap
         and fused_step.model_in_class(ssm)
-        and cfg.resampling in ("systematic", "multinomial")
-        and cfg.ess_threshold >= 1.0
-        and cfg.use_stop_gradient
-        and not ssm.di
+        and cfg.resampling in ("systematic", "multinomial", "none")
         and (ssm.dx, ssm.dy) in TRUNK_DIMS
+        and max(ssm.dx + ssm.di, ssm.dy) <= _REF_MAX_ROWS
         and k % TILE == 0
         and resample_gather.k_ok(k)
         and len(hidden) >= 1
@@ -164,27 +190,25 @@ def usable(ssm, cfg) -> bool:
     )
 
 
-def _split_coef(coef_t, dx: int, dy: int):
-    """aq, cq, sq [B, Dx, 1], y [B, Dy, 1] and ab [B, 1] of one pack_coef row."""
-    aq, cq, sq = (coef_t[:, i * dx:(i + 1) * dx, None] for i in range(3))
-    return aq, cq, sq, coef_t[:, 3 * dx:3 * dx + dy, None], coef_t[:, -1:]
-
-
 def _trunk_math(x_res, coef_t, consts, eps, x_new_value=None):
     """The plain step: (x_new, α floored at −3e30), differentiable; with
-    x_new_value the draw takes that value (see fused_step._propose_weight)."""
-    dx, dy = consts["dx"], consts["dy"]
+    x_new_value the draw takes that value (see fused_step._propose_weight).
+    With controls the row's last 2H columns add to q1's and f's first-layer
+    bias."""
+    dx = consts["dx"]
     q1, f, g = fused_step._unpack_nets(consts)
     sfi = consts["sconst"][:dx, None]
     sgi = consts["sconst"][dx:, None]
-    x_new, alpha = fused_step._propose_weight(q1, f, g, x_res, eps, *_split_coef(coef_t, dx, dy),
-                                              sfi, sgi, x_new_value)
+    aq, cq, sq, y, ab, cb = fused_step._split_coef(coef_t, consts)
+    x_new, alpha = fused_step._propose_weight(q1, f, g, x_res, eps, aq, cq, sq, y, ab, sfi, sgi,
+                                              x_new_value, cb=cb)
     return x_new, torch.clamp(alpha, min=-3e30)
 
 
 def trunk_forward_reference(x_res, coef_t, consts, eps):
-    """Plain version of K9: x_res [B, Dx, K], coef_t [B, 3·Dx + Dy + 1],
-    eps [B, Dx, K] -> (x_new [B, Dx, K], α [B, K] floored at −3e30)."""
+    """Plain version of K9: x_res [B, Dx, K], coef_t [B, coef_width] (3·Dx +
+    Dy + 1, and 2H more with controls), eps [B, Dx, K] -> (x_new [B, Dx, K],
+    α [B, K] floored at −3e30)."""
     trunk_forward_reference.calls += 1
     return _trunk_math(x_res, coef_t, consts, eps)
 
@@ -204,8 +228,11 @@ def trunk_forward(x_res, coef_t, consts, *, eps=None, seed=None, t: int = 0,
     words) at step t, as K2 extracts it. CPU tensors run the plain version
     (in-kernel RNG replayed through K2's plain version); CUDA tensors launch
     the kernel of `design` ("async", the default and the only one the paths
-    run; "tile", the previous design, kept as its yardstick: the same bits).
-    When autograd records, through `TrunkForward` (K10 its backward)."""
+    run; "tile", the previous design, kept as its yardstick: the same bits,
+    no control mode), or raise for a shape it is not instantiated for. With
+    controls (consts["di"] > 0) coef_t carries their first-layer terms
+    (`fused_step.pack_coef`) and the kernel runs its control mode. When
+    autograd records, through `TrunkForward` (K10 its backward)."""
     if (seed is None) == (eps is None):
         raise ValueError("trunk_forward: pass either eps or seed")
     if design not in K9_DESIGNS:
@@ -224,12 +251,13 @@ def trunk_forward(x_res, coef_t, consts, *, eps=None, seed=None, t: int = 0,
         raise ValueError(f"trunk_forward: unsupported device {x_res.device}")
     dy, h, n_mid = consts["dy"], consts["hidden"], consts["n_mid"]
     dev = x_res.device
+    ctrl = fused_step._ctrl(consts)
     if ((dx, dy) not in TRUNK_DIMS or h not in HIDDEN_WIDTHS or k % TILE
-            or smem_bytes(dx, dy, h, n_mid) > SMEM_LIMIT):
-        raise ValueError(f"trunk_forward: no kernel for Dx={dx}, Dy={dy}, hidden={h}, "
-                         f"{n_mid} middle layers, K={k}")
+            or smem_bytes(dx, dy, h, n_mid) > SMEM_LIMIT or (ctrl and design != "async")):
+        raise ValueError(f"trunk_forward: no {design} kernel for Dx={dx}, Dy={dy}, hidden={h}, "
+                         f"{n_mid} middle layers, K={k}, controls {bool(ctrl)}")
     _require(x_res, (batch, dx, k), "x_res", dev)
-    _require(coef_t, (batch, 3 * dx + dy + 1), "coef_t", dev)
+    _require(coef_t, (batch, fused_step.coef_width(consts)), "coef_t", dev)
     _require(consts["packed"], consts["packed"].shape, "weights", dev)
     _require(consts["sconst"], (dx + dy,), "sconst", dev)
     if seed is None:
@@ -247,7 +275,7 @@ def trunk_forward(x_res, coef_t, consts, *, eps=None, seed=None, t: int = 0,
         x_res.data_ptr(), _ptr(eps), coef_t.data_ptr(), consts["packed"].data_ptr(),
         consts["sconst"].data_ptr(), x_new.data_ptr(), alpha.data_ptr(), seed0, seed1,
         int(seed is not None), t, batch, k, dx, dy, h, n_mid, consts["packed"].numel(), off_f,
-        off_g, K9_DESIGNS.index(design), int(pair), int(prefetch),
+        off_g, K9_DESIGNS.index(design), int(pair), int(prefetch), ctrl,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     trunk_forward.launches += 1
@@ -266,7 +294,8 @@ def trunk_backward_reference(x_res, x_new, coef_t, consts, eps, d_x_new, d_alpha
     backpropagate the cotangents of x_new and α (the contract of
     `pallas_trunk._tr_bwd`, which reads x_new as a residual): the α cotangent
     is cut where the unfloored α < −3e30 (the gradient of torch.clamp); y
-    (coef columns 3·Dx .. 3·Dx + Dy) and ε get none. Returns (d_x_res,
+    (coef columns 3·Dx .. 3·Dx + Dy) and ε get none; the controls' columns
+    (with controls) get their first-layer terms' gradients. Returns (d_x_res,
     d_coef_t, d_packed, d_sconst)."""
     trunk_backward_reference.calls += 1
     dx, dy = consts["dx"], consts["dy"]
@@ -287,18 +316,21 @@ trunk_backward_reference.calls = 0
 
 
 def trunk_backward(x_res, x_new, coef_t, consts, d_x_new, d_alpha, *, eps=None, seed=None,
-                   t: int = 0, design: str = "tf32x3"):
+                   t: int = 0, design: str | None = None):
     """K10: the VJP of K9 for one step. Takes K9's inputs (x_res, coef_t,
     consts and the noise: eps [B, Dx, K] or the `seed` and step t it drew
     from), its output x_new and the cotangents d_x_new [B, Dx, K] and d_alpha
-    [B, K]. Returns (d_x_res [B, Dx, K], d_coef_t [B, 3·Dx + Dy + 1],
-    d_packed [n_w], d_sconst [Dx + Dy]) as `trunk_backward_reference`, which
-    CPU tensors run (in-kernel RNG replayed through K2's plain version);
-    CUDA tensors launch the kernel of `design` ("tf32x3", the default and
-    the only one the main path runs; "simt", the previous design, kept as
-    its yardstick), or raise for a shape it is not instantiated for."""
+    [B, K]. Returns (d_x_res [B, Dx, K], d_coef_t [B, coef_width], d_packed
+    [n_w], d_sconst [Dx + Dy]) as `trunk_backward_reference`, which CPU
+    tensors run (in-kernel RNG replayed through K2's plain version); CUDA
+    tensors launch the kernel of `design` (None: `k10_design`'s, the only
+    one the paths run — "tf32x3" at Lorenz-96's width, "simt" at the small
+    widths; "simt" at Lorenz-96's width is the previous design, kept as the
+    tensor-core one's yardstick), or raise for a shape it is not
+    instantiated for. With controls the kernel runs its control mode."""
     if (seed is None) == (eps is None):
         raise ValueError("trunk_backward: pass either eps or seed")
+    design = design or k10_design(x_res.shape[1], consts["dy"])
     if design not in DESIGNS:
         raise ValueError(f"trunk_backward: no design {design!r} (one of {DESIGNS})")
     batch, dx, k = x_res.shape
@@ -310,16 +342,20 @@ def trunk_backward(x_res, x_new, coef_t, consts, d_x_new, d_alpha, *, eps=None, 
         raise ValueError(f"trunk_backward: unsupported device {x_res.device}")
     dy, h, n_mid = consts["dy"], consts["hidden"], consts["n_mid"]
     dev = x_res.device
+    ctrl = fused_step._ctrl(consts)
     if not k10_ok(dx, dy, h, n_mid, k, design):
         raise ValueError(f"trunk_backward: no {design} kernel for Dx={dx}, Dy={dy}, hidden={h}, "
                          f"{n_mid} middle layers, K={k} "
                          f"({k10_smem_bytes(dx, dy, h, n_mid, design)} B of shared memory, at "
                          f"most {SMEM_LIMIT})")
+    if ctrl and design != k10_design(dx, dy):
+        raise ValueError(f"trunk_backward: the control mode runs {k10_design(dx, dy)!r} at "
+                         f"Dx={dx}, not {design!r}")
     packed = consts["packed"]
     n_w = packed.numel()
     _require(x_res, (batch, dx, k), "x_res", dev)
     _require(x_new, (batch, dx, k), "x_new", dev)
-    _require(coef_t, (batch, 3 * dx + dy + 1), "coef_t", dev)
+    _require(coef_t, (batch, fused_step.coef_width(consts)), "coef_t", dev)
     _require(packed, (n_w,), "weights", dev)
     _require(consts["sconst"], (dx + dy,), "sconst", dev)
     _require(d_x_new, (batch, dx, k), "d_x_new", dev)
@@ -334,7 +370,7 @@ def trunk_backward(x_res, x_new, coef_t, consts, d_x_new, d_alpha, *, eps=None, 
     d_x_res = torch.empty((batch, dx, k), **f32)
     d_coef = torch.empty(coef_t.shape, **f32)
     partial = torch.empty((max_ctas, n_w + dx + dy), **f32)
-    coef_part = torch.empty((batch * (k // TILE), 3 * dx + 1), **f32)
+    coef_part = torch.empty((batch * (k // TILE), 3 * dx + 1 + 2 * h * ctrl), **f32)
     grads = torch.empty((n_w + dx + dy,), **f32)
     seed0, seed1 = (0, 0) if seed is None else seed
     lib = _build.load_library()
@@ -344,7 +380,7 @@ def trunk_backward(x_res, x_new, coef_t, consts, d_x_new, d_alpha, *, eps=None, 
         consts["sconst"].data_ptr(), d_x_new.data_ptr(), d_alpha.data_ptr(), d_x_res.data_ptr(),
         partial.data_ptr(), coef_part.data_ptr(), grads.data_ptr(), d_coef.data_ptr(), seed0,
         seed1, int(seed is not None), t, batch, k, dx, dy, h, n_mid, n_w, off_f, off_g, max_ctas,
-        DESIGNS.index(design), torch.cuda.current_stream(dev).cuda_stream,
+        DESIGNS.index(design), ctrl, torch.cuda.current_stream(dev).cuda_stream,
     )
     trunk_backward.launches += 1
     trunk_backward.launches_by_design[design] += 1

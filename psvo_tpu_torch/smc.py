@@ -8,31 +8,36 @@ the FIVO increment lse(α) − log K.
 Three paths, chosen from what the call can observe:
 
 - the whole-scan class (`ops.fused_step.usable`: diagonal models of the FHN
-  and Lorenz-63 shapes, systematic or multinomial resampling at every step)
-  runs
+  and Lorenz-63 shapes, systematic or multinomial resampling at every step,
+  stop-gradient) runs
   `_forward_filter_fused`, whose steps t = 1..T−1 are one call of
   `fused_step.scan_forward` — the CUDA kernel K1 for CUDA tensors, its
   plain version for CPU tensors — and, when autograd records, one
   `fused_step.ScanForward`, whose backward is the CUDA kernel K4 (or its
   plain version); with `fused_step.SCAN_FUSED` off, a loop of one
   `fused_step.StepForward` per step instead (K14 forward, K15 backward);
-- the trunk class (`ops.trunk.usable`: the wide Lorenz-96 state, up to
-  K = 19200) runs `_forward_filter_trunk`, a Python loop over t of the
-  large-K resample (K7 indices, K8 gather) and the trunk kernel K9, with
-  the weight bookkeeping in tensor ops between them; when autograd records,
-  the gather goes through `resample_gather.GatherParticles` (backward: the
-  segment-sum scatter K11) and the trunk through `trunk.TrunkForward`
-  (backward: K10), so the loss's gradient runs K10 and K11 once per step;
+- the trunk class (`ops.trunk.usable`: the reference's trunk class at the
+  instantiated (Dx, Dy) of FHN, Lorenz-63 and Lorenz-96 — the wide state up
+  to K = 19200, and at the small widths what the whole-scan class leaves:
+  ESS-adaptive resampling, no resampling (IWAE), the full FIVO gradient)
+  runs `_forward_filter_trunk`, a Python loop over t of the large-K
+  resample (K7 indices, K8 gather; none without resampling) and the trunk
+  kernel K9, with the weight bookkeeping in tensor ops between them; when
+  autograd records, the gather goes through `resample_gather.GatherParticles`
+  (backward: the segment-sum scatter K11) and the trunk through
+  `trunk.TrunkForward` (backward: K10), so the loss's gradient runs K10 and
+  K11 once per step (no K11 without resampling);
 - everything else runs the plain step body in a Python loop over t, the
   counterpart of the reference's plain scan (`psvo_tpu/smc.py:671-760`). On
   CUDA tensors it serves the configurations that the reference's own gates
   send to that scan (`reference_path`): bootstrap mode, known dynamics,
-  full-covariance or state-dependent heads, Poisson and Dirac emissions, no
-  resampling (IWAE), and shapes outside the reference's kernels. There it
+  full-covariance or state-dependent heads, Poisson and Dirac emissions,
+  and shapes outside the reference's kernels (IWAE at K = 16). There it
   resamples through K7 and K8 (`resampling.maybe_resample`), and its
   backward runs K11 (`resample_gather.GatherParticles`); without
   resampling it launches no kernel. A configuration that the reference
-  sends to one of its kernels, but that no port kernel class takes, raises
+  sends to one of its kernels, but that no port kernel class takes (a
+  (Dx, Dy) or hidden width the kernels are not instantiated for), raises
   NotImplementedError on CUDA tensors rather than run plain PyTorch where
   the reference runs a kernel.
 
@@ -52,14 +57,18 @@ replays a segment through the same code, bit for bit.
 Controls [B, T, Di] (data.di > 0) are exogenous inputs: step t's q1 and f
 see [x_{t−1}; u_t], so the carry into step t holds u_t (`controls=`; zeros
 when None, as the reference's `_controls_tm`). The plain body concatenates
-them; the whole-scan and per-step paths fold them into the coefficient rows
-(`fused_step.control_term`); the trunk class takes none.
+them; the kernel paths fold them into the coefficient rows
+(`fused_step.control_term`), whose first-layer terms K1, K14 and K9 add to
+q1's and f's first-layer bias.
 
 Public shapes follow the reference: particles are channel-major
 [B, Dx, K], `FilterResult.xs` is [T, B, Dx, K] and `filtered_means`
-[T, B, Dx]. Gradients follow the reference's stop-gradient FIVO: none
-through the ancestor choice (the score-function surrogate of the full FIVO
-gradient, which needs multinomial resampling, is not ported yet).
+[T, B, Dx]. Gradients follow the reference: with smc.use_stop_gradient
+none goes through the ancestor choice; without it (the full FIVO gradient,
+multinomial resampling) the plain body and the trunk path also return
+`FilterResult.score_surrogate`, the REINFORCE term of the resampling
+distribution (`_score_surrogate`), which the FIVO objective adds at zero
+value.
 """
 
 from __future__ import annotations
@@ -73,7 +82,7 @@ import torch
 
 from psvo_tpu_torch.config import SMCConfig
 from psvo_tpu_torch.distributions import (
-    effective_sample_size, mvn_diag_log_prob_cm, mvn_tril_sample_cm,
+    effective_sample_size, log_normalize, mvn_diag_log_prob_cm, mvn_tril_sample_cm,
 )
 from psvo_tpu_torch.models.ssm import SSM
 from psvo_tpu_torch.ops import fused_step, resampling, trunk
@@ -81,6 +90,28 @@ from psvo_tpu_torch.ops import fused_step, resampling, trunk
 
 def _lse(logw):
     return torch.logsumexp(logw, dim=-1)
+
+
+def _ancestor_score(logw_pre, did, idx):
+    """The score-function term of one resample (the full FIVO gradient,
+    Maddison et al. 2017): Σ_k log Ŵ[a_k], the categorical log-prob of the
+    chosen ancestors idx [B, K] under the normalized incoming weights
+    logw_pre [B, K], differentiable through them; 0 on the rows that the ESS
+    test kept (did [B] false). The reference's `smc.py:161-169`."""
+    logw_norm, _ = log_normalize(logw_pre, dim=-1)
+    picked = torch.gather(logw_norm, -1, idx.long())
+    return torch.where(did, torch.sum(picked, dim=-1), torch.zeros_like(picked[:, 0]))
+
+
+def _score_surrogate(ells, scores):
+    """Σ_t stopgrad(Σ_{s>=t} ℓ_s) · score_t over the steps t = 1..T−1 (ells,
+    scores [T−1, B]): the REINFORCE term of the resampling distribution, the
+    return-to-go from step t (its own increment included) weighting the
+    log-prob of its ancestors. Its value means nothing; the objective adds
+    (surrogate − surrogate.detach()), so only its gradient acts. The
+    reference's `smc._score_surrogate` (`smc.py:759-767`)."""
+    future = torch.flip(torch.cumsum(torch.flip(ells, [0]), dim=0), [0])
+    return torch.sum(future.detach() * scores, dim=0)
 
 
 @dataclass
@@ -95,6 +126,9 @@ class FilterResult:
     xs: Optional[torch.Tensor] = None  # [T, B, Dx, K] (cache only)
     logws: Optional[torch.Tensor] = None  # [T, B, K] (cache only)
     filtered_means: Optional[torch.Tensor] = None  # [T, B, Dx]
+    # zero-valued-gradient carrier of the resampling score-function term
+    # (use_stop_gradient=False, the full FIVO gradient); None otherwise
+    score_surrogate: Optional[torch.Tensor] = None  # [B]
 
 
 def _init_t0(ssm: SSM, eps0, y0, enc0):
@@ -133,8 +167,10 @@ def _make_step_body(ssm: SSM, cfg: SMCConfig, remat: bool = False):
     """One plain filtering step t: (maybe) resample -> propose -> weight.
 
     body((x, logw), (y_t, q2_t, ctrl_t, eps_t, u_t)) -> ((x_new, logw_new),
-    (ell, ess, fmean)); q2_t is the step's precomputed q2 (mean, scale) or
-    None, ctrl_t its controls [B, Di], u_t the resampling uniforms.
+    (ell, ess, fmean, score)); q2_t is the step's precomputed q2 (mean, scale)
+    or None, ctrl_t its controls [B, Di], u_t the resampling uniforms; score
+    [B] the resample's score-function term (`_ancestor_score`) without
+    smc.use_stop_gradient, else zeros.
 
     The proposal, by model (the reference's `smc._make_step_body`): in
     bootstrap mode with a full-covariance f the correlated draw
@@ -155,6 +191,7 @@ def _make_step_body(ssm: SSM, cfg: SMCConfig, remat: bool = False):
     the parameters read inside get their gradients from its backward.
     """
     resample_on = cfg.resampling != "none"
+    score_on = resample_on and not cfg.use_stop_gradient
 
     def propose_weight(x, logw, y_t, q2_t, ctrl_t, eps_t):
         if ssm.f_tril and ssm.use_bootstrap:
@@ -195,10 +232,14 @@ def _make_step_body(ssm: SSM, cfg: SMCConfig, remat: bool = False):
     def body(carry, inputs):
         x, logw = carry
         y_t, q2_t, ctrl_t, eps_t, u_t = inputs
+        score = torch.zeros_like(logw[:, 0])
         if resample_on:
-            x, logw, _, ess, _ = resampling.maybe_resample(
+            logw_pre = logw
+            x, logw, did, ess, idx = resampling.maybe_resample(
                 u_t, logw, x, method=cfg.resampling, ess_threshold=cfg.ess_threshold
             )
+            if score_on:
+                score = _ancestor_score(logw_pre, did, idx)
         else:
             ess = effective_sample_size(logw, dim=-1)
         if remat and torch.is_grad_enabled():
@@ -208,7 +249,7 @@ def _make_step_body(ssm: SSM, cfg: SMCConfig, remat: bool = False):
                 preserve_rng_state=False)
         else:
             x_new, logw_new, ell, fmean = propose_weight(x, logw, y_t, q2_t, ctrl_t, eps_t)
-        return (x_new, logw_new), (ell, ess, fmean)
+        return (x_new, logw_new), (ell, ess, fmean, score)
 
     return body
 
@@ -385,41 +426,55 @@ def _forward_filter_trunk(
     cache: bool,
     encoder_inputs=None,
     streams: Optional[tuple] = None,
+    controls=None,
 ) -> FilterResult:
-    """The trunk path: `_fused_preamble` (t = 0, the fusion coefficients and
-    the noise), then per step t = 1..T−1 the resample
-    (`resampling.maybe_resample` through K7/K8) and one `trunk.trunk_forward`
-    (K9), with ℓ, the ESS and the filtered mean as tensor ops on [B, K].
-    Nothing inside the loop waits for the device. With cfg.kernel_rng K9
-    draws each step's ε from the seed, and the positions u_scan come from
-    `generator` after it.
+    """The trunk path, step for step the reference's trunk body
+    (`psvo_tpu/smc.py:560-595`): `_fused_preamble` (t = 0, the fusion
+    coefficients, the controls' first-layer terms and the noise), then per
+    step t = 1..T−1 the resample (`resampling.maybe_resample` through K7/K8:
+    every row at ess_threshold >= 1, else the rows whose ESS fell below it,
+    the others keeping their particles and weights; no resample and the
+    ESS of the current weights without resampling) and one
+    `trunk.trunk_forward` (K9), with ℓ, the ESS and the filtered mean as
+    tensor ops on [B, K]. Nothing inside the loop waits for the device. With
+    cfg.kernel_rng K9 draws each step's ε from the seed, and the positions
+    u_scan come from `generator` after it.
 
     Under autograd the gradient of ℓ = lse(logw + α) − lse(logw) reaches
-    t = 0, the fusion coefficients, ab and the packed head weights through
-    the two autograd Functions; resampled rows restart at log-weight 0 (a
-    constant), and the ESS and the filtered means are metrics that carry no
-    gradient, as K4 drops their cotangents on the whole-scan path.
+    t = 0, the fusion coefficients, ab, the controls' terms and the packed
+    head weights through the two autograd Functions; resampled rows restart
+    at log-weight 0 (a constant), and the ESS and the filtered means are
+    metrics that carry no gradient, as K4 drops their cotangents on the
+    whole-scan path. Without smc.use_stop_gradient each resample's score
+    term (`_ancestor_score`, from K7's indices) goes into
+    `score_surrogate`.
     """
     batch, t_steps, _ = ys.shape
     k = cfg.n_particles
+    resample_on = cfg.resampling != "none"
+    score_on = not cfg.use_stop_gradient
     consts, coef, x0, alpha0, eps_scan, u_scan, seed = _fused_preamble(
-        ssm, generator, ys, cfg, encoder_inputs, streams
+        ssm, generator, ys, cfg, encoder_inputs, streams, controls
     )
-    if seed is not None:
+    if seed is not None and resample_on:
         u_scan = resampling.bulk_positions(generator, t_steps - 1, batch, k, cfg.resampling)
 
     x, logw = x0.contiguous(), alpha0.contiguous()
-    ells, esss, fmeans = [_lse(alpha0) - math.log(k)], [], []
-    xs = logws = None
-    if cache:
-        xs = x0.new_empty((t_steps, batch, ssm.dx, k))
-        logws = x0.new_empty((t_steps, batch, k))
-        xs[0], logws[0] = x0, alpha0
+    ells, esss, fmeans, scores = [], [], [], []
+    xs, logws = [x0], [alpha0]
     for t in range(t_steps - 1):
-        x, logw, _, ess, _ = resampling.maybe_resample(
-            u_scan[t], logw, x, method=cfg.resampling, ess_threshold=cfg.ess_threshold,
-            use_kernel=True,
-        )
+        if resample_on:
+            logw_pre = logw
+            x, logw, did, ess, idx = resampling.maybe_resample(
+                u_scan[t], logw, x, method=cfg.resampling, ess_threshold=cfg.ess_threshold,
+                use_kernel=True,
+            )
+            if score_on:
+                scores.append(_ancestor_score(logw_pre, did, idx))
+        else:
+            ess = effective_sample_size(logw, dim=-1)
+            if score_on:
+                scores.append(torch.zeros_like(ess))
         noise = {"seed": seed, "t": t} if seed is not None else {"eps": eps_scan[t]}
         x, alpha = trunk.trunk_forward(x, coef[t], consts, **noise)
         logw_new = logw + alpha
@@ -429,9 +484,12 @@ def _forward_filter_trunk(
                                    x.detach()))
         logw = logw_new
         if cache:
-            xs[t + 1], logws[t + 1] = x, logw
+            xs.append(x)
+            logws.append(logw)
 
-    increments = torch.stack(ells)
+    steps = torch.stack(ells)
+    ell0 = _lse(alpha0) - math.log(k)
+    increments = torch.cat([ell0[None], steps])
     alpha0 = alpha0.detach()
     fmean0 = torch.einsum("bk,bdk->bd", torch.softmax(alpha0, dim=-1), x0.detach())
     return FilterResult(
@@ -440,9 +498,10 @@ def _forward_filter_trunk(
         ess=torch.stack([effective_sample_size(alpha0), *esss]),
         x_last=x,
         logw_last=logw,
-        xs=xs,
-        logws=logws,
+        xs=torch.stack(xs) if cache else None,
+        logws=torch.stack(logws) if cache else None,
         filtered_means=torch.stack([fmean0, *fmeans]),
+        score_surrogate=_score_surrogate(steps, torch.stack(scores)) if score_on else None,
     )
 
 
@@ -469,8 +528,10 @@ def reference_path(ssm: SSM, cfg: SMCConfig) -> str:
     (resampling through K7/K8, K11 in the backward), serves only "scan"
     configurations that no port kernel class takes; a configuration the
     reference sends to a kernel whose class the port has not instantiated for
-    it (a (Dx, Dy) outside `fused_step.KERNEL_DIMS`, ESS-adaptive
-    resampling, IWAE at a K the trunk kernel tiles) raises."""
+    it (a (Dx, Dy) outside `trunk.TRUNK_DIMS`, a hidden width outside
+    `trunk.HIDDEN_WIDTHS`) raises. "trunk" takes ESS-adaptive resampling, no
+    resampling (IWAE at a K the trunk kernel tiles), the full FIVO gradient
+    and controls: `trunk.usable` takes each at the instantiated widths."""
     k = cfg.n_particles
     nets = [ssm.nets[n] for n in ("q1", "f", "g")]
     hidden = nets[0].hidden
@@ -528,7 +589,7 @@ def forward_filter(
         path = _forward_filter_fused
     elif t_steps >= 2 and trunk.usable(ssm, cfg):
         path = _forward_filter_trunk
-    kw = {"controls": controls} if path is _forward_filter_fused else {}
+    kw = {"controls": controls}
     if ys.is_cuda:
         if path is not None:
             return path(ssm, generator, ys, cfg, cache=cache, encoder_inputs=encoder_inputs,
@@ -559,10 +620,10 @@ def forward_filter(
 
     body = _make_step_body(ssm, cfg, remat=cfg.remat)
     carry = (x0, alpha0)
-    xs, logws, ells, esss, fmeans = [x0], [alpha0], [ell0], [], []
+    xs, logws, ells, esss, fmeans, scores = [x0], [alpha0], [ell0], [], [], []
     for t in range(1, t_steps):
         q2_t = (q2[0][t], q2[1][t]) if q2 is not None else None
-        carry, (ell, ess, fmean) = body(
+        carry, (ell, ess, fmean, score) = body(
             carry, (ys_tm[t], q2_t, ctrl_tm[t], eps_scan[t - 1], u_scan[t - 1]))
         if cache:
             xs.append(carry[0])
@@ -570,6 +631,7 @@ def forward_filter(
         ells.append(ell)
         esss.append(ess)
         fmeans.append(fmean)
+        scores.append(score)
 
     increments = torch.stack(ells)
     fmean0 = torch.einsum("bk,bdk->bd", torch.softmax(alpha0, dim=-1), x0)
@@ -582,6 +644,9 @@ def forward_filter(
         xs=torch.stack(xs) if cache else None,
         logws=torch.stack(logws) if cache else None,
         filtered_means=torch.stack([fmean0, *fmeans]),
+        score_surrogate=(None if cfg.use_stop_gradient
+                         else _score_surrogate(increments[1:],
+                                               torch.stack(scores) if scores else increments[1:])),
     )
 
 
@@ -779,7 +844,7 @@ def _forward_filter_segmented_plain(
         for j in range(seg_len):
             t = 1 + s * seg_len + j
             q2_t = (q2[0][t], q2[1][t]) if q2 is not None else None
-            carry, (ell, ess, fmean) = body(carry, (ys_tm[t], q2_t, ctrl_tm[t], eps[j], u[j]))
+            carry, (ell, ess, fmean, _) = body(carry, (ys_tm[t], q2_t, ctrl_tm[t], eps[j], u[j]))
             stats.append(torch.cat([ell[:, None], ess[:, None], fmean], dim=-1))
             xs.append(carry[0])
             logws.append(carry[1])

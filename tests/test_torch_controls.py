@@ -410,13 +410,17 @@ def test_fused_step_gate_admits_built_controlled_shapes(_interpret, datatype, di
 
 
 def test_other_kernel_classes_refuse_controls():
-    """The trunk class (K7–K11) refuses a controlled model; the same model
-    without controls is in it. The FFBSi sweep (K5/K6, whose support terms
-    take the controls) and SVO's (K12/K13, in their control mode) take one
-    while Dx + Di <= 7, as the reference's SVO gate (`pallas_svo.py:122`)."""
+    """The trunk class (K7–K11, K9 and K10 in their control mode) takes a
+    controlled model as the reference's trunk gate does, while
+    max(Dx + Di, Dy) + 1 fits its 56 state rows, and refuses one beyond.
+    The FFBSi sweep (K5/K6, whose support terms take the controls) and
+    SVO's (K12/K13, in their control mode) take one while Dx + Di <= 7, as
+    the reference's SVO gate (`pallas_svo.py:122`)."""
     l96 = PRESETS["lorenz96_fivo_k8192_sharded"]
     l96_ctrl = dataclasses.replace(l96, data=dataclasses.replace(l96.data, di=2))
-    assert trunk.usable(SSM(l96), l96.smc) and not trunk.usable(SSM(l96_ctrl), l96_ctrl.smc)
+    l96_wide = dataclasses.replace(l96, data=dataclasses.replace(l96.data, di=16))
+    assert trunk.usable(SSM(l96), l96.smc) and trunk.usable(SSM(l96_ctrl), l96_ctrl.smc)
+    assert not trunk.usable(SSM(l96_wide), l96_wide.smc)
     assert ffbsi.usable(2, 16) and ffbsi.usable(3, 16)
     svo_cfg = PRESETS["lorenz63_svo_k256"]
     for di, want in ((0, True), (2, True), (4, True), (5, False)):

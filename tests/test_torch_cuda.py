@@ -90,7 +90,11 @@ def test_scan_forward_kernel_matches_plain(rng):
 def test_cuda_tensor_outside_the_kernel_class_raises():
     """Multinomial resampling is inside the whole-scan class: the filter
     launches K1 once on its streamed positions and runs no plain version.
-    ESS-adaptive resampling, which no port class takes, still raises."""
+    ESS-adaptive resampling is in the trunk class: K9 once a step, no plain
+    version. At a width no trunk kernel is instantiated for (Dx = Dy = 10)
+    it still raises."""
+    from psvo_tpu_torch.ops import trunk
+
     dev = _cuda()
     cfg = PRESETS["fhn_fivo_k1024_bench"]
     ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
@@ -104,9 +108,18 @@ def test_cuda_tensor_outside_the_kernel_class_raises():
     assert fused_step.scan_forward.launches == launches + 1
     assert fused_step.scan_forward_reference.calls == calls
     assert bool(torch.isfinite(fwd.log_z).all())
+    ess = dataclasses.replace(cfg.smc, ess_threshold=0.5)
+    launches, calls = trunk.trunk_forward.launches, trunk.trunk_forward_reference.calls
+    with torch.no_grad():
+        fwd = forward_filter(ssm, torch.Generator(device=dev), ys, ess)
+    assert trunk.trunk_forward.launches == launches + 4
+    assert trunk.trunk_forward_reference.calls == calls
+    assert bool(torch.isfinite(fwd.log_z).all())
+    wide = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dx=10, dy=10))
+    wide_ssm = init_ssm(wide, torch.Generator().manual_seed(0), device=dev)
     with pytest.raises(NotImplementedError):
-        forward_filter(ssm, torch.Generator(device=dev), ys,
-                       dataclasses.replace(cfg.smc, ess_threshold=0.5))
+        forward_filter(wide_ssm, torch.Generator(device=dev), torch.zeros((2, 5, 10), device=dev),
+                       ess)
 
 
 def _small_cfg(preset="fhn_fivo_k1024_bench", **smc):
@@ -1193,7 +1206,7 @@ def _k9_launch(x_res, coef, consts, noise, t, pair, prefetch):
         consts["packed"].data_ptr(), consts["sconst"].data_ptr(), x_new.data_ptr(),
         alpha.data_ptr(), seed[0], seed[1], int("seed" in noise), t, b, k, dx, consts["dy"],
         consts["hidden"], consts["n_mid"], consts["packed"].numel(), off_f, off_g, 0, int(pair),
-        int(prefetch), torch.cuda.current_stream(x_res.device).cuda_stream)
+        int(prefetch), 0, torch.cuda.current_stream(x_res.device).cuda_stream)
     _build.check(lib, err, "psvo_trunk_forward")
     return x_new, alpha
 
@@ -1513,11 +1526,14 @@ def test_controlled_train_step_runs_the_kernels(monkeypatch, scan_fused):
 
 
 def test_cuda_controls_outside_the_kernel_classes_raise():
-    """A controlled model on CUDA tensors outside the built classes raises
-    rather than run plain PyTorch on the card: the trunk class (Lorenz-96
-    with controls), Dx + Di > 7, and PSVO and SVO at Dx + Di > 7 (their
-    forward filter has no kernel path there; at Dx + Di <= 7 both run)."""
+    """A controlled model on CUDA tensors outside the whole-scan class runs
+    the trunk class's kernels in their control mode (Lorenz-96 with
+    controls, and FHN at Dx + Di > 7): K9 once a step, no plain version;
+    PSVO at Dx + Di > 7 runs on that forward (K9, then K5), and SVO there,
+    whose sweep kernel takes Dx + Di <= 7, still raises rather than run
+    plain PyTorch on the card."""
     from psvo_tpu_torch.objectives import make_objective
+    from psvo_tpu_torch.ops import ffbsi, trunk
     from psvo_tpu_torch.smc import forward_filter
 
     dev = _cuda()
@@ -1526,17 +1542,30 @@ def test_cuda_controls_outside_the_kernel_classes_raise():
         cfg = PRESETS[preset]
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, di=di))
         ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
-        with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-            forward_filter(ssm, torch.Generator(device=dev), torch.zeros(shape, device=dev),
-                           cfg.smc, controls=torch.zeros((*shape[:2], di), device=dev))
+        launches, calls = trunk.trunk_forward.launches, trunk.trunk_forward_reference.calls
+        with torch.no_grad():
+            out = forward_filter(ssm, torch.Generator(device=dev), torch.zeros(shape, device=dev),
+                                 cfg.smc, controls=torch.ones((*shape[:2], di), device=dev))
+        assert trunk.trunk_forward.launches == launches + 4
+        assert trunk.trunk_forward_reference.calls == calls
+        assert bool(torch.isfinite(out.log_z).all())
     for preset in ("lorenz63_psvo_k1024", "lorenz63_svo_k256"):
         cfg = PRESETS[preset]
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, di=5))
         objective = make_objective(init_ssm(cfg, torch.Generator().manual_seed(0), device=dev),
                                    cfg)
+        args = (torch.Generator(device=dev), torch.zeros((2, 5, 3), device=dev))
+        kw = {"controls": torch.zeros((2, 5, 5), device=dev)}
+        if preset.startswith("lorenz63_psvo"):
+            launches = (trunk.trunk_forward.launches, ffbsi.ffbsi_forward.launches)
+            with torch.no_grad():
+                out = objective(*args, **kw)
+            assert (trunk.trunk_forward.launches, ffbsi.ffbsi_forward.launches) == (
+                launches[0] + 4, launches[1] + 1)
+            assert bool(torch.isfinite(out.loss))
+            continue
         with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-            objective(torch.Generator(device=dev), torch.zeros((2, 5, 3), device=dev),
-                      controls=torch.zeros((2, 5, 5), device=dev))
+            objective(*args, **kw)
 
 
 def test_cuda_bootstrap_model_raises():
@@ -1705,33 +1734,116 @@ def test_cuda_general_path_matches_the_cpu(mode):
 
 
 def test_cuda_reference_kernel_class_outside_the_ports_raises():
-    """A configuration the reference runs through one of its kernels, but no
-    port kernel class takes, raises on CUDA tensors rather than run the plain
-    loop where the reference runs a kernel: IWAE at K = 128 and ESS-adaptive
-    resampling (its trunk kernel). Multinomial resampling at the FHN width
-    (the reference's whole-step kernel) is in the port's whole-scan class
-    now: one K1 launch, no plain version."""
+    """A configuration the reference runs through one of its kernels runs a
+    port kernel on CUDA tensors, never the plain loop: multinomial resampling
+    at the FHN width (the reference's whole-step kernel) launches K1 once;
+    IWAE at K = 128 and ESS-adaptive resampling (its trunk kernel) launch K9
+    once a step (K7/K8 only with resampling), no plain version. One outside
+    every port kernel class — the trunk class at a (Dx, Dy) with no
+    instantiation, Dx = Dy = 10 — still raises rather than run the plain
+    loop where the reference runs a kernel."""
     from psvo_tpu_torch import smc
+    from psvo_tpu_torch.ops import resample_gather as rg
+    from psvo_tpu_torch.ops import trunk
 
     dev = _cuda()
     cfg = _small_cfg("fhn_fivo_k128")
     ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
     ys = torch.zeros((8, 6, 2), device=dev)
-    for kw, route in (({"resampling": "multinomial"}, "fused"),
-                      ({"resampling": "none"}, "trunk"),
-                      ({"ess_threshold": 0.5}, "trunk")):
+    kernels = (fused_step.scan_forward, rg.ancestor_indices_large, trunk.trunk_forward)
+    plain = (fused_step.scan_forward_reference, rg.ancestor_indices_large_reference,
+             trunk.trunk_forward_reference)
+    for kw, route, want in (({"resampling": "multinomial"}, "fused", [1, 0, 0]),
+                            ({"resampling": "none"}, "trunk", [0, 0, 5]),
+                            ({"ess_threshold": 0.5}, "trunk", [0, 5, 5])):
         smc_cfg = dataclasses.replace(cfg.smc, **kw)
         assert smc.reference_path(ssm, smc_cfg) == route
-        if route == "fused":
-            launches = fused_step.scan_forward.launches
-            calls = fused_step.scan_forward_reference.calls
-            with torch.no_grad():
-                smc.forward_filter(ssm, torch.Generator(device=dev), ys, smc_cfg)
-            assert fused_step.scan_forward.launches == launches + 1
-            assert fused_step.scan_forward_reference.calls == calls
-            continue
-        with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-            smc.forward_filter(ssm, torch.Generator(device=dev), ys, smc_cfg)
+        launches = [f.launches for f in kernels]
+        calls = [f.calls for f in plain]
+        with torch.no_grad():
+            out = smc.forward_filter(ssm, torch.Generator(device=dev), ys, smc_cfg)
+        assert [f.launches - n for f, n in zip(kernels, launches)] == want, kw
+        assert [f.calls for f in plain] == calls
+        assert bool(torch.isfinite(out.log_z).all())
+    wide = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dx=10, dy=10))
+    wide_ssm = init_ssm(wide, torch.Generator().manual_seed(0), device=dev)
+    smc_cfg = dataclasses.replace(wide.smc, ess_threshold=0.5)
+    assert smc.reference_path(wide_ssm, smc_cfg) == "trunk"
+    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+        smc.forward_filter(wide_ssm, torch.Generator(device=dev),
+                           torch.zeros((8, 6, 10), device=dev), smc_cfg)
+
+
+def _trunk_small_operands(preset, dx, di, hidden, dev, b=3, k=256):
+    """(x_res, coef, consts, ε) of K9 at preset's width with random weights;
+    with di > 0 the coefficient row carries random controls' terms."""
+    from psvo_tpu_torch.config import NetConfig as _Net
+
+    cfg = PRESETS[preset]
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, di=di))
+    net = _Net(hidden=(hidden, hidden))
+    cfg = cfg.with_nets(q0=net, q1=net, q2=net, f=net, g=net, qb=net)
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        consts = fused_step.prepare(ssm)
+        x_res = torch.randn((b, dx, k), generator=g, device=dev) * 2.0
+        coef = torch.rand((b, 4 * dx + 1), generator=g, device=dev) + 0.1
+        if di:
+            u = 0.5 * torch.randn((1, b, di), generator=g, device=dev)
+            coef = torch.cat([coef, fused_step.control_term(consts, u)[0]], -1).contiguous()
+        eps = torch.randn((b, dx, k), generator=g, device=dev)
+    return x_res, coef, consts, eps
+
+
+_TRUNK_WIDTHS = [("fhn_fivo_k1024_bench", 2, 0), ("lorenz63_psvo_k1024", 3, 0),
+                 ("fhn_fivo_k1024_bench", 2, 2), ("lorenz96_fivo_k8192_sharded", 40, 2)]
+
+
+@pytest.mark.parametrize("preset, dx, di", _TRUNK_WIDTHS)
+@pytest.mark.parametrize("hidden", [16, 64])
+@pytest.mark.parametrize("rng", [False, True])
+def test_trunk_kernels_match_plain_at_small_widths_and_with_controls(preset, dx, di, hidden, rng):
+    """K9 and K10 at the FHN and Lorenz-63 widths and in their control mode
+    (FHN and Lorenz-96) against their plain versions: K9 allclose 2e-4, K10
+    per leaf to 1e-4 relative (the controls' d_coef columns included),
+    bit-equal on a relaunch; with zero controls both bit-equal to the
+    uncontrolled launch."""
+    from psvo_tpu_torch.ops import trunk
+
+    dev = _cuda()
+    x_res, coef, consts, eps = _trunk_small_operands(preset, dx, di, hidden, dev)
+    noise = {"seed": (5, 6), "t": 4} if rng else {"eps": eps}
+    if rng:
+        eps = fused_step.stream_noise((5, 6), 5, x_res.shape[0], dx, x_res.shape[-1], dev)[0][4]
+    with torch.no_grad():
+        got = trunk.trunk_forward(x_res, coef, consts, **noise)
+        want = trunk.trunk_forward_reference(x_res, coef, consts, eps)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4)
+    g = torch.Generator(device=dev).manual_seed(2)
+    d_x_new = torch.randn(got[0].shape, generator=g, device=dev)
+    d_alpha = torch.randn(got[1].shape, generator=g, device=dev)
+    args = (x_res, got[0], coef, consts, d_x_new, d_alpha)
+    back = trunk.trunk_backward(*args, **noise)
+    again = trunk.trunk_backward(*args, **noise)
+    ref = trunk.trunk_backward_reference(*args[:4], eps, *args[4:])
+    for a, a2, w in zip(back, again, ref):
+        assert torch.equal(a, a2)
+        assert _rel(a, w) <= 1e-4
+    if di:
+        n0 = 4 * dx + 1
+        zero = torch.cat([coef[:, :n0], torch.zeros_like(coef[:, n0:])], -1).contiguous()
+        unc = dict(consts, di=0, ctrl_w=None)
+        with torch.no_grad():
+            z9 = trunk.trunk_forward(x_res, zero, consts, **noise)
+            u9 = trunk.trunk_forward(x_res, coef[:, :n0].contiguous(), unc, **noise)
+        assert all(torch.equal(a, b) for a, b in zip(z9, u9))
+        zb = trunk.trunk_backward(x_res, got[0], zero, consts, d_x_new, d_alpha, **noise)
+        ub = trunk.trunk_backward(x_res, got[0], coef[:, :n0].contiguous(), unc, d_x_new,
+                                  d_alpha, **noise)
+        assert torch.equal(zb[1][:, :n0], ub[1])
+        assert all(torch.equal(a, b) for a, b in zip(zb[::2] + zb[3:], ub[::2] + ub[3:]))
 
 
 @pytest.mark.parametrize("objective", ["psvo", "svo"])

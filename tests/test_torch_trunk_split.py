@@ -1,6 +1,6 @@
 """The host side of K10's tensor-core design, and the arithmetic it rests on.
 
-K10 (`ops/trunk.py::trunk_backward`, `csrc/trunk_backward.cu`) runs its
+K10 (`ops/trunk.py::trunk_backward`, `csrc/trunk_backward.cuh`) runs its
 backward products on the tensor cores in 3xTF32: each float32 operand is
 split as a = hi + lo with hi = tf32(a) rounded to nearest and lo = a − hi,
 which the tensor core reads truncated to TF32, and a·b is taken as hi·hi +
@@ -12,7 +12,7 @@ it do; lo truncated) at the shapes of K10's stages. The kernel itself is
 held to its plain version and to the previous design on the card
 (`tests/test_torch_cuda.py`, `chip_smoke.py` phase s).
 
-K9's async design (`ops/trunk.py::trunk_forward`, `csrc/trunk_forward.cu`)
+K9's async design (`ops/trunk.py::trunk_forward`, `csrc/trunk_forward.cuh`)
 has its host side here too: its shared memory and the parts of it that fit
 (`k9_plan`), the unchanged class of `trunk.usable`, the design argument
 and its ctypes signature; its bits against the tile design are checked on
@@ -126,10 +126,12 @@ def test_k10_shared_memory_at_lorenz96(hidden, want):
     (40, 40, 64, 2, 8192),   # three hidden layers of 64: 300,016 bytes
     (40, 40, 48, 1, 8192),   # a width that is not instantiated
     (40, 40, 64, 1, 8160),   # K not a multiple of the 64-particle tile
-    (3, 3, 64, 1, 1024),     # not the Lorenz-96 dims
+    (3, 3, 64, 1, 1024),     # not the Lorenz-96 dims (the small widths run "simt")
 ])
 def test_k10_gate_refuses_outside_its_class(dx, dy, hidden, n_mid, k):
-    assert not trunk.k10_ok(dx, dy, hidden, n_mid, k)
+    """The tensor-core design's class: Lorenz-96's dims alone, the
+    instantiated widths, whole tiles, one CTA's shared memory."""
+    assert not trunk.k10_ok(dx, dy, hidden, n_mid, k, "tf32x3")
 
 
 def test_unknown_design_raises():
@@ -143,16 +145,16 @@ def test_unknown_design_raises():
 
 def test_ctypes_signature_carries_the_design():
     """psvo_trunk_backward's argtypes match its C parameters (pointers and
-    the stream c_void_p, seeds c_uint32, ints c_int), with the design last
-    before the stream; the wrapper passes DESIGNS' index (0 the tensor-core
-    kernel, 1 the previous one)."""
-    src = (_build.CSRC / "trunk_backward.cu").read_text()
+    the stream c_void_p, seeds c_uint32, ints c_int), with the design and
+    the control flag last before the stream; the wrapper passes DESIGNS'
+    index (0 the tensor-core kernel, 1 the previous one)."""
+    src = "".join((_build.CSRC / f"trunk_backward{ext}").read_text() for ext in (".cu", ".cuh"))
     m = re.search(r'extern "C" int psvo_trunk_backward\((.*?)\)\s*\{', src, re.S)
     params = [tuple(p.strip().rsplit(None, 1)) for p in m.group(1).split(",")]
     want = [ctypes.c_void_p if "*" in t else ctypes.c_uint32 if t == "uint32_t" else ctypes.c_int
             for t, _ in params]
     assert _build.SIGNATURES["psvo_trunk_backward"] == want
-    assert [n for _, n in params][-3:] == ["max_ctas", "design", "stream"]
+    assert [n for _, n in params][-4:] == ["max_ctas", "design", "ctrl", "stream"]
     assert trunk.DESIGNS == ("tf32x3", "simt")
     assert "design == 0" in src and "trunk_backward_tf32x3_kernel" in src
 
@@ -218,15 +220,15 @@ def test_unknown_k9_design_raises():
 
 
 def test_k9_ctypes_signature_carries_the_design():
-    """psvo_trunk_forward's argtypes match its C parameters, with the design
-    and the async design's two parts last before the stream; design 0 is the
-    async kernel (K9_DESIGNS[0]), 1 the tile one."""
-    src = (_build.CSRC / "trunk_forward.cu").read_text()
+    """psvo_trunk_forward's argtypes match its C parameters, with the design,
+    the async design's two parts and the control flag last before the
+    stream; design 0 is the async kernel (K9_DESIGNS[0]), 1 the tile one."""
+    src = "".join((_build.CSRC / f"trunk_forward{ext}").read_text() for ext in (".cu", ".cuh"))
     m = re.search(r'extern "C" int psvo_trunk_forward\((.*?)\)\s*\{', src, re.S)
     params = [tuple(p.strip().rsplit(None, 1)) for p in m.group(1).split(",")]
     want = [ctypes.c_void_p if "*" in t else ctypes.c_uint32 if t == "uint32_t" else ctypes.c_int
             for t, _ in params]
     assert _build.SIGNATURES["psvo_trunk_forward"] == want
-    assert [n for _, n in params][-4:] == ["design", "pair", "prefetch", "stream"]
+    assert [n for _, n in params][-5:] == ["design", "pair", "prefetch", "ctrl", "stream"]
     assert trunk.K9_DESIGNS == ("async", "tile")
     assert "design == 0" in src and "trunk_forward_async_kernel" in src

@@ -7,7 +7,7 @@ variants that show what holds K5 back.
     python3 tools/stage_profile.py ffbsi      # K6 alone
 
 Builds the port's kernels as `chip_smoke.py` does, then copies of
-`csrc/ffbsi.cu`, `csrc/svo_sweep.cuh` and `csrc/trunk_forward.cu` patched
+`csrc/ffbsi.cu`, `csrc/svo_sweep.cuh` and `csrc/trunk_forward.cuh` patched
 three ways, each with nvcc into `psvo_tpu_torch/_build/stage_profile/`
 (gitignored):
 
@@ -613,13 +613,17 @@ def main() -> int:
                               "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
         return 0
     f13 = (_build.CSRC / "svo_sweep.cuh").read_text()
-    f9 = (_build.CSRC / "trunk_forward.cu").read_text()
+    f9 = (_build.CSRC / "trunk_forward.cuh").read_text()
+    # K9's two translation units as one, so that the marked header's counters are defined once
+    k9_tu = (_build.CSRC / "trunk_forward.cu").read_text().replace(
+        "extern template int dispatch_trunk_forward<true>", "template int dispatch_trunk_forward<true>")
     k5_names = ("psvo_ffbsi_forward",)
     marks = load(build_variant("marks", {"ffbsi": marked_k6(marked_k5(f5)),
                                          "svo_sweep.cuh": marked_k13(marked_k12(f13)),
                                          "svo_sweep": (_build.CSRC / "svo_sweep.cu").read_text(),
                                          "svo_sweep_ctrl": CTRL_STUB,
-                                         "trunk_forward": marked_k9(f9),
+                                         "trunk_forward.cuh": marked_k9(f9),
+                                         "trunk_forward": k9_tu,
                                          "resample_gather": fr}, *args),
                  k5_names + ("psvo_ffbsi_backward", "psvo_prof6", "psvo_prof60",
                              "psvo_svo_forward", "psvo_svo_backward", "psvo_trunk_forward",

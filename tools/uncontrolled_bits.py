@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Hold the kernels K1, K4, K14 and K15 (and K12, K13) of two checkouts of the
-port to the same bits, and time them, on an uncontrolled model (data.di = 0),
-on one GPU.
+"""Hold the kernels K1, K4, K14 and K15 (and K12, K13, K9, K10) of two
+checkouts of the port to the same bits, and time them, on an uncontrolled
+model (data.di = 0), on one GPU.
 
     python3 tools/uncontrolled_bits.py dump ROOT OUT.pt   # ROOT: a checkout of the repo
     python3 tools/uncontrolled_bits.py compare A.pt B.pt
@@ -12,8 +12,11 @@ outputs of K1 (stream noise and the in-kernel draw, with the cache and the
 residuals), K4 (every cotangent), a chain of K14 and K15 on each step, at the
 FHN shape (B = 32, K = 1024, hidden (64, 64), Dx = 2) and the Lorenz-63 one
 (Dx = 3), and K12 and K13 (the split designs, every cotangent) at the SVO
-preset's (B = 32, M = 16, T = 100, hidden (64, 64), Dx = 3), all on inputs
-made on the card from fixed seeds. `compare` prints
+preset's (B = 32, M = 16, T = 100, hidden (64, 64), Dx = 3), and K9 and K10
+(both designs of each, the streamed ε and the in-kernel draw, random
+cotangents) at Lorenz-96's width (B = 4, K = 1024, hidden (64, 64),
+Dx = Dy = 40), all on inputs made on the card from fixed seeds. `compare`
+prints
 whether every tensor of the two dumps is bit-equal and exits non-zero if
 not. `time` prints the four kernels' times at the FHN shape (CUDA events
 around n back-to-back calls over n, n = 5 for K1/K4 and 50 for K14/K15 at
@@ -142,6 +145,7 @@ def dump(root: str, out: str) -> None:
             for i in range(len(steps[0])):
                 outs[f"{preset}/{name}/{i}"] = torch.stack([s[i] for s in steps]).cpu()
     outs.update(_svo_dump(torch, pt))
+    outs.update(_trunk_dump(torch, pt))
     torch.save(outs, out)
     print(f"dumped {len(outs)} tensors from {pt.__file__} to {out}", flush=True)
 
@@ -170,6 +174,39 @@ def _svo_dump(torch, pt) -> dict:
     torch.cuda.synchronize()
     outs = {f"svo/K12/{i}": v.cpu() for i, v in enumerate(k12)}
     outs.update({f"svo/K13/{i}": v.cpu() for i, v in enumerate(k13)})
+    return outs
+
+
+def _trunk_dump(torch, pt) -> dict:
+    """K9's two outputs and K10's four leaves at Lorenz-96's width, each
+    design, streamed ε and the in-kernel draw, on operands made on the card
+    from fixed seeds (uncontrolled coefficient rows)."""
+    from psvo_tpu_torch.ops import fused_step, trunk
+
+    dev = torch.device("cuda:0")
+    cfg = pt.PRESETS["lorenz96_fivo_k8192_sharded"]
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, k, dx = 4, 1024, 40
+    with torch.no_grad():
+        consts = fused_step.prepare(ssm)
+    x_res = torch.randn((b, dx, k), generator=g, device=dev) * 2.0
+    coef = torch.rand((b, 4 * dx + 1), generator=g, device=dev) + 0.1
+    eps = torch.randn((b, dx, k), generator=g, device=dev)
+    outs = {}
+    with torch.no_grad():
+        for noise_name, noise in (("stream", {"eps": eps}), ("rng", {"seed": (5, 7), "t": 3})):
+            for design in trunk.K9_DESIGNS:
+                x_new, alpha = trunk.trunk_forward(x_res, coef, consts, design=design, **noise)
+                outs[f"l96/K9/{design}/{noise_name}/0"] = x_new.cpu()
+                outs[f"l96/K9/{design}/{noise_name}/1"] = alpha.cpu()
+            cots = [torch.randn(t.shape, generator=g, device=dev) for t in (x_new, alpha)]
+            for design in trunk.DESIGNS:
+                leaves = trunk.trunk_backward(x_res, x_new, coef, consts, *cots, design=design,
+                                              **noise)
+                for i, v in enumerate(leaves):
+                    outs[f"l96/K10/{design}/{noise_name}/{i}"] = v.cpu()
+    torch.cuda.synchronize()
     return outs
 
 
