@@ -203,10 +203,10 @@ smc.ffbsi_segments S=8, one train step a call), with random weights:
       busy, idle share), K1/K4/K5/K6 launches (S=8: 32/16/17/9 a train step,
       16/0/9/0 a serving call), peak memory after reset_peak_memory_stats
       (S=8's train peak must be below S=1's)
-  (al) T=8193: one smooth_posterior call and 2 train steps at S=8 (no
+  (al) T=8193: one smooth_posterior call and a train step at S=8 (no
       warm-up: the kernels are warm from ak), the same columns, finite
-      losses; S=1's peak reckoned from the shapes and, under 70 GB, 2 train
-      steps at S=1, the same columns
+      losses; S=1's peak reckoned from the shapes and, under 70 GB, a train
+      step at S=1, the same columns
 
 and the product surface, `psvo_tpu_torch.cli.main` called in-process as
 `python -m psvo_tpu_torch.cli` would run, results under a temporary
@@ -248,7 +248,8 @@ K=128), B=32, T=100, relu heads (64, 64), random weights, data from seed 0:
       train step, none for IWAE; no other kernel, no plain version, no CUDA
       tensor in the plain histogram resampler), a finite loss, test ELBO
       and gradient norm, the train step (host clock), the eval call (CUDA
-      events), peak memory and profiles of one more train and eval call
+      events), peak memory; profiles of one more train and eval call for
+      fhn_fivo_tril
   (aq) the general path on the card against itself on the CPU, on the same
       draws made on the CPU (the CPU resampling with K7's and K8's plain
       versions, the count form): at B=4, T=20, K=128 (16 for IWAE) log Z and the
@@ -260,9 +261,9 @@ K=128), B=32, T=100, relu heads (64, 64), random weights, data from seed 0:
       0.35 nats, the mean error under 0.1) and the correlated-noise tril case
       of tests/test_parity_modes.py (K=2048, every row within 0.5);
       tests/reference_numpy/kalman.py loaded by its path
-  (as) `train --preset fhn_fivo_tril` and `fhn_iwae_k16 --steps 20` with an
-      eval every 10 through the CLI (AS_STEPS; fhn_iwae_k16's 50 steps a
-      call cut to 10): the history, the results files and the launches
+  (as) `train --preset fhn_fivo_tril` and `fhn_iwae_k16 --steps 4` with an
+      eval every 2 through the CLI (AS_STEPS; 2 steps a call): the history,
+      the results files and the launches
 
 and the smoothing objectives with Di = 2 exogenous controls (the controls
 of fhn_fivo_controls: control scale 0.5), whose K1/K4 run in their control
@@ -335,6 +336,32 @@ at the FHN, Lorenz-63 and Lorenz-96 widths:
       99 a train step, no K11 for IWAE; K5/K6 once for PSVO; no K1/K4/K14/K15
       and no plain version); a profile of one more step
 
+and the SVO backward proposal's GRU and PSVO/SVO wherever the reference runs
+its plain code (eager_routes_phases): each configuration is a preset with one
+change, at full width with random weights (Lorenz-96's snapshot for E), data
+from seed 0; each compared with the CPU on the same draws (card_vs_cpu,
+CPU_TOL: loss 1e-3, gradient norms 1%, cosine 0.99), served and trained
+(launch counts, no plain version, host-clock times, peak memory, a
+device-only profile of one more step):
+
+  (ay) A, lorenz63_svo_k256 with smc.qb_rnn=true (K=256, M=16, B=32, T=100,
+      GRU width 64): the forward through K1 (K4 in training), the GRU and the
+      q_b sweep eager; one make_eval_step and one smooth_posterior(method=
+      "svo") call (K1 once each), 3 train steps (K1, K4 3 each, no K12/K13)
+  (az) B, lorenz63_svo_k256 with known dynamics (eager q_b sweep); C,
+      fhn_fivo_dirac as PSVO (K5/K6); D, fhn_fivo_tril as PSVO (eager FFBSi:
+      a full-covariance f); E, lorenz96_fivo_k8192_sharded as PSVO with M=16
+      (K=8192, B=8: the trunk path, eager FFBSi past the reference's K cap).
+      One smooth_posterior call (K7/K8 99 each, K9 99 for E, K5 once for C)
+      and 3 train steps (K7/K8/K11 297 each, K9/K10 297 for E, K5/K6 3 for
+      C); E's eager sweep alone timed, with its peak memory
+  (ba) lorenz63_psvo_k1024_t1025_seg8 with smc.ess_threshold=0.5, and the
+      preset with fused_step.SCAN_FUSED off: the plain step body per segment
+      on the card, as the reference runs it; the card against the CPU at
+      T=33, S=4, B=2; at T=1025, S=8, B=8 one smooth_posterior call (K7/K8
+      2048, K5 9) and one train step (K7/K8 4096, K11 2048, K5 17, K6 9),
+      the first of each, no profile (tools/routes_profile.py takes one)
+
 (ap) begins with K7, K8 and K11 at the general path's shape (B=32, K=128,
 D=2) against their plain versions, timed beside them and beside
 torch.gather and zeros + scatter_add_. The profiles of phases ak, al and ap
@@ -365,7 +392,8 @@ at lorenz63_svo_k256's size with Di=2, "ms_uncontrolled" the same shape
 without controls; K1 and K14 as "(multinomial)", at fhn_fivo_k1024_bench's
 size on multinomial positions; K9 and K10 as "(FHN width)", "(Lorenz-63
 width)", "(controls, FHN width)" and "(controls, Lorenz-96 width)", from
-phases aw and ax); the last line
+phases aw and ax); the rows of K1, K4, K5-K11 carry "launches_routes", the
+train steps' launches of phases ay-ba by configuration; the last line
 is the device record. Imports nothing of JAX: the
 machine with the card has none.
 """
@@ -2261,12 +2289,12 @@ def segmented_phases(pt, dev, card: str) -> dict:
     ds_long = pt.generate_dataset(long_t_config(pt, 8193, 8).data, SEED)
     ys_long = ds_long.obs_train[:b].to(dev).contiguous()
     # the kernels and the glue's operations are warm from (ak): no warm-up calls
-    al = {8: drive("al S=8", long_t_config(pt, 8193, 8), ys_long, 2, warm=False)}
+    al = {8: drive("al S=8", long_t_config(pt, 8193, 8), ys_long, 1, warm=False)}
     reckoned = psvo_peak_gb(8193, b, k, m, dx)
     print(f"[al] S=1 at T=8193: reckoned peak {reckoned:.3f} GB (the cache, K1's ancestors, the "
           f"Gumbel stack, the support terms and d_xs), under 70 GB: {reckoned < 70}", flush=True)
     if reckoned < 70:
-        al[1] = drive("al S=1", long_t_config(pt, 8193, 1), ys_long, 2, warm=False)
+        al[1] = drive("al S=1", long_t_config(pt, 8193, 1), ys_long, 1, warm=False)
     phase_done("al")
     return dict(ak=ak, al=al)
 
@@ -2277,7 +2305,7 @@ GENERAL = ("fhn_iwae_k16", "fhn_fivo_known_dynamics", "fhn_fivo_tril", "fhn_fivo
 # CPU tests' bands), the full size as the reference's _grads_agree (benchmark.py:697-729)
 GENERAL_TOL = {"value": 2e-4, "grad_rtol": 5e-3, "grad_atol": 5e-4, "full_loss": 1e-3,
                "full_norm": 1e-2, "full_cos": 0.99}
-AS_STEPS = 20  # phase as: CLI train steps a preset (at most AS_STEPS // 2 a call), evals at 10, 20
+AS_STEPS = 4  # phase as: CLI train steps a preset (at most AS_STEPS // 2 a call), evals at 2, 4
 GENERAL_PATH_KERNELS = {"K7": ("ancestor_indices",), "K8": ("gather_particles_kernel",),
                         "K11": ("segment_sum",)}
 
@@ -2538,12 +2566,15 @@ def general_phases(pt, dev, card: str) -> dict:
         moved = any(not torch.equal(a_, p_) for a_, p_ in zip(before, ssm.parameters()))
         step_ms = statistics.median(call_ms[1:]) / spc
         groups = GENERAL_PATH_KERNELS
-        # one step in the profile (a window of 50 eager steps holds ~10^6 events)
+        # one step in the profile (a window of 50 eager steps holds ~10^6 events); one
+        # preset's profiles (reading a window of ~50,000 events takes seconds)
         one = batches[0][0] if spc > 1 else batches[0]
-        profile = device_breakdown(lambda: train_step.single_step(run_gen, one), 1, groups,
-                                   with_cpu=False)
-        serve_profile = device_breakdown(lambda: eval_step(run_gen, obs_test), 1, groups,
-                                         with_cpu=False)
+        profile = serve_profile = "not taken (the path's profiles are fhn_fivo_tril's)"
+        if preset == "fhn_fivo_tril":
+            profile = device_breakdown(lambda: train_step.single_step(run_gen, one), 1, groups,
+                                       with_cpu=False)
+            serve_profile = device_breakdown(lambda: eval_step(run_gen, obs_test), 1, groups,
+                                             with_cpu=False)
         print(f"[ap] {preset} (B={b}, K={cfg.smc.n_particles}, T={t_steps}, hidden "
               f"{cfg.net('q1').hidden}, {cfg.smc.objective}, resampling {cfg.smc.resampling}; "
               f"smc.reference_path {smc.reference_path(ssm, cfg.smc)!r}): serving K7/K8/K11 "
@@ -2690,12 +2721,12 @@ def general_phases(pt, dev, card: str) -> dict:
     figures["ar"] = ar
     phase_done("ar")
 
-    # (as) the CLI on the card: 20 steps of fhn_fivo_tril and fhn_iwae_k16, an eval every 10
+    # (as) the CLI on the card: AS_STEPS steps of fhn_fivo_tril and fhn_iwae_k16, two evals
     tmp = tempfile.mkdtemp(prefix="psvo_general_cli_")
     as_ = {}
     try:
         for preset in ("fhn_fivo_tril", "fhn_iwae_k16"):
-            # fhn_iwae_k16 takes 50 steps a call: cut to 10, so that an eval every 10 fits
+            # at most AS_STEPS // 2 steps a call, so that an eval every AS_STEPS // 2 fits
             per_call = min(pt.PRESETS[preset].train.steps_per_call, AS_STEPS // 2)
             argv = ["train", "--preset", preset, "--steps", str(AS_STEPS), "--set",
                     f"train.eval_every={AS_STEPS // 2}", "--set",
@@ -2785,8 +2816,10 @@ def card_vs_cpu(pt, dev, cfg, ys, u, seed: int, path: str = "fused", load=None,
                 replay_ancestors: bool = False) -> dict:
     """One train step's loss and gradient of cfg's objective on the card (its
     kernels) and on the CPU (their plain versions: the whole-scan class's
-    path, segmented with smc.ffbsi_segments > 1, or the trunk path), on the
-    same draws made on the CPU (the filter's ε and sorted positions, then
+    path, segmented with smc.ffbsi_segments > 1, or the trunk path; with
+    path "general" the CPU takes the path the card takes, the plain loop or
+    the plain segments, resampling through K7's and K8's plain versions, the
+    count form), on the same draws made on the CPU (the filter's ε and sorted positions, then
     PSVO's Gumbels or SVO's anchors and ε): the losses, the gradient norms,
     their cosine, the largest relative L2 of a leaf, and whether CPU_TOL
     holds. ys, u: CPU tensors; `load(ssm)` sets the weights (else seed).
@@ -2825,6 +2858,7 @@ def card_vs_cpu(pt, dev, cfg, ys, u, seed: int, path: str = "fused", load=None,
                                                    **kw)
 
     resample = resample_gather.resample_and_gather
+    maybe_resample = resampling.maybe_resample
     card_idx = []
 
     def record(u_, logw, x):
@@ -2843,9 +2877,11 @@ def card_vs_cpu(pt, dev, cfg, ys, u, seed: int, path: str = "fused", load=None,
             load(ssm)
         kw = {} if u is None else {"controls": u.to(dev_)}
         real = (objectives.forward_filter, objectives.forward_filter_segmented)
-        if dev_ != dev:
+        if dev_ != dev and path != "general":
             objectives.forward_filter, objectives.forward_filter_segmented = (cpu_filter,
                                                                               cpu_segmented)
+        if dev_ != dev and path == "general":
+            resampling.maybe_resample = functools.partial(maybe_resample, use_kernel=True)
         if replay_ancestors:
             resample_gather.resample_and_gather = record if dev_ == dev else replay
         try:
@@ -2855,6 +2891,7 @@ def card_vs_cpu(pt, dev, cfg, ys, u, seed: int, path: str = "fused", load=None,
         finally:
             objectives.forward_filter, objectives.forward_filter_segmented = real
             resample_gather.resample_and_gather = resample
+            resampling.maybe_resample = maybe_resample
         losses.append(float(out.loss.detach()))
         grads.append([torch.zeros(p.shape, dtype=torch.float64) if p.grad is None
                       else p.grad.detach().cpu().double() for p in ssm.parameters()])
@@ -3648,6 +3685,263 @@ def trunk_class_phases(pt, dev, card: str) -> dict:
         del ssm, step, data
         torch.cuda.empty_cache()
     phase_done("ax")
+    return figures
+
+
+# The slice of the qb GRU and the eager smoothing routes (eager_routes_phases):
+# (label, preset, smc changes, the CPU's path in card_vs_cpu). A is the main one.
+ROUTE_CONFIGS = (
+    ("A", "lorenz63_svo_k256", {"qb_rnn": True}, "fused"),
+    ("B", "lorenz63_svo_k256", {"transition": "known"}, "general"),
+    ("C", "fhn_fivo_dirac", {"objective": "psvo"}, "general"),
+    ("D", "fhn_fivo_tril", {"objective": "psvo"}, "general"),
+    ("E", L96, {"objective": "psvo", "n_smoothing_particles": 16}, "trunk"),
+)
+ROUTE_NAMES = ("K1", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11", "K12", "K13", "K14",
+               "K15", "K2", "K3")
+ROUTE_KERNELS = {"K1": ("scan_forward_kernel",), "K4": ("scan_backward_kernel",
+                                                        "sum_rows_kernel"),
+                 "K5": ("ffbsi_staged_kernel",), "K6": K6_KERNELS,
+                 "K7": ("ancestor_indices",), "K8": ("gather_particles_kernel",),
+                 "K9": ("trunk_forward_async_kernel",),
+                 "K10": ("trunk_backward_kernel", "trunk_backward_tf32x3_kernel",
+                         "trunk_sum_ctas_kernel", "trunk_sum_tiles_kernel"),
+                 "K11": ("segment_sum",)}
+BA_T, BA_S = 1025, 8  # phase ba: the reference's long-T configuration
+
+
+def route_counters():
+    """(every kernel wrapper of the port in ROUTE_NAMES' order; every plain
+    version) for launch and call counts."""
+    from psvo_tpu_torch.ops import ffbsi, fused_step, svo, trunk
+    from psvo_tpu_torch.ops import resample_gather as rg
+
+    kernels = (fused_step.scan_forward, fused_step.scan_backward, ffbsi.ffbsi_forward,
+               ffbsi.ffbsi_backward, rg.ancestor_indices_large, rg.gather_particles,
+               trunk.trunk_forward, trunk.trunk_backward, rg.segment_sum_scatter,
+               svo.svo_sweep_forward, svo.svo_sweep_backward, fused_step.step_forward,
+               fused_step.step_backward, fused_step.stream_noise, fused_step.ancestor_indices)
+    return kernels, general_counters()[2]
+
+
+def route_want(launches: dict) -> list:
+    """ROUTE_NAMES' counts from {name: count}, zero elsewhere."""
+    return [launches.get(n, 0) for n in ROUTE_NAMES]
+
+
+def route_config(pt, preset: str, smc_kw: dict):
+    """preset with smc_kw, one train step a call."""
+    base = pt.PRESETS[preset]
+    return dataclasses.replace(base, smc=dataclasses.replace(base.smc, **smc_kw),
+                               train=dataclasses.replace(base.train, steps_per_call=1))
+
+
+def peak_gb(fn):
+    """fn() and the device memory it took at its peak above what was held
+    before, in GB."""
+    import torch
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - held) / 1e9
+
+
+def route_run(pt, dev, card, phase, label, cfg, ys, load, want_serve, want_train,
+              serve_method, eval_too=False, n_train=3, long_t=False):
+    """One configuration at full width on the card: `serve_method` serving
+    (smooth_posterior; with `eval_too` also make_eval_step) and n_train train
+    steps on ys, with launch counts against ROUTE_NAMES' `want_*` and no
+    plain version; host-clock times, peak memory and a device-only profile
+    of one more step. With `long_t` (T = 1025: ~800,000 device operations a
+    step, whose profile takes minutes to read) no warm-up call and no
+    profile: `tools/routes_profile.py` profiles that step on its own.
+    Returns its figures."""
+    import torch
+
+    kernels, plain = route_counters()
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    if load is not None:
+        load(ssm)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 130)
+    batch = ys.shape[0]
+    figs = {}
+    calls = [("smooth_posterior", lambda: pt.smooth_posterior(ssm, ys, cfg, gen,
+                                                              method=serve_method))]
+    if eval_too:
+        eval_step = pt.make_eval_step(ssm, cfg)
+        calls.append(("make_eval_step", lambda: eval_step(gen, ys)))
+    for name, fn in calls:
+        if not long_t:
+            fn()  # warm-up
+        t0 = time.perf_counter()
+        out, launches, n_plain = kernel_counts(kernels, plain, fn)
+        ms = (time.perf_counter() - t0) * 1e3
+        if name == "smooth_posterior":
+            ok = tuple(out.shape) == (batch, cfg.smc.n_smoothing_particles, ys.shape[1],
+                                      cfg.data.dx) and bool(torch.isfinite(out).all())
+            what = f"paths {tuple(out.shape)}"
+        else:
+            ok = math.isfinite(float(out["elbo"]))
+            what = f"elbo {float(out['elbo']):.3f}"
+        print(f"[{phase}] {card}: {label} {name}: {what}, launches "
+              f"{dict(zip(ROUTE_NAMES, launches))}, plain versions {n_plain}, {ms:.1f} ms (host "
+              f"clock, {'the first call' if long_t else 'after a warm-up'})", flush=True)
+        if not ok or launches != want_serve or n_plain:
+            fail(f"({phase}) {label} {name}: launched {launches} (want {want_serve}), plain "
+                 f"versions {n_plain}, output ok {ok}")
+        figs[name] = dict(launches=launches, ms=ms)
+    step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
+    obs = ys
+    step_s = []
+
+    def run():
+        out = []
+        for _ in range(n_train):
+            t1 = time.perf_counter()
+            out.append(step(gen, obs))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+        return out
+
+    before = [p.detach().clone() for p in ssm.parameters()]
+    (metrics, launches, n_plain), peak = peak_gb(lambda: kernel_counts(kernels, plain, run))
+    losses = [float(m_["loss"]) for m_ in metrics]
+    norms = [float(m_["grad_norm"]) for m_ in metrics]
+    moved = [not torch.equal(a, p.detach()) for a, p in zip(before, ssm.parameters())]
+    prof = ("not taken here (tools/routes_profile.py)" if long_t else
+            device_breakdown(lambda: step(gen, obs), 1, ROUTE_KERNELS, with_cpu=False))
+    print(f"[{phase}] {card}: {label} {n_train} train steps at B={batch}: loss "
+          f"{[round(v, 3) for v in losses]}, grad norm {[round(v, 3) for v in norms]}, "
+          f"{sum(moved)} of {len(moved)} parameter tensors moved, launches "
+          f"{dict(zip(ROUTE_NAMES, launches))} (want {dict(zip(ROUTE_NAMES, want_train))}), plain "
+          f"versions {n_plain}, step times {[round(1e3 * v, 1) for v in step_s]} ms (host clock, "
+          f"the first with its warm-up), peak {peak:.3f} GB above what was held; profile of one "
+          f"more step: {prof}", flush=True)
+    if (launches != want_train or n_plain or not all(math.isfinite(v) for v in losses + norms)
+            or not any(moved)):
+        fail(f"({phase}) {label} training launched {launches} (want {want_train}), plain "
+             f"versions {n_plain}, losses {losses}, grad norms {norms}, moved {any(moved)}")
+    figs.update(train=launches, step_ms=[1e3 * v for v in step_s], peak=peak, profile=prof,
+                losses=losses, moved=moved, ssm=ssm)
+    return figs
+
+
+def eager_routes_phases(pt, dev, card: str) -> dict:
+    """Phases (ay)-(ba): the qb GRU's SVO (A), and PSVO/SVO where the
+    reference runs its plain code (B-E), at full width through the entry
+    points; segmented PSVO outside the whole-scan class and with SCAN_FUSED
+    off (F). Each against the CPU on the same draws (card_vs_cpu, CPU_TOL),
+    served and trained with launch counts. Returns the figures for the
+    kernels' JSON record and PERF.md."""
+    import torch
+    from psvo_tpu_torch import objectives, smc
+    from psvo_tpu_torch.ops import fused_step
+
+    figures = {}
+    for i, (label, preset, smc_kw, path) in enumerate(ROUTE_CONFIGS):
+        phase = "ay" if label == "A" else "az"
+        cfg = route_config(pt, preset, smc_kw)
+        n = cfg.data.t_steps - 1  # filter steps
+        psvo = cfg.smc.objective == "psvo"
+        load = None
+        if preset == L96:
+            snap = os.path.join(ROOT, "checkpoints", "l96_pretrained.npz")
+            load = lambda s_: pt.load_params_npz(s_, snap)  # noqa: E731
+        ds = pt.generate_dataset(cfg.data, SEED)
+        b_cpu = 2 if preset == L96 else 4
+        vs = card_vs_cpu(pt, dev, cfg, ds.obs_train[:b_cpu, :20], None, SEED + 140 + i,
+                         path=path, load=load)
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+        sweep = objectives._svo_route(ssm, cfg.smc.n_smoothing_particles, True) if not psvo \
+            else objectives._ffbsi_route(ssm, cfg.smc.n_particles, cfg.smc.n_smoothing_particles,
+                                         True)
+        print(f"[{phase}] {card}: {label} ({preset} with {smc_kw}; K={cfg.smc.n_particles}, "
+              f"M={cfg.smc.n_smoothing_particles}, B={cfg.train.batch_size}, "
+              f"T={cfg.data.t_steps}): forward path {smc.reference_path(ssm, cfg.smc)!r} in the "
+              f"reference, sweep route {sweep!r}; the card vs the CPU, one train step at "
+              f"B={b_cpu}, T=20: {vs_line(vs)}", flush=True)
+        if not vs["ok"]:
+            fail(f"({phase}) {label}: the card disagrees with the CPU")
+        if label == "A":
+            want_serve, want_train = route_want({"K1": 1}), route_want({"K1": 3, "K4": 3})
+        elif preset == L96:
+            want_serve = route_want({"K7": n, "K8": n, "K9": n})
+            want_train = route_want({k_: 3 * n for k_ in ("K7", "K8", "K9", "K10", "K11")})
+        else:
+            want_serve = route_want({"K7": n, "K8": n, "K5": int(sweep == "kernel")})
+            want_train = route_want({"K7": 3 * n, "K8": 3 * n, "K11": 3 * n,
+                                     "K5": 3 * int(sweep == "kernel"),
+                                     "K6": 3 * int(sweep == "kernel")})
+        batch = cfg.train.batch_size
+        ys = ds.obs_train[:batch].to(dev).contiguous()
+        r = route_run(pt, dev, card, phase, label, cfg, ys, load, want_serve, want_train,
+                      cfg.smc.objective, eval_too=label == "A")
+        r.update(vs=vs, route=sweep)
+        if preset == L96:  # the eager FFBSi sweep at K = 8192 alone: time and memory
+            ssm = r.pop("ssm")
+            g = torch.Generator(device=dev).manual_seed(SEED + 150)
+            m, k = cfg.smc.n_smoothing_particles, cfg.smc.n_particles
+            with torch.no_grad():
+                fwd = smc.forward_filter(ssm, g, ys, cfg.smc, cache=True)
+                x_anchor, _ = objectives._sample_final_particles(
+                    objectives._gumbel(g, (batch, m, k)), fwd)
+                gum = objectives._gumbel(g, (n, batch, m, k))
+                args = (ssm, x_anchor, fwd.xs[:-1], fwd.logws[:-1], gum, False)
+                sweep_ms = time_ms(lambda: objectives._ffbsi_sweep(*args), reps=3, warmup=1)
+                out, sweep_peak = peak_gb(lambda: objectives._ffbsi_sweep(*args))
+            print(f"[az] {card}: E's eager FFBSi sweep alone (B={batch}, M={m}, K={k}, Dx=40, "
+                  f"T-1={n} support steps): {sweep_ms:.2f} ms a sweep (CUDA events, the host's "
+                  f"gaps included, median of 3), peak {sweep_peak:.3f} GB above the forward's "
+                  f"cache; paths finite {bool(torch.isfinite(out[3]).all())}", flush=True)
+            r.update(sweep_ms=sweep_ms, sweep_peak=sweep_peak)
+            del fwd, gum, out, args
+        r.pop("ssm", None)
+        figures[label] = r
+        torch.cuda.empty_cache()
+        if label == "A":
+            phase_done("ay")
+    phase_done("az")
+
+    # (ba) segmented PSVO on the plain body per segment: ESS-adaptive, and SCAN_FUSED off
+    figures["F"] = {}
+    for variant in ("ess 0.5", "SCAN_FUSED off"):
+        fused_step.SCAN_FUSED = variant != "SCAN_FUSED off"
+        smc_kw = {"ess_threshold": 0.5} if variant == "ess 0.5" else {}
+        try:
+            if variant == "ess 0.5":  # the same plain segments serve both variants
+                small = long_t_config(pt, 33, 4)
+                small = dataclasses.replace(small, smc=dataclasses.replace(small.smc, **smc_kw))
+                ds = pt.generate_dataset(small.data, SEED)
+                vs = card_vs_cpu(pt, dev, small, ds.obs_train[:2], None, SEED + 160,
+                                 path="general")
+                print(f"[ba] {card}: {LONG_T} {variant}, the card vs the CPU on the same draws "
+                      f"at T=33, S=4, B=2: {vs_line(vs)}", flush=True)
+                if not vs["ok"]:
+                    fail(f"(ba) {variant}: the card disagrees with the CPU")
+            cfg = long_t_config(pt, BA_T, BA_S)
+            cfg = dataclasses.replace(cfg, smc=dataclasses.replace(cfg.smc, **smc_kw))
+            ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+            if fused_step.usable(ssm, cfg.smc) and fused_step.SCAN_FUSED:
+                fail(f"(ba) {variant}: in the whole-scan class")
+            ds = pt.generate_dataset(cfg.data, SEED)
+            ys = ds.obs_train[:8].to(dev).contiguous()
+            t1 = BA_T - 1
+            s_ = BA_S
+            r = route_run(pt, dev, card, "ba", f"{LONG_T} {variant} (T={BA_T}, S={BA_S}, B=8)",
+                          cfg, ys, None, route_want({"K7": 2 * t1, "K8": 2 * t1, "K5": s_ + 1}),
+                          route_want({"K7": 4 * t1, "K8": 4 * t1, "K11": 2 * t1,
+                                      "K5": 2 * s_ + 1, "K6": s_ + 1}), "psvo", n_train=1,
+                          long_t=True)
+        finally:
+            fused_step.SCAN_FUSED = True
+        r.pop("ssm", None)
+        r["vs"] = vs
+        figures["F"][variant] = r
+        torch.cuda.empty_cache()
+    phase_done("ba")
     return figures
 
 
@@ -5672,6 +5966,7 @@ def main() -> int:
     sm_figs = smoothing_controls_phases(pt, dev, card)
     mn_figs = multinomial_phases(pt, dev, card)
     tc_figs = trunk_class_phases(pt, dev, card)
+    routes_figs = eager_routes_phases(pt, dev, card)
 
 
     # K3: the CDF scan and a binary search per particle; logw and u0 in, int32 indices out.
@@ -5880,6 +6175,21 @@ def main() -> int:
                             "on_path": True, "max_abs_err": err, "ms": t_[0], "plain_ms": t_[2],
                             "bound_ms": b_[0], "bound_by": b_[1], "library_ms": None,
                             "ms_uncontrolled": t_[1]})
+    # phases ay-ba's launches on the rows of the kernels they ran: the train steps of each
+    # configuration (3 for A-E, one for each F variant)
+    route_rows = {"scan_forward": "K1", "scan_backward": "K4", "ffbsi_forward": "K5",
+                  "ffbsi_backward": "K6", "ancestor_indices_large": "K7",
+                  "gather_particles": "K8", "segment_sum_scatter": "K11",
+                  "ancestor_indices_large (general path)": "K7",
+                  "gather_particles (general path)": "K8",
+                  "segment_sum_scatter (general path)": "K11",
+                  "trunk_forward": "K9", "trunk_backward": "K10"}
+    for row in kernels:
+        if row["name"] in route_rows:
+            i = ROUTE_NAMES.index(route_rows[row["name"]])
+            row["launches_routes"] = dict(
+                {c_: routes_figs[c_]["train"][i] for c_ in "ABCDE"},
+                **{f"F {v}": routes_figs["F"][v]["train"][i] for v in routes_figs["F"]})
     print(f"[profiler] {PROFILE_WINDOWS['windows']} profiler windows, "
           f"{PROFILE_WINDOWS['empty']} of them with no device events (run again); of the timing "
           f"windows, {PROFILE_WINDOWS['partial']} recorded part of a kernel's events (timed by "

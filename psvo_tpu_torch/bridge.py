@@ -6,7 +6,9 @@ A head is `{"layers": [(W, b), ...], "mean": (W, b)}` plus the leaves of its
 cov_type (`networks.MLPHead`): "raw_scale" s, "scale_head" (W, b),
 "raw_tril" {"diag", "off"}, or "tril_diag_head" (W, b) and "tril_off_head"
 (W, b), none for a mean-only head; a known-dynamics f is `{"raw_scale"[,
-"ctrl_w"]}` (`networks.KnownTransition`). Given that tree as
+"ctrl_w"]}` (`networks.KnownTransition`); a model with SVO's backward GRU
+(smc.qb_rnn) adds `"qb_rnn": {"z": (W, b), "r": (W, b), "h": (W, b)}`
+(`networks.GRU`). Given that tree as
 numpy arrays (`jax.tree_util.tree_map(np.asarray, params)` on the JAX side),
 `load_numpy_params` copies it into an `SSM` and `params_to_numpy` rebuilds
 it, bit for bit; `grads_to_numpy` gives the parameters' gradients in the same
@@ -73,6 +75,8 @@ def _tree(ssm: SSM, leaf) -> dict:
     tree = {name: {k: _map(v, arr) for k, v in _head_leaves(ssm.heads[name])}
             for name in HEADS}
     tree["prior"] = {"mean": arr(ssm.prior_mean), "raw_scale": arr(ssm.prior_raw_scale)}
+    if ssm.qb_rnn:
+        tree["qb_rnn"] = _map(ssm.gru.gates(), arr)
     return tree
 
 
@@ -129,8 +133,9 @@ def _copy_node(dst, src, where: str) -> None:
 
 def load_numpy_params(ssm: SSM, tree: dict) -> SSM:
     """Copy the reference's params pytree (numpy leaves) into `ssm`, in place;
-    every head's keys must be those of its cov_type (or a known-dynamics f's)."""
-    expected = set(HEADS) | {"prior"}
+    every head's keys must be those of its cov_type (or a known-dynamics f's),
+    and "qb_rnn" is there exactly when the model has the GRU."""
+    expected = set(HEADS) | {"prior"} | ({"qb_rnn"} if ssm.qb_rnn else set())
     if set(tree) != expected:
         raise ValueError(f"params keys {sorted(tree)} != {sorted(expected)}")
     with torch.no_grad():
@@ -143,4 +148,6 @@ def load_numpy_params(ssm: SSM, tree: dict) -> SSM:
                 _copy_node(dst, src[key], f"{name}.{key}")
         _copy(ssm.prior_mean, tree["prior"]["mean"], "prior.mean")
         _copy(ssm.prior_raw_scale, tree["prior"]["raw_scale"], "prior.raw_scale")
+        if ssm.qb_rnn:
+            _copy_node(ssm.gru.gates(), tree["qb_rnn"], "qb_rnn")
     return ssm

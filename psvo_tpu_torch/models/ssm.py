@@ -29,8 +29,13 @@ The reference's model modes:
 Which of these a kernel class takes is the gates' business
 (`ops.fused_step.usable`, `ops.trunk.usable`, `ops.ffbsi.usable`,
 `ops.svo.usable`, `smc.reference_path`). Heads may have no hidden layer
-(hidden=(), the oracle's linear heads). The SVO backward proposal's GRU
-(smc.qb_rnn) raises NotImplementedError until its slice lands.
+(hidden=(), the oracle's linear heads).
+
+SVO's backward proposal q_b(x_t | x_{t+1}, y_t) is the "qb" head; with
+smc.qb_rnn it also reads h_t, the state of a GRU (`networks.GRU`, input Dy,
+width the qb trunk's first hidden size) run backwards over the observations
+from h = 0, so that h_t summarizes y_{t:T} (`backward_rnn_summaries`); the
+qb head's input is then [x_{t+1}; y_t; h_t], Dx + Dy + H wide.
 """
 
 from __future__ import annotations
@@ -70,8 +75,9 @@ class SSM(nn.Module):
         self.f_tril_head = not self.transition_known and f_cov == "tril_head"
         self.g_tril_head = g_cov == "tril_head"
 
-        if self.qb_rnn:
-            raise NotImplementedError("not ported yet: smc.qb_rnn")
+        if self.qb_rnn and not self.nets["qb"].hidden:
+            raise ValueError("smc.qb_rnn: the GRU's width is the qb head's first hidden size, "
+                             "and the qb head has no hidden layer")
         for q in ("q0", "q1", "q2", "qb"):
             if self.nets[q].cov_type in _FULL:
                 raise ValueError(
@@ -87,7 +93,8 @@ class SSM(nn.Module):
         dx, dy, enc = self.dx, self.dy, self.enc_dim
         dims = {
             "q0": (enc, dx), "q1": (dx + self.di, dx), "q2": (enc, dx),
-            "f": (dx + self.di, dx), "g": (dx, dy), "qb": (dx + dy, dx),
+            "f": (dx + self.di, dx), "g": (dx, dy),
+            "qb": (dx + dy + (self.qb_rnn_dim if self.qb_rnn else 0), dx),
         }
         self._dims = dims
         self._covs = {k: self.nets[k].cov_type for k in dims}
@@ -102,6 +109,14 @@ class SSM(nn.Module):
         self.heads = nn.ModuleDict({k: heads[k] for k in dims})
         self.prior_mean = nn.Parameter(torch.zeros(dx))
         self.prior_raw_scale = nn.Parameter(torch.zeros(dx))
+        if self.qb_rnn:
+            self.gru = networks.GRU(dy, self.qb_rnn_dim)
+
+    @property
+    def qb_rnn_dim(self) -> int:
+        """The qb GRU's state width H: the qb trunk's first hidden size (the
+        reference's `SSM.qb_rnn_dim`)."""
+        return self.nets["qb"].hidden[0]
 
     # -- init ---------------------------------------------------------------
 
@@ -126,6 +141,9 @@ class SSM(nn.Module):
         with torch.no_grad():
             self.prior_mean.zero_()
             self.prior_raw_scale.zero_()  # softplus(0) + 1e-3 ≈ 0.69
+        if self.qb_rnn:  # drawn last: a model without the GRU keeps its draws
+            fresh = networks.init_gru(generator, self.dy, self.qb_rnn_dim)
+            self.gru.load_state_dict(fresh.state_dict())
         return self
 
     # -- head application ---------------------------------------------------
@@ -359,12 +377,30 @@ class SSM(nn.Module):
             return self._mean("g", x)
         return self._mean_scale("g", x)[0]
 
-    def backward_propose(self, x_next, y_t):
+    def backward_rnn_summaries(self, ys_tm):
+        """h_t = GRU(h_{t+1}, y_t) run backwards over the observations from
+        h = 0: ys_tm [T, B, Dy] -> [T, B, H], where h_t has consumed y_{t:T}
+        (the reference's `backward_rnn_summaries`). A [B, H] recurrence,
+        independent of K and M."""
+        h = ys_tm.new_zeros((ys_tm.shape[1], self.qb_rnn_dim))
+        hs = [None] * ys_tm.shape[0]
+        for t in reversed(range(ys_tm.shape[0])):
+            h = hs[t] = networks.gru_step(self.gru, h, ys_tm[t])
+        return torch.stack(hs)
+
+    def backward_propose(self, x_next, y_t, h_t=None):
         """SVO's learned backward proposal q_b(x_t | x_{t+1}, y_t): the qb head
-        on [x_next; y_t], y_t broadcast over the paths. x_next [..., Dx],
-        y_t [..., Dy] (broadcastable) -> (mean, scale) [..., Dx]."""
-        y = y_t.expand(*x_next.shape[:-1], self.dy)
-        return self._mean_scale("qb", torch.cat([x_next, y], dim=-1))
+        on [x_next; y_t], y_t broadcast over the paths; with smc.qb_rnn also
+        on the GRU summary h_t (`backward_rnn_summaries`), broadcast likewise.
+        x_next [..., Dx], y_t [..., Dy], h_t [..., H] (broadcastable) ->
+        (mean, scale) [..., Dx]."""
+        parts = [x_next, y_t.expand(*x_next.shape[:-1], self.dy)]
+        if self.qb_rnn:
+            if h_t is None:
+                raise ValueError("smc.qb_rnn=True: backward_propose needs the h_t summary "
+                                 "(ssm.backward_rnn_summaries)")
+            parts.append(h_t.expand(*x_next.shape[:-1], self.qb_rnn_dim))
+        return self._mean_scale("qb", torch.cat(parts, dim=-1))
 
 
 def init_ssm(cfg: Config, generator: torch.Generator, device="cuda") -> SSM:

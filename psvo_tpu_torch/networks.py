@@ -15,6 +15,11 @@ trunk `{"layers": [(W, b), ...]}` and the mean layer `"mean": (W, b)`; its
   Cholesky factor per input;
 - "none": a mean-only head (Poisson log-rates, Dirac locations).
 
+`GRU` is the reference's GRU cell (`init_gru`, `gru_step`), the state of
+SVO's backward-proposal RNN (smc.qb_rnn): z, r and h̃ each a dense map on
+[x; h], not `torch.nn.GRUCell`'s algebra (which resets the hidden product
+W_hn·h + b_hn and keeps separate input and hidden biases).
+
 The apply functions are plain functions of (head, x). The `_cm` variants
 take the channel-major layout [..., D, K] (features on axis -2, particles
 last) of the forward filter.
@@ -106,6 +111,45 @@ class KnownTransition(nn.Module):
         self.raw_scale = nn.Parameter(torch.zeros(dx))
         if di:
             self.ctrl_w = nn.Parameter(torch.zeros(di, dx))
+
+
+class GRU(nn.Module):
+    """The reference's GRU cell: the update gate z, the reset gate r and the
+    candidate h̃, each a dense map on [x; h] with W [din + dh, dh] and b [dh]
+    (`psvo_tpu/networks.py:109-133`)."""
+
+    def __init__(self, din: int, dh: int):
+        super().__init__()
+        for g in ("z", "r", "h"):
+            setattr(self, f"{g}_w", nn.Parameter(torch.zeros(din + dh, dh)))
+            setattr(self, f"{g}_b", nn.Parameter(torch.zeros(dh)))
+
+    def gates(self):
+        """{"z": (W, b), "r": (W, b), "h": (W, b)}, the reference's layout."""
+        return {g: (getattr(self, f"{g}_w"), getattr(self, f"{g}_b")) for g in ("z", "r", "h")}
+
+
+def init_gru(generator: torch.Generator, din: int, dh: int) -> GRU:
+    """The reference's `init_gru`: each gate's weight Glorot-uniform on
+    [din + dh, dh], its bias zero (the draws from `generator`, so the bits
+    differ from jax.random's)."""
+    cell = GRU(din, dh)
+    with torch.no_grad():
+        for w, b in cell.gates().values():
+            _glorot_(w, generator)
+            b.zero_()
+    return cell
+
+
+def gru_step(cell: GRU, h, x):
+    """One GRU update h' = (1 − z)·h + z·h̃ with z = σ([x; h]·W_z + b_z),
+    r = σ([x; h]·W_r + b_r) and h̃ = tanh([x; r·h]·W_h + b_h): h [..., H],
+    x [..., Din] -> [..., H] (the reference's `gru_step`)."""
+    hx = torch.cat([x, h], dim=-1)
+    z = torch.sigmoid(hx @ cell.z_w + cell.z_b)
+    r = torch.sigmoid(hx @ cell.r_w + cell.r_b)
+    h_cand = torch.tanh(torch.cat([x, r * h], dim=-1) @ cell.h_w + cell.h_b)
+    return (1.0 - z) * h + z * h_cand
 
 
 def _glorot_(w: torch.Tensor, generator) -> None:

@@ -14,7 +14,9 @@ pmf. The module docstring of the reference derives both.
 SVO draws M trajectories backwards from anchors at the last filtering step
 with the learned proposal q_b and trains on
 lse_m(log p(x̃^m, y) − log q(x̃^m)) − log M, q's last term being the
-filter-density surrogate ρ_T (the reference's module docstring).
+filter-density surrogate ρ_T (the reference's module docstring). With
+smc.qb_rnn, q_b also reads h_t, a GRU's summary of y_{t:T}
+(`SSM.backward_rnn_summaries`), computed once a call outside the path loop.
 
 Controls [B, T, Di] (data.di > 0) reach every objective through the filter
 (`smc.forward_filter`). PSVO's support terms and selected-path log-joint take
@@ -23,17 +25,21 @@ u_{t+1}, the control into the step after the support's (the reference's
 [x̃_t; u_{t+1}] (`ops.svo.run_svo_sweep`, K12/K13's control mode).
 
 The model modes (known dynamics, "head"/"tril"/"tril_head" scales, Poisson
-and Dirac emissions, bootstrap mode) reach every objective on CPU tensors;
-PSVO with a full-covariance f sweeps through the reference's scan body
-(`_plain_ffbsi_sweep`), as the reference's FFBSi kernel excludes it. On CUDA
-tensors IWAE and FIVO run them through the general path
-(`smc.forward_filter`); PSVO and SVO whose forward takes no kernel path
-raise NotImplementedError.
+and Dirac emissions, bootstrap mode) reach every objective, on CPU and CUDA
+tensors: the forward runs whatever path `smc.forward_filter` takes (on the
+card, the general path where the reference runs its plain scan).
 
-The FFBSi sweep is `ops.ffbsi.FFBSiSweep`: the CUDA kernels K5/K6 for CUDA
-tensors, their plain versions for CPU tensors; SVO's sweep likewise
-`ops.svo.SVOSweep` (K12/K13), and outside `ops.svo.usable` the reference's
-scan body on CPU tensors.
+Each sweep is dispatched by `smc.smoothing_route`: the port's kernel class
+first (FFBSi: `ops.ffbsi.FFBSiSweep`, K5/K6; SVO: `ops.svo.SVOSweep`,
+K12/K13; their plain versions on CPU tensors), else the reference's plain
+sweep as tensor ops (`_plain_ffbsi_sweep`, `_svo_scan`), on CPU tensors
+always and on CUDA tensors wherever the reference's own gate
+(`smc.reference_ffbsi_path`, `smc.reference_svo_path`) runs its plain code:
+a full-covariance f, K > 2048 or not a multiple of 128, M not a multiple of
+8; the qb GRU, known dynamics, Poisson/Dirac, tril scales, uneven hidden
+widths, max(Dx + Di, Dy) > 7, M < 32. Where the reference runs a sweep
+kernel that the port's class does not cover (ROADMAP queue 2 B.4, B.5), a
+CUDA call raises NotImplementedError before the forward filter runs.
 
 Long T (`smc.ffbsi_segments` = S > 1, PSVO): the forward keeps only the
 carries at S segment boundaries (`smc.forward_filter_segmented`); the
@@ -61,10 +67,11 @@ from psvo_tpu_torch.distributions import (
     _HALF_LOG_2PI, _MIN_LOGP, log_normalize, mvn_diag_log_prob,
 )
 from psvo_tpu_torch.models.ssm import SSM
-from psvo_tpu_torch.ops import ffbsi, fused_step, svo, trunk
+from psvo_tpu_torch.ops import ffbsi, svo
 from psvo_tpu_torch.smc import (
     FilterResult, SegmentedCache, _checkpointed, _controls_tm, _segment_seeds, forward_filter,
-    forward_filter_segmented, recompute_segment,
+    forward_filter_segmented, recompute_segment, reference_ffbsi_path, reference_svo_path,
+    smoothing_route,
 )
 
 # Time steps per chunk of the support terms when they take no gradient: the
@@ -173,16 +180,16 @@ def _support_terms(ssm: SSM, x_support, differentiable: bool, u=None):
 
 def _plain_ffbsi_sweep(ssm: SSM, x_query, xs, logws, gum, differentiable: bool, u=None):
     """The reference's FFBSi scan body (`objectives._make_ffbsi_body`) as a
-    loop over t = n−1 … 0, for a full-covariance f, which K5/K6 do not take
-    (`ops.ffbsi.usable`), on CPU tensors: per step the pairwise density of
-    the queries against the support, the Gumbel-argmax draw and the path
-    pmf. Returns what `ffbsi.FFBSiSweep` returns (x_first, logp (zeros: the
-    log-joint is recomputed on the selected paths), logq, xtilde)."""
-    sup = _pairwise_support_terms(ssm, xs, u)
-    lwn, _ = log_normalize(logws, dim=-1)
-    if not differentiable:
-        sup = {n: v.detach() for n, v in sup.items()}
-        lwn = lwn.detach()
+    loop over t = n−1 … 0, the sweep's "eager" route (`_ffbsi_route`): any f
+    (a full covariance too), on the tensors' device. The support terms are
+    computed for all steps at once, as the reference hoists them; per step
+    one [B, M, K] pairwise density of the queries against the support, the
+    Gumbel-argmax draw and the path pmf. Returns what `ffbsi.FFBSiSweep`
+    returns (x_first, logp (zeros: the log-joint is recomputed on the
+    selected paths), logq, xtilde)."""
+    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
+        sup = _pairwise_support_terms(ssm, xs, u)
+        lwn, _ = log_normalize(logws, dim=-1)
     x = x_query
     logq = torch.zeros(x_query.shape[:2], dtype=x_query.dtype, device=x_query.device)
     paths = [None] * xs.shape[0]
@@ -264,17 +271,54 @@ def _logjoint_chunked(ssm: SSM, x_tilde, ys_tm, ctrl_tm=None):
     return lp0 + torch.sum(torch.stack(parts), dim=0)
 
 
+def _ffbsi_route(ssm: SSM, k: int, m: int, cuda: bool) -> str:
+    """The FFBSi sweep's dispatch (`smc.smoothing_route`): "kernel" in
+    K5/K6's class (`ffbsi.usable`), "eager" where the reference runs its scan
+    body or the tensors are on the CPU, else "raise"."""
+    return smoothing_route(ffbsi.usable(ssm.dx, m, ssm.f_tril),
+                           reference_ffbsi_path(ssm, k, m), cuda)
+
+
+def _svo_route(ssm: SSM, m: int, cuda: bool) -> str:
+    """The q_b sweep's dispatch (`smc.smoothing_route`): "kernel" in
+    K12/K13's class (`svo.usable`), "eager" where the reference runs its scan
+    body or the tensors are on the CPU, else "raise"."""
+    return smoothing_route(svo.usable(ssm, m), reference_svo_path(ssm, m), cuda)
+
+
+def _require_cuda_sweep(ssm: SSM, objective: str, k: int, m: int) -> None:
+    """For CUDA tensors, before the forward filter runs: raise
+    NotImplementedError where the reference runs the objective's sweep (K
+    particles, m paths) through a kernel whose class the port's kernels do
+    not cover."""
+    if objective == "svo":
+        if _svo_route(ssm, m, True) == "raise":
+            raise NotImplementedError(
+                "svo with this model has no CUDA kernel yet: the reference runs its q_b sweep "
+                "through its SVO kernel (pallas_svo), whose class the port's K12/K13 do not "
+                "cover for it (outside ops.svo.usable; ROADMAP queue 2 B.4); run it on CPU "
+                "tensors")
+    elif _ffbsi_route(ssm, k, m, True) == "raise":
+        raise NotImplementedError(
+            "psvo with this model has no CUDA kernel yet: the reference runs its FFBSi sweep "
+            "through its FFBSi kernel (pallas_ffbsi), whose class the port's K5/K6 do not cover "
+            "for it (outside ops.ffbsi.usable; ROADMAP queue 2 B.5); run it on CPU tensors")
+
+
 def _ffbsi_sweep(ssm: SSM, x_query, xs, logws, gum, differentiable: bool, u=None):
     """One FFBSi sweep from the queries x_query [B, M, Dx] over the support
     xs [n, B, Dx, K] with the cumulative log-weights logws [n, B, K], Gumbels
     gum [n, B, M, K] and the controls into the step after each support step,
-    u [n, B, Di] (or None): the support terms and the normalized weights,
-    which carry no gradient unless `differentiable`, then one
-    `ffbsi.FFBSiSweep`; for a full-covariance f, outside K5/K6's class,
-    `_plain_ffbsi_sweep` (CPU tensors only: such a model's forward takes no
-    kernel path, so `make_objective` refuses it on the card). Returns
-    (x_first, logp, logq, xtilde)."""
-    if ssm.f_tril:
+    u [n, B, Di] (or None). Dispatched by `_ffbsi_route`: in K5/K6's class
+    the support terms and the normalized weights, which carry no gradient
+    unless `differentiable`, then one `ffbsi.FFBSiSweep`; else
+    `_plain_ffbsi_sweep` (the card's route where the reference runs its scan
+    body). Returns (x_first, logp, logq, xtilde)."""
+    k, m = xs.shape[-1], x_query.shape[1]
+    route = _ffbsi_route(ssm, k, m, x_query.is_cuda)
+    if route == "raise":
+        _require_cuda_sweep(ssm, "psvo", k, m)
+    if route == "eager":
         return _plain_ffbsi_sweep(ssm, x_query, xs, logws, gum, differentiable, u)
     r, mr, c = _support_terms(ssm, xs, differentiable, u)
     lwn, _ = log_normalize(logws, dim=-1)
@@ -387,15 +431,20 @@ def _predictive_mixture_logp(ssm: SSM, x_prev, logw_prev, x_query, u=None):
 
 def _svo_scan(ssm: SSM, ys_tm, eps, x_anchor, ctrl_tm=None):
     """The reference's lax.scan body over t = T−2 … 0 on the model's heads,
-    f on [x̃_t; u_{t+1}] with controls ctrl_tm [T, B, Di], for CPU tensors
-    outside `svo.usable`. Returns what `svo.run_svo_sweep` returns."""
+    f on [x̃_t; u_{t+1}] with controls ctrl_tm [T, B, Di]: the q_b sweep's
+    "eager" route (`_svo_route`), on the tensors' device. With smc.qb_rnn
+    the GRU's summaries h_t of y_{t:T} are computed once, outside the path
+    loop, and q_b reads h_t broadcast over the paths. Returns what
+    `svo.run_svo_sweep` returns."""
     x = x_anchor
-    lp = torch.zeros(x_anchor.shape[:2], dtype=x_anchor.dtype)
+    lp = x_anchor.new_zeros(x_anchor.shape[:2])
     lq = torch.zeros_like(lp)
+    h_scan = ssm.backward_rnn_summaries(ys_tm)[:-1] if ssm.qb_rnn else None  # [T−1, B, H]
     xts = [None] * eps.shape[0]
     for t in reversed(range(eps.shape[0])):
         y_t = ys_tm[t][:, None, :]
-        mean_b, scale_b = ssm.backward_propose(x, y_t)
+        h_t = None if h_scan is None else h_scan[t][:, None, :]
+        mean_b, scale_b = ssm.backward_propose(x, y_t, h_t)
         x_t = mean_b + scale_b * eps[t]
         u = None if ctrl_tm is None else ctrl_tm[t + 1]
         lp = lp + ssm.transition_log_prob(x_t, x, u) + ssm.emission_log_prob(x_t, y_t)
@@ -419,13 +468,12 @@ def _svo_backward(ssm: SSM, gum_anchor, eps, ys_tm, fwd: FilterResult, ctrl_tm=N
     log_pred = _predictive_mixture_logp(ssm, fwd.xs[-2], fwd.logws[-2], x_anchor,
                                         None if ctrl_tm is None else ctrl_tm[-1])
     log_rho_t = log_g_t + log_pred - fwd.increments[-1][:, None]
-    if svo.usable(ssm, x_anchor.shape[1]):
+    m = x_anchor.shape[1]
+    route = _svo_route(ssm, m, x_anchor.is_cuda)
+    if route == "raise":
+        _require_cuda_sweep(ssm, "svo", fwd.x_last.shape[-1], m)
+    if route == "kernel":
         x_first, lp, lq, xtilde = svo.run_svo_sweep(ssm, ys_tm, eps, x_anchor, ctrl_tm)
-    elif x_anchor.is_cuda:
-        raise NotImplementedError(
-            "SVO: this configuration has no CUDA kernel yet (outside ops.svo.usable); run it "
-            "on CPU tensors"
-        )
     else:
         x_first, lp, lq, xtilde = _svo_scan(ssm, ys_tm, eps, x_anchor, ctrl_tm)
     logp = log_g_t + lp + ssm.prior_log_prob(x_first)
@@ -439,12 +487,6 @@ def _gumbel(generator, shape):
     PSVO step (gum_scan, 208 MB at the preset) has no temporaries."""
     u = torch.rand(shape, generator=generator, device=generator.device)
     return u.clamp_(min=torch.finfo(u.dtype).tiny).log_().neg_().log_().neg_()
-
-
-def _kernel_forward(ssm: SSM, smc_cfg, t_steps: int) -> bool:
-    """Whether the forward filter of (ssm, smc_cfg) runs a kernel path (the
-    whole-scan or the trunk class) rather than the general path."""
-    return t_steps >= 2 and (fused_step.usable(ssm, smc_cfg) or trunk.usable(ssm, smc_cfg))
 
 
 def _controls_kw(controls) -> dict:
@@ -488,11 +530,8 @@ def make_objective(ssm: SSM, cfg: Config):
     def objective(generator, ys, encoder_inputs=None, noise=None,
                   controls=None) -> ObjectiveOutput:
         filter_noise = None if noise is None else tuple(noise[:3])
-        if smoothing and ys.is_cuda and not _kernel_forward(ssm, smc_cfg, ys.shape[1]):
-            raise NotImplementedError(
-                f"{smc_cfg.objective} with this model has no CUDA kernel yet: its forward "
-                "filter is outside ops.fused_step.usable and ops.trunk.usable, and the general "
-                "path serves FIVO and IWAE only on the card; run it on CPU tensors")
+        if smoothing and ys.is_cuda:
+            _require_cuda_sweep(ssm, smc_cfg.objective, smc_cfg.n_particles, m)
         if segmented:
             fwd, seg_cache = forward_filter_segmented(
                 ssm, generator, ys, smc_cfg, smc_cfg.ffbsi_segments,

@@ -234,8 +234,9 @@ def usable(ssm, m: int) -> bool:
     fit every shape the chain designs do, so the class is the chain
     designs', as before the splits); (Dx, Dy) in {(2, 2), (3, 3)}; controls
     while Dx + Di <= 7 (the reference's gate, `pallas_svo.py:122`); a
-    Gaussian emission; no qb GRU, known dynamics or bootstrap mode;
-    1 <= m <= MAX_M."""
+    Gaussian emission; no qb GRU or known dynamics; 1 <= m <= MAX_M.
+    Bootstrap mode is in the class, as in the reference's gate: the sweep
+    reads q_b, f and g, never the forward proposal."""
     hidden = ssm.nets["qb"].hidden
     if not (len(hidden) >= 1 and hidden[0] in HIDDEN_WIDTHS
             and all(h == hidden[0] for h in hidden)):
@@ -245,7 +246,7 @@ def usable(ssm, m: int) -> bool:
         (ssm.dx, ssm.dy) in KERNEL_DIMS
         and 1 <= m <= MAX_M
         and ssm.dx + ssm.di <= MAX_STATE_AND_CONTROLS
-        and not (ssm.qb_rnn or ssm.transition_known or ssm.use_bootstrap)
+        and not (ssm.qb_rnn or ssm.transition_known)
         and ssm.emission in ("linear_gaussian", "identity_gaussian")
         and all(ssm.nets[n].hidden == hidden and ssm.nets[n].activation == "relu"
                 and ssm.nets[n].cov_type == "const" for n in _NETS)

@@ -46,13 +46,14 @@ from f after, so α0 = log g and α_t = log g (with a full-covariance f, the
 correlated draw mean + L·ε).
 
 Long T: `forward_filter_segmented` keeps only the carries entering each of
-S segments (`SegmentedCache`). In the whole-scan class each segment is one
-`fused_step.ScanForward` (K1, K4 in the backward) from its carry over its
-rows of the coefficient tensor; otherwise, on CPU tensors, the plain body
-runs per segment. Under smc.remat each segment runs under
-`torch.utils.checkpoint`, and draws its noise from a seed of its own inside
-the checkpoint, so that only the carries persist. `recompute_segment`
-replays a segment through the same code, bit for bit.
+S segments (`SegmentedCache`). In the whole-scan class (with
+`fused_step.SCAN_FUSED` on) each segment is one `fused_step.ScanForward`
+(K1, K4 in the backward) from its carry over its rows of the coefficient
+tensor; otherwise the plain body runs per segment, as the reference's does,
+on CUDA tensors with K7/K8 resampling (K11 in the backward). Under smc.remat
+each segment runs under `torch.utils.checkpoint`, and draws its noise from a
+seed of its own inside the checkpoint, so that only the carries persist.
+`recompute_segment` replays a segment through the same code, bit for bit.
 
 Controls [B, T, Di] (data.di > 0) are exogenous inputs: step t's q1 and f
 see [x_{t−1}; u_t], so the carry into step t holds u_t (`controls=`; zeros
@@ -559,6 +560,63 @@ def reference_path(ssm: SSM, cfg: SMCConfig) -> str:
     return "scan"
 
 
+# The reference's smoothing-sweep gates, as constants of its TPU kernels: the
+# SVO kernel's M floor and lanes (`pallas_svo.MIN_M`, `pallas_step._LANES`) and
+# row cap, and the FFBSi kernel's K cap (`pallas_ffbsi.MAX_K`).
+_REF_SVO_MIN_M, _REF_LANES, _REF_SVO_MAX_ROWS, _REF_FFBSI_MAX_K = 32, 128, 7, 2048
+
+
+def reference_svo_path(ssm: SSM, m: int) -> str:
+    """The route of the reference's SVO sweep for (ssm, m paths) on its
+    accelerator: "kernel" (`pallas_svo.usable`, pallas_svo.py:104-140) or
+    "plain", its lax.scan body (`psvo_tpu/objectives.py:290-313`), mode by
+    mode, with its defaults (kernels on, no mesh) at a batch of whole row
+    blocks. Bootstrap mode does not enter it: the sweep reads q_b, f and g,
+    never the forward proposal."""
+    nets = [ssm.nets[n] for n in ("qb", "f", "g")]
+    hidden = nets[0].hidden
+    kernel = (
+        not (ssm.qb_rnn or ssm.transition_known)
+        and ssm.emission not in ("poisson", "dirac")
+        and not (ssm.f_tril or ssm.g_tril)
+        and m >= _REF_SVO_MIN_M
+        and not (m > _REF_LANES and m % _REF_LANES)
+        and max(ssm.dx + ssm.di, ssm.dy) <= _REF_SVO_MAX_ROWS
+        and ssm.dx + ssm.dy <= _REF_SVO_MAX_ROWS
+        and len(hidden) >= 1
+        and all(h == hidden[0] for h in hidden)
+        and hidden[0] % 8 == 0
+        and all(nc.hidden == hidden and nc.cov_type == "const" and nc.activation == "relu"
+                for nc in nets)
+    )
+    return "kernel" if kernel else "plain"
+
+
+def reference_ffbsi_path(ssm: SSM, k: int, m: int) -> str:
+    """The route of the reference's FFBSi sweep over K particles with m
+    paths: "kernel" (`pallas_ffbsi.usable`, pallas_ffbsi.py:51-63: a
+    diagonal f, K a multiple of 128 up to 2048, M a multiple of 8) or
+    "plain", its scan body (`objectives._make_ffbsi_body`), with its
+    defaults at a batch of whole row blocks."""
+    kernel = (not ssm.f_tril and k % _REF_Q == 0 and k <= _REF_FFBSI_MAX_K and m % 8 == 0)
+    return "kernel" if kernel else "plain"
+
+
+def smoothing_route(port_class: bool, reference: str, cuda: bool) -> str:
+    """The dispatch of a smoothing sweep (SVO's q_b sweep, FFBSi): "kernel"
+    where the port's kernel class takes it (K12/K13, K5/K6 on CUDA tensors,
+    their plain versions on CPU tensors), even where the reference runs its
+    plain code; else "eager", the counterpart of the reference's plain code
+    as tensor ops, on CPU tensors always and on CUDA tensors where the
+    reference runs that code (`reference` "plain"); else "raise": the
+    reference runs a kernel whose class the port has not widened to."""
+    if port_class:
+        return "kernel"
+    if reference == "plain" or not cuda:
+        return "eager"
+    return "raise"
+
+
 def forward_filter(
     ssm: SSM,
     generator: Optional[torch.Generator],
@@ -815,10 +873,12 @@ def _forward_filter_segmented_plain(
     streams: Optional[tuple] = None,
     controls=None,
 ) -> tuple[FilterResult, SegmentedCache]:
-    """The segmented forward of the plain step body (CPU tensors only), the
-    reference's `forward_filter_segmented`: each segment runs
-    `_make_step_body` from its carry, under `_checkpointed`. Noise as in
-    `_forward_filter_segmented_fused` without the kernel's own seed."""
+    """The segmented forward of the plain step body, the reference's
+    `forward_filter_segmented` outside its fused class: each segment runs
+    `_make_step_body` from its carry, under `_checkpointed`; on CUDA tensors
+    its resampling runs K7/K8 (K11 in the backward) and its draws come from
+    the card's generator. Noise as in `_forward_filter_segmented_fused`
+    without the kernel's own seed."""
     batch, t_steps, _ = ys.shape
     k, dx = cfg.n_particles, ssm.dx
     seg_len = (t_steps - 1) // n_segments
@@ -874,31 +934,34 @@ def forward_filter_segmented(
     boundaries instead of the per-step cache; requires (T − 1) % S == 0.
     Returns (FilterResult without xs/logws, SegmentedCache).
 
-    The whole-scan class runs K1 per segment (`_forward_filter_segmented_fused`;
-    their plain versions on CPU tensors); a CUDA tensor outside it, or with
-    `fused_step.SCAN_FUSED` off (no per-step segmented route), raises. CPU
-    tensors outside it, or with the noise hook, run the plain step body, as
-    the unsegmented `forward_filter` does. noise = (eps0, eps_scan, u_scan)
-    over all T replaces the draws.
+    As the reference (`psvo_tpu/smc.py:818-870`): with `fused_step.SCAN_FUSED`
+    on, the whole-scan class runs K1 per segment
+    (`_forward_filter_segmented_fused`; their plain versions on CPU tensors);
+    everything else runs the plain step body per segment
+    (`_forward_filter_segmented_plain`), which on CUDA tensors resamples
+    through K7/K8 (K11 in the backward), as the unsegmented plain loop does;
+    the reference has no per-step kernel route for segments. A CUDA tensor
+    that the reference sends to its whole-step kernel but the port's K1
+    class does not take (`reference_path` "fused"; ROADMAP queue 2 B.2)
+    raises. CPU tensors with the noise hook run the plain step body.
+    noise = (eps0, eps_scan, u_scan) over all T replaces the draws.
     """
     batch, t_steps, _ = ys.shape
     if (t_steps - 1) % n_segments:
         raise ValueError(f"T-1={t_steps - 1} not divisible by {n_segments} segments")
-    fused = t_steps >= 2 and fused_step.usable(ssm, cfg)
+    fused = t_steps >= 2 and fused_step.usable(ssm, cfg) and fused_step.SCAN_FUSED
     kw = dict(encoder_inputs=encoder_inputs, streams=noise, controls=controls)
     if ys.is_cuda:
-        if not fused:
+        if fused:
+            return _forward_filter_segmented_fused(ssm, generator, ys, cfg, n_segments, **kw)
+        if t_steps >= 2 and fused_step.SCAN_FUSED and reference_path(ssm, cfg) == "fused":
             raise NotImplementedError(
-                "this configuration has no CUDA kernel yet (outside ops.fused_step.usable); "
-                "run the segmented filter on CPU tensors"
+                "this configuration has no CUDA kernel yet: the reference runs its segments "
+                "through its whole-step kernel (pallas_step), whose class the port's K1 does not "
+                "cover for it (outside ops.fused_step.usable; ROADMAP queue 2 B.2); run it on "
+                "CPU tensors"
             )
-        if not fused_step.SCAN_FUSED:
-            raise NotImplementedError(
-                "segmented filtering with fused_step.SCAN_FUSED off has no CUDA route yet "
-                "(the per-step kernels K14/K15 do not serve segments)"
-            )
-        return _forward_filter_segmented_fused(ssm, generator, ys, cfg, n_segments, **kw)
-    if fused and fused_step.SCAN_FUSED and noise is None:
+    elif fused and noise is None:
         return _forward_filter_segmented_fused(ssm, generator, ys, cfg, n_segments, **kw)
     return _forward_filter_segmented_plain(ssm, generator, ys, cfg, n_segments, **kw)
 

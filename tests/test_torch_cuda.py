@@ -812,7 +812,10 @@ def _svo_relu_ties(consts, ops, xtilde, tol=1e-5, cbias=None):
     return flag
 
 
-def test_cuda_tensor_outside_the_svo_class_raises():
+def test_cuda_tensor_outside_the_svo_class_runs_the_eager_sweep():
+    """Uneven hidden widths lie outside K12/K13's class and the reference's SVO
+    gate: the q_b sweep runs eagerly on the card (K1 for the forward, no K12,
+    no plain version), finite; the sweep ops still refuse bad operands."""
     from psvo_tpu_torch.objectives import make_objective
     from psvo_tpu_torch.ops import svo
 
@@ -822,8 +825,13 @@ def test_cuda_tensor_outside_the_svo_class_raises():
     ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
     assert not svo.usable(ssm, cfg.smc.n_smoothing_particles)
     ys = torch.randn((4, 6, 3), generator=torch.Generator().manual_seed(2)).to(dev)
-    with pytest.raises(NotImplementedError, match="ops.svo.usable"):
-        make_objective(ssm, cfg)(torch.Generator(device=dev).manual_seed(3), ys)
+    kernels = (fused_step.scan_forward, svo.svo_sweep_forward)
+    launches, calls = [f.launches for f in kernels], svo.svo_sweep_forward_reference.calls
+    with torch.no_grad():
+        out = make_objective(ssm, cfg)(torch.Generator(device=dev).manual_seed(3), ys)
+    assert [f.launches - n for f, n in zip(kernels, launches)] == [1, 0]
+    assert svo.svo_sweep_forward_reference.calls == calls
+    assert out.smoothed.device == ys.device and bool(torch.isfinite(out.loss))
     _, consts, ops = _svo_operands(dev, (16, 16))
     with pytest.raises(ValueError, match="x_anchor"):  # eps holds 4 paths per row, not 8
         svo.svo_sweep_forward(ops[0], ops[1][:, :, :4].contiguous(), ops[2], consts)
@@ -1525,15 +1533,15 @@ def test_controlled_train_step_runs_the_kernels(monkeypatch, scan_fused):
             assert _rel(torch.from_numpy(a), torch.from_numpy(w)) <= 1e-4, name
 
 
-def test_cuda_controls_outside_the_kernel_classes_raise():
+def test_cuda_controls_outside_the_kernel_classes_take_the_trunk_and_eager_routes():
     """A controlled model on CUDA tensors outside the whole-scan class runs
     the trunk class's kernels in their control mode (Lorenz-96 with
     controls, and FHN at Dx + Di > 7): K9 once a step, no plain version;
     PSVO at Dx + Di > 7 runs on that forward (K9, then K5), and SVO there,
-    whose sweep kernel takes Dx + Di <= 7, still raises rather than run
-    plain PyTorch on the card."""
+    where the reference's SVO gate (max(Dx + Di, Dy) <= 7) sends it to its
+    scan body, runs the eager q_b sweep (K9, no K12)."""
     from psvo_tpu_torch.objectives import make_objective
-    from psvo_tpu_torch.ops import ffbsi, trunk
+    from psvo_tpu_torch.ops import ffbsi, svo, trunk
     from psvo_tpu_torch.smc import forward_filter
 
     dev = _cuda()
@@ -1564,17 +1572,22 @@ def test_cuda_controls_outside_the_kernel_classes_raise():
                 launches[0] + 4, launches[1] + 1)
             assert bool(torch.isfinite(out.loss))
             continue
-        with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-            objective(*args, **kw)
+        launches = (trunk.trunk_forward.launches, svo.svo_sweep_forward.launches)
+        with torch.no_grad():
+            out = objective(*args, **kw)
+        assert (trunk.trunk_forward.launches, svo.svo_sweep_forward.launches) == (
+            launches[0] + 4, launches[1])
+        assert bool(torch.isfinite(out.loss))
 
 
-def test_cuda_bootstrap_model_raises():
-    """A bootstrap model lies outside every kernel class (its proposal is f),
-    as the reference's gates say; on CUDA tensors its filter runs the general
-    path, the counterpart of the reference's plain scan: K7 and K8 once a
-    step, no other kernel and no plain version, at the FHN and Lorenz-96
-    shapes. A segmented PSVO bootstrap model still raises: its forward has
-    no CUDA route."""
+def test_cuda_bootstrap_model_takes_the_general_path():
+    """A bootstrap model lies outside every filter kernel class (its proposal
+    is f), as the reference's gates say; on CUDA tensors its filter runs the
+    general path, the counterpart of the reference's plain scan: K7 and K8
+    once a step, no other kernel and no plain version, at the FHN and
+    Lorenz-96 shapes. Segmented PSVO in bootstrap mode runs the plain step
+    body per segment (K7/K8, no K1), as the reference does, and K5 once a
+    segment's sweep and once for t = 0."""
     from psvo_tpu_torch.objectives import make_objective
     from psvo_tpu_torch.ops import resample_gather as rg
     from psvo_tpu_torch.smc import forward_filter
@@ -1595,8 +1608,15 @@ def test_cuda_bootstrap_model_raises():
                 fused_step.scan_forward.launches] == [before[0] + 4, before[1] + 4, before[2]]
     cfg = _small_cfg("lorenz63_psvo_k1024", use_bootstrap=True, ffbsi_segments=5)
     ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-        make_objective(ssm, cfg)(torch.Generator(device=dev), torch.zeros((2, 6, 3), device=dev))
+    before = [rg.ancestor_indices_large.launches, fused_step.scan_forward.launches,
+              ffbsi.ffbsi_forward.launches]
+    with torch.no_grad():
+        out = make_objective(ssm, cfg)(torch.Generator(device=dev),
+                                       torch.zeros((2, 6, 3), device=dev))
+    # 5 forward steps, and 4 replayed for the sweep (the last segment holds only the anchors)
+    assert [rg.ancestor_indices_large.launches, fused_step.scan_forward.launches,
+            ffbsi.ffbsi_forward.launches] == [before[0] + 9, before[1], before[2] + 5]
+    assert bool(torch.isfinite(out.loss)) and out.smoothed.shape == (6, 2, 16, 3)
 
 
 # The general path (the reference's plain scan) on the card: one dispatch test a mode
@@ -1847,17 +1867,154 @@ def test_trunk_kernels_match_plain_at_small_widths_and_with_controls(preset, dx,
 
 
 @pytest.mark.parametrize("objective", ["psvo", "svo"])
-def test_cuda_smoothing_with_a_general_path_model_raises(objective):
+def test_cuda_smoothing_with_a_general_path_model_runs(objective):
     """PSVO and SVO whose forward takes no kernel path (here known dynamics)
-    have no CUDA route in the port yet: a clear NotImplementedError."""
+    run on the card: the general path's forward (K7/K8 once a step), then
+    PSVO's sweep through K5 (its class) and SVO's eagerly (the reference's
+    SVO gate excludes known dynamics: no K12); in a train step K11 once a
+    step and K6 once for PSVO; no plain version, no K1."""
     from psvo_tpu_torch.objectives import make_objective
+    from psvo_tpu_torch.ops import resample_gather as rg
+    from psvo_tpu_torch.ops import svo
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
 
     dev = _cuda()
     preset = "lorenz63_psvo_k1024" if objective == "psvo" else "lorenz63_svo_k256"
     cfg = _small_cfg(preset, transition="known")
     ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-        make_objective(ssm, cfg)(torch.Generator(device=dev), torch.zeros((4, 6, 3), device=dev))
+    ys = torch.randn((4, 6, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+    kernels = (rg.ancestor_indices_large, rg.gather_particles, rg.segment_sum_scatter,
+               ffbsi.ffbsi_forward, ffbsi.ffbsi_backward, svo.svo_sweep_forward,
+               fused_step.scan_forward)
+    plain = (rg.ancestor_indices_large_reference, rg.gather_particles_reference,
+             rg.segment_sum_scatter_reference, ffbsi.ffbsi_forward_reference,
+             svo.svo_sweep_forward_reference)
+    psvo = int(objective == "psvo")
+    launches, calls = [f.launches for f in kernels], [f.calls for f in plain]
+    with torch.no_grad():
+        out = make_objective(ssm, cfg)(torch.Generator(device=dev).manual_seed(3), ys)
+    assert [f.launches - n for f, n in zip(kernels, launches)] == [5, 5, 0, psvo, 0, 0, 0]
+    assert bool(torch.isfinite(out.loss)) and out.smoothed.shape == (6, 4, 16, 3)
+    launches = [f.launches for f in kernels]
+    metrics = make_train_step(ssm, cfg, make_optimizer(cfg))(
+        torch.Generator(device=dev).manual_seed(4), ys)
+    assert [f.launches - n for f, n in zip(kernels, launches)] == [5, 5, 5, psvo, psvo, 0, 0]
+    assert [f.calls for f in plain] == calls
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+
+
+def test_cuda_qb_rnn_svo_trains_on_the_eager_sweep():
+    """SVO with the qb GRU on the card: the forward through K1 (K4 in the
+    backward), the GRU and the q_b sweep eager (no K12/K13, no plain
+    version); a finite loss and a nonzero gradient on the GRU."""
+    from psvo_tpu_torch.ops import svo
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    dev = _cuda()
+    cfg = _small_cfg("lorenz63_svo_k256", qb_rnn=True)
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ys = torch.randn((4, 6, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+    kernels = (fused_step.scan_forward, fused_step.scan_backward, svo.svo_sweep_forward,
+               svo.svo_sweep_backward)
+    plain = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+             svo.svo_sweep_forward_reference, svo.svo_sweep_backward_reference)
+    launches, calls = [f.launches for f in kernels], [f.calls for f in plain]
+    before = ssm.gru.z_w.detach().clone()
+    metrics = make_train_step(ssm, cfg, make_optimizer(cfg))(
+        torch.Generator(device=dev).manual_seed(3), ys)
+    assert [f.launches - n for f, n in zip(kernels, launches)] == [1, 1, 0, 0]
+    assert [f.calls for f in plain] == calls
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["elbo_svo"])
+    assert not torch.equal(ssm.gru.z_w.detach(), before)
+
+
+def test_cuda_bootstrap_svo_runs_k12_as_its_eager_sweep_would():
+    """Bootstrap SVO is in K12/K13's class (the reference's SVO gate has no
+    bootstrap test; the sweep reads q_b, f and g only): the forward through
+    the general path, the sweep through K12 (K13 in the backward); the loss
+    on the same draws equal, within 1e-5, to the eager sweep's on the card."""
+    from psvo_tpu_torch import objectives
+    from psvo_tpu_torch.objectives import make_objective
+    from psvo_tpu_torch.ops import svo
+
+    dev = _cuda()
+    cfg = _small_cfg("lorenz63_svo_k256", use_bootstrap=True)
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    assert svo.usable(ssm, cfg.smc.n_smoothing_particles)
+    ys = torch.randn((4, 6, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+    losses = []
+    for route in ("kernel", "eager"):
+        real = objectives._svo_route
+        if route == "eager":
+            objectives._svo_route = lambda *a: "eager"
+        try:
+            launches = (svo.svo_sweep_forward.launches, svo.svo_sweep_backward.launches)
+            out = make_objective(ssm, cfg)(torch.Generator(device=dev).manual_seed(3), ys)
+            out.loss.backward()
+        finally:
+            objectives._svo_route = real
+        n = int(route == "kernel")
+        assert (svo.svo_sweep_forward.launches, svo.svo_sweep_backward.launches) == (
+            launches[0] + n, launches[1] + n)
+        losses.append(float(out.loss))
+    assert abs(losses[0] - losses[1]) <= 1e-5 * max(1.0, abs(losses[1])), losses
+
+
+def test_cuda_sweep_the_port_has_no_class_for_raises_up_front():
+    """Where the reference runs its sweep kernel and the port's class does not
+    reach (SVO at (Dx, Dy) = (4, 3) with M = 32: K12 is not built there; PSVO
+    on Lorenz-96 at K = 1024: K5 takes Dx in {2, 3}), the objective raises
+    NotImplementedError naming the class before the forward filter launches
+    anything."""
+    from psvo_tpu_torch.objectives import make_objective
+    from psvo_tpu_torch.ops import resample_gather as rg
+    from psvo_tpu_torch.ops import trunk
+
+    dev = _cuda()
+    svo_cfg = PRESETS["lorenz63_svo_k256"]
+    svo_cfg = dataclasses.replace(svo_cfg, data=dataclasses.replace(svo_cfg.data, dx=4),
+                                  smc=dataclasses.replace(svo_cfg.smc, n_smoothing_particles=32))
+    l96 = PRESETS["lorenz96_fivo_k8192_sharded"]
+    l96 = dataclasses.replace(l96, smc=dataclasses.replace(
+        l96.smc, objective="psvo", n_particles=1024, n_smoothing_particles=16))
+    kernels = (fused_step.scan_forward, trunk.trunk_forward, rg.ancestor_indices_large)
+    for cfg, dy, match in ((svo_cfg, 3, "ops.svo.usable"), (l96, 40, "ops.ffbsi.usable")):
+        ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+        launches = [f.launches for f in kernels]
+        with pytest.raises(NotImplementedError, match=match):
+            make_objective(ssm, cfg)(torch.Generator(device=dev),
+                                     torch.zeros((2, 6, dy), device=dev))
+        assert [f.launches for f in kernels] == launches
+
+
+@pytest.mark.parametrize("scan_fused", [True, False])
+def test_cuda_segmented_psvo_outside_the_whole_scan_class_runs_plain_segments(scan_fused,
+                                                                              monkeypatch):
+    """Segmented PSVO with ESS-adaptive resampling (outside K1's class), and
+    the preset with fused_step.SCAN_FUSED off: the plain step body per
+    segment on the card (no K1 or K14): a train step of 5 segments of one
+    step (4 with support) under smc.remat launches K7 18 times (the forward,
+    the sweep's replays, and both again in the checkpoints' backward), K5 9
+    (each segment's sweep twice, t = 0 once) and K6 5; finite."""
+    from psvo_tpu_torch.ops import resample_gather as rg
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    dev = _cuda()
+    if scan_fused:
+        cfg = _small_cfg("lorenz63_psvo_k1024", ffbsi_segments=5, ess_threshold=0.5)
+    else:
+        monkeypatch.setattr(fused_step, "SCAN_FUSED", False)
+        cfg = _small_cfg("lorenz63_psvo_k1024", ffbsi_segments=5)
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ys = torch.randn((2, 6, 3), generator=torch.Generator().manual_seed(2)).to(dev) * 5.0
+    kernels = (fused_step.scan_forward, fused_step.step_forward, ffbsi.ffbsi_forward,
+               ffbsi.ffbsi_backward, rg.ancestor_indices_large)
+    launches = [f.launches for f in kernels]
+    metrics = make_train_step(ssm, cfg, make_optimizer(cfg))(
+        torch.Generator(device=dev).manual_seed(3), ys)
+    got = [f.launches - n for f, n in zip(kernels, launches)]
+    assert got == [0, 0, 9, 5, 18], got
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
 
 
 def _seg_noise(dev, t, b, k, m, dx=3):

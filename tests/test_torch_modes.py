@@ -299,8 +299,11 @@ def test_invalid_mode_combinations_rejected():
     with pytest.raises(ValueError):  # poisson has no covariance head
         SSM(dataclasses.replace(base.with_nets(g=tconfig.NetConfig(cov_type="tril")),
                                 data=dataclasses.replace(base.data, emission="poisson")))
-    with pytest.raises(NotImplementedError, match="qb_rnn"):
-        SSM(dataclasses.replace(base, smc=dataclasses.replace(base.smc, qb_rnn=True)))
+    # the qb GRU builds (it is ported): the GRU on y and the widened qb input
+    rnn = SSM(dataclasses.replace(base, smc=dataclasses.replace(base.smc, qb_rnn=True)))
+    h = rnn.qb_rnn_dim
+    assert rnn.gru.z_w.shape == (2 + h, h)
+    assert rnn.heads["qb"].weights[0].shape == (2 + 2 + h, base.net("qb").hidden[0])
 
 
 # -- pairwise densities ------------------------------------------------------------

@@ -16,7 +16,8 @@ bands, run on CPU tensors:
   Kalman log-likelihood, PSVO's ELBO equal to the forward bound and near
   it, the FFBSi paths' means against the RTS smoother and nearer the true
   latents than the filtering means, and the segmented PSVO (S = 4) against
-  both oracles, with a gradient. The model is the reference's
+  both oracles, with a gradient; SVO a lower bound on it, with and without
+  the qb GRU. The model is the reference's
   exact LGSSM (`tests/helpers.lgssm_setup`, linear heads with hidden=(),
   bootstrap mode), loaded into the port through `bridge.load_numpy_params`.
 - The port's bootstrap filter against the reference's on the same draws
@@ -197,6 +198,31 @@ def test_psvo_elbo_equals_forward_bound_and_matches_kalman(lgssm):
     assert np.all(np.abs(err) < 0.6), err
 
 
+@pytest.mark.parametrize("qb_rnn", [False, True])
+def test_svo_is_a_lower_bound(lgssm, qb_rnn):
+    """With an untrained backward proposal SVO is loose but stays a bound on
+    the Kalman log-likelihood (K = 1024, M = 32); with the qb GRU too (q_b
+    then a relu head (16,) on [x; y; h] with its GRU drawn at random, the
+    LGSSM's f, g and prior as they are)."""
+    if not qb_rnn:
+        out = _run(lgssm, "svo", 1024, m=32)
+    else:
+        *_, tcfg, tssm = _lgssm_port(lgssm["p"], objective="svo", n_particles=1024,
+                                     n_smoothing=32, t_steps=KT)
+        rnn_cfg = dataclasses.replace(tcfg, smc=dataclasses.replace(tcfg.smc, qb_rnn=True))
+        rnn_cfg = rnn_cfg.with_nets(qb=dataclasses.replace(tcfg.net("qb"), hidden=(16,)))
+        rnn = SSM(rnn_cfg).init(torch.Generator().manual_seed(1))
+        tree = bridge.params_to_numpy(rnn)
+        tree.update({k: v for k, v in bridge.params_to_numpy(tssm).items() if k != "qb"})
+        bridge.load_numpy_params(rnn, tree)
+        with torch.no_grad():
+            out = make_objective(rnn, rnn_cfg)(torch.Generator().manual_seed(0),
+                                               torch.from_numpy(lgssm["ys"]))
+    elbo = out.elbo.numpy()
+    assert np.all(np.isfinite(elbo))
+    assert np.all(elbo < lgssm["kf_loglik"] + 1.0), elbo - lgssm["kf_loglik"]
+
+
 def test_ffbsi_smoothed_means_match_rts(lgssm):
     """PSVO's FFBSi trajectories average to the RTS smoothed means."""
     outs = [_run(lgssm, "psvo", 2048, m=64, seed=s).smoothed.numpy() for s in range(3)]
@@ -269,8 +295,11 @@ def _in_class(gate, cfg):
                                           ("svo", "lorenz63_svo_k256")])
 def test_kernel_gate_excludes_bootstrap(gate, preset):
     """Each kernel gate holds its preset's model in its class, and the same
-    model in bootstrap mode out of it, as the reference's gates do."""
+    model in bootstrap mode where the reference's gate does: the filter
+    kernels' gates exclude it (their proposal is q1/q2, bootstrap's is f);
+    the SVO sweep's keeps it (`pallas_svo.usable` has no bootstrap test: the
+    sweep reads q_b, f and g, never the forward proposal)."""
     cfg = tconfig.PRESETS[preset]
     boot = dataclasses.replace(cfg, smc=dataclasses.replace(cfg.smc, use_bootstrap=True))
     assert _in_class(gate, cfg)
-    assert not _in_class(gate, boot)
+    assert _in_class(gate, boot) == (gate == "svo")

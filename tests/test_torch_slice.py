@@ -178,8 +178,10 @@ def test_preset_is_in_the_kernel_class_and_unported_modes_raise():
         assert not fused_step.usable(SSM(cfg), cfg.smc), name
     qb_rnn = PRESETS["lorenz63_svo_k256"]
     qb_rnn = dataclasses.replace(qb_rnn, smc=dataclasses.replace(qb_rnn.smc, qb_rnn=True))
-    with pytest.raises(NotImplementedError, match="qb_rnn"):
-        SSM(qb_rnn)
+    rnn = SSM(qb_rnn)  # ported: the GRU on y (width 64) and the qb head on [x; y; h]
+    assert rnn.gru.z_w.shape == (3 + 64, 64)
+    assert rnn.heads["qb"].weights[0].shape == (3 + 3 + 64, 64)
+    assert fused_step.usable(rnn, qb_rnn.smc)  # its forward stays in K1's class
     jcfg, tcfg = small_configs(use_stop_gradient=False)
     _, _, tssm = models(jcfg, tcfg)
     with pytest.raises(ValueError, match="multinomial"):
