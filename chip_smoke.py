@@ -362,6 +362,38 @@ device-only profile of one more step):
       2048, K5 9) and one train step (K7/K8 4096, K11 2048, K5 17, K6 9),
       the first of each, no profile (tools/routes_profile.py takes one)
 
+and data and particle sharding (sharded_phases): ranks of one gloo process
+group, all on cuda:0 (one card; NCCL refuses two ranks on one GPU), started
+by psvo_tpu_torch.parallel.launch, each importing this file for its jobs
+(shard_rank); every collective goes through host buffers (gloo), counted:
+
+  (bb) K7, K8 and K11 at the 1x8 mesh's per-shard shape (B=8, K/P=1024,
+      D=40) against their plain versions, timed (pair_ms) beside them and
+      beside torch.gather and zeros + scatter_add_; then on 2, 4 and 8
+      ranks: psum, pmax and a ring shift (and the psum's and the shift's
+      gradients) against one process; the resampling island at the
+      Lorenz-96 preset's step (B=8, K=8192, D=40, weight_rows): K7 and K8
+      launched once a ring step a rank, K7 on the ring's clamped positions
+      equal to its plain version, the global ancestors against one rank's
+      K7 on the same global weights and positions (differences counted
+      with their distance to a CDF boundary, at most 1e-6 and 0.1% of the
+      slots), the particles the island's ancestors' exactly; collectives,
+      staged bytes and the call's host-clock time
+  (bc) lorenz96_fivo_k8192_sharded on its 1x8 mesh at full width (Dx=Dy=40,
+      K=8192, 1024 a rank, B=8, hidden (64, 64), the trained snapshot): one
+      sharded eval at the preset's T=100 (K7/K8 8*99 a rank; its peak
+      memory a rank holds the global draw every rank makes); at T cut to
+      SHARD_T=20 for the run's time, the card against the CPU's unsharded
+      plain loop on the same draws at B=2 (CPU_TOL) and 3 sharded train
+      steps (K7/K8/K11 8*19 a rank), no other kernel and no plain version,
+      the replicas' gradients equal; collectives, staged host bytes,
+      host-clock step time and peak memory a rank
+  (bd) lorenz63_psvo_k1024 (M=16) on a 2x2 mesh at B=4, T=SHARD_T: the
+      sharded anchor, FFBSi island and data-axis all-reduce against the CPU
+      unsharded on the same draws (CPU_TOL), K7/K8/K11 2*19 a rank; then
+      fhn_fivo_k1024_bench on a 4x1 data mesh: one train step through K1/K4
+      a rank against the unsharded card step on the same streamed draws
+
 (ap) begins with K7, K8 and K11 at the general path's shape (B=32, K=128,
 D=2) against their plain versions, timed beside them and beside
 torch.gather and zeros + scatter_add_. The profiles of phases ak, al and ap
@@ -393,7 +425,9 @@ without controls; K1 and K14 as "(multinomial)", at fhn_fivo_k1024_bench's
 size on multinomial positions; K9 and K10 as "(FHN width)", "(Lorenz-63
 width)", "(controls, FHN width)" and "(controls, Lorenz-96 width)", from
 phases aw and ax); the rows of K1, K4, K5-K11 carry "launches_routes", the
-train steps' launches of phases ay-ba by configuration; the last line
+train steps' launches of phases ay-ba by configuration; K7, K8 and K11 carry
+"launches_sharded" (a rank's in bb-bd) and appear once more as "(sharded,
+per shard)", at the 1x8 mesh's per-shard shape, timed in bb; the last line
 is the device record. Imports nothing of JAX: the
 machine with the card has none.
 """
@@ -2895,16 +2929,7 @@ def card_vs_cpu(pt, dev, cfg, ys, u, seed: int, path: str = "fused", load=None,
         losses.append(float(out.loss.detach()))
         grads.append([torch.zeros(p.shape, dtype=torch.float64) if p.grad is None
                       else p.grad.detach().cpu().double() for p in ssm.parameters()])
-    flat = [torch.cat([g_.reshape(-1) for g_ in gs]) for gs in grads]
-    norms = [float(f.norm()) for f in flat]
-    cos = float(flat[0] @ flat[1] / max(norms[0] * norms[1], 1e-300))
-    leaf = max(float((a - w).norm() / w.norm().clamp_min(1e-30)) for a, w in zip(*grads))
-    rel_loss = abs(losses[0] - losses[1]) / max(1.0, abs(losses[1]))
-    rel_norm = abs(norms[0] - norms[1]) / max(norms[1], 1e-30)
-    ok = (all(math.isfinite(v) for v in losses + norms) and rel_loss <= CPU_TOL["loss"]
-          and rel_norm <= CPU_TOL["norm"] and cos >= CPU_TOL["cos"])
-    return dict(losses=losses, norms=norms, cos=cos, leaf=leaf, rel_loss=rel_loss,
-                rel_norm=rel_norm, ok=ok)
+    return agreement(losses, grads)
 
 
 def vs_line(r: dict) -> str:
@@ -4225,6 +4250,526 @@ def cli_phases(pt, dev, card: str) -> dict:
         phase_done("ao")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return figures
+
+
+# ---------------------------------------------------------------------------
+# Data and particle sharding (sharded_phases, bb-bd): ranks of one gloo process group, all
+# on cuda:0 (this machine has one card, and NCCL refuses two ranks on one GPU), started by
+# psvo_tpu_torch.parallel.launch; each rank imports this file for its jobs (shard_rank)
+# ---------------------------------------------------------------------------
+
+SHARD_T = 20  # phases bc, bd: T cut from the presets' 100 for the run's time (bc's eval: 100)
+SHARD_B, SHARD_K, SHARD_D = 8, 8192, 40  # lorenz96_fivo_k8192_sharded's resampling step
+SHARD_KERNELS = ("K1", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11")
+
+
+def shard_counters():
+    """(the kernel wrappers of SHARD_KERNELS, in order; every plain version)."""
+    from psvo_tpu_torch.ops import ffbsi, fused_step, trunk
+    from psvo_tpu_torch.ops import resample_gather as rg
+
+    kernels = (fused_step.scan_forward, fused_step.scan_backward, ffbsi.ffbsi_forward,
+               ffbsi.ffbsi_backward, rg.ancestor_indices_large, rg.gather_particles,
+               trunk.trunk_forward, trunk.trunk_backward, rg.segment_sum_scatter)
+    return kernels, general_counters()[2]
+
+
+def shard_counted(fn):
+    """fn() with this rank's kernel launches {name: n} (nonzero ones), its
+    plain-version calls, its collectives (`collectives.counts`) and the
+    device memory it took at its peak above what was held before (GB)."""
+    import torch
+    from psvo_tpu_torch.parallel import collectives
+
+    kernels, plain = shard_counters()
+    for f in kernels:
+        f.launches = 0
+    for f in plain:
+        f.calls = 0
+    collectives.reset_counts()
+    out, peak = peak_gb(fn) if torch.cuda.is_available() else (fn(), 0.0)
+    launches = {n: f.launches for n, f in zip(SHARD_KERNELS, kernels) if f.launches}
+    return out, launches, sum(f.calls for f in plain), collectives.counts(), peak
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def shard_rank(payload: dict) -> dict:
+    """One rank of phases bb-bd: the payload's jobs in order (SHARD_JOBS)."""
+    from psvo_tpu_torch.parallel import launch
+
+    device = launch.rank_device(payload["device"])
+    return {job["name"]: SHARD_JOBS[job["kind"]](job, device) for job in payload["jobs"]}
+
+
+def _row_mesh(n: int, k: int, batch: int):
+    """A 1 × n mesh (every rank on the particle axis) of K = k, batch rows."""
+    from psvo_tpu_torch.config import Config, MeshConfig, SMCConfig, TrainConfig
+    from psvo_tpu_torch.parallel import sharding
+
+    return sharding.make_mesh(Config(smc=SMCConfig(n_particles=k), mesh=MeshConfig(1, n),
+                                     train=TrainConfig(batch_size=batch)))
+
+
+def shard_collectives(job, device) -> dict:
+    """(bb) psum, pmax and a ring shift of each rank's row of job["x"] on the
+    card, and the psum's and the shift's gradients with cotangents job["g"],
+    against their single-process values: max |d| each."""
+    import torch
+    import torch.distributed as dist
+    from psvo_tpu_torch.parallel import collectives, context
+
+    n, rank = dist.get_world_size(), dist.get_rank()
+    x_all, g_all = job["x"], job["g"]
+    x = x_all[rank].to(device).requires_grad_(True)
+    g = g_all[rank].to(device)
+    with context.using(_row_mesh(n, n, 1)):
+        got = {"psum": collectives.psum(x), "pmax": collectives.pmax(x)}
+        torch.sum(got["psum"] * g).backward()
+        got["psum_grad"], x.grad = x.grad, None
+        (got["shift"],) = collectives.ring_shift(x)
+        torch.sum(got["shift"] * g).backward()
+        got["shift_grad"] = x.grad
+    want = {"psum": x_all.sum(0), "pmax": x_all.amax(0), "shift": x_all[(rank - 1) % n],
+            "psum_grad": g_all.sum(0), "shift_grad": g_all[(rank + 1) % n]}
+    return {k: float((v.detach().cpu() - want[k]).abs().max()) for k, v in got.items()}
+
+
+def shard_island(job, device) -> dict:
+    """(bb) The resampling island on the 1 × n mesh at the Lorenz-96 preset's
+    step (B = 8, K = 8192, D = 40, global weights and positions job[...]):
+    the launches (K7 and K8 n times), K7 against its plain version on every
+    ring step's positions as launched (clamped into [0, 1)), the global
+    ancestors and particles gathered to every rank, the collectives, and
+    the call's host-clock time (median of 5 after a warm-up)."""
+    import torch
+    import torch.distributed as dist
+    from psvo_tpu_torch.ops import resample_gather as rg
+    from psvo_tpu_torch.ops import sharded_resampling
+    from psvo_tpu_torch.parallel import context
+
+    n = dist.get_world_size()
+    mesh = _row_mesh(n, SHARD_K, SHARD_B)
+    u, logw, x = (mesh.local(t, 0, True).to(device) for t in (job["u"], job["logw"], job["x"]))
+    recorded, real = [], rg.resample_and_gather
+
+    def record(frac, logw_r, x_r):
+        recorded.append((frac, logw_r))
+        return real(frac, logw_r, x_r)
+
+    def island():
+        return sharded_resampling.sharded_maybe_resample(u, logw, x)
+
+    with context.using(mesh), torch.no_grad():
+        rg.resample_and_gather = record
+        try:
+            out, launches, plain, counts, _ = shard_counted(island)
+        finally:
+            rg.resample_and_gather = real
+        clamped = sum(int(((f == 0) | (f == sharded_resampling.ONE_BELOW)).sum())
+                      for f, _ in recorded)
+        k7_mism = sum(int((rg.ancestor_indices_large(lw, f) != rg.ancestor_indices_large_reference(
+            lw, f)).sum()) for f, lw in recorded)
+        times = []
+        for _ in range(6):
+            _sync(device)
+            t0 = time.perf_counter()
+            island()
+            _sync(device)
+            times.append(time.perf_counter() - t0)
+    idx_parts = [torch.empty((SHARD_B, SHARD_K // n), dtype=torch.int32) for _ in range(n)]
+    dist.all_gather(idx_parts, out[4].cpu())
+    x_parts = [torch.empty((SHARD_B, SHARD_D, SHARD_K // n)) for _ in range(n)]
+    dist.all_gather(x_parts, out[0].cpu().contiguous())
+    return {"launches": launches, "plain": plain, "counts": counts, "ring_calls": len(recorded),
+            "clamped": clamped, "k7_ring_mismatches": k7_mism,
+            "ms": statistics.median(times[1:]) * 1e3,
+            "idx": torch.cat(idx_parts, -1), "x": torch.cat(x_parts, -1)}
+
+
+def _shard_objective(cfg, ssm, ys, noise, device) -> dict:
+    """The objective's loss and the world-summed gradient of the sharded
+    train step's rule on this rank's rows of ys (global draws `noise`),
+    with its launches, collectives and peak memory."""
+    import torch
+    from psvo_tpu_torch.objectives import make_objective
+    from psvo_tpu_torch.parallel import collectives, context
+
+    mesh = context.get_mesh()
+
+    def step():
+        out = make_objective(ssm, cfg)(None, mesh.local(ys, 0).to(device), None,
+                                       [t.to(device) for t in noise])
+        (out.loss / mesh.size).backward()
+        grads = collectives.all_reduce_grads([torch.zeros_like(p) if p.grad is None else p.grad
+                                              for p in ssm.parameters()])
+        return float(collectives.data_mean(out.loss.detach())), grads
+
+    (loss, grads), launches, plain, counts, peak = shard_counted(step)
+    return {"loss": loss, "grads": [g.detach().cpu().double() for g in grads],
+            "launches": launches, "plain": plain, "counts": counts, "peak_gb": peak}
+
+
+def _shard_model(pt, cfg, device, load: bool):
+    import torch
+
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=device)
+    if load:
+        pt.load_params_npz(ssm, os.path.join(ROOT, "checkpoints", "l96_pretrained.npz"))
+    return ssm
+
+
+def shard_config_run(job, device) -> dict:
+    """(bc, bd) One configuration on its mesh: the card-vs-CPU step (job
+    "vs": global ys and draws), then with job["train"] the sharded eval step
+    on the test batch and len(job["train"]) sharded train steps on the given
+    global batches (draws from a generator seeded alike on every rank, or
+    the global draws job["train_noise"]): launches, plain calls,
+    collectives, peak memory and host-clock times of each."""
+    import torch
+    import psvo_tpu_torch as pt
+    from psvo_tpu_torch.parallel import context, sharding
+
+    cfg = pt.config.from_dict(job["cfg"])
+    mesh = sharding.make_mesh(cfg)
+    out = {}
+    with context.using(mesh):
+        ssm = _shard_model(pt, cfg, device, job["load"])
+        if "vs" in job:
+            out["vs"] = _shard_objective(cfg, ssm, *job["vs"], device)
+        if "test" in job:
+            ev_step = sharding.make_sharded_eval_step(ssm, cfg, mesh)
+            gen = torch.Generator(device=device).manual_seed(SEED + 1)
+            test = job["test"].to(device)
+            _sync(device)
+            t0 = time.perf_counter()
+            ev, launches, plain, counts, peak = shard_counted(lambda: ev_step(gen, test))
+            _sync(device)
+            out["eval"] = {"elbo": float(ev["elbo"]), "r2_1": float(ev["r2_k"][0]),
+                           "launches": launches, "plain": plain, "counts": counts,
+                           "peak_gb": peak, "ms": (time.perf_counter() - t0) * 1e3,
+                           "t": test.shape[1]}
+        if "train" in job:
+            ssm = _shard_model(pt, cfg, device, job["load"])
+            step = sharding.make_sharded_train_step(ssm, cfg, pt.make_optimizer(cfg), mesh)
+            gen = torch.Generator(device=device).manual_seed(SEED + 2)
+            noises = job.get("train_noise") or [None] * len(job["train"])
+            steps = []
+            for batch, noise in zip(job["train"], noises):
+                noise = None if noise is None else [t.to(device) for t in noise]
+                _sync(device)
+                t0 = time.perf_counter()
+                metrics, launches, plain, counts, peak = shard_counted(
+                    lambda: step(gen, batch.to(device), noise=noise))
+                _sync(device)
+                steps.append({"loss": float(metrics["loss"]),
+                              "grad_norm": float(metrics["grad_norm"]),
+                              "ms": (time.perf_counter() - t0) * 1e3, "launches": launches,
+                              "plain": plain, "counts": counts, "peak_gb": peak,
+                              "grads": [p.grad.detach().cpu().double()
+                                        for p in ssm.parameters()]})
+            out["train"] = steps
+    return out
+
+
+SHARD_JOBS = {"collectives": shard_collectives, "island": shard_island,
+              "config": shard_config_run}
+
+
+def agreement(losses, grads) -> dict:
+    """Two runs' losses and gradient lists (float64, the same leaves): the
+    gradient norms, their cosine, the largest relative L2 of a leaf, and
+    whether CPU_TOL holds."""
+    import torch
+
+    flat = [torch.cat([g_.reshape(-1) for g_ in gs]) for gs in grads]
+    norms = [float(f.norm()) for f in flat]
+    cos = float(flat[0] @ flat[1] / max(norms[0] * norms[1], 1e-300))
+    leaf = max(float((a - w).norm() / w.norm().clamp_min(1e-30)) for a, w in zip(*grads))
+    rel_loss = abs(losses[0] - losses[1]) / max(1.0, abs(losses[1]))
+    rel_norm = abs(norms[0] - norms[1]) / max(norms[1], 1e-30)
+    ok = (all(math.isfinite(v) for v in list(losses) + norms) and rel_loss <= CPU_TOL["loss"]
+          and rel_norm <= CPU_TOL["norm"] and cos >= CPU_TOL["cos"])
+    return dict(losses=list(losses), norms=norms, cos=cos, leaf=leaf, rel_loss=rel_loss,
+                rel_norm=rel_norm, ok=ok)
+
+
+def shard_draws(cfg, b: int, seed: int) -> list:
+    """The global draws of cfg's objective for b rows, made on the CPU (the
+    filter's ε and sorted positions, then PSVO's Gumbels), as card_vs_cpu
+    makes them."""
+    import torch
+    from psvo_tpu_torch import objectives
+    from psvo_tpu_torch.ops import resampling
+
+    sc, t = cfg.smc, cfg.data.t_steps
+    k, m, dx = sc.n_particles, sc.n_smoothing_particles, cfg.data.dx
+    g = torch.Generator().manual_seed(seed)
+    noise = [torch.randn((b, dx, k), generator=g), torch.randn((t - 1, b, dx, k), generator=g),
+             resampling.bulk_positions(g, t - 1, b, k, sc.resampling)]
+    if sc.objective == "psvo":
+        noise += [objectives._gumbel(g, (b, m, k)), objectives._gumbel(g, (t - 1, b, m, k))]
+    return noise
+
+
+def cpu_objective(pt, cfg, ys, noise, load: bool):
+    """The unsharded objective's loss and gradients on the CPU on the same
+    draws: the plain loop, resampling through K7's and K8's plain versions
+    (the count form, as the island's K7), FFBSi eager."""
+    import torch
+    from psvo_tpu_torch.ops import resampling
+
+    ssm = _shard_model(pt, cfg, torch.device("cpu"), load)
+    real = resampling.maybe_resample
+    resampling.maybe_resample = functools.partial(real, use_kernel=True)
+    try:
+        out = pt.make_objective(ssm, cfg)(None, ys, None, noise)
+        out.loss.backward()
+    finally:
+        resampling.maybe_resample = real
+    return float(out.loss.detach()), [torch.zeros(p.shape, dtype=torch.float64) if p.grad is None
+                                      else p.grad.detach().double() for p in ssm.parameters()]
+
+
+def sharded_phases(pt, dev, card: str) -> dict:
+    """Phases (bb)-(bd): the collectives and the resampling island on 2, 4
+    and 8 ranks; lorenz96_fivo_k8192_sharded on its 1 × 8 mesh at full
+    width; lorenz63_psvo_k1024 on a 2 × 2 mesh and fhn_fivo_k1024_bench on a
+    4 × 1 data mesh. Every rank is a gloo rank on cuda:0. Returns the
+    figures for the kernels' JSON record and PERF.md."""
+    import torch
+    from psvo_tpu_torch.ops import fused_step, resampling
+    from psvo_tpu_torch.ops import resample_gather as rg
+    from psvo_tpu_torch.parallel import launch
+
+    kind = dev.type
+    figures = {}
+    # (bb) K7, K8 and K11 at the per-shard shape of the 1 × 8 mesh (B = 8, K / P = 1024,
+    # D = 40), in this process: errors, times (pair_ms) beside their plain versions, bounds and
+    # library calls
+    b, k, d = SHARD_B, SHARD_K // 8, SHARD_D
+    g = torch.Generator(device=dev).manual_seed(SEED + 200)
+    lw = torch.randn((b, k), device=dev, generator=g) * 3
+    pos = resampling.bulk_positions(g, 1, b, k, "systematic")[0].contiguous()
+    idx = rg.ancestor_indices_large(lw, pos)
+    xg = torch.randn((b, d, k), device=dev, generator=g)
+    cot = torch.randn((b, d, k), device=dev, generator=g)
+    idx64 = idx.long()[:, None, :].expand(-1, d, -1)
+    d11 = rg.segment_sum_scatter(cot, idx).double() - rg.segment_sum_scatter_reference(
+        cot.double(), idx)
+    errs = [float((idx != rg.ancestor_indices_large_reference(lw, pos)).sum()),
+            float((rg.gather_particles(xg, idx) - rg.gather_particles_reference(xg, idx))
+                  .abs().max()),
+            float(d11.abs().max())]
+    k11_rel = float(d11.norm() / rg.segment_sum_scatter_reference(cot.double(), idx).norm())
+    times = [[pair_ms(lambda: rg.ancestor_indices_large(lw, pos)),
+              pair_ms(lambda: rg.ancestor_indices_large_reference(lw, pos)), None],
+             [pair_ms(lambda: rg.gather_particles(xg, idx)),
+              pair_ms(lambda: rg.gather_particles_reference(xg, idx)),
+              pair_ms(lambda: torch.gather(xg, -1, idx64))],
+             [pair_ms(lambda: rg.segment_sum_scatter(cot, idx)),
+              pair_ms(lambda: rg.segment_sum_scatter_reference(cot, idx)),
+              pair_ms(lambda: torch.zeros_like(cot).scatter_add_(-1, idx64, cot))]]
+    bounds = [bound(2.0 * lw.numel() * (1 + math.log2(k)), nbytes(lw, pos, idx)),
+              bound(0.0, 2 * nbytes(xg) + nbytes(idx)),
+              bound(cot.numel(), 2 * nbytes(cot) + nbytes(idx))]
+    for name, t_, (bd, by), e_ in zip(("K7", "K8", "K11"), times, bounds, errs):
+        print(f"[bb] {card}: {name} at the 1x8 mesh's per-shard shape (B={b}, K/P={k}, D={d}): "
+              f"{t_[0]:.4f} ms, plain {t_[1]:.4f} ms, library "
+              f"{'none' if t_[2] is None else f'{t_[2]:.4f} ms'} ({PAIR_HOW}); bound {bd:.6f} ms "
+              f"({by}); max |d| against the plain version {e_:.3e}"
+              + (f" (float64; rel L2 {k11_rel:.3e})" if name == "K11" else ""), flush=True)
+    if errs[0] or errs[1] or k11_rel > 1e-6:
+        fail(f"K7/K8/K11 at the per-shard shape disagree with their plain versions: {errs}, "
+             f"K11's rel L2 {k11_rel} (K7, K8 exact; K11 within 1e-6 of float64, as phase r)")
+    figures["kernels"] = dict(times=times, bounds=bounds, errs=errs)
+    del lw, pos, idx, xg, cot, idx64
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the global step of the island, its one-rank K7/K8 result, and the collectives' inputs
+    g = torch.Generator(device=dev).manual_seed(SEED + 201)
+    logw_g = weight_rows(SHARD_K, g)
+    u_g = resampling.bulk_positions(g, 1, SHARD_B, SHARD_K, "systematic")[0].contiguous()
+    x_g = torch.randn((SHARD_B, SHARD_D, SHARD_K), device=dev, generator=g)
+    idx_one = rg.ancestor_indices_large(logw_g, u_g)
+    x_one = rg.gather_particles(x_g, idx_one)
+    cdf = torch.cumsum(torch.exp(logw_g - logw_g.amax(-1, keepdim=True)).double(), -1)
+    cdf = cdf / cdf[:, -1:]
+    island_in = {"u": u_g.cpu(), "logw": logw_g.cpu(), "x": x_g.cpu()}
+    gc_ = torch.Generator().manual_seed(SEED + 202)
+    coll_x, coll_g = torch.randn((8, 4096), generator=gc_), torch.randn((8, 4096), generator=gc_)
+
+    # (bc) lorenz96_fivo_k8192_sharded on its 1 × 8 mesh, T cut to SHARD_T but in the eval
+    l96 = pt.PRESETS[L96]
+    l96 = dataclasses.replace(l96, data=dataclasses.replace(l96.data, t_steps=SHARD_T))
+    ds = pt.generate_dataset(l96.data, SEED)
+    vs_ys = ds.obs_train[:2]
+    vs_noise = shard_draws(l96, 2, SEED + 210)
+    t0 = time.perf_counter()
+    l96_cpu = cpu_objective(pt, l96, vs_ys, vs_noise, True)
+    cpu_s = time.perf_counter() - t0
+    b8 = l96.train.batch_size
+    # the eval at the preset's T = 100: its peak a rank holds the global draw every rank makes
+    test_full = pt.generate_dataset(pt.PRESETS[L96].data, SEED).obs_test[:b8]
+    l96_job = {"name": "l96", "kind": "config", "cfg": l96.to_dict(), "load": True,
+               "vs": (vs_ys, vs_noise), "test": test_full,
+               "train": [ds.obs_train[i * b8:(i + 1) * b8] for i in range(3)]}
+    # (bd) lorenz63_psvo_k1024 (M = 16) on a 2 × 2 mesh at B = 4, T = SHARD_T; and
+    # fhn_fivo_k1024_bench (B = 32) on a 4 × 1 data mesh, one train step on given streams
+    l63 = pt.PRESETS["lorenz63_psvo_k1024"]
+    l63 = dataclasses.replace(
+        l63, data=dataclasses.replace(l63.data, t_steps=SHARD_T),
+        train=dataclasses.replace(l63.train, batch_size=4, steps_per_call=1),
+        mesh=pt.MeshConfig(data=2, particle=2))
+    ds63 = pt.generate_dataset(l63.data, SEED)
+    psvo_ys, psvo_noise = ds63.obs_train[:4], shard_draws(l63, 4, SEED + 220)
+    l63_cpu = cpu_objective(pt, l63, psvo_ys, psvo_noise, False)
+    fhn = pt.PRESETS["fhn_fivo_k1024_bench"]
+    fhn = dataclasses.replace(fhn, train=dataclasses.replace(fhn.train, steps_per_call=1),
+                              mesh=pt.MeshConfig(data=4, particle=1))
+    dsf = pt.generate_dataset(fhn.data, SEED)
+    fhn_batch = dsf.obs_train[:fhn.train.batch_size]
+    fhn_noise = shard_draws(fhn, fhn.train.batch_size, SEED + 230)
+    # the unsharded card step on the same streams
+    single = dataclasses.replace(fhn, mesh=pt.MeshConfig())
+    ssm = _shard_model(pt, single, dev, False)
+    fhn_single, fhn_launch, fhn_plain, _, _ = shard_counted(
+        lambda: pt.make_train_step(ssm, single, pt.make_optimizer(single))(
+            None, fhn_batch.to(dev), noise=[t_.to(dev) for t_ in fhn_noise]))
+    fhn_single_grads = [torch.zeros(p.shape, dtype=torch.float64) if p.grad is None
+                        else p.grad.detach().cpu().double() for p in ssm.parameters()]
+    del ssm
+    print(f"[bd] {card}: fhn_fivo_k1024_bench unsharded on the card, one train step on given "
+          f"streams (B={fhn.train.batch_size}, T={fhn.data.t_steps}): loss "
+          f"{float(fhn_single['loss']):.6f}, launches {fhn_launch}, plain calls {fhn_plain}",
+          flush=True)
+    phase_done(f"bb-bd: kernels at the per-shard shape, CPU references ({cpu_s:.1f} s for "
+               f"Lorenz-96 at B=2)")
+
+    def spawn(n, jobs):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0_ = time.perf_counter()
+        try:
+            res = launch.run(n, "chip_smoke:shard_rank", {"device": kind, "jobs": jobs},
+                             backend="gloo", timeout=600)
+        except RuntimeError as exc:
+            fail(f"sharded ranks ({n}) failed: {exc}")
+        return res, time.perf_counter() - t0_
+
+    coll_island = [{"name": "collectives", "kind": "collectives", "x": None, "g": None},
+                   {"name": "island", "kind": "island", **island_in}]
+    runs = {}
+    for n, extra in ((2, []), (4, [
+            {"name": "psvo 2x2", "kind": "config", "cfg": l63.to_dict(), "load": False,
+             "vs": (psvo_ys, psvo_noise)},
+            {"name": "fhn 4x1", "kind": "config", "cfg": fhn.to_dict(), "load": False,
+             "train": [fhn_batch], "train_noise": [fhn_noise]}]), (8, [l96_job])):
+        jobs = [dict(j, x=coll_x[:n], g=coll_g[:n]) if j["kind"] == "collectives" else j
+                for j in coll_island] + extra
+        runs[n] = spawn(n, jobs)
+        res, secs = runs[n]
+        c = res[0]["collectives"]
+        isl = res[0]["island"]
+        flips = (isl["idx"].to(dev) != idx_one)
+        n_flips = int(flips.sum())
+        dist_max = 0.0
+        for b_, i_ in flips.nonzero().tolist():
+            dist_max = max(dist_max, float((cdf[b_] - u_g[b_, i_].double()).abs().min()))
+        same_x = bool(torch.equal(isl["x"].to(dev), rg.gather_particles(x_g, isl["idx"].to(dev))))
+        staged = isl["counts"]["staged_bytes"]
+        print(f"[bb] {card}: {n} gloo ranks on cuda:0 ({secs:.1f} s with the start): collectives "
+              f"against one process, max |d| {c}; the island at B={SHARD_B}, K={SHARD_K}, "
+              f"D={SHARD_D} (weight_rows): launches per rank {isl['launches']} over "
+              f"{isl['ring_calls']} ring steps, plain calls {isl['plain']}; K7 on the ring's "
+              f"positions as launched ({isl['clamped']} outside the held shard, clamped) against "
+              f"its plain version: {isl['k7_ring_mismatches']} mismatches; global ancestors "
+              f"against one rank's K7: {n_flips} of {SHARD_B * SHARD_K} differ (largest distance "
+              f"of such a position to a CDF boundary {dist_max:.3e}), particles the island's "
+              f"ancestors' {same_x}; collectives per rank {isl['counts']}; host-clock "
+              f"{isl['ms']:.3f} ms a call (rank 0)", flush=True)
+        if (c["psum"] > 1e-4 or any(c[k_] for k_ in ("pmax", "shift", "shift_grad"))
+                or c["psum_grad"] > 1e-4):
+            fail(f"({n} ranks) a collective disagrees with its single-process value: {c}")
+        if (isl["launches"] != {"K7": n, "K8": n} or isl["plain"] or isl["k7_ring_mismatches"]
+                or not same_x or dist_max > 1e-6 or n_flips > SHARD_B * SHARD_K // 1000):
+            fail(f"({n} ranks) the island: launches {isl['launches']} (want K7, K8 {n} each), "
+                 f"plain {isl['plain']}, K7 ring mismatches {isl['k7_ring_mismatches']}, "
+                 f"particles {same_x}, {n_flips} ancestor flips, boundary distance {dist_max}")
+        figures[f"bb{n}"] = dict(collectives=c, island={k_: v for k_, v in isl.items()
+                                                      if k_ not in ("idx", "x")},
+                                 flips=n_flips, seconds=secs)
+    phase_done("bb: collectives and the island on 2, 4 and 8 ranks")
+
+    # (bc) the Lorenz-96 preset on its mesh
+    res = runs[8][0]
+    r0 = res[0]["l96"]
+    vs = agreement((r0["vs"]["loss"], l96_cpu[0]), (r0["vs"]["grads"], l96_cpu[1]))
+    steps = [r["l96"]["train"] for r in res]
+    n_res = SHARD_T - 1
+    ev = r0["eval"]
+    want_filter = {"K7": 8 * (ev["t"] - 1), "K8": 8 * (ev["t"] - 1)}
+    want_step = {"K7": 8 * n_res, "K8": 8 * n_res, "K11": 8 * n_res}
+    print(f"[bc] {card}: {L96} on its 1x8 mesh (8 gloo ranks on cuda:0), Dx=Dy=40, K={SHARD_K} "
+          f"({SHARD_K // 8} a rank), hidden (64, 64), the trained snapshot; T cut to {SHARD_T}: "
+          f"the card against the CPU's unsharded plain loop on the same draws at B=2: "
+          f"{vs_line(vs)}; that step's launches per rank {r0['vs']['launches']}", flush=True)
+    print(f"[bc] sharded eval at B={b8}, the preset's T={ev['t']}: ELBO {ev['elbo']:.3f}, R2(1) "
+          f"{ev['r2_1']:.4f}; launches per rank {ev['launches']} (want {want_filter}), plain calls "
+          f"{ev['plain']}; collectives per rank {ev['counts']}; host clock {ev['ms']:.1f} ms "
+          f"(rank 0, the first call); peak memory {max(r['l96']['eval']['peak_gb'] for r in res):.3f}"
+          f" GB a rank (every rank draws the global [T-1, B, Dx, K] noise, then keeps its share)",
+          flush=True)
+    for i, st in enumerate(steps[0]):
+        print(f"[bc] train step {i + 1}: loss {st['loss']:.4f}, grad norm {st['grad_norm']:.4f}, "
+              f"host clock {st['ms']:.1f} ms (rank 0; ranks {[round(s[i]['ms'], 1) for s in steps]}),"
+              f" launches per rank {st['launches']} (want {want_step}), plain calls "
+              f"{st['plain']}, peak memory {max(s[i]['peak_gb'] for s in steps):.3f} GB a rank; "
+              f"collectives per rank {st['counts']}", flush=True)
+    replicas = all(torch.equal(a, b_) for s in steps[1:] for a, b_ in
+                   zip(s[-1]["grads"], steps[0][-1]["grads"]))
+    losses = [st["loss"] for st in steps[0]]
+    if not vs["ok"]:
+        fail("(bc) the sharded Lorenz-96 step on the card disagrees with the CPU")
+    if (ev["launches"] != want_filter or ev["plain"]
+            or any(s[i]["launches"] != want_step or s[i]["plain"] for s in steps
+                   for i in range(len(s)))
+            or not all(math.isfinite(v) for v in losses + [ev["elbo"]]) or not replicas):
+        fail(f"(bc) launches, plain calls, finite values or replicas: eval {ev['launches']}, "
+             f"steps {[st['launches'] for st in steps[0]]}, losses {losses}, replicas {replicas}")
+    figures["bc"] = dict(vs=vs, eval=ev, steps=steps[0], seconds=runs[8][1])
+    phase_done("bc: lorenz96_fivo_k8192_sharded on 1x8")
+
+    # (bd) the 2 × 2 PSVO mesh and the 4 × 1 data mesh
+    res = runs[4][0]
+    p0 = res[0]["psvo 2x2"]["vs"]
+    vs63 = agreement((p0["loss"], l63_cpu[0]), (p0["grads"], l63_cpu[1]))
+    want63 = {"K7": 2 * n_res, "K8": 2 * n_res, "K11": 2 * n_res}
+    print(f"[bd] {card}: lorenz63_psvo_k1024 (M=16) on a 2x2 mesh at B=4, T={SHARD_T}: the sharded "
+          f"anchor and FFBSi island and the data-axis all-reduce against the CPU unsharded on the "
+          f"same draws: {vs_line(vs63)}; launches per rank {p0['launches']} (want {want63}), plain "
+          f"calls {p0['plain']}; collectives per rank {p0['counts']}", flush=True)
+    f0 = res[0]["fhn 4x1"]["train"][0]
+    vsf = agreement((f0["loss"], float(fhn_single["loss"])), (f0["grads"], fhn_single_grads))
+    print(f"[bd] fhn_fivo_k1024_bench on a 4x1 data mesh (B=8 a rank), one train step through "
+          f"K1/K4 per rank against the unsharded card step on the same streamed draws: "
+          f"{vs_line(vsf)}; launches per rank {f0['launches']}, plain calls {f0['plain']}; "
+          f"collectives per rank {f0['counts']}; host clock {f0['ms']:.1f} ms", flush=True)
+    if not vs63["ok"] or p0["launches"] != want63 or p0["plain"]:
+        fail("(bd) the 2x2 PSVO mesh disagrees with the CPU, or launched other kernels")
+    if not vsf["ok"] or f0["launches"] != {"K1": 1, "K4": 1} or f0["plain"]:
+        fail("(bd) the 4x1 data mesh disagrees with the unsharded card step, or its launches are "
+             "not one K1 and one K4 a rank")
+    figures["bd"] = dict(psvo=vs63, psvo_counts=p0["counts"], psvo_launches=p0["launches"],
+                         fhn=vsf, fhn_counts=f0["counts"], seconds=runs[4][1])
+    phase_done("bd: 2x2 PSVO and 4x1 FHN")
     return figures
 
 
@@ -5967,6 +6512,7 @@ def main() -> int:
     mn_figs = multinomial_phases(pt, dev, card)
     tc_figs = trunk_class_phases(pt, dev, card)
     routes_figs = eager_routes_phases(pt, dev, card)
+    shard_figs = sharded_phases(pt, dev, card)
 
 
     # K3: the CDF scan and a binary search per particle; logw and u0 in, int32 indices out.
@@ -6190,6 +6736,37 @@ def main() -> int:
             row["launches_routes"] = dict(
                 {c_: routes_figs[c_]["train"][i] for c_ in "ABCDE"},
                 **{f"F {v}": routes_figs["F"][v]["train"][i] for v in routes_figs["F"]})
+    # K7, K8 and K11 on the sharded path (phases bb-bd): "launches_sharded" on their rows (the
+    # launches per rank of the 1x8 mesh's eval, a filter, and train step in bc, of the 2x2 PSVO
+    # step in bd and of one island call on 8 ranks in bb), and rows of their own at the 1x8
+    # mesh's per-shard shape (B=8, K/P=1024, D=40) timed by pair_ms in bb, whose "launches" are
+    # a rank's per train step of bc
+    sk, bc, bd = shard_figs["kernels"], shard_figs["bc"], shard_figs["bd"]
+    shard_rows = {"ancestor_indices_large": "K7", "gather_particles": "K8",
+                  "segment_sum_scatter": "K11"}
+
+    def launches_sharded(kk):
+        return {f"bc eval at T={bc['eval']['t']}, per rank": bc["eval"]["launches"].get(kk, 0),
+                f"bc train step at T={SHARD_T}, per rank":
+                    bc["steps"][0]["launches"].get(kk, 0),
+                "bd 2x2 PSVO step, per rank": bd["psvo_launches"].get(kk, 0),
+                "bb island on 8 ranks, per rank": shard_figs["bb8"]["island"]["launches"].get(kk, 0)}
+
+    for row in kernels:
+        if row["name"] in shard_rows:
+            row["launches_sharded"] = launches_sharded(shard_rows[row["name"]])
+    for i, (kernel, line) in enumerate((
+            ("ancestor_indices_large", "psvo_tpu/ops/pallas_resample.py:837"),
+            ("gather_particles", "psvo_tpu/ops/pallas_resample.py:837"),
+            ("segment_sum_scatter", "psvo_tpu/ops/pallas_resample.py:902"))):
+        kk = shard_rows[kernel]
+        kernels.append({"name": f"{kernel} (sharded, per shard)", "route": "cuda",
+                        "source": "psvo_tpu_torch/csrc/resample_gather.cu", "replaces": line,
+                        "launches": bc["steps"][0]["launches"].get(kk, 0), "on_path": True,
+                        "max_abs_err": sk["errs"][i], "ms": sk["times"][i][0],
+                        "plain_ms": sk["times"][i][1], "bound_ms": sk["bounds"][i][0],
+                        "bound_by": sk["bounds"][i][1], "library_ms": sk["times"][i][2],
+                        "launches_sharded": launches_sharded(kk)})
     print(f"[profiler] {PROFILE_WINDOWS['windows']} profiler windows, "
           f"{PROFILE_WINDOWS['empty']} of them with no device events (run again); of the timing "
           f"windows, {PROFILE_WINDOWS['partial']} recorded part of a kernel's events (timed by "

@@ -29,7 +29,11 @@ the segment boundaries and replays each segment for the backward sweep.
 Bootstrap mode and the LGSSM data (the Kalman oracle's model) run on the
 CPU. The product surface: the `Trainer` (`train.py`), checkpoints and
 resume, metric and result files, plots, and the command line
-(`python -m psvo_tpu_torch.cli`: presets, train, eval, data).
+(`python -m psvo_tpu_torch.cli`: presets, train, eval, data). Data and
+particle sharding over `torch.distributed` (`parallel`): a (data, particle)
+mesh of ranks splits the batch and the K particles, with the resampling
+ring (K7/K8 per shard) and a sharded FFBSi; the sharded train and eval
+steps, the Trainer and the command line run under it.
 """
 
 __version__ = "0.1.0"

@@ -12,13 +12,27 @@ fall back to the CPU. `--device cpu` runs the kernels' plain versions on
 the CPU, for tests and small runs. --set dotted.key=value overrides any
 config field, e.g. --set smc.n_particles=512. The `bench` subcommand waits
 for the port's benchmark.
+
+A preset with a mesh (cfg.mesh, e.g. lorenz96_fivo_k8192_sharded's 1x8)
+trains sharded when started as one rank per mesh position:
+
+    python -m torch.distributed.run --nproc-per-node 8 -m psvo_tpu_torch.cli train \
+        --preset lorenz96_fivo_k8192_sharded [--dist-backend gloo]
+
+Each rank joins the process group from its launcher's environment
+(`--dist-init`, env:// by default), on NCCL with one card a rank or gloo
+(`--dist-backend`: gloo where ranks share a card, and on the CPU); rank 0
+alone writes the results. Started as one process, a mesh preset runs
+unsharded, as the reference does on too few devices.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import sys
 
 import torch
@@ -61,25 +75,30 @@ def _device(name: str) -> torch.device:
     return device
 
 
-def _mesh_gate(cfg: Config, device: torch.device) -> None:
-    """The reference's `sharding.maybe_mesh` on the port: a mesh preset runs
-    unsharded on one device when the devices for its mesh are not there;
-    with enough devices it stops, since sharding is not ported yet."""
-    n = cfg.mesh.data * cfg.mesh.particle
-    if n <= 1:
-        return
-    count = torch.cuda.device_count() if device.type == "cuda" else 1
-    if count < n:
-        print(
-            f"mesh {cfg.mesh.data}x{cfg.mesh.particle} requested but only "
-            f"{count} device(s) present — running unsharded",
-            flush=True,
-        )
-        return
-    raise NotImplementedError(
-        f"mesh {cfg.mesh.data}x{cfg.mesh.particle} over {count} devices: sharded training "
-        "is not ported yet (ROADMAP.md, queue 1 item 9)"
-    )
+def _mesh_gate(cfg: Config, device: torch.device, backend: str | None = None,
+               init_method: str = "env://"):
+    """The reference's `sharding.maybe_mesh` on the port: (mesh, this rank's
+    device). One process runs a mesh preset unsharded, with the reference's
+    line (mesh None); a launcher's ranks, one per mesh position
+    (WORLD_SIZE in the environment), join the process group on `backend`
+    (NCCL on the card, gloo on the CPU by default) and build the mesh, each
+    rank on its own card (`launch.rank_device`: LOCAL_RANK modulo the cards)."""
+    from psvo_tpu_torch.parallel import launch, sharding
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        sharding.maybe_mesh(cfg)  # the unsharded line of a mesh preset
+        return None, device
+    if cfg.mesh.data * cfg.mesh.particle == 1:
+        raise SystemExit(f"{world} ranks started for {cfg.name}, which has no mesh: start one "
+                         "process, or set mesh.data and mesh.particle")
+    if device.type == "cuda":
+        device = launch.rank_device("cuda")
+    if not torch.distributed.is_initialized():
+        backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+        torch.distributed.init_process_group(backend, init_method=init_method,
+                                             rank=int(os.environ["RANK"]), world_size=world)
+    return sharding.maybe_mesh(cfg), device
 
 
 def build(cfg: Config, data_npz: str | None = None, device="cuda"):
@@ -97,22 +116,29 @@ def build(cfg: Config, data_npz: str | None = None, device="cuda"):
 def _inferred_test_latents(cfg, ssm, dataset, device):
     """Posterior latent paths on the test set for the parity plots, as numpy
     [n_test, T, Dx]: the smoothed trajectories (mean over the M backward
-    draws) for smoothing objectives, else the filtering means."""
+    draws) for smoothing objectives, else the filtering means. Under the
+    active mesh each rank infers its rows, gathered over the data axis."""
     from psvo_tpu_torch.objectives import make_objective
+    from psvo_tpu_torch.parallel import collectives, context
     from psvo_tpu_torch.smc import forward_filter
-    from psvo_tpu_torch.train import filtered_means
+    from psvo_tpu_torch.train import filtered_means, local_rows
 
     gen = run_generator(cfg, 9, device)
     obs = dataset.obs_test.to(device)
     # q_uses_true_x: the encoder heads take Dx inputs and must see the latents
     enc = _encoder_inputs_for(cfg, dataset, device)
     ctrl = dataset.controls_test.to(device) if cfg.data.di else None
+    mesh = context.get_mesh()
+    if mesh is not None:
+        obs, enc, ctrl = local_rows(mesh, obs, enc, ctrl)
     if cfg.smc.objective in ("svo", "psvo"):
         out = make_objective(ssm, cfg)(gen, obs, enc, None, ctrl)
-        return out.smoothed.mean(dim=2).transpose(0, 1).cpu().numpy()
-    kw = {} if ctrl is None else {"controls": ctrl}
-    fwd = forward_filter(ssm, gen, obs, cfg.smc, cache=True, encoder_inputs=enc, **kw)
-    return filtered_means(fwd).cpu().numpy()
+        means = out.smoothed.mean(dim=2).transpose(0, 1)
+    else:
+        kw = {} if ctrl is None else {"controls": ctrl}
+        fwd = forward_filter(ssm, gen, obs, cfg.smc, cache=True, encoder_inputs=enc, **kw)
+        means = filtered_means(fwd)
+    return collectives.gather_rows(means).cpu().numpy()
 
 
 def _encoder_inputs_for(cfg: Config, dataset, device):
@@ -133,29 +159,57 @@ def cmd_train(args) -> int:
     if args.steps:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, n_steps=args.steps))
     device = _device(args.device)
-    print(f"config: {cfg.name} (hash {cfg.config_hash()})", flush=True)
+    main = int(os.environ.get("RANK", "0")) == 0  # the rank that writes the results
+    say = print if main else (lambda *a, **k: None)
+    say(f"config: {cfg.name} (hash {cfg.config_hash()})", flush=True)
+    joined = torch.distributed.is_initialized()  # by a caller, who then leaves it
+    mesh, device = _mesh_gate(cfg, device, args.dist_backend, args.dist_init)
+    from psvo_tpu_torch.parallel import context
 
-    _mesh_gate(cfg, device)
+    if mesh is not None:
+        say(f"mesh: data={mesh.data} x particle={mesh.particle} ({mesh.size} ranks, "
+            f"{mesh.backend})", flush=True)
+    try:
+        history, results, dataset, ssm = _train(args, cfg, device, mesh, main, say)
+        with context.using(mesh):
+            inferred = _inferred_test_latents(cfg, ssm, dataset, device)
+    finally:
+        if mesh is not None and not joined:
+            torch.distributed.destroy_process_group()
+    if main:
+        results.save_history(history)
+        written, note = results.plot_all(history, dataset, inferred)
+        say(note or " ".join(["plots:", *map(str, written)]), flush=True)
+    return 0
+
+
+def _train(args, cfg, device, mesh, main: bool, say):
+    """Build, restore and run the Trainer; (history, results dir (rank 0's,
+    else None), dataset, model)."""
     dataset, ssm = build(cfg, args.data_npz, device)
     from psvo_tpu_torch.train import Trainer
     from psvo_tpu_torch.utils.checkpoint import Checkpointer
     from psvo_tpu_torch.utils.metrics import MetricsWriter
     from psvo_tpu_torch.utils.results import ResultsDir
 
-    results = ResultsDir(args.results_root, cfg)
-    print(f"results: {results.path}", flush=True)
-    ckpt_dir = args.resume if args.resume else results.checkpoint_dir()
-    with MetricsWriter(results.metrics_path()) as metrics_writer:
+    results = ResultsDir(args.results_root, cfg) if main else None
+    if main:
+        say(f"results: {results.path}", flush=True)
+    ckpt_dir = args.resume if args.resume else (results.checkpoint_dir() if main else None)
+    with contextlib.ExitStack() as stack:
+        metrics_writer = (stack.enter_context(MetricsWriter(results.metrics_path()))
+                          if main else None)
         trainer = Trainer(
             cfg,
             ssm,
+            mesh=mesh,
             metrics_writer=metrics_writer,
-            checkpointer=Checkpointer(ckpt_dir, cfg.resume_hash()),
+            checkpointer=None if ckpt_dir is None else Checkpointer(ckpt_dir, cfg.resume_hash()),
             profile_dir=args.profile,
         )
         if args.resume:
             step = trainer.restore()
-            print(f"resumed from step {step}", flush=True)
+            say(f"resumed from step {step}", flush=True)
         history = trainer.run(
             dataset.obs_train,
             dataset.obs_test,
@@ -164,11 +218,7 @@ def cmd_train(args) -> int:
             controls_train=dataset.controls_train,
             controls_test=dataset.controls_test,
         )
-    results.save_history(history)
-    inferred = _inferred_test_latents(cfg, ssm, dataset, device)
-    written, note = results.plot_all(history, dataset, inferred)
-    print(note or " ".join(["plots:", *map(str, written)]), flush=True)
-    return 0
+    return history, results, dataset, ssm
 
 
 def cmd_eval(args) -> int:
@@ -253,6 +303,16 @@ def main(argv=None) -> int:
         help="write a torch.profiler Chrome trace of steady-state steps into DIR",
     )
     p_train.add_argument("--device", default="cuda", help=device_help)
+    p_train.add_argument(
+        "--dist-backend", default=None, choices=("nccl", "gloo"),
+        help="the process group's backend under a launcher (default: nccl on the card, "
+        "gloo on the CPU; gloo where ranks share a card)",
+    )
+    p_train.add_argument(
+        "--dist-init", default="env://",
+        help="the process group's rendezvous under a launcher (default env://, as "
+        "torch.distributed.run sets it; or file:///path)",
+    )
     p_train.set_defaults(fn=cmd_train)
 
     p_eval = sub.add_parser("eval")

@@ -94,8 +94,11 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh of the reference (data and particle sharding); the port
-    keeps the fields for config parity and runs on one device."""
+    """The (data, particle) mesh of a sharded run (`parallel.sharding`): one
+    rank of a `torch.distributed` process group per position, the batch
+    split over `data` and the K particles over `particle`. Started as one
+    process, a run with a mesh runs unsharded. `slices` (the reference's
+    multi-slice DCN layout) is kept for config parity and not used."""
 
     data: int = 1
     particle: int = 1

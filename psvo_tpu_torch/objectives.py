@@ -48,8 +48,15 @@ backward sweep walks the segments in reverse, each one replayed
 `FFBSiSweep`, under one checkpoint, so no O(T·B·K) tensor persists; t = 0
 is a one-step sweep of its own. The selected-path log-joint runs in
 512-step chunks, each under a checkpoint, whenever T − 1 is a multiple of
-512 with at least two chunks, segmented or not. The particle-sharded sweep
-waits for its slice.
+512 with at least two chunks, segmented or not.
+
+Under a particle mesh (`parallel.context.particle_mesh`, the reference's
+`_particle_mesh`) the anchors and every FFBSi sweep, segmented or not,
+t = 0's included, run on each rank's K / P particles
+(`ops.sharded_ffbsi`), and SVO's predictive mixture normalizes across the
+row (`parallel.collectives`); the paths and everything computed on them are
+replicated over the row. Every rank draws the global Gumbels and noise and
+keeps its rows and, for the Gumbels, its particles.
 """
 
 from __future__ import annotations
@@ -67,7 +74,8 @@ from psvo_tpu_torch.distributions import (
     _HALF_LOG_2PI, _MIN_LOGP, log_normalize, mvn_diag_log_prob,
 )
 from psvo_tpu_torch.models.ssm import SSM
-from psvo_tpu_torch.ops import ffbsi, svo
+from psvo_tpu_torch.ops import ffbsi, sharded_ffbsi, svo
+from psvo_tpu_torch.parallel import collectives, context
 from psvo_tpu_torch.smc import (
     FilterResult, SegmentedCache, _checkpointed, _controls_tm, _segment_seeds, forward_filter,
     forward_filter_segmented, recompute_segment, reference_ffbsi_path, reference_svo_path,
@@ -181,39 +189,27 @@ def _support_terms(ssm: SSM, x_support, differentiable: bool, u=None):
 def _plain_ffbsi_sweep(ssm: SSM, x_query, xs, logws, gum, differentiable: bool, u=None):
     """The reference's FFBSi scan body (`objectives._make_ffbsi_body`) as a
     loop over t = n−1 … 0, the sweep's "eager" route (`_ffbsi_route`): any f
-    (a full covariance too), on the tensors' device. The support terms are
-    computed for all steps at once, as the reference hoists them; per step
-    one [B, M, K] pairwise density of the queries against the support, the
-    Gumbel-argmax draw and the path pmf. Returns what `ffbsi.FFBSiSweep`
-    returns (x_first, logp (zeros: the log-joint is recomputed on the
-    selected paths), logq, xtilde)."""
+    (a full covariance too), on the tensors' device, and on each rank's
+    particles under a particle mesh (`ops.sharded_ffbsi.sharded_ffbsi_sweep`).
+    The support terms are computed for all steps at once, as the reference
+    hoists them; per step one [B, M, K] pairwise density of the queries
+    against the support, the Gumbel-argmax draw and the path pmf. Returns
+    what `ffbsi.FFBSiSweep` returns (x_first, logp (zeros: the log-joint is
+    recomputed on the selected paths), logq, xtilde)."""
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
         sup = _pairwise_support_terms(ssm, xs, u)
-        lwn, _ = log_normalize(logws, dim=-1)
-    x = x_query
-    logq = torch.zeros(x_query.shape[:2], dtype=x_query.dtype, device=x_query.device)
-    paths = [None] * xs.shape[0]
-    for t in reversed(range(xs.shape[0])):
-        sup_t = {n: (v if n == "chol" else v[t]) for n, v in sup.items()}
-        pair = _pairwise_query_logp(ssm, sup_t, x)
-        logits = pair + lwn[t][:, None, :]
-        idx = torch.argmax(logits + gum[t], dim=-1)  # [B, M]
-        pair_sel = torch.gather(pair, 2, idx[..., None])[..., 0]
-        lwn_sel = torch.gather(lwn[t], 1, idx)
-        logq = logq + pair_sel + lwn_sel - torch.logsumexp(logits, dim=-1)
-        x = paths[t] = torch.gather(xs[t], 2, idx[:, None, :].expand(-1, xs.shape[2], -1)
-                                    ).transpose(1, 2)
-    return x, torch.zeros_like(logq), logq, torch.stack(paths)
+        lwn, _ = collectives.log_normalize(logws)
+    return sharded_ffbsi.sharded_ffbsi_sweep(functools.partial(_pairwise_query_logp, ssm), xs,
+                                             sup, lwn, gum, x_query)
 
 
 def _sample_final_particles(gum, fwd: FilterResult):
     """M trajectory anchors from the final filtering distribution by
-    Gumbel-argmax over gum [B, M, K]. Returns (x̃_{T−1} [B, M, Dx], the
-    anchors' normalized log-weights [B, M])."""
-    logw_norm, _ = log_normalize(fwd.logw_last, dim=-1)  # [B, K]
-    idx = torch.argmax(logw_norm[:, None, :] + gum, dim=-1)  # [B, M]
-    x_t = torch.gather(fwd.x_last, 2, idx[:, None, :].expand(-1, fwd.x_last.shape[1], -1))
-    return x_t.transpose(1, 2), torch.gather(logw_norm, 1, idx)
+    Gumbel-argmax over gum [B, M, K] (`ops.sharded_ffbsi.sharded_anchor`:
+    across the particle row under a particle mesh). Returns (x̃_{T−1}
+    [B, M, Dx], the anchors' normalized log-weights [B, M])."""
+    return sharded_ffbsi.sharded_anchor(collectives.log_normalize(fwd.logw_last)[0],
+                                        fwd.x_last, gum)
 
 
 def _path_controls(ctrl, m: int):
@@ -274,7 +270,11 @@ def _logjoint_chunked(ssm: SSM, x_tilde, ys_tm, ctrl_tm=None):
 def _ffbsi_route(ssm: SSM, k: int, m: int, cuda: bool) -> str:
     """The FFBSi sweep's dispatch (`smc.smoothing_route`): "kernel" in
     K5/K6's class (`ffbsi.usable`), "eager" where the reference runs its scan
-    body or the tensors are on the CPU, else "raise"."""
+    body or the tensors are on the CPU, else "raise". Under a particle mesh
+    "eager", on the row's slices (`ops.sharded_ffbsi`): K5/K6 hold whole
+    rows of K."""
+    if context.particle_mesh() is not None:
+        return "eager"
     return smoothing_route(ffbsi.usable(ssm.dx, m, ssm.f_tril),
                            reference_ffbsi_path(ssm, k, m), cuda)
 
@@ -407,14 +407,14 @@ def _segment_gumbels(generator, noise, n_segments: int, batch: int, m: int, k: i
     run's generator, after the anchors' Gumbels), and for t = 0 (s None)
     one more draw from the run's generator."""
     if noise is not None and len(noise) == 5:
-        gum_scan = noise[4]
+        gum_scan = context.local_draw(noise[4], 1, True)
         return lambda s, lo, n: gum_scan[lo:lo + n]
     seeds = _segment_seeds(generator, n_segments, False)
     dev = generator.device
 
     def gumbels(s, lo, n):
         gen = generator if s is None else torch.Generator(device=dev).manual_seed(seeds[s])
-        return _gumbel(gen, (n, batch, m, k))
+        return _gumbel_share(gen, (n,), batch, m, k)
 
     return gumbels
 
@@ -424,9 +424,9 @@ def _predictive_mixture_logp(ssm: SSM, x_prev, logw_prev, x_query, u=None):
     x_prev [B, Dx, K], logw_prev [B, K], x_query [B, M, Dx], the controls
     into the query's step u [B, Di] (or None) -> [B, M]; the pairwise density
     of `_pairwise_query_logp`."""
-    logw_norm, _ = log_normalize(logw_prev, dim=-1)
+    logw_norm, _ = collectives.log_normalize(logw_prev)
     pair = _pairwise_query_logp(ssm, _pairwise_support_terms(ssm, x_prev, u), x_query)
-    return torch.logsumexp(pair + logw_norm[:, None, :], dim=-1)
+    return collectives.logsumexp(pair + logw_norm[:, None, :])
 
 
 def _svo_scan(ssm: SSM, ys_tm, eps, x_anchor, ctrl_tm=None):
@@ -481,6 +481,13 @@ def _svo_backward(ssm: SSM, gum_anchor, eps, ys_tm, fwd: FilterResult, ctrl_tm=N
     return logp - logq, torch.cat([xtilde, x_anchor[None]], dim=0)
 
 
+def _gumbel_share(generator, lead: tuple, batch: int, m: int, k: int):
+    """Gumbels [*lead, B, M, K] from the generator; under a mesh the global
+    draw (all rows) and this rank's share: its rows and its particles."""
+    gum = _gumbel(generator, (*lead, context.global_rows(batch), m, k))
+    return context.local_draw(gum, len(lead), True)
+
+
 def _gumbel(generator, shape):
     """Standard Gumbel draws −log(−log U), U uniform on [tiny, 1), as
     jax.random.gumbel makes them; in place, so the largest tensor of the
@@ -508,7 +515,10 @@ def make_objective(ssm: SSM, cfg: Config):
     (smc.ffbsi_segments > 1) takes the same hook, each segment its slices;
     from the generator it draws eps0 and one seed per forward segment, then
     gum_anchor, one seed per segment's Gumbels and t = 0's Gumbels
-    (`_segment_gumbels`), and never the whole [T−1, B, M, K] stack.
+    (`_segment_gumbels`), and never the whole [T−1, B, M, K] stack. Under
+    the active mesh ys, encoder_inputs and controls are this rank's rows and
+    noise holds the global draws: each rank takes its share of them, as of
+    the generator's, and the loss and the metrics are its particle row's.
     """
     smc_cfg = cfg.smc
     if smc_cfg.objective == "iwae":
@@ -563,13 +573,15 @@ def make_objective(ssm: SSM, cfg: Config):
         ctrl_tm = _controls_tm(controls, batch, t_steps, ssm.di, ys.device) if ssm.di else None
         if smc_cfg.objective == "svo":
             if noise is not None and len(noise) == 5:
-                gum_anchor, eps = noise[3], noise[4]
+                gum_anchor = context.local_draw(noise[3], 0, True)
+                eps = context.local_draw(noise[4], 1, False)
             elif generator is None:
                 raise ValueError("svo: pass a generator or the backward noise in noise")
             else:
-                gum_anchor = _gumbel(generator, (batch, m, k))
-                eps = torch.randn((t_steps - 1, batch, m, ssm.dx), generator=generator,
-                                  device=generator.device)
+                gum_anchor = _gumbel_share(generator, (), batch, m, k)
+                eps = torch.randn((t_steps - 1, context.global_rows(batch), m, ssm.dx),
+                                  generator=generator, device=generator.device)
+                eps = context.local_draw(eps, 1, False)
             logw_traj, x_tilde = _svo_backward(ssm, gum_anchor, eps, ys.transpose(0, 1), fwd,
                                                ctrl_tm)
             elbo = torch.logsumexp(logw_traj, dim=-1) - math.log(m)
@@ -579,7 +591,8 @@ def make_objective(ssm: SSM, cfg: Config):
         given = noise is not None and len(noise) == 5
         if not given and generator is None:
             raise ValueError("psvo: pass a generator or the backward Gumbels in noise")
-        gum_anchor = noise[3] if given else _gumbel(generator, (batch, m, k))
+        gum_anchor = (context.local_draw(noise[3], 0, True) if given
+                      else _gumbel_share(generator, (), batch, m, k))
         direct_bound = smc_cfg.psvo_bound == "direct"
         if segmented:
             gumbels = _segment_gumbels(generator, noise, smc_cfg.ffbsi_segments, batch, m, k)
@@ -588,7 +601,8 @@ def make_objective(ssm: SSM, cfg: Config):
                 differentiable_sweep=direct_bound,
             )
         else:
-            gum_scan = noise[4] if given else _gumbel(generator, (t_steps - 1, batch, m, k))
+            gum_scan = (context.local_draw(noise[4], 1, True) if given
+                        else _gumbel_share(generator, (t_steps - 1,), batch, m, k))
             x_tilde, logp_joint, logq_pmf = _ffbsi_backward(
                 ssm, gum_anchor, gum_scan, ys.transpose(0, 1), fwd, ctrl_tm,
                 differentiable_sweep=direct_bound,

@@ -41,6 +41,15 @@ Three paths, chosen from what the call can observe:
   NotImplementedError on CUDA tensors rather than run plain PyTorch where
   the reference runs a kernel.
 
+Under a mesh (`parallel.context`; the reference's `psvo_tpu/smc.py:113-134`)
+a data mesh runs the dispatch above on each rank's rows; a particle mesh
+runs the plain step body on each rank's K / P particles, its resampling the
+sharded island (`ops.sharded_resampling`: K7/K8 per shard and ring step,
+K11 in the backward) and every reduction over K (ℓ's logsumexps, the
+filtered mean, the ESS, the score term's normalizer) through
+`parallel.collectives`. Every rank draws the run's global streams and keeps
+its share.
+
 Bootstrap mode (smc.use_bootstrap) proposes from the prior at t = 0 and
 from f after, so α0 = log g and α_t = log g (with a full-covariance f, the
 correlated draw mean + L·ε).
@@ -86,11 +95,13 @@ from psvo_tpu_torch.distributions import (
     effective_sample_size, log_normalize, mvn_diag_log_prob_cm, mvn_tril_sample_cm,
 )
 from psvo_tpu_torch.models.ssm import SSM
-from psvo_tpu_torch.ops import fused_step, resampling, trunk
+from psvo_tpu_torch.ops import fused_step, resampling, sharded_resampling, trunk
+from psvo_tpu_torch.parallel import collectives, context
 
 
 def _lse(logw):
-    return torch.logsumexp(logw, dim=-1)
+    """logsumexp over K (across the particle axis of the active mesh)."""
+    return collectives.logsumexp(logw)
 
 
 def _ancestor_score(logw_pre, did, idx):
@@ -193,6 +204,7 @@ def _make_step_body(ssm: SSM, cfg: SMCConfig, remat: bool = False):
     """
     resample_on = cfg.resampling != "none"
     score_on = resample_on and not cfg.use_stop_gradient
+    sharded = context.particle_mesh() is not None
 
     def propose_weight(x, logw, y_t, q2_t, ctrl_t, eps_t):
         if ssm.f_tril and ssm.use_bootstrap:
@@ -223,8 +235,9 @@ def _make_step_body(ssm: SSM, cfg: SMCConfig, remat: bool = False):
                     - mvn_diag_log_prob_cm(x_new, mean_q, scale_q)
                 )
         logw_new = logw + alpha
-        ell = _lse(logw_new) - _lse(logw)
-        fmean = torch.einsum("bk,bdk->bd", torch.softmax(logw_new, dim=-1), x_new)
+        lse_new = _lse(logw_new)
+        ell = lse_new - _lse(logw)
+        fmean = collectives.weighted_mean(logw_new, x_new, lse=lse_new)
         return x_new, logw_new, ell, fmean
 
     def flat_propose_weight(x, logw, y_t, m2, s2, ctrl_t, eps_t):
@@ -234,7 +247,15 @@ def _make_step_body(ssm: SSM, cfg: SMCConfig, remat: bool = False):
         x, logw = carry
         y_t, q2_t, ctrl_t, eps_t, u_t = inputs
         score = torch.zeros_like(logw[:, 0])
-        if resample_on:
+        if resample_on and sharded:
+            # the sharded island (`ops.sharded_resampling`): the ancestors'
+            # normalized log-weights travel the ring with their particles
+            lwn = collectives.log_normalize(logw)[0] if score_on else None
+            x, logw, did, ess, _, picked = sharded_resampling.sharded_maybe_resample(
+                u_t, logw, x, ess_threshold=cfg.ess_threshold, lwn=lwn)
+            if score_on:
+                score = collectives.psum(torch.where(did, torch.sum(picked, dim=-1), score))
+        elif resample_on:
             logw_pre = logw
             x, logw, did, ess, idx = resampling.maybe_resample(
                 u_t, logw, x, method=cfg.resampling, ess_threshold=cfg.ess_threshold
@@ -242,7 +263,7 @@ def _make_step_body(ssm: SSM, cfg: SMCConfig, remat: bool = False):
             if score_on:
                 score = _ancestor_score(logw_pre, did, idx)
         else:
-            ess = effective_sample_size(logw, dim=-1)
+            ess = collectives.effective_sample_size(logw)
         if remat and torch.is_grad_enabled():
             m2, s2 = q2_t if q2_t is not None else (None, None)
             x_new, logw_new, ell, fmean = torch.utils.checkpoint.checkpoint(
@@ -257,15 +278,44 @@ def _make_step_body(ssm: SSM, cfg: SMCConfig, remat: bool = False):
 
 def _draw_noise(generator, cfg: SMCConfig, t_steps: int, batch: int, dx: int):
     """(eps0 [B, Dx, K], eps_scan [T−1, B, Dx, K], u_scan [T−1, B, K]) from
-    the run's generator, in that order."""
+    the run's generator, in that order; under a mesh the global draws and
+    this rank's share (`_local_noise`)."""
     k, dev = cfg.n_particles, generator.device
-    eps0 = torch.randn((batch, dx, k), generator=generator, device=dev)
-    eps_scan = torch.randn((t_steps - 1, batch, dx, k), generator=generator, device=dev)
+    rows = context.global_rows(batch)
+    eps0 = torch.randn((rows, dx, k), generator=generator, device=dev)
+    eps_scan = torch.randn((t_steps - 1, rows, dx, k), generator=generator, device=dev)
     if cfg.resampling != "none":
-        u_scan = resampling.bulk_positions(generator, t_steps - 1, batch, k, cfg.resampling)
+        u_scan = resampling.bulk_positions(generator, t_steps - 1, rows, k, cfg.resampling)
     else:
-        u_scan = torch.zeros((t_steps - 1, batch, 1), device=dev)
-    return eps0, eps_scan, u_scan
+        u_scan = torch.zeros((t_steps - 1, rows, 1), device=dev)
+    return _local_noise((eps0, eps_scan, u_scan))
+
+
+def _local_noise(noise):
+    """This rank's share of the filter's global draws (eps0, eps_scan,
+    u_scan): its rows, and on a particle mesh its particles (the positions
+    of its own output slots); the draws themselves without a mesh."""
+    eps0, eps_scan, u_scan = noise
+    return (context.local_draw(eps0, 0, True), context.local_draw(eps_scan, 1, True),
+            context.local_draw(u_scan, 1, u_scan.shape[-1] > 1))
+
+
+def _draw_eps0(generator, batch: int, dx: int, k: int):
+    """eps0 [B, Dx, K] alone (the segmented paths' first draw), this rank's
+    share under a mesh."""
+    eps0 = torch.randn((context.global_rows(batch), dx, k), generator=generator,
+                       device=generator.device)
+    return context.local_draw(eps0, 0, True)
+
+
+def _mesh_cfg(cfg: SMCConfig) -> SMCConfig:
+    """The filter's settings under the active mesh: no in-kernel draw, since
+    K1, K9 and K14 key their Philox counters by the local row and so would
+    draw other noise than the same rows of an unsharded run; every rank
+    draws the global streams instead. Unchanged without a mesh."""
+    if context.get_mesh() is None or not cfg.kernel_rng:
+        return cfg
+    return dataclasses.replace(cfg, kernel_rng=False)
 
 
 def _fused_preamble(ssm: SSM, generator, ys, cfg: SMCConfig, encoder_inputs, streams,
@@ -295,7 +345,7 @@ def _fused_preamble(ssm: SSM, generator, ys, cfg: SMCConfig, encoder_inputs, str
     if streams is not None:
         eps0, eps_scan, u_scan = streams
     elif segmented:
-        eps0 = torch.randn((batch, dx, k), generator=generator, device=generator.device)
+        eps0 = _draw_eps0(generator, batch, dx, k)
     elif cfg.kernel_rng:
         dev = generator.device
         eps0 = torch.randn((batch, dx, k), generator=generator, device=dev)
@@ -521,9 +571,11 @@ def reference_path(ssm: SSM, cfg: SMCConfig) -> str:
     (`pallas_trunk.usable`) or "scan", its plain scan, which resamples through
     its resampling kernel (`ops/resampling.py:176-183`). It mirrors the two
     gates mode by mode (pallas_step.py:131-169, pallas_trunk.py:81-121) with
-    the reference's defaults (its kernels on, no mesh) at a batch that is a
-    whole number of its row blocks: the port's kernels have no row block, so
-    the batch size never moves a configuration from one route to another.
+    the reference's defaults (its kernels on) at a batch that is a whole
+    number of its row blocks: the port's kernels have no row block, so the
+    batch size never moves a configuration from one route to another. Under
+    any mesh it is "scan": both gates turn the kernels off there
+    (pallas_step.py:133-137, pallas_trunk.py:88-92).
 
     On CUDA tensors the port's plain loop, the counterpart of that scan
     (resampling through K7/K8, K11 in the backward), serves only "scan"
@@ -533,6 +585,8 @@ def reference_path(ssm: SSM, cfg: SMCConfig) -> str:
     `trunk.HIDDEN_WIDTHS`) raises. "trunk" takes ESS-adaptive resampling, no
     resampling (IWAE at a K the trunk kernel tiles), the full FIVO gradient
     and controls: `trunk.usable` takes each at the instantiated widths."""
+    if context.get_mesh() is not None:
+        return "scan"  # the reference's kernels gate themselves off under any mesh
     k = cfg.n_particles
     nets = [ssm.nets[n] for n in ("q1", "f", "g")]
     hidden = nets[0].hidden
@@ -570,9 +624,11 @@ def reference_svo_path(ssm: SSM, m: int) -> str:
     """The route of the reference's SVO sweep for (ssm, m paths) on its
     accelerator: "kernel" (`pallas_svo.usable`, pallas_svo.py:104-140) or
     "plain", its lax.scan body (`psvo_tpu/objectives.py:290-313`), mode by
-    mode, with its defaults (kernels on, no mesh) at a batch of whole row
-    blocks. Bootstrap mode does not enter it: the sweep reads q_b, f and g,
-    never the forward proposal."""
+    mode, with its defaults (kernels on) at a batch of whole row blocks;
+    "plain" under any mesh (pallas_svo.py:106-110). Bootstrap mode does not
+    enter it: the sweep reads q_b, f and g, never the forward proposal."""
+    if context.get_mesh() is not None:
+        return "plain"
     nets = [ssm.nets[n] for n in ("qb", "f", "g")]
     hidden = nets[0].hidden
     kernel = (
@@ -597,7 +653,10 @@ def reference_ffbsi_path(ssm: SSM, k: int, m: int) -> str:
     paths: "kernel" (`pallas_ffbsi.usable`, pallas_ffbsi.py:51-63: a
     diagonal f, K a multiple of 128 up to 2048, M a multiple of 8) or
     "plain", its scan body (`objectives._make_ffbsi_body`), with its
-    defaults at a batch of whole row blocks."""
+    defaults at a batch of whole row blocks; "plain" under any mesh
+    (pallas_ffbsi.py:52-57)."""
+    if context.get_mesh() is not None:
+        return "plain"
     kernel = (not ssm.f_tril and k % _REF_Q == 0 and k <= _REF_FFBSI_MAX_K and m % 8 == 0)
     return "kernel" if kernel else "plain"
 
@@ -640,13 +699,27 @@ def forward_filter(
     Dispatch (the module docstring): the whole-scan class, the trunk class,
     then the plain loop, on CUDA tensors only where `reference_path` says
     "scan".
+
+    Under the active mesh (`parallel.context`) ys, encoder_inputs and
+    controls are this rank's rows, and `noise` the global draws, of which
+    each rank takes its share, as it does of the generator's draws. A data
+    mesh (particle axis 1) runs the same dispatch on its rows. A particle
+    mesh runs the plain loop on its K / P particles, with the sharded
+    resampling island (`ops.sharded_resampling`, K7/K8 per shard on the
+    card, K11 in the backward) and every reduction over K through
+    `parallel.collectives`, as the reference's mesh route
+    (`psvo_tpu/smc.py:113-134`); its trunk kernel is off there too.
     """
     batch, t_steps, _ = ys.shape
+    cfg = _mesh_cfg(cfg)
+    if noise is not None and context.get_mesh() is not None:
+        noise = _local_noise(noise)
     path = None
-    if t_steps >= 2 and fused_step.usable(ssm, cfg):
-        path = _forward_filter_fused
-    elif t_steps >= 2 and trunk.usable(ssm, cfg):
-        path = _forward_filter_trunk
+    if t_steps >= 2 and context.particle_mesh() is None:
+        if fused_step.usable(ssm, cfg):
+            path = _forward_filter_fused
+        elif trunk.usable(ssm, cfg):
+            path = _forward_filter_trunk
     kw = {"controls": controls}
     if ys.is_cuda:
         if path is not None:
@@ -674,7 +747,8 @@ def forward_filter(
         eps0, eps_scan, u_scan = _draw_noise(generator, cfg, t_steps, batch, ssm.dx)
 
     x0, alpha0 = _init_t0(ssm, eps0, ys_tm[0], enc_tm[0])
-    ell0 = _lse(alpha0) - math.log(k)
+    lse0 = _lse(alpha0)
+    ell0 = lse0 - math.log(k)
 
     body = _make_step_body(ssm, cfg, remat=cfg.remat)
     carry = (x0, alpha0)
@@ -692,11 +766,11 @@ def forward_filter(
         scores.append(score)
 
     increments = torch.stack(ells)
-    fmean0 = torch.einsum("bk,bdk->bd", torch.softmax(alpha0, dim=-1), x0)
+    fmean0 = collectives.weighted_mean(alpha0, x0, lse=lse0)
     return FilterResult(
         log_z=torch.sum(increments, dim=0),
         increments=increments,
-        ess=torch.stack([effective_sample_size(alpha0), *esss]),
+        ess=torch.stack([collectives.effective_sample_size(alpha0), *esss]),
         x_last=carry[0],
         logw_last=carry[1],
         xs=torch.stack(xs) if cache else None,
@@ -752,15 +826,15 @@ def _segment_seeds(generator, n_segments: int, kernel_rng: bool):
 def _segment_streams(cfg: SMCConfig, seed, seg_len: int, batch: int, dx: int, device):
     """A segment's (eps [L, B, Dx, K], u [L, B, K]) from its seed, drawn as
     `_draw_noise` draws the whole run's (the reference's
-    `_segment_randomness`)."""
-    k = cfg.n_particles
+    `_segment_randomness`), this rank's share under a mesh."""
+    k, rows = cfg.n_particles, context.global_rows(batch)
     gen = torch.Generator(device=device).manual_seed(seed)
-    eps = torch.randn((seg_len, batch, dx, k), generator=gen, device=device)
+    eps = torch.randn((seg_len, rows, dx, k), generator=gen, device=device)
     if cfg.resampling != "none":
-        u = resampling.bulk_positions(gen, seg_len, batch, k, cfg.resampling)
+        u = resampling.bulk_positions(gen, seg_len, rows, k, cfg.resampling)
     else:
-        u = torch.zeros((seg_len, batch, 1), device=device)
-    return eps, u
+        u = torch.zeros((seg_len, rows, 1), device=device)
+    return (context.local_draw(eps, 1, True), context.local_draw(u, 1, u.shape[-1] > 1))
 
 
 def _checkpointed(remat: bool, fn, *args):
@@ -778,11 +852,11 @@ def _segmented_result(ell0, alpha0, x0, stats, x_last, logw_last) -> FilterResul
     """The FilterResult of a segmented forward from its per-segment stats
     [T−1, B, 2 + Dx] (ℓ, ESS, filtered mean); no particle cache."""
     increments = torch.cat([ell0[None], stats[:, :, 0]], dim=0)
-    fmean0 = torch.einsum("bk,bdk->bd", torch.softmax(alpha0, dim=-1), x0)
+    fmean0 = collectives.weighted_mean(alpha0, x0)
     return FilterResult(
         log_z=torch.sum(increments, dim=0),
         increments=increments,
-        ess=torch.cat([effective_sample_size(alpha0)[None], stats[:, :, 1]], dim=0),
+        ess=torch.cat([collectives.effective_sample_size(alpha0)[None], stats[:, :, 1]], dim=0),
         x_last=x_last,
         logw_last=logw_last,
         filtered_means=torch.cat([fmean0[None], stats[:, :, 2:]], dim=0),
@@ -889,7 +963,7 @@ def _forward_filter_segmented_plain(
     if streams is not None:
         eps0, seeds = streams[0], None
     else:
-        eps0 = torch.randn((batch, dx, k), generator=generator, device=generator.device)
+        eps0 = _draw_eps0(generator, batch, dx, k)
         seeds = _segment_seeds(generator, n_segments, False)
     x0, alpha0 = _init_t0(ssm, eps0, ys_tm[0], enc_tm[0])
     body = _make_step_body(ssm, cfg)
@@ -944,12 +1018,18 @@ def forward_filter_segmented(
     that the reference sends to its whole-step kernel but the port's K1
     class does not take (`reference_path` "fused"; ROADMAP queue 2 B.2)
     raises. CPU tensors with the noise hook run the plain step body.
-    noise = (eps0, eps_scan, u_scan) over all T replaces the draws.
+    noise = (eps0, eps_scan, u_scan) over all T replaces the draws. Under
+    the active mesh as `forward_filter`: a particle mesh runs the plain body
+    per segment, with the sharded island.
     """
     batch, t_steps, _ = ys.shape
     if (t_steps - 1) % n_segments:
         raise ValueError(f"T-1={t_steps - 1} not divisible by {n_segments} segments")
-    fused = t_steps >= 2 and fused_step.usable(ssm, cfg) and fused_step.SCAN_FUSED
+    cfg = _mesh_cfg(cfg)
+    if noise is not None and context.get_mesh() is not None:
+        noise = _local_noise(noise)
+    fused = (t_steps >= 2 and context.particle_mesh() is None and fused_step.usable(ssm, cfg)
+             and fused_step.SCAN_FUSED)
     kw = dict(encoder_inputs=encoder_inputs, streams=noise, controls=controls)
     if ys.is_cuda:
         if fused:

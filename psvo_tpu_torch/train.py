@@ -25,6 +25,7 @@ from psvo_tpu_torch.config import Config
 from psvo_tpu_torch.distributions import log_normalize
 from psvo_tpu_torch.models.ssm import SSM
 from psvo_tpu_torch.objectives import make_objective
+from psvo_tpu_torch.parallel import collectives, context
 from psvo_tpu_torch.utils.rng import run_generator
 
 
@@ -162,6 +163,13 @@ def make_train_step(ssm: SSM, cfg: Config, optimizer: Optimizer) -> Callable:
     the reference's checkify float checks; a NaN made inside the backward
     raises it with anomaly mode's report of the function that made it. The
     checks fetch values to the host, so a checked step syncs every time.
+
+    Under the active mesh (`parallel.sharding.make_sharded_train_step`) the
+    step takes the global batch (and encoder inputs and controls) and runs on
+    this rank's rows; it back-propagates the loss scaled by 1 / (P·D), sums
+    the gradients over every rank in one all-reduce (`.grad` then holds the
+    sum) and averages the metrics over the data axis (ess_min: their min),
+    so every rank takes the same optimizer step and reports the same metrics.
     """
     objective = make_objective(ssm, cfg)
     named = list(ssm.named_parameters())
@@ -170,9 +178,16 @@ def make_train_step(ssm: SSM, cfg: Config, optimizer: Optimizer) -> Callable:
     n_per_call = max(int(cfg.train.steps_per_call), 1)
     debug = cfg.train.debug_checks
 
+    def backward(loss):
+        mesh = context.get_mesh()
+        if mesh is None:
+            loss.backward()
+        else:
+            (loss / mesh.size).backward()
+
     def loss_and_grads(generator, ys, encoder_inputs, noise, controls):
         out = objective(generator, ys, encoder_inputs, noise, controls)
-        out.loss.backward()
+        backward(out.loss)
         return out
 
     def checked_loss_and_grads(generator, ys, encoder_inputs, noise, controls):
@@ -181,7 +196,7 @@ def make_train_step(ssm: SSM, cfg: Config, optimizer: Optimizer) -> Callable:
             out = objective(generator, ys, encoder_inputs, noise, controls)
             _require_finite([("the loss", out.loss.detach())], "after the forward")
             try:
-                out.loss.backward()
+                backward(out.loss)
             except RuntimeError as exc:
                 if "nan" not in str(exc).lower():
                     raise
@@ -193,15 +208,24 @@ def make_train_step(ssm: SSM, cfg: Config, optimizer: Optimizer) -> Callable:
     forward_backward = checked_loss_and_grads if debug else loss_and_grads
 
     def one_step(generator, ys, encoder_inputs=None, noise=None, controls=None):
+        mesh = context.get_mesh()
+        if mesh is not None:
+            ys, encoder_inputs, controls = local_rows(mesh, ys, encoder_inputs, controls)
         for p in params:
             p.grad = None
         out = forward_backward(generator, ys, encoder_inputs, noise, controls)
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        if mesh is not None:
+            grads = collectives.all_reduce_grads(grads)
+            for p, g in zip(params, grads):
+                p.grad = g
         optimizer.update(params, grads, opt_state)
         if debug:
             _require_finite(named, "after the update")
         metrics = {name: v.detach() for name, v in out.metrics.items()}
         metrics["loss"] = out.loss.detach()
+        if mesh is not None:
+            metrics = _data_metrics(metrics)
         metrics["grad_norm"] = global_norm(grads)
         return metrics
 
@@ -223,6 +247,26 @@ def make_train_step(ssm: SSM, cfg: Config, optimizer: Optimizer) -> Callable:
     train_step.opt_state = opt_state
     train_step.single_step = one_step
     return train_step
+
+
+def local_rows(mesh, *tensors):
+    """This rank's rows of global [B, ...] tensors (None stays None)."""
+    for t in tensors:
+        if t is not None and t.shape[0] % mesh.data:
+            raise ValueError(f"a batch of {t.shape[0]} rows does not split over mesh.data="
+                             f"{mesh.data}")
+    return tuple(None if t is None else mesh.local(t, 0) for t in tensors)
+
+
+def _data_metrics(metrics: dict) -> dict:
+    """Scalar metrics of a data shard -> their mean over the data axis (one
+    all-reduce), ess_min's min."""
+    names = [n for n, v in metrics.items() if v.dim() == 0 and n != "ess_min"]
+    means = collectives.data_mean(torch.stack([metrics[n].float() for n in names]))
+    out = dict(metrics, **dict(zip(names, means.unbind(0))))
+    if "ess_min" in metrics:
+        out["ess_min"] = collectives.data_min(metrics["ess_min"])
+    return out
 
 
 def filtered_means(fwd):
@@ -256,14 +300,27 @@ def k_step_predictions(ssm: SSM, filt_means, k_max: int, controls=None):
 def make_eval_step(ssm: SSM, cfg: Config) -> Callable:
     """eval_step(generator, ys, encoder_inputs=None, noise=None, controls=None)
     -> metrics: the objective's metrics plus elbo, mse_k and r2_k [k_max].
-    controls [B, T, Di] feed the filter and the k-step rollouts."""
+    controls [B, T, Di] feed the filter and the k-step rollouts. Under the
+    active mesh it takes the global test batch and runs the objective on this
+    rank's rows; the metrics are averaged over the data axis, and the
+    rollouts run on the gathered filtering means of the whole batch, as on
+    one device."""
     objective = make_objective(ssm, cfg)
     k_max = cfg.train.mse_k_steps
 
     @torch.no_grad()
     def eval_step(generator, ys, encoder_inputs=None, noise=None, controls=None):
-        out = objective(generator, ys, encoder_inputs, noise, controls)
-        fm = filtered_means(out.filter_result)  # [B, T, Dx]
+        mesh = context.get_mesh()
+        if mesh is None:
+            out = objective(generator, ys, encoder_inputs, noise, controls)
+            fm = filtered_means(out.filter_result)  # [B, T, Dx]
+            metrics, elbo = dict(out.metrics), torch.mean(out.elbo)
+        else:
+            out = objective(generator, *local_rows(mesh, ys, encoder_inputs), noise,
+                            *local_rows(mesh, controls))
+            fm = collectives.gather_rows(filtered_means(out.filter_result))
+            metrics = _data_metrics(dict(out.metrics, elbo=torch.mean(out.elbo)))
+            elbo = metrics.pop("elbo")
         # horizons beyond the trajectory have no targets
         k_max_eff = min(k_max, ys.shape[1] - 1)
         preds = k_step_predictions(ssm, fm, k_max_eff, controls)
@@ -275,8 +332,7 @@ def make_eval_step(ssm: SSM, cfg: Config) -> Callable:
                 for k in range(1, k_max_eff + 1)
             ]
         )
-        metrics = dict(out.metrics)
-        metrics["elbo"] = torch.mean(out.elbo)
+        metrics["elbo"] = elbo
         metrics["mse_k"] = mse
         metrics["r2_k"] = 1.0 - mse / var_y
         return metrics
@@ -327,17 +383,32 @@ class Trainer:
     checkpoints and a profiler window. It runs on the device of the model's
     parameters. Between evals it never waits for the device: the minibatch
     indices go up asynchronously and no train metric is read; each eval
-    fetches its record in one copy."""
+    fetches its record in one copy.
 
-    def __init__(self, cfg: Config, ssm: SSM, *, metrics_writer=None, checkpointer=None,
-                 profile_dir=None):
+    Under a mesh (`mesh=`, from `parallel.sharding.maybe_mesh`) the train and
+    eval steps are the sharded ones. Every rank draws the same minibatches
+    from its own copy of the run's generators and steps on its rows; the
+    replicas' parameters stay equal. Only rank 0 writes metrics,
+    checkpoints and profiles, and prints; a restore reads the checkpoint on
+    every rank, then takes rank 0's state (`sharding.place_replicated`)."""
+
+    def __init__(self, cfg: Config, ssm: SSM, *, mesh=None, metrics_writer=None,
+                 checkpointer=None, profile_dir=None):
         self.cfg = cfg
         self.ssm = ssm
+        self.mesh = mesh
+        self.main = mesh is None or mesh.rank == 0  # the rank that writes and prints
         self.device = next(ssm.parameters()).device
-        self.profile_dir = profile_dir  # torch.profiler trace target
+        self.profile_dir = profile_dir if self.main else None  # torch.profiler trace target
         self.optimizer = make_optimizer(cfg)
-        self.train_step = make_train_step(ssm, cfg, self.optimizer)
-        self.eval_step = make_eval_step(ssm, cfg)
+        if mesh is None:
+            self.train_step = make_train_step(ssm, cfg, self.optimizer)
+            self.eval_step = make_eval_step(ssm, cfg)
+        else:
+            from psvo_tpu_torch.parallel import sharding
+
+            self.train_step = sharding.make_sharded_train_step(ssm, cfg, self.optimizer, mesh)
+            self.eval_step = sharding.make_sharded_eval_step(ssm, cfg, mesh)
         self.state = TrainState(ssm, self.train_step.opt_state,
                                 run_generator(cfg, 1, self.device))
         self.metrics_writer = metrics_writer
@@ -351,6 +422,13 @@ class Trainer:
             restored = self.checkpointer.restore(self.state)
             if restored is not None:
                 self.state = restored
+                if self.mesh is not None:
+                    from psvo_tpu_torch.parallel import sharding
+
+                    opt = self.state.opt_state
+                    sharding.place_replicated(self.mesh, [
+                        *self.ssm.parameters(), *opt.mu, *opt.nu, opt.count,
+                        opt.notfinite_count])
         return self.state.step
 
     def _start_profile(self):
@@ -493,13 +571,12 @@ class Trainer:
                 }
                 rec.update(zip(extras, fetched[5:n_sc]))
                 self.history.append(rec)
-                if self.metrics_writer is not None:
+                if self.metrics_writer is not None and self.main:
                     self.metrics_writer.write(rec)
-                print(
+                self._say(
                     f"step {rec['step']:6d}  train_elbo {rec['train_elbo']:10.2f}  "
                     f"test_elbo {rec['test_elbo']:10.2f}  R²(1) {rec['r2_1']:6.3f}  "
-                    f"{steps_s:6.1f} steps/s",
-                    flush=True,
+                    f"{steps_s:6.1f} steps/s"
                 )
 
                 if rec["test_elbo"] > st.best_elbo + 1e-6:
@@ -511,10 +588,10 @@ class Trainer:
                 else:
                     st.evals_since_best += 1
                     if st.evals_since_best >= cfg.train.patience:
-                        print("early stopping: patience exhausted", flush=True)
+                        self._say("early stopping: patience exhausted")
                         stop = True
 
-            if self.checkpointer is not None and st.step % cfg.train.save_every == 0:
+            if self.checkpointer is not None and self.main and st.step % cfg.train.save_every == 0:
                 self.checkpointer.save(st)
 
         if prof is not None:  # the run ended inside the window
@@ -522,6 +599,10 @@ class Trainer:
         if cfg.train.keep_best and st.best_params is not None:
             # model selection: end the run on the best-test-ELBO params
             self.ssm.load_state_dict(st.best_params)
-        if self.checkpointer is not None:
+        if self.checkpointer is not None and self.main:
             self.checkpointer.save(st, force=True)
         return self.history
+
+    def _say(self, line: str) -> None:
+        if self.main:
+            print(line, flush=True)

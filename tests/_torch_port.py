@@ -9,12 +9,14 @@ models; noise is drawn with jax.random exactly as `psvo_tpu.smc`
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import jax
 import numpy as np
 import pytest
 import torch
+from jax.experimental.compilation_cache import compilation_cache
 
 from psvo_tpu import config as jconfig
 from psvo_tpu.models.ssm import init_ssm as j_init_ssm
@@ -144,3 +146,57 @@ def assert_grads_close(got_tree, want_tree, rtol, atol):
     for (path, want), got in zip(flat_want, flat_got):
         np.testing.assert_allclose(got, np.asarray(want), rtol=rtol, atol=atol,
                                    err_msg=jax.tree_util.keystr(path))
+
+
+@contextlib.contextmanager
+def without_compile_cache():
+    """Compile the reference's mesh programs afresh, outside the persistent
+    compilation cache that `psvo_tpu` turns on: with the cache warm, the
+    execution of a loaded executable of the 8-virtual-device mesh aborted
+    the process (SIGABRT) in 2 of 4 runs of tests/test_torch_sharding_paths.py
+    started side by side, and in none with the cache off."""
+    enabled = jax.config.jax_enable_compilation_cache
+    compilation_cache.reset_cache()
+    jax.config.update("jax_enable_compilation_cache", False)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_compilation_cache", enabled)
+        compilation_cache.reset_cache()
+
+
+def sharded_reference(jssm, jcfg, params, key, ys, controls=None):
+    """The reference's objective under its mesh (jcfg.mesh over the virtual
+    CPU devices of tests/conftest.py), jitted value_and_grad: (loss, its
+    ObjectiveOutput, the gradient tree), as numpy."""
+    from psvo_tpu.objectives import make_objective as j_make_objective
+    from psvo_tpu.parallel import context as jcontext
+    from psvo_tpu.parallel import sharding as jsharding
+
+    mesh = jsharding.make_mesh(jcfg)
+    ssm_sh, cfg_sh = jsharding.prepare_sharded(jssm, jcfg, mesh)
+    objective = j_make_objective(ssm_sh, cfg_sh)
+    jcontext.set_mesh(mesh)
+    try:
+        place = jsharding.batch_sharding(mesh)
+        ys = jax.device_put(ys, place)
+        controls = None if controls is None else jax.device_put(controls, place)
+
+        def loss(p):
+            out = objective(p, key, ys, controls=controls)
+            return out.loss, out
+
+        with without_compile_cache():
+            (value, out), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+            return jax.tree_util.tree_map(np.asarray, (value, out, grads))
+    finally:
+        jcontext.set_mesh(None)
+
+
+def grads_tree(tcfg, grads):
+    """The port's gradient list (in `parameters()` order) as the reference's
+    pytree (`bridge.grads_to_numpy`)."""
+    tssm = SSM(tcfg)
+    for p, g in zip(tssm.parameters(), grads):
+        p.grad = g
+    return bridge.grads_to_numpy(tssm)
