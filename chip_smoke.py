@@ -454,13 +454,52 @@ TF32_PEAK = 495e12  # FLOP/s on the tensor cores, dense TF32
 
 
 _LAST = [time.perf_counter()]
+_START = _LAST[0]
+_PHASES = []  # (label, start, end), seconds after the script's start
+_SHAPES_DONE = {}  # phase be's shape library: seconds after the start when its build ended
 
 
 def phase_done(label: str) -> None:
     """Print the seconds since the previous phase ended."""
     now = time.perf_counter()
     print(f"[time] {label}: {now - _LAST[0]:.1f} s", flush=True)
+    _PHASES.append((label, _LAST[0] - _START, now - _START))
     _LAST[0] = now
+
+
+def build_shapes_beside(keys) -> None:
+    """Build phase be's shape libraries in background threads at nice 19, so
+    that the compilers take the cores the phases leave idle (the phases'
+    host work is one Python thread, bb-bd's gloo ranks aside), and record
+    when each build ended (`shapes_line`)."""
+    import threading
+
+    from psvo_tpu_torch.ops import _build
+
+    def run(key):
+        try:
+            _build.load_shape_library(key, niceness=19)
+        except Exception:  # noqa: BLE001 - phase be's load_shape_library builds again and raises
+            pass
+        _SHAPES_DONE[key] = time.perf_counter() - _START
+
+    for key in keys:
+        threading.Thread(target=run, args=(key,), daemon=True).start()
+
+
+def shapes_line(keys) -> str:
+    """When each of phase be's shape libraries was built, and the phases
+    that ran beside the builds (their host-clock figures shared the host's
+    cores with the compilers)."""
+    ends = [_SHAPES_DONE.get(k) for k in keys]
+    if any(e is None for e in ends):
+        return "shape libraries: a build had not ended when phase be began"
+    start = next((b for lbl, a, b in _PHASES if lbl.startswith("a, b")), 0.0)
+    last = max(ends, default=start)
+    beside = [lbl.split(":")[0] for lbl, a, b in _PHASES if b > start and a < last]
+    return (f"shape libraries built {start:.1f}-{last:.1f} s after the start ("
+            + ", ".join(f"{k} at {e:.1f} s" for k, e in zip(keys, ends))
+            + f"), beside phases {beside[0] + '-' + beside[-1] if beside else 'none'}")
 
 
 def fail(msg: str) -> None:
@@ -4773,6 +4812,304 @@ def sharded_phases(pt, dev, card: str) -> dict:
     return figures
 
 
+STEP_CLASS = (  # phase be: (label, preset, data changes, q1/f/g widths, smc changes)
+    ("be-A", "fhn_fivo_k1024_bench", {}, (64,), {}),
+    ("be-B", "fhn_fivo_k1024_bench", {}, (64, 64, 64), {}),
+    ("be-C", "lorenz63_psvo_k1024", {"dy": 1}, (48, 48), {}),
+    ("be-D", L96, {"dx": 5, "dy": 5, "di": 2, "control_scale": 0.5}, (8, 8),
+     {"n_particles": 2048}),
+)
+STEP_CLASS_KERNELS = ("K1", "K4", "K14", "K15", "K5", "K6")
+
+
+def step_class_config(pt, label: str):
+    """Phase be's configuration `label` at full width: its preset with the
+    data and smc changes, q1, f and g at the widths of STEP_CLASS (their
+    other settings the preset's), B = 32, one train step a call, no mesh."""
+    _, preset, data_kw, hidden, smc_kw = next(c for c in STEP_CLASS if c[0] == label)
+    base = pt.PRESETS[preset]
+    cfg = dataclasses.replace(
+        base, data=dataclasses.replace(base.data, **data_kw),
+        smc=dataclasses.replace(base.smc, **smc_kw),
+        train=dataclasses.replace(base.train, steps_per_call=1, batch_size=32),
+        mesh=dataclasses.replace(base.mesh, data=1, particle=1))
+    return cfg.with_nets(**{n: dataclasses.replace(cfg.net(n), hidden=hidden)
+                            for n in ("q1", "f", "g")})
+
+
+def step_class_shapes(pt) -> list:
+    """The shape libraries phase be's configurations launch
+    (`fused_step._lib_key`), for `_build.prebuild_shapes`."""
+    from psvo_tpu_torch.ops import fused_step
+
+    keys = []
+    for label, *_ in STEP_CLASS:
+        cfg = step_class_config(pt, label)
+        hidden = cfg.net("q1").hidden
+        c = fused_step.shape_consts(cfg.data.dx, cfg.data.dy, cfg.data.di, hidden[0],
+                                    len(hidden) - 1)
+        keys += [k_ for k_ in (fused_step._lib_key(c, False), fused_step._lib_key(c, True))
+                 if k_ is not None]
+    return list(dict.fromkeys(keys))
+
+
+def step_class_counters():
+    """(K1, K4, K14, K15, K5, K6 wrappers; every plain version)."""
+    from psvo_tpu_torch.ops import ffbsi, fused_step
+
+    return ((fused_step.scan_forward, fused_step.scan_backward, fused_step.step_forward,
+             fused_step.step_backward, ffbsi.ffbsi_forward, ffbsi.ffbsi_backward),
+            general_counters()[2])
+
+
+def k1_bound_of(inp, stream: bool):
+    """K1's bound on kernel_inputs' operands: the three trunks' FLOP per
+    particle-step; x0 and α0 read and x_last and α_last written, coef, the
+    weights and sconst read, the stats written, and with `stream` the ε and
+    position streams read."""
+    t1, b, _ = inp["coef"].shape
+    k = inp["x0"].shape[-1]
+    n_bytes = (2 * nbytes(inp["x0"], inp["alpha0"])
+               + nbytes(inp["coef"], inp["consts"]["packed"], inp["consts"]["sconst"])
+               + t1 * b * (2 + inp["x0"].shape[1]) * 4)
+    if stream:
+        n_bytes += nbytes(inp["eps"], inp["positions"])
+    return bound(trunk_flops(inp["consts"]) * t1 * b * k, n_bytes)
+
+
+def shape_resources(key) -> str:
+    """Registers and spill stores of each kernel of a shape library (or of
+    the kernels' library: key None) at its shape, from its -Xptxas -v log."""
+    from psvo_tpu_torch.ops import _build
+
+    log = _build.build_log(key)
+    out = []
+    for kern in ("scan_forward_kernel", "step_forward_kernel", "scan_backward_kernel",
+                 "step_backward_kernel"):
+        for m_ in re.finditer(r"Compiling entry function '(_ZN4psvo\d+" + kern + r"\w*)'.*?Used "
+                              r"(\d+) registers", log, re.S):
+            spill = re.search(re.escape(m_.group(1)) + r"[^\n]*\n[^\n]*?(\d+) bytes spill "
+                              r"stores", log)
+            ctrl = " ctrl" if "Lb1E" in m_.group(1) else ""  # K1/K14's control flag
+            out.append(f"{kern}{ctrl} {m_.group(2)} regs, "
+                       f"{spill.group(1) if spill else '?'} B spilled")
+    return "; ".join(out) or "none in this library"
+
+
+def step_class_phases(pt, dev, card: str) -> dict:
+    """Phase (be): the whole-step class beyond the presets' shapes (STEP_CLASS
+    at full width): per configuration the kernels against their plain
+    versions (K1, and K14 for be-B, teacher-forced within 2e-4; K4, and K15
+    for be-B, per leaf within 1e-4 small and 1e-3 full), the card against the
+    CPU on the same draws (B = 2, T = 20, CPU_TOL), one serving call and 3
+    train steps through the entry points with launch counts and no plain
+    version, the kernels' times (pair_ms) against their plain versions' and
+    bounds, and the registers of each new instantiation. Returns the figures
+    for the kernels' JSON record and PERF.md."""
+    import torch
+    from psvo_tpu_torch.ops import _build, fused_step
+
+    figures = {}
+    kernels, plain = step_class_counters()
+    print(f"[be] {card}: {shapes_line(step_class_shapes(pt))}", flush=True)
+    for i, (label, preset, _, hidden, _) in enumerate(STEP_CLASS):
+        cfg = step_class_config(pt, label)
+        sc, n = cfg.smc, cfg.data.t_steps - 1
+        psvo = sc.objective == "psvo"
+        cpu_ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+        consts = fused_step.shape_consts(cfg.data.dx, cfg.data.dy, cfg.data.di, hidden[0],
+                                         len(hidden) - 1)
+        keys = (fused_step._lib_key(consts, False), fused_step._lib_key(consts, True))
+        if not (fused_step.usable(cpu_ssm, sc) and pt.smc.reference_path(cpu_ssm, sc) == "fused"):
+            fail(f"(be) {label}: outside the whole-step class, or not the reference's")
+        t0 = time.perf_counter()
+        for key in keys:  # built beside phases c-; a build that failed there raises here
+            if key is not None:
+                _build.load_shape_library(key)
+        wait_s = time.perf_counter() - t0
+        print(f"[be] {card}: {label} ({preset}, Dx={cfg.data.dx}, Dy={cfg.data.dy}, "
+              f"Di={cfg.data.di}, q1/f/g {hidden}, K={sc.n_particles}, B=32, T={n + 1}): plans "
+              f"K1/K14 {fused_step.k1_plan(consts)!r}, K4/K15 {fused_step.k4_plan(consts)!r}; "
+              f"libraries {keys[0] or 'the kernels own'} / {keys[1] or 'the kernels own'} "
+              f"(waited {wait_s:.1f} s for their builds); "
+              + " | ".join(f"{key or 'library'}: {shape_resources(key)}" for key in
+                           dict.fromkeys(keys)), flush=True)
+        ds = pt.generate_dataset(cfg.data, SEED)
+        u_all = ds.controls_train if cfg.data.di else None
+        gen = torch.Generator(device=dev).manual_seed(SEED + 170 + i)
+        fig = {"keys": keys}
+        # kernels against their plain versions, small (B=4, T=10, K=128) and full
+        for size in ("small", "full"):
+            small = size == "small"
+            kcfg = cfg if not small else dataclasses.replace(
+                cfg, data=dataclasses.replace(cfg.data, t_steps=10),
+                smc=dataclasses.replace(sc, n_particles=128))
+            b = 4 if small else 32
+            ssm = pt.init_ssm(kcfg, torch.Generator().manual_seed(SEED + 3), device=dev)
+            ys = ds.obs_train[:b, :kcfg.data.t_steps].to(dev).contiguous()
+            with torch.no_grad():
+                r1 = check_scan(label, ssm, kcfg, ys, gen, tol=2e-4)
+                r4 = check_backward(ssm, kcfg, ys, gen)
+            k4_tol = 1e-4 if small else 1e-3
+            print(f"[be] {label} K1 {size}: {scan_line(r1)}; K4 {size}: "
+                  + ", ".join(f"{nm} rel L2 {e:.3e} max|d| {m:.3e}" for nm, e, m in
+                              zip(("d_x0", "d_coef", "d_weights", "d_sconst"), r4["rel"],
+                                  r4["maxd"])), flush=True)
+            if not (r1["finite"] and r1["tf_flips"] == 0 and r1["tf_err"] < 2e-4):
+                fail(f"(be) {label}: K1 ({size}) disagrees with scan_forward_reference")
+            if not (r4["finite"] and r4["monotone"] and max(r4["rel"]) <= k4_tol):
+                fail(f"(be) {label}: K4 ({size}) disagrees with scan_backward_reference")
+            fig[size] = dict(k1=r1["tf_err"], k4=max(r4["maxd"]))
+            if label == "be-B":
+                with torch.no_grad():
+                    rs = step_chain_check(ssm, kcfg, ys, gen)
+                    rb = step_backward_check(rs, gen)
+                print(f"[be] {label} K14 {size}: {rs['idx_bad']} ancestors off, rel L2 per "
+                      f"output {[f'{v:.1e}' for v in rs['tf_l2']]}, elementwise "
+                      f"{[f'{v:.1e}' for v in rs['tf_rel']]}; the chain vs one K1 launch: "
+                      f"{rs['k1_idx']} ancestors off, max|d| {rs['vs_k1']}; K15 {size}: rel L2 "
+                      f"{[f'{v:.1e}' for v in rb['rel']]} ({rb['zeroed']} of {rb['n']} tied "
+                      f"particles zeroed; raw {[f'{v:.1e}' for v in rb['rel_raw']]}), bit-equal "
+                      f"on relaunch {rb['same']}, the chain vs one K4 launch "
+                      f"{[f'{v:.1e}' for v in rb['vs_k4']]}", flush=True)
+                if not (rs["finite"] and rs["idx_bad"] == 0 and max(rs["tf_rel"]) < 2e-4):
+                    fail(f"(be) {label}: K14 ({size}) disagrees with step_forward_reference")
+                if not (rb["finite"] and rb["same"] and max(rb["rel"]) <= k4_tol):
+                    fail(f"(be) {label}: K15 ({size}) disagrees with step_backward_reference")
+                fig[size].update(k14=rs["tf_abs"], k15=max(rb["maxd"]))
+                if not small:
+                    fig["k14_k15"] = (rs, rb)
+            if not small:
+                fig["k1_check"], fig["k4_check"] = r1, r4
+                with torch.no_grad():
+                    inp = kernel_inputs(ssm, kcfg, ys, gen)
+                fig["inp"] = inp
+            del ssm
+        # the card against the CPU on the same draws
+        fig["vs"] = {}
+        for scan_fused in ((True, False) if label == "be-B" else (True,)):
+            fused_step.SCAN_FUSED = scan_fused
+            try:
+                u = u_all[:2, :20] if u_all is not None else None
+                vs = card_vs_cpu(pt, dev, cfg, ds.obs_train[:2, :20], u, SEED + 180 + i)
+            finally:
+                fused_step.SCAN_FUSED = True
+            mode = "whole scan" if scan_fused else "SCAN_FUSED off"
+            print(f"[be] {card}: {label} ({mode}) the card vs the CPU, one train step at B=2, "
+                  f"T=20: {vs_line(vs)}", flush=True)
+            if not vs["ok"]:
+                fail(f"(be) {label} ({mode}): the card disagrees with the CPU")
+            fig["vs"][mode] = vs
+        # serving and 3 train steps through the entry points
+        ys = ds.obs_train[:32].to(dev).contiguous()
+        u = u_all[:32].to(dev).contiguous() if u_all is not None else None
+        kw = {} if u is None else {"controls": u}
+        for scan_fused in ((True, False) if label == "be-B" else (True,)):
+            fused_step.SCAN_FUSED = scan_fused
+            mode = "whole scan" if scan_fused else "SCAN_FUSED off"
+            try:
+                ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+                run_gen = torch.Generator(device=dev).manual_seed(SEED + 190 + i)
+                if psvo:
+                    serve_name = "smooth_posterior"
+                    serve = lambda: pt.smooth_posterior(ssm, ys, cfg, run_gen)  # noqa: E731
+                    want_serve = [1, 0, 0, 0, 1, 0]
+                else:
+                    serve_name = "make_eval_step"
+                    eval_step = pt.make_eval_step(ssm, cfg)
+                    serve = lambda: eval_step(run_gen, ys, **kw)  # noqa: E731
+                    want_serve = [1, 0, 0, 0, 0, 0] if scan_fused else [0, 0, n, 0, 0, 0]
+                serve()  # warm-up
+                t0 = time.perf_counter()
+                out, serve_launches, n_plain = kernel_counts(kernels, plain, serve)
+                serve_ms = (time.perf_counter() - t0) * 1e3
+                ok = (bool(torch.isfinite(out).all()) if psvo
+                      else math.isfinite(float(out["elbo"])))
+                print(f"[be] {card}: {label} ({mode}) {serve_name}: launches "
+                      f"{dict(zip(STEP_CLASS_KERNELS, serve_launches))}, plain versions "
+                      f"{n_plain}, {serve_ms:.1f} ms (host clock, after a warm-up), output "
+                      f"finite {ok}", flush=True)
+                if serve_launches != want_serve or n_plain or not ok:
+                    fail(f"(be) {label} ({mode}) {serve_name}: launched {serve_launches} (want "
+                         f"{want_serve}), plain versions {n_plain}, output ok {ok}")
+                step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
+                step_s = []
+
+                def run():
+                    res = []
+                    for _ in range(3):
+                        t1 = time.perf_counter()
+                        res.append(step(run_gen, ys, **kw))
+                        torch.cuda.synchronize()
+                        step_s.append(time.perf_counter() - t1)
+                    return res
+
+                before = [p_.detach().clone() for p_ in ssm.parameters()]
+                (metrics, launches, n_plain), peak = peak_gb(
+                    lambda: kernel_counts(kernels, plain, run))
+                losses = [float(m_["loss"]) for m_ in metrics]
+                moved = sum(not torch.equal(a, p_.detach())
+                            for a, p_ in zip(before, ssm.parameters()))
+                want = ([3, 3, 0, 0, 3 * psvo, 3 * psvo] if scan_fused
+                        else [0, 0, 3 * n, 3 * n, 0, 0])
+                print(f"[be] {card}: {label} ({mode}) 3 train steps: loss "
+                      f"{[round(v, 3) for v in losses]}, {moved} parameter tensors moved, "
+                      f"launches {dict(zip(STEP_CLASS_KERNELS, launches))} (want "
+                      f"{dict(zip(STEP_CLASS_KERNELS, want))}), plain versions {n_plain}, step "
+                      f"times {[round(1e3 * v, 1) for v in step_s]} ms (host clock, the first "
+                      f"with its warm-up), peak {peak:.3f} GB above what was held", flush=True)
+                if (launches != want or n_plain or not all(math.isfinite(v) for v in losses)
+                        or not moved):
+                    fail(f"(be) {label} ({mode}) training launched {launches} (want {want}), "
+                         f"plain versions {n_plain}, losses {losses}, moved {moved}")
+                fig[mode] = dict(serve=serve_launches, serve_ms=serve_ms,
+                                 train=launches, step_ms=[1e3 * v for v in step_s], peak=peak,
+                                 losses=losses)
+                del ssm, step
+            finally:
+                fused_step.SCAN_FUSED = True
+        # the kernels' times at the full shape against their plain versions and bounds
+        inp, r4 = fig.pop("inp"), fig["k4_check"]
+        stream = not (sc.kernel_rng and sc.resampling == "systematic")
+        noise = (dict(eps=inp["eps"], positions=inp["positions"]) if stream
+                 else dict(seed=(11, 0xBE)))
+        with torch.no_grad():
+            k1 = lambda: fused_step.scan_forward(inp["x0"], inp["alpha0"], inp["coef"],  # noqa
+                                                 inp["consts"], **noise)
+            k1_plain = lambda: fused_step.scan_forward_reference(  # noqa: E731
+                inp["x0"], inp["alpha0"], inp["coef"], inp["consts"], inp["eps"],
+                inp["positions"])
+            times = dict(k1=(pair_ms(k1), time_ms(k1_plain, reps=1, warmup=1)),
+                         k4=(pair_ms(r4["kernel"]), time_ms(r4["plain"], reps=1, warmup=1)))
+            bounds = dict(k1=k1_bound_of(inp, stream), k4=bound(r4["flops"], r4["n_bytes"]))
+            if "k14_k15" in fig:
+                rs, rb = fig.pop("k14_k15")
+                fwd_args = (inp["x0"], inp["alpha0"], inp["coef"][0], inp["consts"], inp["eps"][0],
+                            inp["positions"][0])
+                args, d_xn, d_al, got = rb["last"]
+                k14 = lambda: fused_step.step_forward(*fwd_args)  # noqa: E731
+                k14_plain = lambda: fused_step.step_forward_reference(*fwd_args)  # noqa: E731
+                k15 = lambda: fused_step.step_backward(*args, d_xn, d_al)  # noqa: E731
+                k15_plain = lambda: fused_step.step_backward_reference(  # noqa: E731
+                    args[0], args[4], args[5], args[6], args[2], args[7], d_xn, d_al)
+                times.update(k14=(pair_ms(k14), time_ms(k14_plain, reps=3, warmup=1)),
+                             k15=(pair_ms(k15), time_ms(k15_plain, reps=3, warmup=1)))
+                b14, b15 = step_bounds(inp["consts"], fwd_args[:3] + fwd_args[4:], k14(),
+                                       rb["last"])
+                bounds.update(k14=b14, k15=b15)
+        fig.pop("k1_check"), fig.pop("k4_check")
+        print(f"[be] {card}: {label} kernel times at B=32 ({PAIR_HOW}; the plain versions by "
+              f"CUDA events, median of 1-3 after a warm-up): "
+              + "; ".join(f"{kk.upper()} {t_[0]:.3f} ms vs plain {t_[1]:.3f} ms, bound "
+                          f"{bounds[kk][0]:.4f} ms ({bounds[kk][1]})" for kk, t_ in times.items()),
+              flush=True)
+        fig.update(times=times, bounds=bounds)
+        figures[label] = fig
+        torch.cuda.empty_cache()
+    phase_done("be: the whole-step class beyond the presets' shapes")
+    return figures
+
+
 def main() -> int:
     # (a) the card
     try:
@@ -4811,6 +5148,12 @@ def main() -> int:
           + ", ".join(f"{n}={r}" for n, r in regs)
           + f"; max spill stores {max((int(s) for _, s in spills), default=0)} B; spill stores "
           + (", ".join(f"{n}={s} B" for n, s in spills if int(s)) or "none"), flush=True)
+    # phase be's shapes outside the library's: built beside phases c-, at nice 19 (waiting for
+    # them here would add about 100 s to a run that takes 850-1080 s of its 1200)
+    class_shapes = step_class_shapes(pt)
+    build_shapes_beside(class_shapes)
+    print(f"[b] phase be's shape libraries {class_shapes}: building beside the next phases at "
+          f"nice 19", flush=True)
     phase_done("a, b: card and build")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -6513,6 +6856,7 @@ def main() -> int:
     tc_figs = trunk_class_phases(pt, dev, card)
     routes_figs = eager_routes_phases(pt, dev, card)
     shard_figs = sharded_phases(pt, dev, card)
+    class_figs = step_class_phases(pt, dev, card)
 
 
     # K3: the CDF scan and a binary search per particle; logw and u0 in, int32 indices out.
@@ -6767,6 +7111,25 @@ def main() -> int:
                         "plain_ms": sk["times"][i][1], "bound_ms": sk["bounds"][i][0],
                         "bound_by": sk["bounds"][i][1], "library_ms": sk["times"][i][2],
                         "launches_sharded": launches_sharded(kk)})
+    # K1, K4, K14 and K15 at phase be's shapes beyond the presets' (STEP_CLASS, B=32, T=100):
+    # launches from its 3 train steps (K14/K15 with SCAN_FUSED off), times, plain times and
+    # bounds at the full shape, max_abs_err the largest of the small and full checks
+    # (K1/K14 teacher-forced)
+    for label, fig in class_figs.items():
+        rows = [("scan_forward", "k1", "scan_forward.cuh", "1327", "whole scan", 0),
+                ("scan_backward", "k4", "scan_backward.cu", "1425", "whole scan", 1)]
+        if "k14" in fig["times"]:
+            rows += [("step_forward", "k14", "scan_forward.cuh", "954", "SCAN_FUSED off", 2),
+                     ("step_backward", "k15", "scan_backward.cu", "1013", "SCAN_FUSED off", 3)]
+        for kernel, kk, src, line, mode, j in rows:
+            kernels.append({
+                "name": f"{kernel} ({label})", "route": "cuda",
+                "source": f"psvo_tpu_torch/csrc/{src}", "replaces": f"psvo_tpu/ops/pallas_step.py:{line}",
+                "launches": fig[mode]["train"][j], "on_path": True,
+                "max_abs_err": max(fig["small"][kk], fig["full"][kk]),
+                "ms": fig["times"][kk][0], "plain_ms": fig["times"][kk][1],
+                "bound_ms": fig["bounds"][kk][0], "bound_by": fig["bounds"][kk][1],
+                "library_ms": None, "shape_library": fig["keys"][j % 2]})
     print(f"[profiler] {PROFILE_WINDOWS['windows']} profiler windows, "
           f"{PROFILE_WINDOWS['empty']} of them with no device events (run again); of the timing "
           f"windows, {PROFILE_WINDOWS['partial']} recorded part of a kernel's events (timed by "

@@ -61,21 +61,22 @@ __device__ __forceinline__ float block_max_of(const float* lw, int K, float* red
 }
 
 // Inclusive fp64 CDF of w_j = exp(lw_j - m) into cdf[0..K). Thread tid owns
-// the contiguous chunk [tid*per, tid*per + per), per = K / kThreads (one
-// element for tid < K when K <= kThreads; K is a multiple of kThreads
-// otherwise). Also returns the fp32 sums s1 = Σw, s2 = Σw² of the ESS.
-// Returns the total C_{K-1}. Ends on a barrier: cdf is readable by all.
+// the contiguous chunk [tid*per, min(tid*per + per, K)), per = ceil(K /
+// kThreads) (one element for tid < K when K <= kThreads). Also returns the
+// fp32 sums s1 = Σw, s2 = Σw² of the ESS. Returns the total C_{K-1}. Ends
+// on a barrier: cdf is readable by all.
 __device__ __forceinline__ double block_cdf(const float* lw, int K, float m, double* cdf,
                                             double* dred, float* red, float* s1,
                                             float* s2) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int per = K >= kThreads ? K / kThreads : 1;
+  const int per = (K + kThreads - 1) / kThreads;
   const int base = tid * per;
   const bool active = base < K;
+  const int cnt = active ? min(per, K - base) : 0;
   double run = 0.0;
   float p1 = 0.0f, p2 = 0.0f;
   if (active) {
-    for (int j = 0; j < per; ++j) {
+    for (int j = 0; j < cnt; ++j) {
       const float w = expf(lw[base + j] - m);
       p1 += w;
       p2 += w * w;
@@ -96,7 +97,7 @@ __device__ __forceinline__ double block_cdf(const float* lw, int K, float m, dou
   __syncthreads();
   for (int w = 0; w < warp; ++w) excl += dred[w];
   if (active) {
-    for (int j = 0; j < per; ++j) cdf[base + j] += excl;
+    for (int j = 0; j < cnt; ++j) cdf[base + j] += excl;
   }
   *s1 = block_reduce<false>(p1, red);  // its barriers publish cdf
   *s2 = block_reduce<false>(p2, red);

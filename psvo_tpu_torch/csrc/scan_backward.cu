@@ -65,6 +65,19 @@
 // cluster barrier per step. Tensor cores (TF32/bf16 change the numerics)
 // are later work.
 //
+// The class (fused_step.usable): any Dx, Dy <= 7, hidden widths 8..64 in
+// steps of 8, 1 to 4 hidden layers (NMID, a template parameter: each net's
+// NMID + 1 layers recompute into and backpropagate through NMID + 1 tiles).
+// Where the weights, their gradient sums and 2·(NMID + 1) tiles exceed the
+// 227 KB a CTA may use (three layers of 48-64, or wide states at K = 2048),
+// a plan (step_math.cuh::BwdPlan, chosen by fused_step.k4_plan) moves them
+// out one at a time: the gradient sums to the CTA's row of `partial` in
+// device memory, whose owning thread adds into it as into shared memory
+// (kBwdGlobal); then one net's tiles at a time, g recomputed for its
+// backward after f's (kBwdSplit, one more forward of g a tile); then the
+// weights, read through L1 (kBwdStream). The adds, their order and their
+// owners do not change, so every plan gives the same bits.
+//
 // Controls (ctrl = 1, data.di > 0; scan_forward.cuh says how K1 takes them):
 // each step copies b1 + c of q1 and f into shared memory (cb) for the
 // recompute of their first layers, so the recompute has K1's bits, and the
@@ -127,12 +140,15 @@ struct BwdArgs {
   int cluster;               // C: CTAs per row, K/C a multiple of kP when C > 1
 };
 
-// Offsets inside one net's segment of the packed buffer (one middle layer):
-// W1 [DIN, H], b1 [H], W2 [H, H], b2 [H], W3 [H, DOUT], b3 [DOUT].
-template <int DIN, int H, int DOUT>
+// Offsets inside one net's segment of the packed buffer: W1 [DIN, H], b1
+// [H], then per middle layer j = 1..NMID Wj [H, H], bj [H], then W3 [H, DOUT],
+// b3 [DOUT].
+template <int DIN, int H, int DOUT, int NMID>
 struct Net {
-  static constexpr int W1 = 0, B1 = DIN * H, W2 = B1 + H, B2 = W2 + H * H, W3 = B2 + H,
+  static constexpr int W1 = 0, B1 = DIN * H, W3 = B1 + H + NMID * (H * H + H),
                        B3 = W3 + H * DOUT;
+  __host__ __device__ static constexpr int W(int j) { return B1 + H + (j - 1) * (H * H + H); }
+  __host__ __device__ static constexpr int B(int j) { return W(j) + H * H; }
 };
 
 __device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
@@ -201,11 +217,10 @@ __device__ __forceinline__ void dense_out_tile(const float* __restrict__ w3,
 }
 
 // Backward stage 1: dW3[o][d] += Σ_p h2[o][p]·dm[d][p], db3[d] += Σ_p dm[d][p].
-// g points at the net's gradient segment; one owning thread per entry.
-template <int DIN, int H, int DOUT>
+// g3 points at the net's dW3 (db3 follows); one owning thread per entry.
+template <int H, int DOUT>
 __device__ __forceinline__ void bwd_head_grads(const float* __restrict__ h2,
-                                               const float* __restrict__ dm, float* g) {
-  using N = Net<DIN, H, DOUT>;
+                                               const float* __restrict__ dm, float* g3) {
   for (int e = threadIdx.x; e < H * DOUT + DOUT; e += kThreads) {
     const bool is_w = e < H * DOUT;
     const float* dr = dm + (is_w ? e % DOUT : e - H * DOUT) * kPS;
@@ -218,7 +233,7 @@ __device__ __forceinline__ void bwd_head_grads(const float* __restrict__ h2,
 #pragma unroll
       for (int c = 0; c < 4; ++c) s = is_w ? fmaf(hv[c], dv[c], s) : s + dv[c];
     }
-    g[N::W3 + e] += s;  // b3 follows W3 in the segment
+    g3[e] += s;  // b3 follows W3 in the segment
   }
 }
 
@@ -244,13 +259,15 @@ __device__ __forceinline__ void bwd_pre2(const float* __restrict__ w3,
   }
 }
 
-// Backward stage 3: dW2[i][o] += Σ_p h1[i][p]·dpre2[o][p], db2[o] += Σ_p dpre2[o][p].
-// A thread owns rows i0 + S·a and columns o0 + S·c (S = H/4): neighbouring
-// lanes read neighbouring rows, which the padded stride puts on other banks.
-template <int DIN, int H, int DOUT>
+// Backward stage 3, for a middle layer (W2, b2) between h1 and h2:
+// dW2[i][o] += Σ_p h1[i][p]·dpre2[o][p] into gw, db2[o] += Σ_p dpre2[o][p]
+// into gb. A thread owns rows i0 + S·a and columns o0 + S·c (S = H/4):
+// neighbouring lanes read neighbouring rows, which the padded stride puts
+// on other banks.
+template <int H>
 __device__ __forceinline__ void bwd_mid_grads(const float* __restrict__ h1,
-                                              const float* __restrict__ dpre2, float* g) {
-  using N = Net<DIN, H, DOUT>;
+                                              const float* __restrict__ dpre2, float* gw,
+                                              float* gb) {
   constexpr int S = H / 4;
   for (int blk = threadIdx.x; blk < S * S; blk += kThreads) {
     const int i0 = blk / S, o0 = blk % S;
@@ -278,7 +295,7 @@ __device__ __forceinline__ void bwd_mid_grads(const float* __restrict__ h1,
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) g[N::W2 + (i0 + S * a) * H + o0 + S * c] += acc[a][c];
+      for (int c = 0; c < 4; ++c) gw[(i0 + S * a) * H + o0 + S * c] += acc[a][c];
     }
   }
   for (int o = threadIdx.x; o < H; o += kThreads) {
@@ -289,7 +306,7 @@ __device__ __forceinline__ void bwd_mid_grads(const float* __restrict__ h1,
 #pragma unroll
       for (int c = 0; c < 4; ++c) s += dv[c];
     }
-    g[N::B2 + o] += s;
+    gb[o] += s;
   }
 }
 
@@ -334,12 +351,11 @@ __device__ __forceinline__ void bwd_pre1(const float* __restrict__ w2,
 // Backward stage 5: dW1[d][i] += Σ_p x[d][p]·dpre1[i][p], db1[i] += Σ_p dpre1[i][p],
 // and the input cotangent dx[d][p] (= or +=) Σ_i W1[d][i]·dpre1[i][p]. With
 // csum (controls), the owner of db1[i] also adds the tile's sum to csum[i].
-template <int DIN, int H, int DOUT, bool kAdd>
+template <int DIN, int H, bool kAdd>
 __device__ __forceinline__ void bwd_input(const float* __restrict__ w1,
                                           const float* __restrict__ x,
                                           const float* __restrict__ dpre1, float* g,
                                           float* __restrict__ dx, double* csum = nullptr) {
-  using N = Net<DIN, H, DOUT>;
   constexpr int NG = DIN * H + H;  // W1 then b1 in the segment
   for (int e = threadIdx.x; e < NG + DIN * kP; e += kThreads) {
     if (e < NG) {
@@ -354,7 +370,7 @@ __device__ __forceinline__ void bwd_input(const float* __restrict__ w1,
 #pragma unroll
         for (int c = 0; c < 4; ++c) s = is_w ? fmaf(xv[c], dv[c], s) : s + dv[c];
       }
-      g[N::W1 + e] += s;
+      g[e] += s;
       if (!is_w && csum != nullptr) csum[e - DIN * H] += static_cast<double>(s);
     } else {
       const int f = e - NG, d = f / kP, p = f % kP;
@@ -389,17 +405,31 @@ struct Slice {
 template <int DX>
 constexpr int kCoefSums = 3 * DX + 1;
 
-// A CTA's shared memory in K4 and K15: the weights and their gradient sums,
-// four [H][kPS] activation tiles, the [D][kPS] tile arrays, K4's carry of the
-// slice, d x_res of the slice (twice at C > 1, by t's parity), with controls
-// the step's first-layer biases of q1 and f and their cotangent sums (twice,
-// by t's parity), the slice's d_coef sums (C > 1, by t's parity), the
-// reduction scratch and the int32 ancestors of the whole row [K]. K15 keeps
-// neither d x_res nor the ancestors here (n = K = 0): its shared memory does
-// not depend on K.
+// Where plan BWD (step_math.cuh) keeps a CTA's weights, gradient sums and
+// activation tiles: kTiles [H][kPS] tiles, f's NMID + 1 layers then g's
+// (then q1's), or under a split plan one net's layers at a time.
+template <int H, int NMID, int BWD>
+struct BwdLayout {
+  static constexpr bool kSplit = BWD == kBwdSplit || BWD == kBwdStream;
+  static constexpr bool kWtsSmem = BWD != kBwdStream;  // else the weights stay in device memory
+  static constexpr bool kGradSmem = BWD == kBwdSmem;   // else the CTA's row of `partial`
+  static constexpr int kTiles = (kSplit ? 1 : 2) * (NMID + 1);
+  static constexpr int kTileFloats = kTiles * H * kPS;
+};
+
+// A CTA's shared memory in K4 and K15: the weights and their gradient sums
+// (as the plan keeps them), the activation tiles, the [D][kPS] tile arrays,
+// K4's carry of the slice, d x_res of the slice (twice at C > 1, by t's
+// parity), with controls the step's first-layer biases of q1 and f and their
+// cotangent sums (twice, by t's parity), the slice's d_coef sums (C > 1, by
+// t's parity), the reduction scratch and the int32 ancestors of the whole
+// row [K]. K15 keeps neither d x_res nor the ancestors here (n = K = 0): its
+// shared memory does not depend on K, but where the row's K ancestors do not
+// fit its idle tiles, where its last CTA stages them (K > kTileFloats), it
+// carves them as K4 does.
 struct BwdSmem {
-  float *wts, *gacc;               // [n_weights] each
-  float *f1, *f2, *g1, *g2;        // [H][kPS]: f's buffers, then g's (then q1's)
+  float *wts, *gacc;               // [n_weights] each: shared or device memory
+  float* act;                      // [kTiles][H][kPS]: f's layers, then g's (then q1's)
   float *xr, *xn, *ep;             // [DX][kPS]: x_res, x_new, ε
   float *mf, *mg, *mq;             // trunk means
   float *dmf, *dmg, *dmq;          // cotangents of the trunk means
@@ -413,17 +443,21 @@ struct BwdSmem {
   int* idx_s;                      // [K]
 };
 
-template <int DX, int DY, int H>
-__device__ __forceinline__ BwdSmem carve_bwd(unsigned char* smem, int n_weights, int K, int n,
+// weights: the packed weights in device memory, partial: the CTA's row of
+// the partial gradients; the plan reads them where they stay.
+template <int DX, int DY, int H, int NMID, int BWD>
+__device__ __forceinline__ BwdSmem carve_bwd(unsigned char* smem, const float* weights,
+                                             float* partial, int n_weights, int K, int n,
                                              bool carry, int C, bool ctrl) {
+  using L = BwdLayout<H, NMID, BWD>;
   BwdSmem s;
-  s.wts = reinterpret_cast<float*>(smem);
-  s.gacc = s.wts + n_weights;
-  s.f1 = s.gacc + n_weights;
-  s.f2 = s.f1 + H * kPS;
-  s.g1 = s.f2 + H * kPS;
-  s.g2 = s.g1 + H * kPS;
-  s.xr = s.g2 + H * kPS;
+  float* p = reinterpret_cast<float*>(smem);
+  s.wts = L::kWtsSmem ? p : const_cast<float*>(weights);
+  p += L::kWtsSmem ? n_weights : 0;
+  s.gacc = L::kGradSmem ? p : partial;
+  p += L::kGradSmem ? n_weights : 0;
+  s.act = p;
+  s.xr = s.act + L::kTileFloats;
   s.xn = s.xr + DX * kPS;
   s.ep = s.xn + DX * kPS;
   s.mf = s.ep + DX * kPS;
@@ -437,19 +471,82 @@ __device__ __forceinline__ BwdSmem carve_bwd(unsigned char* smem, int n_weights,
   s.carry = s.dxr + DX * kPS;
   s.dxres = s.carry + (carry ? DX * n : 0);
   s.cb = s.dxres + (C > 1 ? 2 : 1) * DX * n;  // 16-byte aligned, as every extent before it
-  s.csum = reinterpret_cast<double*>(s.cb + (ctrl ? 2 * H : 0));  // 8-byte aligned: H % 16 == 0
+  s.csum = reinterpret_cast<double*>(s.cb + (ctrl ? 2 * H : 0));  // 8-byte aligned: H % 4 == 0
   s.part = reinterpret_cast<float*>(s.csum + (ctrl ? 4 * H : 0));
   s.red = s.part + (C > 1 ? 2 * kCoefSums<DX> : 0);
   s.idx_s = reinterpret_cast<int*>(s.red + kWarps);
   return s;
 }
 
-template <int DX, int DY, int H>
+template <int DX, int DY, int H, int NMID, int BWD>
 size_t bwd_smem_bytes(int n_weights, int K, int n, bool carry, int C, bool ctrl) {
-  return sizeof(float) * (2 * n_weights + 4 * H * kPS + (9 * DX + 2 * DY) * kPS +
-                          (carry ? DX * n : 0) + (C > 1 ? 2 : 1) * DX * n + (ctrl ? 2 * H : 0) +
+  using L = BwdLayout<H, NMID, BWD>;
+  return sizeof(float) * ((L::kWtsSmem ? n_weights : 0) + (L::kGradSmem ? n_weights : 0) +
+                          L::kTileFloats + (9 * DX + 2 * DY) * kPS + (carry ? DX * n : 0) +
+                          (C > 1 ? 2 : 1) * DX * n + (ctrl ? 2 * H : 0) +
                           (C > 1 ? 2 * kCoefSums<DX> : 0) + kWarps) +
          sizeof(double) * (ctrl ? 4 * H : 0) + sizeof(int) * K;
+}
+
+// The forward recompute of net a (with TWO also net b, stage by stage beside
+// it) over the tile: its NMID + 1 hidden layers into its tiles t[j] = t +
+// j·H·kPS from input x [DIN][kPS] (first-layer bias b1), then its mean head
+// into m; K1's fmaf order. Ends on a barrier.
+template <int DIN, int H, int NMID, int DA, int DB, bool TWO>
+__device__ __forceinline__ void forward_tiles(const float* wa, const float* ba, const float* xa,
+                                              float* ta, float* ma, const float* wb,
+                                              const float* bb, const float* xb, float* tb,
+                                              float* mb) {
+  using NA = Net<DIN, H, DA, NMID>;
+  using NB = Net<DIN, H, DB, NMID>;
+  constexpr int T = H * kPS;
+  dense_relu_tile<DIN, H>(wa + NA::W1, ba, xa, ta);
+  if constexpr (TWO) dense_relu_tile<DIN, H>(wb + NB::W1, bb, xb, tb);
+  __syncthreads();
+#pragma unroll
+  for (int j = 1; j <= NMID; ++j) {
+    dense_relu_tile<H, H>(wa + NA::W(j), wa + NA::B(j), ta + (j - 1) * T, ta + j * T);
+    if constexpr (TWO)
+      dense_relu_tile<H, H>(wb + NB::W(j), wb + NB::B(j), tb + (j - 1) * T, tb + j * T);
+    __syncthreads();
+  }
+  dense_out_tile<H, DA>(wa + NA::W3, wa + NA::B3, ta + NMID * T, ma);
+  if constexpr (TWO) dense_out_tile<H, DB>(wb + NB::W3, wb + NB::B3, tb + NMID * T, mb);
+  __syncthreads();
+}
+
+// The backward of net a (with TWO also net b, beside it) over the tile from
+// its mean's cotangent dm [DOUT][kPS], on the tiles forward_tiles left: the
+// gradient sums into its segment g, the pre-activation cotangents in place
+// in its tiles, and the input cotangent into dx (=, or += with ADD); with
+// cs (controls), the first layer's bias cotangent sums. Ends on a barrier.
+template <int DIN, int H, int NMID, int DA, int DB, bool TWO, bool ADD_A, bool ADD_B>
+__device__ __forceinline__ void backward_net_tiles(const float* wa, float* ga, const float* xa,
+                                                   float* ta, const float* dma, float* dxa,
+                                                   double* csa, const float* wb, float* gb,
+                                                   const float* xb, float* tb, const float* dmb,
+                                                   float* dxb, double* csb) {
+  using NA = Net<DIN, H, DA, NMID>;
+  using NB = Net<DIN, H, DB, NMID>;
+  constexpr int T = H * kPS;
+  bwd_head_grads<H, DA>(ta + NMID * T, dma, ga + NA::W3);
+  if constexpr (TWO) bwd_head_grads<H, DB>(tb + NMID * T, dmb, gb + NB::W3);
+  __syncthreads();
+  bwd_pre2<H, DA>(wa + NA::W3, dma, ta + NMID * T);
+  if constexpr (TWO) bwd_pre2<H, DB>(wb + NB::W3, dmb, tb + NMID * T);
+  __syncthreads();
+#pragma unroll
+  for (int j = NMID; j >= 1; --j) {
+    bwd_mid_grads<H>(ta + (j - 1) * T, ta + j * T, ga + NA::W(j), ga + NA::B(j));
+    if constexpr (TWO) bwd_mid_grads<H>(tb + (j - 1) * T, tb + j * T, gb + NB::W(j), gb + NB::B(j));
+    __syncthreads();
+    bwd_pre1<H>(wa + NA::W(j), ta + j * T, ta + (j - 1) * T);
+    if constexpr (TWO) bwd_pre1<H>(wb + NB::W(j), tb + j * T, tb + (j - 1) * T);
+    __syncthreads();
+  }
+  bwd_input<DIN, H, ADD_A>(wa + NA::W1, xa, ta, ga + NA::W1, dxa, csa);
+  if constexpr (TWO) bwd_input<DIN, H, ADD_B>(wb + NB::W1, xb, tb, gb + NB::W1, dxb, csb);
+  __syncthreads();
 }
 
 // With controls, before a step's tiles: cb = b1 + c of q1 and f, the same
@@ -504,8 +601,10 @@ __device__ __forceinline__ void write_coef_row(float* dc, const float (&sums)[kC
 // once per t on each CTA of a row's cluster, K15 once per launch on each
 // slice of the row. With controls (csum not null) q1's and f's first layers
 // read their biases from s.cb and their pre-activation cotangents are summed
-// into csum [2H] (load_control_bias set both up). Ends on a barrier.
-template <int DX, int DY, int H>
+// into csum [2H] (load_control_bias set both up). Under a split plan g is
+// recomputed on x_new before f, and again for its backward after f's (its
+// tiles are f's): the same values, one more forward of g. Ends on a barrier.
+template <int DX, int DY, int H, int NMID, int BWD>
 __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s, const int* idx,
                                                int lo, int hi, float* dxres, int ld, int K,
                                                int off_f, int off_g, const float (&sfi)[DX],
@@ -513,8 +612,9 @@ __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s
                                                double (&dsg)[DY], bool use_rng, uint32_t seed0,
                                                uint32_t seed1, int b, int t,
                                                float (&sums)[kCoefSums<DX>], double* csum) {
-  using NQ = Net<DX, H, DX>;  // q1 and f
-  using NG = Net<DX, H, DY>;  // g
+  using NQ = Net<DX, H, DX, NMID>;  // q1 and f
+  using NG = Net<DX, H, DY, NMID>;  // g
+  constexpr bool kSplit = BwdLayout<H, NMID, BWD>::kSplit;
   const int tid = threadIdx.x;
   const float* wq = s.wts;
   const float* wf = s.wts + off_f;
@@ -524,7 +624,9 @@ __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s
   float* gg = s.gacc + off_g;
   const float log_k = logf(static_cast<float>(K));
   const int p = tid;  // this thread's particle slot in a tile (tid < kP)
-  float *f1 = s.f1, *f2 = s.f2, *g1 = s.g1, *g2 = s.g2, *xr = s.xr, *xn = s.xn, *ep = s.ep;
+  float* tf = s.act;                                           // f's tiles
+  float* tg = s.act + (kSplit ? 0 : (NMID + 1) * H * kPS);  // g's, then q1's
+  float *xr = s.xr, *xn = s.xn, *ep = s.ep;
   float *mf = s.mf, *mg = s.mg, *mq = s.mq, *dmf = s.dmf, *dmg = s.dmg, *dmq = s.dmq;
   float *dxn = s.dxn, *dxr = s.dxr;
   const bool ctrl = csum != nullptr;
@@ -561,15 +663,14 @@ __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s
     }
     __syncthreads();
     // 2. recompute f on x_res and g on x_new
-    dense_relu_tile<DX, H>(wf + NQ::W1, bf, xr, f1);
-    dense_relu_tile<DX, H>(wg + NG::W1, wg + NG::B1, xn, g1);
-    __syncthreads();
-    dense_relu_tile<H, H>(wf + NQ::W2, wf + NQ::B2, f1, f2);
-    dense_relu_tile<H, H>(wg + NG::W2, wg + NG::B2, g1, g2);
-    __syncthreads();
-    dense_out_tile<H, DX>(wf + NQ::W3, wf + NQ::B3, f2, mf);
-    dense_out_tile<H, DY>(wg + NG::W3, wg + NG::B3, g2, mg);
-    __syncthreads();
+    if constexpr (kSplit) {
+      forward_tiles<DX, H, NMID, DY, DY, false>(wg, wg + NG::B1, xn, tg, mg, nullptr, nullptr,
+                                                nullptr, nullptr, nullptr);
+      forward_tiles<DX, H, NMID, DX, DX, false>(wf, bf, xr, tf, mf, nullptr, nullptr, nullptr,
+                                                nullptr, nullptr);
+    } else {
+      forward_tiles<DX, H, NMID, DX, DY, true>(wf, bf, xr, tf, mf, wg, wg + NG::B1, xn, tg, mg);
+    }
     // 3. α, its cotangent, and the cotangents of m_f, m_g and x_new
     if (p < kP) {
       float xv[DX], mfv[DX], ev[DX], mgv[DY], da = 0.0f;
@@ -614,28 +715,22 @@ __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s
     }
     __syncthreads();
     // 4. backprop g (adds d x_new) and f (writes d x_res)
-    bwd_head_grads<DX, H, DX>(f2, dmf, gf);
-    bwd_head_grads<DX, H, DY>(g2, dmg, gg);
-    __syncthreads();
-    bwd_pre2<H, DX>(wf + NQ::W3, dmf, f2);
-    bwd_pre2<H, DY>(wg + NG::W3, dmg, g2);
-    __syncthreads();
-    bwd_mid_grads<DX, H, DX>(f1, f2, gf);
-    bwd_mid_grads<DX, H, DY>(g1, g2, gg);
-    __syncthreads();
-    bwd_pre1<H>(wf + NQ::W2, f2, f1);
-    bwd_pre1<H>(wg + NG::W2, g2, g1);
-    __syncthreads();
-    bwd_input<DX, H, DX, false>(wf + NQ::W1, xr, f1, gf, dxr, csum_f);
-    bwd_input<DX, H, DY, true>(wg + NG::W1, xn, g1, gg, dxn);
-    __syncthreads();
-    // 5. recompute q1 on x_res, in g's buffers
-    dense_relu_tile<DX, H>(wq + NQ::W1, bq, xr, g1);
-    __syncthreads();
-    dense_relu_tile<H, H>(wq + NQ::W2, wq + NQ::B2, g1, g2);
-    __syncthreads();
-    dense_out_tile<H, DX>(wq + NQ::W3, wq + NQ::B3, g2, mq);
-    __syncthreads();
+    if constexpr (kSplit) {
+      backward_net_tiles<DX, H, NMID, DX, DX, false, false, false>(
+          wf, gf, xr, tf, dmf, dxr, csum_f, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+          nullptr);
+      forward_tiles<DX, H, NMID, DY, DY, false>(wg, wg + NG::B1, xn, tg, mg, nullptr, nullptr,
+                                                nullptr, nullptr, nullptr);
+      backward_net_tiles<DX, H, NMID, DY, DY, false, true, false>(
+          wg, gg, xn, tg, dmg, dxn, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+          nullptr);
+    } else {
+      backward_net_tiles<DX, H, NMID, DX, DY, true, false, true>(
+          wf, gf, xr, tf, dmf, dxr, csum_f, wg, gg, xn, tg, dmg, dxn, nullptr);
+    }
+    // 5. recompute q1 on x_res, in g's tiles
+    forward_tiles<DX, H, NMID, DX, DX, false>(wq, bq, xr, tg, mq, nullptr, nullptr, nullptr,
+                                              nullptr, nullptr);
     // 6. the draw x_new = cq·m1 + aq + sq·ε: d m1 and the per-step sums
     if (p < kP) {
 #pragma unroll
@@ -651,16 +746,9 @@ __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s
     }
     __syncthreads();
     // 7. backprop q1 (adds to d x_res)
-    bwd_head_grads<DX, H, DX>(g2, dmq, gq);
-    __syncthreads();
-    bwd_pre2<H, DX>(wq + NQ::W3, dmq, g2);
-    __syncthreads();
-    bwd_mid_grads<DX, H, DX>(g1, g2, gq);
-    __syncthreads();
-    bwd_pre1<H>(wq + NQ::W2, g2, g1);
-    __syncthreads();
-    bwd_input<DX, H, DX, true>(wq + NQ::W1, xr, g1, gq, dxr, csum);
-    __syncthreads();
+    backward_net_tiles<DX, H, NMID, DX, DX, false, true, false>(
+        wq, gq, xr, tg, dmq, dxr, csum, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+        nullptr);
     if (mine) {
 #pragma unroll
       for (int d = 0; d < DX; ++d) dxres[d * ld + i - lo] = dxr[d * kPS + p];
@@ -682,7 +770,7 @@ __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s
 // scatter (10.): d x_prev of the slice into the carry and (rank 0) the
 // d_coef row. Runs once per t on each CTA of a row's cluster. Ends on a
 // barrier.
-template <int DX, int DY, int H>
+template <int DX, int DY, int H, int NMID, int BWD>
 __device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s, const Slice& sl,
                                               int K, int off_f, int off_g,
                                               const float (&sfi)[DX], const float (&sgi)[DY],
@@ -699,8 +787,9 @@ __device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s,
   double* csum = ctrl ? s.csum + (t & 1) * 2 * H : nullptr;
   if (ctrl) load_control_bias<DX, DY, H>(s, r.coef, off_f, csum);
   float sums[kCoefSums<DX>];
-  backward_tiles<DX, DY, H>(r, s, s.idx_s, sl.lo, hi, dxres, sl.n, K, off_f, off_g, sfi, sgi, dsf,
-                            dsg, use_rng, seed0, seed1, b, t, sums, csum);
+  backward_tiles<DX, DY, H, NMID, BWD>(r, s, s.idx_s, sl.lo, hi, dxres, sl.n, K, off_f, off_g,
+                                       sfi, sgi, dsf, dsg, use_rng, seed0, seed1, b, t, sums,
+                                       csum);
   // a cluster's CTAs leave their sums for rank 0, which writes the row
   float* part = s.part + (t & 1) * kCoefSums<DX>;
   if (tid == 0 && sl.C > 1) {
@@ -750,14 +839,15 @@ __device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s,
   __syncthreads();  // the scatter's writes before the next step reads them
 }
 
-// Load the weights, zero their gradient sums and read sconst.
-template <int DX, int DY>
+// Load the weights (where the plan keeps them in shared memory), zero their
+// gradient sums and read sconst.
+template <int DX, int DY, bool kWtsSmem>
 __device__ __forceinline__ void bwd_prologue(const BwdSmem& s, const float* weights,
                                              const float* sconst, int n_weights,
                                              float (&sfi)[DX], float (&sgi)[DY],
                                              double (&dsf)[DX], double (&dsg)[DY]) {
   for (int i = threadIdx.x; i < n_weights; i += kThreads) {
-    s.wts[i] = weights[i];
+    if (kWtsSmem) s.wts[i] = weights[i];
     s.gacc[i] = 0.0f;
   }
 #pragma unroll
@@ -790,14 +880,17 @@ __device__ __forceinline__ double block_sum_d(double v, double* dred) {
 // sums cancel over B·K·T terms, so they are kept in fp64 (the tile arrays,
 // idle after the last step, hold the reduction scratch): float32 sums in
 // another order differed by 3.5e-6–6.5e-6 relative between C = 1 and C > 1
-// at the FHN shape (PERF.md §6).
-template <int DX, int DY>
+// at the FHN shape (PERF.md §6). Where the plan keeps the gradient sums in
+// `part` itself, they are there already.
+template <int DX, int DY, bool kGradSmem>
 __device__ __forceinline__ void write_partial(const BwdSmem& s, int n_weights,
                                               const double (&dsf)[DX], const double (&dsg)[DY],
                                               float* part) {
   const int tid = threadIdx.x;
   double* dred = reinterpret_cast<double*>(s.xr);  // [DX][kPS] floats: room for kWarps
-  for (int i = tid; i < n_weights; i += kThreads) part[i] = s.gacc[i];
+  if (kGradSmem) {
+    for (int i = tid; i < n_weights; i += kThreads) part[i] = s.gacc[i];
+  }
 #pragma unroll
   for (int d = 0; d < DX; ++d) {
     const double v = block_sum_d(dsf[d], dred);
@@ -810,17 +903,20 @@ __device__ __forceinline__ void write_partial(const BwdSmem& s, int n_weights,
   }
 }
 
-template <int DX, int DY, int H>
+template <int DX, int DY, int H, int NMID, int BWD>
 __global__ void __launch_bounds__(kThreads, 1) scan_backward_kernel(const BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
+  using L = BwdLayout<H, NMID, BWD>;
   const int C = a.cluster, rank = static_cast<int>(cg::this_cluster().block_rank());
   const int K = a.K, B = a.B, b = blockIdx.x / C, tid = threadIdx.x;
   const Slice sl{rank * (K / C), K / C, rank, C};
   const bool ctrl = a.ctrl != 0;
-  const BwdSmem s = carve_bwd<DX, DY, H>(smem, a.n_weights, K, sl.n, true, C, ctrl);
+  float* part = a.partial + ((size_t)b * C + rank) * (a.n_weights + DX + DY);
+  const BwdSmem s = carve_bwd<DX, DY, H, NMID, BWD>(smem, a.weights, part, a.n_weights, K, sl.n,
+                                                    true, C, ctrl);
   float sfi[DX], sgi[DY];
   double dsf[DX], dsg[DY];
-  bwd_prologue<DX, DY>(s, a.weights, a.sconst, a.n_weights, sfi, sgi, dsf, dsg);
+  bwd_prologue<DX, DY, L::kWtsSmem>(s, a.weights, a.sconst, a.n_weights, sfi, sgi, dsf, dsg);
   for (int e = tid; e < DX * sl.n; e += kThreads) {  // the carry of the slice, [DX][n]
     const int d = e / sl.n, i = sl.lo + e % sl.n;
     s.carry[e] = a.d_x_last != nullptr ? a.d_x_last[((size_t)b * DX + d) * K + i] : 0.0f;
@@ -845,16 +941,15 @@ __global__ void __launch_bounds__(kThreads, 1) scan_backward_kernel(const BwdArg
         a.d_coef + row * NC,
         sl.n,
         sl.lo};
-    backward_step<DX, DY, H>(r, s, sl, K, a.off_f, a.off_g, sfi, sgi, dsf, dsg, a.use_rng,
-                             a.seed0, a.seed1, b, t, ctrl);
+    backward_step<DX, DY, H, NMID, BWD>(r, s, sl, K, a.off_f, a.off_g, sfi, sgi, dsf, dsg,
+                                        a.use_rng, a.seed0, a.seed1, b, t, ctrl);
   }
 
   for (int e = tid; e < DX * sl.n; e += kThreads) {
     const int d = e / sl.n, i = sl.lo + e % sl.n;
     a.d_x0[((size_t)b * DX + d) * K + i] = s.carry[e];
   }
-  write_partial<DX, DY>(s, a.n_weights, dsf, dsg,
-                        a.partial + ((size_t)b * C + rank) * (a.n_weights + DX + DY));
+  write_partial<DX, DY, L::kGradSmem>(s, a.n_weights, dsf, dsg, part);
   if (C > 1) cg::this_cluster().sync();  // no CTA leaves while another reads its d x_res
 }
 
@@ -933,16 +1028,20 @@ struct StepBwdArgs {
   int slices;            // S: CTAs per row, K % S == 0
 };
 
-template <int DX, int DY, int H>
+template <int DX, int DY, int H, int NMID, int BWD>
 __global__ void __launch_bounds__(kThreads, 1) step_backward_kernel(const StepBwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
+  using L = BwdLayout<H, NMID, BWD>;
   const int S = a.slices, K = a.K, b = blockIdx.x / S, tid = threadIdx.x;
   const int n = K / S, lo = (blockIdx.x % S) * n;  // this CTA's particles [lo, lo + n)
   const bool ctrl = a.ctrl != 0;
-  const BwdSmem s = carve_bwd<DX, DY, H>(smem, a.n_weights, 0, 0, false, 1, ctrl);
+  const bool own_idx = K > L::kTileFloats;  // the ancestors need shared memory of their own
+  float* part = a.partial + (size_t)blockIdx.x * (a.n_weights + DX + DY);
+  const BwdSmem s = carve_bwd<DX, DY, H, NMID, BWD>(smem, a.weights, part, a.n_weights,
+                                                    own_idx ? K : 0, 0, false, 1, ctrl);
   float sfi[DX], sgi[DY];
   double dsf[DX], dsg[DY];
-  bwd_prologue<DX, DY>(s, a.weights, a.sconst, a.n_weights, sfi, sgi, dsf, dsg);
+  bwd_prologue<DX, DY, L::kWtsSmem>(s, a.weights, a.sconst, a.n_weights, sfi, sgi, dsf, dsg);
   const int NC = 3 * DX + DY + 1 + (ctrl ? 2 * H : 0);
   const int CS = kCoefSums<DX> + (ctrl ? 2 * H : 0);  // a slice's d_coef sums
   const size_t bx = (size_t)b * DX * K;
@@ -966,10 +1065,10 @@ __global__ void __launch_bounds__(kThreads, 1) step_backward_kernel(const StepBw
   __syncthreads();  // the weights are loaded
   double* csum = ctrl ? s.csum : nullptr;
   if (ctrl) load_control_bias<DX, DY, H>(s, r.coef, a.off_f, csum);
-  backward_tiles<DX, DY, H>(r, s, r.idx, lo, lo + n, dxres + lo, K, K, a.off_f, a.off_g, sfi,
-                            sgi, dsf, dsg, false, 0u, 0u, b, 0, sums, csum);
-  write_partial<DX, DY>(s, a.n_weights, dsf, dsg,
-                        a.partial + (size_t)blockIdx.x * (a.n_weights + DX + DY));
+  backward_tiles<DX, DY, H, NMID, BWD>(r, s, r.idx, lo, lo + n, dxres + lo, K, K, a.off_f,
+                                       a.off_g, sfi, sgi, dsf, dsg, false, 0u, 0u, b, 0, sums,
+                                       csum);
+  write_partial<DX, DY, L::kGradSmem>(s, a.n_weights, dsf, dsg, part);
   const float* parts = a.coef_part + (size_t)b * S * CS;  // [S][CS]
   if (tid == 0) {
 #pragma unroll
@@ -984,8 +1083,9 @@ __global__ void __launch_bounds__(kThreads, 1) step_backward_kernel(const StepBw
 
   // the row's last CTA: the scatter over the whole row, a segmented sum over
   // each run of equal ancestors in particle order (K4's order), with the
-  // row's ancestors staged in the idle activation tiles
-  int* idx_s = reinterpret_cast<int*>(s.f1);  // [K] <= 4·H·kPS ints
+  // row's ancestors staged in the idle activation tiles (or their own
+  // shared memory where the tiles hold fewer than K ints)
+  int* idx_s = own_idx ? s.idx_s : reinterpret_cast<int*>(s.act);
   for (int i = tid; i < K; i += kThreads) idx_s[i] = r.idx[i];
   __syncthreads();
   for (int j = tid; j < K; j += kThreads) {
@@ -1022,15 +1122,16 @@ __global__ void __launch_bounds__(kThreads, 1) step_backward_kernel(const StepBw
 int step_backward_resident(int dx, int dy, int hidden, int smem, int* out) {
   return with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
-    return max_resident(step_backward_kernel<D::DX, D::DY, D::H>, static_cast<size_t>(smem), out);
+    return max_resident(step_backward_kernel<D::DX, D::DY, D::H, D::NMID, D::BWD>,
+                        static_cast<size_t>(smem), out);
   });
 }
 
 int scan_backward_max_active(int dx, int dy, int hidden, int cluster, int smem, int* out) {
   return with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
-    return max_active_clusters(scan_backward_kernel<D::DX, D::DY, D::H>, cluster,
-                               static_cast<size_t>(smem), out);
+    return max_active_clusters(scan_backward_kernel<D::DX, D::DY, D::H, D::NMID, D::BWD>,
+                               cluster, static_cast<size_t>(smem), out);
   });
 }
 
@@ -1055,17 +1156,17 @@ extern "C" int psvo_scan_backward(const float* x0, const float* x_all, const int
                         d_x_all, d_alpha_all, d_x0,  d_coef,       partial, seed0,
                         seed1,   use_rng,  B,        K,            T1,      n_weights,
                         off_f,   off_g,    ctrl,     cluster};
-  if (n_mid != 1 || cluster < 1 || K % cluster != 0 ||
-      (cluster > 1 && (K / cluster) % psvo::kP != 0))
+  if (cluster < 1 || K % cluster != 0 || (cluster > 1 && (K / cluster) % psvo::kP != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   return psvo::with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
+    if (n_mid != D::NMID) return cudaErrorInvalidValue;  // the depth is instantiated
     const int n = n_weights + D::DX + D::DY;
     cudaError_t err = psvo::launch_clusters(
-        psvo::scan_backward_kernel<D::DX, D::DY, D::H>, a, B, cluster,
-        psvo::bwd_smem_bytes<D::DX, D::DY, D::H>(n_weights, K, K / cluster, true, cluster,
-                                                 ctrl != 0),
+        psvo::scan_backward_kernel<D::DX, D::DY, D::H, D::NMID, D::BWD>, a, B, cluster,
+        psvo::bwd_smem_bytes<D::DX, D::DY, D::H, D::NMID, D::BWD>(n_weights, K, K / cluster,
+                                                                  true, cluster, ctrl != 0),
         s);
     if (err != cudaSuccess) return err;
     return psvo::sum_rows(partial, B * cluster, n, grads, s);
@@ -1088,15 +1189,18 @@ extern "C" int psvo_step_backward(const float* x, const float* x_new, const int*
                             weights, sconst,  d_stats,   d_x_new, d_alpha,   d_x,
                             d_coef,  dxres,   coef_part, partial, counter,   B,
                             K,       n_weights, off_f,   off_g,   ctrl,      slices};
-  // the last CTA stages the row's K ancestors in its four [hidden][kPS] tiles
-  if (n_mid != 1 || slices < 1 || K % slices != 0 || K > 4 * hidden * psvo::kPS)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (slices < 1 || K % slices != 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   return psvo::with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
+    if (n_mid != D::NMID) return cudaErrorInvalidValue;  // the depth is instantiated
+    // the last CTA stages the row's K ancestors in its idle tiles where they fit
+    const int k_idx = K > psvo::BwdLayout<D::H, D::NMID, D::BWD>::kTileFloats ? K : 0;
     cudaError_t err = psvo::launch_slices(
-        psvo::step_backward_kernel<D::DX, D::DY, D::H>, a, B, slices,
-        psvo::bwd_smem_bytes<D::DX, D::DY, D::H>(n_weights, 0, 0, false, 1, ctrl != 0), s);
+        psvo::step_backward_kernel<D::DX, D::DY, D::H, D::NMID, D::BWD>, a, B, slices,
+        psvo::bwd_smem_bytes<D::DX, D::DY, D::H, D::NMID, D::BWD>(n_weights, k_idx, 0, false, 1,
+                                                                  ctrl != 0),
+        s);
     if (err != cudaSuccess) return err;
     return psvo::sum_rows(partial, B * slices, n_weights + D::DX + D::DY, grads, s);
   });

@@ -52,6 +52,14 @@
 // weight read is a warp-uniform shared-memory broadcast (float4 where rows
 // allow).
 //
+// The class (fused_step.usable): any Dx, Dy >= 1 with max(Dx + Di, Dy) <= 7,
+// any depth, hidden widths 8..64 in steps of 8 (the float4 weight reads need
+// H % 4 == 0). Where Dy != Dx, g runs a trunk of its own (DY outputs). At
+// the largest shapes (Dx 6-7, K >= 1792, three layers of 56-64) the weights
+// and the double-buffered row do not fit together: there the plan
+// kFwdStream (step_math.cuh) leaves the weights in device memory, where the
+// trunk's warp-uniform reads hit L1.
+//
 // The ones-channel bias folding and the PD=8 / HA=H+8 padding of the TPU
 // kernel existed for the MXU and Mosaic and are not carried over: the
 // kernel reads plain weights and biases (fused_step.prepare's layout).
@@ -223,13 +231,17 @@ struct FwdSmem {
   float* cb;    // [2H]: b1 + c of q1, then of f (ctrl only)
 };
 
-template <int DX>
-__device__ __forceinline__ FwdSmem carve_fwd(unsigned char* smem, int n_weights, int K) {
+// FWD = kFwdStream: the weights stay in device memory (`weights`) and take
+// no shared memory.
+template <int DX, int FWD>
+__device__ __forceinline__ FwdSmem carve_fwd(unsigned char* smem, const float* weights,
+                                             int n_weights, int K) {
   FwdSmem s;
   s.cdf = reinterpret_cast<double*>(smem);
   s.dred = s.cdf + K;
-  s.wts = reinterpret_cast<float*>(s.dred + kWarps);
-  s.xbuf = s.wts + n_weights;
+  float* after = reinterpret_cast<float*>(s.dred + kWarps);
+  s.wts = FWD == kFwdStream ? const_cast<float*>(weights) : after;
+  s.xbuf = after + (FWD == kFwdStream ? 0 : n_weights);
   s.lw = s.xbuf + 2 * DX * K;
   s.red = s.lw + 2 * K;
   s.cb = s.red + kWarps;  // 16-byte aligned: every earlier extent is a multiple of 4 floats
@@ -237,10 +249,11 @@ __device__ __forceinline__ FwdSmem carve_fwd(unsigned char* smem, int n_weights,
 }
 
 // cb_floats: 2H with controls, else 0.
-template <int DX>
+template <int DX, int FWD>
 size_t fwd_smem_bytes(int n_weights, int K, int cb_floats) {
   return sizeof(double) * (K + kWarps) +
-         sizeof(float) * (n_weights + 2 * DX * K + 2 * K + kWarps + cb_floats);
+         sizeof(float) * ((FWD == kFwdStream ? 0 : n_weights) + 2 * DX * K + 2 * K + kWarps +
+                          cb_floats);
 }
 
 // Where a step's x_new [DX][K] and α [K] go. K14: the CTA's own buffers,
@@ -300,7 +313,6 @@ __device__ __forceinline__ float filter_step(const StepRow& r, const FwdSmem& s,
                                             const float (&sfi)[DX], const float (&sgi)[DY],
                                             bool use_rng, uint32_t seed0, uint32_t seed1, int b,
                                             int t) {
-  static_assert(DX == DY, "the three heads share one trunk instance (one output width)");
   const int tid = threadIdx.x;
   const float* c = r.coef;
   if (CTRL) {  // the previous step's reads of cb ended at its closing barrier
@@ -338,24 +350,43 @@ __device__ __forceinline__ float filter_step(const StepRow& r, const FwdSmem& s,
       for (int d = 0; d < DX; ++d) e[d] = r.eps[d * K + i];
     }
     // The three heads run through ONE copy of the (fully unrolled) trunk:
-    // q1 and f on the resampled particle, then g on the drawn one.
+    // q1 and f on the resampled particle, then g on the drawn one. Where
+    // Dy != Dx, g's output width differs, and g has a trunk of its own.
     float xn[DX], m1[DX], mf[DX], mg[DY];
 #pragma unroll
     for (int d = 0; d < DX; ++d) xn[d] = xc[d * K + anc];
+    if constexpr (DX == DY) {
 #pragma unroll 1
-    for (int n = 0; n < 3; ++n) {
-      if (n == 2) {
+      for (int n = 0; n < 3; ++n) {
+        if (n == 2) {
 #pragma unroll
-        for (int d = 0; d < DX; ++d) xn[d] = cq[d] * m1[d] + aq[d] + sq[d] * e[d];
-      }
-      const int off = n == 0 ? 0 : (n == 1 ? off_f : off_g);
-      const float* b1 = CTRL && n < 2 ? s.cb + n * H : s.wts + off + DX * H;
-      trunk<DX, H, DY>(s.wts + off, b1, n_mid, xn, mg);
+          for (int d = 0; d < DX; ++d) xn[d] = fused_draw(cq[d], m1[d], aq[d], sq[d], e[d]);
+        }
+        const int off = n == 0 ? 0 : (n == 1 ? off_f : off_g);
+        const float* b1 = CTRL && n < 2 ? s.cb + n * H : s.wts + off + DX * H;
+        trunk<DX, H, DY>(s.wts + off, b1, n_mid, xn, mg);
 #pragma unroll
-      for (int d = 0; d < DX; ++d) {
-        if (n == 0) m1[d] = mg[d];
-        if (n == 1) mf[d] = mg[d];
+        for (int d = 0; d < DX; ++d) {
+          if (n == 0) m1[d] = mg[d];
+          if (n == 1) mf[d] = mg[d];
+        }
       }
+    } else {
+#pragma unroll 1
+      for (int n = 0; n < 2; ++n) {
+        const int off = n == 0 ? 0 : off_f;
+        const float* b1 = CTRL ? s.cb + n * H : s.wts + off + DX * H;
+        float m[DX];
+        trunk<DX, H, DX>(s.wts + off, b1, n_mid, xn, m);
+#pragma unroll
+        for (int d = 0; d < DX; ++d) {
+          if (n == 0) m1[d] = m[d];
+          if (n == 1) mf[d] = m[d];
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < DX; ++d) xn[d] = fused_draw(cq[d], m1[d], aq[d], sq[d], e[d]);
+      trunk<DX, H, DY>(s.wts + off_g, s.wts + off_g + DX * H, n_mid, xn, mg);
     }
     // finiteness floor: a diverged mean gives a finite, hopeless weight
     const float alpha =
@@ -402,15 +433,17 @@ __device__ __forceinline__ void row_stats(const float* xn, const float* lw, int 
   }
 }
 
-template <int DX, int DY, int H, bool CTRL>
+template <int DX, int DY, int H, int FWD, bool CTRL>
 __global__ void __launch_bounds__(kThreads) scan_forward_kernel(const ScanArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const cg::cluster_group cluster = cg::this_cluster();
   const int C = a.cluster, rank = static_cast<int>(cluster.block_rank());
   const int K = a.K, B = a.B, b = blockIdx.x / C, tid = threadIdx.x;
   const int n = K / C, lo = rank * n;  // this CTA's particles [lo, lo + n)
-  const FwdSmem s = carve_fwd<DX>(smem, a.n_weights, K);
-  for (int i = tid; i < a.n_weights; i += kThreads) s.wts[i] = a.weights[i];
+  const FwdSmem s = carve_fwd<DX, FWD>(smem, a.weights, a.n_weights, K);
+  if (FWD == kFwdSmem) {
+    for (int i = tid; i < a.n_weights; i += kThreads) s.wts[i] = a.weights[i];
+  }
   for (int i = tid; i < DX * K; i += kThreads) s.xbuf[i] = a.x0[(size_t)b * DX * K + i];
   for (int i = tid; i < K; i += kThreads) s.lw[i] = a.alpha0[(size_t)b * K + i];
   float sfi[DX], sgi[DY];
@@ -493,14 +526,16 @@ struct StepArgs {
   int slices;            // S: CTAs per row, K % S == 0
 };
 
-template <int DX, int DY, int H, bool CTRL>
+template <int DX, int DY, int H, int FWD, bool CTRL>
 __global__ void __launch_bounds__(kThreads) step_forward_kernel(const StepArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = a.slices, K = a.K, b = blockIdx.x / S, tid = threadIdx.x;
   const int n = K / S, lo = (blockIdx.x % S) * n;  // this CTA's particles [lo, lo + n)
-  const FwdSmem s = carve_fwd<DX>(smem, a.n_weights, K);
+  const FwdSmem s = carve_fwd<DX, FWD>(smem, a.weights, a.n_weights, K);
   const size_t bx = (size_t)b * DX * K, bk = (size_t)b * K;
-  for (int i = tid; i < a.n_weights; i += kThreads) s.wts[i] = a.weights[i];
+  if (FWD == kFwdSmem) {
+    for (int i = tid; i < a.n_weights; i += kThreads) s.wts[i] = a.weights[i];
+  }
   for (int i = tid; i < DX * K; i += kThreads) s.xbuf[i] = a.x[bx + i];
   for (int i = tid; i < K; i += kThreads) s.lw[i] = a.logw[bk + i];
   float sfi[DX], sgi[DY];
@@ -538,8 +573,10 @@ template <bool CTRL>
 int scan_forward_launch(const ScanArgs& a, int dx, int dy, int hidden, cudaStream_t s) {
   return with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
-    return launch_clusters(scan_forward_kernel<D::DX, D::DY, D::H, CTRL>, a, a.B, a.cluster,
-                           fwd_smem_bytes<D::DX>(a.n_weights, a.K, CTRL ? 2 * D::H : 0), s);
+    return launch_clusters(scan_forward_kernel<D::DX, D::DY, D::H, D::FWD, CTRL>, a, a.B,
+                           a.cluster,
+                           fwd_smem_bytes<D::DX, D::FWD>(a.n_weights, a.K, CTRL ? 2 * D::H : 0),
+                           s);
   });
 }
 
@@ -547,7 +584,8 @@ template <bool CTRL>
 int scan_forward_max_active(int dx, int dy, int hidden, int cluster, size_t smem, int* out) {
   return with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
-    return max_active_clusters(scan_forward_kernel<D::DX, D::DY, D::H, CTRL>, cluster, smem, out);
+    return max_active_clusters(scan_forward_kernel<D::DX, D::DY, D::H, D::FWD, CTRL>, cluster,
+                               smem, out);
   });
 }
 
@@ -555,8 +593,10 @@ template <bool CTRL>
 int step_forward_launch(const StepArgs& a, int dx, int dy, int hidden, cudaStream_t s) {
   return with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
-    return launch_slices(step_forward_kernel<D::DX, D::DY, D::H, CTRL>, a, a.B, a.slices,
-                         fwd_smem_bytes<D::DX>(a.n_weights, a.K, CTRL ? 2 * D::H : 0), s);
+    return launch_slices(step_forward_kernel<D::DX, D::DY, D::H, D::FWD, CTRL>, a, a.B,
+                         a.slices,
+                         fwd_smem_bytes<D::DX, D::FWD>(a.n_weights, a.K, CTRL ? 2 * D::H : 0),
+                         s);
   });
 }
 
@@ -564,7 +604,7 @@ template <bool CTRL>
 int step_forward_resident(int dx, int dy, int hidden, size_t smem, int* out) {
   return with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
-    return max_resident(step_forward_kernel<D::DX, D::DY, D::H, CTRL>, smem, out);
+    return max_resident(step_forward_kernel<D::DX, D::DY, D::H, D::FWD, CTRL>, smem, out);
   });
 }
 

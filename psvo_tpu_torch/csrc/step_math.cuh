@@ -10,13 +10,21 @@
 // with every K-independent constant folded into ab. The caller applies the
 // floor max(α, −3e30).
 //
-// Also with_dims, the dispatch of the four kernels' C entry points to their
-// instantiated shapes.
+// Also the plans and with_dims, the dispatch of the four kernels' C entry
+// points to their instantiated shapes.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace psvo {
+
+// The fused draw x_new = cq·m1 + aq + sq·ε, both products contracted:
+// fma(sq, ε, fma(cq, m1, aq)). Written out so that K1 and K14, which both
+// inline it, round alike at every shape: left to the compiler, the two
+// kernels contracted the expression differently at hidden width 8.
+__device__ __forceinline__ float fused_draw(float cq, float m1, float aq, float sq, float e) {
+  return __fmaf_rn(sq, e, __fmaf_rn(cq, m1, aq));
+}
 
 template <int DX, int DY>
 __device__ __forceinline__ float alpha_unfloored(const float (&xn)[DX], const float (&mf)[DX],
@@ -37,32 +45,45 @@ __device__ __forceinline__ float alpha_unfloored(const float (&xn)[DX], const fl
   return -0.5f * acc + ab;
 }
 
-template <int DX_, int DY_, int H_>
+// Where the four kernels keep what does not fit a CTA's shared memory at
+// the larger shapes of the class (fused_step.k1_plan / k4_plan choose):
+// K1/K14 the weights (kFwdSmem: shared memory; kFwdStream: device memory,
+// read through L1), K4/K15 the weights, their gradient sums and the
+// activation tiles (kBwdSmem: all in shared memory, f's and g's tiles side
+// by side; kBwdGlobal: the gradient sums in the CTA's row of `partial`;
+// kBwdSplit: also one net's tiles at a time, g recomputed for its backward;
+// kBwdStream: also the weights in device memory). Every plan gives the same
+// bits: the same adds in the same order by the same owning thread.
+enum FwdPlan { kFwdSmem = 0, kFwdStream = 1 };
+enum BwdPlan { kBwdSmem = 0, kBwdGlobal = 1, kBwdSplit = 2, kBwdStream = 3 };
+
+// One instantiated shape: state and observation widths, the hidden width,
+// K4/K15's middle layers (K1 and K14 take any depth at run time) and the
+// plans.
+template <int DX_, int DY_, int H_, int NMID_ = 1, int FWD_ = kFwdSmem, int BWD_ = kBwdSmem>
 struct Dims {
-  static constexpr int DX = DX_, DY = DY_, H = H_;
+  static constexpr int DX = DX_, DY = DY_, H = H_, NMID = NMID_, FWD = FWD_, BWD = BWD_;
 };
 
-// f(Dims<DX, DY, H>{}) for an instantiated shape: (Dx, Dy) ∈ {(2, 2), (3, 3)}
-// (FitzHugh-Nagumo, Lorenz-63) and hidden width 16, 32 or 64. Returns f's
-// cudaError_t as an int, or cudaErrorInvalidValue for any other shape.
+// f(Dims<...>{}) for an instantiated shape; returns f's cudaError_t as an
+// int, or cudaErrorInvalidValue for any other shape. The kernels' library
+// (ops/_build.py::load_library) holds the presets' shapes, those of
+// prebuilt_shapes.cuh: one middle layer in K4/K15, every plan in shared
+// memory. A shape library (_build.load_shape_library) is built for one other
+// shape of the class, named by the PSVO_SHAPE_* macros, and holds that shape
+// alone.
 template <class F>
 int with_dims(int dx, int dy, int hidden, F&& f) {
-  if (dx == 2 && dy == 2) {
-    switch (hidden) {
-      case 16: return static_cast<int>(f(Dims<2, 2, 16>{}));
-      case 32: return static_cast<int>(f(Dims<2, 2, 32>{}));
-      case 64: return static_cast<int>(f(Dims<2, 2, 64>{}));
-      default: break;
-    }
-  }
-  if (dx == 3 && dy == 3) {
-    switch (hidden) {
-      case 16: return static_cast<int>(f(Dims<3, 3, 16>{}));
-      case 32: return static_cast<int>(f(Dims<3, 3, 32>{}));
-      case 64: return static_cast<int>(f(Dims<3, 3, 64>{}));
-      default: break;
-    }
-  }
+#ifdef PSVO_SHAPE_DX
+  if (dx == PSVO_SHAPE_DX && dy == PSVO_SHAPE_DY && hidden == PSVO_SHAPE_H)
+    return static_cast<int>(f(Dims<PSVO_SHAPE_DX, PSVO_SHAPE_DY, PSVO_SHAPE_H, PSVO_SHAPE_NMID,
+                                   PSVO_SHAPE_FWD, PSVO_SHAPE_BWD>{}));
+#else
+#define PSVO_PREBUILT(DX, DY, H) \
+  if (dx == DX && dy == DY && hidden == H) return static_cast<int>(f(Dims<DX, DY, H>{}));
+#include "prebuilt_shapes.cuh"
+#undef PSVO_PREBUILT
+#endif
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

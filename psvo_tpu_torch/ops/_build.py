@@ -6,6 +6,15 @@ shared library with a plain C interface, which is loaded with `ctypes`. The
 library goes to `psvo_tpu_torch/_build/<hash>/`, keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads.
 A failed build raises with the compiler's output; nothing falls back.
+
+The whole-step kernels K1/K4/K14/K15 are templates over their shape (Dx,
+Dy, the hidden width, K4/K15's depth and the plans of `fused_step.k1_plan` /
+`k4_plan`). The library instantiates the presets' shapes (`csrc/
+step_math.cuh::with_dims`); any other shape of their class is compiled on
+its first use by `load_shape_library`: the three sources of those kernels
+(`SHAPE_SOURCES`) with the shape as `-D` macros, one nvcc per source, into
+a library of their own under `_build/<hash>/shape_.../`, keyed by the same
+hash and the shape. `prebuild_shapes` starts such builds in the background.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -71,6 +81,11 @@ SIGNATURES = {
     "psvo_step_max_active": [_I] * 6 + [_P],
 }
 
+# the sources of K1/K14 (both control modes) and K4/K15, which a shape library holds
+SHAPE_SOURCES = ("scan_forward.cu", "scan_forward_ctrl.cu", "scan_backward.cu")
+SHAPE_MACROS = ("DX", "DY", "H", "NMID", "FWD", "BWD")  # PSVO_SHAPE_<name> (step_math.cuh)
+
+
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
@@ -95,17 +110,23 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def build(out_dir: Path) -> Path:
-    """Compile each csrc/*.cu into an object, in parallel, and link them into
-    out_dir/LIB_NAME (atomically); return its path."""
+def build(out_dir: Path, srcs=None, defines=(), niceness: int = 0) -> Path:
+    """Compile each of `srcs` (every csrc/*.cu by default) into an object,
+    in parallel, with the `-D` macros `defines`, and link them into
+    out_dir/LIB_NAME (atomically); return its path. The compilers run at
+    `niceness` (through `nice`), so that a background build yields the cores to a
+    foreground one."""
     out_dir.mkdir(parents=True, exist_ok=True)
     lib = out_dir / LIB_NAME
+    srcs = sorted(CSRC.glob("*.cu")) if srcs is None else list(srcs)
     t0 = time.perf_counter()
     jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
-        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+    nice = shutil.which("nice") if niceness else None
+    for src in srcs:
+        cmd = [nvcc(), *NVCC_FLAGS, *[f"-D{d}" for d in defines], "-I", str(CSRC), "-c", "-o",
                str(out_dir / f"{src.stem}.o"), str(src)]
-        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        run = [nice, "-n", str(niceness), *cmd] if nice else cmd
+        jobs.append((cmd, subprocess.Popen(run, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT, text=True)))
     log, failed = [], []
     for cmd, proc in jobs:
@@ -118,7 +139,7 @@ def build(out_dir: Path) -> Path:
     os.close(fd)
     if not failed:
         cmd = [nvcc(), *ARCH_FLAGS, "-shared", "-o", tmp,
-               *[str(out_dir / f"{src.stem}.o") for src in sorted(CSRC.glob("*.cu"))]]
+               *[str(out_dir / f"{src.stem}.o") for src in srcs]]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log.append(f"$ {' '.join(cmd)}\n# exit {proc.returncode}\n{proc.stdout}{proc.stderr}")
         if proc.returncode != 0:
@@ -136,6 +157,19 @@ def build(out_dir: Path) -> Path:
     return lib
 
 
+def _load(lib_path: Path) -> ctypes.CDLL:
+    """Load a built library and declare the argtypes of its entry points."""
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:  # a shape library holds the whole-step kernels' entry points only
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    lib.psvo_error_string.argtypes = [ctypes.c_int]
+    lib.psvo_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """The kernels' library, built on first use and loaded once per process
@@ -144,19 +178,76 @@ def load_library() -> ctypes.CDLL:
     lib_path = out_dir / LIB_NAME
     if not lib_path.exists():
         build(out_dir)
-    lib = ctypes.CDLL(str(lib_path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.psvo_error_string.argtypes = [ctypes.c_int]
-    lib.psvo_error_string.restype = ctypes.c_char_p
+    return _load(lib_path)
+
+
+def shape_dir(shape: tuple) -> Path:
+    """Where the shape library of `shape` = (dx, dy, hidden, n_mid, k1 plan,
+    k4 plan) goes: under the current build's hash."""
+    return BUILD_ROOT / source_hash() / ("shape_" + "_".join(str(int(v)) for v in shape))
+
+
+_SHAPE_LOCKS: dict = {}
+_SHAPE_LIBS: dict = {}
+_LOCKS_LOCK = threading.Lock()
+
+
+def load_shape_library(shape: tuple, niceness: int = 0) -> ctypes.CDLL:
+    """The library of K1/K14 and K4/K15 at one shape of their class outside
+    the presets' (`fused_step._library` says which): `shape` = (dx, dy,
+    hidden, n_mid, k1 plan, k4 plan) as ints, the plans' indices in
+    `fused_step.K1_PLANS` / `K4_PLANS`. Built on first use (SHAPE_SOURCES
+    with the PSVO_SHAPE_* macros; a failed build raises), loaded once per
+    process. Thread-safe: a second caller waits for the first one's build.
+    The objects are compiled in a directory of their own and the library
+    moved into place, so processes that build the same shape at once do not
+    share a file. niceness: the compilers' (`build`)."""
+    lib = _SHAPE_LIBS.get(shape)
+    if lib is not None:  # the launches' path: loaded already
+        return lib
+    shape = tuple(int(v) for v in shape)
+    with _LOCKS_LOCK:
+        lock = _SHAPE_LOCKS.setdefault(shape, threading.Lock())
+    with lock:
+        lib = _SHAPE_LIBS.get(shape)
+        if lib is None:
+            out_dir = shape_dir(shape)
+            lib_path = out_dir / LIB_NAME
+            if not lib_path.exists():
+                out_dir.parent.mkdir(parents=True, exist_ok=True)
+                work = Path(tempfile.mkdtemp(prefix=out_dir.name + ".", dir=out_dir.parent))
+                defines = [f"PSVO_SHAPE_{m}={v}" for m, v in zip(SHAPE_MACROS, shape)]
+                build(work, [CSRC / name for name in SHAPE_SOURCES], defines, niceness)
+                out_dir.mkdir(exist_ok=True)
+                os.replace(work / "build.log", out_dir / "build.log")
+                os.replace(work / LIB_NAME, lib_path)
+                shutil.rmtree(work, ignore_errors=True)
+            lib = _SHAPE_LIBS[shape] = _load(lib_path)
     return lib
 
 
-def build_log() -> str:
-    """The compiler output of the current build (registers, spills)."""
-    path = BUILD_ROOT / source_hash() / "build.log"
+def prebuild_shapes(shapes, niceness: int = 10) -> list:
+    """Start the builds of the shape libraries of `shapes` in background
+    threads (each runs its nvcc processes in parallel, at `niceness`);
+    returns the threads. A build's error is raised again by the
+    `load_shape_library` call that later needs it."""
+    def run(shape):
+        try:
+            load_shape_library(shape, niceness)
+        except Exception:  # noqa: BLE001 - the caller's load_shape_library builds again and raises
+            pass
+
+    threads = [threading.Thread(target=run, args=(tuple(s),), daemon=True) for s in shapes]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def build_log(shape: tuple | None = None) -> str:
+    """The compiler output of the current build (registers, spills), or of
+    the shape library of `shape`."""
+    out_dir = BUILD_ROOT / source_hash() if shape is None else shape_dir(shape)
+    path = out_dir / "build.log"
     return path.read_text() if path.exists() else ""
 
 

@@ -81,8 +81,19 @@ cotangent into the row's d_coef columns, and autograd through the product
 gives W_u its gradient (and u none). The particle state stays [B, Dx, K]
 and the packed weights hold W1's first Dx rows. K1 and K14 are built
 both ways (a template flag: a run-time one slowed K14 without controls) and
-K4 and K15 once (a run-time `ctrl`), so every (Dx, Dy) in `KERNEL_DIMS` takes
+K4 and K15 once (a run-time `ctrl`), so every (Dx, Dy) of the class takes
 controls while Dx + Di <= 7; di = 0 runs the unchanged code.
+
+The class (`usable`) is the reference's whole-step class (`pallas_step.usable`)
+but for widths above 64 and nets too deep for any plan's shared memory
+(`shape_fits`). The kernels are templates over the shape; the kernels'
+library holds the presets' (`PREBUILT_SHAPES`, one middle layer in K4/K15,
+read from csrc/prebuilt_shapes.cuh as with_dims reads it), and any
+other shape is compiled on its first use into a shape library of its own
+(`_build.load_shape_library`, keyed by `shape_key`). Where a shape's weights,
+gradient sums and tiles do not fit a CTA's shared memory, `k1_plan` and
+`k4_plan` choose where they go instead (csrc/step_math.cuh), with the same
+bits.
 
 Not ported: the ones-channel bias folding and the PD = 8 / HA = H+8 padding
 of `aug_net`/`pack_sm`, which existed for the TPU's matrix unit and Mosaic;
@@ -94,6 +105,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import re
 
 import torch
 
@@ -101,9 +113,15 @@ from psvo_tpu_torch.ops import _build
 from psvo_tpu_torch.ops.resampling import gather_particles
 
 MAX_K = 4096  # shared memory: fp64 CDF + 2x particles + 2x log-weights + weights
-HIDDEN_WIDTHS = (16, 32, 64)  # trunk widths the kernel is instantiated for
-KERNEL_DIMS = ((2, 2), (3, 3))  # (Dx, Dy) instantiated: FitzHugh-Nagumo, Lorenz-63
-MAX_STATE_AND_CONTROLS = 7  # Dx + Di at most: the reference's gate (pallas_step.usable)
+MAX_STATE_AND_CONTROLS = 7  # max(Dx + Di, Dy) at most: the reference's gate (pallas_step.usable)
+HIDDEN_WIDTHS = tuple(range(8, 65, 8))  # uniform trunk widths of the class
+PREBUILT_SHAPES = frozenset(  # (Dx, Dy, width) in the kernels' library (one middle layer in K4/K15)
+    tuple(int(v) for v in m) for m in re.findall(
+        r"^PSVO_PREBUILT\((\d+), (\d+), (\d+)\)$",
+        (_build.CSRC / "prebuilt_shapes.cuh").read_text(), re.M))
+K1_PLANS = ("smem", "stream")  # where K1/K14 keep the weights (csrc/step_math.cuh::FwdPlan)
+K4_PLANS = ("smem", "global", "split", "stream")  # K4/K15's plans (step_math.cuh::BwdPlan)
+PLAN_K = 2048  # the K a shape's plans are chosen at: the largest of the reference's class
 _THREADS = 256
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper (227 KB)
 SCAN_FUSED = True  # False: the filter runs one K14 launch per step (K15 per step backward)
@@ -116,15 +134,21 @@ _K14, _K15 = 0, 1  # psvo_step_max_active's kernel argument
 
 
 def usable(ssm, cfg) -> bool:
-    """Whether (ssm, smc-config) is in the kernel's class: systematic or
-    multinomial resampling at every step (the kernels search any sorted
-    position stream; multinomial streams its positions, as the reference's
-    whole-step kernel does); with controls (ssm.di > 0) while Dx + Di <= 7.
-    As the reference's gate
+    """Whether (ssm, smc-config) is in the kernels' class, the whole-step
+    class of K1, K4, K14 and K15: systematic or multinomial resampling at
+    every step (the kernels search any sorted position stream; multinomial
+    streams its positions, as the reference's whole-step kernel does); any
+    Dx, Dy >= 1 and controls (ssm.di > 0) while max(Dx + Di, Dy) <= 7; q1, f
+    and g relu MLPs of one uniform width in `HIDDEN_WIDTHS` and any depth;
+    K a multiple of 32 up to MAX_K; where each kernel's plan holds the shape
+    in shared memory (`shape_fits`: at width 64 up to 12 hidden layers at
+    Dx = Dy = 2 and K = 2048, 10 at Dx = Dy = 7). As the reference's gate
     (`pallas_step.usable`), not bootstrap mode, whose proposal is f (the
     kernels draw from the fused q1/q2 proposal and weight by f, g and q),
     nor known dynamics, Poisson or Dirac emissions, or a q1/f/g scale other
-    than a constant diagonal (`model_in_class`)."""
+    than a constant diagonal (`model_in_class`). Inside the reference's class
+    (K a multiple of 128 up to 2048, widths 8..64, as deep as the plans
+    hold) it agrees with `smc.reference_path(...) == "fused"`."""
     k = cfg.n_particles
     hidden = ssm.nets["q1"].hidden
     nets = [ssm.nets[n] for n in ("q1", "f", "g")]
@@ -134,14 +158,39 @@ def usable(ssm, cfg) -> bool:
         and cfg.resampling in ("systematic", "multinomial")
         and cfg.ess_threshold >= 1.0
         and cfg.use_stop_gradient
-        and (ssm.dx, ssm.dy) in KERNEL_DIMS
-        and ssm.dx + ssm.di <= MAX_STATE_AND_CONTROLS
-        and _k_ok(k)
         and len(hidden) >= 1
-        and hidden[0] in HIDDEN_WIDTHS
         and all(h == hidden[0] for h in hidden)
         and all(nc.hidden == hidden and nc.activation == "relu" for nc in nets)
+        and shape_fits(shape_consts(ssm.dx, ssm.dy, ssm.di, hidden[0], len(hidden) - 1), k)
     )
+
+
+def n_weights(dx: int, dy: int, h: int, n_mid: int) -> int:
+    """Floats of `prepare`'s packed buffer: q1, f and g, each segment padded to 4."""
+    def seg(dout):
+        n = dx * h + h + n_mid * (h * h + h) + h * dout + dout
+        return n + (-n) % 4
+
+    return 2 * seg(dx) + seg(dy)
+
+
+def shape_consts(dx: int, dy: int, di: int, hidden: int, n_mid: int) -> dict:
+    """The shape entries of `prepare`'s constants, which the gates and plans
+    read, without the weights."""
+    return _shape_consts((dx, dy, hidden, n_mid, di, n_weights(dx, dy, hidden, n_mid)))
+
+
+def _in_class(consts) -> bool:
+    """(Dx, Dy), Dx + Di, the width and the depth of the kernels' class."""
+    return (min(consts["dx"], consts["dy"]) >= 1
+            and max(consts["dx"] + consts.get("di", 0), consts["dy"]) <= MAX_STATE_AND_CONTROLS
+            and consts["hidden"] in HIDDEN_WIDTHS and consts["n_mid"] >= 0)
+
+
+def shape_fits(consts, k: int) -> bool:
+    """Whether K1/K14 and K4 (on clusters of some size) and K15 hold the
+    shape at K under their plans."""
+    return _k1_ok(consts, k) and _k4_class(consts, k) and _k15_ok(consts, k)
 
 
 def model_in_class(ssm) -> bool:
@@ -157,8 +206,8 @@ def model_in_class(ssm) -> bool:
 
 
 def _k_ok(k: int) -> bool:
-    # block scan: K <= threads, or whole chunks of K / threads per thread
-    return k % 32 == 0 and 32 <= k <= MAX_K and (k <= _THREADS or k % _THREADS == 0)
+    # block scan: chunks of ceil(K / threads) per thread (resample.cuh::block_cdf)
+    return k % 32 == 0 and 32 <= k <= MAX_K
 
 
 # ---------------------------------------------------------------------------
@@ -461,31 +510,109 @@ def cluster_size(batch: int, k: int, min_slice: int, max_active: dict) -> int:
     return min(fits) if fits else 1
 
 
-def k1_smem_bytes(consts, k: int) -> int:
-    """Dynamic shared memory of one K1 CTA, any C
-    (csrc/scan_forward.cuh::fwd_smem_bytes): the fp64 CDF [K], the weights, the
-    particles [2][Dx][K], the log-weights [2][K], the reduction scratch and,
-    with controls, the step's first-layer biases of q1 and f [2H]."""
+def _nw(consts) -> int:
+    """Floats of the packed weights (`prepare`'s buffer, or `shape_consts`'s count)."""
+    packed = consts.get("packed")
+    return packed.numel() if packed is not None else consts["n_weights"]
+
+
+def k1_smem_bytes(consts, k: int, plan: str | None = None) -> int:
+    """Dynamic shared memory of one K1 (or K14) CTA, any C
+    (csrc/scan_forward.cuh::fwd_smem_bytes): the fp64 CDF [K], the weights
+    (plan "smem"; "stream" reads them from device memory), the particles
+    [2][Dx][K], the log-weights [2][K], the reduction scratch and, with
+    controls, the step's first-layer biases of q1 and f [2H]. plan: the
+    shape's (`k1_plan`) by default."""
+    plan = plan or k1_plan(consts)
     warps = _THREADS // 32
     cb = 2 * consts["hidden"] * _ctrl(consts)
-    return 8 * (k + warps) + 4 * (consts["packed"].numel() + 2 * consts["dx"] * k + 2 * k + warps
-                                  + cb)
+    wts = _nw(consts) if plan == "smem" else 0
+    return 8 * (k + warps) + 4 * (wts + 2 * consts["dx"] * k + 2 * k + warps + cb)
+
+
+def _shape(consts) -> tuple:
+    """What the gates, the plans and the library depend on: (dx, dy, hidden,
+    n_mid, di, n_weights); a launch looks them up by it (`functools.cache`),
+    so the per-step path's host time does not grow with the plans'
+    arithmetic."""
+    return (consts["dx"], consts["dy"], consts["hidden"], consts["n_mid"], consts.get("di", 0),
+            _nw(consts))
+
+
+def _shape_consts(shape: tuple) -> dict:
+    dx, dy, hidden, n_mid, di, n_w = shape
+    return dict(dx=dx, dy=dy, hidden=hidden, n_mid=n_mid, di=di, n_weights=n_w)
+
+
+def k1_plan(consts) -> str:
+    """Where K1 and K14 keep the weights at this shape: in shared memory
+    ("smem") where they fit beside the row at K = PLAN_K, else in device
+    memory ("stream": Dx 6-7 with three layers of 56-64 units)."""
+    return _k1_plan(_shape(consts))
+
+
+@functools.cache
+def _k1_plan(shape: tuple) -> str:
+    fits = k1_smem_bytes(_shape_consts(shape), PLAN_K, "smem") <= SMEM_LIMIT
+    return "smem" if fits else "stream"
+
+
+def _k1_ok(consts, k: int) -> bool:
+    """Whether K1 and K14 run at these constants and K."""
+    return _k1_fits(_shape(consts), k)
+
+
+@functools.cache
+def _k1_fits(shape: tuple, k: int) -> bool:
+    consts = _shape_consts(shape)
+    return _in_class(consts) and _k_ok(k) and k1_smem_bytes(consts, k) <= SMEM_LIMIT
+
+
+def shape_key(consts) -> tuple:
+    """(dx, dy, hidden, n_mid, k1 plan, k4 plan) as ints: what a shape
+    library instantiates (`_build.load_shape_library`)."""
+    return (consts["dx"], consts["dy"], consts["hidden"], consts["n_mid"],
+            K1_PLANS.index(k1_plan(consts)), K4_PLANS.index(k4_plan(consts)))
+
+
+def _lib_key(consts, backward: bool):
+    """None where the kernels' library holds the kernel at this shape (the
+    presets' (Dx, Dy) and widths with their plans in shared memory; K4/K15
+    also one middle layer), else the shape library's key."""
+    return _lib_key_of(_shape(consts), backward)
+
+
+@functools.cache
+def _lib_key_of(shape: tuple, backward: bool):
+    consts = _shape_consts(shape)
+    prebuilt = ((consts["dx"], consts["dy"], consts["hidden"]) in PREBUILT_SHAPES
+                and k1_plan(consts) == "smem")
+    if backward:
+        prebuilt = prebuilt and consts["n_mid"] == 1 and k4_plan(consts) == "smem"
+    return None if prebuilt else shape_key(consts)
+
+
+def _library(key):
+    """The library of `_lib_key`'s key: the kernels' own, or a shape library
+    (built on its first use)."""
+    return _build.load_library() if key is None else _build.load_shape_library(key)
 
 
 def max_active_clusters(kernel: int, device, consts, k: int) -> dict:
     """{C: clusters of C CTAs of K1 (`kernel` 0) or K4 (1) resident at once}
     on `device` at these constants and K, from the card's occupancy query
-    (`psvo_max_active_clusters`); 0 where the CTA's shared memory exceeds
-    `SMEM_LIMIT` or C does not divide K. Cached per (device, kernel, shape)."""
+    (`psvo_max_active_clusters`) at the CTA's shared memory under the
+    shape's plan; 0 where that exceeds `SMEM_LIMIT` or C does not divide K.
+    Cached per (device, kernel, shape)."""
     smem = tuple((k1_smem_bytes(consts, k) if kernel == _K1 else k4_smem_bytes(consts, k, c))
                  if k % c == 0 else SMEM_LIMIT + 1 for c in CLUSTER_SIZES)
     return _max_active(kernel, torch.device(device).index, consts["dx"], consts["dy"],
-                       consts["hidden"], _ctrl(consts), smem)
+                       consts["hidden"], _ctrl(consts), smem, _lib_key(consts, kernel == _K4))
 
 
 @functools.cache
-def _max_active(kernel, device_index, dx, dy, hidden, ctrl, smem):
-    lib = _build.load_library()
+def _max_active(kernel, device_index, dx, dy, hidden, ctrl, smem, key=None):
+    lib = _library(key)
     out = {}
     for c, nbytes in zip(CLUSTER_SIZES, smem):
         n = ctypes.c_int(0)
@@ -707,9 +834,10 @@ def _launch_scan_forward(x0, alpha0, coef, consts, eps, positions, seed, cache, 
     dx, dy, k = consts["dx"], consts["dy"], x0.shape[-1]
     dev = x0.device
     h, n_mid = consts["hidden"], consts["n_mid"]
-    if (dx, dy) not in KERNEL_DIMS or h not in HIDDEN_WIDTHS or not _k_ok(k):
-        raise ValueError(
-            f"scan_forward: no kernel for Dx={dx}, Dy={dy}, hidden={h}, K={k}"
+    if not _k1_ok(consts, k):
+        raise NotImplementedError(
+            f"scan_forward: no kernel for Dx={dx}, Dy={dy}, hidden={h}, {n_mid} middle layers, "
+            f"K={k} (ROADMAP queue 2 B)"
         )
     cluster = _pick_cluster("scan_forward", _K1, x0, consts, cluster)
     _require(x0, (batch, dx, k), "x0", dev)
@@ -729,7 +857,7 @@ def _launch_scan_forward(x0, alpha0, coef, consts, eps, positions, seed, cache, 
     idx = torch.empty((t_len, batch, k), dtype=torch.int32, device=dev) if save_res else None
 
     seed0, seed1 = (0, 0) if seed is None else seed
-    lib = _build.load_library()
+    lib = _library(_lib_key(consts, False))
     _, off_f, off_g = consts["offsets"]  # q1 sits at offset 0
     err = lib.psvo_scan_forward(
         x0.data_ptr(), alpha0.data_ptr(), coef.data_ptr(), _ptr(eps), _ptr(positions),
@@ -807,28 +935,72 @@ def _replay_backward(x0, coef, consts, eps, idx, d_stats, d_x_last=None, d_alpha
     return tuple(torch.zeros_like(v) if gr is None else gr for gr, v in zip(grads, leaves))
 
 
-def k4_smem_bytes(consts, k: int, cluster: int = 1) -> int:
+def k4_tiles(consts, plan: str | None = None) -> int:
+    """K4/K15's [H][68] activation tiles (csrc/scan_backward.cu::BwdLayout):
+    f's and g's n_mid + 1 layers side by side, or under "split" and "stream"
+    one net's at a time."""
+    plan = plan or k4_plan(consts)
+    return (1 if plan in ("split", "stream") else 2) * (consts["n_mid"] + 1)
+
+
+def k4_smem_bytes(consts, k: int, cluster: int = 1, plan: str | None = None) -> int:
     """Dynamic shared memory of one K4 CTA on a cluster of `cluster` CTAs per
-    row (csrc/scan_backward.cu::bwd_smem_bytes): weights and their gradient
-    sums, four [H][68] activation tiles, the [9·Dx + 2·Dy][68] tile arrays,
-    the carry and d x_res of the slice [Dx][K/C] (d x_res twice and the
-    slice's 3·Dx + 1 d_coef sums twice at C > 1), the reduction scratch and
-    the int32 ancestors of the row [K]; with controls also the step's
-    first-layer biases of q1 and f [2H] and their fp64 cotangent sums
-    [2][2H]."""
+    row (csrc/scan_backward.cu::bwd_smem_bytes) under `plan` (the shape's,
+    `k4_plan`, by default): the weights (not under "stream") and their
+    gradient sums (only under "smem"; else in the CTA's row of `partial`),
+    the activation tiles (`k4_tiles`), the [9·Dx + 2·Dy][68] tile arrays, the
+    carry and d x_res of the slice [Dx][K/C] (d x_res twice and the slice's
+    3·Dx + 1 d_coef sums twice at C > 1), the reduction scratch and the int32
+    ancestors of the row [K]; with controls also the step's first-layer
+    biases of q1 and f [2H] and their fp64 cotangent sums [2][2H]."""
+    plan = plan or k4_plan(consts)
     dx, dy, h = consts["dx"], consts["dy"], consts["hidden"]
-    n_w = consts["packed"].numel()
+    n_w = _nw(consts)
     n = k // cluster
     slices = (3 * dx * n + 2 * (3 * dx + 1)) if cluster > 1 else 2 * dx * n
-    floats = (2 * n_w + 4 * h * 68 + (9 * dx + 2 * dy) * 68 + slices + _THREADS // 32
-              + 2 * h * _ctrl(consts))
+    sums = n_w * ((plan != "stream") + (plan == "smem"))
+    floats = (sums + k4_tiles(consts, plan) * h * 68 + (9 * dx + 2 * dy) * 68 + slices
+              + _THREADS // 32 + 2 * h * _ctrl(consts))
     return 4 * floats + 4 * k + 8 * 4 * h * _ctrl(consts)
+
+
+def _clusters_at(k: int):
+    """The cluster sizes K4 admits at K: K/C a whole number of its tiles."""
+    return [c for c in CLUSTER_SIZES if c == 1 or k % (c * K4_MIN_SLICE) == 0]
+
+
+def k4_plan(consts) -> str:
+    """K4's and K15's plan at this shape (csrc/step_math.cuh::BwdPlan): the
+    first of `K4_PLANS` whose CTA fits shared memory at K = PLAN_K on some
+    cluster size; "stream" where none does. "smem" keeps everything in
+    shared memory (the presets); "global" moves the gradient sums to the
+    CTA's row of `partial` in device memory (L2); "split" also keeps one
+    net's activation tiles at a time, recomputing g's forward once more;
+    "stream" also reads the weights from device memory. Every plan gives the
+    same bits, and each is slower than the one before it where both fit
+    (PERF.md §6: K4 at three layers of 64, Dx = 2, K = 1024, B = 32 took
+    42.9 / 48.3 / 60.7 ms under "global" / "split" / "stream" on an H100)."""
+    return _k4_plan(_shape(consts))
+
+
+@functools.cache
+def _k4_plan(shape: tuple) -> str:
+    consts = _shape_consts(shape)
+    for plan in K4_PLANS[:-1]:
+        if any(k4_smem_bytes(consts, PLAN_K, c, plan) <= SMEM_LIMIT for c in _clusters_at(PLAN_K)):
+            return plan
+    return K4_PLANS[-1]
 
 
 def _k4_ok(consts, k: int, cluster: int = 1) -> bool:
     """Whether K4 runs at these constants and K on clusters of `cluster`."""
-    return ((consts["dx"], consts["dy"]) in KERNEL_DIMS and consts["hidden"] in HIDDEN_WIDTHS
-            and consts["n_mid"] == 1 and _k_ok(k) and cluster in CLUSTER_SIZES
+    return _k4_fits(_shape(consts), k, cluster)
+
+
+@functools.cache
+def _k4_fits(shape: tuple, k: int, cluster: int) -> bool:
+    consts = _shape_consts(shape)
+    return (_in_class(consts) and _k_ok(k) and cluster in CLUSTER_SIZES
             and (cluster == 1 or k % (cluster * K4_MIN_SLICE) == 0)
             and k4_smem_bytes(consts, k, cluster) <= SMEM_LIMIT)
 
@@ -845,10 +1017,9 @@ def scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last=None,
     RNG replayed through K2's plain version); CUDA tensors launch the kernel
     on clusters of `cluster` CTAs per row (None: `cluster_size`'s choice;
     d_x0 has the same bits for every C, the sums agree to float32 rounding).
-    The kernel is built for Dx = Dy = 2 and 3, hidden widths 16/32/64 with
-    one middle layer, and K as far as its shared memory holds
-    (`k4_smem_bytes`: at width 64, K up to 2304 at Dx = 2 and 1536 at 3 at
-    C = 1; MAX_K and 3072 at C = 4).
+    The kernel takes the class of `usable` at K as far as its plan's shared
+    memory holds (`k4_smem_bytes`: at the presets' width 64, K up to 2304 at
+    Dx = 2 and 1536 at 3 at C = 1; MAX_K and 3072 at C = 4).
     """
     if (seed is None) == (eps is None):
         raise ValueError("scan_backward: pass either eps or seed")
@@ -882,10 +1053,10 @@ def _launch_scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last
     dx, dy, k = consts["dx"], consts["dy"], x0.shape[-1]
     dev = x0.device
     if not _k4_class(consts, k):
-        raise ValueError(
+        raise NotImplementedError(
             f"scan_backward: no kernel for Dx={dx}, Dy={dy}, hidden={consts['hidden']}, "
             f"{consts['n_mid']} middle layers, K={k} ({k4_smem_bytes(consts, k)} B of shared "
-            f"memory at C = 1, at most {SMEM_LIMIT})"
+            f"memory at C = 1, at most {SMEM_LIMIT}; ROADMAP queue 2 B)"
         )
     cluster = _pick_cluster("scan_backward", _K4, x0, consts, cluster)
     if not _k4_ok(consts, k, cluster):
@@ -914,7 +1085,7 @@ def _launch_scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last
     grads = torch.empty((n_w + dx + dy,), **f32)
 
     seed0, seed1 = (0, 0) if seed is None else seed
-    lib = _build.load_library()
+    lib = _library(_lib_key(consts, True))
     _, off_f, off_g = consts["offsets"]
     err = lib.psvo_scan_backward(
         x0.data_ptr(), x_all.data_ptr(), idx.data_ptr(), stats.data_ptr(), coef.data_ptr(),
@@ -953,8 +1124,8 @@ class ScanForward(torch.autograd.Function):
         consts = dict(consts, packed=packed, sconst=sconst)
         save = any(ctx.needs_input_grad)
         if save and x0.is_cuda and not _k4_class(consts, x0.shape[-1]):
-            raise ValueError("ScanForward: this configuration has no backward kernel "
-                             "(fused_step.scan_backward)")
+            raise NotImplementedError("ScanForward: this configuration has no backward kernel "
+                                      "(fused_step.scan_backward; ROADMAP queue 2 B)")
         x_last, alpha_last, stats, x_all, alpha_all, idx = scan_forward(
             x0, alpha0, coef, consts, eps=eps, positions=positions, seed=seed, cache=cache,
             save_res=save,
@@ -1025,14 +1196,20 @@ def resident_ctas(kernel: int, device, consts, k: int) -> int:
     """CTAs of K14 (`kernel` 0) or K15 (1) resident at once on `device` at
     these constants and K, from the card's occupancy query
     (`psvo_step_max_active`). Cached per (device, kernel, shape)."""
-    smem = k1_smem_bytes(consts, k) if kernel == _K14 else k15_smem_bytes(consts)
-    return _resident(kernel, torch.device(device).index, consts["dx"], consts["dy"],
-                     consts["hidden"], _ctrl(consts), smem)
+    return _resident_at(kernel, torch.device(device).index, _shape(consts), k)
 
 
 @functools.cache
-def _resident(kernel, device_index, dx, dy, hidden, ctrl, smem):
-    lib = _build.load_library()
+def _resident_at(kernel, device_index, shape, k):
+    consts = _shape_consts(shape)
+    smem = k1_smem_bytes(consts, k) if kernel == _K14 else k15_smem_bytes(consts, k)
+    return _resident(kernel, device_index, consts["dx"], consts["dy"], consts["hidden"],
+                     _ctrl(consts), smem, _lib_key_of(shape, kernel == _K15))
+
+
+@functools.cache
+def _resident(kernel, device_index, dx, dy, hidden, ctrl, smem, key=None):
+    lib = _library(key)
     n = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         err = lib.psvo_step_max_active(kernel, dx, dy, hidden, ctrl, smem, ctypes.addressof(n))
@@ -1098,8 +1275,9 @@ def _launch_step_forward(x, logw, coef, consts, eps, positions, slices, stream):
     dx, dy, h = consts["dx"], consts["dy"], consts["hidden"]
     batch, k = logw.shape
     dev = x.device
-    if (dx, dy) not in KERNEL_DIMS or h not in HIDDEN_WIDTHS or not _k_ok(k):
-        raise ValueError(f"step_forward: no kernel for Dx={dx}, Dy={dy}, hidden={h}, K={k}")
+    if not _k1_ok(consts, k):
+        raise NotImplementedError(f"step_forward: no kernel for Dx={dx}, Dy={dy}, hidden={h}, "
+                                  f"{consts['n_mid']} middle layers, K={k} (ROADMAP queue 2 B)")
     slices = _pick_slices("step_forward", _K14, x, consts, slices)
     _require(x, (batch, dx, k), "x", dev)
     _require(logw, (batch, k), "logw", dev)
@@ -1114,7 +1292,7 @@ def _launch_step_forward(x, logw, coef, consts, eps, positions, slices, stream):
     stats = torch.empty((batch, 2 + dx), **f32)
     idx = torch.empty((batch, k), dtype=torch.int32, device=dev)
     counters = _arrival_counters(dev, stream, batch)
-    lib = _build.load_library()
+    lib = _library(_lib_key(consts, False))
     _, off_f, off_g = consts["offsets"]
     err = lib.psvo_step_forward(
         x.data_ptr(), logw.data_ptr(), coef.data_ptr(), eps.data_ptr(), positions.data_ptr(),
@@ -1145,16 +1323,25 @@ def step_backward_reference(x, coef, consts, eps, idx, d_stats, d_x_new=None, d_
 step_backward_reference.calls = 0
 
 
-def k15_smem_bytes(consts) -> int:
-    """Dynamic shared memory of one K15 CTA, any K and S
+def k15_smem_bytes(consts, k: int = 0) -> int:
+    """Dynamic shared memory of one K15 CTA, any S
     (csrc/scan_backward.cu::bwd_smem_bytes): K4's (`k4_smem_bytes`) without
-    the carry, d x_res and the ancestors, which K15 keeps in device memory."""
-    return k4_smem_bytes(consts, 0)
+    the carry, d x_res and the ancestors, which K15 keeps in device memory;
+    its last CTA stages the row's K ancestors in its idle activation tiles,
+    or where they hold fewer than K ints (narrow, shallow nets at large K) in
+    K ints of their own."""
+    tile_ints = k4_tiles(consts) * consts["hidden"] * 68
+    return k4_smem_bytes(consts, 0) + (4 * k if k > tile_ints else 0)
 
 
 def _k15_ok(consts, k: int) -> bool:
-    return ((consts["dx"], consts["dy"]) in KERNEL_DIMS and consts["hidden"] in HIDDEN_WIDTHS
-            and consts["n_mid"] == 1 and _k_ok(k) and k15_smem_bytes(consts) <= SMEM_LIMIT)
+    return _k15_fits(_shape(consts), k)
+
+
+@functools.cache
+def _k15_fits(shape: tuple, k: int) -> bool:
+    consts = _shape_consts(shape)
+    return _in_class(consts) and _k_ok(k) and k15_smem_bytes(consts, k) <= SMEM_LIMIT
 
 
 def step_backward(x, x_new, idx, stats, coef, consts, eps, d_stats, d_x_new=None,
@@ -1164,9 +1351,8 @@ def step_backward(x, x_new, idx, stats, coef, consts, eps, d_stats, d_x_new=None
     (for ℓ), with its coef row and ε. Cotangents and outputs as
     `step_backward_reference`, which CPU tensors run; CUDA tensors launch the
     kernel on `slices` CTAs per row (None: `step_slices`'s choice; d_x has
-    the same bits for every S, the sums agree to float32 rounding). It is
-    built for Dx = Dy = 2 and 3, hidden widths 16/32/64 with one middle
-    layer, and every K up to MAX_K (`k15_smem_bytes` does not depend on K)."""
+    the same bits for every S, the sums agree to float32 rounding). It takes
+    the class of `usable`, every K up to MAX_K (`k15_smem_bytes`)."""
     if x.device.type == "cpu":
         return step_backward_reference(x, coef, consts, eps, idx, d_stats, d_x_new, d_alpha)
     if x.device.type != "cuda":
@@ -1187,10 +1373,10 @@ def _launch_step_backward(x, x_new, idx, stats, coef, consts, eps, d_stats, d_x_
     batch, _, k = x.shape
     dev = x.device
     if not _k15_ok(consts, k):
-        raise ValueError(
+        raise NotImplementedError(
             f"step_backward: no kernel for Dx={dx}, Dy={dy}, hidden={consts['hidden']}, "
-            f"{consts['n_mid']} middle layers, K={k} ({k15_smem_bytes(consts)} B of shared "
-            f"memory, at most {SMEM_LIMIT})"
+            f"{consts['n_mid']} middle layers, K={k} ({k15_smem_bytes(consts, k)} B of shared "
+            f"memory, at most {SMEM_LIMIT}; ROADMAP queue 2 B)"
         )
     slices = _pick_slices("step_backward", _K15, x, consts, slices)
     _require(x, (batch, dx, k), "x", dev)
@@ -1216,7 +1402,7 @@ def _launch_step_backward(x, x_new, idx, stats, coef, consts, eps, d_stats, d_x_
     partial = torch.empty((batch * slices, n_w + dx + dy), **f32)
     grads = torch.empty((n_w + dx + dy,), **f32)
     counters = _arrival_counters(dev, stream, batch)
-    lib = _build.load_library()
+    lib = _library(_lib_key(consts, True))
     _, off_f, off_g = consts["offsets"]
     err = lib.psvo_step_backward(
         x.data_ptr(), x_new.data_ptr(), idx.data_ptr(), stats.data_ptr(), coef.data_ptr(),
@@ -1250,8 +1436,8 @@ class StepForward(torch.autograd.Function):
         consts = dict(consts, packed=packed, sconst=sconst)
         save = any(ctx.needs_input_grad)
         if save and x.is_cuda and not _k15_ok(consts, x.shape[-1]):
-            raise ValueError("StepForward: this configuration has no backward kernel "
-                             "(fused_step.step_backward)")
+            raise NotImplementedError("StepForward: this configuration has no backward kernel "
+                                      "(fused_step.step_backward; ROADMAP queue 2 B)")
         x_new, alpha, stats, idx = step_forward(x, logw, coef, consts, eps, positions)
         if save:
             ctx.save_for_backward(x, x_new, idx, stats, coef, packed, sconst, eps)

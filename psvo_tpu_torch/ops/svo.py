@@ -84,9 +84,14 @@ import torch
 from psvo_tpu_torch.distributions import _HALF_LOG_2PI, _MIN_LOGP
 from psvo_tpu_torch.ops import _build
 from psvo_tpu_torch.ops.fused_step import (
-    HIDDEN_WIDTHS, KERNEL_DIMS, MAX_STATE_AND_CONTROLS, SMEM_LIMIT, _ptr, _require, _unpack_net,
-    control_term, pack_heads,
+    MAX_STATE_AND_CONTROLS, SMEM_LIMIT, _ptr, _require, _unpack_net, control_term, pack_heads,
 )
+
+# K12/K13's own class, narrower than the whole-step kernels' (fused_step's class: any
+# max(Dx + Di, Dy) <= 7, widths 8..64): the shapes svo_sweep.cu instantiates (ROADMAP
+# queue 2 B.4)
+HIDDEN_WIDTHS = (16, 32, 64)  # uniform qb/f/g widths instantiated
+KERNEL_DIMS = ((2, 2), (3, 3))  # (Dx, Dy) instantiated: FitzHugh-Nagumo, Lorenz-63
 
 MAX_M = 1024  # smoothed paths per row (the flattened B·M paths have no limit of their own)
 _NETS = ("qb", "f", "g")
@@ -229,7 +234,7 @@ def _n_weights(dx: int, dy: int, h: int, n_mid: int) -> int:
 def usable(ssm, m: int) -> bool:
     """Whether SVO's sweep for (ssm, m smoothed paths) is in K12/K13's class:
     qb, f and g constant-diagonal relu MLPs of one uniform hidden width in
-    `fused_step.HIDDEN_WIDTHS` whose K13 buffers fit a CTA's shared memory in
+    `HIDDEN_WIDTHS` (this module's) whose K13 buffers fit a CTA's shared memory in
     both designs, and K12's split design's (`k12_ok`; both split designs
     fit every shape the chain designs do, so the class is the chain
     designs', as before the splits); (Dx, Dy) in {(2, 2), (3, 3)}; controls

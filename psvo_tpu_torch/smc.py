@@ -5,10 +5,11 @@ add the incremental log-weight log f + log g − log q, and accumulate
 logZ += lse(logw + α) − lse(logw); with resampling at every step each term is
 the FIVO increment lse(α) − log K.
 
-Three paths, chosen from what the call can observe:
+Three paths, chosen from what the call can observe (`filter_route`):
 
-- the whole-scan class (`ops.fused_step.usable`: diagonal models of the FHN
-  and Lorenz-63 shapes, systematic or multinomial resampling at every step,
+- the whole-scan class (`ops.fused_step.usable`: diagonal models with
+  max(Dx + Di, Dy) <= 7 and relu nets of one width from 8 to 64 with 1 to 4
+  hidden layers, systematic or multinomial resampling at every step,
   stop-gradient) runs
   `_forward_filter_fused`, whose steps t = 1..T−1 are one call of
   `fused_step.scan_forward` — the CUDA kernel K1 for CUDA tensors, its
@@ -37,7 +38,8 @@ Three paths, chosen from what the call can observe:
   backward runs K11 (`resample_gather.GatherParticles`); without
   resampling it launches no kernel. A configuration that the reference
   sends to one of its kernels, but that no port kernel class takes (a
-  (Dx, Dy) or hidden width the kernels are not instantiated for), raises
+  hidden width above 64 or a fifth layer for the whole-step kernels, a
+  (Dx, Dy) or width the trunk kernels are not instantiated for), raises
   NotImplementedError on CUDA tensors rather than run plain PyTorch where
   the reference runs a kernel.
 
@@ -580,9 +582,13 @@ def reference_path(ssm: SSM, cfg: SMCConfig) -> str:
     On CUDA tensors the port's plain loop, the counterpart of that scan
     (resampling through K7/K8, K11 in the backward), serves only "scan"
     configurations that no port kernel class takes; a configuration the
-    reference sends to a kernel whose class the port has not instantiated for
-    it (a (Dx, Dy) outside `trunk.TRUNK_DIMS`, a hidden width outside
-    `trunk.HIDDEN_WIDTHS`) raises. "trunk" takes ESS-adaptive resampling, no
+    reference sends to a kernel whose class the port does not cover for it
+    raises (`filter_route`): for "fused", a width above 64 or a net deeper
+    than the kernels' plans hold in shared memory (at width 64 and K = 2048,
+    more than 10 to 12 hidden layers by Dx and Dy; the port's whole-step
+    class, `fused_step.usable`, takes every other shape of the reference's); for
+    "trunk", a (Dx, Dy) outside `trunk.TRUNK_DIMS` or a hidden width outside
+    `trunk.HIDDEN_WIDTHS`. "trunk" takes ESS-adaptive resampling, no
     resampling (IWAE at a K the trunk kernel tiles), the full FIVO gradient
     and controls: `trunk.usable` takes each at the instantiated widths."""
     if context.get_mesh() is not None:
@@ -661,6 +667,35 @@ def reference_ffbsi_path(ssm: SSM, k: int, m: int) -> str:
     return "kernel" if kernel else "plain"
 
 
+def filter_route(ssm: SSM, cfg: SMCConfig, t_steps: int, cuda: bool,
+                 segmented: bool = False) -> str:
+    """The dispatch of the forward filter over t_steps steps (the counterpart
+    of `smoothing_route`): "fused" (the whole-scan class, `fused_step.usable`:
+    K1/K4, or K14/K15 with `fused_step.SCAN_FUSED` off), "trunk"
+    (`trunk.usable`: K9/K10), "plain" (the plain step loop, on CPU tensors
+    also the counterpart of every kernel path the port has no class for), or
+    "raise" (CUDA only: the reference runs a kernel, `reference_path`, whose
+    class the port does not cover for this configuration). The segmented
+    forward (`forward_filter_segmented`) takes "fused" only with SCAN_FUSED
+    on and never "trunk"; on CUDA tensors it raises only where the reference
+    runs its segments through its whole-step kernel (SCAN_FUSED on). Under a
+    particle mesh the kernels are off: "plain". Both entry points call it
+    before they launch anything."""
+    if t_steps < 2:
+        return "plain"
+    if context.particle_mesh() is None:
+        if fused_step.usable(ssm, cfg) and (fused_step.SCAN_FUSED or not segmented):
+            return "fused"
+        if not segmented and trunk.usable(ssm, cfg):
+            return "trunk"
+    if not cuda:
+        return "plain"
+    ref = reference_path(ssm, cfg)
+    if ref == "scan" or (segmented and (ref != "fused" or not fused_step.SCAN_FUSED)):
+        return "plain"
+    return "raise"
+
+
 def smoothing_route(port_class: bool, reference: str, cuda: bool) -> str:
     """The dispatch of a smoothing sweep (SVO's q_b sweep, FFBSi): "kernel"
     where the port's kernel class takes it (K12/K13, K5/K6 on CUDA tensors,
@@ -714,27 +749,18 @@ def forward_filter(
     cfg = _mesh_cfg(cfg)
     if noise is not None and context.get_mesh() is not None:
         noise = _local_noise(noise)
-    path = None
-    if t_steps >= 2 and context.particle_mesh() is None:
-        if fused_step.usable(ssm, cfg):
-            path = _forward_filter_fused
-        elif trunk.usable(ssm, cfg):
-            path = _forward_filter_trunk
-    kw = {"controls": controls}
-    if ys.is_cuda:
-        if path is not None:
-            return path(ssm, generator, ys, cfg, cache=cache, encoder_inputs=encoder_inputs,
-                        streams=noise, **kw)
-        ref = reference_path(ssm, cfg)
-        if t_steps >= 2 and ref != "scan":
-            raise NotImplementedError(
-                f"this configuration has no CUDA kernel yet: the reference runs it through its "
-                f"{_REFERENCE_KERNELS[ref]}, whose class the port's kernels do not cover for it "
-                "(outside ops.fused_step.usable and ops.trunk.usable; ROADMAP queue 2 B); run "
-                "it on CPU tensors"
-            )
-    elif path is not None and noise is None:
-        return path(ssm, generator, ys, cfg, cache=cache, encoder_inputs=encoder_inputs, **kw)
+    route = filter_route(ssm, cfg, t_steps, ys.is_cuda)
+    if route == "raise":
+        raise NotImplementedError(
+            f"this configuration has no CUDA kernel yet: the reference runs it through its "
+            f"{_REFERENCE_KERNELS[reference_path(ssm, cfg)]}, whose class the port's kernels do "
+            "not cover for it (outside ops.fused_step.usable and ops.trunk.usable; ROADMAP queue "
+            "2 B); run it on CPU tensors"
+        )
+    path = {"fused": _forward_filter_fused, "trunk": _forward_filter_trunk}.get(route)
+    if path is not None and (ys.is_cuda or noise is None):
+        return path(ssm, generator, ys, cfg, cache=cache, encoder_inputs=encoder_inputs,
+                    streams=noise if ys.is_cuda else None, controls=controls)
 
     k = cfg.n_particles
     ys_tm = ys.transpose(0, 1)  # [T, B, Dy]
@@ -1016,8 +1042,9 @@ def forward_filter_segmented(
     through K7/K8 (K11 in the backward), as the unsegmented plain loop does;
     the reference has no per-step kernel route for segments. A CUDA tensor
     that the reference sends to its whole-step kernel but the port's K1
-    class does not take (`reference_path` "fused"; ROADMAP queue 2 B.2)
-    raises. CPU tensors with the noise hook run the plain step body.
+    class does not take (`filter_route` "raise"; ROADMAP queue 2 B) raises
+    before any launch. CPU tensors with the noise hook run the plain step
+    body.
     noise = (eps0, eps_scan, u_scan) over all T replaces the draws. Under
     the active mesh as `forward_filter`: a particle mesh runs the plain body
     per segment, with the sharded island.
@@ -1028,20 +1055,16 @@ def forward_filter_segmented(
     cfg = _mesh_cfg(cfg)
     if noise is not None and context.get_mesh() is not None:
         noise = _local_noise(noise)
-    fused = (t_steps >= 2 and context.particle_mesh() is None and fused_step.usable(ssm, cfg)
-             and fused_step.SCAN_FUSED)
+    route = filter_route(ssm, cfg, t_steps, ys.is_cuda, segmented=True)
+    if route == "raise":
+        raise NotImplementedError(
+            "this configuration has no CUDA kernel yet: the reference runs its segments "
+            "through its whole-step kernel (pallas_step), whose class the port's K1 does not "
+            "cover for it (outside ops.fused_step.usable; ROADMAP queue 2 B); run it on "
+            "CPU tensors"
+        )
     kw = dict(encoder_inputs=encoder_inputs, streams=noise, controls=controls)
-    if ys.is_cuda:
-        if fused:
-            return _forward_filter_segmented_fused(ssm, generator, ys, cfg, n_segments, **kw)
-        if t_steps >= 2 and fused_step.SCAN_FUSED and reference_path(ssm, cfg) == "fused":
-            raise NotImplementedError(
-                "this configuration has no CUDA kernel yet: the reference runs its segments "
-                "through its whole-step kernel (pallas_step), whose class the port's K1 does not "
-                "cover for it (outside ops.fused_step.usable; ROADMAP queue 2 B.2); run it on "
-                "CPU tensors"
-            )
-    elif fused and noise is None:
+    if route == "fused" and (ys.is_cuda or noise is None):
         return _forward_filter_segmented_fused(ssm, generator, ys, cfg, n_segments, **kw)
     return _forward_filter_segmented_plain(ssm, generator, ys, cfg, n_segments, **kw)
 

@@ -929,8 +929,9 @@ def test_step_kernels_match_plain(dx, hidden):
 def test_step_backward_covers_k2048_at_lorenz_dims_and_refuses_outside():
     """K15 at Dx = 3, K = 2048, hidden (64, 64), where K4's shared memory on
     one CTA per row does not reach, against its plain version; beyond its
-    class (K = 4352 > MAX_K, or two middle layers) step_backward and
-    StepForward raise."""
+    class (K = 4352 > MAX_K, or 14 hidden layers of 64, more than any plan's
+    shared memory holds) step_backward and StepForward raise
+    NotImplementedError."""
     dev = _cuda()
     consts, x0, a0, coef, eps, pos, g = _step_operands(dev, 3, 64, b=2, k=2048, t1=1)
     assert not fused_step._k4_ok(consts, 2048) and fused_step._k15_ok(consts, 2048)
@@ -946,11 +947,11 @@ def test_step_backward_covers_k2048_at_lorenz_dims_and_refuses_outside():
     for a, w in zip(got, want):
         assert _rel(a, w) <= 1e-4
     big = torch.zeros((1, 3, 4352), device=dev)
-    with pytest.raises(ValueError, match="no kernel"):
+    with pytest.raises(NotImplementedError, match="no kernel"):
         fused_step.step_backward(big, big, torch.zeros((1, 4352), dtype=torch.int32, device=dev),
                                  stats[:1], coef[0, :1], consts, big, d_stats[:1])
-    deep = dict(consts, n_mid=2)
-    with pytest.raises(ValueError, match="backward kernel"):
+    deep = dict(consts, n_mid=13)
+    with pytest.raises(NotImplementedError, match="backward kernel"):
         fused_step.StepForward.apply(x0.requires_grad_(), a0, coef[0], consts["packed"],
                                      consts["sconst"], deep, eps[0], pos[0])
 
@@ -2313,3 +2314,244 @@ def test_multinomial_train_step_runs_the_kernels(monkeypatch, scan_fused):
                              torch.randn((2, 5, 40), device=dev), l96.smc)
     assert [f.launches - n for f, n in zip(tk, before)] == [4, 4, 4]
     assert bool(torch.isfinite(fwd.log_z).all())
+
+
+# ---------------------------------------------------------------------------
+# The whole-step class beyond the presets' shapes (shape libraries, plans)
+# ---------------------------------------------------------------------------
+
+
+def _class_cfg(hidden, preset="fhn_fivo_k1024_bench", k=256, t=6, **data):
+    """preset with q1/f/g at the widths `hidden`, the data changes, K
+    particles, T steps and one train step a call."""
+    cfg = PRESETS[preset]
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, t_steps=t, **data),
+                              smc=dataclasses.replace(cfg.smc, n_particles=k),
+                              train=dataclasses.replace(cfg.train, steps_per_call=1))
+    return cfg.with_nets(**{n: dataclasses.replace(cfg.net(n), hidden=hidden)
+                            for n in ("q1", "f", "g")})
+
+
+def _class_operands(dev, cfg, b=2, t1=4, seed=0):
+    """K1's operands on the card at cfg's shape (random weights; with
+    controls the coef rows end in random first-layer terms)."""
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(seed), device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        consts = fused_step.prepare(ssm)
+    dx, k = cfg.data.dx, cfg.smc.n_particles
+    x0 = torch.randn((b, dx, k), generator=g, device=dev) * 2.0
+    a0 = torch.randn((b, k), generator=g, device=dev)
+    coef = torch.rand((t1, b, fused_step.coef_width(consts)), generator=g, device=dev) + 0.1
+    eps = torch.randn((t1, b, dx, k), generator=g, device=dev)
+    pos = fused_step.systematic_positions(torch.rand((t1, b), generator=g, device=dev), k)
+    return consts, x0, a0, coef.contiguous(), eps, pos, g
+
+
+def _run_class_kernels(consts, x0, a0, coef, eps, pos, g):
+    """K1 (cache and residuals), K4 on its residuals with random
+    cotangents, the chain of K14 launches and the K15 launch of every step,
+    on one set of operands. Returns their outputs."""
+    with torch.no_grad():
+        k1 = fused_step.scan_forward(x0, a0, coef, consts, eps=eps, positions=pos, cache=True,
+                                     save_res=True)
+        x_last, a_last, stats, x_all, a_all, idx = k1
+        d_stats = torch.randn(stats.shape, generator=g, device=x0.device)
+        cots = [torch.randn(t_.shape, generator=g, device=x0.device) * 0.1
+                for t_ in (x_last, a_last, x_all, a_all)]
+        k4 = fused_step.scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, *cots, eps=eps)
+        x, lw, k14, k15 = x0, a0, [], []
+        for t in range(coef.shape[0]):
+            k14.append(fused_step.step_forward(x, lw, coef[t], consts, eps[t], pos[t]))
+            x, lw = k14[-1][:2]
+        for t in range(coef.shape[0]):
+            x_in = x0 if t == 0 else k14[t - 1][0]
+            k15.append(fused_step.step_backward(x_in, *k14[t][:1], k14[t][3], k14[t][2], coef[t],
+                                                consts, eps[t], d_stats[t], cots[2][t],
+                                                cots[3][t]))
+    return dict(k1=k1, k4=k4, k14=k14, k15=k15, d_stats=d_stats, cots=cots)
+
+
+@pytest.mark.parametrize("dx, dy, di, hidden, k", [
+    (2, 2, 0, (64,), 256), (2, 2, 0, (64, 64, 64), 256), (3, 1, 0, (48, 48), 384),
+    (5, 5, 2, (8, 8), 2048), (1, 1, 0, (24,), 384), (3, 3, 0, (64, 64, 64), 512),
+    (2, 2, 0, (64,) * 4, 256), (7, 7, 0, (64, 64, 64), 2048), (2, 2, 0, (48,) * 5, 256),
+])
+def test_class_kernels_match_plain_at_new_shapes(dx, dy, di, hidden, k):
+    """K1, K4, K14 and K15 at shapes of the whole-step class outside the
+    presets' (each of the plans of fused_step.k1_plan / k4_plan, Dy != Dx,
+    widths 8-64, one to five layers, controls, K not a multiple of 256),
+    from shape libraries or the kernels' own: K1 teacher-forced against
+    scan_forward_reference (the same ancestors, values within 2e-4), K4 on its
+    residuals against scan_backward_reference (1e-4 per leaf, relative L2),
+    the chain of K14 launches bit-equal to K1 and each K15 within 1e-4 of
+    step_backward_reference."""
+    dev = _cuda()
+    cfg = _class_cfg(hidden, k=k, dx=dx, dy=dy, di=di, control_scale=0.5)
+    consts, x0, a0, coef, eps, pos, g = _class_operands(dev, cfg)
+    assert fused_step.shape_fits(consts, k)
+    out = _run_class_kernels(consts, x0, a0, coef, eps, pos, g)
+    x_last, a_last, stats, x_all, a_all, idx = out["k1"]
+    t1, b = coef.shape[:2]
+    x_prev = torch.cat([x0[None], x_all[:-1]]).reshape(t1 * b, dx, k)
+    a_prev = torch.cat([a0[None], a_all[:-1]]).reshape(t1 * b, k)
+    ref = fused_step.scan_forward_reference(
+        x_prev.contiguous(), a_prev.contiguous(), coef.reshape(1, t1 * b, -1), consts,
+        eps.reshape(1, t1 * b, dx, k), pos.reshape(1, t1 * b, k), cache=True, save_res=True)
+    assert torch.equal(ref[5].reshape(t1, b, k), idx)
+    torch.testing.assert_close(ref[3].reshape(t1, b, dx, k), x_all, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(ref[4].reshape(t1, b, k), a_all, rtol=2e-4, atol=2e-4)
+    want = fused_step.scan_backward_reference(x0, coef, consts, eps, idx, out["d_stats"],
+                                              *out["cots"])
+    for a, w in zip(out["k4"], want):
+        assert _rel(a, w) <= 1e-4
+    for i, w in ((0, x_all), (1, a_all), (2, stats), (3, idx)):
+        assert torch.equal(torch.stack([s[i] for s in out["k14"]]), w)
+    for t, got in enumerate(out["k15"]):
+        x_in = x0 if t == 0 else x_all[t - 1]
+        want = fused_step.step_backward_reference(x_in, coef[t], consts, eps[t], idx[t],
+                                                  out["d_stats"][t], out["cots"][2][t],
+                                                  out["cots"][3][t])
+        for a, w in zip(got, want):
+            assert _rel(a, w) <= 1e-4
+
+
+def test_plans_give_the_same_bits(monkeypatch):
+    """At a preset's shape (Dx = 2, hidden (16, 16)), K1/K14 with the weights
+    in device memory and K4/K15 under each plan of fused_step.K4_PLANS
+    (forced, each from its own shape library) give the bits of the library's
+    all-in-shared-memory kernels."""
+    from psvo_tpu_torch.ops import _build
+
+    dev = _cuda()
+    cfg = _class_cfg((16, 16), k=512)
+    consts, x0, a0, coef, eps, pos, g = _class_operands(dev, cfg)
+    state = g.get_state()
+    assert fused_step._lib_key(consts, False) is None and fused_step._lib_key(consts, True) is None
+    want = _run_class_kernels(consts, x0, a0, coef, eps, pos, g)
+    keys = [(2, 2, 16, 1, 1, fused_step.K4_PLANS.index(p)) for p in fused_step.K4_PLANS]
+    for th in _build.prebuild_shapes(keys):
+        th.join()
+    # the gates' answers are cached by shape: forced plans must not outlive the test
+    caches = (fused_step._lib_key_of, fused_step._k1_fits, fused_step._k4_fits,
+              fused_step._k15_fits, fused_step._resident_at)
+    try:
+        for plan in fused_step.K4_PLANS:
+            monkeypatch.setattr(fused_step, "_k1_plan", lambda shape: "stream")
+            monkeypatch.setattr(fused_step, "_k4_plan", lambda shape, p=plan: p)
+            for f in caches:
+                f.cache_clear()
+            assert fused_step._lib_key(consts, True) == keys[fused_step.K4_PLANS.index(plan)]
+            g.set_state(state)
+            got = _run_class_kernels(consts, x0, a0, coef, eps, pos, g)
+            for name in ("k1", "k4"):
+                assert all(torch.equal(a, w) for a, w in zip(got[name], want[name])), (plan, name)
+            for name in ("k14", "k15"):
+                for s_got, s_want in zip(got[name], want[name]):
+                    assert all(torch.equal(a, w) for a, w in zip(s_got, s_want)), (plan, name)
+    finally:
+        for f in caches:
+            f.cache_clear()
+
+
+def test_depth_one_fhn_train_step_runs_k1_and_k4():
+    """The FHN preset with one hidden layer of 64 in q1, f and g (the
+    reference's whole-step class; ROADMAP queue 2 B.1): one make_train_step
+    step on the card launches K1 and K4 once each and no plain version, and
+    leaves the raw gradient of the plain versions on CPU tensors replaying
+    its draws (the CUDA generator's eps0 and seed, K2's streams) within
+    chip_smoke.py's CPU_TOL (norm 1%, cosine 0.99): the two free runs may
+    part at an ancestor whose CDF boundary a last-bit difference crosses,
+    which moves single leaves by percents (q1's by 1.6% in one run)."""
+    from psvo_tpu_torch.smc import _forward_filter_fused
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    dev = _cuda()
+    cfg = _class_cfg((64,), k=256)
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ref = init_ssm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    ys = torch.randn((4, 6, 2), generator=torch.Generator().manual_seed(2))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    state = gen.get_state()
+    launches = (fused_step.scan_forward.launches, fused_step.scan_backward.launches)
+    calls = (fused_step.scan_forward_reference.calls, fused_step.scan_backward_reference.calls)
+    metrics = make_train_step(ssm, cfg, make_optimizer(cfg))(gen, ys.to(dev))
+    assert (fused_step.scan_forward.launches, fused_step.scan_backward.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert (fused_step.scan_forward_reference.calls,
+            fused_step.scan_backward_reference.calls) == calls
+    assert torch.isfinite(metrics["loss"])
+    gen.set_state(state)
+    eps0 = torch.randn((4, 2, 256), generator=gen, device=dev)
+    seed = tuple(int(v) for v in torch.randint(0, 2**32, (2,), generator=gen, device=dev))
+    eps, u0 = fused_step.stream_noise_reference(seed, 5, 4, 2, 256)
+    fwd = _forward_filter_fused(ref, None, ys, cfg.smc, cache=False,
+                                streams=(eps0.cpu(), eps, fused_step.systematic_positions(u0, 256)))
+    (-torch.mean(fwd.log_z)).backward()
+    got, want = (torch.cat([torch.zeros(p.numel()) if p.grad is None
+                            else p.grad.reshape(-1).cpu() for p in m.parameters()]).double()
+                 for m in (ssm, ref))
+    assert abs(float(got.norm() / want.norm()) - 1.0) <= 1e-2
+    assert float(got @ want / (got.norm() * want.norm())) >= 0.99
+
+
+def test_dy1_psvo_train_step_runs_k1_k4_k5_k6():
+    """PSVO on Lorenz-63 seen through one channel (Dy = 1, the reference's
+    drawn projection) with q1, f and g of (48, 48): one make_train_step step
+    on the card launches K1, K4, K5 and K6 once each, no plain version, with
+    a finite loss; smooth_posterior launches K1 and K5 once."""
+    from psvo_tpu_torch.infer import smooth_posterior
+    from psvo_tpu_torch.ops import resample_gather as rg
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    dev = _cuda()
+    cfg = _class_cfg((48, 48), preset="lorenz63_psvo_k1024", k=256, t=8, dy=1)
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    assert fused_step.usable(ssm, cfg.smc) and ffbsi.usable(3, 16, False)
+    ys = torch.randn((4, 8, 1), generator=torch.Generator().manual_seed(2)).to(dev)
+    kernels = (fused_step.scan_forward, fused_step.scan_backward, ffbsi.ffbsi_forward,
+               ffbsi.ffbsi_backward, rg.ancestor_indices_large)
+    plain = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+             ffbsi.ffbsi_forward_reference, ffbsi.ffbsi_backward_reference)
+    launches, calls = [f.launches for f in kernels], [f.calls for f in plain]
+    metrics = make_train_step(ssm, cfg, make_optimizer(cfg))(torch.Generator(device=dev), ys)
+    assert [f.launches - n for f, n in zip(kernels, launches)] == [1, 1, 1, 1, 0]
+    assert [f.calls for f in plain] == calls
+    assert torch.isfinite(metrics["loss"])
+    launches = [f.launches for f in kernels]
+    paths = smooth_posterior(ssm, ys, cfg, torch.Generator(device=dev))
+    assert [f.launches - n for f, n in zip(kernels, launches)] == [1, 0, 1, 0, 0]
+    assert tuple(paths.shape) == (4, 16, 8, 3) and bool(torch.isfinite(paths).all())
+
+
+@pytest.mark.parametrize("hidden", [(72, 72), (64,) * 14])
+def test_outside_the_class_raises_before_any_launch(hidden):
+    """A width of 72, or 14 hidden layers of 64, more than any plan's shared
+    memory holds (at Dy = 1, where the trunk class does not take them
+    either): the reference runs its whole-step
+    kernel (reference_path "fused"), the port's class stops
+    (fused_step.usable), and the filter, a train step and the segmented
+    forward raise NotImplementedError naming ROADMAP queue 2 B before
+    launching anything."""
+    from psvo_tpu_torch import smc
+    from psvo_tpu_torch.ops import resample_gather as rg
+    from psvo_tpu_torch.ops import trunk
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    dev = _cuda()
+    cfg = _class_cfg(hidden, k=256, t=5, dy=1)
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    assert smc.reference_path(ssm, cfg.smc) == "fused" and not fused_step.usable(ssm, cfg.smc)
+    assert not trunk.usable(ssm, cfg.smc)
+    kernels = (fused_step.scan_forward, fused_step.scan_backward, fused_step.step_forward,
+               fused_step.stream_noise, trunk.trunk_forward, rg.ancestor_indices_large,
+               rg.gather_particles)
+    launches = [f.launches for f in kernels]
+    ys = torch.zeros((2, 5, 1), device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 B"):
+        smc.forward_filter(ssm, torch.Generator(device=dev), ys, cfg.smc)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 B"):
+        make_train_step(ssm, cfg, make_optimizer(cfg))(torch.Generator(device=dev), ys)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 B"):
+        smc.forward_filter_segmented(ssm, torch.Generator(device=dev), ys, cfg.smc, 2)
+    assert [f.launches for f in kernels] == launches

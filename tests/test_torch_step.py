@@ -244,7 +244,9 @@ def test_step_backward_class_is_wider_than_the_whole_scan_one():
     """K15 keeps no carry, and its d x_res and ancestors stay in device
     memory, so its shared memory does not depend on K and admits every K up
     to MAX_K = 4096 at Dx = 2 and 3 with hidden (64, 64), where K4 stops at
-    2304 and 1536 on one CTA per row; one middle layer only, as K4."""
+    2304 and 1536 on one CTA per row; any depth of the class, as K4 (as
+    deep as the plan's shared memory holds: not 14 hidden layers of 64,
+    whose activation tiles alone take 14 x 64 x 68 x 4 B = 243,712 B)."""
     widths = {}
     for preset in ("fhn_fivo_k1024_bench", "lorenz63_psvo_k1024"):
         ssm = init_ssm(PRESETS[preset], torch.Generator().manual_seed(0), device="cpu")
@@ -255,5 +257,6 @@ def test_step_backward_class_is_wider_than_the_whole_scan_one():
         # K4's less the carry and d x_res [Dx][K] and the ancestors [K]
         assert fused_step.k15_smem_bytes(consts) == (
             fused_step.k4_smem_bytes(consts, 1024) - 4 * (2 * ssm.dx + 1) * 1024)
-        assert not fused_step._k15_ok(dict(consts, n_mid=2), 1024)
+        assert fused_step._k15_ok(dict(consts, n_mid=2), 1024)
+        assert not fused_step._k15_ok(dict(consts, n_mid=13), 1024)
     assert widths == {2: (2304, 4096), 3: (1536, 4096)}
