@@ -25,7 +25,7 @@ noise): serving through `smooth_posterior` and training through
   (g) serving: eval on batches of 32 and filter_posterior; launch counts
   (h) K4 scan_backward vs scan_backward_reference on one K1 run's residuals
       (small, full; stream mode and in-kernel RNG)
-  (i) training: 3 calls of 10 train steps on FHN minibatches of 32; launch
+  (i) training: 2 calls of 10 train steps on FHN minibatches of 32; launch
       counts, step time, K4 vs its plain version, peak memory, and the
       device time of one more call by kernel (torch.profiler)
   (j) K1 and K4 at the Lorenz-63 shape (Dx=Dy=3, stream mode, K4 with the
@@ -43,7 +43,7 @@ noise): serving through `smooth_posterior` and training through
   (l) serving: smooth_posterior on three batches of 32 Lorenz-63
       trajectories; shapes, launch counts (every K5 launch the staged
       design), time per call
-  (m) training: 3 calls of 10 PSVO train steps on Lorenz-63 minibatches of
+  (m) training: 2 calls of 10 PSVO train steps on Lorenz-63 minibatches of
       32; launch counts (K5 and K6 all staged), step time, peak memory,
       profile by kernel
 
@@ -105,7 +105,7 @@ cache on) with random weights:
   (x) serving: smooth_posterior(method="svo") on three batches of 32;
       shapes, launch counts (every K12 launch the split design), time per
       call, peak memory, profile by kernel
-  (y) training: 3 calls of 10 SVO train steps on minibatches of 32; launch
+  (y) training: 2 calls of 10 SVO train steps on minibatches of 32; launch
       counts (every K12 and K13 launch the split design), loss and
       elbo_svo, step time, peak memory, profile by kernel
 
@@ -123,12 +123,12 @@ step, one K15 launch per step of the backward, streamed noise):
       second launch; the chain of K15 launches against one K4 launch on the
       same residuals; K15 at Dx=3, K=2048, beyond K4's shared memory; device
       time per launch
-  (ab) fhn_fivo_k1024_bench: make_eval_step on three batches of 32 and 3
+  (ab) fhn_fivo_k1024_bench: make_eval_step on three batches of 32 and 2
       calls of 10 train steps; launch counts (99 K14 per filter, 99 K15 per
       step, no K1 or K4, no plain version), loss, step time, peak memory and
       profiles; one step's loss and gradients against the whole-scan path on
       the same streams and weights
-  (ac) lorenz63_psvo_k1024: smooth_posterior on three batches of 32 and 3
+  (ac) lorenz63_psvo_k1024: smooth_posterior on three batches of 32 and 2
       calls of 10 PSVO train steps; launch counts (K14, K15, K5, K6; K5 and
       K6 all staged), times, peak memory and profiles
 
@@ -184,9 +184,9 @@ per-(t, row) first-layer term in the coefficient rows:
       three batches of 32: one K1 launch a call, no plain version, log Z, R2,
       time per call; negated controls move log Z; a call without controls
       is refused
-  (ai) training through make_train_step: 3 calls of 10 steps (B=32) on the
-      whole-scan path (30 K1 and 30 K4 launches) and with
-      `fused_step.SCAN_FUSED` off (2970 K14 and 2970 K15), no plain version,
+  (ai) training through make_train_step: 2 calls of 10 steps (B=32) on the
+      whole-scan path (20 K1 and 20 K4 launches) and with
+      `fused_step.SCAN_FUSED` off (1980 K14 and 1980 K15), no plain version,
       W_u's rows moved; step time, peak memory and a profile by kernel
 
 and `lorenz63_psvo_k1024_t1025_seg8`, the reference's long-T configuration
@@ -203,7 +203,7 @@ smc.ffbsi_segments S=8, one train step a call), with random weights:
       busy, idle share), K1/K4/K5/K6 launches (S=8: 32/16/17/9 a train step,
       16/0/9/0 a serving call), peak memory after reset_peak_memory_stats
       (S=8's train peak must be below S=1's)
-  (al) T=8193: one smooth_posterior call and a train step at S=8 (no
+  (al) T=AL_T=2049: one smooth_posterior call and a train step at S=8 (no
       warm-up: the kernels are warm from ak), the same columns, finite
       losses; S=1's peak reckoned from the shapes and, under 70 GB, a train
       step at S=1, the same columns
@@ -240,10 +240,11 @@ for the presets the reference's kernel gates exclude (general_phases; on
 CUDA tensors it resamples through K7 and K8, K11 in the backward):
 `fhn_iwae_k16` (IWAE, K=16, no resampling, 50 steps a call),
 `fhn_fivo_known_dynamics`, `fhn_fivo_tril` and `fhn_fivo_dirac` (FIVO,
-K=128), B=32, T=100, relu heads (64, 64), random weights, data from seed 0:
+K=128), B=32, T=AP_T=50 in ap (the presets' 100, cut for the run's time),
+relu heads (64, 64), random weights, data from seed 0:
 
-  (ap) each preset: one make_eval_step and one filter_posterior call, 3
-      calls of one train step each (fhn_iwae_k16's 50 steps a call cut to
+  (ap) each preset: one make_eval_step and one filter_posterior call,
+      AP_CALLS=2 calls of one train step each (fhn_iwae_k16's 50 steps a call cut to
       one: the path is host-bound); launches (K7 and K8 T-1 = 99 a filter, K11 99 a
       train step, none for IWAE; no other kernel, no plain version, no CUDA
       tensor in the plain histogram resampler), a finite loss, test ELBO
@@ -347,20 +348,23 @@ device-only profile of one more step):
   (ay) A, lorenz63_svo_k256 with smc.qb_rnn=true (K=256, M=16, B=32, T=100,
       GRU width 64): the forward through K1 (K4 in training), the GRU and the
       q_b sweep eager; one make_eval_step and one smooth_posterior(method=
-      "svo") call (K1 once each), 3 train steps (K1, K4 3 each, no K12/K13)
+      "svo") call (K1 once each), AZ_TRAIN=1 train step (K1, K4 once, no
+      K12/K13)
   (az) B, lorenz63_svo_k256 with known dynamics (eager q_b sweep); C,
       fhn_fivo_dirac as PSVO (K5/K6); D, fhn_fivo_tril as PSVO (eager FFBSi:
       a full-covariance f); E, lorenz96_fivo_k8192_sharded as PSVO with M=16
-      (K=8192, B=8: the trunk path, eager FFBSi past the reference's K cap).
-      One smooth_posterior call (K7/K8 99 each, K9 99 for E, K5 once for C)
-      and 3 train steps (K7/K8/K11 297 each, K9/K10 297 for E, K5/K6 3 for
-      C); E's eager sweep alone timed, with its peak memory
+      (K=8192, B=8: the trunk path, eager FFBSi past the reference's K cap);
+      at T=AZ_T=50 (the presets' 100, cut for the run's time). One
+      smooth_posterior call (K7/K8 49 each, K9 49 for E, K5 once for C) and
+      AZ_TRAIN=1 train step (K7/K8/K11 49 each, K9/K10 49 for E, K5/K6 once
+      for C); E's eager sweep alone timed, with its peak memory
   (ba) lorenz63_psvo_k1024_t1025_seg8 with smc.ess_threshold=0.5, and the
       preset with fused_step.SCAN_FUSED off: the plain step body per segment
       on the card, as the reference runs it; the card against the CPU at
-      T=33, S=4, B=2; at T=1025, S=8, B=8 one smooth_posterior call (K7/K8
-      2048, K5 9) and one train step (K7/K8 4096, K11 2048, K5 17, K6 9),
-      the first of each, no profile (tools/routes_profile.py takes one)
+      T=33, S=4, B=2; at T=BA_T=257 (the preset's 1025 cut for the run's
+      time), S=8, B=8 one smooth_posterior call (K7/K8 512, K5 9) and one
+      train step (K7/K8 1024, K11 512, K5 17, K6 9), the first of each, no
+      profile (tools/routes_profile.py takes one)
 
 and data and particle sharding (sharded_phases): ranks of one gloo process
 group, all on cuda:0 (one card; NCCL refuses two ranks on one GPU), started
@@ -381,24 +385,51 @@ by psvo_tpu_torch.parallel.launch, each importing this file for its jobs
       staged bytes and the call's host-clock time
   (bc) lorenz96_fivo_k8192_sharded on its 1x8 mesh at full width (Dx=Dy=40,
       K=8192, 1024 a rank, B=8, hidden (64, 64), the trained snapshot): one
-      sharded eval at the preset's T=100 (K7/K8 8*99 a rank; its peak
-      memory a rank holds the global draw every rank makes); at T cut to
-      SHARD_T=20 for the run's time, the card against the CPU's unsharded
-      plain loop on the same draws at B=2 (CPU_TOL) and 3 sharded train
-      steps (K7/K8/K11 8*19 a rank), no other kernel and no plain version,
+      sharded eval at T=BC_EVAL_T=50 (the preset's 100, cut for the run's
+      time; K7/K8 8*49 a rank; its peak memory a rank holds the global draw
+      every rank makes); at T cut to
+      SHARD_T=10 for the run's time, the card against the CPU's unsharded
+      plain loop on the same draws at B=2 (CPU_TOL) and one sharded train
+      step (K7/K8/K11 8*9 a rank), no other kernel and no plain version,
       the replicas' gradients equal; collectives, staged host bytes,
       host-clock step time and peak memory a rank
   (bd) lorenz63_psvo_k1024 (M=16) on a 2x2 mesh at B=4, T=SHARD_T: the
       sharded anchor, FFBSi island and data-axis all-reduce against the CPU
-      unsharded on the same draws (CPU_TOL), K7/K8/K11 2*19 a rank; then
+      unsharded on the same draws (CPU_TOL), K7/K8/K11 2*9 a rank; then
       fhn_fivo_k1024_bench on a 4x1 data mesh: one train step through K1/K4
       a rank against the unsharded card step on the same streamed draws
 
+and the kernel classes beyond the presets' shapes, each shape outside the
+kernels' library built into a shape library of its own beside phases c-:
+
+  (be) the whole-step class (STEP_CLASS): K1/K4 (and K14/K15) against
+      their plain versions, the card against the CPU, served and trained
+  (bf) resampling at every K and the trunk class (reach_phases): K7 on
+      weight_rows at K = 300, 384, 1000, 19456, 24576, 32768 (REACH_K: not
+      whole chunks of 256, above the row design's cap, the CDF spread over
+      the cluster at 32768), index-equal to its plain version and timed
+      beside it; K11 at K=32768 (B=8, D=40) within 1e-6 of float64, timed
+      beside zeros + scatter_add_; fhn_fivo_k128 at K=1000 and
+      fhn_fivo_tril at K=384 (the plain loop, K7/K8 99 a filter, K11 99 a
+      train step): the card against the CPU, one eval and filter_posterior
+      call, 3 train steps; the trunk class at REACH_TRUNK's shapes
+      (Lorenz-96 at D=20, K=8192, B=8, T=100; FHN with Dy=1 and ESS 0.5;
+      Lorenz-96 at D=55 (K10's weights in device memory) and at D=40 with
+      three layers of 64 (K9's and K10's), T=20): K9 teacher-forced within
+      2e-4 and K10 per leaf within 1e-4 small and 1e-3 full (relu-tie
+      cotangents zeroed), bit-equal on a relaunch, both timed beside their
+      plain versions and bounds; the card against the CPU at B=2; one eval
+      and filter_posterior call (K7/K8/K9 once a step), 3 train steps at T=100
+      or one at T=20 (K7-K11 once a step), no plain version, peak memory, a
+      profile for D=20; lorenz96_fivo_k8192_sharded from the snapshot at
+      K=32768 (K7 spread over 8 CTAs, K11 on 8 tiles): one eval and
+      filter_posterior call and 2 train steps, no plain version
+
 (ap) begins with K7, K8 and K11 at the general path's shape (B=32, K=128,
 D=2) against their plain versions, timed beside them and beside
-torch.gather and zeros + scatter_add_. The profiles of phases ak, al and ap
-record the device's activity alone (an eager step of ~50,000 operations
-makes the profiler's CPU events cost half a minute a window).
+torch.gather and zeros + scatter_add_. Every profile records the device's
+activity alone (CPU events cost the profiler seconds a window, and half a
+minute on an eager step of ~50,000 operations).
 
 Every phase prints its lines and its seconds; any failure prints its reason
 on stdout and stderr and exits non-zero. A torch.profiler window that comes
@@ -427,7 +458,10 @@ width)", "(controls, FHN width)" and "(controls, Lorenz-96 width)", from
 phases aw and ax); the rows of K1, K4, K5-K11 carry "launches_routes", the
 train steps' launches of phases ay-ba by configuration; K7, K8 and K11 carry
 "launches_sharded" (a rank's in bb-bd) and appear once more as "(sharded,
-per shard)", at the 1x8 mesh's per-shard shape, timed in bb; the last line
+per shard)", at the 1x8 mesh's per-shard shape, timed in bb; K1, K4, K14
+and K15 once more per phase-be configuration; K7 as "(any K)", its times by
+K in "by_k", K11 as "(K=32768)" and K9 and K10 per REACH_TRUNK shape, from
+phase bf; the last line
 is the device record. Imports nothing of JAX: the
 machine with the card has none.
 """
@@ -448,6 +482,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
+TRAIN_CALLS = 2  # phases i, m, y, ab, ac, ai: train calls (3 until the run's time was cut)
 FP32_PEAK = 67e12  # FLOP/s on the CUDA cores, H100 SXM at 700 W
 HBM_PEAK = 3.35e12  # bytes/s
 TF32_PEAK = 495e12  # FLOP/s on the tensor cores, dense TF32
@@ -515,7 +550,7 @@ PROFILE_WINDOWS = {"windows": 0, "empty": 0, "partial": 0, "events": 0, "queue_r
 PROFILER_DEAD = [False]  # PROFILE_TRIES windows in a row came back empty
 
 
-def profiled_kernels(window, with_cpu: bool):
+def profiled_kernels(window):
     """The device events of one torch.profiler window around window() (and a
     synchronize), or None if the profiler recorded none. Now and then a
     window comes back with no device events at all although its kernels ran
@@ -528,7 +563,7 @@ def profiled_kernels(window, with_cpu: bool):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if with_cpu else [ProfilerActivity.CUDA]
+    acts = [ProfilerActivity.CUDA]
     tries = 1 if PROFILER_DEAD[0] else PROFILE_TRIES
     for attempt in range(1, tries + 1):
         PROFILE_WINDOWS["windows"] += 1
@@ -633,7 +668,7 @@ def device_ms_by_kernel(fn, n: int = 20) -> dict:
         for _ in range(n):
             fn()
 
-    kern = profiled_kernels(window, with_cpu=False)
+    kern = profiled_kernels(window)
     if kern is None:
         return {EVENTS_KEY: queued_ms(fn, n)}
     total, count = {}, {}
@@ -696,19 +731,19 @@ L96_TRAIN_KERNELS = dict(L96_KERNELS, K10=("trunk_backward_tf32x3_kernel", "trun
 L96 = "lorenz96_fivo_k8192_sharded"
 
 
-def device_breakdown(fn, n_steps: int, groups: dict, with_cpu: bool = True) -> str:
+def device_breakdown(fn, n_steps: int, groups: dict) -> str:
     """Run fn() once under torch.profiler and split the device time per step
     into the kernels of `groups` (name -> substrings of kernel names) and
     every other kernel; the span runs from the first kernel's start to the
     last one's end, and idle is the share of it with no kernel running (one
     stream, so kernels do not overlap). Each group prints the events it
-    recorded: the profiler may drop some, and its time is theirs. Without
-    `with_cpu` the window records the device's activity alone (the same
-    kernel events; an eager step of ~50,000 operations would otherwise make
-    the profiler spend half a minute on its CPU events)."""
+    recorded: the profiler may drop some, and its time is theirs. The window
+    records the device's activity alone: CPU events would cost the profiler
+    seconds a window, and half a minute on an eager step of ~50,000
+    operations."""
     import torch
 
-    kern = profiled_kernels(fn, with_cpu=with_cpu)
+    kern = profiled_kernels(fn)
     if kern is None:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2090,10 +2125,11 @@ def controls_phases(pt, dev, card: str) -> dict:
              "it was, or a call without controls was not refused")
     phase_done("ah")
 
-    # (ai) fhn_fivo_controls trained: 3 calls of 10 steps, whole scan (K1/K4) then per step (K14/K15)
+    # (ai) fhn_fivo_controls trained: TRAIN_CALLS calls of 10 steps, whole scan (K1/K4) then per
+    # step (K14/K15)
     cfg, batch = controlled_config(False, 128, steps_per_call=10)
     obs_t, ctl_t = cds.obs_train.to(dev), cds.controls_train.to(dev)
-    pick = torch.randint(0, obs_t.shape[0], (3, 10, batch),
+    pick = torch.randint(0, obs_t.shape[0], (TRAIN_CALLS, 10, batch),
                          generator=torch.Generator().manual_seed(SEED + 43))
     c_train = [(obs_t[p_.to(dev)].contiguous(), ctl_t[p_.to(dev)].contiguous()) for p_ in pick]
     ctrl_train = {}
@@ -2130,7 +2166,8 @@ def controls_phases(pt, dev, card: str) -> dict:
         profile = device_breakdown(lambda: train_step(run_gen, c_train[0][0],
                                                       controls=c_train[0][1]),
                                    10, FHN_KERNELS if scan_fused else STEP_KERNELS)
-        print(f"[ai] {card}: training {CTRL}, {path}: 3 calls x 10 steps, B={batch}: loss per call "
+        print(f"[ai] {card}: training {CTRL}, {path}: {len(c_train)} calls x 10 steps, B={batch}: "
+              f"loss per call "
               f"{[round(v, 3) for v in losses]}, grad norm {[round(v, 3) for v in norms]}, "
               f"parameters moved {moved} (W_u rows too {w_u_moved}); launches K1/K4/K14/K15 "
               f"{launch}, plain-version calls {plain_n}; call times {[round(v, 3) for v in call_s]}"
@@ -2138,7 +2175,8 @@ def controls_phases(pt, dev, card: str) -> dict:
               f"peak device memory {peak:.3f} GB above the {held:.3f} GB held before", flush=True)
         print(f"[ai] profile of one more call ({path}): {profile}", flush=True)
         t1c = cfg.data.t_steps - 1
-        want = [30, 30, 0, 0] if scan_fused else [0, 0, 30 * t1c, 30 * t1c]
+        n_steps = 10 * len(c_train)
+        want = [n_steps, n_steps, 0, 0] if scan_fused else [0, 0, n_steps * t1c, n_steps * t1c]
         if launch != want or plain_n:
             fail(f"controlled training ({path}) launched K1/K4/K14/K15 {launch} (want {want}), "
                  f"plain versions {plain_n}")
@@ -2153,6 +2191,7 @@ def controls_phases(pt, dev, card: str) -> dict:
 
 
 LONG_T = "lorenz63_psvo_k1024_t1025_seg8"
+AL_T = 2049  # phase al's long T (8193 until the script's run time had to make room)
 SEG_TOL = {"loss": 1e-6, "grad_rel": 1e-4, "grad_cos": 1 - 1e-6}  # phase aj, set before its first run
 
 
@@ -2185,7 +2224,7 @@ def seg_launches(seg: dict, i: int) -> dict:
     T=8193 and S=8 (phase al)."""
     return {"launches_seg_train": seg["ak"][8]["train"]["launches"][i],
             "launches_seg_serve": seg["ak"][8]["serve"]["launches"][i],
-            "launches_seg_train_t8193": seg["al"][8]["train"]["launches"][i]}
+            f"launches_seg_train_t{AL_T}": seg["al"][8]["train"]["launches"][i]}
 
 
 def segmented_phases(pt, dev, card: str) -> dict:
@@ -2299,7 +2338,7 @@ def segmented_phases(pt, dev, card: str) -> dict:
             ok = tuple(paths.shape) == (b, m, ys_.shape[1], dx) and bool(torch.isfinite(paths).all())
             del paths
             prof = device_breakdown(lambda: pt.smooth_posterior(ssm_, ys_, cfg, run_gen), 1,
-                                    PSVO_KERNELS, with_cpu=False)
+                                    PSVO_KERNELS)
             print(f"[{label}] serving: one smooth_posterior call {host:.3f} ms (host clock), "
                   f"launches K1/K4/K5/K6 {launch}, plain-version calls {plain_n}, paths of the "
                   f"right shape and finite {ok}; peak device memory {peak:.3f} GB ({held:.3f} GB "
@@ -2330,8 +2369,7 @@ def segmented_phases(pt, dev, card: str) -> dict:
             peak = torch.cuda.max_memory_allocated() / 1e9
             losses = [float(m_["loss"]) for m_ in metrics]
             norms = [float(m_["grad_norm"]) for m_ in metrics]
-            prof = device_breakdown(lambda: train_step(run_gen, ys_), 1, PSVO_KERNELS,
-                                    with_cpu=False)
+            prof = device_breakdown(lambda: train_step(run_gen, ys_), 1, PSVO_KERNELS)
             print(f"[{label}] training: {n_train} steps{' after a warm-up' if warm else ''}, host ms "
                   f"{[round(v, 3) for v in step_ms]}, loss {[round(v, 3) for v in losses]}, grad "
                   f"norm {[round(v, 3) for v in norms]}; launches K1/K4/K5/K6 {launch} "
@@ -2358,16 +2396,16 @@ def segmented_phases(pt, dev, card: str) -> dict:
              f"{ak[8]['serve']['launches']} a serving call (want [16, 0, 9, 0])")
     phase_done("ak")
 
-    # (al) T = 8193: serve and train at S = 8; S = 1 only if its reckoned peak fits
-    ds_long = pt.generate_dataset(long_t_config(pt, 8193, 8).data, SEED)
+    # (al) T = AL_T: serve and train at S = 8; S = 1 only if its reckoned peak fits
+    ds_long = pt.generate_dataset(long_t_config(pt, AL_T, 8).data, SEED)
     ys_long = ds_long.obs_train[:b].to(dev).contiguous()
     # the kernels and the glue's operations are warm from (ak): no warm-up calls
-    al = {8: drive("al S=8", long_t_config(pt, 8193, 8), ys_long, 1, warm=False)}
-    reckoned = psvo_peak_gb(8193, b, k, m, dx)
-    print(f"[al] S=1 at T=8193: reckoned peak {reckoned:.3f} GB (the cache, K1's ancestors, the "
+    al = {8: drive("al S=8", long_t_config(pt, AL_T, 8), ys_long, 1, warm=False)}
+    reckoned = psvo_peak_gb(AL_T, b, k, m, dx)
+    print(f"[al] S=1 at T={AL_T}: reckoned peak {reckoned:.3f} GB (the cache, K1's ancestors, the "
           f"Gumbel stack, the support terms and d_xs), under 70 GB: {reckoned < 70}", flush=True)
     if reckoned < 70:
-        al[1] = drive("al S=1", long_t_config(pt, 8193, 1), ys_long, 1, warm=False)
+        al[1] = drive("al S=1", long_t_config(pt, AL_T, 1), ys_long, 1, warm=False)
     phase_done("al")
     return dict(ak=ak, al=al)
 
@@ -2378,6 +2416,8 @@ GENERAL = ("fhn_iwae_k16", "fhn_fivo_known_dynamics", "fhn_fivo_tril", "fhn_fivo
 # CPU tests' bands), the full size as the reference's _grads_agree (benchmark.py:697-729)
 GENERAL_TOL = {"value": 2e-4, "grad_rtol": 5e-3, "grad_atol": 5e-4, "full_loss": 1e-3,
                "full_norm": 1e-2, "full_cos": 0.99}
+AP_CALLS = 2  # phase ap: train calls a preset (3 until the script's run time had to make room)
+AP_T = 50  # phase ap: the presets' T (100 until the script's run time had to make room)
 AS_STEPS = 4  # phase as: CLI train steps a preset (at most AS_STEPS // 2 a call), evals at 2, 4
 GENERAL_PATH_KERNELS = {"K7": ("ancestor_indices",), "K8": ("gather_particles_kernel",),
                         "K11": ("segment_sum",)}
@@ -2584,7 +2624,8 @@ def general_phases(pt, dev, card: str) -> dict:
         # one step a call: fhn_iwae_k16's 50-step calls (a dispatch-amortising chunk of the
         # reference's) take about a minute each on this host-bound path; the CLI (as) runs them
         cfg = pt.PRESETS[preset]
-        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, steps_per_call=1))
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, steps_per_call=1),
+                                  data=dataclasses.replace(cfg.data, t_steps=AP_T))
         t_steps, b = cfg.data.t_steps, cfg.train.batch_size
         resamples = cfg.smc.objective != "iwae"
         per_filter = [t_steps - 1] * 2 + [0] if resamples else [0, 0, 0]
@@ -2609,7 +2650,7 @@ def general_phases(pt, dev, card: str) -> dict:
               f"{eval_ms:.3f} ms", flush=True)
         # training: 3 calls of the preset's steps_per_call steps on random minibatches
         spc = max(int(cfg.train.steps_per_call), 1)
-        pick = torch.randint(0, ds.obs_train.shape[0], (3, spc, b),
+        pick = torch.randint(0, ds.obs_train.shape[0], (AP_CALLS, spc, b),
                              generator=torch.Generator().manual_seed(SEED + 72))
         batches = [ds.obs_train[p_].to(dev) if spc > 1 else ds.obs_train[p_[0]].to(dev)
                    for p_ in pick]
@@ -2632,7 +2673,7 @@ def general_phases(pt, dev, card: str) -> dict:
 
         metrics, tr_l, tr_o, tr_p = counted(calls)
         peak = (torch.cuda.max_memory_allocated() - held) / 1e9
-        n_steps = 3 * spc
+        n_steps = AP_CALLS * spc
         per_step = [t_steps - 1] * 3 if resamples else [0, 0, 0]
         losses = [float(m_["loss"]) for m_ in metrics]
         norms = [float(m_["grad_norm"]) for m_ in metrics]
@@ -2644,16 +2685,14 @@ def general_phases(pt, dev, card: str) -> dict:
         one = batches[0][0] if spc > 1 else batches[0]
         profile = serve_profile = "not taken (the path's profiles are fhn_fivo_tril's)"
         if preset == "fhn_fivo_tril":
-            profile = device_breakdown(lambda: train_step.single_step(run_gen, one), 1, groups,
-                                       with_cpu=False)
-            serve_profile = device_breakdown(lambda: eval_step(run_gen, obs_test), 1, groups,
-                                             with_cpu=False)
+            profile = device_breakdown(lambda: train_step.single_step(run_gen, one), 1, groups)
+            serve_profile = device_breakdown(lambda: eval_step(run_gen, obs_test), 1, groups)
         print(f"[ap] {preset} (B={b}, K={cfg.smc.n_particles}, T={t_steps}, hidden "
               f"{cfg.net('q1').hidden}, {cfg.smc.objective}, resampling {cfg.smc.resampling}; "
               f"smc.reference_path {smc.reference_path(ssm, cfg.smc)!r}): serving K7/K8/K11 "
               f"{ev_l} (eval) / {fp_l} (filter_posterior), test ELBO {test_elbo:.3f}, eval "
               f"{eval_ms:.3f} ms (CUDA events, median of 5 after 2); training {n_steps} steps in "
-              f"3 calls: loss {[round(v, 3) for v in losses]}, grad norm "
+              f"{AP_CALLS} calls: loss {[round(v, 3) for v in losses]}, grad norm "
               f"{[round(v, 3) for v in norms]}, parameters moved {moved}, launches K7/K8/K11 "
               f"{tr_l} (want {[v * n_steps for v in per_step]}), other kernels {tr_o}, plain "
               f"versions {tr_p}; train step {step_ms:.3f} ms (host clock, median of the calls "
@@ -3720,7 +3759,7 @@ def trunk_class_phases(pt, dev, card: str) -> dict:
         want_train = [3 * r_, 3 * r_, 3 * n, 3 * n, 3 * r_, 3 * int(psvo), 3 * int(psvo), 0, 0, 0,
                       0]
         profile = device_breakdown(lambda: step(run_gen, *data[0][:1], **data[0][1]), 1,
-                                   TRUNK_CLASS_KERNELS, with_cpu=False)
+                                   TRUNK_CLASS_KERNELS)
         if psvo:
             serve_out = f"paths {tuple(served.shape)} finite {bool(torch.isfinite(served).all())}"
             serve_ok = bool(torch.isfinite(served).all())
@@ -3771,7 +3810,9 @@ ROUTE_KERNELS = {"K1": ("scan_forward_kernel",), "K4": ("scan_backward_kernel",
                  "K10": ("trunk_backward_kernel", "trunk_backward_tf32x3_kernel",
                          "trunk_sum_ctas_kernel", "trunk_sum_tiles_kernel"),
                  "K11": ("segment_sum",)}
-BA_T, BA_S = 1025, 8  # phase ba: the reference's long-T configuration
+AZ_TRAIN = 1  # phases ay, az: train steps a configuration (3 until the run's time was cut)
+AZ_T = 50  # phase az: T of configurations B-E (the presets' 100 until the run's time was cut)
+BA_T, BA_S = 257, 8  # phase ba: the reference's long-T configuration, T cut from 1025 for time
 
 
 def route_counters():
@@ -3876,7 +3917,7 @@ def route_run(pt, dev, card, phase, label, cfg, ys, load, want_serve, want_train
     norms = [float(m_["grad_norm"]) for m_ in metrics]
     moved = [not torch.equal(a, p.detach()) for a, p in zip(before, ssm.parameters())]
     prof = ("not taken here (tools/routes_profile.py)" if long_t else
-            device_breakdown(lambda: step(gen, obs), 1, ROUTE_KERNELS, with_cpu=False))
+            device_breakdown(lambda: step(gen, obs), 1, ROUTE_KERNELS))
     print(f"[{phase}] {card}: {label} {n_train} train steps at B={batch}: loss "
           f"{[round(v, 3) for v in losses]}, grad norm {[round(v, 3) for v in norms]}, "
           f"{sum(moved)} of {len(moved)} parameter tensors moved, launches "
@@ -3908,6 +3949,8 @@ def eager_routes_phases(pt, dev, card: str) -> dict:
     for i, (label, preset, smc_kw, path) in enumerate(ROUTE_CONFIGS):
         phase = "ay" if label == "A" else "az"
         cfg = route_config(pt, preset, smc_kw)
+        if label != "A":  # the eager routes at T cut for the run's time
+            cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, t_steps=AZ_T))
         n = cfg.data.t_steps - 1  # filter steps
         psvo = cfg.smc.objective == "psvo"
         load = None
@@ -3929,20 +3972,21 @@ def eager_routes_phases(pt, dev, card: str) -> dict:
               f"B={b_cpu}, T=20: {vs_line(vs)}", flush=True)
         if not vs["ok"]:
             fail(f"({phase}) {label}: the card disagrees with the CPU")
+        s_ = AZ_TRAIN
         if label == "A":
-            want_serve, want_train = route_want({"K1": 1}), route_want({"K1": 3, "K4": 3})
+            want_serve, want_train = route_want({"K1": 1}), route_want({"K1": s_, "K4": s_})
         elif preset == L96:
             want_serve = route_want({"K7": n, "K8": n, "K9": n})
-            want_train = route_want({k_: 3 * n for k_ in ("K7", "K8", "K9", "K10", "K11")})
+            want_train = route_want({k_: s_ * n for k_ in ("K7", "K8", "K9", "K10", "K11")})
         else:
             want_serve = route_want({"K7": n, "K8": n, "K5": int(sweep == "kernel")})
-            want_train = route_want({"K7": 3 * n, "K8": 3 * n, "K11": 3 * n,
-                                     "K5": 3 * int(sweep == "kernel"),
-                                     "K6": 3 * int(sweep == "kernel")})
+            want_train = route_want({"K7": s_ * n, "K8": s_ * n, "K11": s_ * n,
+                                     "K5": s_ * int(sweep == "kernel"),
+                                     "K6": s_ * int(sweep == "kernel")})
         batch = cfg.train.batch_size
         ys = ds.obs_train[:batch].to(dev).contiguous()
         r = route_run(pt, dev, card, phase, label, cfg, ys, load, want_serve, want_train,
-                      cfg.smc.objective, eval_too=label == "A")
+                      cfg.smc.objective, eval_too=label == "A", n_train=AZ_TRAIN)
         r.update(vs=vs, route=sweep)
         if preset == L96:  # the eager FFBSi sweep at K = 8192 alone: time and memory
             ssm = r.pop("ssm")
@@ -4298,7 +4342,8 @@ def cli_phases(pt, dev, card: str) -> dict:
 # psvo_tpu_torch.parallel.launch; each rank imports this file for its jobs (shard_rank)
 # ---------------------------------------------------------------------------
 
-SHARD_T = 20  # phases bc, bd: T cut from the presets' 100 for the run's time (bc's eval: 100)
+SHARD_T = 10  # phases bc, bd: T cut from the presets' 100 for the run's time
+BC_EVAL_T = 50  # phase bc's eval: T cut from the preset's 100 for the run's time
 SHARD_B, SHARD_K, SHARD_D = 8, 8192, 40  # lorenz96_fivo_k8192_sharded's resampling step
 SHARD_KERNELS = ("K1", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11")
 
@@ -4656,10 +4701,10 @@ def sharded_phases(pt, dev, card: str) -> dict:
     cpu_s = time.perf_counter() - t0
     b8 = l96.train.batch_size
     # the eval at the preset's T = 100: its peak a rank holds the global draw every rank makes
-    test_full = pt.generate_dataset(pt.PRESETS[L96].data, SEED).obs_test[:b8]
+    test_full = pt.generate_dataset(pt.PRESETS[L96].data, SEED).obs_test[:b8, :BC_EVAL_T]
     l96_job = {"name": "l96", "kind": "config", "cfg": l96.to_dict(), "load": True,
                "vs": (vs_ys, vs_noise), "test": test_full,
-               "train": [ds.obs_train[i * b8:(i + 1) * b8] for i in range(3)]}
+               "train": [ds.obs_train[:b8]]}  # one step (three until the run's time was cut)
     # (bd) lorenz63_psvo_k1024 (M = 16) on a 2 × 2 mesh at B = 4, T = SHARD_T; and
     # fhn_fivo_k1024_bench (B = 32) on a 4 × 1 data mesh, one train step on given streams
     l63 = pt.PRESETS["lorenz63_psvo_k1024"]
@@ -5110,6 +5155,435 @@ def step_class_phases(pt, dev, card: str) -> dict:
     return figures
 
 
+REACH_K = (300, 384, 1000, 19456, 24576, 32768)  # phase bf: K7 at K its previous class refused
+REACH_GENERAL = (("fhn_fivo_k128", 1000), ("fhn_fivo_tril", 384))  # bf: the plain loop at K
+# phase bf: (label, preset, data changes, q1/f/g widths, smc changes, T) of the trunk class
+# beyond the kernels' library: Lorenz-96 at D = 20, FHN seen through one channel, and the
+# plans whose weights stay in device memory (K10's at D = 55, K9's and K10's at three layers),
+# the last two at T = 20 (their check and train step)
+REACH_TRUNK = (
+    ("D20", L96, {"dx": 20, "dy": 20}, (64, 64), {}, 100),
+    ("Dy1", "fhn_fivo_k1024_bench", {"dy": 1}, (64, 64), {"ess_threshold": 0.5}, 100),
+    ("D55", L96, {"dx": 55, "dy": 55}, (64, 64), {}, 20),
+    ("D40x3", L96, {}, (64, 64, 64), {}, 20),
+)
+REACH_BIG_K = 32768  # phase bf: the Lorenz-96 preset at K7's and K11's cap
+
+
+def reach_config(pt, label: str):
+    """Phase bf's trunk configuration `label` at full width, one train step a
+    call, no mesh, random weights."""
+    _, preset, data_kw, hidden, smc_kw, t_steps = next(c for c in REACH_TRUNK if c[0] == label)
+    base = pt.PRESETS[preset]
+    cfg = dataclasses.replace(
+        base, data=dataclasses.replace(base.data, t_steps=t_steps, **data_kw),
+        smc=dataclasses.replace(base.smc, **smc_kw),
+        train=dataclasses.replace(base.train, steps_per_call=1),
+        mesh=dataclasses.replace(base.mesh, data=1, particle=1))
+    return cfg.with_nets(**{n: dataclasses.replace(cfg.net(n), hidden=hidden)
+                            for n in ("q1", "f", "g")})
+
+
+def reach_shapes(pt) -> list:
+    """The trunk shape libraries phase bf's configurations launch
+    (`trunk.lib_key`), for `build_shapes_beside`."""
+    from psvo_tpu_torch.ops import trunk
+
+    keys = []
+    for label, *_ in REACH_TRUNK:
+        cfg = reach_config(pt, label)
+        h = cfg.net("q1").hidden
+        keys += [trunk.lib_key(cfg.data.dx, cfg.data.dy, h[0], len(h) - 1, bwd)
+                 for bwd in (False, True)]
+    return list(dict.fromkeys(k_ for k_ in keys if k_ is not None))
+
+
+def reach_check(ssm, cfg, ys, gen, rng_seed):
+    """K9 and K10 against their plain versions on every step of one kernel
+    run of the trunk path (K7, K8, K9 on the run's own state, K7 against its
+    plain version too): K9 teacher-forced, K10 with random cotangents zeroed
+    on `relu_ties`' particles, both on the same x_res and x_new. Returns the
+    largest per-step relative L2 and |Δ| of K9's outputs and of K10's leaves,
+    whether every K9 step was allclose at 2e-4, the particles zeroed, K7's
+    index mismatches, whether K10 gave the same bits on a relaunch of the
+    last step, and the last step's operands."""
+    import torch
+    from psvo_tpu_torch import smc
+    from psvo_tpu_torch.ops import fused_step, trunk
+    from psvo_tpu_torch.ops import resample_gather as rg
+
+    batch, t_steps, _ = ys.shape
+    k, dx, dy, dev = cfg.smc.n_particles, ssm.dx, ssm.dy, ys.device
+    ys_tm = ys.transpose(0, 1)
+    consts = fused_step.prepare(ssm)
+    aq, cq, sq, logsq = fused_step.fusion_coeffs(ssm, cfg.smc, consts, ys_tm)
+    x, logw = smc._init_t0(ssm, torch.randn((batch, dx, k), generator=gen, device=dev),
+                           ys_tm[0], ys_tm[0])
+    ab = logsq[1:] - consts["log_sf_sum"] - consts["log_sg_sum"] - dy * 0.5 * math.log(2 * math.pi)
+    coef = fused_step.pack_coef(aq[1:], cq[1:], sq[1:], ys_tm[1:], ab)
+    pos = fused_step.systematic_positions(torch.rand((t_steps - 1, batch), generator=gen,
+                                                     device=dev), k)
+    if rng_seed is not None:
+        eps = fused_step.stream_noise(rng_seed, t_steps - 1, batch, dx, k, dev)[0]
+    else:
+        eps = torch.randn((t_steps - 1, batch, dx, k), generator=gen, device=dev)
+    x, logw = x.contiguous(), logw.contiguous()
+    rel9, max9, rel10, max10, close_all, zeroed, k7_bad = [], [], [], [], True, 0, 0
+    for t in range(t_steps - 1):
+        idx = rg.ancestor_indices_large(logw, pos[t].contiguous())
+        k7_bad += int((idx != rg.ancestor_indices_large_reference(logw, pos[t])).sum())
+        x_res = rg.gather_particles(x, idx)
+        noise = {"seed": rng_seed, "t": t} if rng_seed is not None else {"eps": eps[t]}
+        got = trunk.trunk_forward(x_res, coef[t], consts, **noise)
+        want = trunk.trunk_forward_reference(x_res, coef[t], consts, eps[t])
+        rel9.append(torch.stack([(g - w).norm() / w.norm().clamp_min(1e-30)
+                                 for g, w in zip(got, want)]))
+        max9.append(torch.stack([(g - w).abs().max() for g, w in zip(got, want)]))
+        close_all &= close(got, want, 2e-4)
+        x_new, alpha = got
+        keep = ~relu_ties(consts, x_res, x_new)
+        zeroed += int((~keep).sum())
+        bwd = (x_res, x_new, coef[t], consts,
+               torch.randn(x_new.shape, generator=gen, device=dev) * keep[:, None],
+               torch.randn(alpha.shape, generator=gen, device=dev) * keep)
+        got10 = trunk.trunk_backward(*bwd, **noise)
+        want10 = trunk.trunk_backward_reference(*bwd[:4], eps[t], *bwd[4:])
+        rel10.append(torch.stack([(g - w).norm() / w.norm().clamp_min(1e-30)
+                                  for g, w in zip(got10, want10)]))
+        max10.append(torch.stack([(g - w).abs().max() for g, w in zip(got10, want10)]))
+        x, logw = x_new, alpha
+    same = all(torch.equal(a, b) for a, b in zip(got10, trunk.trunk_backward(*bwd, **noise)))
+    return dict(rel9=torch.stack(rel9).amax(0).tolist(), max9=torch.stack(max9).amax(0).tolist(),
+                rel10=torch.stack(rel10).amax(0).tolist(),
+                max10=torch.stack(max10).amax(0).tolist(), close=close_all, zeroed=zeroed,
+                n=(t_steps - 1) * batch * k, k7_bad=k7_bad, same=same,
+                finite=bool(torch.isfinite(x).all()) and all(bool(torch.isfinite(g).all())
+                                                             for g in got10),
+                last=(bwd, noise, eps[-1], got10))
+
+
+def reach_drive(pt, dev, card, label, cfg, ys, load, want_serve, want_train, n_train,
+                profile: bool = False) -> dict:
+    """Serve (make_eval_step, filter_posterior) and train (n_train steps of
+    make_train_step) cfg on the card through the entry points, with launch
+    counts against ROUTE_NAMES' wants and no plain version; host-clock times,
+    peak memory and, with `profile`, a device profile of one more step."""
+    import torch
+
+    kernels, plain = route_counters()
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    if load is not None:
+        load(ssm)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 190)
+    eval_step = pt.make_eval_step(ssm, cfg)
+    t0 = time.perf_counter()
+    (ev, ev_l, ev_p), ev_peak = peak_gb(lambda: kernel_counts(kernels, plain,
+                                                              lambda: eval_step(gen, ys)))
+    ev_ms = (time.perf_counter() - t0) * 1e3
+    means, fp_l, fp_p = kernel_counts(kernels, plain,
+                                      lambda: pt.filter_posterior(ssm, ys, cfg, gen))
+    elbo = float(ev["elbo"])
+    ok = math.isfinite(elbo) and tuple(means.shape) == (ys.shape[0], ys.shape[1], cfg.data.dx) \
+        and bool(torch.isfinite(means).all())
+    print(f"[bf] {card}: {label} served: ELBO {elbo:.3f}, launches "
+          f"{dict(zip(ROUTE_NAMES, ev_l))} (eval) / {dict(zip(ROUTE_NAMES, fp_l))} "
+          f"(filter_posterior), plain versions {ev_p + fp_p}, eval {ev_ms:.1f} ms (host clock, "
+          f"the first call), peak {ev_peak:.3f} GB above what was held; filtered means ok {ok}",
+          flush=True)
+    if not ok or ev_l != want_serve or fp_l != want_serve or ev_p or fp_p:
+        fail(f"(bf) {label} serving: launches {ev_l} / {fp_l} (want {want_serve}), plain "
+             f"versions {ev_p + fp_p}, outputs ok {ok}")
+    step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
+    step_ms = []
+
+    def run():
+        out = []
+        for _ in range(n_train):
+            t1 = time.perf_counter()
+            out.append(step(gen, ys))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    before = [p.detach().clone() for p in ssm.parameters()]
+    (metrics, tr_l, tr_p), peak = peak_gb(lambda: kernel_counts(kernels, plain, run))
+    losses = [float(m_["loss"]) for m_ in metrics]
+    norms = [float(m_["grad_norm"]) for m_ in metrics]
+    moved = sum(not torch.equal(a, p.detach()) for a, p in zip(before, ssm.parameters()))
+    prof = (device_breakdown(lambda: step(gen, ys), 1, ROUTE_KERNELS)
+            if profile else "not taken")
+    print(f"[bf] {card}: {label} {n_train} train steps at B={ys.shape[0]}: loss "
+          f"{[round(v, 3) for v in losses]}, grad norm {[round(v, 3) for v in norms]}, {moved} of "
+          f"{len(before)} parameter tensors moved, launches {dict(zip(ROUTE_NAMES, tr_l))} (want "
+          f"{dict(zip(ROUTE_NAMES, want_train))}), plain versions {tr_p}, step times "
+          f"{[round(v, 1) for v in step_ms]} ms (host clock, the first with its warm-up), peak "
+          f"{peak:.3f} GB above what was held; profile of one more step: {prof}", flush=True)
+    if (tr_l != want_train or tr_p or not moved
+            or not all(math.isfinite(v) for v in losses + norms)):
+        fail(f"(bf) {label} training: launches {tr_l} (want {want_train}), plain versions {tr_p}, "
+             f"losses {losses}, grad norms {norms}, moved {moved}")
+    return dict(serve=ev_l, train=tr_l, step_ms=step_ms, peak=peak, eval_peak=ev_peak,
+                profile=prof, losses=losses)
+
+
+def reach_phases(pt, dev, card: str) -> dict:
+    """Phase (bf): resampling on the card at every K, and the trunk class
+    beyond the kernels' library. K7 on adversarial rows at K its previous
+    class refused (index-equal to its plain version, timed beside it) and
+    K11 at K = 32768 (within 1e-6 of float64); the plain loop at K = 1000
+    (fhn_fivo_k128) and K = 384 (fhn_fivo_tril), served and trained; K9 and
+    K10 at REACH_TRUNK's shapes against their plain versions (K9 within 2e-4
+    teacher-forced, K10 per leaf within 1e-4 small and 1e-3 full, relu ties
+    zeroed, bit-equal on a relaunch), the card against the CPU on the same
+    draws, served and trained; the Lorenz-96 preset at K = 32768, served and
+    trained from the snapshot. Returns the figures for the kernels' JSON
+    record and PERF.md."""
+    import torch
+    from psvo_tpu_torch.ops import _build, fused_step, resampling, trunk
+    from psvo_tpu_torch.ops import resample_gather as rg
+
+    figures = {"k7": {}, "trunk": {}}
+    keys = reach_shapes(pt)
+    print(f"[bf] {card}: {shapes_line(keys)}", flush=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 180)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # K7 at every K of REACH_K: the adversarial rows, systematic and sorted multinomial positions
+    for k in REACH_K:
+        lw = weight_rows(k, g)
+        b = lw.shape[0]
+        sys_pos = fused_step.systematic_positions(torch.rand((b,), generator=g, device=dev),
+                                                  k).contiguous()
+        mult = torch.sort(torch.rand((b, k), generator=g, device=dev), -1).values.contiguous()
+        bad = sum(int((rg.ancestor_indices_large(lw, p_)
+                       != rg.ancestor_indices_large_reference(lw, p_)).sum())
+                  for p_ in (sys_pos, mult))
+        c = rg.k7_cluster(b, k, n_sms)
+        t_ = [pair_ms(lambda: rg.ancestor_indices_large(lw, sys_pos)),
+              pair_ms(lambda: rg.ancestor_indices_large_reference(lw, sys_pos))]
+        bd = bound(2.0 * lw.numel() * (1 + math.log2(k)), nbytes(lw, sys_pos) + lw.numel() * 4)
+        figures["k7"][k] = dict(ms=t_[0], plain=t_[1], bound=bd, cluster=c,
+                                spread=rg.k7_spread(k, c), mismatches=bad)
+        print(f"[bf] {card}: K7 at B={b}, K={k} (C={c}, "
+              f"{'spread' if rg.k7_spread(k, c) else 'whole'} CDF): {bad} index mismatches "
+              f"against its plain version on the adversarial rows (systematic and multinomial); "
+              f"{t_[0]:.4f} ms, plain {t_[1]:.4f} ms ({PAIR_HOW}); bound {bd[0]:.6f} ms ({bd[1]})",
+              flush=True)
+        if bad:
+            fail(f"(bf) K7 at K={k} disagrees with its plain version ({bad} indices)")
+    # K11 at its cap: B = 8, D = 40, on the adversarial rows' ancestors
+    k = rg.MAX_K
+    lw = weight_rows(k, g)
+    pos = fused_step.systematic_positions(torch.rand((8,), generator=g, device=dev),
+                                          k).contiguous()
+    idx = rg.ancestor_indices_large(lw, pos)
+    cot = torch.randn((8, 40, k), generator=g, device=dev)
+    got = rg.segment_sum_scatter(cot, idx)
+    want = rg.segment_sum_scatter_reference(cot.double(), idx)
+    rel11 = float((got.double() - want).norm() / want.norm())
+    max11 = float((got.double() - want).abs().max())
+    same11 = bool(torch.equal(got, rg.segment_sum_scatter(cot, idx)))
+    idx64 = idx.long()[:, None, :].expand(-1, 40, -1)
+    t11 = [pair_ms(lambda: rg.segment_sum_scatter(cot, idx)),
+           pair_ms(lambda: rg.segment_sum_scatter_reference(cot, idx)),
+           pair_ms(lambda: torch.zeros_like(cot).scatter_add_(-1, idx64, cot))]
+    b11 = bound(cot.numel(), 2 * nbytes(cot) + nbytes(idx))
+    print(f"[bf] {card}: K11 at B=8, D=40, K={k} (P, C = {rg.k11_plan(k)}): rel L2 {rel11:.3e}, "
+          f"max |d| {max11:.3e} against float64, bit-equal on a relaunch {same11}; {t11[0]:.4f} "
+          f"ms, plain {t11[1]:.4f} ms, zeros + scatter_add_ {t11[2]:.4f} ms ({PAIR_HOW}); bound "
+          f"{b11[0]:.6f} ms ({b11[1]})", flush=True)
+    if rel11 > 1e-6 or not same11 or not bool((got[want == 0] == 0).all()):
+        fail(f"(bf) K11 at K={k}: rel L2 {rel11} (at most 1e-6), relaunch bit-equal {same11}")
+    figures["k11"] = dict(ms=t11[0], plain=t11[1], library=t11[2], bound=b11, err=max11)
+    del lw, pos, idx, cot, got, want, idx64
+    torch.cuda.empty_cache()
+    phase_done("bf-1: K7 at every K, K11 at its cap")
+
+    # the plain loop where K7's previous class raised: fhn_fivo_k128 at K = 1000, fhn_fivo_tril
+    # at K = 384 (the reference's fused resample kernel there)
+    figures["general"] = {}
+    for preset, k in REACH_GENERAL:
+        cfg = route_config(pt, preset, {"n_particles": k})
+        ssm_cpu = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+        route = pt.smc.filter_route(ssm_cpu, cfg.smc, cfg.data.t_steps, True)
+        n = cfg.data.t_steps - 1
+        b = cfg.train.batch_size
+        ds = pt.generate_dataset(cfg.data, SEED)
+        vs = card_vs_cpu(pt, dev, cfg, ds.obs_train[:4, :20], None, SEED + 181, path="general")
+        print(f"[bf] {card}: {preset} at K={k} (B={b}, T={n + 1}): route {route!r} (the "
+              f"reference's {pt.smc.reference_path(ssm_cpu, cfg.smc)!r}); the card vs the CPU, one "
+              f"train step at B=4, T=20: {vs_line(vs)}", flush=True)
+        if route != "plain" or not vs["ok"]:
+            fail(f"(bf) {preset} at K={k}: route {route}, or the card disagrees with the CPU")
+        ys = ds.obs_train[:b].to(dev).contiguous()
+        r = reach_drive(pt, dev, card, f"{preset} K={k}", cfg, ys, None,
+                        route_want({"K7": n, "K8": n}),
+                        route_want({"K7": 3 * n, "K8": 3 * n, "K11": 3 * n}), 3)
+        r["vs"] = vs
+        figures["general"][preset] = r
+        torch.cuda.empty_cache()
+    phase_done("bf-2: the plain loop at K = 1000 and 384")
+
+    # the trunk class beyond the kernels' library
+    t0 = time.perf_counter()
+    for key in keys:  # built beside phases c-; a build that failed there raises here
+        _build.load_shape_library(key)
+    wait_s = time.perf_counter() - t0
+    for i, (label, preset, _, hidden, _, t_steps) in enumerate(REACH_TRUNK):
+        cfg = reach_config(pt, label)
+        sc, dx, dy = cfg.smc, cfg.data.dx, cfg.data.dy
+        h, n_mid = hidden[0], len(hidden) - 1
+        n = t_steps - 1
+        cpu_ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+        if not (trunk.usable(cpu_ssm, sc) and pt.smc.reference_path(cpu_ssm, sc) == "trunk"):
+            fail(f"(bf) {label}: outside the trunk class, or not the reference's trunk path")
+        plans = dict(k9=trunk.k9_weights(dx, dy, h, n_mid), k9_parts=trunk.k9_plan(dx, dy, h, n_mid),
+                     k10=trunk.k10_weights(dx, dy, h, n_mid),
+                     k10_design=trunk.k10_design(dx, dy, h, n_mid),
+                     key=trunk.lib_key(dx, dy, h, n_mid, True))
+        log = _build.build_log(plans["key"])
+        regs = re.findall(r"Compiling entry function '_ZN4psvo\d+(trunk_\w+?kernel)\w*'.*?Used "
+                          r"(\d+) registers", log, re.S)
+        print(f"[bf] {card}: {label} ({preset}, Dx={dx}, Dy={dy}, q1/f/g {hidden}, "
+              f"K={sc.n_particles}, B={cfg.train.batch_size}, T={t_steps}, kernel_rng "
+              f"{sc.kernel_rng}): K9 weights in {plans['k9']} (pair, prefetch "
+              f"{plans['k9_parts']}), K10 {plans['k10_design']} with weights in {plans['k10']}; "
+              f"library {plans['key']} (waited {wait_s:.1f} s for the builds); registers "
+              + ", ".join(f"{nm} {r_}" for nm, r_ in regs), flush=True)
+        ds = pt.generate_dataset(cfg.data, SEED)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 182 + i)
+        fig = dict(plans=plans)
+        for size in ("small", "full"):
+            small = size == "small"
+            kcfg = cfg if not small else dataclasses.replace(
+                cfg, data=dataclasses.replace(cfg.data, t_steps=10),
+                smc=dataclasses.replace(sc, n_particles=128))
+            b = 4 if small else cfg.train.batch_size
+            ssm = pt.init_ssm(kcfg, torch.Generator().manual_seed(SEED + 3), device=dev)
+            ys = ds.obs_train[:b, :kcfg.data.t_steps].to(dev).contiguous()
+            modes = (("stream", None),) if small else (("in-kernel RNG", (9, 0xBEEF)),)
+            for mode, seed in modes:
+                with torch.no_grad():
+                    r = reach_check(ssm, kcfg, ys, gen, seed)
+                tol10 = 1e-4 if small else 1e-3
+                print(f"[bf] {label} {size} ({mode}, B={b}, K={kcfg.smc.n_particles}, "
+                      f"T={kcfg.data.t_steps}): K9 teacher-forced x_new/α rel L2 "
+                      f"{r['rel9'][0]:.3e}/{r['rel9'][1]:.3e}, max |d| {max(r['max9']):.3e}, every "
+                      f"step allclose 2e-4 {r['close']}; K10 "
+                      + ", ".join(f"{nm} rel L2 {e:.3e}" for nm, e in
+                                  zip(("d_x_res", "d_coef", "d_weights", "d_sconst"), r["rel10"]))
+                      + f" (bound {tol10:g}; {r['zeroed']} of {r['n']} particles' cotangents "
+                      f"zeroed at relu ties), bit-equal on a relaunch {r['same']}; K7 mismatches "
+                      f"{r['k7_bad']}", flush=True)
+                if not (r["close"] and max(r["rel10"]) <= tol10 and r["same"] and r["finite"]
+                        and r["k7_bad"] == 0):
+                    fail(f"(bf) {label} {size}: K9/K10 disagree with their plain versions")
+                fig[size] = dict(err9=max(r["max9"]), err10=max(r["max10"]), rel10=r["rel10"])
+            if not small:  # times on the last step's operands
+                bwd, noise, eps_t, got10 = r["last"]
+                x_res, x_new, coef_t, consts = bwd[:4]
+                with torch.no_grad():
+                    t9 = [pair_ms(lambda: trunk.trunk_forward(x_res, coef_t, consts, **noise)),
+                          time_ms(lambda: trunk.trunk_forward_reference(x_res, coef_t, consts,
+                                                                        eps_t), 3, 1)]
+                    t10 = [pair_ms(lambda: trunk.trunk_backward(*bwd, **noise)),
+                           time_ms(lambda: trunk.trunk_backward_reference(*bwd[:4], eps_t,
+                                                                          *bwd[4:]), 3, 1)]
+                n_part = x_res.shape[0] * x_res.shape[-1]
+                b9 = bound(trunk_flops(consts) * n_part,
+                           2 * nbytes(x_res) + nbytes(coef_t, consts["packed"], consts["sconst"])
+                           + 4 * n_part)
+                b10 = bound(3 * trunk_flops(consts) * n_part,
+                            nbytes(x_res, x_new, consts["packed"], consts["sconst"], bwd[4],
+                                   bwd[5], *got10))
+                print(f"[bf] {card}: {label} K9 {t9[0]:.4f} ms ({PAIR_HOW}), plain {t9[1]:.4f} ms "
+                      f"(CUDA events, median of 3); bound {b9[0]:.4f} ms ({b9[1]}); K10 "
+                      f"{t10[0]:.4f} ms, plain {t10[1]:.4f} ms; bound {b10[0]:.4f} ms ({b10[1]})",
+                      flush=True)
+                fig.update(t9=t9, t10=t10, b9=b9, b10=b10)
+                del r, bwd, noise, got10
+        # the card against the CPU on the same draws (B = 2, T = 20 or the configuration's)
+        t_vs = min(20, t_steps)
+        vs = card_vs_cpu(pt, dev, cfg, ds.obs_train[:2, :t_vs], None, SEED + 186 + i,
+                         path="trunk")
+        print(f"[bf] {card}: {label} the card vs the CPU, one train step at B=2, T={t_vs}: "
+              f"{vs_line(vs)}", flush=True)
+        if not vs["ok"]:
+            fail(f"(bf) {label}: the card disagrees with the CPU")
+        b = cfg.train.batch_size
+        ys = ds.obs_train[:b].to(dev).contiguous()
+        n_train = 3 if t_steps == 100 else 1
+        r = reach_drive(pt, dev, card, label, cfg, ys, None,
+                        route_want({"K7": n, "K8": n, "K9": n}),
+                        route_want({k_: n_train * n for k_ in ("K7", "K8", "K9", "K10", "K11")}),
+                        n_train, profile=label == "D20")
+        fig.update(drive=r, vs=vs)
+        figures["trunk"][label] = fig
+        torch.cuda.empty_cache()
+        phase_done(f"bf-3: {label}")
+
+    # the Lorenz-96 preset at K = 32768 from the snapshot: serving and 2 train steps
+    cfg = route_config(pt, L96, {"n_particles": REACH_BIG_K})
+    snap = os.path.join(ROOT, "checkpoints", "l96_pretrained.npz")
+    ds = pt.generate_dataset(cfg.data, SEED)
+    b, n = cfg.train.batch_size, cfg.data.t_steps - 1
+    ys = ds.obs_train[:b].to(dev).contiguous()
+    r = reach_drive(pt, dev, card, f"{L96} K={REACH_BIG_K}", cfg, ys,
+                    lambda s_: pt.load_params_npz(s_, snap),
+                    route_want({"K7": n, "K8": n, "K9": n}),
+                    route_want({k_: 2 * n for k_ in ("K7", "K8", "K9", "K10", "K11")}), 2)
+    figures["big_k"] = r
+    torch.cuda.empty_cache()
+    phase_done(f"bf-4: {L96} at K = {REACH_BIG_K}")
+    return figures
+
+
+def reach_rows(figs: dict) -> list:
+    """Phase bf's rows of the kernels' JSON record."""
+    # K7 at every K of REACH_K ("by_k"; "ms", "plain_ms" and the bound at K = 32768)
+    # with the K7 launches of bf's train steps (the plain loop at K = 1000 and 384, the trunk
+    # configurations, the preset at K = 32768); K11 at K = 32768 with the preset's train
+    # launches there; K9 and K10 at REACH_TRUNK's shapes with their train launches
+    rows = []
+    bf_runs = ([r_ for r_ in figs["general"].values()] + [f_["drive"] for f_ in figs["trunk"].values()]
+               + [figs["big_k"]])
+    top = figs["k7"][max(REACH_K)]
+    rows.append({
+        "name": "ancestor_indices_large (any K)", "route": "cuda",
+        "source": "psvo_tpu_torch/csrc/resample_gather.cu",
+        "replaces": "psvo_tpu/ops/pallas_resample.py:338",
+        "launches": sum(r_["train"][ROUTE_NAMES.index("K7")] for r_ in bf_runs), "on_path": True,
+        "max_abs_err": float(max(v["mismatches"] for v in figs["k7"].values())), "ms": top["ms"],
+        "plain_ms": top["plain"], "bound_ms": top["bound"][0], "bound_by": top["bound"][1],
+        "library_ms": None,
+        "by_k": {str(k_): {"ms": v["ms"], "plain_ms": v["plain"], "bound_ms": v["bound"][0],
+                           "cluster": v["cluster"], "spread": v["spread"]}
+                 for k_, v in figs["k7"].items()},
+        "launches_by_run": {lbl: r_["train"][ROUTE_NAMES.index("K7")] for lbl, r_ in
+                            zip([*figs["general"], *figs["trunk"], f"K={REACH_BIG_K}"], bf_runs)}})
+    rows.append({
+        "name": f"segment_sum_scatter (K={REACH_BIG_K})", "route": "cuda",
+        "source": "psvo_tpu_torch/csrc/resample_gather.cu",
+        "replaces": "psvo_tpu/ops/pallas_resample.py:902",
+        "launches": figs["big_k"]["train"][ROUTE_NAMES.index("K11")], "on_path": True,
+        "max_abs_err": figs["k11"]["err"], "ms": figs["k11"]["ms"], "plain_ms": figs["k11"]["plain"],
+        "bound_ms": figs["k11"]["bound"][0], "bound_by": figs["k11"]["bound"][1],
+        "library_ms": figs["k11"]["library"]})
+    for label, f_ in figs["trunk"].items():
+        for i, (kernel, src, line, kk) in enumerate((
+                ("trunk_forward", "trunk_forward.cuh", "350", "9"),
+                ("trunk_backward", "trunk_backward.cuh", "419", "10"))):
+            rows.append({
+                "name": f"{kernel} ({label})", "route": "cuda",
+                "source": f"psvo_tpu_torch/csrc/{src}", "replaces": f"psvo_tpu/ops/pallas_trunk.py:{line}",
+                "launches": f_["drive"]["train"][ROUTE_NAMES.index(f"K{kk}")], "on_path": True,
+                "max_abs_err": max(f_["small"][f"err{kk}"], f_["full"][f"err{kk}"]),
+                "ms": f_[f"t{kk}"][0], "plain_ms": f_[f"t{kk}"][1],
+                "bound_ms": f_[f"b{kk}"][0], "bound_by": f_[f"b{kk}"][1], "library_ms": None,
+                "weights": f_["plans"]["k9" if kk == "9" else "k10"],
+                "shape_library": list(f_["plans"]["key"])})
+    return rows
+
+
 def main() -> int:
     # (a) the card
     try:
@@ -5148,12 +5622,17 @@ def main() -> int:
           + ", ".join(f"{n}={r}" for n, r in regs)
           + f"; max spill stores {max((int(s) for _, s in spills), default=0)} B; spill stores "
           + (", ".join(f"{n}={s} B" for n, s in spills if int(s)) or "none"), flush=True)
+    per_src = sorted(((float(t_), os.path.basename(src)) for src, t_ in re.findall(
+        r"-o \S+ (\S+\.cu)\n# exit \d+ after ([\d.]+) s", _build.build_log())), reverse=True)
+    print("[b] each source's compile, the slowest first: "
+          + ", ".join(f"{n} {t_:.1f} s" for t_, n in per_src), flush=True)
     # phase be's shapes outside the library's: built beside phases c-, at nice 19 (waiting for
     # them here would add about 100 s to a run that takes 850-1080 s of its 1200)
     class_shapes = step_class_shapes(pt)
-    build_shapes_beside(class_shapes)
-    print(f"[b] phase be's shape libraries {class_shapes}: building beside the next phases at "
-          f"nice 19", flush=True)
+    reach_keys = reach_shapes(pt)
+    build_shapes_beside(class_shapes + reach_keys)
+    print(f"[b] phase be's shape libraries {class_shapes} and phase bf's {reach_keys}: building "
+          f"beside the next phases at nice 19", flush=True)
     phase_done("a, b: card and build")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -5315,14 +5794,14 @@ def main() -> int:
           f"{full['n_bytes'] / 1e6:.1f} MB)", flush=True)
     phase_done("h")
 
-    # (i) training through make_train_step: 3 calls of steps_per_call steps
+    # (i) training through make_train_step: TRAIN_CALLS calls of steps_per_call steps
     cfg, batch = slice_config(small=False)
     n_per_call = cfg.train.steps_per_call
     ds = pt.generate_dataset(cfg.data, SEED)
     ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
     train_step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
     obs = ds.obs_train.to(dev)
-    pick = torch.randint(0, obs.shape[0], (3, n_per_call, batch),
+    pick = torch.randint(0, obs.shape[0], (TRAIN_CALLS, n_per_call, batch),
                          generator=torch.Generator().manual_seed(SEED + 7))
     train_batches = [obs[p.to(dev)].contiguous() for p in pick]  # [10, B, T, Dy] each
     before = [p.detach().clone() for p in ssm.parameters()]
@@ -5616,7 +6095,7 @@ def main() -> int:
     ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
     train_step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
     obs = lds.obs_train.to(dev)
-    pick = torch.randint(0, obs.shape[0], (3, n_per_call, batch),
+    pick = torch.randint(0, obs.shape[0], (TRAIN_CALLS, n_per_call, batch),
                          generator=torch.Generator().manual_seed(SEED + 7))
     train_batches = [obs[p.to(dev)].contiguous() for p in pick]
     before = [p.detach().clone() for p in ssm.parameters()]
@@ -6299,7 +6778,7 @@ def main() -> int:
     ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
     train_step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
     obs = s_ds.obs_train.to(dev)
-    pick = torch.randint(0, obs.shape[0], (3, n_per_call, batch),
+    pick = torch.randint(0, obs.shape[0], (TRAIN_CALLS, n_per_call, batch),
                          generator=torch.Generator().manual_seed(SEED + 7))
     train_batches = [obs[p.to(dev)].contiguous() for p in pick]
     before = [p.detach().clone() for p in ssm.parameters()]
@@ -6517,7 +6996,7 @@ def main() -> int:
     n_per_call = cfg.train.steps_per_call
     train_step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
     obs = ds.obs_train.to(dev)
-    pick = torch.randint(0, obs.shape[0], (3, n_per_call, batch),
+    pick = torch.randint(0, obs.shape[0], (TRAIN_CALLS, n_per_call, batch),
                          generator=torch.Generator().manual_seed(SEED + 7))
     train_batches = [obs[p.to(dev)].contiguous() for p in pick]
     before = [p.detach().clone() for p in ssm.parameters()]
@@ -6625,7 +7104,7 @@ def main() -> int:
     ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
     train_step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
     obs = lds.obs_train.to(dev)
-    pick = torch.randint(0, obs.shape[0], (3, n_per_call, batch),
+    pick = torch.randint(0, obs.shape[0], (TRAIN_CALLS, n_per_call, batch),
                          generator=torch.Generator().manual_seed(SEED + 7))
     train_batches = [obs[p.to(dev)].contiguous() for p in pick]
     before = [p.detach().clone() for p in ssm.parameters()]
@@ -6857,6 +7336,7 @@ def main() -> int:
     routes_figs = eager_routes_phases(pt, dev, card)
     shard_figs = sharded_phases(pt, dev, card)
     class_figs = step_class_phases(pt, dev, card)
+    reach_figs = reach_phases(pt, dev, card)
 
 
     # K3: the CDF scan and a binary search per particle; logw and u0 in, int32 indices out.
@@ -6883,7 +7363,7 @@ def main() -> int:
          "max_abs_err": results["small"]["max_abs_err"], "ms": k1_ms, "plain_ms": k1_plain,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None, "cluster": k1_c,
          "ms_c1": k1_ms_c1, **seg_launches(seg, 0), **cli_launches(cli_figs, 0)},
-        {"name": "scan_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/scan_backward.cu",
+        {"name": "scan_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/scan_backward.cuh",
          "replaces": "psvo_tpu/ops/pallas_step.py:1425", "launches": k4_train,
          "max_abs_err": max(bwd[("small", "stream")]["maxd"]), "ms": k4_ms, "plain_ms": k4_plain,
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None, "cluster": k4_c,
@@ -6949,7 +7429,7 @@ def main() -> int:
          "on_path": True, "max_abs_err": k14_small_err, "ms": k14_dev[0], "plain_ms": k14_dev[1],
          "bound_ms": k14_bound, "bound_by": k14_by, "library_ms": None, "slices": k14_s,
          "ms_s1": k14_ms_s1},
-        {"name": "step_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/scan_backward.cu",
+        {"name": "step_backward", "route": "cuda", "source": "psvo_tpu_torch/csrc/scan_backward.cuh",
          "replaces": "psvo_tpu/ops/pallas_step.py:1013", "launches": step_train[1],
          "on_path": True, "max_abs_err": k15_small_err, "ms": k15_dev[0], "plain_ms": k15_dev[1],
          "bound_ms": k15_bound, "bound_by": k15_by, "library_ms": None, "slices": k15_s,
@@ -6964,7 +7444,7 @@ def main() -> int:
          "bound_by": ctrl["k1_bound"][1],
          "library_ms": None},
         {"name": "scan_backward (controls)", "route": "cuda",
-         "source": "psvo_tpu_torch/csrc/scan_backward.cu", "replaces": "psvo_tpu/ops/pallas_step.py:1425",
+         "source": "psvo_tpu_torch/csrc/scan_backward.cuh", "replaces": "psvo_tpu/ops/pallas_step.py:1425",
          "launches": ctrl["train"][True][0][1], "on_path": True, "max_abs_err": ctrl["err"]["K4"],
          "ms": ctrl["k4"][0], "plain_ms": ctrl["k4"][1], "bound_ms": ctrl["k4_bound"][0],
          "bound_by": ctrl["k4_bound"][1],
@@ -6976,7 +7456,7 @@ def main() -> int:
          "bound_ms": ctrl["k14_bound"][0], "bound_by": ctrl["k14_bound"][1],
          "library_ms": None},
         {"name": "step_backward (controls)", "route": "cuda",
-         "source": "psvo_tpu_torch/csrc/scan_backward.cu", "replaces": "psvo_tpu/ops/pallas_step.py:1013",
+         "source": "psvo_tpu_torch/csrc/scan_backward.cuh", "replaces": "psvo_tpu/ops/pallas_step.py:1013",
          "launches": ctrl["train"][False][0][3], "on_path": True, "max_abs_err": ctrl["err"]["K15"],
          "ms": ctrl["k15"][0], "plain_ms": ctrl["k15"][1],
          "bound_ms": ctrl["k15_bound"][0], "bound_by": ctrl["k15_bound"][1],
@@ -7117,10 +7597,10 @@ def main() -> int:
     # (K1/K14 teacher-forced)
     for label, fig in class_figs.items():
         rows = [("scan_forward", "k1", "scan_forward.cuh", "1327", "whole scan", 0),
-                ("scan_backward", "k4", "scan_backward.cu", "1425", "whole scan", 1)]
+                ("scan_backward", "k4", "scan_backward.cuh", "1425", "whole scan", 1)]
         if "k14" in fig["times"]:
             rows += [("step_forward", "k14", "scan_forward.cuh", "954", "SCAN_FUSED off", 2),
-                     ("step_backward", "k15", "scan_backward.cu", "1013", "SCAN_FUSED off", 3)]
+                     ("step_backward", "k15", "scan_backward.cuh", "1013", "SCAN_FUSED off", 3)]
         for kernel, kk, src, line, mode, j in rows:
             kernels.append({
                 "name": f"{kernel} ({label})", "route": "cuda",
@@ -7130,6 +7610,7 @@ def main() -> int:
                 "ms": fig["times"][kk][0], "plain_ms": fig["times"][kk][1],
                 "bound_ms": fig["bounds"][kk][0], "bound_by": fig["bounds"][kk][1],
                 "library_ms": None, "shape_library": fig["keys"][j % 2]})
+    kernels += reach_rows(reach_figs)
     print(f"[profiler] {PROFILE_WINDOWS['windows']} profiler windows, "
           f"{PROFILE_WINDOWS['empty']} of them with no device events (run again); of the timing "
           f"windows, {PROFILE_WINDOWS['partial']} recorded part of a kernel's events (timed by "

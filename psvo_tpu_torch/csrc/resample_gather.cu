@@ -27,14 +27,23 @@
 //    own positions against the whole CDF: a binary search for a thread's
 //    first position, then, the positions being sorted, a galloping search
 //    from the previous answer. So a degenerate row (every
-//    position in one ancestor) costs what a healthy one costs. Shared
-//    memory 8·(K + 10) + 4·(K/C + 9) bytes (k7_cluster_smem).
+//    position in one ancestor) costs what a healthy one costs. Slices are
+//    ceil(K/C) particles, the last one shorter and a thread's chunk cut at
+//    the slice's end, so any K from 1 to 32768 (the reference's
+//    pallas_resample.MAX_K_IDX) runs. Where the row's fp64 CDF does not fit
+//    one CTA (8·K bytes: 262 KB at K = 32768) the "spread" variant keeps
+//    each slice's CDF in its own CTA only (32 KB a CTA at C = 8) and
+//    searches a position in the slice whose end first exceeds it, over
+//    DSMEM, adding that slice's offset to each value it reads (the push's
+//    addition, so the same values and indices). Shared memory
+//    8·(K + 10) + 4·(S + 9) bytes, 8·(S + 10) + 4·(S + 9) spread
+//    (k7_cluster_smem).
 //  - "row" (ancestor_indices_large_kernel, the previous design, kept as the
 //    yardstick): one CTA per row (8 at the Lorenz-96 preset), the CDF a
-//    block scan of 32 weights a thread (resample.cuh::block_cdf), and a
-//    binary search of log2(K) dependent probes for every particle. Shared
-//    memory 12·K + 96 bytes: K up to 19200 fits the 227 KB a CTA may use,
-//    which caps both designs.
+//    block scan of ceil(K/256) weights a thread (resample.cuh::block_cdf, any
+//    K), and a binary search of log2(K) dependent probes for every
+//    particle. Shared memory 12·K + 96 bytes: K up to 19362 fits the 227 KB
+//    a CTA may use.
 //
 // K8 gather_particles: x [B, D, K], idx int32 [B, K] -> x[b, d, idx[b, k]].
 // Replaces the gather half of pallas_resample.py::_win_pallas_call
@@ -238,21 +247,28 @@ struct K7Args {
   const float* pos;   // [B, K], sorted along K
   int* idx;           // [B, K]
   int K, cluster;
-  int vec;  // a thread's particles come in and go out by 16 bytes (K/C/kThreads % 4 == 0)
+  int slice;  // S = ceil(K / C): rank r owns [r·S, min(K, (r + 1)·S)), never empty
+  int vec;    // a thread's particles come in and go out by 16 bytes (S a multiple of kThreads,
+              // S/kThreads % 4 == 0)
 };
 
-// Dynamic shared memory of one CTA: the row's fp64 CDF [K], a slot per warp,
-// the slice total (two slots, so that what follows stays 16-byte aligned);
-// the slice's log-weights [K/C], a slot per warp, the slice max.
-inline size_t k7_cluster_smem(int K, int C) {
-  return sizeof(double) * (K + kWarps + 2) + sizeof(float) * (K / C + kWarps + 1);
+// Dynamic shared memory of one CTA. "Whole": the row's fp64 CDF [K], a slot
+// per warp, the slice total (two slots, so that what follows stays 16-byte
+// aligned); the slice's log-weights [S], a slot per warp, the slice max.
+// "Spread" (SPREAD): the same with the slice's CDF [S] in place of the row's.
+inline size_t k7_cluster_smem(int K, int S, bool spread) {
+  return sizeof(double) * ((spread ? S : K) + kWarps + 2) + sizeof(float) * (S + kWarps + 1);
 }
 
-// The first index in [lo, hi) whose cdf exceeds t, or hi (cdf nondecreasing).
-__device__ __forceinline__ int first_above(const double* cdf, int lo, int hi, double t) {
+// The first index in [lo, hi) whose cdf exceeds t, or hi (cdf
+// nondecreasing); with kOff, whose cdf[i] + off exceeds t (a slice's CDF
+// read without its offset).
+template <bool kOff = false>
+__device__ __forceinline__ int first_above(const double* cdf, int lo, int hi, double t,
+                                           double off = 0.0) {
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (cdf[mid] <= t)
+    if ((kOff ? cdf[mid] + off : cdf[mid]) <= t)
       lo = mid + 1;
     else
       hi = mid;
@@ -260,22 +276,47 @@ __device__ __forceinline__ int first_above(const double* cdf, int lo, int hi, do
   return lo;
 }
 
+// first_above from count, every index below it at most t: the step doubles
+// until an index above t (or hi), then the binary search in the last step.
+template <bool kOff = false>
+__device__ __forceinline__ int gallop(const double* cdf, int count, int hi, double t,
+                                      double off = 0.0) {
+  int l = count, h = count, step = 1;
+  while (h < hi && (kOff ? cdf[h] + off : cdf[h]) <= t) {
+    l = h + 1;
+    h = min(hi, h + step);
+    step <<= 1;
+  }
+  return first_above<kOff>(cdf, l, h, t, off);
+}
+
+// SPREAD false ("whole"): every CTA holds the row's whole CDF, each slice
+// pushed into every CTA over DSMEM; K up to about 28,000 at C = 8.
+// SPREAD true ("spread", where the whole CDF does not fit a CTA: K up to
+// 32768): each CTA keeps its own slice's CDF, without its offset, and a
+// position is searched in the slice whose end first exceeds it, over DSMEM
+// with that slice's offset added to each value read: the same additions as
+// the push's, so the same values and the same indices.
+template <bool SPREAD>
 __global__ void __launch_bounds__(kThreads) ancestor_indices_cluster_kernel(const K7Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const cg::cluster_group cluster = cg::this_cluster();
-  const int K = a.K, C = a.cluster, rank = static_cast<int>(cluster.block_rank());
-  const int S = K / C, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  double* cdf = reinterpret_cast<double*>(smem);  // [K]: the row's CDF
-  double* dred = cdf + K;                         // [kWarps]
+  const int K = a.K, C = a.cluster, S = a.slice, rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lo = rank * S;                           // this CTA's slice [lo, lo + n)
+  const int n = min(S, K - lo);
+  double* cdf = reinterpret_cast<double*>(smem);  // [K] (SPREAD: [S]): the CDF
+  double* dred = cdf + (SPREAD ? S : K);          // [kWarps]
   double* total = dred + kWarps;                  // this slice's total, read by the other ranks
   float* lw = reinterpret_cast<float*>(total + 2);  // [S]: this slice's log-weights
   float* red = lw + S;                              // [kWarps]
   float* smax = red + kWarps;  // this slice's max, read by the other ranks
+  double* mine = SPREAD ? cdf : cdf + lo;            // this slice's CDF
   const size_t row = (size_t)(blockIdx.x / C) * K;
-  const int lo = rank * S;                           // this CTA's slice [lo, lo + S)
-  const int per = S >= kThreads ? S / kThreads : 1;  // S < kThreads only at C = 1
-  const int base = tid * per;                        // this thread's [lo + base, lo + base + per)
-  const bool active = base < S;
+  const int per = (S + kThreads - 1) / kThreads;     // a thread's particles
+  const int base = tid * per;                        // this thread's [lo + base, lo + base + cnt)
+  const int cnt = max(0, min(per, n - base));
+  const bool active = cnt > 0;
   float4 p4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // its first four positions, loaded early
   if (active && a.vec) p4 = *reinterpret_cast<const float4*>(a.pos + row + lo + base);
 
@@ -284,13 +325,13 @@ __global__ void __launch_bounds__(kThreads) ancestor_indices_cluster_kernel(cons
   if (active) {
     const float* src = a.logw + row + lo + base;
     if (a.vec) {
-      for (int j = 0; j < per; j += 4) {
+      for (int j = 0; j < cnt; j += 4) {
         const float4 v = *reinterpret_cast<const float4*>(src + j);
         *reinterpret_cast<float4*>(lw + base + j) = v;
         m = fmaxf(m, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
       }
     } else {
-      for (int j = 0; j < per; ++j) {
+      for (int j = 0; j < cnt; ++j) {
         lw[base + j] = src[j];
         m = fmaxf(m, src[j]);
       }
@@ -308,17 +349,15 @@ __global__ void __launch_bounds__(kThreads) ancestor_indices_cluster_kernel(cons
   // 2. the slice's inclusive scan, as block_cdf takes it: a thread's weights
   // in order, the warp's shuffles, the warps in order
   double run = 0.0;
-  if (active) {
-    for (int j = 0; j < per; ++j) {
-      run += static_cast<double>(expf(lw[base + j] - m));
-      cdf[lo + base + j] = run;
-    }
+  for (int j = 0; j < cnt; ++j) {
+    run += static_cast<double>(expf(lw[base + j] - m));
+    mine[base + j] = run;
   }
   double incl = run;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const double n = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += n;
+    const double v = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += v;
   }
   double excl = __shfl_up_sync(kFull, incl, 1);
   if (lane == 0) excl = 0.0;
@@ -326,85 +365,101 @@ __global__ void __launch_bounds__(kThreads) ancestor_indices_cluster_kernel(cons
   __syncthreads();
   for (int w = 0; w < warp; ++w) excl += dred[w];
   if (active) {
-    for (int j = 0; j < per; ++j) cdf[lo + base + j] += excl;
-    if (base + per == S) *total = cdf[lo + S - 1];  // the slice's last value, as its owner holds it
+    for (int j = 0; j < cnt; ++j) mine[base + j] += excl;
+    if (base + cnt == n) *total = mine[n - 1];  // the slice's last value, as its owner holds it
   }
   cluster.sync();
 
   // 3. the offsets: the lower ranks' totals added in rank order; the row
   // total is all of them in that order, the last rank's offset plus its
-  // total, so it equals C_{K-1} as the owner of K - 1 forms it
+  // total, so it equals C_{K-1} as the owner of K - 1 forms it; ends[q], the
+  // last value of slice q, is offs[q] + its total, as the push forms it
   double ts[kMaxCluster];  // the ranks' totals, the loads all issued at once
 #pragma unroll
   for (int q = 0; q < kMaxCluster; ++q) ts[q] = q < C ? *cluster.map_shared_rank(total, q) : 0.0;
+  double offs[kMaxCluster], ends[kMaxCluster];
   double acc = 0.0, off = 0.0;
 #pragma unroll
   for (int q = 0; q < kMaxCluster; ++q) {
+    offs[q] = acc;
     if (q == rank) off = acc;
     if (q < C) acc += ts[q];
+    ends[q] = acc;
   }
   const double row_total = acc;
 
-  // 4. this slice, offset, into every CTA of the cluster (its own in
+  // 4. (whole) this slice, offset, into every CTA of the cluster (its own in
   // place): stores over DSMEM, which need no round trip, then a barrier
-  if (C > 1 && active) {
-    const int step = per % 2 == 0 ? 2 : 1;  // pairs where they stay 16-byte aligned
-    for (int j = 0; j < per; j += step) {
-      const int i = lo + base + j;
-      if (step == 2) {
-        const double2 v = make_double2(cdf[i] + off, cdf[i + 1] + off);
-        for (int q = 0; q < C; ++q) {
-          *reinterpret_cast<double2*>(q == rank ? cdf + i : cluster.map_shared_rank(cdf + i, q)) = v;
+  if constexpr (!SPREAD) {
+    if (C > 1 && active) {
+      const int step = cnt % 2 == 0 && (lo + base) % 2 == 0 ? 2 : 1;  // pairs on 16 bytes
+      for (int j = 0; j < cnt; j += step) {
+        const int i = lo + base + j;
+        if (step == 2) {
+          const double2 v = make_double2(cdf[i] + off, cdf[i + 1] + off);
+          for (int q = 0; q < C; ++q) {
+            *reinterpret_cast<double2*>(q == rank ? cdf + i : cluster.map_shared_rank(cdf + i, q)) = v;
+          }
+        } else {
+          const double v = cdf[i] + off;
+          for (int q = 0; q < C; ++q) *(q == rank ? cdf + i : cluster.map_shared_rank(cdf + i, q)) = v;
         }
-      } else {
-        const double v = cdf[i] + off;
-        for (int q = 0; q < C; ++q) *(q == rank ? cdf + i : cluster.map_shared_rank(cdf + i, q)) = v;
       }
     }
+    cluster.sync();  // every slice in every CTA; no DSMEM access after this
   }
-  cluster.sync();  // every slice in every CTA; no DSMEM access after this
 
   // 5. this thread's positions against the whole CDF: a binary search for the
   // first, a galloping one from the previous count for the rest (sorted)
-  if (!active) return;
-  const float* pos = a.pos + row + lo + base;
-  int* out = a.idx + row + lo + base;
-  int count = 0;
-  double prev = 0.0;
-  for (int j = 0; j < per; j += 4) {
-    float p[4];
-    if (a.vec) {
-      if (j > 0) p4 = *reinterpret_cast<const float4*>(pos + j);
-      p[0] = p4.x;
-      p[1] = p4.y;
-      p[2] = p4.z;
-      p[3] = p4.w;
-    }
-    int got[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      if (j + u >= per) break;
-      const double t = static_cast<double>(a.vec ? p[u] : pos[j + u]) * row_total;
-      if (j + u == 0 || t < prev) {
-        count = first_above(cdf, 0, K, t);
-      } else {
-        int l = count, h = count, step = 1;
-        while (h < K && cdf[h] <= t) {
-          l = h + 1;
-          h = min(K, h + step);
-          step <<= 1;
-        }
-        count = first_above(cdf, l, h, t);
+  if (active) {
+    const float* pos = a.pos + row + lo + base;
+    int* out = a.idx + row + lo + base;
+    int count = 0, slice = 0;  // SPREAD: count is within `slice`
+    double prev = 0.0;
+    for (int j = 0; j < cnt; j += 4) {
+      float p[4];
+      if (a.vec) {
+        if (j > 0) p4 = *reinterpret_cast<const float4*>(pos + j);
+        p[0] = p4.x;
+        p[1] = p4.y;
+        p[2] = p4.z;
+        p[3] = p4.w;
       }
-      prev = t;
-      got[u] = count < K - 1 ? count : K - 1;
-    }
-    if (a.vec) {
-      *reinterpret_cast<int4*>(out + j) = make_int4(got[0], got[1], got[2], got[3]);
-    } else {
-      for (int u = 0; u < 4 && j + u < per; ++u) out[j + u] = got[u];
+      int got[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (j + u >= cnt) break;
+        const double t = static_cast<double>(a.vec ? p[u] : pos[j + u]) * row_total;
+        int at;
+        if constexpr (SPREAD) {
+          int q = 0;  // the first slice whose end exceeds t; C if none
+          while (q < C && ends[q] <= t) ++q;
+          if (q == C) {
+            at = K;
+          } else {
+            const int nq = min(S, K - q * S);
+            const double* rc = q == rank ? cdf : cluster.map_shared_rank(cdf, q);
+            count = (j + u == 0 || t < prev || q != slice)
+                        ? first_above<true>(rc, 0, nq, t, offs[q])
+                        : gallop<true>(rc, count, nq, t, offs[q]);
+            slice = q;
+            at = q * S + count;
+          }
+        } else {
+          count = (j + u == 0 || t < prev) ? first_above(cdf, 0, K, t) : gallop(cdf, count, K, t);
+          at = count;
+        }
+        prev = t;
+        got[u] = at < K - 1 ? at : K - 1;
+      }
+      if (a.vec) {
+        *reinterpret_cast<int4*>(out + j) = make_int4(got[0], got[1], got[2], got[3]);
+      } else {
+        for (int u = 0; u < 4 && j + u < cnt; ++u) out[j + u] = got[u];
+      }
     }
   }
+  if constexpr (SPREAD) cluster.sync();  // the other ranks' searches read this CTA's slice
 }
 
 // ---- K11, the tiled design ----
@@ -644,23 +699,32 @@ inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 
 
 }  // namespace psvo
 
-// K7: design 0 the cluster design on clusters of `cluster` CTAs (K / cluster a
-// whole number of kThreads-particle chunks, or cluster = 1), 1 the row design
-// (one CTA a row; cluster ignored).
+// K7: design 0 the cluster design on clusters of `cluster` CTAs, slices of
+// ceil(K / cluster) particles (every one non-empty), the row's CDF in each
+// CTA ("whole", spread = 0) or a slice's in each ("spread", spread = 1); 1
+// the row design (one CTA a row; cluster and spread ignored).
 extern "C" int psvo_ancestor_indices_large(const float* logw, const float* pos, int* idx, int B,
-                                           int K, int design, int cluster, void* stream) {
+                                           int K, int design, int cluster, int spread,
+                                           void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (design == 0) {
-    if (cluster < 1 || cluster > psvo::kMaxCluster || K % cluster != 0 ||
-        (cluster > 1 && (K / cluster) % psvo::kThreads != 0)) {
+    if (cluster < 1 || cluster > psvo::kMaxCluster || (spread != 0 && spread != 1)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    const int slice = K / cluster, per = slice >= psvo::kThreads ? slice / psvo::kThreads : 1;
-    const int vec = per % 4 == 0 && psvo::aligned16(logw) && psvo::aligned16(pos) &&
-                    psvo::aligned16(idx);
-    const psvo::K7Args a{logw, pos, idx, K, cluster, vec};
-    return static_cast<int>(psvo::launch_clusters(psvo::ancestor_indices_cluster_kernel, a, B,
-                                                  cluster, psvo::k7_cluster_smem(K, cluster), s));
+    const int slice = (K + cluster - 1) / cluster;
+    if ((cluster - 1) * slice >= K) return static_cast<int>(cudaErrorInvalidValue);
+    const int per = (slice + psvo::kThreads - 1) / psvo::kThreads;
+    const int vec = (slice <= psvo::kThreads || slice % psvo::kThreads == 0) &&
+                    K % slice == 0 && per % 4 == 0 && psvo::aligned16(logw) &&
+                    psvo::aligned16(pos) && psvo::aligned16(idx);
+    const psvo::K7Args a{logw, pos, idx, K, cluster, slice, vec};
+    const size_t smem = psvo::k7_cluster_smem(K, slice, spread == 1);
+    return static_cast<int>(
+        spread ? psvo::launch_clusters(psvo::ancestor_indices_cluster_kernel<true>, a, B, cluster,
+                                       smem, s)
+               : psvo::launch_clusters(psvo::ancestor_indices_cluster_kernel<false>, a, B, cluster,
+                                       smem, s));
   }
   const size_t smem = sizeof(double) * (K + psvo::kWarps) + sizeof(float) * (K + psvo::kWarps);
   cudaError_t err = cudaFuncSetAttribute(psvo::ancestor_indices_large_kernel,

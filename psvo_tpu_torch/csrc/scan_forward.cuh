@@ -566,9 +566,10 @@ __global__ void __launch_bounds__(kThreads) step_forward_kernel(const StepArgs a
 }
 
 // The launches and occupancy queries of one mode of K1 and K14 (CTRL) at
-// an instantiated shape: scan_forward.cu builds CTRL = false and
-// scan_forward_ctrl.cu CTRL = true, so that nvcc compiles the two modes in
-// parallel. Each returns a cudaError_t as an int.
+// an instantiated shape: scan_forward.cu builds K1 with CTRL = false and
+// scan_forward_ctrl.cu with CTRL = true, step_forward.cu and
+// step_forward_ctrl.cu K14's, so that nvcc compiles the four in parallel.
+// Each returns a cudaError_t as an int.
 template <bool CTRL>
 int scan_forward_launch(const ScanArgs& a, int dx, int dy, int hidden, cudaStream_t s) {
   return with_dims(dx, dy, hidden, [&](auto d) {
@@ -608,7 +609,8 @@ int step_forward_resident(int dx, int dy, int hidden, size_t smem, int* out) {
   });
 }
 
-// The control builds (CTRL = true), defined in scan_forward_ctrl.cu.
+// The control builds (CTRL = true), defined in scan_forward_ctrl.cu (K1) and
+// step_forward_ctrl.cu (K14).
 int scan_forward_launch_ctrl(const ScanArgs& a, int dx, int dy, int hidden, cudaStream_t s);
 int scan_forward_max_active_ctrl(int dx, int dy, int hidden, int cluster, size_t smem, int* out);
 int step_forward_launch_ctrl(const StepArgs& a, int dx, int dy, int hidden, cudaStream_t s);

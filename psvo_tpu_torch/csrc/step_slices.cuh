@@ -66,8 +66,8 @@ cudaError_t max_resident(void (*kernel)(Args), size_t smem, int* out) {
   return err;
 }
 
-// K15's query, defined in scan_backward.cu (psvo_step_max_active, in
-// scan_forward.cu, serves both kernels).
+// K15's query, defined in step_backward.cu (psvo_step_max_active, in
+// step_forward.cu, serves both kernels).
 int step_backward_resident(int dx, int dy, int hidden, int smem, int* out);
 
 }  // namespace psvo

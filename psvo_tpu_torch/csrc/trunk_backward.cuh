@@ -307,15 +307,20 @@ __device__ __forceinline__ void ctrl_sums(const float* c, float* out) {
   }
 }
 
-template <int DX, int DY, int H, bool CTRL>
+// STREAM (the weights do not fit beside the tiles: ops/trunk.py::k10_weights):
+// the nets are read from device memory (L2-resident) and shared memory holds
+// the tiles alone; the same products in the same order, so the same bits.
+template <int DX, int DY, int H, bool CTRL, bool STREAM = false>
 __global__ void __launch_bounds__(kTrunkThreads, 1) trunk_backward_kernel(const TrunkBwdArgs a) {
   constexpr int DMAX = DX > DY ? DX : DY;
   constexpr int NC = 3 * DX + DY + 1;
   constexpr int NS = 3 * DX + 1;  // per-tile d_coef sums: aq, cq, sq, ab
   constexpr int NCW = NC + (CTRL ? 2 * H : 0), NSW = NS + (CTRL ? 2 * H : 0);  // with controls
   extern __shared__ __align__(16) unsigned char smem[];
-  float* wts = reinterpret_cast<float*>(smem);  // [n_weights], a multiple of 4
-  float* xr = wts + a.n_weights;                // [DX][kPS]: x_res
+  float* base = reinterpret_cast<float*>(smem);
+  // [n_weights], a multiple of 4: in shared memory, or (STREAM) the weights in device memory
+  const float* wts = STREAM ? a.weights : base;
+  float* xr = base + (STREAM ? 0 : a.n_weights);  // [DX][kPS]: x_res
   float* xn = xr + DX * kPS;                    // [DX][kPS]: x_new
   float* ep = xn + DX * kPS;                    // [DX][kPS]: ε
   float* mf = ep + DX * kPS;                    // [DX][kPS]: f's mean, then its cotangent
@@ -333,8 +338,10 @@ __global__ void __launch_bounds__(kTrunkThreads, 1) trunk_backward_kernel(const 
   const float* wf = wts + a.off_f;
   const float* wg = wts + a.off_g;
 
-  for (int i = tid; i < a.n_weights / 4; i += kTrunkThreads) {
-    reinterpret_cast<float4*>(wts)[i] = reinterpret_cast<const float4*>(a.weights)[i];
+  if constexpr (!STREAM) {
+    for (int i = tid; i < a.n_weights / 4; i += kTrunkThreads) {
+      reinterpret_cast<float4*>(base)[i] = reinterpret_cast<const float4*>(a.weights)[i];
+    }
   }
   for (int i = tid; i < n_row; i += kTrunkThreads) part[i] = 0.0f;  // the pads stay 0
 
@@ -942,15 +949,17 @@ static __global__ void trunk_sum_tiles_kernel(const float* __restrict__ coef_par
 // Launch one design's kernel (kTensorCores: trunk_backward_tf32x3_kernel,
 // else the previous trunk_backward_kernel) on a persistent grid, then the two
 // sums.
-template <int DX, int DY, int H, bool kTensorCores, bool CTRL>
+template <int DX, int DY, int H, bool kTensorCores, bool CTRL, bool STREAM = false>
 cudaError_t launch_trunk_backward(const TrunkBwdArgs& a, int max_ctas, float* grads,
                                   float* d_coef, cudaStream_t stream) {
+  static_assert(!(kTensorCores && STREAM), "the tensor-core design keeps its weights resident");
   constexpr int DMAX = DX > DY ? DX : DY;
   constexpr int NC = 3 * DX + DY + 1;
   constexpr int threads = kTensorCores ? kTcThreads : kTrunkThreads;
   const int tile_rows = 5 * DX + DMAX + (a.n_mid + 1) * H;
   const int n_w = kTensorCores ? 2 * padded_net<DX, H, DX>(a.n_mid) + padded_net<DX, H, DY>(a.n_mid)
-                               : a.n_weights;
+                 : STREAM     ? 0
+                              : a.n_weights;
   const size_t smem = sizeof(float) * (n_w + tile_rows * (kTensorCores ? kTS : kPS) +
                                        kParts * kTile + kTile + ((NC + 3) / 4) * 4);
   auto kernel = [] {  // the other design is not instantiated (the small widths have no
@@ -958,7 +967,7 @@ cudaError_t launch_trunk_backward(const TrunkBwdArgs& a, int max_ctas, float* gr
     if constexpr (kTensorCores) {
       return trunk_backward_tf32x3_kernel<DX, DY, H, CTRL>;
     } else {
-      return trunk_backward_kernel<DX, DY, H, CTRL>;
+      return trunk_backward_kernel<DX, DY, H, CTRL, STREAM>;
     }
   }();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -989,11 +998,13 @@ cudaError_t launch_trunk_backward(const TrunkBwdArgs& a, int max_ctas, float* gr
 
 // One (Dx, Dy)'s launches by hidden width: the tensor-core design (design 0)
 // at (40, 40) alone, the previous one (design 1) at every width (in the
-// control mode at the small widths alone, where it is the paths' design).
+// control mode at the small widths alone, where it is the paths' design);
+// weights in shared memory (weights 0) in the kernels' library.
 template <int DX, int DY, bool CTRL>
-int launch_backward_widths(const TrunkBwdArgs& a, int hidden, int design, int max_ctas,
-                           float* grads, float* d_coef, cudaStream_t s) {
+int launch_backward_widths(const TrunkBwdArgs& a, int hidden, int design, int weights,
+                           int max_ctas, float* grads, float* d_coef, cudaStream_t s) {
   constexpr bool kTcWidth = DX == 40 && DY == 40;
+  if (weights != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (design == 0) {
     if constexpr (kTcWidth) {
       switch (hidden) {
@@ -1016,21 +1027,37 @@ int launch_backward_widths(const TrunkBwdArgs& a, int hidden, int design, int ma
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K10 at the instantiated (Dx, Dy) (ops/trunk.py::TRUNK_DIMS) and hidden
-// 16/32/64, with or without controls; returns a cudaError_t. Instantiated
-// once per CTRL, each in its own translation unit.
+// K10 with or without controls; returns a cudaError_t. The kernels' library
+// instantiates the presets' (Dx, Dy) (ops/trunk.py::TRUNK_DIMS) at hidden
+// 16/32/64, weights in shared memory; a trunk shape library the previous
+// design (design 1) at the one shape and weights plan (PSVO_TRUNK_K10: 0
+// shared memory, 1 device memory) that its PSVO_TRUNK_* macros name.
+// Instantiated once per CTRL, each in its own translation unit.
 template <bool CTRL>
 int dispatch_trunk_backward(const TrunkBwdArgs& a, int dx, int dy, int hidden, int design,
-                            int max_ctas, float* grads, float* d_coef, cudaStream_t s) {
+                            int weights, int max_ctas, float* grads, float* d_coef,
+                            cudaStream_t s) {
+#ifdef PSVO_TRUNK_DX
+  if (dx == PSVO_TRUNK_DX && dy == PSVO_TRUNK_DY && hidden == PSVO_TRUNK_H && design == 1 &&
+      weights == PSVO_TRUNK_K10) {
+    return static_cast<int>(
+        launch_trunk_backward<PSVO_TRUNK_DX, PSVO_TRUNK_DY, PSVO_TRUNK_H, false, CTRL,
+                              PSVO_TRUNK_K10 == 1>(a, max_ctas, grads, d_coef, s));
+  }
+#else
   if (dx == 2 && dy == 2) {
-    return launch_backward_widths<2, 2, CTRL>(a, hidden, design, max_ctas, grads, d_coef, s);
+    return launch_backward_widths<2, 2, CTRL>(a, hidden, design, weights, max_ctas, grads, d_coef,
+                                              s);
   }
   if (dx == 3 && dy == 3) {
-    return launch_backward_widths<3, 3, CTRL>(a, hidden, design, max_ctas, grads, d_coef, s);
+    return launch_backward_widths<3, 3, CTRL>(a, hidden, design, weights, max_ctas, grads, d_coef,
+                                              s);
   }
   if (dx == 40 && dy == 40) {
-    return launch_backward_widths<40, 40, CTRL>(a, hidden, design, max_ctas, grads, d_coef, s);
+    return launch_backward_widths<40, 40, CTRL>(a, hidden, design, weights, max_ctas, grads,
+                                                d_coef, s);
   }
+#endif
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

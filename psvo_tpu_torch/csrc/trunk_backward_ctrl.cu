@@ -4,6 +4,6 @@
 #include "trunk_backward.cuh"
 
 namespace psvo {
-template int dispatch_trunk_backward<true>(const TrunkBwdArgs&, int, int, int, int, int, float*,
-                                           float*, cudaStream_t);
+template int dispatch_trunk_backward<true>(const TrunkBwdArgs&, int, int, int, int, int, int,
+                                           float*, float*, cudaStream_t);
 }  // namespace psvo

@@ -221,7 +221,7 @@ __host__ __device__ constexpr int async_smem_floats(int n_weights, int pair, int
   constexpr int DMAX = DX > DY ? DX : DY;
   constexpr int NCP = (3 * DX + DY + 1 + 3) / 4 * 4;
   const bool own_gm = prefetch && !(pair && H >= DY);
-  return n_weights +
+  return n_weights +  // 0 where the weights stay in device memory (STREAM)
          (DMAX + 2 * DX + (prefetch ? 2 : 1) * DX + (pair ? 4 : 2) * H + (own_gm ? DY : 0) +
           kParts) * kTile +
          (prefetch ? 2 : 1) * NCP;
@@ -238,8 +238,12 @@ __host__ __device__ constexpr int async_smem_floats(int n_weights, int pair, int
 // in RNG mode, draw its ε there; g's mean then goes to f's spare hidden
 // layer (or a tile of its own where that is narrower than DY). Without
 // `prefetch` each tile's operands are loaded, and ε drawn, by all 16 warps
-// before it computes. Either part is left out where it does not fit.
-template <int DX, int DY, int H, bool CTRL>
+// before it computes. Either part is left out where it does not fit. With
+// STREAM (the weights do not fit beside the tiles: ops/trunk.py::k9_weights)
+// the nets are read from device memory, where they stay L2-resident (186 KB
+// at (55, 55) with three layers of 64), and shared memory holds the tiles
+// alone: the same products in the same order, so the same bits.
+template <int DX, int DY, int H, bool CTRL, bool STREAM = false>
 __global__ void __launch_bounds__(kAsyncThreads, 1)
     trunk_forward_async_kernel(const TrunkArgs a, int pair, int prefetch) {
   constexpr int DMAX = DX > DY ? DX : DY;
@@ -251,8 +255,10 @@ __global__ void __launch_bounds__(kAsyncThreads, 1)
   constexpr int ND = (DX + 1) / 2 * kTile;            // the draw's (pair of rows, particle) items
   extern __shared__ __align__(16) unsigned char smem[];
   const bool own_gm = prefetch && !(pair && H >= DY);
-  float* wts = reinterpret_cast<float*>(smem);  // [n_weights], a multiple of 4
-  float* xa = wts + a.n_weights;                 // [DMAX][kTile]: x_res
+  float* base = reinterpret_cast<float*>(smem);
+  // [n_weights], a multiple of 4: in shared memory, or (STREAM) the weights in device memory
+  const float* wts = STREAM ? a.weights : base;
+  float* xa = base + (STREAM ? 0 : a.n_weights);  // [DMAX][kTile]: x_res
   float* xb = xa + DMAX * kTile;                 // [DX][kTile]: q1's mean, then x_new
   float* mf = xb + DX * kTile;                   // [DX][kTile]: f's mean
   float* eb = mf + DX * kTile;                   // [1 or 2][DX][kTile]: ε
@@ -295,8 +301,10 @@ __global__ void __launch_bounds__(kAsyncThreads, 1)
     if (tid < kGroup) copy_in(blockIdx.x, eb);
     operands(blockIdx.x, eb, cb, tid, NT);
   }
-  for (int i = tid; i < a.n_weights / 4; i += NT) {
-    reinterpret_cast<float4*>(wts)[i] = reinterpret_cast<const float4*>(a.weights)[i];
+  if constexpr (!STREAM) {
+    for (int i = tid; i < a.n_weights / 4; i += NT) {
+      reinterpret_cast<float4*>(base)[i] = reinterpret_cast<const float4*>(a.weights)[i];
+    }
   }
 
   int slot = 0;
@@ -378,11 +386,12 @@ __global__ void __launch_bounds__(kAsyncThreads, 1)
   }
 }
 
-template <int DX, int DY, int H, bool CTRL>
+template <int DX, int DY, int H, bool CTRL, bool STREAM>
 cudaError_t launch_trunk_async(const TrunkArgs& a, int pair, int prefetch, cudaStream_t stream) {
   if ((pair != 0 && pair != 1) || (prefetch != 0 && prefetch != 1)) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * async_smem_floats<DX, DY, H>(a.n_weights, pair, prefetch);
-  auto kernel = trunk_forward_async_kernel<DX, DY, H, CTRL>;
+  const size_t smem =
+      sizeof(float) * async_smem_floats<DX, DY, H>(STREAM ? 0 : a.n_weights, pair, prefetch);
+  auto kernel = trunk_forward_async_kernel<DX, DY, H, CTRL, STREAM>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -424,41 +433,57 @@ cudaError_t launch_trunk(const TrunkArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// One (Dx, Dy, hidden)'s launch: design 0 the async design, 1 the tile design
-// (uncontrolled only).
-template <int DX, int DY, int H, bool CTRL>
-int launch_design(const TrunkArgs& a, int design, int pair, int prefetch, cudaStream_t s) {
+// One (Dx, Dy, hidden)'s launch: design 0 the async design, its weights in
+// shared memory (weights 0) or, in a shape library whose plan says so, in
+// device memory (weights 1); 1 the tile design (uncontrolled, weights in
+// shared memory, the kernels' own library only).
+template <int DX, int DY, int H, bool CTRL, int WEIGHTS>
+int launch_design(const TrunkArgs& a, int design, int pair, int prefetch, int weights,
+                  cudaStream_t s) {
+  if (weights != WEIGHTS) return static_cast<int>(cudaErrorInvalidValue);
   if (design == 0) {
-    return static_cast<int>(launch_trunk_async<DX, DY, H, CTRL>(a, pair, prefetch, s));
+    return static_cast<int>(launch_trunk_async<DX, DY, H, CTRL, WEIGHTS == 1>(a, pair, prefetch, s));
   }
+#ifndef PSVO_TRUNK_DX
   if constexpr (!CTRL) {
     if (design == 1) return static_cast<int>(launch_trunk<DX, DY, H>(a, s));
   }
+#endif
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int DX, int DY, bool CTRL>
 int launch_widths(const TrunkArgs& a, int hidden, int design, int pair, int prefetch,
-                  cudaStream_t s) {
+                  int weights, cudaStream_t s) {
   switch (hidden) {
-    case 16: return launch_design<DX, DY, 16, CTRL>(a, design, pair, prefetch, s);
-    case 32: return launch_design<DX, DY, 32, CTRL>(a, design, pair, prefetch, s);
-    case 64: return launch_design<DX, DY, 64, CTRL>(a, design, pair, prefetch, s);
+    case 16: return launch_design<DX, DY, 16, CTRL, 0>(a, design, pair, prefetch, weights, s);
+    case 32: return launch_design<DX, DY, 32, CTRL, 0>(a, design, pair, prefetch, weights, s);
+    case 64: return launch_design<DX, DY, 64, CTRL, 0>(a, design, pair, prefetch, weights, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// K9 at the instantiated (Dx, Dy) = (2, 2), (3, 3), (40, 40) (ops/trunk.py::
-// TRUNK_DIMS) and hidden 16/32/64, with or without controls; returns a
-// cudaError_t. Instantiated once per CTRL, each in its own translation unit.
+// K9 with or without controls; returns a cudaError_t. The kernels' library
+// instantiates the presets' (Dx, Dy) = (2, 2), (3, 3), (40, 40) (ops/trunk.py::
+// TRUNK_DIMS) at hidden 16/32/64, weights in shared memory; a trunk shape
+// library (ops/_build.py::load_shape_library) the one shape and weights plan
+// that its PSVO_TRUNK_* macros name. Instantiated once per CTRL, each in its
+// own translation unit.
 template <bool CTRL>
 int dispatch_trunk_forward(const TrunkArgs& a, int dx, int dy, int hidden, int design, int pair,
-                           int prefetch, cudaStream_t s) {
-  if (dx == 2 && dy == 2) return launch_widths<2, 2, CTRL>(a, hidden, design, pair, prefetch, s);
-  if (dx == 3 && dy == 3) return launch_widths<3, 3, CTRL>(a, hidden, design, pair, prefetch, s);
-  if (dx == 40 && dy == 40) {
-    return launch_widths<40, 40, CTRL>(a, hidden, design, pair, prefetch, s);
+                           int prefetch, int weights, cudaStream_t s) {
+#ifdef PSVO_TRUNK_DX
+  if (dx == PSVO_TRUNK_DX && dy == PSVO_TRUNK_DY && hidden == PSVO_TRUNK_H) {
+    return launch_design<PSVO_TRUNK_DX, PSVO_TRUNK_DY, PSVO_TRUNK_H, CTRL, PSVO_TRUNK_K9>(
+        a, design, pair, prefetch, weights, s);
   }
+#else
+  if (dx == 2 && dy == 2) return launch_widths<2, 2, CTRL>(a, hidden, design, pair, prefetch, weights, s);
+  if (dx == 3 && dy == 3) return launch_widths<3, 3, CTRL>(a, hidden, design, pair, prefetch, weights, s);
+  if (dx == 40 && dy == 40) {
+    return launch_widths<40, 40, CTRL>(a, hidden, design, pair, prefetch, weights, s);
+  }
+#endif
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

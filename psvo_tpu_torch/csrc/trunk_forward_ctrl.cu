@@ -5,5 +5,5 @@
 
 namespace psvo {
 template int dispatch_trunk_forward<true>(const TrunkArgs&, int, int, int, int, int, int,
-                                          cudaStream_t);
+                                          int, cudaStream_t);
 }  // namespace psvo

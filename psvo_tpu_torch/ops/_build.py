@@ -9,12 +9,15 @@ A failed build raises with the compiler's output; nothing falls back.
 
 The whole-step kernels K1/K4/K14/K15 are templates over their shape (Dx,
 Dy, the hidden width, K4/K15's depth and the plans of `fused_step.k1_plan` /
-`k4_plan`). The library instantiates the presets' shapes (`csrc/
-step_math.cuh::with_dims`); any other shape of their class is compiled on
-its first use by `load_shape_library`: the three sources of those kernels
-(`SHAPE_SOURCES`) with the shape as `-D` macros, one nvcc per source, into
-a library of their own under `_build/<hash>/shape_.../`, keyed by the same
-hash and the shape. `prebuild_shapes` starts such builds in the background.
+`k4_plan`), and so are the trunk kernels K9/K10 (Dx, Dy, the hidden width
+and where each keeps its weights, `trunk.k9_weights` / `k10_weights`). The
+library instantiates the presets' shapes (`csrc/step_math.cuh::with_dims`,
+`csrc/trunk_forward.cuh::dispatch_trunk_forward`); any other shape of their
+classes is compiled on its first use by `load_shape_library`: the sources
+of those kernels (`SHAPE_SOURCES`, `TRUNK_SOURCES`) with the shape as `-D`
+macros, one nvcc per source, into a library of their own under
+`_build/<hash>/shape_.../` or `trunk_.../`, keyed by the same hash and the
+shape. `prebuild_shapes` starts such builds in the background.
 """
 
 from __future__ import annotations
@@ -58,16 +61,18 @@ SIGNATURES = {
     "psvo_ffbsi_forward": [_P] * 13 + [_I] * 8 + [_P],
     # K6 ends in (..., dx, design, stream): 0 the staged design, 1 the row one
     "psvo_ffbsi_backward": [_P] * 18 + [_I] * 6 + [_P],
-    # K7 and K11 end in (..., design, ...plan, stream): 0 the new design, 1 the row one
-    "psvo_ancestor_indices_large": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # K7 and K11 end in (..., design, ...plan, stream): 0 the new design, 1 the row one; K7's
+    # plan (cluster, spread), K11's (per, cluster)
+    "psvo_ancestor_indices_large": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "psvo_gather_particles": [_P, _P, _P, _I, _I, _I, _P],
-    # K9 ends in (..., off_g, design, pair, prefetch, ctrl, stream): 0 the async design, 1 the
-    # tile one; ctrl 1 when the coef rows carry the controls' first-layer terms
-    "psvo_trunk_forward": [_P] * 7 + [_U32, _U32] + [_I] * 15 + [_P],
+    # K9 ends in (..., off_g, design, pair, prefetch, wplan, ctrl, stream): 0 the async design,
+    # 1 the tile one; wplan 1 when the weights stay in device memory; ctrl 1 when the coef rows
+    # carry the controls' first-layer terms
+    "psvo_trunk_forward": [_P] * 7 + [_U32, _U32] + [_I] * 16 + [_P],
     "psvo_segment_sum_scatter": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # K10 ends in (..., max_ctas, design, ctrl, stream): 0 the tensor-core design, 1 the previous
-    # one; ctrl as K9's
-    "psvo_trunk_backward": [_P] * 13 + [_U32, _U32] + [_I] * 14 + [_P],
+    # K10 ends in (..., max_ctas, design, wplan, ctrl, stream): 0 the tensor-core design, 1 the
+    # previous one; wplan and ctrl as K9's
+    "psvo_trunk_backward": [_P] * 13 + [_U32, _U32] + [_I] * 15 + [_P],
     # K12 ends in (..., off_g, design, paths, tile_rows, steps, stream): 0 the split design, 1 the
     # chain; a non-null cbias (the sixth pointer) runs the split design's control mode
     "psvo_svo_forward": [_P] * 10 + [_I] * 14 + [_P],
@@ -82,8 +87,27 @@ SIGNATURES = {
 }
 
 # the sources of K1/K14 (both control modes) and K4/K15, which a shape library holds
-SHAPE_SOURCES = ("scan_forward.cu", "scan_forward_ctrl.cu", "scan_backward.cu")
+SHAPE_SOURCES = ("scan_forward.cu", "scan_forward_ctrl.cu", "step_forward.cu",
+                 "step_forward_ctrl.cu", "scan_backward.cu", "step_backward.cu")
 SHAPE_MACROS = ("DX", "DY", "H", "NMID", "FWD", "BWD")  # PSVO_SHAPE_<name> (step_math.cuh)
+# the sources of K9 and K10 (both control modes), which a trunk shape library holds, and its
+# macros PSVO_TRUNK_<name>: the shape and where K9's and K10's weights stay (0 shared memory,
+# 1 device memory; trunk_forward.cuh, trunk_backward.cuh)
+TRUNK_SOURCES = ("trunk_forward.cu", "trunk_forward_ctrl.cu", "trunk_backward.cu",
+                 "trunk_backward_ctrl.cu")
+TRUNK_MACROS = ("DX", "DY", "H", "K9", "K10")
+# a shape library's kind by its key: ("trunk", dx, dy, hidden, k9 weights, k10 weights), or
+# the whole-step kernels' (dx, dy, hidden, n_mid, k1 plan, k4 plan)
+_KINDS = {"trunk": (TRUNK_SOURCES, "PSVO_TRUNK_", TRUNK_MACROS),
+          "step": (SHAPE_SOURCES, "PSVO_SHAPE_", SHAPE_MACROS)}
+
+
+def _kind(shape: tuple) -> str:
+    return "trunk" if shape and shape[0] == "trunk" else "step"
+
+
+def _shape_ints(shape: tuple) -> tuple:
+    return tuple(int(v) for v in (shape[1:] if _kind(shape) == "trunk" else shape))
 
 
 def sources() -> list[Path]:
@@ -126,14 +150,22 @@ def build(out_dir: Path, srcs=None, defines=(), niceness: int = 0) -> Path:
         cmd = [nvcc(), *NVCC_FLAGS, *[f"-D{d}" for d in defines], "-I", str(CSRC), "-c", "-o",
                str(out_dir / f"{src.stem}.o"), str(src)]
         run = [nice, "-n", str(niceness), *cmd] if nice else cmd
-        jobs.append((cmd, subprocess.Popen(run, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT, text=True)))
+        out = tempfile.TemporaryFile(mode="w+", dir=out_dir)  # no pipe to fill while others run
+        jobs.append([cmd, subprocess.Popen(run, stdout=out, stderr=subprocess.STDOUT, text=True),
+                     out, None])
+    while any(job[3] is None for job in jobs):  # each source's own seconds, for the log
+        for job in jobs:
+            if job[3] is None and job[1].poll() is not None:
+                job[3] = time.perf_counter() - t0
+        time.sleep(0.2)
     log, failed = [], []
-    for cmd, proc in jobs:
-        out = proc.communicate()[0]
-        log.append(f"$ {' '.join(cmd)}\n# exit {proc.returncode}\n{out}")
+    for cmd, proc, out, secs in jobs:
+        out.seek(0)
+        text = out.read()
+        out.close()
+        log.append(f"$ {' '.join(cmd)}\n# exit {proc.returncode} after {secs:.1f} s\n{text}")
         if proc.returncode != 0:
-            failed.append(out)
+            failed.append(text)
     compile_s = time.perf_counter() - t0
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
@@ -162,7 +194,7 @@ def _load(lib_path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name, None)
-        if fn is not None:  # a shape library holds the whole-step kernels' entry points only
+        if fn is not None:  # a shape library holds its own kernels' entry points only
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     lib.psvo_error_string.argtypes = [ctypes.c_int]
@@ -182,9 +214,12 @@ def load_library() -> ctypes.CDLL:
 
 
 def shape_dir(shape: tuple) -> Path:
-    """Where the shape library of `shape` = (dx, dy, hidden, n_mid, k1 plan,
-    k4 plan) goes: under the current build's hash."""
-    return BUILD_ROOT / source_hash() / ("shape_" + "_".join(str(int(v)) for v in shape))
+    """Where the shape library of `shape` goes, under the current build's
+    hash: `shape_<dx>_<dy>_<hidden>_<n_mid>_<k1 plan>_<k4 plan>` for the
+    whole-step kernels, `trunk_<dx>_<dy>_<hidden>_<k9 weights>_<k10 weights>`
+    for K9/K10 (key ("trunk", dx, dy, hidden, k9 weights, k10 weights))."""
+    name = "trunk_" if _kind(shape) == "trunk" else "shape_"
+    return BUILD_ROOT / source_hash() / (name + "_".join(str(v) for v in _shape_ints(shape)))
 
 
 _SHAPE_LOCKS: dict = {}
@@ -196,16 +231,19 @@ def load_shape_library(shape: tuple, niceness: int = 0) -> ctypes.CDLL:
     """The library of K1/K14 and K4/K15 at one shape of their class outside
     the presets' (`fused_step._library` says which): `shape` = (dx, dy,
     hidden, n_mid, k1 plan, k4 plan) as ints, the plans' indices in
-    `fused_step.K1_PLANS` / `K4_PLANS`. Built on first use (SHAPE_SOURCES
-    with the PSVO_SHAPE_* macros; a failed build raises), loaded once per
-    process. Thread-safe: a second caller waits for the first one's build.
+    `fused_step.K1_PLANS` / `K4_PLANS`; or of K9 and K10 (`trunk._library`):
+    `shape` = ("trunk", dx, dy, hidden, k9 weights, k10 weights), the
+    weights' places' indices in `trunk.WEIGHT_PLACES`. Built on first use
+    (SHAPE_SOURCES with the PSVO_SHAPE_* macros, TRUNK_SOURCES with the
+    PSVO_TRUNK_* ones; a failed build raises), loaded once per process. Thread-safe: a second caller waits for the first one's build.
     The objects are compiled in a directory of their own and the library
     moved into place, so processes that build the same shape at once do not
     share a file. niceness: the compilers' (`build`)."""
     lib = _SHAPE_LIBS.get(shape)
     if lib is not None:  # the launches' path: loaded already
         return lib
-    shape = tuple(int(v) for v in shape)
+    kind = _kind(shape)
+    shape = (("trunk",) if kind == "trunk" else ()) + _shape_ints(shape)
     with _LOCKS_LOCK:
         lock = _SHAPE_LOCKS.setdefault(shape, threading.Lock())
     with lock:
@@ -216,8 +254,9 @@ def load_shape_library(shape: tuple, niceness: int = 0) -> ctypes.CDLL:
             if not lib_path.exists():
                 out_dir.parent.mkdir(parents=True, exist_ok=True)
                 work = Path(tempfile.mkdtemp(prefix=out_dir.name + ".", dir=out_dir.parent))
-                defines = [f"PSVO_SHAPE_{m}={v}" for m, v in zip(SHAPE_MACROS, shape)]
-                build(work, [CSRC / name for name in SHAPE_SOURCES], defines, niceness)
+                srcs, prefix, macros = _KINDS[kind]
+                defines = [f"{prefix}{m}={v}" for m, v in zip(macros, _shape_ints(shape))]
+                build(work, [CSRC / name for name in srcs], defines, niceness)
                 out_dir.mkdir(exist_ok=True)
                 os.replace(work / "build.log", out_dir / "build.log")
                 os.replace(work / LIB_NAME, lib_path)

@@ -936,7 +936,7 @@ def _replay_backward(x0, coef, consts, eps, idx, d_stats, d_x_last=None, d_alpha
 
 
 def k4_tiles(consts, plan: str | None = None) -> int:
-    """K4/K15's [H][68] activation tiles (csrc/scan_backward.cu::BwdLayout):
+    """K4/K15's [H][68] activation tiles (csrc/scan_backward.cuh::BwdLayout):
     f's and g's n_mid + 1 layers side by side, or under "split" and "stream"
     one net's at a time."""
     plan = plan or k4_plan(consts)
@@ -945,7 +945,7 @@ def k4_tiles(consts, plan: str | None = None) -> int:
 
 def k4_smem_bytes(consts, k: int, cluster: int = 1, plan: str | None = None) -> int:
     """Dynamic shared memory of one K4 CTA on a cluster of `cluster` CTAs per
-    row (csrc/scan_backward.cu::bwd_smem_bytes) under `plan` (the shape's,
+    row (csrc/scan_backward.cuh::bwd_smem_bytes) under `plan` (the shape's,
     `k4_plan`, by default): the weights (not under "stream") and their
     gradient sums (only under "smem"; else in the CTA's row of `partial`),
     the activation tiles (`k4_tiles`), the [9·Dx + 2·Dy][68] tile arrays, the
@@ -1325,7 +1325,7 @@ step_backward_reference.calls = 0
 
 def k15_smem_bytes(consts, k: int = 0) -> int:
     """Dynamic shared memory of one K15 CTA, any S
-    (csrc/scan_backward.cu::bwd_smem_bytes): K4's (`k4_smem_bytes`) without
+    (csrc/scan_backward.cuh::bwd_smem_bytes): K4's (`k4_smem_bytes`) without
     the carry, d x_res and the ancestors, which K15 keeps in device memory;
     its last CTA stages the row's K ancestors in its idle activation tiles,
     or where they hold fewer than K ints (narrow, shallow nets at large K) in

@@ -12,8 +12,11 @@ for CPU tensors — never the plain version on the card:
   (the default, the one the paths run: a row on a cluster of `k7_cluster`
   CTAs, each scanning a slice, pushing it to every CTA over DSMEM and
   searching its slice's positions against the whole CDF) and "row" (the
-  previous design, one CTA a row, kept as its yardstick). Both hold K up to
-  `MAX_K` = 19200. Plain version: `ancestor_indices_large_reference`.
+  previous design, one CTA a row, kept as its yardstick). The cluster design
+  holds every K up to `MAX_K` = 32768 (slices of ceil(K / C) particles; where
+  the row's CDF does not fit a CTA each keeps its own slice's, `k7_spread`),
+  the row design K up to `ROW_MAX_K` = 19362. Plain version:
+  `ancestor_indices_large_reference`.
 - K8 `gather_particles` (replaces the gather half of
   `pallas_resample._win_pallas_call`, with the compact branch and the XLA
   fallback of `_win_gather`): x [B, D, K] -> x[b, d, idx[b, k]]. Plain
@@ -63,33 +66,60 @@ def k7_smem_bytes(k: int) -> int:
     return 12 * (k + _WARPS)
 
 
-def k7_cluster_smem_bytes(k: int, cluster: int) -> int:
+def k7_cluster_smem_bytes(k: int, cluster: int, spread: bool = False) -> int:
     """Dynamic shared memory of one CTA of K7's cluster design
-    (csrc/resample_gather.cu::k7_cluster_smem): the row's fp64 CDF, a slot
-    per warp and the slice total (two slots: the log-weights after them are
-    read 16 bytes at a time); the slice's fp32 log-weights, a slot per warp
-    and the slice max."""
-    return 8 * (k + _WARPS + 2) + 4 * (k // cluster + _WARPS + 1)
+    (csrc/resample_gather.cu::k7_cluster_smem), slices of S = ceil(K / C):
+    the row's fp64 CDF (with `spread`, the slice's alone), a slot per warp and
+    the slice total (two slots: the log-weights after them are read 16 bytes
+    at a time); the slice's fp32 log-weights, a slot per warp and the slice
+    max."""
+    s = -(-k // cluster)
+    return 8 * ((s if spread else k) + _WARPS + 2) + 4 * (s + _WARPS + 1)
 
 
-MAX_K = 19200  # the largest K with K % 256 == 0 and k7_smem_bytes(K) <= SMEM_LIMIT
+MAX_K = 32768  # K7's and K11's cap: the reference's pallas_resample.MAX_K_IDX
+ROW_MAX_K = 19362  # the largest K with k7_smem_bytes(K) <= SMEM_LIMIT: the row design's cap
 
 
 def k_ok(k: int) -> bool:
-    """K7's class, either design: K <= threads, or whole chunks of K / threads
-    per thread, and the row in shared memory."""
-    return k >= 1 and (k <= _THREADS or k % _THREADS == 0) and k7_smem_bytes(k) <= SMEM_LIMIT
+    """K7's class (the cluster design): every K from 1 to MAX_K. Above it
+    `resample_and_gather` takes the count form as tensor ops, the
+    counterpart of the reference's `_indices_jnp`."""
+    return 1 <= k <= MAX_K
 
 
+def k7_row_ok(k: int) -> bool:
+    """The row design's class: any K whose row fits one CTA."""
+    return k >= 1 and k7_smem_bytes(k) <= SMEM_LIMIT
+
+
+@functools.cache
 def k7_cluster(batch: int, k: int, n_sms: int) -> int:
-    """C, the CTAs a row of K7's cluster design: the largest C in
-    `CLUSTER_SIZES` whose slices K/C are whole chunks of 256 particles and
-    whose B clusters of C CTAs fit the card's n_sms SMs in one wave; 1 at
-    K <= 256 (a cluster of one, the same code)."""
-    return max(c for c in CLUSTER_SIZES
-               if c == 1 or (k % (c * _THREADS) == 0 and batch * c <= n_sms))
+    """C, the CTAs a row of K7's cluster design. Of the C in `CLUSTER_SIZES`
+    that hold the row (C = 1 only where the whole row fits one CTA, else at
+    least 256 particles a CTA), the largest whose slices K/C are whole
+    chunks of 256 particles and whose B clusters fit the card's n_sms SMs in
+    one wave (C = 1 always does: the class before K = 19456 keeps its
+    choice, 8 at B = 8, K = 8192); else the largest in one wave; else the
+    smallest."""
+    if not k_ok(k):
+        raise ValueError(f"ancestor_indices_large: no cluster holds K={k} (at most {MAX_K})")
+    held = [c for c in CLUSTER_SIZES
+            if (c == 1 and k7_cluster_smem_bytes(k, 1) <= SMEM_LIMIT)
+            or (c > 1 and k >= c * _THREADS)]
+    wave = [c for c in held if c == 1 or batch * c <= n_sms]
+    whole = [c for c in wave if c == 1 or k % (c * _THREADS) == 0]
+    return max(whole or wave or [min(held)])
 
 
+@functools.cache
+def k7_spread(k: int, cluster: int) -> bool:
+    """Whether K7's cluster design keeps each slice's CDF in its own CTA
+    (the row's whole CDF does not fit one CTA beside the slice)."""
+    return k7_cluster_smem_bytes(k, cluster) > SMEM_LIMIT
+
+
+@functools.cache
 def k11_plan(k: int) -> tuple[int, int]:
     """(P, C) of K11's tiled design: P particles a thread (a tile of 256·P,
     32/P state rows a CTA), the fewest that cover K in at most 4 tiles, else
@@ -142,15 +172,17 @@ def ancestor_indices_large(logw, positions, design: str = "cluster"):
     batch, k = logw.shape
     _require(logw, (batch, k), "logw", logw.device)
     _require(positions, (batch, k), "positions", logw.device)
-    if not k_ok(k):
-        raise ValueError(f"ancestor_indices_large: no kernel for K={k} (K <= {_THREADS} or a "
-                         f"multiple of it, at most {MAX_K})")
+    if not (k_ok(k) if design == "cluster" else k7_row_ok(k)):
+        raise ValueError(f"ancestor_indices_large: no {design} kernel for K={k} (at most "
+                         f"{MAX_K if design == 'cluster' else ROW_MAX_K})")
     cluster = k7_cluster(batch, k, _n_sms(logw.device.index)) if design == "cluster" else 1
+    spread = design == "cluster" and k7_spread(k, cluster)
     lib = _build.load_library()
     idx = torch.empty((batch, k), dtype=torch.int32, device=logw.device)
     stream = torch.cuda.current_stream(logw.device).cuda_stream
     err = lib.psvo_ancestor_indices_large(logw.data_ptr(), positions.data_ptr(), idx.data_ptr(),
-                                          batch, k, K7_DESIGNS.index(design), cluster, stream)
+                                          batch, k, K7_DESIGNS.index(design), cluster,
+                                          int(spread), stream)
     ancestor_indices_large.launches += 1
     ancestor_indices_large.launches_by_design[design] += 1
     _build.check(lib, err, "ancestor_indices_large")
@@ -222,7 +254,9 @@ def segment_sum_scatter(g, idx, design: str = "tiled"):
     _require(g, (batch, d, k), "g", g.device)
     _require(idx, (batch, k), "idx", g.device, torch.int32)
     if not 1 <= k <= MAX_K:
-        raise ValueError(f"segment_sum_scatter: no kernel for K={k} (at most {MAX_K})")
+        raise NotImplementedError(
+            f"segment_sum_scatter: K={k} is above K11's cap of {MAX_K}: the backward of the "
+            "resample at this K is a hole of the port (ROADMAP queue 2 B)")
     per, cluster = k11_plan(k) if design == "tiled" else (0, 0)
     lib = _build.load_library()
     out = torch.empty_like(g)
@@ -260,6 +294,17 @@ def resample_and_gather(u, logw, x):
     """Ancestors and resampled particles of one step: u [B, K] sorted
     positions, logw [B, K], x [B, D, K] -> (idx int32 [B, K], x_res [B, D, K]),
     through K7 and K8 (their plain versions for CPU tensors); when autograd
-    records, x_res carries x's gradient through `GatherParticles`."""
-    idx = ancestor_indices_large(logw.contiguous(), u.contiguous())
+    records, x_res carries x's gradient through `GatherParticles`. Above K7's
+    cap (K > MAX_K) CUDA tensors take the count form as tensor ops on the
+    card, the counterpart of the reference's `_indices_jnp` there, counted
+    in `resample_and_gather.eager_calls`, and still gather through K8."""
+    logw, u = logw.contiguous(), u.contiguous()
+    if logw.is_cuda and logw.shape[-1] > MAX_K:
+        resample_and_gather.eager_calls += 1
+        idx = count_form_indices(logw, u)
+    else:
+        idx = ancestor_indices_large(logw, u)
     return idx, gather_particles(x.contiguous(), idx)
+
+
+resample_and_gather.eager_calls = 0

@@ -53,15 +53,19 @@ each plain version its calls.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from psvo_tpu_torch.ops import _build, fused_step, resample_gather
+from psvo_tpu_torch.ops import _build, fused_step
 from psvo_tpu_torch.ops.fused_step import SMEM_LIMIT, _ptr, _require
 
-TRUNK_DIMS = ((2, 2), (3, 3), (40, 40))  # (Dx, Dy) instantiated: FHN, Lorenz-63, Lorenz-96
+TRUNK_DIMS = ((2, 2), (3, 3), (40, 40))  # (Dx, Dy) in the kernels' library: FHN, L63, L96
 K10_TF32_DIMS = ((40, 40),)  # (Dx, Dy) of K10's tensor-core design
-HIDDEN_WIDTHS = (16, 32, 64)  # trunk widths instantiated
+HIDDEN_WIDTHS = (16, 32, 64)  # trunk widths in the kernels' library
+MAX_WIDTH = 64  # the widest trunk of the class (widths 8..64 in steps of 8)
 _REF_MAX_ROWS = 55  # max(Dx + Di, Dy) + 1 <= pallas_trunk.MAX_PD = 56 rows
+WEIGHT_PLACES = ("smem", "stream")  # where K9 or K10 keeps the nets: shared or device memory
 TILE = 64  # particles per tile of the kernel
 _PARTS = 4  # threads summing one particle's α
 
@@ -72,12 +76,12 @@ def _net_floats(din: int, h: int, n_mid: int, dout: int) -> int:
     return n + (-n) % 4
 
 
-def smem_bytes(dx: int, dy: int, h: int, n_mid: int) -> int:
+def smem_bytes(dx: int, dy: int, h: int, n_mid: int, stream: bool = False) -> int:
     """Dynamic shared memory of K9 (csrc/trunk_forward.cuh::launch_trunk): the
-    three nets' weights, the [rows][TILE] tiles (x_res / g's mean, q1's mean
-    / x_new, f's mean, ε, two hidden layers, the α partial sums) and one
-    row's coefficients."""
-    n_w = 2 * _net_floats(dx, h, n_mid, dx) + _net_floats(dx, h, n_mid, dy)
+    three nets' weights (none with `stream`: they stay in device memory), the
+    [rows][TILE] tiles (x_res / g's mean, q1's mean / x_new, f's mean, ε, two
+    hidden layers, the α partial sums) and one row's coefficients."""
+    n_w = 0 if stream else 2 * _net_floats(dx, h, n_mid, dx) + _net_floats(dx, h, n_mid, dy)
     nc = 3 * dx + dy + 1
     return 4 * (n_w + (max(dx, dy) + 3 * dx + 2 * h + _PARTS) * TILE + nc + (-nc) % 4)
 
@@ -87,34 +91,65 @@ K9_PLANS = ((True, True), (True, False), (False, True), (False, False))  # (pair
 
 
 def k9_smem_bytes(dx: int, dy: int, h: int, n_mid: int, pair: bool = True,
-                  prefetch: bool = True) -> int:
+                  prefetch: bool = True, stream: bool = False) -> int:
     """Dynamic shared memory of K9's async design (csrc/trunk_forward.cuh::
-    async_smem_floats): the tile design's (`smem_bytes`), plus with `pair`
-    f's two hidden layers, plus with `prefetch` a second ε tile, a second
-    row of coefficients and, unless f's spare hidden layer is wide enough
-    for it (pair, h >= Dy), a tile for g's mean."""
+    async_smem_floats): the tile design's (`smem_bytes`, its weights left
+    out with `stream`), plus with `pair` f's two hidden layers, plus with
+    `prefetch` a second ε tile, a second row of coefficients and, unless
+    f's spare hidden layer is wide enough for it (pair, h >= Dy), a tile for
+    g's mean."""
     own_gm = prefetch and not (pair and h >= dy)
     extra = (2 * h if pair else 0) + (dx if prefetch else 0) + (dy if own_gm else 0)
     nc = 3 * dx + dy + 1
-    return smem_bytes(dx, dy, h, n_mid) + 4 * (extra * TILE + (nc + (-nc) % 4 if prefetch else 0))
+    return (smem_bytes(dx, dy, h, n_mid, stream)
+            + 4 * (extra * TILE + (nc + (-nc) % 4 if prefetch else 0)))
 
 
+@functools.cache
+def k9_weights(dx: int, dy: int, h: int, n_mid: int) -> str:
+    """Where K9's async design keeps the three nets (`WEIGHT_PLACES`): in
+    shared memory where they fit beside the tiles in some plan, else in
+    device memory ("stream": L2-resident, the tiles alone in shared memory;
+    at (40, 40) with three layers of 64, and at (55, 55) beyond two)."""
+    smem = any(k9_smem_bytes(dx, dy, h, n_mid, *pl) <= SMEM_LIMIT for pl in K9_PLANS)
+    return "smem" if smem else "stream"
+
+
+@functools.cache
 def k9_plan(dx: int, dy: int, h: int, n_mid: int) -> tuple[bool, bool]:
     """(pair, prefetch) of K9's async design: the first of `K9_PLANS` whose
-    shared memory fits a CTA. (False, False) is the tile design's layout, so
-    every shape in `usable`'s class has a plan."""
-    return next((pl for pl in K9_PLANS if k9_smem_bytes(dx, dy, h, n_mid, *pl) <= SMEM_LIMIT),
+    shared memory fits a CTA with the weights where `k9_weights` keeps them.
+    (False, False) is the tile design's layout (`k9_fits` says whether even
+    that fits)."""
+    stream = k9_weights(dx, dy, h, n_mid) == "stream"
+    return next((pl for pl in K9_PLANS
+                 if k9_smem_bytes(dx, dy, h, n_mid, *pl, stream=stream) <= SMEM_LIMIT),
                 (False, False))
+
+
+@functools.cache
+def k9_fits(dx: int, dy: int, h: int, n_mid: int) -> bool:
+    """Whether K9 has a plan at the shape: its tiles fit a CTA with the
+    weights in device memory (the weights' size never refuses a shape)."""
+    return k9_smem_bytes(dx, dy, h, n_mid, False, False, stream=True) <= SMEM_LIMIT
 
 
 DESIGNS = ("tf32x3", "simt")  # K10's designs: the tensor-core one, the previous one
 
 
-def k10_design(dx: int, dy: int) -> str:
+@functools.cache
+def k10_design(dx: int, dy: int, h: int | None = None, n_mid: int | None = None) -> str:
     """K10's design on the paths: the tensor-core one at Lorenz-96's width,
-    the previous one at the small widths (their 2- and 3-wide first and last
-    layers do not tile m16n8k8)."""
-    return "tf32x3" if (dx, dy) in K10_TF32_DIMS else "simt"
+    at the library's widths (`HIDDEN_WIDTHS`) where its weights and tiles fit
+    a CTA (at the width h and n_mid middle layers, when given: not at three
+    layers of 64), the previous one
+    everywhere else (the small widths' 2- and 3-wide first and last layers
+    do not tile m16n8k8; a wider tensor-core class is a speed lead)."""
+    if (dx, dy) not in K10_TF32_DIMS:
+        return "simt"
+    fits = h is None or (h in HIDDEN_WIDTHS
+                         and k10_smem_bytes(dx, dy, h, n_mid, "tf32x3") <= SMEM_LIMIT)
+    return "tf32x3" if fits else "simt"
 
 
 def _net_floats_padded(din: int, h: int, n_mid: int, dout: int) -> int:
@@ -124,18 +159,20 @@ def _net_floats_padded(din: int, h: int, n_mid: int, dout: int) -> int:
     return n + (-n) % 4
 
 
-def k10_smem_bytes(dx: int, dy: int, h: int, n_mid: int, design: str = "tf32x3") -> int:
+def k10_smem_bytes(dx: int, dy: int, h: int, n_mid: int, design: str = "tf32x3",
+                   stream: bool = False) -> int:
     """Dynamic shared memory of K10 (csrc/trunk_backward.cuh::
     launch_trunk_backward): the three nets' weights (rows padded by 4 floats
-    in the tf32x3 design), six tiles (x_res, x_new, ε, f's mean, g's mean,
-    d x_new) and one net's n_mid + 1 hidden layers at a row stride of 72
-    floats (68 in the simt design), the α partial sums, dα and one row's
+    in the tf32x3 design; none in the simt design with `stream`: they stay in
+    device memory), six tiles (x_res, x_new, ε, f's mean, g's mean, d x_new)
+    and one net's n_mid + 1 hidden layers at a row stride of 72 floats (68
+    in the simt design), the α partial sums, dα and one row's
     coefficients."""
-    if design == "tf32x3":
+    if design == "tf32x3" and not stream:
         n_w = 2 * _net_floats_padded(dx, h, n_mid, dx) + _net_floats_padded(dx, h, n_mid, dy)
         stride = TILE + 8
     elif design == "simt":
-        n_w = 2 * _net_floats(dx, h, n_mid, dx) + _net_floats(dx, h, n_mid, dy)
+        n_w = 0 if stream else 2 * _net_floats(dx, h, n_mid, dx) + _net_floats(dx, h, n_mid, dy)
         stride = TILE + 4
     else:
         raise ValueError(f"K10 has no design {design!r} (one of {DESIGNS})")
@@ -144,14 +181,65 @@ def k10_smem_bytes(dx: int, dy: int, h: int, n_mid: int, design: str = "tf32x3")
     return 4 * (n_w + rows * stride + (_PARTS + 1) * TILE + nc + (-nc) % 4)
 
 
+@functools.cache
+def k10_weights(dx: int, dy: int, h: int, n_mid: int, design: str | None = None) -> str:
+    """Where K10 keeps the three nets (`WEIGHT_PLACES`): in shared memory
+    where they fit beside its tiles, else (the simt design only) in device
+    memory, L2-resident ("stream": at (48, 48) and (55, 55) with two layers
+    of 64, and at 32 and up with three). design None: `k10_design`'s."""
+    design = design or k10_design(dx, dy, h, n_mid)
+    smem = k10_smem_bytes(dx, dy, h, n_mid, design) <= SMEM_LIMIT
+    return "smem" if smem or design == "tf32x3" else "stream"
+
+
+def width_ok(h: int) -> bool:
+    """The trunk class's widths: 8 to 64 in steps of 8."""
+    return h % 8 == 0 and 8 <= h <= MAX_WIDTH
+
+
+@functools.cache
 def k10_ok(dx: int, dy: int, h: int, n_mid: int, k: int, design: str | None = None) -> bool:
-    """Whether K10 is instantiated for the shape: K9's dims and widths (the
-    tensor-core design at `K10_TF32_DIMS` alone), K a multiple of 64, its
-    shared memory in one CTA. design None: `k10_design`'s."""
-    design = design or k10_design(dx, dy)
-    return ((dx, dy) in TRUNK_DIMS and h in HIDDEN_WIDTHS and k % TILE == 0
-            and (design != "tf32x3" or (dx, dy) in K10_TF32_DIMS)
-            and k10_smem_bytes(dx, dy, h, n_mid, design) <= SMEM_LIMIT)
+    """Whether K10 runs the shape: a width of the class, K a multiple of 64,
+    its tiles (and, in shared memory, its weights: `k10_weights`) in one
+    CTA; the tensor-core design at `K10_TF32_DIMS` alone. design None:
+    `k10_design`'s."""
+    design = design or k10_design(dx, dy, h, n_mid)
+    if design == "tf32x3" and not ((dx, dy) in K10_TF32_DIMS and h in HIDDEN_WIDTHS):
+        return False  # the kernels' library alone holds it
+    stream = k10_weights(dx, dy, h, n_mid, design) == "stream"
+    return (width_ok(h) and k % TILE == 0 and max(dx, dy) <= _REF_MAX_ROWS
+            and k10_smem_bytes(dx, dy, h, n_mid, design, stream) <= SMEM_LIMIT)
+
+
+@functools.cache
+def shape_ok(dx: int, dy: int, h: int, n_mid: int) -> bool:
+    """Whether K9 and K10 both have a plan at the shape (at any K that K9
+    tiles): the width, and their tiles in one CTA. Outside it, a hole:
+    widths above 64 and nets deeper than K10's streamed tiles hold (at
+    (55, 55) and width 64, more than eight hidden layers)."""
+    return (width_ok(h) and max(dx, dy) <= _REF_MAX_ROWS and k9_fits(dx, dy, h, n_mid)
+            and k10_ok(dx, dy, h, n_mid, TILE))
+
+
+def _prebuilt(dx: int, dy: int, h: int) -> bool:
+    return (dx, dy) in TRUNK_DIMS and h in HIDDEN_WIDTHS
+
+
+@functools.cache
+def lib_key(dx: int, dy: int, h: int, n_mid: int, backward: bool):
+    """None where the kernels' library holds the kernel at this shape (the
+    presets' (Dx, Dy) and widths, weights in shared memory), else the trunk
+    shape library's key ("trunk", dx, dy, h, K9's weights, K10's weights),
+    the places' indices in `WEIGHT_PLACES` (`_build.load_shape_library`)."""
+    w9 = WEIGHT_PLACES.index(k9_weights(dx, dy, h, n_mid))
+    w10 = WEIGHT_PLACES.index(k10_weights(dx, dy, h, n_mid))
+    if _prebuilt(dx, dy, h) and (w10 if backward else w9) == 0:
+        return None
+    return ("trunk", dx, dy, h, w9, w10)
+
+
+def _library(key):
+    return _build.load_library() if key is None else _build.load_shape_library(key)
 
 
 def usable(ssm, cfg) -> bool:
@@ -163,9 +251,13 @@ def usable(ssm, cfg) -> bool:
     outside the kernels, from K7's indices), controls (di > 0: u_t's
     first-layer terms of q1 and f ride in the coefficient rows, the
     reference's max(Dx + Di, Dy) + 1 <= 56 state rows), relu q1/f/g trunks of
-    one uniform width — at the instantiated (Dx, Dy) (`TRUNK_DIMS`) and hidden
-    width (`HIDDEN_WIDTHS`), K that K7 holds and K9 tiles, and the weights
-    and tiles in one CTA's shared memory. Not bootstrap mode, as the
+    one uniform width from 8 to 64 in steps of 8, at every (Dx, Dy, Di) with
+    max(Dx + Di, Dy) <= 55, K that K9 tiles (a multiple of 64; the
+    resample takes any K, `resample_gather.resample_and_gather`), and the
+    tiles of K9 and K10 in one CTA (`shape_ok`; the weights in shared memory
+    where they fit, else in device memory). The presets' shapes are in the
+    kernels' library, every other one is built into a shape library of its
+    own at first use (`lib_key`). Not bootstrap mode, as the
     reference's gate: K9 draws from q1/q2 and weights by f, g and q; nor, as
     that gate, known dynamics, Poisson or Dirac emissions or a q1/f/g scale
     other than a constant diagonal (`fused_step.model_in_class`). The
@@ -178,15 +270,12 @@ def usable(ssm, cfg) -> bool:
         not cfg.use_bootstrap
         and fused_step.model_in_class(ssm)
         and cfg.resampling in ("systematic", "multinomial", "none")
-        and (ssm.dx, ssm.dy) in TRUNK_DIMS
         and max(ssm.dx + ssm.di, ssm.dy) <= _REF_MAX_ROWS
         and k % TILE == 0
-        and resample_gather.k_ok(k)
         and len(hidden) >= 1
-        and hidden[0] in HIDDEN_WIDTHS
         and all(h == hidden[0] for h in hidden)
         and all(nc.hidden == hidden and nc.activation == "relu" for nc in nets)
-        and smem_bytes(ssm.dx, ssm.dy, hidden[0], len(hidden) - 1) <= SMEM_LIMIT
+        and shape_ok(ssm.dx, ssm.dy, hidden[0], len(hidden) - 1)
     )
 
 
@@ -252,8 +341,9 @@ def trunk_forward(x_res, coef_t, consts, *, eps=None, seed=None, t: int = 0,
     dy, h, n_mid = consts["dy"], consts["hidden"], consts["n_mid"]
     dev = x_res.device
     ctrl = fused_step._ctrl(consts)
-    if ((dx, dy) not in TRUNK_DIMS or h not in HIDDEN_WIDTHS or k % TILE
-            or smem_bytes(dx, dy, h, n_mid) > SMEM_LIMIT or (ctrl and design != "async")):
+    if (not shape_ok(dx, dy, h, n_mid) or k % TILE or (ctrl and design != "async")
+            or (design == "tile" and not (_prebuilt(dx, dy, h)
+                                          and k9_weights(dx, dy, h, n_mid) == "smem"))):
         raise ValueError(f"trunk_forward: no {design} kernel for Dx={dx}, Dy={dy}, hidden={h}, "
                          f"{n_mid} middle layers, K={k}, controls {bool(ctrl)}")
     _require(x_res, (batch, dx, k), "x_res", dev)
@@ -269,13 +359,14 @@ def trunk_forward(x_res, coef_t, consts, *, eps=None, seed=None, t: int = 0,
     alpha = torch.empty((batch, k), dtype=torch.float32, device=dev)
     seed0, seed1 = (0, 0) if seed is None else seed
     pair, prefetch = k9_plan(dx, dy, h, n_mid) if design == "async" else (False, False)
-    lib = _build.load_library()
+    wplan = WEIGHT_PLACES.index(k9_weights(dx, dy, h, n_mid))
+    lib = _library(lib_key(dx, dy, h, n_mid, False))
     _, off_f, off_g = consts["offsets"]  # q1 sits at offset 0
     err = lib.psvo_trunk_forward(
         x_res.data_ptr(), _ptr(eps), coef_t.data_ptr(), consts["packed"].data_ptr(),
         consts["sconst"].data_ptr(), x_new.data_ptr(), alpha.data_ptr(), seed0, seed1,
         int(seed is not None), t, batch, k, dx, dy, h, n_mid, consts["packed"].numel(), off_f,
-        off_g, K9_DESIGNS.index(design), int(pair), int(prefetch), ctrl,
+        off_g, K9_DESIGNS.index(design), int(pair), int(prefetch), wplan, ctrl,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     trunk_forward.launches += 1
@@ -330,7 +421,8 @@ def trunk_backward(x_res, x_new, coef_t, consts, d_x_new, d_alpha, *, eps=None, 
     instantiated for. With controls the kernel runs its control mode."""
     if (seed is None) == (eps is None):
         raise ValueError("trunk_backward: pass either eps or seed")
-    design = design or k10_design(x_res.shape[1], consts["dy"])
+    design = design or k10_design(x_res.shape[1], consts["dy"], consts["hidden"],
+                                  consts["n_mid"])
     if design not in DESIGNS:
         raise ValueError(f"trunk_backward: no design {design!r} (one of {DESIGNS})")
     batch, dx, k = x_res.shape
@@ -343,14 +435,16 @@ def trunk_backward(x_res, x_new, coef_t, consts, d_x_new, d_alpha, *, eps=None, 
     dy, h, n_mid = consts["dy"], consts["hidden"], consts["n_mid"]
     dev = x_res.device
     ctrl = fused_step._ctrl(consts)
-    if not k10_ok(dx, dy, h, n_mid, k, design):
+    wplan = WEIGHT_PLACES.index(k10_weights(dx, dy, h, n_mid, design))
+    if not k10_ok(dx, dy, h, n_mid, k, design) or (
+            lib_key(dx, dy, h, n_mid, True) is not None and design != "simt"):
         raise ValueError(f"trunk_backward: no {design} kernel for Dx={dx}, Dy={dy}, hidden={h}, "
                          f"{n_mid} middle layers, K={k} "
-                         f"({k10_smem_bytes(dx, dy, h, n_mid, design)} B of shared memory, at "
-                         f"most {SMEM_LIMIT})")
-    if ctrl and design != k10_design(dx, dy):
-        raise ValueError(f"trunk_backward: the control mode runs {k10_design(dx, dy)!r} at "
-                         f"Dx={dx}, not {design!r}")
+                         f"({k10_smem_bytes(dx, dy, h, n_mid, design, bool(wplan))} B of shared "
+                         f"memory, at most {SMEM_LIMIT})")
+    if ctrl and design != k10_design(dx, dy, h, n_mid):
+        raise ValueError(f"trunk_backward: the control mode runs "
+                         f"{k10_design(dx, dy, h, n_mid)!r} at Dx={dx}, not {design!r}")
     packed = consts["packed"]
     n_w = packed.numel()
     _require(x_res, (batch, dx, k), "x_res", dev)
@@ -373,14 +467,14 @@ def trunk_backward(x_res, x_new, coef_t, consts, d_x_new, d_alpha, *, eps=None, 
     coef_part = torch.empty((batch * (k // TILE), 3 * dx + 1 + 2 * h * ctrl), **f32)
     grads = torch.empty((n_w + dx + dy,), **f32)
     seed0, seed1 = (0, 0) if seed is None else seed
-    lib = _build.load_library()
+    lib = _library(lib_key(dx, dy, h, n_mid, True))
     _, off_f, off_g = consts["offsets"]
     err = lib.psvo_trunk_backward(
         x_res.data_ptr(), x_new.data_ptr(), _ptr(eps), coef_t.data_ptr(), packed.data_ptr(),
         consts["sconst"].data_ptr(), d_x_new.data_ptr(), d_alpha.data_ptr(), d_x_res.data_ptr(),
         partial.data_ptr(), coef_part.data_ptr(), grads.data_ptr(), d_coef.data_ptr(), seed0,
         seed1, int(seed is not None), t, batch, k, dx, dy, h, n_mid, n_w, off_f, off_g, max_ctas,
-        DESIGNS.index(design), ctrl, torch.cuda.current_stream(dev).cuda_stream,
+        DESIGNS.index(design), wplan, ctrl, torch.cuda.current_stream(dev).cuda_stream,
     )
     trunk_backward.launches += 1
     trunk_backward.launches_by_design[design] += 1

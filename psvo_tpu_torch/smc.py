@@ -97,7 +97,7 @@ from psvo_tpu_torch.distributions import (
     effective_sample_size, log_normalize, mvn_diag_log_prob_cm, mvn_tril_sample_cm,
 )
 from psvo_tpu_torch.models.ssm import SSM
-from psvo_tpu_torch.ops import fused_step, resampling, sharded_resampling, trunk
+from psvo_tpu_torch.ops import fused_step, resample_gather, resampling, sharded_resampling, trunk
 from psvo_tpu_torch.parallel import collectives, context
 
 
@@ -587,10 +587,15 @@ def reference_path(ssm: SSM, cfg: SMCConfig) -> str:
     than the kernels' plans hold in shared memory (at width 64 and K = 2048,
     more than 10 to 12 hidden layers by Dx and Dy; the port's whole-step
     class, `fused_step.usable`, takes every other shape of the reference's); for
-    "trunk", a (Dx, Dy) outside `trunk.TRUNK_DIMS` or a hidden width outside
-    `trunk.HIDDEN_WIDTHS`. "trunk" takes ESS-adaptive resampling, no
+    "trunk", a width above 64 (`trunk.MAX_WIDTH`) or a net deeper than K10's
+    streamed tiles hold (at (55, 55) and width 64, more than eight hidden
+    layers; `trunk.shape_ok`): the port's trunk class, `trunk.usable`, takes
+    every other shape of the reference's, with ESS-adaptive resampling, no
     resampling (IWAE at a K the trunk kernel tiles), the full FIVO gradient
-    and controls: `trunk.usable` takes each at the instantiated widths."""
+    and controls, at any K (the resample takes every K,
+    `resample_gather.resample_and_gather`). Training a resampling filter
+    above K = 32768 on CUDA tensors raises too, up front: K11, the
+    resample's backward, holds K up to 32768 (`backward_hole`)."""
     if context.get_mesh() is not None:
         return "scan"  # the reference's kernels gate themselves off under any mesh
     k = cfg.n_particles
@@ -696,6 +701,26 @@ def filter_route(ssm: SSM, cfg: SMCConfig, t_steps: int, cuda: bool,
     return "raise"
 
 
+def backward_hole(ssm: SSM, cfg: SMCConfig) -> bool:
+    """Whether a gradient through this resampling filter on CUDA tensors
+    needs K11 above its cap: autograd records, some parameter takes a
+    gradient, the filter resamples and K > `resample_gather.MAX_K` (the
+    resample's backward, `GatherParticles`, has no kernel there; ROADMAP
+    queue 2 B). The forward runs at every K."""
+    return (cfg.n_particles > resample_gather.MAX_K and cfg.resampling != "none"
+            and torch.is_grad_enabled() and any(p.requires_grad for p in ssm.parameters()))
+
+
+def _refuse_backward_hole(ssm: SSM, cfg: SMCConfig) -> None:
+    """Raise NotImplementedError before any launch where `backward_hole`."""
+    if backward_hole(ssm, cfg):
+        raise NotImplementedError(
+            f"training at K={cfg.n_particles} has no CUDA kernel yet: the resample's backward "
+            f"(K11, ops.resample_gather.segment_sum_scatter) holds K up to "
+            f"{resample_gather.MAX_K} (ROADMAP queue 2 B); serve at this K, or train on CPU "
+            "tensors")
+
+
 def smoothing_route(port_class: bool, reference: str, cuda: bool) -> str:
     """The dispatch of a smoothing sweep (SVO's q_b sweep, FFBSi): "kernel"
     where the port's kernel class takes it (K12/K13, K5/K6 on CUDA tensors,
@@ -754,9 +779,12 @@ def forward_filter(
         raise NotImplementedError(
             f"this configuration has no CUDA kernel yet: the reference runs it through its "
             f"{_REFERENCE_KERNELS[reference_path(ssm, cfg)]}, whose class the port's kernels do "
-            "not cover for it (outside ops.fused_step.usable and ops.trunk.usable; ROADMAP queue "
-            "2 B); run it on CPU tensors"
+            "not cover for it (outside ops.fused_step.usable and ops.trunk.usable: a width "
+            "above 64 or a net deeper than the kernels' plans hold; ROADMAP queue 2 B); run it "
+            "on CPU tensors"
         )
+    if ys.is_cuda and route != "fused":
+        _refuse_backward_hole(ssm, cfg)
     path = {"fused": _forward_filter_fused, "trunk": _forward_filter_trunk}.get(route)
     if path is not None and (ys.is_cuda or noise is None):
         return path(ssm, generator, ys, cfg, cache=cache, encoder_inputs=encoder_inputs,
@@ -1063,6 +1091,8 @@ def forward_filter_segmented(
             "cover for it (outside ops.fused_step.usable; ROADMAP queue 2 B); run it on "
             "CPU tensors"
         )
+    if ys.is_cuda and route != "fused":
+        _refuse_backward_hole(ssm, cfg)
     kw = dict(encoder_inputs=encoder_inputs, streams=noise, controls=controls)
     if route == "fused" and (ys.is_cuda or noise is None):
         return _forward_filter_segmented_fused(ssm, generator, ys, cfg, n_segments, **kw)

@@ -91,8 +91,8 @@ def test_cuda_tensor_outside_the_kernel_class_raises():
     """Multinomial resampling is inside the whole-scan class: the filter
     launches K1 once on its streamed positions and runs no plain version.
     ESS-adaptive resampling is in the trunk class: K9 once a step, no plain
-    version. At a width no trunk kernel is instantiated for (Dx = Dy = 10)
-    it still raises."""
+    version. With q1/f/g wider than the trunk class takes (72) it still
+    raises."""
     from psvo_tpu_torch.ops import trunk
 
     dev = _cuda()
@@ -115,10 +115,11 @@ def test_cuda_tensor_outside_the_kernel_class_raises():
     assert trunk.trunk_forward.launches == launches + 4
     assert trunk.trunk_forward_reference.calls == calls
     assert bool(torch.isfinite(fwd.log_z).all())
-    wide = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dx=10, dy=10))
+    net = NetConfig(hidden=(72, 72))
+    wide = cfg.with_nets(q0=net, q1=net, q2=net, f=net, qb=net, g=net)
     wide_ssm = init_ssm(wide, torch.Generator().manual_seed(0), device=dev)
     with pytest.raises(NotImplementedError):
-        forward_filter(wide_ssm, torch.Generator(device=dev), torch.zeros((2, 5, 10), device=dev),
+        forward_filter(wide_ssm, torch.Generator(device=dev), torch.zeros((2, 5, 2), device=dev),
                        ess)
 
 
@@ -444,7 +445,8 @@ def test_stream_noise_kernel_is_bit_equal_at_lorenz96_width():
 @pytest.mark.parametrize("k", [128, 4096])
 def test_large_k_resample_kernels_match_plain(k):
     """K7 gives the plain version's indices (ties, zero weights, floors and a
-    dominant particle included); K8 is bit-equal to the plain gather."""
+    dominant particle included); K8 is bit-equal to the plain gather; each
+    K7 design raises above its cap."""
     from psvo_tpu_torch.ops import resample_gather as rg
 
     dev = _cuda()
@@ -459,9 +461,10 @@ def test_large_k_resample_kernels_match_plain(k):
     assert torch.equal(rg.gather_particles(x, idx), rg.gather_particles_reference(x, idx))
     assert (rg.ancestor_indices_large.launches, rg.gather_particles.launches) == (
         launches[0] + 1, launches[1] + 1)
-    with pytest.raises(ValueError, match="no kernel"):
-        rg.ancestor_indices_large(torch.zeros((2, 19456), device=dev),
-                                  torch.zeros((2, 19456), device=dev))
+    for design, cap in (("cluster", rg.MAX_K), ("row", rg.ROW_MAX_K)):
+        with pytest.raises(ValueError, match=f"no {design} kernel"):
+            rg.ancestor_indices_large(torch.zeros((2, cap + 1), device=dev),
+                                      torch.zeros((2, cap + 1), device=dev), design=design)
 
 
 @pytest.mark.parametrize("hidden", [16, 64])
@@ -639,7 +642,7 @@ def test_cuda_tensor_outside_the_backward_kernels_raises():
         trunk.TrunkForward.apply(x.requires_grad_(), coef, consts["packed"], consts["sconst"],
                                  consts, torch.zeros_like(x), None, 0)
     big = torch.zeros((1, 2, rg.MAX_K + 256), device=dev)
-    with pytest.raises(ValueError, match="no kernel"):
+    with pytest.raises(NotImplementedError, match="K11's cap"):
         rg.segment_sum_scatter(big, torch.zeros((1, rg.MAX_K + 256), dtype=torch.int32, device=dev))
     with pytest.raises(ValueError, match="idx"):
         rg.segment_sum_scatter(big, torch.zeros((1, rg.MAX_K + 256), device=dev))
@@ -1215,7 +1218,7 @@ def _k9_launch(x_res, coef, consts, noise, t, pair, prefetch):
         consts["packed"].data_ptr(), consts["sconst"].data_ptr(), x_new.data_ptr(),
         alpha.data_ptr(), seed[0], seed[1], int("seed" in noise), t, b, k, dx, consts["dy"],
         consts["hidden"], consts["n_mid"], consts["packed"].numel(), off_f, off_g, 0, int(pair),
-        int(prefetch), 0, torch.cuda.current_stream(x_res.device).cuda_stream)
+        int(prefetch), 0, 0, torch.cuda.current_stream(x_res.device).cuda_stream)
     _build.check(lib, err, "psvo_trunk_forward")
     return x_new, alpha
 
@@ -1329,7 +1332,7 @@ def test_resample_designs_agree(k):
             continue
         idx = torch.empty((b, k), dtype=torch.int32, device=dev)
         err = lib.psvo_ancestor_indices_large(logw.data_ptr(), systematic.data_ptr(),
-                                              idx.data_ptr(), b, k, 0, c,
+                                              idx.data_ptr(), b, k, 0, c, 0,
                                               torch.cuda.current_stream().cuda_stream)
         _build.check(lib, err, "ancestor_indices_large")
         assert torch.equal(idx, rg.ancestor_indices_large_reference(logw, systematic)), c
@@ -1759,10 +1762,11 @@ def test_cuda_reference_kernel_class_outside_the_ports_raises():
     port kernel on CUDA tensors, never the plain loop: multinomial resampling
     at the FHN width (the reference's whole-step kernel) launches K1 once;
     IWAE at K = 128 and ESS-adaptive resampling (its trunk kernel) launch K9
-    once a step (K7/K8 only with resampling), no plain version. One outside
-    every port kernel class — the trunk class at a (Dx, Dy) with no
-    instantiation, Dx = Dy = 10 — still raises rather than run the plain
-    loop where the reference runs a kernel."""
+    once a step (K7/K8 only with resampling), no plain version; so does the
+    trunk class at Dx = Dy = 10, from a shape library of its own. One
+    outside every port kernel class, the trunk class at a width of 72, still
+    raises rather than run the plain loop where the reference runs a
+    kernel."""
     from psvo_tpu_torch import smc
     from psvo_tpu_torch.ops import resample_gather as rg
     from psvo_tpu_torch.ops import trunk
@@ -1786,13 +1790,24 @@ def test_cuda_reference_kernel_class_outside_the_ports_raises():
         assert [f.launches - n for f, n in zip(kernels, launches)] == want, kw
         assert [f.calls for f in plain] == calls
         assert bool(torch.isfinite(out.log_z).all())
-    wide = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dx=10, dy=10))
+    ten = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dx=10, dy=10))
+    ten_ssm = init_ssm(ten, torch.Generator().manual_seed(0), device=dev)
+    smc_cfg = dataclasses.replace(ten.smc, ess_threshold=0.5)
+    assert smc.reference_path(ten_ssm, smc_cfg) == "trunk"
+    launches, calls = trunk.trunk_forward.launches, trunk.trunk_forward_reference.calls
+    with torch.no_grad():
+        out = smc.forward_filter(ten_ssm, torch.Generator(device=dev),
+                                 torch.zeros((8, 6, 10), device=dev), smc_cfg)
+    assert trunk.trunk_forward.launches - launches == 5
+    assert trunk.trunk_forward_reference.calls == calls
+    assert bool(torch.isfinite(out.log_z).all())
+    net = NetConfig(hidden=(72, 72))
+    wide = cfg.with_nets(q0=net, q1=net, q2=net, f=net, qb=net, g=net)
     wide_ssm = init_ssm(wide, torch.Generator().manual_seed(0), device=dev)
-    smc_cfg = dataclasses.replace(wide.smc, ess_threshold=0.5)
     assert smc.reference_path(wide_ssm, smc_cfg) == "trunk"
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):
         smc.forward_filter(wide_ssm, torch.Generator(device=dev),
-                           torch.zeros((8, 6, 10), device=dev), smc_cfg)
+                           torch.zeros((8, 6, 2), device=dev), smc_cfg)
 
 
 def _trunk_small_operands(preset, dx, di, hidden, dev, b=3, k=256):
@@ -2555,3 +2570,157 @@ def test_outside_the_class_raises_before_any_launch(hidden):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 2 B"):
         smc.forward_filter_segmented(ssm, torch.Generator(device=dev), ys, cfg.smc, 2)
     assert [f.launches for f in kernels] == launches
+
+
+# ---- resampling at every K, and the trunk class beyond the library's shapes ----
+
+_ANY_K = [1, 255, 300, 384, 1000, 4096, 19456, 24576, 32768]
+
+
+@pytest.mark.parametrize("k", _ANY_K)
+def test_k7_takes_every_k_up_to_its_cap(k):
+    """K7's cluster design at K that are not whole chunks of 256 and above
+    the row design's cap gives the plain version's indices on the
+    adversarial rows, systematic and sorted multinomial positions, at the C
+    that k7_cluster picks and through the C entry point at every C that
+    holds K, with the whole CDF in each CTA and spread over the cluster
+    wherever each fits; the row design too where its row fits a CTA."""
+    from psvo_tpu_torch.ops import _build
+    from psvo_tpu_torch.ops import resample_gather as rg
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    logw = _weight_rows(k, dev)
+    b = logw.shape[0]
+    systematic = fused_step.systematic_positions(torch.rand((b,), generator=gen, device=dev),
+                                                 k).contiguous()
+    multinomial = torch.sort(torch.rand((b, k), generator=gen, device=dev), -1).values.contiguous()
+    for pos in (systematic, multinomial):
+        want = rg.ancestor_indices_large_reference(logw, pos)
+        assert torch.equal(rg.ancestor_indices_large(logw, pos), want)
+        if rg.k7_row_ok(k):
+            assert torch.equal(rg.ancestor_indices_large(logw, pos, design="row"), want)
+    want = rg.ancestor_indices_large_reference(logw, systematic)
+    lib = _build.load_library()
+    for c in rg.CLUSTER_SIZES:
+        if c > 1 and k < c * 256:
+            continue
+        for spread in (False, True):
+            if rg.k7_cluster_smem_bytes(k, c, spread) > fused_step.SMEM_LIMIT:
+                continue
+            idx = torch.empty((b, k), dtype=torch.int32, device=dev)
+            err = lib.psvo_ancestor_indices_large(logw.data_ptr(), systematic.data_ptr(),
+                                                  idx.data_ptr(), b, k, 0, c, int(spread),
+                                                  torch.cuda.current_stream().cuda_stream)
+            _build.check(lib, err, "ancestor_indices_large")
+            assert torch.equal(idx, want), (c, spread)
+
+
+def test_k11_at_its_cap_and_the_eager_indices_above_it():
+    """K11 at K = 32768 (8 tiles of 4096) within 1e-6 of float64, childless
+    sources 0, the same bits on a relaunch. Above K7's cap resample_and_gather
+    takes the count form as tensor ops on the card and gathers through K8
+    (no K7 launch, no plain version); a train step there raises before any
+    launch (K11's cap)."""
+    from psvo_tpu_torch import smc
+    from psvo_tpu_torch.ops import resample_gather as rg
+
+    dev = _cuda()
+    k = rg.MAX_K
+    gen = torch.Generator(device=dev).manual_seed(8)
+    logw = _weight_rows(k, dev)
+    b = logw.shape[0]
+    pos = fused_step.systematic_positions(torch.rand((b,), generator=gen, device=dev),
+                                          k).contiguous()
+    idx = rg.ancestor_indices_large(logw, pos)
+    g = torch.randn((b, 40, k), generator=gen, device=dev)
+    assert rg.k11_plan(k) == (16, 8)
+    got = rg.segment_sum_scatter(g, idx)
+    assert torch.equal(got, rg.segment_sum_scatter(g, idx))
+    want = rg.segment_sum_scatter_reference(g.double(), idx)
+    assert _rel(got.double(), want) <= 1e-6
+    assert bool((got[want == 0] == 0).all())
+
+    big = k + 4096
+    logw = _weight_rows(big, dev)
+    pos = fused_step.systematic_positions(torch.rand((b,), generator=gen, device=dev),
+                                          big).contiguous()
+    x = torch.randn((b, 3, big), generator=gen, device=dev)
+    counts = (rg.resample_and_gather.eager_calls, rg.ancestor_indices_large.launches,
+              rg.gather_particles.launches, rg.ancestor_indices_large_reference.calls)
+    idx, x_res = rg.resample_and_gather(pos, logw, x)
+    assert (rg.resample_and_gather.eager_calls - counts[0], rg.ancestor_indices_large.launches
+            - counts[1], rg.gather_particles.launches - counts[2],
+            rg.ancestor_indices_large_reference.calls - counts[3]) == (1, 0, 1, 0)
+    assert torch.equal(idx, fused_step.count_form_indices(logw, pos))
+    assert torch.equal(x_res, torch.gather(x, -1, idx.long()[:, None, :].expand(-1, 3, -1)))
+
+    cfg = _small_cfg("fhn_fivo_k128")
+    cfg = dataclasses.replace(cfg, smc=dataclasses.replace(cfg.smc, n_particles=big))
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    assert smc.backward_hole(ssm, cfg.smc)
+    launches = (rg.ancestor_indices_large.launches, rg.gather_particles.launches)
+    with pytest.raises(NotImplementedError, match="K11"):
+        smc.forward_filter(ssm, torch.Generator(device=dev), torch.zeros((2, 6, 2), device=dev),
+                           cfg.smc)
+    assert (rg.ancestor_indices_large.launches, rg.gather_particles.launches) == launches
+
+
+# (preset, dx, dy, di, hidden, depth): shapes beyond the kernels' library, each plan
+_REACH = [("lorenz96_fivo_k8192_sharded", 20, 20, 0, 64, 2),  # Lorenz-96 at D = 20
+          ("fhn_fivo_k1024_bench", 2, 1, 0, 48, 2),  # FHN seen through one channel
+          ("lorenz96_fivo_k8192_sharded", 5, 5, 2, 8, 3),  # controls, width 8
+          ("lorenz96_fivo_k8192_sharded", 55, 55, 0, 64, 2),  # K10's weights in device memory
+          ("lorenz96_fivo_k8192_sharded", 40, 40, 0, 64, 3)]  # K9's and K10's too
+
+
+@pytest.mark.parametrize("preset, dx, dy, di, hidden, depth", _REACH)
+@pytest.mark.parametrize("rng", [False, True])
+def test_trunk_kernels_beyond_the_library(preset, dx, dy, di, hidden, depth, rng):
+    """K9 and K10 from a trunk shape library at (Dx, Dy, Di, width, depth)
+    outside the kernels' library, with their weights in shared or device
+    memory as the plans say, against their plain versions: K9 allclose
+    2e-4, K10 per leaf to 1e-4 relative, bit-equal on a relaunch, the simt
+    design."""
+    from psvo_tpu_torch.ops import trunk
+
+    dev = _cuda()
+    cfg = PRESETS[preset]
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dx=dx, dy=dy, di=di))
+    net = NetConfig(hidden=(hidden,) * depth)
+    cfg = cfg.with_nets(q0=net, q1=net, q2=net, f=net, g=net, qb=net)
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    assert trunk.usable(ssm, cfg.smc)
+    n_mid = depth - 1
+    key = trunk.lib_key(dx, dy, hidden, n_mid, True)
+    assert key is not None and key == trunk.lib_key(dx, dy, hidden, n_mid, False)
+    b, k = 3, 256
+    g = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        consts = fused_step.prepare(ssm)
+        x_res = torch.randn((b, dx, k), generator=g, device=dev) * 2.0
+        coef = torch.rand((b, 3 * dx + dy + 1), generator=g, device=dev) + 0.1
+        if di:
+            u = 0.5 * torch.randn((1, b, di), generator=g, device=dev)
+            coef = torch.cat([coef, fused_step.control_term(consts, u)[0]], -1).contiguous()
+        eps = torch.randn((b, dx, k), generator=g, device=dev)
+    noise = {"seed": (5, 6), "t": 4} if rng else {"eps": eps}
+    if rng:
+        eps = fused_step.stream_noise((5, 6), 5, b, dx, k, dev)[0][4]
+    k10 = dict(trunk.trunk_backward.launches_by_design)
+    with torch.no_grad():
+        got = trunk.trunk_forward(x_res, coef, consts, **noise)
+        want = trunk.trunk_forward_reference(x_res, coef, consts, eps)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4)
+    d_x_new = torch.randn(got[0].shape, generator=g, device=dev)
+    d_alpha = torch.randn(got[1].shape, generator=g, device=dev)
+    args = (x_res, got[0], coef, consts, d_x_new, d_alpha)
+    back = trunk.trunk_backward(*args, **noise)
+    again = trunk.trunk_backward(*args, **noise)
+    ref = trunk.trunk_backward_reference(*args[:4], eps, *args[4:])
+    for a, a2, w in zip(back, again, ref):
+        assert torch.equal(a, a2)
+        assert _rel(a, w) <= 1e-4
+    assert {d: trunk.trunk_backward.launches_by_design[d] - n for d, n in k10.items()} == {
+        "tf32x3": 0, "simt": 2}

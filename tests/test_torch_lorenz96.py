@@ -257,8 +257,11 @@ def test_dispatch_and_in_kernel_rng_replay_on_cpu():
         assert fused_step.usable(SSM(cfg), cfg.smc), name
     multinomial = dataclasses.replace(l96.smc, resampling="multinomial")
     assert trunk.usable(SSM(l96), multinomial)  # K7 searches any sorted positions
-    wide = l96.with_nets(**{n: tconfig.NetConfig(hidden=(64, 64, 64, 64)) for n in ("q1", "f", "g")})
-    assert not trunk.usable(SSM(wide), wide.smc)  # the weights outgrow shared memory
+    deep = l96.with_nets(**{n: tconfig.NetConfig(hidden=(64, 64, 64, 64)) for n in ("q1", "f", "g")})
+    assert trunk.usable(SSM(deep), deep.smc)  # the weights stay in device memory
+    assert trunk.k9_weights(40, 40, 64, 3) == "stream" == trunk.k10_weights(40, 40, 64, 3)
+    wide = l96.with_nets(**{n: tconfig.NetConfig(hidden=(72, 72)) for n in ("q1", "f", "g")})
+    assert not trunk.usable(SSM(wide), wide.smc)  # a width above 64: a hole
     assert resample_gather.k_ok(resample_gather.MAX_K)
     assert not resample_gather.k_ok(resample_gather.MAX_K + 256)
 

@@ -86,26 +86,33 @@ def test_k7_cluster_is_the_largest_one_wave_cluster(batch, k, want):
 
 def test_k7_cluster_shared_memory_fits_every_k_of_the_class():
     """Every K of K7's class fits a CTA at the C that k7_cluster picks at any
-    B (and at C = 1, the row design's cap); 68.2 KB at the preset."""
+    B, spread where the row's CDF does not fit; the class before K = 19456
+    (K <= 256 or whole chunks of 256, up to 19200) keeps whole slices of
+    256-particle chunks and the whole CDF in each CTA; 68.2 KB at the
+    preset."""
     assert rg.k7_cluster_smem_bytes(8192, 8) == 8 * (8192 + 10) + 4 * (1024 + 9) == 69748
-    assert rg.k7_cluster_smem_bytes(rg.MAX_K, 1) == 230516 <= SMEM_LIMIT
+    assert rg.k7_cluster_smem_bytes(19200, 1) == 230516 <= SMEM_LIMIT
     for k, c in ((8192, 8), (4096, 4), (1024, 1)):  # the log-weights start on 16 bytes
         assert (rg.k7_cluster_smem_bytes(k, c) - 4 * (k // c + 9)) % 16 == 0
-    for k in [*range(1, 257), *range(512, rg.MAX_K + 1, 256)]:
+    for k in [*range(1, 257), *range(512, 19201, 256)]:
         assert rg.k_ok(k)
         for batch in (1, 8, 32):
             c = rg.k7_cluster(batch, k, 132)
             assert k % c == 0 and (c == 1 or (k // c) % _THREADS == 0)
-            assert rg.k7_cluster_smem_bytes(k, c) <= SMEM_LIMIT
+            assert not rg.k7_spread(k, c) and rg.k7_cluster_smem_bytes(k, c) <= SMEM_LIMIT
 
 
 def test_k7_class_is_unchanged():
-    """K <= 256 or a multiple of 256, at most MAX_K = 19200 (the row design's
-    12·(K + 8) bytes); above the cap the wrapper raises for both designs."""
-    assert rg.MAX_K == 19200
-    assert rg.k7_smem_bytes(rg.MAX_K) <= SMEM_LIMIT < rg.k7_smem_bytes(rg.MAX_K + 256)
-    assert rg.k_ok(rg.MAX_K) and not rg.k_ok(rg.MAX_K + 256)
-    assert not rg.k_ok(300) and rg.k_ok(255) and not rg.k_ok(0)
+    """The cluster design takes every K up to MAX_K = 32768, the reference's
+    pallas_resample.MAX_K_IDX (K = 300 too); the row design K up to
+    ROW_MAX_K = 19362, its 12·(K + 8) bytes in one CTA; above them the
+    wrapper raises (and resample_and_gather takes the count form as tensor
+    ops)."""
+    assert rg.MAX_K == pallas_resample.MAX_K_IDX == 32768
+    assert rg.k7_smem_bytes(rg.ROW_MAX_K) <= SMEM_LIMIT < rg.k7_smem_bytes(rg.ROW_MAX_K + 1)
+    assert rg.k_ok(rg.MAX_K) and not rg.k_ok(rg.MAX_K + 1)
+    assert rg.k_ok(300) and rg.k_ok(255) and not rg.k_ok(0)
+    assert rg.k7_row_ok(rg.ROW_MAX_K) and not rg.k7_row_ok(rg.ROW_MAX_K + 1)
 
 
 @pytest.mark.parametrize("design", rg.K7_DESIGNS)
@@ -164,7 +171,7 @@ def test_k11_wrapper_on_cpu_runs_the_plain_version_for_either_design(design):
 
 
 # (entry point, the parameters before the stream, the designs)
-_ENTRIES = [("psvo_ancestor_indices_large", ["design", "cluster"], rg.K7_DESIGNS),
+_ENTRIES = [("psvo_ancestor_indices_large", ["design", "cluster", "spread"], rg.K7_DESIGNS),
             ("psvo_segment_sum_scatter", ["design", "per", "cluster"], rg.K11_DESIGNS)]
 
 

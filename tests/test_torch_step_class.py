@@ -149,10 +149,12 @@ def test_depth_stops_where_shared_memory_does(dx, dy, deepest):
     """At width 64 and K = 2048 the class takes nets as deep as K4's
     smallest plan ("stream": the weights and their gradient sums in device
     memory, one net's activation tiles at a time) fits a CTA's shared memory
-    on some cluster size: `deepest` hidden layers. One more is a hole of
-    ROADMAP queue 2 B: the reference runs its whole-step kernel there, and
-    `smc.filter_route` says "raise" on CUDA tensors (the raise comes before
-    any launch)."""
+    on some cluster size: `deepest` hidden layers. One more is outside the
+    whole-step class, where the reference runs its whole-step kernel; the
+    trunk class takes it (K9 and K10 with their weights in device memory),
+    so `smc.filter_route` says "trunk" on CUDA tensors. Where the trunk
+    class stops too (K10's streamed tiles), the net is a hole of ROADMAP
+    queue 2 B: "raise", before any launch."""
     smc_cfg = dataclasses.replace(PRESETS["fhn_fivo_k1024_bench"].smc, n_particles=2048)
     for depth in (deepest, deepest + 1):
         c = fused_step.shape_consts(dx, dy, 0, 64, depth - 1)
@@ -161,9 +163,13 @@ def test_depth_stops_where_shared_memory_does(dx, dy, deepest):
         ssm = _model(dx, dy, 0, (64,) * depth)
         assert tsmc.reference_path(ssm, smc_cfg) == "fused"
         assert fused_step.usable(ssm, smc_cfg) == (depth == deepest)
-        assert not trunk.usable(ssm, smc_cfg)
-        want = "fused" if depth == deepest else "raise"
+        assert trunk.usable(ssm, smc_cfg)
+        want = "fused" if depth == deepest else "trunk"
         assert tsmc.filter_route(ssm, smc_cfg, 5, cuda=True) == want, depth
+    hole = next(d for d in range(deepest + 1, 40) if not trunk.shape_ok(dx, dy, 64, d - 1))
+    ssm = _model(dx, dy, 0, (64,) * hole)
+    assert not (fused_step.usable(ssm, smc_cfg) or trunk.usable(ssm, smc_cfg))
+    assert tsmc.filter_route(ssm, smc_cfg, 5, cuda=True) == "raise", hole
 
 
 @pytest.fixture

@@ -5,8 +5,9 @@ its trunk gate takes (`pallas_trunk.usable`), which checks neither the
 resampling mode nor the gradient mode: ESS-adaptive resampling, no
 resampling (IWAE), the full FIVO gradient and controls. The port's
 `smc._forward_filter_trunk` takes the same (K7/K8, then K9, per step; K10
-and K11 in the backward), and `trunk.usable` admits each at the
-instantiated widths, (Dx, Dy) = (2, 2), (3, 3) and (40, 40).
+and K11 in the backward), and `trunk.usable` admits each at the presets'
+widths, (Dx, Dy) = (2, 2), (3, 3) and (40, 40), and beyond them
+(`tests/test_torch_trunk_reach.py`).
 
 Small shapes: B = 8, K = 128, T = 5, hidden (16, 16), at Dx = 2 (FHN),
 Dx = 3 (Lorenz-63) and the reference's trunk-test shape Dx = Dy = 10
@@ -189,20 +190,36 @@ def test_trunk_gate_agrees_with_reference_path(preset, mode):
 
 
 def test_trunk_gate_outside_the_instantiated_widths():
-    """At a (Dx, Dy) or hidden width with no instantiation the reference still
-    sends the configuration to its trunk kernel and trunk.usable refuses it
-    (the filter raises on CUDA tensors); K10's tensor-core design is
-    Lorenz-96's alone, the small widths take the previous one."""
+    """Beyond the presets' (Dx, Dy) and widths the trunk class takes the
+    reference's shapes (Dx = Dy = 10; hidden (48, 48) at FHN's width), each
+    in a trunk shape library of its own; outside it stay the holes, where
+    the reference still runs its trunk kernel and the filter raises on CUDA
+    tensors: a width above 64 and a net deeper than K10's streamed tiles
+    hold (nine hidden layers of 64 at (55, 55)). K10's tensor-core design
+    is Lorenz-96's alone, at the library's widths; the small widths and the
+    new shapes take the previous one."""
     jcfg, tcfg = _configs(10, "ess + score")
     ssm = SSM(tcfg)
-    assert tsmc.reference_path(ssm, tcfg.smc) == "trunk" and not trunk.usable(ssm, tcfg.smc)
+    assert tsmc.reference_path(ssm, tcfg.smc) == "trunk" and trunk.usable(ssm, tcfg.smc)
+    assert trunk.lib_key(10, 10, 16, 1, False) == ("trunk", 10, 10, 16, 0, 0)
     wide = PRESETS["fhn_fivo_k1024_bench"]
     wide = dataclasses.replace(wide, smc=dataclasses.replace(wide.smc, ess_threshold=0.5))
-    wide = wide.with_nets(**{n: dataclasses.replace(wide.net(n), hidden=(48, 48))
-                             for n in ("q1", "f", "g")})
-    assert tsmc.reference_path(SSM(wide), wide.smc) == "trunk"
-    assert not trunk.usable(SSM(wide), wide.smc)
+    for hidden, admitted in (((48, 48), True), ((72, 72), False)):
+        cfg = wide.with_nets(**{n: dataclasses.replace(wide.net(n), hidden=hidden)
+                                for n in ("q1", "f", "g")})
+        assert tsmc.reference_path(SSM(cfg), cfg.smc) == "trunk"
+        assert trunk.usable(SSM(cfg), cfg.smc) is admitted
+        assert tsmc.filter_route(SSM(cfg), cfg.smc, 100, cuda=True) == (
+            "trunk" if admitted else "raise")
+    l96 = PRESETS["lorenz96_fivo_k8192_sharded"]
+    l96 = dataclasses.replace(l96, data=dataclasses.replace(l96.data, dx=55, dy=55))
+    for depth, admitted in ((8, True), (9, False)):
+        cfg = l96.with_nets(**{n: tconfig.NetConfig(hidden=(64,) * depth)
+                               for n in ("q0", "q1", "q2", "f", "qb", "g")})
+        assert tsmc.reference_path(SSM(cfg), cfg.smc) == "trunk"
+        assert trunk.usable(SSM(cfg), cfg.smc) is admitted
     assert [trunk.k10_design(d, d) for d in (2, 3, 40)] == ["simt", "simt", "tf32x3"]
+    assert trunk.k10_design(40, 40, 48, 1) == "simt" == trunk.k10_design(40, 40, 64, 2)
     assert trunk.k10_ok(2, 2, 64, 1, 1024) and not trunk.k10_ok(2, 2, 64, 1, 1024, "tf32x3")
     assert trunk.k10_ok(40, 40, 64, 1, 8192, "tf32x3") and trunk.k10_ok(40, 40, 64, 1, 8192)
 

@@ -145,16 +145,16 @@ def test_unknown_design_raises():
 
 def test_ctypes_signature_carries_the_design():
     """psvo_trunk_backward's argtypes match its C parameters (pointers and
-    the stream c_void_p, seeds c_uint32, ints c_int), with the design and
-    the control flag last before the stream; the wrapper passes DESIGNS'
-    index (0 the tensor-core kernel, 1 the previous one)."""
+    the stream c_void_p, seeds c_uint32, ints c_int), with the design, the
+    weights' place and the control flag last before the stream; the wrapper
+    passes DESIGNS' index (0 the tensor-core kernel, 1 the previous one)."""
     src = "".join((_build.CSRC / f"trunk_backward{ext}").read_text() for ext in (".cu", ".cuh"))
     m = re.search(r'extern "C" int psvo_trunk_backward\((.*?)\)\s*\{', src, re.S)
     params = [tuple(p.strip().rsplit(None, 1)) for p in m.group(1).split(",")]
     want = [ctypes.c_void_p if "*" in t else ctypes.c_uint32 if t == "uint32_t" else ctypes.c_int
             for t, _ in params]
     assert _build.SIGNATURES["psvo_trunk_backward"] == want
-    assert [n for _, n in params][-4:] == ["max_ctas", "design", "ctrl", "stream"]
+    assert [n for _, n in params][-5:] == ["max_ctas", "design", "wplan", "ctrl", "stream"]
     assert trunk.DESIGNS == ("tf32x3", "simt")
     assert "design == 0" in src and "trunk_backward_tf32x3_kernel" in src
 
@@ -190,27 +190,31 @@ def _l96_ssm(hidden, n_mid):
     return SSM(cfg.with_nets(q0=net, q1=net, q2=net, f=net, qb=net, g=net)), cfg.smc
 
 
-# the widest n_mid trunk.usable admitted before the async design, per width
-_TRUNK_CLASS = {16: 50, 32: 11, 64: 1}
+# the widest n_mid trunk.usable admits at Lorenz-96's dims, per width: K10's streamed tiles
+_TRUNK_CLASS = {16: 36, 32: 17, 64: 8}
 _TRUNK_CASES = [(h, n_mid, n_mid <= top) for h, top in _TRUNK_CLASS.items()
                 for n_mid in sorted({0, 1, top - 2, top - 1, top, top + 1}) if n_mid >= 0]
 
 
 @pytest.mark.parametrize("hidden,n_mid,admitted", _TRUNK_CASES)
 def test_trunk_usable_class_is_unchanged(hidden, n_mid, admitted):
-    """trunk.usable admits exactly the shapes it admitted before the async
-    design (n_mid up to 50, 11 and 1 at widths 16, 32 and 64), and for each
-    the async design finds a plan that fits: the parts that fit, down to
-    the tile design's layout (at hidden 32, n_mid 10 and 11)."""
+    """trunk.usable admits exactly the shapes whose K9 and K10 tiles fit a
+    CTA (n_mid up to 36, 17 and 8 at widths 16, 32 and 64: K10's tiles, its
+    weights in device memory, are the limit), and for each the async design
+    finds a plan that fits with the weights where `k9_weights` keeps them
+    (in device memory at width 32 from n_mid 12, at 64 from 2)."""
     ssm, smc = _l96_ssm(hidden, n_mid)
     assert trunk.usable(ssm, smc) == admitted
     if admitted:
         pair, prefetch = trunk.k9_plan(40, 40, hidden, n_mid)
-        assert trunk.k9_smem_bytes(40, 40, hidden, n_mid, pair, prefetch) <= SMEM_LIMIT
+        stream = trunk.k9_weights(40, 40, hidden, n_mid) == "stream"
+        assert stream == (hidden >= 32 and n_mid >= {32: 12, 64: 2}[hidden])
+        assert trunk.k9_smem_bytes(40, 40, hidden, n_mid, pair, prefetch, stream) <= SMEM_LIMIT
         assert trunk.k9_smem_bytes(40, 40, hidden, n_mid, False, False) == trunk.smem_bytes(
             40, 40, hidden, n_mid)
-        if (hidden, n_mid) in ((32, 10), (32, 11), (16, 50)):
-            assert (pair, prefetch) == (False, False)
+        w10 = trunk.k10_weights(40, 40, hidden, n_mid)
+        assert trunk.k10_smem_bytes(40, 40, hidden, n_mid, trunk.k10_design(40, 40, hidden, n_mid),
+                                    w10 == "stream") <= SMEM_LIMIT
 
 
 def test_unknown_k9_design_raises():
@@ -221,14 +225,16 @@ def test_unknown_k9_design_raises():
 
 def test_k9_ctypes_signature_carries_the_design():
     """psvo_trunk_forward's argtypes match its C parameters, with the design,
-    the async design's two parts and the control flag last before the
-    stream; design 0 is the async kernel (K9_DESIGNS[0]), 1 the tile one."""
+    the async design's two parts, the weights' place and the control flag
+    last before the stream; design 0 is the async kernel (K9_DESIGNS[0]), 1
+    the tile one."""
     src = "".join((_build.CSRC / f"trunk_forward{ext}").read_text() for ext in (".cu", ".cuh"))
     m = re.search(r'extern "C" int psvo_trunk_forward\((.*?)\)\s*\{', src, re.S)
     params = [tuple(p.strip().rsplit(None, 1)) for p in m.group(1).split(",")]
     want = [ctypes.c_void_p if "*" in t else ctypes.c_uint32 if t == "uint32_t" else ctypes.c_int
             for t, _ in params]
     assert _build.SIGNATURES["psvo_trunk_forward"] == want
-    assert [n for _, n in params][-5:] == ["design", "pair", "prefetch", "ctrl", "stream"]
+    assert [n for _, n in params][-6:] == ["design", "pair", "prefetch", "wplan", "ctrl",
+                                           "stream"]
     assert trunk.K9_DESIGNS == ("async", "tile")
     assert "design == 0" in src and "trunk_forward_async_kernel" in src

@@ -61,7 +61,7 @@ def main() -> int:
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
         t0 = time.perf_counter()
-        prof = cs.device_breakdown(fn, 1, cs.ROUTE_KERNELS, with_cpu=False)
+        prof = cs.device_breakdown(fn, 1, cs.ROUTE_KERNELS)
         print(f"[routes_profile] {card}: {cs.LONG_T} with ess_threshold 0.5 (T={cs.BA_T}, "
               f"S={cs.BA_S}, B=8) {name}: warm-up {1e3 * warm:.1f} ms (host clock); profile "
               f"{prof}; the window and its reading {time.perf_counter() - t0:.1f} s", flush=True)
