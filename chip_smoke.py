@@ -424,6 +424,25 @@ kernels' library built into a shape library of its own beside phases c-:
       profile for D=20; lorenz96_fivo_k8192_sharded from the snapshot at
       K=32768 (K7 spread over 8 CTAs, K11 on 8 tiles): one eval and
       filter_posterior call and 2 train steps, no plain version
+  (bg) the smoothing sweeps at the reference's reach
+      (smoothing_class_phases): (a) K5/K6's wide kernels at Dx = 4 (K=128,
+      the small check, and K=1024), 40 (Lorenz-96's K=1024, M=16, B=8,
+      T=100) and 55 (K=2048), M=512 at Dx=3 and M=4096 at Dx=4, K=2048
+      (BG_FFBSI), K12/K13 from shape libraries at (3, 1) width 48, (4, 3)
+      width 24 and (6, 1) width 8 with Di=1 (BG_SVO; M=32, and M=4096 at
+      the first), against their
+      plain versions under BG_TOL (K5's selections equal on every (t, row,
+      path), x~/x_first/logp within 1e-6 relative L2; K6 per leaf within
+      1e-4 small, 1e-3 full, the direct bound's against float64; K12 2e-4;
+      K13 per leaf 1e-4 small, 1e-3 full, relu ties zeroed; every kernel
+      bit-equal on a relaunch), times and bounds at the main paths' shapes;
+      (b) Lorenz-96 PSVO at K=1024, M=16, B=8, T=100 (the trunk filter, the
+      wide K5/K6) and (c) SVO at (Dx, Dy) = (3, 1), widths 48, K=256, M=32,
+      B=32, T=100 (K1/K4, K12/K13 from shape libraries): the card against
+      the CPU, one smooth_posterior call and 3 train steps with launch
+      counts, no plain version, times, peak memory and a profile; (d) the
+      preset shapes' K5/K6/K12/K13 outputs (preset_bits) bit-equal to the
+      parent's build's (PARENT_BITS)
 
 (ap) begins with K7, K8 and K11 at the general path's shape (B=32, K=128,
 D=2) against their plain versions, timed beside them and beside
@@ -461,7 +480,8 @@ train steps' launches of phases ay-ba by configuration; K7, K8 and K11 carry
 per shard)", at the 1x8 mesh's per-shard shape, timed in bb; K1, K4, K14
 and K15 once more per phase-be configuration; K7 as "(any K)", its times by
 K in "by_k", K11 as "(K=32768)" and K9 and K10 per REACH_TRUNK shape, from
-phase bf; the last line
+phase bf; K5 and K6 as "(wide, Lorenz-96)" and K12 and K13 as "(class, (3,
+1) width 48)", from phase bg; the last line
 is the device record. Imports nothing of JAX: the
 machine with the card has none.
 """
@@ -822,6 +842,21 @@ def kernel_inputs(ssm, cfg, ys, gen, controls=None):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def k5_bytes(ops, kern) -> int:
+    """Bytes K5 must move: x_anchor, r, mr, c, lwn and gum read in full; of xs
+    and lg only the particles the sweep picked (each distinct (t, b, j) of the
+    selections once: Dx floats and one); its outputs (x_first, logp, logq,
+    xtilde, sel) written once."""
+    import torch
+
+    x_anchor, xs, r, mr, c, lwn, lg, gum = ops
+    sel = kern[4]
+    t1, b, dx, k = xs.shape
+    rows = torch.arange(t1 * b, device=sel.device).view(t1, b, 1) * k
+    picked = int(torch.unique(rows + sel.long()).numel())
+    return nbytes(x_anchor, r, mr, c, lwn, gum, *kern) + picked * (dx + 1) * xs.element_size()
 
 
 def bound(flops: float, n_bytes: float):
@@ -5584,6 +5619,601 @@ def reach_rows(figs: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase bg: the smoothing sweeps at the reference's reach (K5/K6's wide
+# kernels at any Dx and M, K12/K13 over the reference's SVO class)
+# ---------------------------------------------------------------------------
+
+# (Dx, K, M, B, T-1) of K5/K6 against their plain versions: the first the small shape (gates
+# 1e-4), Lorenz-96's main path (B = 8, T = 100) second, then Dx = 55, M past the staged K6's
+# 256 paths, and the class's corner tested for (M = 4096 at K = 2048)
+BG_FFBSI = ((4, 128, 8, 8, 5), (40, 1024, 16, 8, 99), (4, 1024, 16, 8, 20), (55, 2048, 16, 8, 20),
+            (3, 1024, 512, 8, 20), (4, 2048, 4096, 8, 3))
+# (Dx, Dy, Di, width) of K12/K13 against their plain versions beyond the kernels' library (M =
+# 32; B = 8, T - 1 = 20 the small check, B = 32, T - 1 = 99 the full one); BG_BIG_M paths at the
+# first
+BG_SVO = ((3, 1, 0, 48), (4, 3, 0, 24), (6, 1, 1, 8))
+BG_BIG_M = 4096  # ops/svo.py MAX_M
+BG_TRAIN = 3  # phase bg (b), (c): train steps
+# the gates, set before the phase's first run (PERF.md section 2)
+BG_TOL = {"k5_rel": 1e-6, "k6_small": 1e-4, "k6_full": 1e-3, "k12": 2e-4, "k13_small": 1e-4,
+          "k13_full": 1e-3}
+BG_KERNELS = {"K5": ("ffbsi_wide_kernel",), "K6": ("ffbsi_bwd_wide_kernel",),
+              "K7": ("ancestor_indices",), "K8": ("gather_particles_kernel",),
+              "K9": ("trunk_forward",), "K10": ("trunk_backward", "trunk_sum"),
+              "K11": ("segment_sum",)}
+BG_SVO_KERNELS = {"K1": ("scan_forward_kernel",), "K4": ("scan_backward_kernel", "sum_rows_kernel"),
+                  "K12": ("svo_forward_split_kernel",),
+                  "K13": ("svo_backward_split_kernel", "svo_sum_ctas_kernel")}
+# Digests of the preset shapes' K5/K6/K12/K13 outputs (`preset_bits`) from the build of the
+# parent commit f2de621 (preset_bits on that commit's package, its ffbsi.cu and svo_sweep*.cu
+# built alone), on an NVIDIA H100 80GB HBM3 at 700.00 W (132 SMs: K13's CTA rows, and so its
+# sums' order, follow the card's SM count); phase bg (d) holds this build to them on such a card
+PARENT_BITS_CARD = ("NVIDIA H100 80GB HBM3", 132)
+PARENT_BITS = {
+    "K12 (2, 2) h16 di0 0": "42dc84a6763354d3", "K12 (2, 2) h16 di0 1": "8bf9445fa53cd1e1",
+    "K12 (2, 2) h16 di0 2": "46cb39a791876b16", "K12 (2, 2) h16 di0 3": "9ef477dcf1aab966",
+    "K12 (2, 2) h16 di2 0": "d16c1dc9bd17ed95", "K12 (2, 2) h16 di2 1": "d2952db12dc84126",
+    "K12 (2, 2) h16 di2 2": "e69bd7997b50f8b0", "K12 (2, 2) h16 di2 3": "b29ae9a80693af71",
+    "K12 (2, 2) h32 di0 0": "d97fdbb533edbe84", "K12 (2, 2) h32 di0 1": "2de64b7fc7b11971",
+    "K12 (2, 2) h32 di0 2": "62d52d82160ac869", "K12 (2, 2) h32 di0 3": "1261f994c43c5dbe",
+    "K12 (2, 2) h32 di2 0": "16bcf9a4acf6e6eb", "K12 (2, 2) h32 di2 1": "8a266bd7f0d64a55",
+    "K12 (2, 2) h32 di2 2": "33c1ad4e3af19e0e", "K12 (2, 2) h32 di2 3": "590b43a905a7fed8",
+    "K12 (2, 2) h64 di0 0": "0c707c1d374b3d65", "K12 (2, 2) h64 di0 1": "138e9ae096421bb1",
+    "K12 (2, 2) h64 di0 2": "f833f9ffab79a694", "K12 (2, 2) h64 di0 3": "0b329f2124398ddf",
+    "K12 (2, 2) h64 di2 0": "cf60533060421cd6", "K12 (2, 2) h64 di2 1": "47cd82b00556071d",
+    "K12 (2, 2) h64 di2 2": "22904dda8958b243", "K12 (2, 2) h64 di2 3": "ad91f1dc6baf8bbb",
+    "K12 (3, 3) h16 di0 0": "95c4a6000704c162", "K12 (3, 3) h16 di0 1": "52dcd4421c3d8dd5",
+    "K12 (3, 3) h16 di0 2": "07ab9c321e27110a", "K12 (3, 3) h16 di0 3": "ee302d977993b592",
+    "K12 (3, 3) h16 di2 0": "2e22bf698a9350eb", "K12 (3, 3) h16 di2 1": "0f1d73f6730de411",
+    "K12 (3, 3) h16 di2 2": "9e27fe0095c9ad04", "K12 (3, 3) h16 di2 3": "a8d6881fa2442e57",
+    "K12 (3, 3) h32 di0 0": "f2485f8134f939f3", "K12 (3, 3) h32 di0 1": "e67f8c68d1d4ba84",
+    "K12 (3, 3) h32 di0 2": "db5392bcc2a5b41e", "K12 (3, 3) h32 di0 3": "02ef0911c9efe1d0",
+    "K12 (3, 3) h32 di2 0": "b41b9d4ac90ae654", "K12 (3, 3) h32 di2 1": "010347e0f8ed9223",
+    "K12 (3, 3) h32 di2 2": "9bb142fabaa8823d", "K12 (3, 3) h32 di2 3": "9db301a59d9b0018",
+    "K12 (3, 3) h64 di0 0": "9dd3abaa45eb501e", "K12 (3, 3) h64 di0 1": "3c572195dfae4c86",
+    "K12 (3, 3) h64 di0 2": "fab13c928116f218", "K12 (3, 3) h64 di0 3": "dea361be9bb27f46",
+    "K12 (3, 3) h64 di2 0": "b003192a9c8a3ed9", "K12 (3, 3) h64 di2 1": "565edc1ff5503526",
+    "K12 (3, 3) h64 di2 2": "e97a362048cb1bf2", "K12 (3, 3) h64 di2 3": "0277be3a5c558529",
+    "K13 (2, 2) h16 di0 0": "b94589c153d2874d", "K13 (2, 2) h16 di0 1": "b31aaa2d517feeba",
+    "K13 (2, 2) h16 di0 2": "330f80ab7e2f22f3", "K13 (2, 2) h16 di2 0": "9edd2b3b0bb771ea",
+    "K13 (2, 2) h16 di2 1": "f529ee595d55c6c3", "K13 (2, 2) h16 di2 2": "1fa975ade3ce51c5",
+    "K13 (2, 2) h16 di2 3": "7f97619c87c327bf", "K13 (2, 2) h32 di0 0": "f8c6fccf04162a44",
+    "K13 (2, 2) h32 di0 1": "93416e250c1067f2", "K13 (2, 2) h32 di0 2": "aa16b756a1eb6d26",
+    "K13 (2, 2) h32 di2 0": "5fee3be366b775e5", "K13 (2, 2) h32 di2 1": "51be0326aff36909",
+    "K13 (2, 2) h32 di2 2": "5880bf7576ae230b", "K13 (2, 2) h32 di2 3": "e7fa55700379bd81",
+    "K13 (2, 2) h64 di0 0": "29f39704ecabe472", "K13 (2, 2) h64 di0 1": "8e767a5846abe3a1",
+    "K13 (2, 2) h64 di0 2": "ebc286f71d309041", "K13 (2, 2) h64 di2 0": "bf3492145d92f4fa",
+    "K13 (2, 2) h64 di2 1": "69150f4e3abda490", "K13 (2, 2) h64 di2 2": "876d4fdd86b7340f",
+    "K13 (2, 2) h64 di2 3": "b1fb3b32b76b3d9a", "K13 (3, 3) h16 di0 0": "cacdb8ce356272ea",
+    "K13 (3, 3) h16 di0 1": "5f6bf25f99de9505", "K13 (3, 3) h16 di0 2": "52b91b8c23d50825",
+    "K13 (3, 3) h16 di2 0": "d8b849ede60d3a07", "K13 (3, 3) h16 di2 1": "5b41a9423499b306",
+    "K13 (3, 3) h16 di2 2": "5ed3dde1ede816ca", "K13 (3, 3) h16 di2 3": "b1d257a6f182bed2",
+    "K13 (3, 3) h32 di0 0": "0a891418e2bf6ac4", "K13 (3, 3) h32 di0 1": "e28f2b6c5ffe11af",
+    "K13 (3, 3) h32 di0 2": "f2593fe684e3a878", "K13 (3, 3) h32 di2 0": "e7a7d9a4ee9e0992",
+    "K13 (3, 3) h32 di2 1": "c26af089681494c8", "K13 (3, 3) h32 di2 2": "b33424affce3d8ee",
+    "K13 (3, 3) h32 di2 3": "490f31bc6ea65702", "K13 (3, 3) h64 di0 0": "e1ebf21bc8c3febc",
+    "K13 (3, 3) h64 di0 1": "af4aa287ffca6a36", "K13 (3, 3) h64 di0 2": "646f4897d1246c02",
+    "K13 (3, 3) h64 di2 0": "1962f32c5433adf0", "K13 (3, 3) h64 di2 1": "357243a8d9b87905",
+    "K13 (3, 3) h64 di2 2": "0e46a7d4b6d94188", "K13 (3, 3) h64 di2 3": "d76d40cdbc57ca89",
+    "K5 dx2 out0": "8e64b1e7da0478c9", "K5 dx2 out1": "fbdf15442b6824f2",
+    "K5 dx2 out2": "2287f175d33840e7", "K5 dx2 out3": "b1e017a0ed80cd69",
+    "K5 dx2 out4": "fea0dd7aae99fedf", "K5 dx3 out0": "468ed71fb3bb0d9a",
+    "K5 dx3 out1": "538c7d3806a04ca0", "K5 dx3 out2": "3db6829ff3f5c879",
+    "K5 dx3 out3": "283bd321c11a14c3", "K5 dx3 out4": "2e8a25553596e515",
+    "K6 dx2 all cotangents 0": "cbf2e646816b56e5", "K6 dx2 all cotangents 1": "ea33dd58ed48c0dd",
+    "K6 dx2 all cotangents 2": "d05803de61f2d4f6", "K6 dx2 all cotangents 3": "9fb927ff41668043",
+    "K6 dx2 all cotangents 4": "cc41ea84df0f0230", "K6 dx2 all cotangents 5": "bd3b622128c95d33",
+    "K6 dx2 all cotangents 6": "4b30789510efe12f", "K6 dx2 direct bound 0": "14a6b16bf3a414a8",
+    "K6 dx2 direct bound 1": "cbbeb9933a39be1d", "K6 dx2 direct bound 2": "8f821c04d53e3297",
+    "K6 dx2 direct bound 3": "64cf114cfb644c24", "K6 dx2 direct bound 4": "bd3b622128c95d33",
+    "K6 dx2 direct bound 5": "bd3b622128c95d33", "K6 dx2 paths only 0": "ad7facb2586fc6e9",
+    "K6 dx2 paths only 1": "9adcd904547487c0", "K6 dx3 all cotangents 0": "8f643fdf000f700f",
+    "K6 dx3 all cotangents 1": "0fddf331b7182f20", "K6 dx3 all cotangents 2": "8b1255d1cbf4f8bc",
+    "K6 dx3 all cotangents 3": "41904526dd3ba62b", "K6 dx3 all cotangents 4": "2eb4906b198caa77",
+    "K6 dx3 all cotangents 5": "d5c23c883e967d6a", "K6 dx3 all cotangents 6": "0d04684569fb8b89",
+    "K6 dx3 direct bound 0": "e6f85c98a740b74c", "K6 dx3 direct bound 1": "c69645d2e1f724d6",
+    "K6 dx3 direct bound 2": "af111807e35e912a", "K6 dx3 direct bound 3": "3e44a06e57a4f6d8",
+    "K6 dx3 direct bound 4": "d5c23c883e967d6a", "K6 dx3 direct bound 5": "d5c23c883e967d6a",
+    "K6 dx3 paths only 0": "fd9243e1ba57263e", "K6 dx3 paths only 1": "06cadec425ab9b1b",
+}
+
+
+def bg_svo_config(pt, dx, dy, di, h, b=32, t_steps=100, m=32):
+    """Lorenz-63's SVO preset reshaped to (Dx, Dy, Di), q1/qb/f/g at (h, h),
+    M paths, B = b, T, one train step a call, no mesh."""
+    base = pt.PRESETS[SVO]
+    cfg = dataclasses.replace(
+        base, data=dataclasses.replace(base.data, dx=dx, dy=dy, di=di, t_steps=t_steps),
+        smc=dataclasses.replace(base.smc, n_smoothing_particles=m),
+        train=dataclasses.replace(base.train, steps_per_call=1, batch_size=b),
+        mesh=dataclasses.replace(base.mesh, data=1, particle=1))
+    net_of = {n: dataclasses.replace(cfg.net(n), hidden=(h, h)) for n in ("q1", "qb", "f", "g")}
+    return cfg.with_nets(**net_of)
+
+
+def bg_l96_config(pt):
+    """Phase bg (b): the Lorenz-96 preset (Dx = Dy = 40, q1/f/g at its (64,
+    64)) with PSVO at K = 1024, M = 16, B = 8, T = 100, no mesh."""
+    return dataclasses.replace(
+        route_config(pt, L96, {"objective": "psvo", "n_particles": 1024,
+                               "n_smoothing_particles": 16}),
+        mesh=dataclasses.replace(pt.PRESETS[L96].mesh, data=1, particle=1))
+
+
+def smoothing_class_shapes(pt) -> list:
+    """The shape libraries phase bg launches: K12/K13's at BG_SVO, K1/K4's at
+    (c)'s shape (`fused_step._lib_key`), for `build_shapes_beside`."""
+    from psvo_tpu_torch.ops import fused_step, svo
+
+    keys = [svo.lib_key(dx, dy, h) for dx, dy, _, h in BG_SVO]
+    c = fused_step.shape_consts(3, 1, 0, 48, 1)
+    keys += [fused_step._lib_key(c, False), fused_step._lib_key(c, True)]
+    return list(dict.fromkeys(k_ for k_ in keys if k_ is not None))
+
+
+def _rel(a, w) -> float:
+    return float((a.double() - w.double()).norm() / w.double().norm().clamp_min(1e-300))
+
+
+def bg_ffbsi_check(dev, dx, k, m, b, t1, seed, small):
+    """K5 against its plain version on one sweep's operands (`ffbsi_sweep`'s
+    recipe, fresh Gumbels): selections on every (t, row, path), x~, x_first,
+    logp and logq by relative L2; K6 in each cotangent mode of K6_MODES
+    against its plain version per leaf (the direct bound's also against the
+    plain version replayed in float64: `k6_wide_check`); each kernel
+    bit-equal on a relaunch. Returns a dict with the operands for timing."""
+    import torch
+    from psvo_tpu_torch.ops import ffbsi
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sweep, _ = ffbsi_sweep(dev, dx, b, m, k, t1, gen)
+    u = torch.rand((t1, b, m, k), generator=gen, device=dev).clamp_min(1e-30)
+    ops = [*sweep[:7], (-torch.log(-torch.log(u))).contiguous()]
+    with torch.no_grad():
+        kern = ffbsi.ffbsi_forward(*ops)
+        ref = ffbsi.ffbsi_forward_reference(*ops)
+        again = ffbsi.ffbsi_forward(*ops)
+    torch.cuda.synchronize()
+    r = dict(sel_bad=int((kern[4] != ref[4]).sum()), n_sel=kern[4].numel(),
+             rel5={nm: _rel(kern[i], ref[i]) for i, nm in
+                   ((3, "xtilde"), (0, "x_first"), (1, "logp"), (2, "logq"))},
+             err5=max_err(kern[:4], ref[:4]),
+             same5=all(torch.equal(a, w) for a, w in zip(kern, again)), ops=ops, kern=kern,
+             k6={}, kernel=(ffbsi.staged_kernel(dx, m), ffbsi.staged_kernel(dx, m, True)))
+    cots = [torch.randn(t.shape, generator=gen, device=dev) for t in kern[:4]]
+    names = ("d_x_first", "d_logp", "d_logq", "d_xtilde")
+    tol = BG_TOL["k6_small" if small else "k6_full"]
+    ok = r["sel_bad"] == 0 and r["same5"] and all(
+        r["rel5"][nm] <= BG_TOL["k5_rel"] for nm in ("xtilde", "x_first", "logp"))
+    for mode, (live, needs) in K6_MODES.items():
+        kw = {n: cots[i] if i in live else None for i, n in enumerate(names)}
+        args = (*ops[:7], kern[4], kern[3])
+        with torch.no_grad():
+            got = ffbsi.ffbsi_backward(*args, needs=needs, **kw)
+            want = ffbsi.ffbsi_backward_reference(*args, needs=needs, **kw)
+            again6 = ffbsi.ffbsi_backward(*args, needs=needs, **kw)
+        torch.cuda.synchronize()
+        rel = [_rel(g, w) for g, w in zip(got, want) if w is not None]
+        same = all(g is None or torch.equal(g, a) for g, a in zip(got, again6))
+        f64 = None
+        if mode == "direct bound":  # d_q: a difference of near-equal sums (K6_MODES' note)
+            k6_64, plain_64, _ = k6_wide_check(args, kw, needs, got, want, want)
+            f64 = (k6_64, plain_64)
+            good = all(a <= max(2 * p, tol) for a, p in zip(k6_64, plain_64))
+        else:
+            good = max(rel) <= tol
+        ok = ok and good and same
+        r["k6"][mode] = dict(rel=rel, same=same, f64=f64, maxd=max(
+            float((g - w).abs().max()) for g, w in zip(got, want) if w is not None),
+            args=args, kw=kw, needs=needs, got=got)
+    r["ok"] = ok
+    return r
+
+
+def bg_svo_check(pt, dev, dx, dy, di, h, b, m, t1, seed, small):
+    """K12 against its plain version (allclose 2e-4) and K13 per leaf on
+    K12's x~ with random cotangents zeroed on the relu-tie paths
+    (`svo_relu_ties`; d_cbias too with Di > 0), each bit-equal on a relaunch,
+    at (Dx, Dy, Di, width h), B = b, M = m, T - 1 = t1: random weights
+    nudged off their init, anchors, ε and observations at Lorenz-63 scales.
+    Returns a dict with the operands for timing."""
+    import torch
+    from psvo_tpu_torch.ops import svo
+
+    cfg = bg_svo_config(pt, dx, dy, di, h)
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(seed), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        for p_ in ssm.parameters():
+            p_.add_(0.05 * torch.randn(p_.shape, generator=gen, device=dev))
+        consts = svo.prepare(ssm)
+        cbias = None
+        if di:
+            cbias = svo.control_term(consts, torch.randn((t1, b, di), generator=gen,
+                                                         device=dev)).contiguous()
+        ops = (torch.randn((b, m, dx), generator=gen, device=dev) * 3.0,
+               torch.randn((t1, b, m, dx), generator=gen, device=dev),
+               torch.randn((t1, b, dy), generator=gen, device=dev) * 3.0)
+        kern = svo.svo_sweep_forward(*ops, consts, cbias=cbias)
+        ref = svo.svo_sweep_forward_reference(*ops, consts, cbias)
+        again = svo.svo_sweep_forward(*ops, consts, cbias=cbias)
+        tie = svo_relu_ties(consts, ops, kern[3], cbias=cbias)
+        keep = (~tie).float()
+        cots = [torch.randn(t.shape, generator=gen, device=dev) for t in kern]
+        cots = [cots[0] * keep[..., None], cots[1] * keep, cots[2] * keep,
+                cots[3] * keep[..., None]]
+        got = svo.svo_sweep_backward(*ops, consts, kern[3], *cots, cbias=cbias)
+        want = svo.svo_sweep_backward_reference(*ops, consts, kern[3], *cots, cbias=cbias)
+        again13 = svo.svo_sweep_backward(*ops, consts, kern[3], *cots, cbias=cbias)
+    torch.cuda.synchronize()
+    rel13 = [_rel(g, w) for g, w in zip(got, want)]
+    r = dict(close=close(kern, ref, BG_TOL["k12"]), err12=max_err(kern, ref),
+             same12=all(torch.equal(a, w) for a, w in zip(kern, again)), rel13=rel13,
+             err13=max_err(got, want), same13=all(torch.equal(a, w) for a, w in zip(got, again13)),
+             zeroed=int(tie.sum()), n=b * m, consts=consts, ops=ops, cbias=cbias, kern=kern,
+             cots=cots, got=got, key=svo.lib_key(dx, dy, h),
+             plan=svo.k12_plan(dx, dy, h, 1, b * m, torch.cuda.get_device_properties(
+                 dev).multi_processor_count, t1),
+             rows13=svo.k13_tile_rows(dx, dy, h, 1, consts["packed"].numel()))
+    r["ok"] = (r["close"] and r["same12"] and r["same13"]
+               and max(rel13) <= BG_TOL["k13_small" if small else "k13_full"])
+    return r
+
+
+def preset_bits(pt, dev) -> dict:
+    """{name: sha256 prefix} of K5/K6's outputs at Dx = 2 and 3 (B = 32, M =
+    16, K = 1024, T - 1 = 20; K6 in each mode of K6_MODES) and K12/K13's at
+    the kernels' library's six shapes ((2, 2), (3, 3) x widths 16, 32, 64,
+    one middle layer; B = 32, M = 16, T - 1 = 20), without and with Di = 2
+    controls, on inputs made from numpy seeds on the host (numpy's PCG64 and
+    float64 arithmetic: the same bits on any host), weights from a CPU
+    torch generator and f's control bias computed on the host (no library
+    product whose algorithm the card's size picks): phase bg (d) holds them
+    to the parent's build's."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from psvo_tpu_torch.ops import ffbsi, svo
+
+    def digest(t):
+        return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+    out = {}
+    b, m, k, t1 = 32, 16, 1024, 20
+    for dx in (2, 3):
+        rng = np.random.default_rng(100 + dx)
+        xs = rng.random((t1, b, dx, k)) * 16.0 - 8.0
+        mean = xs + rng.random(xs.shape) - 0.5
+        sd = 0.5 + 1.5 * rng.random(xs.shape)
+        rr = 1.0 / (sd * sd)
+        c = -0.5 * np.sum(mean * mean * rr, axis=2) - np.sum(np.log(sd), axis=2)
+        lw = rng.random((t1, b, k)) * 4.0
+        lwn = lw - np.log(np.sum(np.exp(lw), axis=-1, keepdims=True))
+        lg = rng.random((t1, b, k))
+        gum = -np.log(-np.log(np.clip(rng.random((t1, b, m, k)), 1e-300, None)))
+        xa = xs[-1, :, :, :m].transpose(0, 2, 1) + rng.random((b, m, dx)) - 0.5
+        ops = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+               for a in (xa, xs, rr, mean * rr, c, lwn, lg, gum)]
+        with torch.no_grad():
+            fwd = ffbsi.ffbsi_forward(*ops)
+            out.update({f"K5 dx{dx} out{i}": digest(t) for i, t in enumerate(fwd)})
+            cots = [torch.from_numpy(np.asarray(rng.random(t.shape) - 0.5, np.float32)).to(dev)
+                    for t in fwd[:4]]
+            names = ("d_x_first", "d_logp", "d_logq", "d_xtilde")
+            for mode, (live, needs) in K6_MODES.items():
+                kw = {n: cots[i] if i in live else None for i, n in enumerate(names)}
+                got = ffbsi.ffbsi_backward(*ops[:7], fwd[4], fwd[3], needs=needs, **kw)
+                out.update({f"K6 dx{dx} {mode} {i}": digest(t) for i, t in enumerate(got)
+                            if t is not None})
+    for dx, h in [(d, w) for d in (2, 3) for w in (16, 32, 64)]:
+        for di in (0, 2):
+            cfg = bg_svo_config(pt, dx, dx, di, h)
+            ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(7 + h + di), device=dev)
+            rng = np.random.default_rng(200 + 10 * dx + h + di)
+
+            def arr(*shape, scale=1.0):
+                return torch.from_numpy(np.asarray((rng.random(shape) - 0.5) * scale,
+                                                   np.float32)).to(dev)
+
+            with torch.no_grad():
+                consts = svo.prepare(ssm)
+                cbias = None
+                if di:  # u_{t+1}·W_u on the host, in float64
+                    u = arr(t1, b, di).cpu().double()
+                    cbias = (u @ consts["ctrl_w"].detach().cpu().double()).float().to(dev)
+                ops = (arr(b, m, dx, scale=6.0), arr(t1, b, m, dx, scale=3.0),
+                       arr(t1, b, dx, scale=6.0))
+                k12 = svo.svo_sweep_forward(*ops, consts, cbias=cbias)
+                cots = [arr(*t.shape) for t in k12]
+                k13 = svo.svo_sweep_backward(*ops, consts, k12[3], *cots, cbias=cbias)
+            tag = f"({dx}, {dx}) h{h} di{di}"
+            out.update({f"K12 {tag} {i}": digest(t) for i, t in enumerate(k12)})
+            out.update({f"K13 {tag} {i}": digest(t) for i, t in enumerate(k13)})
+    return out
+
+
+def bg_drive(pt, dev, card, label, cfg, ys, method, want_serve, want_train, groups):
+    """Serve (one `smooth_posterior` call with `method`) and train (BG_TRAIN
+    steps of make_train_step) cfg on the card through the entry points, with
+    launch counts against ROUTE_NAMES' wants and no plain version; host-clock
+    times, peak memory and a device profile of one more step."""
+    import torch
+
+    kernels, plain = route_counters()
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 250)
+    t0 = time.perf_counter()
+    (paths, sv_l, sv_p), sv_peak = peak_gb(lambda: kernel_counts(
+        kernels, plain, lambda: pt.smooth_posterior(ssm, ys, cfg, gen, method=method)))
+    sv_first = (time.perf_counter() - t0) * 1e3
+    sv_ms = time_ms(lambda: pt.smooth_posterior(ssm, ys, cfg, gen, method=method), 3, 1)
+    b, t = ys.shape[:2]
+    ok = (tuple(paths.shape) == (b, cfg.smc.n_smoothing_particles, t, cfg.data.dx)
+          and bool(torch.isfinite(paths).all()))
+    print(f"[bg] {card}: {label} served: smooth_posterior(method={method!r}) -> "
+          f"{tuple(paths.shape)}, finite and shaped {ok}; launches {dict(zip(ROUTE_NAMES, sv_l))}, "
+          f"plain versions {sv_p}; {sv_first:.1f} ms the first call, {sv_ms:.2f} ms (CUDA events, "
+          f"median of 3 after 1); peak {sv_peak:.3f} GB above what was held", flush=True)
+    if not ok or sv_l != want_serve or sv_p:
+        fail(f"(bg) {label} serving: launches {sv_l} (want {want_serve}), plain versions {sv_p}, "
+             f"paths ok {ok}")
+    step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
+    step_ms = []
+
+    def run():
+        out = []
+        for _ in range(BG_TRAIN):
+            t1 = time.perf_counter()
+            out.append(step(gen, ys))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    before = [p_.detach().clone() for p_ in ssm.parameters()]
+    (metrics, tr_l, tr_p), peak = peak_gb(lambda: kernel_counts(kernels, plain, run))
+    losses = [float(m_["loss"]) for m_ in metrics]
+    norms = [float(m_["grad_norm"]) for m_ in metrics]
+    moved = sum(not torch.equal(a, p_.detach()) for a, p_ in zip(before, ssm.parameters()))
+    prof = device_breakdown(lambda: step(gen, ys), 1, groups)
+    print(f"[bg] {card}: {label} {BG_TRAIN} train steps at B={b}, T={t}: loss "
+          f"{[round(v, 3) for v in losses]}, grad norm {[round(v, 3) for v in norms]}, {moved} of "
+          f"{len(before)} parameter tensors moved, launches {dict(zip(ROUTE_NAMES, tr_l))} (want "
+          f"{dict(zip(ROUTE_NAMES, want_train))}), plain versions {tr_p}, step times "
+          f"{[round(v, 1) for v in step_ms]} ms (host clock, the first with its warm-up), peak "
+          f"{peak:.3f} GB above what was held; profile of one more step: {prof}", flush=True)
+    if (tr_l != want_train or tr_p or not moved
+            or not all(math.isfinite(v) for v in losses + norms)):
+        fail(f"(bg) {label} training: launches {tr_l} (want {want_train}), plain versions {tr_p}, "
+             f"losses {losses}, grad norms {norms}, moved {moved}")
+    return dict(serve=sv_l, train=tr_l, step_ms=step_ms, serve_ms=sv_ms, serve_first=sv_first,
+                peak=peak, serve_peak=sv_peak, profile=prof, losses=losses)
+
+
+def smoothing_class_phases(pt, dev, card: str) -> dict:
+    """Phase (bg): the smoothing sweeps at the reference's reach. (a) K5/K6's
+    wide kernels (BG_FFBSI) and K12/K13 beyond the kernels' library (BG_SVO,
+    and BG_BIG_M paths) against their plain versions under BG_TOL, times at
+    the main paths' shapes; (b) Lorenz-96 PSVO at full width served and
+    trained, the card against the CPU; (c) SVO on Lorenz-63 seen through
+    one channel, likewise; (d) the preset shapes' K5/K6/K12/K13 outputs
+    against the parent's build (PARENT_BITS). Returns the figures for the
+    kernels' JSON record and PERF.md."""
+    import torch
+    from psvo_tpu_torch.ops import _build, ffbsi, svo
+
+    figs = {"ffbsi": {}, "svo": {}}
+    keys = smoothing_class_shapes(pt)
+    t0 = time.perf_counter()
+    for key in keys:  # built beside phases c-; a build that failed there raises here
+        _build.load_shape_library(key)
+    print(f"[bg] {card}: {shapes_line(keys)}; waited {time.perf_counter() - t0:.1f} s", flush=True)
+    # (a) K5/K6
+    for i, (dx, k, m, b, t1) in enumerate(BG_FFBSI):
+        small = i == 0
+        r = bg_ffbsi_check(dev, dx, k, m, b, t1, SEED + 260 + i, small)
+        k6 = "; ".join(
+            f"{mode} rel L2 " + "/".join(f"{v:.2e}" for v in v_["rel"])
+            + (f" (float64: kernel {'/'.join(f'{a:.1e}' for a in v_['f64'][0])}, plain "
+               f"{'/'.join(f'{a:.1e}' for a in v_['f64'][1])})" if v_["f64"] else "")
+            + f", relaunch {v_['same']}" for mode, v_ in r["k6"].items())
+        print(f"[bg] {card}: K5/K6 at Dx={dx}, K={k}, M={m}, B={b}, T-1={t1} (kernels "
+              f"{r['kernel'][0]}/{r['kernel'][1]}): K5 selections differing {r['sel_bad']} of "
+              f"{r['n_sel']}, rel L2 " + ", ".join(f"{nm} {v:.2e}" for nm, v in r["rel5"].items())
+              + f", relaunch {r['same5']}; K6 {k6} (bounds {BG_TOL}) -> "
+              f"{'ok' if r['ok'] else 'FAIL'}", flush=True)
+        if not r["ok"]:
+            fail(f"(bg) K5/K6 at Dx={dx}, K={k}, M={m} disagree with their plain versions")
+        fig = dict(err5=r["err5"], err6=max(v_["maxd"] for v_ in r["k6"].values()),
+                   rel5=r["rel5"], rel6={mode: v_["rel"] for mode, v_ in r["k6"].items()})
+        if (dx, k, m) == (40, 1024, 16):  # Lorenz-96's main path: times and bounds
+            ops, kern = r["ops"], r["kern"]
+            pa = r["k6"]["paths only"]
+            al = r["k6"]["all cotangents"]
+            with torch.no_grad():
+                t5 = [pair_ms(lambda: ffbsi.ffbsi_forward(*ops)),
+                      time_ms(lambda: ffbsi.ffbsi_forward_reference(*ops), 3, 1)]
+                t6 = {mode: [pair_ms(lambda v_=v_: ffbsi.ffbsi_backward(
+                                 *v_["args"], needs=v_["needs"], **v_["kw"])),
+                             time_ms(lambda v_=v_: ffbsi.ffbsi_backward_reference(
+                                 *v_["args"], needs=v_["needs"], **v_["kw"]), 3, 1)]
+                      for mode, v_ in (("paths only", pa), ("all cotangents", al))}
+            n_pair = t1 * b * m * k
+            b5 = bound((4 * dx + 10) * n_pair, k5_bytes(ops, kern))
+            b6 = {"paths only": bound(n_pair, nbytes(ops[0], kern[3], kern[4], *[
+                      v for v in pa["kw"].values() if v is not None], *[
+                      g for g in pa["got"] if g is not None])),
+                  "all cotangents": bound((12 * dx + 20) * n_pair, nbytes(
+                      ops[0], kern[3], kern[4], *ops[2:6], *[
+                          v for v in al["kw"].values() if v is not None], *[
+                          g for g in al["got"] if g is not None]))}
+            print(f"[bg] {card}: K5 wide at Lorenz-96's shape {t5[0]:.4f} ms ({PAIR_HOW}), plain "
+                  f"{t5[1]:.3f} ms (CUDA events, median of 3); bound {b5[0]:.4f} ms ({b5[1]}); K6 "
+                  + "; ".join(f"{mode} {t6[mode][0]:.4f} ms, plain {t6[mode][1]:.3f} ms, bound "
+                              f"{b6[mode][0]:.4f} ms ({b6[mode][1]})" for mode in t6)
+                  + f"; {kernel_resources('ffbsi_wide_kernelILi1E')}, "
+                  f"{kernel_resources('ffbsi_bwd_wide_kernel')}", flush=True)
+            fig.update(t5=t5, t6=t6, b5=b5, b6=b6)
+        figs["ffbsi"][(dx, k, m)] = fig
+        del r
+    torch.cuda.empty_cache()
+    phase_done("bg-a1: K5/K6's wide kernels")
+    # (a) K12/K13
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for i, (dx, dy, di, h) in enumerate(BG_SVO):
+        fig = {"runs": {}}
+        runs = [("small", 8, 32, 20), ("full", 32, 32, 99)]
+        if i == 0:
+            runs.append((f"M={BG_BIG_M}", 4, BG_BIG_M, 20))
+        for size, b, m, t1 in runs:
+            r = bg_svo_check(pt, dev, dx, dy, di, h, b, m, t1, SEED + 270 + i, size == "small")
+            print(f"[bg] {card}: K12/K13 ({dx}, {dy}) Di={di} width {h} {size} (B={b}, M={m}, "
+                  f"T-1={t1}; library {r['key']}, K12 plan {r['plan']}, K13 tile rows "
+                  f"{r['rows13']}): K12 allclose {BG_TOL['k12']} {r['close']} (max |d| "
+                  f"{r['err12']:.2e}), relaunch {r['same12']}; K13 rel L2 "
+                  + "/".join(f"{v:.2e}" for v in r["rel13"])
+                  + f" ({r['zeroed']} of {r['n']} paths' cotangents zeroed at relu ties), "
+                  f"relaunch {r['same13']} -> {'ok' if r['ok'] else 'FAIL'}", flush=True)
+            if not r["ok"]:
+                fail(f"(bg) K12/K13 at ({dx}, {dy}) width {h} {size} disagree with their plain "
+                     "versions")
+            fig["runs"][size] = dict(err12=r["err12"], err13=r["err13"], rel13=r["rel13"])
+            if size == "full" and i == 0:  # (c)'s shape: times and bounds
+                consts, ops, kern, cots, got = r["consts"], r["ops"], r["kern"], r["cots"], r["got"]
+                with torch.no_grad():
+                    t12 = [pair_ms(lambda: svo.svo_sweep_forward(*ops, consts)),
+                           time_ms(lambda: svo.svo_sweep_forward_reference(*ops, consts), 3, 1)]
+                    t13 = [pair_ms(lambda: svo.svo_sweep_backward(*ops, consts, kern[3], *cots)),
+                           time_ms(lambda: svo.svo_sweep_backward_reference(
+                               *ops, consts, kern[3], *cots), 3, 1)]
+                flops = svo_flops(consts, t1 * b * m)
+                b12 = bound(flops, nbytes(*ops, consts["packed"], consts["sc"], *kern))
+                b13 = bound(3 * flops, nbytes(*ops, consts["packed"], consts["sc"], kern[3], *cots,
+                                              *got))
+                print(f"[bg] {card}: K12 at (c)'s shape {t12[0]:.4f} ms ({PAIR_HOW}), plain "
+                      f"{t12[1]:.3f} ms; bound {b12[0]:.4f} ms ({b12[1]}); K13 {t13[0]:.4f} ms, "
+                      f"plain {t13[1]:.3f} ms; bound {b13[0]:.4f} ms ({b13[1]})", flush=True)
+                fig.update(t12=t12, t13=t13, b12=b12, b13=b13)
+            del r
+        figs["svo"][(dx, dy, di, h)] = fig
+        torch.cuda.empty_cache()
+    phase_done("bg-a2: K12/K13 beyond the kernels' library")
+
+    # (b) Lorenz-96 PSVO at full width
+    cfg = bg_l96_config(pt)
+    cpu_ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    routes = (pt.smc.filter_route(cpu_ssm, cfg.smc, cfg.data.t_steps, True),
+              pt.objectives._ffbsi_route(cpu_ssm, cfg.smc.n_particles,
+                                         cfg.smc.n_smoothing_particles, True))
+    ds = pt.generate_dataset(cfg.data, SEED)
+    vs = card_vs_cpu(pt, dev, cfg, ds.obs_train[:2, :20], None, SEED + 280, path="trunk")
+    print(f"[bg] {card}: (b) {L96} PSVO, Dx = Dy = 40, K={cfg.smc.n_particles}, "
+          f"M={cfg.smc.n_smoothing_particles}, B={cfg.train.batch_size}, T={cfg.data.t_steps}, "
+          f"q1/f/g {cfg.net('q1').hidden}, bound {cfg.smc.psvo_bound!r}: filter route "
+          f"{routes[0]!r}, sweep route {routes[1]!r}; the card vs the CPU, one train step at B=2, "
+          f"T=20: {vs_line(vs)}", flush=True)
+    if routes != ("trunk", "kernel") or not vs["ok"]:
+        fail(f"(bg) Lorenz-96 PSVO: routes {routes}, or the card disagrees with the CPU")
+    n = cfg.data.t_steps - 1
+    ys = ds.obs_train[:cfg.train.batch_size].to(dev).contiguous()
+    figs["l96"] = bg_drive(pt, dev, card, "(b) Lorenz-96 PSVO", cfg, ys, None,
+                           route_want({"K7": n, "K8": n, "K9": n, "K5": 1}),
+                           route_want({"K7": BG_TRAIN * n, "K8": BG_TRAIN * n, "K9": BG_TRAIN * n,
+                                       "K10": BG_TRAIN * n, "K11": BG_TRAIN * n, "K5": BG_TRAIN,
+                                       "K6": BG_TRAIN}), BG_KERNELS)
+    figs["l96"]["vs"] = vs
+    torch.cuda.empty_cache()
+    phase_done("bg-b: Lorenz-96 PSVO")
+
+    # (c) SVO on Lorenz-63 seen through one channel
+    cfg = bg_svo_config(pt, 3, 1, 0, 48)
+    cfg = dataclasses.replace(cfg, smc=dataclasses.replace(cfg.smc, n_particles=256))
+    cpu_ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    routes = (pt.smc.filter_route(cpu_ssm, cfg.smc, cfg.data.t_steps, True),
+              pt.objectives._svo_route(cpu_ssm, cfg.smc.n_smoothing_particles, True))
+    ds = pt.generate_dataset(cfg.data, SEED)
+    vs = card_vs_cpu(pt, dev, cfg, ds.obs_train[:2, :20], None, SEED + 290)
+    print(f"[bg] {card}: (c) {SVO} at (Dx, Dy) = (3, 1), q1/qb/f/g {cfg.net('qb').hidden}, "
+          f"K={cfg.smc.n_particles}, M={cfg.smc.n_smoothing_particles}, B={cfg.train.batch_size}, "
+          f"T={cfg.data.t_steps}: filter route {routes[0]!r}, sweep route {routes[1]!r}; the card "
+          f"vs the CPU, one train step at B=2, T=20: {vs_line(vs)}", flush=True)
+    if routes != ("fused", "kernel") or not vs["ok"]:
+        fail(f"(bg) SVO (3, 1) width 48: routes {routes}, or the card disagrees with the CPU")
+    ys = ds.obs_train[:cfg.train.batch_size].to(dev).contiguous()
+    figs["l63"] = bg_drive(pt, dev, card, "(c) Lorenz-63 SVO Dy=1", cfg, ys, "svo",
+                           route_want({"K1": 1, "K12": 1}),
+                           route_want({"K1": BG_TRAIN, "K4": BG_TRAIN, "K12": BG_TRAIN,
+                                       "K13": BG_TRAIN}), BG_SVO_KERNELS)
+    figs["l63"]["vs"] = vs
+    torch.cuda.empty_cache()
+    phase_done("bg-c: Lorenz-63 SVO, Dy = 1, width 48")
+
+    # (d) the preset shapes' bits against the parent's build
+    bits = preset_bits(pt, dev)
+    print(f"[bg] preset bits: {json.dumps(bits, sort_keys=True)}", flush=True)
+    here = (torch.cuda.get_device_name(dev), n_sms)
+    if here != PARENT_BITS_CARD:
+        print(f"[bg] {card}: (d) not compared: the parent's digests were taken on "
+              f"{PARENT_BITS_CARD}, this card is {here}", flush=True)
+        figs["bits"] = None
+    else:
+        bad = sorted(n_ for n_, v in bits.items() if PARENT_BITS.get(n_) != v)
+        print(f"[bg] {card}: (d) preset shapes' K5/K6/K12/K13 outputs: {len(bits) - len(bad)} "
+              f"of {len(bits)} bit-equal to the parent's build"
+              + (f"; differing: {bad}" if bad else ""), flush=True)
+        if bad or len(bits) != len(PARENT_BITS):
+            fail(f"(bg) {len(bad)} preset outputs differ from the parent's build")
+        figs["bits"] = len(bits)
+    phase_done("bg-d: the presets' bits")
+    return figs
+
+
+def smoothing_class_rows(figs: dict) -> list:
+    """Phase bg's rows of the kernels' JSON record: K5/K6's wide kernels at
+    Lorenz-96's main path (launches from (b)'s train steps), K12/K13 at (c)'s
+    shape (launches from (c)'s train steps); max_abs_err the largest of
+    (a)'s checks of each."""
+    l96, l63 = figs["l96"], figs["l63"]
+    f5 = figs["ffbsi"][(40, 1024, 16)]
+    fs = figs["svo"][BG_SVO[0]]
+    err5 = max(v["err5"] for v in figs["ffbsi"].values())
+    err6 = max(v["err6"] for v in figs["ffbsi"].values())
+    runs = [r_ for f_ in figs["svo"].values() for r_ in f_["runs"].values()]
+    err12, err13 = max(r_["err12"] for r_ in runs), max(r_["err13"] for r_ in runs)
+    rows = [
+        {"name": "ffbsi_forward (wide, Lorenz-96)", "route": "cuda",
+         "source": "psvo_tpu_torch/csrc/ffbsi.cu", "replaces": "psvo_tpu/ops/pallas_ffbsi.py:294",
+         "launches": l96["train"][ROUTE_NAMES.index("K5")], "on_path": True, "max_abs_err": err5,
+         "ms": f5["t5"][0], "plain_ms": f5["t5"][1], "bound_ms": f5["b5"][0],
+         "bound_by": f5["b5"][1], "library_ms": None,
+         "launches_serve": l96["serve"][ROUTE_NAMES.index("K5")]},
+        {"name": "ffbsi_backward (wide, Lorenz-96)", "route": "cuda",
+         "source": "psvo_tpu_torch/csrc/ffbsi.cu", "replaces": "psvo_tpu/ops/pallas_ffbsi.py:358",
+         "launches": l96["train"][ROUTE_NAMES.index("K6")], "on_path": True, "max_abs_err": err6,
+         "ms": f5["t6"]["paths only"][0], "plain_ms": f5["t6"]["paths only"][1],
+         "bound_ms": f5["b6"]["paths only"][0], "bound_by": f5["b6"]["paths only"][1],
+         "library_ms": None, "ms_all": f5["t6"]["all cotangents"][0],
+         "plain_ms_all": f5["t6"]["all cotangents"][1],
+         "bound_ms_all": f5["b6"]["all cotangents"][0]},
+        {"name": "svo_sweep_forward (class, (3, 1) width 48)", "route": "cuda",
+         "source": "psvo_tpu_torch/csrc/svo_sweep.cuh", "replaces": "psvo_tpu/ops/pallas_svo.py:446",
+         "launches": l63["train"][ROUTE_NAMES.index("K12")], "on_path": True,
+         "max_abs_err": err12, "ms": fs["t12"][0], "plain_ms": fs["t12"][1],
+         "bound_ms": fs["b12"][0], "bound_by": fs["b12"][1], "library_ms": None,
+         "shape_library": "svo_3_1_48"},
+        {"name": "svo_sweep_backward (class, (3, 1) width 48)", "route": "cuda",
+         "source": "psvo_tpu_torch/csrc/svo_sweep.cuh", "replaces": "psvo_tpu/ops/pallas_svo.py:521",
+         "launches": l63["train"][ROUTE_NAMES.index("K13")], "on_path": True,
+         "max_abs_err": err13, "ms": fs["t13"][0], "plain_ms": fs["t13"][1],
+         "bound_ms": fs["b13"][0], "bound_by": fs["b13"][1], "library_ms": None,
+         "shape_library": "svo_3_1_48"},
+    ]
+    for row in rows:  # whether (d) held the presets' outputs to the parent's bits on this card
+        row["preset_bits_compared"] = figs["bits"] is not None
+    return rows
+
+
 def main() -> int:
     # (a) the card
     try:
@@ -5630,9 +6260,10 @@ def main() -> int:
     # them here would add about 100 s to a run that takes 850-1080 s of its 1200)
     class_shapes = step_class_shapes(pt)
     reach_keys = reach_shapes(pt)
-    build_shapes_beside(class_shapes + reach_keys)
-    print(f"[b] phase be's shape libraries {class_shapes} and phase bf's {reach_keys}: building "
-          f"beside the next phases at nice 19", flush=True)
+    bg_keys = [k_ for k_ in smoothing_class_shapes(pt) if k_ not in class_shapes]
+    build_shapes_beside(class_shapes + reach_keys + bg_keys)
+    print(f"[b] phase be's shape libraries {class_shapes}, phase bf's {reach_keys} and phase "
+          f"bg's {bg_keys}: building beside the next phases at nice 19", flush=True)
     phase_done("a, b: card and build")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -5985,7 +6616,7 @@ def main() -> int:
     n_pair = t1 * batch * m * k
     # K5: per (t, b, m, j) the pair (5 operations per state dimension and 3 more), the
     # logit, the Gumbel add and compare, and the running exp-sum: 5·Dx + 8.
-    k5_bound, k5_by = bound((5 * dx + 8) * n_pair, nbytes(*ops, *rf["kern"]))
+    k5_bound, k5_by = bound((5 * dx + 8) * n_pair, k5_bytes(ops, rf["kern"]))
     # K6 with pair cotangents: one evaluation of the pair with its floor and logit
     # (5·Dx + 6), the exp and the sums e, e·mr, e·r (2·Dx + 3), d_pair and its
     # per-particle sums (2·Dx + 9) per (t, b, m, j); on the paths alone one selection
@@ -7337,6 +7968,7 @@ def main() -> int:
     shard_figs = sharded_phases(pt, dev, card)
     class_figs = step_class_phases(pt, dev, card)
     reach_figs = reach_phases(pt, dev, card)
+    bg_figs = smoothing_class_phases(pt, dev, card)
 
 
     # K3: the CDF scan and a binary search per particle; logw and u0 in, int32 indices out.
@@ -7611,12 +8243,17 @@ def main() -> int:
                 "bound_ms": fig["bounds"][kk][0], "bound_by": fig["bounds"][kk][1],
                 "library_ms": None, "shape_library": fig["keys"][j % 2]})
     kernels += reach_rows(reach_figs)
+    kernels += smoothing_class_rows(bg_figs)
     print(f"[profiler] {PROFILE_WINDOWS['windows']} profiler windows, "
           f"{PROFILE_WINDOWS['empty']} of them with no device events (run again); of the timing "
           f"windows, {PROFILE_WINDOWS['partial']} recorded part of a kernel's events (timed by "
           f"the mean of those recorded), {PROFILE_WINDOWS['events']} timed by CUDA events "
           f"instead (the profiler recorded none); {PROFILE_WINDOWS['queue_ran_dry']} queued "
           f"windows ran dry", flush=True)
+    print("[summary] phase bg (d): " + (
+        f"the presets' {bg_figs['bits']} K5/K6/K12/K13 outputs bit-equal to the parent's build"
+        if bg_figs["bits"] is not None else "the presets' bits NOT compared (no parent digests "
+        f"for this card; PARENT_BITS_CARD {PARENT_BITS_CARD})"), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

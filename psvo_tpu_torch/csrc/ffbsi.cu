@@ -1646,6 +1646,443 @@ __global__ void __launch_bounds__(kThreads, 2) ffbsi_bwd_staged_kernel(const Ffb
   }
 }
 
+// ---- K5 and K6, the wide kernels: any Dx and M ----
+//
+// The staged designs above are templates over Dx in {2, 3}, and K6's holds
+// per-path state for at most kK6MaxM paths in shared memory. Every other
+// shape of the reference's class (pallas_ffbsi.usable: any Dx, a diagonal f,
+// M a multiple of 8) runs the two kernels below, which take Dx as a runtime
+// loop and keep nothing in shared memory whose size grows with K or M; the
+// path's staged design (ops/ffbsi.py::staged_kernel) launches them (design 2
+// of the C entry points) there, so the preset shapes keep their kernels and
+// bits. Lorenz-96 (Dx = 40, K =
+// 1024, M = 16) is the shape they were written for.
+//
+// K5 wide (ffbsi_wide_kernel): a CTA serves P paths of one row (B *
+// ceil(M / P) CTAs, P from k5_paths), their queries and squares in shared
+// memory. Per step each thread visits particles j = tid, tid + 256, ... and
+// adds, d ascending, the pair's t1 and t2 for the P paths from one load of
+// r_d[j] and mr_d[j] (device memory, coalesced): pair_vals' order of rounded
+// operations, so the logits are the plain version's bit for bit. The running
+// argmax (strict >, j ascending), the floored pair at it and the online
+// (max, sum of exp) per path, then per path a warp butterfly and one merge of
+// the eight warps in order (ties to the lower index): the path design's
+// selection rule. The thread that saw the pick hands its pair over, so the
+// pick costs Dx loads of xs only. A thread starts the loads of kWideDB
+// dimensions before their sums (one L2 round trip for 16 d, not one each).
+// What bounds it at Lorenz-96: each step reads the row's r and mr (2 Dx K
+// floats) once per CTA, from L2, on the sweep's serial chain; latency-bound
+// like the path design.
+//
+// K6 wide (ffbsi_bwd_wide_kernel): a persistent grid whose CTAs stride over
+// the (t, b) rows, each row in passes separated by barriers, each reading
+// what the previous one wrote to the CTA's row of the scratch `work` (the
+// row's unfloored pairs, overwritten by d_pair, the paths' (max, sum) and
+// d_q; [M][K + 2 + DX] floats, so the scratch grows with the grid, not with
+// T1 * B):
+//   A. one warp per path: the pairs (stored) and the online (max, sum of exp)
+//      of the logits, merged by a butterfly;
+//   B. one thread per particle, chunks of KC particles: the M paths' terms
+//      added in path order, as the row design's step 2: d_pair (stored), d_c,
+//      d_lwn, d_lg, and d_r, d_mr summed per d in the thread's own column of
+//      shared memory ([2 Dx][KC]);
+//   C. one warp per path: d_q = sum_j d_pair (mr - q r), eight d at a time;
+//   D. the patches of d_xs (point t + 1, and point 0 at t = 0) by the thread
+//      of the first path that selected each particle, the paths' cotangents
+//      added in path order: the row design's sums.
+// Without d_logp and d_logq only D runs (d_q = 0). No atomics: every launch
+// gives the same bits. Each (m, j) pair is evaluated once (A); B and C read
+// it back. Bytes of r, mr (read twice from L2) and the stored pairs bound it.
+constexpr int kWideDB = 16;  // the wide kernels: d a block of loads started before its sums
+
+template <int P>
+__global__ void __launch_bounds__(kThreads) ffbsi_wide_kernel(const FfbsiFwdArgs a, int DX) {
+  extern __shared__ __align__(16) float wq[];  // [P][DX] the queries, then [P][DX] their squares
+  float* wqq = wq + P * DX;
+  __shared__ float s_best[kWarps][P], s_mx[kWarps][P], s_sum[kWarps][P];
+  __shared__ float s_pair[P], s_pair0[P], s_lse[P];
+  __shared__ int s_j[kWarps][P], s_pick[P];
+  const int K = a.K, M = a.M, T1 = a.T1;
+  const int G = (M + P - 1) / P, b = blockIdx.x / G, m0 = (blockIdx.x % G) * P;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < P * DX; i += kThreads) {
+    const int p = i / DX;
+    const float v = m0 + p < M ? a.x_anchor[((size_t)b * M + m0) * DX + i] : 0.0f;
+    wq[i] = v;
+    wqq[i] = __fmul_rn(v, v);
+  }
+  float logp = 0.0f, logq = 0.0f;  // path m0 + tid's, in thread tid < P
+  __syncthreads();
+  for (int t = T1 - 1; t >= 0; --t) {
+    const size_t row = (size_t)t * a.B + b;
+    const float* r = a.r + row * DX * K;
+    const float* mr = a.mr + row * DX * K;
+    const float* c = a.c + row * K;
+    const float* lwn = a.lwn + row * K;
+    const float* gum = a.gum + (row * M + m0) * K;
+    float best[P], bpair[P], mx[P], ssum[P];
+    int best_j[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      best[p] = mx[p] = __int_as_float(0xff800000);
+      ssum[p] = bpair[p] = 0.0f;
+      best_j[p] = K;  // loses every tie against a real index
+    }
+    for (int j = tid; j < K; j += kThreads) {
+      float t1[P], t2[P];
+      {
+        const float rv = r[j], mv = mr[j];
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          t1[p] = __fmul_rn(wqq[p * DX], rv);
+          t2[p] = __fmul_rn(wq[p * DX], mv);
+        }
+      }
+      for (int d0 = 1; d0 < DX; d0 += kWideDB) {  // kWideDB loads in flight, then their sums
+        float rv[kWideDB], mv[kWideDB];
+#pragma unroll
+        for (int u = 0; u < kWideDB; ++u) {
+          rv[u] = d0 + u < DX ? r[(size_t)(d0 + u) * K + j] : 0.0f;
+          mv[u] = d0 + u < DX ? mr[(size_t)(d0 + u) * K + j] : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < kWideDB; ++u) {
+          if (d0 + u >= DX) break;
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            t1[p] = __fadd_rn(t1[p], __fmul_rn(wqq[p * DX + d0 + u], rv[u]));
+            t2[p] = __fadd_rn(t2[p], __fmul_rn(wq[p * DX + d0 + u], mv[u]));
+          }
+        }
+      }
+      const float cj = c[j], lj = lwn[j];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const float pair = fmaxf(__fadd_rn(__fadd_rn(__fmul_rn(-0.5f, t1[p]), t2[p]), cj), kMinLogp);
+        const float logit = __fadd_rn(pair, lj);
+        const float v = m0 + p < M ? __fadd_rn(logit, gum[(size_t)p * K + j]) : logit;
+        const bool up = v > best[p];  // j ascends: the first maximum is kept
+        best[p] = up ? v : best[p];
+        best_j[p] = up ? j : best_j[p];
+        bpair[p] = up ? pair : bpair[p];
+        lse_push_sel(logit, mx[p], ssum[p]);
+        if (j == 0) s_pair0[p] = pair;  // the pick of an all -inf row
+      }
+    }
+    int my_j[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      my_j[p] = best_j[p];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(kFull, best[p], o);
+        const int oj = __shfl_xor_sync(kFull, best_j[p], o);
+        if (ov > best[p] || (ov == best[p] && oj < best_j[p])) {
+          best[p] = ov;
+          best_j[p] = oj;
+        }
+        const float om = __shfl_xor_sync(kFull, mx[p], o);
+        const float os = __shfl_xor_sync(kFull, ssum[p], o);
+        lse_merge(mx[p], ssum[p], om, os);
+      }
+      if (lane == 0) {
+        s_best[warp][p] = best[p];
+        s_j[warp][p] = best_j[p];
+        s_mx[warp][p] = mx[p];
+        s_sum[warp][p] = ssum[p];
+      }
+    }
+    __syncthreads();
+    if (tid < P) {  // path m0 + tid: the eight warps merged in order
+      const int p = tid;
+      float bv = s_best[0][p], lm = s_mx[0][p], ls = s_sum[0][p];
+      int bj = s_j[0][p];
+      for (int w = 1; w < kWarps; ++w) {
+        const float ov = s_best[w][p];
+        const int oj = s_j[w][p];
+        if (ov > bv || (ov == bv && oj < bj)) {
+          bv = ov;
+          bj = oj;
+        }
+        lse_merge(lm, ls, s_mx[w][p], s_sum[w][p]);
+      }
+      s_pick[p] = bj;
+      s_lse[p] = logf(ls) + lm;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      if (s_pick[p] < K && my_j[p] == s_pick[p]) s_pair[p] = bpair[p];  // the thread that saw it
+    }
+    __syncthreads();
+    if (tid < P && m0 + tid < M) {
+      const int bj = s_pick[tid], j = bj < K ? bj : 0;  // torch.argmax of all -inf: 0
+      const float ps = bj < K ? s_pair[tid] : s_pair0[tid];
+      logq = __fsub_rn(__fadd_rn(__fadd_rn(logq, ps), lwn[j]), s_lse[tid]);
+      logp = __fadd_rn(__fadd_rn(logp, ps), a.lg[row * K + j]);
+      a.sel[row * M + m0 + tid] = j;
+    }
+    for (int i = tid; i < P * DX; i += kThreads) {  // x~_t: the next step's queries
+      const int p = i / DX, d = i % DX, bj = s_pick[p], j = bj < K ? bj : 0;
+      const float v = a.xs[(row * DX + d) * K + j];
+      wq[i] = v;
+      wqq[i] = __fmul_rn(v, v);
+      if (m0 + p < M) a.xtilde[(row * M + m0) * DX + i] = v;
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < P * DX; i += kThreads) {
+    if (m0 + i / DX < M) a.x_first[((size_t)b * M + m0) * DX + i] = wq[i];
+  }
+  if (tid < P && m0 + tid < M) {
+    a.logp[(size_t)b * M + m0 + tid] = logp;
+    a.logq[(size_t)b * M + m0 + tid] = logq;
+  }
+}
+
+// d_xs of one point (out: [DX][K], zeroed and ordered before by a barrier):
+// each selected particle gets the sum over the paths that selected it of
+// their cotangents cot(e, d), in path order from 0.0f, written by the thread
+// of the first path that selected it (the row design's sums bit for bit).
+template <class Cot>
+__device__ __forceinline__ void patch_wide(float* out, int K, int M, int DX, const int* sel,
+                                           Cot cot) {
+  for (int m = threadIdx.x; m < M; m += kThreads) {
+    const int j = sel[m];
+    bool owner = true;
+    for (int e = 0; e < m && owner; ++e) owner = sel[e] != j;
+    if (!owner) continue;
+    bool first = true;
+    for (int e = m; e < M; ++e) {
+      if (sel[e] != j) continue;
+      for (int d = 0; d < DX; ++d) {
+        float* o = out + (size_t)d * K + j;
+        *o = (first ? 0.0f : *o) + cot(e, d);
+      }
+      first = false;
+    }
+  }
+}
+
+// One (t, b) row of K6 wide: pr [M][K], st [M][2] and dq [M][DX] are the
+// CTA's scratch (null without pair cotangents), acc its [2 DX][KC] sums.
+__device__ void bwd_wide_row(const FfbsiBwdArgs& a, float* pr, float* st, float* dq, float* acc,
+                             int DX, int KC, int t, int b) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int M = a.M, K = a.K, B = a.B, T1 = a.T1;
+  const size_t row = (size_t)t * B + b, MD = (size_t)M * DX;
+  const float* q = t == T1 - 1 ? a.x_anchor + (size_t)b * MD : a.xtilde + (row + B) * MD;
+  const int* sel = a.sel + row * M;  // step t's picks
+  const bool pairs = pr != nullptr;
+  if (t + 1 < T1) zero_span(a.d_xs + (row + B) * DX * K, DX * K, false);
+  if (t == 0) zero_span(a.d_xs + (size_t)b * DX * K, DX * K, false);
+  const float* r = a.r + row * DX * K;
+  const float* mr = a.mr + row * DX * K;
+  const float* c = a.c + row * K;
+  const float* lwn = a.lwn + row * K;
+  if (pairs) {
+    // A. the pairs and each path's online (max, sum of exp) of the logits
+    for (int m = warp; m < M; m += kWarps) {
+      const float* qm = q + (size_t)m * DX;
+      float mx = __int_as_float(0xff800000), s = 0.0f;
+      for (int j = lane; j < K; j += 32) {
+        float t1 = __fmul_rn(__fmul_rn(qm[0], qm[0]), r[j]);
+        float t2 = __fmul_rn(qm[0], mr[j]);
+        for (int d0 = 1; d0 < DX; d0 += kWideDB) {  // kWideDB loads in flight, then their sums
+          float qv[kWideDB], rv[kWideDB], mv[kWideDB];
+#pragma unroll
+          for (int u = 0; u < kWideDB; ++u) {
+            const bool in = d0 + u < DX;
+            qv[u] = in ? qm[d0 + u] : 0.0f;
+            rv[u] = in ? r[(size_t)(d0 + u) * K + j] : 0.0f;
+            mv[u] = in ? mr[(size_t)(d0 + u) * K + j] : 0.0f;
+          }
+#pragma unroll
+          for (int u = 0; u < kWideDB; ++u) {
+            if (d0 + u >= DX) break;
+            t1 = __fadd_rn(t1, __fmul_rn(__fmul_rn(qv[u], qv[u]), rv[u]));
+            t2 = __fadd_rn(t2, __fmul_rn(qv[u], mv[u]));
+          }
+        }
+        const float raw = __fadd_rn(__fadd_rn(__fmul_rn(-0.5f, t1), t2), c[j]);
+        pr[(size_t)m * K + j] = raw;
+        lse_push(__fadd_rn(fmaxf(raw, kMinLogp), lwn[j]), mx, s);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float om = __shfl_xor_sync(kFull, mx, o);
+        const float os = __shfl_xor_sync(kFull, s, o);
+        lse_merge(mx, s, om, os);
+      }
+      if (lane == 0) {
+        st[2 * m] = mx;
+        st[2 * m + 1] = s;
+      }
+    }
+    __syncthreads();
+    // B. per particle, the M paths in order
+    const float* gpv = a.d_logp != nullptr ? a.d_logp + (size_t)b * M : nullptr;
+    const float* gqv = a.d_logq != nullptr ? a.d_logq + (size_t)b * M : nullptr;
+    float* ar = acc + tid;
+    float* am = acc + (size_t)DX * KC + tid;
+    for (int j0 = 0; j0 < K; j0 += KC) {
+      const int j = j0 + tid;
+      if (tid >= KC || j >= K) continue;
+      for (int d = 0; d < DX; ++d) ar[(size_t)d * KC] = am[(size_t)d * KC] = 0.0f;
+      const float lj = lwn[j];
+      float dc = 0.0f, dlwn = 0.0f, dlg = 0.0f;
+      for (int m = 0; m < M; ++m) {
+        const float raw = pr[(size_t)m * K + j];
+        const float logit = __fadd_rn(fmaxf(raw, kMinLogp), lj);
+        const float soft = expf(logit - st[2 * m]) / st[2 * m + 1];
+        const bool oh = sel[m] == j;
+        const float gp = gpv != nullptr ? gpv[m] : 0.0f, gq = gqv != nullptr ? gqv[m] : 0.0f;
+        float dp = (oh ? gp + gq : 0.0f) - soft * gq;
+        dlwn += (oh ? gq : 0.0f) - soft * gq;
+        if (oh) dlg += gp;
+        if (raw < kMinLogp) dp = 0.0f;  // the floor's cut
+        dc += dp;
+        pr[(size_t)m * K + j] = dp;
+        if (dp == 0.0f) continue;  // adds nothing to d_r and d_mr
+        const float* qm = q + (size_t)m * DX;
+        for (int d = 0; d < DX; ++d) {
+          const float qd = qm[d];
+          ar[(size_t)d * KC] += -0.5f * __fmul_rn(qd, qd) * dp;
+          am[(size_t)d * KC] += qd * dp;
+        }
+      }
+      if (a.d_c != nullptr) a.d_c[row * K + j] = dc;
+      if (a.d_lwn != nullptr) a.d_lwn[row * K + j] = dlwn;
+      if (a.d_lg != nullptr) a.d_lg[row * K + j] = dlg;
+      for (int d = 0; d < DX; ++d) {
+        if (a.d_r != nullptr) a.d_r[(row * DX + d) * K + j] = ar[(size_t)d * KC];
+        if (a.d_mr != nullptr) a.d_mr[(row * DX + d) * K + j] = am[(size_t)d * KC];
+      }
+    }
+    __syncthreads();
+    // C. d_q = sum_j d_pair (mr - q r), one warp per path, eight d at a time
+    for (int m = warp; m < M; m += kWarps) {
+      const float* qm = q + (size_t)m * DX;
+      const float* dpm = pr + (size_t)m * K;
+      for (int d0 = 0; d0 < DX; d0 += 8) {
+        float sa[8], sb[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) sa[u] = sb[u] = 0.0f;
+        for (int j = lane; j < K; j += 32) {
+          const float dp = dpm[j];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            if (d0 + u < DX) {
+              sa[u] = fmaf(dp, mr[(size_t)(d0 + u) * K + j], sa[u]);
+              sb[u] = fmaf(dp, r[(size_t)(d0 + u) * K + j], sb[u]);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          sa[u] = warp_sum(sa[u]);
+          sb[u] = warp_sum(sb[u]);
+        }
+        if (lane == 0) {
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            if (d0 + u < DX) dq[(size_t)m * DX + d0 + u] = sa[u] - qm[d0 + u] * sb[u];
+          }
+        }
+      }
+    }
+  } else {
+    for (int j = tid; j < K; j += kThreads) {
+      if (a.d_c != nullptr) a.d_c[row * K + j] = 0.0f;
+      if (a.d_lwn != nullptr) a.d_lwn[row * K + j] = 0.0f;
+      if (a.d_lg != nullptr) a.d_lg[row * K + j] = 0.0f;
+      for (int d = 0; d < DX; ++d) {
+        if (a.d_r != nullptr) a.d_r[(row * DX + d) * K + j] = 0.0f;
+        if (a.d_mr != nullptr) a.d_mr[(row * DX + d) * K + j] = 0.0f;
+      }
+    }
+  }
+  __syncthreads();  // d_q, and the zeroed points before their patches
+  // D. d_q to the query: the anchor at the last step, else point t + 1's patch
+  if (t == T1 - 1) {
+    for (size_t i = tid; i < MD; i += kThreads) {
+      a.d_x_anchor[(size_t)b * MD + i] = pairs ? dq[i] : 0.0f;
+    }
+  } else {
+    const float* dxn = a.d_xtilde != nullptr ? a.d_xtilde + (row + B) * MD : nullptr;
+    patch_wide(a.d_xs + (row + B) * DX * K, K, M, DX, a.sel + (row + B) * M,
+               [&](int e, int d) {
+                 const size_t i = (size_t)e * DX + d;
+                 return (pairs ? dq[i] : 0.0f) + (dxn != nullptr ? dxn[i] : 0.0f);
+               });
+  }
+  if (t == 0) {  // point 0 is nobody's query: d_xtilde[0] + d_x_first
+    const float* x0 = a.d_xtilde != nullptr ? a.d_xtilde + (size_t)b * MD : nullptr;
+    const float* xf = a.d_x_first != nullptr ? a.d_x_first + (size_t)b * MD : nullptr;
+    patch_wide(a.d_xs + (size_t)b * DX * K, K, M, DX, sel, [&](int e, int d) {
+      const size_t i = (size_t)e * DX + d;
+      return (x0 != nullptr ? x0[i] : 0.0f) + (xf != nullptr ? xf[i] : 0.0f);
+    });
+  }
+}
+
+// Floats of K6 wide's scratch a CTA: per path the pair row of K, (max, sum) and d_q of DX.
+__host__ __device__ inline size_t k6_wide_work(int M, int K, int DX) {
+  return (size_t)M * (K + 2 + DX);
+}
+
+__global__ void __launch_bounds__(kThreads) ffbsi_bwd_wide_kernel(const FfbsiBwdArgs a,
+                                                                  float* work, int DX, int KC) {
+  extern __shared__ __align__(16) float acc[];  // [DX][KC] d_r sums, then [DX][KC] d_mr sums
+  const int M = a.M, K = a.K;
+  const bool pairs = a.d_logp != nullptr || a.d_logq != nullptr;
+  float* pr = pairs ? work + blockIdx.x * k6_wide_work(M, K, DX) : nullptr;  // [M][K]
+  float* st = pairs ? pr + (size_t)M * K : nullptr;                            // [M][2]
+  float* dq = pairs ? st + (size_t)M * 2 : nullptr;                            // [M][DX]
+  for (int row = blockIdx.x; row < a.T1 * a.B; row += gridDim.x) {
+    bwd_wide_row(a, pr, st, dq, acc, DX, KC, row / a.B, row % a.B);
+    __syncthreads();  // the scratch and acc are the next row's
+  }
+}
+
+template <int P>
+cudaError_t launch_ffbsi_wide(const FfbsiFwdArgs& a, int DX, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 2 * P * DX;
+  auto kernel = ffbsi_wide_kernel<P>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<a.B * ((a.M + P - 1) / P), kThreads, smem, stream>>>(a, DX);
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_ffbsi_wide(const FfbsiFwdArgs& a, int DX, int P, cudaStream_t stream) {
+  if (DX < 1 || a.M < 1 || a.K < 1) return cudaErrorInvalidValue;
+  switch (P) {
+    case 1: return launch_ffbsi_wide<1>(a, DX, stream);
+    case 2: return launch_ffbsi_wide<2>(a, DX, stream);
+    case 4: return launch_ffbsi_wide<4>(a, DX, stream);
+    case 8: return launch_ffbsi_wide<8>(a, DX, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+inline cudaError_t launch_ffbsi_bwd_wide(const FfbsiBwdArgs& a, float* work, int ctas, int KC,
+                                         int DX, cudaStream_t stream) {
+  const bool pairs = a.d_logp != nullptr || a.d_logq != nullptr;
+  const size_t smem = sizeof(float) * 2 * (size_t)DX * KC;
+  if (DX < 1 || KC < 32 || KC > kThreads || smem > 232448 || ctas < 1 || a.M < 1 || a.K < 1 ||
+      (pairs && work == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(ffbsi_bwd_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  ffbsi_bwd_wide_kernel<<<ctas, kThreads, smem, stream>>>(a, work, DX, KC);
+  return cudaGetLastError();
+}
+
 template <int DX>
 cudaError_t launch_ffbsi_forward(const FfbsiFwdArgs& a, cudaStream_t stream) {
   ffbsi_forward_kernel<DX><<<a.B * a.M, kThreads, 0, stream>>>(a);
@@ -1751,6 +2188,11 @@ cudaError_t launch_ffbsi_bwd_staged(const FfbsiBwdArgs& a, cudaStream_t stream) 
 
 // Plain C entry points (bound with ctypes by psvo_tpu_torch/ops/_build.py).
 // Each returns a cudaError_t; the launch is checked with cudaGetLastError().
+// The caller picks the kernel (ops/ffbsi.py): design 0 the staged kernels
+// (Dx 2 and 3; K6: M <= kK6MaxM), 1 the previous ones (path, row), 2 the
+// wide kernels (any Dx). K6 wide runs a grid of `ctas` CTAs with pass-B
+// chunks of `chunk` particles, work [ctas][M][K + 2 + dx] its scratch (null
+// where no pair carries a cotangent); the other kernels read none of the three.
 extern "C" int psvo_ffbsi_forward(const float* x_anchor, const float* xs, const float* r,
                                   const float* mr, const float* c, const float* lwn,
                                   const float* lg, const float* gum, float* x_first, float* logp,
@@ -1767,6 +2209,7 @@ extern "C" int psvo_ffbsi_forward(const float* x_anchor, const float* xs, const 
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
+  if (design == 2) return psvo::launch_ffbsi_wide(a, dx, paths, s);  // wide: paths a CTA
   if (design != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (dx) {  // path: one CTA a path (paths and chunk unread)
     case 2: return psvo::launch_ffbsi_forward<2>(a, s);
@@ -1780,8 +2223,8 @@ extern "C" int psvo_ffbsi_backward(const float* x_anchor, const float* xtilde, c
                                    const float* lwn, const float* d_x_first, const float* d_logp,
                                    const float* d_logq, const float* d_xtilde, float* d_x_anchor,
                                    float* d_xs, float* d_r, float* d_mr, float* d_c, float* d_lwn,
-                                   float* d_lg, int B, int M, int K, int T1, int dx,
-                                   int design, void* stream) {
+                                   float* d_lg, float* work, int ctas, int chunk, int B, int M,
+                                   int K, int T1, int dx, int design, void* stream) {
   const psvo::FfbsiBwdArgs a{x_anchor, xtilde, sel,   r,     mr,   c,   lwn,  d_x_first,
                              d_logp,   d_logq, d_xtilde, d_x_anchor, d_xs, d_r, d_mr, d_c,
                              d_lwn,    d_lg,   B,     M,     K,    T1};
@@ -1793,6 +2236,7 @@ extern "C" int psvo_ffbsi_backward(const float* x_anchor, const float* xtilde, c
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
+  if (design == 2) return psvo::launch_ffbsi_bwd_wide(a, work, ctas, chunk, dx, s);  // wide
   if (design != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (dx) {  // row: one CTA per (t, b), three passes of the pair
     case 2: return psvo::launch_ffbsi_backward<2>(a, s);

@@ -14,7 +14,7 @@
 // CTA, tile_rows rows a tile of its parallel pass, steps steps a chunk), 1 the
 // chain design (paths, tile_rows and steps unread). grads [n_weights + 2*dx +
 // dy + 3] receives the weight gradients, then sc's; partial [max_ctas,
-// n_weights + 2*dx + dy + 3] is scratch. K13's design: 0 the split design
+// n_weights + 2*dx + dy + 3 rounded up to 4] is scratch. K13's design: 0 the split design
 // (tile_rows rows a tile, paths paths a CTA group), 1 the chain design
 // (tile_rows and paths unread). A non-null cbias [T1, B, hidden] (f's control
 // bias) runs the split design's control mode (design 0 only); K13 then also
@@ -59,3 +59,11 @@ extern "C" int psvo_svo_backward(const float* x_anchor, const float* eps, const 
   return psvo::svo::dispatch<psvo::svo::Backward>(dx, dy, hidden, a, max_ctas, design, tile_rows,
                                                   paths, grads, s);
 }
+
+#ifdef PSVO_SVO_DX
+// An SVO shape library's own error strings (the kernels' library has them in
+// scan_forward.cu).
+extern "C" const char* psvo_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+#endif

@@ -90,6 +90,21 @@
 // weight sums included) in phases as wide as a tile's 64 rows, about 40 a
 // tile with a barrier after each: its products from shared memory bound it.
 //
+// The class (ops/svo.py::usable): the reference's, any (Dx, Dy) with Dx + Dy
+// <= 7 and max(Dx + Di, Dy) <= 7, uniform relu widths 8..64 in steps of 8, at
+// any depth whose tiles fit. The kernels' library instantiates both designs
+// at the presets' shapes (kPrebuilt); any other shape is compiled, split
+// designs alone, into a shape library of its own (dispatch's PSVO_SVO_*
+// macros). What generalises the split designs beyond the presets: a
+// tile row's layout from (Dx, Dy) (RowLayout: 56 floats at the presets, 108
+// at Dx = 6 for its 36-entry J_t); K12's chain path groups padded to tile
+// the warps (chain_group: 24 threads of 32 at H = 24, 40 of 64 at H = 40) and
+// its head lanes taking ceil(4 Dx / group) outputs each (two at H = 8, Dx =
+// 4); tiles of rows rounded to multiples of 4 (168 at H = 24); and K13's
+// gradient sums in the CTA's row of `partial` where they do not fit shared
+// memory beside a tile (split_sums_global: widths 64 at depth 3 and 4). The
+// presets' shapes keep their layout, plans and bits.
+//
 // Control mode (CTRL, the split designs only; data.di > 0). f reads
 // [x~_t; u_{t+1}]; u_{t+1} is the same for the M paths of a row, so the glue
 // folds it into cbias [T1][B][H] = u_{t+1} W_u (ops/svo.py::control_term) and
@@ -143,7 +158,7 @@ struct BwdArgs {
   const float* d_lq;       // [NP] or null
   const float* d_xtilde;   // [T1, NP, DX] or null
   float* d_x_anchor;       // [NP, DX]
-  float* partial;          // [CTAs, n_weights + 2*DX + DY + 3]
+  float* partial;          // [CTAs, n_row rounded up to 4]: n_row = n_weights + 2*DX + DY + 3
   int B, M, T1, n_mid, n_weights, off_f, off_g;
   const float* cbias;      // [T1, B, H]: f's control bias (CTRL), else null
   float* bias_part;        // [T1, B, bias_groups, H]: d_cbias's partial rows (CTRL)
@@ -531,13 +546,13 @@ __global__ void __launch_bounds__(kThreads, 1) svo_backward_kernel(const BwdArgs
   for (int i = tid; i < n_row; i += kThreads) row[i] = gsum[i];
 }
 
-// out[e] = sum_r partial[r][e], the CTA rows added in order.
+// out[e] = sum_r partial[r][e], the CTA rows (stride floats apart) added in order.
 static __global__ void svo_sum_ctas_kernel(const float* __restrict__ partial, int rows, int n,
-                                    float* __restrict__ out) {
+                                           int stride, float* __restrict__ out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
   float s = 0.0f;
-  for (int r = 0; r < rows; ++r) s += partial[(size_t)r * n + e];
+  for (int r = 0; r < rows; ++r) s += partial[(size_t)r * stride + e];
   out[e] = s;
 }
 
@@ -545,7 +560,19 @@ static __global__ void svo_sum_ctas_kernel(const float* __restrict__ partial, in
 // K13, design "split": the VJP as parallel passes around a Dx-wide recurrence
 // ---------------------------------------------------------------------------
 
-constexpr int kRowFloats = 56;  // per tile row: qin 8, xt, ep, dmn, ux, dxz, dmb 4 each, jac 12, sg 12
+// Per tile row of the split designs: qin 8 ([x~_{t+1}; y_t], Dx + Dy <= 7),
+// then x~_t, eps_t, a mean or its cotangent, u_t, dxz_t, dmb_t at VS floats
+// each (4 while Dx and Dy are at most 4, else 8), J_t at JS (Dx^2, at least
+// 12) and the row's sc terms at SS (2 Dx + Dy + 3, at least 12), each
+// rounded up to 4: 56 floats at Dx, Dy <= 3, the presets' layout
+// (ops/svo.py::row_floats).
+template <int DX, int DY>
+struct RowLayout {
+  static constexpr int VS = DX <= 4 && DY <= 4 ? 4 : 8;
+  static constexpr int JS = DX * DX <= 12 ? 12 : round4(DX * DX);
+  static constexpr int SS = 2 * DX + DY + 3 <= 12 ? 12 : round4(2 * DX + DY + 3);
+  static constexpr int floats = 8 + 6 * VS + JS + SS;
+};
 
 // One net's weights in the split design's shared memory: fused_step.prepare's
 // layout with every row of a matrix whose output width is H padded to H + 4
@@ -685,8 +712,9 @@ __device__ __forceinline__ void split_forward(const float* __restrict__ w,
   }
 }
 
-// m[r][o] = b3[o] + sum_j h[r][j] W3[j][o]: K12's head_unit per output.
-template <int H, int DOUT>
+// m[r][o] = b3[o] + sum_j h[r][j] W3[j][o]: K12's head_unit per output; m
+// has a row stride of MS floats.
+template <int H, int DOUT, int MS = 4>
 __device__ __forceinline__ void split_head(const float* __restrict__ w3,
                                            const float* __restrict__ h, float* __restrict__ m,
                                            int nr) {
@@ -702,7 +730,7 @@ __device__ __forceinline__ void split_head(const float* __restrict__ w3,
       s[2] = fmaf(hv.z, w3[(j + 2) * DOUT + o], s[2]);
       s[3] = fmaf(hv.w, w3[(j + 3) * DOUT + o], s[3]);
     }
-    m[r * 4 + o] = w3[H * DOUT + o] + ((s[0] + s[1]) + (s[2] + s[3]));
+    m[r * MS + o] = w3[H * DOUT + o] + ((s[0] + s[1]) + (s[2] + s[3]));
   }
 }
 
@@ -760,8 +788,9 @@ __device__ __forceinline__ void split_grads(const float* __restrict__ a, int as,
   }
 }
 
-// The head's sums: g[j][o] += sum_r h[r][j] dm[r][o], g[H*DOUT + o] += sum_r dm[r][o].
-template <int H, int DOUT>
+// The head's sums: g[j][o] += sum_r h[r][j] dm[r][o], g[H*DOUT + o] += sum_r dm[r][o]
+// (dm with a row stride of MS floats).
+template <int H, int DOUT, int MS = 4>
 __device__ __forceinline__ void split_head_grads(const float* __restrict__ h,
                                                  const float* __restrict__ dm, int nr,
                                                  float* __restrict__ g) {
@@ -770,9 +799,9 @@ __device__ __forceinline__ void split_head_grads(const float* __restrict__ h,
     float s = 0.0f;
     if (e < H * DOUT) {
       const int j = e / DOUT, o = e % DOUT;
-      for (int r = 0; r < nr; ++r) s = fmaf(h[r * WS + j], dm[r * 4 + o], s);
+      for (int r = 0; r < nr; ++r) s = fmaf(h[r * WS + j], dm[r * MS + o], s);
     } else {
-      for (int r = 0; r < nr; ++r) s += dm[r * 4 + e - H * DOUT];
+      for (int r = 0; r < nr; ++r) s += dm[r * MS + e - H * DOUT];
     }
     g[e] += s;
   }
@@ -847,8 +876,8 @@ __device__ __forceinline__ float split_dot(const float* __restrict__ w, const fl
 }
 
 // A net's hidden layers (K12's arithmetic) into A [n_mid + 1][rows][H + 4] and
-// its mean into m [rows][4].
-template <int DIN, int H, int DOUT>
+// its mean into m [rows][MS].
+template <int DIN, int H, int DOUT, int MS = 4>
 __device__ __forceinline__ void split_net_forward(const float* w, const float* in, int is,
                                                   float* A, int rows, int n_mid, float* m,
                                                   int nr) {
@@ -860,16 +889,16 @@ __device__ __forceinline__ void split_net_forward(const float* w, const float* i
     split_forward<H, H>(w + N::mid(l), A + (l - 1) * rows * WS, WS, A + l * rows * WS, nr);
     __syncthreads();
   }
-  split_head<H, DOUT>(w + N::mid(n_mid + 1), A + n_mid * rows * WS, m, nr);
+  split_head<H, DOUT, MS>(w + N::mid(n_mid + 1), A + n_mid * rows * WS, m, nr);
   __syncthreads();
 }
 
-// A net's VJP from its mean's cotangent dm [rows][4]: its weight sums into g
+// A net's VJP from its mean's cotangent dm [rows][MS]: its weight sums into g
 // (packed layout), the last layer's pre-activation cotangent into X [rows][H
 // + 4] (in the same phase as the head's sums), the others in place of A's
 // hidden layers, and with TO_X the input cotangent sum_j W1[i][j] c_1[r][j]
-// added to ux [rows][4] (i < DIN).
-template <int DIN, int H, int DOUT, bool TO_X>
+// added to ux [rows][MS] (i < DIN).
+template <int DIN, int H, int DOUT, bool TO_X, int MS = 4>
 __device__ __forceinline__ void split_net_backward(const float* w, float* A, int rows, int n_mid,
                                                    const float* a_in, int as, const float* dm,
                                                    float* g, float* X, float* ux, int nr) {
@@ -877,12 +906,12 @@ __device__ __forceinline__ void split_net_backward(const float* w, float* A, int
   constexpr int WS = H + 4;
   const float* hl = A + n_mid * rows * WS;
   const float* w3 = w + N::mid(n_mid + 1);
-  split_head_grads<H, DOUT>(hl, dm, nr, g + head_off(DIN, H, n_mid));
+  split_head_grads<H, DOUT, MS>(hl, dm, nr, g + head_off(DIN, H, n_mid));
   for (int e = threadIdx.x; e < nr * H; e += kThreads) {
     const int r = e / H, j = e % H;
     float s = 0.0f;
 #pragma unroll
-    for (int o = 0; o < DOUT; ++o) s = fmaf(w3[j * DOUT + o], dm[r * 4 + o], s);
+    for (int o = 0; o < DOUT; ++o) s = fmaf(w3[j * DOUT + o], dm[r * MS + o], s);
     X[r * WS + j] = relu_cut(hl[r * WS + j], s);
   }
   __syncthreads();
@@ -902,17 +931,17 @@ __device__ __forceinline__ void split_net_backward(const float* w, float* A, int
   if constexpr (TO_X) {
     for (int e = threadIdx.x; e < nr * DIN; e += kThreads) {
       const int r = e / DIN, i = e % DIN;
-      ux[r * 4 + i] += split_dot<H>(w + i * WS, c1 + r * WS);
+      ux[r * MS + i] += split_dot<H>(w + i * WS, c1 + r * WS);
     }
   }
   __syncthreads();
 }
 
 // J[r][o][i] = d m_b[o] / d x_next[i] at the tile's relu masks (in AQ), by DX
-// cotangent passes through qb, one after the other; X [rows][H + 4] is
-// scratch. (The DX passes side by side, one barrier a layer for all of them,
-// were slower on the H100; PERF.md.)
-template <int DQ, int H, int DX>
+// cotangent passes through qb, one after the other, into jac [rows][JS];
+// X [rows][H + 4] is scratch. (The DX passes side by side, one barrier a
+// layer for all of them, were slower on the H100; PERF.md.)
+template <int DQ, int H, int DX, int JS = 12>
 __device__ __forceinline__ void split_jacobian(const float* wq, const float* AQ, int rows,
                                                int n_mid, float* X, float* jac, int nr) {
   using N = Padded<DQ, H, DX>;
@@ -935,7 +964,7 @@ __device__ __forceinline__ void split_jacobian(const float* wq, const float* AQ,
     }
     for (int e = threadIdx.x; e < nr * DX; e += kThreads) {
       const int r = e / DX, i = e % DX;
-      jac[r * 12 + o * DX + i] = split_dot<H>(wq + i * WS, X + r * WS);
+      jac[r * JS + o * DX + i] = split_dot<H>(wq + i * WS, X + r * WS);
     }
     __syncthreads();
   }
@@ -979,12 +1008,23 @@ static __global__ void svo_bias_sum_kernel(const float* __restrict__ part, int n
   out[e] = s;
 }
 
-// Dynamic shared memory of the split design, in floats.
+// Dynamic shared memory of the split design, in floats; with gsum the CTA's
+// gradient sums too (else they stay in the CTA's row of `partial`).
 template <int DX, int DY, int H>
-__host__ __device__ constexpr int split_smem_floats(int n_mid, int n_weights, int rows) {
+__host__ __device__ constexpr int split_smem_floats(int n_mid, int n_weights, int rows,
+                                                   bool gsum = true) {
   return Padded<DX + DY, H, DX>::floats(n_mid) + Padded<DX, H, DX>::floats(n_mid) +
-         Padded<DX, H, DY>::floats(n_mid) + round4(n_weights + 2 * DX + DY + 3) +
-         (2 * (n_mid + 1) + 1) * rows * (H + 4) + kRowFloats * rows;
+         Padded<DX, H, DY>::floats(n_mid) + (gsum ? round4(n_weights + 2 * DX + DY + 3) : 0) +
+         (2 * (n_mid + 1) + 1) * rows * (H + 4) + RowLayout<DX, DY>::floats * rows;
+}
+
+// Whether the split design keeps its gradient sums in device memory, the
+// CTA's row of `partial` at a stride of round4(n_row) floats: where they do
+// not fit shared memory beside a tile of `rows` rows (deep nets at width 64;
+// ops/svo.py::k13_sums_in_memory). The same sums in the same order: the same bits.
+template <int DX, int DY, int H>
+__host__ __device__ constexpr bool split_sums_global(int n_mid, int n_weights, int rows) {
+  return sizeof(float) * split_smem_floats<DX, DY, H>(n_mid, n_weights, rows) > 232448;
 }
 
 // The split design. Rows are (t, path) pairs. A CTA takes a group of P paths
@@ -1004,12 +1044,15 @@ __host__ __device__ constexpr int split_smem_floats(int n_mid, int n_weights, in
 //   7. the tile's sc sums.
 // Every sum has one owning thread and a fixed order (rows ascending within a
 // tile, tiles in order); the CTAs' rows go to svo_sum_ctas_kernel as in the
-// chain design. With CTRL, step 1 starts f's first layer from b1 + cbias and
+// chain design. The sums stay in shared memory, or, where they do not fit
+// beside the tile (split_sums_global), in the CTA's row of `partial`. With CTRL, step 1 starts f's first layer from b1 + cbias and
 // step 2 ends by writing the group's partial rows of d_cbias (bias_partials).
 template <int DX, int DY, int H, bool CTRL>
 __global__ void __launch_bounds__(kThreads, 1) svo_backward_split_kernel(const BwdArgs a, int rows,
                                                                          int P) {
   constexpr int DQ = DX + DY, NS = 2 * DX + DY + 3, WS = H + 4, c0 = 2 * DX + DY;
+  using RL = RowLayout<DX, DY>;
+  constexpr int VS = RL::VS, JS = RL::JS, SS = RL::SS;
   using NQ = Padded<DQ, H, DX>;
   using NF = Padded<DX, H, DX>;
   using NG = Padded<DX, H, DY>;
@@ -1019,19 +1062,22 @@ __global__ void __launch_bounds__(kThreads, 1) svo_backward_split_kernel(const B
   float* wq = smem;
   float* wf = wq + NQ::floats(n_mid);
   float* wg = wf + NF::floats(n_mid);
-  float* gsum = wg + NG::floats(n_mid);      // [n_row]: this CTA's sums
-  float* aq = gsum + round4(n_row);          // [L][rows][WS]: qb's hidden layers
+  const bool sums_global = split_sums_global<DX, DY, H>(n_mid, a.n_weights, rows);
+  const int stride = sums_global ? round4(n_row) : n_row;  // of partial's rows
+  float* gsum = sums_global ? a.partial + (size_t)blockIdx.x * stride  // [n_row]: this CTA's sums
+                            : wg + NG::floats(n_mid);
+  float* aq = wg + NG::floats(n_mid) + (sums_global ? 0 : round4(n_row));  // [L][rows][WS]: qb's
   float* af = aq + L * rows * WS;            // [L][rows][WS]: f's, then g's
   float* xb = af + L * rows * WS;            // [rows][WS]: scratch
   float* qin = xb + rows * WS;               // [rows][8]: [x~_{t+1}; y_t]
-  float* xt = qin + rows * 8;                // [rows][4]: x~_t
-  float* ep = xt + rows * 4;                 // [rows][4]: eps_t
-  float* dmn = ep + rows * 4;                // [rows][4]: f's / g's mean, then its cotangent
-  float* ux = dmn + rows * 4;                // [rows][4]: u_t
-  float* dxz = ux + rows * 4;                // [rows][4]
-  float* dmb = dxz + rows * 4;               // [rows][4]
-  float* jac = dmb + rows * 4;               // [rows][12]: J[o][i] at o*DX + i
-  float* sg = jac + rows * 12;               // [rows][12]: the row's sc terms
+  float* xt = qin + rows * 8;                // [rows][VS]: x~_t
+  float* ep = xt + rows * VS;                // [rows][VS]: eps_t
+  float* dmn = ep + rows * VS;               // [rows][VS]: f's / g's mean, then its cotangent
+  float* ux = dmn + rows * VS;               // [rows][VS]: u_t
+  float* dxz = ux + rows * VS;               // [rows][VS]
+  float* dmb = dxz + rows * VS;              // [rows][VS]
+  float* jac = dmb + rows * VS;              // [rows][JS]: J[o][i] at o*DX + i
+  float* sg = jac + rows * JS;               // [rows][SS]: the row's sc terms
 
   stage_padded<DQ, H, DX>(a.weights, n_mid, wq);
   stage_padded<DX, H, DX>(a.weights + a.off_f, n_mid, wf);
@@ -1072,25 +1118,25 @@ __global__ void __launch_bounds__(kThreads, 1) svo_backward_split_kernel(const B
 #pragma unroll
         for (int d = 0; d < DX; ++d) {
           qin[r * 8 + d] = xn[d];
-          xt[r * 4 + d] = x[d];
-          ep[r * 4 + d] = e[d];
-          ux[r * 4 + d] = u[d];
-          dmb[r * 4 + d] = 0.0f;
+          xt[r * VS + d] = x[d];
+          ep[r * VS + d] = e[d];
+          ux[r * VS + d] = u[d];
+          dmb[r * VS + d] = 0.0f;
         }
         const int b = live ? path / a.M : 0;
 #pragma unroll
         for (int q = 0; q < DY; ++q) qin[r * 8 + DX + q] = live ? a.y[((size_t)t * a.B + b) * DY + q] : 0.0f;
 #pragma unroll
-        for (int i = 0; i < 12; ++i) sg[r * 12 + i] = 0.0f;
+        for (int i = 0; i < SS; ++i) sg[r * SS + i] = 0.0f;
       }
       __syncthreads();
       // 1. qb's hidden layers and f's forward, layer by layer in the same phases
       split_forward<DQ, H>(wq, qin, 8, aq, nr);
       if constexpr (CTRL) {
-        split_forward<DX, H>(wf, xt, 4, af, nr,
+        split_forward<DX, H>(wf, xt, VS, af, nr,
                              RowBias{a.cbias, a.B, a.M, H, NP, a.T1, P, grp * P, t0, 1, 0});
       } else {
-        split_forward<DX, H>(wf, xt, 4, af, nr);
+        split_forward<DX, H>(wf, xt, VS, af, nr);
       }
       __syncthreads();
       for (int l = 1; l <= n_mid; ++l) {
@@ -1098,7 +1144,7 @@ __global__ void __launch_bounds__(kThreads, 1) svo_backward_split_kernel(const B
         split_forward<H, H>(wf + NF::mid(l), af + (l - 1) * rows * WS, WS, af + l * rows * WS, nr);
         __syncthreads();
       }
-      split_head<H, DX>(wf + NF::mid(n_mid + 1), af + n_mid * rows * WS, dmn, nr);
+      split_head<H, DX, VS>(wf + NF::mid(n_mid + 1), af + n_mid * rows * WS, dmn, nr);
       __syncthreads();
       // 2. the f and noise terms' cotangents, f's backward
       for (int r = tid; r < nr; r += kThreads) {
@@ -1107,9 +1153,9 @@ __global__ void __launch_bounds__(kThreads, 1) svo_backward_split_kernel(const B
         float zf[DX], sf = 0.0f, se = 0.0f;
 #pragma unroll
         for (int d = 0; d < DX; ++d) {
-          zf[d] = __fmul_rn(__fsub_rn(qin[r * 8 + d], dmn[r * 4 + d]), a.sc[d]);
+          zf[d] = __fmul_rn(__fsub_rn(qin[r * 8 + d], dmn[r * VS + d]), a.sc[d]);
           sf = __fadd_rn(sf, __fmul_rn(zf[d], zf[d]));
-          se = __fadd_rn(se, __fmul_rn(ep[r * 4 + d], ep[r * 4 + d]));
+          se = __fadd_rn(se, __fmul_rn(ep[r * VS + d], ep[r * VS + d]));
         }
         const float tf = __fadd_rn(__fmul_rn(-0.5f, sf), a.sc[c0]);
         const float tb = __fadd_rn(__fmul_rn(-0.5f, se), a.sc[c0 + 2]);
@@ -1117,47 +1163,47 @@ __global__ void __launch_bounds__(kThreads, 1) svo_backward_split_kernel(const B
         const float dlb = live && a.d_lq != nullptr && !(tb < kMinLogp) ? a.d_lq[path] : 0.0f;
 #pragma unroll
         for (int d = 0; d < DX; ++d) {
-          const float dz = -dlf * zf[d], rr = qin[r * 8 + d] - dmn[r * 4 + d];
-          dmn[r * 4 + d] = -dz * a.sc[d];
-          dxz[r * 4 + d] = dz * a.sc[d];
-          sg[r * 12 + d] = dz * rr;
+          const float dz = -dlf * zf[d], rr = qin[r * 8 + d] - dmn[r * VS + d];
+          dmn[r * VS + d] = -dz * a.sc[d];
+          dxz[r * VS + d] = dz * a.sc[d];
+          sg[r * SS + d] = dz * rr;
         }
-        sg[r * 12 + c0] = dlf;
-        sg[r * 12 + c0 + 2] = dlb;
+        sg[r * SS + c0] = dlf;
+        sg[r * SS + c0 + 2] = dlb;
       }
       __syncthreads();
-      split_net_backward<DX, H, DX, true>(wf, af, rows, n_mid, xt, 4, dmn, gsum + a.off_f, xb, ux,
-                                          nr);
+      split_net_backward<DX, H, DX, true, VS>(wf, af, rows, n_mid, xt, VS, dmn, gsum + a.off_f, xb,
+                                              ux, nr);
       if constexpr (CTRL) {
         bias_partials<H>(a, n_mid == 0 ? xb : af, grp, P, t0, steps);
         __syncthreads();  // g's forward below overwrites f's cotangents
       }
       // 3. g likewise
-      split_net_forward<DX, H, DY>(wg, xt, 4, af, rows, n_mid, dmn, nr);
+      split_net_forward<DX, H, DY, VS>(wg, xt, VS, af, rows, n_mid, dmn, nr);
       for (int r = tid; r < nr; r += kThreads) {
         const int c = r / P, path = grp * P + r % P;
         const bool live = c < steps && path < NP;
         float zg[DY], sgs = 0.0f;
 #pragma unroll
         for (int q = 0; q < DY; ++q) {
-          zg[q] = __fmul_rn(__fsub_rn(qin[r * 8 + DX + q], dmn[r * 4 + q]), a.sc[DX + q]);
+          zg[q] = __fmul_rn(__fsub_rn(qin[r * 8 + DX + q], dmn[r * VS + q]), a.sc[DX + q]);
           sgs = __fadd_rn(sgs, __fmul_rn(zg[q], zg[q]));
         }
         const float tg = __fadd_rn(__fmul_rn(-0.5f, sgs), a.sc[c0 + 1]);
         const float dlg = live && a.d_lp != nullptr && !(tg < kMinLogp) ? a.d_lp[path] : 0.0f;
 #pragma unroll
         for (int q = 0; q < DY; ++q) {
-          const float dz = -dlg * zg[q], rr = qin[r * 8 + DX + q] - dmn[r * 4 + q];
-          dmn[r * 4 + q] = -dz * a.sc[DX + q];
-          sg[r * 12 + DX + q] = dz * rr;
+          const float dz = -dlg * zg[q], rr = qin[r * 8 + DX + q] - dmn[r * VS + q];
+          dmn[r * VS + q] = -dz * a.sc[DX + q];
+          sg[r * SS + DX + q] = dz * rr;
         }
-        sg[r * 12 + c0 + 1] = dlg;
+        sg[r * SS + c0 + 1] = dlg;
       }
       __syncthreads();
-      split_net_backward<DX, H, DY, true>(wg, af, rows, n_mid, xt, 4, dmn, gsum + a.off_g, xb, ux,
-                                          nr);
+      split_net_backward<DX, H, DY, true, VS>(wg, af, rows, n_mid, xt, VS, dmn, gsum + a.off_g, xb,
+                                              ux, nr);
       // 4. J_t
-      split_jacobian<DQ, H, DX>(wq, aq, rows, n_mid, xb, jac, nr);
+      split_jacobian<DQ, H, DX, JS>(wq, aq, rows, n_mid, xb, jac, nr);
       // 5. the recurrence, one thread per path, t ascending
       if (tid < P && grp * P + tid < NP) {
         const int path = grp * P + tid;
@@ -1166,15 +1212,15 @@ __global__ void __launch_bounds__(kThreads, 1) svo_backward_split_kernel(const B
           float mb[DX];
 #pragma unroll
           for (int d = 0; d < DX; ++d) {
-            mb[d] = ux[r * 4 + d] + carry[d];
-            dmb[r * 4 + d] = mb[d];
-            sg[r * 12 + DQ + d] = mb[d] * ep[r * 4 + d];  // d s_b
+            mb[d] = ux[r * VS + d] + carry[d];
+            dmb[r * VS + d] = mb[d];
+            sg[r * SS + DQ + d] = mb[d] * ep[r * VS + d];  // d s_b
           }
 #pragma unroll
           for (int i = 0; i < DX; ++i) {
-            float s = dxz[r * 4 + i];
+            float s = dxz[r * VS + i];
 #pragma unroll
-            for (int o = 0; o < DX; ++o) s = fmaf(jac[r * 12 + o * DX + i], mb[o], s);
+            for (int o = 0; o < DX; ++o) s = fmaf(jac[r * JS + o * DX + i], mb[o], s);
             carry[i] = s;
           }
           if (t0 + c == a.T1 - 1) {
@@ -1185,18 +1231,21 @@ __global__ void __launch_bounds__(kThreads, 1) svo_backward_split_kernel(const B
       }
       __syncthreads();
       // 6. qb's VJP from dmb
-      split_net_backward<DQ, H, DX, false>(wq, aq, rows, n_mid, qin, 8, dmb, gsum, xb, nullptr, nr);
+      split_net_backward<DQ, H, DX, false, VS>(wq, aq, rows, n_mid, qin, 8, dmb, gsum, xb, nullptr,
+                                               nr);
       // 7. the tile's sc sums, rows in order
       for (int e = tid; e < NS; e += kThreads) {
         float s = 0.0f;
-        for (int r = 0; r < nr; ++r) s += sg[r * 12 + e];
+        for (int r = 0; r < nr; ++r) s += sg[r * SS + e];
         gsum[a.n_weights + e] += s;
       }
       __syncthreads();
     }
   }
-  float* row = a.partial + (size_t)blockIdx.x * n_row;
-  for (int i = tid; i < n_row; i += kThreads) row[i] = gsum[i];
+  if (!sums_global) {
+    float* row = a.partial + (size_t)blockIdx.x * stride;
+    for (int i = tid; i < n_row; i += kThreads) row[i] = gsum[i];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1204,43 +1253,53 @@ __global__ void __launch_bounds__(kThreads, 1) svo_backward_split_kernel(const B
 // density terms as parallel passes over the chain's rows
 // ---------------------------------------------------------------------------
 
-// A path of the split design's chain is a group of H threads, thread gl
-// owning hidden unit gl: half a warp at H = 16 (a warp holds two paths), a
-// warp at 32, two warps at 64. Synchronise the threads of path slot p:
-// their warp below two warps (its paths run in step), else a named barrier
-// of the path's two warps.
-template <int H>
+// A path of the split design's chain is a group of HG threads, thread gl
+// owning hidden unit gl (gl < H): HG = H at the presets' widths (half a warp
+// at H = 16, a warp at 32, two warps at 64), and at the other widths of the
+// class the group is padded so that groups tile the warps: the next power of
+// two up to 32 (H = 8: 8, H = 24: 32), else 64 (H = 40, 48, 56). Threads gl
+// >= H own no unit and only join the path's syncs and head lanes.
+__host__ __device__ constexpr int chain_group(int h) {
+  return h <= 8 ? 8 : h <= 16 ? 16 : h <= 32 ? 32 : 64;
+}
+
+// Synchronise the threads of path slot p: their warp below two warps (its
+// paths run in step), else a named barrier of the path's two warps.
+template <int HG>
 __device__ __forceinline__ void path_sync(int p) {
-  if constexpr (H <= 32) {
+  if constexpr (HG <= 32) {
     __syncwarp();
   } else {
-    named_barrier(1 + p, H);
+    named_barrier(1 + p, HG);
   }
 }
 
 // Dynamic shared memory of K12's split design, in floats: qb in the packed
 // layout, f and g padded (as K13's split design holds them), two hidden
-// vectors and x~ (4 floats) per chain slot (paths rounded up to whole
-// warps), f's and g's two ping-pong hidden layers and means for a tile of
-// `rows` rows, and 18 floats for each of the `steps` x `paths` chain rows
-// (x~_t, x~_{t+1}, eps_t, y_t and the row's two terms).
+// vectors and x~ (VS floats) per chain slot (paths rounded up to whole
+// warps), f's and g's two ping-pong hidden layers and means (VS floats) for
+// a tile of `rows` rows, and 4 VS + 2 floats for each of the `steps` x
+// `paths` chain rows (x~_t, x~_{t+1}, eps_t, y_t and the row's two terms):
+// VS = 4 at Dx, Dy <= 4, as RowLayout.
 template <int DX, int DY, int H>
 __host__ __device__ constexpr int fwd_split_smem_floats(int n_mid, int off_f, int paths, int rows,
                                                         int steps) {
+  constexpr int VS = RowLayout<DX, DY>::VS, HG = chain_group(H);
   return round4(off_f) + Padded<DX, H, DX>::floats(n_mid) + Padded<DX, H, DY>::floats(n_mid) +
-         (paths * H + 31) / 32 * 32 / H * (2 * H + 4) + 4 * rows * (H + 4) + 8 * rows +
-         18 * round4(steps * paths);
+         (paths * HG + 31) / 32 * 32 / HG * (2 * H + VS) + 4 * rows * (H + 4) + 2 * VS * rows +
+         (4 * VS + 2) * round4(steps * paths);
 }
 
 // The split design. A CTA takes P paths and walks t = T-2 .. 0 in chunks of
 // TC steps; chain row c*P + p is step t0 - c of path p. Per chunk:
 //   1. eps_t and y_t of the chunk's rows into shared memory (cp.async);
-//   2. the chain, each path on its own H threads, which synchronise only
+//   2. the chain, each path on its own HG threads, which synchronise only
 //      among themselves (their warp, or a named barrier of two warps): qb's
 //      first layer (weights in registers), its first middle layer (each
 //      thread's weight column in registers; later ones from shared memory),
 //      its head (each output's four partial sums j = k mod 4 on four lanes,
-//      joined as b3 + ((s0 + s1) + (s2 + s3))), the draw; x~_t is stored and
+//      joined as b3 + ((s0 + s1) + (s2 + s3)); a lane takes NO outputs where
+//      the group has fewer than 4 Dx lanes), the draw; x~_t is stored and
 //      passed to the path's threads through shared memory for the next step;
 //   3. f and g on the chunk's x~_t in tiles of R rows (K13's split_forward /
 //      split_head: hidden_unit's and head_unit's rounding per output), then
@@ -1251,26 +1310,27 @@ __host__ __device__ constexpr int fwd_split_smem_floats(int n_mid, int off_f, in
 template <int DX, int DY, int H, bool CTRL>
 __global__ void __launch_bounds__(kThreads, 1)
     svo_forward_split_kernel(const FwdArgs a, int P, int R, int TC) {
-  constexpr int DQ = DX + DY, WS = H + 4;
+  constexpr int DQ = DX + DY, WS = H + 4, VS = RowLayout<DX, DY>::VS, HG = chain_group(H);
+  constexpr int NO = (4 * DX + HG - 1) / HG;  // head outputs a lane adds
   using NF = Padded<DX, H, DX>;
   using NG = Padded<DX, H, DY>;
   extern __shared__ __align__(16) float smem[];
   const int n_mid = a.n_mid, tid = threadIdx.x, NP = a.B * a.M;
-  const int slots = (P * H + 31) / 32 * 32 / H, RC = round4(TC * P);
+  const int slots = (P * HG + 31) / 32 * 32 / HG, RC = round4(TC * P);
   float* wq = smem;                    // qb, packed
   float* wf = wq + round4(a.off_f);    // f, padded
   float* wg = wf + NF::floats(n_mid);  // g, padded
   float* hb = wg + NG::floats(n_mid);  // [slots][2][H]: the chain's hidden vectors
-  float* xs = hb + slots * 2 * H;      // [slots][4]: the chain's x~_{t+1}
-  float* af = xs + slots * 4;          // [2][R][WS]: f's hidden layers
+  float* xs = hb + slots * 2 * H;      // [slots][VS]: the chain's x~_{t+1}
+  float* af = xs + slots * VS;         // [2][R][WS]: f's hidden layers
   float* ag = af + 2 * R * WS;         // [2][R][WS]: g's
-  float* mf = ag + 2 * R * WS;         // [R][4]: f's mean
-  float* mg = mf + R * 4;              // [R][4]: g's mean
-  float* xt = mg + R * 4;              // [RC][4]: x~_t of each chain row
-  float* xn = xt + RC * 4;             // [RC][4]: x~_{t+1}
-  float* ep = xn + RC * 4;             // [RC][4]: eps_t
-  float* yv = ep + RC * 4;             // [RC][4]: y_t
-  float* tl = yv + RC * 4;             // [RC][2]: the row's lp and lq terms
+  float* mf = ag + 2 * R * WS;         // [R][VS]: f's mean
+  float* mg = mf + R * VS;             // [R][VS]: g's mean
+  float* xt = mg + R * VS;             // [RC][VS]: x~_t of each chain row
+  float* xn = xt + RC * VS;            // [RC][VS]: x~_{t+1}
+  float* ep = xn + RC * VS;            // [RC][VS]: eps_t
+  float* yv = ep + RC * VS;            // [RC][VS]: y_t
+  float* tl = yv + RC * VS;            // [RC][2]: the row's lp and lq terms
 
   // eps_t and y_t of the chunk's n rows (dead paths: zero noise, row 0's y)
   auto stage = [&](int t0, int n) {
@@ -1278,13 +1338,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int row = e / DQ, d = e % DQ, q = blockIdx.x * P + row % P, t = t0 - row / P;
       if (d < DX) {
         if (q < NP) {
-          cp_async4(ep + row * 4 + d, a.eps + ((size_t)t * NP + q) * DX + d);
+          cp_async4(ep + row * VS + d, a.eps + ((size_t)t * NP + q) * DX + d);
         } else {
-          ep[row * 4 + d] = 0.0f;
+          ep[row * VS + d] = 0.0f;
         }
       } else {
         const int b = q < NP ? q / a.M : 0;
-        cp_async4(yv + row * 4 + d - DX, a.y + ((size_t)t * a.B + b) * DY + d - DX);
+        cp_async4(yv + row * VS + d - DX, a.y + ((size_t)t * a.B + b) * DY + d - DX);
       }
     }
     cp_async_commit();
@@ -1296,21 +1356,35 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   stage_padded<DX, H, DX>(a.weights + a.off_f, n_mid, wf);
   stage_padded<DX, H, DY>(a.weights + a.off_g, n_mid, wg);
-  for (int i = tid; i < RC * 4; i += kThreads) xt[i] = 0.0f;  // a tile's pad rows stay finite
+  for (int i = tid; i < RC * VS; i += kThreads) xt[i] = 0.0f;  // a tile's pad rows stay finite
 
-  // the chain's threads: path slot p, unit gl of its group; head lane (ho, hk)
-  const bool chain = tid < slots * H;
-  const int p = tid / H, gl = tid % H, pr = p < P ? p : P - 1;
+  // the chain's threads: path slot p, unit gl of its group (gl < H own one);
+  // head lane (ho[k], hk), k < NO
+  const bool chain = tid < slots * HG;
+  const int p = tid / HG, gl = tid % HG, pr = p < P ? p : P - 1;
+  const bool unit = gl < H;
+  const int gu = unit ? gl : 0;  // the unit whose weights a padding lane reads
   const int path = blockIdx.x * P + p;
   const bool live = p < P && path < NP;
-  const bool head = gl < 4 * DX;
-  const int ho = head ? gl / 4 : DX - 1, hk = gl % 4;
+  const int hk = gl % 4;
+  int ho[NO];
+  bool head[NO];
+#pragma unroll
+  for (int k = 0; k < NO; ++k) {
+    const int o = gl / 4 + k * (HG / 4);
+    head[k] = o < DX;
+    ho[k] = head[k] ? o : DX - 1;
+  }
   float* h0 = hb + (chain ? p : 0) * 2 * H;
   float* h1 = h0 + H;
-  float* xp = xs + (chain ? p : 0) * 4;  // the path's x~_{t+1}
+  float* xp = xs + (chain ? p : 0) * VS;  // the path's x~_{t+1}
   if (chain && gl < DX) xp[gl] = live ? a.x_anchor[(size_t)path * DX + gl] : 0.0f;
-  float xo = live ? a.x_anchor[(size_t)path * DX + ho] : 0.0f;  // head lanes: x~_{t+1}[ho]
-  const float sb = a.sc[DQ + ho];
+  float xo[NO], sb[NO];  // head lanes: x~_{t+1}[ho], s_b[ho]
+#pragma unroll
+  for (int k = 0; k < NO; ++k) {
+    xo[k] = live ? a.x_anchor[(size_t)path * DX + ho[k]] : 0.0f;
+    sb[k] = a.sc[DQ + ho[k]];
+  }
   float lp = 0.0f, lq = 0.0f;  // thread p < P: path p's sums
 
   for (int t0 = a.T1 - 1; t0 >= 0; t0 -= TC) {
@@ -1319,33 +1393,36 @@ __global__ void __launch_bounds__(kThreads, 1)
     cp_async_wait<0>();
     __syncthreads();
     if (chain) {
-      float w1[DQ], wm[H], w3[H / 4];
+      float w1[DQ], wm[H], w3[NO][H / 4], b3[NO];
 #pragma unroll
-      for (int i = 0; i < DQ; ++i) w1[i] = wq[i * H + gl];
-      const float b1 = wq[DQ * H + gl];
+      for (int i = 0; i < DQ; ++i) w1[i] = wq[i * H + gu];
+      const float b1 = wq[DQ * H + gu];
       const float* m1 = wq + mid_off(DQ, H, 1);
 #pragma unroll
-      for (int i = 0; i < H; ++i) wm[i] = n_mid >= 1 ? m1[i * H + gl] : 0.0f;
-      const float bm = n_mid >= 1 ? m1[H * H + gl] : 0.0f;
+      for (int i = 0; i < H; ++i) wm[i] = n_mid >= 1 ? m1[i * H + gu] : 0.0f;
+      const float bm = n_mid >= 1 ? m1[H * H + gu] : 0.0f;
       const float* w3p = wq + head_off(DQ, H, n_mid);
 #pragma unroll
-      for (int m = 0; m < H / 4; ++m) w3[m] = w3p[(4 * m + hk) * DX + ho];
-      const float b3 = w3p[H * DX + ho];
+      for (int k = 0; k < NO; ++k) {
+#pragma unroll
+        for (int m = 0; m < H / 4; ++m) w3[k][m] = w3p[(4 * m + hk) * DX + ho[k]];
+        b3[k] = w3p[H * DX + ho[k]];
+      }
       for (int c = 0; c < steps; ++c) {
         const int row = c * P + pr, t = t0 - c;
         float qin[DQ];
 #pragma unroll
         for (int d = 0; d < DX; ++d) qin[d] = xp[d];
 #pragma unroll
-        for (int q = 0; q < DY; ++q) qin[DX + q] = yv[row * 4 + q];
+        for (int q = 0; q < DY; ++q) qin[DX + q] = yv[row * VS + q];
         {
           float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
           for (int i = 0; i < DQ; ++i) s[i & 3] = fmaf(w1[i], qin[i], s[i & 3]);
           const float v = b1 + ((s[0] + s[1]) + (s[2] + s[3]));
-          h0[gl] = v < 0.0f ? 0.0f : v;
+          if (unit) h0[gl] = v < 0.0f ? 0.0f : v;
         }
-        path_sync<H>(p);
+        path_sync<HG>(p);
         float* hin = h0;
         float* hout = h1;
         if (n_mid >= 1) {
@@ -1359,35 +1436,42 @@ __global__ void __launch_bounds__(kThreads, 1)
             s[3] = fmaf(wm[i + 3], hv.w, s[3]);
           }
           const float v = bm + ((s[0] + s[1]) + (s[2] + s[3]));
-          hout[gl] = v < 0.0f ? 0.0f : v;
-          path_sync<H>(p);
+          if (unit) hout[gl] = v < 0.0f ? 0.0f : v;
+          path_sync<HG>(p);
           hin = h1;
           hout = h0;
         }
         for (int l = 2; l <= n_mid; ++l) {
-          hout[gl] = hidden_unit<H, H>(wq + mid_off(DQ, H, l), hin, gl);
-          path_sync<H>(p);
+          if (unit) hout[gl] = hidden_unit<H, H>(wq + mid_off(DQ, H, l), hin, gl);
+          path_sync<HG>(p);
           float* tmp = hin;
           hin = hout;
           hout = tmp;
         }
-        // the head: lane (ho, hk) adds the terms j = hk mod 4 of output ho
-        float s = 0.0f;
+        // the head: lane (ho[k], hk) adds the terms j = hk mod 4 of output ho[k]
+        float x[NO];
 #pragma unroll
-        for (int m = 0; m < H / 4; ++m) s = fmaf(hin[4 * m + hk], w3[m], s);
-        s = s + __shfl_xor_sync(0xffffffffu, s, 1);
-        s = s + __shfl_xor_sync(0xffffffffu, s, 2);
-        const float x = __fadd_rn(b3 + s, __fmul_rn(sb, ep[row * 4 + ho]));
-        if (head && hk == 0) {
-          if (p < P) {
-            xt[row * 4 + ho] = x;
-            xn[row * 4 + ho] = xo;
-            if (live) a.xtilde[((size_t)t * NP + path) * DX + ho] = x;
-          }
-          xp[ho] = x;  // every thread of the path read x~_{t+1} before the first sync
+        for (int k = 0; k < NO; ++k) {
+          float s = 0.0f;
+#pragma unroll
+          for (int m = 0; m < H / 4; ++m) s = fmaf(hin[4 * m + hk], w3[k][m], s);
+          s = s + __shfl_xor_sync(0xffffffffu, s, 1);
+          s = s + __shfl_xor_sync(0xffffffffu, s, 2);
+          x[k] = __fadd_rn(b3[k] + s, __fmul_rn(sb[k], ep[row * VS + ho[k]]));
         }
-        xo = x;
-        path_sync<H>(p);  // x~_t is the next step's query; the head's reads are done
+#pragma unroll
+        for (int k = 0; k < NO; ++k) {
+          if (head[k] && hk == 0) {
+            if (p < P) {
+              xt[row * VS + ho[k]] = x[k];
+              xn[row * VS + ho[k]] = xo[k];
+              if (live) a.xtilde[((size_t)t * NP + path) * DX + ho[k]] = x[k];
+            }
+            xp[ho[k]] = x[k];  // every thread of the path read x~_{t+1} before the first sync
+          }
+          xo[k] = x[k];
+        }
+        path_sync<HG>(p);  // x~_t is the next step's query; the head's reads are done
       }
     }
     __syncthreads();
@@ -1395,13 +1479,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int r0 = 0; r0 < n; r0 += R) {
       const int cnt = n - r0 < R ? n - r0 : R, nr = round4(cnt);
       if constexpr (CTRL) {
-        split_forward<DX, H>(wf, xt + r0 * 4, 4, af, nr,
+        split_forward<DX, H>(wf, xt + r0 * VS, VS, af, nr,
                              RowBias{a.cbias, a.B, a.M, H, NP, a.T1, P, (int)blockIdx.x * P, t0,
                                      -1, r0});
       } else {
-        split_forward<DX, H>(wf, xt + r0 * 4, 4, af, nr);
+        split_forward<DX, H>(wf, xt + r0 * VS, VS, af, nr);
       }
-      split_forward<DX, H>(wg, xt + r0 * 4, 4, ag, nr);
+      split_forward<DX, H>(wg, xt + r0 * VS, VS, ag, nr);
       __syncthreads();
       for (int l = 1; l <= n_mid; ++l) {
         const int i = ((l - 1) & 1) * R * WS, o = (l & 1) * R * WS;
@@ -1410,14 +1494,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         __syncthreads();
       }
       const int last = (n_mid & 1) * R * WS;
-      split_head<H, DX>(wf + NF::mid(n_mid + 1), af + last, mf, nr);
-      split_head<H, DY>(wg + NG::mid(n_mid + 1), ag + last, mg, nr);
+      split_head<H, DX, VS>(wf + NF::mid(n_mid + 1), af + last, mf, nr);
+      split_head<H, DY, VS>(wg + NG::mid(n_mid + 1), ag + last, mg, nr);
       __syncthreads();
       for (int r = tid; r < cnt; r += kThreads) {
         const int row = r0 + r;
         float zf[DX], zg[DY], tf, tg, tb;
-        step_terms<DX, DY>(xn + row * 4, mf + r * 4, yv + row * 4, mg + r * 4, ep + row * 4, a.sc,
-                           zf, zg, tf, tg, tb);
+        step_terms<DX, DY>(xn + row * VS, mf + r * VS, yv + row * VS, mg + r * VS, ep + row * VS,
+                           a.sc, zf, zg, tf, tg, tb);
         tl[row * 2] = floor_logp(tf) + floor_logp(tg);
         tl[row * 2 + 1] = floor_logp(tb);
       }
@@ -1430,7 +1514,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   }
-  if (chain && live && head && hk == 0) a.x_first[(size_t)path * DX + ho] = xo;
+#pragma unroll
+  for (int k = 0; k < NO; ++k) {
+    if (chain && live && head[k] && hk == 0) a.x_first[(size_t)path * DX + ho[k]] = xo[k];
+  }
   if (tid < P && (int)blockIdx.x * P + tid < NP) {
     a.lp[blockIdx.x * P + tid] = lp;
     a.lq[blockIdx.x * P + tid] = lq;
@@ -1439,7 +1526,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int DX, int DY, int H, bool CTRL>
 cudaError_t launch_forward_split(const FwdArgs& a, int P, int R, int TC, cudaStream_t stream) {
-  if (P < 1 || P * H > kThreads || R < 4 || R % 4 != 0 || TC < 1 || a.off_f % 4 != 0) {
+  if (P < 1 || P * chain_group(H) > kThreads || R < 4 || R % 4 != 0 || TC < 1 ||
+      a.off_f % 4 != 0) {
     return cudaErrorInvalidValue;
   }
   const size_t smem = sizeof(float) * fwd_split_smem_floats<DX, DY, H>(a.n_mid, a.off_f, P, R, TC);
@@ -1493,7 +1581,7 @@ cudaError_t launch_backward(const BwdArgs& a, int max_ctas, float* grads, cudaSt
   kernel<<<grid, kThreads, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   svo_sum_ctas_kernel<<<(n_row + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      a.partial, grid, n_row, grads);
+      a.partial, grid, n_row, n_row, grads);
   return cudaGetLastError();
 }
 
@@ -1505,7 +1593,9 @@ cudaError_t launch_backward_split(const BwdArgs& a, int max_ctas, int rows, int 
     return cudaErrorInvalidValue;
   }
   const int n_row = a.n_weights + NS;
-  const size_t smem = sizeof(float) * split_smem_floats<DX, DY, H>(a.n_mid, a.n_weights, rows);
+  const bool sums_global = split_sums_global<DX, DY, H>(a.n_mid, a.n_weights, rows);
+  const size_t smem =
+      sizeof(float) * split_smem_floats<DX, DY, H>(a.n_mid, a.n_weights, rows, !sums_global);
   auto kernel = svo_backward_split_kernel<DX, DY, H, CTRL>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -1529,7 +1619,7 @@ cudaError_t launch_backward_split(const BwdArgs& a, int max_ctas, int rows, int 
   kernel<<<grid, kThreads, smem, stream>>>(a, rows, P);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   svo_sum_ctas_kernel<<<(n_row + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      a.partial, grid, n_row, grads);
+      a.partial, grid, n_row, sums_global ? round4(n_row) : n_row, grads);
   if (CTRL) {
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     svo_bias_sum_kernel<<<(n_bias + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
@@ -1538,8 +1628,22 @@ cudaError_t launch_backward_split(const BwdArgs& a, int max_ctas, int rows, int 
   return cudaGetLastError();
 }
 
+// The shapes the kernels' library instantiates, both designs: (Dx, Dy) in
+// {(2, 2), (3, 3)} (FitzHugh-Nagumo, Lorenz-63) at widths 16, 32 and 64
+// (ops/svo.py KERNEL_DIMS, HIDDEN_WIDTHS). Every other shape of the class
+// (ops/svo.py::usable) is built into a shape library of its own
+// (ops/_build.py::load_shape_library, key ("svo", dx, dy, hidden)): this
+// header with its PSVO_SVO_{DX,DY,H} macros, the split designs alone.
+template <int DX, int DY, int H>
+constexpr bool kPrebuilt = DX == DY && (DX == 2 || DX == 3) && (H == 16 || H == 32 || H == 64);
+
 template <template <int, int, int> class Launch, typename... Ts>
 int dispatch(int dx, int dy, int hidden, Ts... args) {
+#ifdef PSVO_SVO_DX
+  if (dx == PSVO_SVO_DX && dy == PSVO_SVO_DY && hidden == PSVO_SVO_H) {
+    return Launch<PSVO_SVO_DX, PSVO_SVO_DY, PSVO_SVO_H>::run(args...);
+  }
+#else
   if (dx == 2 && dy == 2) {
     switch (hidden) {
       case 16: return Launch<2, 2, 16>::run(args...);
@@ -1556,31 +1660,36 @@ int dispatch(int dx, int dy, int hidden, Ts... args) {
       default: break;
     }
   }
+#endif
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int DX, int DY, int H>
-struct Forward {  // design 0: split, 1: chain
+struct Forward {  // design 0: split, 1: chain (the kernels' library's shapes only)
   static int run(const FwdArgs& a, int design, int paths, int tile_rows, int steps,
                  cudaStream_t s) {
     if (design == 0) {
       return static_cast<int>(
           launch_forward_split<DX, DY, H, false>(a, paths, tile_rows, steps, s));
     }
-    if (design == 1) return static_cast<int>(launch_forward<DX, DY, H>(a, s));
+    if constexpr (kPrebuilt<DX, DY, H>) {
+      if (design == 1) return static_cast<int>(launch_forward<DX, DY, H>(a, s));
+    }
     return static_cast<int>(cudaErrorInvalidValue);
   }
 };
 
 template <int DX, int DY, int H>
-struct Backward {  // design 0: split, 1: chain
+struct Backward {  // design 0: split, 1: chain (the kernels' library's shapes only)
   static int run(const BwdArgs& a, int max_ctas, int design, int rows, int paths, float* grads,
                  cudaStream_t s) {
     if (design == 0) {
       return static_cast<int>(
           launch_backward_split<DX, DY, H, false>(a, max_ctas, rows, paths, grads, s));
     }
-    if (design == 1) return static_cast<int>(launch_backward<DX, DY, H>(a, max_ctas, grads, s));
+    if constexpr (kPrebuilt<DX, DY, H>) {
+      if (design == 1) return static_cast<int>(launch_backward<DX, DY, H>(a, max_ctas, grads, s));
+    }
     return static_cast<int>(cudaErrorInvalidValue);
   }
 };

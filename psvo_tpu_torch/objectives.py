@@ -38,8 +38,9 @@ always and on CUDA tensors wherever the reference's own gate
 a full-covariance f, K > 2048 or not a multiple of 128, M not a multiple of
 8; the qb GRU, known dynamics, Poisson/Dirac, tril scales, uneven hidden
 widths, max(Dx + Di, Dy) > 7, M < 32. Where the reference runs a sweep
-kernel that the port's class does not cover (ROADMAP queue 2 B.4, B.5), a
-CUDA call raises NotImplementedError before the forward filter runs.
+kernel that the port's class does not cover (SVO widths above 64, FFBSi at
+Dx above 908; ROADMAP queue 2 B), a CUDA call raises NotImplementedError
+before the forward filter runs.
 
 Long T (`smc.ffbsi_segments` = S > 1, PSVO): the forward keeps only the
 carries at S segment boundaries (`smc.forward_filter_segmented`); the
@@ -275,7 +276,7 @@ def _ffbsi_route(ssm: SSM, k: int, m: int, cuda: bool) -> str:
     rows of K."""
     if context.particle_mesh() is not None:
         return "eager"
-    return smoothing_route(ffbsi.usable(ssm.dx, m, ssm.f_tril),
+    return smoothing_route(ffbsi.usable(ssm.dx, m, k, ssm.f_tril),
                            reference_ffbsi_path(ssm, k, m), cuda)
 
 
@@ -295,14 +296,15 @@ def _require_cuda_sweep(ssm: SSM, objective: str, k: int, m: int) -> None:
         if _svo_route(ssm, m, True) == "raise":
             raise NotImplementedError(
                 "svo with this model has no CUDA kernel yet: the reference runs its q_b sweep "
-                "through its SVO kernel (pallas_svo), whose class the port's K12/K13 do not "
-                "cover for it (outside ops.svo.usable; ROADMAP queue 2 B.4); run it on CPU "
-                "tensors")
+                "through its SVO kernel (pallas_svo), but the port's K12/K13 stop at "
+                f"{svo.cap_reached(ssm, m)} (outside ops.svo.usable; ROADMAP queue 2 B); run "
+                "it on CPU tensors")
     elif _ffbsi_route(ssm, k, m, True) == "raise":
         raise NotImplementedError(
             "psvo with this model has no CUDA kernel yet: the reference runs its FFBSi sweep "
-            "through its FFBSi kernel (pallas_ffbsi), whose class the port's K5/K6 do not cover "
-            "for it (outside ops.ffbsi.usable; ROADMAP queue 2 B.5); run it on CPU tensors")
+            "through its FFBSi kernel (pallas_ffbsi), but the port's K5/K6 stop at Dx = 908 "
+            "(K6 wide's shared memory, outside ops.ffbsi.usable; ROADMAP queue 2 B); run it on "
+            "CPU tensors")
 
 
 def _ffbsi_sweep(ssm: SSM, x_query, xs, logws, gum, differentiable: bool, u=None):

@@ -17,7 +17,10 @@ classes is compiled on its first use by `load_shape_library`: the sources
 of those kernels (`SHAPE_SOURCES`, `TRUNK_SOURCES`) with the shape as `-D`
 macros, one nvcc per source, into a library of their own under
 `_build/<hash>/shape_.../` or `trunk_.../`, keyed by the same hash and the
-shape. `prebuild_shapes` starts such builds in the background.
+shape. K12/K13 (`SVO_SOURCES`) likewise: the library holds the presets'
+(Dx, Dy, width), and any other shape of the SVO class builds its split
+designs into `svo_<dx>_<dy>_<hidden>/`. `prebuild_shapes` starts such builds
+in the background.
 """
 
 from __future__ import annotations
@@ -57,10 +60,12 @@ SIGNATURES = {
     # K2 ends in (..., K, design, stream): 0 the pair design, 1 the particle one
     "psvo_stream_noise": [_P, _P, _U32, _U32, _I, _I, _I, _I, _I, _P],
     "psvo_ancestor_indices": [_P, _P, _P, _I, _I, _P],
-    # K5 ends in (..., dx, design, paths, chunk, stream): 0 the staged design, 1 the previous one
+    # K5 ends in (..., dx, design, paths, chunk, stream): 0 the staged kernel, 1 the previous
+    # one, 2 the wide one
     "psvo_ffbsi_forward": [_P] * 13 + [_I] * 8 + [_P],
-    # K6 ends in (..., dx, design, stream): 0 the staged design, 1 the row one
-    "psvo_ffbsi_backward": [_P] * 18 + [_I] * 6 + [_P],
+    # K6 ends in (..., work, ctas, chunk, B, M, K, T1, dx, design, stream): 0 the staged
+    # kernel, 1 the row one, 2 the wide one (a grid of ctas, its scratch work, chunk particles)
+    "psvo_ffbsi_backward": [_P] * 19 + [_I] * 8 + [_P],
     # K7 and K11 end in (..., design, ...plan, stream): 0 the new design, 1 the row one; K7's
     # plan (cluster, spread), K11's (per, cluster)
     "psvo_ancestor_indices_large": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -96,18 +101,23 @@ SHAPE_MACROS = ("DX", "DY", "H", "NMID", "FWD", "BWD")  # PSVO_SHAPE_<name> (ste
 TRUNK_SOURCES = ("trunk_forward.cu", "trunk_forward_ctrl.cu", "trunk_backward.cu",
                  "trunk_backward_ctrl.cu")
 TRUNK_MACROS = ("DX", "DY", "H", "K9", "K10")
-# a shape library's kind by its key: ("trunk", dx, dy, hidden, k9 weights, k10 weights), or
-# the whole-step kernels' (dx, dy, hidden, n_mid, k1 plan, k4 plan)
+# the sources of K12 and K13 (both control modes), which an SVO shape library holds (their
+# split designs alone), and its macros PSVO_SVO_<name> (svo_sweep.cuh::dispatch)
+SVO_SOURCES = ("svo_sweep.cu", "svo_sweep_ctrl.cu")
+SVO_MACROS = ("DX", "DY", "H")
+# a shape library's kind by its key: ("trunk", dx, dy, hidden, k9 weights, k10 weights),
+# ("svo", dx, dy, hidden), or the whole-step kernels' (dx, dy, hidden, n_mid, k1 plan, k4 plan)
 _KINDS = {"trunk": (TRUNK_SOURCES, "PSVO_TRUNK_", TRUNK_MACROS),
+          "svo": (SVO_SOURCES, "PSVO_SVO_", SVO_MACROS),
           "step": (SHAPE_SOURCES, "PSVO_SHAPE_", SHAPE_MACROS)}
 
 
 def _kind(shape: tuple) -> str:
-    return "trunk" if shape and shape[0] == "trunk" else "step"
+    return shape[0] if shape and shape[0] in ("trunk", "svo") else "step"
 
 
 def _shape_ints(shape: tuple) -> tuple:
-    return tuple(int(v) for v in (shape[1:] if _kind(shape) == "trunk" else shape))
+    return tuple(int(v) for v in (shape[1:] if _kind(shape) != "step" else shape))
 
 
 def sources() -> list[Path]:
@@ -217,8 +227,10 @@ def shape_dir(shape: tuple) -> Path:
     """Where the shape library of `shape` goes, under the current build's
     hash: `shape_<dx>_<dy>_<hidden>_<n_mid>_<k1 plan>_<k4 plan>` for the
     whole-step kernels, `trunk_<dx>_<dy>_<hidden>_<k9 weights>_<k10 weights>`
-    for K9/K10 (key ("trunk", dx, dy, hidden, k9 weights, k10 weights))."""
-    name = "trunk_" if _kind(shape) == "trunk" else "shape_"
+    for K9/K10 (key ("trunk", dx, dy, hidden, k9 weights, k10 weights)),
+    `svo_<dx>_<dy>_<hidden>` for K12/K13 (key ("svo", dx, dy, hidden))."""
+    kind = _kind(shape)
+    name = "shape_" if kind == "step" else kind + "_"
     return BUILD_ROOT / source_hash() / (name + "_".join(str(v) for v in _shape_ints(shape)))
 
 
@@ -233,9 +245,11 @@ def load_shape_library(shape: tuple, niceness: int = 0) -> ctypes.CDLL:
     hidden, n_mid, k1 plan, k4 plan) as ints, the plans' indices in
     `fused_step.K1_PLANS` / `K4_PLANS`; or of K9 and K10 (`trunk._library`):
     `shape` = ("trunk", dx, dy, hidden, k9 weights, k10 weights), the
-    weights' places' indices in `trunk.WEIGHT_PLACES`. Built on first use
-    (SHAPE_SOURCES with the PSVO_SHAPE_* macros, TRUNK_SOURCES with the
-    PSVO_TRUNK_* ones; a failed build raises), loaded once per process. Thread-safe: a second caller waits for the first one's build.
+    weights' places' indices in `trunk.WEIGHT_PLACES`; or of K12 and K13's
+    split designs (`svo._library`): `shape` = ("svo", dx, dy, hidden). Built
+    on first use (SHAPE_SOURCES with the PSVO_SHAPE_* macros, TRUNK_SOURCES
+    with the PSVO_TRUNK_* ones, SVO_SOURCES with the PSVO_SVO_* ones; a failed
+    build raises), loaded once per process. Thread-safe: a second caller waits for the first one's build.
     The objects are compiled in a directory of their own and the library
     moved into place, so processes that build the same shape at once do not
     share a file. niceness: the compilers' (`build`)."""
@@ -243,7 +257,7 @@ def load_shape_library(shape: tuple, niceness: int = 0) -> ctypes.CDLL:
     if lib is not None:  # the launches' path: loaded already
         return lib
     kind = _kind(shape)
-    shape = (("trunk",) if kind == "trunk" else ()) + _shape_ints(shape)
+    shape = (() if kind == "step" else (kind,)) + _shape_ints(shape)
     with _LOCKS_LOCK:
         lock = _SHAPE_LOCKS.setdefault(shape, threading.Lock())
     with lock:

@@ -34,6 +34,17 @@ the card:
   (`ffbsi_backward_kernel`, the previous design: one CTA per (t, b), three
   passes of the pair) stays callable with `design="row"`.
 
+The staged kernels are templates over Dx in {2, 3} (`KERNEL_DX`), and K6's
+holds per-path state for at most `MAX_M` paths. At every other shape of the
+reference's class (any Dx, M a multiple of 8, K up to `MAX_K`) the staged
+design runs the wide kernels (`ffbsi_wide_kernel`, `ffbsi_bwd_wide_kernel`;
+`staged_kernel` picks the kernel, the wrapper passes it to the C entry
+point), which take Dx as a runtime loop: K5 a CTA of P paths of a row
+reading each step's r and mr once for them, K6 a persistent grid of
+`k6_wide_ctas` CTAs, each walking (t, b) rows in four passes over its own
+row of scratch, the row's pairs (`k6_wide_chunk`). The preset shapes keep
+their kernels and bits.
+
 `FFBSiSweep` joins them as one `torch.autograd.Function` with the gradient
 contract of `pallas_ffbsi.ffbsi_scan`'s custom VJP: no gradient through the
 discrete choice, none for gum, cotangents to x_anchor, xs, r, mr, c, lwn and
@@ -62,26 +73,62 @@ from psvo_tpu_torch.distributions import _MIN_LOGP
 from psvo_tpu_torch.ops import _build
 from psvo_tpu_torch.ops.fused_step import SMEM_LIMIT, _ptr, _require
 
-KERNEL_DX = (2, 3)  # state widths K5 and K6 are instantiated for
-MAX_M = 256  # smoothed paths per row (K6 keeps per-path state in shared memory)
+KERNEL_DX = (2, 3)  # state widths the staged kernels are instantiated for
+MAX_M = 256  # smoothed paths per row of the staged K6 (per-path state in shared memory)
+MAX_K = 2048  # the wide kernels' class in K: the reference's (pallas_ffbsi.MAX_K)
 DESIGNS = ("staged", "path")  # K5's designs: the one the path runs, the previous one
 PATHS_PER_CTA = (1, 2, 4, 8)  # K5 staged: paths of one row a CTA serves
 K6_DESIGNS = ("staged", "row")  # K6's designs: the one the path runs, the previous one
 K6_PER = 4  # K6 staged: consecutive particles a thread owns
 K6_CHUNK = 256 * K6_PER  # K6 staged: particles a pass covers (longer rows go in chunks)
 K6_GROUP = 8  # K6 staged: paths whose logits a thread holds at once
+K6_WIDE_PER_SM = 2  # K6 wide: CTAs an SM its grid holds (its residency at Lorenz-96's width)
+_C_KERNELS = ("staged", "path", "wide")  # K5's kernels by their C design index
+_C_K6_KERNELS = ("staged", "row", "wide")  # K6's kernels by their C design index
 _THREADS = 256
 _STATIC_SMEM = 24576  # K5 staged: bytes kept for its static shared memory (the lse window)
 
 
-def usable(dx: int, m: int, f_tril: bool = False) -> bool:
-    """Whether a sweep of Dx = dx with m smoothed paths is in K5/K6's class;
-    a model with controls too (the support terms r, mr and c take them, so
-    the kernels read none), but not, as the reference's gate
+def usable(dx: int, m: int, k: int, f_tril: bool = False) -> bool:
+    """Whether a sweep of Dx = dx with m smoothed paths over k particles is
+    in K5/K6's class: the staged kernels' (Dx in `KERNEL_DX`,
+    1 <= m <= `MAX_M`, any K), or the wide kernels' (the
+    reference's class, `pallas_ffbsi.py:51-63`: any Dx up to K6's shared
+    memory, `k6_wide_chunk`; m a multiple of 8; K up to `MAX_K`). A model
+    with controls too (the support terms r, mr and c take them, so the
+    kernels read none), but not, as the reference's gate
     (`pallas_ffbsi.py:58`), a full-covariance transition (`f_tril`: cov_type
     "tril" or "tril_head" on f), whose pairwise density is not the diagonal
     r/mr/c form."""
-    return not f_tril and dx in KERNEL_DX and 1 <= m <= MAX_M
+    if f_tril:
+        return False
+    if dx in KERNEL_DX and 1 <= m <= MAX_M:
+        return True
+    return dx >= 1 and k6_wide_chunk(dx) > 0 and m >= 8 and m % 8 == 0 and 1 <= k <= MAX_K
+
+
+def staged_kernel(dx: int, m: int, backward: bool = False) -> str:
+    """Which kernel the staged design (the path's) launches for K5, or with
+    `backward` for K6: "staged" at Dx in `KERNEL_DX` (K6: and m <= `MAX_M`),
+    else "wide"."""
+    return "staged" if dx in KERNEL_DX and (not backward or m <= MAX_M) else "wide"
+
+
+def k6_wide_chunk(dx: int) -> int:
+    """Particles a chunk of K6 wide's per-particle pass covers (its `chunk`
+    argument): the widest of 256, 128, 64 and 32 whose [2 Dx][chunk] float
+    sums fit a CTA's shared memory; 0 where none does (Dx > 908)."""
+    kc = _THREADS
+    while kc >= 32 and 8 * dx * kc > SMEM_LIMIT:
+        kc //= 2
+    return kc if kc >= 32 else 0
+
+
+def k6_wide_ctas(t_len: int, batch: int, n_sms: int) -> int:
+    """CTAs of K6 wide's persistent grid: one a (t, b) row up to
+    `K6_WIDE_PER_SM` an SM. Its scratch is [ctas, M, K + 2 + Dx] floats (at
+    Lorenz-96, M = 16, K = 1024, on 132 SMs: 18.0 MB), whatever T and B."""
+    return max(1, min(t_len * batch, K6_WIDE_PER_SM * n_sms))
 
 
 def k5_paths(batch: int, m: int, n_sms: int) -> int:
@@ -110,7 +157,10 @@ def k5_slots(dx: int, k: int, p: int) -> int:
 
 def k5_smem_bytes(dx: int, k: int, p: int) -> int:
     """Dynamic shared memory of K5's staged design at K = k: `k5_slots`
-    slots of a `k5_chunk` chunk."""
+    slots of a `k5_chunk` chunk; off `KERNEL_DX` the wide kernel's, the P
+    paths' queries and their squares."""
+    if dx not in KERNEL_DX:
+        return 4 * 2 * p * dx
     return k5_slots(dx, k, p) * _slot_bytes(dx, min(k5_chunk(dx, k, p), k), p)
 
 
@@ -166,16 +216,20 @@ def _sweep_step(x, xs, r, mr, c, lwn, lg, logp, logq, *, idx=None, gum=None):
     return _gather_paths(xs, idx), logp, logq, idx
 
 
-def _check_sweep(x_anchor, xs, r, mr, c, lwn, lg, what):
-    """Shapes, type, device and contiguity of a sweep's operands; returns
-    (T−1, B, M, Dx, K)."""
+def _check_sweep(x_anchor, xs, r, mr, c, lwn, lg, what, previous=False):
+    """Shapes, type, device and contiguity of a sweep's operands, in the
+    class of the staged design (its wide kernels included) or, with
+    `previous`, of the previous designs; returns (T−1, B, M, Dx, K)."""
     if xs.dim() != 4 or x_anchor.dim() != 3:
         raise ValueError(f"{what}: xs must be [T-1, B, Dx, K] and x_anchor [B, M, Dx]")
     t_len, batch, dx, k = xs.shape
     m = x_anchor.shape[1]
-    if not usable(dx, m) or t_len < 1:
-        raise ValueError(f"{what}: no kernel for Dx={dx}, M={m}, T-1={t_len} "
-                         f"(Dx in {KERNEL_DX}, 1 <= M <= {MAX_M})")
+    ok = (dx in KERNEL_DX and m <= MAX_M) if previous else (dx in KERNEL_DX
+                                                            or k6_wide_chunk(dx) > 0)
+    if not ok or m < 1 or t_len < 1:
+        raise ValueError(f"{what}: no kernel for Dx={dx}, M={m}, T-1={t_len} (the staged "
+                         f"design: any M >= 1 and Dx up to 908; the previous designs: Dx in "
+                         f"{KERNEL_DX}, M <= {MAX_M})")
     dev = x_anchor.device
     _require(x_anchor, (batch, m, dx), "x_anchor", dev)
     for t, name in ((xs, "xs"), (r, "r"), (mr, "mr")):
@@ -214,7 +268,8 @@ def ffbsi_forward(x_anchor, xs, r, mr, c, lwn, lg, gum, design: str = "staged"):
     logq, xtilde, sel). CPU tensors run the plain version; CUDA tensors
     launch the kernel of `design` ("staged", the default and the only one
     the path runs: a CTA serves `k5_paths` paths of a row from operands
-    staged a chunk ahead in shared memory; "path", the previous design, one
+    staged a chunk ahead in shared memory, or off `KERNEL_DX` from device
+    memory in the wide kernel (`staged_kernel`); "path", the previous design, one
     CTA a path, kept as its yardstick), or raise for a shape outside its
     class. It takes no gradient itself: differentiate through
     `FFBSiSweep`."""
@@ -225,11 +280,12 @@ def ffbsi_forward(x_anchor, xs, r, mr, c, lwn, lg, gum, design: str = "staged"):
     if x_anchor.device.type != "cuda":
         raise ValueError(f"ffbsi_forward: unsupported device {x_anchor.device}")
     t_len, batch, m, dx, k = _check_sweep(x_anchor, xs, r, mr, c, lwn, lg,
-                                          f"ffbsi_forward ({design})")
+                                          f"ffbsi_forward ({design})", design != "staged")
     dev = x_anchor.device
     _require(gum, (t_len, batch, m, k), "gum", dev)
     p = k5_paths(batch, m, torch.cuda.get_device_properties(dev).multi_processor_count)
     chunk = k5_chunk(dx, k, p)
+    kernel = staged_kernel(dx, m) if design == "staged" else design
     f32 = dict(dtype=torch.float32, device=dev)
     x_first = torch.empty((batch, m, dx), **f32)
     logp = torch.empty((batch, m), **f32)
@@ -241,7 +297,7 @@ def ffbsi_forward(x_anchor, xs, r, mr, c, lwn, lg, gum, design: str = "staged"):
         x_anchor.data_ptr(), xs.data_ptr(), r.data_ptr(), mr.data_ptr(), c.data_ptr(),
         lwn.data_ptr(), lg.data_ptr(), gum.data_ptr(), x_first.data_ptr(), logp.data_ptr(),
         logq.data_ptr(), xtilde.data_ptr(), sel.data_ptr(), batch, m, k, t_len, dx,
-        DESIGNS.index(design), p, chunk, torch.cuda.current_stream(dev).cuda_stream,
+        _C_KERNELS.index(kernel), p, chunk, torch.cuda.current_stream(dev).cuda_stream,
     )
     ffbsi_forward.launches += 1
     ffbsi_forward.launches_by_design[design] += 1
@@ -302,7 +358,12 @@ def k6_smem_bytes(dx: int, m: int, k: int) -> int:
     (at most K6_CHUNK; rows rounded up to 4), the queries, three cotangent
     blocks [M][Dx], d logp, d logq and two rows of selections; two buffers
     for whole rows (K <= K6_CHUNK), one for chunked ones; then the paths'
-    sums, d_q, cotangents, the picks' floors and the reduction scratch."""
+    sums, d_q, cotangents, the picks' floors and the reduction scratch.
+    Where the staged design runs the wide kernel (`staged_kernel`), that
+    kernel's [2 Dx][`k6_wide_chunk`] float sums."""
+    if staged_kernel(dx, m, backward=True) == "wide":
+        return 8 * dx * k6_wide_chunk(dx)
+
     def up4(n):
         return (n + 3) // 4 * 4
 
@@ -319,7 +380,8 @@ def ffbsi_backward(x_anchor, xs, r, mr, c, lwn, lg, sel, xtilde, d_x_first=None,
     selections sel and trajectories xtilde. Cotangents and outputs as
     `ffbsi_backward_reference`, which CPU tensors run; CUDA tensors launch
     the kernel of `design` ("staged", the default and the only one the path
-    runs; "row", the previous design, one CTA per (t, b) with three passes
+    runs, the wide kernel off the staged kernels' shapes: `staged_kernel`;
+    "row", the previous design, one CTA per (t, b) with three passes
     of the pair, kept as its yardstick). The kernel reads x_anchor, xtilde,
     sel, r, mr, c and lwn; of xs and lg only the shapes. Without d_logp and
     d_logq no pair carries a cotangent, and the kernel only scatters the
@@ -334,7 +396,7 @@ def ffbsi_backward(x_anchor, xs, r, mr, c, lwn, lg, sel, xtilde, d_x_first=None,
     if x_anchor.device.type != "cuda":
         raise ValueError(f"ffbsi_backward: unsupported device {x_anchor.device}")
     t_len, batch, m, dx, k = _check_sweep(x_anchor, xs, r, mr, c, lwn, lg,
-                                          f"ffbsi_backward ({design})")
+                                          f"ffbsi_backward ({design})", design != "staged")
     dev = x_anchor.device
     _require(sel, (t_len, batch, m), "sel", dev, torch.int32)
     _require(xtilde, (t_len, batch, m, dx), "xtilde", dev)
@@ -350,13 +412,20 @@ def ffbsi_backward(x_anchor, xs, r, mr, c, lwn, lg, sel, xtilde, d_x_first=None,
     d_mr = torch.empty(xs.shape, **f32) if need_mr else None
     d_c, d_lwn, d_lg = (torch.empty(c.shape, **f32) if need else None
                         for need in (need_c, need_lwn, need_lg))
+    kernel = staged_kernel(dx, m, backward=True) if design == "staged" else design
+    work, ctas, chunk = None, 0, 0  # K6 wide: its scratch, grid and pass-B chunk
+    if kernel == "wide":
+        ctas = k6_wide_ctas(t_len, batch, torch.cuda.get_device_properties(dev).multi_processor_count)
+        chunk = k6_wide_chunk(dx)
+        if d_logp is not None or d_logq is not None:  # per CTA and path: pairs, (max, sum), d_q
+            work = torch.empty((ctas * m * (k + 2 + dx),), **f32)
     lib = _build.load_library()
     err = lib.psvo_ffbsi_backward(
         x_anchor.data_ptr(), xtilde.data_ptr(), sel.data_ptr(), r.data_ptr(), mr.data_ptr(),
         c.data_ptr(), lwn.data_ptr(), _ptr(d_x_first), _ptr(d_logp), _ptr(d_logq),
         _ptr(d_xtilde), d_anchor.data_ptr(), d_xs.data_ptr(), _ptr(d_r), _ptr(d_mr), _ptr(d_c),
-        _ptr(d_lwn), _ptr(d_lg), batch, m, k, t_len, dx, K6_DESIGNS.index(design),
-        torch.cuda.current_stream(dev).cuda_stream,
+        _ptr(d_lwn), _ptr(d_lg), _ptr(work), ctas, chunk, batch, m, k, t_len, dx,
+        _C_K6_KERNELS.index(kernel), torch.cuda.current_stream(dev).cuda_stream,
     )
     ffbsi_backward.launches += 1
     ffbsi_backward.launches_by_design[design] += 1

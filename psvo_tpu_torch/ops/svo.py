@@ -47,6 +47,15 @@ Each wrapper carries a launch count (`<wrapper>.launches`), raised only where
 the kernel is launched (also by design, `.launches_by_design`); each plain
 version a call count (`.calls`).
 
+The class (`usable`) is the reference's SVO gate's (`pallas_svo.py:104-140`)
+at widths up to 64: any (Dx, Dy) with Dx + Dy <= 7 and max(Dx + Di, Dy) <=
+7, uniform relu widths 8..64 in steps of 8, any depth whose split-design
+tiles fit a CTA. The kernels' library holds both designs at the presets'
+shapes (`KERNEL_DIMS` x `HIDDEN_WIDTHS`); any other shape launches the split
+designs from a shape library built on first use (`lib_key`,
+`_build.load_shape_library`). The chain designs stay yardsticks at the
+presets' shapes.
+
 Controls (data.di > 0). The reference feeds u_{t+1} to f as extra input
 rows of x̃_t (`pallas_svo.py:602-617`). Here, as K1 does with q1 and f
 (`fused_step.control_term`), u_{t+1}, the same for the M paths of a row, is
@@ -86,16 +95,20 @@ from psvo_tpu_torch.ops import _build
 from psvo_tpu_torch.ops.fused_step import (
     MAX_STATE_AND_CONTROLS, SMEM_LIMIT, _ptr, _require, _unpack_net, control_term, pack_heads,
 )
+from psvo_tpu_torch.ops.fused_step import HIDDEN_WIDTHS as CLASS_WIDTHS
 
-# K12/K13's own class, narrower than the whole-step kernels' (fused_step's class: any
-# max(Dx + Di, Dy) <= 7, widths 8..64): the shapes svo_sweep.cu instantiates (ROADMAP
-# queue 2 B.4)
-HIDDEN_WIDTHS = (16, 32, 64)  # uniform qb/f/g widths instantiated
-KERNEL_DIMS = ((2, 2), (3, 3))  # (Dx, Dy) instantiated: FitzHugh-Nagumo, Lorenz-63
+# The shapes the kernels' library instantiates, both designs (csrc/svo_sweep.cuh::kPrebuilt);
+# every other shape of the class (`usable`: the reference's, widths CLASS_WIDTHS = 8..64 in
+# steps of 8) is built on first use into a shape library of the split designs (`lib_key`)
+HIDDEN_WIDTHS = (16, 32, 64)  # uniform qb/f/g widths in the kernels' library
+KERNEL_DIMS = ((2, 2), (3, 3))  # (Dx, Dy) in the kernels' library: FitzHugh-Nagumo, Lorenz-63
+MAX_DX_PLUS_DY = 7  # the reference's gate (pallas_svo.py:126): [x; y; ones] in one 8-row tile
 
-MAX_M = 1024  # smoothed paths per row (the flattened B·M paths have no limit of their own)
+MAX_M = 4096  # smoothed paths per row: the most K12/K13 were held to their plain versions at
+# on the card (chip_smoke.py phase bg (a)); paths enter the kernels only as rows of CTA groups,
+# and the reference has no cap (ROADMAP lists this one)
 _NETS = ("qb", "f", "g")
-_THREADS = 256  # K12/K13 CTA: 256 / hidden paths, one thread per hidden unit
+_THREADS = 256  # K12/K13 CTA: K12's chain gives a path `chain_group(h)` threads
 
 
 def n_sc(dx: int, dy: int) -> int:
@@ -105,11 +118,65 @@ def n_sc(dx: int, dy: int) -> int:
 
 DESIGNS = ("split", "chain")  # K13's designs: the one the path runs, the previous one
 K12_DESIGNS = ("split", "chain")  # K12's designs: the one the path runs, the previous one
-_ROW_FLOATS = 56  # per tile row of the split design (csrc/svo_sweep.cu::kRowFloats)
 
 
 def _r4(n: int) -> int:
     return (n + 3) // 4 * 4
+
+
+def vector_floats(dx: int, dy: int) -> int:
+    """Floats a small per-row vector (x~, ε, a mean, u, y) takes in the split
+    designs' tiles: 4 while Dx and Dy are at most 4, else 8
+    (csrc/svo_sweep.cuh::RowLayout::VS)."""
+    return 4 if dx <= 4 and dy <= 4 else 8
+
+
+def row_floats(dx: int, dy: int) -> int:
+    """Floats per tile row of K13's split design (RowLayout::floats): qin 8,
+    six vectors of `vector_floats`, J_t (Dx², at least 12) and the sc terms
+    (2·Dx + Dy + 3, at least 12), each rounded up to 4: 56 at Dx, Dy <= 3."""
+    return (8 + 6 * vector_floats(dx, dy) + max(12, _r4(dx * dx))
+            + max(12, _r4(2 * dx + dy + 3)))
+
+
+def chain_group(h: int) -> int:
+    """Threads of one path in K12's chain (csrc/svo_sweep.cuh::chain_group):
+    h at widths 16, 32 and 64; else padded so that groups tile the warps (8,
+    32 up to 32, 64 above)."""
+    return 8 if h <= 8 else 16 if h <= 16 else 32 if h <= 32 else 64
+
+
+def _tile_rows(h: int) -> int:
+    """The most rows of a tile of the split designs: 4096 / h (one 4 x 4
+    block of a hidden layer per thread), rounded down to a multiple of 4."""
+    return 4096 // h // 4 * 4
+
+
+def _halve(rows: int) -> int:
+    return rows // 2 // 4 * 4
+
+
+def in_class(dx: int, dy: int, di: int, h: int) -> bool:
+    """Whether (Dx, Dy, Di, uniform width h) is in the reference's SVO kernel
+    class (`pallas_svo.usable`, pallas_svo.py:104-140): Dx + Dy <= 7,
+    max(Dx + Di, Dy) <= 7, h a multiple of 8; the port's widths stop at 64
+    (`CLASS_WIDTHS`: the hole shared with every kernel family)."""
+    return (dx >= 1 and dy >= 1 and dx + dy <= MAX_DX_PLUS_DY
+            and max(dx + di, dy) <= MAX_STATE_AND_CONTROLS and h in CLASS_WIDTHS)
+
+
+def lib_key(dx: int, dy: int, h: int) -> tuple | None:
+    """The shape library K12/K13 launch from at (Dx, Dy, h): None for the
+    kernels' library's shapes, else ("svo", dx, dy, h)
+    (`_build.load_shape_library`)."""
+    if (dx, dy) in KERNEL_DIMS and h in HIDDEN_WIDTHS:
+        return None
+    return ("svo", dx, dy, h)
+
+
+def _library(dx: int, dy: int, h: int):
+    key = lib_key(dx, dy, h)
+    return _build.load_library() if key is None else _build.load_shape_library(key)
 
 
 def _padded_floats(din: int, dout: int, h: int, n_mid: int) -> int:
@@ -121,8 +188,9 @@ def _padded_floats(din: int, dout: int, h: int, n_mid: int) -> int:
 
 def k12_max_paths(h: int) -> int:
     """The most paths one CTA of K12's split design holds: its 256 threads,
-    h a path (one hidden unit a thread; csrc/svo_sweep.cu::path_sync)."""
-    return _THREADS // h
+    `chain_group(h)` a path (one hidden unit a thread;
+    csrc/svo_sweep.cuh::path_sync)."""
+    return _THREADS // chain_group(h)
 
 
 def k12_smem_bytes(dx: int, dy: int, h: int, n_mid: int, paths: int, rows: int,
@@ -130,53 +198,59 @@ def k12_smem_bytes(dx: int, dy: int, h: int, n_mid: int, paths: int, rows: int,
     """Dynamic shared memory of K12's split design
     (csrc/svo_sweep.cu::fwd_split_smem_floats): qb in the packed layout, f and
     g with every row of an h-wide matrix padded to h + 4 floats, two hidden
-    vectors of h floats and x̃ (4 floats) per chain slot (`paths` rounded up
-    to whole warps), f's and g's two hidden layers (stride h + 4) and means
-    (4 floats) for a tile of `rows` rows, and 18 floats for each of `steps`
-    x `paths` chain rows, rounded up to 4 rows."""
-    slots = -(-paths * h // 32) * 32 // h
+    vectors of h floats and x̃ (`vector_floats`) per chain slot (`paths`
+    rounded up to whole warps), f's and g's two hidden layers (stride h + 4)
+    and means for a tile of `rows` rows, and four vectors and 2 floats for
+    each of `steps` x `paths` chain rows, rounded up to 4 rows."""
+    hg, vs = chain_group(h), vector_floats(dx, dy)
+    slots = -(-paths * hg // 32) * 32 // hg
     qb = _r4((dx + dy) * h + h + n_mid * (h * h + h) + h * dx + dx)
     return 4 * (qb + _padded_floats(dx, dx, h, n_mid) + _padded_floats(dx, dy, h, n_mid)
-                + slots * (2 * h + 4) + 4 * rows * (h + 4) + 8 * rows + 18 * _r4(steps * paths))
+                + slots * (2 * h + vs) + 4 * rows * (h + 4) + 2 * vs * rows
+                + (4 * vs + 2) * _r4(steps * paths))
 
 
 def k12_plan(dx: int, dy: int, h: int, n_mid: int, n_paths: int, n_sms: int,
              t1: int) -> tuple[int, int, int] | None:
     """(paths a CTA, rows a tile of the parallel pass, steps a chunk) of
     K12's split design: the fewest paths a CTA whose CTAs fill the SMs in one
-    wave (at most `k12_max_paths`); 4096 / h rows (one 4 x 4 block of a hidden
-    layer per thread), halved until one chunk step fits, at least 16; then
-    as many steps as fit, at most T − 1. None where even that does not
-    fit."""
+    wave (at most `k12_max_paths`); `_tile_rows(h)` rows (one 4 x 4 block of a
+    hidden layer per thread), halved (to multiples of 4) until one chunk step
+    fits, at least 16; then as many steps as fit, at most T − 1. None where
+    even that does not fit."""
     paths = max(1, min(k12_max_paths(h), -(-n_paths // n_sms)))
-    rows = 4096 // h
+    rows = _tile_rows(h)
     while rows >= 16 and k12_smem_bytes(dx, dy, h, n_mid, paths, rows, 1) > SMEM_LIMIT:
-        rows //= 2
+        rows = _halve(rows)
     if rows < 16:
         return None
     fixed = k12_smem_bytes(dx, dy, h, n_mid, paths, rows, 0)
-    steps = min(t1, (SMEM_LIMIT - fixed) // 72 // 4 * 4 // paths)
+    per_row = 4 * (4 * vector_floats(dx, dy) + 2)
+    steps = min(t1, (SMEM_LIMIT - fixed) // per_row // 4 * 4 // paths)
     return (paths, rows, steps) if steps >= 1 else None
 
 
 def k12_ok(dx: int, dy: int, h: int, n_mid: int) -> bool:
-    """Whether K12's split design is instantiated for the shape and holds
-    its largest CTA (`k12_max_paths` paths, a 16-row tile, one step a chunk)
-    in shared memory, so `k12_plan` finds a plan for any B, M and T."""
-    return ((dx, dy) in KERNEL_DIMS and h in HIDDEN_WIDTHS
+    """Whether K12's split design takes the shape (in the class of
+    `in_class` at Di = 0) and holds its largest CTA (`k12_max_paths` paths, a
+    16-row tile, one step a chunk) in shared memory, so `k12_plan` finds a
+    plan for any B, M and T."""
+    return (in_class(dx, dy, 0, h)
             and k12_smem_bytes(dx, dy, h, n_mid, k12_max_paths(h), 16, 1) <= SMEM_LIMIT)
 
 
 def k13_smem_bytes(dx: int, dy: int, h: int, n_mid: int, n_weights: int, design: str = "split",
-                   rows: int | None = None) -> int:
+                   rows: int | None = None, sums: bool | None = None) -> int:
     """Dynamic shared memory of K13 (csrc/svo_sweep.cu). "split"
     (split_smem_floats): the three nets with every row of an h-wide matrix
     padded to h + 4 floats, the CTA's gradient sums, qb's and f's (then g's)
     n_mid + 1 hidden layers and one scratch layer of `rows` tile rows at a
-    stride of h + 4, and 56 floats per row (rows: `k13_tile_rows`'s, or 16
-    where none fits). "chain" (launch_backward): the weights, transposed
-    copies of the first and middle layers, the CTA's gradient sums and
-    256 / h paths' buffers."""
+    stride of h + 4, and `row_floats` floats per row (rows:
+    `k13_tile_rows`'s, or 16 where none fits); the gradient sums too unless
+    `sums` is False (None: with `rows` None the plan's placement,
+    `k13_sums_in_memory`, else True). "chain" (launch_backward):
+    the weights, transposed copies of the first and middle layers, the CTA's
+    gradient sums and 256 / h paths' buffers."""
     if design == "chain":
         nt = (dx + dy) * h + 2 * dx * h + 3 * n_mid * h * h
         paths = _THREADS // h * (80 + 6 * (n_mid + 1) * h)
@@ -185,22 +259,38 @@ def k13_smem_bytes(dx: int, dy: int, h: int, n_mid: int, n_weights: int, design:
         raise ValueError(f"K13 has no design {design!r} (one of {DESIGNS})")
     if rows is None:
         rows = k13_tile_rows(dx, dy, h, n_mid, n_weights) or 16
+        if sums is None:
+            sums = not k13_sums_in_memory(dx, dy, h, n_mid, n_weights, rows)
 
     nets = (_padded_floats(dx + dy, dx, h, n_mid) + _padded_floats(dx, dx, h, n_mid)
             + _padded_floats(dx, dy, h, n_mid))
     layers = (2 * (n_mid + 1) + 1) * rows * (h + 4)
-    return 4 * (nets + _r4(n_weights + n_sc(dx, dy)) + layers + _ROW_FLOATS * rows)
+    tile = 4 * (nets + layers + row_floats(dx, dy) * rows)
+    return tile + (4 * _r4(n_weights + n_sc(dx, dy)) if sums is not False else 0)
+
+
+def k13_sums_in_memory(dx: int, dy: int, h: int, n_mid: int, n_weights: int, rows: int) -> bool:
+    """Whether K13's split design keeps its gradient sums in the CTA's row of
+    the `partial` scratch (device memory) rather than shared memory: where
+    they do not fit beside a tile of `rows` rows (csrc/svo_sweep.cuh::
+    split_sums_global; deep nets at width 64). The same sums in the same
+    order either way."""
+    return k13_smem_bytes(dx, dy, h, n_mid, n_weights, "split", rows, sums=True) > SMEM_LIMIT
 
 
 def k13_tile_rows(dx: int, dy: int, h: int, n_mid: int, n_weights: int) -> int | None:
-    """Rows of a tile of K13's split design: 4096 / h (one 4 x 4 block of a
-    hidden layer per thread), halved until its shared memory fits a CTA,
-    at least 16; None where even 16 do not fit."""
-    rows = 4096 // h
-    while rows >= 16:
-        if k13_smem_bytes(dx, dy, h, n_mid, n_weights, "split", rows) <= SMEM_LIMIT:
-            return rows
-        rows //= 2
+    """Rows of a tile of K13's split design: `_tile_rows(h)` (one 4 x 4
+    block of a hidden layer per thread; its 256 threads cover a tile's layer
+    once), halved (to multiples of 4) until the tile and the gradient sums
+    fit a CTA's shared memory, at least 16; where even 16 do not, the same
+    with the sums in device memory (`k13_sums_in_memory`); None where even
+    that does not fit."""
+    for sums in (True, False):
+        rows = _tile_rows(h)
+        while rows >= 16:
+            if k13_smem_bytes(dx, dy, h, n_mid, n_weights, "split", rows, sums) <= SMEM_LIMIT:
+                return rows
+            rows = _halve(rows)
     return None
 
 
@@ -212,14 +302,15 @@ def k13_paths(n_paths: int, n_sms: int, rows: int) -> int:
 
 
 def k13_ok(dx: int, dy: int, h: int, n_mid: int, n_weights: int, design: str = "split") -> bool:
-    """Whether K13's `design` is instantiated for the shape: (Dx, Dy) and the
-    width instantiated, and its shared memory in one CTA."""
+    """Whether K13's `design` takes the shape: the split design any shape of
+    the class (`in_class` at Di = 0) whose tile fits a CTA; the chain design,
+    kept as its yardstick, the kernels' library's shapes whose buffers fit."""
     if design not in DESIGNS:
         raise ValueError(f"K13 has no design {design!r} (one of {DESIGNS})")
+    if design == "split":
+        return in_class(dx, dy, 0, h) and k13_tile_rows(dx, dy, h, n_mid, n_weights) is not None
     if (dx, dy) not in KERNEL_DIMS or h not in HIDDEN_WIDTHS:
         return False
-    if design == "split":
-        return k13_tile_rows(dx, dy, h, n_mid, n_weights) is not None
     return k13_smem_bytes(dx, dy, h, n_mid, n_weights, "chain") <= SMEM_LIMIT
 
 
@@ -232,33 +323,45 @@ def _n_weights(dx: int, dy: int, h: int, n_mid: int) -> int:
 
 
 def usable(ssm, m: int) -> bool:
-    """Whether SVO's sweep for (ssm, m smoothed paths) is in K12/K13's class:
-    qb, f and g constant-diagonal relu MLPs of one uniform hidden width in
-    `HIDDEN_WIDTHS` (this module's) whose K13 buffers fit a CTA's shared memory in
-    both designs, and K12's split design's (`k12_ok`; both split designs
-    fit every shape the chain designs do, so the class is the chain
-    designs', as before the splits); (Dx, Dy) in {(2, 2), (3, 3)}; controls
-    while Dx + Di <= 7 (the reference's gate, `pallas_svo.py:122`); a
-    Gaussian emission; no qb GRU or known dynamics; 1 <= m <= MAX_M.
-    Bootstrap mode is in the class, as in the reference's gate: the sweep
-    reads q_b, f and g, never the forward proposal."""
+    """Whether SVO's sweep for (ssm, m smoothed paths) is in K12/K13's class,
+    the split designs' (the chain designs are yardsticks at the kernels'
+    library's shapes): qb, f and g constant-diagonal relu MLPs of one
+    uniform hidden width, (Dx, Dy, Di, width) in the reference's class
+    (`in_class`: Dx + Dy <= 7, max(Dx + Di, Dy) <= 7, widths 8..64) at any
+    depth whose K13 tile and K12 chunk fit a CTA's shared memory (`k13_ok`,
+    `k12_ok`); a Gaussian emission; no qb GRU or known dynamics; 1 <= m <=
+    MAX_M. Bootstrap mode is in the class, as in the reference's gate: the
+    sweep reads q_b, f and g, never the forward proposal."""
+    return _outside(ssm, m) is None
+
+
+def _outside(ssm, m: int) -> str | None:
+    """None where `usable`, else what keeps the sweep out of the class."""
     hidden = ssm.nets["qb"].hidden
-    if not (len(hidden) >= 1 and hidden[0] in HIDDEN_WIDTHS
-            and all(h == hidden[0] for h in hidden)):
-        return False
+    if not (len(hidden) >= 1 and all(h == hidden[0] for h in hidden)
+            and all(ssm.nets[n].hidden == hidden and ssm.nets[n].activation == "relu"
+                    and ssm.nets[n].cov_type == "const" for n in _NETS)):
+        return "qb, f and g as constant-scale relu MLPs of one uniform width"
+    if ssm.qb_rnn or ssm.transition_known:
+        return "a qb MLP and learned dynamics"
+    if ssm.emission not in ("linear_gaussian", "identity_gaussian"):
+        return "Gaussian emissions"
     h, n_mid = hidden[0], len(hidden) - 1
-    return (
-        (ssm.dx, ssm.dy) in KERNEL_DIMS
-        and 1 <= m <= MAX_M
-        and ssm.dx + ssm.di <= MAX_STATE_AND_CONTROLS
-        and not (ssm.qb_rnn or ssm.transition_known)
-        and ssm.emission in ("linear_gaussian", "identity_gaussian")
-        and all(ssm.nets[n].hidden == hidden and ssm.nets[n].activation == "relu"
-                and ssm.nets[n].cov_type == "const" for n in _NETS)
-        and all(k13_ok(ssm.dx, ssm.dy, h, n_mid, _n_weights(ssm.dx, ssm.dy, h, n_mid), d)
-                for d in DESIGNS)
-        and k12_ok(ssm.dx, ssm.dy, h, n_mid)
-    )
+    if not in_class(ssm.dx, ssm.dy, ssm.di, h):
+        return (f"widths {CLASS_WIDTHS[0]}..{CLASS_WIDTHS[-1]} in steps of 8 and Dx + Dy <= "
+                f"{MAX_DX_PLUS_DY}, max(Dx + Di, Dy) <= {MAX_STATE_AND_CONTROLS}")
+    if not 1 <= m <= MAX_M:
+        return f"1 <= M <= {MAX_M}"
+    if not (k13_ok(ssm.dx, ssm.dy, h, n_mid, _n_weights(ssm.dx, ssm.dy, h, n_mid))
+            and k12_ok(ssm.dx, ssm.dy, h, n_mid)):
+        return f"the depth whose K12/K13 tiles fit a CTA's shared memory at width {h}"
+    return None
+
+
+def cap_reached(ssm, m: int) -> str:
+    """The cap of K12/K13's class that (ssm, m) lies beyond, for the raise
+    of `objectives._require_cuda_sweep`; "" where `usable`."""
+    return _outside(ssm, m) or ""
 
 
 def prepare(ssm) -> dict:
@@ -350,14 +453,14 @@ def _sweep(nets, sc, dx, dy, x_anchor, eps, y, xtilde=None, cbias=None):
 def _check_sweep(x_anchor, eps, y, consts, what, design=None, cbias=None):
     """Shapes, type, device and contiguity of a sweep's operands (cbias, f's
     control bias, [T−1, B, H] or None), in the class of K13's `design`
-    (None: of both and K12's, `usable`'s class, which K12 takes); returns
+    (None: the split designs', `usable`'s class, which K12 takes); returns
     (T−1, B, M, Dx, Dy)."""
     if eps.dim() != 4 or x_anchor.dim() != 3:
         raise ValueError(f"{what}: eps must be [T-1, B, M, Dx] and x_anchor [B, M, Dx]")
     t_len, batch, m, dx = eps.shape
     dy, h, n_mid = consts["dy"], consts["hidden"], consts["n_mid"]
     n_w = consts["packed"].numel()
-    designs = DESIGNS if design is None else (design,)
+    designs = ("split",) if design is None else (design,)
     if (not 1 <= m <= MAX_M or t_len < 1 or consts["dx"] != dx
             or not all(k13_ok(dx, dy, h, n_mid, n_w, d) for d in designs)
             or (design is None and not k12_ok(dx, dy, h, n_mid))):
@@ -429,6 +532,9 @@ def _launch_forward(x_anchor, eps, y, consts, stream, design="split", n_sms=132,
     `plan` gives them."""
     t_len, batch, m, dx, dy = _check_sweep(x_anchor, eps, y, consts, "svo_sweep_forward",
                                            cbias=cbias)
+    if design == "chain" and lib_key(dx, dy, consts["hidden"]) is not None:
+        raise ValueError(f"svo_sweep_forward: no chain kernel for Dx={dx}, Dy={dy}, "
+                         f"hidden={consts['hidden']} (the kernels' library's shapes only)")
     f32 = dict(dtype=torch.float32, device=x_anchor.device)
     x_first = torch.empty((batch, m, dx), **f32)
     lp = torch.empty((batch, m), **f32)
@@ -438,7 +544,7 @@ def _launch_forward(x_anchor, eps, y, consts, stream, design="split", n_sms=132,
     if design == "split" and plan is None:
         plan = k12_plan(dx, dy, h, n_mid, batch * m, n_sms, t_len)
     paths, rows, steps = plan if design == "split" else (0, 0, 0)
-    lib = _build.load_library()
+    lib = _library(dx, dy, h)
     _, off_f, off_g = consts["offsets"]
     err = lib.psvo_svo_forward(
         x_anchor.data_ptr(), eps.data_ptr(), y.data_ptr(), consts["packed"].data_ptr(),
@@ -536,7 +642,7 @@ def _launch_backward(x_anchor, eps, y, consts, xtilde, d_x_first, d_lp, d_lq, d_
     n_row = n_w + n_sc(dx, dy)
     f32 = dict(dtype=torch.float32, device=dev)
     d_anchor = torch.empty(x_anchor.shape, **f32)
-    partial = torch.empty((max_ctas, n_row), **f32)
+    partial = torch.empty((max_ctas, _r4(n_row)), **f32)
     grads = torch.empty((n_row,), **f32)
     h, n_mid = consts["hidden"], consts["n_mid"]
     rows = k13_tile_rows(dx, dy, h, n_mid, n_w) if design == "split" else 0
@@ -545,7 +651,7 @@ def _launch_backward(x_anchor, eps, y, consts, xtilde, d_x_first, d_lp, d_lq, d_
     if cbias is not None:
         bias_part = torch.empty((t_len, batch, k13_bias_groups(m, paths), h), **f32)
         d_cbias = torch.empty((t_len, batch, h), **f32)
-    lib = _build.load_library()
+    lib = _library(dx, dy, h)
     _, off_f, off_g = consts["offsets"]
     err = lib.psvo_svo_backward(
         x_anchor.data_ptr(), eps.data_ptr(), y.data_ptr(), consts["packed"].data_ptr(),

@@ -119,7 +119,7 @@ def _fused_filter(ssm, generator, ys, cfg, *, cache, encoder_inputs, noise, cont
 def test_controlled_psvo_objective_matches_reference(bound):
     jcfg, tcfg = _configs("psvo", n_smoothing_particles=M, psvo_bound=bound)
     jssm, params, tssm = models(dataclasses.replace(jcfg, use_pallas=False), tcfg)
-    assert ffbsi.usable(tssm.dx, M, f_tril=tssm.f_tril)
+    assert ffbsi.usable(tssm.dx, M, tcfg.smc.n_particles, f_tril=tssm.f_tril)
     ys, u, key = observations(B, 6, dy=DX, seed=5), _controls(B, 6), jax.random.key(13)
     (want_loss, want), want_grads = _reference(jssm, jcfg, params, key, ys, u)
     got, got_grads = _port(tssm, tcfg, ys, u, psvo_noise(key, B, 6, DX, K, M))

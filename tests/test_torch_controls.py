@@ -421,7 +421,7 @@ def test_other_kernel_classes_refuse_controls():
     l96_wide = dataclasses.replace(l96, data=dataclasses.replace(l96.data, di=16))
     assert trunk.usable(SSM(l96), l96.smc) and trunk.usable(SSM(l96_ctrl), l96_ctrl.smc)
     assert not trunk.usable(SSM(l96_wide), l96_wide.smc)
-    assert ffbsi.usable(2, 16) and ffbsi.usable(3, 16)
+    assert ffbsi.usable(2, 16, 1024) and ffbsi.usable(3, 16, 1024)
     svo_cfg = PRESETS["lorenz63_svo_k256"]
     for di, want in ((0, True), (2, True), (4, True), (5, False)):
         cfg = dataclasses.replace(svo_cfg, data=dataclasses.replace(svo_cfg.data, di=di))

@@ -251,7 +251,8 @@ def test_scan_kernels_match_plain_at_lorenz_dims():
 
 def _sweep(dev, dx, b=4, m=8, k=128, t1=9, seed=0):
     """One sweep's operands on the card: support terms of a transition with
-    means near the support, normalized weights, Gumbels and anchors."""
+    means near the support, normalized weights, Gumbels and anchors (the
+    last step's particles m mod k)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     xs = torch.randn((t1, b, dx, k), generator=g, device=dev) * 8.0
     mean = xs + torch.randn(xs.shape, generator=g, device=dev)
@@ -261,7 +262,7 @@ def _sweep(dev, dx, b=4, m=8, k=128, t1=9, seed=0):
     lwn = torch.log_softmax(torch.randn((t1, b, k), generator=g, device=dev) * 2.0, dim=-1)
     lg = torch.randn((t1, b, k), generator=g, device=dev)
     u = torch.rand((t1, b, m, k), generator=g, device=dev).clamp_min(1e-30)
-    x_anchor = xs[-1, :, :, :m].transpose(1, 2).contiguous()
+    x_anchor = xs[-1][:, :, torch.arange(m, device=dev) % k].transpose(1, 2).contiguous()
     return [t.contiguous() for t in (x_anchor, xs, r, mean * r, c, lwn, lg, -torch.log(-torch.log(u)))]
 
 
@@ -386,8 +387,9 @@ def test_cuda_tensor_outside_the_k2_and_k6_classes_raises():
         fused_step.stream_noise((1, 2), 2, 2, 2, 7, dev)
     ops = _sweep(dev, 3)
     fwd = ffbsi.ffbsi_forward(*ops)
-    wide = (torch.zeros((4, 8, 4), device=dev), torch.zeros((9, 4, 4, 128), device=dev))
-    for design in ffbsi.K6_DESIGNS:  # Dx = 4: not instantiated
+    # the row design at Dx = 4 (not instantiated), the staged one past K6 wide's shared memory
+    for design, dx in zip(ffbsi.K6_DESIGNS, (909, 4)):
+        wide = (torch.zeros((4, 8, dx), device=dev), torch.zeros((9, 4, dx, 128), device=dev))
         with pytest.raises(ValueError, match=f"ffbsi_backward \\({design}\\): no kernel"):
             ffbsi.ffbsi_backward(*wide, *ops[2:7], fwd[4], fwd[3], design=design)
     with pytest.raises(ValueError, match="sel"):
@@ -397,8 +399,9 @@ def test_cuda_tensor_outside_the_k2_and_k6_classes_raises():
 def test_cuda_tensor_outside_the_ffbsi_class_raises():
     dev = _cuda()
     ops = _sweep(dev, 3)
-    wide = (torch.zeros((4, 8, 4), device=dev), torch.zeros((9, 4, 4, 128), device=dev))
-    for design in ffbsi.DESIGNS:  # Dx = 4: not instantiated
+    # the path design at Dx = 4 (not instantiated), the staged one past K6 wide's shared memory
+    for design, dx in zip(ffbsi.DESIGNS, (909, 4)):
+        wide = (torch.zeros((4, 8, dx), device=dev), torch.zeros((9, 4, dx, 128), device=dev))
         with pytest.raises(ValueError, match=f"ffbsi_forward \\({design}\\): no kernel"):
             ffbsi.ffbsi_forward(*wide, *ops[2:], design=design)
     with pytest.raises(ValueError, match="gum"):
@@ -839,9 +842,9 @@ def test_cuda_tensor_outside_the_svo_class_runs_the_eager_sweep():
     with pytest.raises(ValueError, match="x_anchor"):  # eps holds 4 paths per row, not 8
         svo.svo_sweep_forward(ops[0], ops[1][:, :, :4].contiguous(), ops[2], consts)
     xtilde = svo.svo_sweep_forward(*ops, consts)[3]
-    for design in svo.DESIGNS:  # a width that is not instantiated
+    for design in svo.DESIGNS:  # a width outside the class (above 64)
         with pytest.raises(ValueError, match=f"no {design} kernel"):
-            svo.svo_sweep_backward(*ops, dict(consts, hidden=48), xtilde, design=design)
+            svo.svo_sweep_backward(*ops, dict(consts, hidden=72), xtilde, design=design)
 
 
 def test_cuda_svo_train_step_launches_the_four_kernels():
@@ -1978,8 +1981,8 @@ def test_cuda_bootstrap_svo_runs_k12_as_its_eager_sweep_would():
 
 def test_cuda_sweep_the_port_has_no_class_for_raises_up_front():
     """Where the reference runs its sweep kernel and the port's class does not
-    reach (SVO at (Dx, Dy) = (4, 3) with M = 32: K12 is not built there; PSVO
-    on Lorenz-96 at K = 1024: K5 takes Dx in {2, 3}), the objective raises
+    reach (SVO at width 72, M = 32: K12/K13 stop at 64; PSVO at Dx = 912, K =
+    128, M = 8: K6 wide's sums stop at Dx = 908), the objective raises
     NotImplementedError naming the class before the forward filter launches
     anything."""
     from psvo_tpu_torch.objectives import make_objective
@@ -1987,14 +1990,15 @@ def test_cuda_sweep_the_port_has_no_class_for_raises_up_front():
     from psvo_tpu_torch.ops import trunk
 
     dev = _cuda()
-    svo_cfg = PRESETS["lorenz63_svo_k256"]
-    svo_cfg = dataclasses.replace(svo_cfg, data=dataclasses.replace(svo_cfg.data, dx=4),
+    net = NetConfig(hidden=(72, 72))
+    svo_cfg = PRESETS["lorenz63_svo_k256"].with_nets(qb=net, f=net, g=net)
+    svo_cfg = dataclasses.replace(svo_cfg,
                                   smc=dataclasses.replace(svo_cfg.smc, n_smoothing_particles=32))
-    l96 = PRESETS["lorenz96_fivo_k8192_sharded"]
-    l96 = dataclasses.replace(l96, smc=dataclasses.replace(
-        l96.smc, objective="psvo", n_particles=1024, n_smoothing_particles=16))
+    wide = PRESETS["lorenz63_psvo_k1024"]
+    wide = dataclasses.replace(wide, data=dataclasses.replace(wide.data, dx=912), smc=dataclasses.replace(
+        wide.smc, n_particles=128, n_smoothing_particles=8))
     kernels = (fused_step.scan_forward, trunk.trunk_forward, rg.ancestor_indices_large)
-    for cfg, dy, match in ((svo_cfg, 3, "ops.svo.usable"), (l96, 40, "ops.ffbsi.usable")):
+    for cfg, dy, match in ((svo_cfg, 3, "ops.svo.usable"), (wide, 3, "ops.ffbsi.usable")):
         ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
         launches = [f.launches for f in kernels]
         with pytest.raises(NotImplementedError, match=match):
@@ -2522,7 +2526,7 @@ def test_dy1_psvo_train_step_runs_k1_k4_k5_k6():
     dev = _cuda()
     cfg = _class_cfg((48, 48), preset="lorenz63_psvo_k1024", k=256, t=8, dy=1)
     ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
-    assert fused_step.usable(ssm, cfg.smc) and ffbsi.usable(3, 16, False)
+    assert fused_step.usable(ssm, cfg.smc) and ffbsi.usable(3, 16, cfg.smc.n_particles, False)
     ys = torch.randn((4, 8, 1), generator=torch.Generator().manual_seed(2)).to(dev)
     kernels = (fused_step.scan_forward, fused_step.scan_backward, ffbsi.ffbsi_forward,
                ffbsi.ffbsi_backward, rg.ancestor_indices_large)
@@ -2724,3 +2728,165 @@ def test_trunk_kernels_beyond_the_library(preset, dx, dy, di, hidden, depth, rng
         assert _rel(a, w) <= 1e-4
     assert {d: trunk.trunk_backward.launches_by_design[d] - n for d, n in k10.items()} == {
         "tf32x3": 0, "simt": 2}
+
+
+# ---------------------------------------------------------------------------
+# the smoothing sweeps at the reference's reach: K5/K6's wide kernels (any Dx,
+# M past 256), K12/K13 over the reference's SVO class (shape libraries)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dx,b,m,k,t1", [(40, 4, 16, 1024, 9), (3, 2, 512, 1024, 5),
+                                         (4, 8, 4096, 2048, 3)])
+def test_wide_ffbsi_kernels_match_plain(dx, b, m, k, t1):
+    """K5 (the wide kernel at Dx = 40 and at M = 4096, K = 2048; the staged
+    one at Dx = 3, M = 512)
+    picks the plain version's particle on every (t, row, path), its x~,
+    x_first and logp within 1e-6 relative L2; K6's wide kernel per leaf
+    within 1e-3 relative L2 of the plain version in every cotangent mode;
+    both bit-equal on a relaunch."""
+    dev = _cuda()
+    ops = _sweep(dev, dx, b=b, m=m, k=k, t1=t1, seed=dx)
+    got = ffbsi.ffbsi_forward(*ops)
+    want = ffbsi.ffbsi_forward_reference(*ops)
+    again = ffbsi.ffbsi_forward(*ops)
+    assert torch.equal(got[4], want[4])
+    for i in (0, 1, 3):
+        assert _rel(got[i], want[i]) <= 1e-6
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert ffbsi.staged_kernel(dx, m, backward=True) == "wide"
+    g = torch.Generator(device=dev).manual_seed(9)
+    cots = [torch.randn(t.shape, generator=g, device=dev) for t in got[:4]]
+    names = ("d_x_first", "d_logp", "d_logq", "d_xtilde")
+    args = (*ops[:7], got[4], got[3])
+    for live in ((0, 1, 2, 3), (2, 3), (0, 3)):
+        kw = {n: cots[i] if i in live else None for i, n in enumerate(names)}
+        needs = (True,) * 5 if 1 in live or 2 in live else (False,) * 5
+        k6 = ffbsi.ffbsi_backward(*args, needs=needs, **kw)
+        ref = ffbsi.ffbsi_backward_reference(*args, needs=needs, **kw)
+        for a, w in zip(k6, ref):
+            assert (a is None) == (w is None)
+            if a is not None:
+                assert _rel(a, w) <= 1e-3
+        assert all(a is None or torch.equal(a, c)
+                   for a, c in zip(k6, ffbsi.ffbsi_backward(*args, needs=needs, **kw)))
+
+
+def _class_svo_operands(dev, dx, dy, di, h, b=4, m=32, t1=9, seed=0):
+    """An SVO sweep's operands on the card at (Dx, Dy, Di, width h): the
+    Lorenz-63 SVO preset reshaped, nudged random weights, anchors, ε,
+    observations and (with di) f's control bias."""
+    from psvo_tpu_torch.ops import svo
+
+    net = NetConfig(hidden=(h, h))
+    cfg = PRESETS["lorenz63_svo_k256"].with_nets(qb=net, f=net, g=net)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dx=dx, dy=dy, di=di))
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(seed), device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in ssm.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g, device=dev))
+        consts = svo.prepare(ssm)
+        cbias = None
+        if di:
+            u = torch.randn((t1, b, di), generator=g, device=dev)
+            cbias = svo.control_term(consts, u).contiguous()
+    x_anchor = torch.randn((b, m, dx), generator=g, device=dev) * 3.0
+    eps = torch.randn((t1, b, m, dx), generator=g, device=dev)
+    y = torch.randn((t1, b, dy), generator=g, device=dev) * 3.0
+    return ssm, consts, (x_anchor, eps, y), cbias
+
+
+@pytest.mark.parametrize("dx,dy,di,h", [(3, 1, 0, 48), (6, 1, 1, 8)])
+def test_svo_kernels_beyond_the_library_match_plain(dx, dy, di, h):
+    """K12 and K13 from a shape library (the split designs at a shape the
+    kernels' library does not hold): K12 within 2e-4 of its plain version,
+    K13 per leaf within 1e-4 relative L2 with the relu-tie paths' cotangents
+    zeroed (d_cbias too with Di = 1), each bit-equal on a relaunch."""
+    from psvo_tpu_torch.ops import svo
+
+    dev = _cuda()
+    _, consts, ops, cbias = _class_svo_operands(dev, dx, dy, di, h)
+    assert svo.usable(_class_svo_operands(dev, dx, dy, di, h)[0], 32)
+    assert svo.lib_key(dx, dy, h) == ("svo", dx, dy, h)
+    with torch.no_grad():
+        got = svo.svo_sweep_forward(*ops, consts, cbias=cbias)
+        want = svo.svo_sweep_forward_reference(*ops, consts, cbias)
+        assert all(torch.equal(a, c) for a, c in
+                   zip(got, svo.svo_sweep_forward(*ops, consts, cbias=cbias)))
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4)
+        keep = (~_svo_relu_ties(consts, ops, got[3], cbias=cbias)).float()
+        g = torch.Generator(device=dev).manual_seed(11)
+        cots = [torch.randn(t.shape, generator=g, device=dev) for t in got]
+        cots = [cots[0] * keep[..., None], cots[1] * keep, cots[2] * keep,
+                cots[3] * keep[..., None]]
+        k13 = svo.svo_sweep_backward(*ops, consts, got[3], *cots, cbias=cbias)
+        ref = svo.svo_sweep_backward_reference(*ops, consts, got[3], *cots, cbias=cbias)
+        again = svo.svo_sweep_backward(*ops, consts, got[3], *cots, cbias=cbias)
+    for a, w, c in zip(k13, ref, again):
+        assert _rel(a, w) <= 1e-4 and torch.equal(a, c)
+
+
+def test_cuda_lorenz96_psvo_train_step_runs_the_wide_sweep():
+    """One PSVO train step on Lorenz-96 (Dx = Dy = 40) at K = 1024, M = 16,
+    T = 6: the trunk filter (K7, K8, K9 each step; K10, K11 in the backward)
+    and the FFBSi sweep through K5/K6's wide kernels, once each, no plain
+    version; finite loss and gradient norm."""
+    from psvo_tpu_torch.ops import resample_gather as rg
+    from psvo_tpu_torch.ops import trunk
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    dev = _cuda()
+    cfg = PRESETS["lorenz96_fivo_k8192_sharded"]
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, t_steps=6),
+        smc=dataclasses.replace(cfg.smc, objective="psvo", n_particles=1024,
+                                n_smoothing_particles=16),
+        train=dataclasses.replace(cfg.train, steps_per_call=1),
+        mesh=dataclasses.replace(cfg.mesh, data=1, particle=1))
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ys = torch.randn((2, 6, 40), generator=torch.Generator().manual_seed(2)).to(dev)
+    kernels = (rg.ancestor_indices_large, rg.gather_particles, trunk.trunk_forward,
+               trunk.trunk_backward, rg.segment_sum_scatter, ffbsi.ffbsi_forward,
+               ffbsi.ffbsi_backward)
+    plain = (trunk.trunk_forward_reference, trunk.trunk_backward_reference,
+             ffbsi.ffbsi_forward_reference, ffbsi.ffbsi_backward_reference)
+    launches, calls = [f.launches for f in kernels], [f.calls for f in plain]
+    metrics = make_train_step(ssm, cfg, make_optimizer(cfg))(torch.Generator(device=dev)
+                                                               .manual_seed(3), ys)
+    torch.cuda.synchronize()
+    got = [f.launches - n for f, n in zip(kernels, launches)]
+    assert got[5:] == [1, 1] and all(n > 0 for n in got[:5]), got
+    assert [f.calls for f in plain] == calls
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+
+
+def test_cuda_svo_dy1_width48_train_step_launches_the_four_kernels():
+    """One SVO train step on Lorenz-63 seen through one channel ((Dx, Dy) =
+    (3, 1), qb/f/g (48, 48), K = 256, M = 32, T = 6): K1, K4 (shape
+    libraries of the whole-step class), K12 and K13 (a shape library of the
+    split designs) once each, no plain version; finite loss and ELBO."""
+    from psvo_tpu_torch.ops import svo
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    dev = _cuda()
+    net = NetConfig(hidden=(48, 48))
+    cfg = PRESETS["lorenz63_svo_k256"].with_nets(q1=net, f=net, g=net, qb=net)
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, dy=1, t_steps=6),
+        smc=dataclasses.replace(cfg.smc, n_smoothing_particles=32),
+        train=dataclasses.replace(cfg.train, steps_per_call=1))
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ys = torch.randn((4, 6, 1), generator=torch.Generator().manual_seed(2)).to(dev)
+    kernels = (fused_step.scan_forward, fused_step.scan_backward, svo.svo_sweep_forward,
+               svo.svo_sweep_backward)
+    plain = (fused_step.scan_forward_reference, fused_step.scan_backward_reference,
+             svo.svo_sweep_forward_reference, svo.svo_sweep_backward_reference)
+    launches, calls = [f.launches for f in kernels], [f.calls for f in plain]
+    metrics = make_train_step(ssm, cfg, make_optimizer(cfg))(torch.Generator(device=dev)
+                                                               .manual_seed(3), ys)
+    assert [f.launches - n for f, n in zip(kernels, launches)] == [1, 1, 1, 1]
+    assert [f.calls for f in plain] == calls
+    for name in ("loss", "grad_norm", "elbo_svo"):
+        assert torch.isfinite(metrics[name]), name

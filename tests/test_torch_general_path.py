@@ -155,7 +155,7 @@ def test_psvo_with_full_covariance_f_matches_reference(mode):
     jcfg, tcfg = mode_configs(mode, objective="psvo", t=8)
     jcfg = dataclasses.replace(jcfg, smc=dataclasses.replace(jcfg.smc, n_smoothing_particles=4))
     tcfg = tconfig.from_dict(jcfg.to_dict())
-    assert not ffbsi.usable(2, 4, f_tril=SSM(tcfg).f_tril)
+    assert not ffbsi.usable(2, 4, tcfg.smc.n_particles, f_tril=SSM(tcfg).f_tril)
     jssm, params, tssm = models(jcfg, tcfg)
     ys, _ = _data(jcfg)
     key = jax.random.key(4)
@@ -234,8 +234,9 @@ def test_ffbsi_gate_excludes_a_full_covariance_f(cov):
     cfg = tconfig.PRESETS["lorenz63_psvo_k1024"]
     ssm = SSM(cfg.with_nets(f=dataclasses.replace(cfg.net("f"), cov_type=cov)))
     assert ssm.f_tril
-    assert ffbsi.usable(3, 16) and ffbsi.usable(3, 16, f_tril=False)
-    assert not ffbsi.usable(ssm.dx, 16, f_tril=ssm.f_tril)
+    k = cfg.smc.n_particles
+    assert ffbsi.usable(3, 16, k) and ffbsi.usable(3, 16, k, f_tril=False)
+    assert not ffbsi.usable(ssm.dx, 16, k, f_tril=ssm.f_tril)
 
 
 def _reference_route(jssm, smc_cfg, batch):

@@ -153,9 +153,11 @@ _SVO_ROUTES = [
     ("known dynamics", {"transition": "known"}, {}, {}, 16, "eager", "eager"),
     ("qb hidden (16, 32)", {}, {}, {"qb": {"hidden": (16, 32)}}, 16, "eager", "eager"),
     ("Dx + Di = 8", {}, {"di": 5}, {}, 32, "eager", "eager"),
-    ("(Dx, Dy) = (4, 3)", {}, {"dx": 4}, {}, 32, "raise", "eager"),
-    ("hidden 48", {}, {}, {n: {"hidden": (48, 48)} for n in ("qb", "f", "g")}, 32, "raise",
-     "eager"),
+    ("(Dx, Dy) = (4, 3)", {}, {"dx": 4}, {}, 32, "kernel", "kernel"),
+    ("hidden 48", {}, {}, {n: {"hidden": (48, 48)} for n in ("qb", "f", "g")}, 32, "kernel",
+     "kernel"),
+    ("hidden 72 (above the port's widths)", {}, {},
+     {n: {"hidden": (72, 72)} for n in ("qb", "f", "g")}, 32, "raise", "eager"),
 ]
 
 
@@ -183,10 +185,13 @@ _FFBSI_ROUTES = [
     ("f tril", "lorenz63_psvo_k1024", {}, {}, {"f": {"cov_type": "tril"}}, 128, 16, "eager",
      "eager"),
     ("Lorenz-96 K=8192", "lorenz96_fivo_k8192_sharded", {}, {}, {}, 8192, 16, "eager", "eager"),
-    ("Lorenz-96 K=1024", "lorenz96_fivo_k8192_sharded", {}, {}, {}, 1024, 16, "raise", "eager"),
+    ("Lorenz-96 K=1024", "lorenz96_fivo_k8192_sharded", {}, {}, {}, 1024, 16, "kernel",
+     "kernel"),
     ("Dx=4 K=128 M=12", "lorenz63_psvo_k1024", {}, {"dx": 4}, {}, 128, 12, "eager", "eager"),
-    ("Dx=4 K=128 M=8", "lorenz63_psvo_k1024", {}, {"dx": 4}, {}, 128, 8, "raise", "eager"),
-    ("M=512", "lorenz63_psvo_k1024", {}, {}, {}, 1024, 512, "raise", "eager"),
+    ("Dx=4 K=128 M=8", "lorenz63_psvo_k1024", {}, {"dx": 4}, {}, 128, 8, "kernel", "kernel"),
+    ("M=512", "lorenz63_psvo_k1024", {}, {}, {}, 1024, 512, "kernel", "kernel"),
+    ("Dx=912 (above K6 wide's shared memory)", "lorenz63_psvo_k1024", {}, {"dx": 912}, {}, 128,
+     8, "raise", "eager"),
 ]
 
 

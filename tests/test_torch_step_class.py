@@ -8,7 +8,8 @@
   kernel outside that (a width of 72; a net deeper than any plan's shared
   memory holds), `smc.filter_route` says "raise" on CUDA tensors (or
   "trunk" where the port's trunk class takes it) and "plain" on CPU
-  tensors. SVO's class (`svo.usable`) keeps its own, narrower shapes.
+  tensors. SVO's class (`svo.usable`) is the reference's SVO gate's up to
+  width 64 (tests/test_torch_smoothing_class.py holds it to that gate).
 - The plain versions (what the kernels are held to on the card) against the
   reference's whole-scan kernels in interpret mode at shapes the presets do
   not have: Dy != Dx, widths 8, 24, 48, one to three layers, controls.
@@ -87,23 +88,29 @@ def test_usable_agrees_with_the_reference_gate(dx):
                                 assert tsmc.filter_route(ssm, cfg, 5, cuda=False) == "plain"
                             assert tsmc.filter_route(ssm, cfg, 5, cuda=True,
                                                      segmented=True) == "raise", label
-                        if k == 2048 and (dx, dy) not in svo.KERNEL_DIMS:
-                            assert not svo.usable(ssm, 32), label
-                        if k == 2048 and h not in svo.HIDDEN_WIDTHS:
-                            assert not svo.usable(ssm, 32), label
+                        if (k == 2048 and depth <= 3
+                                and tsmc.reference_svo_path(ssm, 32) == "kernel"):
+                            assert svo.usable(ssm, 32) == (h <= 64), label
     assert (inside > 0 and outside > 0) if dx <= 7 else inside == outside == 0
 
 
 def test_svo_keeps_its_own_shapes():
-    """K12/K13 are built for the presets' shapes alone (ROADMAP queue 2 B.4):
-    svo's constants are its own and narrower than the whole-step class's."""
+    """K12/K13's library keeps its own shapes, the presets' (svo's constants,
+    narrower than the whole-step class's); every other shape of the class,
+    which now takes the whole-step class's widths, is built into a shape
+    library of its own: Lorenz-63 seen through one channel at width 48 runs
+    the kernels too."""
     assert svo.KERNEL_DIMS == ((2, 2), (3, 3)) and svo.HIDDEN_WIDTHS == (16, 32, 64)
     assert all(fused_step._in_class(fused_step.shape_consts(dx, dy, 0, 16, 1))
                for dx, dy in svo.KERNEL_DIMS)
     assert fused_step._in_class(fused_step.shape_consts(3, 1, 0, 48, 1))
-    assert set(svo.HIDDEN_WIDTHS) < set(fused_step.HIDDEN_WIDTHS)
+    assert set(svo.HIDDEN_WIDTHS) < set(fused_step.HIDDEN_WIDTHS) == set(svo.CLASS_WIDTHS)
     assert svo.usable(_model(3, 3, 0, (64, 64)), 32)
-    assert not svo.usable(_model(3, 1, 0, (48, 48)), 32)
+    net = NetConfig(hidden=(48, 48))
+    l63_dy1 = PRESETS["lorenz63_svo_k256"]
+    l63_dy1 = dataclasses.replace(l63_dy1, data=dataclasses.replace(l63_dy1.data, dy=1))
+    assert svo.usable(SSM(l63_dy1.with_nets(qb=net, f=net, g=net)), 32)
+    assert svo.lib_key(3, 3, 64) is None and svo.lib_key(3, 1, 48) == ("svo", 3, 1, 48)
 
 
 def test_every_plan_of_the_set_fits_shared_memory():

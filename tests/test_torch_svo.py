@@ -131,8 +131,9 @@ def test_svo_plain_backward_honours_missing_cotangents():
 
 
 def test_svo_usable_class():
-    """The preset is in the kernels' class; a non-uniform width, a width
-    without an instantiation, M above MAX_M and a wider state are not."""
+    """The preset is in the kernels' class; widths that are not one width
+    for qb, f and g (qb alone at (16, 32) or (48, 48)), M above MAX_M and a
+    state with Dx + Dy above 7 are not."""
     cfg = PRESETS["lorenz63_svo_k256"]
     ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert svo.usable(ssm, cfg.smc.n_smoothing_particles)

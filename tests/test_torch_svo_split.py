@@ -226,17 +226,21 @@ def _ssm(dims, h, n_mid):
     return SSM(PRESETS[preset].with_nets(q0=net, q1=net, q2=net, f=net, qb=net, g=net))
 
 
-# the widest n_mid svo.usable admitted before the split design, per width
-_SVO_CLASS = {16: 13, 32: 4, 64: 1}
+# the deepest n_mid svo.usable admits, per width: the split designs' tiles (K13's at 16-256
+# rows, its gradient sums in device memory where they do not fit beside them; K12's chunk) in
+# a CTA's shared memory; the chain designs, yardsticks now, no longer gate the class (before:
+# 13, 4 and 1)
+_SVO_CLASS = {16: 33, 32: 11, 64: 3}
 _SVO_CASES = [(dims, h, n_mid, n_mid <= top) for dims in ((2, 2), (3, 3))
               for h, top in _SVO_CLASS.items() for n_mid in range(top + 2)]
 
 
 @pytest.mark.parametrize("dims,h,n_mid,admitted", _SVO_CASES)
 def test_svo_usable_class_is_unchanged(dims, h, n_mid, admitted):
-    """svo.usable admits exactly the shapes it admitted before the split
-    design (every n_mid up to 13, 4 and 1 at widths 16, 32 and 64, at both
-    state widths) and the split design takes each of them."""
+    """svo.usable admits exactly the shapes the split designs hold at the
+    kernels' library's shapes (every n_mid up to 33, 11 and 3 at widths 16,
+    32 and 64, at both state widths; the chain designs' reach, 13, 4 and 1,
+    no longer bounds it) and the split design takes each of them."""
     ssm = _ssm(dims, h, n_mid)
     assert svo.usable(ssm, 16) == admitted
     assert svo.usable(ssm, 1) == admitted and not svo.usable(ssm, svo.MAX_M + 1)
@@ -250,16 +254,17 @@ def test_svo_usable_class_is_unchanged(dims, h, n_mid, admitted):
             assert svo.k12_smem_bytes(*dims, h, n_mid, paths, rows, steps) <= SMEM_LIMIT
 
 
-_FFBSI_CASES = [(dx, m, dx in (2, 3) and 1 <= m <= 256) for dx in (1, 2, 3, 4)
-                for m in (0, 1, 16, 256, 257)]
+_FFBSI_CASES = [(dx, m, (dx in (2, 3) and 1 <= m <= 256) or (m >= 8 and m % 8 == 0))
+                for dx in (1, 2, 3, 4) for m in (0, 1, 16, 256, 257)]
 
 
 @pytest.mark.parametrize("dx,m,admitted", _FFBSI_CASES)
 def test_ffbsi_usable_class_is_unchanged(dx, m, admitted):
     """ffbsi.usable admits Dx in {2, 3} and 1 <= M <= 256 at any K, as before
-    the staged design; for each admitted M the staged design picks a valid
-    count of paths a CTA."""
-    assert ffbsi.usable(dx, m) == admitted
+    the staged design, and now also the wide kernels' class, the reference's
+    (any Dx, M a multiple of 8); for each admitted M the staged design picks
+    a valid count of paths a CTA."""
+    assert all(ffbsi.usable(dx, m, k) == admitted for k in (128, 1024, 2048))
     if admitted:
         for batch in (1, 32, 1024):
             assert ffbsi.k5_paths(batch, m, 132) in ffbsi.PATHS_PER_CTA
