@@ -441,8 +441,32 @@ kernels' library built into a shape library of its own beside phases c-:
       B=32, T=100 (K1/K4, K12/K13 from shape libraries): the card against
       the CPU, one smooth_posterior call and 3 train steps with launch
       counts, no plain version, times, peak memory and a profile; (d) the
-      preset shapes' K5/K6/K12/K13 outputs (preset_bits) bit-equal to the
-      parent's build's (PARENT_BITS)
+      preset shapes' K1/K4/K14/K15 and K5/K6/K12/K13 outputs (preset_bits)
+      bit-equal to the parent's build's (PARENT_BITS)
+  (bh) the whole-step kernels above width 64 (wide_step_phases): (a) K1,
+      K4, K14 and K15 at widths 72, 128 and 256, two hidden layers, at
+      (Dx, Dy) = (2, 2) and (3, 1) (WIDE, WIDE_DIMS; B=32, K=1024, T=100,
+      at 256 B=8, T=20: WIDE_SIZES), K1/K14 under the tiled plan: K1
+      teacher-forced within 2e-4, K4 per leaf within 1e-3, the chain of K14
+      launches bit-equal to K1 and each K14 step within 2e-4, K15 per leaf
+      within 1e-3 (relu ties zeroed), bit-equal on a relaunch, its chain
+      within 1e-4 of K4 (WIDE_TOL); K1/K4 at every cluster size C and
+      K14/K15 at every slice count S the gates admit, bit-equal (K4's and
+      K15's sums within 1e-6, else no further from float64 than the first
+      size's); at (2, 2) the four timed beside their plain versions and
+      bounds, and one train step of each width whole-scan (one K1, one K4)
+      and per step (K14, K15 once a step); (b) K1 and the chain of K14
+      launches under the tiled plan, forced at the presets' width 64
+      (fhn_fivo_k1024_bench and lorenz63_psvo_k1024, B=32, K=1024, T=100),
+      bit-equal to the register plan, streamed and in-kernel noise; (c)
+      fhn_fivo_k1024_bench with q0/q1/q2/f/g at (128, 128) (WIDE_NET): the
+      card against the CPU at B=2, T=20 (CPU_TOL), make_eval_step and
+      filter_posterior (K1 once each), WIDE_TRAIN=3 train steps (K1 and K4
+      once a step), no plain version, step time, peak memory and a profile;
+      (d) lorenz63_psvo_k1024 at (128, 128): likewise, smooth_posterior (K1,
+      K5) and 3 PSVO train steps (K1, K4, K5, K6 once a step); (e) (c) with
+      fused_step.SCAN_FUSED off: make_eval_step (99 K14) and one train step
+      (99 K14, 99 K15)
 
 (ap) begins with K7, K8 and K11 at the general path's shape (B=32, K=128,
 D=2) against their plain versions, timed beside them and beside
@@ -481,13 +505,15 @@ per shard)", at the 1x8 mesh's per-shard shape, timed in bb; K1, K4, K14
 and K15 once more per phase-be configuration; K7 as "(any K)", its times by
 K in "by_k", K11 as "(K=32768)" and K9 and K10 per REACH_TRUNK shape, from
 phase bf; K5 and K6 as "(wide, Lorenz-96)" and K12 and K13 as "(class, (3,
-1) width 48)", from phase bg; the last line
+1) width 48)", from phase bg; K1, K4, K14 and K15 as "(width W, (2, 2))"
+for W in 72, 128, 256, from phase bh; the last line
 is the device record. Imports nothing of JAX: the
 machine with the card has none.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -4928,7 +4954,8 @@ def step_class_shapes(pt) -> list:
         hidden = cfg.net("q1").hidden
         c = fused_step.shape_consts(cfg.data.dx, cfg.data.dy, cfg.data.di, hidden[0],
                                     len(hidden) - 1)
-        keys += [k_ for k_ in (fused_step._lib_key(c, False), fused_step._lib_key(c, True))
+        k = cfg.smc.n_particles
+        keys += [k_ for k_ in (fused_step._lib_key(c, False, k), fused_step._lib_key(c, True, k))
                  if k_ is not None]
     return list(dict.fromkeys(keys))
 
@@ -4999,7 +5026,8 @@ def step_class_phases(pt, dev, card: str) -> dict:
         cpu_ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device="cpu")
         consts = fused_step.shape_consts(cfg.data.dx, cfg.data.dy, cfg.data.di, hidden[0],
                                          len(hidden) - 1)
-        keys = (fused_step._lib_key(consts, False), fused_step._lib_key(consts, True))
+        keys = (fused_step._lib_key(consts, False, sc.n_particles),
+                fused_step._lib_key(consts, True, sc.n_particles))
         if not (fused_step.usable(cpu_ssm, sc) and pt.smc.reference_path(cpu_ssm, sc) == "fused"):
             fail(f"(be) {label}: outside the whole-step class, or not the reference's")
         t0 = time.perf_counter()
@@ -5009,7 +5037,8 @@ def step_class_phases(pt, dev, card: str) -> dict:
         wait_s = time.perf_counter() - t0
         print(f"[be] {card}: {label} ({preset}, Dx={cfg.data.dx}, Dy={cfg.data.dy}, "
               f"Di={cfg.data.di}, q1/f/g {hidden}, K={sc.n_particles}, B=32, T={n + 1}): plans "
-              f"K1/K14 {fused_step.k1_plan(consts)!r}, K4/K15 {fused_step.k4_plan(consts)!r}; "
+              f"K1/K14 {fused_step.k1_plan(consts)!r}, K4/K15 "
+              f"{fused_step.k4_plan(consts, sc.n_particles)!r}; "
               f"libraries {keys[0] or 'the kernels own'} / {keys[1] or 'the kernels own'} "
               f"(waited {wait_s:.1f} s for their builds); "
               + " | ".join(f"{key or 'library'}: {shape_resources(key)}" for key in
@@ -5645,10 +5674,13 @@ BG_KERNELS = {"K5": ("ffbsi_wide_kernel",), "K6": ("ffbsi_bwd_wide_kernel",),
 BG_SVO_KERNELS = {"K1": ("scan_forward_kernel",), "K4": ("scan_backward_kernel", "sum_rows_kernel"),
                   "K12": ("svo_forward_split_kernel",),
                   "K13": ("svo_backward_split_kernel", "svo_sum_ctas_kernel")}
-# Digests of the preset shapes' K5/K6/K12/K13 outputs (`preset_bits`) from the build of the
-# parent commit f2de621 (preset_bits on that commit's package, its ffbsi.cu and svo_sweep*.cu
-# built alone), on an NVIDIA H100 80GB HBM3 at 700.00 W (132 SMs: K13's CTA rows, and so its
-# sums' order, follow the card's SM count); phase bg (d) holds this build to them on such a card
+# Digests of the preset shapes' K5/K6/K12/K13 outputs (`preset_bits`) from the build of commit
+# f2de621 (preset_bits on that commit's package, its ffbsi.cu and svo_sweep*.cu built alone),
+# and of their K1/K4/K14/K15 outputs (`step_preset_bits`) from the build of commit 236b45c
+# (this file's preset_bits on that commit's package and its whole library, which gave the
+# K5-K13 digests above too), on an NVIDIA H100 80GB HBM3 at 700.00 W (132 SMs: K13's CTA rows,
+# and so its sums' order, follow the card's SM count, and K4's and K15's cluster and slice
+# counts the card's occupancy); phase bg (d) holds this build to them on such a card
 PARENT_BITS_CARD = ("NVIDIA H100 80GB HBM3", 132)
 PARENT_BITS = {
     "K12 (2, 2) h16 di0 0": "42dc84a6763354d3", "K12 (2, 2) h16 di0 1": "8bf9445fa53cd1e1",
@@ -5716,6 +5748,36 @@ PARENT_BITS = {
     "K6 dx3 direct bound 2": "af111807e35e912a", "K6 dx3 direct bound 3": "3e44a06e57a4f6d8",
     "K6 dx3 direct bound 4": "d5c23c883e967d6a", "K6 dx3 direct bound 5": "d5c23c883e967d6a",
     "K6 dx3 paths only 0": "fd9243e1ba57263e", "K6 dx3 paths only 1": "06cadec425ab9b1b",
+    "K1 (2, 2) h16 di0 in-kernel": "88bcecfaf42a9b80", "K1 (2, 2) h16 di0 stream": "302aa56814cd1b41",
+    "K1 (2, 2) h16 di2 in-kernel": "809b7436e43019b5", "K1 (2, 2) h16 di2 stream": "c37d40797eef3b2e",
+    "K1 (2, 2) h32 di0 in-kernel": "2917f5cb2853817a", "K1 (2, 2) h32 di0 stream": "a88d1d2dd63f7c9d",
+    "K1 (2, 2) h32 di2 in-kernel": "47ab859598c5cca0", "K1 (2, 2) h32 di2 stream": "781235afdd796343",
+    "K1 (2, 2) h64 di0 in-kernel": "09cafb5727b81c82", "K1 (2, 2) h64 di0 stream": "e3364a1551d4637e",
+    "K1 (2, 2) h64 di2 in-kernel": "68f9ac1b2c23fb01", "K1 (2, 2) h64 di2 stream": "bc2ee76a9db561b7",
+    "K1 (3, 3) h16 di0 in-kernel": "5fbd00503eeb41cd", "K1 (3, 3) h16 di0 stream": "2628826e7c7cd15a",
+    "K1 (3, 3) h16 di2 in-kernel": "52fe399d9321e350", "K1 (3, 3) h16 di2 stream": "4ce37271d97daced",
+    "K1 (3, 3) h32 di0 in-kernel": "dfdf647aa5d38938", "K1 (3, 3) h32 di0 stream": "df1ad510fd15b360",
+    "K1 (3, 3) h32 di2 in-kernel": "0f7e927a72de5ce3", "K1 (3, 3) h32 di2 stream": "d030543b6268f820",
+    "K1 (3, 3) h64 di0 in-kernel": "83d30bed45db7898", "K1 (3, 3) h64 di0 stream": "80e84b4421711164",
+    "K1 (3, 3) h64 di2 in-kernel": "5e9f66ffd3c64d7a", "K1 (3, 3) h64 di2 stream": "a949dd68728f0cbb",
+    "K14 (2, 2) h16 di0": "dc9372d2c921336c", "K14 (2, 2) h16 di2": "fbfdae7ebe94ee0c",
+    "K14 (2, 2) h32 di0": "477ad61b8c551f52", "K14 (2, 2) h32 di2": "7184e5cbc7e3d914",
+    "K14 (2, 2) h64 di0": "38226a816cfbe53e", "K14 (2, 2) h64 di2": "dc6fcca4e720148e",
+    "K14 (3, 3) h16 di0": "18f2546f690f4004", "K14 (3, 3) h16 di2": "3f5a75b6dfdc18d2",
+    "K14 (3, 3) h32 di0": "f0a2a897eabdcd46", "K14 (3, 3) h32 di2": "9456209546b576e4",
+    "K14 (3, 3) h64 di0": "5bc4cddb447c2fc1", "K14 (3, 3) h64 di2": "ba684a7d5caa0ffe",
+    "K15 (2, 2) h16 di0": "7d21b34c886687dd", "K15 (2, 2) h16 di2": "5ced6a78cbd9dc2b",
+    "K15 (2, 2) h32 di0": "64f02568ccc38d8b", "K15 (2, 2) h32 di2": "662d574829f8dfbc",
+    "K15 (2, 2) h64 di0": "4a6b2b788cdb9d34", "K15 (2, 2) h64 di2": "f64f8d393cf320e3",
+    "K15 (3, 3) h16 di0": "7d4562595ad0d6c1", "K15 (3, 3) h16 di2": "85a5a95a6b680f51",
+    "K15 (3, 3) h32 di0": "2af6a58eba6e41e4", "K15 (3, 3) h32 di2": "e20c196a2a34e979",
+    "K15 (3, 3) h64 di0": "ee89034ad81a2465", "K15 (3, 3) h64 di2": "b504f9325ea55b9f",
+    "K4 (2, 2) h16 di0": "5ed3deaec84d03a5", "K4 (2, 2) h16 di2": "e1fd56e9c60bf214",
+    "K4 (2, 2) h32 di0": "f382b5b14c68fa1b", "K4 (2, 2) h32 di2": "86332fff3135ab74",
+    "K4 (2, 2) h64 di0": "e89ff2c6167f1b46", "K4 (2, 2) h64 di2": "558a560982f189b9",
+    "K4 (3, 3) h16 di0": "5f529233dddb0da0", "K4 (3, 3) h16 di2": "45f707690b7e9bbb",
+    "K4 (3, 3) h32 di0": "a4a0e5895099e72f", "K4 (3, 3) h32 di2": "c80daefa7c23c55f",
+    "K4 (3, 3) h64 di0": "7366ee90f0c3b395", "K4 (3, 3) h64 di2": "ce2e09d08ea2d544",
 }
 
 
@@ -5748,7 +5810,7 @@ def smoothing_class_shapes(pt) -> list:
 
     keys = [svo.lib_key(dx, dy, h) for dx, dy, _, h in BG_SVO]
     c = fused_step.shape_consts(3, 1, 0, 48, 1)
-    keys += [fused_step._lib_key(c, False), fused_step._lib_key(c, True)]
+    keys += [fused_step._lib_key(c, False, 256), fused_step._lib_key(c, True, 256)]  # (c)'s K
     return list(dict.fromkeys(k_ for k_ in keys if k_ is not None))
 
 
@@ -5869,8 +5931,8 @@ def preset_bits(pt, dev) -> dict:
     controls, on inputs made from numpy seeds on the host (numpy's PCG64 and
     float64 arithmetic: the same bits on any host), weights from a CPU
     torch generator and f's control bias computed on the host (no library
-    product whose algorithm the card's size picks): phase bg (d) holds them
-    to the parent's build's."""
+    product whose algorithm the card's size picks), and K1/K4/K14/K15's
+    (step_preset_bits): phase bg (d) holds them to the parent's build's."""
     import hashlib
 
     import numpy as np
@@ -5931,6 +5993,80 @@ def preset_bits(pt, dev) -> dict:
             tag = f"({dx}, {dx}) h{h} di{di}"
             out.update({f"K12 {tag} {i}": digest(t) for i, t in enumerate(k12)})
             out.update({f"K13 {tag} {i}": digest(t) for i, t in enumerate(k13)})
+    out.update(step_preset_bits(pt, dev))
+    return out
+
+
+def step_preset_bits(pt, dev) -> dict:
+    """{name: sha256 prefix} of K1's outputs (streamed and in-kernel noise,
+    cache and residuals), K4's on them, and the chain of K14 launches and
+    the K15 launches on it, at the kernels' library's six shapes ((2, 2),
+    (3, 3) x widths 16, 32, 64, two hidden layers; B = 32, K = 1024,
+    T - 1 = 20), without and with Di = 2 controls, each kernel's outputs in
+    one digest; inputs and cotangents from numpy seeds on the host, weights
+    from a CPU torch generator, as preset_bits' K5-K13. K1's and K14's bits
+    do not depend on C or S, K4's and K15's sums do: the card's occupancy
+    picks them, as PARENT_BITS_CARD's."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from psvo_tpu_torch.ops import fused_step
+
+    def digest(ts):
+        h_ = hashlib.sha256()
+        for t in ts:
+            h_.update(t.detach().contiguous().cpu().numpy().tobytes())
+        return h_.hexdigest()[:16]
+
+    out = {}
+    b, k, t1 = 32, 1024, 20
+    for dx, h in [(d, w) for d in (2, 3) for w in (16, 32, 64)]:
+        for di in (0, 2):
+            cfg = wide_config(pt, "fhn_fivo_k1024_bench" if dx == 2 else "lorenz63_psvo_k1024", h)
+            cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, di=di,
+                                                                    control_scale=0.5))
+            ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(11 + h + di), device=dev)
+            rng = np.random.default_rng(300 + 10 * dx + h + di)
+
+            def arr(*shape, lo=-0.5, hi=0.5):
+                return torch.from_numpy(np.asarray(lo + (hi - lo) * rng.random(shape),
+                                                   np.float32)).to(dev)
+
+            with torch.no_grad():
+                consts = fused_step.prepare(ssm)
+                cols = [arr(t1, b, dx), arr(t1, b, dx, lo=0.5, hi=1.0),
+                        arr(t1, b, dx, lo=0.3, hi=0.7), arr(t1, b, dx, lo=-3.0, hi=3.0),
+                        arr(t1, b, 1)]
+                if di:
+                    cols.append(arr(t1, b, 2 * h, lo=-0.25, hi=0.25))
+                coef = torch.cat(cols, -1).contiguous()
+                x0, a0 = arr(b, dx, k, lo=-2.0, hi=2.0), arr(b, k, lo=-1.0, hi=1.0)
+                eps = torch.from_numpy(rng.standard_normal((t1, b, dx, k)).astype(np.float32)).to(dev)
+                u0 = rng.random((t1, b, 1))
+                pos = torch.from_numpy(((np.arange(k) + u0) / k).astype(np.float32)).to(dev)
+                k1 = fused_step.scan_forward(x0, a0, coef, consts, eps=eps, positions=pos,
+                                             cache=True, save_res=True)
+                k1r = fused_step.scan_forward(x0, a0, coef, consts, seed=(5, 6), cache=True,
+                                              save_res=True)
+                _, _, stats, x_all, a_all, idx = k1
+                cots = [arr(*t.shape) for t in (stats, x0, a0, x_all, a_all)]
+                k4 = fused_step.scan_backward(x0, x_all, idx, stats, coef, consts, *cots,
+                                              eps=eps)
+                chain, x, lw = [], x0, a0
+                for t in range(t1):
+                    chain.append(fused_step.step_forward(x, lw, coef[t], consts, eps[t], pos[t]))
+                    x, lw = chain[-1][:2]
+                k15 = [fused_step.step_backward(x0 if t == 0 else chain[t - 1][0], chain[t][0],
+                                                chain[t][3], chain[t][2], coef[t], consts, eps[t],
+                                                cots[0][t], cots[3][t], cots[4][t])
+                       for t in range(t1)]
+            tag = f"({dx}, {dx}) h{h} di{di}"
+            out[f"K1 {tag} stream"] = digest(k1)
+            out[f"K1 {tag} in-kernel"] = digest(k1r)
+            out[f"K4 {tag}"] = digest(k4)
+            out[f"K14 {tag}"] = digest([v for s_ in chain for v in s_])
+            out[f"K15 {tag}"] = digest([v for s_ in k15 for v in s_])
     return out
 
 
@@ -6159,7 +6295,8 @@ def smoothing_class_phases(pt, dev, card: str) -> dict:
         figs["bits"] = None
     else:
         bad = sorted(n_ for n_, v in bits.items() if PARENT_BITS.get(n_) != v)
-        print(f"[bg] {card}: (d) preset shapes' K5/K6/K12/K13 outputs: {len(bits) - len(bad)} "
+        print(f"[bg] {card}: (d) preset shapes' K1/K4/K14/K15 and K5/K6/K12/K13 outputs: "
+              f"{len(bits) - len(bad)} "
               f"of {len(bits)} bit-equal to the parent's build"
               + (f"; differing: {bad}" if bad else ""), flush=True)
         if bad or len(bits) != len(PARENT_BITS):
@@ -6214,6 +6351,524 @@ def smoothing_class_rows(figs: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# (bh) the whole-step kernels K1/K4/K14/K15 above width 64
+# ---------------------------------------------------------------------------
+
+WIDE = (72, 128, 256)  # phase bh (a): widths of two hidden layers, K1/K14 under the tiled plan
+WIDE_DIMS = ((2, 2), (3, 1))  # (a): FitzHugh-Nagumo's (Dx, Dy), Lorenz-63 through one channel
+WIDE_SIZES = {72: (32, 100), 128: (32, 100), 256: (8, 20)}  # (a): B, T by width (K = 1024);
+# 256 cut to B = 8, T = 20 for the run's time
+WIDE_NET = 128  # (c)-(e): q0/q1/q2/f/g at (128, 128)
+WIDE_TRAIN = 3  # (c), (d): train steps
+WIDE_NETS = ("q0", "q1", "q2", "f", "g")
+WIDE_TOL = {"k1": 2e-4, "k4": 1e-3, "k14": 2e-4, "k15": 1e-3, "k15_vs_k4": 1e-4, "sums": 1e-6}
+
+
+def wide_config(pt, preset: str, h: int, dx=None, dy=None, t=None, nets=("q1", "f", "g")):
+    """preset with `nets` at (h, h), the state and observation widths and T
+    changed where given, one train step a call, B = 32, no mesh."""
+    base = pt.PRESETS[preset]
+    data = {k_: v for k_, v in (("dx", dx), ("dy", dy), ("t_steps", t)) if v is not None}
+    cfg = dataclasses.replace(
+        base, data=dataclasses.replace(base.data, **data),
+        train=dataclasses.replace(base.train, steps_per_call=1, batch_size=32),
+        mesh=dataclasses.replace(base.mesh, data=1, particle=1))
+    return cfg.with_nets(**{n: dataclasses.replace(cfg.net(n), hidden=(h, h)) for n in nets})
+
+
+@contextlib.contextmanager
+def k1_plan_forced(plan: str):
+    """Within the block, K1's and K14's plan at every shape is `plan` (the
+    gates' caches cleared on entry and exit): how (b) runs the tiled plan at
+    width 64, from a shape library of its own."""
+    from psvo_tpu_torch.ops import fused_step
+
+    caches = (fused_step._lib_key_of, fused_step._k1_fits, fused_step._k4_fits,
+              fused_step._k15_fits, fused_step._resident_at)
+    real = fused_step._k1_plan
+    fused_step._k1_plan = lambda shape: plan
+    for f in caches:
+        f.cache_clear()
+    try:
+        yield
+    finally:
+        fused_step._k1_plan = real
+        for f in caches:
+            f.cache_clear()
+
+
+def wide_shapes(pt) -> list:
+    """The shape libraries of phase bh (`fused_step._lib_key`): (a)'s shapes,
+    the tiled plan at the presets' width 64 ((b), forced) and Lorenz-63 at
+    (128, 128) ((d)), for `build_shapes_beside`."""
+    from psvo_tpu_torch.ops import fused_step
+
+    shapes = [(dx, dy, h) for dx, dy in WIDE_DIMS for h in WIDE] + [(3, 3, WIDE_NET)]
+    keys = []
+    for dx, dy, h in shapes:  # K = 1024 throughout
+        c = fused_step.shape_consts(dx, dy, 0, h, 1)
+        keys += [fused_step._lib_key(c, False, 1024), fused_step._lib_key(c, True, 1024)]
+    with k1_plan_forced("tile"):
+        keys += [fused_step._lib_key(fused_step.shape_consts(d, d, 0, 64, 1), False, 1024)
+                 for d in (2, 3)]
+    return list(dict.fromkeys(k_ for k_ in keys if k_ is not None))
+
+
+def size_sweep(inp, gen) -> dict:
+    """K1 and K4 at every cluster size C, K14 and K15 at every slice count S
+    that the gates and the card admit, on kernel_inputs' operands (stream
+    noise): K1's outputs and K4's d_x0 bit-equal to the smallest C's, K4's
+    d_coef, weight and sconst sums within WIDE_TOL["sums"] relative L2 of
+    it, else within twice its distance from a float64 replay (each adds the
+    same float32 tile sums in another association); K14's outputs and K15's
+    d_x at a mid step bit-equal to S = 1's, K15's sums likewise. Returns
+    {"C": {C: (k1 equal, k4 ok)}, "S": {S: (k14 equal, k15 ok)}, "chosen":
+    (C of K1, C of K4, S of K14, S of K15), "rel": {("C" or "S", size):
+    [(rel L2 to the first size, or with its float64 distances)]}}."""
+    import torch
+    from psvo_tpu_torch.ops import fused_step
+
+    consts, coef, eps, pos = inp["consts"], inp["coef"], inp["eps"], inp["positions"]
+    x0, a0 = inp["x0"], inp["alpha0"]
+    t1, b = coef.shape[:2]
+    dev, k = x0.device, x0.shape[-1]
+    act = [fused_step.max_active_clusters(kern, dev, consts, k) for kern in (0, 1)]
+    c1 = [c for c in fused_step.CLUSTER_SIZES if act[0][c] > 0
+          and (c == 1 or k % (c * fused_step.K1_MIN_SLICE) == 0)]
+    c4 = [c for c in fused_step.CLUSTER_SIZES if act[1][c] > 0 and fused_step._k4_ok(consts, k, c)]
+
+    def k1(c):
+        return fused_step.scan_forward(x0, a0, coef, consts, eps=eps, positions=pos,
+                                       cache=True, save_res=True, cluster=c)
+
+    base1 = k1(c1[0])
+    _, _, stats, x_all, _, idx = base1
+    d_stats = torch.randn(stats.shape, generator=gen, device=dev)
+    d_stats[..., 0] = -1.0 / b
+    cots = [torch.randn(x0.shape, generator=gen, device=dev),
+            torch.randn(a0.shape, generator=gen, device=dev)]
+    bwd = (x0, x_all, idx, stats, coef, consts, d_stats, *cots)
+
+    def k4(c):
+        return fused_step.scan_backward(*bwd, eps=eps, cluster=c)
+
+    rels = {}
+
+    def sums_ok(tag, got, base, ref64):
+        rel = rels[tag] = [_rel(g, w) for g, w in zip(got[1:], base[1:])]
+        if max(rel) <= WIDE_TOL["sums"]:
+            return True
+        want = ref64()
+        far = [(e, _rel(g.double(), w), _rel(h_.double(), w))
+               for e, g, h_, w in zip(rel, got[1:], base[1:], want[1:])]
+        rels[tag] = far
+        return all(e <= WIDE_TOL["sums"] or a <= 2.0 * b for e, a, b in far)
+
+    c64 = {}
+
+    def k4_64():
+        if "k4" not in c64:
+            d = dict(consts, packed=consts["packed"].double(), sconst=consts["sconst"].double())
+            c64["k4"] = fused_step.scan_backward_reference(
+                x0.double(), coef.double(), d, eps.double(), idx, d_stats.double(),
+                *(c_.double() for c_ in cots))
+        return c64["k4"]
+
+    base4 = k4(c4[0])
+    out = {"C": {}, "S": {}}
+    for c in sorted(set(c1) | set(c4)):
+        e1 = all(torch.equal(a, w) for a, w in zip(k1(c), base1)) if c in c1 else None
+        if c in c4:
+            got = k4(c)
+            e4 = torch.equal(got[0], base4[0]) and sums_ok(("C", c), got, base4, k4_64)
+        else:
+            e4 = None
+        out["C"][c] = (e1, e4)
+    t = t1 // 2
+    x_in = x0 if t == 0 else x_all[t - 1]
+    fwd = (x_in, base1[4][t - 1] if t else a0, coef[t], consts, eps[t], pos[t])
+    s_base = fused_step.step_forward(*fwd, slices=1)
+    d_xn = torch.randn(x0.shape, generator=gen, device=dev)
+    d_al = torch.randn(a0.shape, generator=gen, device=dev)
+    sb = (x_in, s_base[0], s_base[3], s_base[2], coef[t], consts, eps[t], d_stats[t], d_xn, d_al)
+
+    def k15_64():
+        if "k15" not in c64:
+            d = dict(consts, packed=consts["packed"].double(), sconst=consts["sconst"].double())
+            c64["k15"] = fused_step.step_backward_reference(
+                x_in.double(), coef[t].double(), d, eps[t].double(), s_base[3],
+                d_stats[t].double(), d_xn.double(), d_al.double())
+        return c64["k15"]
+
+    b_base = fused_step.step_backward(*sb, slices=1)
+    for s in fused_step.STEP_SLICES:
+        e14 = (all(torch.equal(a, w) for a, w in zip(fused_step.step_forward(*fwd, slices=s),
+                                                     s_base))
+               if s == 1 or k % (s * fused_step.K1_MIN_SLICE) == 0 else None)
+        if s == 1 or k % (s * fused_step.K4_MIN_SLICE) == 0:
+            got = fused_step.step_backward(*sb, slices=s)
+            e15 = torch.equal(got[0], b_base[0]) and sums_ok(("S", s), got, b_base, k15_64)
+        else:
+            e15 = None
+        out["S"][s] = (e14, e15)
+    fused_step.scan_forward(x0, a0, coef, consts, eps=eps, positions=pos)
+    fused_step.scan_backward(*bwd, eps=eps)
+    fused_step.step_forward(*fwd)
+    fused_step.step_backward(*sb)
+    torch.cuda.synchronize()
+    out["chosen"] = (fused_step.scan_forward.last_cluster, fused_step.scan_backward.last_cluster,
+                     fused_step.step_forward.last_slices, fused_step.step_backward.last_slices)
+    out["rel"] = rels
+    return out
+
+
+def wide_check(pt, dev, card, dx, dy, h, gen) -> dict:
+    """(a) at one shape: K1 teacher-forced, K4 on its residuals, the chain
+    of K14 launches and K15 on it against their plain versions
+    (WIDE_TOL), the chain bit-equal to K1 and within 1e-4 of K4, then
+    size_sweep; at (2, 2) the kernels' times beside their plain versions'
+    and bounds. B, T: WIDE_SIZES; K = 1024; random weights and
+    observations."""
+    import torch
+    from psvo_tpu_torch.ops import fused_step
+
+    t0 = time.perf_counter()
+    b, t = WIDE_SIZES[h]
+    cfg = wide_config(pt, "fhn_fivo_k1024_bench", h, dx, dy, t)
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + h + dx), device=dev)
+    ys = torch.randn((b, t, dy), device=dev, generator=gen)
+    with torch.no_grad():
+        consts = fused_step.prepare(ssm)
+    k = cfg.smc.n_particles
+    keys = (fused_step._lib_key(consts, False, k), fused_step._lib_key(consts, True, k))
+    with torch.no_grad():
+        r1 = check_scan(f"(bh) ({dx}, {dy}) width {h}", ssm, cfg, ys, gen, tol=WIDE_TOL["k1"])
+        r4 = check_backward(ssm, cfg, ys, gen)
+        rs = step_chain_check(ssm, cfg, ys, gen)
+        rb = step_backward_check(rs, gen)
+        sw = size_sweep(rs["inp"], gen)
+    ok = dict(
+        k1=r1["finite"] and r1["tf_flips"] == 0 and r1["tf_err"] < WIDE_TOL["k1"],
+        k4=r4["finite"] and r4["monotone"] and max(r4["rel"]) <= WIDE_TOL["k4"],
+        k14=(rs["finite"] and rs["idx_bad"] == 0 and max(rs["tf_rel"]) < WIDE_TOL["k14"]
+             and rs["k1_idx"] == 0 and max(rs["vs_k1"]) == 0.0),
+        k15=(rb["finite"] and rb["same"] and max(rb["rel"]) <= WIDE_TOL["k15"]
+             and max(rb["vs_k4"]) <= WIDE_TOL["k15_vs_k4"]),
+        sizes=all(v is not False for pair in list(sw["C"].values()) + list(sw["S"].values())
+                  for v in pair))
+    print(f"[bh] {card}: (a) ({dx}, {dy}) q1/f/g ({h}, {h}), B={b}, K=1024, T={t}: plans K1/K14 "
+          f"{fused_step.k1_plan(consts)!r} (tiles of {fused_step.k1_tile(consts)} particles), "
+          f"K4/K15 {fused_step.k4_plan(consts, k)!r} (tiles of {fused_step.k4_tile(consts, k)}), "
+          f"libraries {keys[0]} / {keys[1]}; K1 "
+          f"teacher-forced {r1['tf_flips']} flips, max|d| {r1['tf_err']:.2e}; K4 rel L2 "
+          + "/".join(f"{v:.1e}" for v in r4["rel"])
+          + f"; K14 {rs['idx_bad']} ancestors off, elementwise "
+          + "/".join(f"{v:.1e}" for v in rs["tf_rel"])
+          + f", the chain vs one K1 launch {rs['k1_idx']} ancestors off, max|d| {rs['vs_k1']}; "
+          f"K15 rel L2 " + "/".join(f"{v:.1e}" for v in rb["rel"])
+          + f" ({rb['zeroed']} of {rb['n']} tied particles zeroed), relaunch {rb['same']}, the "
+          f"chain vs one K4 launch " + "/".join(f"{v:.1e}" for v in rb["vs_k4"])
+          + f"; by C (K1 equal, K4 ok) {sw['C']}, by S (K14 equal, K15 ok) {sw['S']}, the sums' "
+          f"rel L2 to the first size (where above {WIDE_TOL['sums']:g}: with the two sizes' "
+          f"distances from float64) "
+          + ", ".join(f"{kind}={size}: " + "/".join(
+              f"{v:.1e}" if not isinstance(v, tuple) else "(" + ", ".join(f"{x:.1e}" for x in v)
+              + ")" for v in vals) for (kind, size), vals in sw["rel"].items())
+          + f"; chosen C/C/S/S {sw['chosen']}; {time.perf_counter() - t0:.1f} s -> "
+          f"{'ok' if all(ok.values()) else 'FAIL ' + str(ok)}",
+          flush=True)
+    if not all(ok.values()):
+        fail(f"(bh) ({dx}, {dy}) width {h}: {[k_ for k_, v in ok.items() if not v]} disagree "
+             f"with their plain versions (bounds {WIDE_TOL})")
+    fig = dict(keys=keys, chosen=sw["chosen"],
+               err=dict(k1=r1["tf_err"], k4=max(r4["maxd"]), k14=rs["tf_abs"],
+                        k15=max(rb["maxd"])))
+    if (dx, dy) == WIDE_DIMS[0]:
+        inp = rs["inp"]
+        fwd_args = (inp["x0"], inp["alpha0"], inp["coef"][0], inp["consts"], inp["eps"][0],
+                    inp["positions"][0])
+        args, d_xn, d_al, _ = rb["last"]
+        with torch.no_grad():
+            k1 = lambda: fused_step.scan_forward(inp["x0"], inp["alpha0"], inp["coef"],  # noqa
+                                                 inp["consts"], eps=inp["eps"],
+                                                 positions=inp["positions"])
+            k1_plain = lambda: fused_step.scan_forward_reference(  # noqa: E731
+                inp["x0"], inp["alpha0"], inp["coef"], inp["consts"], inp["eps"],
+                inp["positions"])
+            k14 = lambda: fused_step.step_forward(*fwd_args)  # noqa: E731
+            k15 = lambda: fused_step.step_backward(*args, d_xn, d_al)  # noqa: E731
+            fig["times"] = dict(
+                k1=(time_ms(k1, reps=3, warmup=1), time_ms(k1_plain, reps=1, warmup=1)),
+                k4=(time_ms(r4["kernel"], reps=3, warmup=1),
+                    time_ms(r4["plain"], reps=1, warmup=1)),
+                k14=(pair_ms(k14), time_ms(lambda: fused_step.step_forward_reference(*fwd_args),
+                                           reps=3, warmup=1)),
+                k15=(pair_ms(k15), time_ms(lambda: fused_step.step_backward_reference(
+                    args[0], args[4], args[5], args[6], args[2], args[7], d_xn, d_al),
+                    reps=3, warmup=1)))
+            b14, b15 = step_bounds(consts, fwd_args[:3] + fwd_args[4:], k14(), rb["last"])
+        fig["bounds"] = dict(k1=k1_bound_of(inp, True), k4=bound(r4["flops"], r4["n_bytes"]),
+                             k14=b14, k15=b15)
+        print(f"[bh] {card}: (a) (2, 2) width {h} at B={b}, K=1024, T={t}: "
+              + "; ".join(f"{kk.upper()} {v[0]:.3f} ms, plain {v[1]:.3f} ms, bound "
+                          f"{fig['bounds'][kk][0]:.4f} ms ({fig['bounds'][kk][1]})"
+                          for kk, v in fig["times"].items())
+              + f" (K1/K4 by CUDA events, median of 3 after a warm-up; K14/K15 {PAIR_HOW}; the "
+              f"plain versions by CUDA events, 1-3 runs); registers and spills {shape_resources(keys[0])}",
+              flush=True)
+    return fig
+
+
+def wide_drive(pt, dev, card, label, cfg, ys, serve, want_serve, want_train, n_train,
+               profile=True) -> dict:
+    """cfg on the card through its entry points: each of `serve` [(name,
+    fn(ssm, gen))] once after a warm-up, then n_train train steps on ys,
+    with launch counts against ROUTE_NAMES' wants and no plain version;
+    host-clock times, the train steps' peak memory and (with `profile`) a
+    device profile of one more step. Returns its figures."""
+    import torch
+
+    kernels, plain = route_counters()
+    ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 310)
+    figs = {"serve": {}}
+    for name, fn in serve:
+        fn(ssm, gen)  # warm-up
+        t0 = time.perf_counter()
+        out, launches, n_plain = kernel_counts(kernels, plain, lambda: fn(ssm, gen))
+        ms = (time.perf_counter() - t0) * 1e3
+        t_ = out if torch.is_tensor(out) else out["elbo"]
+        ok = bool(torch.isfinite(t_).all())
+        print(f"[bh] {card}: {label} {name}: shape {tuple(t_.shape)}, launches "
+              f"{dict(zip(ROUTE_NAMES, launches))}, plain versions {n_plain}, {ms:.1f} ms (host "
+              f"clock, after a warm-up), finite {ok}", flush=True)
+        if not ok or launches != want_serve[name] or n_plain:
+            fail(f"(bh) {label} {name}: launched {launches} (want {want_serve[name]}), plain "
+                 f"versions {n_plain}, finite {ok}")
+        figs["serve"][name] = dict(launches=launches, ms=ms)
+    step = pt.make_train_step(ssm, cfg, pt.make_optimizer(cfg))
+    step_s = []
+
+    def run():
+        out = []
+        for _ in range(n_train):
+            t1 = time.perf_counter()
+            out.append(step(gen, ys))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+        return out
+
+    before = [p_.detach().clone() for p_ in ssm.parameters()]
+    (metrics, launches, n_plain), peak = peak_gb(lambda: kernel_counts(kernels, plain, run))
+    losses = [float(m_["loss"]) for m_ in metrics]
+    norms = [float(m_["grad_norm"]) for m_ in metrics]
+    moved = sum(not torch.equal(a, p_.detach()) for a, p_ in zip(before, ssm.parameters()))
+    prof = (device_breakdown(lambda: step(gen, ys), 1, ROUTE_KERNELS) if profile
+            else "not taken")
+    print(f"[bh] {card}: {label} {n_train} train step(s) at B={ys.shape[0]}: loss "
+          f"{[round(v, 3) for v in losses]}, grad norm {[round(v, 3) for v in norms]}, {moved} "
+          f"parameter tensors moved, launches {dict(zip(ROUTE_NAMES, launches))} (want "
+          f"{dict(zip(ROUTE_NAMES, want_train))}), plain versions {n_plain}, step times "
+          f"{[round(1e3 * v, 1) for v in step_s]} ms (host clock, the first with its warm-up), "
+          f"peak {peak:.3f} GB above what was held; profile of one more step: {prof}", flush=True)
+    if (launches != want_train or n_plain or not all(math.isfinite(v) for v in losses + norms)
+            or not moved):
+        fail(f"(bh) {label} training launched {launches} (want {want_train}), plain versions "
+             f"{n_plain}, losses {losses}, grad norms {norms}, moved {moved}")
+    figs.update(train=launches, step_ms=[1e3 * v for v in step_s], peak=peak, profile=prof,
+                losses=losses)
+    return figs
+
+
+def wide_step_phases(pt, dev, card: str) -> dict:
+    """Phase (bh): the whole-step kernels above width 64. (a) K1/K4/K14/K15
+    against their plain versions at widths WIDE (two hidden layers) at
+    (Dx, Dy) = (2, 2) and (3, 1) (wide_check: every C and S the gates admit),
+    and one train step at (2, 2) of each width whole-scan and per step; (b)
+    the tiled plan forced at the presets' width 64 (FHN and Lorenz-63 at
+    B = 32, K = 1024, T = 100), bit-equal to the register plan in both noise
+    modes, K14's chain too; (c) fhn_fivo_k1024_bench with q0/q1/q2/f/g at
+    (128, 128): the card against the CPU, make_eval_step and
+    filter_posterior, WIDE_TRAIN train steps (one K1 and one K4 a step);
+    (d) lorenz63_psvo_k1024 at (128, 128): smooth_posterior and WIDE_TRAIN
+    PSVO train steps through K1/K4 and K5/K6; (e) (c)'s configuration with
+    SCAN_FUSED off: make_eval_step and one train step (99 K14, 99 K15).
+    Returns the figures for the kernels' JSON record and PERF.md."""
+    import torch
+    from psvo_tpu_torch.ops import _build, fused_step
+
+    figs = {"a": {}, "drive": {}}
+    keys = wide_shapes(pt)
+    t0 = time.perf_counter()
+    for key in keys:  # built beside phases c-; a build that failed there raises here
+        _build.load_shape_library(key)
+    widest = {d: max(h for h in range(8, 2049, 8) if fused_step.shape_fits(
+        fused_step.shape_consts(d, d, 0, h, 1), fused_step.PLAN_K)) for d in (2, 7)}
+    print(f"[bh] {card}: {shapes_line(keys)}; waited {time.perf_counter() - t0:.1f} s; the "
+          f"class at two hidden layers and K={fused_step.PLAN_K} reaches width {widest[2]} at "
+          f"Dx = Dy = 2 and {widest[7]} at Dx = Dy = 7 (fused_step.shape_fits)", flush=True)
+    figs["widest"] = widest
+    gen = torch.Generator(device=dev).manual_seed(SEED + 300)
+    n = {h: WIDE_SIZES[h][1] - 1 for h in WIDE}
+    for dx, dy in WIDE_DIMS:
+        for h in WIDE:
+            figs["a"][(dx, dy, h)] = wide_check(pt, dev, card, dx, dy, h, gen)
+            torch.cuda.empty_cache()
+    # one train step at (2, 2) of each width: whole scan, and per step
+    for h in WIDE:
+        b, t = WIDE_SIZES[h]
+        cfg = wide_config(pt, "fhn_fivo_k1024_bench", h, t=t)
+        ys = pt.generate_dataset(cfg.data, SEED).obs_train[:b].to(dev).contiguous()
+        drives = {}
+        for scan_fused in (True, False):
+            fused_step.SCAN_FUSED = scan_fused
+            try:
+                want = route_want({"K1": 1, "K4": 1} if scan_fused
+                                  else {"K14": n[h], "K15": n[h]})
+                drives[scan_fused] = wide_drive(
+                    pt, dev, card, f"(a) FHN (2, 2) width {h} {'whole scan' if scan_fused else 'SCAN_FUSED off'}",
+                    cfg, ys, [], {}, want, 1, profile=False)
+            finally:
+                fused_step.SCAN_FUSED = True
+        figs["a"][(2, 2, h)]["drives"] = drives
+    phase_done("bh-a: K1/K4/K14/K15 at widths 72, 128, 256")
+
+    # (b) the tiled plan forced at the presets' width 64
+    figs["b"] = {}
+    for preset, dx in (("fhn_fivo_k1024_bench", 2), ("lorenz63_psvo_k1024", 3)):
+        cfg = wide_config(pt, preset, 64)
+        ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED + 320 + dx), device=dev)
+        ys = torch.randn((32, cfg.data.t_steps, dx), device=dev, generator=gen)
+        with torch.no_grad():
+            inp = kernel_inputs(ssm, cfg, ys, gen)
+            args = (inp["x0"], inp["alpha0"], inp["coef"], inp["consts"])
+            seed = (31, 0xB1DE)
+            runs, ms = {}, {}
+            for plan in ("register", "tile"):
+                with (k1_plan_forced("tile") if plan == "tile" else contextlib.nullcontext()):
+                    key = fused_step._lib_key(inp["consts"], False, 1024)
+                    chain, x, lw = [], inp["x0"], inp["alpha0"]
+                    for t_ in range(inp["coef"].shape[0]):
+                        chain.append(fused_step.step_forward(
+                            x, lw, inp["coef"][t_], inp["consts"], inp["eps"][t_],
+                            inp["positions"][t_]))
+                        x, lw = chain[-1][:2]
+                    runs[plan] = (fused_step.scan_forward(*args, eps=inp["eps"],
+                                                          positions=inp["positions"],
+                                                          cache=True, save_res=True),
+                                  fused_step.scan_forward(*args, seed=seed, cache=True,
+                                                          save_res=True), chain, key)
+                    ms[plan] = time_ms(lambda: fused_step.scan_forward(*args, seed=seed),
+                                       reps=3, warmup=1)
+        same = [all(torch.equal(a, w) for a, w in zip(runs["register"][i], runs["tile"][i]))
+                for i in (0, 1)]
+        same.append(all(torch.equal(a, w) for s1, s2 in zip(runs["register"][2], runs["tile"][2])
+                        for a, w in zip(s1, s2)))
+        print(f"[bh] {card}: (b) {preset} (B=32, K=1024, T=100, q1/f/g (64, 64)): K1 under the "
+              f"tiled plan (library {runs['tile'][3]}, forced) vs the register plan (library "
+              f"{runs['register'][3] or 'the kernels own'}): stream noise bit-equal {same[0]}, "
+              f"in-kernel draw bit-equal {same[1]}, the chain of K14 launches bit-equal "
+              f"{same[2]}; K1 in-kernel draw {ms['register']:.3f} ms register, {ms['tile']:.3f} "
+              f"ms tiled (CUDA events, median of 3)", flush=True)
+        if not all(same):
+            fail(f"(bh) (b) {preset}: the tiled plan is not bit-equal to the register plan")
+        figs["b"][preset] = dict(same=same, ms=ms)
+        del ssm, inp, runs
+        torch.cuda.empty_cache()
+    phase_done("bh-b: the tiled plan at width 64")
+
+    # (c) FHN at (128, 128)
+    cfg = wide_config(pt, "fhn_fivo_k1024_bench", WIDE_NET, nets=WIDE_NETS)
+    cpu_ssm = pt.init_ssm(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    route = pt.smc.filter_route(cpu_ssm, cfg.smc, cfg.data.t_steps, True)
+    ds = pt.generate_dataset(cfg.data, SEED)
+    vs = card_vs_cpu(pt, dev, cfg, ds.obs_train[:2, :20], None, SEED + 330)
+    print(f"[bh] {card}: (c) fhn_fivo_k1024_bench, q0/q1/q2/f/g ({WIDE_NET}, {WIDE_NET}), K=1024, "
+          f"B=32, T=100: route {route!r}; the card vs the CPU, one train step at B=2, T=20: "
+          f"{vs_line(vs)}", flush=True)
+    if route != "fused" or not vs["ok"]:
+        fail(f"(bh) (c) FHN at ({WIDE_NET}, {WIDE_NET}): route {route}, or the card disagrees "
+             "with the CPU")
+    ys = ds.obs_train[:32].to(dev).contiguous()
+    serve = [("make_eval_step", lambda ssm, g: pt.make_eval_step(ssm, cfg)(g, ys)),
+             ("filter_posterior", lambda ssm, g: pt.filter_posterior(ssm, ys, cfg, g))]
+    figs["drive"]["c"] = wide_drive(
+        pt, dev, card, f"(c) FHN ({WIDE_NET}, {WIDE_NET})", cfg, ys, serve,
+        {"make_eval_step": route_want({"K1": 1}), "filter_posterior": route_want({"K1": 1})},
+        route_want({"K1": WIDE_TRAIN, "K4": WIDE_TRAIN}), WIDE_TRAIN)
+    figs["drive"]["c"]["vs"] = vs
+    torch.cuda.empty_cache()
+    phase_done("bh-c: FHN at (128, 128)")
+
+    # (d) Lorenz-63 PSVO at (128, 128)
+    lcfg = wide_config(pt, "lorenz63_psvo_k1024", WIDE_NET, nets=WIDE_NETS)
+    lds = pt.generate_dataset(lcfg.data, SEED)
+    vs = card_vs_cpu(pt, dev, lcfg, lds.obs_train[:2, :20], None, SEED + 340)
+    print(f"[bh] {card}: (d) lorenz63_psvo_k1024, q0/q1/q2/f/g ({WIDE_NET}, {WIDE_NET}), K=1024, "
+          f"M=16, B=32, T=100: the card vs the CPU, one train step at B=2, T=20: {vs_line(vs)}",
+          flush=True)
+    if not vs["ok"]:
+        fail(f"(bh) (d) Lorenz-63 PSVO at ({WIDE_NET}, {WIDE_NET}): the card disagrees with the "
+             "CPU")
+    lys = lds.obs_train[:32].to(dev).contiguous()
+    figs["drive"]["d"] = wide_drive(
+        pt, dev, card, f"(d) Lorenz-63 PSVO ({WIDE_NET}, {WIDE_NET})", lcfg, lys,
+        [("smooth_posterior", lambda ssm, g: pt.smooth_posterior(ssm, lys, lcfg, g))],
+        {"smooth_posterior": route_want({"K1": 1, "K5": 1})},
+        route_want({"K1": WIDE_TRAIN, "K4": WIDE_TRAIN, "K5": WIDE_TRAIN, "K6": WIDE_TRAIN}),
+        WIDE_TRAIN)
+    figs["drive"]["d"]["vs"] = vs
+    torch.cuda.empty_cache()
+    phase_done("bh-d: Lorenz-63 PSVO at (128, 128)")
+
+    # (e) (c) with SCAN_FUSED off
+    fused_step.SCAN_FUSED = False
+    n_e = cfg.data.t_steps - 1
+    try:
+        serve = [("make_eval_step", lambda ssm, g: pt.make_eval_step(ssm, cfg)(g, ys))]
+        figs["drive"]["e"] = wide_drive(
+            pt, dev, card, f"(e) FHN ({WIDE_NET}, {WIDE_NET}), SCAN_FUSED off", cfg, ys, serve,
+            {"make_eval_step": route_want({"K14": n_e})}, route_want({"K14": n_e, "K15": n_e}), 1)
+    finally:
+        fused_step.SCAN_FUSED = True
+    torch.cuda.empty_cache()
+    phase_done("bh-e: FHN at (128, 128), SCAN_FUSED off")
+    return figs
+
+
+def wide_rows(figs: dict) -> list:
+    """Phase bh's rows of the kernels' JSON record: K1, K4, K14 and K15 at
+    (2, 2) for each width of WIDE, their times and bounds at (a)'s shape,
+    launches from the train steps of (c) and (e) at width 128 and of (a)'s
+    drives at the other widths; max_abs_err the largest of (a)'s checks at
+    that width, both (Dx, Dy)."""
+    rows = []
+    for h in WIDE:
+        fig = figs["a"][(2, 2, h)]
+        if h == WIDE_NET:
+            launches = {"k1": figs["drive"]["c"]["train"], "k14": figs["drive"]["e"]["train"]}
+        else:
+            launches = {"k1": fig["drives"][True]["train"], "k14": fig["drives"][False]["train"]}
+        for kernel, kk, src, line, j, drive in (
+                ("scan_forward", "k1", "scan_forward.cuh", "1327", 0, "k1"),
+                ("scan_backward", "k4", "scan_backward.cuh", "1425", 1, "k1"),
+                ("step_forward", "k14", "scan_forward.cuh", "954", 0, "k14"),
+                ("step_backward", "k15", "scan_backward.cuh", "1013", 1, "k14")):
+            name = ("K1", "K4") if drive == "k1" else ("K14", "K15")
+            rows.append({
+                "name": f"{kernel} (width {h}, (2, 2))", "route": "cuda",
+                "source": f"psvo_tpu_torch/csrc/{src}",
+                "replaces": f"psvo_tpu/ops/pallas_step.py:{line}",
+                "launches": launches[drive][ROUTE_NAMES.index(name[j])], "on_path": True,
+                "max_abs_err": max(figs["a"][(dx, dy, h)]["err"][kk] for dx, dy in WIDE_DIMS),
+                "ms": fig["times"][kk][0], "plain_ms": fig["times"][kk][1],
+                "bound_ms": fig["bounds"][kk][0], "bound_by": fig["bounds"][kk][1],
+                "library_ms": None, "shape_library": fig["keys"][j],
+                "chosen_c_s": fig["chosen"][("k1", "k4", "k14", "k15").index(kk)]})
+    return rows
+
+
 def main() -> int:
     # (a) the card
     try:
@@ -6261,9 +6916,11 @@ def main() -> int:
     class_shapes = step_class_shapes(pt)
     reach_keys = reach_shapes(pt)
     bg_keys = [k_ for k_ in smoothing_class_shapes(pt) if k_ not in class_shapes]
-    build_shapes_beside(class_shapes + reach_keys + bg_keys)
-    print(f"[b] phase be's shape libraries {class_shapes}, phase bf's {reach_keys} and phase "
-          f"bg's {bg_keys}: building beside the next phases at nice 19", flush=True)
+    bh_keys = [k_ for k_ in wide_shapes(pt) if k_ not in class_shapes + bg_keys]
+    build_shapes_beside(class_shapes + reach_keys + bg_keys + bh_keys)
+    print(f"[b] phase be's shape libraries {class_shapes}, phase bf's {reach_keys}, phase "
+          f"bg's {bg_keys} and phase bh's {bh_keys}: building beside the next phases at nice 19",
+          flush=True)
     phase_done("a, b: card and build")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -6415,13 +7072,13 @@ def main() -> int:
     full = bwd[("full", "in-kernel RNG")]
     with torch.no_grad():
         k4_ms = time_ms(full["kernel"])
-        k4_plain = time_ms(full["plain"])
+        k4_plain = time_ms(full["plain"], reps=1, warmup=1)
         k4_ms_2 = time_ms(full["kernel"])
-        k4_plain_2 = time_ms(full["plain"])
+        k4_plain_2 = time_ms(full["plain"], reps=1, warmup=0)
     k4_bound, k4_by = bound(full["flops"], full["n_bytes"])
     print(f"[h] K4 full, in-kernel RNG: {k4_ms:.3f}/{k4_ms_2:.3f} ms vs plain "
-          f"{k4_plain:.3f}/{k4_plain_2:.3f} ms (kernel/plain alternated, median of 5 after 2 "
-          f"warm-up); bound {k4_bound:.3f} ms ({k4_by}: {full['flops']:.3e} FLOP, "
+          f"{k4_plain:.3f}/{k4_plain_2:.3f} ms (kernel/plain alternated, the kernel the median of "
+          f"5 after 2 warm-up, the plain version one run each, after one warm-up); bound {k4_bound:.3f} ms ({k4_by}: {full['flops']:.3e} FLOP, "
           f"{full['n_bytes'] / 1e6:.1f} MB)", flush=True)
     phase_done("h")
 
@@ -6516,7 +7173,8 @@ def main() -> int:
                 time_ms(lambda: fused_step.scan_forward_reference(*args, inp["eps"], inp["positions"],
                                                                   cache=True))]
         k4l_run = rb
-        k4l = [time_ms(rb["kernel"]), time_ms(rb["plain"]), time_ms(rb["kernel"]), time_ms(rb["plain"])]
+        k4l = [time_ms(rb["kernel"]), time_ms(rb["plain"], reps=1, warmup=1),
+               time_ms(rb["kernel"]), time_ms(rb["plain"], reps=1, warmup=0)]
     outs_l = fused_step.scan_forward(*args, **noise)
     t1, k = inp["coef"].shape[0], inp["x0"].shape[-1]
     k1l_bound, k1l_by = bound(trunk_flops(inp["consts"]) * t1 * batch * k,
@@ -7877,7 +8535,7 @@ def main() -> int:
     launches_per_call = cfg.train.steps_per_call * (cfg.data.t_steps - 1)
     pick_s, in_step = fused_step.step_slices, {}
     try:
-        for s_ in [1, c_] + [v for v in both if v not in (1, c_)] + [c_, 1]:
+        for s_ in [1, c_] + [v for v in both if v not in (1, c_)]:
             fused_step.step_slices = lambda *_, s_=s_: s_
             t = device_ms_by_kernel(lambda: train_step(run_gen, fhn_train_batch), n=1)
             t0 = time.perf_counter()
@@ -7894,7 +8552,7 @@ def main() -> int:
     print(f"[ae] inside one per-step train call of {fhn} ({cfg.train.steps_per_call} steps, "
           f"{launches_per_call} launches of each), by S (K14 ms / K15 ms with sum_rows per launch, "
           f"device busy ms per step, then one more call's host-clock ms per step; order 1, chosen, "
-          f"others, chosen, 1): "
+          f"others): "
           + ", ".join(f"S={s_}: " + "; ".join(f"{a:.4f} / {b_:.4f}, {c:.2f}, {d:.2f}"
                                               for a, b_, c, d in v)
                       for s_, v in in_step.items()), flush=True)
@@ -7969,6 +8627,7 @@ def main() -> int:
     class_figs = step_class_phases(pt, dev, card)
     reach_figs = reach_phases(pt, dev, card)
     bg_figs = smoothing_class_phases(pt, dev, card)
+    bh_figs = wide_step_phases(pt, dev, card)
 
 
     # K3: the CDF scan and a binary search per particle; logw and u0 in, int32 indices out.
@@ -8244,6 +8903,7 @@ def main() -> int:
                 "library_ms": None, "shape_library": fig["keys"][j % 2]})
     kernels += reach_rows(reach_figs)
     kernels += smoothing_class_rows(bg_figs)
+    kernels += wide_rows(bh_figs)
     print(f"[profiler] {PROFILE_WINDOWS['windows']} profiler windows, "
           f"{PROFILE_WINDOWS['empty']} of them with no device events (run again); of the timing "
           f"windows, {PROFILE_WINDOWS['partial']} recorded part of a kernel's events (timed by "
@@ -8251,7 +8911,8 @@ def main() -> int:
           f"instead (the profiler recorded none); {PROFILE_WINDOWS['queue_ran_dry']} queued "
           f"windows ran dry", flush=True)
     print("[summary] phase bg (d): " + (
-        f"the presets' {bg_figs['bits']} K5/K6/K12/K13 outputs bit-equal to the parent's build"
+        f"the presets' {bg_figs['bits']} K1/K4/K14/K15 and K5/K6/K12/K13 outputs bit-equal to "
+        "the parent's build"
         if bg_figs["bits"] is not None else "the presets' bits NOT compared (no parent digests "
         f"for this card; PARENT_BITS_CARD {PARENT_BITS_CARD})"), flush=True)
     print(json.dumps({"kernels": kernels}))

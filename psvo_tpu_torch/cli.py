@@ -116,29 +116,23 @@ def build(cfg: Config, data_npz: str | None = None, device="cuda"):
 def _inferred_test_latents(cfg, ssm, dataset, device):
     """Posterior latent paths on the test set for the parity plots, as numpy
     [n_test, T, Dx]: the smoothed trajectories (mean over the M backward
-    draws) for smoothing objectives, else the filtering means. Under the
-    active mesh each rank infers its rows, gathered over the data axis."""
-    from psvo_tpu_torch.objectives import make_objective
-    from psvo_tpu_torch.parallel import collectives, context
-    from psvo_tpu_torch.smc import forward_filter
-    from psvo_tpu_torch.train import filtered_means, local_rows
+    draws) for smoothing objectives, else the filtering means, through the
+    inference API (which, under the active mesh, infers each rank's rows and
+    gathers them over the data axis)."""
+    from psvo_tpu_torch.infer import filter_posterior, smooth_posterior
 
     gen = run_generator(cfg, 9, device)
     obs = dataset.obs_test.to(device)
     # q_uses_true_x: the encoder heads take Dx inputs and must see the latents
     enc = _encoder_inputs_for(cfg, dataset, device)
     ctrl = dataset.controls_test.to(device) if cfg.data.di else None
-    mesh = context.get_mesh()
-    if mesh is not None:
-        obs, enc, ctrl = local_rows(mesh, obs, enc, ctrl)
     if cfg.smc.objective in ("svo", "psvo"):
-        out = make_objective(ssm, cfg)(gen, obs, enc, None, ctrl)
-        means = out.smoothed.mean(dim=2).transpose(0, 1)
+        paths = smooth_posterior(ssm, obs, cfg, gen, method=cfg.smc.objective,
+                                 encoder_inputs=enc, controls=ctrl)
+        means = paths.mean(dim=1)
     else:
-        kw = {} if ctrl is None else {"controls": ctrl}
-        fwd = forward_filter(ssm, gen, obs, cfg.smc, cache=True, encoder_inputs=enc, **kw)
-        means = filtered_means(fwd)
-    return collectives.gather_rows(means).cpu().numpy()
+        means = filter_posterior(ssm, obs, cfg, gen, encoder_inputs=enc, controls=ctrl)
+    return means.cpu().numpy()
 
 
 def _encoder_inputs_for(cfg: Config, dataset, device):

@@ -7,8 +7,9 @@ namespace psvo {
 int scan_backward_max_active(int dx, int dy, int hidden, int cluster, int smem, int* out) {
   return with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
-    return max_active_clusters(scan_backward_kernel<D::DX, D::DY, D::H, D::NMID, D::BWD>,
-                               cluster, static_cast<size_t>(smem), out);
+    return max_active_clusters(
+        scan_backward_kernel<D::DX, D::DY, D::H, D::NMID, D::BWD, D::BP>, cluster,
+        static_cast<size_t>(smem), out);
   });
 }
 
@@ -41,9 +42,9 @@ extern "C" int psvo_scan_backward(const float* x0, const float* x_all, const int
     if (n_mid != D::NMID) return cudaErrorInvalidValue;  // the depth is instantiated
     const int n = n_weights + D::DX + D::DY;
     cudaError_t err = psvo::launch_clusters(
-        psvo::scan_backward_kernel<D::DX, D::DY, D::H, D::NMID, D::BWD>, a, B, cluster,
-        psvo::bwd_smem_bytes<D::DX, D::DY, D::H, D::NMID, D::BWD>(n_weights, K, K / cluster,
-                                                                  true, cluster, ctrl != 0),
+        psvo::scan_backward_kernel<D::DX, D::DY, D::H, D::NMID, D::BWD, D::BP>, a, B, cluster,
+        psvo::bwd_smem_bytes<D::DX, D::DY, D::H, D::NMID, D::BWD, D::BP>(
+            n_weights, K, K / cluster, true, cluster, ctrl != 0),
         s);
     if (err != cudaSuccess) return err;
     return psvo::sum_rows(partial, B * cluster, n, grads, s);

@@ -25,8 +25,9 @@
 // (grid = B·C, cluster.cuh; the host picks C, fused_step.cluster_size),
 // which walks t in reverse. CTA rank r owns particles [r·K/C, (r+1)·K/C)
 // and carries their cotangent of x_new, [DX][K/C], in shared memory (the
-// TPU kernel's dxc scratch). Per step, over tiles of kP = 64 particles of
-// the own slice (K/C is a multiple of kP, so the tiles are those of C = 1):
+// TPU kernel's dxc scratch). Per step, over tiles of P particles of the own
+// slice (P = kP = 64 but at the widest nets, below; K/C is a multiple of 64,
+// so the tiles are those of C = 1):
 //   1. regather x_res = x_{t-1}[idx_t] (x_{-1} = x0), read x_new, and read ε
 //      or regenerate it from K1's Philox counters (b, t, i);
 //   2. recompute the f trunk on x_res and the g trunk on x_new in K1's fmaf
@@ -52,7 +53,7 @@
 // products, ~26 kFLOP each. That is 2.5e11 FLOP at B=32, K=1024, T=100,
 // against ~40 MB of residual reads, so the fp32 CUDA cores bound it. Each
 // trunk stage is a small GEMM over the tile. Its operands sit in shared
-// memory in [unit][particle] layout, with rows padded to kP + 4 floats so
+// memory in [unit][particle] layout, with rows padded to P + 4 floats so
 // that float4 rows land on distinct banks. Each thread owns a 4x4 output
 // block and issues two 16-byte loads per 16 FMAs. Shared memory at H=64
 // holds the weights (53.8 KB at Dx=Dy=2, 55.3 KB at 3), their gradient
@@ -67,18 +68,24 @@
 // cluster barrier per step. Tensor cores (TF32/bf16 change the numerics)
 // are later work.
 //
-// The class (fused_step.usable): any Dx, Dy <= 7, hidden widths 8..64 in
-// steps of 8, 1 to 4 hidden layers (NMID, a template parameter: each net's
-// NMID + 1 layers recompute into and backpropagate through NMID + 1 tiles).
-// Where the weights, their gradient sums and 2·(NMID + 1) tiles exceed the
-// 227 KB a CTA may use (three layers of 48-64, or wide states at K = 2048),
-// a plan (step_math.cuh::BwdPlan, chosen by fused_step.k4_plan) moves them
-// out one at a time: the gradient sums to the CTA's row of `partial` in
-// device memory, whose owning thread adds into it as into shared memory
-// (kBwdGlobal); then one net's tiles at a time, g recomputed for its
-// backward after f's (kBwdSplit, one more forward of g a tile); then the
-// weights, read through L1 (kBwdStream). The adds, their order and their
-// owners do not change, so every plan gives the same bits.
+// The class (fused_step.usable): any Dx, Dy <= 7, any hidden width that is
+// a multiple of 8, any depth (NMID, a template parameter: each net's NMID + 1
+// layers recompute into and backpropagate through NMID + 1 tiles), as far as
+// the plans hold it. Where the weights, their gradient sums and 2·(NMID + 1)
+// tiles exceed the 227 KB a CTA may use (three layers of 48-64, wide states
+// at K = 2048, every width above 64), a plan (step_math.cuh::BwdPlan, chosen
+// by fused_step.k4_plan for the shape and K) moves them out one at a time:
+// the gradient sums to the CTA's row of `partial` in device memory, whose
+// owning thread adds into it as into shared memory (kBwdGlobal); then one
+// net's tiles at a time, g recomputed for its backward after f's (kBwdSplit,
+// one more forward of g a tile); then the weights, read through L1
+// (kBwdStream). The adds, their order and their owners do not change, so
+// every plan gives the same bits. Under kBwdStream, where two layers of a
+// wide net (above width 64) do not fit beside the rest at some K, the tiles
+// take fewer particles (P = 32 or 16, fused_step.k4_tile: at K = 1920 a row
+// takes one or two CTAs): each gradient entry still has one owner adding
+// its tiles' sums in particle order, in more, smaller tiles, so a shape and
+// K has one set of bits for every plan, C and S.
 //
 // Controls (ctrl = 1, data.di > 0; scan_forward.cuh says how K1 takes them):
 // each step copies b1 + c of q1 and f into shared memory (cb) for the
@@ -114,12 +121,9 @@
 #include "resample.cuh"
 #include "step_math.cuh"
 #include "step_slices.cuh"
+#include "step_tiles.cuh"
 
 namespace psvo {
-
-constexpr int kP = 64;       // particles per tile
-constexpr int kPS = kP + 4;  // row stride of the tile arrays, in floats
-constexpr int kPB = kP / 4;  // 4-particle blocks per tile row
 
 struct BwdArgs {
   const float* x0;           // [B, DX, K]
@@ -141,96 +145,21 @@ struct BwdArgs {
   uint32_t seed0, seed1;
   int use_rng, B, K, T1, n_weights, off_f, off_g;
   int ctrl;                  // 1: coef rows end in the controls' q1 and f first-layer terms [2H]
-  int cluster;               // C: CTAs per row, K/C a multiple of kP when C > 1
+  int cluster;               // C: CTAs per row, K/C a multiple of kP = 64 when C > 1
 };
-
-// Offsets inside one net's segment of the packed buffer: W1 [DIN, H], b1
-// [H], then per middle layer j = 1..NMID Wj [H, H], bj [H], then W3 [H, DOUT],
-// b3 [DOUT].
-template <int DIN, int H, int DOUT, int NMID>
-struct Net {
-  static constexpr int W1 = 0, B1 = DIN * H, W3 = B1 + H + NMID * (H * H + H),
-                       B3 = W3 + H * DOUT;
-  __host__ __device__ static constexpr int W(int j) { return B1 + H + (j - 1) * (H * H + H); }
-  __host__ __device__ static constexpr int B(int j) { return W(j) + H * H; }
-};
-
-__device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x;
-  v[1] = q.y;
-  v[2] = q.z;
-  v[3] = q.w;
-}
-
-__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// y[o][p] = relu(b[o] + Σ_i W[i][o] x[i][p]) over the tile, in K1's fmaf
-// order. x [DIN][kPS], W [DIN][H] row-major, y [H][kPS]. Each thread owns
-// units o0..o0+3 of particles p0..p0+3.
-template <int DIN, int H>
-__device__ __forceinline__ void dense_relu_tile(const float* __restrict__ w,
-                                                const float* __restrict__ bias,
-                                                const float* __restrict__ x,
-                                                float* __restrict__ y) {
-  for (int blk = threadIdx.x; blk < (H / 4) * kPB; blk += kThreads) {
-    const int o0 = (blk / kPB) * 4, p0 = (blk % kPB) * 4;
-    float bv[4], acc[4][4];
-    ld4(bias + o0, bv);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = bv[r];
-    }
-#pragma unroll 4
-    for (int i = 0; i < DIN; ++i) {
-      float wv[4], xv[4];
-      ld4(w + i * H + o0, wv);
-      ld4(x + i * kPS + p0, xv);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(xv[c], wv[r], acc[r][c]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float out[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) out[c] = fmaxf(acc[r][c], 0.0f);
-      st4(y + (o0 + r) * kPS + p0, out);
-    }
-  }
-}
-
-// m[d][p] = b3[d] + Σ_o W3[o][d] x[o][p]: the mean head, in K1's order.
-template <int H, int DOUT>
-__device__ __forceinline__ void dense_out_tile(const float* __restrict__ w3,
-                                               const float* __restrict__ b3,
-                                               const float* __restrict__ x,
-                                               float* __restrict__ m) {
-  for (int e = threadIdx.x; e < DOUT * kP; e += kThreads) {
-    const int d = e / kP, p = e % kP;
-    float acc = b3[d];
-#pragma unroll 8
-    for (int o = 0; o < H; ++o) acc = fmaf(x[o * kPS + p], w3[o * DOUT + d], acc);
-    m[d * kPS + p] = acc;
-  }
-}
 
 // Backward stage 1: dW3[o][d] += Σ_p h2[o][p]·dm[d][p], db3[d] += Σ_p dm[d][p].
 // g3 points at the net's dW3 (db3 follows); one owning thread per entry.
-template <int H, int DOUT>
+template <int H, int DOUT, int P>
 __device__ __forceinline__ void bwd_head_grads(const float* __restrict__ h2,
                                                const float* __restrict__ dm, float* g3) {
+  constexpr int PS = P + 4;
   for (int e = threadIdx.x; e < H * DOUT + DOUT; e += kThreads) {
     const bool is_w = e < H * DOUT;
-    const float* dr = dm + (is_w ? e % DOUT : e - H * DOUT) * kPS;
-    const float* hr = h2 + (is_w ? e / DOUT : 0) * kPS;
+    const float* dr = dm + (is_w ? e % DOUT : e - H * DOUT) * PS;
+    const float* hr = h2 + (is_w ? e / DOUT : 0) * PS;
     float s = 0.0f;
-    for (int p = 0; p < kP; p += 4) {
+    for (int p = 0; p < P; p += 4) {
       float dv[4], hv[4];
       ld4(dr + p, dv);
       ld4(hr + p, hv);
@@ -242,24 +171,25 @@ __device__ __forceinline__ void bwd_head_grads(const float* __restrict__ h2,
 }
 
 // Backward stage 2, in place: h2[o][p] <- (Σ_d W3[o][d]·dm[d][p]) · [h2[o][p] > 0].
-template <int H, int DOUT>
+template <int H, int DOUT, int P>
 __device__ __forceinline__ void bwd_pre2(const float* __restrict__ w3,
                                          const float* __restrict__ dm, float* h2) {
-  for (int e = threadIdx.x; e < H * kPB; e += kThreads) {
-    const int o = e / kPB, p0 = (e % kPB) * 4;
+  constexpr int PS = P + 4, PB = P / 4;
+  for (int e = threadIdx.x; e < H * PB; e += kThreads) {
+    const int o = e / PB, p0 = (e % PB) * 4;
     float hv[4], dh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    ld4(h2 + o * kPS + p0, hv);
+    ld4(h2 + o * PS + p0, hv);
 #pragma unroll
     for (int d = 0; d < DOUT; ++d) {
       float dv[4];
-      ld4(dm + d * kPS + p0, dv);
+      ld4(dm + d * PS + p0, dv);
       const float wv = w3[o * DOUT + d];
 #pragma unroll
       for (int c = 0; c < 4; ++c) dh[c] = fmaf(dv[c], wv, dh[c]);
     }
 #pragma unroll
     for (int c = 0; c < 4; ++c) hv[c] = hv[c] > 0.0f ? dh[c] : 0.0f;
-    st4(h2 + o * kPS + p0, hv);
+    st4(h2 + o * PS + p0, hv);
   }
 }
 
@@ -268,10 +198,11 @@ __device__ __forceinline__ void bwd_pre2(const float* __restrict__ w3,
 // into gb. A thread owns rows i0 + S·a and columns o0 + S·c (S = H/4):
 // neighbouring lanes read neighbouring rows, which the padded stride puts
 // on other banks.
-template <int H>
+template <int H, int P>
 __device__ __forceinline__ void bwd_mid_grads(const float* __restrict__ h1,
                                               const float* __restrict__ dpre2, float* gw,
                                               float* gb) {
+  constexpr int PS = P + 4;
   constexpr int S = H / 4;
   for (int blk = threadIdx.x; blk < S * S; blk += kThreads) {
     const int i0 = blk / S, o0 = blk % S;
@@ -281,12 +212,12 @@ __device__ __forceinline__ void bwd_mid_grads(const float* __restrict__ h1,
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[a][c] = 0.0f;
     }
-    for (int p = 0; p < kP; p += 4) {
+    for (int p = 0; p < P; p += 4) {
       float hv[4][4], dv[4][4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) ld4(h1 + (i0 + S * a) * kPS + p, hv[a]);
+      for (int a = 0; a < 4; ++a) ld4(h1 + (i0 + S * a) * PS + p, hv[a]);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) ld4(dpre2 + (o0 + S * c) * kPS + p, dv[c]);
+      for (int c = 0; c < 4; ++c) ld4(dpre2 + (o0 + S * c) * PS + p, dv[c]);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
 #pragma unroll
@@ -304,9 +235,9 @@ __device__ __forceinline__ void bwd_mid_grads(const float* __restrict__ h1,
   }
   for (int o = threadIdx.x; o < H; o += kThreads) {
     float s = 0.0f;
-    for (int p = 0; p < kP; p += 4) {
+    for (int p = 0; p < P; p += 4) {
       float dv[4];
-      ld4(dpre2 + o * kPS + p, dv);
+      ld4(dpre2 + o * PS + p, dv);
 #pragma unroll
       for (int c = 0; c < 4; ++c) s += dv[c];
     }
@@ -315,11 +246,12 @@ __device__ __forceinline__ void bwd_mid_grads(const float* __restrict__ h1,
 }
 
 // Backward stage 4, in place: h1[i][p] <- (Σ_o W2[i][o]·dpre2[o][p]) · [h1[i][p] > 0].
-template <int H>
+template <int H, int P>
 __device__ __forceinline__ void bwd_pre1(const float* __restrict__ w2,
                                          const float* __restrict__ dpre2, float* h1) {
-  for (int blk = threadIdx.x; blk < (H / 4) * kPB; blk += kThreads) {
-    const int i0 = (blk / kPB) * 4, p0 = (blk % kPB) * 4;
+  constexpr int PS = P + 4, PB = P / 4;
+  for (int blk = threadIdx.x; blk < (H / 4) * PB; blk += kThreads) {
+    const int i0 = (blk / PB) * 4, p0 = (blk % PB) * 4;
     float acc[4][4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -331,7 +263,7 @@ __device__ __forceinline__ void bwd_pre1(const float* __restrict__ w2,
 #pragma unroll
       for (int r = 0; r < 4; ++r) ld4(w2 + (i0 + r) * H + o, wv[r]);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) ld4(dpre2 + (o + q) * kPS + p0, dv[q]);
+      for (int q = 0; q < 4; ++q) ld4(dpre2 + (o + q) * PS + p0, dv[q]);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
 #pragma unroll
@@ -344,10 +276,10 @@ __device__ __forceinline__ void bwd_pre1(const float* __restrict__ w2,
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       float hv[4];
-      ld4(h1 + (i0 + r) * kPS + p0, hv);
+      ld4(h1 + (i0 + r) * PS + p0, hv);
 #pragma unroll
       for (int c = 0; c < 4; ++c) hv[c] = hv[c] > 0.0f ? acc[r][c] : 0.0f;
-      st4(h1 + (i0 + r) * kPS + p0, hv);
+      st4(h1 + (i0 + r) * PS + p0, hv);
     }
   }
 }
@@ -355,19 +287,20 @@ __device__ __forceinline__ void bwd_pre1(const float* __restrict__ w2,
 // Backward stage 5: dW1[d][i] += Σ_p x[d][p]·dpre1[i][p], db1[i] += Σ_p dpre1[i][p],
 // and the input cotangent dx[d][p] (= or +=) Σ_i W1[d][i]·dpre1[i][p]. With
 // csum (controls), the owner of db1[i] also adds the tile's sum to csum[i].
-template <int DIN, int H, bool kAdd>
+template <int DIN, int H, bool kAdd, int P>
 __device__ __forceinline__ void bwd_input(const float* __restrict__ w1,
                                           const float* __restrict__ x,
                                           const float* __restrict__ dpre1, float* g,
                                           float* __restrict__ dx, double* csum = nullptr) {
+  constexpr int PS = P + 4;
   constexpr int NG = DIN * H + H;  // W1 then b1 in the segment
-  for (int e = threadIdx.x; e < NG + DIN * kP; e += kThreads) {
+  for (int e = threadIdx.x; e < NG + DIN * P; e += kThreads) {
     if (e < NG) {
       const bool is_w = e < DIN * H;
-      const float* dr = dpre1 + (is_w ? e % H : e - DIN * H) * kPS;
-      const float* xr = x + (is_w ? e / H : 0) * kPS;
+      const float* dr = dpre1 + (is_w ? e % H : e - DIN * H) * PS;
+      const float* xr = x + (is_w ? e / H : 0) * PS;
       float s = 0.0f;
-      for (int p = 0; p < kP; p += 4) {
+      for (int p = 0; p < P; p += 4) {
         float dv[4], xv[4];
         ld4(dr + p, dv);
         ld4(xr + p, xv);
@@ -377,11 +310,11 @@ __device__ __forceinline__ void bwd_input(const float* __restrict__ w1,
       g[e] += s;
       if (!is_w && csum != nullptr) csum[e - DIN * H] += static_cast<double>(s);
     } else {
-      const int f = e - NG, d = f / kP, p = f % kP;
+      const int f = e - NG, d = f / P, p = f % P;
       float s = 0.0f;
 #pragma unroll 8
-      for (int i = 0; i < H; ++i) s = fmaf(dpre1[i * kPS + p], w1[d * H + i], s);
-      dx[d * kPS + p] = kAdd ? dx[d * kPS + p] + s : s;
+      for (int i = 0; i < H; ++i) s = fmaf(dpre1[i * PS + p], w1[d * H + i], s);
+      dx[d * PS + p] = kAdd ? dx[d * PS + p] + s : s;
     }
   }
 }
@@ -410,19 +343,19 @@ template <int DX>
 constexpr int kCoefSums = 3 * DX + 1;
 
 // Where plan BWD (step_math.cuh) keeps a CTA's weights, gradient sums and
-// activation tiles: kTiles [H][kPS] tiles, f's NMID + 1 layers then g's
+// activation tiles: kTiles [H][P + 4] tiles, f's NMID + 1 layers then g's
 // (then q1's), or under a split plan one net's layers at a time.
-template <int H, int NMID, int BWD>
+template <int H, int NMID, int BWD, int P = kP>
 struct BwdLayout {
   static constexpr bool kSplit = BWD == kBwdSplit || BWD == kBwdStream;
   static constexpr bool kWtsSmem = BWD != kBwdStream;  // else the weights stay in device memory
   static constexpr bool kGradSmem = BWD == kBwdSmem;   // else the CTA's row of `partial`
   static constexpr int kTiles = (kSplit ? 1 : 2) * (NMID + 1);
-  static constexpr int kTileFloats = kTiles * H * kPS;
+  static constexpr int kTileFloats = kTiles * H * (P + 4);
 };
 
 // A CTA's shared memory in K4 and K15: the weights and their gradient sums
-// (as the plan keeps them), the activation tiles, the [D][kPS] tile arrays,
+// (as the plan keeps them), the activation tiles, the [D][P + 4] tile arrays,
 // K4's carry of the slice, d x_res of the slice (twice at C > 1, by t's
 // parity), with controls the step's first-layer biases of q1 and f and their
 // cotangent sums (twice, by t's parity), the slice's d_coef sums (C > 1, by
@@ -433,8 +366,8 @@ struct BwdLayout {
 // carves them as K4 does.
 struct BwdSmem {
   float *wts, *gacc;               // [n_weights] each: shared or device memory
-  float* act;                      // [kTiles][H][kPS]: f's layers, then g's (then q1's)
-  float *xr, *xn, *ep;             // [DX][kPS]: x_res, x_new, ε
+  float* act;                      // [kTiles][H][P + 4]: f's layers, then g's (then q1's)
+  float *xr, *xn, *ep;             // [DX][P + 4]: x_res, x_new, ε
   float *mf, *mg, *mq;             // trunk means
   float *dmf, *dmg, *dmq;          // cotangents of the trunk means
   float *dxn, *dxr;                // d x_new, d x_res of the tile
@@ -449,11 +382,12 @@ struct BwdSmem {
 
 // weights: the packed weights in device memory, partial: the CTA's row of
 // the partial gradients; the plan reads them where they stay.
-template <int DX, int DY, int H, int NMID, int BWD>
+template <int DX, int DY, int H, int NMID, int BWD, int P>
 __device__ __forceinline__ BwdSmem carve_bwd(unsigned char* smem, const float* weights,
                                              float* partial, int n_weights, int K, int n,
                                              bool carry, int C, bool ctrl) {
-  using L = BwdLayout<H, NMID, BWD>;
+  using L = BwdLayout<H, NMID, BWD, P>;
+  constexpr int PS = P + 4;
   BwdSmem s;
   float* p = reinterpret_cast<float*>(smem);
   s.wts = L::kWtsSmem ? p : const_cast<float*>(weights);
@@ -462,17 +396,17 @@ __device__ __forceinline__ BwdSmem carve_bwd(unsigned char* smem, const float* w
   p += L::kGradSmem ? n_weights : 0;
   s.act = p;
   s.xr = s.act + L::kTileFloats;
-  s.xn = s.xr + DX * kPS;
-  s.ep = s.xn + DX * kPS;
-  s.mf = s.ep + DX * kPS;
-  s.mg = s.mf + DX * kPS;
-  s.mq = s.mg + DY * kPS;
-  s.dmf = s.mq + DX * kPS;
-  s.dmg = s.dmf + DX * kPS;
-  s.dmq = s.dmg + DY * kPS;
-  s.dxn = s.dmq + DX * kPS;
-  s.dxr = s.dxn + DX * kPS;
-  s.carry = s.dxr + DX * kPS;
+  s.xn = s.xr + DX * PS;
+  s.ep = s.xn + DX * PS;
+  s.mf = s.ep + DX * PS;
+  s.mg = s.mf + DX * PS;
+  s.mq = s.mg + DY * PS;
+  s.dmf = s.mq + DX * PS;
+  s.dmg = s.dmf + DX * PS;
+  s.dmq = s.dmg + DY * PS;
+  s.dxn = s.dmq + DX * PS;
+  s.dxr = s.dxn + DX * PS;
+  s.carry = s.dxr + DX * PS;
   s.dxres = s.carry + (carry ? DX * n : 0);
   s.cb = s.dxres + (C > 1 ? 2 : 1) * DX * n;  // 16-byte aligned, as every extent before it
   s.csum = reinterpret_cast<double*>(s.cb + (ctrl ? 2 * H : 0));  // 8-byte aligned: H % 4 == 0
@@ -482,11 +416,11 @@ __device__ __forceinline__ BwdSmem carve_bwd(unsigned char* smem, const float* w
   return s;
 }
 
-template <int DX, int DY, int H, int NMID, int BWD>
+template <int DX, int DY, int H, int NMID, int BWD, int P>
 size_t bwd_smem_bytes(int n_weights, int K, int n, bool carry, int C, bool ctrl) {
-  using L = BwdLayout<H, NMID, BWD>;
+  using L = BwdLayout<H, NMID, BWD, P>;
   return sizeof(float) * ((L::kWtsSmem ? n_weights : 0) + (L::kGradSmem ? n_weights : 0) +
-                          L::kTileFloats + (9 * DX + 2 * DY) * kPS + (carry ? DX * n : 0) +
+                          L::kTileFloats + (9 * DX + 2 * DY) * (P + 4) + (carry ? DX * n : 0) +
                           (C > 1 ? 2 : 1) * DX * n + (ctrl ? 2 * H : 0) +
                           (C > 1 ? 2 * kCoefSums<DX> : 0) + kWarps) +
          sizeof(double) * (ctrl ? 4 * H : 0) + sizeof(int) * K;
@@ -494,37 +428,37 @@ size_t bwd_smem_bytes(int n_weights, int K, int n, bool carry, int C, bool ctrl)
 
 // The forward recompute of net a (with TWO also net b, stage by stage beside
 // it) over the tile: its NMID + 1 hidden layers into its tiles t[j] = t +
-// j·H·kPS from input x [DIN][kPS] (first-layer bias b1), then its mean head
+// j·H·(P + 4) from input x [DIN][P + 4] (first-layer bias b1), then its mean head
 // into m; K1's fmaf order. Ends on a barrier.
-template <int DIN, int H, int NMID, int DA, int DB, bool TWO>
+template <int DIN, int H, int NMID, int DA, int DB, bool TWO, int P>
 __device__ __forceinline__ void forward_tiles(const float* wa, const float* ba, const float* xa,
                                               float* ta, float* ma, const float* wb,
                                               const float* bb, const float* xb, float* tb,
                                               float* mb) {
   using NA = Net<DIN, H, DA, NMID>;
   using NB = Net<DIN, H, DB, NMID>;
-  constexpr int T = H * kPS;
-  dense_relu_tile<DIN, H>(wa + NA::W1, ba, xa, ta);
-  if constexpr (TWO) dense_relu_tile<DIN, H>(wb + NB::W1, bb, xb, tb);
+  constexpr int T = H * (P + 4);
+  dense_relu_tile<DIN, H, P>(wa + NA::W1, ba, xa, ta);
+  if constexpr (TWO) dense_relu_tile<DIN, H, P>(wb + NB::W1, bb, xb, tb);
   __syncthreads();
 #pragma unroll
   for (int j = 1; j <= NMID; ++j) {
-    dense_relu_tile<H, H>(wa + NA::W(j), wa + NA::B(j), ta + (j - 1) * T, ta + j * T);
+    dense_relu_tile<H, H, P>(wa + NA::W(j), wa + NA::B(j), ta + (j - 1) * T, ta + j * T);
     if constexpr (TWO)
-      dense_relu_tile<H, H>(wb + NB::W(j), wb + NB::B(j), tb + (j - 1) * T, tb + j * T);
+      dense_relu_tile<H, H, P>(wb + NB::W(j), wb + NB::B(j), tb + (j - 1) * T, tb + j * T);
     __syncthreads();
   }
-  dense_out_tile<H, DA>(wa + NA::W3, wa + NA::B3, ta + NMID * T, ma);
-  if constexpr (TWO) dense_out_tile<H, DB>(wb + NB::W3, wb + NB::B3, tb + NMID * T, mb);
+  dense_out_tile<H, DA, P>(wa + NA::W3, wa + NA::B3, ta + NMID * T, ma);
+  if constexpr (TWO) dense_out_tile<H, DB, P>(wb + NB::W3, wb + NB::B3, tb + NMID * T, mb);
   __syncthreads();
 }
 
 // The backward of net a (with TWO also net b, beside it) over the tile from
-// its mean's cotangent dm [DOUT][kPS], on the tiles forward_tiles left: the
+// its mean's cotangent dm [DOUT][P + 4], on the tiles forward_tiles left: the
 // gradient sums into its segment g, the pre-activation cotangents in place
 // in its tiles, and the input cotangent into dx (=, or += with ADD); with
 // cs (controls), the first layer's bias cotangent sums. Ends on a barrier.
-template <int DIN, int H, int NMID, int DA, int DB, bool TWO, bool ADD_A, bool ADD_B>
+template <int DIN, int H, int NMID, int DA, int DB, bool TWO, bool ADD_A, bool ADD_B, int P>
 __device__ __forceinline__ void backward_net_tiles(const float* wa, float* ga, const float* xa,
                                                    float* ta, const float* dma, float* dxa,
                                                    double* csa, const float* wb, float* gb,
@@ -532,24 +466,24 @@ __device__ __forceinline__ void backward_net_tiles(const float* wa, float* ga, c
                                                    float* dxb, double* csb) {
   using NA = Net<DIN, H, DA, NMID>;
   using NB = Net<DIN, H, DB, NMID>;
-  constexpr int T = H * kPS;
-  bwd_head_grads<H, DA>(ta + NMID * T, dma, ga + NA::W3);
-  if constexpr (TWO) bwd_head_grads<H, DB>(tb + NMID * T, dmb, gb + NB::W3);
+  constexpr int T = H * (P + 4);
+  bwd_head_grads<H, DA, P>(ta + NMID * T, dma, ga + NA::W3);
+  if constexpr (TWO) bwd_head_grads<H, DB, P>(tb + NMID * T, dmb, gb + NB::W3);
   __syncthreads();
-  bwd_pre2<H, DA>(wa + NA::W3, dma, ta + NMID * T);
-  if constexpr (TWO) bwd_pre2<H, DB>(wb + NB::W3, dmb, tb + NMID * T);
+  bwd_pre2<H, DA, P>(wa + NA::W3, dma, ta + NMID * T);
+  if constexpr (TWO) bwd_pre2<H, DB, P>(wb + NB::W3, dmb, tb + NMID * T);
   __syncthreads();
 #pragma unroll
   for (int j = NMID; j >= 1; --j) {
-    bwd_mid_grads<H>(ta + (j - 1) * T, ta + j * T, ga + NA::W(j), ga + NA::B(j));
-    if constexpr (TWO) bwd_mid_grads<H>(tb + (j - 1) * T, tb + j * T, gb + NB::W(j), gb + NB::B(j));
+    bwd_mid_grads<H, P>(ta + (j - 1) * T, ta + j * T, ga + NA::W(j), ga + NA::B(j));
+    if constexpr (TWO) bwd_mid_grads<H, P>(tb + (j - 1) * T, tb + j * T, gb + NB::W(j), gb + NB::B(j));
     __syncthreads();
-    bwd_pre1<H>(wa + NA::W(j), ta + j * T, ta + (j - 1) * T);
-    if constexpr (TWO) bwd_pre1<H>(wb + NB::W(j), tb + j * T, tb + (j - 1) * T);
+    bwd_pre1<H, P>(wa + NA::W(j), ta + j * T, ta + (j - 1) * T);
+    if constexpr (TWO) bwd_pre1<H, P>(wb + NB::W(j), tb + j * T, tb + (j - 1) * T);
     __syncthreads();
   }
-  bwd_input<DIN, H, ADD_A>(wa + NA::W1, xa, ta, ga + NA::W1, dxa, csa);
-  if constexpr (TWO) bwd_input<DIN, H, ADD_B>(wb + NB::W1, xb, tb, gb + NB::W1, dxb, csb);
+  bwd_input<DIN, H, ADD_A, P>(wa + NA::W1, xa, ta, ga + NA::W1, dxa, csa);
+  if constexpr (TWO) bwd_input<DIN, H, ADD_B, P>(wb + NB::W1, xb, tb, gb + NB::W1, dxb, csb);
   __syncthreads();
 }
 
@@ -608,7 +542,7 @@ __device__ __forceinline__ void write_coef_row(float* dc, const float (&sums)[kC
 // into csum [2H] (load_control_bias set both up). Under a split plan g is
 // recomputed on x_new before f, and again for its backward after f's (its
 // tiles are f's): the same values, one more forward of g. Ends on a barrier.
-template <int DX, int DY, int H, int NMID, int BWD>
+template <int DX, int DY, int H, int NMID, int BWD, int P>
 __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s, const int* idx,
                                                int lo, int hi, float* dxres, int ld, int K,
                                                int off_f, int off_g, const float (&sfi)[DX],
@@ -616,9 +550,10 @@ __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s
                                                double (&dsg)[DY], bool use_rng, uint32_t seed0,
                                                uint32_t seed1, int b, int t,
                                                float (&sums)[kCoefSums<DX>], double* csum) {
+  constexpr int PS = P + 4;
   using NQ = Net<DX, H, DX, NMID>;  // q1 and f
   using NG = Net<DX, H, DY, NMID>;  // g
-  constexpr bool kSplit = BwdLayout<H, NMID, BWD>::kSplit;
+  constexpr bool kSplit = BwdLayout<H, NMID, BWD, P>::kSplit;
   const int tid = threadIdx.x;
   const float* wq = s.wts;
   const float* wf = s.wts + off_f;
@@ -627,9 +562,9 @@ __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s
   float* gf = s.gacc + off_f;
   float* gg = s.gacc + off_g;
   const float log_k = logf(static_cast<float>(K));
-  const int p = tid;  // this thread's particle slot in a tile (tid < kP)
+  const int p = tid;  // this thread's particle slot in a tile (tid < P)
   float* tf = s.act;                                           // f's tiles
-  float* tg = s.act + (kSplit ? 0 : (NMID + 1) * H * kPS);  // g's, then q1's
+  float* tg = s.act + (kSplit ? 0 : (NMID + 1) * H * PS);  // g's, then q1's
   float *xr = s.xr, *xn = s.xn, *ep = s.ep;
   float *mf = s.mf, *mg = s.mg, *mq = s.mq, *dmf = s.dmf, *dmg = s.dmg, *dmq = s.dmq;
   float *dxn = s.dxn, *dxr = s.dxr;
@@ -651,41 +586,41 @@ __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s
 #pragma unroll
   for (int d = 0; d < DX; ++d) s_aq[d] = s_cq[d] = s_sq[d] = 0.0f;
 
-  for (int i0 = lo; i0 < hi; i0 += kP) {
+  for (int i0 = lo; i0 < hi; i0 += P) {
     const int i = i0 + p;
-    const bool mine = p < kP && i < hi;  // a live particle of this tile
+    const bool mine = p < P && i < hi;  // a live particle of this tile
     // 1. operands of the tile
-    if (p < kP) {
+    if (p < P) {
       float e[DX];
       if (mine && use_rng) draw_eps<DX>(seed0, seed1, b, t, i, K, e);
 #pragma unroll
       for (int d = 0; d < DX; ++d) {
-        xr[d * kPS + p] = mine ? r.x_prev[d * K + idx[i]] : 0.0f;
-        xn[d * kPS + p] = mine ? r.x_cur[d * K + i] : 0.0f;
-        ep[d * kPS + p] = !mine ? 0.0f : (use_rng ? e[d] : r.eps[d * K + i]);
+        xr[d * PS + p] = mine ? r.x_prev[d * K + idx[i]] : 0.0f;
+        xn[d * PS + p] = mine ? r.x_cur[d * K + i] : 0.0f;
+        ep[d * PS + p] = !mine ? 0.0f : (use_rng ? e[d] : r.eps[d * K + i]);
       }
     }
     __syncthreads();
     // 2. recompute f on x_res and g on x_new
     if constexpr (kSplit) {
-      forward_tiles<DX, H, NMID, DY, DY, false>(wg, wg + NG::B1, xn, tg, mg, nullptr, nullptr,
+      forward_tiles<DX, H, NMID, DY, DY, false, P>(wg, wg + NG::B1, xn, tg, mg, nullptr, nullptr,
                                                 nullptr, nullptr, nullptr);
-      forward_tiles<DX, H, NMID, DX, DX, false>(wf, bf, xr, tf, mf, nullptr, nullptr, nullptr,
+      forward_tiles<DX, H, NMID, DX, DX, false, P>(wf, bf, xr, tf, mf, nullptr, nullptr, nullptr,
                                                 nullptr, nullptr);
     } else {
-      forward_tiles<DX, H, NMID, DX, DY, true>(wf, bf, xr, tf, mf, wg, wg + NG::B1, xn, tg, mg);
+      forward_tiles<DX, H, NMID, DX, DY, true, P>(wf, bf, xr, tf, mf, wg, wg + NG::B1, xn, tg, mg);
     }
     // 3. α, its cotangent, and the cotangents of m_f, m_g and x_new
-    if (p < kP) {
+    if (p < P) {
       float xv[DX], mfv[DX], ev[DX], mgv[DY], da = 0.0f;
 #pragma unroll
       for (int d = 0; d < DX; ++d) {
-        xv[d] = xn[d * kPS + p];
-        mfv[d] = mf[d * kPS + p];
-        ev[d] = ep[d * kPS + p];
+        xv[d] = xn[d * PS + p];
+        mfv[d] = mf[d * PS + p];
+        ev[d] = ep[d * PS + p];
       }
 #pragma unroll
-      for (int q = 0; q < DY; ++q) mgv[q] = mg[q * kPS + p];
+      for (int q = 0; q < DY; ++q) mgv[q] = mg[q * PS + p];
       if (mine) {
         const float al = alpha_unfloored<DX, DY>(xv, mfv, ev, y, mgv, sfi, sgi, ab);
         if (al >= -3e30f) {  // no cotangent where the forward's floor clamped
@@ -706,56 +641,56 @@ __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s
           if (r.d_xn2 != nullptr) dx += r.d_xn2[d * K + i];
           dsf[d] -= static_cast<double>(da * zf * rf);
         }
-        dmf[d * kPS + p] = da * zf * sfi[d];
-        dxn[d * kPS + p] = dx - da * zf * sfi[d];
+        dmf[d * PS + p] = da * zf * sfi[d];
+        dxn[d * PS + p] = dx - da * zf * sfi[d];
       }
 #pragma unroll
       for (int q = 0; q < DY; ++q) {
         const float rg = y[q] - mgv[q];
         const float zg = rg * sgi[q];
         if (mine) dsg[q] -= static_cast<double>(da * zg * rg);
-        dmg[q * kPS + p] = da * zg * sgi[q];
+        dmg[q * PS + p] = da * zg * sgi[q];
       }
     }
     __syncthreads();
     // 4. backprop g (adds d x_new) and f (writes d x_res)
     if constexpr (kSplit) {
-      backward_net_tiles<DX, H, NMID, DX, DX, false, false, false>(
+      backward_net_tiles<DX, H, NMID, DX, DX, false, false, false, P>(
           wf, gf, xr, tf, dmf, dxr, csum_f, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
           nullptr);
-      forward_tiles<DX, H, NMID, DY, DY, false>(wg, wg + NG::B1, xn, tg, mg, nullptr, nullptr,
+      forward_tiles<DX, H, NMID, DY, DY, false, P>(wg, wg + NG::B1, xn, tg, mg, nullptr, nullptr,
                                                 nullptr, nullptr, nullptr);
-      backward_net_tiles<DX, H, NMID, DY, DY, false, true, false>(
+      backward_net_tiles<DX, H, NMID, DY, DY, false, true, false, P>(
           wg, gg, xn, tg, dmg, dxn, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
           nullptr);
     } else {
-      backward_net_tiles<DX, H, NMID, DX, DY, true, false, true>(
+      backward_net_tiles<DX, H, NMID, DX, DY, true, false, true, P>(
           wf, gf, xr, tf, dmf, dxr, csum_f, wg, gg, xn, tg, dmg, dxn, nullptr);
     }
     // 5. recompute q1 on x_res, in g's tiles
-    forward_tiles<DX, H, NMID, DX, DX, false>(wq, bq, xr, tg, mq, nullptr, nullptr, nullptr,
+    forward_tiles<DX, H, NMID, DX, DX, false, P>(wq, bq, xr, tg, mq, nullptr, nullptr, nullptr,
                                               nullptr, nullptr);
     // 6. the draw x_new = cq·m1 + aq + sq·ε: d m1 and the per-step sums
-    if (p < kP) {
+    if (p < P) {
 #pragma unroll
       for (int d = 0; d < DX; ++d) {
-        const float dv = dxn[d * kPS + p];
-        dmq[d * kPS + p] = cq[d] * dv;
+        const float dv = dxn[d * PS + p];
+        dmq[d * PS + p] = cq[d] * dv;
         if (mine) {
           s_aq[d] += dv;
-          s_cq[d] += dv * mq[d * kPS + p];
-          s_sq[d] += dv * ep[d * kPS + p];
+          s_cq[d] += dv * mq[d * PS + p];
+          s_sq[d] += dv * ep[d * PS + p];
         }
       }
     }
     __syncthreads();
     // 7. backprop q1 (adds to d x_res)
-    backward_net_tiles<DX, H, NMID, DX, DX, false, true, false>(
+    backward_net_tiles<DX, H, NMID, DX, DX, false, true, false, P>(
         wq, gq, xr, tg, dmq, dxr, csum, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
         nullptr);
     if (mine) {
 #pragma unroll
-      for (int d = 0; d < DX; ++d) dxres[d * ld + i - lo] = dxr[d * kPS + p];
+      for (int d = 0; d < DX; ++d) dxres[d * ld + i - lo] = dxr[d * PS + p];
     }
   }
 
@@ -774,7 +709,7 @@ __device__ __forceinline__ void backward_tiles(const BwdRow& r, const BwdSmem& s
 // scatter (10.): d x_prev of the slice into the carry and (rank 0) the
 // d_coef row. Runs once per t on each CTA of a row's cluster. Ends on a
 // barrier.
-template <int DX, int DY, int H, int NMID, int BWD>
+template <int DX, int DY, int H, int NMID, int BWD, int P>
 __device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s, const Slice& sl,
                                               int K, int off_f, int off_g,
                                               const float (&sfi)[DX], const float (&sgi)[DY],
@@ -791,7 +726,7 @@ __device__ __forceinline__ void backward_step(const BwdRow& r, const BwdSmem& s,
   double* csum = ctrl ? s.csum + (t & 1) * 2 * H : nullptr;
   if (ctrl) load_control_bias<DX, DY, H>(s, r.coef, off_f, csum);
   float sums[kCoefSums<DX>];
-  backward_tiles<DX, DY, H, NMID, BWD>(r, s, s.idx_s, sl.lo, hi, dxres, sl.n, K, off_f, off_g,
+  backward_tiles<DX, DY, H, NMID, BWD, P>(r, s, s.idx_s, sl.lo, hi, dxres, sl.n, K, off_f, off_g,
                                        sfi, sgi, dsf, dsg, use_rng, seed0, seed1, b, t, sums,
                                        csum);
   // a cluster's CTAs leave their sums for rank 0, which writes the row
@@ -891,7 +826,7 @@ __device__ __forceinline__ void write_partial(const BwdSmem& s, int n_weights,
                                               const double (&dsf)[DX], const double (&dsg)[DY],
                                               float* part) {
   const int tid = threadIdx.x;
-  double* dred = reinterpret_cast<double*>(s.xr);  // [DX][kPS] floats: room for kWarps
+  double* dred = reinterpret_cast<double*>(s.xr);  // [DX][P + 4] floats, P >= 16: room for kWarps
   if (kGradSmem) {
     for (int i = tid; i < n_weights; i += kThreads) part[i] = s.gacc[i];
   }
@@ -907,17 +842,17 @@ __device__ __forceinline__ void write_partial(const BwdSmem& s, int n_weights,
   }
 }
 
-template <int DX, int DY, int H, int NMID, int BWD>
+template <int DX, int DY, int H, int NMID, int BWD, int P>
 __global__ void __launch_bounds__(kThreads, 1) scan_backward_kernel(const BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  using L = BwdLayout<H, NMID, BWD>;
+  using L = BwdLayout<H, NMID, BWD, P>;
   const int C = a.cluster, rank = static_cast<int>(cg::this_cluster().block_rank());
   const int K = a.K, B = a.B, b = blockIdx.x / C, tid = threadIdx.x;
   const Slice sl{rank * (K / C), K / C, rank, C};
   const bool ctrl = a.ctrl != 0;
   float* part = a.partial + ((size_t)b * C + rank) * (a.n_weights + DX + DY);
-  const BwdSmem s = carve_bwd<DX, DY, H, NMID, BWD>(smem, a.weights, part, a.n_weights, K, sl.n,
-                                                    true, C, ctrl);
+  const BwdSmem s = carve_bwd<DX, DY, H, NMID, BWD, P>(smem, a.weights, part, a.n_weights, K,
+                                                       sl.n, true, C, ctrl);
   float sfi[DX], sgi[DY];
   double dsf[DX], dsg[DY];
   bwd_prologue<DX, DY, L::kWtsSmem>(s, a.weights, a.sconst, a.n_weights, sfi, sgi, dsf, dsg);
@@ -945,7 +880,7 @@ __global__ void __launch_bounds__(kThreads, 1) scan_backward_kernel(const BwdArg
         a.d_coef + row * NC,
         sl.n,
         sl.lo};
-    backward_step<DX, DY, H, NMID, BWD>(r, s, sl, K, a.off_f, a.off_g, sfi, sgi, dsf, dsg,
+    backward_step<DX, DY, H, NMID, BWD, P>(r, s, sl, K, a.off_f, a.off_g, sfi, sgi, dsf, dsg,
                                         a.use_rng, a.seed0, a.seed1, b, t, ctrl);
   }
 
@@ -991,7 +926,7 @@ inline cudaError_t sum_rows(const float* partial, int rows, int n, float* grads,
 // cotangents d x_new and d α come from autograd (the next step's d x and the
 // cache's cotangents, already summed). Each row runs on S CTAs with no
 // cluster (step_slices.cuh; the host picks S, fused_step.step_slices): CTA
-// (b, r) runs the kP-particle tiles of its slice, writes the slice's d x_res
+// (b, r) runs the P-particle tiles of its slice, writes the slice's d x_res
 // to the scratch dxres [B, DX, K], its d_coef sums to coef_part [B, S, 3·DX
 // + 1 (+ 2H with controls)] and its weight and sconst partials to row b·S + r
 // of `partial`. The
@@ -1033,17 +968,17 @@ struct StepBwdArgs {
   int slices;            // S: CTAs per row, K % S == 0
 };
 
-template <int DX, int DY, int H, int NMID, int BWD>
+template <int DX, int DY, int H, int NMID, int BWD, int P>
 __global__ void __launch_bounds__(kThreads, 1) step_backward_kernel(const StepBwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  using L = BwdLayout<H, NMID, BWD>;
+  using L = BwdLayout<H, NMID, BWD, P>;
   const int S = a.slices, K = a.K, b = blockIdx.x / S, tid = threadIdx.x;
   const int n = K / S, lo = (blockIdx.x % S) * n;  // this CTA's particles [lo, lo + n)
   const bool ctrl = a.ctrl != 0;
   const bool own_idx = K > L::kTileFloats;  // the ancestors need shared memory of their own
   float* part = a.partial + (size_t)blockIdx.x * (a.n_weights + DX + DY);
-  const BwdSmem s = carve_bwd<DX, DY, H, NMID, BWD>(smem, a.weights, part, a.n_weights,
-                                                    own_idx ? K : 0, 0, false, 1, ctrl);
+  const BwdSmem s = carve_bwd<DX, DY, H, NMID, BWD, P>(smem, a.weights, part, a.n_weights,
+                                                       own_idx ? K : 0, 0, false, 1, ctrl);
   float sfi[DX], sgi[DY];
   double dsf[DX], dsg[DY];
   bwd_prologue<DX, DY, L::kWtsSmem>(s, a.weights, a.sconst, a.n_weights, sfi, sgi, dsf, dsg);
@@ -1070,7 +1005,7 @@ __global__ void __launch_bounds__(kThreads, 1) step_backward_kernel(const StepBw
   __syncthreads();  // the weights are loaded
   double* csum = ctrl ? s.csum : nullptr;
   if (ctrl) load_control_bias<DX, DY, H>(s, r.coef, a.off_f, csum);
-  backward_tiles<DX, DY, H, NMID, BWD>(r, s, r.idx, lo, lo + n, dxres + lo, K, K, a.off_f,
+  backward_tiles<DX, DY, H, NMID, BWD, P>(r, s, r.idx, lo, lo + n, dxres + lo, K, K, a.off_f,
                                        a.off_g, sfi, sgi, dsf, dsg, false, 0u, 0u, b, 0, sums,
                                        csum);
   write_partial<DX, DY, L::kGradSmem>(s, a.n_weights, dsf, dsg, part);

@@ -53,12 +53,16 @@
 // allow).
 //
 // The class (fused_step.usable): any Dx, Dy >= 1 with max(Dx + Di, Dy) <= 7,
-// any depth, hidden widths 8..64 in steps of 8 (the float4 weight reads need
-// H % 4 == 0). Where Dy != Dx, g runs a trunk of its own (DY outputs). At
-// the largest shapes (Dx 6-7, K >= 1792, three layers of 56-64) the weights
-// and the double-buffered row do not fit together: there the plan
-// kFwdStream (step_math.cuh) leaves the weights in device memory, where the
-// trunk's warp-uniform reads hit L1.
+// any depth, any hidden width that is a multiple of 8 (the float4 weight
+// reads need H % 4 == 0). Where Dy != Dx, g runs a trunk of its own (DY
+// outputs). At the largest shapes of widths up to 64 (Dx 6-7, K >= 1792,
+// three layers of 56-64) the weights and the double-buffered row do not fit
+// together: there the plan kFwdStream (step_math.cuh) leaves the weights in
+// device memory, where the trunk's warp-uniform reads hit L1. Above 64 the
+// register trunk would spill (2H floats a thread): the plan kFwdTile runs the
+// trunks over tiles of FP particles in shared memory instead
+// (filter_tiles), one layer a step, with the weights in device memory and
+// K1's bits.
 //
 // The ones-channel bias folding and the PD=8 / HA=H+8 padding of the TPU
 // kernel existed for the MXU and Mosaic and are not carried over: the
@@ -91,6 +95,7 @@
 #include "resample.cuh"
 #include "step_math.cuh"
 #include "step_slices.cuh"
+#include "step_tiles.cuh"
 
 namespace psvo {
 
@@ -219,8 +224,9 @@ struct StepRow {
 
 // A CTA's shared memory in K1 and K14: the fp64 CDF, the weights, the
 // particles and log-weights double-buffered by t's parity (K14 reads one
-// buffer and writes the other), the reduction scratch and, with controls,
-// the step's first-layer biases of q1 and f.
+// buffer and writes the other), the reduction scratch, under the tiled plan
+// the tiles of its trunks and, with controls, the step's first-layer biases
+// of q1 and f.
 struct FwdSmem {
   double* cdf;  // [K]
   double* dred; // [kWarps]
@@ -228,32 +234,48 @@ struct FwdSmem {
   float* xbuf;  // [2][DX][K]
   float* lw;    // [2][K]
   float* red;   // [kWarps]
+  float* act;   // [2][H][FP + 4]: the hidden layers of one trunk (kFwdTile only)
+  float *txr, *tep, *tm1, *tmf, *txn;  // [DX][FP + 4] each: x_res, ε, m1, m_f, x_new
+  float* tmg;   // [DY][FP + 4]: m_g
   float* cb;    // [2H]: b1 + c of q1, then of f (ctrl only)
 };
 
-// FWD = kFwdStream: the weights stay in device memory (`weights`) and take
-// no shared memory.
-template <int DX, int FWD>
+// The floats of the tiled plan's tiles (kFwdTile), 0 under the other plans.
+template <int DX, int DY, int H, int FWD, int FP>
+constexpr int kFwdTileFloats = FWD == kFwdTile ? (2 * H + 5 * DX + DY) * (FP + 4) : 0;
+
+// FWD = kFwdStream or kFwdTile: the weights stay in device memory
+// (`weights`) and take no shared memory.
+template <int DX, int DY, int H, int FWD, int FP>
 __device__ __forceinline__ FwdSmem carve_fwd(unsigned char* smem, const float* weights,
                                              int n_weights, int K) {
+  constexpr int PS = FP + 4;
   FwdSmem s;
   s.cdf = reinterpret_cast<double*>(smem);
   s.dred = s.cdf + K;
   float* after = reinterpret_cast<float*>(s.dred + kWarps);
-  s.wts = FWD == kFwdStream ? const_cast<float*>(weights) : after;
-  s.xbuf = after + (FWD == kFwdStream ? 0 : n_weights);
+  s.wts = FWD != kFwdSmem ? const_cast<float*>(weights) : after;
+  s.xbuf = after + (FWD != kFwdSmem ? 0 : n_weights);
   s.lw = s.xbuf + 2 * DX * K;
   s.red = s.lw + 2 * K;
-  s.cb = s.red + kWarps;  // 16-byte aligned: every earlier extent is a multiple of 4 floats
+  // 16-byte aligned from here on: every earlier extent is a multiple of 4 floats
+  s.act = s.red + kWarps;
+  s.txr = s.act + 2 * H * PS;
+  s.tep = s.txr + DX * PS;
+  s.tm1 = s.tep + DX * PS;
+  s.tmf = s.tm1 + DX * PS;
+  s.txn = s.tmf + DX * PS;
+  s.tmg = s.txn + DX * PS;
+  s.cb = s.red + kWarps + kFwdTileFloats<DX, DY, H, FWD, FP>;
   return s;
 }
 
 // cb_floats: 2H with controls, else 0.
-template <int DX, int FWD>
+template <int DX, int DY, int H, int FWD, int FP>
 size_t fwd_smem_bytes(int n_weights, int K, int cb_floats) {
   return sizeof(double) * (K + kWarps) +
-         sizeof(float) * ((FWD == kFwdStream ? 0 : n_weights) + 2 * DX * K + 2 * K + kWarps +
-                          cb_floats);
+         sizeof(float) * ((FWD != kFwdSmem ? 0 : n_weights) + 2 * DX * K + 2 * K + kWarps +
+                          kFwdTileFloats<DX, DY, H, FWD, FP> + cb_floats);
 }
 
 // Where a step's x_new [DX][K] and α [K] go. K14: the CTA's own buffers,
@@ -298,6 +320,91 @@ struct ClusterOut {
   }
 };
 
+// Step 2 of filter_step under the tiled plan (kFwdTile): the particles of
+// [lo, hi) in tiles of FP. Per tile, thread p < FP resamples particle lo + p
+// into the tile's x_res and stages its ε; q1 and f run over the tile
+// (step_tiles.cuh::tile_net), thread p draws x_new from m1; g runs over the
+// tile; thread p weights its particle and hands it to `out`. Every output of
+// every layer has one owning thread adding in K1's order (bias first, inputs
+// ascending), so m1, m_f, m_g, x_new and α are the register trunk's bits and
+// the same for every FP. The weights stay in device memory.
+template <int DX, int DY, int H, int FP, bool CTRL, class Out>
+__device__ __forceinline__ void filter_tiles(const StepRow& r, const FwdSmem& s, const float* xc,
+                                             const Out& out, int lo, int hi, int K, int n_mid,
+                                             int off_f, int off_g, const float (&sfi)[DX],
+                                             const float (&sgi)[DY], const float (&aq)[DX],
+                                             const float (&cq)[DX], const float (&sq)[DX],
+                                             const float (&y)[DY], float ab, double total,
+                                             float u0, bool use_rng, uint32_t seed0,
+                                             uint32_t seed1, int b, int t) {
+  constexpr int PS = FP + 4;
+  const int tid = threadIdx.x;
+  const float* wq = s.wts;
+  const float* wf = s.wts + off_f;
+  const float* wg = s.wts + off_g;
+  const float* bq = CTRL ? s.cb : wq + DX * H;
+  const float* bf = CTRL ? s.cb + H : wf + DX * H;
+  for (int i0 = lo; i0 < hi; i0 += FP) {
+    const int i = i0 + tid;
+    const bool mine = tid < FP && i < hi;  // a live particle of this tile
+    int anc = 0;
+    if (tid < FP) {
+      float e[DX];
+#pragma unroll
+      for (int d = 0; d < DX; ++d) e[d] = 0.0f;
+      if (mine) {
+        const float pos = use_rng ? systematic_position(i, u0, K) : r.pos[i];
+        anc = ancestor(s.cdf, K, static_cast<double>(pos) * total);
+        if (use_rng) {
+          draw_eps<DX>(seed0, seed1, b, t, i, K, e);
+        } else {
+#pragma unroll
+          for (int d = 0; d < DX; ++d) e[d] = r.eps[d * K + i];
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < DX; ++d) {
+        s.txr[d * PS + tid] = mine ? xc[d * K + anc] : 0.0f;
+        s.tep[d * PS + tid] = e[d];
+      }
+    }
+    __syncthreads();
+    tile_net<DX, H, DX, FP>(wq, bq, n_mid, s.txr, s.act, s.tm1);
+    tile_net<DX, H, DX, FP>(wf, bf, n_mid, s.txr, s.act, s.tmf);
+    if (tid < FP) {
+#pragma unroll
+      for (int d = 0; d < DX; ++d)
+        s.txn[d * PS + tid] =
+            fused_draw(cq[d], s.tm1[d * PS + tid], aq[d], sq[d], s.tep[d * PS + tid]);
+    }
+    __syncthreads();
+    tile_net<DX, H, DY, FP>(wg, wg + DX * H, n_mid, s.txn, s.act, s.tmg);
+    if (mine) {
+      float xn[DX], mf[DX], e[DX], mg[DY];
+#pragma unroll
+      for (int d = 0; d < DX; ++d) {
+        xn[d] = s.txn[d * PS + tid];
+        mf[d] = s.tmf[d * PS + tid];
+        e[d] = s.tep[d * PS + tid];
+      }
+#pragma unroll
+      for (int q = 0; q < DY; ++q) mg[q] = s.tmg[q * PS + tid];
+      // finiteness floor: a diverged mean gives a finite, hopeless weight
+      const float alpha =
+          fmaxf(alpha_unfloored<DX, DY>(xn, mf, e, y, mg, sfi, sgi, ab), -3e30f);
+      out.template put<DX>(i, K, xn, alpha);
+      if (r.x_out != nullptr) {
+#pragma unroll
+        for (int d = 0; d < DX; ++d) r.x_out[d * K + i] = xn[d];
+      }
+      if (r.alpha_out != nullptr) r.alpha_out[i] = alpha;
+      if (r.idx != nullptr) r.idx[i] = anc;
+    }
+    // the next tile's staging writes only this thread's own columns, and every
+    // other read of the tiles ended on tile_net's closing barriers
+  }
+}
+
 // One filtering step of row b, t, on the carry xc [DX][K] and lwc [K]: the
 // ESS and CDF of the incoming weights over the whole row; per particle i of
 // [lo, hi) the ancestor, the q1 and f trunks on the resampled particle, the
@@ -305,8 +412,10 @@ struct ClusterOut {
 // the ESS. K1 runs it once per t on each CTA of a row's cluster, K14 once
 // per launch on each slice of the row: the same code, so the same bits.
 // With CTRL, q1's and f's first layers start from b1 + c (cb), written here
-// before the first barrier. Ends on a barrier.
-template <int DX, int DY, int H, bool CTRL, class Out>
+// before the first barrier. Under the tiled plan (FWD = kFwdTile) the
+// particles go through in tiles of FP (filter_tiles), with the same bits.
+// Ends on a barrier.
+template <int DX, int DY, int H, int FWD, int FP, bool CTRL, class Out>
 __device__ __forceinline__ float filter_step(const StepRow& r, const FwdSmem& s, const float* xc,
                                             const float* lwc, const Out& out, int lo, int hi,
                                             int K, int n_mid, int off_f, int off_g,
@@ -338,66 +447,71 @@ __device__ __forceinline__ float filter_step(const StepRow& r, const FwdSmem& s,
   const float ess = s1 * s1 / fmaxf(s2, 1e-30f);
   const float u0 = use_rng ? draw_u0(seed0, seed1, b, t) : 0.0f;
 
-  // 2. resample, propose and weight each particle of [lo, hi)
-  for (int i = lo + tid; i < hi; i += kThreads) {
-    const float pos = use_rng ? systematic_position(i, u0, K) : r.pos[i];
-    const int anc = ancestor(s.cdf, K, static_cast<double>(pos) * total);
-    float e[DX];
-    if (use_rng) {
-      draw_eps<DX>(seed0, seed1, b, t, i, K, e);
-    } else {
+  if constexpr (FWD == kFwdTile) {
+    filter_tiles<DX, DY, H, FP, CTRL>(r, s, xc, out, lo, hi, K, n_mid, off_f, off_g, sfi, sgi,
+                                      aq, cq, sq, y, ab, total, u0, use_rng, seed0, seed1, b, t);
+  } else {
+    // 2. resample, propose and weight each particle of [lo, hi)
+    for (int i = lo + tid; i < hi; i += kThreads) {
+      const float pos = use_rng ? systematic_position(i, u0, K) : r.pos[i];
+      const int anc = ancestor(s.cdf, K, static_cast<double>(pos) * total);
+      float e[DX];
+      if (use_rng) {
+        draw_eps<DX>(seed0, seed1, b, t, i, K, e);
+      } else {
 #pragma unroll
-      for (int d = 0; d < DX; ++d) e[d] = r.eps[d * K + i];
-    }
-    // The three heads run through ONE copy of the (fully unrolled) trunk:
-    // q1 and f on the resampled particle, then g on the drawn one. Where
-    // Dy != Dx, g's output width differs, and g has a trunk of its own.
-    float xn[DX], m1[DX], mf[DX], mg[DY];
-#pragma unroll
-    for (int d = 0; d < DX; ++d) xn[d] = xc[d * K + anc];
-    if constexpr (DX == DY) {
-#pragma unroll 1
-      for (int n = 0; n < 3; ++n) {
-        if (n == 2) {
-#pragma unroll
-          for (int d = 0; d < DX; ++d) xn[d] = fused_draw(cq[d], m1[d], aq[d], sq[d], e[d]);
-        }
-        const int off = n == 0 ? 0 : (n == 1 ? off_f : off_g);
-        const float* b1 = CTRL && n < 2 ? s.cb + n * H : s.wts + off + DX * H;
-        trunk<DX, H, DY>(s.wts + off, b1, n_mid, xn, mg);
-#pragma unroll
-        for (int d = 0; d < DX; ++d) {
-          if (n == 0) m1[d] = mg[d];
-          if (n == 1) mf[d] = mg[d];
-        }
+        for (int d = 0; d < DX; ++d) e[d] = r.eps[d * K + i];
       }
-    } else {
+      // The three heads run through ONE copy of the (fully unrolled) trunk:
+      // q1 and f on the resampled particle, then g on the drawn one. Where
+      // Dy != Dx, g's output width differs, and g has a trunk of its own.
+      float xn[DX], m1[DX], mf[DX], mg[DY];
+#pragma unroll
+      for (int d = 0; d < DX; ++d) xn[d] = xc[d * K + anc];
+      if constexpr (DX == DY) {
 #pragma unroll 1
-      for (int n = 0; n < 2; ++n) {
-        const int off = n == 0 ? 0 : off_f;
-        const float* b1 = CTRL ? s.cb + n * H : s.wts + off + DX * H;
-        float m[DX];
-        trunk<DX, H, DX>(s.wts + off, b1, n_mid, xn, m);
+        for (int n = 0; n < 3; ++n) {
+          if (n == 2) {
 #pragma unroll
-        for (int d = 0; d < DX; ++d) {
-          if (n == 0) m1[d] = m[d];
-          if (n == 1) mf[d] = m[d];
+            for (int d = 0; d < DX; ++d) xn[d] = fused_draw(cq[d], m1[d], aq[d], sq[d], e[d]);
+          }
+          const int off = n == 0 ? 0 : (n == 1 ? off_f : off_g);
+          const float* b1 = CTRL && n < 2 ? s.cb + n * H : s.wts + off + DX * H;
+          trunk<DX, H, DY>(s.wts + off, b1, n_mid, xn, mg);
+#pragma unroll
+          for (int d = 0; d < DX; ++d) {
+            if (n == 0) m1[d] = mg[d];
+            if (n == 1) mf[d] = mg[d];
+          }
         }
+      } else {
+#pragma unroll 1
+        for (int n = 0; n < 2; ++n) {
+          const int off = n == 0 ? 0 : off_f;
+          const float* b1 = CTRL ? s.cb + n * H : s.wts + off + DX * H;
+          float m[DX];
+          trunk<DX, H, DX>(s.wts + off, b1, n_mid, xn, m);
+#pragma unroll
+          for (int d = 0; d < DX; ++d) {
+            if (n == 0) m1[d] = m[d];
+            if (n == 1) mf[d] = m[d];
+          }
+        }
+#pragma unroll
+        for (int d = 0; d < DX; ++d) xn[d] = fused_draw(cq[d], m1[d], aq[d], sq[d], e[d]);
+        trunk<DX, H, DY>(s.wts + off_g, s.wts + off_g + DX * H, n_mid, xn, mg);
       }
+      // finiteness floor: a diverged mean gives a finite, hopeless weight
+      const float alpha =
+          fmaxf(alpha_unfloored<DX, DY>(xn, mf, e, y, mg, sfi, sgi, ab), -3e30f);
+      out.template put<DX>(i, K, xn, alpha);
+      if (r.x_out != nullptr) {
 #pragma unroll
-      for (int d = 0; d < DX; ++d) xn[d] = fused_draw(cq[d], m1[d], aq[d], sq[d], e[d]);
-      trunk<DX, H, DY>(s.wts + off_g, s.wts + off_g + DX * H, n_mid, xn, mg);
+        for (int d = 0; d < DX; ++d) r.x_out[d * K + i] = xn[d];
+      }
+      if (r.alpha_out != nullptr) r.alpha_out[i] = alpha;
+      if (r.idx != nullptr) r.idx[i] = anc;
     }
-    // finiteness floor: a diverged mean gives a finite, hopeless weight
-    const float alpha =
-        fmaxf(alpha_unfloored<DX, DY>(xn, mf, e, y, mg, sfi, sgi, ab), -3e30f);
-    out.template put<DX>(i, K, xn, alpha);
-    if (r.x_out != nullptr) {
-#pragma unroll
-      for (int d = 0; d < DX; ++d) r.x_out[d * K + i] = xn[d];
-    }
-    if (r.alpha_out != nullptr) r.alpha_out[i] = alpha;
-    if (r.idx != nullptr) r.idx[i] = anc;
   }
   out.sync();
   return ess;
@@ -433,14 +547,14 @@ __device__ __forceinline__ void row_stats(const float* xn, const float* lw, int 
   }
 }
 
-template <int DX, int DY, int H, int FWD, bool CTRL>
+template <int DX, int DY, int H, int FWD, int FP, bool CTRL>
 __global__ void __launch_bounds__(kThreads) scan_forward_kernel(const ScanArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const cg::cluster_group cluster = cg::this_cluster();
   const int C = a.cluster, rank = static_cast<int>(cluster.block_rank());
   const int K = a.K, B = a.B, b = blockIdx.x / C, tid = threadIdx.x;
   const int n = K / C, lo = rank * n;  // this CTA's particles [lo, lo + n)
-  const FwdSmem s = carve_fwd<DX, FWD>(smem, a.weights, a.n_weights, K);
+  const FwdSmem s = carve_fwd<DX, DY, H, FWD, FP>(smem, a.weights, a.n_weights, K);
   if (FWD == kFwdSmem) {
     for (int i = tid; i < a.n_weights; i += kThreads) s.wts[i] = a.weights[i];
   }
@@ -465,9 +579,9 @@ __global__ void __launch_bounds__(kThreads) scan_forward_kernel(const ScanArgs a
                     a.idx != nullptr ? a.idx + row * K : nullptr};
     const ClusterOut out{s.xbuf + (cur ^ 1) * DX * K, s.lw + (cur ^ 1) * K, C};
     const float ess =
-        filter_step<DX, DY, H, CTRL>(r, s, s.xbuf + cur * DX * K, s.lw + cur * K, out, lo,
-                                     lo + n, K, a.n_mid, a.off_f, a.off_g, sfi, sgi, a.use_rng,
-                                     a.seed0, a.seed1, b, t);
+        filter_step<DX, DY, H, FWD, FP, CTRL>(r, s, s.xbuf + cur * DX * K, s.lw + cur * K, out,
+                                              lo, lo + n, K, a.n_mid, a.off_f, a.off_g, sfi,
+                                              sgi, a.use_rng, a.seed0, a.seed1, b, t);
     if (rank == 0) row_stats<DX>(out.xn, out.lw, K, ess, s.red, a.stats + row * (2 + DX));
     cur ^= 1;
   }
@@ -526,12 +640,12 @@ struct StepArgs {
   int slices;            // S: CTAs per row, K % S == 0
 };
 
-template <int DX, int DY, int H, int FWD, bool CTRL>
+template <int DX, int DY, int H, int FWD, int FP, bool CTRL>
 __global__ void __launch_bounds__(kThreads) step_forward_kernel(const StepArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = a.slices, K = a.K, b = blockIdx.x / S, tid = threadIdx.x;
   const int n = K / S, lo = (blockIdx.x % S) * n;  // this CTA's particles [lo, lo + n)
-  const FwdSmem s = carve_fwd<DX, FWD>(smem, a.weights, a.n_weights, K);
+  const FwdSmem s = carve_fwd<DX, DY, H, FWD, FP>(smem, a.weights, a.n_weights, K);
   const size_t bx = (size_t)b * DX * K, bk = (size_t)b * K;
   if (FWD == kFwdSmem) {
     for (int i = tid; i < a.n_weights; i += kThreads) s.wts[i] = a.weights[i];
@@ -550,9 +664,9 @@ __global__ void __launch_bounds__(kThreads) step_forward_kernel(const StepArgs a
                   a.x_new + bx,            a.alpha + bk, a.idx + bk};
   float* xn = s.xbuf + DX * K;
   float* lwn = s.lw + K;
-  const float ess = filter_step<DX, DY, H, CTRL>(r, s, s.xbuf, s.lw, CtaOut{xn, lwn}, lo, lo + n,
-                                                 K, a.n_mid, a.off_f, a.off_g, sfi, sgi, false,
-                                                 0u, 0u, b, 0);
+  const float ess = filter_step<DX, DY, H, FWD, FP, CTRL>(r, s, s.xbuf, s.lw, CtaOut{xn, lwn},
+                                                          lo, lo + n, K, a.n_mid, a.off_f,
+                                                          a.off_g, sfi, sgi, false, 0u, 0u, b, 0);
   if (!last_to_arrive(a.counter + b, S)) return;
   // the row's last CTA: the other slices' x_new and α, then the row's statistics
   for (int i = tid; i < K; i += kThreads) {
@@ -574,9 +688,10 @@ template <bool CTRL>
 int scan_forward_launch(const ScanArgs& a, int dx, int dy, int hidden, cudaStream_t s) {
   return with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
-    return launch_clusters(scan_forward_kernel<D::DX, D::DY, D::H, D::FWD, CTRL>, a, a.B,
+    return launch_clusters(scan_forward_kernel<D::DX, D::DY, D::H, D::FWD, D::FP, CTRL>, a, a.B,
                            a.cluster,
-                           fwd_smem_bytes<D::DX, D::FWD>(a.n_weights, a.K, CTRL ? 2 * D::H : 0),
+                           fwd_smem_bytes<D::DX, D::DY, D::H, D::FWD, D::FP>(
+                               a.n_weights, a.K, CTRL ? 2 * D::H : 0),
                            s);
   });
 }
@@ -585,8 +700,8 @@ template <bool CTRL>
 int scan_forward_max_active(int dx, int dy, int hidden, int cluster, size_t smem, int* out) {
   return with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
-    return max_active_clusters(scan_forward_kernel<D::DX, D::DY, D::H, D::FWD, CTRL>, cluster,
-                               smem, out);
+    return max_active_clusters(scan_forward_kernel<D::DX, D::DY, D::H, D::FWD, D::FP, CTRL>,
+                               cluster, smem, out);
   });
 }
 
@@ -594,9 +709,10 @@ template <bool CTRL>
 int step_forward_launch(const StepArgs& a, int dx, int dy, int hidden, cudaStream_t s) {
   return with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
-    return launch_slices(step_forward_kernel<D::DX, D::DY, D::H, D::FWD, CTRL>, a, a.B,
+    return launch_slices(step_forward_kernel<D::DX, D::DY, D::H, D::FWD, D::FP, CTRL>, a, a.B,
                          a.slices,
-                         fwd_smem_bytes<D::DX, D::FWD>(a.n_weights, a.K, CTRL ? 2 * D::H : 0),
+                         fwd_smem_bytes<D::DX, D::DY, D::H, D::FWD, D::FP>(
+                             a.n_weights, a.K, CTRL ? 2 * D::H : 0),
                          s);
   });
 }
@@ -605,7 +721,7 @@ template <bool CTRL>
 int step_forward_resident(int dx, int dy, int hidden, size_t smem, int* out) {
   return with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
-    return max_resident(step_forward_kernel<D::DX, D::DY, D::H, D::FWD, CTRL>, smem, out);
+    return max_resident(step_forward_kernel<D::DX, D::DY, D::H, D::FWD, D::FP, CTRL>, smem, out);
   });
 }
 

@@ -7,7 +7,7 @@ namespace psvo {
 int step_backward_resident(int dx, int dy, int hidden, int smem, int* out) {
   return with_dims(dx, dy, hidden, [&](auto d) {
     using D = decltype(d);
-    return max_resident(step_backward_kernel<D::DX, D::DY, D::H, D::NMID, D::BWD>,
+    return max_resident(step_backward_kernel<D::DX, D::DY, D::H, D::NMID, D::BWD, D::BP>,
                         static_cast<size_t>(smem), out);
   });
 }
@@ -36,11 +36,11 @@ extern "C" int psvo_step_backward(const float* x, const float* x_new, const int*
     using D = decltype(d);
     if (n_mid != D::NMID) return cudaErrorInvalidValue;  // the depth is instantiated
     // the last CTA stages the row's K ancestors in its idle tiles where they fit
-    const int k_idx = K > psvo::BwdLayout<D::H, D::NMID, D::BWD>::kTileFloats ? K : 0;
+    const int k_idx = K > psvo::BwdLayout<D::H, D::NMID, D::BWD, D::BP>::kTileFloats ? K : 0;
     cudaError_t err = psvo::launch_slices(
-        psvo::step_backward_kernel<D::DX, D::DY, D::H, D::NMID, D::BWD>, a, B, slices,
-        psvo::bwd_smem_bytes<D::DX, D::DY, D::H, D::NMID, D::BWD>(n_weights, k_idx, 0, false, 1,
-                                                                  ctrl != 0),
+        psvo::step_backward_kernel<D::DX, D::DY, D::H, D::NMID, D::BWD, D::BP>, a, B, slices,
+        psvo::bwd_smem_bytes<D::DX, D::DY, D::H, D::NMID, D::BWD, D::BP>(n_weights, k_idx, 0,
+                                                                         false, 1, ctrl != 0),
         s);
     if (err != cudaSuccess) return err;
     return psvo::sum_rows(partial, B * slices, n_weights + D::DX + D::DY, grads, s);

@@ -5,6 +5,12 @@ cloud) and `smooth_posterior` smoothed trajectories, by FFBSi or by SVO's
 learned backward proposal, for observations [B, T, Dy]. A model with
 controls (data.di > 0) needs its exogenous inputs, controls=[B, T, Di];
 both refuse a call that leaves them out, or passes them to a di = 0 model.
+
+Under an active mesh (`parallel.context`) both take the global batch, as
+the reference's callers pass it, run each rank's rows (`train.local_rows`)
+and return global arrays, the ranks' rows gathered over the data axis
+(`collectives.gather_rows`); `noise` is the global draws, as for
+`smc.forward_filter`.
 """
 
 from __future__ import annotations
@@ -17,8 +23,9 @@ import torch
 from psvo_tpu_torch.config import Config
 from psvo_tpu_torch.models.ssm import SSM
 from psvo_tpu_torch.objectives import _controls_kw, make_objective
+from psvo_tpu_torch.parallel import collectives, context
 from psvo_tpu_torch.smc import forward_filter
-from psvo_tpu_torch.train import filtered_means
+from psvo_tpu_torch.train import filtered_means, local_rows
 from psvo_tpu_torch.utils.rng import run_generator
 
 
@@ -33,6 +40,19 @@ def _check_controls(ssm: SSM, controls) -> None:
         )
     if not ssm.di and controls is not None:
         raise ValueError("model has di=0: controls were passed but never used")
+
+
+def _local(*tensors):
+    """The active mesh's rows of global [B, ...] tensors (all of them without one)."""
+    mesh = context.get_mesh()
+    return tensors if mesh is None else local_rows(mesh, *tensors)
+
+
+def _gathered(*tensors):
+    """Each rank's rows gathered over the data axis into the global batch
+    (each tensor itself without a mesh)."""
+    out = tuple(collectives.gather_rows(t) for t in tensors)
+    return out if len(out) > 1 else out[0]
 
 
 @torch.no_grad()
@@ -53,19 +73,23 @@ def filter_posterior(
     Uses the config's particle count and resampling scheme; the generator
     defaults to the run's (seed + 17, on the device of ys). noise is the
     filter's replay hook (smc.forward_filter). controls [B, T, Di] are
-    required when the model has di > 0, and refused when it has none.
+    required when the model has di > 0, and refused when it has none. Under
+    a mesh every argument is global and so is the result (the module
+    docstring); on a particle mesh the particles and log-weights are this
+    rank's K / P particles.
     """
     _check_controls(ssm, controls)
     if generator is None:
         generator = run_generator(cfg, 17, device=ys.device)
+    ys, encoder_inputs, controls = _local(ys, encoder_inputs, controls)
     fwd = forward_filter(
         ssm, generator, ys, cfg.smc, cache=return_particles,
         encoder_inputs=encoder_inputs, noise=noise, **_controls_kw(controls),
     )
     means = filtered_means(fwd)
     if return_particles:
-        return means, fwd.xs.permute(1, 0, 3, 2), fwd.logws.transpose(0, 1)
-    return means
+        return _gathered(means, fwd.xs.permute(1, 0, 3, 2), fwd.logws.transpose(0, 1))
+    return _gathered(means)
 
 
 @torch.no_grad()
@@ -89,7 +113,8 @@ def smooth_posterior(
     defaults to the run's (seed + 18, on the device of ys); noise is the
     objective's replay hook (`objectives.make_objective`). controls as in
     `filter_posterior`: both methods take them (FFBSi's support terms and
-    log-joint, SVO's f and predictive mixture see u_{t+1}).
+    log-joint, SVO's f and predictive mixture see u_{t+1}). Under a mesh
+    every argument is global and so is the result (the module docstring).
     """
     _check_controls(ssm, controls)
     method = method or (cfg.smc.objective if cfg.smc.objective in ("svo", "psvo") else "psvo")
@@ -99,5 +124,6 @@ def smooth_posterior(
     run_cfg = dataclasses.replace(
         cfg, smc=dataclasses.replace(cfg.smc, objective=method, n_smoothing_particles=m)
     )
+    ys, encoder_inputs, controls = _local(ys, encoder_inputs, controls)
     out = make_objective(ssm, run_cfg)(generator, ys, encoder_inputs, noise, controls)
-    return out.smoothed.permute(1, 2, 0, 3)  # [T, B, M, Dx] -> [B, M, T, Dx]
+    return _gathered(out.smoothed.permute(1, 2, 0, 3))  # [T, B, M, Dx] -> [B, M, T, Dx]

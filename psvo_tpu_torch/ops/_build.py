@@ -94,7 +94,9 @@ SIGNATURES = {
 # the sources of K1/K14 (both control modes) and K4/K15, which a shape library holds
 SHAPE_SOURCES = ("scan_forward.cu", "scan_forward_ctrl.cu", "step_forward.cu",
                  "step_forward_ctrl.cu", "scan_backward.cu", "step_backward.cu")
-SHAPE_MACROS = ("DX", "DY", "H", "NMID", "FWD", "BWD")  # PSVO_SHAPE_<name> (step_math.cuh)
+# PSVO_SHAPE_<name> (step_math.cuh); FP, K1's tile, only under its tiled plan or with BP, K4's
+# tile, where that is narrower than 64
+SHAPE_MACROS = ("DX", "DY", "H", "NMID", "FWD", "BWD", "FP", "BP")
 # the sources of K9 and K10 (both control modes), which a trunk shape library holds, and its
 # macros PSVO_TRUNK_<name>: the shape and where K9's and K10's weights stay (0 shared memory,
 # 1 device memory; trunk_forward.cuh, trunk_backward.cuh)
@@ -106,7 +108,8 @@ TRUNK_MACROS = ("DX", "DY", "H", "K9", "K10")
 SVO_SOURCES = ("svo_sweep.cu", "svo_sweep_ctrl.cu")
 SVO_MACROS = ("DX", "DY", "H")
 # a shape library's kind by its key: ("trunk", dx, dy, hidden, k9 weights, k10 weights),
-# ("svo", dx, dy, hidden), or the whole-step kernels' (dx, dy, hidden, n_mid, k1 plan, k4 plan)
+# ("svo", dx, dy, hidden), or the whole-step kernels' (dx, dy, hidden, n_mid, k1 plan, k4 plan
+# [, k1 tile[, k4 tile]])
 _KINDS = {"trunk": (TRUNK_SOURCES, "PSVO_TRUNK_", TRUNK_MACROS),
           "svo": (SVO_SOURCES, "PSVO_SVO_", SVO_MACROS),
           "step": (SHAPE_SOURCES, "PSVO_SHAPE_", SHAPE_MACROS)}
@@ -225,8 +228,8 @@ def load_library() -> ctypes.CDLL:
 
 def shape_dir(shape: tuple) -> Path:
     """Where the shape library of `shape` goes, under the current build's
-    hash: `shape_<dx>_<dy>_<hidden>_<n_mid>_<k1 plan>_<k4 plan>` for the
-    whole-step kernels, `trunk_<dx>_<dy>_<hidden>_<k9 weights>_<k10 weights>`
+    hash: `shape_<dx>_<dy>_<hidden>_<n_mid>_<k1 plan>_<k4 plan>[_<k1 tile>[_<k4
+    tile>]]` for the whole-step kernels, `trunk_<dx>_<dy>_<hidden>_<k9 weights>_<k10 weights>`
     for K9/K10 (key ("trunk", dx, dy, hidden, k9 weights, k10 weights)),
     `svo_<dx>_<dy>_<hidden>` for K12/K13 (key ("svo", dx, dy, hidden))."""
     kind = _kind(shape)
@@ -243,7 +246,9 @@ def load_shape_library(shape: tuple, niceness: int = 0) -> ctypes.CDLL:
     """The library of K1/K14 and K4/K15 at one shape of their class outside
     the presets' (`fused_step._library` says which): `shape` = (dx, dy,
     hidden, n_mid, k1 plan, k4 plan) as ints, the plans' indices in
-    `fused_step.K1_PLANS` / `K4_PLANS`; or of K9 and K10 (`trunk._library`):
+    `fused_step.K1_PLANS` / `K4_PLANS`, then under K1's plan "tile" its
+    tile's particles and where K4's tile is narrower than 64 that
+    (`fused_step.shape_key`); or of K9 and K10 (`trunk._library`):
     `shape` = ("trunk", dx, dy, hidden, k9 weights, k10 weights), the
     weights' places' indices in `trunk.WEIGHT_PLACES`; or of K12 and K13's
     split designs (`svo._library`): `shape` = ("svo", dx, dy, hidden). Built

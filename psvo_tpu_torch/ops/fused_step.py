@@ -85,15 +85,21 @@ K4 and K15 once (a run-time `ctrl`), so every (Dx, Dy) of the class takes
 controls while Dx + Di <= 7; di = 0 runs the unchanged code.
 
 The class (`usable`) is the reference's whole-step class (`pallas_step.usable`)
-but for widths above 64 and nets too deep for any plan's shared memory
-(`shape_fits`). The kernels are templates over the shape; the kernels'
+but for nets too wide or too deep for any plan's shared memory (`shape_fits`:
+at two hidden layers, K = 2048, widths up to 1344 at Dx = Dy = 2 and 856 at
+Dx = Dy = 7). The kernels are templates over the shape; the kernels'
 library holds the presets' (`PREBUILT_SHAPES`, one middle layer in K4/K15,
 read from csrc/prebuilt_shapes.cuh as with_dims reads it), and any
 other shape is compiled on its first use into a shape library of its own
 (`_build.load_shape_library`, keyed by `shape_key`). Where a shape's weights,
 gradient sums and tiles do not fit a CTA's shared memory, `k1_plan` and
 `k4_plan` choose where they go instead (csrc/step_math.cuh), with the same
-bits.
+bits; K4's plan follows K where the shape's does not fit it (`k4_plan`), so
+the shape library a launch takes depends on K too (`_lib_key`). Above
+`REGISTER_MAX_WIDTH` K1's and K14's trunk leaves the registers for tiles of
+particles in shared memory (the plan "tile", `k1_tile`), as K4 and K15
+recompute theirs; at the widest nets K4's and K15's tiles take fewer
+particles (`k4_tile`).
 
 Not ported: the ones-channel bias folding and the PD = 8 / HA = H+8 padding
 of `aug_net`/`pack_sm`, which existed for the TPU's matrix unit and Mosaic;
@@ -114,13 +120,15 @@ from psvo_tpu_torch.ops.resampling import gather_particles
 
 MAX_K = 4096  # shared memory: fp64 CDF + 2x particles + 2x log-weights + weights
 MAX_STATE_AND_CONTROLS = 7  # max(Dx + Di, Dy) at most: the reference's gate (pallas_step.usable)
-HIDDEN_WIDTHS = tuple(range(8, 65, 8))  # uniform trunk widths of the class
+REGISTER_MAX_WIDTH = 64  # K1's register trunk holds 2H floats a thread: wider spills
 PREBUILT_SHAPES = frozenset(  # (Dx, Dy, width) in the kernels' library (one middle layer in K4/K15)
     tuple(int(v) for v in m) for m in re.findall(
         r"^PSVO_PREBUILT\((\d+), (\d+), (\d+)\)$",
         (_build.CSRC / "prebuilt_shapes.cuh").read_text(), re.M))
-K1_PLANS = ("smem", "stream")  # where K1/K14 keep the weights (csrc/step_math.cuh::FwdPlan)
+K1_PLANS = ("smem", "stream", "tile")  # K1/K14's plans (csrc/step_math.cuh::FwdPlan)
+K1_TILES = (64, 32, 16, 8)  # particles a tile of K1/K14 under "tile", the largest that fits
 K4_PLANS = ("smem", "global", "split", "stream")  # K4/K15's plans (step_math.cuh::BwdPlan)
+K4_TILES = (64, 32, 16)  # particles a tile of K4/K15: below 64 only above REGISTER_MAX_WIDTH
 PLAN_K = 2048  # the K a shape's plans are chosen at: the largest of the reference's class
 _THREADS = 256
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper (227 KB)
@@ -139,16 +147,18 @@ def usable(ssm, cfg) -> bool:
     every step (the kernels search any sorted position stream; multinomial
     streams its positions, as the reference's whole-step kernel does); any
     Dx, Dy >= 1 and controls (ssm.di > 0) while max(Dx + Di, Dy) <= 7; q1, f
-    and g relu MLPs of one uniform width in `HIDDEN_WIDTHS` and any depth;
-    K a multiple of 32 up to MAX_K; where each kernel's plan holds the shape
-    in shared memory (`shape_fits`: at width 64 up to 12 hidden layers at
-    Dx = Dy = 2 and K = 2048, 10 at Dx = Dy = 7). As the reference's gate
+    and g relu MLPs of one uniform width, a multiple of 8, and any depth; K a
+    multiple of 32 up to MAX_K; where each kernel's plan holds the shape in
+    shared memory (`shape_fits`: at width 64 up to 12 hidden layers at
+    Dx = Dy = 2 and K = 2048, 10 at Dx = Dy = 7; at two hidden layers and
+    K = 2048 widths up to 1344 at Dx = Dy = 2, 856 at Dx = Dy = 7). As the
+    reference's gate
     (`pallas_step.usable`), not bootstrap mode, whose proposal is f (the
     kernels draw from the fused q1/q2 proposal and weight by f, g and q),
     nor known dynamics, Poisson or Dirac emissions, or a q1/f/g scale other
     than a constant diagonal (`model_in_class`). Inside the reference's class
-    (K a multiple of 128 up to 2048, widths 8..64, as deep as the plans
-    hold) it agrees with `smc.reference_path(...) == "fused"`."""
+    (K a multiple of 128 up to 2048, as wide and as deep as the plans hold)
+    it agrees with `smc.reference_path(...) == "fused"`."""
     k = cfg.n_particles
     hidden = ssm.nets["q1"].hidden
     nets = [ssm.nets[n] for n in ("q1", "f", "g")]
@@ -181,10 +191,12 @@ def shape_consts(dx: int, dy: int, di: int, hidden: int, n_mid: int) -> dict:
 
 
 def _in_class(consts) -> bool:
-    """(Dx, Dy), Dx + Di, the width and the depth of the kernels' class."""
+    """(Dx, Dy), Dx + Di, the width and the depth of the kernels' class: any
+    width that is a multiple of 8, as the reference's (`shape_fits` says
+    where the plans stop)."""
     return (min(consts["dx"], consts["dy"]) >= 1
             and max(consts["dx"] + consts.get("di", 0), consts["dy"]) <= MAX_STATE_AND_CONTROLS
-            and consts["hidden"] in HIDDEN_WIDTHS and consts["n_mid"] >= 0)
+            and consts["hidden"] >= 8 and consts["hidden"] % 8 == 0 and consts["n_mid"] >= 0)
 
 
 def shape_fits(consts, k: int) -> bool:
@@ -516,18 +528,25 @@ def _nw(consts) -> int:
     return packed.numel() if packed is not None else consts["n_weights"]
 
 
-def k1_smem_bytes(consts, k: int, plan: str | None = None) -> int:
+def k1_smem_bytes(consts, k: int, plan: str | None = None, tile: int | None = None) -> int:
     """Dynamic shared memory of one K1 (or K14) CTA, any C
     (csrc/scan_forward.cuh::fwd_smem_bytes): the fp64 CDF [K], the weights
-    (plan "smem"; "stream" reads them from device memory), the particles
-    [2][Dx][K], the log-weights [2][K], the reduction scratch and, with
-    controls, the step's first-layer biases of q1 and f [2H]. plan: the
-    shape's (`k1_plan`) by default."""
+    (plan "smem"; "stream" and "tile" read them from device memory), the
+    particles [2][Dx][K], the log-weights [2][K], the reduction scratch,
+    under "tile" the trunks' tiles of `tile` particles (two hidden layers
+    [2][H][tile + 4] and x_res, ε, m1, m_f, x_new [Dx][tile + 4] and m_g
+    [Dy][tile + 4]) and, with controls, the step's first-layer biases of q1
+    and f [2H]. plan and tile: the shape's (`k1_plan`, `k1_tile`) by
+    default."""
     plan = plan or k1_plan(consts)
     warps = _THREADS // 32
     cb = 2 * consts["hidden"] * _ctrl(consts)
     wts = _nw(consts) if plan == "smem" else 0
-    return 8 * (k + warps) + 4 * (wts + 2 * consts["dx"] * k + 2 * k + warps + cb)
+    tiles = 0
+    if plan == "tile":
+        tiles = ((2 * consts["hidden"] + 5 * consts["dx"] + consts["dy"])
+                 * ((tile or k1_tile(consts)) + 4))
+    return 8 * (k + warps) + 4 * (wts + 2 * consts["dx"] * k + 2 * k + warps + tiles + cb)
 
 
 def _shape(consts) -> tuple:
@@ -545,16 +564,36 @@ def _shape_consts(shape: tuple) -> dict:
 
 
 def k1_plan(consts) -> str:
-    """Where K1 and K14 keep the weights at this shape: in shared memory
-    ("smem") where they fit beside the row at K = PLAN_K, else in device
-    memory ("stream": Dx 6-7 with three layers of 56-64 units)."""
+    """K1's and K14's plan at this shape: above `REGISTER_MAX_WIDTH`, where
+    the register trunk would spill, "tile" (the trunks over tiles of
+    `k1_tile` particles in shared memory, the weights in device memory);
+    else the register trunk with the weights in shared memory ("smem") where
+    they fit beside the row at K = PLAN_K, else in device memory ("stream":
+    Dx 6-7 with three layers of 56-64 units). Every plan gives the same bits."""
     return _k1_plan(_shape(consts))
 
 
 @functools.cache
 def _k1_plan(shape: tuple) -> str:
-    fits = k1_smem_bytes(_shape_consts(shape), PLAN_K, "smem") <= SMEM_LIMIT
-    return "smem" if fits else "stream"
+    consts = _shape_consts(shape)
+    if consts["hidden"] > REGISTER_MAX_WIDTH:
+        return "tile"
+    return "smem" if k1_smem_bytes(consts, PLAN_K, "smem") <= SMEM_LIMIT else "stream"
+
+
+def k1_tile(consts) -> int:
+    """The particles of a tile of K1 and K14 under the plan "tile": the
+    largest of `K1_TILES` whose CTA fits shared memory at K = PLAN_K (64 up
+    to width 256 at Dx = 2; 32 at width 256 and Dx = 7), else the smallest.
+    The bits do not depend on it."""
+    return _k1_tile(_shape(consts))
+
+
+@functools.cache
+def _k1_tile(shape: tuple) -> int:
+    consts = _shape_consts(shape)
+    return next((p for p in K1_TILES
+                 if k1_smem_bytes(consts, PLAN_K, "tile", p) <= SMEM_LIMIT), K1_TILES[-1])
 
 
 def _k1_ok(consts, k: int) -> bool:
@@ -568,28 +607,35 @@ def _k1_fits(shape: tuple, k: int) -> bool:
     return _in_class(consts) and _k_ok(k) and k1_smem_bytes(consts, k) <= SMEM_LIMIT
 
 
-def shape_key(consts) -> tuple:
-    """(dx, dy, hidden, n_mid, k1 plan, k4 plan) as ints: what a shape
-    library instantiates (`_build.load_shape_library`)."""
-    return (consts["dx"], consts["dy"], consts["hidden"], consts["n_mid"],
-            K1_PLANS.index(k1_plan(consts)), K4_PLANS.index(k4_plan(consts)))
+def shape_key(consts, k: int = PLAN_K) -> tuple:
+    """(dx, dy, hidden, n_mid, k1 plan, k4 plan at K) as ints; under K1's
+    plan "tile" then its tile's particles (`k1_tile`), and where K4's tile at
+    K is narrower than 64 (`k4_tile`) that too: what a shape library
+    instantiates (`_build.load_shape_library`)."""
+    plan, tile4 = k1_plan(consts), k4_tile(consts, k)
+    key = (consts["dx"], consts["dy"], consts["hidden"], consts["n_mid"],
+           K1_PLANS.index(plan), K4_PLANS.index(k4_plan(consts, k)))
+    if plan == "tile" or tile4 != K4_TILES[0]:
+        key += (k1_tile(consts) if plan == "tile" else K1_TILES[0],)
+    return key + (tile4,) if tile4 != K4_TILES[0] else key
 
 
-def _lib_key(consts, backward: bool):
-    """None where the kernels' library holds the kernel at this shape (the
-    presets' (Dx, Dy) and widths with their plans in shared memory; K4/K15
-    also one middle layer), else the shape library's key."""
-    return _lib_key_of(_shape(consts), backward)
+def _lib_key(consts, backward: bool, k: int = PLAN_K):
+    """None where the kernels' library holds the kernel at this shape and K
+    (the presets' (Dx, Dy) and widths with their plans in shared memory;
+    K4/K15 also one middle layer), else the shape library's key (K4's plan
+    and tile follow K: `k4_plan`)."""
+    return _lib_key_of(_shape(consts), backward, k)
 
 
 @functools.cache
-def _lib_key_of(shape: tuple, backward: bool):
+def _lib_key_of(shape: tuple, backward: bool, k: int = PLAN_K):
     consts = _shape_consts(shape)
     prebuilt = ((consts["dx"], consts["dy"], consts["hidden"]) in PREBUILT_SHAPES
                 and k1_plan(consts) == "smem")
     if backward:
-        prebuilt = prebuilt and consts["n_mid"] == 1 and k4_plan(consts) == "smem"
-    return None if prebuilt else shape_key(consts)
+        prebuilt = prebuilt and consts["n_mid"] == 1 and k4_plan(consts, k) == "smem"
+    return None if prebuilt else shape_key(consts, k)
 
 
 def _library(key):
@@ -607,7 +653,7 @@ def max_active_clusters(kernel: int, device, consts, k: int) -> dict:
     smem = tuple((k1_smem_bytes(consts, k) if kernel == _K1 else k4_smem_bytes(consts, k, c))
                  if k % c == 0 else SMEM_LIMIT + 1 for c in CLUSTER_SIZES)
     return _max_active(kernel, torch.device(device).index, consts["dx"], consts["dy"],
-                       consts["hidden"], _ctrl(consts), smem, _lib_key(consts, kernel == _K4))
+                       consts["hidden"], _ctrl(consts), smem, _lib_key(consts, kernel == _K4, k))
 
 
 @functools.cache
@@ -857,7 +903,7 @@ def _launch_scan_forward(x0, alpha0, coef, consts, eps, positions, seed, cache, 
     idx = torch.empty((t_len, batch, k), dtype=torch.int32, device=dev) if save_res else None
 
     seed0, seed1 = (0, 0) if seed is None else seed
-    lib = _library(_lib_key(consts, False))
+    lib = _library(_lib_key(consts, False, k))
     _, off_f, off_g = consts["offsets"]  # q1 sits at offset 0
     err = lib.psvo_scan_forward(
         x0.data_ptr(), alpha0.data_ptr(), coef.data_ptr(), _ptr(eps), _ptr(positions),
@@ -936,30 +982,33 @@ def _replay_backward(x0, coef, consts, eps, idx, d_stats, d_x_last=None, d_alpha
 
 
 def k4_tiles(consts, plan: str | None = None) -> int:
-    """K4/K15's [H][68] activation tiles (csrc/scan_backward.cuh::BwdLayout):
+    """K4/K15's [H][P + 4] activation tiles (csrc/scan_backward.cuh::BwdLayout):
     f's and g's n_mid + 1 layers side by side, or under "split" and "stream"
-    one net's at a time."""
+    one net's at a time. plan: the shape's at PLAN_K by default."""
     plan = plan or k4_plan(consts)
     return (1 if plan in ("split", "stream") else 2) * (consts["n_mid"] + 1)
 
 
-def k4_smem_bytes(consts, k: int, cluster: int = 1, plan: str | None = None) -> int:
+def k4_smem_bytes(consts, k: int, cluster: int = 1, plan: str | None = None,
+                  tile: int | None = None) -> int:
     """Dynamic shared memory of one K4 CTA on a cluster of `cluster` CTAs per
-    row (csrc/scan_backward.cuh::bwd_smem_bytes) under `plan` (the shape's,
-    `k4_plan`, by default): the weights (not under "stream") and their
-    gradient sums (only under "smem"; else in the CTA's row of `partial`),
-    the activation tiles (`k4_tiles`), the [9·Dx + 2·Dy][68] tile arrays, the
-    carry and d x_res of the slice [Dx][K/C] (d x_res twice and the slice's
+    row (csrc/scan_backward.cuh::bwd_smem_bytes) under `plan` with tiles of
+    `tile` particles (the shape's at K, `k4_plan` and `k4_tile`, by default): the
+    weights (not under "stream") and their gradient sums (only under "smem";
+    else in the CTA's row of `partial`), the activation tiles (`k4_tiles`,
+    [H][tile + 4] each), the [9·Dx + 2·Dy][tile + 4] tile arrays, the carry
+    and d x_res of the slice [Dx][K/C] (d x_res twice and the slice's
     3·Dx + 1 d_coef sums twice at C > 1), the reduction scratch and the int32
     ancestors of the row [K]; with controls also the step's first-layer
     biases of q1 and f [2H] and their fp64 cotangent sums [2][2H]."""
-    plan = plan or k4_plan(consts)
+    plan = plan or k4_plan(consts, k)
+    row = (tile or k4_tile(consts, k)) + 4
     dx, dy, h = consts["dx"], consts["dy"], consts["hidden"]
     n_w = _nw(consts)
     n = k // cluster
     slices = (3 * dx * n + 2 * (3 * dx + 1)) if cluster > 1 else 2 * dx * n
     sums = n_w * ((plan != "stream") + (plan == "smem"))
-    floats = (sums + k4_tiles(consts, plan) * h * 68 + (9 * dx + 2 * dy) * 68 + slices
+    floats = (sums + k4_tiles(consts, plan) * h * row + (9 * dx + 2 * dy) * row + slices
               + _THREADS // 32 + 2 * h * _ctrl(consts))
     return 4 * floats + 4 * k + 8 * 4 * h * _ctrl(consts)
 
@@ -969,27 +1018,65 @@ def _clusters_at(k: int):
     return [c for c in CLUSTER_SIZES if c == 1 or k % (c * K4_MIN_SLICE) == 0]
 
 
-def k4_plan(consts) -> str:
-    """K4's and K15's plan at this shape (csrc/step_math.cuh::BwdPlan): the
-    first of `K4_PLANS` whose CTA fits shared memory at K = PLAN_K on some
-    cluster size; "stream" where none does. "smem" keeps everything in
-    shared memory (the presets); "global" moves the gradient sums to the
-    CTA's row of `partial` in device memory (L2); "split" also keeps one
-    net's activation tiles at a time, recomputing g's forward once more;
-    "stream" also reads the weights from device memory. Every plan gives the
-    same bits, and each is slower than the one before it where both fit
+def k4_plan(consts, k: int = PLAN_K) -> str:
+    """K4's and K15's plan at this shape and K (csrc/step_math.cuh::BwdPlan):
+    the shape's plan, the first of `K4_PLANS` whose CTA fits shared memory at
+    K = PLAN_K on some cluster size with tiles of 64 particles; at a K of the
+    reference's class (a multiple of 128 up to PLAN_K) where that does not
+    fit on any cluster size K admits, the first later plan that does
+    ("stream" at last; K = 1920 admits one or two CTAs a row, where PLAN_K
+    admits eight). `k4_tile` says how many particles "stream"'s tiles take.
+    "smem" keeps everything in shared memory (the presets); "global" moves
+    the gradient sums to the CTA's row of `partial` in device memory (L2);
+    "split" also keeps one net's activation tiles at a time, recomputing g's
+    forward once more; "stream" also reads the weights from device memory.
+    Every plan gives the same bits, and each is slower than the one before
+    it where both fit
     (PERF.md §6: K4 at three layers of 64, Dx = 2, K = 1024, B = 32 took
     42.9 / 48.3 / 60.7 ms under "global" / "split" / "stream" on an H100)."""
-    return _k4_plan(_shape(consts))
+    return _k4_plan(_shape(consts), k)
 
 
 @functools.cache
-def _k4_plan(shape: tuple) -> str:
+def _k4_plan(shape: tuple, k: int = PLAN_K) -> str:
     consts = _shape_consts(shape)
-    for plan in K4_PLANS[:-1]:
-        if any(k4_smem_bytes(consts, PLAN_K, c, plan) <= SMEM_LIMIT for c in _clusters_at(PLAN_K)):
-            return plan
-    return K4_PLANS[-1]
+    first = next((p for p in K4_PLANS[:-1] if _k4_fits_at(consts, PLAN_K, p, K4_TILES[0])),
+                 K4_PLANS[-1])
+    if not _reference_k(k):
+        return first
+    return next((p for p in K4_PLANS[K4_PLANS.index(first):-1]
+                 if _k4_fits_at(consts, k, p, K4_TILES[0])), K4_PLANS[-1])
+
+
+def _reference_k(k: int) -> bool:
+    """K in the reference's whole-step class: a multiple of 128 up to PLAN_K."""
+    return 0 < k <= PLAN_K and k % 128 == 0
+
+
+def _k4_fits_at(consts, k: int, plan: str, tile: int) -> bool:
+    """Whether K4's CTA under `plan` with tiles of `tile` particles fits
+    shared memory at K on some cluster size K admits."""
+    return any(k4_smem_bytes(consts, k, c, plan, tile) <= SMEM_LIMIT for c in _clusters_at(k))
+
+
+def k4_tile(consts, k: int = PLAN_K) -> int:
+    """The particles of a tile of K4 and K15 at K (csrc/step_tiles.cuh): 64,
+    but above `REGISTER_MAX_WIDTH` under "stream" the largest of `K4_TILES`
+    whose CTA fits at K (two layers of 256 at Dx = 6 with controls hold 32
+    at K = 1920, on two CTAs a row; at a K outside the reference's class,
+    the tile at PLAN_K), else the smallest. The gradient sums add
+    each tile's partial sums, so the bits follow the tile: at a shape and K
+    every plan, C and S take the same tile and give the same bits."""
+    return _k4_tile(_shape(consts), k)
+
+
+@functools.cache
+def _k4_tile(shape: tuple, k: int = PLAN_K) -> int:
+    consts = _shape_consts(shape)
+    k = k if _reference_k(k) else PLAN_K
+    if consts["hidden"] <= REGISTER_MAX_WIDTH or _k4_plan(shape, k) != "stream":
+        return K4_TILES[0]
+    return next((p for p in K4_TILES if _k4_fits_at(consts, k, "stream", p)), K4_TILES[-1])
 
 
 def _k4_ok(consts, k: int, cluster: int = 1) -> bool:
@@ -1085,7 +1172,7 @@ def _launch_scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last
     grads = torch.empty((n_w + dx + dy,), **f32)
 
     seed0, seed1 = (0, 0) if seed is None else seed
-    lib = _library(_lib_key(consts, True))
+    lib = _library(_lib_key(consts, True, k))
     _, off_f, off_g = consts["offsets"]
     err = lib.psvo_scan_backward(
         x0.data_ptr(), x_all.data_ptr(), idx.data_ptr(), stats.data_ptr(), coef.data_ptr(),
@@ -1204,7 +1291,7 @@ def _resident_at(kernel, device_index, shape, k):
     consts = _shape_consts(shape)
     smem = k1_smem_bytes(consts, k) if kernel == _K14 else k15_smem_bytes(consts, k)
     return _resident(kernel, device_index, consts["dx"], consts["dy"], consts["hidden"],
-                     _ctrl(consts), smem, _lib_key_of(shape, kernel == _K15))
+                     _ctrl(consts), smem, _lib_key_of(shape, kernel == _K15, k))
 
 
 @functools.cache
@@ -1292,7 +1379,7 @@ def _launch_step_forward(x, logw, coef, consts, eps, positions, slices, stream):
     stats = torch.empty((batch, 2 + dx), **f32)
     idx = torch.empty((batch, k), dtype=torch.int32, device=dev)
     counters = _arrival_counters(dev, stream, batch)
-    lib = _library(_lib_key(consts, False))
+    lib = _library(_lib_key(consts, False, k))
     _, off_f, off_g = consts["offsets"]
     err = lib.psvo_step_forward(
         x.data_ptr(), logw.data_ptr(), coef.data_ptr(), eps.data_ptr(), positions.data_ptr(),
@@ -1330,8 +1417,9 @@ def k15_smem_bytes(consts, k: int = 0) -> int:
     its last CTA stages the row's K ancestors in its idle activation tiles,
     or where they hold fewer than K ints (narrow, shallow nets at large K) in
     K ints of their own."""
-    tile_ints = k4_tiles(consts) * consts["hidden"] * 68
-    return k4_smem_bytes(consts, 0) + (4 * k if k > tile_ints else 0)
+    plan, tile = k4_plan(consts, k), k4_tile(consts, k)
+    tile_ints = k4_tiles(consts, plan) * consts["hidden"] * (tile + 4)
+    return k4_smem_bytes(consts, 0, 1, plan, tile) + (4 * k if k > tile_ints else 0)
 
 
 def _k15_ok(consts, k: int) -> bool:
@@ -1402,7 +1490,7 @@ def _launch_step_backward(x, x_new, idx, stats, coef, consts, eps, d_stats, d_x_
     partial = torch.empty((batch * slices, n_w + dx + dy), **f32)
     grads = torch.empty((n_w + dx + dy,), **f32)
     counters = _arrival_counters(dev, stream, batch)
-    lib = _library(_lib_key(consts, True))
+    lib = _library(_lib_key(consts, True, k))
     _, off_f, off_g = consts["offsets"]
     err = lib.psvo_step_backward(
         x.data_ptr(), x_new.data_ptr(), idx.data_ptr(), stats.data_ptr(), coef.data_ptr(),

@@ -230,6 +230,10 @@ gather_particles.launches = 0
 def segment_sum_scatter_reference(g, idx):
     """Plain version of K11: d_x[b, d, s] = Σ_{q : idx[b,q] = s} g[b, d, q]."""
     segment_sum_scatter_reference.calls += 1
+    return _scatter_add(g, idx)
+
+
+def _scatter_add(g, idx):
     index = idx.long()[:, None, :].expand(-1, g.shape[1], -1)
     return torch.zeros_like(g).scatter_add_(-1, index, g)
 
@@ -273,11 +277,27 @@ segment_sum_scatter.launches = 0
 segment_sum_scatter.launches_by_design = dict.fromkeys(K11_DESIGNS, 0)
 
 
+def eager_scatter(k: int) -> bool:
+    """Whether the resample's backward at K runs as a tensor-op scatter-add
+    on CUDA tensors: above K11's cap with K % 128 != 0, where the
+    reference's `_rg_bwd` takes neither its windowed scatter nor its sorted
+    segment sum (K % 128 == 0) and runs the jnp scatter-add
+    (`psvo_tpu/ops/pallas_resample.py:882-895`). Above the cap with
+    K % 128 == 0 the reference runs `_sorted_segsum`'s kernels, which the port
+    does not (`smc.backward_hole`)."""
+    return k > MAX_K and k % 128 != 0
+
+
 class GatherParticles(torch.autograd.Function):
     """K8 with K11 as its VJP (the counterpart of `pallas_resample.
     resample_and_gather`'s custom VJP): apply(x, idx) -> x[b, d, idx[b, k]];
     the backward sums each offspring's cotangent into its ancestor. idx gets
-    no gradient: stop-gradient through the ancestor choice."""
+    no gradient: stop-gradient through the ancestor choice. Where
+    `eager_scatter` the backward on CUDA tensors is `scatter_add_` on the
+    card, as the reference's plain code there, counted in
+    `GatherParticles.eager_calls`."""
+
+    eager_calls = 0
 
     @staticmethod
     def forward(ctx, x, idx):
@@ -287,6 +307,9 @@ class GatherParticles(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
+        if g.is_cuda and eager_scatter(idx.shape[-1]):
+            GatherParticles.eager_calls += 1
+            return _scatter_add(g.contiguous(), idx), None
         return segment_sum_scatter(g.contiguous(), idx), None
 
 

@@ -95,11 +95,11 @@ from psvo_tpu_torch.ops import _build
 from psvo_tpu_torch.ops.fused_step import (
     MAX_STATE_AND_CONTROLS, SMEM_LIMIT, _ptr, _require, _unpack_net, control_term, pack_heads,
 )
-from psvo_tpu_torch.ops.fused_step import HIDDEN_WIDTHS as CLASS_WIDTHS
 
 # The shapes the kernels' library instantiates, both designs (csrc/svo_sweep.cuh::kPrebuilt);
 # every other shape of the class (`usable`: the reference's, widths CLASS_WIDTHS = 8..64 in
 # steps of 8) is built on first use into a shape library of the split designs (`lib_key`)
+CLASS_WIDTHS = tuple(range(8, 65, 8))  # K12/K13 keep a path's hidden layer on H threads
 HIDDEN_WIDTHS = (16, 32, 64)  # uniform qb/f/g widths in the kernels' library
 KERNEL_DIMS = ((2, 2), (3, 3))  # (Dx, Dy) in the kernels' library: FitzHugh-Nagumo, Lorenz-63
 MAX_DX_PLUS_DY = 7  # the reference's gate (pallas_svo.py:126): [x; y; ones] in one 8-row tile
@@ -160,7 +160,8 @@ def in_class(dx: int, dy: int, di: int, h: int) -> bool:
     """Whether (Dx, Dy, Di, uniform width h) is in the reference's SVO kernel
     class (`pallas_svo.usable`, pallas_svo.py:104-140): Dx + Dy <= 7,
     max(Dx + Di, Dy) <= 7, h a multiple of 8; the port's widths stop at 64
-    (`CLASS_WIDTHS`: the hole shared with every kernel family)."""
+    (`CLASS_WIDTHS`: the hole it shares with the trunk family, ROADMAP queue
+    2 B; the whole-step kernels take wider nets)."""
     return (dx >= 1 and dy >= 1 and dx + dy <= MAX_DX_PLUS_DY
             and max(dx + di, dy) <= MAX_STATE_AND_CONTROLS and h in CLASS_WIDTHS)
 

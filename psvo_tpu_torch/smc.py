@@ -8,8 +8,10 @@ the FIVO increment lse(α) − log K.
 Three paths, chosen from what the call can observe (`filter_route`):
 
 - the whole-scan class (`ops.fused_step.usable`: diagonal models with
-  max(Dx + Di, Dy) <= 7 and relu nets of one width from 8 to 64 with 1 to 4
-  hidden layers, systematic or multinomial resampling at every step,
+  max(Dx + Di, Dy) <= 7 and relu nets of one width, a multiple of 8, as wide
+  and as deep as the kernels' plans hold in shared memory (at K = 2048 two
+  hidden layers up to width 856 to 1344 by Dx and Dy, ten to twelve of
+  width 64), systematic or multinomial resampling at every step,
   stop-gradient) runs
   `_forward_filter_fused`, whose steps t = 1..T−1 are one call of
   `fused_step.scan_forward` — the CUDA kernel K1 for CUDA tensors, its
@@ -37,9 +39,9 @@ Three paths, chosen from what the call can observe (`filter_route`):
   resamples through K7 and K8 (`resampling.maybe_resample`), and its
   backward runs K11 (`resample_gather.GatherParticles`); without
   resampling it launches no kernel. A configuration that the reference
-  sends to one of its kernels, but that no port kernel class takes (a
-  hidden width above 64 or a fifth layer for the whole-step kernels, a
-  (Dx, Dy) or width the trunk kernels are not instantiated for), raises
+  sends to one of its kernels, but that no port kernel class takes (a net
+  wider or deeper than the whole-step kernels' plans hold, a width above 64
+  or a net deeper than K10's tiles hold for the trunk kernels), raises
   NotImplementedError on CUDA tensors rather than run plain PyTorch where
   the reference runs a kernel.
 
@@ -567,6 +569,16 @@ _REFERENCE_KERNELS = {"fused": "whole-step kernel (pallas_step)",
                       "trunk": "trunk kernel (pallas_trunk)"}
 
 
+def _raise_reason(ssm: SSM, cfg: SMCConfig) -> str:
+    """What stops the port's kernels where `filter_route` says "raise": the
+    shape, for the reference's kernel of `reference_path`."""
+    if reference_path(ssm, cfg) == "fused":
+        return ("outside ops.fused_step.usable: a net wider or deeper than the whole-step "
+                "kernels' plans hold in shared memory, fused_step.shape_fits")
+    return ("outside ops.trunk.usable: a width above 64, or a net deeper than the trunk "
+            "kernels' tiles hold, trunk.shape_ok")
+
+
 def reference_path(ssm: SSM, cfg: SMCConfig) -> str:
     """The path the reference's `forward_filter` takes for (ssm, cfg) on its
     accelerator: "fused" (`pallas_step.usable`), "trunk"
@@ -583,10 +595,11 @@ def reference_path(ssm: SSM, cfg: SMCConfig) -> str:
     (resampling through K7/K8, K11 in the backward), serves only "scan"
     configurations that no port kernel class takes; a configuration the
     reference sends to a kernel whose class the port does not cover for it
-    raises (`filter_route`): for "fused", a width above 64 or a net deeper
-    than the kernels' plans hold in shared memory (at width 64 and K = 2048,
-    more than 10 to 12 hidden layers by Dx and Dy; the port's whole-step
-    class, `fused_step.usable`, takes every other shape of the reference's); for
+    raises (`filter_route`): for "fused", a net wider or deeper than the
+    kernels' plans hold in shared memory (at K = 2048, two hidden layers
+    wider than 1344 at Dx = Dy = 2 or 856 at Dx = Dy = 7, or more than 10 to
+    12 hidden layers of width 64 by Dx and Dy; the port's whole-step class,
+    `fused_step.usable`, takes every other shape of the reference's); for
     "trunk", a width above 64 (`trunk.MAX_WIDTH`) or a net deeper than K10's
     streamed tiles hold (at (55, 55) and width 64, more than eight hidden
     layers; `trunk.shape_ok`): the port's trunk class, `trunk.usable`, takes
@@ -594,8 +607,11 @@ def reference_path(ssm: SSM, cfg: SMCConfig) -> str:
     resampling (IWAE at a K the trunk kernel tiles), the full FIVO gradient
     and controls, at any K (the resample takes every K,
     `resample_gather.resample_and_gather`). Training a resampling filter
-    above K = 32768 on CUDA tensors raises too, up front: K11, the
-    resample's backward, holds K up to 32768 (`backward_hole`)."""
+    above K = 32768 with K % 128 == 0 on CUDA tensors raises too, up front:
+    K11, the resample's backward, holds K up to 32768, and above it the
+    reference runs its sorted segment sum's kernels there (`backward_hole`;
+    with K % 128 != 0 it runs a plain scatter-add, and so does the port).
+    """
     if context.get_mesh() is not None:
         return "scan"  # the reference's kernels gate themselves off under any mesh
     k = cfg.n_particles
@@ -704,11 +720,16 @@ def filter_route(ssm: SSM, cfg: SMCConfig, t_steps: int, cuda: bool,
 def backward_hole(ssm: SSM, cfg: SMCConfig) -> bool:
     """Whether a gradient through this resampling filter on CUDA tensors
     needs K11 above its cap: autograd records, some parameter takes a
-    gradient, the filter resamples and K > `resample_gather.MAX_K` (the
-    resample's backward, `GatherParticles`, has no kernel there; ROADMAP
-    queue 2 B). The forward runs at every K."""
-    return (cfg.n_particles > resample_gather.MAX_K and cfg.resampling != "none"
-            and torch.is_grad_enabled() and any(p.requires_grad for p in ssm.parameters()))
+    gradient, the filter resamples and K > `resample_gather.MAX_K` with
+    K % 128 == 0, where the reference's resample backward (`_rg_bwd`) runs
+    its sorted segment sum's kernels and the port has none (ROADMAP queue 2
+    B). Above the cap with K % 128 != 0 the reference runs a plain
+    scatter-add, and so does the port's `GatherParticles` on the card
+    (`resample_gather.eager_scatter`). The forward runs at every K."""
+    k = cfg.n_particles
+    return (k > resample_gather.MAX_K and not resample_gather.eager_scatter(k)
+            and cfg.resampling != "none" and torch.is_grad_enabled()
+            and any(p.requires_grad for p in ssm.parameters()))
 
 
 def _refuse_backward_hole(ssm: SSM, cfg: SMCConfig) -> None:
@@ -717,7 +738,8 @@ def _refuse_backward_hole(ssm: SSM, cfg: SMCConfig) -> None:
         raise NotImplementedError(
             f"training at K={cfg.n_particles} has no CUDA kernel yet: the resample's backward "
             f"(K11, ops.resample_gather.segment_sum_scatter) holds K up to "
-            f"{resample_gather.MAX_K} (ROADMAP queue 2 B); serve at this K, or train on CPU "
+            f"{resample_gather.MAX_K}, and above it with K % 128 == 0 the reference runs "
+            "kernels the port has not (ROADMAP queue 2 B); serve at this K, or train on CPU "
             "tensors")
 
 
@@ -779,9 +801,8 @@ def forward_filter(
         raise NotImplementedError(
             f"this configuration has no CUDA kernel yet: the reference runs it through its "
             f"{_REFERENCE_KERNELS[reference_path(ssm, cfg)]}, whose class the port's kernels do "
-            "not cover for it (outside ops.fused_step.usable and ops.trunk.usable: a width "
-            "above 64 or a net deeper than the kernels' plans hold; ROADMAP queue 2 B); run it "
-            "on CPU tensors"
+            f"not cover for it ({_raise_reason(ssm, cfg)}; ROADMAP queue 2 B); run it on CPU "
+            "tensors"
         )
     if ys.is_cuda and route != "fused":
         _refuse_backward_hole(ssm, cfg)
@@ -1088,8 +1109,8 @@ def forward_filter_segmented(
         raise NotImplementedError(
             "this configuration has no CUDA kernel yet: the reference runs its segments "
             "through its whole-step kernel (pallas_step), whose class the port's K1 does not "
-            "cover for it (outside ops.fused_step.usable; ROADMAP queue 2 B); run it on "
-            "CPU tensors"
+            f"cover for it ({_raise_reason(ssm, cfg)}; ROADMAP queue 2 B); run it on CPU "
+            "tensors"
         )
     if ys.is_cuda and route != "fused":
         _refuse_backward_hole(ssm, cfg)

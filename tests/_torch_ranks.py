@@ -185,6 +185,21 @@ def first_argmax(job, cfg, mesh):
             "owners": collectives.psum(own.to(torch.int64))}
 
 
+def inference(job, cfg, mesh):
+    """The inference API under the mesh on the global batch job["ys"] and the
+    global draws: filter_posterior's means, particles and log-weights (the
+    filter's draws job["noise"]) and smooth_posterior's paths (the PSVO
+    objective's draws job["psvo_noise"])."""
+    from psvo_tpu_torch.infer import filter_posterior, smooth_posterior
+
+    ssm = _model(job, cfg)
+    means, particles, logws = filter_posterior(ssm, job["ys"], cfg, return_particles=True,
+                                               noise=job["noise"])
+    paths = smooth_posterior(ssm, job["ys"], cfg, noise=job["psvo_noise"])
+    return {"means": means, "particles": particles, "logws": logws, "paths": paths}
+
+
 _KINDS = {"objective_grad": objective_grad, "filter": filter_result, "island": island,
           "train": train, "eval": eval_metrics, "checkpoint": checkpoint,
-          "collectives": collective_ops, "first_argmax": first_argmax}
+          "collectives": collective_ops, "first_argmax": first_argmax,
+          "inference": inference}

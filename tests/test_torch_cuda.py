@@ -2405,6 +2405,11 @@ def test_class_kernels_match_plain_at_new_shapes(dx, dy, di, hidden, k):
     residuals against scan_backward_reference (1e-4 per leaf, relative L2),
     the chain of K14 launches bit-equal to K1 and each K15 within 1e-4 of
     step_backward_reference."""
+    _check_class_shape(dx, dy, di, hidden, k)
+
+
+def _check_class_shape(dx, dy, di, hidden, k):
+    """test_class_kernels_match_plain_at_new_shapes' checks at one shape."""
     dev = _cuda()
     cfg = _class_cfg(hidden, k=k, dx=dx, dy=dy, di=di, control_scale=0.5)
     consts, x0, a0, coef, eps, pos, g = _class_operands(dev, cfg)
@@ -2453,11 +2458,11 @@ def test_plans_give_the_same_bits(monkeypatch):
         th.join()
     # the gates' answers are cached by shape: forced plans must not outlive the test
     caches = (fused_step._lib_key_of, fused_step._k1_fits, fused_step._k4_fits,
-              fused_step._k15_fits, fused_step._resident_at)
+              fused_step._k15_fits, fused_step._resident_at, fused_step._k4_tile)
     try:
         for plan in fused_step.K4_PLANS:
             monkeypatch.setattr(fused_step, "_k1_plan", lambda shape: "stream")
-            monkeypatch.setattr(fused_step, "_k4_plan", lambda shape, p=plan: p)
+            monkeypatch.setattr(fused_step, "_k4_plan", lambda shape, k=None, p=plan: p)
             for f in caches:
                 f.cache_clear()
             assert fused_step._lib_key(consts, True) == keys[fused_step.K4_PLANS.index(plan)]
@@ -2543,10 +2548,10 @@ def test_dy1_psvo_train_step_runs_k1_k4_k5_k6():
     assert tuple(paths.shape) == (4, 16, 8, 3) and bool(torch.isfinite(paths).all())
 
 
-@pytest.mark.parametrize("hidden", [(72, 72), (64,) * 14])
+@pytest.mark.parametrize("hidden", [(2048, 2048), (64,) * 14])
 def test_outside_the_class_raises_before_any_launch(hidden):
-    """A width of 72, or 14 hidden layers of 64, more than any plan's shared
-    memory holds (at Dy = 1, where the trunk class does not take them
+    """Two layers of 2048, or 14 hidden layers of 64, more than any plan's
+    shared memory holds (at Dy = 1, where the trunk class does not take them
     either): the reference runs its whole-step
     kernel (reference_path "fused"), the port's class stops
     (fused_step.usable), and the filter, a train step and the segmented
@@ -2890,3 +2895,266 @@ def test_cuda_svo_dy1_width48_train_step_launches_the_four_kernels():
     assert [f.calls for f in plain] == calls
     for name in ("loss", "grad_norm", "elbo_svo"):
         assert torch.isfinite(metrics[name]), name
+
+
+# ---- the whole-step kernels above width 64 ----
+
+# (dx, dy, di, hidden, k): K1/K14 under the tiled plan, K4/K15 under "global" (72) and "stream"
+# (at K = 1920 K4's tiles take 32 particles; the widest nets, with K1's tiles of 8 or 16 and
+# K4's of 16, are _WIDEST's)
+_WIDE = [(2, 2, 0, (72, 72), 256), (2, 2, 0, (128, 128), 512), (2, 2, 0, (256, 256), 256),
+         (3, 1, 0, (128, 128), 384), (5, 5, 2, (96, 96), 256), (7, 7, 0, (256, 256), 2048),
+         (2, 2, 0, (384, 384), 1920), (6, 1, 1, (256, 256), 1920)]
+# (dx, dy, width, K): two layers of the widest the plans admit at Dx = Dy = 2 and K = 2048
+# (K1's tiles of 8 particles, K4's of 16), and of 464 at Dx = Dy = 7, K = 1920 (16 and 16)
+_WIDEST = [(2, 2, 1344, 2048), (7, 7, 464, 1920)]
+
+
+@pytest.fixture(scope="module")
+def _wide_libraries():
+    """The shape libraries of _WIDE, built in parallel before the first test."""
+    from psvo_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    keys = set()
+    for dx, dy, di, hidden, k in _WIDE + [(dx, dy, 0, (h, h), k) for dx, dy, h, k in _WIDEST]:
+        c = fused_step.shape_consts(dx, dy, di, hidden[0], len(hidden) - 1)
+        keys |= {fused_step._lib_key(c, False, k), fused_step._lib_key(c, True, k)} - {None}
+    for th in _build.prebuild_shapes(sorted(keys), niceness=0):
+        th.join()
+
+
+@pytest.mark.parametrize("dx, dy, di, hidden, k", _WIDE)
+def test_wide_kernels_match_plain(_wide_libraries, dx, dy, di, hidden, k):
+    """K1, K4, K14 and K15 above width 64 (K1 and K14 under the tiled plan,
+    its tiles of 64 to 8 particles; K4 and K15 under "global", "split" or
+    "stream", their tiles of 64 to 16), at widths 72-1344, Dy != Dx,
+    controls, K up to 2048, each from its shape library: the checks of
+    test_class_kernels_match_plain_at_new_shapes."""
+    c = fused_step.shape_consts(dx, dy, di, hidden[0], len(hidden) - 1)
+    assert fused_step.k1_plan(c) == "tile" and fused_step.k4_plan(c, k) != "smem"
+    _check_class_shape(dx, dy, di, hidden, k)
+
+
+def _relu_ties(consts, x_res, x_new, tol=1e-5):
+    """[B, K] bool: the particles where a relu pre-activation of q1 or f (on
+    x_res) or of g (on x_new) lies within tol of the magnitude of its sum, in
+    float64: there the float32 order of the sum decides the relu's mask, and
+    with it whether the unit's cotangent passes (chip_smoke.py::relu_ties)."""
+    flag = torch.zeros((x_res.shape[0], x_res.shape[-1]), dtype=torch.bool, device=x_res.device)
+    for (layers, _), h in zip(fused_step._unpack_nets(consts), (x_res, x_res, x_new)):
+        h = h.double()
+        for w, b in layers:
+            w, b = w.double(), b.double()[:, None]
+            pre = torch.einsum("de,bdk->bek", w, h) + b
+            size = torch.einsum("de,bdk->bek", w.abs(), h.abs()) + b.abs()
+            flag |= (pre.abs() < tol * size).any(dim=1)
+            h = torch.relu(pre)
+    return flag
+
+
+@pytest.mark.parametrize("dx, dy, h, k", _WIDEST)
+def test_the_widest_kernels_match_plain(_wide_libraries, dx, dy, h, k):
+    """Two layers of the widest nets (K1's and K14's tiles of 8 or 16
+    particles, K4's and K15's of 16): K1 teacher-forced against its plain
+    version (the same ancestors, values within 2e-4), the chain of K14
+    launches bit-equal to K1; each K15 launch within 1e-4 of
+    step_backward_reference with the cotangents of the particles at a relu
+    tie zeroed (at these widths a pre-activation sums hundreds of products,
+    and the two float32 orders put some particles on either side of a zero),
+    and K4 within 1e-4 of the chain of K15 launches, its own arithmetic."""
+    from psvo_tpu_torch.ops.resampling import gather_particles
+
+    dev = _cuda()
+    cfg = _class_cfg((h, h), k=k, dx=dx, dy=dy)
+    consts, x0, a0, coef, eps, pos, g = _class_operands(dev, cfg)
+    assert fused_step.shape_fits(consts, k) and fused_step.k4_tile(consts, k) == 16
+    out = _run_class_kernels(consts, x0, a0, coef, eps, pos, g)
+    x_last, a_last, stats, x_all, a_all, idx = out["k1"]
+    t1, b = coef.shape[:2]
+    with torch.no_grad():
+        ref = fused_step.scan_forward_reference(
+            torch.cat([x0[None], x_all[:-1]]).reshape(t1 * b, dx, k),
+            torch.cat([a0[None], a_all[:-1]]).reshape(t1 * b, k), coef.reshape(1, t1 * b, -1),
+            consts, eps.reshape(1, t1 * b, dx, k), pos.reshape(1, t1 * b, k), cache=True,
+            save_res=True)
+    assert torch.equal(ref[5].reshape(t1, b, k), idx)
+    torch.testing.assert_close(ref[3].reshape(t1, b, dx, k), x_all, rtol=2e-4, atol=2e-4)
+    for i, w in ((0, x_all), (1, a_all), (2, stats), (3, idx)):
+        assert torch.equal(torch.stack([s_[i] for s_ in out["k14"]]), w)
+    d_stats, (d_x_last, d_a_last, d_x_all, d_a_all) = out["d_stats"], out["cots"]
+    d_x, d_packed, d_sconst, d_coef = d_x_last, 0.0, 0.0, [None] * t1
+    with torch.no_grad():
+        for t in reversed(range(t1)):
+            x_in = x0 if t == 0 else x_all[t - 1]
+            d_al = d_a_all[t] + d_a_last if t == t1 - 1 else d_a_all[t]
+            args = (x_in, x_all[t], idx[t], stats[t], coef[t], consts, eps[t], d_stats[t])
+            d_xn = d_x + d_x_all[t]
+            keep = ~_relu_ties(consts, gather_particles(x_in, idx[t]), x_all[t])
+            got = fused_step.step_backward(*args, d_xn * keep[:, None], d_al * keep)
+            want = fused_step.step_backward_reference(x_in, coef[t], consts, eps[t], idx[t],
+                                                      d_stats[t], d_xn * keep[:, None],
+                                                      d_al * keep)
+            for a, w in zip(got, want):
+                assert _rel(a, w) <= 1e-4, t
+            d_x, d_coef[t], dp, ds = fused_step.step_backward(*args, d_xn, d_al)
+            d_packed, d_sconst = d_packed + dp, d_sconst + ds
+        k4 = fused_step.scan_backward(x0, x_all, idx, stats, coef, consts, d_stats, d_x_last,
+                                      d_a_last, d_x_all, d_a_all, eps=eps)
+    for a, w in zip(k4, (d_x, torch.stack(d_coef), d_packed, d_sconst)):
+        assert _rel(a, w) <= 1e-4
+
+
+@pytest.mark.parametrize("dx", [2, 3])
+def test_tiled_plan_gives_the_register_plans_bits(monkeypatch, dx):
+    """At the presets' width 64 (FHN and Lorenz-63 shapes, two hidden
+    layers), K1 under the tiled plan (forced, from its own shape library)
+    gives the register plan's bits in both noise modes, and so does the
+    chain of K14 launches."""
+    from psvo_tpu_torch.ops import _build
+
+    dev = _cuda()
+    cfg = _class_cfg((64, 64), preset="fhn_fivo_k1024_bench" if dx == 2 else
+                     "lorenz63_psvo_k1024", k=1024, t=8)
+    consts, x0, a0, coef, eps, pos, _ = _class_operands(dev, cfg, b=4, t1=7)
+    assert fused_step.k1_plan(consts) == "smem" and fused_step._lib_key(consts, False) is None
+
+    def run():
+        with torch.no_grad():
+            k1 = fused_step.scan_forward(x0, a0, coef, consts, eps=eps, positions=pos,
+                                         cache=True, save_res=True)
+            k1r = fused_step.scan_forward(x0, a0, coef, consts, seed=(3, 9), cache=True)
+            x, lw, chain = x0, a0, []
+            for t in range(coef.shape[0]):
+                chain.append(fused_step.step_forward(x, lw, coef[t], consts, eps[t], pos[t]))
+                x, lw = chain[-1][:2]
+        return [*k1, *k1r, *(v for s_ in chain for v in s_)]
+
+    want = run()
+    caches = (fused_step._lib_key_of, fused_step._k1_fits, fused_step._k4_fits,
+              fused_step._k15_fits, fused_step._resident_at)
+    try:
+        monkeypatch.setattr(fused_step, "_k1_plan", lambda shape: "tile")
+        for f in caches:
+            f.cache_clear()
+        key = fused_step._lib_key(consts, False, 1024)
+        assert key == (dx, dx, 64, 1, fused_step.K1_PLANS.index("tile"), 0, 64)
+        _build.load_shape_library(key)
+        got = run()
+    finally:
+        monkeypatch.undo()
+        for f in caches:
+            f.cache_clear()
+    assert all(torch.equal(a, w) for a, w in zip(got, want) if a is not None)
+
+
+def test_wide_fhn_train_step_runs_k1_and_k4():
+    """The FHN preset with q1, f and g of (128, 128): one make_train_step
+    step on the card launches K1 and K4 once each and no plain version, and
+    its raw gradient agrees with the plain versions' on CPU tensors replaying
+    its draws (K2's streams) within chip_smoke.py's CPU_TOL (norm 1%, cosine
+    0.99), as test_depth_one_fhn_train_step_runs_k1_and_k4."""
+    from psvo_tpu_torch.smc import _forward_filter_fused
+    from psvo_tpu_torch.train import make_optimizer, make_train_step
+
+    dev = _cuda()
+    cfg = _class_cfg((128, 128), k=256)
+    ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device=dev)
+    ref = init_ssm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    ys = torch.randn((4, 6, 2), generator=torch.Generator().manual_seed(2))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    state = gen.get_state()
+    launches = (fused_step.scan_forward.launches, fused_step.scan_backward.launches)
+    calls = (fused_step.scan_forward_reference.calls, fused_step.scan_backward_reference.calls)
+    metrics = make_train_step(ssm, cfg, make_optimizer(cfg))(gen, ys.to(dev))
+    assert (fused_step.scan_forward.launches, fused_step.scan_backward.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert (fused_step.scan_forward_reference.calls,
+            fused_step.scan_backward_reference.calls) == calls
+    assert torch.isfinite(metrics["loss"])
+    gen.set_state(state)
+    eps0 = torch.randn((4, 2, 256), generator=gen, device=dev)
+    seed = tuple(int(v) for v in torch.randint(0, 2**32, (2,), generator=gen, device=dev))
+    eps, u0 = fused_step.stream_noise_reference(seed, 5, 4, 2, 256)
+    fwd = _forward_filter_fused(ref, None, ys, cfg.smc, cache=False,
+                                streams=(eps0.cpu(), eps, fused_step.systematic_positions(u0, 256)))
+    (-torch.mean(fwd.log_z)).backward()
+    got, want = (torch.cat([torch.zeros(p.numel()) if p.grad is None
+                            else p.grad.reshape(-1).cpu() for p in m.parameters()]).double()
+                 for m in (ssm, ref))
+    assert abs(float(got.norm() / want.norm()) - 1.0) <= 1e-2
+    assert float(got @ want / (got.norm() * want.norm())) >= 0.99
+
+
+def test_train_step_above_k11s_cap_with_k_not_a_multiple_of_128_matches_the_cpu():
+    """At K = 32832 (K % 128 = 64) the reference's resample backward is a
+    plain scatter-add, and so is the port's on the card
+    (`GatherParticles.eager_calls`, no K11 launch): the objective's loss and
+    every gradient leaf on the card against the CPU on the same draws, the
+    CPU taking the card's ancestors step by step (over 32832 particles a
+    last-bit difference in a log-weight moves some ancestor across a CDF
+    boundary, which moves single leaves by far more than the arithmetic
+    does), within 2e-4 and rtol 5e-3 / atol 5e-4."""
+    import copy
+    import functools
+
+    from psvo_tpu_torch import smc
+    from psvo_tpu_torch.objectives import make_objective
+    from psvo_tpu_torch.ops import resample_gather as rg
+    from psvo_tpu_torch.ops import resampling
+
+    dev = _cuda()
+    k, b, t = rg.MAX_K + 64, 2, 4
+    cfg = _small_cfg("fhn_fivo_k128")
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, t_steps=t),
+                              smc=dataclasses.replace(cfg.smc, n_particles=k))
+    cpu_ssm = init_ssm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card_ssm = copy.deepcopy(cpu_ssm).to(dev)
+    with torch.enable_grad():
+        assert not smc.backward_hole(card_ssm, cfg.smc) and rg.eager_scatter(k)
+    g = torch.Generator().manual_seed(5)
+    ys = torch.randn((b, t, 2), generator=g)
+    noise = (torch.randn((b, 2, k), generator=g), torch.randn((t - 1, b, 2, k), generator=g),
+             resampling.bulk_positions(g, t - 1, b, k, cfg.smc.resampling))
+    counts = (rg.GatherParticles.eager_calls, rg.segment_sum_scatter.launches,
+              rg.segment_sum_scatter_reference.calls)
+    resample, card_idx = rg.resample_and_gather, []
+
+    def record(u, logw, x):
+        idx, x_res = resample(u, logw, x)
+        card_idx.append(idx.cpu())
+        return idx, x_res
+
+    def replay(u, logw, x):
+        idx = card_idx.pop(0)
+        return idx, rg.gather_particles(x.contiguous(), idx)
+
+    record.eager_calls = 0  # resample_and_gather counts its count form under its module name
+    rg.resample_and_gather = record
+    try:
+        card = make_objective(card_ssm, cfg)(None, ys.to(dev),
+                                             noise=tuple(n.to(dev) for n in noise))
+        card.loss.backward()
+    finally:
+        rg.resample_and_gather = resample
+    assert (rg.GatherParticles.eager_calls - counts[0], rg.segment_sum_scatter.launches
+            - counts[1], rg.segment_sum_scatter_reference.calls - counts[2]) == (t - 1, 0, 0)
+    assert len(card_idx) == t - 1
+    plain_resample = resampling.maybe_resample
+    resampling.maybe_resample = functools.partial(plain_resample, use_kernel=True)
+    rg.resample_and_gather = replay
+    try:
+        cpu = make_objective(cpu_ssm, cfg)(None, ys, noise=noise)
+        cpu.loss.backward()
+    finally:
+        resampling.maybe_resample = plain_resample
+        rg.resample_and_gather = resample
+    assert not card_idx
+    torch.testing.assert_close(card.loss.detach().cpu(), cpu.loss.detach(), rtol=2e-4, atol=2e-4)
+    for (name, p_card), p_cpu in zip(card_ssm.named_parameters(), cpu_ssm.parameters()):
+        if p_cpu.grad is None:
+            assert p_card.grad is None, name
+            continue
+        torch.testing.assert_close(p_card.grad.cpu(), p_cpu.grad, rtol=5e-3, atol=5e-4,
+                                   msg=name)

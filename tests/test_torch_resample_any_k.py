@@ -19,7 +19,10 @@ Held here, on the CPU:
   and of the spread search against the count form, with a mutation that
   must be caught;
 - the route above the cap (the count form and K8's plain gather on CPU
-  tensors; the training hole `smc.backward_hole`);
+  tensors; the training hole `smc.backward_hole`, which follows the
+  reference's `_rg_bwd`: its sorted segment sum's kernels at K % 128 == 0
+  are a hole, its plain scatter-add elsewhere is the port's `scatter_add_`
+  on the card);
 - the FHN filter at K = 1000, where the port's CUDA path resampled through
   K7 and raised, against the reference's scan on the same noise: values at
   2e-4, every gradient leaf at rtol 5e-3 / atol 5e-4.
@@ -243,8 +246,10 @@ def test_resample_above_the_cap_on_cpu_and_the_training_hole():
     """Above K7's cap CPU tensors take the plain versions as at every K (the
     count form, K8's gather; K11's scatter in the backward); `smc.
     backward_hole` says where a CUDA train step would need K11 above its cap
-    (K > 32768 with resampling and a gradient), which `forward_filter` then
-    refuses up front."""
+    (K > 32768 with K % 128 == 0, resampling and a gradient), which
+    `forward_filter` then refuses up front. At K = 32768 + 64 (K % 128 = 64)
+    the reference runs a plain scatter-add, and so does the port's backward
+    on the card: no hole there; at 32768 + 128 there is."""
     k = rg.MAX_K + 64
     lw = torch.from_numpy(_weight_rows(k, seed=5))[:2]
     pos = torch.from_numpy(_systematic(k, seed=6))[:2]
@@ -256,12 +261,51 @@ def test_resample_above_the_cap_on_cpu_and_the_training_hole():
     assert torch.equal(rg.segment_sum_scatter(g, idx), rg.segment_sum_scatter_reference(g, idx))
     cfg = tconfig.PRESETS["fhn_fivo_k128"]
     ssm = SSM(cfg)
-    for n, resampling_, grad, want in ((k, "systematic", True, True),
+    for n, resampling_, grad, want in ((k, "systematic", True, False),
+                                       (k + 64, "systematic", True, True),
                                        (rg.MAX_K, "systematic", True, False),
                                        (k, "none", True, False), (k, "systematic", False, False)):
         sc = dataclasses.replace(cfg.smc, n_particles=n, resampling=resampling_)
         with torch.set_grad_enabled(grad):
             assert smc.backward_hole(ssm, sc) is want, (n, resampling_, grad)
+
+
+def _rg_bwd_branch(batch: int, k: int) -> str:
+    """The branch of the reference's resample backward (`pallas_resample.
+    _rg_bwd`, pallas_resample.py:882-895) at (batch, K), its kernels on."""
+    if pallas_resample._usable(batch, k):
+        return "fused scatter kernel"
+    if pallas_resample._win_usable(batch, k):
+        return "windowed scatter kernel"
+    if k % pallas_resample.Q == 0:
+        return "sorted segment sum kernels"
+    return "scatter-add"
+
+
+@pytest.mark.parametrize("k", [rg.MAX_K + 64, rg.MAX_K + 128, 33000, 36864])
+def test_backward_hole_follows_the_references_scatter_branches(monkeypatch, k):
+    """Above K11's cap the port's resample backward follows `_rg_bwd`'s
+    branches: where the reference runs its plain scatter-add (K % 128 != 0)
+    the port's `GatherParticles` runs `scatter_add_` on the card
+    (`rg.eager_scatter`) and a train step is no hole (K = 32832 trains);
+    where it runs its sorted segment sum's kernels (K % 128 == 0) the port
+    has none, and the step is refused before any launch (K = 32896 raises)."""
+    monkeypatch.setattr(pallas_resample, "_INTERPRET", True)  # the reference's kernels on
+    branch = _rg_bwd_branch(8, k)
+    assert branch in ("scatter-add", "sorted segment sum kernels")
+    cfg = tconfig.PRESETS["fhn_fivo_k128"]
+    ssm = SSM(cfg)
+    sc = dataclasses.replace(cfg.smc, n_particles=k)
+    assert rg.eager_scatter(k) == (branch == "scatter-add")
+    with torch.enable_grad():
+        assert smc.backward_hole(ssm, sc) == (branch != "scatter-add")
+        if branch == "scatter-add":
+            smc._refuse_backward_hole(ssm, sc)
+        else:
+            with pytest.raises(NotImplementedError, match="K11"):
+                smc._refuse_backward_hole(ssm, sc)
+    with torch.no_grad():  # serving takes every K
+        assert not smc.backward_hole(ssm, sc)
 
 
 # ---- the FHN filter at K = 1000 against the reference's scan ----

@@ -9,6 +9,11 @@ PSVO on a data-only mesh 8 × 1 (K5/K6's class per rank,
 their plain versions here). The loss, the ELBO, the smoothed paths and the
 objective's metrics within 2e-4, every gradient leaf within rtol 5e-3 /
 atol 5e-4.
+
+Then the inference API under a 2 × 1 data mesh (a group of 2 gloo ranks):
+`filter_posterior` and `smooth_posterior` take the global batch and the
+global draws, as the reference's callers pass them, and return the global
+arrays, equal to the unsharded call's within 1e-6.
 """
 
 import concurrent.futures
@@ -21,6 +26,7 @@ import torch
 
 from psvo_tpu import config as jconfig
 from psvo_tpu_torch import config as tconfig
+from psvo_tpu_torch.infer import filter_posterior, smooth_posterior
 from psvo_tpu_torch.parallel import launch
 from tests._torch_port import (
     assert_close, assert_grads_close, grads_tree, models, observations, psvo_noise,
@@ -148,3 +154,45 @@ def test_sharded_smoothing_all_gathers_no_k_wide_tensor(runs, case):
     # one global first-argmax (its pmin) for the anchors, and for PSVO one a sweep step
     argmaxes = 1 if jcfg.smc.objective == "svo" else 1 + steps
     assert got["forward_counts"]["pmin particle"]["calls"] == argmaxes
+
+
+# ---- the inference API under a 2 x 1 data mesh ----------------------------------------
+
+_INFER_OUTPUTS = ("means", "particles", "logws", "paths")
+
+
+@pytest.fixture(scope="module")
+def infer_runs():
+    """(each of 2 ranks' outputs of the inference API on a 2 x 1 data mesh,
+    the unsharded call's), on the global batch of 4 Lorenz-96 rows and the
+    same global draws."""
+    import dataclasses
+
+    jcfg = _cfg("psvo", d_data=2, d_part=1, batch=4)
+    tcfg = tconfig.from_dict(jcfg.to_dict())
+    _, _, tssm = models(jcfg, tcfg)
+    b, t = jcfg.train.batch_size, jcfg.data.t_steps
+    ys = torch.from_numpy(observations(b, t, dy=8, seed=70))
+    noise = psvo_noise(jax.random.key(71), b, t, 8, jcfg.smc.n_particles, M)
+    job = {"name": "infer", "kind": "inference", "cfg": tcfg.to_dict(),
+           "state": tssm.state_dict(), "ys": ys, "noise": noise[:3], "psvo_noise": noise}
+    ranks = launch.run(2, "_torch_ranks:run_jobs", {"jobs": [job]}, pythonpath=[_HERE],
+                       timeout=300)
+    one = dataclasses.replace(tcfg, mesh=dataclasses.replace(tcfg.mesh, data=1, particle=1))
+    means, particles, logws = filter_posterior(tssm, ys, one, return_particles=True,
+                                               noise=noise[:3])
+    paths = smooth_posterior(tssm, ys, one, noise=noise)
+    return [r["infer"] for r in ranks], dict(means=means, particles=particles, logws=logws,
+                                              paths=paths)
+
+
+@pytest.mark.parametrize("output", _INFER_OUTPUTS)
+def test_inference_api_returns_global_arrays_on_a_data_mesh(infer_runs, output):
+    """Every rank returns the global array (B = 4 rows, not its 2), equal to
+    the unsharded call's on the same draws within 1e-6."""
+    ranks, want = infer_runs
+    w = want[output]
+    assert w.shape[0] == 4
+    for got in ranks:
+        assert got[output].shape == w.shape
+        torch.testing.assert_close(got[output], w, rtol=1e-6, atol=1e-6)

@@ -3,10 +3,11 @@
 - The gate: over a grid of (Dx, Dy, Di), depth, width and K,
   `fused_step.usable` agrees with `smc.reference_path(...) == "fused"`
   inside the reference's whole-step class (K a multiple of 128 up to 2048,
-  max(Dx + Di, Dy) <= 7, uniform relu widths 8..64, one to five hidden
+  max(Dx + Di, Dy) <= 7, uniform relu widths 8..72, one to five hidden
   layers); where the reference sends a configuration to its whole-step
-  kernel outside that (a width of 72; a net deeper than any plan's shared
-  memory holds), `smc.filter_route` says "raise" on CUDA tensors (or
+  kernel outside that, the port takes it where its plans hold it, and
+  where they do not (two layers of 2048; a net deeper than any plan's
+  shared memory holds) `smc.filter_route` says "raise" on CUDA tensors (or
   "trunk" where the port's trunk class takes it) and "plain" on CPU
   tensors. SVO's class (`svo.usable`) is the reference's SVO gate's up to
   width 64 (tests/test_torch_smoothing_class.py holds it to that gate).
@@ -39,25 +40,27 @@ from tests._torch_port import assert_close, key_noise, models, observations, to_
 torch.set_num_threads(1)
 
 _RTOL, _ATOL = 5e-3, 5e-4  # gradient leaves, as tests/test_torch_train.py
-_WIDTHS = (8, 24, 48, 64, 72)
+_WIDTHS = (8, 24, 48, 64, 72, 2048)
 _DEPTHS = (1, 2, 3, 4, 5)
 _KS = (96, 128, 384, 2048, 2176)
 _MODELS = {}
 
 
 def _model(dx, dy, di, hidden):
-    """The port's SSM (its shapes and modes only) of the FHN preset at these widths."""
+    """The port's SSM (its shapes and modes only, on the meta device) of the
+    FHN preset at these widths."""
     key = (dx, dy, di, hidden)
     if key not in _MODELS:
         cfg = PRESETS["fhn_fivo_k1024_bench"]
         net = NetConfig(hidden=hidden)
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dx=dx, dy=dy, di=di))
-        _MODELS[key] = SSM(cfg.with_nets(q0=net, q1=net, q2=net, f=net, g=net))
+        with torch.device("meta"):
+            _MODELS[key] = SSM(cfg.with_nets(q0=net, q1=net, q2=net, f=net, g=net))
     return _MODELS[key]
 
 
 def _in_set(dx, dy, di, h, depth, k):
-    return (k % 128 == 0 and 128 <= k <= 2048 and max(dx + di, dy) <= 7 and 8 <= h <= 64
+    return (k % 128 == 0 and 128 <= k <= 2048 and max(dx + di, dy) <= 7 and 8 <= h <= 72
             and h % 8 == 0 and 1 <= depth <= 5)
 
 
@@ -79,9 +82,10 @@ def test_usable_agrees_with_the_reference_gate(dx):
                             assert ref == "fused", label
                             assert fused_step.usable(ssm, cfg), label
                             assert tsmc.filter_route(ssm, cfg, 5, cuda=True) == "fused", label
+                        elif ref == "fused" and fused_step.usable(ssm, cfg):  # the plans hold it
+                            assert tsmc.filter_route(ssm, cfg, 5, cuda=True) == "fused", label
                         elif ref == "fused":
                             outside += 1
-                            assert not fused_step.usable(ssm, cfg), label
                             route = "trunk" if trunk.usable(ssm, cfg) else "raise"
                             assert tsmc.filter_route(ssm, cfg, 5, cuda=True) == route, label
                             if route == "raise":
@@ -97,14 +101,15 @@ def test_usable_agrees_with_the_reference_gate(dx):
 def test_svo_keeps_its_own_shapes():
     """K12/K13's library keeps its own shapes, the presets' (svo's constants,
     narrower than the whole-step class's); every other shape of the class,
-    which now takes the whole-step class's widths, is built into a shape
-    library of its own: Lorenz-63 seen through one channel at width 48 runs
-    the kernels too."""
+    widths 8..64 (its own, narrower than the whole-step class's), is built
+    into a shape library of its own: Lorenz-63 seen through one channel at
+    width 48 runs the kernels too."""
     assert svo.KERNEL_DIMS == ((2, 2), (3, 3)) and svo.HIDDEN_WIDTHS == (16, 32, 64)
     assert all(fused_step._in_class(fused_step.shape_consts(dx, dy, 0, 16, 1))
                for dx, dy in svo.KERNEL_DIMS)
     assert fused_step._in_class(fused_step.shape_consts(3, 1, 0, 48, 1))
-    assert set(svo.HIDDEN_WIDTHS) < set(fused_step.HIDDEN_WIDTHS) == set(svo.CLASS_WIDTHS)
+    assert set(svo.HIDDEN_WIDTHS) < set(svo.CLASS_WIDTHS) == set(range(8, 65, 8))
+    assert fused_step._in_class(fused_step.shape_consts(3, 3, 0, 72, 1))  # wider than SVO's
     assert svo.usable(_model(3, 3, 0, (64, 64)), 32)
     net = NetConfig(hidden=(48, 48))
     l63_dy1 = PRESETS["lorenz63_svo_k256"]
@@ -115,14 +120,14 @@ def test_svo_keeps_its_own_shapes():
 
 def test_every_plan_of_the_set_fits_shared_memory():
     """Every shape of the reference's class at K = 2048 fits each kernel under
-    the plan `k1_plan` / `k4_plan` choose (one to five hidden layers), the
-    presets keep every plan in shared memory, and each plan is needed
-    somewhere."""
+    the plan `k1_plan` / `k4_plan` choose (one to five hidden layers, widths
+    8..72: K1's tiled plan above 64), the presets keep every plan in shared
+    memory, and each plan is needed somewhere."""
     plans = set()
     for dx in range(1, 8):
         for dy in range(1, 8):
             for di in range(0, 8 - dx):
-                for h in range(8, 65, 8):
+                for h in range(8, 73, 8):
                     for n_mid in range(5):
                         c = fused_step.shape_consts(dx, dy, di, h, n_mid)
                         assert fused_step.shape_fits(c, 2048), (dx, dy, di, h, n_mid)

@@ -68,11 +68,11 @@ for k in keys:
         sys.exit(1)
 
 CACHES = (fused_step._lib_key_of, fused_step._k1_fits, fused_step._k4_fits, fused_step._k15_fits,
-          fused_step._resident_at)
+          fused_step._resident_at, fused_step._k4_tile)
 orig_plan = fused_step._k4_plan
 
 def force(plan):
-    fused_step._k4_plan = (lambda shape, p=plan: p) if plan else orig_plan
+    fused_step._k4_plan = (lambda shape, k=None, p=plan: p) if plan else orig_plan
     for f in CACHES:
         f.cache_clear()
 
